@@ -1,0 +1,279 @@
+// Forward attention for Hopper (sm_90a): the port of the two Pallas kernels
+// that the OPT + CLIP test-time path runs.
+//
+// Replaces
+//   mmgl_allheads_fwd    -> _allheads_kernel_fwd (mmgl_tpu/ops/flash_attention.py:1283),
+//                           reached through flash_attention_allheads (:1422).
+//                           OPT causal self-attention: (4, 640|512, 12, 64).
+//   mmgl_fused_heads_fwd -> _fused_heads_kernel (mmgl_tpu/ops/flash_attention.py:1152),
+//                           reached through fused_heads_attention (:1244).
+//                           CLIP vision self-attention: (24, 197, 12, 64).
+// Both compute xla_attention's math (mmgl_tpu/ops/attention.py:190-224):
+//   out = softmax(q k^T * scale, masked logits = -1e30) v
+// with causal masking aligned at the ends (key j visible to query i iff
+// i + (sk - sq) >= j) and columns at or beyond sk weighted 0. A masked key is
+// never skipped, so a fully masked row returns the mean of v over the sk keys.
+//
+// Why one kernel for both: the TPU split them over 128-lane alignment (S % 128)
+// and VMEM residency of whole sequences. Neither exists here: a block reads any
+// sequence length through its own bounds checks, and streams K/V through shared
+// memory instead of holding the sequence.
+//
+// Layout: q/k/v/out are (B, S, H*D) row-major, the layout the QKV projections
+// produce. Each block reads its head's columns strided straight from it (row
+// stride H*D), so nothing is transposed, which is the point of the allheads
+// kernel (flash_attention.py:1268-1277).
+//
+// What bounds it on this card: at these shapes attention is a few GFLOP over a
+// few MB, so neither HBM (3.35 TB/s) nor the tensor cores are the limit. This
+// first version runs scalar fp32 FMAs, so the limit is the shared-memory load
+// rate feeding them (one 16-byte load per four FMAs). The design keeps that
+// rate down: four threads share a query row, so a K/V tile read from shared
+// memory is broadcast to the eight rows of a warp; K rows are padded to 68
+// floats and V columns interleaved so that 16-byte loads hit distinct banks;
+// probabilities move between the four threads of a row by warp shuffles, not
+// through shared memory. Causal tiles past the diagonal are skipped only once
+// every row of the block has seen a real logit, where they add exactly zero.
+// mma.sync / wgmma and TMA are later work.
+//
+// Schedule: one block of 256 threads per (query tile of 64, head, batch).
+// Thread t owns query row t/4 and, of each 64-key tile, keys (t%4) + 4i for
+// the scores and output columns 4((t%4) + 4i) .. +3 for the PV product.
+// Softmax is online in fp32 registers; PV accumulates in fp32; the output is
+// written in the input dtype (fp32 or bf16). Head dim must be 64.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kD = 64;             // head dim
+constexpr int kTileQ = 64;         // query rows per block
+constexpr int kTileK = 64;         // keys per shared-memory tile
+constexpr int kThreads = 256;      // four threads per query row
+constexpr int kKStride = kD + 4;   // padded K row: 16-byte aligned, conflict-free
+constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package, not -inf
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 lo = __bfloat1622float2(pair[0]);
+  const float2 hi = __bfloat1622float2(pair[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(p);
+  pair[0] = __floats2bfloat162_rn(x.x, x.y);
+  pair[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ kv_mask,
+                     T* __restrict__ out, int sq, int sk, int heads,
+                     float scale, int causal) {
+  __shared__ __align__(16) float k_tile[kTileK][kKStride];
+  __shared__ __align__(16) float v_tile[kTileK][kD];
+  __shared__ int mask_tile[kTileK];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row = tid >> 2;
+  const int sub = tid & 3;
+  const int q0 = blockIdx.x * kTileQ;
+  const int qi = q0 + row;
+  const bool row_ok = qi < sq;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const long row_stride = static_cast<long>(heads) * kD;
+  const T* q_rows = q + static_cast<long>(b) * sq * row_stride + h * kD;
+  const T* k_rows = k + static_cast<long>(b) * sk * row_stride + h * kD;
+  const T* v_rows = v + static_cast<long>(b) * sk * row_stride + h * kD;
+  T* out_rows = out + static_cast<long>(b) * sq * row_stride + h * kD;
+  const int* mask_row = kv_mask + static_cast<long>(b) * sk;
+
+  // the query row, whole, in registers (each of its four threads holds it)
+  float qr[kD];
+#pragma unroll
+  for (int c = 0; c < kD / 4; ++c) {
+    const float4 x = row_ok ? load4(q_rows + qi * row_stride + 4 * c)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[4 * c + 0] = x.x;
+    qr[4 * c + 1] = x.y;
+    qr[4 * c + 2] = x.z;
+    qr[4 * c + 3] = x.w;
+  }
+
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  float m_run = -INFINITY;  // running max of the row's logits
+  float l_run = 0.f;        // running sum of exp(logit - m_run)
+
+  const int shift = sk - sq;  // causal: query i sees key j iff i + shift >= j
+  const int q_last = min(q0 + kTileQ, sq) - 1;
+
+  for (int k0 = 0; k0 < sk; k0 += kTileK) {
+    if (causal && k0 > q_last + shift) {
+      // Every key from here on is causally hidden from every row of this
+      // block. Its logit is -1e30, which adds exactly 0 to a row that has
+      // seen a real logit; a row whose visible keys are all masked still
+      // needs it (its softmax is uniform over all sk keys).
+      if (__syncthreads_and(!row_ok || m_run > kNegInf)) break;
+    }
+    __syncthreads();  // the previous tile is consumed
+
+    for (int e = tid; e < kTileK * (kD / 4); e += kThreads) {
+      const int r = e >> 4;
+      const int c = e & 15;
+      const int j = k0 + r;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 vx = kx;
+      if (j < sk) {
+        kx = load4(k_rows + j * row_stride + 4 * c);
+        vx = load4(v_rows + j * row_stride + 4 * c);
+      }
+      store4(&k_tile[r][4 * c], kx);
+      store4(&v_tile[r][4 * c], vx);
+    }
+    if (tid < kTileK) {
+      mask_tile[tid] = (k0 + tid < sk) ? mask_row[k0 + tid] : 0;
+    }
+    __syncthreads();
+
+    // scores of keys sub + 4i, i = 0..15
+    float s[16];
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = sub + 4 * i;
+      const int j = k0 + r;
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < kD / 4; ++c) {
+        const float4 kx = *reinterpret_cast<const float4*>(&k_tile[r][4 * c]);
+        dot = fmaf(qr[4 * c + 0], kx.x, dot);
+        dot = fmaf(qr[4 * c + 1], kx.y, dot);
+        dot = fmaf(qr[4 * c + 2], kx.z, dot);
+        dot = fmaf(qr[4 * c + 3], kx.w, dot);
+      }
+      float logit = dot * scale;
+      if (mask_tile[r] == 0 || (causal && qi + shift < j)) logit = kNegInf;
+      s[i] = (j < sk) ? logit : -INFINITY;  // past sk: weight 0
+      tile_max = fmaxf(tile_max, s[i]);
+    }
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+
+    // key k0 < sk, so tile_max and m_new are finite
+    const float m_new = fmaxf(m_run, tile_max);
+    const float alpha = expf(m_run - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      s[i] = (s[i] == -INFINITY) ? 0.f : expf(s[i] - m_new);
+      psum += s[i];
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l_run = l_run * alpha + psum;
+    m_run = m_new;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] *= alpha;
+
+    // acc[4t..4t+3] += sum_j p_j v[j, 4(sub + 4t) .. +3]
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int src = 0; src < 4; ++src) {
+        const float p = __shfl_sync(0xffffffffu, s[i], (lane & ~3) | src);
+        const int r = src + 4 * i;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 vx =
+              *reinterpret_cast<const float4*>(&v_tile[r][4 * (sub + 4 * t)]);
+          acc[4 * t + 0] = fmaf(p, vx.x, acc[4 * t + 0]);
+          acc[4 * t + 1] = fmaf(p, vx.y, acc[4 * t + 1]);
+          acc[4 * t + 2] = fmaf(p, vx.z, acc[4 * t + 2]);
+          acc[4 * t + 3] = fmaf(p, vx.w, acc[4 * t + 3]);
+        }
+      }
+    }
+  }
+
+  if (row_ok) {
+    const float inv = 1.f / l_run;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      store4(out_rows + qi * row_stride + 4 * (sub + 4 * t),
+             make_float4(acc[4 * t + 0] * inv, acc[4 * t + 1] * inv,
+                         acc[4 * t + 2] * inv, acc[4 * t + 3] * inv));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* kv_mask, void* out, int batch, int sq, int sk,
+                   int heads, int head_dim, float scale, int causal,
+                   cudaStream_t stream) {
+  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      sq > sk || batch > 65535 || heads > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((sq + kTileQ - 1) / kTileQ, heads, batch);
+  attention_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_mask, static_cast<T*>(out), sq, sk, heads,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const int* kv_mask, void* out, int batch, int sq, int sk,
+                     int heads, int head_dim, float scale, int causal,
+                     int is_bf16, cudaStream_t stream) {
+  if (is_bf16) {
+    return launch<__nv_bfloat16>(q, k, v, kv_mask, out, batch, sq, sk, heads,
+                                 head_dim, scale, causal, stream);
+  }
+  return launch<float>(q, k, v, kv_mask, out, batch, sq, sk, heads, head_dim,
+                       scale, causal, stream);
+}
+
+}  // namespace
+
+// K1: OPT's aligned self-attention (eval 640, prefill 512), sq <= sk.
+extern "C" int mmgl_allheads_fwd(const void* q, const void* k, const void* v,
+                                 const int* kv_mask, void* out, int batch,
+                                 int sq, int sk, int heads, int head_dim,
+                                 float scale, int causal, int is_bf16,
+                                 cudaStream_t stream) {
+  return dispatch(q, k, v, kv_mask, out, batch, sq, sk, heads, head_dim,
+                  scale, causal, is_bf16, stream);
+}
+
+// K2: CLIP's lane-misaligned self-attention (197 patches), sq == sk.
+extern "C" int mmgl_fused_heads_fwd(const void* q, const void* k,
+                                    const void* v, const int* kv_mask,
+                                    void* out, int batch, int seq, int heads,
+                                    int head_dim, float scale, int causal,
+                                    int is_bf16, cudaStream_t stream) {
+  return dispatch(q, k, v, kv_mask, out, batch, seq, seq, heads, head_dim,
+                  scale, causal, is_bf16, stream);
+}
+
+extern "C" const char* mmgl_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels (``mmgl_tpu_torch/csrc``).
+
+The sources have a plain C interface, so they are compiled by ``nvcc`` into a
+shared library and loaded with ``ctypes``: no PyTorch headers, a build of
+seconds. The library is built at first use into ``build/mmgl_tpu_torch/`` at
+the root of the checkout, under a name keyed by a hash of the sources and the
+flags, so an edited source is rebuilt and an unchanged one is not.
+
+Nothing here runs at import: the CPU tests import every module, and a host
+without ``nvcc`` only fails when a kernel is asked for.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mmgl_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass(frozen=True)
+class Library:
+    """A loaded kernel library and how it was obtained."""
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float       # wall time of this process's build (0 when cached)
+    ptxas: str           # nvcc's -Xptxas -v report from the build
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    # $CUDA_HOME, else the toolkit's usual place (torch.utils.cpp_extension
+    # looks there too)
+    home = (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+            or "/usr/local/cuda")
+    nvcc = os.path.join(home, "bin", "nvcc")
+    if os.access(nvcc, os.X_OK):
+        return nvcc
+    raise RuntimeError(
+        "nvcc not found on PATH or in $CUDA_HOME/bin: the CUDA kernels of "
+        "mmgl_tpu_torch cannot be built on this host")
+
+
+def _sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> float:
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> Library:
+    """Build (if needed) and load the kernel library; raises on any failure."""
+    out = BUILD_DIR / f"mmgl_kernels-{_digest()}.so"
+    seconds = 0.0 if out.exists() else _compile(out)
+    lib = ctypes.CDLL(str(out))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mmgl_allheads_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      i32, i32, f32, i32, i32, ptr]
+    lib.mmgl_allheads_fwd.restype = i32
+    lib.mmgl_fused_heads_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                         i32, i32, f32, i32, i32, ptr]
+    lib.mmgl_fused_heads_fwd.restype = i32
+    lib.mmgl_error_string.argtypes = [i32]
+    lib.mmgl_error_string.restype = ctypes.c_char_p
+    ptxas = out.with_suffix(".ptxas.txt")
+    return Library(lib, out, seconds,
+                   ptxas.read_text() if ptxas.exists() else "")
+
+
+def check(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        msg = lib.mmgl_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
