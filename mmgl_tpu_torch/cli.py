@@ -1,14 +1,20 @@
-"""Test-time entry point (counterpart of mmgl_tpu/cli.py:43-70, 157-358,
-551-691).
+"""Training and test entry point (counterpart of mmgl_tpu/cli.py:43-70,
+157-548, 551-691).
 
 Takes the JAX package's flag surface (mmgl_tpu.config.parse_args) plus
-``--device`` (default ``cuda``). Only ``--test true`` is ported: build the
-model with seeded random weights, then the test pass of ``evaluate_loop``:
-the teacher-forced eval step, greedy KV-cache decode and BLEU/ROUGE/CIDEr
-through mmgl_tpu.metrics. One device: no mesh, no gather.
+``--device`` (default ``cuda``), on one device: no mesh, no gather.
+
+* Training (the default): seeded random weights, the epoch-0 val pass, then
+  per epoch ``steps_per_epoch / grad_accumulation_steps`` updates, the val
+  pass and a checkpoint when val BLEU-4 improves, and finally the test pass
+  on the restored best checkpoint. ``--resume`` restarts after the newest
+  of the run's best and ``--save_every_epochs`` checkpoints.
+* ``--test true``: only the test pass of ``evaluate_loop``: the
+  teacher-forced eval step, greedy KV-cache decode and BLEU/ROUGE/CIDEr
+  through mmgl_tpu.metrics.
 
     python -m mmgl_tpu_torch.cli --model_name_or_path opt-125m \
-        --task section --context all --neighbor_mode raw --test true \
+        --task section --context all --neighbor_mode raw \
         --bf16 true --tokenizer_path byte:50272 --device cuda
 
 ``--device cuda`` on a host without a visible GPU fails: there is no CPU
@@ -18,25 +24,32 @@ fallback. Pass ``--device cpu`` to run the plain versions of the kernels.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mmgl_tpu.config import Arguments, parse_args
 from mmgl_tpu.metrics import Cider, bleu_score, rouge_score
-from mmgl_tpu.utils.meters import AverageMeter
+from mmgl_tpu.utils.meters import AverageMeter, ProgressMeter
 from mmgl_tpu.utils.tokenizer import get_tokenizer
 from mmgl_tpu_torch.data.assemble import AssemblerConfig, WikiWeb2MAssembler
 from mmgl_tpu_torch.data.loader import PrefetchLoader
 from mmgl_tpu_torch.data.synthetic import make_synthetic_corpus
 from mmgl_tpu_torch.models.factory import build_model
+from mmgl_tpu_torch.peft.masks import count_params
+from mmgl_tpu_torch.train.checkpoints import (merge_restored_params,
+                                              restore_checkpoint,
+                                              restore_training_state,
+                                              save_checkpoint)
 from mmgl_tpu_torch.train.generate import greedy_generate
-from mmgl_tpu_torch.train.steps import make_eval_step
+from mmgl_tpu_torch.train.optim import build_optimizer
+from mmgl_tpu_torch.train.steps import make_eval_step, make_train_step
 
 MAX_NEW_TOKENS = 32
 
@@ -93,7 +106,7 @@ def check_device(device: torch.device) -> None:
 
 @dataclass
 class EvalSetup:
-    """What the test pass runs: the model and the functions over it."""
+    """What an eval pass runs: the model and the functions over it."""
     model: torch.nn.Module
     fcfg: object
     tokenizer: object
@@ -102,17 +115,20 @@ class EvalSetup:
     generate_fn: Callable[[Dict], torch.Tensor]
 
 
-def prepare(args: Arguments, device: torch.device) -> EvalSetup:
-    """Tokenizer, seeded model, test loader, eval step and generator."""
+def _build(args: Arguments, device: torch.device):
+    """(tokenizer, seeded model, its config, (train, val, test) data)."""
     check_device(device)
     tokenizer = get_tokenizer(args.tokenizer_path)
     name = args.model_name_or_path or "opt-tiny"
     args.decoder_only = "t5" not in name
     model, fcfg = build_model(args, device, vocab_size=tokenizer.vocab_size,
                               tokenizer=tokenizer)
-    _, _, test_ds = setup_data(args, tokenizer)
-    print(f"Testing with {len(test_ds)} examples.")
-    loader = PrefetchLoader(test_ds, batch_size=args.per_device_val_batch_size,
+    return tokenizer, model, fcfg, setup_data(args, tokenizer)
+
+
+def _eval_setup(args: Arguments, model, fcfg, tokenizer, dataset
+                ) -> EvalSetup:
+    loader = PrefetchLoader(dataset, batch_size=args.per_device_val_batch_size,
                             prefetch=args.prefetch_batches,
                             num_workers=args.dataloader_num_workers)
     eval_step = make_eval_step(model, args.decoder_only,
@@ -122,21 +138,216 @@ def prepare(args: Arguments, device: torch.device) -> EvalSetup:
     return EvalSetup(model, fcfg, tokenizer, loader, eval_step, generate_fn)
 
 
+def prepare(args: Arguments, device: torch.device) -> EvalSetup:
+    """Tokenizer, seeded model, test loader, eval step and generator."""
+    tokenizer, model, fcfg, (_, _, test_ds) = _build(args, device)
+    print(f"Testing with {len(test_ds)} examples.")
+    return _eval_setup(args, model, fcfg, tokenizer, test_ds)
+
+
 def run(args: Arguments, device: torch.device,
         log_fn: Optional[Callable[[Dict[str, float], int], None]] = None
         ) -> Dict[str, float]:
-    """The ``--test true`` pass; returns evaluate_loop's metrics."""
+    """Training, or with ``--test true`` the test pass alone; returns
+    evaluate_loop's metrics (plus ``train_updates`` after training)."""
+    log = log_fn or (lambda scalars, step: None)
     if not args.test:
-        raise NotImplementedError("training is ported in a later PR")
+        return run_training(args, device, log)
     test = prepare(args, device)
-    return evaluate_loop(test, args, args.start_epoch,
-                         log_fn or (lambda scalars, step: None),
-                         prefix="test")
+    if args.resume:
+        restored, path = _newest_checkpoint(args)
+        if restored is not None:
+            print(f"=> loaded checkpoint '{path}' (epoch {restored['epoch']})")
+            merge_restored_params(test.model, restored["params"])
+    return evaluate_loop(test, args, args.start_epoch, log, prefix="test")
 
 
 def main(argv=None) -> Dict[str, float]:
     args, device = parse_cli(argv)
     return run(args, device)
+
+
+def check_training_flags(args: Arguments) -> None:
+    """Refuse what training does not port yet."""
+    unported = {
+        "--cache_neighbor_embeddings": args.cache_neighbor_embeddings,
+        "--chunked_ce": args.chunked_ce > 0,
+        "--fused_ce false": not args.fused_ce,
+        "--remat": args.remat,
+        f"--mesh_shape {args.mesh_shape} (one device only)":
+            math.prod(args.mesh_shape) != 1,
+        "--zero1": args.zero1,
+        "--fsdp": args.fsdp,
+        "--distributed": args.distributed,
+        "--profile_dir": bool(args.profile_dir),
+    }
+    refused = [flag for flag, is_set in unported.items() if is_set]
+    if refused:
+        raise NotImplementedError(
+            f"not ported to mmgl_tpu_torch yet: {', '.join(refused)}")
+
+
+def _new_log_dir(args: Arguments) -> str:
+    """{log_dir}/{wandb_run}_{i} for the first i not taken
+    (run_generation.py:238-244)."""
+    i = 0
+    while os.path.exists(os.path.join(args.log_dir, f"{args.wandb_run}_{i}")):
+        i += 1
+    path = os.path.join(args.log_dir, f"{args.wandb_run}_{i}")
+    os.makedirs(path)
+    return path
+
+
+def _newest_checkpoint(args: Arguments):
+    """(checkpoint, path) of ``--resume``: the newer by epoch of its best
+    checkpoint and its ``_latest`` one; (None, path) if neither exists."""
+    path = os.path.join(args.log_dir, args.resume, "ckpt")
+    restored = restore_checkpoint(path)
+    latest = restore_checkpoint(path + "_latest")
+    if latest is not None and (restored is None
+                               or latest["epoch"] > restored["epoch"]):
+        return latest, path + "_latest"
+    return restored, path
+
+
+def dropout_generator(seed: int, epoch: int, device: torch.device
+                      ) -> torch.Generator:
+    """The epoch's dropout stream, a function of (seed, epoch) only: a
+    resumed run draws the masks the uninterrupted run drew (the counterpart
+    of ``fold_in(dropout_stream_key(seed), epoch)``)."""
+    state = np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def _train_batches(loader: PrefetchLoader, epoch: int) -> Iterator[Dict]:
+    """The epoch's batches without end: each further pass over the data is
+    reshuffled deterministically by (epoch, pass)."""
+    data_pass = 0
+    while True:
+        loader.set_epoch(epoch, data_pass)
+        n = 0
+        for batch in loader:
+            n += 1
+            yield batch
+        if n == 0:
+            raise RuntimeError(
+                f"train loader produced no batches: {len(loader.dataset)} "
+                f"examples for a batch of {loader.batch_size} (drop_last)")
+        data_pass += 1
+
+
+def run_training(args: Arguments, device: torch.device,
+                 log: Callable[[Dict[str, float], int], None]
+                 ) -> Dict[str, float]:
+    """Counterpart of mmgl_tpu.cli.run_training (run_generation.py:236-428
+    in the reference) on one device. Returns the final test pass's metrics
+    plus ``train_updates``."""
+    check_training_flags(args)
+    seed = args.seed or 0
+    if args.seed is not None:
+        np.random.seed(args.seed)
+    log_dir = _new_log_dir(args)
+    if args.save_dir is None:
+        args.save_dir = os.path.join(log_dir, "ckpt")
+
+    tokenizer, model, fcfg, (train_ds, val_ds, test_ds) = _build(args,
+                                                                  device)
+    print(f"Training with {len(train_ds)} examples, validating with "
+          f"{len(val_ds)} examples, testing with {len(test_ds)} examples.")
+    counts = count_params(model)
+    print(f"Total params: {counts['total']:,} | trainable: "
+          f"{counts['trainable']:,} | non-trainable: "
+          f"{counts['non_trainable']:,}")
+
+    optimizer, scheduler = build_optimizer(args, model.parameters())
+    best_acc1, step = 0.0, 0
+    if args.resume:
+        restored, path = _newest_checkpoint(args)
+        if restored is not None:
+            print(f"=> loaded checkpoint '{path}' (epoch {restored['epoch']})")
+            # epoch E was complete when saved: replay from E + 1
+            # (DIVERGENCES.md, "Resume replays the NEXT epoch")
+            args.start_epoch = restored["epoch"] + 1
+            best_acc1, step = restored["best_acc1"], restored["step"]
+            restore_training_state(restored, model, optimizer, scheduler)
+        else:
+            print(f"=> no checkpoint found at '{path}'")
+
+    accum = max(1, args.grad_accumulation_steps)
+    batch_size = args.per_device_train_batch_size
+    train_step = make_train_step(
+        model, optimizer, scheduler, args.decoder_only,
+        args.max_input_length, tokenizer.pad_token_id,
+        grad_accumulation_steps=accum, grad_clip=args.grad_clip)
+    val = _eval_setup(args, model, fcfg, tokenizer, val_ds)
+    test = _eval_setup(args, model, fcfg, tokenizer, test_ds)
+    train_loader = PrefetchLoader(
+        train_ds, batch_size=batch_size * accum, shuffle=True, seed=seed,
+        prefetch=args.prefetch_batches,
+        num_workers=args.dataloader_num_workers)
+
+    train_updates = 0
+    updates_per_epoch = max(1, args.steps_per_epoch // accum)
+    for epoch in range(args.start_epoch, args.epochs):
+        epoch_start = time.time()
+        if epoch == 0:
+            evaluate_loop(val, args, epoch - 1, log)
+
+        generator = dropout_generator(seed, epoch, device)
+        batches = _train_batches(train_loader, epoch)
+        batch_time = AverageMeter("Time", ":6.3f")
+        data_time = AverageMeter("Data", ":6.3f")
+        losses = AverageMeter("Loss", ":.4e")
+        progress = ProgressMeter(updates_per_epoch, [batch_time, losses],
+                                 prefix=f"Epoch: [{epoch}]")
+        end = time.time()
+        for u in range(updates_per_epoch):
+            batch = next(batches)
+            data_time.update(time.time() - end)
+            metrics = train_step(batch, generator)
+            step += 1
+            train_updates += 1
+            batch_time.update(time.time() - end)
+            end = time.time()
+
+            actual_step = epoch * updates_per_epoch + u + 1
+            if actual_step == 1 or actual_step % args.print_freq == 0:
+                # the loss is read only here: a read waits for the device
+                losses.update(float(metrics["summary_loss"]), batch_size)
+                progress.display(u + 1)
+                log({"train/loss": losses.avg,
+                     "metrics/total_secs_per_batch": batch_time.avg,
+                     "metrics/data_secs_per_batch": data_time.avg,
+                     "metrics/examples_per_sec":
+                         batch_size * accum / max(batch_time.avg, 1e-9)},
+                    actual_step)
+                losses.reset()
+                batch_time.reset()
+                data_time.reset()
+        batches.close()
+
+        results = evaluate_loop(val, args, epoch, log)
+        acc1 = results["bleu4"]
+        if acc1 > best_acc1 or epoch == 0:
+            best_acc1 = max(acc1, best_acc1)
+            print("=> save best val model ...", args.save_dir)
+            save_checkpoint(args.save_dir, model, optimizer, scheduler, epoch,
+                            acc1, step)
+        if args.save_every_epochs and (
+                (epoch + 1) % args.save_every_epochs == 0):
+            # the periodic "latest" checkpoint for kill + resume, apart from
+            # the best-val one the final test restores
+            save_checkpoint(args.save_dir + "_latest", model, optimizer,
+                            scheduler, epoch, best_acc1, step)
+        print(f"Epoch {epoch} time: {time.time() - epoch_start}s")
+
+    # final test on the best checkpoint (run_generation.py:421-428)
+    restored = restore_checkpoint(args.save_dir)
+    if restored is not None:
+        merge_restored_params(model, restored["params"])
+    results = evaluate_loop(test, args, args.epochs, log, prefix="test")
+    results["train_updates"] = float(train_updates)
+    return results
 
 
 def _score_corpus(all_preds: List[str], all_refs: List[List[str]]):

@@ -46,35 +46,19 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kD = 64;             // head dim
+using mmgl::kD;
+using mmgl::kNegInf;
+using mmgl::load4;
+using mmgl::store4;
+
 constexpr int kTileQ = 64;         // query rows per block
 constexpr int kTileK = 64;         // keys per shared-memory tile
 constexpr int kThreads = 256;      // four threads per query row
 constexpr int kKStride = kD + 4;   // padded K row: 16-byte aligned, conflict-free
-constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package, not -inf
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(pair[0]);
-  const float2 hi = __bfloat1622float2(pair[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(p);
-  pair[0] = __floats2bfloat162_rn(x.x, x.y);
-  pair[1] = __floats2bfloat162_rn(x.z, x.w);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

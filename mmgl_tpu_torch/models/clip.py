@@ -1,7 +1,8 @@
 """CLIP vision tower (counterpart of mmgl_tpu/models/clip.py:34-241).
 
 The frozen image tower of the fusion model: pooler_output is the post-LN
-class token. The patch embedding stays a flattened-patch ``Linear`` in the
+class token. Parameters stay fp32 and each layer computes in ``dtype``
+(models/layers.py). The patch embedding stays a flattened-patch ``Linear`` in the
 JAX package's (p, p, 3) patch order, so its weight converts from the flax
 kernel by a transpose (utils/convert.py). Module names follow the flax
 parameter paths. The CLIP text tower comes in a later change.
@@ -15,7 +16,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from mmgl_tpu_torch.models.layers import ACT2FN
+from mmgl_tpu_torch.models.layers import (ACT2FN, LayerNorm, Linear,
+                                          cast_at_use)
 from mmgl_tpu_torch.ops import multi_head_attention
 
 # CLIP preprocessing constants; images travel to the device as uint8 and are
@@ -67,13 +69,13 @@ class CLIPVisionConfig:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, hidden_size: int, num_heads: int):
+    def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype):
         super().__init__()
         self.num_heads = num_heads
-        self.query = nn.Linear(hidden_size, hidden_size)
-        self.key = nn.Linear(hidden_size, hidden_size)
-        self.value = nn.Linear(hidden_size, hidden_size)
-        self.out = nn.Linear(hidden_size, hidden_size)
+        self.query = Linear(hidden_size, hidden_size, compute_dtype=dtype)
+        self.key = Linear(hidden_size, hidden_size, compute_dtype=dtype)
+        self.value = Linear(hidden_size, hidden_size, compute_dtype=dtype)
+        self.out = Linear(hidden_size, hidden_size, compute_dtype=dtype)
 
     def forward(self, hidden_states, attention_mask=None):
         b, s, e = hidden_states.shape
@@ -88,12 +90,17 @@ class CLIPAttention(nn.Module):
 class CLIPEncoderLayer(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig):
         super().__init__()
+        dt = cfg.dtype
         self.attention = CLIPAttention(cfg.hidden_size,
-                                       cfg.num_attention_heads)
-        self.norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+                                       cfg.num_attention_heads, dt)
+        self.norm1 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
+                               compute_dtype=dt)
+        self.norm2 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
+                               compute_dtype=dt)
+        self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size,
+                          compute_dtype=dt)
+        self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size,
+                          compute_dtype=dt)
         self.act = ACT2FN[cfg.hidden_act]
 
     def forward(self, hidden_states, attention_mask=None):
@@ -121,8 +128,8 @@ class CLIPVisionEmbeddings(nn.Module):
         self.cfg = cfg
         p = cfg.patch_size
         self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
-        self.patch_embedding = nn.Linear(p * p * 3, cfg.hidden_size,
-                                         bias=False)
+        self.patch_embedding = Linear(p * p * 3, cfg.hidden_size, bias=False,
+                                      compute_dtype=cfg.dtype)
         self.position_embedding = nn.Embedding(cfg.num_patches + 1,
                                                cfg.hidden_size)
 
@@ -135,10 +142,11 @@ class CLIPVisionEmbeddings(nn.Module):
         # (B,3,H,W) -> (B, gh, gw, p, p, 3) -> flattened (p, p, 3) patches
         x = pixel_values.reshape(b, 3, g, p, g, p).permute(0, 2, 4, 3, 5, 1)
         x = x.reshape(b, g * g, p * p * 3)
-        patches = self.patch_embedding(x.to(self.patch_embedding.weight.dtype))
-        cls = self.class_embedding.to(patches.dtype).expand(b, 1, -1)
+        patches = self.patch_embedding(x)
+        cls = cast_at_use(self.class_embedding, cfg.dtype).expand(b, 1, -1)
         x = torch.cat([cls, patches], dim=1)
-        return x + self.position_embedding.weight[None]
+        pos = cast_at_use(self.position_embedding.weight, cfg.dtype)
+        return x + pos[None]
 
 
 class CLIPVisionModel(nn.Module):
@@ -148,11 +156,12 @@ class CLIPVisionModel(nn.Module):
         super().__init__()
         self.config = cfg
         self.embeddings = CLIPVisionEmbeddings(cfg)
-        self.pre_layernorm = nn.LayerNorm(cfg.hidden_size,
-                                          eps=cfg.layer_norm_eps)
+        self.pre_layernorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
+                                       compute_dtype=cfg.dtype)
         self.encoder = CLIPEncoder(cfg)
-        self.post_layernorm = nn.LayerNorm(cfg.hidden_size,
-                                           eps=cfg.layer_norm_eps)
+        self.post_layernorm = LayerNorm(cfg.hidden_size,
+                                        eps=cfg.layer_norm_eps,
+                                        compute_dtype=cfg.dtype)
 
     def forward(self, pixel_values) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.embeddings(pixel_values)

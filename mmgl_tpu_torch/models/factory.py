@@ -4,9 +4,11 @@ mmgl_tpu/models/factory.py:27-181).
 Same substring selection on ``model_name_or_path`` and the same tabled OPT
 and CLIP-vision shapes as the JAX package. ``build_model`` initializes the
 weights from a ``torch.Generator`` seeded with ``--seed`` (on the CPU, so one
-seed gives the same weights on every device), then casts the model once to
-the compute dtype and moves it to ``device``. Loading pretrained weights
-comes in a later change: there are no local checkpoints.
+seed gives the same weights on every device) and moves the model to
+``device`` with its parameters in ``--param_dtype`` (float32); each layer
+computes in the compute dtype (models/layers.py). ``requires_grad`` follows
+the trainable mask of peft/masks.py. Loading pretrained weights comes in a
+later change: there are no local checkpoints.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from mmgl_tpu_torch.models.clip import CLIPVisionConfig
 from mmgl_tpu_torch.models.fusion import FusionConfig, MMGLModel
 from mmgl_tpu_torch.models.layers import init_weights
 from mmgl_tpu_torch.models.opt import OPTConfig
+from mmgl_tpu_torch.peft.masks import apply_trainable_mask
 
 # (hidden, layers, heads, ffn, word_embed_proj)
 _OPT_SIZES = {
@@ -71,7 +74,8 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
     opt_cfg = OPTConfig(
         hidden_size=hidden, num_hidden_layers=layers,
         num_attention_heads=heads, ffn_dim=ffn, word_embed_proj_dim=proj,
-        do_layer_norm_before=(size != "350m"), layerdrop=args.layerdrop,
+        do_layer_norm_before=(size != "350m"),
+        dropout=0.0 if size == "tiny" else 0.1, layerdrop=args.layerdrop,
         dtype=dt)
     if vocab_size:
         opt_cfg = replace(opt_cfg, vocab_size=vocab_size)
@@ -96,7 +100,9 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
 def build_model(args: Arguments, device: torch.device,
                 vocab_size: Optional[int] = None,
                 tokenizer=None) -> Tuple[MMGLModel, FusionConfig]:
-    """Seeded random init, cast once to the compute dtype, in eval mode."""
+    """Seeded random init on the CPU, then moved to ``device`` with
+    ``--param_dtype`` parameters; returned in train mode with the trainable
+    set of ``--peft_type``/``--freeze_lm``."""
     cfg = build_fusion_config(args, vocab_size, tokenizer=tokenizer)
     model = MMGLModel(cfg)
     generator = torch.Generator().manual_seed(args.seed or 0)
@@ -105,6 +111,6 @@ def build_model(args: Arguments, device: torch.device,
         with torch.no_grad():
             model.visual_model.embeddings.class_embedding.normal_(
                 0.0, 0.02, generator=generator)
-    model = model.to(device=device, dtype=cfg.opt.dtype).eval()
-    model.requires_grad_(False)   # test-time only: training is not ported
-    return model, cfg
+    model = model.to(device=device, dtype=_DTYPES[args.param_dtype])
+    apply_trainable_mask(model, args.peft_type, args.freeze_lm)
+    return model.train(), cfg

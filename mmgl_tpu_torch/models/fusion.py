@@ -3,7 +3,9 @@
 Ported for the decoder-only OPT LM in raw neighbor mode, all four contexts:
 section_only and text_only are a plain LM call; section_all and all splice
 the frozen CLIP tower's image soft tokens into the reserved token positions
-(modelling_self_attention.py:248-261 in the reference). Embedding and
+(modelling_self_attention.py:248-261 in the reference). The tower runs
+without autograd (``stop_gradient`` at mmgl_tpu/models/fusion.py:193); the
+projection ``visual_embeddings`` after it trains. Embedding and
 cross-attention modes, T5, MPT and PEFT are refused at model build
 (models/factory.py).
 
@@ -22,6 +24,7 @@ from torch import nn
 
 from mmgl_tpu_torch.models.clip import (CLIPVisionConfig, CLIPVisionModel,
                                         normalize_pixels)
+from mmgl_tpu_torch.models.layers import Linear
 from mmgl_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
 
 IGNORE_INDEX = -100
@@ -65,8 +68,9 @@ class MMGLModel(nn.Module):
         self.lm = OPTForCausalLM(cfg.opt)
         if cfg.needs_vision_tower:
             self.visual_model = CLIPVisionModel(cfg.vision)
-            self.visual_embeddings = nn.Linear(
-                cfg.vision.hidden_size, cfg.embed_dim * cfg.n_visual_tokens)
+            self.visual_embeddings = Linear(
+                cfg.vision.hidden_size, cfg.embed_dim * cfg.n_visual_tokens,
+                compute_dtype=cfg.opt.dtype)
 
     @property
     def device(self) -> torch.device:
@@ -76,10 +80,12 @@ class MMGLModel(nn.Module):
 
     def pool_images(self, pixel_values, valid=None) -> torch.Tensor:
         """(B*N, 3, H, W) uint8 -> (B*N, tower_hidden), normalized on the
-        device; ``valid`` zeroes placeholder slots."""
-        pixels = normalize_pixels(pixel_values, valid,
-                                  dtype=self.visual_embeddings.weight.dtype)
-        _, pooled = self.visual_model(pixels)
+        device; ``valid`` zeroes placeholder slots. No gradient flows into
+        the frozen tower."""
+        with torch.no_grad():
+            pixels = normalize_pixels(pixel_values, valid,
+                                      dtype=self.config.vision.dtype)
+            _, pooled = self.visual_model(pixels)
         return pooled
 
     def get_visual_embs(self, pixel_values, valid=None) -> torch.Tensor:
@@ -92,14 +98,17 @@ class MMGLModel(nn.Module):
 
     # ---- fusion forward ----
 
-    def forward(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """Returns {"logits": (B, S, V), "labels": adjusted labels}."""
+    def forward(self, batch: Dict,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Returns {"logits": (B, S, V), "labels": adjusted labels}.
+        ``generator`` is the dropout stream, needed in training mode."""
         fused = self._fuse(batch)
         logits, _ = self.lm(
             input_ids=None if fused["inputs_embeds"] is not None
             else fused["input_ids"],
             inputs_embeds=fused["inputs_embeds"],
-            attention_mask=fused["attention_mask"])
+            attention_mask=fused["attention_mask"], generator=generator)
         return {"logits": logits, "labels": fused["labels"]}
 
     def _fuse(self, batch: Dict) -> Dict[str, Optional[torch.Tensor]]:

@@ -2,9 +2,11 @@
 
 Covers the pre-LN ordering of OPT-125M/1.3B/2.7B/6.7B: learned positions
 from the attention-mask cumsum with offset 2, the tied LM head
-(``hidden @ E.T``) and a KV cache for greedy decode, forward only. Post-LN
-with project_in/out (350M) and layerdrop raise NotImplementedError here;
-MPT cross layers and prefix KV at model build (models/factory.py). Module
+(``hidden @ E.T``), hidden dropout at the JAX package's three sites
+(embeddings, after attention, after fc2; attention dropout is 0) in training
+mode, and a KV cache for greedy decode. Post-LN with project_in/out (350M),
+layerdrop raise NotImplementedError here; MPT cross layers and prefix KV
+at model build (models/factory.py). Module
 names follow the flax parameter paths
 (``decoder.layers.0.self_attn.q_proj``) so weights convert mechanically
 (utils/convert.py). Attention runs through ops.multi_head_attention.
@@ -18,7 +20,9 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from mmgl_tpu_torch.models.layers import ACT2FN, make_positions_from_mask
+from mmgl_tpu_torch.models.layers import (ACT2FN, Dropout, Embedding,
+                                          LayerNorm, Linear,
+                                          make_positions_from_mask)
 from mmgl_tpu_torch.ops import multi_head_attention
 
 
@@ -33,11 +37,12 @@ class OPTConfig:
     word_embed_proj_dim: Optional[int] = None  # != hidden_size only for 350m
     do_layer_norm_before: bool = True
     activation_function: str = "relu"
+    dropout: float = 0.1        # hidden dropout (opt.py:216, :291)
     layerdrop: float = 0.0
     pad_token_id: int = 1
     bos_token_id: int = 2
     eos_token_id: int = 2
-    dtype: torch.dtype = torch.float32  # compute dtype; the model is cast once
+    dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
 
     @property
     def embed_dim(self) -> int:
@@ -80,11 +85,11 @@ class OPTAttention(nn.Module):
     def __init__(self, cfg: OPTConfig):
         super().__init__()
         self.cfg = cfg
-        e = cfg.hidden_size
-        self.q_proj = nn.Linear(e, e)
-        self.k_proj = nn.Linear(e, e)
-        self.v_proj = nn.Linear(e, e)
-        self.out_proj = nn.Linear(e, e)
+        e, dt = cfg.hidden_size, cfg.dtype
+        self.q_proj = Linear(e, e, compute_dtype=dt)
+        self.k_proj = Linear(e, e, compute_dtype=dt)
+        self.v_proj = Linear(e, e, compute_dtype=dt)
+        self.out_proj = Linear(e, e, compute_dtype=dt)
 
     def forward(self, hidden_states: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None,
@@ -127,22 +132,27 @@ class OPTDecoderLayer(nn.Module):
 
     def __init__(self, cfg: OPTConfig):
         super().__init__()
+        dt = cfg.dtype
         self.self_attn = OPTAttention(cfg)
-        self.self_attn_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.ffn_dim)
-        self.fc2 = nn.Linear(cfg.ffn_dim, cfg.hidden_size)
+        self.self_attn_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
+                                              compute_dtype=dt)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
+                                          compute_dtype=dt)
+        self.fc1 = Linear(cfg.hidden_size, cfg.ffn_dim, compute_dtype=dt)
+        self.fc2 = Linear(cfg.ffn_dim, cfg.hidden_size, compute_dtype=dt)
         self.act = ACT2FN[cfg.activation_function]
+        self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, hidden_states, attention_mask=None, cache=None):
+    def forward(self, hidden_states, attention_mask=None, cache=None,
+                generator=None):
         residual = hidden_states
         hidden_states = self.self_attn(
             self.self_attn_layer_norm(hidden_states), attention_mask, cache)
-        hidden_states = residual + hidden_states
+        hidden_states = residual + self.dropout(hidden_states, generator)
         residual = hidden_states
         hidden_states = self.fc2(self.act(self.fc1(
             self.final_layer_norm(hidden_states))))
-        return residual + hidden_states
+        return residual + self.dropout(hidden_states, generator)
 
 
 class OPTDecoder(nn.Module):
@@ -150,16 +160,21 @@ class OPTDecoder(nn.Module):
         super().__init__()
         cfg.check_supported()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        dt = cfg.dtype
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.embed_dim,
+                                      compute_dtype=dt)
         # learned positions, offset 2
-        self.embed_positions = nn.Embedding(cfg.max_position_embeddings + 2,
-                                            cfg.hidden_size)
+        self.embed_positions = Embedding(cfg.max_position_embeddings + 2,
+                                         cfg.hidden_size, compute_dtype=dt)
+        self.embed_dropout = Dropout(cfg.dropout)
         self.layers = nn.ModuleList(OPTDecoderLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
+                                          compute_dtype=dt)
 
     def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
-                caches: Optional[List[KVCache]] = None, position_ids=None):
+                caches: Optional[List[KVCache]] = None, position_ids=None,
+                generator: Optional[torch.Generator] = None):
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         b, s = inputs_embeds.shape[:2]
@@ -169,15 +184,18 @@ class OPTDecoder(nn.Module):
         if position_ids is None:
             position_ids = make_positions_from_mask(attention_mask)[:, -s:]
         hidden_states = inputs_embeds + self.embed_positions(position_ids + 2)
+        hidden_states = self.embed_dropout(hidden_states, generator)
         for i, layer in enumerate(self.layers):
             hidden_states = layer(hidden_states, attention_mask,
-                                  caches[i] if caches is not None else None)
+                                  caches[i] if caches is not None else None,
+                                  generator)
         return self.final_layer_norm(hidden_states)
 
 
 class OPTForCausalLM(nn.Module):
     """OPT with the tied LM head. Returns (logits, caches); the caches are
-    the ones passed in, updated in place."""
+    the ones passed in, updated in place. In training mode with dropout > 0
+    the forward needs ``generator``, the dropout stream."""
 
     def __init__(self, cfg: OPTConfig):
         super().__init__()
@@ -185,13 +203,14 @@ class OPTForCausalLM(nn.Module):
         self.decoder = OPTDecoder(cfg)
 
     def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
-                caches: Optional[List[KVCache]] = None, position_ids=None
+                caches: Optional[List[KVCache]] = None, position_ids=None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[List[KVCache]]]:
         hidden = self.decoder(input_ids=input_ids,
                               attention_mask=attention_mask,
                               inputs_embeds=inputs_embeds, caches=caches,
-                              position_ids=position_ids)
-        return hidden @ self.decoder.embed_tokens.weight.T, caches
+                              position_ids=position_ids, generator=generator)
+        return self.decoder.embed_tokens.attend(hidden), caches
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Token embedding lookup (for inputs_embeds fusion paths)."""

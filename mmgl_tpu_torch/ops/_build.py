@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (``mmgl_tpu_torch/csrc``).
 
-The sources have a plain C interface, so they are compiled by ``nvcc`` into a
-shared library and loaded with ``ctypes``: no PyTorch headers, a build of
-seconds. The library is built at first use into ``build/mmgl_tpu_torch/`` at
+The sources have a plain C interface, so they are compiled by ``nvcc`` (one
+process per source, all started together) and linked into a shared library
+loaded with ``ctypes``: no PyTorch headers, a build of seconds. The library is built at first use into ``build/mmgl_tpu_torch/`` at
 the root of the checkout, under a name keyed by a hash of the sources and the
 flags, so an edited source is rebuilt and an unchanged one is not.
 
@@ -24,8 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mmgl_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 
 
 @dataclass(frozen=True)
@@ -65,20 +66,43 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands concurrently; raise on the first that failed;
+    return their output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outputs = []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        outputs.append((cmd, proc.returncode, text))
+    for cmd, rc, text in outputs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    return "".join(text for _, _, text in outputs)
+
+
 def _compile(out: Path) -> float:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = [s for s in _sources() if s.suffix == ".cu"]
+    objects = [out.parent / f"{tag}.{s.stem}.o" for s in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
+    try:
+        report = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                       for src, obj in zip(sources, objects)])
+        _run([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+               *(str(o) for o in objects)]])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - start
+    out.with_suffix(".ptxas.txt").write_text(report)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return seconds
 
@@ -96,6 +120,9 @@ def load() -> Library:
     lib.mmgl_fused_heads_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                          i32, i32, f32, i32, i32, ptr]
     lib.mmgl_fused_heads_fwd.restype = i32
+    lib.mmgl_allheads_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [f32, i32, i32,
+                                                               ptr]
+    lib.mmgl_allheads_bwd.restype = i32
     lib.mmgl_error_string.argtypes = [i32]
     lib.mmgl_error_string.restype = ctypes.c_char_p
     ptxas = out.with_suffix(".ptxas.txt")

@@ -18,8 +18,11 @@ mapping from call sites to kernels:
     ``flash_attention``) are not ported yet, and the call raises.
 
 The TPU's measured gates (PALLAS_MIN_KV, the VMEM envelopes, BIAS_MIN_SQ) do
-not carry over. The mapping is the same for CPU and CUDA tensors; on a CPU
-tensor each kernel's wrapper computes its plain version instead.
+not carry over. The mapping is the same for CPU and CUDA tensors and with or
+without autograd; on a CPU tensor each kernel's wrapper computes its plain
+version instead. Only K1's route has a backward kernel (K3); K2's backward
+recomputes through its plain version, and the reference route is plain
+autograd.
 
 Layout: q, k, v are (batch, seq, heads, head_dim), BSHD.
 """

@@ -34,7 +34,9 @@ def _prompt_batch(model: MMGLModel, batch: Dict) -> Dict:
 @torch.no_grad()
 def greedy_generate(model: MMGLModel, batch: Dict,
                     max_new_tokens: int = 32) -> torch.Tensor:
-    """Returns (B, max_new_tokens) generated ids on the model's device."""
+    """Returns (B, max_new_tokens) generated ids on the model's device.
+    Runs the model in eval mode (no dropout)."""
+    model.eval()
     opt_cfg = model.config.opt
     embeds, mask = model.prefill_inputs(_prompt_batch(model, batch))
     b, t_prompt = embeds.shape[:2]

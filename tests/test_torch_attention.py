@@ -8,6 +8,7 @@ the CPU. Everything is fp32; the tolerance is atol 1e-5 (sums in another
 order), rtol 0.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -205,3 +206,142 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# ---- gradients: K3 and the autograd wiring ---------------------------------
+
+def _hole_mask(b, s, seed):
+    """A prompt then a summary, each right-padded: key 0 stays valid, so no
+    causal row is fully masked."""
+    rng = np.random.RandomState(seed)
+    mask = np.ones((b, s), np.int32)
+    cut = s * 3 // 4
+    for i in range(b):
+        mask[i, rng.randint(cut // 4, cut):cut] = 0
+        mask[i, cut + rng.randint(1, s - cut):] = 0
+    return mask
+
+
+def _weighted_sum(out, cos=torch.cos):
+    """A scalar whose gradient reaches every output element unevenly."""
+    return (out * cos(out)).sum()
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_allheads_grads_match_jax_pallas_backward(s, causal):
+    """autograd through K1 on CPU tensors (K3's plain version) vs jax.grad
+    through the Pallas K1/K3 in interpret mode, with hole masks, D = 64;
+    atol 1e-5."""
+    q, k, v, _ = _inputs(2, s, s, 2, 64, seed=20 + s + causal)
+    mask = _hole_mask(2, s, seed=s)
+
+    def jloss(q, k, v):
+        return _weighted_sum(jax_allheads(
+            q, k, v, kv_mask=jnp.asarray(mask), causal=causal,
+            interpret=True), jnp.cos)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = fa.flash_attention_allheads(tq, tk, tv,
+                                      kv_mask=torch.from_numpy(mask),
+                                      causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(_weighted_sum(out), (tq, tk, tv))
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["hole", "fully_masked"])
+def test_allheads_bwd_reference_matches_autograd(causal, mask_kind):
+    """K3's plain version equals torch autograd through
+    attention_reference (atol 1e-5), fully masked rows included: there dS
+    is 0 at every masked logit and dV still takes the uniform 1/Sk."""
+    q, k, v, _ = _inputs(2, 96, 96, 2, 64, seed=30 + causal)
+    mask = _hole_mask(2, 96, seed=3)
+    if mask_kind == "fully_masked":
+        mask[1] = 0
+    tmask = torch.from_numpy(mask)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = att.attention_reference(tq, tk, tv, kv_mask=tmask, causal=causal)
+    dout = torch.from_numpy(
+        np.random.RandomState(4).randn(*out.shape).astype(np.float32))
+    want = torch.autograd.grad(out, (tq, tk, tv), dout)
+    got = fa.allheads_attention_bwd_reference(
+        tq.detach(), tk.detach(), tv.detach(), tmask, out.detach(), dout,
+        causal=causal)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_allheads_fully_masked_row_grads_follow_xla_attention():
+    """With a fully masked sample the port's gradients are jax.grad's
+    through xla_attention (no dQ, no dK from that sample; dV of 1/Sk per
+    row), not the Pallas K3's, which keeps dS at masked logits; atol 1e-5."""
+    q, k, v, _ = _inputs(2, 128, 128, 2, 64, seed=40)
+    mask = _hole_mask(2, 128, seed=5)
+    mask[0] = 0
+
+    def jloss(q, k, v):
+        return _weighted_sum(xla_attention(q, k, v, kv_mask=jnp.asarray(mask),
+                                           causal=True), jnp.cos)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = fa.flash_attention_allheads(tq, tk, tv,
+                                      kv_mask=torch.from_numpy(mask),
+                                      causal=True)
+    got = torch.autograd.grad(_weighted_sum(out), (tq, tk, tv))
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert float(got[0][0].abs().max()) == 0.0
+    assert float(got[1][0].abs().max()) == 0.0
+
+
+def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
+    """On the card each wrapper writes its kernel's result into a fresh
+    tensor. With that path taken on the CPU (the launchers replaced by
+    their plain versions computed without autograd, as a kernel computes),
+    K1 and K2 still return tensors with a grad_fn; K1's backward launches
+    K3 once and K2's recomputes through its plain version, and their
+    gradients equal jax.grad through the Pallas kernels in interpret mode
+    (atol 1e-5)."""
+    def fake_launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
+        with torch.no_grad():
+            return att.attention_reference(q, k, v, kv_mask=kv_mask,
+                                           causal=causal, scale=scale).clone()
+
+    def fake_launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
+        return fa.allheads_attention_bwd_reference(q, k, v, kv_mask, out,
+                                                   dout, causal, scale)
+
+    monkeypatch.setattr(fa, "_plain", lambda q: False)
+    monkeypatch.setattr(fa, "_launch", fake_launch)
+    monkeypatch.setattr(fa, "_launch_bwd", fake_launch_bwd)
+
+    for name, s, jax_kernel in (
+            ("flash_attention_allheads", 128, jax_allheads),
+            ("fused_heads_attention", 77, jax_fused_heads)):
+        q, k, v, _ = _inputs(2, s, s, 2, 64, seed=s)
+        mask = _hole_mask(2, s, seed=s)
+
+        def jloss(q, k, v):
+            return _weighted_sum(jax_kernel(q, k, v,
+                                            kv_mask=jnp.asarray(mask),
+                                            causal=True, interpret=True),
+                                 jnp.cos)
+
+        want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray,
+                                                      (q, k, v)))
+        tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+        kernel = getattr(fa, name)
+        launches = (kernel.launches, fa.flash_attention_allheads_bwd.launches)
+        out = kernel(tq, tk, tv, kv_mask=torch.from_numpy(mask), causal=True)
+        assert out.grad_fn is not None, name
+        got = torch.autograd.grad(_weighted_sum(out), (tq, tk, tv))
+        assert kernel.launches == launches[0] + 1
+        assert fa.flash_attention_allheads_bwd.launches == launches[1] + (
+            name == "flash_attention_allheads")
+        for g, w in zip(got, want):
+            _close(g, w)

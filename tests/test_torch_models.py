@@ -169,3 +169,82 @@ def test_convert_rejects_unported_parameters():
         state_dict_from_jax({"lm": {}, "text_model": {}})
     with pytest.raises(KeyError, match="lora_a"):
         state_dict_from_jax({"lm": {"q_proj": {"lora_a": np.zeros((2, 2))}}})
+
+
+def test_kept_casts_follow_every_write_and_keep_the_graph():
+    """cast_at_use keeps a parameter's bf16 cast only where no gradient can
+    flow into it, and a kept cast never outlives a write: an optimizer step
+    and load_state_dict both give the freshly cast values (exact)."""
+    from mmgl_tpu_torch.models import layers
+
+    torch.manual_seed(0)
+    lin = layers.Linear(8, 4, compute_dtype=torch.bfloat16)
+    emb = layers.Embedding(10, 8, compute_dtype=torch.bfloat16)
+    x, ids = torch.randn(3, 8), torch.tensor([[1, 4, 9]])
+
+    def fresh():
+        return (torch.nn.functional.linear(
+                    x.bfloat16(), lin.weight.bfloat16(), lin.bias.bfloat16()),
+                emb.weight[ids].bfloat16(),
+                x.bfloat16() @ emb.weight.bfloat16().T)
+
+    def run():
+        return lin(x), emb(ids), emb.attend(x)
+
+    with torch.no_grad():
+        first = run()
+        kept = layers.cast_at_use(lin.weight, torch.bfloat16)
+        assert layers.cast_at_use(lin.weight, torch.bfloat16) is kept
+        for got, want in zip(first, fresh()):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    # with grad: a cast in the graph, the kept one freed
+    out = sum(t.float().sum() for t in run())
+    assert out.grad_fn is not None and "_kept_cast" not in lin.weight.__dict__
+    out.backward()
+    assert float(lin.weight.grad.abs().sum()) > 0
+    assert float(emb.weight.grad.abs().sum()) > 0
+    torch.optim.AdamW(list(lin.parameters()) + list(emb.parameters()),
+                      lr=0.1).step()
+    with torch.no_grad():
+        for got, want in zip(run(), fresh()):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        run()                                     # keep the casts again
+        lin.load_state_dict({"weight": torch.randn(4, 8),
+                             "bias": torch.randn(4)})
+        emb.load_state_dict({"weight": torch.randn(10, 8)})
+        for got, want in zip(run(), fresh()):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    # a frozen parameter keeps its cast with grad mode on
+    lin.requires_grad_(False)
+    assert (layers.cast_at_use(lin.weight, torch.bfloat16)
+            is layers.cast_at_use(lin.weight, torch.bfloat16))
+    assert layers.cast_at_use(lin.weight, torch.float32) is lin.weight
+
+
+def test_layer_norm_rounds_like_flax_in_bf16():
+    """The port's LayerNorm on a bf16 input with fp32 scale and bias equals
+    flax's LayerNorm(dtype=bfloat16, param_dtype=float32)."""
+    import flax.linen as fnn
+
+    from mmgl_tpu_torch.models import layers
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 5, 16).astype(np.float32)
+    scale, bias = rng.randn(16).astype(np.float32), rng.randn(16).astype(
+        np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = fnn.LayerNorm(epsilon=1e-5, dtype=jnp.bfloat16).apply(
+        {"params": {"scale": scale, "bias": bias}}, xb)
+    ln = layers.LayerNorm(16, eps=1e-5, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(scale))
+        ln.bias.copy_(torch.from_numpy(bias))
+        got = ln(torch.from_numpy(np.array(xb.astype(jnp.float32))
+                                  ).bfloat16())
+    assert got.dtype == torch.bfloat16
+    # bf16 outputs: at most one rounding step apart (fp32 summation order)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=2 ** -7)

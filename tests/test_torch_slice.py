@@ -75,19 +75,17 @@ def test_greedy_generate_matches_jax(pair):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_cli_test_pass_end_to_end(pair):
-    """The port's --test pass runs and returns the metric keys of the JAX
-    package's evaluate_loop (run here on stub steps: the keys do not depend
-    on the model)."""
+def _jax_test_pass_keys(pair):
+    """The metric keys of the JAX package's evaluate_loop test pass (run
+    here on stub steps: the keys do not depend on the model)."""
     from types import SimpleNamespace
 
     import jax.numpy as jnp
     from mmgl_tpu import cli as jcli
 
     args, batch = pair[:2]
-    got = cli.main(TINY + ["--device", "cpu"])
     b = batch["input_ids"].shape[0]
-    want = jcli.evaluate_loop(
+    return jcli.evaluate_loop(
         [batch], None, SimpleNamespace(params={}),
         lambda params, x: {"loss": jnp.float32(1.0)},
         lambda variables, x: jnp.full((b, 32), 4 + ord("a"), jnp.int32),
@@ -95,27 +93,81 @@ def test_cli_test_pass_end_to_end(pair):
         jax.sharding.Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
                           ("data", "model")), 0, lambda *a: None,
         prefix="test")
-    assert sorted(got) == sorted(want)
+
+
+def test_cli_test_pass_end_to_end(pair):
+    """The port's --test pass runs and returns the metric keys of the JAX
+    package's evaluate_loop."""
+    got = cli.main(TINY + ["--device", "cpu"])
+    assert sorted(got) == sorted(_jax_test_pass_keys(pair))
     assert got["n_eval_pairs"] == 4.0     # 2 batches of 2
     assert all(np.isfinite(v) for v in got.values())
 
 
-def test_training_is_not_ported():
-    args, device = cli.parse_cli(TINY[:-6] + ["--test", "false",
-                                              "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="later PR"):
-        cli.run(args, device)
+TRAIN = TINY + ["--test", "false", "--per_device_train_batch_size", "2",
+                "--grad_accumulation_steps", "2", "--steps_per_epoch", "4",
+                "--epochs", "1"]
 
 
-def test_slice_runs_without_jax():
+def test_cli_training_end_to_end(pair, tmp_path):
+    """Training through the entry point: the epoch-0 val pass, two updates,
+    the val pass with the best checkpoint, then the test pass on it; returns
+    the JAX package's test metric keys plus train_updates."""
+    logged = []
+    args, device = cli.parse_cli(TRAIN + ["--log_dir", str(tmp_path),
+                                          "--device", "cpu"])
+    got = cli.run(args, device, lambda scalars, step: logged.append(
+        (step, scalars)))
+    assert got["train_updates"] == 2.0
+    del got["train_updates"]
+    test_keys = _jax_test_pass_keys(pair)
+    assert sorted(got) == sorted(test_keys)
+    assert all(np.isfinite(v) for v in got.values())
+    train = [s for step, s in logged if "train/loss" in s]
+    assert len(train) == 1 and np.isfinite(train[0]["train/loss"])
+    assert (tmp_path / "default_0" / "ckpt" / "checkpoint.pt").exists()
+
+    # the test pass alone on the trained checkpoint (--resume)
+    args, device = cli.parse_cli(TINY + ["--log_dir", str(tmp_path),
+                                         "--resume", "default_0",
+                                         "--device", "cpu"])
+    assert cli.run(args, device) == got
+
+
+def test_training_is_not_ported(tmp_path):
+    """What training does not port yet refuses to run, through the entry
+    point, instead of running something else."""
+    for flag in (["--remat", "true"], ["--chunked_ce", "8"],
+                 ["--fused_ce", "false"], ["--zero1", "true"],
+                 ["--fsdp", "true"], ["--mesh_shape", "2,1"],
+                 ["--profile_dir", "p"], ["--distributed", "true"],
+                 ["--cache_neighbor_embeddings", "true"]):
+        args, device = cli.parse_cli(TRAIN + flag + [
+            "--log_dir", str(tmp_path), "--device", "cpu"])
+        with pytest.raises(NotImplementedError, match=flag[0]):
+            cli.run(args, device)
+    assert not tmp_path.exists() or not any(tmp_path.iterdir())
+
+
+def test_remat_is_refused_only_in_training():
+    """--remat changes no eval result, so the test pass takes it; training
+    refuses it (test_training_is_not_ported)."""
+    got = cli.main(TINY + ["--remat", "true", "--device", "cpu"])
+    assert got["n_eval_pairs"] == 4.0
+
+
+def test_slice_runs_without_jax(tmp_path):
     """jax, jaxlib, flax, optax and orbax unimportable: the port still runs
-    the whole test pass and loads none of them."""
+    the whole test pass and a training run, and loads none of them."""
+    train = TRAIN + ["--log_dir", str(tmp_path), "--device", "cpu"]
     code = (
         "import sys\n"
         f"for m in {JAX_MODULES!r}: sys.modules[m] = None\n"
         "from mmgl_tpu_torch import cli\n"
         f"r = cli.main({TINY + ['--device', 'cpu']!r})\n"
         "assert r['n_eval_pairs'] == 4.0, r\n"
+        f"r = cli.main({train!r})\n"
+        "assert r['train_updates'] == 2.0, r\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{JAX_MODULES!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
