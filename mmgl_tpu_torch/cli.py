@@ -1,8 +1,9 @@
 """Training and test entry point (counterpart of mmgl_tpu/cli.py:43-70,
 157-548, 551-691).
 
-Takes the JAX package's flag surface (mmgl_tpu.config.parse_args) plus
-``--device`` (default ``cuda``), on one device: no mesh, no gather.
+Takes the JAX package's flag surface (``config.parse_args``, the port's copy
+of mmgl_tpu/config.py) plus ``--device`` (default ``cuda``), on one device:
+no mesh, no gather.
 
 * Training (the default): seeded random weights, the epoch-0 val pass, then
   per epoch ``steps_per_epoch / grad_accumulation_steps`` updates, the val
@@ -11,7 +12,7 @@ Takes the JAX package's flag surface (mmgl_tpu.config.parse_args) plus
   of the run's best and ``--save_every_epochs`` checkpoints.
 * ``--test true``: only the test pass of ``evaluate_loop``: the
   teacher-forced eval step, greedy KV-cache decode and BLEU/ROUGE/CIDEr
-  through mmgl_tpu.metrics.
+  through the port's copy of mmgl_tpu/metrics.
 
     python -m mmgl_tpu_torch.cli --model_name_or_path opt-125m \
         --task section --context all --neighbor_mode raw \
@@ -34,10 +35,10 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mmgl_tpu.config import Arguments, parse_args
-from mmgl_tpu.metrics import Cider, bleu_score, rouge_score
-from mmgl_tpu.utils.meters import AverageMeter, ProgressMeter
-from mmgl_tpu.utils.tokenizer import get_tokenizer
+from mmgl_tpu_torch.config import Arguments, parse_args
+from mmgl_tpu_torch.metrics import Cider, bleu_score, rouge_score
+from mmgl_tpu_torch.utils.meters import AverageMeter, ProgressMeter
+from mmgl_tpu_torch.utils.tokenizer import get_tokenizer
 from mmgl_tpu_torch.data.assemble import AssemblerConfig, WikiWeb2MAssembler
 from mmgl_tpu_torch.data.loader import PrefetchLoader
 from mmgl_tpu_torch.data.synthetic import make_synthetic_corpus
@@ -86,8 +87,8 @@ def first_period_truncate(caption: str) -> str:
 
 
 def parse_cli(argv=None) -> Tuple[Arguments, torch.device]:
-    """``--device`` is read here; every other flag goes to the shared
-    mmgl_tpu.config parser unchanged."""
+    """``--device`` is read here; every other flag goes to the
+    flag parser (the copy of mmgl_tpu/config.py) unchanged."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     ns, rest = pre.parse_known_args(argv)

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mmgl_tpu.config import Arguments
+from mmgl_tpu_torch.config import Arguments
 from mmgl_tpu_torch.models.clip import CLIPVisionConfig
 from mmgl_tpu_torch.models.fusion import FusionConfig, MMGLModel
 from mmgl_tpu_torch.models.layers import init_weights

@@ -20,7 +20,7 @@ from typing import Callable, Iterable, Tuple
 
 import torch
 
-from mmgl_tpu.config import Arguments
+from mmgl_tpu_torch.config import Arguments
 
 
 def lr_factor(args: Arguments) -> Callable[[int], float]:
