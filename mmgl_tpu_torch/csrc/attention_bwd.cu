@@ -1,10 +1,15 @@
-// Backward of the allheads attention for Hopper (sm_90a): the port of the
-// Pallas kernel that OPT training runs for its causal self-attention.
+// Backward attention without bias or dropout for Hopper (sm_90a): the port of
+// the two dense Pallas backward kernels.
 //
 // Replaces
 //   mmgl_allheads_bwd -> _allheads_kernel_bwd (mmgl_tpu/ops/flash_attention.py:1307),
 //                        reached through _allheads_vjp_bwd (:1392, pallas_call :1399).
 //                        OPT causal self-attention: (4, 640, 12, 64), bf16.
+//   mmgl_flash_bwd    -> _bwd_kernel (mmgl_tpu/ops/flash_attention.py:414),
+//                        pallas_call in _bwd (:457, :472): the backward of K4.
+//                        T5's cross-attention, q (B, 128, 12, 64) against
+//                        k/v (B, 512, 12, 64), when dropout is off. Under MQA
+//                        the wrapper sums dK/dV over the broadcast heads.
 // Given q, k, v, the key mask, the forward output o and its gradient dO:
 //   P     = softmax(q k^T * scale, masked logits = -1e30)   (recomputed, fp32)
 //   dV    = P^T dO
@@ -409,7 +414,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int sq, int sk, int heads, int head_dim, float scale,
                    int causal, cudaStream_t stream) {
   if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      sq > sk || batch > 65535 || heads > 65535) {
+      (causal && sq > sk) || batch > 65535 || heads > 65535) {
     return cudaErrorInvalidValue;
   }
   const T* q_ = static_cast<const T*>(q);
@@ -458,4 +463,16 @@ extern "C" int mmgl_allheads_bwd(const void* q, const void* k, const void* v,
   }
   return launch<float>(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch,
                        sq, sk, heads, head_dim, scale, causal, stream);
+}
+
+// K5: backward of K4 (sq != sk, T5's cross-attention without dropout).
+extern "C" int mmgl_flash_bwd(const void* q, const void* k, const void* v,
+                              const int* kv_mask, const void* out,
+                              const void* dout, void* dq, void* dk, void* dv,
+                              float* stats, int batch, int sq, int sk,
+                              int heads, int head_dim, float scale,
+                              int causal, int is_bf16, cudaStream_t stream) {
+  return mmgl_allheads_bwd(q, k, v, kv_mask, out, dout, dq, dk, dv, stats,
+                           batch, sq, sk, heads, head_dim, scale, causal,
+                           is_bf16, stream);
 }

@@ -1,5 +1,5 @@
-// Forward attention for Hopper (sm_90a): the port of the two Pallas kernels
-// that the OPT + CLIP test-time path runs.
+// Forward attention for Hopper (sm_90a): the port of the three Pallas kernels
+// without bias or dropout (OPT, CLIP, and T5's cross-attention in eval).
 //
 // Replaces
 //   mmgl_allheads_fwd    -> _allheads_kernel_fwd (mmgl_tpu/ops/flash_attention.py:1283),
@@ -8,16 +8,23 @@
 //   mmgl_fused_heads_fwd -> _fused_heads_kernel (mmgl_tpu/ops/flash_attention.py:1152),
 //                           reached through fused_heads_attention (:1244).
 //                           CLIP vision self-attention: (24, 197, 12, 64).
-// Both compute xla_attention's math (mmgl_tpu/ops/attention.py:190-224):
+//   mmgl_flash_fwd       -> _fwd_kernel (mmgl_tpu/ops/flash_attention.py:87),
+//                           pallas_call in _fwd (:179, :209), reached through
+//                           flash_attention (:1447). T5's eval cross-attention:
+//                           q (4, 128, 12, 64), k/v (4, 512, 12, 64).
+// All three compute xla_attention's math (mmgl_tpu/ops/attention.py:190-224):
 //   out = softmax(q k^T * scale, masked logits = -1e30) v
 // with causal masking aligned at the ends (key j visible to query i iff
 // i + (sk - sq) >= j) and columns at or beyond sk weighted 0. A masked key is
 // never skipped, so a fully masked row returns the mean of v over the sk keys.
 //
-// Why one kernel for both: the TPU split them over 128-lane alignment (S % 128)
-// and VMEM residency of whole sequences. Neither exists here: a block reads any
-// sequence length through its own bounds checks, and streams K/V through shared
-// memory instead of holding the sequence.
+// Why one kernel for all three: the TPU split them over 128-lane alignment (S % 128)
+// and VMEM residency of whole sequences, and ran the per-(b*h) kernel on a
+// (B*H, S, D) transpose. None of that exists here: a block reads any sequence
+// length through its own bounds checks, streams K/V through shared memory
+// instead of holding the sequence, and reads the heads strided in place. A
+// broadcast (MQA) K/V head is expanded by the wrapper, as flash_attention
+// broadcasts it outside its kernel (:1462).
 //
 // Layout: q/k/v/out are (B, S, H*D) row-major, the layout the QKV projections
 // produce. Each block reads its head's columns strided straight from it (row
@@ -212,8 +219,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_mask, void* out, int batch, int sq, int sk,
                    int heads, int head_dim, float scale, int causal,
                    cudaStream_t stream) {
+  // causal needs sq <= sk (the ends are aligned); without it any sq goes
   if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      sq > sk || batch > 65535 || heads > 65535) {
+      (causal && sq > sk) || batch > 65535 || heads > 65535) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((sq + kTileQ - 1) / kTileQ, heads, batch);
@@ -255,6 +263,17 @@ extern "C" int mmgl_fused_heads_fwd(const void* q, const void* k,
                                     int head_dim, float scale, int causal,
                                     int is_bf16, cudaStream_t stream) {
   return dispatch(q, k, v, kv_mask, out, batch, seq, seq, heads, head_dim,
+                  scale, causal, is_bf16, stream);
+}
+
+// K4: T5's cross-attention in eval (sq != sk), and any call without bias or
+// dropout that K1 and K2 do not serve.
+extern "C" int mmgl_flash_fwd(const void* q, const void* k, const void* v,
+                              const int* kv_mask, void* out, int batch,
+                              int sq, int sk, int heads, int head_dim,
+                              float scale, int causal, int is_bf16,
+                              cudaStream_t stream) {
+  return dispatch(q, k, v, kv_mask, out, batch, sq, sk, heads, head_dim,
                   scale, causal, is_bf16, stream);
 }
 

@@ -1,4 +1,5 @@
-// Helpers shared by the attention kernels (attention_fwd.cu, attention_bwd.cu).
+// Helpers shared by the attention kernels (attention_fwd.cu, attention_bwd.cu,
+// attention_bias_fwd.cu, attention_bias_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +9,19 @@ namespace mmgl {
 
 constexpr int kD = 64;             // head dim
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package, not -inf
+
+// one element as fp32, and back
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 // four consecutive elements as fp32 (16 bytes of fp32, 8 of bf16)
 __device__ __forceinline__ float4 load4(const float* p) {

@@ -114,15 +114,24 @@ def load() -> Library:
     seconds = 0.0 if out.exists() else _compile(out)
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmgl_allheads_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                      i32, i32, f32, i32, i32, ptr]
-    lib.mmgl_allheads_fwd.restype = i32
+    u32 = ctypes.c_uint
+    for fn in ("mmgl_allheads_fwd", "mmgl_flash_fwd"):
+        getattr(lib, fn).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     i32, i32, f32, i32, i32, ptr]
+        getattr(lib, fn).restype = i32
     lib.mmgl_fused_heads_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                          i32, i32, f32, i32, i32, ptr]
     lib.mmgl_fused_heads_fwd.restype = i32
-    lib.mmgl_allheads_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [f32, i32, i32,
-                                                               ptr]
-    lib.mmgl_allheads_bwd.restype = i32
+    for fn in ("mmgl_allheads_bwd", "mmgl_flash_bwd"):
+        getattr(lib, fn).argtypes = [ptr] * 10 + [i32] * 5 + [f32, i32, i32,
+                                                              ptr]
+        getattr(lib, fn).restype = i32
+    lib.mmgl_bias_fwd.argtypes = ([ptr] * 7 + [i32] * 5
+                                  + [f32, i32, u32, f32, i32, i32, ptr])
+    lib.mmgl_bias_fwd.restype = i32
+    lib.mmgl_bias_bwd.argtypes = ([ptr] * 14 + [i32] * 5
+                                  + [f32, i32, u32, f32, i32, i32, ptr])
+    lib.mmgl_bias_bwd.restype = i32
     lib.mmgl_error_string.argtypes = [i32]
     lib.mmgl_error_string.restype = ctypes.c_char_p
     ptxas = out.with_suffix(".ptxas.txt")

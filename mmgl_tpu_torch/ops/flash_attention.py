@@ -1,5 +1,5 @@
 """Wrappers of the port's attention kernels (csrc/attention_fwd.cu,
-csrc/attention_bwd.cu).
+csrc/attention_bwd.cu, csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
 
   K1 ``flash_attention_allheads``: OPT's aligned causal self-attention,
      replacing the Pallas ``_allheads_kernel_fwd``
@@ -10,10 +10,24 @@ csrc/attention_bwd.cu).
   K3 ``flash_attention_allheads_bwd``: the backward of K1, replacing the
      Pallas ``_allheads_kernel_bwd`` (mmgl_tpu/ops/flash_attention.py:1307,
      via ``_allheads_vjp_bwd`` :1392).
+  K4 ``flash_attention``: attention without bias or dropout at sq != sk or
+     with a broadcast K/V head (T5's eval cross-attention), replacing the
+     Pallas ``_fwd_kernel`` (mmgl_tpu/ops/flash_attention.py:87, pallas_call
+     in ``_fwd`` :179/:209, entry :1447).
+  K5 ``flash_attention_bwd``: the backward of K4, replacing the Pallas
+     ``_bwd_kernel`` (mmgl_tpu/ops/flash_attention.py:414, ``_bwd`` :457).
+  K7 ``flash_attention_bias``: attention with a batch-shared additive bias
+     and in-kernel prob-dropout (T5), replacing the Pallas
+     ``_fwd_bias_kernel(_batched)`` (mmgl_tpu/ops/flash_attention.py:594/624,
+     ``_fwd_bias`` :768, entry :1069).
+  K8/K9 ``flash_attention_bias_bwd``: the backward of K7 with dbias, one
+     kernel for the Pallas ``_bwd_bias_kernel_batched`` (:843, K8) and
+     ``_bwd_bias_kernel`` (:689, K9).
 
-K1 and K2 keep the JAX signatures, BSHD in and out, and carry autograd on
+K1, K2, K4 and K7 keep the JAX signatures, BSHD in and out, and carry autograd on
 every device: K1 through ``_AllheadsAttention`` (K1 forward, K3 backward, the
-counterpart of the ``_allheads`` custom VJP), K2 through
+counterpart of the ``_allheads`` custom VJP), K4 through ``_FlashAttention``
+(K5 backward), K7 through ``_BiasAttention`` (K8/K9 backward), K2 through
 ``_FusedHeadsAttention``, whose backward recomputes through the plain version
 as ``_fused_heads_vjp_bwd`` does with XLA (the towers are frozen, so the
 main path never runs it). On a CUDA tensor a wrapper checks its inputs,
@@ -35,7 +49,9 @@ from typing import Optional
 import torch
 
 from mmgl_tpu_torch.ops import _build
-from mmgl_tpu_torch.ops.attention import NEG_INF, attention_reference
+from mmgl_tpu_torch.ops.attention import (NEG_INF, attention_reference,
+                                          dropout_keep_factor,
+                                          dropout_threshold)
 
 HEAD_DIM = 64
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -87,7 +103,83 @@ def allheads_attention_bwd_reference(q, k, v, kv_mask, out, dout,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(name: str, q, k, v, kv_mask) -> None:
+def flash_attention_reference(q, k, v, *, kv_mask=None, causal=False,
+                              scale=None):
+    """Plain version of K4: ``xla_attention``'s math in torch."""
+    return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
+                               scale=scale)
+
+
+def flash_attention_bwd_reference(q, k, v, kv_mask, out, dout, causal=False,
+                                  scale=None):
+    """Plain version of K5: K3's math (``allheads_attention_bwd_reference``),
+    which holds for sq != sk."""
+    return allheads_attention_bwd_reference(q, k, v, kv_mask, out, dout,
+                                            causal=causal, scale=scale)
+
+
+def bias_attention_reference(q, k, v, *, bias=None, kv_mask=None,
+                             causal=False, scale=None, dropout_rate=0.0,
+                             dropout_seed=None):
+    """Plain version of K7: ``xla_attention``'s math in torch with the
+    kernel's dropout bits."""
+    return attention_reference(q, k, v, kv_mask=kv_mask, bias=bias,
+                               causal=causal, scale=scale,
+                               dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed)
+
+
+def _allowed(q, k, kv_mask, causal):
+    """(B, 1, Sq, Sk) bool: the logits that are not masked."""
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    allowed = torch.ones(b, 1, sq, sk, dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        allowed = allowed & kv_mask.bool()[:, None, None, :]
+    if causal:
+        q_idx = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        allowed = allowed & (q_idx >= torch.arange(sk, device=q.device))
+    return allowed
+
+
+def bias_attention_bwd_reference(q, k, v, kv_mask, bias, out, dout, *,
+                                 causal=False, scale=None, dropout_rate=0.0,
+                                 dropout_seed=None):
+    """Plain version of K8/K9: (dq, dk, dv, dbias) of
+    ``bias_attention_reference`` for the cotangent ``dout``, with ``out`` its
+    forward output; dbias is None without a bias, else summed over the batch
+    in the bias's shape and dtype.
+
+    The Pallas math (:701-754) with m the keep factor: P recomputed in fp32,
+    dV = (P m)^T dO, delta = rowsum(dO * o), dlogits = P (m dP - delta),
+    dbias = sum_b dlogits, dS = dlogits * scale; plus xla_attention's zero
+    at masked logits. In fp32 it equals torch autograd through
+    ``attention_reference`` with the same mask."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
+    allowed = _allowed(q, k, kv_mask, causal)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    p = torch.softmax(logits.masked_fill(~allowed, NEG_INF), dim=-1)
+    mf = 1.0
+    if dropout_threshold(dropout_rate) is not None:
+        mf = dropout_keep_factor(dropout_seed, p.shape, dropout_rate)
+    dv = torch.einsum("bhqk,bqhd->bkhd", (p * mf).to(q.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]     # (B, H, Sq, 1)
+    dlogits = (p * (mf * dp - delta)).masked_fill(~allowed, 0.0)
+    ds = (dlogits * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dbias = None
+    if bias is not None:
+        dbias = dlogits.sum(0, keepdim=True).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def _check(name: str, q, k, v, kv_mask, allow_sq_gt_sk: bool = False
+           ) -> None:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"{name}: q/k/v must be BSHD with k.shape == v.shape,"
                          f" got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -96,7 +188,7 @@ def _check(name: str, q, k, v, kv_mask) -> None:
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if k.shape[1] < sq:
+    if k.shape[1] < sq and not allow_sq_gt_sk:
         raise ValueError(f"{name}: sq={sq} > sk={k.shape[1]}")
     if kv_mask is not None and tuple(kv_mask.shape) != (b, k.shape[1]):
         raise ValueError(f"{name}: kv_mask {tuple(kv_mask.shape)} is not "
@@ -154,8 +246,9 @@ def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
     return out
 
 
-def _launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
-    """Run K3's launcher on the current stream; returns (dq, dk, dv)."""
+def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
+    """Run a dense backward launcher (K3, K5) on the current stream;
+    returns (dq, dk, dv)."""
     b, sq, h, d = q.shape
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
@@ -163,13 +256,31 @@ def _launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
     stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.mmgl_allheads_bwd(
+        err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(), b, sq, k.shape[1], h, d,
             float(scale), int(causal), int(q.dtype == torch.bfloat16), stream)
-    _build.check(lib, err, "flash_attention_allheads_bwd")
+    _build.check(lib, err, name)
     return dq, dk, dv
+
+
+def _check_out_dout(name, q, out, dout):
+    """out and dout as the backward kernels take them: q's shape, and on
+    the card q's dtype and device, contiguous (autograd may hand a strided
+    dout, and a plain forward a strided out)."""
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if _plain(q):
+        return out, dout
+    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    if out.dtype != q.dtype or out.device != q.device \
+            or dout.device != q.device:
+        raise ValueError(f"{name}: out/dout must match q's dtype and device")
+    _check_layout(name, out, dout)
+    return out, dout
 
 
 def _allheads_forward(q, k, v, kv_mask, causal, scale):
@@ -189,22 +300,14 @@ def flash_attention_allheads_bwd(q, k, v, kv_mask, out, dout, *,
     output for the same inputs. Each in q's dtype and shape."""
     name = "flash_attention_allheads_bwd"
     _check(name, q, k, v, kv_mask)
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"{name}: out {tuple(out.shape)} and dout "
-                         f"{tuple(dout.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    out, dout = _check_out_dout(name, q, out, dout)
     if _plain(q):
         return allheads_attention_bwd_reference(q, k, v, kv_mask, out, dout,
                                                 causal=causal, scale=scale)
-    # autograd may hand a strided dout, and a plain forward a strided out
-    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
-    if out.dtype != q.dtype or out.device != q.device \
-            or dout.device != q.device:
-        raise ValueError(f"{name}: out/dout must match q's dtype and device")
-    _check_layout(name, out, dout)
-    grads = _launch_bwd(q, k, v, kv_mask, out, dout, causal, scale)
+    grads = _launch_bwd("mmgl_allheads_bwd", name, q, k, v, kv_mask, out,
+                        dout, causal, scale)
     flash_attention_allheads_bwd.launches += 1
     return grads
 
@@ -298,3 +401,270 @@ def fused_heads_attention(
 
 
 fused_heads_attention.launches = 0
+
+
+def _broadcast_kv(q, k, v):
+    """K/V with a single head broadcast to q's heads, contiguous, as
+    ``flash_attention`` broadcasts them outside its kernel (:1462); the
+    gradient of ``expand`` sums dK/dV over the heads, the VJP of
+    ``broadcast_to``."""
+    b, sk, h, d = q.shape[0], k.shape[1], q.shape[2], q.shape[3]
+    if k.shape[2] == 1 and h > 1:
+        k = k.expand(b, sk, h, d).contiguous()
+        v = v.expand(b, sk, h, v.shape[-1]).contiguous()
+    return k, v
+
+
+def flash_attention_bwd(q, k, v, kv_mask, out, dout, *, causal=False,
+                        scale=None):
+    """K5: (dq, dk, dv) of K4 for the cotangent ``dout``; ``out`` is K4's
+    output for the same inputs (k/v with q's heads)."""
+    name = "flash_attention_bwd"
+    _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    out, dout = _check_out_dout(name, q, out, dout)
+    if _plain(q):
+        return flash_attention_bwd_reference(q, k, v, kv_mask, out, dout,
+                                             causal=causal, scale=scale)
+    grads = _launch_bwd("mmgl_flash_bwd", name, q, k, v, kv_mask, out, dout,
+                        causal, scale)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward, K5 backward (the ``_flash`` custom VJP,
+    mmgl_tpu/ops/flash_attention.py:1404-1420)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        if _plain(q):
+            out = flash_attention_reference(q, k, v, kv_mask=kv_mask,
+                                            causal=causal, scale=scale)
+        else:
+            b, sq, h, _ = q.shape
+            out = _launch("mmgl_flash_fwd", "flash_attention", q, k, v,
+                          kv_mask, causal, scale, b, sq, k.shape[1], h)
+            flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, kv_mask, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, dout,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K4: attention over BSHD tensors without bias or dropout, any sq and
+    sk (sq <= sk when causal, ends aligned), K/V with q's heads or one
+    broadcast head; (B, Sq, H, D) out. Its gradient runs K5."""
+    k, v = _broadcast_kv(q, k, v)
+    _check("flash_attention", q, k, v, kv_mask, allow_sq_gt_sk=not causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale)
+
+
+flash_attention.launches = 0
+
+
+def _dropout_args(rate, seed, q):
+    """(seed or None, threshold, keep_inv) of a dropout rate; raises
+    without a seed where the rate drops anything."""
+    thr = dropout_threshold(rate)
+    if thr is None:
+        return None, 0, 1.0
+    if seed is None:
+        raise ValueError("dropout_rate > 0 needs dropout_seed")
+    if seed.shape != (2,) or seed.dtype != torch.int64:
+        raise ValueError(f"dropout_seed must be a (2,) int64 tensor, got "
+                         f"{tuple(seed.shape)} {seed.dtype}")
+    if not _plain(q):
+        if seed.device != q.device:
+            raise ValueError(f"dropout_seed on {seed.device}, q on "
+                             f"{q.device}")
+        _check_layout("flash_attention_bias", seed)
+    return seed, thr[0], thr[1]
+
+
+def _check_bias(name, q, k, bias):
+    """The kernels' bias: (H, Sq, Sk) contiguous, fp32 or bf16."""
+    if bias is None:
+        return
+    b, sq, h, _ = q.shape
+    if tuple(bias.shape) != (h, sq, k.shape[1]):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} is not (H, Sq, "
+                         f"Sk) = {(h, sq, k.shape[1])}")
+    if _plain(q):
+        return
+    if bias.dtype not in _DTYPES or bias.device != q.device:
+        raise ValueError(f"{name}: bias must be float32 or bfloat16 on "
+                         f"{q.device}, got {bias.dtype} on {bias.device}")
+    _check_layout(name, bias)
+
+
+def _bias_ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv):
+    """Run K7's launcher on the current stream; returns out."""
+    b, sq, h, d = q.shape
+    lib = _build.load().lib
+    mask = _int_mask(q, k, kv_mask)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.mmgl_bias_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            _bias_ptr(bias), _bias_ptr(seed), out.data_ptr(), b, sq,
+            k.shape[1], h, d, float(scale), int(causal), thr, keep_inv,
+            int(q.dtype == torch.bfloat16),
+            int(bias is not None and bias.dtype == torch.bfloat16), stream)
+    _build.check(lib, err, "flash_attention_bias")
+    return out
+
+
+def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
+                     thr, keep_inv):
+    """Run K8/K9's launcher on the current stream; returns (dq, dk, dv,
+    dbias). dbias is summed over the batch from a per-(b, h) fp32 partial
+    of dlogits in a fixed order (no atomics): B * H * Sq * Sk * 4 bytes of
+    scratch, 50,331,648 at T5-base's encoder shape (4, 12, 512, 512)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    lib = _build.load().lib
+    mask = _int_mask(q, k, kv_mask)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
+    dbias = partial = None
+    if bias is not None:
+        dbias = torch.empty_like(bias)
+        # zeroed: the dQ launch skips the causally hidden tiles
+        partial = torch.zeros(b * h * sq * sk, dtype=torch.float32,
+                              device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.mmgl_bias_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            _bias_ptr(bias), _bias_ptr(seed), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _bias_ptr(dbias),
+            stats.data_ptr(), _bias_ptr(partial), b, sq, sk, h, d,
+            float(scale), int(causal), thr, keep_inv,
+            int(q.dtype == torch.bfloat16),
+            int(bias is not None and bias.dtype == torch.bfloat16), stream)
+    _build.check(lib, err, "flash_attention_bias_bwd")
+    return dq, dk, dv, dbias
+
+
+def flash_attention_bias_bwd(q, k, v, kv_mask, bias, out, dout, *,
+                             causal=False, scale=None, dropout_rate=0.0,
+                             dropout_seed=None):
+    """K8/K9: (dq, dk, dv, dbias) of K7 for the cotangent ``dout``, with
+    ``out`` K7's output for the same inputs and dropout key. bias is
+    (H, Sq, Sk) or None; dbias is (H, Sq, Sk) in the bias dtype, summed over
+    the batch, or None without a bias."""
+    name = "flash_attention_bias_bwd"
+    _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
+    _check_bias(name, q, k, bias)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    seed, thr, keep_inv = _dropout_args(dropout_rate, dropout_seed, q)
+    out, dout = _check_out_dout(name, q, out, dout)
+    if _plain(q):
+        dq, dk, dv, dbias = bias_attention_bwd_reference(
+            q, k, v, kv_mask, None if bias is None else bias[None], out, dout,
+            causal=causal, scale=scale, dropout_rate=dropout_rate,
+            dropout_seed=seed)
+        return dq, dk, dv, None if dbias is None else dbias[0]
+    grads = _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal,
+                             scale, thr, keep_inv)
+    flash_attention_bias_bwd.launches += 1
+    return grads
+
+
+flash_attention_bias_bwd.launches = 0
+
+
+class _BiasAttention(torch.autograd.Function):
+    """K7 forward, K8/K9 backward (the ``_flash_bias`` custom VJP,
+    mmgl_tpu/ops/flash_attention.py:1043-1066). bias is (H, Sq, Sk) or
+    None; seed the dropout key or None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, bias, seed, causal, scale, rate):
+        if _plain(q):
+            out = bias_attention_reference(
+                q, k, v, bias=None if bias is None else bias[None],
+                kv_mask=kv_mask, causal=causal, scale=scale,
+                dropout_rate=rate, dropout_seed=seed)
+        else:
+            seed, thr, keep_inv = _dropout_args(rate, seed, q)
+            out = _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale,
+                               thr, keep_inv)
+            flash_attention_bias.launches += 1
+        ctx.save_for_backward(q, k, v, kv_mask, bias, seed, out)
+        ctx.causal, ctx.scale, ctx.rate = causal, scale, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, bias, seed, out = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bias_bwd(
+            q, k, v, kv_mask, bias, out, dout, causal=ctx.causal,
+            scale=ctx.scale, dropout_rate=ctx.rate, dropout_seed=seed)
+        return dq, dk, dv, None, dbias, None, None, None, None
+
+
+def flash_attention_bias(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K7: attention over BSHD tensors with a batch-shared additive bias
+    (1, H or 1, Sq, Sk) in fp32 or bf16, or none, and attention-prob
+    dropout at ``dropout_rate`` under the (2,) int64 key ``dropout_seed``
+    (``attention.draw_dropout_seed``); (B, Sq, H, D) out. Its gradient runs
+    K8/K9 and reaches the bias."""
+    k, v = _broadcast_kv(q, k, v)
+    name = "flash_attention_bias"
+    _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if bias is not None:
+        if bias.dim() != 4 or bias.shape[0] != 1:
+            raise ValueError(f"{name}: the kernel takes a batch-shared "
+                             f"(1, H, Sq, Sk) bias, got {tuple(bias.shape)}")
+        h = q.shape[2]
+        # a broadcast head is expanded; the gradient sums it back
+        bias = bias[0].expand(h, *bias.shape[2:]).contiguous()
+        _check_bias(name, q, k, bias)
+    seed, _, _ = _dropout_args(dropout_rate, dropout_seed, q)
+    return _BiasAttention.apply(q, k, v, kv_mask, bias, seed, causal, scale,
+                                dropout_rate if seed is not None else 0.0)
+
+
+flash_attention_bias.launches = 0

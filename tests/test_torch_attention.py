@@ -16,7 +16,9 @@ import torch
 
 from mmgl_tpu.ops.attention import xla_attention
 from mmgl_tpu.ops.flash_attention import (
+    flash_attention as jax_flash,
     flash_attention_allheads as jax_allheads,
+    flash_attention_bias as jax_flash_bias,
     fused_heads_attention as jax_fused_heads)
 from mmgl_tpu_torch.ops import attention as att
 from mmgl_tpu_torch.ops import flash_attention as fa
@@ -37,9 +39,9 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-def _close(got, want):
+def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
-                               atol=ATOL)
+                               atol=atol)
 
 
 @pytest.mark.parametrize("case", [
@@ -149,11 +151,10 @@ def test_fused_heads_fully_masked_row_follows_xla_attention():
     ((2, 128, 2, 64), (2, 128, 1, 64), {}, "K4"),              # MQA
 ])
 def test_dispatch_route(q_shape, k_shape, kw, route):
-    if route in ("K4", "K7"):
-        with pytest.raises(NotImplementedError, match=route):
-            att.attention_route(q_shape, k_shape, **kw)
-    else:
-        assert att.attention_route(q_shape, k_shape, **kw) == route
+    """K7 (bias, dropout) and K4 (sq != sk, MQA) are routes of their own;
+    the 128-query shapes take them too (no BIAS_MIN_SQ gate)."""
+    want = {"K7": "bias", "K4": "flash"}.get(route, route)
+    assert att.attention_route(q_shape, k_shape, **kw) == want
 
 
 @pytest.mark.parametrize("s,kernel", [(128, "flash_attention_allheads"),
@@ -178,13 +179,28 @@ def test_multi_head_attention_calls_the_kernel_wrapper(monkeypatch, s,
     _close(got, want)
 
 
-def test_multi_head_attention_raises_for_unported_kernels():
+def test_multi_head_attention_raises_for_unported_kernels(monkeypatch):
+    """The calls that raised while K7 and K4 were not ported (a bias, a
+    broadcast K/V head) now reach their wrappers and agree with
+    xla_attention; what still raises is attention dropout without a
+    generator (atol 1e-5)."""
     q, k, v, _ = _inputs(1, 64, 64, 2, 64, seed=12)
+    bias = np.random.RandomState(13).randn(1, 2, 64, 64).astype(np.float32)
     tq, tk, tv = _t(q, k, v)
-    with pytest.raises(NotImplementedError, match="K7"):
-        att.multi_head_attention(tq, tk, tv, bias=torch.zeros(1, 2, 64, 64))
-    with pytest.raises(NotImplementedError, match="K4"):
-        att.multi_head_attention(tq, tk[:, :, :1], tv[:, :, :1])
+    calls = []
+    for name in ("flash_attention_bias", "flash_attention"):
+        orig = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, _o=orig, _n=name, **kw: (
+            calls.append(_n), _o(*a, **kw))[1])
+    got = att.multi_head_attention(tq, tk, tv, bias=torch.from_numpy(bias))
+    _close(got, xla_attention(*map(jnp.asarray, (q, k, v)),
+                              bias=jnp.asarray(bias)))
+    got = att.multi_head_attention(tq, tk[:, :, :1], tv[:, :, :1])
+    _close(got, xla_attention(*map(jnp.asarray, (q, k[:, :, :1],
+                                                 v[:, :, :1]))))
+    assert calls == ["flash_attention_bias", "flash_attention"]
+    with pytest.raises(ValueError, match="generator"):
+        att.multi_head_attention(tq, tk, tv, dropout_rate=0.1)
 
 
 def test_wrappers_check_their_inputs():
@@ -312,7 +328,7 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
             return att.attention_reference(q, k, v, kv_mask=kv_mask,
                                            causal=causal, scale=scale).clone()
 
-    def fake_launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
+    def fake_launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
         return fa.allheads_attention_bwd_reference(q, k, v, kv_mask, out,
                                                    dout, causal, scale)
 
@@ -345,3 +361,281 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
             name == "flash_attention_allheads")
         for g, w in zip(got, want):
             _close(g, w)
+
+
+# ---- K4/K5: per-head attention at sq != sk and MQA --------------------------
+
+FLASH_CASES = [  # (B, Sq, Sk, H, kv_heads, causal)
+    (2, 48, 112, 2, 2, False),      # T5's cross-attention shape, cut
+    (2, 48, 112, 2, 2, True),       # causal with aligned ends
+    (2, 64, 64, 3, 1, False),       # MQA: one K/V head broadcast
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,causal", FLASH_CASES)
+def test_flash_attention_matches_jax_pallas_kernel(b, sq, sk, h, kvh, causal):
+    """K4 on CPU tensors (its plain version) vs the Pallas K4 in interpret
+    mode, D = 64, a hole mask with key 0 valid; atol 1e-5."""
+    q, k, v, _ = _inputs(b, sq, sk, h, 64, seed=sq + sk + kvh, kv_heads=kvh)
+    mask = _hole_mask(b, sk, seed=sk)
+    want = jax_flash(*map(jnp.asarray, (q, k, v)), kv_mask=jnp.asarray(mask),
+                     causal=causal, interpret=True)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(*_t(q, k, v), kv_mask=torch.from_numpy(mask),
+                             causal=causal)
+    assert fa.flash_attention.launches == before
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,causal", FLASH_CASES)
+def test_flash_attention_grads_match_jax_pallas_backward(b, sq, sk, h, kvh,
+                                                         causal):
+    """autograd through K4 (K5's plain version; under MQA dK/dV summed over
+    the broadcast heads) vs jax.grad through the Pallas K4/K5 in interpret
+    mode; atol 1e-5."""
+    q, k, v, _ = _inputs(b, sq, sk, h, 64, seed=50 + sk + kvh, kv_heads=kvh)
+    mask = _hole_mask(b, sk, seed=sq)
+
+    def jloss(q, k, v):
+        return _weighted_sum(jax_flash(q, k, v, kv_mask=jnp.asarray(mask),
+                                       causal=causal, interpret=True), jnp.cos)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = fa.flash_attention(tq, tk, tv, kv_mask=torch.from_numpy(mask),
+                             causal=causal)
+    got = torch.autograd.grad(_weighted_sum(out), (tq, tk, tv))
+    assert got[1].shape == tk.shape
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+# ---- K7/K8/K9: bias attention ----------------------------------------------
+
+BIAS_CASES = [  # (B, Sq, Sk, H, bias heads or 0 for none, causal)
+    (2, 64, 64, 2, 2, False),       # T5's encoder self-attention, cut
+    (2, 64, 64, 2, 2, True),        # the decoder's causal self-attention
+    (2, 48, 112, 2, 0, False),      # training cross-attention: no bias
+    (2, 40, 72, 3, 1, False),       # a bias broadcast over the heads
+]
+
+
+def _bias(h, sq, sk, seed):
+    return np.random.RandomState(seed).randn(1, h, sq, sk).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,bh,causal", BIAS_CASES)
+def test_bias_attention_matches_jax_pallas_kernel(b, sq, sk, h, bh, causal):
+    """K7 without dropout on CPU tensors vs the Pallas K7 in interpret mode,
+    D = 64, T5's scale 1.0 and the default scale; atol 1e-5."""
+    q, k, v, _ = _inputs(b, sq, sk, h, 64, seed=60 + sq + bh)
+    mask = _hole_mask(b, sk, seed=sk + 1)
+    bias = _bias(bh, sq, sk, seed=sq) if bh else None
+    for scale in (1.0, None):
+        want = jax_flash_bias(
+            *map(jnp.asarray, (q, k, v)),
+            bias=None if bias is None else jnp.asarray(bias),
+            kv_mask=jnp.asarray(mask), causal=causal, scale=scale,
+            interpret=True)
+        got = fa.flash_attention_bias(
+            *_t(q, k, v), bias=None if bias is None else torch.from_numpy(bias),
+            kv_mask=torch.from_numpy(mask), causal=causal, scale=scale)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,bh,causal", BIAS_CASES)
+def test_bias_attention_grads_match_jax_pallas_backward(b, sq, sk, h, bh,
+                                                        causal):
+    """autograd through K7 on CPU tensors (K8/K9's plain version) vs
+    jax.grad through the Pallas K7 and its backward in interpret mode: dq,
+    dk, dv and dbias (summed over the batch, and over the heads of a
+    broadcast bias); scale 1.0 with q scaled by D**-0.5 (T5 folds the
+    scale into its init), no dropout; atol 1e-5 (dbias 2e-5: a sum over the
+    batch of sums over D)."""
+    q, k, v, _ = _inputs(b, sq, sk, h, 64, seed=70 + sq + bh)
+    q = q * np.float32(0.125)
+    mask = _hole_mask(b, sk, seed=sk + 2)
+    bias = _bias(bh, sq, sk, seed=sq + 1) if bh else np.zeros((1,), np.float32)
+
+    def jloss(q, k, v, bias):
+        return _weighted_sum(jax_flash_bias(
+            q, k, v, bias=bias if bh else None, kv_mask=jnp.asarray(mask),
+            causal=causal, scale=1.0, interpret=True), jnp.cos)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (q, k, v, bias)))
+    tq, tk, tv, tb = (t.requires_grad_() for t in _t(q, k, v, bias))
+    out = fa.flash_attention_bias(tq, tk, tv, bias=tb if bh else None,
+                                  kv_mask=torch.from_numpy(mask),
+                                  causal=causal, scale=1.0)
+    got = torch.autograd.grad(_weighted_sum(out), (tq, tk, tv) + (
+        (tb,) if bh else ()))
+    for g, w in zip(got[:3], want[:3]):
+        _close(g, w)
+    if bh:
+        np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
+                                   rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bias_bwd_reference_matches_autograd(causal, rate):
+    """K8/K9's plain version equals torch autograd through
+    attention_reference with the same keep mask, a fully masked sample
+    included (no dq, dk or dbias from it; dV from the uniform 1/Sk); atol
+    1e-5."""
+    b, sq, sk, h = 2, 40, 72 if not causal else 40, 2
+    q, k, v, _ = _inputs(b, sq, sk, h, 64, seed=80 + causal)
+    q = q * np.float32(0.125)   # T5's scale 1.0 with D**-0.5 folded in
+    mask = _hole_mask(b, sk, seed=6)
+    mask[1] = 0
+    tmask = torch.from_numpy(mask)
+    seed = torch.tensor([12345, 678], dtype=torch.int64)
+    keep = (att.dropout_bits(seed, (b, h, sq, sk))
+            < att.dropout_threshold(rate)[0]) if rate else None
+    tq, tk, tv, tb = (t.requires_grad_()
+                      for t in _t(q, k, v, _bias(h, sq, sk, seed=3)))
+    out = att.attention_reference(tq, tk, tv, kv_mask=tmask, bias=tb,
+                                  causal=causal, scale=1.0,
+                                  dropout_rate=rate, dropout_mask=keep)
+    dout = torch.from_numpy(
+        np.random.RandomState(5).randn(*out.shape).astype(np.float32))
+    want = torch.autograd.grad(out, (tq, tk, tv, tb), dout)
+    got = fa.bias_attention_bwd_reference(
+        tq.detach(), tk.detach(), tv.detach(), tmask, tb.detach(),
+        out.detach(), dout, causal=causal, scale=1.0, dropout_rate=rate,
+        dropout_seed=seed)
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert float(got[0][1].abs().max()) == 0.0
+
+
+# ---- dropout: the kernels' counter-based bits --------------------------------
+
+def test_dropout_bits_are_philox_4x32_10():
+    """philox4x32_10 gives the Random123 known answers, and the keep mask is
+    a pure function of (seed, b, h, i, j): the same for a sub-shape, the
+    same when drawn twice, other under another seed."""
+    kat = [((0, 0, 0, 0), (0, 0),
+            (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+           ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+            (0xa4093822, 0x299f31d0),
+            (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+    for ctr, key, want in kat:
+        got = att.philox4x32_10(*(torch.tensor(c) for c in ctr),
+                                *(torch.tensor(k_) for k_ in key))
+        assert tuple(int(w) for w in got) == want
+    seed = torch.tensor([2 ** 32 - 5, 77], dtype=torch.int64)
+    bits = att.dropout_bits(seed, (2, 3, 20, 70))
+    assert bits.dtype == torch.int64 and int(bits.min()) >= 0
+    assert int(bits.max()) < 2 ** 32
+    assert torch.equal(bits, att.dropout_bits(seed, (2, 3, 20, 70)))
+    assert torch.equal(bits[:1, 1:, :7, :33],
+                       att.dropout_bits(seed, (1, 3, 7, 33))[:, 1:])
+    b, h, i, j = 1, 2, 13, 45
+    words = att.philox4x32_10(*(torch.tensor(c) for c in (
+        ((j >> 4) << 2) | (j & 3), i, h, b)), seed[0], seed[1])
+    assert int(bits[b, h, i, j]) == int(words[(j >> 2) & 3])
+    other = att.dropout_bits(torch.tensor([2 ** 32 - 5, 78]), (2, 3, 20, 70))
+    assert float((other == bits).float().mean()) < 0.01
+
+
+def test_dropout_keep_fraction_matches_the_jax_package():
+    """At rate 0.1 the kept share of a T5-sized mask is within 4 sigma of
+    0.9, as the JAX package's (jax.random.bernoulli in xla_attention) is;
+    the masks themselves are not comparable (other generators)."""
+    shape = (2, 4, 64, 512)
+    n = float(np.prod(shape))
+    sigma = (0.9 * 0.1 / n) ** 0.5
+    keep = att.dropout_keep_factor(torch.tensor([3, 4]), shape, 0.1)
+    assert set(torch.unique(keep).tolist()) == {
+        0.0, torch.tensor(1.0 / 0.9, dtype=torch.float32).item()}
+    frac = float((keep > 0).float().mean())
+    jfrac = float(jnp.mean(jax.random.bernoulli(jax.random.PRNGKey(0), 0.9,
+                                                shape)))
+    for f in (frac, jfrac):
+        assert abs(f - 0.9) < 4 * sigma, f
+    assert att.dropout_threshold(0.1) == (round(0.9 * 2 ** 32), 1 / 0.9)
+    assert att.dropout_threshold(0.0) is None
+
+
+def test_attention_reference_dropout_seed_and_mask_agree():
+    """attention_reference's dropout from a seed equals the same call with
+    the explicit keep mask of that seed, and K7's plain version equals both
+    (atol 1e-5)."""
+    q, k, v, mask = _inputs(2, 40, 56, 2, 64, seed=90)
+    seed = torch.tensor([9, 10], dtype=torch.int64)
+    keep = att.dropout_bits(seed, (2, 2, 40, 56)) < att.dropout_threshold(
+        0.1)[0]
+    tq, tk, tv = _t(q, k, v)
+    tmask = torch.from_numpy(mask)
+    a = att.attention_reference(tq, tk, tv, kv_mask=tmask, dropout_rate=0.1,
+                                dropout_seed=seed)
+    b_ = att.attention_reference(tq, tk, tv, kv_mask=tmask, dropout_rate=0.1,
+                                 dropout_mask=keep)
+    c = fa.flash_attention_bias(tq, tk, tv, kv_mask=tmask, dropout_rate=0.1,
+                                dropout_seed=seed)
+    _close(a, b_)
+    _close(c, b_)
+    plain = att.attention_reference(tq, tk, tv, kv_mask=tmask)
+    assert float((a - plain).abs().max()) > 1e-2
+
+
+def test_bias_kernel_path_keeps_the_autograd_graph(monkeypatch):
+    """K7's card path taken on the CPU with its launchers replaced by the
+    plain versions computed without autograd: with a bias and dropout the
+    output still has a grad_fn, the backward launches K8/K9 once and not
+    the plain version, and the gradients, dbias included, equal autograd
+    through the plain path with the same keep mask (atol 1e-5 x the
+    largest gradient)."""
+    def fake_launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
+                         keep_inv):
+        with torch.no_grad():
+            return fa.bias_attention_reference(
+                q, k, v, bias=None if bias is None else bias[None],
+                kv_mask=kv_mask, causal=causal, scale=scale,
+                dropout_rate=0.0 if seed is None else 0.1,
+                dropout_seed=seed).clone()
+
+    def fake_launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal,
+                             scale, thr, keep_inv):
+        dq, dk, dv, dbias = fa.bias_attention_bwd_reference(
+            q, k, v, kv_mask, None if bias is None else bias[None], out,
+            dout, causal=causal, scale=scale,
+            dropout_rate=0.0 if seed is None else 0.1, dropout_seed=seed)
+        return dq, dk, dv, None if dbias is None else dbias[0]
+
+    monkeypatch.setattr(fa, "_plain", lambda q: False)
+    monkeypatch.setattr(fa, "_launch_bias", fake_launch_bias)
+    monkeypatch.setattr(fa, "_launch_bias_bwd", fake_launch_bias_bwd)
+    monkeypatch.setattr(fa, "_check_layout", lambda *a: None)
+    monkeypatch.setattr(fa, "HEAD_DIM", 64)
+
+    b, sq, sk, h = 2, 32, 32, 2
+    q, k, v, _ = _inputs(b, sq, sk, h, 64, seed=91)
+    q = q * np.float32(0.125)   # T5's scale 1.0 with D**-0.5 folded in
+    mask = _hole_mask(b, sk, seed=7)
+    bias = _bias(h, sq, sk, seed=8)
+    seed = torch.tensor([5, 6], dtype=torch.int64)
+    keep = att.dropout_bits(seed, (b, h, sq, sk)) < att.dropout_threshold(
+        0.1)[0]
+    tq, tk, tv, tb = (t.requires_grad_() for t in _t(q, k, v, bias))
+    want_out = att.attention_reference(tq, tk, tv, kv_mask=torch.from_numpy(
+        mask), bias=tb, causal=True, scale=1.0, dropout_rate=0.1,
+        dropout_mask=keep)
+    want = torch.autograd.grad(_weighted_sum(want_out), (tq, tk, tv, tb))
+    launches = (fa.flash_attention_bias.launches,
+                fa.flash_attention_bias_bwd.launches)
+    out = fa.flash_attention_bias(tq, tk, tv, bias=tb,
+                                  kv_mask=torch.from_numpy(mask), causal=True,
+                                  scale=1.0, dropout_rate=0.1,
+                                  dropout_seed=seed)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(_weighted_sum(out), (tq, tk, tv, tb))
+    assert fa.flash_attention_bias.launches == launches[0] + 1
+    assert fa.flash_attention_bias_bwd.launches == launches[1] + 1
+    _close(out.detach(), want_out.detach())
+    for g, w in zip(got, want):
+        # the backward's delta is rowsum(dO * o), autograd's sum(P * g):
+        # equal up to fp32 rounding on the gradient's own scale
+        _close(g, w, atol=ATOL * max(1.0, float(w.abs().max())))
