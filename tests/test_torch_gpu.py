@@ -158,3 +158,170 @@ def test_attention_grad_runs_the_backward_kernel():
     for g, r in zip(got, ref):
         torch.testing.assert_close(
             g, r, atol=BWD_TOL[torch.float32] * float(r.abs().max()), rtol=0)
+
+
+# ---- K4/K5: per-head attention (T5's eval cross-attention) -------------------
+
+# (B, Sq, Sk, H, K/V heads), causal: the T5-base cross-attention, a causal
+# sq < sk, an MQA broadcast head, and ragged lengths
+FLASH_CASES = [
+    ((4, 128, 512, 12, 12), False),
+    ((2, 100, 228, 3, 3), True),
+    ((2, 128, 128, 4, 1), False),
+    ((3, 333, 77, 2, 2), False),
+]
+
+
+def _qkv(dims, dtype, dev, seed, scale=1.0):
+    b, sq, sk, h, kvh = dims
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, sq, h, 64).astype(np.float32) * np.float32(scale)
+    k, v = (rng.randn(b, sk, kvh, 64).astype(np.float32) for _ in range(2))
+    dout = rng.randn(b, sq, h, 64).astype(np.float32)
+    return [torch.from_numpy(t).to(dev, dtype) for t in (q, k, v, dout)]
+
+
+def _close_rel(got, ref, dtype, name):
+    """Within the backward tolerance, relative to ref's largest entry."""
+    tol = BWD_TOL[dtype]
+    assert got.dtype == ref.dtype and got.shape == ref.shape, name
+    assert bool(torch.isfinite(got).all()), name
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol * scale,
+                               rtol=tol if dtype == torch.bfloat16 else 0.0,
+                               msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dims,causal", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(dims, causal, dtype):
+    """K4 forward and, through autograd, K5 (under MQA dK/dV summed over the
+    broadcast heads by expand's gradient) against the plain versions."""
+    dev = _device()
+    b, sq, sk, h, kvh = dims
+    q, k, v, dout = _qkv(dims, dtype, dev, seed=sq + sk + kvh)
+    mask = hole_mask(b, sk, seed=sk)
+    mask[-1] = 0                                   # a fully masked sample
+    mask = torch.from_numpy(mask).to(dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    got = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    kx, vx = (t.detach().expand(b, sk, h, 64) for t in (k, v))
+    ref = fa.flash_attention_reference(q.detach(), kx, vx, kv_mask=mask,
+                                       causal=causal)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.detach().float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    rq, rk, rv = fa.flash_attention_bwd_reference(
+        q.detach(), kx.contiguous(), vx.contiguous(), mask, got.detach(),
+        dout, causal=causal)
+    rk, rv = (r.float().sum(2, keepdim=True).to(dtype) if kvh == 1 else r
+              for r in (rk, rv))
+    for name, g, r in zip(("dq", "dk", "dv"), grads, (rq, rk, rv)):
+        _close_rel(g, r, dtype, name)
+
+
+# ---- K7/K8/K9: bias attention with dropout (T5) -------------------------------
+
+# (B, Sq, Sk, H), causal, bias: the T5-base encoder, decoder self and
+# training cross-attention, and ragged lengths
+BIAS_CASES = [
+    ((4, 512, 512, 12), False, True),
+    ((4, 128, 128, 12), True, True),
+    ((4, 128, 512, 12), False, False),
+    ((3, 333, 333, 2), True, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dims,causal,with_bias", BIAS_CASES)
+def test_bias_kernels_match_plain_versions(dims, causal, with_bias, dtype,
+                                           rate):
+    """K7 forward and K8/K9 (dq, dk, dv, dbias) against the plain versions,
+    which drop the same elements (the same Philox bits); T5's scale 1.0
+    with D**-0.5 folded into q."""
+    dev = _device()
+    b, sq, sk, h = dims
+    q, k, v, dout = _qkv((b, sq, sk, h, h), dtype, dev, seed=sq + sk,
+                         scale=0.125)
+    mask = hole_mask(b, sk, seed=sk + 1)
+    mask[0] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    bias = None
+    if with_bias:
+        rng = np.random.RandomState(sq)
+        bias = torch.from_numpy(rng.randn(1, h, sq, sk).astype(
+            np.float32)).to(dev, dtype).requires_grad_()
+    seed = torch.tensor([123456789, 987654321], dtype=torch.int64,
+                        device=dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (fa.flash_attention_bias.launches,
+              fa.flash_attention_bias_bwd.launches)
+    got = fa.flash_attention_bias(q, k, v, bias=bias, kv_mask=mask,
+                                  causal=causal, scale=1.0, dropout_rate=rate,
+                                  dropout_seed=seed)
+    wrt = (q, k, v) + ((bias,) if with_bias else ())
+    grads = torch.autograd.grad(got, wrt, dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bias.launches,
+            fa.flash_attention_bias_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    plain_bias = None if bias is None else bias.detach()
+    ref = fa.bias_attention_reference(
+        q.detach(), k.detach(), v.detach(), bias=plain_bias, kv_mask=mask,
+        causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.detach().float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    refs = fa.bias_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), mask, plain_bias, got.detach(),
+        dout, causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+        _close_rel(g, r, dtype, name)
+
+
+def kernel_keep_mask(b, sq, sk, h, seed, rate, dev):
+    """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output.
+    With q = 0 and one 64-key window unmasked, P is 1/64 on the window's
+    keys, and with v the identity on the window, out[..., d] is the keep
+    factor of key window + d over 64: zero exactly where it was dropped."""
+    q = torch.zeros(b, sq, h, 64, device=dev)
+    keep = torch.zeros(b, h, sq, sk, dtype=torch.bool, device=dev)
+    for w0 in range(0, sk, 64):
+        n = min(64, sk - w0)
+        mask = torch.zeros(b, sk, dtype=torch.int32, device=dev)
+        mask[:, w0:w0 + n] = 1
+        v = torch.zeros(b, sk, h, 64, device=dev)
+        v[:, w0:w0 + n, :, :n] = torch.eye(n, device=dev)[:, None, :]
+        out = fa.flash_attention_bias(q, torch.zeros_like(v), v, kv_mask=mask,
+                                      scale=1.0, dropout_rate=rate,
+                                      dropout_seed=seed)
+        keep[..., w0:w0 + n] = (out[..., :n] > 0).permute(0, 2, 1, 3)
+    return keep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(4, 512, 512, 12), (4, 128, 512, 12),
+                                  (3, 333, 77, 2)])
+def test_dropout_mask_is_the_plain_versions_bit_for_bit(dims):
+    """K7 keeps exactly the elements the plain version keeps, and about 0.9
+    of them (within 6 sigma)."""
+    dev = _device()
+    b, sq, sk, h = dims
+    seed = torch.tensor([2 ** 32 - 3, 17], dtype=torch.int64, device=dev)
+    got = kernel_keep_mask(b, sq, sk, h, seed, 0.1, dev)
+    from mmgl_tpu_torch.ops import attention as att
+    want = att.dropout_bits(seed, (b, h, sq, sk)) < att.dropout_threshold(
+        0.1)[0]
+    assert torch.equal(got, want)
+    n = got.numel()
+    assert abs(float(got.float().mean()) - 0.9) < 6 * (0.09 / n) ** 0.5
