@@ -8,25 +8,41 @@ imports no JAX. Phases, each fatal on failure:
 
   1. the card: CUDA visible, its name and power limit from nvidia-smi;
   2. build the kernels from mmgl_tpu_torch/csrc (time, ptxas report);
-  3. each kernel against its plain version on the card at the main paths'
-     shapes, bf16 and fp32, with fully masked rows: K1 and K2 forward, K3
-     (K1's backward) at the training shape and a ragged one;
-  4. the test pass at full width: OPT-125M + CLIP ViT-B/16, task=section,
-     context=all, raw neighbors, the --test pass of mmgl_tpu_torch.cli on the
-     synthetic corpus with seeded random weights; K1 and K2 must launch in
-     it. Then one sample's fp32 eval step on the card against the same
-     model on the CPU, where the kernels' plain versions run;
-  5. training at the same width through mmgl_tpu_torch.cli (bf16, batch 4 x
-     4 micro-batches, 4 updates, the val passes, the best checkpoint, the
-     test pass on it restored): K1, K2 and K3 must launch inside the
-     training steps, every loss and gradient norm be finite, the trainable
-     weights move and the tower's not. Then one fp32 micro-step (loss and
-     gradients) on the card against the CPU;
-  6. each kernel timed against its plain version with CUDA events.
+  3. each kernel against its plain version on the card, bf16 and fp32, with
+     pad holes and fully masked rows: K1 and K2 forward and K3 (K1's
+     backward) at the OPT shapes; K4 and K5 (forward and gradient) at
+     T5-base's cross-attention, with an MQA head, and K7 with K8/K9 (dbias
+     included) at T5-base's encoder, decoder and cross-attention shapes,
+     each without and with dropout 0.1; ragged lengths for every kernel.
+     The dropout mask K7 draws is read off its output and compared with
+     the plain version's bit for bit;
+  4. the OPT-125M + CLIP ViT-B/16 test pass at full width (task=section,
+     context=all, raw neighbors, the --test pass of mmgl_tpu_torch.cli on
+     the synthetic corpus with seeded random weights); K1 and K2 must launch
+     in it. Then one sample's fp32 eval step on the card against the CPU;
+  5. OPT training at the same width through the CLI (bf16, batch 4 x 4
+     micro-batches, 4 updates, the val passes, the best checkpoint, the
+     test pass on it restored): K1, K2 and K3 must launch inside the steps,
+     losses and gradient norms be finite, every trainable tensor move and
+     no tower tensor. Then one fp32 micro-step on the card against the CPU;
+  6. the T5-base + CLIP test pass through the CLI (batch 4, 4 batches):
+     every eval step launches K7 24 times (12 encoder, 12 decoder
+     self-attention) and K4 12 times (cross), every generated batch K7 12
+     times (the encoder) and K2 on every image (12 layers). Then one
+     sample's fp32 eval step, card against CPU;
+  7. T5-base training through the CLI (Adafactor, dropout 0.1, 4 updates of
+     4 x 4): every micro-step launches K7 and K8/K9 36 times each; the
+     checks of phase 5. Then one fp32 micro-step in eval mode (no dropout:
+     K7, K8/K9, K4 and K5 on the card) against the CPU;
+  8. every kernel timed (bf16, CUDA events) against its plain version and
+     against the one PyTorch call that computes the same function
+     (scaled_dot_product_attention with the bias and mask as a float
+     attn_mask, and its backward), beside its bound: max(FLOPs / 989
+     TFLOP/s, bytes / 3.35 TB/s), each input read and each output written
+     once, FLOPs over the pairs the masks leave (dropout's bits excluded).
 
-The launch counts are set to 0 just before the test pass and just before
-the training run, and read just after each. Prints a kernels JSON line (launches:
-the training run's counts), then as its last line
+The launch counts are set to 0 just before each path and read just after.
+Prints a kernels JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
 versions compute in full fp32.
@@ -42,38 +58,56 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
-MAIN_ARGV = ["--model_name_or_path", "opt-125m", "--task", "section",
-             "--context", "all", "--neighbor_mode", "raw", "--test", "true",
-             "--bf16", "true", "--tokenizer_path", "byte:50272",
-             "--per_device_val_batch_size", "4", "--val_steps_per_epoch", "4",
-             "--seed", "0", "--device", "cuda"]
-
-TRAIN_ARGV = ["--model_name_or_path", "opt-125m", "--task", "section",
-              "--context", "all", "--neighbor_mode", "raw",
-              "--bf16", "true", "--tokenizer_path", "byte:50272",
-              "--per_device_train_batch_size", "4",
-              "--grad_accumulation_steps", "4", "--steps_per_epoch", "16",
-              "--epochs", "1", "--per_device_val_batch_size", "4",
-              "--val_steps_per_epoch", "2", "--print_freq", "1",
-              "--seed", "0", "--device", "cuda"]
+OPT_TEST_ARGV = ["--model_name_or_path", "opt-125m", "--task", "section",
+                 "--context", "all", "--neighbor_mode", "raw", "--test",
+                 "true", "--bf16", "true", "--tokenizer_path", "byte:50272",
+                 "--per_device_val_batch_size", "4", "--val_steps_per_epoch",
+                 "4", "--seed", "0", "--device", "cuda"]
+OPT_TRAIN_ARGV = ["--model_name_or_path", "opt-125m", "--task", "section",
+                  "--context", "all", "--neighbor_mode", "raw",
+                  "--bf16", "true", "--tokenizer_path", "byte:50272",
+                  "--per_device_train_batch_size", "4",
+                  "--grad_accumulation_steps", "4", "--steps_per_epoch", "16",
+                  "--epochs", "1", "--per_device_val_batch_size", "4",
+                  "--val_steps_per_epoch", "2", "--print_freq", "1",
+                  "--seed", "0", "--device", "cuda"]
+# T5-base: the same flags with its model name and its vocabulary
+T5_TEST_ARGV = [a.replace("opt-125m", "t5-base").replace("byte:50272",
+                                                         "byte:32128")
+                for a in OPT_TEST_ARGV]
+T5_TRAIN_ARGV = [a.replace("opt-125m", "t5-base").replace("byte:50272",
+                                                          "byte:32128")
+                 for a in OPT_TRAIN_ARGV]
 TRAIN_UPDATES = 4
+T5_LAYERS = 12
 
 FWD_SOURCE = "mmgl_tpu_torch/csrc/attention_fwd.cu"
 BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bwd.cu"
+BIAS_FWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bias_fwd.cu"
+BIAS_BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bias_bwd.cu"
+PALLAS = "mmgl_tpu/ops/flash_attention.py"
 # kernel wrapper -> (its plain version, the Pallas kernel it replaces, source)
 KERNELS = {
     "flash_attention_allheads": ("allheads_attention_reference",
-                                 "mmgl_tpu/ops/flash_attention.py:1283",
-                                 FWD_SOURCE),
+                                 f"{PALLAS}:1283", FWD_SOURCE),
     "fused_heads_attention": ("fused_heads_attention_reference",
-                              "mmgl_tpu/ops/flash_attention.py:1152",
-                              FWD_SOURCE),
+                              f"{PALLAS}:1152", FWD_SOURCE),
     "flash_attention_allheads_bwd": ("allheads_attention_bwd_reference",
-                                     "mmgl_tpu/ops/flash_attention.py:1307",
-                                     BWD_SOURCE),
+                                     f"{PALLAS}:1307", BWD_SOURCE),
+    "flash_attention": ("flash_attention_reference", f"{PALLAS}:179",
+                        FWD_SOURCE),
+    "flash_attention_bwd": ("flash_attention_bwd_reference", f"{PALLAS}:457",
+                            BWD_SOURCE),
+    "flash_attention_bias": ("bias_attention_reference", f"{PALLAS}:768",
+                             BIAS_FWD_SOURCE),
+    "flash_attention_bias_bwd": ("bias_attention_bwd_reference",
+                                 f"{PALLAS}:942", BIAS_BWD_SOURCE),
 }
-# the main path's attention calls: (kernel, (B, S, H, D), causal, mask)
+OPT_TEST_KERNELS = ("flash_attention_allheads", "fused_heads_attention")
+OPT_TRAIN_KERNELS = OPT_TEST_KERNELS + ("flash_attention_allheads_bwd",)
+# the OPT attention calls: (kernel, (B, S, H, D), causal, mask)
 CASES = [
     ("flash_attention_allheads", (4, 640, 12, 64), True, "hole"),   # eval
     ("flash_attention_allheads", (4, 512, 12, 64), True, "prompt"),  # prefill
@@ -87,26 +121,37 @@ CASES = [
 BWD_CASES = [((4, 640, 12, 64), True, "hole"),
              ((4, 640, 12, 64), True, "hole_fully_masked"),
              ((3, 333, 2, 64), True, "hole333")]
-# the kernels of the test pass (forward only)
-TEST_KERNELS = ("flash_attention_allheads", "fused_heads_attention")
-# the case each kernel is timed at (bf16, as the main path runs it)
-TIMED = {"flash_attention_allheads": 0, "fused_heads_attention": 2,
-         "flash_attention_allheads_bwd": 0}
+# K4/K5: ((B, Sq, Sk, H, K/V heads), causal, key mask): T5-base's eval
+# cross-attention over the padded encoder input, MQA, ragged lengths
+FLASH_CASES = [((4, 128, 512, 12, 12), False, "gap"),
+               ((4, 128, 128, 12, 1), False, "gap"),
+               ((3, 333, 77, 2, 2), False, "gap_fully_masked")]
+# K7/K8/K9: (name, (B, Sq, Sk, H), causal, bias): T5-base's encoder, decoder
+# self- and training cross-attention, ragged lengths; each without and with
+# dropout 0.1, T5's scale 1.0
+BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
+              ("dec", (4, 128, 128, 12), True, True),
+              ("cross", (4, 128, 512, 12), False, False),
+              ("ragged", (3, 333, 333, 2), True, True)]
+RATE = 0.1
 # (atol, rtol) by dtype name
 TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 0.0)}
-# K3, per gradient: (atol as a fraction of its largest entry, rtol); bf16:
-# the plain version rounds P and dS to bf16 before their products, the
-# kernel keeps them fp32
+# backward, per gradient: (atol as a fraction of its largest entry, rtol);
+# bf16: the plain version rounds P and dS to bf16 before their products,
+# the kernel keeps them fp32
 BWD_TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 0.0)}
 # whole-model fp32 check, card vs CPU: logits and loss
 MODEL_ATOL = 1e-3
 # fp32 training micro-step, card vs CPU: loss (abs), gradient norm (rel),
 # and the largest gradient error as a fraction of the largest gradient
-# (sums of 640 tokens through 12 layers in another order; a wrong kernel is
-# off by the gradient's own size)
+# (sums over hundreds of tokens through 12 layers in another order; a wrong
+# kernel is off by the gradient's own size)
 STEP_LOSS_ATOL = 1e-3
 STEP_NORM_RTOL = 1e-4
 STEP_GRAD_TOL = 1e-3
+# H100 SXM data-sheet peaks (dense bf16, HBM3)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -118,8 +163,9 @@ def make_mask(kind: str, b: int, s: int, seed: int):
     """(B, S) int32 key mask. "hole": a decoder-only batch, prompt padded to
     512 then summary padded to 128, so the valid keys have a hole
     ("hole333": the same at S = 333, prompt 250); "prompt": right-padded
-    prompts; "fully_masked": sample 0 all zero ("hole_fully_masked": with
-    holes in the others)."""
+    prompts; "gap": a pad hole in the middle and right padding, any S;
+    "fully_masked": sample 0 all zero (with holes in the others for
+    "hole_fully_masked" and "gap_fully_masked")."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -135,8 +181,12 @@ def make_mask(kind: str, b: int, s: int, seed: int):
         for i in range(b):
             mask[i, rng.randint(50, 250):250] = 0
             mask[i, 250 + rng.randint(1, 83):] = 0
-    elif kind == "hole_fully_masked":
-        mask = make_mask("hole", b, s, seed)
+    elif kind == "gap":
+        for i in range(b):
+            mask[i, rng.randint(s // 5, s // 2):s // 2] = 0
+            mask[i, s - rng.randint(1, max(2, s // 8)):] = 0
+    elif kind in ("hole_fully_masked", "gap_fully_masked"):
+        mask = make_mask(kind.split("_")[0], b, s, seed)
         mask[0] = 0
     elif kind == "fully_masked":
         mask[0] = 0
@@ -153,57 +203,6 @@ def kernel_inputs(case_index: int, dtype, device):
     mask = torch.from_numpy(make_mask(mask_kind, shape[0], shape[1],
                                       case_index)).to(device)
     return (q, k, v), dict(kv_mask=mask, causal=causal)
-
-
-def check_kernels(fa, device):
-    """Phase 3: each case in each dtype; returns {kernel: max abs err}."""
-    import torch
-
-    worst = {name: 0.0 for name in KERNELS}
-    for i, (name, shape, causal, mask_kind) in enumerate(CASES):
-        kernel = getattr(fa, name)
-        plain = getattr(fa, KERNELS[name][0])
-        for dtype_name, (atol, rtol) in TOLERANCES.items():
-            args, kw = kernel_inputs(i, getattr(torch, dtype_name), device)
-            got = kernel(*args, **kw)
-            torch.cuda.synchronize(device)
-            ref = plain(*args, **kw)
-            torch.cuda.synchronize(device)
-            err = (got.float() - ref.float()).abs()
-            ok = (bool(torch.isfinite(got).all())
-                  and bool((err <= atol + rtol * ref.float().abs()).all()))
-            max_err = float(err.max())
-            print(f"[check] {name} {shape} causal={causal} mask={mask_kind} "
-                  f"{dtype_name}: max_abs_err={max_err:.3e} atol={atol:g} "
-                  f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{name} disagrees with its plain version")
-            worst[name] = max(worst[name], max_err)
-    name = "flash_attention_allheads_bwd"
-    for i, (shape, causal, mask_kind) in enumerate(BWD_CASES):
-        for dtype_name, (atol, rtol) in BWD_TOLERANCES.items():
-            args, kw = bwd_inputs(i, getattr(torch, dtype_name), device)
-            got = fa.flash_attention_allheads_bwd(*args, **kw)
-            torch.cuda.synchronize(device)
-            ref = fa.allheads_attention_bwd_reference(*args, **kw)
-            torch.cuda.synchronize(device)
-            report = []
-            for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
-                err = (g.float() - r.float()).abs()
-                bound = atol * float(r.float().abs().max())
-                ok = (g.dtype == r.dtype and bool(torch.isfinite(g).all())
-                      and bool((err <= bound + rtol * r.float().abs()).all()))
-                max_err = float(err.max())
-                report.append(f"{grad} {max_err:.3e}{'' if ok else ' FAIL'}")
-                if not ok:
-                    print(f"[check] {name} {shape} causal={causal} "
-                          f"mask={mask_kind} {dtype_name}: {', '.join(report)}")
-                    fail(f"{name} {grad} disagrees with its plain version")
-                worst[name] = max(worst[name], max_err)
-            print(f"[check] {name} {shape} causal={causal} mask={mask_kind} "
-                  f"{dtype_name}: max_abs_err {', '.join(report)} (atol "
-                  f"{atol:g} x max|ref|, rtol {rtol:g}) ok")
-    return worst
 
 
 def bwd_inputs(case_index: int, dtype, device):
@@ -224,20 +223,262 @@ def bwd_inputs(case_index: int, dtype, device):
     return (q, k, v, mask, out, dout), dict(causal=causal)
 
 
-def run_main_path(cli, fa, device):
-    """Phase 4: the --test pass at full width; returns (the test pass,
-    results, launches, sections/s after the warm-up batch, peak bytes)."""
+def _within(got, ref, atol, rtol) -> bool:
     import torch
 
-    args, dev = cli.parse_cli(MAIN_ARGV)
+    err = (got.float() - ref.float()).abs()
+    return (got.dtype == ref.dtype and got.shape == ref.shape
+            and bool(torch.isfinite(got).all())
+            and bool((err <= atol + rtol * ref.float().abs()).all()))
+
+
+def _grads_within(name, got, ref, dtype_name, label, worst):
+    """Each gradient against its plain version at the backward tolerance;
+    records the worst error under ``name``; returns the report."""
+    atol, rtol = BWD_TOLERANCES[dtype_name]
+    report = []
+    for grad, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if r is None:
+            continue
+        max_err = float((g.float() - r.float()).abs().max())
+        ok = _within(g, r, atol * float(r.float().abs().max()), rtol)
+        report.append(f"{grad} {max_err:.3e}{'' if ok else ' FAIL'}")
+        worst[name] = max(worst[name], max_err)
+        if not ok:
+            print(f"[check] {name} {label} {dtype_name}: {', '.join(report)}")
+            fail(f"{name} {grad} disagrees with its plain version")
+    return ", ".join(report)
+
+
+def check_opt_kernels(fa, device, worst):
+    """Phase 3, K1-K3: each case in each dtype."""
+    import torch
+
+    for i, (name, shape, causal, mask_kind) in enumerate(CASES):
+        kernel = getattr(fa, name)
+        plain = getattr(fa, KERNELS[name][0])
+        for dtype_name, (atol, rtol) in TOLERANCES.items():
+            args, kw = kernel_inputs(i, getattr(torch, dtype_name), device)
+            got = kernel(*args, **kw)
+            torch.cuda.synchronize(device)
+            ref = plain(*args, **kw)
+            max_err = float((got.float() - ref.float()).abs().max())
+            ok = _within(got, ref, atol, rtol)
+            print(f"[check] {name} {shape} causal={causal} mask={mask_kind} "
+                  f"{dtype_name}: max_abs_err={max_err:.3e} atol={atol:g} "
+                  f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version")
+            worst[name] = max(worst[name], max_err)
+    name = "flash_attention_allheads_bwd"
+    for i, (shape, causal, mask_kind) in enumerate(BWD_CASES):
+        for dtype_name in BWD_TOLERANCES:
+            args, kw = bwd_inputs(i, getattr(torch, dtype_name), device)
+            got = fa.flash_attention_allheads_bwd(*args, **kw)
+            torch.cuda.synchronize(device)
+            ref = fa.allheads_attention_bwd_reference(*args, **kw)
+            label = f"{shape} causal={causal} mask={mask_kind}"
+            report = _grads_within(name, got, ref, dtype_name, label, worst)
+            print(f"[check] {name} {label} {dtype_name}: max_abs_err "
+                  f"{report} ok")
+
+
+def flash_inputs(dims, mask_kind, dtype, device, seed):
+    """q, k, v (k/v with kv_heads heads), the key mask, a cotangent."""
+    import torch
+
+    b, sq, sk, h, kvh = dims
+    g = torch.Generator().manual_seed(seed)
+    q, dout = (torch.randn(b, sq, h, 64, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, sk, kvh, 64, generator=g) for _ in range(2))
+    mask = torch.from_numpy(make_mask(mask_kind, b, sk, seed)).to(device)
+    q, k, v, dout = (t.to(device, dtype) for t in (q, k, v, dout))
+    return q, k, v, mask, dout
+
+
+def bias_inputs(dims, with_bias, dtype, device, seed):
+    """q (T5's scale folded in: x 1/8), k, v, a key mask with a pad hole and
+    a fully masked sample, the (1, H, Sq, Sk) bias or None, a cotangent, and
+    a dropout key."""
+    import torch
+
+    b, sq, sk, h = dims
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, sq, h, 64, generator=g) * 0.125
+    k, v = (torch.randn(b, sk, h, 64, generator=g) for _ in range(2))
+    dout = torch.randn(b, sq, h, 64, generator=g)
+    bias = (torch.randn(1, h, sq, sk, generator=g) if with_bias else None)
+    mask = torch.from_numpy(make_mask("gap_fully_masked", b, sk,
+                                      seed)).to(device)
+    seed_t = torch.tensor([seed * 7919 + 1, 2 ** 32 - seed - 1],
+                          dtype=torch.int64, device=device)
+    q, k, v, dout = (t.to(device, dtype) for t in (q, k, v, dout))
+    if bias is not None:
+        bias = bias.to(device, dtype)
+    return q, k, v, mask, bias, dout, seed_t
+
+
+def check_t5_kernels(fa, device, worst):
+    """Phase 3, K4/K5 and K7/K8/K9: forward and gradients (through autograd,
+    so the backward kernels run as training runs them) against the plain
+    versions; the dropout mask bit for bit."""
+    import torch
+
+    for i, (dims, causal, mask_kind) in enumerate(FLASH_CASES):
+        b, sq, sk, h, kvh = dims
+        for dtype_name, (atol, rtol) in TOLERANCES.items():
+            q, k, v, mask, dout = flash_inputs(
+                dims, mask_kind, getattr(torch, dtype_name), device, 200 + i)
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            got = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
+            grads = torch.autograd.grad(got, (q, k, v), dout)
+            torch.cuda.synchronize(device)
+            kx, vx = (t.detach().expand(b, sk, h, 64).contiguous()
+                      for t in (k, v))
+            ref = fa.flash_attention_reference(q.detach(), kx, vx,
+                                               kv_mask=mask, causal=causal)
+            max_err = float((got.detach().float() - ref.float()).abs().max())
+            worst["flash_attention"] = max(worst["flash_attention"], max_err)
+            if not _within(got.detach(), ref, atol, rtol):
+                fail(f"flash_attention {dims} {dtype_name} disagrees with "
+                     f"its plain version ({max_err:.3e})")
+            refs = list(fa.flash_attention_bwd_reference(
+                q.detach(), kx, vx, mask, got.detach(), dout, causal=causal))
+            if kvh == 1:   # expand's gradient: the sum over the heads
+                refs[1:] = [r.float().sum(2, keepdim=True).to(r.dtype)
+                            for r in refs[1:]]
+            label = f"{dims} causal={causal} mask={mask_kind}"
+            report = _grads_within("flash_attention_bwd", grads, refs,
+                                   dtype_name, label, worst)
+            print(f"[check] flash_attention {label} {dtype_name}: forward "
+                  f"{max_err:.3e} ok; flash_attention_bwd {report} ok")
+
+    for i, (tag, dims, causal, with_bias) in enumerate(BIAS_CASES):
+        for rate in (0.0, RATE):
+            for dtype_name, (atol, rtol) in TOLERANCES.items():
+                q, k, v, mask, bias, dout, seed = bias_inputs(
+                    dims, with_bias, getattr(torch, dtype_name), device,
+                    300 + i)
+                wrt = [q, k, v] + ([bias] if with_bias else [])
+                for t in wrt:
+                    t.requires_grad_()
+                got = fa.flash_attention_bias(
+                    q, k, v, bias=bias, kv_mask=mask, causal=causal,
+                    scale=1.0, dropout_rate=rate, dropout_seed=seed)
+                grads = list(torch.autograd.grad(got, wrt, dout))
+                torch.cuda.synchronize(device)
+                plain_bias = None if bias is None else bias.detach()
+                ref = fa.bias_attention_reference(
+                    q.detach(), k.detach(), v.detach(), bias=plain_bias,
+                    kv_mask=mask, causal=causal, scale=1.0,
+                    dropout_rate=rate, dropout_seed=seed)
+                max_err = float((got.detach().float()
+                                 - ref.float()).abs().max())
+                worst["flash_attention_bias"] = max(
+                    worst["flash_attention_bias"], max_err)
+                if not _within(got.detach(), ref, atol, rtol):
+                    fail(f"flash_attention_bias {tag} {dims} rate={rate} "
+                         f"{dtype_name} disagrees with its plain version "
+                         f"({max_err:.3e})")
+                refs = fa.bias_attention_bwd_reference(
+                    q.detach(), k.detach(), v.detach(), mask, plain_bias,
+                    got.detach(), dout, causal=causal, scale=1.0,
+                    dropout_rate=rate, dropout_seed=seed)
+                label = (f"{tag} {dims} causal={causal} bias={with_bias} "
+                         f"dropout={rate}")
+                report = _grads_within("flash_attention_bias_bwd", grads,
+                                       refs, dtype_name, label, worst)
+                print(f"[check] flash_attention_bias {label} {dtype_name}: "
+                      f"forward {max_err:.3e} ok; flash_attention_bias_bwd "
+                      f"{report} ok")
+    keep = {}
+    for tag, dims, _, _ in BIAS_CASES:
+        keep[tag] = check_dropout_mask(fa, dims, device)
+    return keep
+
+
+def kernel_keep_mask(fa, b, sq, sk, h, seed, device):
+    """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output.
+    With q = 0 and one 64-key window unmasked, P is 1/64 on the window's
+    keys, and with v the identity on the window, out[..., d] is the keep
+    factor of key window + d over 64: zero exactly where it was dropped."""
+    import torch
+
+    q = torch.zeros(b, sq, h, 64, device=device)
+    keep = torch.zeros(b, h, sq, sk, dtype=torch.bool, device=device)
+    for w0 in range(0, sk, 64):
+        n = min(64, sk - w0)
+        mask = torch.zeros(b, sk, dtype=torch.int32, device=device)
+        mask[:, w0:w0 + n] = 1
+        v = torch.zeros(b, sk, h, 64, device=device)
+        v[:, w0:w0 + n, :, :n] = torch.eye(n, device=device)[:, None, :]
+        out = fa.flash_attention_bias(q, torch.zeros_like(v), v,
+                                      kv_mask=mask, scale=1.0,
+                                      dropout_rate=RATE, dropout_seed=seed)
+        keep[..., w0:w0 + n] = (out[..., :n] > 0).permute(0, 2, 1, 3)
+    return keep
+
+
+def check_dropout_mask(fa, dims, device) -> float:
+    """K7's kept elements equal the plain version's bits exactly; returns
+    the kept fraction (0.9 expected, within 6 sigma)."""
+    import torch
+    from mmgl_tpu_torch.ops import attention as att
+
+    b, sq, sk, h = dims
+    seed = torch.tensor([sq * 1000003 + sk, 7], dtype=torch.int64,
+                        device=device)
+    got = kernel_keep_mask(fa, b, sq, sk, h, seed, device)
+    want = att.dropout_bits(seed, (b, h, sq, sk)) < att.dropout_threshold(
+        RATE)[0]
+    frac = float(got.float().mean())
+    sigma = (RATE * (1 - RATE) / got.numel()) ** 0.5
+    same = bool(torch.equal(got, want))
+    print(f"[check] dropout mask of flash_attention_bias {dims}: "
+          f"{'equal to' if same else 'DIFFERS from'} the plain version's "
+          f"bit for bit; kept fraction {frac:.6f} (0.9 +- 6 sigma = "
+          f"{6 * sigma:.2e})")
+    if not same or abs(frac - (1 - RATE)) > 6 * sigma:
+        fail(f"the dropout mask of flash_attention_bias at {dims} is wrong")
+    return frac
+
+
+class LaunchTally:
+    """Launches of each kernel inside calls of a wrapped function."""
+
+    def __init__(self, fa, names):
+        self.fa, self.names, self.calls = fa, names, []
+
+    def wrap(self, fn):
+        def counted(*a, **kw):
+            before = {n: getattr(self.fa, n).launches for n in self.names}
+            out = fn(*a, **kw)
+            self.calls.append({n: getattr(self.fa, n).launches - before[n]
+                               for n in self.names})
+            return out
+        return counted
+
+
+def run_test_pass(cli, fa, device, argv, kernels, per_eval=None,
+                  per_generate=None, tag="opt"):
+    """Phases 4 and 6: the --test pass at full width; the kernels must
+    launch, and, where given, exactly per_eval / per_generate times in each
+    eval step / generated batch. Returns (the test pass, results, launches,
+    sections/s after the warm-up batch, peak bytes)."""
+    import torch
+
+    args, dev = cli.parse_cli(argv)
     test = cli.prepare(args, dev)
+    vocab = (test.fcfg.opt or test.fcfg.t5).vocab_size
     shapes = []
-    generate_fn = test.generate_fn
+    evals, gens = LaunchTally(fa, KERNELS), LaunchTally(fa, KERNELS)
+    test.eval_step = evals.wrap(test.eval_step)
+    generate_fn = gens.wrap(test.generate_fn)
 
     def generate(batch):
         ids = generate_fn(batch)
         shapes.append(tuple(ids.shape))
-        if not bool(((ids >= 0) & (ids < test.fcfg.opt.vocab_size)).all()):
+        if not bool(((ids >= 0) & (ids < vocab)).all()):
             fail("generated ids outside the vocabulary")
         return ids
 
@@ -255,37 +496,45 @@ def run_main_path(cli, fa, device):
         getattr(fa, name).launches = 0
     results = cli.evaluate_loop(test, args, args.start_epoch, log,
                                 prefix="test")
-    launches = {name: getattr(fa, name).launches for name in TEST_KERNELS}
+    launches = {name: getattr(fa, name).launches for name in KERNELS}
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device)
 
-    print(f"[main] results: {json.dumps(results, sort_keys=True)}")
-    print(f"[main] launches: {launches}; generated shapes: {shapes}")
+    print(f"[{tag} test] results: {json.dumps(results, sort_keys=True)}")
+    print(f"[{tag} test] launches: {launches}; generated shapes: {shapes}")
+    print(f"[{tag} test] per eval step: {evals.calls}")
+    print(f"[{tag} test] per generated batch: {gens.calls}")
     if not math.isfinite(results["loss"]):
         fail(f"test loss is not finite: {results['loss']}")
     if not shapes or any(s != (4, cli.MAX_NEW_TOKENS) for s in shapes):
         fail(f"generated ids have shapes {shapes}, expected (4, 32)")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"{name} was not launched by the main path")
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"{name} was not launched by the {tag} test pass")
+    for want, calls, what in ((per_eval, evals.calls, "eval step"),
+                              (per_generate, gens.calls, "generated batch")):
+        if want is not None and any(
+                {n: c[n] for n in want} != want for c in calls):
+            fail(f"the {tag} {what} launched {calls}, expected {want} each")
     timed = batches[1:]                    # the first batch is the warm-up
     if not timed:
-        fail("the main path ran fewer than two batches")
+        fail("the test pass ran fewer than two batches")
     rate = sum(n for _, n in timed) / sum(t for t, _ in timed)
-    print(f"[main] {rate:.3f} sections/s over {len(timed)} batches after one "
-          f"warm-up batch (batch seconds {[round(t, 4) for t, _ in batches]})"
-          f"; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    print(f"[{tag} test] {rate:.3f} sections/s over {len(timed)} batches "
+          f"after one warm-up batch (batch seconds "
+          f"{[round(t, 4) for t, _ in batches]}); peak device memory {peak} "
+          f"bytes ({peak / 2**30:.3f} GiB)")
     return test, results, launches, rate, peak
 
 
-def check_model_fp32(cli, test, device):
-    """Phase 4b: one sample's fp32 eval step through the kernels on the card
-    against the same seeded model on the CPU (plain versions)."""
+def check_model_fp32(cli, test, device, argv, tag):
+    """Phases 4b and 6b: one sample's fp32 eval step through the kernels on
+    the card against the same seeded model on the CPU (plain versions)."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
-    from mmgl_tpu_torch.train.losses import causal_losses
+    from mmgl_tpu_torch.train.steps import losses_of
 
-    args, _ = cli.parse_cli(MAIN_ARGV + ["--bf16", "false"])
+    args, _ = cli.parse_cli(argv + ["--bf16", "false"])
     batch = next(iter(test.loader))
     batch = {k: v[:1] for k, v in batch.items()}
     out = {}
@@ -296,22 +545,26 @@ def check_model_fp32(cli, test, device):
         with torch.no_grad():
             fused = model.eval()(batch)
         out[dev.type] = (fused["logits"].float().cpu(),
-                         float(causal_losses(
-                             fused["logits"], fused["labels"],
-                             args.max_input_length,
-                             test.tokenizer.pad_token_id)[0]))
+                         float(losses_of(fused, test.fcfg.decoder_only,
+                                         args.max_input_length,
+                                         test.tokenizer.pad_token_id)[0]))
         del model, fused
     err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
     loss_err = abs(out["cuda"][1] - out["cpu"][1])
-    print(f"[model] fp32 eval, card vs CPU, one sample at S=640: logits "
-          f"max_abs_err={err:.3e}, loss {out['cuda'][1]:.6f} vs "
-          f"{out['cpu'][1]:.6f} (atol={MODEL_ATOL:g})")
+    print(f"[{tag} model] fp32 eval, card vs CPU, one sample: logits "
+          f"{tuple(out['cpu'][0].shape)} max_abs_err={err:.3e}, loss "
+          f"{out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f} (atol={MODEL_ATOL:g})")
     if not (err <= MODEL_ATOL and loss_err <= MODEL_ATOL):
-        fail("the fp32 model on the card disagrees with the CPU")
+        fail(f"the fp32 {tag} model on the card disagrees with the CPU")
+    return {"max_abs_logit_err": err, "loss": [out["cuda"][1],
+                                               out["cpu"][1]]}
 
 
-def run_training(cli, fa, device, log_dir: str):
-    """Phase 5: the training run at full width through the entry point.
+def run_training(cli, fa, device, log_dir: str, argv, kernels,
+                 per_update=None, tag="opt"):
+    """Phases 5 and 7: the training run at full width through the entry
+    point; ``kernels`` must launch inside the training steps, exactly
+    ``per_update`` times in each update where given.
 
     The CLI's model factory, train step and checkpoint restore are wrapped
     here, not changed: the wrappers snapshot the weights, time each update
@@ -319,7 +572,7 @@ def run_training(cli, fa, device, log_dir: str):
     record the final restore. Returns a summary dict."""
     import torch
 
-    args, dev = cli.parse_cli(TRAIN_ARGV + ["--log_dir", log_dir])
+    args, dev = cli.parse_cli(argv + ["--log_dir", log_dir])
     seen = {"steps": [], "restores": [], "merges": 0, "rates": []}
     originals = {name: getattr(cli, name) for name in (
         "build_model", "make_train_step", "restore_checkpoint",
@@ -385,18 +638,24 @@ def run_training(cli, fa, device, log_dir: str):
 
     steps = seen["steps"]
     in_steps = {n: sum(s["launches"][n] for s in steps) for n in KERNELS}
-    print(f"[train] results: {json.dumps(results, sort_keys=True)}")
+    print(f"[{tag} train] results: {json.dumps(results, sort_keys=True)}")
     for i, st in enumerate(steps):
-        print(f"[train] update {i + 1}: loss {st['loss']:.6f} summary_loss "
-              f"{st['summary_loss']:.6f} grad_norm {st['grad_norm']:.6f} "
-              f"{st['seconds']:.4f} s; launches {st['launches']}")
-    print(f"[train] launches in the run {launches}, inside the training "
-          f"steps {in_steps}")
+        print(f"[{tag} train] update {i + 1}: loss {st['loss']:.6f} "
+              f"summary_loss {st['summary_loss']:.6f} grad_norm "
+              f"{st['grad_norm']:.6f} {st['seconds']:.4f} s; launches "
+              f"{st['launches']}")
+    print(f"[{tag} train] launches in the run {launches}, inside the "
+          f"training steps {in_steps}")
     if len(steps) != TRAIN_UPDATES or results["train_updates"] != len(steps):
         fail(f"{len(steps)} training updates, expected {TRAIN_UPDATES}")
-    for name in KERNELS:
+    for name in kernels:
         if launches[name] <= 0 or in_steps[name] <= 0:
-            fail(f"{name} was not launched inside the training steps")
+            fail(f"{name} was not launched inside the {tag} training steps")
+    if per_update is not None and any(
+            {n: s["launches"][n] for n in per_update} != per_update
+            for s in steps):
+        fail(f"the {tag} updates launched {[s['launches'] for s in steps]},"
+             f" expected {per_update} each")
     values = [st[k] for st in steps
               for k in ("loss", "summary_loss", "grad_norm")]
     if not all(math.isfinite(v) for v in values + [results["loss"]]):
@@ -408,7 +667,7 @@ def run_training(cli, fa, device, log_dir: str):
     params = dict(model.named_parameters())
     still = [n for n in trainable if torch.equal(params[n], before[n])]
     moved = [n for n in frozen if not torch.equal(params[n], before[n])]
-    print(f"[train] {len(trainable) - len(still)} of {len(trainable)} "
+    print(f"[{tag} train] {len(trainable) - len(still)} of {len(trainable)} "
           f"trainable tensors moved; {len(moved)} of {len(frozen)} frozen "
           f"(tower) tensors moved")
     if still or moved or not frozen or not all(
@@ -426,12 +685,12 @@ def run_training(cli, fa, device, log_dir: str):
             torch.equal(params[k].detach().cpu(), v) for k, v in
             saved.items()):
         fail("the test pass did not run on the restored checkpoint")
-    print(f"[train] best checkpoint of epoch {final[-1]['epoch']} "
+    print(f"[{tag} train] best checkpoint of epoch {final[-1]['epoch']} "
           f"({len(saved)} tensors, no tower) restored for the test pass")
 
     timed = steps[1:]                       # the first update is the warm-up
     rate = sum(s["sections"] for s in timed) / sum(s["seconds"] for s in timed)
-    print(f"[train] {rate:.3f} sections/s over {len(timed)} updates of "
+    print(f"[{tag} train] {rate:.3f} sections/s over {len(timed)} updates of "
           f"{timed[0]['sections']} sections after one warm-up update "
           f"(update seconds {[round(s['seconds'], 4) for s in steps]}; the "
           f"loop's own examples/s {[round(r, 3) for r in seen['rates']]}); "
@@ -444,27 +703,33 @@ def run_training(cli, fa, device, log_dir: str):
             "test_loss": results["loss"]}
 
 
-def check_train_step_fp32(cli, device, tokenizer):
-    """Phase 5b: one fp32 training micro-step (loss, backward) of one
-    sample on the card against the same seeded model on the CPU. Eval mode:
-    the two devices' dropout streams differ."""
+def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag):
+    """Phases 5b and 7b: one fp32 training micro-step (loss, backward) of
+    one sample on the card against the same seeded model on the CPU. Eval
+    mode: the two devices' dropout streams differ. ``kernels`` must launch
+    in the card's step; returns its launches."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
-    from mmgl_tpu_torch.train.losses import causal_losses
+    from mmgl_tpu_torch.train.steps import losses_of
 
-    args, _ = cli.parse_cli(TRAIN_ARGV + ["--bf16", "false"])
-    args.decoder_only = True
+    args, _ = cli.parse_cli(argv + ["--bf16", "false"])
+    args.decoder_only = "t5" not in args.model_name_or_path
     train_ds = cli.setup_data(args, tokenizer)[0]
     batch = next(iter(cli.PrefetchLoader(train_ds, batch_size=1,
                                          num_workers=1)))
-    out = {}
+    out, launches = {}, {}
     for dev in (device, torch.device("cpu")):
         model, _ = build_model(args, dev, vocab_size=tokenizer.vocab_size,
                                tokenizer=tokenizer)
+        for name in KERNELS:
+            getattr(fa, name).launches = 0
         fused = model.eval()(batch)
-        loss, _ = causal_losses(fused["logits"], fused["labels"],
-                                args.max_input_length, tokenizer.pad_token_id)
+        loss, _ = losses_of(fused, args.decoder_only, args.max_input_length,
+                            tokenizer.pad_token_id)
         loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            launches = {n: getattr(fa, n).launches for n in KERNELS}
         grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
                  if p.requires_grad}
         norm = math.sqrt(sum(float(g.double().pow(2).sum())
@@ -476,55 +741,256 @@ def check_train_step_fp32(cli, device, tokenizer):
     worst = max(errs, key=errs.get)
     err = errs[worst]
     scale = max(float(g.abs().max()) for g in g_h.values())
-    print(f"[step] fp32 training micro-step, card vs CPU, one sample at "
-          f"S=640: loss {loss_c:.6f} vs {loss_h:.6f}; grad_norm "
-          f"{norm_c:.6f} vs {norm_h:.6f}; max abs grad err {err:.3e} (in "
-          f"{worst}) of max |grad| {scale:.3e} over {len(g_h)} tensors (loss "
-          f"atol "
+    print(f"[{tag} step] fp32 training micro-step, card vs CPU, one sample: "
+          f"loss {loss_c:.6f} vs {loss_h:.6f}; grad_norm {norm_c:.6f} vs "
+          f"{norm_h:.6f}; max abs grad err {err:.3e} (in {worst}) of max "
+          f"|grad| {scale:.3e} over {len(g_h)} tensors (loss atol "
           f"{STEP_LOSS_ATOL:g}, norm rtol {STEP_NORM_RTOL:g}, grad err <= "
-          f"{STEP_GRAD_TOL:g} x max |grad|)")
+          f"{STEP_GRAD_TOL:g} x max |grad|); card launches {launches}")
     if not (abs(loss_c - loss_h) <= STEP_LOSS_ATOL
             and abs(norm_c - norm_h) <= STEP_NORM_RTOL * norm_h
             and err <= STEP_GRAD_TOL * scale):
-        fail("the fp32 training step on the card disagrees with the CPU")
+        fail(f"the fp32 {tag} training step on the card disagrees with the "
+             "CPU")
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"{name} was not launched in the {tag} fp32 micro-step")
     return {"loss": [loss_c, loss_h], "grad_norm": [norm_c, norm_h],
-            "max_abs_grad_err": err, "max_abs_grad": scale}
+            "max_abs_grad_err": err, "max_abs_grad": scale,
+            "launches": launches}
 
 
-def time_kernels(fa, device, rounds: int = 5):
-    """Phase 6: median ms of 20 runs each, in rounds of plain, kernel,
-    kernel, plain, with CUDA events."""
+# ---- phase 8: timings and bounds -------------------------------------------
+
+def allowed_pairs(mask, sq: int, causal: bool) -> float:
+    """The (query, key) pairs whose logits the masks leave, summed over the
+    batch (per head); a fully masked row needs all its keys (P uniform)."""
     import torch
 
-    times = {}
-    for name, case_index in TIMED.items():
-        if name == "flash_attention_allheads_bwd":
-            args, kw = bwd_inputs(case_index, torch.bfloat16, device)
-            shape, causal, _ = BWD_CASES[case_index]
-        else:
-            args, kw = kernel_inputs(case_index, torch.bfloat16, device)
-            _, shape, causal, _ = CASES[case_index]
-        fns = {"kernel": lambda: getattr(fa, name)(*args, **kw),
-               "plain": lambda: getattr(fa, KERNELS[name][0])(*args, **kw)}
-        for fn in fns.values():           # warm up
-            fn()
-        torch.cuda.synchronize(device)
-        samples = {"kernel": [], "plain": []}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        for _ in range(rounds * 2):
-            for which in ("plain", "kernel", "kernel", "plain"):
-                start.record()
-                fns[which]()
-                end.record()
-                end.synchronize()
-                samples[which].append(start.elapsed_time(end))
-        times[name] = {w: statistics.median(s) for w, s in samples.items()}
-        print(f"[time] {name} {shape} causal={causal} bfloat16: kernel "
-              f"{times[name]['kernel']:.4f} ms, plain "
-              f"{times[name]['plain']:.4f} ms (median of "
-              f"{len(samples['kernel'])})")
-    return times
+    b, sk = mask.shape
+    i = torch.arange(sq, device=mask.device)[:, None] + (sk - sq)
+    j = torch.arange(sk, device=mask.device)[None, :]
+    vis = (i >= j) if causal else torch.ones(sq, sk, dtype=torch.bool,
+                                             device=mask.device)
+    allowed = vis[None] & mask.bool()[:, None, :]
+    per_row = allowed.sum(-1)
+    per_row = torch.where(per_row == 0, torch.full_like(per_row, sk),
+                          per_row)
+    return float(per_row.sum())
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def float_mask(mask, sq, causal, bias, dtype):
+    """The masks (and bias) as scaled_dot_product_attention's float
+    attn_mask, (B, H or 1, Sq, Sk): -1e30 where masked, as the kernels."""
+    import torch
+
+    b, sk = mask.shape
+    allowed = mask.bool()[:, None, None, :].expand(b, 1, sq, sk)
+    if causal:
+        i = torch.arange(sq, device=mask.device)[:, None] + (sk - sq)
+        allowed = allowed & (i >= torch.arange(sk, device=mask.device))
+    add = torch.zeros(b, 1, sq, sk, device=mask.device, dtype=torch.float32)
+    if bias is not None:
+        add = add + bias.float()
+    return add.masked_fill(~allowed, -1e30).to(dtype)
+
+
+def median_ms(fns, device, rounds: int = 5):
+    """Median ms of each callable, in rounds of plain, kernel, library,
+    library, kernel, plain (CUDA events, after a warm-up)."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize(device)
+    order = [k for k in ("plain", "kernel", "library") if k in fns]
+    order = order + order[::-1]
+    samples = {k: [] for k in fns}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds * 2):
+        for which in order:
+            start.record()
+            fns[which]()
+            end.record()
+            end.synchronize()
+            samples[which].append(start.elapsed_time(end))
+    return {k: statistics.median(s) for k, s in samples.items()}, len(
+        samples["kernel"])
+
+
+def _bhsd(*ts):
+    """BSHD tensors as scaled_dot_product_attention's (B, H, S, D)."""
+    return [t.transpose(1, 2).contiguous() for t in ts]
+
+
+def _sdpa_fwd(q, k, v, am, p=0.0, scale=None):
+    import torch.nn.functional as F
+
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=am, dropout_p=p, scale=scale)
+
+
+def _sdpa_bwd(q, k, v, am, dout, p=0.0, scale=None, bias_grad=False):
+    """The backward of one scaled_dot_product_attention call (the float
+    mask's gradient too where it holds a bias), its forward run once."""
+    import torch
+    import torch.nn.functional as F
+
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    if bias_grad:
+        am = am.detach().requires_grad_()
+        ins.append(am)
+    out = F.scaled_dot_product_attention(*ins[:3], attn_mask=am,
+                                         dropout_p=p, scale=scale)
+    return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+
+def _opt_timing_cases(fa, device):
+    """K1 (OPT eval), K2 (CLIP) and K3 (OPT training), bf16."""
+    import torch
+
+    bf16 = torch.bfloat16
+    cases = []
+    for name, idx in (("flash_attention_allheads", 0),
+                      ("fused_heads_attention", 2)):
+        (q, k, v), kw = kernel_inputs(idx, bf16, device)
+        s, h, d = q.shape[1:]
+        am = float_mask(kw["kv_mask"], s, kw["causal"], None, bf16)
+        pairs = allowed_pairs(kw["kv_mask"], s, kw["causal"]) * h
+        cases.append((
+            f"{name} {tuple(q.shape)} causal={kw['causal']}", name, {
+                "kernel": partial(getattr(fa, name), q, k, v, **kw),
+                "plain": partial(getattr(fa, KERNELS[name][0]), q, k, v,
+                                 **kw),
+                "library": _sdpa_fwd(*_bhsd(q, k, v), am)},
+            4 * pairs * d, 4 * q.numel() * 2 + kw["kv_mask"].numel() * 4))
+    args, kw = bwd_inputs(0, bf16, device)
+    q, k, v, mask, out, dout = args
+    s, h, d = q.shape[1:]
+    pairs = allowed_pairs(mask, s, True) * h
+    cases.append((
+        f"flash_attention_allheads_bwd {tuple(q.shape)} causal",
+        "flash_attention_allheads_bwd", {
+            "kernel": partial(fa.flash_attention_allheads_bwd, *args, **kw),
+            "plain": partial(fa.allheads_attention_bwd_reference, *args,
+                             **kw),
+            "library": _sdpa_bwd(*_bhsd(q, k, v),
+                                 float_mask(mask, s, True, None, bf16),
+                                 *_bhsd(dout))},
+        10 * pairs * d, 8 * q.numel() * 2 + mask.numel() * 4))
+    return cases
+
+
+def _flash_timing_cases(fa, device):
+    """K4 and K5 at T5-base's eval cross-attention, bf16."""
+    import torch
+
+    bf16 = torch.bfloat16
+    dims, causal, mask_kind = FLASH_CASES[0]
+    q, k, v, mask, dout = flash_inputs(dims, mask_kind, bf16, device, 200)
+    sq, h = dims[1], dims[3]
+    out = fa.flash_attention(q, k, v, kv_mask=mask)
+    qt, kt, vt, dot = _bhsd(q, k, v, dout)
+    am = float_mask(mask, sq, False, None, bf16)
+    pairs = allowed_pairs(mask, sq, False) * h
+    io_fwd = (2 * q.numel() + 2 * k.numel()) * 2 + mask.numel() * 4
+    io_bwd = (4 * q.numel() + 4 * k.numel()) * 2 + mask.numel() * 4
+    return [
+        (f"flash_attention {dims}", "flash_attention", {
+            "kernel": partial(fa.flash_attention, q, k, v, kv_mask=mask),
+            "plain": partial(fa.flash_attention_reference, q, k, v,
+                             kv_mask=mask),
+            "library": _sdpa_fwd(qt, kt, vt, am)}, 4 * pairs * 64, io_fwd),
+        (f"flash_attention_bwd {dims}", "flash_attention_bwd", {
+            "kernel": partial(fa.flash_attention_bwd, q, k, v, mask, out,
+                              dout),
+            "plain": partial(fa.flash_attention_bwd_reference, q, k, v, mask,
+                             out, dout),
+            "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+         10 * pairs * 64, io_bwd)]
+
+
+def _bias_timing_cases(fa, device, i):
+    """K7 at BIAS_CASES[i] in eval (no dropout; not for the cross-attention,
+    which is K4's in eval) and training (dropout), and its backward: K9 at
+    the encoder's shape, K8 at the decoder's."""
+    import torch
+
+    bf16 = torch.bfloat16
+    tag, dims, causal, with_bias = BIAS_CASES[i]
+    q, k, v, mask, bias, dout, seed = bias_inputs(dims, with_bias, bf16,
+                                                  device, 300 + i)
+    sq, h = dims[1], dims[3]
+    pairs = allowed_pairs(mask, sq, causal) * h
+    bias_bytes = 0 if bias is None else bias.numel() * 2
+    io_fwd = ((2 * q.numel() + 2 * k.numel()) * 2 + mask.numel() * 4
+              + bias_bytes)
+    # q, k, v, o, dO, mask and bias in; dq, dk, dv and dbias out
+    io_bwd = ((4 * q.numel() + 4 * k.numel()) * 2 + mask.numel() * 4
+              + 2 * bias_bytes)
+    qt, kt, vt, dot = _bhsd(q, k, v, dout)
+    am = float_mask(mask, sq, causal, bias, bf16)
+    shape = f"{tag} {dims} causal={causal} bias={with_bias}"
+    cases = []
+    for rate in ((RATE,) if tag == "cross" else (0.0, RATE)):
+        kw = dict(bias=bias, kv_mask=mask, causal=causal, scale=1.0,
+                  dropout_rate=rate, dropout_seed=seed)
+        cases.append((
+            f"flash_attention_bias {shape} dropout={rate}",
+            "flash_attention_bias", {
+                "kernel": partial(fa.flash_attention_bias, q, k, v, **kw),
+                "plain": partial(fa.bias_attention_reference, q, k, v, **kw),
+                "library": _sdpa_fwd(qt, kt, vt, am, rate, 1.0)},
+            4 * pairs * 64, io_fwd))
+    out = fa.flash_attention_bias(q, k, v, bias=bias, kv_mask=mask,
+                                  causal=causal, scale=1.0,
+                                  dropout_rate=RATE, dropout_seed=seed)
+    bkw = dict(causal=causal, scale=1.0, dropout_rate=RATE,
+               dropout_seed=seed)
+    cases.append((
+        f"flash_attention_bias_bwd {shape} dropout={RATE}",
+        "flash_attention_bias_bwd[K9]" if tag == "enc"
+        else "flash_attention_bias_bwd[K8]", {
+            "kernel": partial(fa.flash_attention_bias_bwd, q, k, v, mask,
+                              None if bias is None else bias[0], out, dout,
+                              **bkw),
+            "plain": partial(fa.bias_attention_bwd_reference, q, k, v, mask,
+                             bias, out, dout, **bkw),
+            "library": _sdpa_bwd(qt, kt, vt, am, dot, RATE, 1.0,
+                                 bias_grad=with_bias)},
+        10 * pairs * 64, io_bwd))
+    return cases
+
+
+def timing_cases(fa, device):
+    """(label, kernel name, {"kernel", "plain", "library"} callables, FLOPs,
+    bytes) for every kernel at its main-path shapes, bf16."""
+    cases = _opt_timing_cases(fa, device) + _flash_timing_cases(fa, device)
+    for i in range(3):          # the encoder, decoder and cross shapes
+        cases += _bias_timing_cases(fa, device, i)
+    return cases
+
+
+def time_kernels(fa, device):
+    """Phase 8: {label: (kernel name, times, bound ms, bound_by)}."""
+    rows = {}
+    for label, name, fns, flops, nbytes in timing_cases(fa, device):
+        times, n = median_ms(fns, device)
+        bound, by = bound_ms(flops, nbytes)
+        rows[label] = (name, times, bound, by)
+        print(f"[time] {label} bfloat16: kernel {times['kernel']:.4f} ms, "
+              f"plain {times['plain']:.4f} ms, library "
+              f"{times['library']:.4f} ms (medians of {n}); bound "
+              f"{bound:.4f} ms ({by}: {flops:.4g} FLOP, {nbytes:.4g} B)")
+    return rows
 
 
 def main() -> int:
@@ -555,27 +1021,94 @@ def main() -> int:
     print("\n".join("  " + line.strip() for line in lib.ptxas.splitlines()
                     if line.strip()))
 
-    worst = check_kernels(fa, device)
-    test, results, launches, rate, peak = run_main_path(cli, fa, device)
-    check_model_fp32(cli, test, device)
+    worst = {name: 0.0 for name in KERNELS}
+    check_opt_kernels(fa, device, worst)
+    keep = check_t5_kernels(fa, device, worst)
+
+    test, results, opt_test, rate, peak = run_test_pass(
+        cli, fa, device, OPT_TEST_ARGV, OPT_TEST_KERNELS, tag="opt")
+    check_model_fp32(cli, test, device, OPT_TEST_ARGV, "opt")
     tokenizer = test.tokenizer
     del test
     with tempfile.TemporaryDirectory() as log_dir:
-        train = run_training(cli, fa, device, log_dir)
-    step = check_train_step_fp32(cli, device, tokenizer)
-    times = time_kernels(fa, device)
+        train = run_training(cli, fa, device, log_dir, OPT_TRAIN_ARGV,
+                             OPT_TRAIN_KERNELS, tag="opt")
+    step = check_train_step_fp32(cli, fa, device, tokenizer, OPT_TRAIN_ARGV,
+                                 OPT_TRAIN_KERNELS, "opt")
 
-    print(json.dumps({"main_path": {
+    per_eval = {"flash_attention_bias": 2 * T5_LAYERS,
+                "flash_attention": T5_LAYERS,
+                "fused_heads_attention": T5_LAYERS}
+    per_generate = {"flash_attention_bias": T5_LAYERS, "flash_attention": 0,
+                    "fused_heads_attention": T5_LAYERS}
+    t5_test, t5_results, t5_test_launches, t5_rate, t5_peak = run_test_pass(
+        cli, fa, device, T5_TEST_ARGV,
+        ("flash_attention_bias", "flash_attention", "fused_heads_attention"),
+        per_eval, per_generate, tag="t5")
+    t5_model = check_model_fp32(cli, t5_test, device, T5_TEST_ARGV, "t5")
+    t5_tokenizer = t5_test.tokenizer
+    del t5_test
+    micro = TRAIN_UPDATES   # micro-batches per update (4 x 4)
+    per_update = {"flash_attention_bias": 3 * T5_LAYERS * micro,
+                  "flash_attention_bias_bwd": 3 * T5_LAYERS * micro,
+                  "flash_attention": 0, "flash_attention_bwd": 0}
+    with tempfile.TemporaryDirectory() as log_dir:
+        t5_train = run_training(
+            cli, fa, device, log_dir, T5_TRAIN_ARGV,
+            ("flash_attention_bias", "flash_attention_bias_bwd",
+             "fused_heads_attention"), per_update, tag="t5")
+    t5_step = check_train_step_fp32(
+        cli, fa, device, t5_tokenizer, T5_TRAIN_ARGV,
+        ("flash_attention_bias", "flash_attention_bias_bwd",
+         "flash_attention", "flash_attention_bwd"), "t5")
+
+    rows = time_kernels(fa, device)
+
+    print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
-        "test_loss": results["loss"], "launches": launches, "card": card}}))
-    print(json.dumps({"training": {**train, "fp32_step": step,
-                                   "card": card}}))
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": train["launches"][name],
-         "max_abs_err": worst[name], "ms": times[name]["kernel"],
-         "plain_ms": times[name]["plain"]}
-        for name, (_, replaces, source) in KERNELS.items()]}))
+        "test_loss": results["loss"], "launches": opt_test, "card": card}}))
+    print(json.dumps({"opt_training": {**train, "fp32_step": step,
+                                       "card": card}}))
+    print(json.dumps({"t5_test": {
+        "sections_per_s": t5_rate, "peak_bytes": t5_peak,
+        "test_loss": t5_results["loss"], "launches": t5_test_launches,
+        "fp32_eval": t5_model, "card": card}}))
+    print(json.dumps({"t5_training": {**t5_train, "fp32_step": t5_step,
+                                      "dropout_keep_fraction": keep,
+                                      "card": card}}))
+
+    # each kernel's launches from the path that runs it: K1-K3 the OPT
+    # training run, K4 the T5 test pass, K7/K8/K9 the T5 training run, K5
+    # the T5 fp32 micro-step (its gradient runs only where dropout is off)
+    launches = dict(train["launches"])
+    launches["flash_attention"] = t5_test_launches["flash_attention"]
+    launches["flash_attention_bias"] = t5_train["launches"][
+        "flash_attention_bias"]
+    launches["flash_attention_bwd"] = t5_step["launches"][
+        "flash_attention_bwd"]
+    bias_bwd = t5_train["launches"]["flash_attention_bias_bwd"]
+    # K9 runs on the encoder's layers, K8 on the decoder's two per layer
+    launches["flash_attention_bias_bwd[K9]"] = bias_bwd // 3
+    launches["flash_attention_bias_bwd[K8]"] = bias_bwd - bias_bwd // 3
+    entries = []
+    timed_label = {}
+    for label, (name, _, _, _) in rows.items():
+        # a kernel's line takes its first timed case (K7: the encoder in
+        # eval); every case is printed above
+        timed_label.setdefault(name, label)
+    for name, label in timed_label.items():
+        base = name.split("[")[0]
+        _, replaces, source = KERNELS[base]
+        if name.endswith("[K9]"):
+            replaces = f"{PALLAS}:984"
+        _, times, bound, by = rows[label]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": worst[base], "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": times["library"], "shape": label})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,6 +5,9 @@ Takes the JAX package's flag surface (``config.parse_args``, the port's copy
 of mmgl_tpu/config.py) plus ``--device`` (default ``cuda``), on one device:
 no mesh, no gather.
 
+OPT trains with AdamW, T5 with Adafactor (train/optim.py, chosen by the
+model name as the JAX package chooses).
+
 * Training (the default): seeded random weights, the epoch-0 val pass, then
   per epoch ``steps_per_epoch / grad_accumulation_steps`` updates, the val
   pass and a checkpoint when val BLEU-4 improves, and finally the test pass
@@ -17,6 +20,9 @@ no mesh, no gather.
     python -m mmgl_tpu_torch.cli --model_name_or_path opt-125m \
         --task section --context all --neighbor_mode raw \
         --bf16 true --tokenizer_path byte:50272 --device cuda
+    python -m mmgl_tpu_torch.cli --model_name_or_path t5-base \
+        --task section --context all --neighbor_mode raw \
+        --bf16 true --tokenizer_path byte:32128 --device cuda
 
 ``--device cuda`` on a host without a visible GPU fails: there is no CPU
 fallback. Pass ``--device cpu`` to run the plain versions of the kernels.
@@ -260,7 +266,7 @@ def run_training(args: Arguments, device: torch.device,
           f"{counts['trainable']:,} | non-trainable: "
           f"{counts['non_trainable']:,}")
 
-    optimizer, scheduler = build_optimizer(args, model.parameters())
+    optimizer, scheduler = build_optimizer(args, model)
     best_acc1, step = 0.0, 0
     if args.resume:
         restored, path = _newest_checkpoint(args)
@@ -392,7 +398,9 @@ def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int,
              f"{prefix}/batch_sections": float(bs)}, steps)
 
         losses.update(float(out["loss"]), bs)
-        labels = batch["labels"][:, args.max_input_length + 1:]
+        labels = batch["labels"]
+        if test.fcfg.decoder_only:
+            labels = labels[:, args.max_input_length + 1:]
         generated = generated.cpu().numpy()
         if generated.shape[0] != labels.shape[0]:
             raise RuntimeError(f"{generated.shape[0]} predictions for "

@@ -1,8 +1,8 @@
 """Model factory: Arguments -> MMGLModel (counterpart of
 mmgl_tpu/models/factory.py:27-181).
 
-Same substring selection on ``model_name_or_path`` and the same tabled OPT
-and CLIP-vision shapes as the JAX package. ``build_model`` initializes the
+Same substring selection on ``model_name_or_path`` and the same tabled OPT,
+T5 and CLIP-vision shapes as the JAX package. ``build_model`` initializes the
 weights from a ``torch.Generator`` seeded with ``--seed`` (on the CPU, so one
 seed gives the same weights on every device) and moves the model to
 ``device`` with its parameters in ``--param_dtype`` (float32); each layer
@@ -23,6 +23,7 @@ from mmgl_tpu_torch.models.clip import CLIPVisionConfig
 from mmgl_tpu_torch.models.fusion import FusionConfig, MMGLModel
 from mmgl_tpu_torch.models.layers import init_weights
 from mmgl_tpu_torch.models.opt import OPTConfig
+from mmgl_tpu_torch.models.t5 import T5Config
 from mmgl_tpu_torch.peft.masks import apply_trainable_mask
 
 # (hidden, layers, heads, ffn, word_embed_proj)
@@ -35,6 +36,15 @@ _OPT_SIZES = {
     "6.7b": (4096, 32, 32, 16384, None),
 }
 
+# (d_model, d_kv, d_ff, layers, heads, gated)
+_T5_SIZES = {
+    "tiny": (64, 16, 128, 2, 4, False),    # test-scale
+    "small": (512, 64, 2048, 6, 8, False),
+    "base": (768, 64, 3072, 12, 12, False),
+    "large": (1024, 64, 4096, 24, 16, False),
+    "flan-base": (768, 64, 2048, 12, 12, True),
+}
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -44,22 +54,34 @@ def _compute_dtype(args: Arguments) -> torch.dtype:
     return _DTYPES[args.compute_dtype if args.bf16 else "float32"]
 
 
-def _size_of(name: str) -> str:
-    for key in _OPT_SIZES:
+def _size_of(name: str, table) -> str:
+    for key in table:
         if key in name:
             return key
     return "tiny"
 
 
+def _t5_config(args: Arguments, size: str) -> T5Config:
+    """mmgl_tpu/models/factory.py:72-82: dropout 0.1 (hidden and attention
+    probabilities), 0 for the tiny test shape."""
+    d_model, d_kv, d_ff, layers, heads, gated = _T5_SIZES[size]
+    return T5Config(
+        d_model=d_model, d_kv=d_kv, d_ff=d_ff, num_layers=layers,
+        num_decoder_layers=layers, num_heads=heads,
+        feed_forward_proj="gated-gelu" if gated else "relu",
+        dropout_rate=0.0 if size == "tiny" else 0.1,
+        dtype=_compute_dtype(args))
+
+
 def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                         tokenizer=None) -> FusionConfig:
-    """Raises NotImplementedError for what is not ported yet: T5, MPT,
+    """Raises NotImplementedError for what is not ported yet: MPT,
     embedding/cross-attention neighbor modes and PEFT."""
     name = args.model_name_or_path or "opt-tiny"
     tiny = "tiny" in name
-    if "t5" in name or "mpt" in name:
-        raise NotImplementedError(f"{name}: only OPT is ported yet")
-    if "opt" not in name:
+    if "mpt" in name:
+        raise NotImplementedError(f"{name}: MPT is not ported yet")
+    if "t5" not in name and "opt" not in name:
         raise ValueError(f"unsupported model {name} (need t5/opt/mpt)")
     if args.neighbor_mode != "raw":
         raise NotImplementedError(
@@ -68,22 +90,36 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
         raise NotImplementedError(
             f"peft_type={args.peft_type!r} is not ported yet")
 
-    size = _size_of(name)
-    hidden, layers, heads, ffn, proj = _OPT_SIZES[size]
     dt = _compute_dtype(args)
-    opt_cfg = OPTConfig(
-        hidden_size=hidden, num_hidden_layers=layers,
-        num_attention_heads=heads, ffn_dim=ffn, word_embed_proj_dim=proj,
-        do_layer_norm_before=(size != "350m"),
-        dropout=0.0 if size == "tiny" else 0.1, layerdrop=args.layerdrop,
-        dtype=dt)
-    if vocab_size:
-        opt_cfg = replace(opt_cfg, vocab_size=vocab_size)
-    if tokenizer is not None:
-        opt_cfg = replace(
-            opt_cfg, pad_token_id=tokenizer.pad_token_id,
-            eos_token_id=tokenizer.eos_token_id,
-            bos_token_id=tokenizer.bos_token_id or opt_cfg.bos_token_id)
+    opt_cfg = t5_cfg = None
+    if "t5" in name:
+        t5_cfg = _t5_config(args, _size_of(name, _T5_SIZES))
+        if vocab_size:
+            t5_cfg = replace(t5_cfg, vocab_size=vocab_size)
+        if tokenizer is not None:
+            # the ids track the tokenizer in use (the HF defaults, eos 1,
+            # collide with the byte tokenizer's bos 1); the decoder starts
+            # from pad, as HF T5 does (mmgl_tpu/models/factory.py:125-132)
+            t5_cfg = replace(
+                t5_cfg, pad_token_id=tokenizer.pad_token_id,
+                eos_token_id=tokenizer.eos_token_id,
+                decoder_start_token_id=tokenizer.pad_token_id)
+    else:
+        size = _size_of(name, _OPT_SIZES)
+        hidden, layers, heads, ffn, proj = _OPT_SIZES[size]
+        opt_cfg = OPTConfig(
+            hidden_size=hidden, num_hidden_layers=layers,
+            num_attention_heads=heads, ffn_dim=ffn, word_embed_proj_dim=proj,
+            do_layer_norm_before=(size != "350m"),
+            dropout=0.0 if size == "tiny" else 0.1, layerdrop=args.layerdrop,
+            dtype=dt)
+        if vocab_size:
+            opt_cfg = replace(opt_cfg, vocab_size=vocab_size)
+        if tokenizer is not None:
+            opt_cfg = replace(
+                opt_cfg, pad_token_id=tokenizer.pad_token_id,
+                eos_token_id=tokenizer.eos_token_id,
+                bos_token_id=tokenizer.bos_token_id or opt_cfg.bos_token_id)
 
     vision_cfg = (CLIPVisionConfig(dtype=dt) if not tiny
                   else CLIPVisionConfig(
@@ -94,7 +130,7 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
     return FusionConfig(
         context=args.context, n_visual_tokens=args.n_visual_tokens,
         max_input_length=args.max_input_length, opt=opt_cfg,
-        vision=vision_cfg)
+        vision=vision_cfg, t5=t5_cfg)
 
 
 def build_model(args: Arguments, device: torch.device,

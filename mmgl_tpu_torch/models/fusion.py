@@ -1,12 +1,15 @@
 """Neighbor fusion: the MMGL model (counterpart of mmgl_tpu/models/fusion.py).
 
-Ported for the decoder-only OPT LM in raw neighbor mode, all four contexts:
-section_only and text_only are a plain LM call; section_all and all splice
-the frozen CLIP tower's image soft tokens into the reserved token positions
-(modelling_self_attention.py:248-261 in the reference). The tower runs
-without autograd (``stop_gradient`` at mmgl_tpu/models/fusion.py:193); the
-projection ``visual_embeddings`` after it trains. Embedding and
-cross-attention modes, T5, MPT and PEFT are refused at model build
+Ported for the decoder-only OPT LM and the encoder-decoder T5 in raw
+neighbor mode, all four contexts: section_only and text_only are a plain LM
+call; section_all and all splice the frozen CLIP tower's image soft tokens
+into the reserved token positions (modelling_self_attention.py:248-261 in the
+reference), into the prompt for OPT and into the encoder input for T5. The
+tower runs without autograd (``stop_gradient`` at
+mmgl_tpu/models/fusion.py:193); the projection ``visual_embeddings`` after it
+trains. OPT's labels are -100 at the image slots; T5's labels are the
+summary alone and are left as they are (fusion.py:308). Embedding and
+cross-attention modes, MPT and PEFT are refused at model build
 (models/factory.py).
 
 Batches are the data layer's dicts of numpy arrays or tensors, with the same
@@ -26,6 +29,7 @@ from mmgl_tpu_torch.models.clip import (CLIPVisionConfig, CLIPVisionModel,
                                         normalize_pixels)
 from mmgl_tpu_torch.models.layers import Linear
 from mmgl_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+from mmgl_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
 
 IGNORE_INDEX = -100
 
@@ -35,12 +39,14 @@ CONTEXTS = ("section_only", "section_all", "text_only", "all")
 
 @dataclass(frozen=True)
 class FusionConfig:
-    """Decoder-only OPT with raw neighbors (the ported fusion mode)."""
+    """OPT (decoder-only) or T5 (encoder-decoder) with raw neighbors (the
+    ported fusion mode): exactly one of ``opt`` and ``t5`` is set."""
     context: str = "section_only"         # one of CONTEXTS
     n_visual_tokens: int = 4
     max_input_length: int = 512
     opt: Optional[OPTConfig] = None
     vision: Optional[CLIPVisionConfig] = None
+    t5: Optional[T5Config] = None
 
     def __post_init__(self):
         if self.context not in CONTEXTS:
@@ -51,8 +57,21 @@ class FusionConfig:
         return self.context in ("section_all", "all")
 
     @property
+    def lm_type(self) -> str:
+        return "t5" if self.t5 is not None else "opt"
+
+    @property
+    def decoder_only(self) -> bool:
+        return self.t5 is None
+
+    @property
     def embed_dim(self) -> int:
-        return self.opt.embed_dim
+        return self.t5.d_model if self.t5 is not None else self.opt.embed_dim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The LM's compute dtype."""
+        return self.t5.dtype if self.t5 is not None else self.opt.dtype
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -65,16 +84,17 @@ class MMGLModel(nn.Module):
     def __init__(self, cfg: FusionConfig):
         super().__init__()
         self.config = cfg
-        self.lm = OPTForCausalLM(cfg.opt)
+        self.lm = (OPTForCausalLM(cfg.opt) if cfg.decoder_only
+                   else T5ForConditionalGeneration(cfg.t5))
         if cfg.needs_vision_tower:
             self.visual_model = CLIPVisionModel(cfg.vision)
             self.visual_embeddings = Linear(
                 cfg.vision.hidden_size, cfg.embed_dim * cfg.n_visual_tokens,
-                compute_dtype=cfg.opt.dtype)
+                compute_dtype=cfg.dtype)
 
     @property
     def device(self) -> torch.device:
-        return self.lm.decoder.embed_tokens.weight.device
+        return next(self.lm.parameters()).device
 
     # ---- frozen image tower (modelling_self_attention.py:154-200) ----
 
@@ -104,6 +124,14 @@ class MMGLModel(nn.Module):
         """Returns {"logits": (B, S, V), "labels": adjusted labels}.
         ``generator`` is the dropout stream, needed in training mode."""
         fused = self._fuse(batch)
+        if not self.config.decoder_only:
+            logits = self.lm(
+                input_ids=None if fused["inputs_embeds"] is not None
+                else fused["input_ids"],
+                inputs_embeds=fused["inputs_embeds"],
+                attention_mask=fused["attention_mask"],
+                labels=fused["labels"], generator=generator)
+            return {"logits": logits, "labels": fused["labels"]}
         logits, _ = self.lm(
             input_ids=None if fused["inputs_embeds"] is not None
             else fused["input_ids"],
@@ -137,7 +165,7 @@ class MMGLModel(nn.Module):
             inputs_embeds = torch.cat([inputs_embeds, spill], dim=1)
             inputs_embeds[rows, pos] = visual.to(inputs_embeds.dtype)
             inputs_embeds = inputs_embeds[:, :s]
-            if labels is not None:
+            if labels is not None and cfg.decoder_only:
                 labels = torch.cat([labels, labels.new_zeros(b, 1)], dim=1)
                 labels[rows, pos] = IGNORE_INDEX
                 labels = labels[:, :s]
@@ -163,4 +191,18 @@ class MMGLModel(nn.Module):
         return self.lm(input_ids=input_ids, inputs_embeds=inputs_embeds,
                        attention_mask=attention_mask, caches=caches,
                        position_ids=position_ids)
+
+    def encode_t5(self, inputs_embeds=None, attention_mask=None
+                  ) -> torch.Tensor:
+        """T5's encoder over the fused prompt (generation)."""
+        return self.lm.encode(inputs_embeds=inputs_embeds,
+                              attention_mask=attention_mask)
+
+    def decode_t5(self, decoder_input_ids=None, encoder_states=None,
+                  attention_mask=None, caches: Optional[list] = None,
+                  position_offset: int = 0) -> Tuple[torch.Tensor, list]:
+        """One T5 decoder call with caches (generation steps)."""
+        return self.lm.decode(decoder_input_ids, encoder_states,
+                              attention_mask=attention_mask, caches=caches,
+                              position_offset=position_offset)
 

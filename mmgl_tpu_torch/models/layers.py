@@ -91,6 +91,26 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
+class RMSNorm(nn.Module):
+    """T5's layer norm (mmgl_tpu/models/layers.py:63-76): no mean, no bias;
+    the variance in fp32, x scaled in fp32, times the fp32 weight, then
+    rounded to the compute dtype. Its epsilon is T5's 1e-6, not OPT's
+    LayerNorm 1e-5."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        return (self.weight * (xf * torch.rsqrt(var + self.eps))).to(
+            self.compute_dtype)
+
+
 class Embedding(nn.Embedding):
     """flax ``Embed(dtype=compute_dtype)``: the rows looked up, then cast
     (the same values as casting the table first, without casting all of

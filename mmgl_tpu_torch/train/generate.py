@@ -1,6 +1,13 @@
 """Greedy generation with a KV cache (counterpart of
-mmgl_tpu/train/generate.py:30-89, 123-125), decoder-only.
+mmgl_tpu/train/generate.py:30-125).
 
+T5 (``_generate_t5``): the fused prompt is encoded once; the decoder starts
+from ``decoder_start_token_id`` and takes one token per step against its
+in-place self-attention cache, with the relative-position bias at query
+offset t; each step's argmax is the output, and rows that have emitted EOS
+emit pad.
+
+Decoder-only:
 One prefill over the padded prompt (with its image splices), then
 single-token decode steps against a preallocated cache: greedy, EOS-finished
 rows emit pad. A Python loop replaces ``lax.scan``; it stops one step
@@ -20,6 +27,7 @@ import torch
 from mmgl_tpu_torch.models.fusion import MMGLModel
 from mmgl_tpu_torch.models.layers import make_positions_from_mask
 from mmgl_tpu_torch.models.opt import init_cache
+from mmgl_tpu_torch.models.t5 import t5_init_cache
 
 
 def _prompt_batch(model: MMGLModel, batch: Dict) -> Dict:
@@ -37,6 +45,8 @@ def greedy_generate(model: MMGLModel, batch: Dict,
     """Returns (B, max_new_tokens) generated ids on the model's device.
     Runs the model in eval mode (no dropout)."""
     model.eval()
+    if not model.config.decoder_only:
+        return _generate_t5(model, batch, max_new_tokens)
     opt_cfg = model.config.opt
     embeds, mask = model.prefill_inputs(_prompt_batch(model, batch))
     b, t_prompt = embeds.shape[:2]
@@ -62,4 +72,28 @@ def greedy_generate(model: MMGLModel, batch: Dict,
         tok = torch.where(finished, torch.full_like(nxt, pad), nxt)
         out.append(tok)
         pos = pos + 1
+    return torch.stack(out, dim=1)
+
+
+def _generate_t5(model: MMGLModel, batch: Dict,
+                 max_new_tokens: int) -> torch.Tensor:
+    """mmgl_tpu/train/generate.py:92-120."""
+    t5_cfg = model.config.t5
+    embeds, mask = model.prefill_inputs(_prompt_batch(model, batch))
+    enc = model.encode_t5(inputs_embeds=embeds, attention_mask=mask)
+    b = embeds.shape[0]
+    caches = t5_init_cache(t5_cfg, b, max_new_tokens, embeds.device)
+    tok = torch.full((b,), t5_cfg.decoder_start_token_id, dtype=torch.long,
+                     device=embeds.device)
+    eos, pad = t5_cfg.eos_token_id, t5_cfg.pad_token_id
+    finished = torch.zeros(b, dtype=torch.bool, device=embeds.device)
+    out = []
+    for t in range(max_new_tokens):
+        logits, caches = model.decode_t5(
+            decoder_input_ids=tok[:, None], encoder_states=enc,
+            attention_mask=mask, caches=caches, position_offset=t)
+        nxt = torch.argmax(logits[:, 0], dim=-1)
+        finished = finished | (tok == eos)
+        tok = torch.where(finished, torch.full_like(nxt, pad), nxt)
+        out.append(tok)
     return torch.stack(out, dim=1)

@@ -1,6 +1,7 @@
-"""Losses (counterpart of mmgl_tpu/train/losses.py:22-64, 100-117).
+"""Losses (counterpart of mmgl_tpu/train/losses.py:22-64, 94-117).
 
-Decoder-only CE over the whole shifted sequence, prompt and pads included,
+Encoder-decoder (T5) CE over the labels, unshifted (the decoder inputs are
+the labels shifted right), -100 excluded. Decoder-only CE over the whole shifted sequence, prompt and pads included,
 with -100 positions (image splices) excluded, plus the summary loss over the
 label span with pads dropped (run_generation.py:470-481 in the reference),
 from one per-token CE pass.
@@ -52,6 +53,12 @@ def token_ce(logits: torch.Tensor, labels: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token CE in fp32 and its validity; labels < 0 give 0."""
     return _TokenCE.apply(logits, labels), labels >= 0
+
+
+def seq2seq_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Unshifted CE (decoder inputs already shifted right)."""
+    ce, valid = token_ce(logits, labels)
+    return ce.sum() / valid.sum().clamp(min=1)
 
 
 def causal_losses(logits: torch.Tensor, labels: torch.Tensor,

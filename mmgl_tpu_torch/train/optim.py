@@ -1,4 +1,7 @@
-"""Optimizer and schedule (counterpart of mmgl_tpu/train/optim.py:27-64).
+"""Optimizers and schedule (counterpart of mmgl_tpu/train/optim.py:27-64).
+
+Chosen by model name as the JAX package chooses (:45): Adafactor for T5,
+AdamW otherwise.
 
 OPT: AdamW(betas, eps 1e-8, weight_decay) under a linear warmup to the
 learning rate over ``lr_warmup_steps`` updates, then a step decay by
@@ -10,15 +13,28 @@ parameters only, so frozen ones get no state and no decay, as under
 
 torch's AdamW decays decoupled, ``p -= lr * wd * p`` before the Adam step,
 which is optax.adamw's ``p -= lr * (adam + wd * p)``; with eps added to the
-bias-corrected root it is the same update. Adafactor (T5) is not ported.
+bias-corrected root it is the same update.
+
+T5: ``Adafactor``, what ``optax.adafactor(lr, multiply_by_parameter_scale=
+False, min_dim_size_to_factor=2)`` computes (optax/_src/factorized.py and
+alias.py): factored second moments for every tensor of two or more dims
+(over its two largest dims), unfactored for vectors; decay 1 - (t+1)^-0.8,
+epsilon 1e-30 added to the squared gradient; the update clipped to block
+RMS 1.0, scaled by the constant learning rate; no momentum, no weight
+decay. ``torch.optim.Adafactor`` is another algorithm (its own decay and
+epsilons, a relative step). The factoring reads the flax layout: a
+``Linear`` weight is the transpose of the flax kernel, so the optimizer
+factors it transposed, which decides the dims of a square matrix.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple, Union
 
+import numpy as np
 import torch
+from torch import nn
 
 from mmgl_tpu_torch.config import Arguments
 
@@ -39,15 +55,105 @@ def lr_factor(args: Arguments) -> Callable[[int], float]:
     return fn
 
 
-def build_optimizer(args: Arguments, params: Iterable[torch.nn.Parameter]
+class Adafactor(torch.optim.Optimizer):
+    """optax.adafactor(lr, multiply_by_parameter_scale=False,
+    min_dim_size_to_factor=2) with a constant learning rate; state (step
+    count, v_row / v_col or v) only for the parameters given. ``transposed``
+    holds the parameters whose flax layout is their transpose."""
+
+    def __init__(self, params, lr: float, decay_rate: float = 0.8,
+                 eps: float = 1e-30, clipping_threshold: float = 1.0,
+                 min_dim_size_to_factor: int = 2,
+                 transposed: Iterable[torch.Tensor] = ()):
+        super().__init__(params, dict(lr=lr))
+        self.decay_rate, self.eps = decay_rate, eps
+        self.clipping_threshold = clipping_threshold
+        self.min_dim_size_to_factor = min_dim_size_to_factor
+        self._transposed = {id(p) for p in transposed}
+
+    def _factored_dims(self, shape) -> Optional[Tuple[int, int]]:
+        """optax's choice: the two largest dims, (second, largest), by
+        numpy's argsort of the shape."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < self.min_dim_size_to_factor:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                flip = id(p) in self._transposed
+                g = p.grad.T if flip else p.grad
+                shape = tuple(g.shape)
+                dims = self._factored_dims(shape)
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    if dims is None:
+                        state["v"] = torch.zeros_like(g)
+                    else:
+                        d1, d0 = dims
+                        state["v_row"] = g.new_zeros(
+                            shape[:d0] + shape[d0 + 1:])
+                        state["v_col"] = g.new_zeros(
+                            shape[:d1] + shape[d1 + 1:])
+                t = torch.tensor(state["step"] + 1, dtype=torch.float32)
+                decay = (1.0 - t ** -self.decay_rate).to(g.device)
+                g2 = g.square() + self.eps
+                if dims is None:
+                    v = state["v"]
+                    v.copy_(decay * v + (1.0 - decay) * g2)
+                    update = g * v.rsqrt()
+                else:
+                    d1, d0 = dims
+                    v_row, v_col = state["v_row"], state["v_col"]
+                    v_row.copy_(decay * v_row
+                                + (1.0 - decay) * g2.mean(dim=d0))
+                    v_col.copy_(decay * v_col
+                                + (1.0 - decay) * g2.mean(dim=d1))
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+                    row_factor = (v_row / row_col_mean).rsqrt()
+                    col_factor = v_col.rsqrt()
+                    update = (g * row_factor.unsqueeze(d0)
+                              * col_factor.unsqueeze(d1))
+                # clip_by_block_rms, then the learning rate
+                denom = torch.clamp(update.square().mean().sqrt()
+                                    / self.clipping_threshold, min=1.0)
+                update = update / denom * group["lr"]
+                p.sub_(update.T if flip else update)
+                state["step"] += 1
+
+
+def flax_transposed(model: nn.Module):
+    """The parameters stored as the transpose of their flax leaf: every
+    ``Linear`` weight (utils/convert.py transposes Dense kernels)."""
+    return [m.weight for m in model.modules() if isinstance(m, nn.Linear)]
+
+
+def build_optimizer(args: Arguments,
+                    params: Union[nn.Module, Iterable[torch.nn.Parameter]]
                     ) -> Tuple[torch.optim.Optimizer,
                                torch.optim.lr_scheduler.LambdaLR]:
-    """(AdamW over ``params``, its LambdaLR schedule). Step the scheduler
-    once after each optimizer step: update n then runs at lr_factor(n)."""
+    """(the optimizer over the trainable ``params``, its LambdaLR
+    schedule): Adafactor at a constant rate for T5, else AdamW under
+    ``lr_factor``. Step the scheduler once after each optimizer step: update
+    n then runs at lr_factor(n). Pass the model itself for T5, so Adafactor
+    factors the Linear weights in their flax layout."""
     name = args.model_name_or_path or ""
-    if "t5" in name:
-        raise NotImplementedError("Adafactor (T5) is not ported yet")
+    transposed = []
+    if isinstance(params, nn.Module):
+        transposed = flax_transposed(params)
+        params = params.parameters()
     params = [p for p in params if p.requires_grad]
+    if "t5" in name:
+        opt = Adafactor(params, lr=args.learning_rate, transposed=transposed)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0)
     opt = torch.optim.AdamW(params, lr=args.learning_rate,
                             betas=(args.adam_beta1, args.adam_beta2),
                             eps=1e-8, weight_decay=args.weight_decay)

@@ -1,5 +1,5 @@
-"""Train and eval steps (counterpart of mmgl_tpu/train/steps.py:95-171,
-240-259).
+"""Train and eval steps (counterpart of mmgl_tpu/train/steps.py:72-90,
+95-171, 240-259).
 
 The JAX package compiles one program per update: a ``lax.scan`` over the
 micro-batches, then the optimizer. Here the same update runs eagerly: each
@@ -7,7 +7,9 @@ micro-batch's loss is backpropagated into the parameters' ``.grad``, the
 sums are divided by the number of micro-batches, the global norm of the
 trainable gradients is taken before clipping, and one optimizer step and
 one scheduler step follow. Metrics stay on the device; nothing here waits
-for it.
+for it. Decoder-only models take the causal losses over prompt + summary;
+encoder-decoder (T5) the unshifted CE over the summary, which is also the
+summary loss.
 """
 
 from __future__ import annotations
@@ -16,7 +18,17 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from mmgl_tpu_torch.train.losses import causal_losses
+from mmgl_tpu_torch.train.losses import causal_losses, seq2seq_loss
+
+
+def losses_of(out: Dict, decoder_only: bool, max_input_length: int,
+            pad_token_id: int):
+    """(loss, summary_loss) of a forward's logits and labels."""
+    if decoder_only:
+        return causal_losses(out["logits"], out["labels"], max_input_length,
+                             pad_token_id)
+    loss = seq2seq_loss(out["logits"], out["labels"])
+    return loss, loss
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,
@@ -30,8 +42,6 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     ``accum`` micro-batches of consecutive rows (the JAX package's reshape
     to (accum, micro, ...)). ``generator`` is the dropout stream. The
     optimizer's parameters are the trainable set."""
-    if not decoder_only:
-        raise NotImplementedError("encoder-decoder training is not ported yet")
     accum = max(1, grad_accumulation_steps)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
@@ -47,8 +57,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         for i in range(accum):
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
             out = model(mb, generator=generator)
-            loss, s_loss = causal_losses(out["logits"], out["labels"],
-                                         max_input_length, pad_token_id)
+            loss, s_loss = losses_of(out, decoder_only, max_input_length,
+                                   pad_token_id)
             loss.backward()
             sums = sums + torch.stack([loss.detach(), s_loss.detach()])
         grads = [p.grad for p in params]
@@ -78,17 +88,15 @@ def make_eval_step(model, decoder_only: bool, max_input_length: int,
     (run_generation.py:580-606 val path). step(batch) -> {"loss",
     "summary_loss", "predictions"}, all on the model's device. Runs the
     model in eval mode (``deterministic=True``: no dropout)."""
-    if not decoder_only:
-        raise NotImplementedError("encoder-decoder eval is not ported yet")
-
     @torch.no_grad()
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()
         out = model(batch)
-        logits, labels = out["logits"], out["labels"]
-        loss, s_loss = causal_losses(logits, labels, max_input_length,
-                                     pad_token_id)
-        preds = torch.argmax(logits[:, max_input_length:-1], dim=-1)
+        loss, s_loss = losses_of(out, decoder_only, max_input_length,
+                               pad_token_id)
+        span = (out["logits"][:, max_input_length:-1] if decoder_only
+                else out["logits"])
+        preds = torch.argmax(span, dim=-1)
         return {"loss": loss, "summary_loss": s_loss, "predictions": preds}
 
     return step

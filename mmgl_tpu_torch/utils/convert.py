@@ -10,9 +10,12 @@ path names, so the map is mechanical:
   * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in), transposed
   * Embed ``embedding``    -> Embedding ``weight``
   * LayerNorm ``scale``    -> LayerNorm ``weight``; ``bias`` stays
+  * RMSNorm ``weight``     -> RMSNorm ``weight`` (T5)
 
 CLIP's patch embedding is a Dense over flattened (p, p, 3) patches on both
-sides, so it is a transpose too. Only ``lm``, ``visual_model`` and
+sides, so it is a transpose too. The T5 ``lm`` tree (``shared``,
+``encoder``/``decoder.layers_i.{self_attn,cross_attn,ffn,*_norm}``,
+``relpos_bias``, ``final_layer_norm``) maps by the same rules. Only ``lm``, ``visual_model`` and
 ``visual_embeddings`` are covered; anything else raises.
 """
 
@@ -50,7 +53,7 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     leaf = path[-1]
     if leaf == "kernel":
         return ".".join(parts + ["weight"]), True
-    if leaf in ("embedding", "scale"):
+    if leaf in ("embedding", "scale", "weight"):
         return ".".join(parts + ["weight"]), False
     if leaf in ("bias", "class_embedding"):
         return ".".join(parts + [leaf]), False
