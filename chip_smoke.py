@@ -142,13 +142,16 @@ TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 0.0)}
 BWD_TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 0.0)}
 # whole-model fp32 check, card vs CPU: logits and loss
 MODEL_ATOL = 1e-3
-# fp32 training micro-step, card vs CPU: loss (abs), gradient norm (rel),
-# and the largest gradient error as a fraction of the largest gradient
-# (sums over hundreds of tokens through 12 layers in another order; a wrong
-# kernel is off by the gradient's own size)
-STEP_LOSS_ATOL = 1e-3
-STEP_NORM_RTOL = 1e-4
-STEP_GRAD_TOL = 1e-3
+# fp32 training micro-step, card vs CPU: (loss atol, gradient-norm rtol,
+# largest gradient error as a fraction of the largest gradient); sums over
+# hundreds of tokens through 12 layers in another order; a wrong kernel is
+# off by the gradient's own size. T5's random-init gradient moves more
+# under reordered sums: its plain versions on the card differ from the CPU
+# by 1.1e-2 of a largest gradient of 2.3 and by 8e-4 in norm (on an H100
+# 80GB HBM3 at 700 W), so its bound is wider, and its kernels are also held
+# to twice the plain versions' own error on the card
+STEP_TOL = (1e-3, 1e-4, 1e-3)
+T5_STEP_TOL = (1e-3, 5e-3, 1e-2)
 # H100 SXM data-sheet peaks (dense bf16, HBM3)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -703,11 +706,17 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
             "test_loss": results["loss"]}
 
 
-def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag):
+def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
+                          tol=STEP_TOL, plain_on_card=False):
     """Phases 5b and 7b: one fp32 training micro-step (loss, backward) of
-    one sample on the card against the same seeded model on the CPU. Eval
-    mode: the two devices' dropout streams differ. ``kernels`` must launch
-    in the card's step; returns its launches."""
+    one sample on the card against the same seeded model on the CPU, within
+    ``tol`` = (loss atol, gradient-norm rtol, largest gradient error as a
+    fraction of the largest gradient). Eval mode: the two devices' dropout
+    streams differ. ``kernels`` must launch in the card's step. With
+    ``plain_on_card`` the step also runs on the card through the plain
+    versions, and the kernels' gradient error against the CPU may be at
+    most twice the plain versions' (the same sums in another order).
+    Returns the card step's launches and the errors."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
     from mmgl_tpu_torch.train.steps import losses_of
@@ -717,46 +726,65 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag):
     train_ds = cli.setup_data(args, tokenizer)[0]
     batch = next(iter(cli.PrefetchLoader(train_ds, batch_size=1,
                                          num_workers=1)))
+    runs = [("card", device, False)]
+    if plain_on_card:
+        runs.append(("card_plain", device, True))
+    runs.append(("cpu", torch.device("cpu"), True))
     out, launches = {}, {}
-    for dev in (device, torch.device("cpu")):
-        model, _ = build_model(args, dev, vocab_size=tokenizer.vocab_size,
-                               tokenizer=tokenizer)
-        for name in KERNELS:
-            getattr(fa, name).launches = 0
-        fused = model.eval()(batch)
-        loss, _ = losses_of(fused, args.decoder_only, args.max_input_length,
-                            tokenizer.pad_token_id)
-        loss.backward()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-            launches = {n: getattr(fa, n).launches for n in KERNELS}
-        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
-                 if p.requires_grad}
-        norm = math.sqrt(sum(float(g.double().pow(2).sum())
-                             for g in grads.values()))
-        out[dev.type] = (float(loss.detach()), norm, grads)
-        del model, fused, loss
-    (loss_c, norm_c, g_c), (loss_h, norm_h, g_h) = out["cuda"], out["cpu"]
-    errs = {n: float((g_c[n] - g_h[n]).abs().max()) for n in g_h}
-    worst = max(errs, key=errs.get)
-    err = errs[worst]
+    plain = fa._plain
+    try:
+        for which, dev, use_plain in runs:
+            fa._plain = (lambda q: True) if use_plain else plain
+            model, _ = build_model(args, dev, vocab_size=tokenizer.vocab_size,
+                                   tokenizer=tokenizer)
+            for name in KERNELS:
+                getattr(fa, name).launches = 0
+            fused = model.eval()(batch)
+            loss, _ = losses_of(fused, args.decoder_only,
+                                args.max_input_length, tokenizer.pad_token_id)
+            loss.backward()
+            if which == "card":
+                torch.cuda.synchronize(dev)
+                launches = {n: getattr(fa, n).launches for n in KERNELS}
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters() if p.requires_grad}
+            norm = math.sqrt(sum(float(g.double().pow(2).sum())
+                                 for g in grads.values()))
+            out[which] = (float(loss.detach()), norm, grads)
+            del model, fused, loss
+    finally:
+        fa._plain = plain
+    loss_h, norm_h, g_h = out["cpu"]
     scale = max(float(g.abs().max()) for g in g_h.values())
-    print(f"[{tag} step] fp32 training micro-step, card vs CPU, one sample: "
-          f"loss {loss_c:.6f} vs {loss_h:.6f}; grad_norm {norm_c:.6f} vs "
-          f"{norm_h:.6f}; max abs grad err {err:.3e} (in {worst}) of max "
-          f"|grad| {scale:.3e} over {len(g_h)} tensors (loss atol "
-          f"{STEP_LOSS_ATOL:g}, norm rtol {STEP_NORM_RTOL:g}, grad err <= "
-          f"{STEP_GRAD_TOL:g} x max |grad|); card launches {launches}")
-    if not (abs(loss_c - loss_h) <= STEP_LOSS_ATOL
-            and abs(norm_c - norm_h) <= STEP_NORM_RTOL * norm_h
-            and err <= STEP_GRAD_TOL * scale):
+    errs = {}
+    for which in out:
+        if which == "cpu":
+            continue
+        per = {n: float((out[which][2][n] - g_h[n]).abs().max()) for n in g_h}
+        worst = max(per, key=per.get)
+        errs[which] = per[worst]
+        print(f"[{tag} step] fp32 training micro-step, {which} vs CPU, one "
+              f"sample: loss {out[which][0]:.7f} vs {loss_h:.7f}; grad_norm "
+              f"{out[which][1]:.6f} vs {norm_h:.6f}; max abs grad err "
+              f"{per[worst]:.3e} (in {worst}) of max |grad| {scale:.3e} over "
+              f"{len(g_h)} tensors")
+    loss_c, norm_c, _ = out["card"]
+    loss_atol, norm_rtol, grad_tol = tol
+    print(f"[{tag} step] tolerance: loss atol {loss_atol:g}, norm rtol "
+          f"{norm_rtol:g}, grad err <= {grad_tol:g} x max |grad|"
+          + (", and at most 2x the plain versions' on the card"
+             if plain_on_card else "") + f"; card launches {launches}")
+    if not (abs(loss_c - loss_h) <= loss_atol
+            and abs(norm_c - norm_h) <= norm_rtol * norm_h
+            and errs["card"] <= grad_tol * scale
+            and errs["card"] <= 2 * errs.get("card_plain", math.inf)):
         fail(f"the fp32 {tag} training step on the card disagrees with the "
              "CPU")
     for name in kernels:
         if launches[name] <= 0:
             fail(f"{name} was not launched in the {tag} fp32 micro-step")
     return {"loss": [loss_c, loss_h], "grad_norm": [norm_c, norm_h],
-            "max_abs_grad_err": err, "max_abs_grad": scale,
+            "max_abs_grad_err": errs, "max_abs_grad": scale,
             "launches": launches}
 
 
@@ -1060,7 +1088,8 @@ def main() -> int:
     t5_step = check_train_step_fp32(
         cli, fa, device, t5_tokenizer, T5_TRAIN_ARGV,
         ("flash_attention_bias", "flash_attention_bias_bwd",
-         "flash_attention", "flash_attention_bwd"), "t5")
+         "flash_attention", "flash_attention_bwd"), "t5", tol=T5_STEP_TOL,
+        plain_on_card=True)
 
     rows = time_kernels(fa, device)
 

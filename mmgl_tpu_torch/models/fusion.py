@@ -57,10 +57,6 @@ class FusionConfig:
         return self.context in ("section_all", "all")
 
     @property
-    def lm_type(self) -> str:
-        return "t5" if self.t5 is not None else "opt"
-
-    @property
     def decoder_only(self) -> bool:
         return self.t5 is None
 

@@ -16,7 +16,8 @@ self-attention with its bias go to K7; the 128 x 512 cross-attention goes to
 K4 in eval and to K7 in training (dropout); decode steps (one query) to the
 reference. Module names follow the flax parameter paths
 (``encoder.layers.0.self_attn.q``) so weights convert mechanically
-(utils/convert.py). Prefix tuning raises until PEFT is ported.
+(utils/convert.py). Prefix tuning (the JAX T5Attention's ``prefix_kv``)
+comes with PEFT; the factory refuses peft_type=prefix until then.
 """
 
 from __future__ import annotations
@@ -313,10 +314,3 @@ class T5ForConditionalGeneration(nn.Module):
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.shared(input_ids)
-
-
-def prefix_kv(*_args, **_kwargs):
-    """Prefix tuning's learned K/V (the JAX T5Attention's ``prefix_kv``)
-    comes with PEFT."""
-    raise NotImplementedError("prefix tuning (peft_type=prefix) is not "
-                              "ported yet")

@@ -79,28 +79,10 @@ def allheads_attention_bwd_reference(q, k, v, kv_mask, out, dout,
     The Pallas K3's math (:1318-1344): P recomputed in fp32, delta =
     rowsum(dO * o) from the stored o, P and dS rounded to the input dtype
     before their products; plus xla_attention's zero dS at masked logits.
-    In fp32 it equals torch autograd through ``attention_reference``."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    b, sq, _, _ = q.shape
-    sk = k.shape[1]
-    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
-    allowed = torch.ones(b, 1, sq, sk, dtype=torch.bool, device=q.device)
-    if kv_mask is not None:
-        allowed = allowed & kv_mask.bool()[:, None, None, :]
-    if causal:
-        q_idx = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        allowed = allowed & (q_idx >= torch.arange(sk, device=q.device))
-    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    p = torch.softmax(logits.masked_fill(~allowed, NEG_INF), dim=-1)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]     # (B, H, Sq, 1)
-    ds = (p * (dp - delta) * scale).masked_fill(~allowed, 0.0)
-    ds = ds.to(q.dtype).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    In fp32 it equals torch autograd through ``attention_reference``. It is
+    K8/K9's plain version without bias or dropout."""
+    return bias_attention_bwd_reference(q, k, v, kv_mask, None, out, dout,
+                                        causal=causal, scale=scale)[:3]
 
 
 def flash_attention_reference(q, k, v, *, kv_mask=None, causal=False,

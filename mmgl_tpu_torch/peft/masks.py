@@ -1,8 +1,9 @@
 """The trainable set (counterpart of mmgl_tpu/peft/masks.py:22-74).
 
 Only ``peft_type=none`` is ported, with and without ``--freeze_lm``: the
-frozen towers never train, the LM trains unless ``--freeze_lm``, and the
-fusion-side modules (``visual_embeddings``) always train. The rule reads the
+frozen towers never train, the LM (OPT or T5, all under ``lm``) trains
+unless ``--freeze_lm``, and the fusion-side modules (``visual_embeddings``)
+always train. The rule reads the
 port's dotted parameter names, which mirror the flax paths
 (``lm.decoder.layers.0.fc1.weight`` for ``lm/decoder/layers_0/fc1/kernel``).
 It is restated here because the JAX package's module imports flax. Where the

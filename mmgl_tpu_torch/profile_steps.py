@@ -1,10 +1,11 @@
 """Time and trace the main path's steps on the card.
 
     python -m mmgl_tpu_torch.profile_steps [--decode] [--train]
+        [--model opt-125m|t5-base]
 
-Both parts run at the full width of chip_smoke.py's main path: OPT-125M +
-CLIP ViT-B/16, task=section, context=all, raw neighbours, bf16 compute,
-seeded random weights, the synthetic corpus. Batches are staged on the card
+Both parts run at the full width of one of chip_smoke.py's paths: OPT-125M
+(the default) or T5-base, with CLIP ViT-B/16, task=section, context=all,
+raw neighbours, bf16 compute, seeded random weights, the synthetic corpus. Batches are staged on the card
 before anything is timed, except where the loader's batches are named.
 
 --decode  the test pass's batch of 4: the eval step, the prefill
@@ -47,12 +48,14 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-MAIN = ["--model_name_or_path", "opt-125m", "--task", "section", "--context",
-        "all", "--neighbor_mode", "raw", "--bf16", "true", "--tokenizer_path",
-        "byte:50272", "--seed", "0", "--device", "cuda"]
-# (kind, substrings of a kernel's name), first match wins
-KINDS = [("K1+K2", ("attention_fwd",)),       # csrc/attention_fwd.cu
-         ("K3", ("attention_bwd",)),          # csrc/attention_bwd.cu
+# the byte tokenizer padded to each model's vocabulary
+VOCAB = {"opt-125m": "byte:50272", "t5-base": "byte:32128"}
+# (kind, substrings of a kernel's name as the profiler shows it, demangled
+# without the source's namespace), first match wins
+KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
+         ("K8/K9", ("bias_bwd_",)),           # csrc/attention_bias_bwd.cu
+         ("K1+K2+K4", ("attention_fwd",)),    # csrc/attention_fwd.cu
+         ("K3+K5", ("attention_bwd",)),       # csrc/attention_bwd.cu
          ("GEMM", ("gemm", "cutlass", "xmma", "sm90", "cublas", "nvjet")),
          ("optimizer", ("multi_tensor", "foreach")),
          ("layer_norm", ("layer_norm", "layernorm")),
@@ -124,10 +127,17 @@ def _staged(batch: Dict, device) -> Dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def profile_decode(cli, device, rounds: int = 15) -> Dict:
+def main_argv(model: str) -> List[str]:
+    return ["--model_name_or_path", model, "--task", "section", "--context",
+            "all", "--neighbor_mode", "raw", "--bf16", "true",
+            "--tokenizer_path", VOCAB[model], "--seed", "0", "--device",
+            "cuda"]
+
+
+def profile_decode(cli, device, model: str, rounds: int = 15) -> Dict:
     from mmgl_tpu_torch.train.generate import greedy_generate
 
-    args, _ = cli.parse_cli(MAIN + ["--test", "true",
+    args, _ = cli.parse_cli(main_argv(model) + ["--test", "true",
                                     "--per_device_val_batch_size", "4"])
     test = cli.prepare(args, device)
     batch = _staged(next(iter(test.loader)), device)
@@ -162,16 +172,16 @@ def profile_decode(cli, device, rounds: int = 15) -> Dict:
             "profile_prefill": prefill, "profile_generate": generate}
 
 
-def profile_train(cli, device) -> Dict:
-    from mmgl_tpu_torch.train.losses import causal_losses
+def profile_train(cli, device, model_name: str) -> Dict:
     from mmgl_tpu_torch.train.optim import build_optimizer
-    from mmgl_tpu_torch.train.steps import make_train_step
+    from mmgl_tpu_torch.train.steps import losses_of, make_train_step
 
-    args, _ = cli.parse_cli(MAIN + ["--per_device_train_batch_size", "4",
-                                    "--grad_accumulation_steps", "4"])
+    args, _ = cli.parse_cli(main_argv(model_name) + [
+        "--per_device_train_batch_size", "4", "--grad_accumulation_steps",
+        "4"])
     tok, model, _, (train_ds, _, _) = cli._build(args, device)
-    optimizer, scheduler = build_optimizer(args, model.parameters())
-    step = make_train_step(model, optimizer, scheduler, True,
+    optimizer, scheduler = build_optimizer(args, model)
+    step = make_train_step(model, optimizer, scheduler, args.decoder_only,
                            args.max_input_length, tok.pad_token_id, 4,
                            args.grad_clip)
     loader = cli.PrefetchLoader(train_ds, batch_size=16, num_workers=2)
@@ -193,8 +203,8 @@ def profile_train(cli, device) -> Dict:
     for _ in range(5):
         events[0].record()
         out = model(micro, generator=gen)
-        loss, _ = causal_losses(out["logits"], out["labels"],
-                                args.max_input_length, tok.pad_token_id)
+        loss, _ = losses_of(out, args.decoder_only, args.max_input_length,
+                            tok.pad_token_id)
         events[1].record()
         loss.backward()
         events[2].record()
@@ -225,6 +235,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--decode", action="store_true")
     parser.add_argument("--train", action="store_true")
+    parser.add_argument("--model", default="opt-125m", choices=sorted(VOCAB))
     ns = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps: no CUDA device is visible")
@@ -235,7 +246,7 @@ def main(argv=None) -> int:
          "-i", "0"], capture_output=True, text=True, check=True).stdout.strip())
     device = torch.device("cuda", 0)
     if ns.decode:
-        got = profile_decode(cli, device)
+        got = profile_decode(cli, device, ns.model)
         print(f"[decode] median ms {got['median_ms']}, host CPU ms "
               f"{got['median_host_cpu_ms']}; one decode step "
               f"{got['decode_step_ms']:.4f} ms, host CPU "
@@ -244,9 +255,9 @@ def main(argv=None) -> int:
               f"share of generate {got['profile_generate']['idle_share']:.4f}"
               f" (of the median wall "
               f"{got['profile_generate']['idle_share_of_median_wall']:.4f})")
-        print(json.dumps({"decode": got}))
+        print(json.dumps({"decode": got, "model": ns.model}))
     if ns.train:
-        got = profile_train(cli, device)
+        got = profile_train(cli, device, ns.model)
         prof = got["profile_3_updates"]
         print(f"[train] update ms on loader batches {got['update_ms_loader']}"
               f", staged {got['update_ms_staged']}; host CPU ms "
@@ -255,7 +266,7 @@ def main(argv=None) -> int:
               f"{prof['wall_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms, idle "
               f"share {prof['idle_share']:.4f} (of the median staged wall "
               f"{prof['idle_share_of_median_wall']:.4f})")
-        print(json.dumps({"train": got}))
+        print(json.dumps({"train": got, "model": ns.model}))
     return 0
 
 

@@ -4,8 +4,9 @@ A checkpoint is a directory (``{log_dir}/{run}/ckpt``, and ``ckpt_latest``
 for ``--save_every_epochs``) holding one ``torch.save`` file: ``epoch``,
 ``best_acc1``, ``step``, the parameters without the frozen towers
 (``visual_model``, ``text_model``: reloadable from their pretrained
-checkpoints, as the reference's key filter drops them), the optimizer and
-scheduler states, and the torch CPU and CUDA generator states. The file is
+checkpoints, as the reference's key filter drops them), the optimizer
+(AdamW's moments, or Adafactor's step count and factored second moments)
+and scheduler states, and the torch CPU and CUDA generator states. The file is
 written to a temporary name and renamed, so a killed save leaves the
 previous checkpoint whole.
 """

@@ -61,14 +61,14 @@ class Adafactor(torch.optim.Optimizer):
     count, v_row / v_col or v) only for the parameters given. ``transposed``
     holds the parameters whose flax layout is their transpose."""
 
-    def __init__(self, params, lr: float, decay_rate: float = 0.8,
-                 eps: float = 1e-30, clipping_threshold: float = 1.0,
-                 min_dim_size_to_factor: int = 2,
+    DECAY_RATE = 0.8           # decay 1 - (t+1)^-0.8
+    EPS = 1e-30                # added to the squared gradient
+    CLIPPING_THRESHOLD = 1.0   # block RMS of an update
+    MIN_DIM_SIZE_TO_FACTOR = 2
+
+    def __init__(self, params, lr: float,
                  transposed: Iterable[torch.Tensor] = ()):
         super().__init__(params, dict(lr=lr))
-        self.decay_rate, self.eps = decay_rate, eps
-        self.clipping_threshold = clipping_threshold
-        self.min_dim_size_to_factor = min_dim_size_to_factor
         self._transposed = {id(p) for p in transposed}
 
     def _factored_dims(self, shape) -> Optional[Tuple[int, int]]:
@@ -77,7 +77,7 @@ class Adafactor(torch.optim.Optimizer):
         if len(shape) < 2:
             return None
         order = np.argsort(shape)
-        if shape[order[-2]] < self.min_dim_size_to_factor:
+        if shape[order[-2]] < self.MIN_DIM_SIZE_TO_FACTOR:
             return None
         return int(order[-2]), int(order[-1])
 
@@ -102,9 +102,12 @@ class Adafactor(torch.optim.Optimizer):
                             shape[:d0] + shape[d0 + 1:])
                         state["v_col"] = g.new_zeros(
                             shape[:d1] + shape[d1 + 1:])
+                # optax's fp32 1 - (t+1)^-0.8, taken on the host as a
+                # Python float (exactly that fp32 value): no copy to the
+                # device per tensor
                 t = torch.tensor(state["step"] + 1, dtype=torch.float32)
-                decay = (1.0 - t ** -self.decay_rate).to(g.device)
-                g2 = g.square() + self.eps
+                decay = float(1.0 - t ** -self.DECAY_RATE)
+                g2 = g.square() + self.EPS
                 if dims is None:
                     v = state["v"]
                     v.copy_(decay * v + (1.0 - decay) * g2)
@@ -124,7 +127,7 @@ class Adafactor(torch.optim.Optimizer):
                               * col_factor.unsqueeze(d1))
                 # clip_by_block_rms, then the learning rate
                 denom = torch.clamp(update.square().mean().sqrt()
-                                    / self.clipping_threshold, min=1.0)
+                                    / self.CLIPPING_THRESHOLD, min=1.0)
                 update = update / denom * group["lr"]
                 p.sub_(update.T if flip else update)
                 state["step"] += 1

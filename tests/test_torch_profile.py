@@ -19,10 +19,16 @@ def test_busy_is_the_union_of_intervals(intervals, want):
 
 
 def test_kernel_kinds():
+    # K4 and K5 run in K1's and K3's sources
     assert profile_steps._kind("void attention_bwd_dkdv_kernel<__nv_"
-                               "bfloat16>(...)") == "K3"
+                               "bfloat16>(...)") == "K3+K5"
     assert profile_steps._kind("void attention_fwd_kernel<float>(...)") == (
-        "K1+K2")
+        "K1+K2+K4")
+    assert profile_steps._kind("void (anonymous namespace)::attention_bias_"
+                               "fwd_kernel<__nv_bfloat16, float>") == "K7"
+    for name in ("stats", "dkdv", "dq", "reduce"):
+        assert profile_steps._kind(f"void (anonymous namespace)::bias_bwd_"
+                                   f"{name}_kernel<float>") == "K8/K9"
     assert profile_steps._kind("void at::native::vectorized_layer_norm_"
                                "kernel<c10::BFloat16, float>") == "layer_norm"
     assert profile_steps._kind("Memcpy HtoD (Pageable -> Device)") == (
