@@ -319,10 +319,10 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
     """On the card each wrapper writes its kernel's result into a fresh
     tensor. With that path taken on the CPU (the launchers replaced by
     their plain versions computed without autograd, as a kernel computes),
-    K1 and K2 still return tensors with a grad_fn; K1's backward launches
-    K3 once and K2's recomputes through its plain version, and their
-    gradients equal jax.grad through the Pallas kernels in interpret mode
-    (atol 1e-5)."""
+    K1, K2 and K4 still return tensors with a grad_fn; K1's backward
+    launches K3 once, K4's (at sq < sk with a broadcast K/V head) K5 once,
+    K2's recomputes through its plain version, and their gradients equal
+    jax.grad through the Pallas kernels in interpret mode (atol 1e-5)."""
     def fake_launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
         with torch.no_grad():
             return att.attention_reference(q, k, v, kv_mask=kv_mask,
@@ -335,30 +335,39 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
     monkeypatch.setattr(fa, "_plain", lambda q: False)
     monkeypatch.setattr(fa, "_launch", fake_launch)
     monkeypatch.setattr(fa, "_launch_bwd", fake_launch_bwd)
+    monkeypatch.setattr(fa, "_check_layout", lambda *a: None)
 
-    for name, s, jax_kernel in (
-            ("flash_attention_allheads", 128, jax_allheads),
-            ("fused_heads_attention", 77, jax_fused_heads)):
-        q, k, v, _ = _inputs(2, s, s, 2, 64, seed=s)
-        mask = _hole_mask(2, s, seed=s)
+    # (kernel, its backward's wrapper, sq, sk, K/V heads, causal, Pallas)
+    for name, bwd, sq, sk, kvh, causal, jax_kernel in (
+            ("flash_attention_allheads", "flash_attention_allheads_bwd", 128,
+             128, 2, True, jax_allheads),
+            ("fused_heads_attention", None, 77, 77, 2, True,
+             jax_fused_heads),
+            ("flash_attention", "flash_attention_bwd", 48, 112, 1, False,
+             jax_flash)):
+        q, k, v, _ = _inputs(2, sq, sk, 2, 64, seed=sq, kv_heads=kvh)
+        mask = _hole_mask(2, sk, seed=sq)
 
         def jloss(q, k, v):
             return _weighted_sum(jax_kernel(q, k, v,
                                             kv_mask=jnp.asarray(mask),
-                                            causal=True, interpret=True),
+                                            causal=causal, interpret=True),
                                  jnp.cos)
 
         want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray,
                                                       (q, k, v)))
         tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
         kernel = getattr(fa, name)
-        launches = (kernel.launches, fa.flash_attention_allheads_bwd.launches)
-        out = kernel(tq, tk, tv, kv_mask=torch.from_numpy(mask), causal=True)
+        counts = [fa.flash_attention_allheads_bwd, fa.flash_attention_bwd]
+        launches = (kernel.launches, [c.launches for c in counts])
+        out = kernel(tq, tk, tv, kv_mask=torch.from_numpy(mask),
+                     causal=causal)
         assert out.grad_fn is not None, name
         got = torch.autograd.grad(_weighted_sum(out), (tq, tk, tv))
         assert kernel.launches == launches[0] + 1
-        assert fa.flash_attention_allheads_bwd.launches == launches[1] + (
-            name == "flash_attention_allheads")
+        assert [c.launches for c in counts] == [
+            n + (c is getattr(fa, bwd or "fused_heads_attention"))
+            for c, n in zip(counts, launches[1])], name
         for g, w in zip(got, want):
             _close(g, w)
 

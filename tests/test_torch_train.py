@@ -268,6 +268,43 @@ def test_dropout_rates_follow_the_jax_factory():
         assert want.attention_dropout == 0.0
 
 
+def test_t5_dropout_rates_follow_the_jax_factory():
+    """T5's dropout (hidden and attention probabilities, one rate) is 0.1
+    for t5-base and 0 for t5-tiny, as mmgl_tpu/models/factory.py:72-82
+    sets it; the decoder starts from the tokenizer's pad."""
+    tok = ByteTokenizer()
+    for name, rate in (("t5-base", 0.1), ("t5-tiny", 0.0)):
+        args = _args("--model_name_or_path", name)
+        got = factory.build_fusion_config(args, tokenizer=tok).t5
+        want = jfactory.build_fusion_config(args, tokenizer=tok).t5
+        assert got.dropout_rate == want.dropout_rate == rate
+        assert (got.pad_token_id, got.eos_token_id,
+                got.decoder_start_token_id) == (
+            want.pad_token_id, want.eos_token_id,
+            want.decoder_start_token_id) == (PAD, tok.eos_token_id, PAD)
+
+
+def test_optimizer_is_chosen_by_model_name():
+    """Adafactor at a constant rate for T5, AdamW under the schedule
+    otherwise (mmgl_tpu/train/optim.py:45), each over the trainable
+    parameters only."""
+    from mmgl_tpu_torch.train.optim import Adafactor
+
+    params = [torch.nn.Parameter(torch.ones(3, 2)),
+              torch.nn.Parameter(torch.ones(2), requires_grad=False)]
+    for name, kind in (("t5-base", Adafactor), ("opt-125m",
+                                                torch.optim.AdamW)):
+        opt, sched = build_optimizer(_args("--model_name_or_path", name),
+                                     params)
+        assert type(opt) is kind
+        assert opt.param_groups[0]["params"] == params[:1]
+        for _ in range(3):
+            opt.step()
+            sched.step()
+        if kind is Adafactor:
+            assert opt.param_groups[0]["lr"] == 1e-3
+
+
 # ---- the training loop -----------------------------------------------------
 
 def _force_dropout(monkeypatch, rate=0.1):
