@@ -1080,11 +1080,29 @@ def main() -> int:
     per_update = {"flash_attention_bias": 3 * T5_LAYERS * micro,
                   "flash_attention_bias_bwd": 3 * T5_LAYERS * micro,
                   "flash_attention": 0, "flash_attention_bwd": 0}
-    with tempfile.TemporaryDirectory() as log_dir:
-        t5_train = run_training(
-            cli, fa, device, log_dir, T5_TRAIN_ARGV,
-            ("flash_attention_bias", "flash_attention_bias_bwd",
-             "fused_heads_attention"), per_update, tag="t5")
+    # K8 and K9 are one wrapper: its launches are told apart by (Sq, Sk),
+    # counted where the launcher runs
+    bwd_shapes = {}
+    launch_bias_bwd = fa._launch_bias_bwd
+
+    def tallied(q, k, *a, **kw):
+        key = (q.shape[1], k.shape[1])
+        bwd_shapes[key] = bwd_shapes.get(key, 0) + 1
+        return launch_bias_bwd(q, k, *a, **kw)
+
+    fa._launch_bias_bwd = tallied
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            t5_train = run_training(
+                cli, fa, device, log_dir, T5_TRAIN_ARGV,
+                ("flash_attention_bias", "flash_attention_bias_bwd",
+                 "fused_heads_attention"), per_update, tag="t5")
+    finally:
+        fa._launch_bias_bwd = launch_bias_bwd
+    print(f"[t5 train] K8/K9 launches by (Sq, Sk): {bwd_shapes}")
+    if sum(bwd_shapes.values()) != t5_train["launches"][
+            "flash_attention_bias_bwd"]:
+        fail("the K8/K9 launches by shape do not add up to its count")
     t5_step = check_train_step_fp32(
         cli, fa, device, t5_tokenizer, T5_TRAIN_ARGV,
         ("flash_attention_bias", "flash_attention_bias_bwd",
@@ -1115,10 +1133,10 @@ def main() -> int:
         "flash_attention_bias"]
     launches["flash_attention_bwd"] = t5_step["launches"][
         "flash_attention_bwd"]
-    bias_bwd = t5_train["launches"]["flash_attention_bias_bwd"]
-    # K9 runs on the encoder's layers, K8 on the decoder's two per layer
-    launches["flash_attention_bias_bwd[K9]"] = bias_bwd // 3
-    launches["flash_attention_bias_bwd[K8]"] = bias_bwd - bias_bwd // 3
+    # K9 at the encoder's 512 x 512, K8 at the decoder's shapes
+    k9 = bwd_shapes.get((512, 512), 0)
+    launches["flash_attention_bias_bwd[K9]"] = k9
+    launches["flash_attention_bias_bwd[K8]"] = sum(bwd_shapes.values()) - k9
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():
