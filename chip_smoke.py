@@ -39,9 +39,22 @@ imports no JAX. Phases, each fatal on failure:
      (scaled_dot_product_attention with the bias and mask as a float
      attn_mask, and its backward), beside its bound: max(FLOPs / 989
      TFLOP/s, bytes / 3.35 TB/s), each input read and each output written
-     once, FLOPs over the pairs the masks leave (dropout's bits excluded).
+     once, FLOPs over the pairs the masks leave (dropout's bits excluded);
+     K4 with its row stats, K6 and K5 also at OPT-350M's (4, 2048, 16, 64);
+  9. OPT-350M + CLIP training at OPT's whole 2048-token window through the
+     CLI (--max_input_length 1920 --max_output_length 128, bf16, 4 updates
+     of 4 x 4, AdamW) with MMGL_BLOCKED_BWD=1, turned on for this phase
+     only: every update launches K4 and K6 96 times each (24 layers x 4
+     micro-batches) and K1, K3 and K5 none; every eval step and every
+     generated batch (its 1920-token prefill) K4 24 times; the checks of
+     phase 5. Then one sample's fp32 micro-step in eval mode, K4 and K6
+     against the plain versions on the card (the CPU would take too long).
 
-The launch counts are set to 0 just before each path and read just after.
+Phase 3 also holds K4 with its row stats and K6 against their plain
+versions at OPT-350M's shape with a pad hole and with a fully masked
+sample, ragged and end-aligned sq < sk, and K6 against K5 at OPT-350M's
+shape. The launch counts are set to 0 just before each path and read just
+after.
 Prints a kernels JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
@@ -80,13 +93,19 @@ T5_TEST_ARGV = [a.replace("opt-125m", "t5-base").replace("byte:50272",
 T5_TRAIN_ARGV = [a.replace("opt-125m", "t5-base").replace("byte:50272",
                                                           "byte:32128")
                  for a in OPT_TRAIN_ARGV]
+# OPT-350M (post-LN, project_in/out) at its 2048-token position table
+OPT350_TRAIN_ARGV = [a.replace("opt-125m", "opt-350m")
+                     for a in OPT_TRAIN_ARGV] + [
+    "--max_input_length", "1920", "--max_output_length", "128"]
 TRAIN_UPDATES = 4
 T5_LAYERS = 12
+OPT350_LAYERS = 24
 
 FWD_SOURCE = "mmgl_tpu_torch/csrc/attention_fwd.cu"
 BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bwd.cu"
 BIAS_FWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bias_fwd.cu"
 BIAS_BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bias_bwd.cu"
+BLOCKED_SOURCE = "mmgl_tpu_torch/csrc/attention_blocked_bwd.cu"
 PALLAS = "mmgl_tpu/ops/flash_attention.py"
 # kernel wrapper -> (its plain version, the Pallas kernel it replaces, source)
 KERNELS = {
@@ -100,6 +119,8 @@ KERNELS = {
                         FWD_SOURCE),
     "flash_attention_bwd": ("flash_attention_bwd_reference", f"{PALLAS}:457",
                             BWD_SOURCE),
+    "flash_attention_blocked_bwd": ("flash_attention_blocked_bwd_reference",
+                                    f"{PALLAS}:336", BLOCKED_SOURCE),
     "flash_attention_bias": ("bias_attention_reference", f"{PALLAS}:768",
                              BIAS_FWD_SOURCE),
     "flash_attention_bias_bwd": ("bias_attention_bwd_reference",
@@ -126,6 +147,13 @@ BWD_CASES = [((4, 640, 12, 64), True, "hole"),
 FLASH_CASES = [((4, 128, 512, 12, 12), False, "gap"),
                ((4, 128, 128, 12, 1), False, "gap"),
                ((3, 333, 77, 2, 2), False, "gap_fully_masked")]
+# K4 with its row stats and K6: ((B, Sq, Sk, H), causal, key mask):
+# OPT-350M's training shape (prompt 1920 + summary 128, a pad hole in each),
+# the same with a fully masked sample, ragged, end-aligned sq < sk
+BLOCKED_CASES = [((4, 2048, 2048, 16), True, "hole"),
+                 ((4, 2048, 2048, 16), True, "hole_fully_masked"),
+                 ((3, 333, 333, 2), True, "hole333"),
+                 ((2, 200, 328, 2), True, "gap")]
 # K7/K8/K9: (name, (B, Sq, Sk, H), causal, bias): T5-base's encoder, decoder
 # self- and training cross-attention, ragged lengths; each without and with
 # dropout 0.1, T5's scale 1.0
@@ -140,6 +168,9 @@ TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 0.0)}
 # bf16: the plain version rounds P and dS to bf16 before their products,
 # the kernel keeps them fp32
 BWD_TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 0.0)}
+# K4's row max and sum, (atol, rtol) in either dtype: fp32 sums of up to
+# 2048 exponentials in another order
+STATS_TOLERANCES = (1e-4, 1e-4)
 # whole-model fp32 check, card vs CPU: logits and loss
 MODEL_ATOL = 1e-3
 # fp32 training micro-step, card vs CPU: (loss atol, gradient-norm rtol,
@@ -164,7 +195,7 @@ def fail(msg: str) -> None:
 
 def make_mask(kind: str, b: int, s: int, seed: int):
     """(B, S) int32 key mask. "hole": a decoder-only batch, prompt padded to
-    512 then summary padded to 128, so the valid keys have a hole
+    S - 128 then summary padded to 128, so the valid keys have a hole
     ("hole333": the same at S = 333, prompt 250); "prompt": right-padded
     prompts; "gap": a pad hole in the middle and right padding, any S;
     "fully_masked": sample 0 all zero (with holes in the others for
@@ -174,9 +205,10 @@ def make_mask(kind: str, b: int, s: int, seed: int):
     rng = np.random.RandomState(seed)
     mask = np.ones((b, s), np.int32)
     if kind == "hole":
+        cut = s - 128
         for i in range(b):
-            mask[i, rng.randint(100, 512):512] = 0
-            mask[i, 512 + rng.randint(20, 128):] = 0
+            mask[i, rng.randint(100, cut):cut] = 0
+            mask[i, cut + rng.randint(20, 128):] = 0
     elif kind == "prompt":
         for i in range(b):
             mask[i, rng.randint(100, s):] = 0
@@ -400,6 +432,75 @@ def check_t5_kernels(fa, device, worst):
     return keep
 
 
+def blocked_inputs(case_index: int, dtype, device):
+    """K4/K6's inputs at BLOCKED_CASES[i]: q, k, v, the key mask, a
+    cotangent."""
+    (b, sq, sk, h), _, mask_kind = BLOCKED_CASES[case_index]
+    return flash_inputs((b, sq, sk, h, h), mask_kind, dtype, device,
+                        400 + case_index)
+
+
+def check_blocked_kernels(fa, device, worst):
+    """Phase 3, K4 with its row stats and K6: the output and stats against
+    the plain version's, K6 (from the kernel's output and stats) against
+    its plain version on the same inputs, and at OPT-350M's shape K6
+    against K5, which computes the same gradient with a stats pass."""
+    import torch
+
+    for i, (dims, causal, mask_kind) in enumerate(BLOCKED_CASES):
+        label = f"{dims} causal={causal} mask={mask_kind}"
+        for dtype_name, (atol, rtol) in TOLERANCES.items():
+            q, k, v, mask, dout = blocked_inputs(i, getattr(torch, dtype_name),
+                                                 device)
+            out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask,
+                                                 causal=causal)
+            torch.cuda.synchronize(device)
+            ref = fa.flash_attention_reference(q, k, v, kv_mask=mask,
+                                               causal=causal, with_stats=True)
+            max_err = float((out.float() - ref[0].float()).abs().max())
+            worst["flash_attention"] = max(worst["flash_attention"], max_err)
+            s_atol, s_rtol = STATS_TOLERANCES
+            stats_err = [float((g - r).abs().max())
+                         for g, r in zip((m, l), ref[1:])]
+            if not (_within(out, ref[0], atol, rtol)
+                    and _within(m, ref[1], s_atol, s_rtol)
+                    and _within(l, ref[2], s_atol, s_rtol)):
+                fail(f"flash_attention_stats {label} {dtype_name} disagrees "
+                     f"with its plain version (out {max_err:.3e}, max "
+                     f"{stats_err[0]:.3e}, sum {stats_err[1]:.3e})")
+            del ref
+            got = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m,
+                                                 l, causal=causal)
+            torch.cuda.synchronize(device)
+            refs = fa.flash_attention_blocked_bwd_reference(
+                q, k, v, mask, out, dout, m, l, causal=causal)
+            report = _grads_within("flash_attention_blocked_bwd", got, refs,
+                                   dtype_name, label, worst)
+            line = (f"[check] flash_attention_stats {label} {dtype_name}: "
+                    f"out {max_err:.3e}, max {stats_err[0]:.3e}, sum "
+                    f"{stats_err[1]:.3e} ok; flash_attention_blocked_bwd "
+                    f"{report} ok")
+            del refs
+            if i == 0:
+                k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout,
+                                            causal=causal)
+                torch.cuda.synchronize(device)
+                atol_b, rtol_b = BWD_TOLERANCES[dtype_name]
+                errs = []
+                for name, g, r in zip(("dq", "dk", "dv"), got, k5):
+                    errs.append(float((g.float() - r.float()).abs().max()))
+                    if not _within(g, r, atol_b * float(r.float().abs().max()),
+                                   rtol_b):
+                        fail(f"K6's {name} disagrees with K5's at {label} "
+                             f"{dtype_name} ({errs[-1]:.3e})")
+                line += (f"; against flash_attention_bwd (K5): "
+                         f"{', '.join(f'{e:.3e}' for e in errs)} ok")
+                del k5
+            print(line)
+            del q, k, v, mask, dout, out, m, l, got
+    torch.cuda.empty_cache()
+
+
 def kernel_keep_mask(fa, b, sq, sk, h, seed, device):
     """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output.
     With q = 0 and one 64-key window unmasked, P is 1/64 on the window's
@@ -564,22 +665,27 @@ def check_model_fp32(cli, test, device, argv, tag):
 
 
 def run_training(cli, fa, device, log_dir: str, argv, kernels,
-                 per_update=None, tag="opt"):
-    """Phases 5 and 7: the training run at full width through the entry
+                 per_update=None, tag="opt", per_eval=None,
+                 per_generate=None):
+    """Phases 5, 7 and 9: the training run at full width through the entry
     point; ``kernels`` must launch inside the training steps, exactly
-    ``per_update`` times in each update where given.
+    ``per_update`` times in each update where given, and ``per_eval`` /
+    ``per_generate`` times in each eval step (val and test) / generated
+    batch.
 
-    The CLI's model factory, train step and checkpoint restore are wrapped
-    here, not changed: the wrappers snapshot the weights, time each update
-    to a device synchronize and count the kernel launches inside it, and
-    record the final restore. Returns a summary dict."""
+    The CLI's model factory, train step, eval setup and checkpoint restore
+    are wrapped here, not changed: the wrappers snapshot the weights, time
+    each update to a device synchronize and count the kernel launches inside
+    it and inside each eval step and generated batch, and record the final
+    restore. Returns a summary dict."""
     import torch
 
     args, dev = cli.parse_cli(argv + ["--log_dir", log_dir])
     seen = {"steps": [], "restores": [], "merges": 0, "rates": []}
+    evals, gens = LaunchTally(fa, KERNELS), LaunchTally(fa, KERNELS)
     originals = {name: getattr(cli, name) for name in (
         "build_model", "make_train_step", "restore_checkpoint",
-        "merge_restored_params")}
+        "merge_restored_params", "_eval_setup")}
 
     def build_model(*a, **kw):
         model, cfg = originals["build_model"](*a, **kw)
@@ -607,6 +713,12 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
 
         return counted
 
+    def eval_setup(*a, **kw):
+        setup = originals["_eval_setup"](*a, **kw)
+        setup.eval_step = evals.wrap(setup.eval_step)
+        setup.generate_fn = gens.wrap(setup.generate_fn)
+        return setup
+
     def restore_checkpoint(path):
         ckpt = originals["restore_checkpoint"](path)
         seen["restores"].append((path, ckpt))
@@ -623,7 +735,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     wrappers = {"build_model": build_model,
                 "make_train_step": make_train_step,
                 "restore_checkpoint": restore_checkpoint,
-                "merge_restored_params": merge_restored_params}
+                "merge_restored_params": merge_restored_params,
+                "_eval_setup": eval_setup}
     for name, fn in wrappers.items():
         setattr(cli, name, fn)
     try:
@@ -659,6 +772,14 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
             for s in steps):
         fail(f"the {tag} updates launched {[s['launches'] for s in steps]},"
              f" expected {per_update} each")
+    for want, calls, what in ((per_eval, evals.calls, "eval step"),
+                              (per_generate, gens.calls, "generated batch")):
+        if want is None:
+            continue
+        got = [{n: c[n] for n in want} for c in calls]
+        print(f"[{tag} train] launches per {what} ({len(calls)}): {got}")
+        if not calls or any(g != want for g in got):
+            fail(f"the {tag} {what}s launched {got}, expected {want} each")
     values = [st[k] for st in steps
               for k in ("loss", "summary_loss", "grad_norm")]
     if not all(math.isfinite(v) for v in values + [results["loss"]]):
@@ -707,16 +828,17 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
 
 
 def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
-                          tol=STEP_TOL, plain_on_card=False):
-    """Phases 5b and 7b: one fp32 training micro-step (loss, backward) of
-    one sample on the card against the same seeded model on the CPU, within
-    ``tol`` = (loss atol, gradient-norm rtol, largest gradient error as a
-    fraction of the largest gradient). Eval mode: the two devices' dropout
-    streams differ. ``kernels`` must launch in the card's step. With
-    ``plain_on_card`` the step also runs on the card through the plain
+                          tol=STEP_TOL, plain_on_card=False, on_cpu=True):
+    """Phases 5b, 7b and 9b: one fp32 training micro-step (loss, backward)
+    of one sample on the card against the same seeded model on the CPU,
+    within ``tol`` = (loss atol, gradient-norm rtol, largest gradient error
+    as a fraction of the largest gradient). Eval mode: the two devices'
+    dropout streams differ. ``kernels`` must launch in the card's step.
+    With ``plain_on_card`` the step also runs on the card through the plain
     versions, and the kernels' gradient error against the CPU may be at
-    most twice the plain versions' (the same sums in another order).
-    Returns the card step's launches and the errors."""
+    most twice the plain versions' (the same sums in another order); without
+    ``on_cpu`` the plain versions on the card are the reference. Returns the
+    card step's launches and the errors."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
     from mmgl_tpu_torch.train.steps import losses_of
@@ -729,7 +851,9 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
     runs = [("card", device, False)]
     if plain_on_card:
         runs.append(("card_plain", device, True))
-    runs.append(("cpu", torch.device("cpu"), True))
+    if on_cpu:
+        runs.append(("cpu", torch.device("cpu"), True))
+    ref = runs[-1][0]
     out, launches = {}, {}
     plain = fa._plain
     try:
@@ -754,26 +878,27 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
             del model, fused, loss
     finally:
         fa._plain = plain
-    loss_h, norm_h, g_h = out["cpu"]
+    loss_h, norm_h, g_h = out[ref]
     scale = max(float(g.abs().max()) for g in g_h.values())
     errs = {}
     for which in out:
-        if which == "cpu":
+        if which == ref:
             continue
         per = {n: float((out[which][2][n] - g_h[n]).abs().max()) for n in g_h}
         worst = max(per, key=per.get)
         errs[which] = per[worst]
-        print(f"[{tag} step] fp32 training micro-step, {which} vs CPU, one "
-              f"sample: loss {out[which][0]:.7f} vs {loss_h:.7f}; grad_norm "
-              f"{out[which][1]:.6f} vs {norm_h:.6f}; max abs grad err "
-              f"{per[worst]:.3e} (in {worst}) of max |grad| {scale:.3e} over "
-              f"{len(g_h)} tensors")
+        print(f"[{tag} step] fp32 training micro-step, {which} vs {ref}, "
+              f"one sample: loss {out[which][0]:.7f} vs {loss_h:.7f}; "
+              f"grad_norm {out[which][1]:.6f} vs {norm_h:.6f}; max abs grad "
+              f"err {per[worst]:.3e} (in {worst}) of max |grad| {scale:.3e} "
+              f"over {len(g_h)} tensors")
     loss_c, norm_c, _ = out["card"]
     loss_atol, norm_rtol, grad_tol = tol
     print(f"[{tag} step] tolerance: loss atol {loss_atol:g}, norm rtol "
           f"{norm_rtol:g}, grad err <= {grad_tol:g} x max |grad|"
           + (", and at most 2x the plain versions' on the card"
-             if plain_on_card else "") + f"; card launches {launches}")
+             if plain_on_card and on_cpu else "")
+          + f"; card launches {launches}")
     if not (abs(loss_c - loss_h) <= loss_atol
             and abs(norm_c - norm_h) <= norm_rtol * norm_h
             and errs["card"] <= grad_tol * scale
@@ -783,7 +908,8 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
     for name in kernels:
         if launches[name] <= 0:
             fail(f"{name} was not launched in the {tag} fp32 micro-step")
-    return {"loss": [loss_c, loss_h], "grad_norm": [norm_c, norm_h],
+    return {"reference": ref, "loss": [loss_c, loss_h],
+            "grad_norm": [norm_c, norm_h],
             "max_abs_grad_err": errs, "max_abs_grad": scale,
             "launches": launches}
 
@@ -998,13 +1124,58 @@ def _bias_timing_cases(fa, device, i):
     return cases
 
 
+def _blocked_timing_cases(fa, device):
+    """K4 with its row stats, K6 and, for comparison, K5 at OPT-350M's
+    training shape, bf16. K6's FLOPs are 14 * D per allowed pair (dQ: q k^T,
+    dO v^T, dS k; dK/dV: q k^T, dO v^T, P^T dO, dS^T q), K5's 10 * D as
+    K3's; the bytes read q, k, v, dO, o, the mask and the stats once and
+    write dq, dk, dv once."""
+    import torch
+
+    bf16 = torch.bfloat16
+    dims, causal, _ = BLOCKED_CASES[0]
+    q, k, v, mask, dout = blocked_inputs(0, bf16, device)
+    sq, h = dims[1], dims[3]
+    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=causal)
+    qt, kt, vt, dot = _bhsd(q, k, v, dout)
+    am = float_mask(mask, sq, causal, None, bf16)
+    pairs = allowed_pairs(mask, sq, causal) * h
+    stats_bytes = 2 * m.numel() * 4
+    io_fwd = 4 * q.numel() * 2 + mask.numel() * 4 + stats_bytes
+    io_bwd = 8 * q.numel() * 2 + mask.numel() * 4
+    shape = f"{dims} causal mask=hole"
+    bwd_args = (q, k, v, mask, out, dout)
+    return [
+        (f"flash_attention with stats {shape}", "flash_attention[stats]", {
+            "kernel": partial(fa.flash_attention_stats, q, k, v,
+                              kv_mask=mask, causal=causal),
+            "plain": partial(fa.flash_attention_reference, q, k, v,
+                             kv_mask=mask, causal=causal, with_stats=True),
+            "library": _sdpa_fwd(qt, kt, vt, am)}, 4 * pairs * 64, io_fwd),
+        (f"flash_attention_blocked_bwd {shape}",
+         "flash_attention_blocked_bwd", {
+             "kernel": partial(fa.flash_attention_blocked_bwd, *bwd_args, m,
+                               l, causal=causal),
+             "plain": partial(fa.flash_attention_blocked_bwd_reference,
+                              *bwd_args, m, l, causal=causal),
+             "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+         14 * pairs * 64, io_bwd + stats_bytes),
+        (f"flash_attention_bwd {shape}", "flash_attention_bwd[2048]", {
+            "kernel": partial(fa.flash_attention_bwd, *bwd_args,
+                              causal=causal),
+            "plain": partial(fa.flash_attention_bwd_reference, *bwd_args,
+                             causal=causal),
+            "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+         10 * pairs * 64, io_bwd)]
+
+
 def timing_cases(fa, device):
     """(label, kernel name, {"kernel", "plain", "library"} callables, FLOPs,
     bytes) for every kernel at its main-path shapes, bf16."""
     cases = _opt_timing_cases(fa, device) + _flash_timing_cases(fa, device)
     for i in range(3):          # the encoder, decoder and cross shapes
         cases += _bias_timing_cases(fa, device, i)
-    return cases
+    return cases + _blocked_timing_cases(fa, device)
 
 
 def time_kernels(fa, device):
@@ -1052,6 +1223,7 @@ def main() -> int:
     worst = {name: 0.0 for name in KERNELS}
     check_opt_kernels(fa, device, worst)
     keep = check_t5_kernels(fa, device, worst)
+    check_blocked_kernels(fa, device, worst)
 
     test, results, opt_test, rate, peak = run_test_pass(
         cli, fa, device, OPT_TEST_ARGV, OPT_TEST_KERNELS, tag="opt")
@@ -1110,6 +1282,39 @@ def main() -> int:
         plain_on_card=True)
 
     rows = time_kernels(fa, device)
+    torch.cuda.empty_cache()    # the plain versions' (4, 16, 2048, 2048)s
+
+    # phase 9: OPT-350M at its 2048-token window, with the blocked backward
+    # selected as MMGL_BLOCKED_BWD=1 selects it, for this phase only
+    flag = (fa.BLOCKED_BWD, os.environ.get("MMGL_BLOCKED_BWD"))
+    fa.BLOCKED_BWD = True
+    os.environ["MMGL_BLOCKED_BWD"] = "1"
+    per_pass = {"flash_attention": OPT350_LAYERS,
+                "flash_attention_allheads": 0}
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            opt350 = run_training(
+                cli, fa, device, log_dir, OPT350_TRAIN_ARGV,
+                ("flash_attention", "flash_attention_blocked_bwd",
+                 "fused_heads_attention"),
+                {"flash_attention": OPT350_LAYERS * micro,
+                 "flash_attention_blocked_bwd": OPT350_LAYERS * micro,
+                 "flash_attention_allheads": 0,
+                 "flash_attention_allheads_bwd": 0,
+                 "flash_attention_bwd": 0},
+                tag="opt350m", per_eval=per_pass, per_generate=per_pass)
+        opt350_step = check_train_step_fp32(
+            cli, fa, device, tokenizer, OPT350_TRAIN_ARGV,
+            ("flash_attention", "flash_attention_blocked_bwd"), "opt350m",
+            plain_on_card=True, on_cpu=False)
+    finally:
+        fa.BLOCKED_BWD = flag[0]
+        if flag[1] is None:
+            del os.environ["MMGL_BLOCKED_BWD"]
+        else:
+            os.environ["MMGL_BLOCKED_BWD"] = flag[1]
+    if opt350["launches"]["flash_attention_allheads_bwd"]:
+        fail("K3 launched in the OPT-350M run")
 
     print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
@@ -1123,6 +1328,8 @@ def main() -> int:
     print(json.dumps({"t5_training": {**t5_train, "fp32_step": t5_step,
                                       "dropout_keep_fraction": keep,
                                       "card": card}}))
+    print(json.dumps({"opt350m_training": {**opt350, "fp32_step": opt350_step,
+                                           "card": card}}))
 
     # each kernel's launches from the path that runs it: K1-K3 the OPT
     # training run, K4 the T5 test pass, K7/K8/K9 the T5 training run, K5
@@ -1137,12 +1344,18 @@ def main() -> int:
     k9 = bwd_shapes.get((512, 512), 0)
     launches["flash_attention_bias_bwd[K9]"] = k9
     launches["flash_attention_bias_bwd[K8]"] = sum(bwd_shapes.values()) - k9
+    # K4 with its stats and K6: the OPT-350M training run
+    launches["flash_attention[stats]"] = opt350["launches"]["flash_attention"]
+    launches["flash_attention_blocked_bwd"] = opt350["launches"][
+        "flash_attention_blocked_bwd"]
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():
         # a kernel's line takes its first timed case (K7: the encoder in
-        # eval); every case is printed above
-        timed_label.setdefault(name, label)
+        # eval); every case is printed above. K5 at OPT-350M's shape is
+        # timed beside K6 only: no main path runs it there
+        if name in launches:
+            timed_label.setdefault(name, label)
     for name, label in timed_label.items():
         base = name.split("[")[0]
         _, replaces, source = KERNELS[base]

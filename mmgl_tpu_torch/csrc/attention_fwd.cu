@@ -11,7 +11,14 @@
 //   mmgl_flash_fwd       -> _fwd_kernel (mmgl_tpu/ops/flash_attention.py:87),
 //                           pallas_call in _fwd (:179, :209), reached through
 //                           flash_attention (:1447). T5's eval cross-attention:
-//                           q (4, 128, 12, 64), k/v (4, 512, 12, 64).
+//                           q (4, 128, 12, 64), k/v (4, 512, 12, 64); OPT-350M's
+//                           causal self-attention at 2048 tokens, past K1's
+//                           envelope: (4, 2048, 16, 64). Its online softmax
+//                           with causal tile skipping stands for both
+//                           _fwd_kernel and _fwd_kernel_causal_stream (:129),
+//                           and it writes the rows' max and sum for the
+//                           blocked backward (K6) when asked, as _fwd's
+//                           with_lse output does.
 // All three compute xla_attention's math (mmgl_tpu/ops/attention.py:190-224):
 //   out = softmax(q k^T * scale, masked logits = -1e30) v
 // with causal masking aligned at the ends (key j visible to query i iff
@@ -71,7 +78,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ kv_mask,
-                     T* __restrict__ out, int sq, int sk, int heads,
+                     T* __restrict__ out, float* __restrict__ row_max,
+                     float* __restrict__ row_sum, int sq, int sk, int heads,
                      float scale, int causal) {
   __shared__ __align__(16) float k_tile[kTileK][kKStride];
   __shared__ __align__(16) float v_tile[kTileK][kD];
@@ -203,6 +211,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  if (row_max != nullptr && row_ok && sub == 0) {
+    // K4's row statistics for the blocked backward (K6), kept apart as K3's
+    // stats pass keeps them: for a fully masked row m = -1e30 and l = sk,
+    // where one logsumexp -1e30 + log(sk) would round back to -1e30
+    const long idx = (static_cast<long>(b) * heads + h) * sq + qi;
+    row_max[idx] = m_run;
+    row_sum[idx] = l_run;
+  }
   if (row_ok) {
     const float inv = 1.f / l_run;
 #pragma unroll
@@ -216,8 +232,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_mask, void* out, int batch, int sq, int sk,
-                   int heads, int head_dim, float scale, int causal,
+                   const int* kv_mask, void* out, float* row_max,
+                   float* row_sum, int batch, int sq, int sk, int heads,
+                   int head_dim, float scale, int causal,
                    cudaStream_t stream) {
   // causal needs sq <= sk (the ends are aligned); without it any sq goes
   if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
@@ -227,21 +244,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid((sq + kTileQ - 1) / kTileQ, heads, batch);
   attention_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_mask, static_cast<T*>(out), sq, sk, heads,
-      scale, causal);
+      static_cast<const T*>(v), kv_mask, static_cast<T*>(out), row_max,
+      row_sum, sq, sk, heads, scale, causal);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int* kv_mask, void* out, int batch, int sq, int sk,
-                     int heads, int head_dim, float scale, int causal,
-                     int is_bf16, cudaStream_t stream) {
+                     const int* kv_mask, void* out, float* row_max,
+                     float* row_sum, int batch, int sq, int sk, int heads,
+                     int head_dim, float scale, int causal, int is_bf16,
+                     cudaStream_t stream) {
   if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, kv_mask, out, batch, sq, sk, heads,
-                                 head_dim, scale, causal, stream);
+    return launch<__nv_bfloat16>(q, k, v, kv_mask, out, row_max, row_sum,
+                                 batch, sq, sk, heads, head_dim, scale,
+                                 causal, stream);
   }
-  return launch<float>(q, k, v, kv_mask, out, batch, sq, sk, heads, head_dim,
-                       scale, causal, stream);
+  return launch<float>(q, k, v, kv_mask, out, row_max, row_sum, batch, sq,
+                       sk, heads, head_dim, scale, causal, stream);
 }
 
 }  // namespace
@@ -252,8 +271,8 @@ extern "C" int mmgl_allheads_fwd(const void* q, const void* k, const void* v,
                                  int sq, int sk, int heads, int head_dim,
                                  float scale, int causal, int is_bf16,
                                  cudaStream_t stream) {
-  return dispatch(q, k, v, kv_mask, out, batch, sq, sk, heads, head_dim,
-                  scale, causal, is_bf16, stream);
+  return dispatch(q, k, v, kv_mask, out, nullptr, nullptr, batch, sq, sk,
+                  heads, head_dim, scale, causal, is_bf16, stream);
 }
 
 // K2: CLIP's lane-misaligned self-attention (197 patches), sq == sk.
@@ -262,19 +281,23 @@ extern "C" int mmgl_fused_heads_fwd(const void* q, const void* k,
                                     void* out, int batch, int seq, int heads,
                                     int head_dim, float scale, int causal,
                                     int is_bf16, cudaStream_t stream) {
-  return dispatch(q, k, v, kv_mask, out, batch, seq, seq, heads, head_dim,
-                  scale, causal, is_bf16, stream);
+  return dispatch(q, k, v, kv_mask, out, nullptr, nullptr, batch, seq, seq,
+                  heads, head_dim, scale, causal, is_bf16, stream);
 }
 
-// K4: T5's cross-attention in eval (sq != sk), and any call without bias or
-// dropout that K1 and K2 do not serve.
+// K4: T5's cross-attention in eval (sq != sk), aligned self-attention past
+// K1's envelope (OPT at 2048 tokens), and any call without bias or dropout
+// that K1 and K2 do not serve. row_max and row_sum, each batch * heads * sq
+// fp32 in (B, H, Sq) order, receive the rows' softmax max and sum when not
+// null (the blocked backward's residuals, the Pallas with_lse output at
+// mmgl_tpu/ops/flash_attention.py:118-121).
 extern "C" int mmgl_flash_fwd(const void* q, const void* k, const void* v,
-                              const int* kv_mask, void* out, int batch,
-                              int sq, int sk, int heads, int head_dim,
-                              float scale, int causal, int is_bf16,
-                              cudaStream_t stream) {
-  return dispatch(q, k, v, kv_mask, out, batch, sq, sk, heads, head_dim,
-                  scale, causal, is_bf16, stream);
+                              const int* kv_mask, void* out, float* row_max,
+                              float* row_sum, int batch, int sq, int sk,
+                              int heads, int head_dim, float scale,
+                              int causal, int is_bf16, cudaStream_t stream) {
+  return dispatch(q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk,
+                  heads, head_dim, scale, causal, is_bf16, stream);
 }
 
 extern "C" const char* mmgl_error_string(int err) {

@@ -1,12 +1,15 @@
 """OPT decoder-only LM (counterpart of mmgl_tpu/models/opt.py:38-420).
 
-Covers the pre-LN ordering of OPT-125M/1.3B/2.7B/6.7B: learned positions
-from the attention-mask cumsum with offset 2, the tied LM head
-(``hidden @ E.T``), hidden dropout at the JAX package's three sites
-(embeddings, after attention, after fc2; attention dropout is 0) in training
-mode, and a KV cache for greedy decode. Post-LN with project_in/out (350M),
-layerdrop raise NotImplementedError here; MPT cross layers and prefix KV
-at model build (models/factory.py). Module
+Covers the pre-LN ordering of OPT-125M/1.3B/2.7B/6.7B and the post-LN
+ordering of OPT-350M, whose 512-wide embeddings go through ``project_in``
+(512 -> 1024, no bias) before the 1024-wide positions are added and
+``project_out`` before the tied head (mmgl_tpu/models/opt.py:234-263,
+:278-290, :328-331, :367-370): learned positions from the attention-mask
+cumsum with offset 2, the tied LM head (``hidden @ E.T`` on the embedding's
+width), hidden dropout at the JAX package's three sites (embeddings, after
+attention, after fc2; attention dropout is 0) in training mode, and a KV
+cache for greedy decode. Layerdrop raises NotImplementedError here; MPT
+cross layers and prefix KV at model build (models/factory.py). Module
 names follow the flax parameter paths
 (``decoder.layers.0.self_attn.q_proj``) so weights convert mechanically
 (utils/convert.py). Attention runs through ops.multi_head_attention.
@@ -35,7 +38,8 @@ class OPTConfig:
     ffn_dim: int = 3072
     max_position_embeddings: int = 2048
     word_embed_proj_dim: Optional[int] = None  # != hidden_size only for 350m
-    do_layer_norm_before: bool = True
+    do_layer_norm_before: bool = True           # False: post-LN (350m)
+    remove_final_layer_norm: bool = False
     activation_function: str = "relu"
     dropout: float = 0.1        # hidden dropout (opt.py:216, :291)
     layerdrop: float = 0.0
@@ -52,11 +56,17 @@ class OPTConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    @property
+    def projects(self) -> bool:
+        """Whether the embeddings are narrower than the hidden states and
+        go through project_in/project_out."""
+        return self.embed_dim != self.hidden_size
+
+    @property
+    def has_final_layer_norm(self) -> bool:
+        return self.do_layer_norm_before and not self.remove_final_layer_norm
+
     def check_supported(self) -> None:
-        if (not self.do_layer_norm_before or (self.word_embed_proj_dim and
-                self.word_embed_proj_dim != self.hidden_size)):
-            raise NotImplementedError(
-                "OPT post-LN with project_in/out (opt-350m) is not ported yet")
         if self.layerdrop > 0.0:
             raise NotImplementedError("layerdrop is not ported yet")
 
@@ -128,7 +138,8 @@ class OPTAttention(nn.Module):
 
 
 class OPTDecoderLayer(nn.Module):
-    """Pre-LN OPT block."""
+    """OPT block: each LayerNorm before its sublayer (pre-LN), or after its
+    residual add (post-LN, ``do_layer_norm_before=False``)."""
 
     def __init__(self, cfg: OPTConfig):
         super().__init__()
@@ -142,17 +153,26 @@ class OPTDecoderLayer(nn.Module):
         self.fc2 = Linear(cfg.ffn_dim, cfg.hidden_size, compute_dtype=dt)
         self.act = ACT2FN[cfg.activation_function]
         self.dropout = Dropout(cfg.dropout)
+        self.pre_ln = cfg.do_layer_norm_before
 
     def forward(self, hidden_states, attention_mask=None, cache=None,
                 generator=None):
+        pre = self.pre_ln
         residual = hidden_states
-        hidden_states = self.self_attn(
-            self.self_attn_layer_norm(hidden_states), attention_mask, cache)
+        if pre:
+            hidden_states = self.self_attn_layer_norm(hidden_states)
+        hidden_states = self.self_attn(hidden_states, attention_mask, cache)
         hidden_states = residual + self.dropout(hidden_states, generator)
+        if not pre:
+            hidden_states = self.self_attn_layer_norm(hidden_states)
         residual = hidden_states
-        hidden_states = self.fc2(self.act(self.fc1(
-            self.final_layer_norm(hidden_states))))
-        return residual + self.dropout(hidden_states, generator)
+        if pre:
+            hidden_states = self.final_layer_norm(hidden_states)
+        hidden_states = self.fc2(self.act(self.fc1(hidden_states)))
+        hidden_states = residual + self.dropout(hidden_states, generator)
+        if not pre:
+            hidden_states = self.final_layer_norm(hidden_states)
+        return hidden_states
 
 
 class OPTDecoder(nn.Module):
@@ -166,11 +186,17 @@ class OPTDecoder(nn.Module):
         # learned positions, offset 2
         self.embed_positions = Embedding(cfg.max_position_embeddings + 2,
                                          cfg.hidden_size, compute_dtype=dt)
+        if cfg.projects:
+            self.project_in = Linear(cfg.embed_dim, cfg.hidden_size,
+                                     bias=False, compute_dtype=dt)
+            self.project_out = Linear(cfg.hidden_size, cfg.embed_dim,
+                                      bias=False, compute_dtype=dt)
         self.embed_dropout = Dropout(cfg.dropout)
         self.layers = nn.ModuleList(OPTDecoderLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
-        self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
-                                          compute_dtype=dt)
+        if cfg.has_final_layer_norm:
+            self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
+                                              compute_dtype=dt)
 
     def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
                 caches: Optional[List[KVCache]] = None, position_ids=None,
@@ -183,13 +209,19 @@ class OPTDecoder(nn.Module):
                                         device=inputs_embeds.device)
         if position_ids is None:
             position_ids = make_positions_from_mask(attention_mask)[:, -s:]
+        if self.cfg.projects:
+            inputs_embeds = self.project_in(inputs_embeds)
         hidden_states = inputs_embeds + self.embed_positions(position_ids + 2)
         hidden_states = self.embed_dropout(hidden_states, generator)
         for i, layer in enumerate(self.layers):
             hidden_states = layer(hidden_states, attention_mask,
                                   caches[i] if caches is not None else None,
                                   generator)
-        return self.final_layer_norm(hidden_states)
+        if self.cfg.has_final_layer_norm:
+            hidden_states = self.final_layer_norm(hidden_states)
+        if self.cfg.projects:
+            hidden_states = self.project_out(hidden_states)
+        return hidden_states
 
 
 class OPTForCausalLM(nn.Module):

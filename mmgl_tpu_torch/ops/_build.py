@@ -115,10 +115,13 @@ def load() -> Library:
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     u32 = ctypes.c_uint
-    for fn in ("mmgl_allheads_fwd", "mmgl_flash_fwd"):
-        getattr(lib, fn).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                     i32, i32, f32, i32, i32, ptr]
-        getattr(lib, fn).restype = i32
+    lib.mmgl_allheads_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, i32,
+                                                             ptr]
+    lib.mmgl_allheads_fwd.restype = i32
+    # K4 also takes the row max and sum outputs (null unless K6 follows)
+    lib.mmgl_flash_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, i32,
+                                                          ptr]
+    lib.mmgl_flash_fwd.restype = i32
     lib.mmgl_fused_heads_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                          i32, i32, f32, i32, i32, ptr]
     lib.mmgl_fused_heads_fwd.restype = i32
@@ -126,6 +129,9 @@ def load() -> Library:
         getattr(lib, fn).argtypes = [ptr] * 10 + [i32] * 5 + [f32, i32, i32,
                                                               ptr]
         getattr(lib, fn).restype = i32
+    lib.mmgl_blocked_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [f32, i32, i32,
+                                                              ptr]
+    lib.mmgl_blocked_bwd.restype = i32
     lib.mmgl_bias_fwd.argtypes = ([ptr] * 7 + [i32] * 5
                                   + [f32, i32, u32, f32, i32, i32, ptr])
     lib.mmgl_bias_fwd.restype = i32

@@ -16,17 +16,24 @@ mapping from call sites to kernels:
     the kernel too.
   * sq != sk or a broadcast K/V head (T5's eval cross-attention): K4,
     ``flash_attention``.
-  * aligned self-attention (S % 128 == 0: OPT eval 640, prefill 512):
-    K1, ``flash_attention_allheads``.
-  * the same with S % 128 != 0 (CLIP's 197 patches): K2,
+  * aligned self-attention (S % 128 == 0) inside the JAX package's
+    all-heads envelope, S <= 768 and H divisible by the head pair
+    (mmgl_tpu/ops/attention.py:145-150; OPT eval 640, prefill 512): K1,
+    ``flash_attention_allheads``.
+  * aligned self-attention outside it (OPT-350M at 2048 tokens, its
+    1920-token prefill): K4, as the JAX package sends it to ``_flash``.
+  * self-attention with S % 128 != 0 (CLIP's 197 patches): K2,
     ``fused_heads_attention``.
 
-The TPU's measured gates (PALLAS_MIN_KV, the VMEM envelopes, BIAS_MIN_SQ) do
-not carry over. The mapping is the same for CPU and CUDA tensors and with or
-without autograd; on a CPU tensor each kernel's wrapper computes its plain
-version instead. K1's gradient runs K3, K4's K5 and K7's K8/K9; K2's
-backward recomputes through its plain version, and the reference route is
-plain autograd.
+The TPU's measured gates (PALLAS_MIN_KV, BIAS_MIN_SQ, K2's VMEM envelope)
+do not carry over; K1's envelope does, so that long sequences reach the
+per-head K4 and its backwards (K5, or the blocked K6) as in the JAX
+package. The mapping is the same for
+CPU and CUDA tensors and with or without autograd; on a CPU tensor each
+kernel's wrapper computes its plain version instead. K1's gradient runs K3,
+K4's K5 (K6 for causal attention under MMGL_BLOCKED_BWD=1) and K7's K8/K9;
+K2's backward recomputes through its plain version, and the reference route
+is plain autograd.
 
 Dropout draws two 32-bit key words per call from the caller's
 ``torch.Generator`` into a tensor on its device (no host sync); the keep
@@ -50,6 +57,14 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps fully-masked rows finit
 # below this query length the JAX package sends attention to XLA
 # (mmgl_tpu/ops/attention.py:83): the decode steps
 MIN_KERNEL_SQ = 32
+# the all-heads kernel's envelope (mmgl_tpu/ops/attention.py:145-150)
+ALLHEADS_MAX_SQ = 768
+
+
+def allheads_head_pair(head_dim: int) -> int:
+    """Heads an all-heads program takes together, ``_allheads_hp``
+    (mmgl_tpu/ops/flash_attention.py:1347)."""
+    return 2 if 2 * head_dim <= 128 else 1
 
 
 # Philox-4x32-10 (csrc/philox.cuh): multipliers, key increments
@@ -129,14 +144,18 @@ def attention_route(q_shape, k_shape, *, pairwise_mask: bool = False,
     """Which implementation ``multi_head_attention`` uses for these shapes:
     "reference", "bias" (K7), "flash" (K4), "allheads" (K1) or
     "fused_heads" (K2)."""
-    sq, sk = q_shape[1], k_shape[1]
+    sq, sk, heads = q_shape[1], k_shape[1], q_shape[2]
     if sq < MIN_KERNEL_SQ or pairwise_mask:
         return "reference"
     if bias or dropout:
         return "bias"
-    if sq != sk or k_shape[2] != q_shape[2]:
+    if sq != sk or k_shape[2] != heads:
         return "flash"
-    return "allheads" if sq % 128 == 0 else "fused_heads"
+    if sq % 128:
+        return "fused_heads"
+    if sq <= ALLHEADS_MAX_SQ and heads % allheads_head_pair(q_shape[3]) == 0:
+        return "allheads"
+    return "flash"
 
 
 def multi_head_attention(

@@ -1,5 +1,6 @@
 """Wrappers of the port's attention kernels (csrc/attention_fwd.cu,
-csrc/attention_bwd.cu, csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
+csrc/attention_bwd.cu, csrc/attention_blocked_bwd.cu,
+csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
 
   K1 ``flash_attention_allheads``: OPT's aligned causal self-attention,
      replacing the Pallas ``_allheads_kernel_fwd``
@@ -10,12 +11,20 @@ csrc/attention_bwd.cu, csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
   K3 ``flash_attention_allheads_bwd``: the backward of K1, replacing the
      Pallas ``_allheads_kernel_bwd`` (mmgl_tpu/ops/flash_attention.py:1307,
      via ``_allheads_vjp_bwd`` :1392).
-  K4 ``flash_attention``: attention without bias or dropout at sq != sk or
-     with a broadcast K/V head (T5's eval cross-attention), replacing the
-     Pallas ``_fwd_kernel`` (mmgl_tpu/ops/flash_attention.py:87, pallas_call
-     in ``_fwd`` :179/:209, entry :1447).
+  K4 ``flash_attention``: attention without bias or dropout at sq != sk,
+     with a broadcast K/V head (T5's eval cross-attention) or past K1's
+     envelope (OPT-350M at 2048 tokens), replacing the Pallas
+     ``_fwd_kernel`` and ``_fwd_kernel_causal_stream``
+     (mmgl_tpu/ops/flash_attention.py:92/:129, pallas_call in ``_fwd``
+     :179/:209, entry :1447). ``flash_attention_stats`` is K4 keeping the
+     rows' softmax max and sum, ``_fwd``'s ``with_lse``.
   K5 ``flash_attention_bwd``: the backward of K4, replacing the Pallas
      ``_bwd_kernel`` (mmgl_tpu/ops/flash_attention.py:414, ``_bwd`` :457).
+  K6 ``flash_attention_blocked_bwd``: K4's causal backward from its saved
+     row statistics, replacing the Pallas ``_bwd_dq_kernel`` and
+     ``_bwd_dkv_kernel`` (:246/:289 via ``_bwd_causal_blocked`` :336). As in
+     the JAX package, ``MMGL_BLOCKED_BWD=1`` at import selects it for causal
+     attention (``BLOCKED_BWD``); K5 serves otherwise.
   K7 ``flash_attention_bias``: attention with a batch-shared additive bias
      and in-kernel prob-dropout (T5), replacing the Pallas
      ``_fwd_bias_kernel(_batched)`` (mmgl_tpu/ops/flash_attention.py:594/624,
@@ -27,7 +36,7 @@ csrc/attention_bwd.cu, csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
 K1, K2, K4 and K7 keep the JAX signatures, BSHD in and out, and carry autograd on
 every device: K1 through ``_AllheadsAttention`` (K1 forward, K3 backward, the
 counterpart of the ``_allheads`` custom VJP), K4 through ``_FlashAttention``
-(K5 backward), K7 through ``_BiasAttention`` (K8/K9 backward), K2 through
+(K5 or K6 backward), K7 through ``_BiasAttention`` (K8/K9 backward), K2 through
 ``_FusedHeadsAttention``, whose backward recomputes through the plain version
 as ``_fused_heads_vjp_bwd`` does with XLA (the towers are frozen, so the
 main path never runs it). On a CUDA tensor a wrapper checks its inputs,
@@ -44,6 +53,7 @@ keeps one there).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -55,6 +65,10 @@ from mmgl_tpu_torch.ops.attention import (NEG_INF, attention_reference,
 
 HEAD_DIM = 64
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# K6 in place of K5 for K4's causal backward, as MMGL_BLOCKED_BWD=1 selects
+# _bwd_causal_blocked (mmgl_tpu/ops/flash_attention.py:75); read at import
+BLOCKED_BWD = os.environ.get("MMGL_BLOCKED_BWD", "0") == "1"
 
 
 def allheads_attention_reference(q, k, v, *, kv_mask=None, causal=False,
@@ -86,10 +100,18 @@ def allheads_attention_bwd_reference(q, k, v, kv_mask, out, dout,
 
 
 def flash_attention_reference(q, k, v, *, kv_mask=None, causal=False,
-                              scale=None):
-    """Plain version of K4: ``xla_attention``'s math in torch."""
-    return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
-                               scale=scale)
+                              scale=None, with_stats=False):
+    """Plain version of K4: ``xla_attention``'s math in torch. With
+    ``with_stats``, (out, row_max, row_sum): the softmax max and sum of
+    each row's masked logits, (B, H, Sq) fp32 (a fully masked row has max
+    -1e30 and sum Sk)."""
+    out = attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
+                              scale=scale)
+    if not with_stats:
+        return out
+    logits = _masked_logits(q, k, kv_mask, causal, scale)
+    row_max = logits.amax(-1)
+    return out, row_max, torch.exp(logits - row_max[..., None]).sum(-1)
 
 
 def flash_attention_bwd_reference(q, k, v, kv_mask, out, dout, causal=False,
@@ -121,6 +143,40 @@ def _allowed(q, k, kv_mask, causal):
         q_idx = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         allowed = allowed & (q_idx >= torch.arange(sk, device=q.device))
     return allowed
+
+
+def _masked_logits(q, k, kv_mask, causal, scale):
+    """(B, H, Sq, Sk) fp32 logits, NEG_INF where masked."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return logits.masked_fill(~_allowed(q, k, kv_mask, causal), NEG_INF)
+
+
+def flash_attention_blocked_bwd_reference(q, k, v, kv_mask, out, dout,
+                                          row_max, row_sum, *, causal=True,
+                                          scale=None):
+    """Plain version of K6: (dq, dk, dv) of K4 from its saved row max and
+    sum, ``_bwd_causal_blocked``'s math (:246-333): P = exp(logits - m) / l
+    without a softmax pass, delta = rowsum(dO * o), P and dS rounded to the
+    input dtype before their products; plus xla_attention's zero dS at
+    masked logits, where a fully masked row keeps P = 1/Sk (the Pallas
+    kernels drop it). In fp32 it equals torch autograd through
+    ``attention_reference``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dof = dout.float()
+    allowed = _allowed(q, k, kv_mask, causal)
+    logits = _masked_logits(q, k, kv_mask, causal, scale)
+    p = torch.exp(logits - row_max[..., None]) / row_sum[..., None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - delta) * scale).masked_fill(~allowed, 0.0)
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def bias_attention_bwd_reference(q, k, v, kv_mask, bias, out, dout, *,
@@ -212,9 +268,10 @@ def _plain(q) -> bool:
     return q.device.type == "cpu"
 
 
-def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
+def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape, stats=()):
     """Run one forward launcher of the library on the current stream;
-    returns out."""
+    returns out. ``stats``: the tensors (or None, a null pointer) the
+    launcher writes beside out (K4's row max and sum)."""
     lib = _build.load().lib
     kv_mask = _int_mask(q, k, kv_mask)
     out = torch.empty_like(q)
@@ -222,7 +279,8 @@ def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
     with torch.cuda.device(q.device):
         err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            out.data_ptr(), *shape, q.shape[3], float(scale), int(causal),
+            out.data_ptr(), *(_ptr(t) for t in stats), *shape,
+            q.shape[3], float(scale), int(causal),
             int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, err, name)
     return out
@@ -418,30 +476,111 @@ def flash_attention_bwd(q, k, v, kv_mask, out, dout, *, causal=False,
 flash_attention_bwd.launches = 0
 
 
+def _check_stats(name, q, row_max, row_sum):
+    """K4's row statistics as K6 takes them: (B, H, Sq), and on the card
+    fp32 on q's device, contiguous."""
+    want = (q.shape[0], q.shape[2], q.shape[1])
+    for t in (row_max, row_sum):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: row stats {tuple(t.shape)} are not "
+                             f"(B, H, Sq) = {want}")
+        if not _plain(q) and (t.dtype != torch.float32
+                              or t.device != q.device):
+            raise ValueError(f"{name}: row stats must be float32 on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
+    if not _plain(q):
+        _check_layout(name, row_max, row_sum)
+
+
+def _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max, row_sum,
+                        causal, scale):
+    """Run K6's launcher on the current stream; returns (dq, dk, dv)."""
+    b, sq, h, d = q.shape
+    lib = _build.load().lib
+    mask = _int_mask(q, k, kv_mask)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.mmgl_blocked_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), row_max.data_ptr(),
+            row_sum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), b, sq, k.shape[1], h, d, float(scale),
+            int(causal), int(q.dtype == torch.bfloat16), stream)
+    _build.check(lib, err, "flash_attention_blocked_bwd")
+    return dq, dk, dv
+
+
+def flash_attention_blocked_bwd(q, k, v, kv_mask, out, dout, row_max,
+                                row_sum, *, causal=True, scale=None):
+    """K6: (dq, dk, dv) of K4 for the cotangent ``dout``, from ``out`` and
+    the row max and sum K4 kept for the same inputs
+    (``flash_attention_stats``); no pass recomputes them. Each gradient in
+    q's dtype and shape."""
+    name = "flash_attention_blocked_bwd"
+    _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
+    _check_stats(name, q, row_max, row_sum)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    out, dout = _check_out_dout(name, q, out, dout)
+    if _plain(q):
+        return flash_attention_blocked_bwd_reference(
+            q, k, v, kv_mask, out, dout, row_max, row_sum, causal=causal,
+            scale=scale)
+    grads = _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max,
+                                row_sum, causal, scale)
+    flash_attention_blocked_bwd.launches += 1
+    return grads
+
+
+flash_attention_blocked_bwd.launches = 0
+
+
+def _flash_forward(q, k, v, kv_mask, causal, scale, with_stats):
+    """K4 (or its plain version on the CPU): (out, row_max, row_sum), the
+    stats None unless ``with_stats``."""
+    if _plain(q):
+        got = flash_attention_reference(q, k, v, kv_mask=kv_mask,
+                                        causal=causal, scale=scale,
+                                        with_stats=with_stats)
+        return got if with_stats else (got, None, None)
+    b, sq, h, _ = q.shape
+    stats = (None, None)
+    if with_stats:
+        stats = tuple(torch.empty(b, h, sq, dtype=torch.float32,
+                                  device=q.device) for _ in range(2))
+    out = _launch("mmgl_flash_fwd", "flash_attention", q, k, v, kv_mask,
+                  causal, scale, b, sq, k.shape[1], h, stats=stats)
+    flash_attention.launches += 1
+    return (out,) + stats
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K4 forward, K5 backward (the ``_flash`` custom VJP,
-    mmgl_tpu/ops/flash_attention.py:1404-1420)."""
+    """K4 forward; K6 backward where ``blocked`` (causal, BLOCKED_BWD), from
+    the row stats the forward kept, else K5 (the ``_flash`` custom VJP,
+    mmgl_tpu/ops/flash_attention.py:503-525)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, scale):
-        if _plain(q):
-            out = flash_attention_reference(q, k, v, kv_mask=kv_mask,
-                                            causal=causal, scale=scale)
-        else:
-            b, sq, h, _ = q.shape
-            out = _launch("mmgl_flash_fwd", "flash_attention", q, k, v,
-                          kv_mask, causal, scale, b, sq, k.shape[1], h)
-            flash_attention.launches += 1
-        ctx.save_for_backward(q, k, v, kv_mask, out)
-        ctx.causal, ctx.scale = causal, scale
+    def forward(ctx, q, k, v, kv_mask, causal, scale, blocked):
+        out, row_max, row_sum = _flash_forward(q, k, v, kv_mask, causal,
+                                               scale, blocked)
+        ctx.save_for_backward(q, k, v, kv_mask, out, row_max, row_sum)
+        ctx.causal, ctx.scale, ctx.blocked = causal, scale, blocked
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_mask, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, dout,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+        q, k, v, kv_mask, out, row_max, row_sum = ctx.saved_tensors
+        if ctx.blocked:
+            dq, dk, dv = flash_attention_blocked_bwd(
+                q, k, v, kv_mask, out, dout, row_max, row_sum,
+                causal=ctx.causal, scale=ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, dout,
+                                             causal=ctx.causal,
+                                             scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -455,15 +594,32 @@ def flash_attention(
 ) -> torch.Tensor:
     """K4: attention over BSHD tensors without bias or dropout, any sq and
     sk (sq <= sk when causal, ends aligned), K/V with q's heads or one
-    broadcast head; (B, Sq, H, D) out. Its gradient runs K5."""
+    broadcast head; (B, Sq, H, D) out. Its gradient runs K5, or K6 for
+    causal attention under ``BLOCKED_BWD``; K4 then keeps the rows' stats,
+    only where a gradient will be taken (JAX writes the LSE only in the
+    VJP's forward)."""
     k, v = _broadcast_kv(q, k, v)
     _check("flash_attention", q, k, v, kv_mask, allow_sq_gt_sk=not causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale)
+    blocked = (causal and BLOCKED_BWD and torch.is_grad_enabled()
+               and any(t.requires_grad for t in (q, k, v)))
+    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale, blocked)
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_stats(q, k, v, *, kv_mask=None, causal=False,
+                          scale=None):
+    """K4 keeping the rows' softmax statistics, as the blocked backward
+    needs them: (out, row_max, row_sum), the stats (B, H, Sq) fp32. No
+    autograd; a launch counts under ``flash_attention.launches``."""
+    k, v = _broadcast_kv(q, k, v)
+    _check("flash_attention", q, k, v, kv_mask, allow_sq_gt_sk=not causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _flash_forward(q, k, v, kv_mask, causal, scale, True)
 
 
 def _dropout_args(rate, seed, q):
@@ -501,7 +657,7 @@ def _check_bias(name, q, k, bias):
     _check_layout(name, bias)
 
 
-def _bias_ptr(t):
+def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
@@ -515,7 +671,7 @@ def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv):
     with torch.cuda.device(q.device):
         err = lib.mmgl_bias_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            _bias_ptr(bias), _bias_ptr(seed), out.data_ptr(), b, sq,
+            _ptr(bias), _ptr(seed), out.data_ptr(), b, sq,
             k.shape[1], h, d, float(scale), int(causal), thr, keep_inv,
             int(q.dtype == torch.bfloat16),
             int(bias is not None and bias.dtype == torch.bfloat16), stream)
@@ -545,9 +701,9 @@ def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
     with torch.cuda.device(q.device):
         err = lib.mmgl_bias_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            _bias_ptr(bias), _bias_ptr(seed), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _bias_ptr(dbias),
-            stats.data_ptr(), _bias_ptr(partial), b, sq, sk, h, d,
+            _ptr(bias), _ptr(seed), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
+            stats.data_ptr(), _ptr(partial), b, sq, sk, h, d,
             float(scale), int(causal), thr, keep_inv,
             int(q.dtype == torch.bfloat16),
             int(bias is not None and bias.dtype == torch.bfloat16), stream)

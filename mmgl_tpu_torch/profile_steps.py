@@ -1,10 +1,12 @@
 """Time and trace the main path's steps on the card.
 
     python -m mmgl_tpu_torch.profile_steps [--decode] [--train]
-        [--model opt-125m|t5-base]
+        [--model opt-125m|t5-base|opt-350m]
 
 Both parts run at the full width of one of chip_smoke.py's paths: OPT-125M
-(the default) or T5-base, with CLIP ViT-B/16, task=section, context=all,
+(the default), T5-base or OPT-350M at its 2048-token window (prompt 1920 +
+summary 128; run it under MMGL_BLOCKED_BWD=1 for K6, as chip_smoke.py's
+phase 9 does), with CLIP ViT-B/16, task=section, context=all,
 raw neighbours, bf16 compute, seeded random weights, the synthetic corpus. Batches are staged on the card
 before anything is timed, except where the loader's batches are named.
 
@@ -49,13 +51,19 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 # the byte tokenizer padded to each model's vocabulary
-VOCAB = {"opt-125m": "byte:50272", "t5-base": "byte:32128"}
+VOCAB = {"opt-125m": "byte:50272", "t5-base": "byte:32128",
+         "opt-350m": "byte:50272"}
+# the models profiled at other than the default 512 + 128 tokens
+LENGTHS = {"opt-350m": ["--max_input_length", "1920",
+                        "--max_output_length", "128"]}
 # (kind, substrings of a kernel's name as the profiler shows it, demangled
 # without the source's namespace), first match wins
 KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
          ("K8/K9", ("bias_bwd_",)),           # csrc/attention_bias_bwd.cu
          ("K1+K2+K4", ("attention_fwd",)),    # csrc/attention_fwd.cu
-         ("K3+K5", ("attention_bwd",)),       # csrc/attention_bwd.cu
+         # csrc/attention_bwd.cu and attention_blocked_bwd.cu, whose tile
+         # kernels (attention_bwd_tiles.cuh) K3, K5 and K6 share
+         ("K3+K5+K6", ("attention_bwd", "attention_delta")),
          ("GEMM", ("gemm", "cutlass", "xmma", "sm90", "cublas", "nvjet")),
          ("optimizer", ("multi_tensor", "foreach")),
          ("layer_norm", ("layer_norm", "layernorm")),
@@ -131,7 +139,7 @@ def main_argv(model: str) -> List[str]:
     return ["--model_name_or_path", model, "--task", "section", "--context",
             "all", "--neighbor_mode", "raw", "--bf16", "true",
             "--tokenizer_path", VOCAB[model], "--seed", "0", "--device",
-            "cuda"]
+            "cuda"] + LENGTHS.get(model, [])
 
 
 def profile_decode(cli, device, model: str, rounds: int = 15) -> Dict:

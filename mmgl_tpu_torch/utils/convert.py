@@ -13,7 +13,8 @@ path names, so the map is mechanical:
   * RMSNorm ``weight``     -> RMSNorm ``weight`` (T5)
 
 CLIP's patch embedding is a Dense over flattened (p, p, 3) patches on both
-sides, so it is a transpose too. The T5 ``lm`` tree (``shared``,
+sides, so it is a transpose too, as are OPT-350M's bias-free
+``decoder/project_in/kernel`` (512 -> 1024) and ``project_out/kernel``. The T5 ``lm`` tree (``shared``,
 ``encoder``/``decoder.layers_i.{self_attn,cross_attn,ffn,*_norm}``,
 ``relpos_bias``, ``final_layer_norm``) maps by the same rules. Only ``lm``, ``visual_model`` and
 ``visual_embeddings`` are covered; anything else raises.

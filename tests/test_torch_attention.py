@@ -323,7 +323,8 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
     launches K3 once, K4's (at sq < sk with a broadcast K/V head) K5 once,
     K2's recomputes through its plain version, and their gradients equal
     jax.grad through the Pallas kernels in interpret mode (atol 1e-5)."""
-    def fake_launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
+    def fake_launch(fn, name, q, k, v, kv_mask, causal, scale, *shape,
+                    stats=()):
         with torch.no_grad():
             return att.attention_reference(q, k, v, kv_mask=kv_mask,
                                            causal=causal, scale=scale).clone()

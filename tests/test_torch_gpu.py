@@ -10,7 +10,8 @@ Forward tolerances: bf16 atol = rtol = 2e-2 (the plain version rounds the
 probabilities to bf16 before PV, the kernel keeps them fp32); fp32 atol 2e-5
 with TF32 off, for sums taken in another order.
 
-Backward (K3) tolerances, per gradient and relative to its largest entry m:
+Backward (K3, K5, K6, K8/K9) tolerances, per gradient and relative to its
+largest entry m:
 atol = 2e-2 m and rtol = 2e-2 in bf16 (the plain version rounds P and dS to
 bf16 before their products, as the Pallas kernel does, the kernel keeps
 them fp32: a sum over hundreds of keys of terms each off by a bf16 ulp);
@@ -325,3 +326,84 @@ def test_dropout_mask_is_the_plain_versions_bit_for_bit(dims):
     assert torch.equal(got, want)
     n = got.numel()
     assert abs(float(got.float().mean()) - 0.9) < 6 * (0.09 / n) ** 0.5
+
+
+# ---- K4 with its row stats and K6, the blocked causal backward (OPT-350M) --
+
+# (B, Sq, Sk, H), mask, all causal: OPT-350M's training shape with its pad
+# hole, the same with a fully masked sample, ragged lengths, and an
+# end-aligned sq < sk
+BLOCKED_CASES = [
+    ((4, 2048, 2048, 16), "hole"),
+    ((4, 2048, 2048, 16), "fully_masked"),
+    ((3, 333, 333, 2), "hole"),
+    ((2, 200, 328, 2), "hole"),
+]
+# K4's row max and sum, atol = rtol: fp32 sums of up to 2048 exponentials in
+# another order
+STATS_TOL = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dims,mask_kind", BLOCKED_CASES)
+def test_blocked_kernels_match_plain_versions(dims, mask_kind, dtype):
+    """K4 keeping its row stats, then K6 from them, against the plain
+    versions on the same inputs."""
+    dev = _device()
+    b, sq, sk, h = dims
+    q, k, v, dout = _qkv((b, sq, sk, h, h), dtype, dev, seed=sq + 2 * sk)
+    mask = hole_mask(b, sk, seed=sk + 3)
+    if mask_kind == "fully_masked":
+        mask[0] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    before = (fa.flash_attention.launches,
+              fa.flash_attention_blocked_bwd.launches)
+    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=True)
+    got = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                         causal=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_blocked_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref_out, ref_m, ref_l = fa.flash_attention_reference(
+        q, k, v, kv_mask=mask, causal=True, with_stats=True)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=rtol)
+    for got_s, ref_s in ((m, ref_m), (l, ref_l)):
+        assert got_s.dtype == torch.float32 and got_s.shape == (b, h, sq)
+        torch.testing.assert_close(got_s, ref_s, atol=STATS_TOL,
+                                   rtol=STATS_TOL)
+    del ref_out
+    refs = fa.flash_attention_blocked_bwd_reference(q, k, v, mask, out, dout,
+                                                    m, l, causal=True)
+    for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+        _close_rel(g, r, dtype, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_grad_under_the_flag_runs_k6_and_agrees_with_k5(monkeypatch,
+                                                              dtype):
+    """With the blocked backward selected, autograd through K4 at a long
+    causal window launches K4 and K6 once each and K5 not at all, and K6's
+    gradient is K5's on the same inputs."""
+    dev = _device()
+    monkeypatch.setattr(fa, "BLOCKED_BWD", True)
+    q, k, v, dout = _qkv((2, 1024, 1024, 4, 4), dtype, dev, seed=5)
+    mask = torch.from_numpy(hole_mask(2, 1024, seed=6)).to(dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = (fa.flash_attention, fa.flash_attention_blocked_bwd,
+              fa.flash_attention_bwd)
+    before = [c.launches for c in counts]
+    out = fa.flash_attention(q, k, v, kv_mask=mask, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [1, 1, 0]
+    k5 = fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), mask,
+                                out.detach(), dout, causal=True)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, k5):
+        _close_rel(g, r, dtype, name)

@@ -19,9 +19,12 @@ def test_busy_is_the_union_of_intervals(intervals, want):
 
 
 def test_kernel_kinds():
-    # K4 and K5 run in K1's and K3's sources
+    # K4 and K5 run in K1's and K3's sources; K6 in K3's tile kernels and
+    # its own delta pass
     assert profile_steps._kind("void attention_bwd_dkdv_kernel<__nv_"
-                               "bfloat16>(...)") == "K3+K5"
+                               "bfloat16>(...)") == "K3+K5+K6"
+    assert profile_steps._kind("void (anonymous namespace)::attention_delta_"
+                               "kernel<float>(...)") == "K3+K5+K6"
     assert profile_steps._kind("void attention_fwd_kernel<float>(...)") == (
         "K1+K2+K4")
     assert profile_steps._kind("void (anonymous namespace)::attention_bias_"
