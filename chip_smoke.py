@@ -40,11 +40,12 @@ imports no JAX. Phases, each fatal on failure:
      attn_mask, and its backward), beside its bound: max(FLOPs / 989
      TFLOP/s, bytes / 3.35 TB/s), each input read and each output written
      once, FLOPs over the pairs the masks leave (dropout's bits excluded);
-     K4 with its row stats, K6 and K5 also at OPT-350M's (4, 2048, 16, 64);
+     K4 with its row stats, K6 and K5 also at OPT-350M's (4, 2048, 16, 64),
+     K6 and K5 again at (4, 1024, 16, 64);
   9. OPT-350M + CLIP training at OPT's whole 2048-token window through the
      CLI (--max_input_length 1920 --max_output_length 128, bf16, 4 updates
-     of 4 x 4, AdamW) with MMGL_BLOCKED_BWD=1, turned on for this phase
-     only: every update launches K4 and K6 96 times each (24 layers x 4
+     of 4 x 4, AdamW) with the blocked backward selected (the module flag
+     that MMGL_BLOCKED_BWD=1 sets at import), for this phase only: every update launches K4 and K6 96 times each (24 layers x 4
      micro-batches) and K1, K3 and K5 none; every eval step and every
      generated batch (its 1920-token prefill) K4 24 times; the checks of
      phase 5. Then one sample's fp32 micro-step in eval mode, K4 and K6
@@ -458,10 +459,11 @@ def check_blocked_kernels(fa, device, worst):
             ref = fa.flash_attention_reference(q, k, v, kv_mask=mask,
                                                causal=causal, with_stats=True)
             max_err = float((out.float() - ref[0].float()).abs().max())
-            worst["flash_attention"] = max(worst["flash_attention"], max_err)
             s_atol, s_rtol = STATS_TOLERANCES
             stats_err = [float((g - r).abs().max())
                          for g, r in zip((m, l), ref[1:])]
+            worst["flash_attention[stats]"] = max(
+                worst["flash_attention[stats]"], max_err, *stats_err)
             if not (_within(out, ref[0], atol, rtol)
                     and _within(m, ref[1], s_atol, s_rtol)
                     and _within(l, ref[2], s_atol, s_rtol)):
@@ -1126,47 +1128,61 @@ def _bias_timing_cases(fa, device, i):
 
 def _blocked_timing_cases(fa, device):
     """K4 with its row stats, K6 and, for comparison, K5 at OPT-350M's
-    training shape, bf16. K6's FLOPs are 14 * D per allowed pair (dQ: q k^T,
-    dO v^T, dS k; dK/dV: q k^T, dO v^T, P^T dO, dS^T q), K5's 10 * D as
-    K3's; the bytes read q, k, v, dO, o, the mask and the stats once and
-    write dq, dk, dv once."""
+    training shape, bf16, and K6 against K5 again at 1024 tokens. K6 and K5
+    compute the same gradient, so both are bounded by 10 * D FLOPs per
+    allowed pair, K3's count; the bytes read q, k, v, dO, o, the mask (and
+    K6 the stats) once and write dq, dk, dv once."""
     import torch
 
     bf16 = torch.bfloat16
     dims, causal, _ = BLOCKED_CASES[0]
-    q, k, v, mask, dout = blocked_inputs(0, bf16, device)
-    sq, h = dims[1], dims[3]
-    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=causal)
-    qt, kt, vt, dot = _bhsd(q, k, v, dout)
-    am = float_mask(mask, sq, causal, None, bf16)
-    pairs = allowed_pairs(mask, sq, causal) * h
-    stats_bytes = 2 * m.numel() * 4
-    io_fwd = 4 * q.numel() * 2 + mask.numel() * 4 + stats_bytes
-    io_bwd = 8 * q.numel() * 2 + mask.numel() * 4
-    shape = f"{dims} causal mask=hole"
-    bwd_args = (q, k, v, mask, out, dout)
-    return [
-        (f"flash_attention with stats {shape}", "flash_attention[stats]", {
-            "kernel": partial(fa.flash_attention_stats, q, k, v,
-                              kv_mask=mask, causal=causal),
-            "plain": partial(fa.flash_attention_reference, q, k, v,
-                             kv_mask=mask, causal=causal, with_stats=True),
-            "library": _sdpa_fwd(qt, kt, vt, am)}, 4 * pairs * 64, io_fwd),
-        (f"flash_attention_blocked_bwd {shape}",
-         "flash_attention_blocked_bwd", {
-             "kernel": partial(fa.flash_attention_blocked_bwd, *bwd_args, m,
-                               l, causal=causal),
-             "plain": partial(fa.flash_attention_blocked_bwd_reference,
-                              *bwd_args, m, l, causal=causal),
-             "library": _sdpa_bwd(qt, kt, vt, am, dot)},
-         14 * pairs * 64, io_bwd + stats_bytes),
-        (f"flash_attention_bwd {shape}", "flash_attention_bwd[2048]", {
-            "kernel": partial(fa.flash_attention_bwd, *bwd_args,
-                              causal=causal),
-            "plain": partial(fa.flash_attention_bwd_reference, *bwd_args,
-                             causal=causal),
-            "library": _sdpa_bwd(qt, kt, vt, am, dot)},
-         10 * pairs * 64, io_bwd)]
+    cases = []
+    # seed 400 at 2048: phase 3's inputs (blocked_inputs(0))
+    for tokens, seed in ((2048, 400), (1024, 401)):
+        dims = (dims[0], tokens, tokens, *dims[3:])
+        q, k, v, mask, dout = flash_inputs((*dims, dims[3]), "hole", bf16,
+                                           device, seed)
+        sq, h = dims[1], dims[3]
+        out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask,
+                                             causal=causal)
+        qt, kt, vt, dot = _bhsd(q, k, v, dout)
+        am = float_mask(mask, sq, causal, None, bf16)
+        pairs = allowed_pairs(mask, sq, causal) * h
+        stats_bytes = 2 * m.numel() * 4
+        io_fwd = 4 * q.numel() * 2 + mask.numel() * 4 + stats_bytes
+        io_bwd = 8 * q.numel() * 2 + mask.numel() * 4
+        shape = f"{dims} causal mask=hole"
+        # the kernels line takes each name's first case: OPT-350M's shape
+        tag = "" if tokens == 2048 else f"[{tokens}]"
+        bwd_args = (q, k, v, mask, out, dout)
+        if tokens == 2048:
+            cases.append((
+                f"flash_attention with stats {shape}",
+                "flash_attention[stats]", {
+                    "kernel": partial(fa.flash_attention_stats, q, k, v,
+                                      kv_mask=mask, causal=causal),
+                    "plain": partial(fa.flash_attention_reference, q, k, v,
+                                     kv_mask=mask, causal=causal,
+                                     with_stats=True),
+                    "library": _sdpa_fwd(qt, kt, vt, am)},
+                4 * pairs * 64, io_fwd))
+        cases += [
+            (f"flash_attention_blocked_bwd {shape}",
+             f"flash_attention_blocked_bwd{tag}", {
+                 "kernel": partial(fa.flash_attention_blocked_bwd, *bwd_args,
+                                   m, l, causal=causal),
+                 "plain": partial(fa.flash_attention_blocked_bwd_reference,
+                                  *bwd_args, m, l, causal=causal),
+                 "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+             10 * pairs * 64, io_bwd + stats_bytes),
+            (f"flash_attention_bwd {shape}", f"flash_attention_bwd[{tokens}]",
+             {"kernel": partial(fa.flash_attention_bwd, *bwd_args,
+                                causal=causal),
+              "plain": partial(fa.flash_attention_bwd_reference, *bwd_args,
+                               causal=causal),
+              "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+             10 * pairs * 64, io_bwd)]
+    return cases
 
 
 def timing_cases(fa, device):
@@ -1220,7 +1236,8 @@ def main() -> int:
     print("\n".join("  " + line.strip() for line in lib.ptxas.splitlines()
                     if line.strip()))
 
-    worst = {name: 0.0 for name in KERNELS}
+    # K4 with its row stats keeps its own worst error: output, max and sum
+    worst = {name: 0.0 for name in (*KERNELS, "flash_attention[stats]")}
     check_opt_kernels(fa, device, worst)
     keep = check_t5_kernels(fa, device, worst)
     check_blocked_kernels(fa, device, worst)
@@ -1285,10 +1302,10 @@ def main() -> int:
     torch.cuda.empty_cache()    # the plain versions' (4, 16, 2048, 2048)s
 
     # phase 9: OPT-350M at its 2048-token window, with the blocked backward
-    # selected as MMGL_BLOCKED_BWD=1 selects it, for this phase only
-    flag = (fa.BLOCKED_BWD, os.environ.get("MMGL_BLOCKED_BWD"))
+    # selected for this phase only, through the module flag that
+    # MMGL_BLOCKED_BWD=1 sets at import
+    flag = fa.BLOCKED_BWD
     fa.BLOCKED_BWD = True
-    os.environ["MMGL_BLOCKED_BWD"] = "1"
     per_pass = {"flash_attention": OPT350_LAYERS,
                 "flash_attention_allheads": 0}
     try:
@@ -1308,11 +1325,7 @@ def main() -> int:
             ("flash_attention", "flash_attention_blocked_bwd"), "opt350m",
             plain_on_card=True, on_cpu=False)
     finally:
-        fa.BLOCKED_BWD = flag[0]
-        if flag[1] is None:
-            del os.environ["MMGL_BLOCKED_BWD"]
-        else:
-            os.environ["MMGL_BLOCKED_BWD"] = flag[1]
+        fa.BLOCKED_BWD = flag
     if opt350["launches"]["flash_attention_allheads_bwd"]:
         fail("K3 launched in the OPT-350M run")
 
@@ -1344,8 +1357,9 @@ def main() -> int:
     k9 = bwd_shapes.get((512, 512), 0)
     launches["flash_attention_bias_bwd[K9]"] = k9
     launches["flash_attention_bias_bwd[K8]"] = sum(bwd_shapes.values()) - k9
-    # K4 with its stats and K6: the OPT-350M training run
-    launches["flash_attention[stats]"] = opt350["launches"]["flash_attention"]
+    # K4 with its stats and K6: the OPT-350M training steps (its eval steps
+    # and prefills run K4 without the stats)
+    launches["flash_attention[stats]"] = opt350["in_steps"]["flash_attention"]
     launches["flash_attention_blocked_bwd"] = opt350["launches"][
         "flash_attention_blocked_bwd"]
     entries = []
@@ -1365,7 +1379,8 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": worst[base], "ms": times["kernel"],
+            "max_abs_err": worst.get(name, worst[base]),
+            "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
             "library_ms": times["library"], "shape": label})
     print(json.dumps({"kernels": entries}))
