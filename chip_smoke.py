@@ -34,14 +34,14 @@ imports no JAX. Phases, each fatal on failure:
      4 x 4): every micro-step launches K7 and K8/K9 36 times each; the
      checks of phase 5. Then one fp32 micro-step in eval mode (no dropout:
      K7, K8/K9, K4 and K5 on the card) against the CPU;
-  8. every kernel timed (bf16, CUDA events) against its plain version and
-     against the one PyTorch call that computes the same function
-     (scaled_dot_product_attention with the bias and mask as a float
-     attn_mask, and its backward), beside its bound: max(FLOPs / 989
-     TFLOP/s, bytes / 3.35 TB/s), each input read and each output written
-     once, FLOPs over the pairs the masks leave (dropout's bits excluded);
-     K4 with its row stats, K6 and K5 also at OPT-350M's (4, 2048, 16, 64),
-     K6 and K5 again at (4, 1024, 16, 64);
+  8. every kernel timed (bf16, CUDA events over runs of 10 calls back to
+     back) against its plain version and against the one PyTorch call that
+     computes the same function (scaled_dot_product_attention with the bias
+     and mask as a float attn_mask, and its backward), beside its bound:
+     max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s), each input read and each
+     output written once, FLOPs over the pairs the masks leave (dropout's
+     bits excluded); K4 with its row stats, K6 and K5 also at OPT-350M's
+     (4, 2048, 16, 64), K6 and K5 again at (4, 1024, 16, 64);
   9. OPT-350M + CLIP training at OPT's whole 2048-token window through the
      CLI (--max_input_length 1920 --max_output_length 128, bf16, 4 updates
      of 4 x 4, AdamW) with the blocked backward selected (the module flag
@@ -54,8 +54,11 @@ imports no JAX. Phases, each fatal on failure:
 Phase 3 also holds K4 with its row stats and K6 against their plain
 versions at OPT-350M's shape with a pad hole and with a fully masked
 sample, ragged and end-aligned sq < sk, and K6 against K5 at OPT-350M's
-shape. The launch counts are set to 0 just before each path and read just
-after.
+shape, bit for bit. The launch counts are set to 0 just before each path
+and read just after. K1-K6 have two bodies, tensor cores for bf16 and
+scalar FMAs for fp32: phases 4, 5, 6, 7 and 9 (bf16) check that every
+launch of K1-K6 took the tensor-core body, and their fp32 checks that none
+did.
 Prints a kernels JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
@@ -127,6 +130,14 @@ KERNELS = {
     "flash_attention_bias_bwd": ("bias_attention_bwd_reference",
                                  f"{PALLAS}:942", BIAS_BWD_SOURCE),
 }
+# K1-K6: a tensor-core body for bf16 (counted in launches_tc), the scalar
+# one for fp32
+TC_KERNELS = ("flash_attention_allheads", "fused_heads_attention",
+              "flash_attention_allheads_bwd", "flash_attention",
+              "flash_attention_bwd", "flash_attention_blocked_bwd")
+DESIGNS = {"tc": "bf16 tensor cores: mma.sync m16n8k16, fp32 accumulators, "
+                 "64 x 64 tiles, 4 warps of 16 rows, 2-stage cp.async ring",
+           "scalar": "scalar fp32 FMAs, 4 threads a row, 64 x 64 tiles"}
 OPT_TEST_KERNELS = ("flash_attention_allheads", "fused_heads_attention")
 OPT_TRAIN_KERNELS = OPT_TEST_KERNELS + ("flash_attention_allheads_bwd",)
 # the OPT attention calls: (kernel, (B, S, H, D), causal, mask)
@@ -166,8 +177,9 @@ RATE = 0.1
 # (atol, rtol) by dtype name
 TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 0.0)}
 # backward, per gradient: (atol as a fraction of its largest entry, rtol);
-# bf16: the plain version rounds P and dS to bf16 before their products,
-# the kernel keeps them fp32
+# bf16: P and dS rounded to bf16 before their products from logits summed
+# in another order (the tensor-core bodies and the plain versions), or kept
+# fp32 (the scalar bias kernels)
 BWD_TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 0.0)}
 # K4's row max and sum, (atol, rtol) in either dtype: fp32 sums of up to
 # 2048 exponentials in another order
@@ -184,6 +196,8 @@ MODEL_ATOL = 1e-3
 # to twice the plain versions' own error on the card
 STEP_TOL = (1e-3, 1e-4, 1e-3)
 T5_STEP_TOL = (1e-3, 5e-3, 1e-2)
+# phase 8: calls back to back in one timed sample
+TIMING_RUN = 10
 # H100 SXM data-sheet peaks (dense bf16, HBM3)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -257,6 +271,28 @@ def bwd_inputs(case_index: int, dtype, device):
     out = fa.allheads_attention_reference(q, k, v, kv_mask=mask,
                                           causal=causal)
     return (q, k, v, mask, out, dout), dict(causal=causal)
+
+
+def reset_launches(fa) -> None:
+    """Every wrapper's launch counts to 0."""
+    for name in KERNELS:
+        getattr(fa, name).launches = 0
+        if name in TC_KERNELS:
+            getattr(fa, name).launches_tc = 0
+
+
+def check_bodies(fa, tag: str, bf16: bool):
+    """Every launch of K1-K6 since the counts were reset took the
+    tensor-core body (bf16) or none did (fp32); returns {name: (launches,
+    tensor-core launches)}."""
+    counts = {n: (getattr(fa, n).launches, getattr(fa, n).launches_tc)
+              for n in TC_KERNELS}
+    print(f"[{tag}] K1-K6 launches (all, tensor-core body): {counts}")
+    wrong = {n: c for n, c in counts.items() if c[1] != (c[0] if bf16 else 0)}
+    if wrong:
+        fail(f"{tag}: launches of K1-K6 took the "
+             f"{'scalar' if bf16 else 'tensor-core'} body: {wrong}")
+    return counts
 
 
 def _within(got, ref, atol, rtol) -> bool:
@@ -484,19 +520,20 @@ def check_blocked_kernels(fa, device, worst):
                     f"{report} ok")
             del refs
             if i == 0:
+                # the same gradient: K5's stats pass computes K4's max and
+                # sum with K4's code, and both run the same delta and tile
+                # kernels, so bit for bit
                 k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout,
                                             causal=causal)
                 torch.cuda.synchronize(device)
-                atol_b, rtol_b = BWD_TOLERANCES[dtype_name]
                 errs = []
                 for name, g, r in zip(("dq", "dk", "dv"), got, k5):
                     errs.append(float((g.float() - r.float()).abs().max()))
-                    if not _within(g, r, atol_b * float(r.float().abs().max()),
-                                   rtol_b):
-                        fail(f"K6's {name} disagrees with K5's at {label} "
-                             f"{dtype_name} ({errs[-1]:.3e})")
-                line += (f"; against flash_attention_bwd (K5): "
-                         f"{', '.join(f'{e:.3e}' for e in errs)} ok")
+                    if not torch.equal(g, r):
+                        fail(f"K6's {name} differs from K5's at {label} "
+                             f"{dtype_name} (max abs {errs[-1]:.3e})")
+                line += (f"; against flash_attention_bwd (K5): equal bit "
+                         f"for bit (max abs {', '.join(f'{e:g}' for e in errs)})")
                 del k5
             print(line)
             del q, k, v, mask, dout, out, m, l, got
@@ -598,13 +635,13 @@ def run_test_pass(cli, fa, device, argv, kernels, per_eval=None,
 
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    for name in KERNELS:
-        getattr(fa, name).launches = 0
+    reset_launches(fa)
     results = cli.evaluate_loop(test, args, args.start_epoch, log,
                                 prefix="test")
     launches = {name: getattr(fa, name).launches for name in KERNELS}
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device)
+    check_bodies(fa, f"{tag} test", bf16=True)
 
     print(f"[{tag} test] results: {json.dumps(results, sort_keys=True)}")
     print(f"[{tag} test] launches: {launches}; generated shapes: {shapes}")
@@ -633,9 +670,10 @@ def run_test_pass(cli, fa, device, argv, kernels, per_eval=None,
     return test, results, launches, rate, peak
 
 
-def check_model_fp32(cli, test, device, argv, tag):
+def check_model_fp32(cli, fa, test, device, argv, tag):
     """Phases 4b and 6b: one sample's fp32 eval step through the kernels on
-    the card against the same seeded model on the CPU (plain versions)."""
+    the card (their scalar bodies) against the same seeded model on the CPU
+    (plain versions)."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
     from mmgl_tpu_torch.train.steps import losses_of
@@ -648,8 +686,11 @@ def check_model_fp32(cli, test, device, argv, tag):
         model, _ = build_model(args, dev,
                                vocab_size=test.tokenizer.vocab_size,
                                tokenizer=test.tokenizer)
+        reset_launches(fa)
         with torch.no_grad():
             fused = model.eval()(batch)
+        if dev.type == "cuda":
+            check_bodies(fa, f"{tag} model fp32", bf16=False)
         out[dev.type] = (fused["logits"].float().cpu(),
                          float(losses_of(fused, test.fcfg.decoder_only,
                                          args.max_input_length,
@@ -744,8 +785,7 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     try:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-        for name in KERNELS:
-            getattr(fa, name).launches = 0
+        reset_launches(fa)
         results = cli.run(args, dev, log)
         launches = {name: getattr(fa, name).launches for name in KERNELS}
         torch.cuda.synchronize(device)
@@ -753,6 +793,7 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     finally:
         for name, fn in originals.items():
             setattr(cli, name, fn)
+    bodies = check_bodies(fa, f"{tag} train", bf16=True)
 
     steps = seen["steps"]
     in_steps = {n: sum(s["launches"][n] for s in steps) for n in KERNELS}
@@ -823,6 +864,7 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
           f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
     return {"sections_per_s": rate, "peak_bytes": peak,
             "launches": launches, "in_steps": in_steps,
+            "launches_tc": {n: c[1] for n, c in bodies.items()},
             "losses": [s["loss"] for s in steps],
             "grad_norms": [s["grad_norm"] for s in steps],
             "update_seconds": [s["seconds"] for s in steps],
@@ -863,8 +905,7 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
             fa._plain = (lambda q: True) if use_plain else plain
             model, _ = build_model(args, dev, vocab_size=tokenizer.vocab_size,
                                    tokenizer=tokenizer)
-            for name in KERNELS:
-                getattr(fa, name).launches = 0
+            reset_launches(fa)
             fused = model.eval()(batch)
             loss, _ = losses_of(fused, args.decoder_only,
                                 args.max_input_length, tokenizer.pad_token_id)
@@ -872,6 +913,7 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
             if which == "card":
                 torch.cuda.synchronize(dev)
                 launches = {n: getattr(fa, n).launches for n in KERNELS}
+                check_bodies(fa, f"{tag} step fp32", bf16=False)
             grads = {n: p.grad.detach().cpu()
                      for n, p in model.named_parameters() if p.requires_grad}
             norm = math.sqrt(sum(float(g.double().pow(2).sum())
@@ -958,9 +1000,12 @@ def float_mask(mask, sq, causal, bias, dtype):
     return add.masked_fill(~allowed, -1e30).to(dtype)
 
 
-def median_ms(fns, device, rounds: int = 5):
+def median_ms(fns, device, rounds: int = 5, run: int = TIMING_RUN):
     """Median ms of each callable, in rounds of plain, kernel, library,
-    library, kernel, plain (CUDA events, after a warm-up)."""
+    library, kernel, plain (CUDA events, after a warm-up); a sample is the
+    mean of ``run`` calls back to back, so that the host's time to launch a
+    call overlaps the card's work on the one before, as it does on the main
+    path."""
     import torch
 
     for fn in fns.values():
@@ -974,10 +1019,11 @@ def median_ms(fns, device, rounds: int = 5):
     for _ in range(rounds * 2):
         for which in order:
             start.record()
-            fns[which]()
+            for _ in range(run):
+                fns[which]()
             end.record()
             end.synchronize()
-            samples[which].append(start.elapsed_time(end))
+            samples[which].append(start.elapsed_time(end) / run)
     return {k: statistics.median(s) for k, s in samples.items()}, len(
         samples["kernel"])
 
@@ -1203,8 +1249,10 @@ def time_kernels(fa, device):
         rows[label] = (name, times, bound, by)
         print(f"[time] {label} bfloat16: kernel {times['kernel']:.4f} ms, "
               f"plain {times['plain']:.4f} ms, library "
-              f"{times['library']:.4f} ms (medians of {n}); bound "
-              f"{bound:.4f} ms ({by}: {flops:.4g} FLOP, {nbytes:.4g} B)")
+              f"{times['library']:.4f} ms (kernel / library "
+              f"{times['kernel'] / times['library']:.3f}; medians of {n} "
+              f"runs of {TIMING_RUN}); bound {bound:.4f} ms ({by}: "
+              f"{flops:.4g} FLOP, {nbytes:.4g} B)")
     return rows
 
 
@@ -1244,7 +1292,7 @@ def main() -> int:
 
     test, results, opt_test, rate, peak = run_test_pass(
         cli, fa, device, OPT_TEST_ARGV, OPT_TEST_KERNELS, tag="opt")
-    check_model_fp32(cli, test, device, OPT_TEST_ARGV, "opt")
+    check_model_fp32(cli, fa, test, device, OPT_TEST_ARGV, "opt")
     tokenizer = test.tokenizer
     del test
     with tempfile.TemporaryDirectory() as log_dir:
@@ -1262,7 +1310,8 @@ def main() -> int:
         cli, fa, device, T5_TEST_ARGV,
         ("flash_attention_bias", "flash_attention", "fused_heads_attention"),
         per_eval, per_generate, tag="t5")
-    t5_model = check_model_fp32(cli, t5_test, device, T5_TEST_ARGV, "t5")
+    t5_model = check_model_fp32(cli, fa, t5_test, device, T5_TEST_ARGV,
+                                "t5")
     t5_tokenizer = t5_test.tokenizer
     del t5_test
     micro = TRAIN_UPDATES   # micro-batches per update (4 x 4)
@@ -1382,7 +1431,9 @@ def main() -> int:
             "max_abs_err": worst.get(name, worst[base]),
             "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
-            "library_ms": times["library"], "shape": label})
+            "library_ms": times["library"], "shape": label,
+            # every timed case is bf16
+            "design": DESIGNS["tc" if base in TC_KERNELS else "scalar"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,12 +38,16 @@
 // 2 and 3 are the tile kernels of attention_bwd_tiles.cuh, shared with K3/K5,
 // which run them after a pass that recomputes m and l; K6 takes them from K4.
 //
-// What bounds it on this card: 14 * D scalar fp32 FMAs per allowed (query,
-// key) pair (dQ: q k^T, dO v^T, dS k; dK/dV: q k^T, dO v^T, P^T dO, dS^T q)
-// against a few tens of MB of inputs, so the limit is the throughput of FMAs
-// and shared-memory loads, not HBM (3.35 TB/s) or the tensor cores. Against
-// K5 at the same shape it saves the stats pass, 2 * D FMAs and an exp per
-// pair. mma.sync / wgmma and TMA are later work.
+// Two bodies, chosen by the input dtype: bf16 inputs take the tensor-core
+// dK/dV and dQ bodies of attention_bwd_tiles.cuh (mma.sync; entry
+// mmgl_blocked_bwd_tc), fp32 inputs the scalar ones (on the tensor cores
+// fp32 would run as TF32). The delta pass is the same for both.
+//
+// What bounds it on this card: 14 * D FLOPs per (query, key) pair computed
+// (dQ: q k^T, dO v^T, dS k; dK/dV: q k^T, dO v^T, P^T dO, dS^T q) against a
+// few tens of MB of inputs: the tensor cores and the fp32 elementwise work
+// between the products in bf16, scalar FMAs and shared-memory loads in fp32;
+// not HBM (3.35 TB/s). Against K5 at the same shape it saves the stats pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,40 +59,10 @@ namespace {
 
 using mmgl::attention_bwd_dkdv_kernel;
 using mmgl::attention_bwd_dq_kernel;
-using mmgl::dot4;
 using mmgl::kD;
-using mmgl::load4;
 
-constexpr int kTile = mmgl::kBwdTile;        // query rows per delta block
+constexpr int kTile = mmgl::kBwdTile;        // query rows and keys per tile
 constexpr int kThreads = mmgl::kBwdThreads;  // four threads per row
-
-// 1. delta = rowsum(dO * o) per query row, in (B, H, Sq) order
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                       float* __restrict__ row_delta, int sq, int heads) {
-  const int tid = threadIdx.x;
-  const int sub = tid & 3;
-  const int qi = blockIdx.x * kTile + (tid >> 2);
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool row_ok = qi < sq;
-
-  const long rs = static_cast<long>(heads) * kD;
-  const long off = (static_cast<long>(b) * sq + qi) * rs + h * kD + 16 * sub;
-  float delta = 0.f;
-  if (row_ok) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      delta = dot4(load4(dout + off + 4 * c), load4(out + off + 4 * c), delta);
-    }
-  }
-  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
-  delta += __shfl_xor_sync(0xffffffffu, delta, 2);
-  if (row_ok && sub == 0) {
-    row_delta[(static_cast<long>(b) * heads + h) * sq + qi] = delta;
-  }
-}
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -108,9 +82,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
   const dim3 q_grid((sq + kTile - 1) / kTile, heads, batch);
   const dim3 k_grid((sk + kTile - 1) / kTile, heads, batch);
-  attention_delta_kernel<T><<<q_grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(out), do_, row_delta, sq, heads);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads, stream);
   if (err != cudaSuccess) return err;
   attention_bwd_dkdv_kernel<T><<<k_grid, kThreads, 0, stream>>>(
       q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
@@ -144,4 +117,26 @@ extern "C" int mmgl_blocked_bwd(const void* q, const void* k, const void* v,
   return launch<float>(q, k, v, kv_mask, out, dout, row_max, row_sum, dq, dk,
                        dv, row_delta, batch, sq, sk, heads, head_dim, scale,
                        causal, stream);
+}
+
+// K6 on the bf16 tensor-core bodies (is_bf16 must be 1): the same delta pass,
+// then the tensor-core dK/dV and dQ launches.
+extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
+                                   const int* kv_mask, const void* out,
+                                   const void* dout, const float* row_max,
+                                   const float* row_sum, void* dq, void* dk,
+                                   void* dv, float* row_delta, int batch,
+                                   int sq, int sk, int heads, int head_dim,
+                                   float scale, int causal, int is_bf16,
+                                   cudaStream_t stream) {
+  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
+      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = mmgl::launch_delta<__nv_bfloat16>(
+      out, dout, row_delta, batch, sq, heads, stream);
+  if (err != cudaSuccess) return err;
+  return mmgl::launch_bwd_tiles_tc<kD>(q, k, v, kv_mask, dout, row_max,
+                                       row_sum, row_delta, dq, dk, dv, batch,
+                                       sq, sk, heads, scale, causal, stream);
 }

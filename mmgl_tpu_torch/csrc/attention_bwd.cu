@@ -38,18 +38,25 @@
 // l from the forward instead of pass 1; the header describes their thread
 // layout and which causal tiles they skip.
 //
-// What bounds it on this card: as in the forward, these are a few GFLOP of
-// scalar fp32 FMAs over a few MB, so the limit is the throughput of FMAs and
-// shared-memory loads, not HBM (3.35 TB/s) or the tensor cores. Five
-// products per (query, key) pair against the forward's two, plus the stats
-// pass that recomputes the scores once more. mma.sync / wgmma and TMA are
-// later work.
+// Two bodies, chosen by the input dtype. fp32 inputs take the scalar passes
+// above (on the tensor cores fp32 would run as TF32). bf16 inputs take the
+// tensor-core bodies, four launches (entries *_tc below): the forward body
+// of attention_fwd_tc.cuh in its stats-only form (m and l from the same code,
+// in the same order, as K4 writes them for K6, so K5 and K6 agree bit for
+// bit), the delta pass, then the tensor-core dK/dV and dQ bodies of
+// attention_bwd_tiles.cuh.
+//
+// What bounds the scalar passes on this card: a few GFLOP of scalar fp32
+// FMAs over a few MB, so the throughput of FMAs and shared-memory loads, not
+// HBM (3.35 TB/s). Five products per (query, key) pair against the
+// forward's two, plus the stats pass that recomputes the scores once more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention_bwd_tiles.cuh"
+#include "attention_fwd_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -223,6 +230,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the bf16 tensor-core bodies: stats, delta, dK/dV, dQ
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const int* kv_mask, const void* out, const void* dout,
+                      void* dq, void* dk, void* dv, float* stats, int batch,
+                      int sq, int sk, int heads, int head_dim, float scale,
+                      int causal, int is_bf16, cudaStream_t stream) {
+  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
+      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const long n = static_cast<long>(batch) * heads * sq;
+  float* row_max = stats;
+  float* row_sum = stats + n;
+  float* row_delta = stats + 2 * n;
+  cudaError_t err = mmgl::launch_fwd_tc<kD, true>(
+      q, k, nullptr, kv_mask, nullptr, row_max, row_sum, batch, sq, sk, heads,
+      scale, causal, stream);
+  if (err != cudaSuccess) return err;
+  err = mmgl::launch_delta<__nv_bfloat16>(out, dout, row_delta, batch, sq,
+                                          heads, stream);
+  if (err != cudaSuccess) return err;
+  return mmgl::launch_bwd_tiles_tc<kD>(q, k, v, kv_mask, dout, row_max,
+                                       row_sum, row_delta, dq, dk, dv, batch,
+                                       sq, sk, heads, scale, causal, stream);
+}
+
 }  // namespace
 
 // K3: backward of K1 (OPT's aligned causal self-attention), sq <= sk.
@@ -253,4 +286,28 @@ extern "C" int mmgl_flash_bwd(const void* q, const void* k, const void* v,
   return mmgl_allheads_bwd(q, k, v, kv_mask, out, dout, dq, dk, dv, stats,
                            batch, sq, sk, heads, head_dim, scale, causal,
                            is_bf16, stream);
+}
+
+// K3 and K5 on the bf16 tensor-core bodies (is_bf16 must be 1).
+extern "C" int mmgl_allheads_bwd_tc(const void* q, const void* k,
+                                    const void* v, const int* kv_mask,
+                                    const void* out, const void* dout,
+                                    void* dq, void* dk, void* dv,
+                                    float* stats, int batch, int sq, int sk,
+                                    int heads, int head_dim, float scale,
+                                    int causal, int is_bf16,
+                                    cudaStream_t stream) {
+  return launch_tc(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch, sq,
+                   sk, heads, head_dim, scale, causal, is_bf16, stream);
+}
+
+extern "C" int mmgl_flash_bwd_tc(const void* q, const void* k, const void* v,
+                                 const int* kv_mask, const void* out,
+                                 const void* dout, void* dq, void* dk,
+                                 void* dv, float* stats, int batch, int sq,
+                                 int sk, int heads, int head_dim,
+                                 float scale, int causal, int is_bf16,
+                                 cudaStream_t stream) {
+  return launch_tc(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch, sq,
+                   sk, heads, head_dim, scale, causal, is_bf16, stream);
 }

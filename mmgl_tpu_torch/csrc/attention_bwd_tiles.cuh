@@ -252,4 +252,685 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// delta = rowsum(dO * o) per query row, in (B, H, Sq) order: K6's first
+// launch, and K3/K5's after their bf16 stats pass (JAX computes it outside
+// Pallas, mmgl_tpu/ops/flash_attention.py:345-347)
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ row_delta, int sq, int heads) {
+  const int tid = threadIdx.x;
+  const int sub = tid & 3;
+  const int qi = blockIdx.x * kBwdTile + (tid >> 2);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool row_ok = qi < sq;
+
+  const long rs = static_cast<long>(heads) * kD;
+  const long off = (static_cast<long>(b) * sq + qi) * rs + h * kD + 16 * sub;
+  float delta = 0.f;
+  if (row_ok) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      delta = dot4(load4(dout + off + 4 * c), load4(out + off + 4 * c), delta);
+    }
+  }
+  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
+  delta += __shfl_xor_sync(0xffffffffu, delta, 2);
+  if (row_ok && sub == 0) {
+    row_delta[(static_cast<long>(b) * heads + h) * sq + qi] = delta;
+  }
+}
+
+// ---- the bf16 tensor-core bodies -------------------------------------------
+//
+// The same gradients, tiles and skip rules as the scalar kernels above, for
+// bf16 inputs, on mma.sync (common.cuh). Per allowed element the arithmetic
+// is the scalar kernels' (p = exp(logit - m) * (1 / l), dS = p (dP - delta)
+// scale, 0 where masked), exp taken as 2^(logit log2(e) - m log2(e)) on the
+// card's ex2 (a few ulp), the logit's scale and log2(e) in one FMA; P
+// and dS are rounded to bf16 before their products, where the Pallas K6
+// rounds them (flash_attention.py:317, :324). A block holds kWarps warps of
+// kSlabs slabs of 16 rows (keys in dK/dV, queries in dQ); a streamed tile of
+// 64 rows in shared memory serves all of them. The streamed tiles pass
+// through a kStages-deep cp.async ring with rows padded to D + 8, one
+// barrier a tile. A warp takes its 64 columns in two halves of 32, one after
+// the other, so the two products of a half (S and dP) and the accumulators
+// fit in registers. A warp skips a tile whose pairs are all causally hidden
+// from it (unless a fully masked row needs it, in dK/dV); the causal test
+// runs only on tiles that straddle the diagonal, dQ's key mask only on tiles
+// with a masked key (a bit a key). No atomics: each block owns its outputs,
+// so the results are the same from run to run.
+//
+// What bounds them on this card: 14 D FLOPs per (query, key) pair computed
+// (dK/dV: K Q^T, V dO^T, P^T dO, dS^T Q; dQ: Q K^T, dO V^T, dS K) on the
+// tensor cores, the fp32 elementwise work between the products, and the
+// streamed tiles' L2 traffic.
+
+// the shared memory of the dK/dV body: K, V, kStages stages of Q and dO and
+// of the queries' m, 1 / l and delta, and a bit per query tile that holds a
+// fully masked row
+template <int D, int kRows, int kStages>
+constexpr size_t dkdv_tc_smem(int n_q_tiles) {
+  return (2 * kRows + 2 * kStages * kTcTile) * TcTile<D>::kStride *
+             sizeof(__nv_bfloat16) +
+         3 * kStages * kTcTile * sizeof(float) +
+         ((n_q_tiles + 31) / 32) * sizeof(uint32_t);
+}
+
+// dK, dV for a block of kWarps warps of kSlabs slabs of 16 keys (a warp's
+// keys are consecutive): S^T = K Q^T and dP^T = V dO^T put the keys in the
+// accumulators' rows, so P^T and dS^T are A fragments for dV += P^T dO and
+// dK += dS^T Q without a transpose; each Q and dO fragment feeds every slab
+template <int D, int kWarps, int kSlabs, int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const int* __restrict__ kv_mask,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ row_max,
+                             const float* __restrict__ row_sum,
+                             const float* __restrict__ row_delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                             int heads, float scale, int causal) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kWarpRows = 16 * kSlabs;     // keys a warp
+  constexpr int kRows = kWarpRows * kWarps;  // keys a block
+  constexpr int S = TcTile<D>::kStride;
+  constexpr int kElems = TcTile<D>::kElems;
+  constexpr int kKSteps = D / 16;
+  constexpr int kDBlocks = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
+  __nv_bfloat16* v_s = k_s + kRows * S;                           // kRows rows
+  __nv_bfloat16* q_s = v_s + kRows * S;           // [kStages][kElems]
+  __nv_bfloat16* do_s = q_s + kStages * kElems;   // [kStages][kElems]
+  float* m_s = reinterpret_cast<float*>(do_s + kStages * kElems);
+  float* inv_l_s = m_s + kStages * kTcTile;       // [kStages][64] each
+  float* delta_s = inv_l_s + kStages * kTcTile;
+  uint32_t* full_bits =
+      reinterpret_cast<uint32_t*>(delta_s + kStages * kTcTile);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int k0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const long rs = static_cast<long>(heads) * D;
+  const __nv_bfloat16* q_rows = q + static_cast<long>(b) * sq * rs + h * D;
+  const __nv_bfloat16* do_rows = dout + static_cast<long>(b) * sq * rs + h * D;
+  const long k_off = static_cast<long>(b) * sk * rs + h * D;
+  const long stat0 = (static_cast<long>(b) * heads + h) * sq;
+  const int shift = sk - sq;
+  const int n_q = (sq + kTcTile - 1) / kTcTile;
+
+  tile_async<D, kRows, kThreads>(k_s, k + k_off, rs, k0, sk, tid);
+  tile_async<D, kRows, kThreads>(v_s, v + k_off, rs, k0, sk, tid);
+
+  // A bit per query tile holding a fully masked row (m = -1e30): such a row
+  // feeds dV from every key, causally hidden ones too. So query tiles before
+  // t_first, which lie wholly before this block's keys, are visited only if
+  // their bit is set, and a warp skips a tile hidden from its keys only if
+  // the bit is clear.
+  const int t_first = causal ? max(0, k0 - shift) / kTcTile : 0;
+  for (int w = tid; w < (n_q + 31) / 32; w += kThreads) full_bits[w] = 0;
+  __syncthreads();
+  if (causal) {
+    for (int i = tid; i < sq; i += kThreads) {
+      if (row_max[stat0 + i] == kNegInf) {
+        const int t = i / kTcTile;
+        atomicOr(&full_bits[t >> 5], 1u << (t & 31));
+      }
+    }
+  }
+  __syncthreads();
+  auto full = [&](int t) { return (full_bits[t >> 5] >> (t & 31)) & 1u; };
+  auto next_tile = [&](int t) {
+    while (t < t_first && !full(t)) ++t;
+    return t;
+  };
+
+  auto issue = [&](int t, int st) {  // query tile t's Q and dO
+    tile_async<D, kTcTile, kThreads>(q_s + st * kElems, q_rows, rs,
+                                     t * kTcTile, sq, tid);
+    tile_async<D, kTcTile, kThreads>(do_s + st * kElems, do_rows, rs,
+                                     t * kTcTile, sq, tid);
+  };
+  // query i's statistics, for a stage, the max as m log2(e); rows past sq
+  // get m = 1 / l = 0 (their q and dO are zero-filled, so their p and dS are
+  // exactly 0)
+  float m_next = 0.f, inv_l_next = 0.f, delta_next = 0.f;
+  auto fetch_stats = [&](int t) {
+    const int i = t * kTcTile + tid;
+    m_next = inv_l_next = delta_next = 0.f;
+    if (tid < kTcTile && i < sq) {
+      m_next = __fmul_rn(row_max[stat0 + i], kLog2e);
+      inv_l_next = 1.f / row_sum[stat0 + i];
+      delta_next = row_delta[stat0 + i];
+    }
+  };
+  auto store_stats = [&](int st) {
+    if (tid < kTcTile) {
+      m_s[st * kTcTile + tid] = m_next;
+      inv_l_s[st * kTcTile + tid] = inv_l_next;
+      delta_s[st * kTcTile + tid] = delta_next;
+    }
+  };
+
+  // the visited tiles v_0, v_1, ...: v_i in stage i % kStages, v_{i +
+  // kStages - 1} in flight while v_i is computed
+  int t_pf = next_tile(0);  // < n_q: key k0 < sk is seen by row sq - 1
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (t_pf < n_q) {
+      issue(t_pf, i);
+      fetch_stats(t_pf);
+      store_stats(i);
+      t_pf = next_tile(t_pf + 1);
+    }
+    cp_async_commit();
+  }
+
+  const int key_first = k0 + kWarpRows * warp;  // the warp's keys
+  const int key_last = key_first + kWarpRows - 1;
+  bool key_valid[kSlabs][2];
+#pragma unroll
+  for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = key_first + 16 * sl + g + 8 * r;
+      key_valid[sl][r] =
+          kj < sk && kv_mask[static_cast<long>(b) * sk + kj] != 0;
+    }
+  }
+  float dk_acc[kSlabs][kDBlocks][4], dv_acc[kSlabs][kDBlocks][4];
+#pragma unroll
+  for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+    for (int i = 0; i < kDBlocks; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[sl][i][e] = dv_acc[sl][i][e] = 0.f;
+    }
+  }
+
+  for (int t = next_tile(0), i = 0; t < n_q; t = next_tile(t + 1), ++i) {
+    const int st = i % kStages;
+    cp_async_wait<kStages - 2>();  // tile t (and K, V) have landed
+    __syncthreads();  // and every warp is done with the tile before
+    const int sp = (i + kStages - 1) % kStages;  // that tile's stage
+    const bool prefetch = t_pf < n_q;
+    if (prefetch) {
+      issue(t_pf, sp);
+      fetch_stats(t_pf);
+    }
+    cp_async_commit();
+
+    const int q0 = t * kTcTile;
+    if (!(causal && q0 + kTcTile - 1 + shift < key_first && !full(t))) {
+      const __nv_bfloat16* qs = q_s + st * kElems;
+      const __nv_bfloat16* dos = do_s + st * kElems;
+      const float* ms = m_s + st * kTcTile;
+      const float* ls = inv_l_s + st * kTcTile;
+      const float* dls = delta_s + st * kTcTile;
+      // some (query, key) of the warp's tile is causally hidden
+      const bool diag = causal && q0 + shift < key_last;
+      // p = 2^(logit log2(e) - m log2(e)); a masked logit is -1e30, so a
+      // fully masked row (m = -1e30) gets 2^0 = 1 there
+      const float scale2 = scale * kLog2e;
+      const float neg2 = __fmul_rn(kNegInf, kLog2e);
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        // S^T = K Q^T and dP^T = V dO^T: kWarpRows keys x 32 queries a warp
+        float s[kSlabs][4][4], dp[kSlabs][4][4];
+#pragma unroll
+        for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[sl][n][e] = dp[sl][n][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKSteps; kk += 2) {
+          uint32_t ka[kSlabs][2][4], va[kSlabs][2][4];
+#pragma unroll
+          for (int sl = 0; sl < kSlabs; ++sl) {
+            const __nv_bfloat16* kw =
+                k_s + (kWarpRows * warp + 16 * sl + (lane & 15)) * S +
+                8 * (lane >> 4);
+            const __nv_bfloat16* vw =
+                v_s + (kWarpRows * warp + 16 * sl + (lane & 15)) * S +
+                8 * (lane >> 4);
+            ldmatrix_x4(ka[sl][0], kw + 16 * kk);
+            ldmatrix_x4(ka[sl][1], kw + 16 * (kk + 1));
+            ldmatrix_x4(va[sl][0], vw + 16 * kk);
+            ldmatrix_x4(va[sl][1], vw + 16 * (kk + 1));
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            uint32_t qb[4], db[4];
+            const int off = (32 * half + 8 * n + (lane & 7)) * S + 16 * kk +
+                            8 * (lane >> 3);
+            ldmatrix_x4(qb, qs + off);
+            ldmatrix_x4(db, dos + off);
+#pragma unroll
+            for (int sl = 0; sl < kSlabs; ++sl) {
+              mma_bf16(s[sl][n], ka[sl][0], qb[0], qb[1]);
+              mma_bf16(s[sl][n], ka[sl][1], qb[2], qb[3]);
+              mma_bf16(dp[sl][n], va[sl][0], db[0], db[1]);
+              mma_bf16(dp[sl][n], va[sl][1], db[2], db[3]);
+            }
+          }
+        }
+
+        // P^T and dS^T on each element's own (key, query)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int col = 32 * half + 8 * n + 2 * c4;
+          const float2 m2 = *reinterpret_cast<const float2*>(ms + col);
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(dls + col);
+#pragma unroll
+          for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int r = j >> 1;
+              const int e = j & 1;
+              const int kj = key_first + 16 * sl + g + 8 * r;
+              const bool allowed = key_valid[sl][r] &&
+                                   !(diag && q0 + col + e + shift < kj);
+              const float m2e = e ? m2.y : m2.x;
+              const float p = ex2(allowed ? fmaf(s[sl][n][j], scale2, -m2e)
+                                          : __fsub_rn(neg2, m2e)) *
+                              (e ? l2.y : l2.x);
+              s[sl][n][j] = p;
+              dp[sl][n][j] =
+                  allowed ? p * (dp[sl][n][j] - (e ? d2.y : d2.x)) * scale
+                          : 0.f;
+            }
+          }
+        }
+
+        // dV += P^T dO, dK += dS^T Q: the k16 blocks are query blocks
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t pa[kSlabs][4], dsa[kSlabs][4];
+#pragma unroll
+          for (int sl = 0; sl < kSlabs; ++sl) {
+            acc_to_a(pa[sl], s[sl][2 * j], s[sl][2 * j + 1]);
+            acc_to_a(dsa[sl], dp[sl][2 * j], dp[sl][2 * j + 1]);
+          }
+#pragma unroll
+          for (int db = 0; db < kDBlocks; db += 2) {
+            uint32_t ob[4], qb[4];
+            const int off = (32 * half + 16 * j + (lane & 15)) * S + 8 * db +
+                            8 * (lane >> 4);
+            ldmatrix_x4_trans(ob, dos + off);
+            ldmatrix_x4_trans(qb, qs + off);
+#pragma unroll
+            for (int sl = 0; sl < kSlabs; ++sl) {
+              mma_bf16(dv_acc[sl][db], pa[sl], ob[0], ob[1]);
+              mma_bf16(dv_acc[sl][db + 1], pa[sl], ob[2], ob[3]);
+              mma_bf16(dk_acc[sl][db], dsa[sl], qb[0], qb[1]);
+              mma_bf16(dk_acc[sl][db + 1], dsa[sl], qb[2], qb[3]);
+            }
+          }
+        }
+      }
+    }
+
+    if (prefetch) {
+      store_stats(sp);
+      t_pf = next_tile(t_pf + 1);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = key_first + 16 * sl + g + 8 * r;
+      if (kj >= sk) continue;
+      const long row = k_off + static_cast<long>(kj) * rs;
+#pragma unroll
+      for (int db = 0; db < kDBlocks; ++db) {
+        const int c = 8 * db + 2 * c4;
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
+            __floats2bfloat162_rn(dk_acc[sl][db][2 * r],
+                                  dk_acc[sl][db][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
+            __floats2bfloat162_rn(dv_acc[sl][db][2 * r],
+                                  dv_acc[sl][db][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// the shared memory of the dQ body: Q, dO, kStages stages of K and V
+template <int D, int kRows, int kStages>
+constexpr size_t dq_tc_smem() {
+  return (2 * kRows + 2 * kStages * kTcTile) * TcTile<D>::kStride *
+         sizeof(__nv_bfloat16);
+}
+
+// dQ for a block of kWarps warps of kSlabs slabs of 16 query rows (a warp's
+// rows are consecutive), looping over the key tiles up to the causal limit;
+// each K and V fragment feeds every slab
+template <int D, int kWarps, int kSlabs, int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const int* __restrict__ kv_mask,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ row_max,
+                           const float* __restrict__ row_sum,
+                           const float* __restrict__ row_delta,
+                           __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                           int heads, float scale, int causal) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kWarpRows = 16 * kSlabs;     // query rows a warp
+  constexpr int kRows = kWarpRows * kWarps;  // query rows a block
+  constexpr int S = TcTile<D>::kStride;
+  constexpr int kElems = TcTile<D>::kElems;
+  constexpr int kKSteps = D / 16;
+  constexpr int kDBlocks = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
+  __nv_bfloat16* do_s = q_s + kRows * S;                          // kRows rows
+  __nv_bfloat16* k_s = do_s + kRows * S;          // [kStages][kElems]
+  __nv_bfloat16* v_s = k_s + kStages * kElems;    // [kStages][kElems]
+  __shared__ uint32_t mask_s[kStages][2];  // a tile's key mask, a bit a key
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const long rs = static_cast<long>(heads) * D;
+  const long q_off = static_cast<long>(b) * sq * rs + h * D;
+  const __nv_bfloat16* k_rows = k + static_cast<long>(b) * sk * rs + h * D;
+  const __nv_bfloat16* v_rows = v + static_cast<long>(b) * sk * rs + h * D;
+  const int* mask_row = kv_mask + static_cast<long>(b) * sk;
+  const int shift = sk - sq;
+  const int q_last = min(q0 + kRows, sq) - 1;
+  const int n_k = (sk + kTcTile - 1) / kTcTile;
+  // dS = 0 past the diagonal for every row of the block
+  const int n_tiles = causal ? min(n_k, (q_last + shift) / kTcTile + 1) : n_k;
+
+  auto issue = [&](int t) {  // key tile t's K and V into its stage
+    const int st = t % kStages;
+    tile_async<D, kTcTile, kThreads>(k_s + st * kElems, k_rows, rs,
+                                     t * kTcTile, sk, tid);
+    tile_async<D, kTcTile, kThreads>(v_s + st * kElems, v_rows, rs,
+                                     t * kTcTile, sk, tid);
+  };
+  auto key_ok = [&](int t) {  // thread tid < 64's key of tile t
+    const int j = t * kTcTile + tid;
+    return j < sk && mask_row[j] != 0;
+  };
+
+  tile_async<D, kRows, kThreads>(q_s, q + q_off, rs, q0, sq, tid);
+  tile_async<D, kRows, kThreads>(do_s, dout + q_off, rs, q0, sq, tid);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) {
+      issue(t);
+      if (tid < kTcTile) store_mask_bits(mask_s[t], key_ok(t));
+    }
+    cp_async_commit();
+  }
+
+  // this lane's rows row_first + 16 sl + g (+ 8); a row past sq gets dS = 0
+  // (inv_l = 0) and is not written
+  const int row_first = q0 + kWarpRows * warp;
+  const int row_last = row_first + kWarpRows - 1;
+  float m_i[kSlabs][2], inv_l[kSlabs][2], delta[kSlabs][2];
+  const float scale2 = scale * kLog2e;
+#pragma unroll
+  for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row_first + 16 * sl + g + 8 * r;
+      m_i[sl][r] = inv_l[sl][r] = delta[sl][r] = 0.f;
+      if (i < sq) {
+        const long idx = (static_cast<long>(b) * heads + h) * sq + i;
+        m_i[sl][r] = __fmul_rn(row_max[idx], kLog2e);  // in log2 units
+        inv_l[sl][r] = 1.f / row_sum[idx];
+        delta[sl][r] = row_delta[idx];
+      }
+    }
+  }
+  float dq_acc[kSlabs][kDBlocks][4];
+#pragma unroll
+  for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+    for (int i = 0; i < kDBlocks; ++i) {
+      dq_acc[sl][i][0] = dq_acc[sl][i][1] = 0.f;
+      dq_acc[sl][i][2] = dq_acc[sl][i][3] = 0.f;
+    }
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    cp_async_wait<kStages - 2>();  // tile t has landed
+    __syncthreads();  // and every warp is done with tile t - 1
+    const int tp = t + kStages - 1;  // into tile t - 1's stage
+    bool key_next = false;
+    if (tp < n_tiles) {
+      issue(tp);
+      if (tid < kTcTile) key_next = key_ok(tp);
+    }
+    cp_async_commit();
+
+    const int k0 = t * kTcTile;
+    // a tile hidden from all the warp's rows gives them dS = 0
+    if (!(causal && k0 > row_last + shift)) {
+      const __nv_bfloat16* ks = k_s + st * kElems;
+      const __nv_bfloat16* vs = v_s + st * kElems;
+      const uint32_t bits[2] = {mask_s[st][0], mask_s[st][1]};
+      // a masked key (or one past sk), or a key causally hidden from a row
+      // of the warp, somewhere in the tile
+      const bool edge = (bits[0] & bits[1]) != 0xffffffffu ||
+                        (causal && k0 + kTcTile - 1 > row_first + shift);
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t half_bits = half ? bits[1] : bits[0];
+        // S = Q K^T and dP = dO V^T: kWarpRows rows x 32 keys a warp
+        float s[kSlabs][4][4], dp[kSlabs][4][4];
+#pragma unroll
+        for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[sl][n][e] = dp[sl][n][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKSteps; kk += 2) {
+          uint32_t qa[kSlabs][2][4], oa[kSlabs][2][4];
+#pragma unroll
+          for (int sl = 0; sl < kSlabs; ++sl) {
+            const int off = (kWarpRows * warp + 16 * sl + (lane & 15)) * S +
+                            8 * (lane >> 4);
+            ldmatrix_x4(qa[sl][0], q_s + off + 16 * kk);
+            ldmatrix_x4(qa[sl][1], q_s + off + 16 * (kk + 1));
+            ldmatrix_x4(oa[sl][0], do_s + off + 16 * kk);
+            ldmatrix_x4(oa[sl][1], do_s + off + 16 * (kk + 1));
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            uint32_t kb[4], vb[4];
+            const int off = (32 * half + 8 * n + (lane & 7)) * S + 16 * kk +
+                            8 * (lane >> 3);
+            ldmatrix_x4(kb, ks + off);
+            ldmatrix_x4(vb, vs + off);
+#pragma unroll
+            for (int sl = 0; sl < kSlabs; ++sl) {
+              mma_bf16(s[sl][n], qa[sl][0], kb[0], kb[1]);
+              mma_bf16(s[sl][n], qa[sl][1], kb[2], kb[3]);
+              mma_bf16(dp[sl][n], oa[sl][0], vb[0], vb[1]);
+              mma_bf16(dp[sl][n], oa[sl][1], vb[2], vb[3]);
+            }
+          }
+        }
+
+#pragma unroll
+        for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int r = j >> 1;
+              const int col = 32 * half + 8 * n + 2 * c4 + (j & 1);
+              const int row = row_first + 16 * sl + g + 8 * r;
+              const float ds = ex2(fmaf(s[sl][n][j], scale2, -m_i[sl][r])) *
+                               inv_l[sl][r] * (dp[sl][n][j] - delta[sl][r]) *
+                               scale;
+              dp[sl][n][j] = (!edge || (((half_bits >> (col & 31)) & 1u) &&
+                                        !(causal && row + shift < k0 + col)))
+                                 ? ds
+                                 : 0.f;
+            }
+          }
+        }
+
+        // dQ += dS K: the k16 blocks are key blocks
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t dsa[kSlabs][4];
+#pragma unroll
+          for (int sl = 0; sl < kSlabs; ++sl) {
+            acc_to_a(dsa[sl], dp[sl][2 * j], dp[sl][2 * j + 1]);
+          }
+#pragma unroll
+          for (int db = 0; db < kDBlocks; db += 2) {
+            uint32_t kb[4];
+            ldmatrix_x4_trans(kb, ks + (32 * half + 16 * j + (lane & 15)) * S +
+                                      8 * db + 8 * (lane >> 4));
+#pragma unroll
+            for (int sl = 0; sl < kSlabs; ++sl) {
+              mma_bf16(dq_acc[sl][db], dsa[sl], kb[0], kb[1]);
+              mma_bf16(dq_acc[sl][db + 1], dsa[sl], kb[2], kb[3]);
+            }
+          }
+        }
+      }
+    }
+
+    if (tp < n_tiles && tid < kTcTile) {
+      store_mask_bits(mask_s[tp % kStages], key_next);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row_first + 16 * sl + g + 8 * r;
+      if (i >= sq) continue;
+      __nv_bfloat16* dst = dq + q_off + static_cast<long>(i) * rs;
+#pragma unroll
+      for (int db = 0; db < kDBlocks; ++db) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * db + 2 * c4) =
+            __floats2bfloat162_rn(dq_acc[sl][db][2 * r],
+                                  dq_acc[sl][db][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// a backward body's shape: warps a block, slabs of 16 rows a warp, stages of
+// the ring, blocks an SM for the register budget
+template <int kWarps_, int kSlabs_, int kStages_, int kMinBlocks_>
+struct TcShape {
+  static constexpr int kWarps = kWarps_;
+  static constexpr int kSlabs = kSlabs_;
+  static constexpr int kStages = kStages_;
+  static constexpr int kMinBlocks = kMinBlocks_;
+  static constexpr int kRows = 16 * kSlabs_ * kWarps_;
+};
+
+// the dK/dV and dQ launches in given shapes on the caller's stream
+template <int D, typename KvShape, typename QShape>
+cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
+                                   const void* v, const int* kv_mask,
+                                   const void* dout, const float* row_max,
+                                   const float* row_sum,
+                                   const float* row_delta, void* dq, void* dk,
+                                   void* dv, int batch, int sq, int sk,
+                                   int heads, float scale, int causal,
+                                   cudaStream_t stream) {
+  const int n_q = (sq + kTcTile - 1) / kTcTile;
+  const size_t dkdv_bytes =
+      dkdv_tc_smem<D, KvShape::kRows, KvShape::kStages>(n_q);
+  const size_t dq_bytes = dq_tc_smem<D, QShape::kRows, QShape::kStages>();
+  auto dkdv_kernel =
+      attention_bwd_dkdv_tc_kernel<D, KvShape::kWarps, KvShape::kSlabs,
+                                   KvShape::kStages, KvShape::kMinBlocks>;
+  auto dq_kernel =
+      attention_bwd_dq_tc_kernel<D, QShape::kWarps, QShape::kSlabs,
+                                 QShape::kStages, QShape::kMinBlocks>;
+  cudaError_t err = set_smem(dkdv_kernel, dkdv_bytes);
+  if (err != cudaSuccess) return err;
+  err = set_smem(dq_kernel, dq_bytes);
+  if (err != cudaSuccess) return err;
+  const auto* q_ = static_cast<const __nv_bfloat16*>(q);
+  const auto* k_ = static_cast<const __nv_bfloat16*>(k);
+  const auto* v_ = static_cast<const __nv_bfloat16*>(v);
+  const auto* do_ = static_cast<const __nv_bfloat16*>(dout);
+  const dim3 k_grid((sk + KvShape::kRows - 1) / KvShape::kRows, heads, batch);
+  const dim3 q_grid((sq + QShape::kRows - 1) / QShape::kRows, heads, batch);
+  dkdv_kernel<<<k_grid, 32 * KvShape::kWarps, dkdv_bytes, stream>>>(
+      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq,
+      sk, heads, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<q_grid, 32 * QShape::kWarps, dq_bytes, stream>>>(
+      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
+      static_cast<__nv_bfloat16*>(dq), sq, sk, heads, scale, causal);
+  return cudaGetLastError();
+}
+
+// the bodies' shapes on this card, the fastest of those timed at OPT-350M's
+// (4, 2048, 16, 64) causal on an H100 (PERF.md, PR 5): 4 warps of one slab,
+// a 2-stage ring, 3 dK/dV and 4 dQ blocks an SM (more slabs or warps, or
+// deeper rings, spilled registers or lost occupancy)
+template <int D>
+cudaError_t launch_bwd_tiles_tc(const void* q, const void* k, const void* v,
+                                const int* kv_mask, const void* dout,
+                                const float* row_max, const float* row_sum,
+                                const float* row_delta, void* dq, void* dk,
+                                void* dv, int batch, int sq, int sk,
+                                int heads, float scale, int causal,
+                                cudaStream_t stream) {
+  return launch_bwd_tiles_tc_as<D, TcShape<4, 1, 2, 3>, TcShape<4, 1, 2, 4>>(
+      q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch,
+      sq, sk, heads, scale, causal, stream);
+}
+
+// delta of (B, Sq, H*D) out and dO in (B, H, Sq) order, on the caller's stream
+template <typename T>
+cudaError_t launch_delta(const void* out, const void* dout, float* row_delta,
+                         int batch, int sq, int heads, cudaStream_t stream) {
+  const dim3 grid((sq + kBwdTile - 1) / kBwdTile, heads, batch);
+  attention_delta_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), row_delta, sq,
+      heads);
+  return cudaGetLastError();
+}
+
 }  // namespace mmgl

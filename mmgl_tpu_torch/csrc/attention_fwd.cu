@@ -38,19 +38,24 @@
 // stride H*D), so nothing is transposed, which is the point of the allheads
 // kernel (flash_attention.py:1268-1277).
 //
-// What bounds it on this card: at these shapes attention is a few GFLOP over a
-// few MB, so neither HBM (3.35 TB/s) nor the tensor cores are the limit. This
-// first version runs scalar fp32 FMAs, so the limit is the shared-memory load
-// rate feeding them (one 16-byte load per four FMAs). The design keeps that
-// rate down: four threads share a query row, so a K/V tile read from shared
-// memory is broadcast to the eight rows of a warp; K rows are padded to 68
-// floats and V columns interleaved so that 16-byte loads hit distinct banks;
-// probabilities move between the four threads of a row by warp shuffles, not
-// through shared memory. Causal tiles past the diagonal are skipped only once
-// every row of the block has seen a real logit, where they add exactly zero.
-// mma.sync / wgmma and TMA are later work.
+// Two bodies, chosen by the input dtype. bf16 inputs take the tensor-core
+// body of attention_fwd_tc.cuh (mma.sync, cp.async, FlashAttention-2's
+// shape; entries *_tc below). fp32 inputs take the scalar body here: on the
+// tensor cores fp32 would run as TF32, about three decimal digits, and the
+// fp32 checks hold the kernels to 2e-5.
 //
-// Schedule: one block of 256 threads per (query tile of 64, head, batch).
+// What bounds the scalar body on this card: scalar fp32 FMAs, so the
+// shared-memory load rate feeding them (one 16-byte load per four FMAs). The
+// design keeps that rate down: four threads share a query row, so a K/V tile
+// read from shared memory is broadcast to the eight rows of a warp; K rows
+// are padded to 68 floats and V columns interleaved so that 16-byte loads hit
+// distinct banks; probabilities move between the four threads of a row by
+// warp shuffles, not through shared memory. Causal tiles past the diagonal
+// are skipped only once every row of the block has seen a real logit, where
+// they add exactly zero.
+//
+// Scalar schedule: one block of 256 threads per (query tile of 64, head,
+// batch).
 // Thread t owns query row t/4 and, of each 64-key tile, keys (t%4) + 4i for
 // the scores and output columns 4((t%4) + 4i) .. +3 for the PV product.
 // Softmax is online in fp32 registers; PV accumulates in fp32; the output is
@@ -60,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_fwd_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -263,6 +269,21 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                        sk, heads, head_dim, scale, causal, stream);
 }
 
+// the tensor-core body: bf16 only
+cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
+                        const int* kv_mask, void* out, float* row_max,
+                        float* row_sum, int batch, int sq, int sk, int heads,
+                        int head_dim, float scale, int causal, int is_bf16,
+                        cudaStream_t stream) {
+  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
+      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  return mmgl::launch_fwd_tc<kD, false>(q, k, v, kv_mask, out, row_max,
+                                        row_sum, batch, sq, sk, heads, scale,
+                                        causal, stream);
+}
+
 }  // namespace
 
 // K1: OPT's aligned self-attention (eval 640, prefill 512), sq <= sk.
@@ -298,6 +319,37 @@ extern "C" int mmgl_flash_fwd(const void* q, const void* k, const void* v,
                               int causal, int is_bf16, cudaStream_t stream) {
   return dispatch(q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk,
                   heads, head_dim, scale, causal, is_bf16, stream);
+}
+
+// The same three entries on the bf16 tensor-core body (is_bf16 must be 1).
+extern "C" int mmgl_allheads_fwd_tc(const void* q, const void* k,
+                                    const void* v, const int* kv_mask,
+                                    void* out, int batch, int sq, int sk,
+                                    int heads, int head_dim, float scale,
+                                    int causal, int is_bf16,
+                                    cudaStream_t stream) {
+  return dispatch_tc(q, k, v, kv_mask, out, nullptr, nullptr, batch, sq, sk,
+                     heads, head_dim, scale, causal, is_bf16, stream);
+}
+
+extern "C" int mmgl_fused_heads_fwd_tc(const void* q, const void* k,
+                                       const void* v, const int* kv_mask,
+                                       void* out, int batch, int seq,
+                                       int heads, int head_dim, float scale,
+                                       int causal, int is_bf16,
+                                       cudaStream_t stream) {
+  return dispatch_tc(q, k, v, kv_mask, out, nullptr, nullptr, batch, seq,
+                     seq, heads, head_dim, scale, causal, is_bf16, stream);
+}
+
+extern "C" int mmgl_flash_fwd_tc(const void* q, const void* k, const void* v,
+                                 const int* kv_mask, void* out,
+                                 float* row_max, float* row_sum, int batch,
+                                 int sq, int sk, int heads, int head_dim,
+                                 float scale, int causal, int is_bf16,
+                                 cudaStream_t stream) {
+  return dispatch_tc(q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk,
+                     heads, head_dim, scale, causal, is_bf16, stream);
 }
 
 extern "C" const char* mmgl_error_string(int err) {

@@ -115,23 +115,21 @@ def load() -> Library:
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     u32 = ctypes.c_uint
-    lib.mmgl_allheads_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [f32, i32, i32,
-                                                             ptr]
-    lib.mmgl_allheads_fwd.restype = i32
-    # K4 also takes the row max and sum outputs (null unless K6 follows)
-    lib.mmgl_flash_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, i32,
-                                                          ptr]
-    lib.mmgl_flash_fwd.restype = i32
-    lib.mmgl_fused_heads_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                         i32, i32, f32, i32, i32, ptr]
-    lib.mmgl_fused_heads_fwd.restype = i32
-    for fn in ("mmgl_allheads_bwd", "mmgl_flash_bwd"):
-        getattr(lib, fn).argtypes = [ptr] * 10 + [i32] * 5 + [f32, i32, i32,
-                                                              ptr]
-        getattr(lib, fn).restype = i32
-    lib.mmgl_blocked_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [f32, i32, i32,
-                                                              ptr]
-    lib.mmgl_blocked_bwd.restype = i32
+    # K1-K6 have a scalar entry (fp32) and a tensor-core one (bf16, *_tc)
+    # with the same arguments
+    signatures = {
+        "mmgl_allheads_fwd": [ptr] * 5 + [i32] * 5 + [f32, i32, i32, ptr],
+        # K4 also takes the row max and sum outputs (null unless K6 follows)
+        "mmgl_flash_fwd": [ptr] * 7 + [i32] * 5 + [f32, i32, i32, ptr],
+        "mmgl_fused_heads_fwd": [ptr] * 5 + [i32] * 4 + [f32, i32, i32, ptr],
+        "mmgl_allheads_bwd": [ptr] * 10 + [i32] * 5 + [f32, i32, i32, ptr],
+        "mmgl_flash_bwd": [ptr] * 10 + [i32] * 5 + [f32, i32, i32, ptr],
+        "mmgl_blocked_bwd": [ptr] * 12 + [i32] * 5 + [f32, i32, i32, ptr],
+    }
+    for name, args in signatures.items():
+        for fn in (name, name + "_tc"):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = i32
     lib.mmgl_bias_fwd.argtypes = ([ptr] * 7 + [i32] * 5
                                   + [f32, i32, u32, f32, i32, i32, ptr])
     lib.mmgl_bias_fwd.restype = i32

@@ -33,6 +33,13 @@ csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
      kernel for the Pallas ``_bwd_bias_kernel_batched`` (:843, K8) and
      ``_bwd_bias_kernel`` (:689, K9).
 
+K1-K6 have two bodies each, chosen by the input dtype (``_tensor_cores``):
+bf16 inputs launch the tensor-core body (mma.sync; the ``*_tc`` entries of
+the library), fp32 inputs the scalar one (on the tensor cores fp32 would run
+as TF32, about three decimal digits, against the fp32 checks' 2e-5). Their
+wrappers count ``launches`` and, of those, ``launches_tc``. There is no
+fallback from one body to the other.
+
 K1, K2, K4 and K7 keep the JAX signatures, BSHD in and out, and carry autograd on
 every device: K1 through ``_AllheadsAttention`` (K1 forward, K3 backward, the
 counterpart of the ``_allheads`` custom VJP), K4 through ``_FlashAttention``
@@ -268,16 +275,35 @@ def _plain(q) -> bool:
     return q.device.type == "cpu"
 
 
+def _tensor_cores(q) -> bool:
+    """Whether K1-K6 take their tensor-core body (bf16), not the scalar one
+    (fp32; ``_check`` refuses any other dtype)."""
+    return q.dtype == torch.bfloat16
+
+
+def _entry(fn: str, q) -> str:
+    """The library entry of a K1-K6 launcher for q's dtype."""
+    return fn + "_tc" if _tensor_cores(q) else fn
+
+
+def _count(wrapper, q) -> None:
+    """One launch of a K1-K6 wrapper, and of its tensor-core body if q is
+    bf16."""
+    wrapper.launches += 1
+    wrapper.launches_tc += int(_tensor_cores(q))
+
+
 def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape, stats=()):
-    """Run one forward launcher of the library on the current stream;
-    returns out. ``stats``: the tensors (or None, a null pointer) the
-    launcher writes beside out (K4's row max and sum)."""
+    """Run one forward launcher of the library (``fn``, or its tensor-core
+    entry for bf16) on the current stream; returns out. ``stats``: the
+    tensors (or None, a null pointer) the launcher writes beside out (K4's
+    row max and sum)."""
     lib = _build.load().lib
     kv_mask = _int_mask(q, k, kv_mask)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
+        err = getattr(lib, _entry(fn, q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             out.data_ptr(), *(_ptr(t) for t in stats), *shape,
             q.shape[3], float(scale), int(causal),
@@ -287,8 +313,8 @@ def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape, stats=()):
 
 
 def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
-    """Run a dense backward launcher (K3, K5) on the current stream;
-    returns (dq, dk, dv)."""
+    """Run a dense backward launcher (K3, K5; its tensor-core entry for
+    bf16) on the current stream; returns (dq, dk, dv)."""
     b, sq, h, d = q.shape
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
@@ -296,7 +322,7 @@ def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
     stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
+        err = getattr(lib, _entry(fn, q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(), b, sq, k.shape[1], h, d,
@@ -330,7 +356,7 @@ def _allheads_forward(q, k, v, kv_mask, causal, scale):
     b, sq, h, _ = q.shape
     out = _launch("mmgl_allheads_fwd", "flash_attention_allheads", q, k, v,
                   kv_mask, causal, scale, b, sq, k.shape[1], h)
-    flash_attention_allheads.launches += 1
+    _count(flash_attention_allheads, q)
     return out
 
 
@@ -348,11 +374,12 @@ def flash_attention_allheads_bwd(q, k, v, kv_mask, out, dout, *,
                                                 causal=causal, scale=scale)
     grads = _launch_bwd("mmgl_allheads_bwd", name, q, k, v, kv_mask, out,
                         dout, causal, scale)
-    flash_attention_allheads_bwd.launches += 1
+    _count(flash_attention_allheads_bwd, q)
     return grads
 
 
 flash_attention_allheads_bwd.launches = 0
+flash_attention_allheads_bwd.launches_tc = 0
 
 
 class _AllheadsAttention(torch.autograd.Function):
@@ -392,6 +419,7 @@ def flash_attention_allheads(
 
 
 flash_attention_allheads.launches = 0
+flash_attention_allheads.launches_tc = 0
 
 
 class _FusedHeadsAttention(torch.autograd.Function):
@@ -408,7 +436,7 @@ class _FusedHeadsAttention(torch.autograd.Function):
         b, s, h, _ = q.shape
         out = _launch("mmgl_fused_heads_fwd", "fused_heads_attention", q, k,
                       v, kv_mask, causal, scale, b, s, h)
-        fused_heads_attention.launches += 1
+        _count(fused_heads_attention, q)
         return out
 
     @staticmethod
@@ -441,6 +469,7 @@ def fused_heads_attention(
 
 
 fused_heads_attention.launches = 0
+fused_heads_attention.launches_tc = 0
 
 
 def _broadcast_kv(q, k, v):
@@ -469,11 +498,12 @@ def flash_attention_bwd(q, k, v, kv_mask, out, dout, *, causal=False,
                                              causal=causal, scale=scale)
     grads = _launch_bwd("mmgl_flash_bwd", name, q, k, v, kv_mask, out, dout,
                         causal, scale)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, q)
     return grads
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_tc = 0
 
 
 def _check_stats(name, q, row_max, row_sum):
@@ -494,7 +524,8 @@ def _check_stats(name, q, row_max, row_sum):
 
 def _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max, row_sum,
                         causal, scale):
-    """Run K6's launcher on the current stream; returns (dq, dk, dv)."""
+    """Run K6's launcher (its tensor-core entry for bf16) on the current
+    stream; returns (dq, dk, dv)."""
     b, sq, h, d = q.shape
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
@@ -502,7 +533,7 @@ def _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max, row_sum,
     delta = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.mmgl_blocked_bwd(
+        err = getattr(lib, _entry("mmgl_blocked_bwd", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), dout.data_ptr(), row_max.data_ptr(),
             row_sum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -530,11 +561,12 @@ def flash_attention_blocked_bwd(q, k, v, kv_mask, out, dout, row_max,
             scale=scale)
     grads = _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max,
                                 row_sum, causal, scale)
-    flash_attention_blocked_bwd.launches += 1
+    _count(flash_attention_blocked_bwd, q)
     return grads
 
 
 flash_attention_blocked_bwd.launches = 0
+flash_attention_blocked_bwd.launches_tc = 0
 
 
 def _flash_forward(q, k, v, kv_mask, causal, scale, with_stats):
@@ -552,7 +584,7 @@ def _flash_forward(q, k, v, kv_mask, causal, scale, with_stats):
                                   device=q.device) for _ in range(2))
     out = _launch("mmgl_flash_fwd", "flash_attention", q, k, v, kv_mask,
                   causal, scale, b, sq, k.shape[1], h, stats=stats)
-    flash_attention.launches += 1
+    _count(flash_attention, q)
     return (out,) + stats
 
 
@@ -608,6 +640,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 
 
 def flash_attention_stats(q, k, v, *, kv_mask=None, causal=False,

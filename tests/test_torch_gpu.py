@@ -6,15 +6,20 @@ repository's conftest imports it, hence --noconftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
+K1-K6 take their tensor-core body in bf16 and their scalar body in fp32;
+each case checks which body its launches counted.
+
 Forward tolerances: bf16 atol = rtol = 2e-2 (the plain version rounds the
-probabilities to bf16 before PV, the kernel keeps them fp32); fp32 atol 2e-5
-with TF32 off, for sums taken in another order.
+normalised probabilities to bf16 before PV, the kernel the unnormalised ones
+and divides after); fp32 atol 2e-5 with TF32 off, for sums taken in another
+order.
 
 Backward (K3, K5, K6, K8/K9) tolerances, per gradient and relative to its
 largest entry m:
 atol = 2e-2 m and rtol = 2e-2 in bf16 (the plain version rounds P and dS to
-bf16 before their products, as the Pallas kernel does, the kernel keeps
-them fp32: a sum over hundreds of keys of terms each off by a bf16 ulp);
+bf16 before their products, as the Pallas kernel does, and so does the
+tensor-core body, from logits summed in another order: a sum over hundreds
+of keys of terms each off by a bf16 ulp);
 atol = 1e-5 m in fp32, for sums in another order.
 """
 
@@ -48,6 +53,14 @@ BWD_CASES = [
     ((3, 333, 333, 2), False, "fully_masked"),
     ((2, 100, 228, 3), True, "hole"),
 ]
+
+
+def _counts(*wrappers):
+    """A function that returns, per wrapper, (launches, tensor-core
+    launches) since this call."""
+    before = [(w.launches, w.launches_tc) for w in wrappers]
+    return lambda: [(w.launches - n, w.launches_tc - n_tc)
+                    for w, (n, n_tc) in zip(wrappers, before)]
 
 
 def _device():
@@ -92,10 +105,11 @@ def test_kernel_matches_plain_version(name, dims, causal, dtype):
                          "allheads_attention_reference",
                          "fused_heads_attention":
                          "fused_heads_attention_reference"}[name])
-    before = kernel.launches
+    before = (kernel.launches, kernel.launches_tc)
     got = kernel(q, k, v, kv_mask=mask, causal=causal)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert (kernel.launches, kernel.launches_tc) == (
+        before[0] + 1, before[1] + (dtype == torch.bfloat16))
     ref = plain(q, k, v, kv_mask=mask, causal=causal)
     atol, rtol = TOL[dtype]
     assert got.dtype == dtype and got.shape == q.shape
@@ -121,11 +135,11 @@ def test_backward_kernel_matches_plain_version(dims, causal, mask_kind,
     out = fa.allheads_attention_reference(q, k, v, kv_mask=mask,
                                           causal=causal)
 
-    before = fa.flash_attention_allheads_bwd.launches
+    counted = _counts(fa.flash_attention_allheads_bwd)
     got = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
                                           causal=causal)
     torch.cuda.synchronize()
-    assert fa.flash_attention_allheads_bwd.launches == before + 1
+    assert counted() == [(1, int(dtype == torch.bfloat16))]
     ref = fa.allheads_attention_bwd_reference(q, k, v, mask, out, dout,
                                               causal=causal)
     tol = BWD_TOL[dtype]
@@ -207,12 +221,11 @@ def test_flash_kernels_match_plain_versions(dims, causal, dtype):
     mask[-1] = 0                                   # a fully masked sample
     mask = torch.from_numpy(mask).to(dev)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    counted = _counts(fa.flash_attention, fa.flash_attention_bwd)
     got = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
     grads = torch.autograd.grad(got, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert (fa.flash_attention.launches,
-            fa.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert counted() == [(1, int(dtype == torch.bfloat16))] * 2
     kx, vx = (t.detach().expand(b, sk, h, 64) for t in (k, v))
     ref = fa.flash_attention_reference(q.detach(), kx, vx, kv_mask=mask,
                                        causal=causal)
@@ -358,15 +371,12 @@ def test_blocked_kernels_match_plain_versions(dims, mask_kind, dtype):
     if mask_kind == "fully_masked":
         mask[0] = 0
     mask = torch.from_numpy(mask).to(dev)
-    before = (fa.flash_attention.launches,
-              fa.flash_attention_blocked_bwd.launches)
+    counted = _counts(fa.flash_attention, fa.flash_attention_blocked_bwd)
     out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=True)
     got = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
                                          causal=True)
     torch.cuda.synchronize()
-    assert (fa.flash_attention.launches,
-            fa.flash_attention_blocked_bwd.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert counted() == [(1, int(dtype == torch.bfloat16))] * 2
     ref_out, ref_m, ref_l = fa.flash_attention_reference(
         q, k, v, kv_mask=mask, causal=True, with_stats=True)
     atol, rtol = TOL[dtype]
@@ -390,20 +400,93 @@ def test_flash_grad_under_the_flag_runs_k6_and_agrees_with_k5(monkeypatch,
                                                               dtype):
     """With the blocked backward selected, autograd through K4 at a long
     causal window launches K4 and K6 once each and K5 not at all, and K6's
-    gradient is K5's on the same inputs."""
+    gradient is K5's on the same inputs, bit for bit: K5's stats pass
+    computes K4's row max and sum with K4's own code, and the two share the
+    delta pass and the tile kernels."""
     dev = _device()
     monkeypatch.setattr(fa, "BLOCKED_BWD", True)
     q, k, v, dout = _qkv((2, 1024, 1024, 4, 4), dtype, dev, seed=5)
     mask = torch.from_numpy(hole_mask(2, 1024, seed=6)).to(dev)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    counts = (fa.flash_attention, fa.flash_attention_blocked_bwd,
-              fa.flash_attention_bwd)
-    before = [c.launches for c in counts]
+    counted = _counts(fa.flash_attention, fa.flash_attention_blocked_bwd,
+                      fa.flash_attention_bwd)
     out = fa.flash_attention(q, k, v, kv_mask=mask, causal=True)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(counts, before)] == [1, 1, 0]
+    tc = int(dtype == torch.bfloat16)
+    assert counted() == [(1, tc), (1, tc), (0, 0)]
     k5 = fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), mask,
                                 out.detach(), dout, causal=True)
     for name, g, r in zip(("dq", "dk", "dv"), grads, k5):
         _close_rel(g, r, dtype, name)
+        assert torch.equal(g, r), name
+
+
+# ---- the bf16 tensor-core bodies at the fragment edges ---------------------
+
+# lengths that cut the 16-row fragments and the 64-row tiles; causal needs
+# sq <= sk (ends aligned)
+EDGE_LENGTHS = (1, 15, 17, 63, 65, 197)
+EDGE_CASES = [(sq, sk, causal) for sq in EDGE_LENGTHS for sk in EDGE_LENGTHS
+              for causal in (False, True) if sq <= sk or not causal]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,causal", EDGE_CASES)
+def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal):
+    """In bf16: K4 with its row stats, K6 and K5 (and K1 where sq <= sk, K2
+    where sq == sk) against their plain versions, with a fully masked sample
+    and a sample whose first third of keys is masked (causal rows that see
+    no real logit); every launch counted as the tensor-core body; K5's
+    gradients equal K6's bit for bit."""
+    dev = _device()
+    b, h = 3, 2
+    q, k, v, dout = _qkv((b, sq, sk, h, h), torch.bfloat16, dev,
+                         seed=1000 * sq + sk)
+    rng = np.random.RandomState(sq + 7 * sk)
+    mask = (rng.uniform(size=(b, sk)) > 0.25).astype(np.int32)
+    mask[0] = 0
+    mask[1, :max(1, sk // 3)] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    wrappers = (fa.flash_attention, fa.flash_attention_blocked_bwd,
+                fa.flash_attention_bwd, fa.flash_attention_allheads,
+                fa.fused_heads_attention)
+    counted = _counts(*wrappers)
+    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask,
+                                         causal=causal)
+    k6 = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                        causal=causal)
+    k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=causal)
+    others = []
+    if sq <= sk:
+        others.append(fa.flash_attention_allheads(q, k, v, kv_mask=mask,
+                                                  causal=causal))
+    if sq == sk:
+        others.append(fa.fused_heads_attention(q, k, v, kv_mask=mask,
+                                               causal=causal))
+    torch.cuda.synchronize()
+    want = [(1, 1)] * 3 + [(int(sq <= sk),) * 2, (int(sq == sk),) * 2]
+    assert counted() == want
+
+    ref_out, ref_m, ref_l = fa.flash_attention_reference(
+        q, k, v, kv_mask=mask, causal=causal, with_stats=True)
+    atol, rtol = TOL[torch.bfloat16]
+    for got in [out] + others:
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref_out.float(), atol=atol,
+                                   rtol=rtol)
+    for got_s, ref_s in ((m, ref_m), (l, ref_l)):
+        torch.testing.assert_close(got_s, ref_s, atol=STATS_TOL,
+                                   rtol=STATS_TOL)
+    refs = fa.flash_attention_blocked_bwd_reference(q, k, v, mask, out, dout,
+                                                    m, l, causal=causal)
+    # with one key dQ and dK are 0 in exact arithmetic (P = 1, dS = 0) and
+    # the kernel's are rounding residue: their atol takes dV's scale there
+    floor = float(refs[2].float().abs().max()) if sk == 1 else 0.0
+    for name, g, g5, r in zip(("dq", "dk", "dv"), k6, k5, refs):
+        scale = max(float(r.float().abs().max()), floor)
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), r.float(),
+                                   atol=BWD_TOL[torch.bfloat16] * scale,
+                                   rtol=BWD_TOL[torch.bfloat16], msg=name)
+        assert torch.equal(g, g5), name
