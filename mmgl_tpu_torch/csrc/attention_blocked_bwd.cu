@@ -109,11 +109,7 @@ extern "C" int mmgl_blocked_bwd(const void* q, const void* k, const void* v,
                                 int sk, int heads, int head_dim, float scale,
                                 int causal, int is_bf16,
                                 cudaStream_t stream) {
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, kv_mask, out, dout, row_max,
-                                 row_sum, dq, dk, dv, row_delta, batch, sq,
-                                 sk, heads, head_dim, scale, causal, stream);
-  }
+  if (is_bf16) return cudaErrorInvalidValue;  // bf16: mmgl_blocked_bwd_tc
   return launch<float>(q, k, v, kv_mask, out, dout, row_max, row_sum, dq, dk,
                        dv, row_delta, batch, sq, sk, heads, head_dim, scale,
                        causal, stream);

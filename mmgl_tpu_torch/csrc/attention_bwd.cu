@@ -267,11 +267,7 @@ extern "C" int mmgl_allheads_bwd(const void* q, const void* k, const void* v,
                                  int sk, int heads, int head_dim, float scale,
                                  int causal, int is_bf16,
                                  cudaStream_t stream) {
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, kv_mask, out, dout, dq, dk, dv,
-                                 stats, batch, sq, sk, heads, head_dim, scale,
-                                 causal, stream);
-  }
+  if (is_bf16) return cudaErrorInvalidValue;  // bf16: mmgl_allheads_bwd_tc
   return launch<float>(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch,
                        sq, sk, heads, head_dim, scale, causal, stream);
 }

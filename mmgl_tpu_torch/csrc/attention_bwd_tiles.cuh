@@ -291,13 +291,15 @@ attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // card's ex2 (a few ulp), the logit's scale and log2(e) in one FMA; P
 // and dS are rounded to bf16 before their products, where the Pallas K6
 // rounds them (flash_attention.py:317, :324). A block holds kWarps warps of
-// kSlabs slabs of 16 rows (keys in dK/dV, queries in dQ); a streamed tile of
-// 64 rows in shared memory serves all of them. The streamed tiles pass
+// 16 rows (keys in dK/dV, queries in dQ); a streamed tile of 64 rows in
+// shared memory serves all of them. The streamed tiles pass
 // through a kStages-deep cp.async ring with rows padded to D + 8, one
 // barrier a tile. A warp takes its 64 columns in two halves of 32, one after
 // the other, so the two products of a half (S and dP) and the accumulators
 // fit in registers. A warp skips a tile whose pairs are all causally hidden
-// from it (unless a fully masked row needs it, in dK/dV); the causal test
+// from it or whose keys are all masked, where dS = 0 for every row and P = 0
+// for every row with a real logit (so dK/dV keeps such a tile where a row of
+// it is fully masked; the forward never skips a masked key); the causal test
 // runs only on tiles that straddle the diagonal, dQ's key mask only on tiles
 // with a masked key (a bit a key). No atomics: each block owns its outputs,
 // so the results are the same from run to run.
@@ -318,11 +320,10 @@ constexpr size_t dkdv_tc_smem(int n_q_tiles) {
          ((n_q_tiles + 31) / 32) * sizeof(uint32_t);
 }
 
-// dK, dV for a block of kWarps warps of kSlabs slabs of 16 keys (a warp's
-// keys are consecutive): S^T = K Q^T and dP^T = V dO^T put the keys in the
-// accumulators' rows, so P^T and dS^T are A fragments for dV += P^T dO and
-// dK += dS^T Q without a transpose; each Q and dO fragment feeds every slab
-template <int D, int kWarps, int kSlabs, int kStages, int kMinBlocks>
+// dK, dV for a block of kWarps warps of 16 keys: S^T = K Q^T and
+// dP^T = V dO^T put the keys in the accumulators' rows, so P^T and dS^T are
+// A fragments for dV += P^T dO and dK += dS^T Q without a transpose
+template <int D, int kWarps, int kStages, int kMinBlocks>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -336,8 +337,7 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              __nv_bfloat16* __restrict__ dv, int sq, int sk,
                              int heads, float scale, int causal) {
   constexpr int kThreads = 32 * kWarps;
-  constexpr int kWarpRows = 16 * kSlabs;     // keys a warp
-  constexpr int kRows = kWarpRows * kWarps;  // keys a block
+  constexpr int kRows = 16 * kWarps;  // keys a block
   constexpr int S = TcTile<D>::kStride;
   constexpr int kElems = TcTile<D>::kElems;
   constexpr int kKSteps = D / 16;
@@ -373,20 +373,32 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   tile_async<D, kRows, kThreads>(k_s, k + k_off, rs, k0, sk, tid);
   tile_async<D, kRows, kThreads>(v_s, v + k_off, rs, k0, sk, tid);
 
+  const int key_first = k0 + 16 * warp;  // the warp's keys
+  const int key0 = key_first + g;        // this lane's keys key0, key0 + 8
+  bool key_valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key0 + 8 * r;
+    key_valid[r] = kj < sk && kv_mask[static_cast<long>(b) * sk + kj] != 0;
+  }
+  const bool warp_keys =
+      __any_sync(0xffffffffu, key_valid[0] || key_valid[1]);
+
   // A bit per query tile holding a fully masked row (m = -1e30): such a row
-  // feeds dV from every key, causally hidden ones too. So query tiles before
-  // t_first, which lie wholly before this block's keys, are visited only if
-  // their bit is set, and a warp skips a tile hidden from its keys only if
-  // the bit is clear.
-  const int t_first = causal ? max(0, k0 - shift) / kTcTile : 0;
+  // feeds dV from every key, causally hidden and masked ones too; every
+  // other row gets P = 0 and dS = 0 at those. So a block visits a query
+  // tile that lies wholly before its keys (before t_first), or any tile if
+  // all its keys are masked, only if the tile's bit is set, and a warp skips
+  // a tile hidden from its keys, or any tile if all its keys are masked,
+  // only if the bit is clear.
   for (int w = tid; w < (n_q + 31) / 32; w += kThreads) full_bits[w] = 0;
-  __syncthreads();
-  if (causal) {
-    for (int i = tid; i < sq; i += kThreads) {
-      if (row_max[stat0 + i] == kNegInf) {
-        const int t = i / kTcTile;
-        atomicOr(&full_bits[t >> 5], 1u << (t & 31));
-      }
+  const bool block_keys = __syncthreads_or(warp_keys);
+  const int t_first =
+      !block_keys ? n_q : causal ? max(0, k0 - shift) / kTcTile : 0;
+  for (int i = tid; i < sq; i += kThreads) {
+    if (row_max[stat0 + i] == kNegInf) {
+      const int t = i / kTcTile;
+      atomicOr(&full_bits[t >> 5], 1u << (t & 31));
     }
   }
   __syncthreads();
@@ -425,7 +437,7 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // the visited tiles v_0, v_1, ...: v_i in stage i % kStages, v_{i +
   // kStages - 1} in flight while v_i is computed
-  int t_pf = next_tile(0);  // < n_q: key k0 < sk is seen by row sq - 1
+  int t_pf = next_tile(0);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (t_pf < n_q) {
@@ -437,27 +449,16 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  const int key_first = k0 + kWarpRows * warp;  // the warp's keys
-  const int key_last = key_first + kWarpRows - 1;
-  bool key_valid[kSlabs][2];
+  float dk_acc[kDBlocks][4], dv_acc[kDBlocks][4];
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
+  for (int i = 0; i < kDBlocks; ++i) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kj = key_first + 16 * sl + g + 8 * r;
-      key_valid[sl][r] =
-          kj < sk && kv_mask[static_cast<long>(b) * sk + kj] != 0;
-    }
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
   }
-  float dk_acc[kSlabs][kDBlocks][4], dv_acc[kSlabs][kDBlocks][4];
-#pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
-#pragma unroll
-    for (int i = 0; i < kDBlocks; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[sl][i][e] = dv_acc[sl][i][e] = 0.f;
-    }
-  }
+  const __nv_bfloat16* k_warp =
+      k_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
+  const __nv_bfloat16* v_warp =
+      v_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
 
   for (int t = next_tile(0), i = 0; t < n_q; t = next_tile(t + 1), ++i) {
     const int st = i % kStages;
@@ -472,46 +473,35 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
 
     const int q0 = t * kTcTile;
-    if (!(causal && q0 + kTcTile - 1 + shift < key_first && !full(t))) {
+    if (full(t) ||
+        (warp_keys && !(causal && q0 + kTcTile - 1 + shift < key_first))) {
       const __nv_bfloat16* qs = q_s + st * kElems;
       const __nv_bfloat16* dos = do_s + st * kElems;
       const float* ms = m_s + st * kTcTile;
       const float* ls = inv_l_s + st * kTcTile;
       const float* dls = delta_s + st * kTcTile;
       // some (query, key) of the warp's tile is causally hidden
-      const bool diag = causal && q0 + shift < key_last;
+      const bool diag = causal && q0 + shift < key_first + 15;
       // p = 2^(logit log2(e) - m log2(e)); a masked logit is -1e30, so a
       // fully masked row (m = -1e30) gets 2^0 = 1 there
       const float scale2 = scale * kLog2e;
       const float neg2 = __fmul_rn(kNegInf, kLog2e);
 #pragma unroll 1
       for (int half = 0; half < 2; ++half) {
-        // S^T = K Q^T and dP^T = V dO^T: kWarpRows keys x 32 queries a warp
-        float s[kSlabs][4][4], dp[kSlabs][4][4];
+        // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries a warp
+        float s[4][4], dp[4][4];
 #pragma unroll
-        for (int sl = 0; sl < kSlabs; ++sl) {
+        for (int n = 0; n < 4; ++n) {
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[sl][n][e] = dp[sl][n][e] = 0.f;
-          }
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
         }
 #pragma unroll
         for (int kk = 0; kk < kKSteps; kk += 2) {
-          uint32_t ka[kSlabs][2][4], va[kSlabs][2][4];
-#pragma unroll
-          for (int sl = 0; sl < kSlabs; ++sl) {
-            const __nv_bfloat16* kw =
-                k_s + (kWarpRows * warp + 16 * sl + (lane & 15)) * S +
-                8 * (lane >> 4);
-            const __nv_bfloat16* vw =
-                v_s + (kWarpRows * warp + 16 * sl + (lane & 15)) * S +
-                8 * (lane >> 4);
-            ldmatrix_x4(ka[sl][0], kw + 16 * kk);
-            ldmatrix_x4(ka[sl][1], kw + 16 * (kk + 1));
-            ldmatrix_x4(va[sl][0], vw + 16 * kk);
-            ldmatrix_x4(va[sl][1], vw + 16 * (kk + 1));
-          }
+          uint32_t ka[2][4], va[2][4];
+          ldmatrix_x4(ka[0], k_warp + 16 * kk);
+          ldmatrix_x4(ka[1], k_warp + 16 * (kk + 1));
+          ldmatrix_x4(va[0], v_warp + 16 * kk);
+          ldmatrix_x4(va[1], v_warp + 16 * (kk + 1));
 #pragma unroll
           for (int n = 0; n < 4; ++n) {
             uint32_t qb[4], db[4];
@@ -519,13 +509,10 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             8 * (lane >> 3);
             ldmatrix_x4(qb, qs + off);
             ldmatrix_x4(db, dos + off);
-#pragma unroll
-            for (int sl = 0; sl < kSlabs; ++sl) {
-              mma_bf16(s[sl][n], ka[sl][0], qb[0], qb[1]);
-              mma_bf16(s[sl][n], ka[sl][1], qb[2], qb[3]);
-              mma_bf16(dp[sl][n], va[sl][0], db[0], db[1]);
-              mma_bf16(dp[sl][n], va[sl][1], db[2], db[3]);
-            }
+            mma_bf16(s[n], ka[0], qb[0], qb[1]);
+            mma_bf16(s[n], ka[1], qb[2], qb[3]);
+            mma_bf16(dp[n], va[0], db[0], db[1]);
+            mma_bf16(dp[n], va[1], db[2], db[3]);
           }
         }
 
@@ -537,35 +524,27 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
           const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
           const float2 d2 = *reinterpret_cast<const float2*>(dls + col);
 #pragma unroll
-          for (int sl = 0; sl < kSlabs; ++sl) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int r = j >> 1;
-              const int e = j & 1;
-              const int kj = key_first + 16 * sl + g + 8 * r;
-              const bool allowed = key_valid[sl][r] &&
-                                   !(diag && q0 + col + e + shift < kj);
-              const float m2e = e ? m2.y : m2.x;
-              const float p = ex2(allowed ? fmaf(s[sl][n][j], scale2, -m2e)
-                                          : __fsub_rn(neg2, m2e)) *
-                              (e ? l2.y : l2.x);
-              s[sl][n][j] = p;
-              dp[sl][n][j] =
-                  allowed ? p * (dp[sl][n][j] - (e ? d2.y : d2.x)) * scale
-                          : 0.f;
-            }
+          for (int j = 0; j < 4; ++j) {
+            const int r = j >> 1;
+            const int e = j & 1;
+            const bool allowed =
+                key_valid[r] && !(diag && q0 + col + e + shift < key0 + 8 * r);
+            const float m2e = e ? m2.y : m2.x;
+            const float p = ex2(allowed ? fmaf(s[n][j], scale2, -m2e)
+                                        : __fsub_rn(neg2, m2e)) *
+                            (e ? l2.y : l2.x);
+            s[n][j] = p;
+            dp[n][j] =
+                allowed ? p * (dp[n][j] - (e ? d2.y : d2.x)) * scale : 0.f;
           }
         }
 
         // dV += P^T dO, dK += dS^T Q: the k16 blocks are query blocks
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          uint32_t pa[kSlabs][4], dsa[kSlabs][4];
-#pragma unroll
-          for (int sl = 0; sl < kSlabs; ++sl) {
-            acc_to_a(pa[sl], s[sl][2 * j], s[sl][2 * j + 1]);
-            acc_to_a(dsa[sl], dp[sl][2 * j], dp[sl][2 * j + 1]);
-          }
+          uint32_t pa[4], dsa[4];
+          acc_to_a(pa, s[2 * j], s[2 * j + 1]);
+          acc_to_a(dsa, dp[2 * j], dp[2 * j + 1]);
 #pragma unroll
           for (int db = 0; db < kDBlocks; db += 2) {
             uint32_t ob[4], qb[4];
@@ -573,13 +552,10 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             8 * (lane >> 4);
             ldmatrix_x4_trans(ob, dos + off);
             ldmatrix_x4_trans(qb, qs + off);
-#pragma unroll
-            for (int sl = 0; sl < kSlabs; ++sl) {
-              mma_bf16(dv_acc[sl][db], pa[sl], ob[0], ob[1]);
-              mma_bf16(dv_acc[sl][db + 1], pa[sl], ob[2], ob[3]);
-              mma_bf16(dk_acc[sl][db], dsa[sl], qb[0], qb[1]);
-              mma_bf16(dk_acc[sl][db + 1], dsa[sl], qb[2], qb[3]);
-            }
+            mma_bf16(dv_acc[db], pa, ob[0], ob[1]);
+            mma_bf16(dv_acc[db + 1], pa, ob[2], ob[3]);
+            mma_bf16(dk_acc[db], dsa, qb[0], qb[1]);
+            mma_bf16(dk_acc[db + 1], dsa, qb[2], qb[3]);
           }
         }
       }
@@ -593,22 +569,17 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key0 + 8 * r;
+    if (kj >= sk) continue;
+    const long row = k_off + static_cast<long>(kj) * rs;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kj = key_first + 16 * sl + g + 8 * r;
-      if (kj >= sk) continue;
-      const long row = k_off + static_cast<long>(kj) * rs;
-#pragma unroll
-      for (int db = 0; db < kDBlocks; ++db) {
-        const int c = 8 * db + 2 * c4;
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
-            __floats2bfloat162_rn(dk_acc[sl][db][2 * r],
-                                  dk_acc[sl][db][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
-            __floats2bfloat162_rn(dv_acc[sl][db][2 * r],
-                                  dv_acc[sl][db][2 * r + 1]);
-      }
+    for (int db = 0; db < kDBlocks; ++db) {
+      const int c = 8 * db + 2 * c4;
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
+          __floats2bfloat162_rn(dk_acc[db][2 * r], dk_acc[db][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
+          __floats2bfloat162_rn(dv_acc[db][2 * r], dv_acc[db][2 * r + 1]);
     }
   }
 }
@@ -620,10 +591,9 @@ constexpr size_t dq_tc_smem() {
          sizeof(__nv_bfloat16);
 }
 
-// dQ for a block of kWarps warps of kSlabs slabs of 16 query rows (a warp's
-// rows are consecutive), looping over the key tiles up to the causal limit;
-// each K and V fragment feeds every slab
-template <int D, int kWarps, int kSlabs, int kStages, int kMinBlocks>
+// dQ for a block of kWarps warps of 16 query rows, looping over the key
+// tiles up to the causal limit
+template <int D, int kWarps, int kStages, int kMinBlocks>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -636,8 +606,7 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ dq, int sq, int sk,
                            int heads, float scale, int causal) {
   constexpr int kThreads = 32 * kWarps;
-  constexpr int kWarpRows = 16 * kSlabs;     // query rows a warp
-  constexpr int kRows = kWarpRows * kWarps;  // query rows a block
+  constexpr int kRows = 16 * kWarps;  // query rows a block
   constexpr int S = TcTile<D>::kStride;
   constexpr int kElems = TcTile<D>::kElems;
   constexpr int kKSteps = D / 16;
@@ -692,35 +661,32 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // this lane's rows row_first + 16 sl + g (+ 8); a row past sq gets dS = 0
-  // (inv_l = 0) and is not written
-  const int row_first = q0 + kWarpRows * warp;
-  const int row_last = row_first + kWarpRows - 1;
-  float m_i[kSlabs][2], inv_l[kSlabs][2], delta[kSlabs][2];
+  // this lane's rows row0, row0 + 8, m in log2 units; a row past sq gets
+  // dS = 0 (inv_l = 0) and is not written
+  const int row_first = q0 + 16 * warp;
+  const int row0 = row_first + g;
   const float scale2 = scale * kLog2e;
+  float m_i[2], inv_l[2], delta[2];
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = row_first + 16 * sl + g + 8 * r;
-      m_i[sl][r] = inv_l[sl][r] = delta[sl][r] = 0.f;
-      if (i < sq) {
-        const long idx = (static_cast<long>(b) * heads + h) * sq + i;
-        m_i[sl][r] = __fmul_rn(row_max[idx], kLog2e);  // in log2 units
-        inv_l[sl][r] = 1.f / row_sum[idx];
-        delta[sl][r] = row_delta[idx];
-      }
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + 8 * r;
+    m_i[r] = inv_l[r] = delta[r] = 0.f;
+    if (i < sq) {
+      const long idx = (static_cast<long>(b) * heads + h) * sq + i;
+      m_i[r] = __fmul_rn(row_max[idx], kLog2e);
+      inv_l[r] = 1.f / row_sum[idx];
+      delta[r] = row_delta[idx];
     }
   }
-  float dq_acc[kSlabs][kDBlocks][4];
+  float dq_acc[kDBlocks][4];
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
-#pragma unroll
-    for (int i = 0; i < kDBlocks; ++i) {
-      dq_acc[sl][i][0] = dq_acc[sl][i][1] = 0.f;
-      dq_acc[sl][i][2] = dq_acc[sl][i][3] = 0.f;
-    }
+  for (int i = 0; i < kDBlocks; ++i) {
+    dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
   }
+  const __nv_bfloat16* q_warp =
+      q_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
+  const __nv_bfloat16* do_warp =
+      do_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
@@ -735,11 +701,13 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
 
     const int k0 = t * kTcTile;
-    // a tile hidden from all the warp's rows gives them dS = 0
-    if (!(causal && k0 > row_last + shift)) {
+    const uint32_t bits[2] = {mask_s[st][0], mask_s[st][1]};
+    // a tile hidden from all the warp's rows, or whose keys are all masked,
+    // gives them dS = 0
+    if ((bits[0] | bits[1]) != 0 &&
+        !(causal && k0 > row_first + 15 + shift)) {
       const __nv_bfloat16* ks = k_s + st * kElems;
       const __nv_bfloat16* vs = v_s + st * kElems;
-      const uint32_t bits[2] = {mask_s[st][0], mask_s[st][1]};
       // a masked key (or one past sk), or a key causally hidden from a row
       // of the warp, somewhere in the tile
       const bool edge = (bits[0] & bits[1]) != 0xffffffffu ||
@@ -747,28 +715,20 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 1
       for (int half = 0; half < 2; ++half) {
         const uint32_t half_bits = half ? bits[1] : bits[0];
-        // S = Q K^T and dP = dO V^T: kWarpRows rows x 32 keys a warp
-        float s[kSlabs][4][4], dp[kSlabs][4][4];
+        // S = Q K^T and dP = dO V^T: 16 rows x 32 keys a warp
+        float s[4][4], dp[4][4];
 #pragma unroll
-        for (int sl = 0; sl < kSlabs; ++sl) {
+        for (int n = 0; n < 4; ++n) {
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[sl][n][e] = dp[sl][n][e] = 0.f;
-          }
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
         }
 #pragma unroll
         for (int kk = 0; kk < kKSteps; kk += 2) {
-          uint32_t qa[kSlabs][2][4], oa[kSlabs][2][4];
-#pragma unroll
-          for (int sl = 0; sl < kSlabs; ++sl) {
-            const int off = (kWarpRows * warp + 16 * sl + (lane & 15)) * S +
-                            8 * (lane >> 4);
-            ldmatrix_x4(qa[sl][0], q_s + off + 16 * kk);
-            ldmatrix_x4(qa[sl][1], q_s + off + 16 * (kk + 1));
-            ldmatrix_x4(oa[sl][0], do_s + off + 16 * kk);
-            ldmatrix_x4(oa[sl][1], do_s + off + 16 * (kk + 1));
-          }
+          uint32_t qa[2][4], oa[2][4];
+          ldmatrix_x4(qa[0], q_warp + 16 * kk);
+          ldmatrix_x4(qa[1], q_warp + 16 * (kk + 1));
+          ldmatrix_x4(oa[0], do_warp + 16 * kk);
+          ldmatrix_x4(oa[1], do_warp + 16 * (kk + 1));
 #pragma unroll
           for (int n = 0; n < 4; ++n) {
             uint32_t kb[4], vb[4];
@@ -776,54 +736,40 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             8 * (lane >> 3);
             ldmatrix_x4(kb, ks + off);
             ldmatrix_x4(vb, vs + off);
-#pragma unroll
-            for (int sl = 0; sl < kSlabs; ++sl) {
-              mma_bf16(s[sl][n], qa[sl][0], kb[0], kb[1]);
-              mma_bf16(s[sl][n], qa[sl][1], kb[2], kb[3]);
-              mma_bf16(dp[sl][n], oa[sl][0], vb[0], vb[1]);
-              mma_bf16(dp[sl][n], oa[sl][1], vb[2], vb[3]);
-            }
+            mma_bf16(s[n], qa[0], kb[0], kb[1]);
+            mma_bf16(s[n], qa[1], kb[2], kb[3]);
+            mma_bf16(dp[n], oa[0], vb[0], vb[1]);
+            mma_bf16(dp[n], oa[1], vb[2], vb[3]);
           }
         }
 
 #pragma unroll
-        for (int sl = 0; sl < kSlabs; ++sl) {
+        for (int n = 0; n < 4; ++n) {
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int r = j >> 1;
-              const int col = 32 * half + 8 * n + 2 * c4 + (j & 1);
-              const int row = row_first + 16 * sl + g + 8 * r;
-              const float ds = ex2(fmaf(s[sl][n][j], scale2, -m_i[sl][r])) *
-                               inv_l[sl][r] * (dp[sl][n][j] - delta[sl][r]) *
-                               scale;
-              dp[sl][n][j] = (!edge || (((half_bits >> (col & 31)) & 1u) &&
-                                        !(causal && row + shift < k0 + col)))
-                                 ? ds
-                                 : 0.f;
-            }
+          for (int j = 0; j < 4; ++j) {
+            const int r = j >> 1;
+            const int col = 32 * half + 8 * n + 2 * c4 + (j & 1);
+            const float ds = ex2(fmaf(s[n][j], scale2, -m_i[r])) * inv_l[r] *
+                             (dp[n][j] - delta[r]) * scale;
+            dp[n][j] = (!edge || (((half_bits >> (col & 31)) & 1u) &&
+                                  !(causal && row0 + 8 * r + shift < k0 + col)))
+                           ? ds
+                           : 0.f;
           }
         }
 
         // dQ += dS K: the k16 blocks are key blocks
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          uint32_t dsa[kSlabs][4];
-#pragma unroll
-          for (int sl = 0; sl < kSlabs; ++sl) {
-            acc_to_a(dsa[sl], dp[sl][2 * j], dp[sl][2 * j + 1]);
-          }
+          uint32_t dsa[4];
+          acc_to_a(dsa, dp[2 * j], dp[2 * j + 1]);
 #pragma unroll
           for (int db = 0; db < kDBlocks; db += 2) {
             uint32_t kb[4];
             ldmatrix_x4_trans(kb, ks + (32 * half + 16 * j + (lane & 15)) * S +
                                       8 * db + 8 * (lane >> 4));
-#pragma unroll
-            for (int sl = 0; sl < kSlabs; ++sl) {
-              mma_bf16(dq_acc[sl][db], dsa[sl], kb[0], kb[1]);
-              mma_bf16(dq_acc[sl][db + 1], dsa[sl], kb[2], kb[3]);
-            }
+            mma_bf16(dq_acc[db], dsa, kb[0], kb[1]);
+            mma_bf16(dq_acc[db + 1], dsa, kb[2], kb[3]);
           }
         }
       }
@@ -836,31 +782,26 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + 8 * r;
+    if (i >= sq) continue;
+    __nv_bfloat16* dst = dq + q_off + static_cast<long>(i) * rs;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = row_first + 16 * sl + g + 8 * r;
-      if (i >= sq) continue;
-      __nv_bfloat16* dst = dq + q_off + static_cast<long>(i) * rs;
-#pragma unroll
-      for (int db = 0; db < kDBlocks; ++db) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * db + 2 * c4) =
-            __floats2bfloat162_rn(dq_acc[sl][db][2 * r],
-                                  dq_acc[sl][db][2 * r + 1]);
-      }
+    for (int db = 0; db < kDBlocks; ++db) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * db + 2 * c4) =
+          __floats2bfloat162_rn(dq_acc[db][2 * r], dq_acc[db][2 * r + 1]);
     }
   }
 }
 
-// a backward body's shape: warps a block, slabs of 16 rows a warp, stages of
-// the ring, blocks an SM for the register budget
-template <int kWarps_, int kSlabs_, int kStages_, int kMinBlocks_>
+// a backward body's shape: warps a block, stages of the ring, blocks an SM
+// for the register budget
+template <int kWarps_, int kStages_, int kMinBlocks_>
 struct TcShape {
   static constexpr int kWarps = kWarps_;
-  static constexpr int kSlabs = kSlabs_;
   static constexpr int kStages = kStages_;
   static constexpr int kMinBlocks = kMinBlocks_;
-  static constexpr int kRows = 16 * kSlabs_ * kWarps_;
+  static constexpr int kRows = 16 * kWarps_;
 };
 
 // the dK/dV and dQ launches in given shapes on the caller's stream
@@ -878,11 +819,11 @@ cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
       dkdv_tc_smem<D, KvShape::kRows, KvShape::kStages>(n_q);
   const size_t dq_bytes = dq_tc_smem<D, QShape::kRows, QShape::kStages>();
   auto dkdv_kernel =
-      attention_bwd_dkdv_tc_kernel<D, KvShape::kWarps, KvShape::kSlabs,
-                                   KvShape::kStages, KvShape::kMinBlocks>;
-  auto dq_kernel =
-      attention_bwd_dq_tc_kernel<D, QShape::kWarps, QShape::kSlabs,
-                                 QShape::kStages, QShape::kMinBlocks>;
+      attention_bwd_dkdv_tc_kernel<D, KvShape::kWarps, KvShape::kStages,
+                                   KvShape::kMinBlocks>;
+  auto dq_kernel = attention_bwd_dq_tc_kernel<D, QShape::kWarps,
+                                              QShape::kStages,
+                                              QShape::kMinBlocks>;
   cudaError_t err = set_smem(dkdv_kernel, dkdv_bytes);
   if (err != cudaSuccess) return err;
   err = set_smem(dq_kernel, dq_bytes);
@@ -906,9 +847,9 @@ cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
 }
 
 // the bodies' shapes on this card, the fastest of those timed at OPT-350M's
-// (4, 2048, 16, 64) causal on an H100 (PERF.md, PR 5): 4 warps of one slab,
-// a 2-stage ring, 3 dK/dV and 4 dQ blocks an SM (more slabs or warps, or
-// deeper rings, spilled registers or lost occupancy)
+// (4, 2048, 16, 64) causal on an H100 (PERF.md §6): 4 warps, a 2-stage
+// ring, 3 dK/dV and 4 dQ blocks an SM (more warps, a second 16-row slab a
+// warp, or deeper rings spilled registers or lost occupancy)
 template <int D>
 cudaError_t launch_bwd_tiles_tc(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* dout,
@@ -917,7 +858,7 @@ cudaError_t launch_bwd_tiles_tc(const void* q, const void* k, const void* v,
                                 void* dv, int batch, int sq, int sk,
                                 int heads, float scale, int causal,
                                 cudaStream_t stream) {
-  return launch_bwd_tiles_tc_as<D, TcShape<4, 1, 2, 3>, TcShape<4, 1, 2, 4>>(
+  return launch_bwd_tiles_tc_as<D, TcShape<4, 2, 3>, TcShape<4, 2, 4>>(
       q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch,
       sq, sk, heads, scale, causal, stream);
 }

@@ -255,16 +255,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the scalar body: fp32 only (bf16 takes dispatch_tc)
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* kv_mask, void* out, float* row_max,
                      float* row_sum, int batch, int sq, int sk, int heads,
                      int head_dim, float scale, int causal, int is_bf16,
                      cudaStream_t stream) {
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, kv_mask, out, row_max, row_sum,
-                                 batch, sq, sk, heads, head_dim, scale,
-                                 causal, stream);
-  }
+  if (is_bf16) return cudaErrorInvalidValue;
   return launch<float>(q, k, v, kv_mask, out, row_max, row_sum, batch, sq,
                        sk, heads, head_dim, scale, causal, stream);
 }
@@ -321,7 +318,8 @@ extern "C" int mmgl_flash_fwd(const void* q, const void* k, const void* v,
                   heads, head_dim, scale, causal, is_bf16, stream);
 }
 
-// The same three entries on the bf16 tensor-core body (is_bf16 must be 1).
+// The same three entries on the bf16 tensor-core body (is_bf16 must be 1;
+// the entries above take fp32 only).
 extern "C" int mmgl_allheads_fwd_tc(const void* q, const void* k,
                                     const void* v, const int* kv_mask,
                                     void* out, int batch, int sq, int sk,

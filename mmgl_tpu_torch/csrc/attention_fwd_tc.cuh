@@ -51,11 +51,9 @@
 
 namespace mmgl {
 
-// kWarps warps of kSlabs slabs of 16 query rows a block (a warp's rows are
-// consecutive), kStages tiles of K and V in the ring; kMinBlocks blocks an
-// SM, for the register budget
-template <int D, bool kStatsOnly, int kWarps, int kSlabs, int kStages,
-          int kMinBlocks>
+// kWarps warps of 16 query rows a block, kStages tiles of K and V in the
+// ring; kMinBlocks blocks an SM, for the register budget
+template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -66,8 +64,7 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         float* __restrict__ row_sum, int sq, int sk,
                         int heads, float scale, int causal) {
   constexpr int kThreads = 32 * kWarps;
-  constexpr int kWarpRows = 16 * kSlabs;   // query rows a warp
-  constexpr int kRows = kWarpRows * kWarps;  // query rows a block
+  constexpr int kRows = 16 * kWarps;     // query rows a block
   constexpr int S = TcTile<D>::kStride;
   constexpr int kElems = TcTile<D>::kElems;
   constexpr int kKSteps = D / 16;        // k16 blocks of the head dim
@@ -82,7 +79,7 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;  // accumulator rows g, g + 8 of a slab
+  const int g = lane >> 2;  // accumulator rows g, g + 8
   const int c4 = lane & 3;  // accumulator columns 2 c4, 2 c4 + 1
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
   const int h = blockIdx.y;
@@ -100,8 +97,8 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // tiles from n_vis on are causally hidden from every row of the block
   const int n_vis =
       causal ? min(n_tiles, (q_last + shift) / kTcTile + 1) : n_tiles;
-  const int row_first = q0 + kWarpRows * warp;  // the warp's rows
-  const int row_last = row_first + kWarpRows - 1;
+  const int row_first = q0 + 16 * warp;  // the warp's rows
+  const int row0 = row_first + g;        // this lane's rows row0, row0 + 8
 
   auto issue = [&](int t) {  // tile t's K and V into its stage
     const int st = t % kStages;
@@ -129,42 +126,26 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<kStages - 2>();  // Q and tile 0
   __syncthreads();
 
-  uint32_t qf[kSlabs][kKSteps][4];
+  uint32_t qf[kKSteps][4];
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      ldmatrix_x4(qf[sl][kk],
-                  q_s + (kWarpRows * warp + 16 * sl + (lane & 15)) * S +
-                      16 * kk + 8 * (lane >> 4));
-    }
+  for (int kk = 0; kk < kKSteps; ++kk) {
+    ldmatrix_x4(qf[kk], q_s + (16 * warp + (lane & 15)) * S + 16 * kk +
+                            8 * (lane >> 4));
   }
 
   const float scale2 = scale * kLog2e;
-  float o[kSlabs][kDBlocks][4];
-  float m_run[kSlabs][2];  // the rows' running max, in log2 units
-  float l_run[kSlabs][2];  // this lane's share of sum exp(logit - m)
+  float o[kDBlocks][4];
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
-#pragma unroll
-    for (int i = 0; i < kDBlocks; ++i) {
-      o[sl][i][0] = o[sl][i][1] = o[sl][i][2] = o[sl][i][3] = 0.f;
-    }
-    m_run[sl][0] = m_run[sl][1] = -INFINITY;
-    l_run[sl][0] = l_run[sl][1] = 0.f;
+  for (int i = 0; i < kDBlocks; ++i) {
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   }
+  float m_run[2] = {-INFINITY, -INFINITY};  // the rows' running max, log2
+  float l_run[2] = {0.f, 0.f};  // this lane's share of sum exp(logit - m)
 
   for (int t = 0; t < n_tiles; ++t) {
     // rows that have seen a real logit (or lie past sq)
-    bool rows_done = true;
-#pragma unroll
-    for (int sl = 0; sl < kSlabs; ++sl) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = row_first + 16 * sl + g + 8 * r;
-        rows_done = rows_done && (i >= sq || m_run[sl][r] > kNegInf);
-      }
-    }
+    const bool rows_done = (row0 >= sq || m_run[0] > kNegInf) &&
+                           (row0 + 8 >= sq || m_run[1] > kNegInf);
     if (t >= n_vis) {
       // Every key from here on is causally hidden from every row of the
       // block. Its logit is -1e30, which adds exactly 0 to a row that has
@@ -187,27 +168,20 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // the same rule for a warp: a tile hidden from all its rows adds
     // exactly 0 once each of them has seen a real logit
     const bool all_done = __all_sync(0xffffffffu, rows_done);
-    if (!(causal && k0 > row_last + shift && all_done)) {
-      // S = Q K^T: kWarpRows rows x 64 keys a warp, each K fragment feeding
-      // every slab
+    if (!(causal && k0 > row_first + 15 + shift && all_done)) {
+      // S = Q K^T: 16 rows x 64 keys a warp
       const __nv_bfloat16* ks = k_s + st * kElems;
-      float s[kSlabs][kKeyBlocks][4];
+      float s[kKeyBlocks][4];
 #pragma unroll
       for (int nb = 0; nb < kKeyBlocks; ++nb) {
-#pragma unroll
-        for (int sl = 0; sl < kSlabs; ++sl) {
-          s[sl][nb][0] = s[sl][nb][1] = s[sl][nb][2] = s[sl][nb][3] = 0.f;
-        }
+        s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < kKSteps; kk += 2) {
           uint32_t kb[4];
           ldmatrix_x4(kb, ks + (8 * nb + (lane & 7)) * S + 16 * kk +
                               8 * (lane >> 3));
-#pragma unroll
-          for (int sl = 0; sl < kSlabs; ++sl) {
-            mma_bf16(s[sl][nb], qf[sl][kk], kb[0], kb[1]);
-            mma_bf16(s[sl][nb], qf[sl][kk + 1], kb[2], kb[3]);
-          }
+          mma_bf16(s[nb], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[nb], qf[kk + 1], kb[2], kb[3]);
         }
       }
 
@@ -219,105 +193,87 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const bool edge = (bits[0] & bits[1]) != 0xffffffffu ||
                         k0 + kTcTile > sk ||
                         (causal && k0 + kTcTile - 1 > row_first + shift);
-      float alpha[kSlabs][2];
+      float tile_max[2] = {-INFINITY, -INFINITY};
+      if (edge) {
 #pragma unroll
-      for (int sl = 0; sl < kSlabs; ++sl) {
-        const int row0 = row_first + 16 * sl + g;
-        float tile_max[2] = {-INFINITY, -INFINITY};
-        if (edge) {
+        for (int nb = 0; nb < kKeyBlocks; ++nb) {
 #pragma unroll
-          for (int nb = 0; nb < kKeyBlocks; ++nb) {
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * nb + 2 * c4 + e;
+            const int j = k0 + col;
+            const bool ok = (bits[nb >> 2] >> (col & 31)) & 1u;
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = 8 * nb + 2 * c4 + e;
-              const int j = k0 + col;
-              const bool ok = (bits[nb >> 2] >> (col & 31)) & 1u;
-#pragma unroll
-              for (int r = 0; r < 2; ++r) {
-                float x = __fmul_rn(s[sl][nb][2 * r + e], scale2);
-                if (!ok || (causal && row0 + 8 * r + shift < j)) x = kNegInf;
-                if (j >= sk) x = -INFINITY;  // past sk: weight 0
-                s[sl][nb][2 * r + e] = x;
-                tile_max[r] = fmaxf(tile_max[r], x);
-              }
-            }
-          }
-        } else {
-#pragma unroll
-          for (int nb = 0; nb < kKeyBlocks; ++nb) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              s[sl][nb][i] = __fmul_rn(s[sl][nb][i], scale2);
-              tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[sl][nb][i]);
+            for (int r = 0; r < 2; ++r) {
+              float x = __fmul_rn(s[nb][2 * r + e], scale2);
+              if (!ok || (causal && row0 + 8 * r + shift < j)) x = kNegInf;
+              if (j >= sk) x = -INFINITY;  // past sk: weight 0
+              s[nb][2 * r + e] = x;
+              tile_max[r] = fmaxf(tile_max[r], x);
             }
           }
         }
-
-        // online softmax: key k0 < sk, so tile_max and the new max are
-        // finite; 2^-inf = 0 past sk, 2^(-1e30 - m2) = 0 at a masked key of
-        // a row with a real logit, 2^0 = 1 at every key of a fully masked
-        // row
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          tile_max[r] = fmaxf(tile_max[r],
-                              __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-          tile_max[r] = fmaxf(tile_max[r],
-                              __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-          const float m_new = fmaxf(m_run[sl][r], tile_max[r]);
-          alpha[sl][r] = ex2(__fsub_rn(m_run[sl][r], m_new));
-          m_run[sl][r] = m_new;
-        }
-        float psum[2] = {0.f, 0.f};
+      } else {
 #pragma unroll
         for (int nb = 0; nb < kKeyBlocks; ++nb) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float p = ex2(__fsub_rn(s[sl][nb][i], m_run[sl][i >> 1]));
-            s[sl][nb][i] = p;
-            psum[i >> 1] = __fadd_rn(psum[i >> 1], p);
+            s[nb][i] = __fmul_rn(s[nb][i], scale2);
+            tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[nb][i]);
           }
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          l_run[sl][r] = fmaf(l_run[sl][r], alpha[sl][r], psum[r]);
         }
       }
 
+      // online softmax: key k0 < sk, so tile_max and the new max are
+      // finite; 2^-inf = 0 past sk, 2^(-1e30 - m2) = 0 at a masked key of a
+      // row with a real logit, 2^0 = 1 at every key of a fully masked row
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tile_max[r] =
+            fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+        tile_max[r] =
+            fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+        const float m_new = fmaxf(m_run[r], tile_max[r]);
+        alpha[r] = ex2(__fsub_rn(m_run[r], m_new));
+        m_run[r] = m_new;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < kKeyBlocks; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = ex2(__fsub_rn(s[nb][i], m_run[i >> 1]));
+          s[nb][i] = p;
+          psum[i >> 1] = __fadd_rn(psum[i >> 1], p);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = fmaf(l_run[r], alpha[r], psum[r]);
+
       if (!kStatsOnly) {
         // O = alpha O + P V, P rounded to bf16 straight from the
-        // accumulators, each V fragment feeding every slab
+        // accumulators; alpha = 1 where no row max of the warp moved
         const __nv_bfloat16* vs = v_s + st * kElems;
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int sl = 0; sl < kSlabs; ++sl) {
-          // alpha = 1 where no row max of the warp moved
-          if (__any_sync(0xffffffffu,
-                         alpha[sl][0] != 1.f || alpha[sl][1] != 1.f)) {
-#pragma unroll
-            for (int i = 0; i < kDBlocks; ++i) {
-              o[sl][i][0] *= alpha[sl][0];
-              o[sl][i][1] *= alpha[sl][0];
-              o[sl][i][2] *= alpha[sl][1];
-              o[sl][i][3] *= alpha[sl][1];
-            }
+          for (int i = 0; i < kDBlocks; ++i) {
+            o[i][0] *= alpha[0];
+            o[i][1] *= alpha[0];
+            o[i][2] *= alpha[1];
+            o[i][3] *= alpha[1];
           }
         }
 #pragma unroll
         for (int kk = 0; kk < kTcTile / 16; ++kk) {
-          uint32_t pa[kSlabs][4];
-#pragma unroll
-          for (int sl = 0; sl < kSlabs; ++sl) {
-            acc_to_a(pa[sl], s[sl][2 * kk], s[sl][2 * kk + 1]);
-          }
+          uint32_t pa[4];
+          acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
           for (int db = 0; db < kDBlocks; db += 2) {
             uint32_t vb[4];
             ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 15)) * S + 8 * db +
                                       8 * (lane >> 4));
-#pragma unroll
-            for (int sl = 0; sl < kSlabs; ++sl) {
-              mma_bf16(o[sl][db], pa[sl], vb[0], vb[1]);
-              mma_bf16(o[sl][db + 1], pa[sl], vb[2], vb[3]);
-            }
+            mma_bf16(o[db], pa, vb[0], vb[1]);
+            mma_bf16(o[db + 1], pa, vb[2], vb[3]);
           }
         }
       }
@@ -330,33 +286,27 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int sl = 0; sl < kSlabs; ++sl) {
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 1));
+    l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 2));
+    const int i = row0 + 8 * r;
+    if (i >= sq) continue;
+    if (row_max != nullptr && c4 == 0) {
+      // kept apart, not one logsumexp: for a fully masked row m = -1e30 and
+      // l = sk, and -1e30 + log(sk) would round back to -1e30; the max back
+      // in the logits' units, -1e30 kept exact
+      const long idx = (static_cast<long>(b) * heads + h) * sq + i;
+      row_max[idx] = m_run[r] == kNegInf ? kNegInf : __fmul_rn(m_run[r], kLn2);
+      row_sum[idx] = l;
+    }
+    if (!kStatsOnly) {
+      const float inv = 1.f / l;
+      __nv_bfloat16* dst = out + (static_cast<long>(b) * sq + i) * rs + h * D;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_run[sl][r];
-      l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 1));
-      l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 2));
-      const int i = row_first + 16 * sl + g + 8 * r;
-      if (i >= sq) continue;
-      if (row_max != nullptr && c4 == 0) {
-        // kept apart, not one logsumexp: for a fully masked row m = -1e30
-        // and l = sk, and -1e30 + log(sk) would round back to -1e30; the
-        // max back in the logits' units, -1e30 kept exact
-        const long idx = (static_cast<long>(b) * heads + h) * sq + i;
-        const float m2 = m_run[sl][r];
-        row_max[idx] = m2 == kNegInf ? kNegInf : __fmul_rn(m2, kLn2);
-        row_sum[idx] = l;
-      }
-      if (!kStatsOnly) {
-        const float inv = 1.f / l;
-        __nv_bfloat16* dst =
-            out + (static_cast<long>(b) * sq + i) * rs + h * D;
-#pragma unroll
-        for (int db = 0; db < kDBlocks; ++db) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * db + 2 * c4) =
-              __floats2bfloat162_rn(o[sl][db][2 * r] * inv,
-                                    o[sl][db][2 * r + 1] * inv);
-        }
+      for (int db = 0; db < kDBlocks; ++db) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * db + 2 * c4) =
+            __floats2bfloat162_rn(o[db][2 * r] * inv, o[db][2 * r + 1] * inv);
       }
     }
   }
@@ -365,18 +315,17 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 // One launch of the body in a given shape over (B, Sq, H*D) bf16 tensors.
 // kStatsOnly: v and out are not read or written; row_max and row_sum must
 // not be null.
-template <int D, bool kStatsOnly, int kWarps, int kSlabs, int kStages,
-          int kMinBlocks>
+template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks>
 cudaError_t launch_fwd_tc_as(const void* q, const void* k, const void* v,
                              const int* kv_mask, void* out, float* row_max,
                              float* row_sum, int batch, int sq, int sk,
                              int heads, float scale, int causal,
                              cudaStream_t stream) {
-  constexpr int kRows = 16 * kSlabs * kWarps;
+  constexpr int kRows = 16 * kWarps;
   const size_t bytes = (kRows + (kStatsOnly ? 1 : 2) * kStages * kTcTile) *
                        TcTile<D>::kStride * sizeof(__nv_bfloat16);
-  auto kernel = attention_fwd_tc_kernel<D, kStatsOnly, kWarps, kSlabs,
-                                        kStages, kMinBlocks>;
+  auto kernel =
+      attention_fwd_tc_kernel<D, kStatsOnly, kWarps, kStages, kMinBlocks>;
   cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
@@ -390,15 +339,15 @@ cudaError_t launch_fwd_tc_as(const void* q, const void* k, const void* v,
 }
 
 // the body's shape on this card, the fastest of those timed at OPT-350M's
-// (4, 2048, 16, 64) causal, K1's and K2's shapes on an H100 (PERF.md, PR 5):
-// 4 warps of one slab, a 2-stage ring, 3 blocks an SM
+// (4, 2048, 16, 64) causal, K1's and K2's shapes on an H100 (PERF.md §6):
+// 4 warps, a 2-stage ring, 3 blocks an SM
 template <int D, bool kStatsOnly>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           const int* kv_mask, void* out, float* row_max,
                           float* row_sum, int batch, int sq, int sk,
                           int heads, float scale, int causal,
                           cudaStream_t stream) {
-  return launch_fwd_tc_as<D, kStatsOnly, 4, 1, 2, 3>(
+  return launch_fwd_tc_as<D, kStatsOnly, 4, 2, 3>(
       q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
       causal, stream);
 }

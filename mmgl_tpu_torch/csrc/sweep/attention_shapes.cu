@@ -1,8 +1,8 @@
 // Shapes of the bf16 tensor-core attention bodies, for
 // mmgl_tpu_torch/sweep_attention.py: the forward body of attention_fwd_tc.cuh
 // and the dK/dV and dQ bodies of attention_bwd_tiles.cuh, each instantiated
-// in several (warps, slabs of 16 rows a warp, ring stages, blocks an SM)
-// shapes behind one entry that takes the shape's index. Built apart from the
+// in several (warps of 16 rows, ring stages, blocks an SM) shapes behind one
+// entry that takes the shape's index. Built apart from the
 // kernel library (this folder is not part of it); the library launches one
 // shape of each, the one this sweep found fastest.
 
@@ -14,15 +14,12 @@ namespace {
 using mmgl::TcShape;
 using mmgl::kD;
 
-// (warps, slabs, stages, blocks an SM); the first is the library's
-#define FWD_SHAPES(X) \
-  X(4, 1, 2, 3) X(4, 1, 3, 3) X(4, 1, 2, 4) X(4, 2, 2, 2) X(8, 1, 2, 2)
+// (warps, stages, blocks an SM); the first is the library's
+#define FWD_SHAPES(X) X(4, 2, 3) X(4, 3, 3) X(4, 2, 4) X(8, 2, 2)
 // dK/dV's shape, then dQ's; the first is the library's
-#define BWD_SHAPES(X)                                               \
-  X(4, 1, 2, 3, 4, 1, 2, 4) X(4, 1, 3, 3, 4, 1, 3, 3)               \
-  X(4, 1, 2, 3, 4, 1, 2, 3) X(4, 1, 2, 4, 4, 1, 2, 4)               \
-  X(4, 1, 3, 3, 4, 2, 2, 2) X(4, 2, 2, 2, 4, 2, 2, 2)               \
-  X(8, 1, 2, 2, 8, 1, 2, 2)
+#define BWD_SHAPES(X)                                                   \
+  X(4, 2, 3, 4, 2, 4) X(4, 3, 3, 4, 3, 3) X(4, 2, 3, 4, 2, 3)             \
+  X(4, 2, 4, 4, 2, 4) X(8, 2, 2, 8, 2, 2)
 
 #define COUNT(...) +1
 constexpr int kFwdShapes = 0 FWD_SHAPES(COUNT);
@@ -39,9 +36,9 @@ extern "C" int sweep_fwd(int i, const void* q, const void* k, const void* v,
                          float* row_sum, int batch, int sq, int sk, int heads,
                          float scale, int causal, cudaStream_t stream) {
   int n = 0;
-#define CALL(W, SL, ST, MB)                                                  \
+#define CALL(W, ST, MB)                                                      \
   if (i == n++) {                                                            \
-    return mmgl::launch_fwd_tc_as<kD, false, W, SL, ST, MB>(                 \
+    return mmgl::launch_fwd_tc_as<kD, false, W, ST, MB>(                     \
         q, k, v, mask, out, row_max, row_sum, batch, sq, sk, heads, scale,   \
         causal, stream);                                                     \
   }
@@ -58,10 +55,10 @@ extern "C" int sweep_bwd(int i, const void* q, const void* k, const void* v,
                          int batch, int sq, int sk, int heads, float scale,
                          int causal, cudaStream_t stream) {
   int n = 0;
-#define CALL(W, SL, ST, MB, QW, QSL, QST, QMB)                               \
+#define CALL(W, ST, MB, QW, QST, QMB)                                        \
   if (i == n++) {                                                            \
-    return mmgl::launch_bwd_tiles_tc_as<kD, TcShape<W, SL, ST, MB>,          \
-                                        TcShape<QW, QSL, QST, QMB>>(         \
+    return mmgl::launch_bwd_tiles_tc_as<kD, TcShape<W, ST, MB>,              \
+                                        TcShape<QW, QST, QMB>>(              \
         q, k, v, mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch, \
         sq, sk, heads, scale, causal, stream);                               \
   }

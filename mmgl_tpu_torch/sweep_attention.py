@@ -3,7 +3,7 @@
     python -m mmgl_tpu_torch.sweep_attention
 
 Builds csrc/sweep/attention_shapes.cu (the forward body and K6's dK/dV and
-dQ bodies in several (warps, slabs, ring stages, blocks an SM) shapes) with
+dQ bodies in several (warps, ring stages, blocks an SM) shapes) with
 nvcc into build/mmgl_tpu_torch/, then at OPT-350M's (4, 2048, 16, 64), at
 (4, 1024, 16, 64) (both causal, with the prompt and summary pad hole),
 OPT-125M's (4, 640, 12, 64) causal and CLIP's (24, 197, 12, 64) times each

@@ -12,9 +12,10 @@ torch:
     dS = p (dP - delta) scale and 0 at masked logits, P and dS rounded to bf16
     before their products;
   * the skip rules: the forward ends past the causal diagonal once every row
-    of the block has seen a real logit; dQ stops at the diagonal; dK/dV
-    visits a query tile wholly before its keys only where a row of it is
-    fully masked (m == -1e30).
+    of the block has seen a real logit; dQ stops at the diagonal and skips a
+    tile whose keys are all masked; dK/dV visits a query tile wholly before
+    its keys, or any tile if its keys are all masked, only where a row of it
+    is fully masked (m == -1e30).
 The card takes exp as 2^x of the logits in log2 units on its ex2 unit, a
 few ulp from torch.exp, far inside bf16's rounding; the emulation uses
 torch.exp.
@@ -167,11 +168,14 @@ def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
     for k0 in range(0, sk, TILE):
         cols = torch.arange(k0, min(k0 + TILE, sk))
         t_first = max(0, k0 - shift) // TILE if causal else 0
+        # per sample: the tile's keys are all masked
+        no_keys = ~mask.bool()[:, cols].any(-1)[:, None, None, None]
         for q0 in range(0, sq, TILE):
             rows = torch.arange(q0, min(q0 + TILE, sq))
-            visit = torch.ones(b, h, 1, 1, dtype=torch.bool)
+            full = (m[:, :, rows] == NEG_INF).any(-1)[..., None, None]
+            visit = full | ~no_keys
             if q0 // TILE < t_first:
-                visit = (m[:, :, rows] == NEG_INF).any(-1)[..., None, None]
+                visit = full
                 if seen is not None:
                     seen["hidden_tiles"] += int(visit.sum())
             p, ds = tile(rows, cols)
@@ -187,7 +191,8 @@ def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
         for t in range(n_tiles):
             cols = torch.arange(t * TILE, min((t + 1) * TILE, sk))
             _, ds = tile(rows, cols)
-            dq[:, :, rows] += ds @ kh[:, :, cols]
+            keys = mask.bool()[:, cols].any(-1)[:, None, None, None]
+            dq[:, :, rows] += torch.where(keys, ds @ kh[:, :, cols], 0.0)
     return tuple(_round(g, bf16).permute(0, 2, 1, 3) for g in (dq, dk, dv))
 
 
