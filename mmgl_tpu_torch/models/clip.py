@@ -58,6 +58,7 @@ class CLIPVisionConfig:
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"
     dtype: torch.dtype = torch.float32
+    use_pallas: bool = True      # False: attention_reference (--use_pallas)
 
     @property
     def head_dim(self) -> int:
@@ -69,9 +70,10 @@ class CLIPVisionConfig:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
+                 use_pallas: bool = True):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.use_pallas = num_heads, use_pallas
         self.query = Linear(hidden_size, hidden_size, compute_dtype=dtype)
         self.key = Linear(hidden_size, hidden_size, compute_dtype=dtype)
         self.value = Linear(hidden_size, hidden_size, compute_dtype=dtype)
@@ -83,7 +85,8 @@ class CLIPAttention(nn.Module):
         q = self.query(hidden_states).view(b, s, h, e // h)
         k = self.key(hidden_states).view(b, s, h, e // h)
         v = self.value(hidden_states).view(b, s, h, e // h)
-        out = multi_head_attention(q, k, v, kv_mask=attention_mask)
+        out = multi_head_attention(q, k, v, kv_mask=attention_mask,
+                                   use_pallas=self.use_pallas)
         return self.out(out.reshape(b, s, e))
 
 
@@ -92,7 +95,8 @@ class CLIPEncoderLayer(nn.Module):
         super().__init__()
         dt = cfg.dtype
         self.attention = CLIPAttention(cfg.hidden_size,
-                                       cfg.num_attention_heads, dt)
+                                       cfg.num_attention_heads, dt,
+                                       cfg.use_pallas)
         self.norm1 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                compute_dtype=dt)
         self.norm2 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,

@@ -70,7 +70,7 @@ def _t5_config(args: Arguments, size: str) -> T5Config:
         num_decoder_layers=layers, num_heads=heads,
         feed_forward_proj="gated-gelu" if gated else "relu",
         dropout_rate=0.0 if size == "tiny" else 0.1,
-        dtype=_compute_dtype(args))
+        dtype=_compute_dtype(args), use_pallas=args.use_pallas)
 
 
 def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
@@ -112,7 +112,7 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
             num_attention_heads=heads, ffn_dim=ffn, word_embed_proj_dim=proj,
             do_layer_norm_before=(size != "350m"),
             dropout=0.0 if size == "tiny" else 0.1, layerdrop=args.layerdrop,
-            dtype=dt)
+            dtype=dt, use_pallas=args.use_pallas)
         if vocab_size:
             opt_cfg = replace(opt_cfg, vocab_size=vocab_size)
         if tokenizer is not None:
@@ -121,11 +121,14 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                 eos_token_id=tokenizer.eos_token_id,
                 bos_token_id=tokenizer.bos_token_id or opt_cfg.bos_token_id)
 
-    vision_cfg = (CLIPVisionConfig(dtype=dt) if not tiny
+    # --use_pallas false sends the LM's and the tower's attention to
+    # attention_reference (mmgl_tpu/models/factory.py:65-68, 81, 147)
+    tower_kw = dict(dtype=dt, use_pallas=args.use_pallas)
+    vision_cfg = (CLIPVisionConfig(**tower_kw) if not tiny
                   else CLIPVisionConfig(
                       hidden_size=32, num_hidden_layers=2,
                       num_attention_heads=2, intermediate_size=64,
-                      image_size=32, patch_size=8, dtype=dt))
+                      image_size=32, patch_size=8, **tower_kw))
 
     return FusionConfig(
         context=args.context, n_visual_tokens=args.n_visual_tokens,

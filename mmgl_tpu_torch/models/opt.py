@@ -47,6 +47,7 @@ class OPTConfig:
     bos_token_id: int = 2
     eos_token_id: int = 2
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
+    use_pallas: bool = True      # False: attention_reference (--use_pallas)
 
     @property
     def embed_dim(self) -> int:
@@ -133,7 +134,8 @@ class OPTAttention(nn.Module):
             # else: prefill attends causally over the current segment only
             # (exact when the cache is empty, the only prefill pattern)
 
-        out = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=causal)
+        out = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=causal,
+                                   use_pallas=cfg.use_pallas)
         return self.out_proj(out.reshape(b, s, cfg.hidden_size))
 
 

@@ -54,6 +54,7 @@ class T5Config:
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
+    use_pallas: bool = True      # False: attention_reference (--use_pallas)
 
     @property
     def inner_dim(self) -> int:
@@ -148,7 +149,8 @@ class T5Attention(nn.Module):
         out = multi_head_attention(q, k, v, kv_mask=kv_mask,
                                    bias=position_bias, causal=causal,
                                    scale=1.0, dropout_rate=rate,
-                                   generator=generator)
+                                   generator=generator,
+                                   use_pallas=cfg.use_pallas)
         return self.o(out.reshape(b, s, cfg.inner_dim))
 
 

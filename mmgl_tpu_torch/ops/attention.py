@@ -5,8 +5,9 @@ Counterpart of mmgl_tpu/ops/attention.py. Every model of the port routes its
 attention through ``multi_head_attention``, which keeps the JAX package's
 mapping from call sites to kernels:
 
-  * q length < 32 (single-token decode) or a ``pairwise_mask``:
-    ``attention_reference``. The JAX package sends these to XLA
+  * ``use_pallas=False`` (``--use_pallas false``), q length < 32
+    (single-token decode) or a ``pairwise_mask``: ``attention_reference``,
+    with its bias and dropout. The JAX package sends these to XLA
     (``xla_attention``), never to a kernel, so this is the same route, not a
     fallback.
   * a bias or attention-prob dropout (T5): K7, ``flash_attention_bias``, at
@@ -140,12 +141,13 @@ def draw_dropout_seed(generator: torch.Generator) -> torch.Tensor:
 
 
 def attention_route(q_shape, k_shape, *, pairwise_mask: bool = False,
-                    bias: bool = False, dropout: bool = False) -> str:
+                    bias: bool = False, dropout: bool = False,
+                    use_pallas: bool = True) -> str:
     """Which implementation ``multi_head_attention`` uses for these shapes:
     "reference", "bias" (K7), "flash" (K4), "allheads" (K1) or
     "fused_heads" (K2)."""
     sq, sk, heads = q_shape[1], k_shape[1], q_shape[2]
-    if sq < MIN_KERNEL_SQ or pairwise_mask:
+    if not use_pallas or sq < MIN_KERNEL_SQ or pairwise_mask:
         return "reference"
     if bias or dropout:
         return "bias"
@@ -170,6 +172,7 @@ def multi_head_attention(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    use_pallas: bool = True,
 ) -> torch.Tensor:
     """Multi-head attention; returns (B, Sq, H, D) in q.dtype.
 
@@ -191,7 +194,8 @@ def multi_head_attention(
         seed = draw_dropout_seed(generator)
     route = attention_route(q.shape, k.shape,
                             pairwise_mask=pairwise_mask is not None,
-                            bias=bias is not None, dropout=seed is not None)
+                            bias=bias is not None, dropout=seed is not None,
+                            use_pallas=use_pallas)
     if route == "reference":
         return attention_reference(q, k, v, kv_mask=kv_mask,
                                    pairwise_mask=pairwise_mask, bias=bias,
