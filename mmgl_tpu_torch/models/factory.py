@@ -7,12 +7,15 @@ weights from a ``torch.Generator`` seeded with ``--seed`` (on the CPU, so one
 seed gives the same weights on every device) and moves the model to
 ``device`` with its parameters in ``--param_dtype`` (float32); each layer
 computes in the compute dtype (models/layers.py). ``requires_grad`` follows
-the trainable mask of peft/masks.py. Loading pretrained weights comes in a
-later change: there are no local checkpoints.
+the trainable mask of peft/masks.py. Loading pretrained weights is not
+ported yet (ROADMAP A4): a checkpoint directory named by
+``--model_name_or_path``, ``--visual_model`` or ``--text_model`` raises,
+where the JAX package would overlay it (``maybe_import_pretrained``).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 from typing import Optional, Tuple
 
@@ -136,12 +139,25 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
         vision=vision_cfg, t5=t5_cfg)
 
 
+def _refuse_checkpoints(args: Arguments) -> None:
+    """Raise where a flag names a local checkpoint directory: the JAX
+    package overlays it (mmgl_tpu/models/factory.py:184-217), and random
+    weights in its place would train another model without a word."""
+    for flag in ("model_name_or_path", "visual_model", "text_model"):
+        path = getattr(args, flag) or ""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"--{flag} {path} is a checkpoint directory: loading "
+                "pretrained weights is not ported yet (ROADMAP A4)")
+
+
 def build_model(args: Arguments, device: torch.device,
                 vocab_size: Optional[int] = None,
                 tokenizer=None) -> Tuple[MMGLModel, FusionConfig]:
     """Seeded random init on the CPU, then moved to ``device`` with
     ``--param_dtype`` parameters; returned in train mode with the trainable
     set of ``--peft_type``/``--freeze_lm``."""
+    _refuse_checkpoints(args)
     cfg = build_fusion_config(args, vocab_size, tokenizer=tokenizer)
     model = MMGLModel(cfg)
     generator = torch.Generator().manual_seed(args.seed or 0)

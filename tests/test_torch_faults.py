@@ -3,6 +3,8 @@
 C1: ``--use_pallas false`` sends every attention to the plain route, as the
 JAX factory's ``use_pallas=False`` sends it to ``xla_attention``
 (mmgl_tpu/models/factory.py:65-68, 81, 147).
+C2: a local checkpoint directory raises until its import is ported
+(ROADMAP A4), where the JAX package overlays it.
 """
 
 import pytest
@@ -78,3 +80,19 @@ def test_use_pallas_false_launches_no_kernel(model, monkeypatch):
     for name, g in grads.items():
         torch.testing.assert_close(g, want[2][name], atol=1e-5 * scale,
                                    rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("flag", ["--model_name_or_path", "--visual_model",
+                                  "--text_model"])
+def test_checkpoint_directory_raises(flag, tmp_path):
+    """C2: a local checkpoint directory, which the JAX package overlays on
+    the initialized weights, raises instead of training random weights;
+    the message names ROADMAP A4."""
+    ckpt = tmp_path / "t5-base"
+    ckpt.mkdir()
+    argv = ["--model_name_or_path", "t5-tiny", "--device", "cpu"]
+    args, _ = cli.parse_cli(argv + [flag, str(ckpt)])
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        build_model(args, torch.device("cpu"))
+    args, _ = cli.parse_cli(argv)
+    build_model(args, torch.device("cpu"))
