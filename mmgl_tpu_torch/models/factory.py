@@ -158,6 +158,14 @@ def build_model(args: Arguments, device: torch.device,
     ``--param_dtype`` parameters; returned in train mode with the trainable
     set of ``--peft_type``/``--freeze_lm``."""
     _refuse_checkpoints(args)
+    dt = _compute_dtype(args)
+    if device.type == "cuda" and dt not in (torch.float32, torch.bfloat16):
+        # refused before anything is built: the first attention would
+        # raise only after the model and the data
+        raise ValueError(
+            f"--compute_dtype {args.compute_dtype} on {device}: the attention "
+            "kernels take float32 and bfloat16 only (the float16 form of "
+            "their tensor-core bodies is not written yet)")
     cfg = build_fusion_config(args, vocab_size, tokenizer=tokenizer)
     model = MMGLModel(cfg)
     generator = torch.Generator().manual_seed(args.seed or 0)

@@ -5,12 +5,15 @@ JAX factory's ``use_pallas=False`` sends it to ``xla_attention``
 (mmgl_tpu/models/factory.py:65-68, 81, 147).
 C2: a local checkpoint directory raises until its import is ported
 (ROADMAP A4), where the JAX package overlays it.
+C3: float16 compute on a CUDA device is refused before the model is built:
+the kernels take float32 and bfloat16.
 """
 
 import pytest
 import torch
 
 from mmgl_tpu_torch import cli
+from mmgl_tpu_torch.models import factory
 from mmgl_tpu_torch.models.factory import build_model
 from mmgl_tpu_torch.ops import flash_attention as fa
 from mmgl_tpu_torch.train.steps import losses_of
@@ -96,3 +99,23 @@ def test_checkpoint_directory_raises(flag, tmp_path):
         build_model(args, torch.device("cpu"))
     args, _ = cli.parse_cli(argv)
     build_model(args, torch.device("cpu"))
+
+
+def test_float16_on_cuda_is_refused_before_the_model_is_built(monkeypatch):
+    """C3: --bf16 true --compute_dtype float16 on a CUDA device raises in
+    build_model, with the reason, before any module is built (only the
+    dtype check runs, so no card is needed); on the CPU float16 builds,
+    and bfloat16 passes the check on a CUDA device."""
+    def built(*a, **kw):
+        raise AssertionError("the model was built")
+
+    argv = ["--model_name_or_path", "t5-tiny", "--bf16", "true",
+            "--device", "cpu"]
+    args, _ = cli.parse_cli(argv + ["--compute_dtype", "float16"])
+    build_model(args, torch.device("cpu"))
+    monkeypatch.setattr(factory, "build_fusion_config", built)
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        build_model(args, torch.device("cuda"))
+    args, _ = cli.parse_cli(argv + ["--compute_dtype", "bfloat16"])
+    with pytest.raises(AssertionError, match="was built"):
+        build_model(args, torch.device("cuda"))
