@@ -14,8 +14,10 @@ imports no JAX. Phases, each fatal on failure:
      T5-base's cross-attention, with an MQA head, and K7 with K8/K9 (dbias
      included) at T5-base's encoder, decoder and cross-attention shapes,
      each without and with dropout 0.1; ragged lengths for every kernel.
-     The dropout mask K7 draws is read off its output and compared with
-     the plain version's bit for bit;
+     The dropout mask K7 draws is read off its output, in bf16 and fp32,
+     and compared with the plain version's bit for bit. At the encoder's
+     shape with dropout, K7's row stats against the plain version's, and
+     K8/K9 from them equal, bit for bit, to K8/K9 with its own stats pass;
   4. the OPT-125M + CLIP ViT-B/16 test pass at full width (task=section,
      context=all, raw neighbors, the --test pass of mmgl_tpu_torch.cli on
      the synthetic corpus with seeded random weights); K1 and K2 must launch
@@ -40,8 +42,9 @@ imports no JAX. Phases, each fatal on failure:
      and mask as a float attn_mask, and its backward), beside its bound:
      max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s), each input read and each
      output written once, FLOPs over the pairs the masks leave (dropout's
-     bits excluded); K4 with its row stats, K6 and K5 also at OPT-350M's
-     (4, 2048, 16, 64), K6 and K5 again at (4, 1024, 16, 64);
+     bits excluded); K8/K9 from K7's row stats, as training runs it; K4
+     with its row stats, K6 and K5 also at OPT-350M's (4, 2048, 16, 64), K6
+     and K5 again at (4, 1024, 16, 64);
   9. OPT-350M + CLIP training at OPT's whole 2048-token window through the
      CLI (--max_input_length 1920 --max_output_length 128, bf16, 4 updates
      of 4 x 4, AdamW) with the blocked backward selected (the module flag
@@ -55,9 +58,9 @@ Phase 3 also holds K4 with its row stats and K6 against their plain
 versions at OPT-350M's shape with a pad hole and with a fully masked
 sample, ragged and end-aligned sq < sk, and K6 against K5 at OPT-350M's
 shape, bit for bit. The launch counts are set to 0 just before each path
-and read just after. K1-K6 have two bodies, tensor cores for bf16 and
-scalar FMAs for fp32: phases 4, 5, 6, 7 and 9 (bf16) check that every
-launch of K1-K6 took the tensor-core body, and their fp32 checks that none
+and read just after. Every kernel has two bodies, tensor cores for bf16
+and scalar FMAs for fp32: phases 4, 5, 6, 7 and 9 (bf16) check that every
+launch of K1-K9 took the tensor-core body, and their fp32 checks that none
 did.
 Prints a kernels JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -130,14 +133,15 @@ KERNELS = {
     "flash_attention_bias_bwd": ("bias_attention_bwd_reference",
                                  f"{PALLAS}:942", BIAS_BWD_SOURCE),
 }
-# K1-K6: a tensor-core body for bf16 (counted in launches_tc), the scalar
-# one for fp32
-TC_KERNELS = ("flash_attention_allheads", "fused_heads_attention",
-              "flash_attention_allheads_bwd", "flash_attention",
-              "flash_attention_bwd", "flash_attention_blocked_bwd")
+BIAS_KERNELS = ("flash_attention_bias", "flash_attention_bias_bwd")
+# the bf16 bodies the kernels line names (every timed case is bf16)
 DESIGNS = {"tc": "bf16 tensor cores: mma.sync m16n8k16, fp32 accumulators, "
                  "64 x 64 tiles, 4 warps of 16 rows, 2-stage cp.async ring",
-           "scalar": "scalar fp32 FMAs, 4 threads a row, 64 x 64 tiles"}
+           "bias_tc": "the same bodies in their bias form: the bias tile in "
+                      "the cp.async ring, Philox dropout on the P fragment "
+                      "(one call a lane per 16 keys, words swapped by a "
+                      "shuffle), K8/K9 from K7's row stats, dlogits into "
+                      "an fp32 partial reduced over the batch in order"}
 OPT_TEST_KERNELS = ("flash_attention_allheads", "fused_heads_attention")
 OPT_TRAIN_KERNELS = OPT_TEST_KERNELS + ("flash_attention_allheads_bwd",)
 # the OPT attention calls: (kernel, (B, S, H, D), causal, mask)
@@ -177,9 +181,9 @@ RATE = 0.1
 # (atol, rtol) by dtype name
 TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 0.0)}
 # backward, per gradient: (atol as a fraction of its largest entry, rtol);
-# bf16: P and dS rounded to bf16 before their products from logits summed
-# in another order (the tensor-core bodies and the plain versions), or kept
-# fp32 (the scalar bias kernels)
+# bf16: P (times the keep factor) and dS rounded to bf16 before their
+# products from logits summed in another order, in the tensor-core bodies
+# and the plain versions alike
 BWD_TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 0.0)}
 # K4's row max and sum, (atol, rtol) in either dtype: fp32 sums of up to
 # 2048 exponentials in another order
@@ -277,20 +281,19 @@ def reset_launches(fa) -> None:
     """Every wrapper's launch counts to 0."""
     for name in KERNELS:
         getattr(fa, name).launches = 0
-        if name in TC_KERNELS:
-            getattr(fa, name).launches_tc = 0
+        getattr(fa, name).launches_tc = 0
 
 
 def check_bodies(fa, tag: str, bf16: bool):
-    """Every launch of K1-K6 since the counts were reset took the
+    """Every kernel launch since the counts were reset took the
     tensor-core body (bf16) or none did (fp32); returns {name: (launches,
     tensor-core launches)}."""
     counts = {n: (getattr(fa, n).launches, getattr(fa, n).launches_tc)
-              for n in TC_KERNELS}
-    print(f"[{tag}] K1-K6 launches (all, tensor-core body): {counts}")
+              for n in KERNELS}
+    print(f"[{tag}] K1-K9 launches (all, tensor-core body): {counts}")
     wrong = {n: c for n, c in counts.items() if c[1] != (c[0] if bf16 else 0)}
     if wrong:
-        fail(f"{tag}: launches of K1-K6 took the "
+        fail(f"{tag}: kernel launches took the "
              f"{'scalar' if bf16 else 'tensor-core'} body: {wrong}")
     return counts
 
@@ -465,8 +468,55 @@ def check_t5_kernels(fa, device, worst):
                       f"{report} ok")
     keep = {}
     for tag, dims, _, _ in BIAS_CASES:
-        keep[tag] = check_dropout_mask(fa, dims, device)
+        for dtype_name in TOLERANCES:
+            keep[f"{tag} {dtype_name}"] = check_dropout_mask(
+                fa, dims, device, getattr(torch, dtype_name))
+    check_bias_stats_path(fa, device, worst)
     return keep
+
+
+def check_bias_stats_path(fa, device, worst):
+    """Phase 3, at the encoder's shape with dropout, bf16: K7's row stats
+    against the plain version's, and K8/K9 from them (as training runs it)
+    equal to K8/K9 with its own stats pass, bit for bit: the stats-only pass
+    computes K7's max and sum with K7's instructions."""
+    import torch
+
+    tag, dims, causal, with_bias = BIAS_CASES[0]
+    q, k, v, mask, bias, dout, seed = bias_inputs(
+        dims, with_bias, torch.bfloat16, device, 300)
+    kw = dict(kv_mask=mask, causal=causal, scale=1.0, dropout_rate=RATE,
+              dropout_seed=seed)
+    out, m, l = fa.flash_attention_bias_stats(q, k, v, bias=bias, **kw)
+    torch.cuda.synchronize(device)
+    ref = fa.bias_attention_reference(q, k, v, bias=bias, with_stats=True,
+                                      **kw)
+    errs = [float((g.float() - r.float()).abs().max())
+            for g, r in zip((out, m, l), ref)]
+    worst["flash_attention_bias"] = max(worst["flash_attention_bias"],
+                                        errs[0])
+    label = f"{tag} {dims} bias dropout={RATE} bfloat16"
+    if not (_within(out, ref[0], *TOLERANCES["bfloat16"])
+            and _within(m, ref[1], *STATS_TOLERANCES)
+            and _within(l, ref[2], *STATS_TOLERANCES)):
+        fail(f"flash_attention_bias_stats {label} disagrees with its plain "
+             f"version (out {errs[0]:.3e}, max {errs[1]:.3e}, sum "
+             f"{errs[2]:.3e})")
+    bkw = dict(causal=causal, scale=1.0, dropout_rate=RATE,
+               dropout_seed=seed)
+    saved = fa.flash_attention_bias_bwd(q, k, v, mask, bias[0], out, dout,
+                                        row_max=m, row_sum=l, **bkw)
+    own = fa.flash_attention_bias_bwd(q, k, v, mask, bias[0], out, dout,
+                                      **bkw)
+    torch.cuda.synchronize(device)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), saved, own):
+        if not torch.equal(g, r):
+            fail(f"K8/K9 from K7's stats differs from K8/K9 with its stats "
+                 f"pass in {name} at {label} (max abs "
+                 f"{float((g.float() - r.float()).abs().max()):.3e})")
+    print(f"[check] flash_attention_bias_stats {label}: out {errs[0]:.3e}, "
+          f"max {errs[1]:.3e}, sum {errs[2]:.3e} ok; flash_attention_bias_bwd"
+          f" from them equal to its own stats pass bit for bit")
 
 
 def blocked_inputs(case_index: int, dtype, device):
@@ -540,20 +590,21 @@ def check_blocked_kernels(fa, device, worst):
     torch.cuda.empty_cache()
 
 
-def kernel_keep_mask(fa, b, sq, sk, h, seed, device):
-    """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output.
-    With q = 0 and one 64-key window unmasked, P is 1/64 on the window's
-    keys, and with v the identity on the window, out[..., d] is the keep
-    factor of key window + d over 64: zero exactly where it was dropped."""
+def kernel_keep_mask(fa, b, sq, sk, h, seed, device, dtype):
+    """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output (in
+    ``dtype``: bf16 runs the tensor-core body, fp32 the scalar one). With
+    q = 0 and one 64-key window unmasked, P is 1/64 on the window's keys,
+    and with v the identity on the window, out[..., d] is the keep factor
+    of key window + d over 64: zero exactly where it was dropped."""
     import torch
 
-    q = torch.zeros(b, sq, h, 64, device=device)
+    q = torch.zeros(b, sq, h, 64, device=device, dtype=dtype)
     keep = torch.zeros(b, h, sq, sk, dtype=torch.bool, device=device)
     for w0 in range(0, sk, 64):
         n = min(64, sk - w0)
         mask = torch.zeros(b, sk, dtype=torch.int32, device=device)
         mask[:, w0:w0 + n] = 1
-        v = torch.zeros(b, sk, h, 64, device=device)
+        v = torch.zeros(b, sk, h, 64, device=device, dtype=dtype)
         v[:, w0:w0 + n, :, :n] = torch.eye(n, device=device)[:, None, :]
         out = fa.flash_attention_bias(q, torch.zeros_like(v), v,
                                       kv_mask=mask, scale=1.0,
@@ -562,7 +613,7 @@ def kernel_keep_mask(fa, b, sq, sk, h, seed, device):
     return keep
 
 
-def check_dropout_mask(fa, dims, device) -> float:
+def check_dropout_mask(fa, dims, device, dtype) -> float:
     """K7's kept elements equal the plain version's bits exactly; returns
     the kept fraction (0.9 expected, within 6 sigma)."""
     import torch
@@ -571,13 +622,13 @@ def check_dropout_mask(fa, dims, device) -> float:
     b, sq, sk, h = dims
     seed = torch.tensor([sq * 1000003 + sk, 7], dtype=torch.int64,
                         device=device)
-    got = kernel_keep_mask(fa, b, sq, sk, h, seed, device)
+    got = kernel_keep_mask(fa, b, sq, sk, h, seed, device, dtype)
     want = att.dropout_bits(seed, (b, h, sq, sk)) < att.dropout_threshold(
         RATE)[0]
     frac = float(got.float().mean())
     sigma = (RATE * (1 - RATE) / got.numel()) ** 0.5
     same = bool(torch.equal(got, want))
-    print(f"[check] dropout mask of flash_attention_bias {dims}: "
+    print(f"[check] dropout mask of flash_attention_bias {dims} {dtype}: "
           f"{'equal to' if same else 'DIFFERS from'} the plain version's "
           f"bit for bit; kept fraction {frac:.6f} (0.9 +- 6 sigma = "
           f"{6 * sigma:.2e})")
@@ -1122,8 +1173,8 @@ def _flash_timing_cases(fa, device):
 
 def _bias_timing_cases(fa, device, i):
     """K7 at BIAS_CASES[i] in eval (no dropout; not for the cross-attention,
-    which is K4's in eval) and training (dropout), and its backward: K9 at
-    the encoder's shape, K8 at the decoder's."""
+    which is K4's in eval) and training (dropout), and its backward from
+    K7's row stats: K9 at the encoder's shape, K8 at the decoder's."""
     import torch
 
     bf16 = torch.bfloat16
@@ -1152,23 +1203,24 @@ def _bias_timing_cases(fa, device, i):
                 "plain": partial(fa.bias_attention_reference, q, k, v, **kw),
                 "library": _sdpa_fwd(qt, kt, vt, am, rate, 1.0)},
             4 * pairs * 64, io_fwd))
-    out = fa.flash_attention_bias(q, k, v, bias=bias, kv_mask=mask,
-                                  causal=causal, scale=1.0,
-                                  dropout_rate=RATE, dropout_seed=seed)
+    # K8/K9 as training runs it: from K7's row stats
+    out, m, l = fa.flash_attention_bias_stats(
+        q, k, v, bias=bias, kv_mask=mask, causal=causal, scale=1.0,
+        dropout_rate=RATE, dropout_seed=seed)
     bkw = dict(causal=causal, scale=1.0, dropout_rate=RATE,
                dropout_seed=seed)
     cases.append((
-        f"flash_attention_bias_bwd {shape} dropout={RATE}",
+        f"flash_attention_bias_bwd {shape} dropout={RATE} from K7's stats",
         "flash_attention_bias_bwd[K9]" if tag == "enc"
         else "flash_attention_bias_bwd[K8]", {
             "kernel": partial(fa.flash_attention_bias_bwd, q, k, v, mask,
                               None if bias is None else bias[0], out, dout,
-                              **bkw),
+                              row_max=m, row_sum=l, **bkw),
             "plain": partial(fa.bias_attention_bwd_reference, q, k, v, mask,
                              bias, out, dout, **bkw),
             "library": _sdpa_bwd(qt, kt, vt, am, dot, RATE, 1.0,
                                  bias_grad=with_bias)},
-        10 * pairs * 64, io_bwd))
+        10 * pairs * 64, io_bwd + 2 * m.numel() * 4))
     return cases
 
 
@@ -1433,7 +1485,8 @@ def main() -> int:
             "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
             "library_ms": times["library"], "shape": label,
             # every timed case is bf16
-            "design": DESIGNS["tc" if base in TC_KERNELS else "scalar"]})
+            "design": DESIGNS["bias_tc" if base in BIAS_KERNELS
+                              else "tc"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,34 +26,54 @@
 // fully masked row, whose P is uniform over all sk keys: such a row feeds
 // dV and gives no dQ, dK or dbias (K3's rule, attention_bwd.cu).
 //
-// Schedule: K3's three launches plus a reduction, on the caller's stream,
-// with no atomics.
-//   1. stats: per query row the softmax max m and sum l, and delta.
-//   2. dK/dV: one block per (64 keys, head, batch), looping over query
-//      tiles. A key's four threads draw the keep factors of four query rows
-//      with one Philox call each and pass them round by warp shuffles.
-//   3. dQ: one block per (64 query rows, head, batch), looping over key
-//      tiles; it also writes dlogits into an fp32 partial (B, H, Sq, Sk). A
-//      row's four threads each make the Philox call of one key group of a
-//      16-key block and pass the words round by shuffles.
-//   4. dbias[h, i, j] = sum over b of the partials, in the order b = 0..B-1,
-//      so the result is the same from run to run. The partial is the
-//      scratch: B * H * Sq * Sk * 4 bytes, 50,331,648 at the encoder shape
-//      (4, 12, 512, 512); it is zeroed by the wrapper, since dQ skips the
-//      causally hidden tiles. Without a bias, 3 and 4 write no dbias.
+// Two bodies, chosen by the input dtype as K1-K6's are, each on the
+// caller's stream with no atomics:
+//   * bf16 (mmgl_bias_bwd_tc): the tensor-core bodies of
+//     attention_bwd_tiles.cuh in their bias form (kBias, kDropout), from
+//     K7's saved row max and sum, or, where none are given, from K7's body
+//     in its stats-only form (the same instructions for m and l, so the
+//     gradients are the same bits either way): the delta pass; dK/dV, one
+//     block of 4 warps per (64 keys, head, batch), keys in the accumulator
+//     rows, so a Philox call's four words fall on lanes lane and lane ^ 16;
+//     dQ, one block per (64 query rows, head, batch), as the forward, which
+//     stores its fp32 dlogits fragments (zeros on the tiles it skips) into
+//     the partial; each streamed tile brings its bias tile into the
+//     cp.async ring; P times the keep factor and dS are rounded to bf16
+//     for their products, where the Pallas kernels round them, and dbias
+//     comes from the fp32 dlogits; then the reduction (4 below).
+//   * fp32 (mmgl_bias_bwd): K3's three scalar launches plus the reduction:
+//     1. stats: per query row the softmax max m and sum l, and delta.
+//     2. dK/dV: one block per (64 keys, head, batch), looping over query
+//        tiles. A key's four threads draw the keep factors of four query
+//        rows with one Philox call each and pass them round by shuffles.
+//     3. dQ: one block per (64 query rows, head, batch), looping over key
+//        tiles; it also writes dlogits into the fp32 partial. A row's four
+//        threads each make the Philox call of one key group of a 16-key
+//        block and pass the words round by shuffles.
+//   4. dbias[h, i, j] = sum over b of the partials, in the order
+//      b = 0..B-1, so the result is the same from run to run. The partial
+//      (B, H, Sq, Sk) is the scratch: B * H * Sq * Sk * 4 bytes, 50,331,648
+//      at the encoder shape (4, 12, 512, 512); the tensor-core dQ body
+//      writes all of it, the scalar one skips the causally hidden tiles,
+//      so the wrapper zeroes it there. Without a bias no dbias is written.
 // Layout and dtypes as in attention_bwd.cu: BSHD strided in place, outputs
 // in the input dtype, dbias in the bias dtype, every sum in fp32.
 //
-// What bounds it on this card: scalar fp32 FMAs and shared-memory loads, as
-// K3 (five products per (query, key) pair plus the stats pass), plus three
-// regenerations of the dropout bits in training and the partial's 4 bytes
-// per pair written once and read once by the reduction (~100 MB at the
-// encoder shape, ~30 us of HBM). mma.sync / wgmma and TMA are later work.
+// What bounds it on this card: 10 D FLOPs per (query, key) pair (14 D as
+// computed: dQ recomputes S and dP) on the tensor cores, 12.6 GFLOP at
+// the encoder shape, 13 us at 989 TFLOP/s; the partial's 4 bytes a pair,
+// written once and read once by the reduction (~100 MB at the encoder
+// shape, ~30 us of HBM at 3.35 TB/s), which a block per (query tile, head)
+// looping over the batch would remove at the cost of 96 blocks for 132 SMs;
+// and with dropout two regenerations of the keep factors, one in each body,
+// each call made once a pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_bwd_tiles.cuh"
+#include "attention_fwd_tc.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -537,9 +557,62 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the tensor-core bodies' shapes for the bias form: dK/dV's, then dQ's
+// (the fastest of those timed at T5-base's shapes, PERF.md §6)
+using BiasKvShape = mmgl::TcShape<4, 2, 3>;
+using BiasQShape = mmgl::TcShape<4, 2, 3>;
+
+// the tensor-core bodies in one (bias, dropout) form: the stats-only
+// forward where no row stats are given, delta, dK/dV and dQ (dlogits into
+// the partial), then the batch-order reduction into dbias
+template <bool kBias, bool kDropout, typename TB>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const int* kv_mask, const void* bias, int bias_ld,
+                      const long long* seed, const void* out,
+                      const void* dout, void* dq, void* dk, void* dv,
+                      void* dbias, float* stats, const float* row_max_in,
+                      const float* row_sum_in, float* partial, int batch,
+                      int sq, int sk, int heads, float scale, int causal,
+                      unsigned int threshold, float keep_inv,
+                      cudaStream_t stream) {
+  const long n = static_cast<long>(batch) * heads * sq;
+  const TB* bias_ = static_cast<const TB*>(bias);
+  const float* row_max = row_max_in;
+  const float* row_sum = row_sum_in;
+  float* row_delta = stats + 2 * n;
+  cudaError_t err = cudaSuccess;
+  if (row_max == nullptr) {
+    // the stats-only form: K7's instructions for m and l
+    err = mmgl::launch_fwd_tc<kD, true, kBias, false, TB>(
+        q, k, nullptr, kv_mask, nullptr, stats, stats + n, batch, sq, sk,
+        heads, scale, causal, stream,
+        mmgl::BiasArgs<TB>{bias_, bias_ld, nullptr, 0u, 1.f});
+    if (err != cudaSuccess) return err;
+    row_max = stats;
+    row_sum = stats + n;
+  }
+  err = mmgl::launch_delta<__nv_bfloat16>(out, dout, row_delta, batch, sq,
+                                          heads, stream);
+  if (err != cudaSuccess) return err;
+  err = mmgl::launch_bwd_tiles_tc_as<kD, BiasKvShape, BiasQShape, kBias,
+                                     kDropout, TB>(
+      q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch,
+      sq, sk, heads, scale, causal, stream,
+      mmgl::BiasArgs<TB>{bias_, bias_ld, seed, threshold, keep_inv},
+      kBias ? partial : nullptr);
+  if (err != cudaSuccess || !kBias) return err;
+  const long n_bias = static_cast<long>(heads) * sq * sk;
+  const long want = (n_bias + 255) / 256;
+  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
+  bias_bwd_reduce_kernel<TB><<<blocks, 256, 0, stream>>>(
+      partial, static_cast<TB*>(dbias), batch, n_bias);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// K8/K9: backward of K7. bias/dbias: (heads, sq, sk) in the bias dtype, or
+// K8/K9 on the scalar bodies, fp32 inputs (is_bf16 must be 0: bf16 takes
+// mmgl_bias_bwd_tc). bias/dbias: (heads, sq, sk) in the bias dtype, or
 // both null; seed, threshold, keep_inv: the forward's. stats: fp32 scratch
 // of 3 * batch * heads * sq floats; partial: zeroed fp32 scratch of
 // batch * heads * sq * sk floats when there is a bias, else null.
@@ -557,9 +630,51 @@ extern "C" int mmgl_bias_bwd(const void* q, const void* k, const void* v,
   launch<T, TB>(q, k, v, kv_mask, bias, seed, out, dout, dq, dk, dv, dbias, \
                 stats, partial, batch, sq, sk, heads, head_dim, scale,      \
                 causal, threshold, keep_inv, stream)
-  if (is_bf16 && bias_bf16) return MMGL_BIAS_BWD(__nv_bfloat16, __nv_bfloat16);
-  if (is_bf16) return MMGL_BIAS_BWD(__nv_bfloat16, float);
+  if (is_bf16) return cudaErrorInvalidValue;
   if (bias_bf16) return MMGL_BIAS_BWD(float, __nv_bfloat16);
   return MMGL_BIAS_BWD(float, float);
 #undef MMGL_BIAS_BWD
+}
+
+// K8/K9 on the bf16 tensor-core bodies (is_bf16 must be 1): the arguments
+// of mmgl_bias_bwd, plus row_max and row_sum, K7's saved row stats
+// (mmgl_bias_fwd_tc), or both null for the stats-only pass into stats, and
+// bias_ld, the bias's row stride (sk rounded up to a multiple of 8, the
+// bias padded to it). partial (batch * heads * sq * sk fp32 when there is
+// a bias) needs no zeroing: the dQ body writes every element.
+extern "C" int mmgl_bias_bwd_tc(const void* q, const void* k, const void* v,
+                                const int* kv_mask, const void* bias,
+                                const long long* seed, const void* out,
+                                const void* dout, void* dq, void* dk,
+                                void* dv, void* dbias, float* stats,
+                                float* partial, const float* row_max,
+                                const float* row_sum, int batch, int sq,
+                                int sk, int heads, int head_dim, float scale,
+                                int causal, unsigned int threshold,
+                                float keep_inv, int is_bf16, int bias_bf16,
+                                int bias_ld, cudaStream_t stream) {
+  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
+      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535 ||
+      (row_max == nullptr) != (row_sum == nullptr) ||
+      (bias != nullptr && (dbias == nullptr || partial == nullptr ||
+                           bias_ld < sk || bias_ld % 8 != 0))) {
+    return cudaErrorInvalidValue;
+  }
+#define MMGL_BIAS_BWD_TC(B, DROP, TB)                                        \
+  launch_tc<B, DROP, TB>(q, k, v, kv_mask, bias, bias_ld, seed, out, dout,   \
+                         dq, dk, dv, dbias, stats, row_max, row_sum,         \
+                         partial, batch, sq, sk, heads, scale, causal,       \
+                         threshold, keep_inv, stream)
+  const bool drop = seed != nullptr;
+  if (bias == nullptr) {
+    return drop ? MMGL_BIAS_BWD_TC(false, true, __nv_bfloat16)
+                : MMGL_BIAS_BWD_TC(false, false, __nv_bfloat16);
+  }
+  if (bias_bf16) {
+    return drop ? MMGL_BIAS_BWD_TC(true, true, __nv_bfloat16)
+                : MMGL_BIAS_BWD_TC(true, false, __nv_bfloat16);
+  }
+  return drop ? MMGL_BIAS_BWD_TC(true, true, float)
+              : MMGL_BIAS_BWD_TC(true, false, float);
+#undef MMGL_BIAS_BWD_TC
 }

@@ -25,25 +25,41 @@
 // hardware PRNG per (program, block), which nothing here reproduces.
 //
 // The TPU split this kernel into a batched and a serial schedule over VMEM
-// size and grid order. Here one schedule serves all shapes: K1's (see
-// attention_fwd.cu), one block of 256 threads per (64 query rows, head,
-// batch), K/V streamed through shared memory in tiles of 64 keys, BSHD read
-// strided in place. The bias row is read from device memory by each thread
-// for its 16 keys of a tile (batch-shared, so it stays in L2 across the
-// batch). With no bias (the training cross-attention) no bias pointer is
-// passed and nothing is read. Each thread owns keys sub + 4t of a tile, and
-// one Philox call gives the factors of its keys sub + 16t' + 4u, u = 0..3:
-// four calls per thread and tile, none repeated.
+// size and grid order. Here one schedule serves all shapes, with two bodies
+// chosen by the input dtype, as K1-K6's are:
+//   * bf16 (mmgl_bias_fwd_tc): the tensor-core forward body of
+//     attention_fwd_tc.cuh in its bias form (kBias, kDropout): one block of
+//     4 warps per (64 query rows, head, batch), S and P V on mma.sync, each
+//     64 x 64 tile of the bias brought into the cp.async ring beside K and
+//     V and added in log2 units with the scale (one FMA an element), the
+//     keep factors applied to the P fragment before it is rounded to bf16
+//     (one Philox call a lane per row and 16 keys, two words swapped with
+//     the quad partner by a shuffle); where a gradient follows it also
+//     writes the rows' max and sum, from which K8/K9 starts;
+//   * fp32 (mmgl_bias_fwd): the scalar body below (on the tensor cores
+//     fp32 would run as TF32): one block of 256 threads per (64 query rows,
+//     head, batch), K/V streamed through shared memory in tiles of 64 keys,
+//     four threads a row, the bias row read from device memory by each
+//     thread for its 16 keys of a tile, and one Philox call per thread for
+//     its keys sub + 16t' + 4u, u = 0..3.
+// BSHD is read strided in place. With no bias (the training
+// cross-attention) no bias pointer is passed and nothing is read.
 //
-// What bounds it on this card: as for K1, a few GFLOP of scalar fp32 FMAs
-// from shared memory, plus ten Philox rounds per four probabilities in
-// training; not HBM (3.35 TB/s) and not the tensor cores, which this first
-// version does not use. mma.sync / wgmma and TMA are later work.
+// What bounds it on this card: 4 D FLOPs per (query, key) pair on the
+// tensor cores (3.2 GFLOP at the encoder shape, 3.3 us at 989 TFLOP/s);
+// the bias, 2 bytes a pair from L2 (25 MB at the encoder shape, 6.3 MB of
+// it unique, read once per batch element); with dropout, Philox's integer
+// work, ten rounds of multiplies per four probabilities, B H Sq Sk / 4
+// calls a pass (3.1 M at the encoder shape), more than the products: the
+// design makes each call once. At T5's decoder shapes the grid has 96
+// blocks of 64 rows for 132 SMs, and the wrapper's host time per call is
+// of the kernel's order (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_fwd_tc.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -248,11 +264,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the tensor-core body in one (bias, dropout) form
+template <bool kBias, bool kDropout, typename TB>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const int* kv_mask, const void* bias, int bias_ld,
+                      const long long* seed, void* out, float* row_max,
+                      float* row_sum, int batch, int sq, int sk, int heads,
+                      float scale, int causal, unsigned int threshold,
+                      float keep_inv, cudaStream_t stream) {
+  const mmgl::BiasArgs<TB> ba{static_cast<const TB*>(bias), bias_ld, seed,
+                              threshold, keep_inv};
+  return mmgl::launch_fwd_tc<kD, false, kBias, kDropout, TB>(
+      q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
+      causal, stream, ba);
+}
+
 }  // namespace
 
-// K7. bias: (heads, sq, sk) contiguous, or null; bias_bf16 gives its dtype.
-// seed: two int64 words on the device, or null for no dropout; an element
-// is kept iff its Philox word < threshold, and then scaled by keep_inv.
+// K7 on the scalar body, fp32 inputs (is_bf16 must be 0: bf16 takes
+// mmgl_bias_fwd_tc). bias: (heads, sq, sk) contiguous, or null; bias_bf16
+// gives its dtype. seed: two int64 words on the device, or null for no
+// dropout; an element is kept iff its Philox word < threshold, and then
+// scaled by keep_inv.
 extern "C" int mmgl_bias_fwd(const void* q, const void* k, const void* v,
                              const int* kv_mask, const void* bias,
                              const long long* seed, void* out, int batch,
@@ -260,16 +293,7 @@ extern "C" int mmgl_bias_fwd(const void* q, const void* k, const void* v,
                              float scale, int causal, unsigned int threshold,
                              float keep_inv, int is_bf16, int bias_bf16,
                              cudaStream_t stream) {
-  if (is_bf16 && bias_bf16) {
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, kv_mask, bias, seed, out, batch, sq, sk, heads, head_dim,
-        scale, causal, threshold, keep_inv, stream);
-  }
-  if (is_bf16) {
-    return launch<__nv_bfloat16, float>(
-        q, k, v, kv_mask, bias, seed, out, batch, sq, sk, heads, head_dim,
-        scale, causal, threshold, keep_inv, stream);
-  }
+  if (is_bf16) return cudaErrorInvalidValue;
   if (bias_bf16) {
     return launch<float, __nv_bfloat16>(
         q, k, v, kv_mask, bias, seed, out, batch, sq, sk, heads, head_dim,
@@ -278,4 +302,41 @@ extern "C" int mmgl_bias_fwd(const void* q, const void* k, const void* v,
   return launch<float, float>(q, k, v, kv_mask, bias, seed, out, batch, sq,
                               sk, heads, head_dim, scale, causal, threshold,
                               keep_inv, stream);
+}
+
+// K7 on the bf16 tensor-core body (is_bf16 must be 1): the arguments of
+// mmgl_bias_fwd, plus row_max and row_sum, each batch * heads * sq fp32 in
+// (B, H, Sq) order, which receive the rows' softmax max and sum when not
+// null (for K8/K9), and bias_ld, the bias's row stride: sk rounded up to a
+// multiple of 8, the bias padded to it.
+extern "C" int mmgl_bias_fwd_tc(const void* q, const void* k, const void* v,
+                                const int* kv_mask, const void* bias,
+                                const long long* seed, void* out,
+                                float* row_max, float* row_sum, int batch,
+                                int sq, int sk, int heads, int head_dim,
+                                float scale, int causal,
+                                unsigned int threshold, float keep_inv,
+                                int is_bf16, int bias_bf16, int bias_ld,
+                                cudaStream_t stream) {
+  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
+      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535 ||
+      (bias != nullptr && (bias_ld < sk || bias_ld % 8 != 0))) {
+    return cudaErrorInvalidValue;
+  }
+#define MMGL_BIAS_FWD_TC(B, DROP, TB)                                        \
+  launch_tc<B, DROP, TB>(q, k, v, kv_mask, bias, bias_ld, seed, out,         \
+                         row_max, row_sum, batch, sq, sk, heads, scale,      \
+                         causal, threshold, keep_inv, stream)
+  const bool drop = seed != nullptr;
+  if (bias == nullptr) {
+    return drop ? MMGL_BIAS_FWD_TC(false, true, __nv_bfloat16)
+                : MMGL_BIAS_FWD_TC(false, false, __nv_bfloat16);
+  }
+  if (bias_bf16) {
+    return drop ? MMGL_BIAS_FWD_TC(true, true, __nv_bfloat16)
+                : MMGL_BIAS_FWD_TC(true, false, __nv_bfloat16);
+  }
+  return drop ? MMGL_BIAS_FWD_TC(true, true, float)
+              : MMGL_BIAS_FWD_TC(true, false, float);
+#undef MMGL_BIAS_FWD_TC
 }

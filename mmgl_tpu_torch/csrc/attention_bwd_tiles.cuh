@@ -26,6 +26,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace mmgl {
 
@@ -308,14 +309,35 @@ attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // (dK/dV: K Q^T, V dO^T, P^T dO, dS^T Q; dQ: Q K^T, dO V^T, dS K) on the
 // tensor cores, the fp32 elementwise work between the products, and the
 // streamed tiles' L2 traffic.
+//
+// The bias form (kBias, kDropout; K8/K9, attention_bias_bwd.cu) is K7's
+// backward (bias_attention_bwd_reference's math), from K7's row max and sum
+// or its stats-only pass, with m the keep factor:
+//   P = exp(logit - m) / l with logit = q k^T scale + bias[h];
+//   dV = (P m)^T dO, P m rounded to bf16 (flash_attention.py:726-728);
+//   dlogits = P (m dP - delta) in fp32, 0 at masked logits;
+//   dS = dlogits scale, rounded to bf16 for dQ and dK (:748-754);
+//   dbias = sum_b dlogits, from the fp32 values before any rounding
+//   (:736-746): the dQ body stores its fragments of dlogits, zeros for the
+//   tiles it skips, into a (B, H, Sq, Sk) fp32 partial that a reduction
+//   sums over b in order, so dbias is the same from run to run.
+// Each streamed tile brings its bias tile into the ring beside it. The
+// keep factors are philox.cuh's bits: in dQ, as in the forward, the four
+// words of a call fall on lanes c4 and c4 ^ 2; in dK/dV keys are the
+// accumulator rows, so they fall on rows r, r + 4, r + 8, r + 12, lanes
+// lane and lane ^ 16; either way each lane makes one call and swaps two
+// words with its partner, and each call is made once per pass.
 
-// the shared memory of the dK/dV body: K, V, kStages stages of Q and dO and
-// of the queries' m, 1 / l and delta, and a bit per query tile that holds a
-// fully masked row
-template <int D, int kRows, int kStages>
+// the shared memory of the dK/dV body: K, V, kStages stages of Q and dO
+// (and of the bias, query rows by the block's keys) and of the queries' m,
+// 1 / l and delta, and a bit per query tile that holds a fully masked row
+template <int D, int kRows, int kStages, bool kBias = false,
+          typename TB = __nv_bfloat16>
 constexpr size_t dkdv_tc_smem(int n_q_tiles) {
   return (2 * kRows + 2 * kStages * kTcTile) * TcTile<D>::kStride *
              sizeof(__nv_bfloat16) +
+         (kBias ? kStages * kTcTile * bias_stride<kRows>() * sizeof(TB)
+                : 0) +
          3 * kStages * kTcTile * sizeof(float) +
          ((n_q_tiles + 31) / 32) * sizeof(uint32_t);
 }
@@ -323,7 +345,8 @@ constexpr size_t dkdv_tc_smem(int n_q_tiles) {
 // dK, dV for a block of kWarps warps of 16 keys: S^T = K Q^T and
 // dP^T = V dO^T put the keys in the accumulators' rows, so P^T and dS^T are
 // A fragments for dV += P^T dO and dK += dS^T Q without a transpose
-template <int D, int kWarps, int kStages, int kMinBlocks>
+template <int D, int kWarps, int kStages, int kMinBlocks, bool kBias = false,
+          bool kDropout = false, typename TB = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -335,19 +358,25 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const float* __restrict__ row_delta,
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int sq, int sk,
-                             int heads, float scale, int causal) {
+                             int heads, float scale, int causal,
+                             BiasArgs<TB> ba) {
   constexpr int kThreads = 32 * kWarps;
   constexpr int kRows = 16 * kWarps;  // keys a block
   constexpr int S = TcTile<D>::kStride;
   constexpr int kElems = TcTile<D>::kElems;
   constexpr int kKSteps = D / 16;
   constexpr int kDBlocks = D / 8;
+  constexpr int kBS = bias_stride<kRows>();
+  constexpr int kBiasElems = kTcTile * kBS;  // TB a bias tile (queries)
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
   __nv_bfloat16* v_s = k_s + kRows * S;                           // kRows rows
   __nv_bfloat16* q_s = v_s + kRows * S;           // [kStages][kElems]
   __nv_bfloat16* do_s = q_s + kStages * kElems;   // [kStages][kElems]
-  float* m_s = reinterpret_cast<float*>(do_s + kStages * kElems);
+  // [kStages][kBiasElems] in the bias form
+  TB* b_s = reinterpret_cast<TB*>(do_s + kStages * kElems);
+  float* m_s = reinterpret_cast<float*>(b_s + (kBias ? kStages * kBiasElems
+                                                     : 0));
   float* inv_l_s = m_s + kStages * kTcTile;       // [kStages][64] each
   float* delta_s = inv_l_s + kStages * kTcTile;
   uint32_t* full_bits =
@@ -369,6 +398,11 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const long stat0 = (static_cast<long>(b) * heads + h) * sq;
   const int shift = sk - sq;
   const int n_q = (sq + kTcTile - 1) / kTcTile;
+  const TB* bias_rows =
+      kBias ? ba.bias + static_cast<long>(h) * sq * ba.ld : nullptr;
+  DropoutKey drop{};
+  if constexpr (kDropout) drop = load_dropout_key(ba.seed, ba.threshold,
+                                                  ba.keep_inv);
 
   tile_async<D, kRows, kThreads>(k_s, k + k_off, rs, k0, sk, tid);
   tile_async<D, kRows, kThreads>(v_s, v + k_off, rs, k0, sk, tid);
@@ -408,11 +442,15 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     return t;
   };
 
-  auto issue = [&](int t, int st) {  // query tile t's Q and dO
+  auto issue = [&](int t, int st) {  // query tile t's Q and dO (and bias)
     tile_async<D, kTcTile, kThreads>(q_s + st * kElems, q_rows, rs,
                                      t * kTcTile, sq, tid);
     tile_async<D, kTcTile, kThreads>(do_s + st * kElems, do_rows, rs,
                                      t * kTcTile, sq, tid);
+    if constexpr (kBias) {
+      bias_tile_async<TB, kTcTile, kRows, kThreads>(
+          b_s + st * kBiasElems, bias_rows, ba.ld, t * kTcTile, sq, k0, tid);
+    }
   };
   // query i's statistics, for a stage, the max as m log2(e); rows past sq
   // get m = 1 / l = 0 (their q and dO are zero-filled, so their p and dS are
@@ -523,6 +561,17 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
           const float2 m2 = *reinterpret_cast<const float2*>(ms + col);
           const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
           const float2 d2 = *reinterpret_cast<const float2*>(dls + col);
+          // the keep factors of keys key0 + 8 r at queries q0 + col + e:
+          // words hi + 2 r of the call of query col + hi, which this lane
+          // makes, and of query col + 1 - hi, which lane ^ 16 makes
+          unsigned int own[2] = {0u, 0u}, other[2] = {0u, 0u};
+          const int hi = g >> 2;
+          if constexpr (kDropout) {
+            philox_pair(drop,
+                        (static_cast<unsigned int>(key_first >> 4) << 2) |
+                            static_cast<unsigned int>(g & 3),
+                        q0 + col + hi, h, b, hi, 16, own, other);
+          }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int r = j >> 1;
@@ -530,12 +579,30 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
             const bool allowed =
                 key_valid[r] && !(diag && q0 + col + e + shift < key0 + 8 * r);
             const float m2e = e ? m2.y : m2.x;
-            const float p = ex2(allowed ? fmaf(s[n][j], scale2, -m2e)
-                                        : __fsub_rn(neg2, m2e)) *
-                            (e ? l2.y : l2.x);
-            s[n][j] = p;
-            dp[n][j] =
-                allowed ? p * (dp[n][j] - (e ? d2.y : d2.x)) * scale : 0.f;
+            float x;
+            if constexpr (kBias) {
+              const float bv = load1(b_s + st * kBiasElems +
+                                     (col + e) * kBS + 16 * warp + g + 8 * r);
+              x = allowed ? __fsub_rn(fmaf(s[n][j], scale2,
+                                           __fmul_rn(bv, kLog2e)),
+                                      m2e)
+                          : __fsub_rn(neg2, m2e);
+            } else {
+              x = allowed ? fmaf(s[n][j], scale2, -m2e)
+                          : __fsub_rn(neg2, m2e);
+            }
+            const float p = ex2(x) * (e ? l2.y : l2.x);
+            if constexpr (kDropout) {
+              const float f = keep_factor(drop, e == hi ? own[r] : other[r]);
+              s[n][j] = p * f;
+              dp[n][j] = allowed
+                             ? p * (f * dp[n][j] - (e ? d2.y : d2.x)) * scale
+                             : 0.f;
+            } else {
+              s[n][j] = p;
+              dp[n][j] =
+                  allowed ? p * (dp[n][j] - (e ? d2.y : d2.x)) * scale : 0.f;
+            }
           }
         }
 
@@ -584,16 +651,21 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// the shared memory of the dQ body: Q, dO, kStages stages of K and V
-template <int D, int kRows, int kStages>
+// the shared memory of the dQ body: Q, dO, kStages stages of K and V (and
+// of the bias)
+template <int D, int kRows, int kStages, bool kBias = false,
+          typename TB = __nv_bfloat16>
 constexpr size_t dq_tc_smem() {
   return (2 * kRows + 2 * kStages * kTcTile) * TcTile<D>::kStride *
-         sizeof(__nv_bfloat16);
+             sizeof(__nv_bfloat16) +
+         (kBias ? kStages * kRows * bias_stride<kTcTile>() * sizeof(TB) : 0);
 }
 
 // dQ for a block of kWarps warps of 16 query rows, looping over the key
-// tiles up to the causal limit
-template <int D, int kWarps, int kStages, int kMinBlocks>
+// tiles up to the causal limit; the bias form also writes the rows'
+// dlogits into partial (B, H, Sq, Sk), zeros where it skips
+template <int D, int kWarps, int kStages, int kMinBlocks, bool kBias = false,
+          bool kDropout = false, typename TB = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -604,18 +676,22 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const float* __restrict__ row_sum,
                            const float* __restrict__ row_delta,
                            __nv_bfloat16* __restrict__ dq, int sq, int sk,
-                           int heads, float scale, int causal) {
+                           int heads, float scale, int causal,
+                           BiasArgs<TB> ba, float* __restrict__ partial) {
   constexpr int kThreads = 32 * kWarps;
   constexpr int kRows = 16 * kWarps;  // query rows a block
   constexpr int S = TcTile<D>::kStride;
   constexpr int kElems = TcTile<D>::kElems;
   constexpr int kKSteps = D / 16;
   constexpr int kDBlocks = D / 8;
+  constexpr int kBS = bias_stride<kTcTile>();
+  constexpr int kBiasElems = kRows * kBS;  // TB a bias tile
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
   __nv_bfloat16* do_s = q_s + kRows * S;                          // kRows rows
   __nv_bfloat16* k_s = do_s + kRows * S;          // [kStages][kElems]
   __nv_bfloat16* v_s = k_s + kStages * kElems;    // [kStages][kElems]
+  TB* b_s = reinterpret_cast<TB*>(v_s + kStages * kElems);  // bias form
   __shared__ uint32_t mask_s[kStages][2];  // a tile's key mask, a bit a key
 
   const int tid = threadIdx.x;
@@ -637,13 +713,22 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_k = (sk + kTcTile - 1) / kTcTile;
   // dS = 0 past the diagonal for every row of the block
   const int n_tiles = causal ? min(n_k, (q_last + shift) / kTcTile + 1) : n_k;
+  const TB* bias_rows =
+      kBias ? ba.bias + static_cast<long>(h) * sq * ba.ld : nullptr;
+  DropoutKey drop{};
+  if constexpr (kDropout) drop = load_dropout_key(ba.seed, ba.threshold,
+                                                  ba.keep_inv);
 
-  auto issue = [&](int t) {  // key tile t's K and V into its stage
+  auto issue = [&](int t) {  // key tile t's K and V (and bias) into its stage
     const int st = t % kStages;
     tile_async<D, kTcTile, kThreads>(k_s + st * kElems, k_rows, rs,
                                      t * kTcTile, sk, tid);
     tile_async<D, kTcTile, kThreads>(v_s + st * kElems, v_rows, rs,
                                      t * kTcTile, sk, tid);
+    if constexpr (kBias) {
+      bias_tile_async<TB, kRows, kTcTile, kThreads>(
+          b_s + st * kBiasElems, bias_rows, ba.ld, q0, sq, t * kTcTile, tid);
+    }
   };
   auto key_ok = [&](int t) {  // thread tid < 64's key of tile t
     const int j = t * kTcTile + tid;
@@ -687,6 +772,29 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
       q_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
   const __nv_bfloat16* do_warp =
       do_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
+  // the bias form: dlogits of (row0 + 8 r, j) and (row0 + 8 r, j + 1) into
+  // the partial, j = a tile's key 8 n + 2 c4 (even)
+  float* part_rows =
+      kBias ? partial + (static_cast<long>(b) * heads + h) * sq * sk
+            : nullptr;
+  auto store_dl = [&](int r, int j, float lo, float hi) {
+    const int i = row0 + 8 * r;
+    if (i >= sq || j >= sk) return;
+    float* dst = part_rows + static_cast<long>(i) * sk + j;
+    if ((sk & 1) == 0) {
+      *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+    } else {
+      dst[0] = lo;
+      if (j + 1 < sk) dst[1] = hi;
+    }
+  };
+  auto zero_tile = [&](int k0) {  // a skipped tile's dlogits
+#pragma unroll
+    for (int c = 0; c < kTcTile; c += 8) {
+      store_dl(0, k0 + c + 2 * c4, 0.f, 0.f);
+      store_dl(1, k0 + c + 2 * c4, 0.f, 0.f);
+    }
+  };
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
@@ -743,18 +851,81 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
           }
         }
 
+        if constexpr (kBias || kDropout) {
+          // dlogits = P (m dP - delta), 0 at masked logits; dS = dlogits
+          // scale; the bias of the lane's (row0 + 8 r, col) from the tile
+          const TB* bs = b_s + st * kBiasElems + (16 * warp + g) * kBS +
+                         32 * half + 2 * c4;
+          const int hi = c4 >> 1;
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+          for (int jj = 0; jj < 2; ++jj) {
+            // the keys of n8 blocks 2 jj and 2 jj + 1: one 16-key group,
+            // its calls shared by lanes c4 and c4 ^ 2 as in the forward
+            unsigned int own[2][2] = {{0u, 0u}, {0u, 0u}};
+            unsigned int other[2][2] = {{0u, 0u}, {0u, 0u}};
+            if constexpr (kDropout) {
+              const unsigned int c0 =
+                  (static_cast<unsigned int>((k0 >> 4) + 2 * half + jj)
+                   << 2) |
+                  static_cast<unsigned int>(2 * (c4 & 1) + hi);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = j >> 1;
-            const int col = 32 * half + 8 * n + 2 * c4 + (j & 1);
-            const float ds = ex2(fmaf(s[n][j], scale2, -m_i[r])) * inv_l[r] *
-                             (dp[n][j] - delta[r]) * scale;
-            dp[n][j] = (!edge || (((half_bits >> (col & 31)) & 1u) &&
-                                  !(causal && row0 + 8 * r + shift < k0 + col)))
-                           ? ds
-                           : 0.f;
+              for (int r = 0; r < 2; ++r) {
+                philox_pair(drop, c0, row0 + 8 * r, h, b, hi, 2, own[r],
+                            other[r]);
+              }
+            }
+#pragma unroll
+            for (int nn = 0; nn < 2; ++nn) {
+              const int n = 2 * jj + nn;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                float2 b2 = make_float2(0.f, 0.f);
+                if constexpr (kBias) b2 = load2(bs + 8 * r * kBS + 8 * n);
+                float dl[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int j = 2 * r + e;
+                  const int col = 32 * half + 8 * n + 2 * c4 + e;
+                  float x = s[n][j];
+                  if constexpr (kBias) {
+                    x = __fsub_rn(fmaf(x, scale2,
+                                       __fmul_rn(e ? b2.y : b2.x, kLog2e)),
+                                  m_i[r]);
+                  } else {
+                    x = fmaf(x, scale2, -m_i[r]);
+                  }
+                  float f = 1.f;
+                  if constexpr (kDropout) {
+                    f = keep_factor(drop, e == hi ? own[r][nn] : other[r][nn]);
+                  }
+                  const bool ok =
+                      !edge || (((half_bits >> (col & 31)) & 1u) &&
+                                !(causal && row0 + 8 * r + shift < k0 + col));
+                  dl[e] = ok ? ex2(x) * inv_l[r] * (f * dp[n][j] - delta[r])
+                             : 0.f;
+                  dp[n][j] = dl[e] * scale;
+                }
+                if constexpr (kBias) {
+                  store_dl(r, k0 + 32 * half + 8 * n + 2 * c4, dl[0], dl[1]);
+                }
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int r = j >> 1;
+              const int col = 32 * half + 8 * n + 2 * c4 + (j & 1);
+              const float ds = ex2(fmaf(s[n][j], scale2, -m_i[r])) *
+                               inv_l[r] * (dp[n][j] - delta[r]) * scale;
+              dp[n][j] =
+                  (!edge || (((half_bits >> (col & 31)) & 1u) &&
+                             !(causal && row0 + 8 * r + shift < k0 + col)))
+                      ? ds
+                      : 0.f;
+            }
           }
         }
 
@@ -773,6 +944,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
           }
         }
       }
+    } else if (kBias) {
+      zero_tile(k0);
     }
 
     if (tp < n_tiles && tid < kTcTile) {
@@ -780,6 +953,10 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   cp_async_wait<0>();
+  if constexpr (kBias) {
+    // past the block's causal limit
+    for (int t = n_tiles; t < n_k; ++t) zero_tile(t * kTcTile);
+  }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -804,8 +981,10 @@ struct TcShape {
   static constexpr int kRows = 16 * kWarps_;
 };
 
-// the dK/dV and dQ launches in given shapes on the caller's stream
-template <int D, typename KvShape, typename QShape>
+// the dK/dV and dQ launches in given shapes on the caller's stream; the
+// bias form reads ba and writes dlogits into partial
+template <int D, typename KvShape, typename QShape, bool kBias = false,
+          bool kDropout = false, typename TB = __nv_bfloat16>
 cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
                                    const void* v, const int* kv_mask,
                                    const void* dout, const float* row_max,
@@ -813,17 +992,20 @@ cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
                                    const float* row_delta, void* dq, void* dk,
                                    void* dv, int batch, int sq, int sk,
                                    int heads, float scale, int causal,
-                                   cudaStream_t stream) {
+                                   cudaStream_t stream,
+                                   BiasArgs<TB> ba = BiasArgs<TB>{},
+                                   float* partial = nullptr) {
   const int n_q = (sq + kTcTile - 1) / kTcTile;
   const size_t dkdv_bytes =
-      dkdv_tc_smem<D, KvShape::kRows, KvShape::kStages>(n_q);
-  const size_t dq_bytes = dq_tc_smem<D, QShape::kRows, QShape::kStages>();
+      dkdv_tc_smem<D, KvShape::kRows, KvShape::kStages, kBias, TB>(n_q);
+  const size_t dq_bytes =
+      dq_tc_smem<D, QShape::kRows, QShape::kStages, kBias, TB>();
   auto dkdv_kernel =
       attention_bwd_dkdv_tc_kernel<D, KvShape::kWarps, KvShape::kStages,
-                                   KvShape::kMinBlocks>;
-  auto dq_kernel = attention_bwd_dq_tc_kernel<D, QShape::kWarps,
-                                              QShape::kStages,
-                                              QShape::kMinBlocks>;
+                                   KvShape::kMinBlocks, kBias, kDropout, TB>;
+  auto dq_kernel =
+      attention_bwd_dq_tc_kernel<D, QShape::kWarps, QShape::kStages,
+                                 QShape::kMinBlocks, kBias, kDropout, TB>;
   cudaError_t err = set_smem(dkdv_kernel, dkdv_bytes);
   if (err != cudaSuccess) return err;
   err = set_smem(dq_kernel, dq_bytes);
@@ -837,12 +1019,13 @@ cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
   dkdv_kernel<<<k_grid, 32 * KvShape::kWarps, dkdv_bytes, stream>>>(
       q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq,
-      sk, heads, scale, causal);
+      sk, heads, scale, causal, ba);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq_kernel<<<q_grid, 32 * QShape::kWarps, dq_bytes, stream>>>(
       q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
-      static_cast<__nv_bfloat16*>(dq), sq, sk, heads, scale, causal);
+      static_cast<__nv_bfloat16*>(dq), sq, sk, heads, scale, causal, ba,
+      partial);
   return cudaGetLastError();
 }
 

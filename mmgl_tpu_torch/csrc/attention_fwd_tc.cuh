@@ -41,6 +41,28 @@
 //     blocks are issued longest first (most causal tiles).
 // The stats-only form drops V, P V and the output, and writes the rows' max
 // and sum: the same instructions for m and l as the full form.
+//
+// The bias form (kBias, kDropout; K7 in attention_bias_fwd.cu, and in
+// stats-only form the stats pass of K8/K9) computes xla_attention's math
+// with the batch-shared (H, Sq, Sk) bias and attention-prob dropout:
+//   out = (softmax(q k^T * scale + bias[h], masked = -1e30) * keep) v
+// It is the same body with two additions, compiled out of K1/K2/K4:
+//   * each (kRows x 64) tile of the bias (bf16 or fp32) comes into the
+//     cp.async ring beside K and V, and each S element takes its own
+//     (row, key): in log2 units the logit is s (scale log2 e) + bias log2 e,
+//     one FMA; the bias is added on every tile, the masks still only on
+//     masked, diagonal and ragged tiles;
+//   * dropout on the P fragment: the online softmax sums exp(logit - m)
+//     without the keep factor, and P V takes P * factor rounded to bf16
+//     (the Pallas order, flash_attention.py:618-621). The factors are
+//     philox.cuh's bits: the four words of one Philox call fall on lanes c4
+//     and c4 ^ 2 of a quad, so each lane makes one call per (row, 16-key
+//     group) and the two swap words by one shuffle (philox_pair); each call
+//     is made once per pass, ten rounds of integer work per four
+//     probabilities, which at T5's shapes costs more than the products.
+// The same instructions compute m and l in the full and the stats-only
+// form, so K8/K9 from K7's saved stats and from its own stats pass agree
+// bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,12 +70,16 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace mmgl {
 
-// kWarps warps of 16 query rows a block, kStages tiles of K and V in the
-// ring; kMinBlocks blocks an SM, for the register budget
-template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks>
+// kWarps warps of 16 query rows a block, kStages tiles of K and V (and
+// the bias) in the ring; kMinBlocks blocks an SM, for the register budget;
+// kBias, kDropout and the bias type TB select the bias form
+template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks,
+          bool kBias = false, bool kDropout = false,
+          typename TB = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -62,7 +88,8 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ out,
                         float* __restrict__ row_max,
                         float* __restrict__ row_sum, int sq, int sk,
-                        int heads, float scale, int causal) {
+                        int heads, float scale, int causal,
+                        BiasArgs<TB> ba) {
   constexpr int kThreads = 32 * kWarps;
   constexpr int kRows = 16 * kWarps;     // query rows a block
   constexpr int S = TcTile<D>::kStride;
@@ -70,10 +97,15 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kKSteps = D / 16;        // k16 blocks of the head dim
   constexpr int kDBlocks = D / 8;        // n8 blocks of the head dim
   constexpr int kKeyBlocks = kTcTile / 8;  // n8 blocks of a key tile
+  constexpr int kBS = bias_stride<kTcTile>();
+  constexpr int kBiasElems = kRows * kBS;  // TB a bias tile
+  constexpr bool kDrop = kDropout && !kStatsOnly;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
   __nv_bfloat16* k_s = q_s + kRows * S;          // [kStages][kElems]
   __nv_bfloat16* v_s = k_s + kStages * kElems;   // [kStages][kElems]
+  // [kStages][kBiasElems], after V (or after K in the stats-only form)
+  TB* b_s = reinterpret_cast<TB*>(kStatsOnly ? v_s : v_s + kStages * kElems);
   __shared__ uint32_t mask_s[kStages][2];  // a tile's key mask, a bit a key
 
   const int tid = threadIdx.x;
@@ -99,14 +131,24 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       causal ? min(n_tiles, (q_last + shift) / kTcTile + 1) : n_tiles;
   const int row_first = q0 + 16 * warp;  // the warp's rows
   const int row0 = row_first + g;        // this lane's rows row0, row0 + 8
+  // the bias rows of head h
+  const TB* bias_rows =
+      kBias ? ba.bias + static_cast<long>(h) * sq * ba.ld : nullptr;
+  DropoutKey drop{};
+  if constexpr (kDrop) drop = load_dropout_key(ba.seed, ba.threshold,
+                                               ba.keep_inv);
 
-  auto issue = [&](int t) {  // tile t's K and V into its stage
+  auto issue = [&](int t) {  // tile t's K and V (and bias) into its stage
     const int st = t % kStages;
     tile_async<D, kTcTile, kThreads>(k_s + st * kElems, k_rows, rs,
                                      t * kTcTile, sk, tid);
     if (!kStatsOnly) {
       tile_async<D, kTcTile, kThreads>(v_s + st * kElems, v_rows, rs,
                                        t * kTcTile, sk, tid);
+    }
+    if constexpr (kBias) {
+      bias_tile_async<TB, kRows, kTcTile, kThreads>(
+          b_s + st * kBiasElems, bias_rows, ba.ld, q0, sq, t * kTcTile, tid);
     }
   };
   auto key_ok = [&](int t) {  // thread tid < 64's key of tile t
@@ -185,10 +227,26 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
 
-      // scale and masks on each element's own (row, key), in log2 units:
-      // x = logit log2(e), so exp(logit - m) = 2^(x - m2); a masked logit is
-      // -1e30 here too; only a tile with a masked key, on the warp's causal
-      // diagonal or past sk needs masks
+      // scale (and bias) and masks on each element's own (row, key), in
+      // log2 units: x = logit log2(e), so exp(logit - m) = 2^(x - m2); a
+      // masked logit is -1e30 here too; only a tile with a masked key, on
+      // the warp's causal diagonal or past sk needs masks
+      if constexpr (kBias) {
+        // the bias of the lane's (row0 + 8 r, 8 nb + 2 c4 + e) at
+        // s[nb][2 r + e], as x = s (scale log2 e) + bias log2 e
+        const TB* bs = b_s + st * kBiasElems + (16 * warp + g) * kBS + 2 * c4;
+#pragma unroll
+        for (int nb = 0; nb < kKeyBlocks; ++nb) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 b2 = load2(bs + 8 * r * kBS + 8 * nb);
+            s[nb][2 * r] =
+                fmaf(s[nb][2 * r], scale2, __fmul_rn(b2.x, kLog2e));
+            s[nb][2 * r + 1] =
+                fmaf(s[nb][2 * r + 1], scale2, __fmul_rn(b2.y, kLog2e));
+          }
+        }
+      }
       const uint32_t bits[2] = {mask_s[st][0], mask_s[st][1]};
       const bool edge = (bits[0] & bits[1]) != 0xffffffffu ||
                         k0 + kTcTile > sk ||
@@ -204,7 +262,8 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
             const bool ok = (bits[nb >> 2] >> (col & 31)) & 1u;
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-              float x = __fmul_rn(s[nb][2 * r + e], scale2);
+              float x = kBias ? s[nb][2 * r + e]
+                              : __fmul_rn(s[nb][2 * r + e], scale2);
               if (!ok || (causal && row0 + 8 * r + shift < j)) x = kNegInf;
               if (j >= sk) x = -INFINITY;  // past sk: weight 0
               s[nb][2 * r + e] = x;
@@ -217,7 +276,7 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         for (int nb = 0; nb < kKeyBlocks; ++nb) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            s[nb][i] = __fmul_rn(s[nb][i], scale2);
+            if (!kBias) s[nb][i] = __fmul_rn(s[nb][i], scale2);
             tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[nb][i]);
           }
         }
@@ -265,6 +324,29 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
 #pragma unroll
         for (int kk = 0; kk < kTcTile / 16; ++kk) {
+          if constexpr (kDrop) {
+            // keys k0 + 16 kk + u: the lane holds u = 2 c4 + e (n8 block
+            // 2 kk) and 8 + 2 c4 + e (2 kk + 1), the words hi and hi + 2 of
+            // the calls with counter low bits 2 (c4 & 1) + e; its own call
+            // is e = hi's, its quad partner c4 ^ 2 makes e = 1 - hi's
+            const int hi = c4 >> 1;
+            const unsigned int c0 =
+                (static_cast<unsigned int>((k0 >> 4) + kk) << 2) |
+                static_cast<unsigned int>(2 * (c4 & 1) + hi);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              unsigned int own[2], other[2];
+              philox_pair(drop, c0, row0 + 8 * r, h, b, hi, 2, own, other);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const bool mine = e == hi;
+                s[2 * kk][2 * r + e] *=
+                    keep_factor(drop, mine ? own[0] : other[0]);
+                s[2 * kk + 1][2 * r + e] *=
+                    keep_factor(drop, mine ? own[1] : other[1]);
+              }
+            }
+          }
           uint32_t pa[4];
           acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
@@ -314,18 +396,23 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 // One launch of the body in a given shape over (B, Sq, H*D) bf16 tensors.
 // kStatsOnly: v and out are not read or written; row_max and row_sum must
-// not be null.
-template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks>
+// not be null. The bias form reads ba (BiasArgs).
+template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks,
+          bool kBias = false, bool kDropout = false,
+          typename TB = __nv_bfloat16>
 cudaError_t launch_fwd_tc_as(const void* q, const void* k, const void* v,
                              const int* kv_mask, void* out, float* row_max,
                              float* row_sum, int batch, int sq, int sk,
                              int heads, float scale, int causal,
-                             cudaStream_t stream) {
+                             cudaStream_t stream,
+                             BiasArgs<TB> ba = BiasArgs<TB>{}) {
   constexpr int kRows = 16 * kWarps;
-  const size_t bytes = (kRows + (kStatsOnly ? 1 : 2) * kStages * kTcTile) *
-                       TcTile<D>::kStride * sizeof(__nv_bfloat16);
-  auto kernel =
-      attention_fwd_tc_kernel<D, kStatsOnly, kWarps, kStages, kMinBlocks>;
+  const size_t bytes =
+      (kRows + (kStatsOnly ? 1 : 2) * kStages * kTcTile) *
+          TcTile<D>::kStride * sizeof(__nv_bfloat16) +
+      (kBias ? kStages * kRows * bias_stride<kTcTile>() * sizeof(TB) : 0);
+  auto kernel = attention_fwd_tc_kernel<D, kStatsOnly, kWarps, kStages,
+                                        kMinBlocks, kBias, kDropout, TB>;
   cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
@@ -334,22 +421,25 @@ cudaError_t launch_fwd_tc_as(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_mask,
       static_cast<__nv_bfloat16*>(out), row_max, row_sum, sq, sk, heads,
-      scale, causal);
+      scale, causal, ba);
   return cudaGetLastError();
 }
 
 // the body's shape on this card, the fastest of those timed at OPT-350M's
 // (4, 2048, 16, 64) causal, K1's and K2's shapes on an H100 (PERF.md §6):
-// 4 warps, a 2-stage ring, 3 blocks an SM
-template <int D, bool kStatsOnly>
+// 4 warps, a 2-stage ring, 3 blocks an SM; the bias form takes the same
+// shape, also the fastest at T5-base's shapes (sweep/bias_shapes.cu)
+template <int D, bool kStatsOnly, bool kBias = false, bool kDropout = false,
+          typename TB = __nv_bfloat16>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           const int* kv_mask, void* out, float* row_max,
                           float* row_sum, int batch, int sq, int sk,
                           int heads, float scale, int causal,
-                          cudaStream_t stream) {
-  return launch_fwd_tc_as<D, kStatsOnly, 4, 2, 3>(
+                          cudaStream_t stream,
+                          BiasArgs<TB> ba = BiasArgs<TB>{}) {
+  return launch_fwd_tc_as<D, kStatsOnly, 4, 2, 3, kBias, kDropout, TB>(
       q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
-      causal, stream);
+      causal, stream, ba);
 }
 
 }  // namespace mmgl

@@ -1,7 +1,8 @@
 // Helpers shared by the attention kernels (attention_fwd.cu, attention_bwd.cu,
 // attention_blocked_bwd.cu, attention_bias_fwd.cu, attention_bias_bwd.cu):
-// scalar fp32 loads and FMAs, and the inline PTX of the bf16 tensor-core
-// bodies (mma.sync, ldmatrix, cp.async).
+// scalar fp32 loads and FMAs, the inline PTX of the bf16 tensor-core
+// bodies (mma.sync, ldmatrix, cp.async), and the bias tiles of their bias
+// form.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -194,6 +195,58 @@ __device__ __forceinline__ void tile_async(__nv_bfloat16* dst,
                src + static_cast<long>(ok ? row0 + r : 0) * row_stride + 8 * c,
                ok);
   }
+}
+
+// ---- the bias form of the tensor-core bodies (K7, K8/K9) -------------------
+
+// What the bias form adds to a body's arguments: the batch-shared
+// (H, Sq, Sk) bias (unread without kBias) with its row stride ld, a
+// multiple of 8 elements (the wrapper pads a ragged Sk with zeros), and
+// the dropout key (unread without kDropout): element (b, h, i, j) is kept
+// iff its Philox word (philox.cuh) is below threshold, and then scaled by
+// keep_inv.
+template <typename TB>
+struct BiasArgs {
+  const TB* bias;
+  int ld;
+  const long long* seed;
+  unsigned int threshold;
+  float keep_inv;
+};
+
+// a bias tile's row stride in shared memory: kCols + 8 elements, so that a
+// row starts on 16 bytes and the fragment reads of a warp fall in distinct
+// banks (bf16, and fp32 along a row)
+template <int kCols>
+__host__ __device__ constexpr int bias_stride() {
+  return kCols + 8;
+}
+
+// kRows x kCols of a (rows, ld) bias from (row0, col0) into a padded tile,
+// 16 bytes a copy in flight; chunks at or past n_rows or ld zero-filled
+template <typename TB, int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void bias_tile_async(TB* dst, const TB* src,
+                                                int ld, int row0, int n_rows,
+                                                int col0, int tid) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(TB));
+  constexpr int kChunks = kCols / kPer;
+  for (int e = tid; e < kRows * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = kPer * (e % kChunks);
+    const bool ok = row0 + r < n_rows && col0 + c < ld;
+    cp_async16(dst + r * bias_stride<kCols>() + c,
+               src + (ok ? static_cast<long>(row0 + r) * ld + col0 + c : 0),
+               ok);
+  }
+}
+
+// two consecutive elements as fp32 (8 bytes of fp32, 4 of bf16)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // a kernel's dynamic shared memory limit, and the largest carveout of the

@@ -1,7 +1,8 @@
 // Counter-based random bits for the in-kernel attention-prob dropout
-// (attention_bias_fwd.cu, attention_bias_bwd.cu), the Hopper counterpart of
-// the TPU hardware PRNG that _gen_keep_factor (mmgl_tpu/ops/flash_attention.py:570)
-// reseeds per block.
+// (attention_bias_fwd.cu, attention_bias_bwd.cu and the bias form of the
+// tensor-core bodies in attention_fwd_tc.cuh and attention_bwd_tiles.cuh),
+// the Hopper counterpart of the TPU hardware PRNG that _gen_keep_factor
+// (mmgl_tpu/ops/flash_attention.py:570) reseeds per block.
 //
 // Philox-4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 // 3", SC 2011; the Random123 constants): a 2-word key, a 4-word counter,
@@ -14,7 +15,7 @@
 // 16-key group: the keys one thread of the forward owns in a 64-key tile
 // (key = sub + 4 t), and no call is made twice. It is kept where the word is
 // below thr = round(keep * 2^32), and then scaled by 1 / keep.
-// mmgl_tpu_torch/ops/flash_attention.py (dropout_bits) computes the same bits
+// mmgl_tpu_torch/ops/attention.py (dropout_bits) computes the same bits
 // with torch int64 arithmetic; the two are compared bit for bit.
 #pragma once
 
@@ -81,10 +82,39 @@ __device__ __forceinline__ Philox4 dropout_group(const DropoutKey& key,
                        static_cast<unsigned int>(b), key.k0, key.k1);
 }
 
-// keep_inv where the word of key j in its group call r keeps, else 0
+// keep_inv where a word keeps, else 0
+__device__ __forceinline__ float keep_factor(const DropoutKey& key,
+                                             unsigned int word) {
+  return word < key.threshold ? key.keep_inv : 0.f;
+}
+
+// the keep factor of key j from its group call r
 __device__ __forceinline__ float dropout_factor(const DropoutKey& key,
                                                 const Philox4& r, int j) {
-  return philox_word(r, (j >> 2) & 3) < key.threshold ? key.keep_inv : 0.f;
+  return keep_factor(key, philox_word(r, (j >> 2) & 3));
+}
+
+// The tensor-core bodies' share of the calls. In an mma.sync accumulator
+// the four words of one call fall on two lanes, lane and lane ^ xor_mask,
+// each needing words hi and hi + 2 of two calls (hi = 0 on one lane, 1 on
+// the other): so each lane makes one call, the one with counter
+// (c0, i, h, b), keeps its words hi and hi + 2 in own, and sends its words
+// 1 - hi and 3 - hi to the other lane, receiving that lane's call's words
+// hi and hi + 2 in other. Each call is made once per pass. Called by the
+// whole warp.
+__device__ __forceinline__ void philox_pair(const DropoutKey& key,
+                                            unsigned int c0, int i, int h,
+                                            int b, int hi, int xor_mask,
+                                            unsigned int (&own)[2],
+                                            unsigned int (&other)[2]) {
+  const Philox4 r =
+      philox4x32_10(c0, static_cast<unsigned int>(i),
+                    static_cast<unsigned int>(h),
+                    static_cast<unsigned int>(b), key.k0, key.k1);
+  own[0] = philox_word(r, hi);
+  own[1] = philox_word(r, hi + 2);
+  other[0] = __shfl_xor_sync(0xffffffffu, philox_word(r, 1 - hi), xor_mask);
+  other[1] = __shfl_xor_sync(0xffffffffu, philox_word(r, 3 - hi), xor_mask);
 }
 
 }  // namespace mmgl

@@ -130,12 +130,18 @@ def load() -> Library:
         for fn in (name, name + "_tc"):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
-    lib.mmgl_bias_fwd.argtypes = ([ptr] * 7 + [i32] * 5
-                                  + [f32, i32, u32, f32, i32, i32, ptr])
-    lib.mmgl_bias_fwd.restype = i32
-    lib.mmgl_bias_bwd.argtypes = ([ptr] * 14 + [i32] * 5
-                                  + [f32, i32, u32, f32, i32, i32, ptr])
-    lib.mmgl_bias_bwd.restype = i32
+    # K7 and K8/K9: the tensor-core entries also take the row max and sum
+    # (null where none are kept) and the bias's row stride
+    tail = [f32, i32, u32, f32, i32, i32]
+    bias_signatures = {
+        "mmgl_bias_fwd": [ptr] * 7 + [i32] * 5 + tail + [ptr],
+        "mmgl_bias_fwd_tc": [ptr] * 9 + [i32] * 5 + tail + [i32, ptr],
+        "mmgl_bias_bwd": [ptr] * 14 + [i32] * 5 + tail + [ptr],
+        "mmgl_bias_bwd_tc": [ptr] * 16 + [i32] * 5 + tail + [i32, ptr],
+    }
+    for name, args in bias_signatures.items():
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i32
     lib.mmgl_error_string.argtypes = [i32]
     lib.mmgl_error_string.restype = ctypes.c_char_p
     ptxas = out.with_suffix(".ptxas.txt")

@@ -33,12 +33,15 @@ csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
      kernel for the Pallas ``_bwd_bias_kernel_batched`` (:843, K8) and
      ``_bwd_bias_kernel`` (:689, K9).
 
-K1-K6 have two bodies each, chosen by the input dtype (``_tensor_cores``):
+Every kernel has two bodies, chosen by the input dtype (``_tensor_cores``):
 bf16 inputs launch the tensor-core body (mma.sync; the ``*_tc`` entries of
 the library), fp32 inputs the scalar one (on the tensor cores fp32 would run
-as TF32, about three decimal digits, against the fp32 checks' 2e-5). Their
+as TF32, about three decimal digits, against the fp32 checks' 2e-5). The
 wrappers count ``launches`` and, of those, ``launches_tc``. There is no
-fallback from one body to the other.
+fallback from one body to the other. K7's tensor-core body also writes the
+rows' softmax max and sum where a gradient follows
+(``flash_attention_bias_stats``), and K8/K9's starts from them instead of
+its stats pass.
 
 K1, K2, K4 and K7 keep the JAX signatures, BSHD in and out, and carry autograd on
 every device: K1 through ``_AllheadsAttention`` (K1 forward, K3 backward, the
@@ -116,9 +119,15 @@ def flash_attention_reference(q, k, v, *, kv_mask=None, causal=False,
                               scale=scale)
     if not with_stats:
         return out
-    logits = _masked_logits(q, k, kv_mask, causal, scale)
+    return (out,) + _row_stats(q, k, kv_mask, causal, scale)
+
+
+def _row_stats(q, k, kv_mask, causal, scale, bias=None):
+    """(row_max, row_sum), (B, H, Sq) fp32: the softmax max and sum of each
+    row's masked logits (with the bias)."""
+    logits = _masked_logits(q, k, kv_mask, causal, scale, bias)
     row_max = logits.amax(-1)
-    return out, row_max, torch.exp(logits - row_max[..., None]).sum(-1)
+    return row_max, torch.exp(logits - row_max[..., None]).sum(-1)
 
 
 def flash_attention_bwd_reference(q, k, v, kv_mask, out, dout, causal=False,
@@ -131,13 +140,18 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, out, dout, causal=False,
 
 def bias_attention_reference(q, k, v, *, bias=None, kv_mask=None,
                              causal=False, scale=None, dropout_rate=0.0,
-                             dropout_seed=None):
+                             dropout_seed=None, with_stats=False):
     """Plain version of K7: ``xla_attention``'s math in torch with the
-    kernel's dropout bits."""
-    return attention_reference(q, k, v, kv_mask=kv_mask, bias=bias,
-                               causal=causal, scale=scale,
-                               dropout_rate=dropout_rate,
-                               dropout_seed=dropout_seed)
+    kernel's dropout bits. With ``with_stats``, (out, row_max, row_sum) as
+    ``flash_attention_reference`` gives them, of the logits with the bias
+    (the dropout comes after the softmax and changes neither)."""
+    out = attention_reference(q, k, v, kv_mask=kv_mask, bias=bias,
+                              causal=causal, scale=scale,
+                              dropout_rate=dropout_rate,
+                              dropout_seed=dropout_seed)
+    if not with_stats:
+        return out
+    return (out,) + _row_stats(q, k, kv_mask, causal, scale, bias)
 
 
 def _allowed(q, k, kv_mask, causal):
@@ -152,11 +166,13 @@ def _allowed(q, k, kv_mask, causal):
     return allowed
 
 
-def _masked_logits(q, k, kv_mask, causal, scale):
-    """(B, H, Sq, Sk) fp32 logits, NEG_INF where masked."""
+def _masked_logits(q, k, kv_mask, causal, scale, bias=None):
+    """(B, H, Sq, Sk) fp32 logits (plus the bias), NEG_INF where masked."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     return logits.masked_fill(~_allowed(q, k, kv_mask, causal), NEG_INF)
 
 
@@ -276,8 +292,8 @@ def _plain(q) -> bool:
 
 
 def _tensor_cores(q) -> bool:
-    """Whether K1-K6 take their tensor-core body (bf16), not the scalar one
-    (fp32; ``_check`` refuses any other dtype)."""
+    """Whether a kernel takes its tensor-core body (bf16), not the scalar
+    one (fp32; ``_check`` refuses any other dtype)."""
     return q.dtype == torch.bfloat16
 
 
@@ -287,7 +303,7 @@ def _entry(fn: str, q) -> str:
 
 
 def _count(wrapper, q) -> None:
-    """One launch of a K1-K6 wrapper, and of its tensor-core body if q is
+    """One launch of a kernel wrapper, and of its tensor-core body if q is
     bf16."""
     wrapper.launches += 1
     wrapper.launches_tc += int(_tensor_cores(q))
@@ -694,66 +710,121 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv):
-    """Run K7's launcher on the current stream; returns out."""
+def _padded_bias(bias, sk):
+    """(bias, row stride) as the tensor-core bodies read it: rows padded
+    with zeros to a multiple of 8 elements, so each 16-byte copy of a tile
+    starts on 16 bytes (T5's 512 and 128 need no padding); (None, 0)
+    without a bias."""
+    if bias is None:
+        return None, 0
+    ld = -(-sk // 8) * 8
+    if ld != sk:
+        bias = torch.nn.functional.pad(bias, (0, ld - sk))
+    return bias, ld
+
+
+def _empty_stats(q):
+    """Two (B, H, Sq) fp32 tensors for a kernel's row max and sum."""
+    b, sq, h, _ = q.shape
+    return tuple(torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+                 for _ in range(2))
+
+
+def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv,
+                 *stats):
+    """Run K7's launcher (its tensor-core entry for bf16) on the current
+    stream; returns out. ``stats``: the row max and sum tensors the
+    tensor-core body writes beside out, or none."""
     b, sq, h, d = q.shape
+    sk = k.shape[1]
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
     out = torch.empty_like(q)
+    bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.mmgl_bias_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            _ptr(bias), _ptr(seed), out.data_ptr(), b, sq,
-            k.shape[1], h, d, float(scale), int(causal), thr, keep_inv,
-            int(q.dtype == torch.bfloat16),
-            int(bias is not None and bias.dtype == torch.bfloat16), stream)
+        if _tensor_cores(q):
+            bias, ld = _padded_bias(bias, sk)
+            err = lib.mmgl_bias_fwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                _ptr(bias), _ptr(seed), out.data_ptr(),
+                *(_ptr(t) for t in (stats or (None, None))), b, sq, sk, h, d,
+                float(scale), int(causal), thr, keep_inv, 1, bias_bf16, ld,
+                stream)
+        else:
+            err = lib.mmgl_bias_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                _ptr(bias), _ptr(seed), out.data_ptr(), b, sq, sk, h, d,
+                float(scale), int(causal), thr, keep_inv, 0, bias_bf16,
+                stream)
     _build.check(lib, err, "flash_attention_bias")
     return out
 
 
 def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
-                     thr, keep_inv):
-    """Run K8/K9's launcher on the current stream; returns (dq, dk, dv,
-    dbias). dbias is summed over the batch from a per-(b, h) fp32 partial
-    of dlogits in a fixed order (no atomics): B * H * Sq * Sk * 4 bytes of
-    scratch, 50,331,648 at T5-base's encoder shape (4, 12, 512, 512)."""
+                     thr, keep_inv, *stats):
+    """Run K8/K9's launcher (its tensor-core entry for bf16) on the current
+    stream; returns (dq, dk, dv, dbias). ``stats``: K7's row max and sum,
+    from which the tensor-core body starts instead of its stats pass, or
+    none. dbias is summed over the batch from a per-(b, h) fp32 partial of
+    dlogits in a fixed order (no atomics): B * H * Sq * Sk * 4 bytes of
+    scratch, 50,331,648 at T5-base's encoder shape (4, 12, 512, 512), which
+    the tensor-core body writes whole (the scalar body needs it zeroed: it
+    skips the causally hidden tiles)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    tc = _tensor_cores(q)
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(3 * b * h * sq, dtype=torch.float32,
+                          device=q.device)
     dbias = partial = None
     if bias is not None:
         dbias = torch.empty_like(bias)
-        # zeroed: the dQ launch skips the causally hidden tiles
-        partial = torch.zeros(b * h * sq * sk, dtype=torch.float32,
-                              device=q.device)
+        partial = (torch.empty if tc else torch.zeros)(
+            b * h * sq * sk, dtype=torch.float32, device=q.device)
+    bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr())
+    grads = (out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), _ptr(dbias), scratch.data_ptr(), _ptr(partial))
     with torch.cuda.device(q.device):
-        err = lib.mmgl_bias_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            _ptr(bias), _ptr(seed), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
-            stats.data_ptr(), _ptr(partial), b, sq, sk, h, d,
-            float(scale), int(causal), thr, keep_inv,
-            int(q.dtype == torch.bfloat16),
-            int(bias is not None and bias.dtype == torch.bfloat16), stream)
+        if tc:
+            padded, ld = _padded_bias(bias, sk)
+            err = lib.mmgl_bias_bwd_tc(
+                *common, _ptr(padded), _ptr(seed), *grads,
+                *(_ptr(t) for t in (stats or (None, None))), b, sq, sk, h, d,
+                float(scale), int(causal), thr, keep_inv, 1, bias_bf16, ld,
+                stream)
+        else:
+            err = lib.mmgl_bias_bwd(
+                *common, _ptr(bias), _ptr(seed), *grads, b, sq, sk, h, d,
+                float(scale), int(causal), thr, keep_inv, 0, bias_bf16,
+                stream)
     _build.check(lib, err, "flash_attention_bias_bwd")
     return dq, dk, dv, dbias
 
 
 def flash_attention_bias_bwd(q, k, v, kv_mask, bias, out, dout, *,
                              causal=False, scale=None, dropout_rate=0.0,
-                             dropout_seed=None):
+                             dropout_seed=None, row_max=None, row_sum=None):
     """K8/K9: (dq, dk, dv, dbias) of K7 for the cotangent ``dout``, with
     ``out`` K7's output for the same inputs and dropout key. bias is
     (H, Sq, Sk) or None; dbias is (H, Sq, Sk) in the bias dtype, summed over
-    the batch, or None without a bias."""
+    the batch, or None without a bias. ``row_max``/``row_sum``: K7's row
+    stats for the same inputs (``flash_attention_bias_stats``), (B, H, Sq)
+    fp32, or None; the bf16 tensor-core body starts from them instead of
+    its stats pass, with the same bits, and the fp32 body and the plain
+    version recompute the softmax."""
     name = "flash_attention_bias_bwd"
     _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
     _check_bias(name, q, k, bias)
+    if (row_max is None) != (row_sum is None):
+        raise ValueError(f"{name}: give both row_max and row_sum, or neither")
+    stats = () if row_max is None else (row_max, row_sum)
+    if stats:
+        _check_stats(name, q, *stats)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     seed, thr, keep_inv = _dropout_args(dropout_rate, dropout_seed, q)
@@ -765,42 +836,84 @@ def flash_attention_bias_bwd(q, k, v, kv_mask, bias, out, dout, *,
             dropout_seed=seed)
         return dq, dk, dv, None if dbias is None else dbias[0]
     grads = _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal,
-                             scale, thr, keep_inv)
-    flash_attention_bias_bwd.launches += 1
+                             scale, thr, keep_inv,
+                             *(stats if _tensor_cores(q) else ()))
+    _count(flash_attention_bias_bwd, q)
     return grads
 
 
 flash_attention_bias_bwd.launches = 0
+flash_attention_bias_bwd.launches_tc = 0
+
+
+def _bias_forward(q, k, v, kv_mask, bias, seed, causal, scale, rate,
+                  with_stats):
+    """K7 (or its plain version on the CPU): (out, row_max, row_sum), the
+    stats None unless ``with_stats`` (on the card, bf16 only: the fp32
+    scalar body keeps none)."""
+    if _plain(q):
+        got = bias_attention_reference(
+            q, k, v, bias=None if bias is None else bias[None],
+            kv_mask=kv_mask, causal=causal, scale=scale, dropout_rate=rate,
+            dropout_seed=seed, with_stats=with_stats)
+        return got if with_stats else (got, None, None)
+    if with_stats and not _tensor_cores(q):
+        raise ValueError("flash_attention_bias: the row stats come from the "
+                         "bf16 tensor-core body; q is " + str(q.dtype))
+    seed, thr, keep_inv = _dropout_args(rate, seed, q)
+    stats = _empty_stats(q) if with_stats else (None, None)
+    out = _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
+                       keep_inv, *(stats if with_stats else ()))
+    _count(flash_attention_bias, q)
+    return (out,) + stats
 
 
 class _BiasAttention(torch.autograd.Function):
     """K7 forward, K8/K9 backward (the ``_flash_bias`` custom VJP,
-    mmgl_tpu/ops/flash_attention.py:1043-1066). bias is (H, Sq, Sk) or
-    None; seed the dropout key or None."""
+    mmgl_tpu/ops/flash_attention.py:1043-1066), from K7's row stats where
+    ``with_stats``. bias is (H, Sq, Sk) or None; seed the dropout key or
+    None."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, bias, seed, causal, scale, rate):
-        if _plain(q):
-            out = bias_attention_reference(
-                q, k, v, bias=None if bias is None else bias[None],
-                kv_mask=kv_mask, causal=causal, scale=scale,
-                dropout_rate=rate, dropout_seed=seed)
-        else:
-            seed, thr, keep_inv = _dropout_args(rate, seed, q)
-            out = _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale,
-                               thr, keep_inv)
-            flash_attention_bias.launches += 1
-        ctx.save_for_backward(q, k, v, kv_mask, bias, seed, out)
+    def forward(ctx, q, k, v, kv_mask, bias, seed, causal, scale, rate,
+                with_stats):
+        out, row_max, row_sum = _bias_forward(q, k, v, kv_mask, bias, seed,
+                                              causal, scale, rate, with_stats)
+        ctx.save_for_backward(q, k, v, kv_mask, bias, seed, out, row_max,
+                              row_sum)
         ctx.causal, ctx.scale, ctx.rate = causal, scale, rate
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_mask, bias, seed, out = ctx.saved_tensors
+        q, k, v, kv_mask, bias, seed, out, row_max, row_sum = \
+            ctx.saved_tensors
         dq, dk, dv, dbias = flash_attention_bias_bwd(
             q, k, v, kv_mask, bias, out, dout, causal=ctx.causal,
-            scale=ctx.scale, dropout_rate=ctx.rate, dropout_seed=seed)
-        return dq, dk, dv, None, dbias, None, None, None, None
+            scale=ctx.scale, dropout_rate=ctx.rate, dropout_seed=seed,
+            row_max=row_max, row_sum=row_sum)
+        return dq, dk, dv, None, dbias, None, None, None, None, None
+
+
+def _bias_args(name, q, k, v, bias, kv_mask, causal, scale, dropout_rate,
+               dropout_seed):
+    """K7's inputs as its body takes them: (k, v, bias, scale, seed, rate)
+    with a broadcast K/V head and bias head expanded, the bias (H, Sq, Sk),
+    and rate 0 where nothing is dropped."""
+    k, v = _broadcast_kv(q, k, v)
+    _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if bias is not None:
+        if bias.dim() != 4 or bias.shape[0] != 1:
+            raise ValueError(f"{name}: the kernel takes a batch-shared "
+                             f"(1, H, Sq, Sk) bias, got {tuple(bias.shape)}")
+        h = q.shape[2]
+        # a broadcast head is expanded; the gradient sums it back
+        bias = bias[0].expand(h, *bias.shape[2:]).contiguous()
+        _check_bias(name, q, k, bias)
+    seed, _, _ = _dropout_args(dropout_rate, dropout_seed, q)
+    return k, v, bias, scale, seed, dropout_rate if seed is not None else 0.0
 
 
 def flash_attention_bias(
@@ -819,23 +932,33 @@ def flash_attention_bias(
     (1, H or 1, Sq, Sk) in fp32 or bf16, or none, and attention-prob
     dropout at ``dropout_rate`` under the (2,) int64 key ``dropout_seed``
     (``attention.draw_dropout_seed``); (B, Sq, H, D) out. Its gradient runs
-    K8/K9 and reaches the bias."""
-    k, v = _broadcast_kv(q, k, v)
-    name = "flash_attention_bias"
-    _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if bias is not None:
-        if bias.dim() != 4 or bias.shape[0] != 1:
-            raise ValueError(f"{name}: the kernel takes a batch-shared "
-                             f"(1, H, Sq, Sk) bias, got {tuple(bias.shape)}")
-        h = q.shape[2]
-        # a broadcast head is expanded; the gradient sums it back
-        bias = bias[0].expand(h, *bias.shape[2:]).contiguous()
-        _check_bias(name, q, k, bias)
-    seed, _, _ = _dropout_args(dropout_rate, dropout_seed, q)
+    K8/K9 and reaches the bias; in bf16 on the card K7 then keeps the rows'
+    stats for it, only where a gradient will be taken (JAX's custom VJP
+    saves only the output)."""
+    k, v, bias, scale, seed, rate = _bias_args(
+        "flash_attention_bias", q, k, v, bias, kv_mask, causal, scale,
+        dropout_rate, dropout_seed)
+    with_stats = (not _plain(q) and _tensor_cores(q)
+                  and torch.is_grad_enabled()
+                  and any(t is not None and t.requires_grad
+                          for t in (q, k, v, bias)))
     return _BiasAttention.apply(q, k, v, kv_mask, bias, seed, causal, scale,
-                                dropout_rate if seed is not None else 0.0)
+                                rate, with_stats)
 
 
 flash_attention_bias.launches = 0
+flash_attention_bias.launches_tc = 0
+
+
+def flash_attention_bias_stats(q, k, v, *, bias=None, kv_mask=None,
+                               causal=False, scale=None, dropout_rate=0.0,
+                               dropout_seed=None):
+    """K7 keeping the rows' softmax statistics, as K8/K9 can start from
+    them: (out, row_max, row_sum), the stats (B, H, Sq) fp32 (kept apart,
+    as K4's). On the card bf16 only. No autograd; a launch counts under
+    ``flash_attention_bias.launches``."""
+    k, v, bias, scale, seed, rate = _bias_args(
+        "flash_attention_bias", q, k, v, bias, kv_mask, causal, scale,
+        dropout_rate, dropout_seed)
+    return _bias_forward(q, k, v, kv_mask, bias, seed, causal, scale, rate,
+                         True)

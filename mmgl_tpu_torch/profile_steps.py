@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -73,7 +74,23 @@ KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
          ("index", ("scatter", "gather", "index"))]
 
 
+# the tensor-core bodies (csrc/attention_fwd_tc.cuh, attention_bwd_tiles.cuh)
+# with their template arguments: the forward's <D, kStatsOnly, kWarps,
+# kStages, kMinBlocks, kBias, kDropout, TB>, the backward tiles' <D, kWarps,
+# kStages, kMinBlocks, kBias, kDropout, TB>
+_TC_BODY = re.compile(r"attention_(fwd|bwd_dkdv|bwd_dq)_tc_kernel<([^>]*)>")
+
+
 def _kind(name: str) -> str:
+    body = _TC_BODY.search(name)
+    if body:
+        args = [a.strip() for a in body.group(2).split(",")]
+        # the bias form (kBias or kDropout) is K7's forward, and in its
+        # stats-only form and the backward tiles K8/K9's (whose stats pass
+        # without a bias is K5's code, counted there)
+        if "true" in args[-3:-1]:
+            return ("K7" if body.group(1) == "fwd" and args[1] == "false"
+                    else "K8/K9")
     n = name.lower()
     return next((k for k, subs in KINDS if any(s in n for s in subs)),
                 "elementwise and other")

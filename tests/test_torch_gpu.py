@@ -6,8 +6,10 @@ repository's conftest imports it, hence --noconftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-K1-K6 take their tensor-core body in bf16 and their scalar body in fp32;
-each case checks which body its launches counted.
+Every kernel takes its tensor-core body in bf16 and its scalar body in
+fp32; each case checks which body its launches counted. K8/K9 in bf16
+starts from K7's row stats where autograd runs it, and equals, bit for
+bit, K8/K9 with its own stats pass.
 
 Forward tolerances: bf16 atol = rtol = 2e-2 (the plain version rounds the
 normalised probabilities to bf16 before PV, the kernel the unnormalised ones
@@ -278,17 +280,14 @@ def test_bias_kernels_match_plain_versions(dims, causal, with_bias, dtype,
     seed = torch.tensor([123456789, 987654321], dtype=torch.int64,
                         device=dev)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    before = (fa.flash_attention_bias.launches,
-              fa.flash_attention_bias_bwd.launches)
+    counted = _counts(fa.flash_attention_bias, fa.flash_attention_bias_bwd)
     got = fa.flash_attention_bias(q, k, v, bias=bias, kv_mask=mask,
                                   causal=causal, scale=1.0, dropout_rate=rate,
                                   dropout_seed=seed)
     wrt = (q, k, v) + ((bias,) if with_bias else ())
     grads = torch.autograd.grad(got, wrt, dout)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_bias.launches,
-            fa.flash_attention_bias_bwd.launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert counted() == [(1, int(dtype == torch.bfloat16))] * 2
     plain_bias = None if bias is None else bias.detach()
     ref = fa.bias_attention_reference(
         q.detach(), k.detach(), v.detach(), bias=plain_bias, kv_mask=mask,
@@ -303,18 +302,18 @@ def test_bias_kernels_match_plain_versions(dims, causal, with_bias, dtype,
         _close_rel(g, r, dtype, name)
 
 
-def kernel_keep_mask(b, sq, sk, h, seed, rate, dev):
+def kernel_keep_mask(b, sq, sk, h, seed, rate, dev, dtype=torch.float32):
     """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output.
     With q = 0 and one 64-key window unmasked, P is 1/64 on the window's
     keys, and with v the identity on the window, out[..., d] is the keep
     factor of key window + d over 64: zero exactly where it was dropped."""
-    q = torch.zeros(b, sq, h, 64, device=dev)
+    q = torch.zeros(b, sq, h, 64, device=dev, dtype=dtype)
     keep = torch.zeros(b, h, sq, sk, dtype=torch.bool, device=dev)
     for w0 in range(0, sk, 64):
         n = min(64, sk - w0)
         mask = torch.zeros(b, sk, dtype=torch.int32, device=dev)
         mask[:, w0:w0 + n] = 1
-        v = torch.zeros(b, sk, h, 64, device=dev)
+        v = torch.zeros(b, sk, h, 64, device=dev, dtype=dtype)
         v[:, w0:w0 + n, :, :n] = torch.eye(n, device=dev)[:, None, :]
         out = fa.flash_attention_bias(q, torch.zeros_like(v), v, kv_mask=mask,
                                       scale=1.0, dropout_rate=rate,
@@ -324,15 +323,18 @@ def kernel_keep_mask(b, sq, sk, h, seed, rate, dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("dims", [(4, 512, 512, 12), (4, 128, 512, 12),
                                   (3, 333, 77, 2)])
-def test_dropout_mask_is_the_plain_versions_bit_for_bit(dims):
-    """K7 keeps exactly the elements the plain version keeps, and about 0.9
-    of them (within 6 sigma)."""
+def test_dropout_mask_is_the_plain_versions_bit_for_bit(dims, dtype):
+    """K7, in its tensor-core body (bf16) and its scalar one (fp32), keeps
+    exactly the elements the plain version keeps, and about 0.9 of them
+    (within 6 sigma)."""
     dev = _device()
     b, sq, sk, h = dims
     seed = torch.tensor([2 ** 32 - 3, 17], dtype=torch.int64, device=dev)
-    got = kernel_keep_mask(b, sq, sk, h, seed, 0.1, dev)
+    got = kernel_keep_mask(b, sq, sk, h, seed, 0.1, dev, dtype)
     from mmgl_tpu_torch.ops import attention as att
     want = att.dropout_bits(seed, (b, h, sq, sk)) < att.dropout_threshold(
         0.1)[0]
@@ -490,3 +492,70 @@ def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal):
                                    atol=BWD_TOL[torch.bfloat16] * scale,
                                    rtol=BWD_TOL[torch.bfloat16], msg=name)
         assert torch.equal(g, g5), name
+
+
+# the bias bodies' three forms on T5's path: (bias, dropout rate)
+BIAS_FORMS = {"bias": (True, 0.0), "bias_drop": (True, 0.1),
+              "drop": (False, 0.1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(BIAS_FORMS))
+@pytest.mark.parametrize("sq,sk,causal", EDGE_CASES)
+def test_bias_bodies_at_fragment_edges(sq, sk, causal, form):
+    """In bf16: K7 and, through autograd from its row stats, K8/K9 (dbias
+    included) against their plain versions, with a fully masked sample and
+    a sample whose first third of keys is masked; every launch counted as
+    the tensor-core body; K8/K9 with its own stats pass equal to the
+    autograd gradients bit for bit."""
+    dev = _device()
+    with_bias, rate = BIAS_FORMS[form]
+    b, h = 3, 2
+    q, k, v, dout = _qkv((b, sq, sk, h, h), torch.bfloat16, dev,
+                         seed=1000 * sq + sk + 1, scale=0.125)
+    rng = np.random.RandomState(sq + 7 * sk + 1)
+    mask = (rng.uniform(size=(b, sk)) > 0.25).astype(np.int32)
+    mask[0] = 0
+    mask[1, :max(1, sk // 3)] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    bias = None
+    if with_bias:
+        bias = torch.from_numpy(rng.randn(1, h, sq, sk).astype(
+            np.float32)).to(dev, torch.bfloat16).requires_grad_()
+    seed = torch.tensor([sq * 7919 + sk, 31], dtype=torch.int64, device=dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    wrt = (q, k, v) + ((bias,) if with_bias else ())
+    counted = _counts(fa.flash_attention_bias, fa.flash_attention_bias_bwd)
+    out = fa.flash_attention_bias(q, k, v, bias=bias, kv_mask=mask,
+                                  causal=causal, scale=1.0, dropout_rate=rate,
+                                  dropout_seed=seed)
+    grads = torch.autograd.grad(out, wrt, dout)
+    plain_bias = None if bias is None else bias.detach()
+    own = fa.flash_attention_bias_bwd(
+        q.detach(), k.detach(), v.detach(), mask,
+        None if bias is None else plain_bias[0], out.detach(), dout,
+        causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert counted() == [(1, 1), (2, 2)]
+    ref = fa.bias_attention_reference(
+        q.detach(), k.detach(), v.detach(), bias=plain_bias, kv_mask=mask,
+        causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.detach().float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    refs = fa.bias_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), mask, plain_bias, out.detach(),
+        dout, causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
+    # with one key dQ, dK and dbias are 0 in exact arithmetic (P = 1,
+    # dS = 0) and the kernel's are rounding residue: their atol takes dV's
+    # scale there
+    floor = float(refs[2].float().abs().max()) if sk == 1 else 0.0
+    for name, g, g_own, r in zip(("dq", "dk", "dv", "dbias"), grads,
+                                 (*own[:3], None if own[3] is None
+                                  else own[3][None]), refs):
+        scale = max(float(r.float().abs().max()), floor)
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), r.float(),
+                                   atol=BWD_TOL[torch.bfloat16] * scale,
+                                   rtol=BWD_TOL[torch.bfloat16], msg=name)
+        assert torch.equal(g, g_own), name

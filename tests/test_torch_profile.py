@@ -38,6 +38,34 @@ def test_kernel_kinds():
         "copies and casts")
 
 
+@pytest.mark.parametrize("name,kind", [
+    # K4 and K5's stats pass: no bias, no dropout
+    ("attention_fwd_tc_kernel<64, false, 4, 2, 3, false, false, "
+     "__nv_bfloat16>", "K1+K2+K4"),
+    ("attention_fwd_tc_kernel<64, true, 4, 2, 3, false, false, "
+     "__nv_bfloat16>", "K1+K2+K4"),
+    ("attention_bwd_dkdv_tc_kernel<64, 4, 2, 3, false, false, "
+     "__nv_bfloat16>", "K3+K5+K6"),
+    # K7 with its bias, or dropout alone (the training cross-attention)
+    ("attention_fwd_tc_kernel<64, false, 4, 2, 3, true, true, "
+     "__nv_bfloat16>", "K7"),
+    ("attention_fwd_tc_kernel<64, false, 4, 2, 3, false, true, "
+     "__nv_bfloat16>", "K7"),
+    # K8/K9: the stats-only pass with the bias, and the tile bodies
+    ("attention_fwd_tc_kernel<64, true, 4, 2, 3, true, false, float>",
+     "K8/K9"),
+    ("attention_bwd_dq_tc_kernel<64, 4, 2, 3, false, true, "
+     "__nv_bfloat16>", "K8/K9"),
+    ("attention_bwd_dkdv_tc_kernel<64, 4, 2, 3, true, true, "
+     "__nv_bfloat16>", "K8/K9"),
+])
+def test_tensor_core_body_kinds(name, kind):
+    """The tensor-core bodies are told apart by their template flags: the
+    bias form (kBias or kDropout) is K7's forward and K8/K9's backward."""
+    assert profile_steps._kind(f"void mmgl::{name}(__nv_bfloat16 const*, "
+                               f"int, mmgl::BiasArgs<float>)") == kind
+
+
 def test_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible")
