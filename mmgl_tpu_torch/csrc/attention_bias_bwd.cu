@@ -28,7 +28,7 @@
 //
 // Two bodies, chosen by the input dtype as K1-K6's are, each on the
 // caller's stream with no atomics:
-//   * bf16 (mmgl_bias_bwd_tc): the tensor-core bodies of
+//   * bf16, fp16 (mmgl_bias_bwd_tc): the tensor-core bodies of
 //     attention_bwd_tiles.cuh in their bias form (kBias, kDropout), from
 //     K7's saved row max and sum, or, where none are given, from K7's body
 //     in its stats-only form (the same instructions for m and l, so the
@@ -38,7 +38,8 @@
 //     dQ, one block per (64 query rows, head, batch), as the forward, which
 //     stores its fp32 dlogits fragments (zeros on the tiles it skips) into
 //     the partial; each streamed tile brings its bias tile into the
-//     cp.async ring; P times the keep factor and dS are rounded to bf16
+//     cp.async ring; P times the keep factor and dS are rounded to the
+//     input type
 //     for their products, where the Pallas kernels round them, and dbias
 //     comes from the fp32 dlogits; then the reduction (4 below).
 //   * fp32 (mmgl_bias_bwd): K3's three scalar launches plus the reduction:
@@ -562,10 +563,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 using BiasKvShape = mmgl::TcShape<4, 2, 3>;
 using BiasQShape = mmgl::TcShape<4, 2, 3>;
 
-// the tensor-core bodies in one (bias, dropout) form: the stats-only
-// forward where no row stats are given, delta, dK/dV and dQ (dlogits into
-// the partial), then the batch-order reduction into dbias
-template <bool kBias, bool kDropout, typename TB>
+// the tensor-core bodies in one (bias, dropout) form over T (bf16, fp16):
+// the stats-only forward where no row stats are given, delta, dK/dV and dQ
+// (dlogits into the partial), then the batch-order reduction into dbias
+template <bool kBias, bool kDropout, typename TB, typename T>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const int* kv_mask, const void* bias, int bias_ld,
                       const long long* seed, const void* out,
@@ -583,7 +584,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSuccess;
   if (row_max == nullptr) {
     // the stats-only form: K7's instructions for m and l
-    err = mmgl::launch_fwd_tc<kD, true, kBias, false, TB>(
+    err = mmgl::launch_fwd_tc<kD, true, kBias, false, TB, T>(
         q, k, nullptr, kv_mask, nullptr, stats, stats + n, batch, sq, sk,
         heads, scale, causal, stream,
         mmgl::BiasArgs<TB>{bias_, bias_ld, nullptr, 0u, 1.f});
@@ -591,11 +592,11 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
     row_max = stats;
     row_sum = stats + n;
   }
-  err = mmgl::launch_delta<__nv_bfloat16>(out, dout, row_delta, batch, sq,
-                                          heads, stream);
+  err = mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads,
+                              stream);
   if (err != cudaSuccess) return err;
   err = mmgl::launch_bwd_tiles_tc_as<kD, BiasKvShape, BiasQShape, kBias,
-                                     kDropout, TB>(
+                                     kDropout, TB, T>(
       q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch,
       sq, sk, heads, scale, causal, stream,
       mmgl::BiasArgs<TB>{bias_, bias_ld, seed, threshold, keep_inv},
@@ -611,8 +612,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// K8/K9 on the scalar bodies, fp32 inputs (is_bf16 must be 0: bf16 takes
-// mmgl_bias_bwd_tc). bias/dbias: (heads, sq, sk) in the bias dtype, or
+// K8/K9 on the scalar bodies, fp32 inputs (dtype must be kF32: bf16 and
+// fp16 take mmgl_bias_bwd_tc). bias/dbias: (heads, sq, sk) in the bias
+// dtype (bias_dtype kF32 or kBF16), or
 // both null; seed, threshold, keep_inv: the forward's. stats: fp32 scratch
 // of 3 * batch * heads * sq floats; partial: zeroed fp32 scratch of
 // batch * heads * sq * sk floats when there is a bias, else null.
@@ -624,19 +626,23 @@ extern "C" int mmgl_bias_bwd(const void* q, const void* k, const void* v,
                              int batch, int sq, int sk, int heads,
                              int head_dim, float scale, int causal,
                              unsigned int threshold, float keep_inv,
-                             int is_bf16, int bias_bf16,
+                             int dtype, int bias_dtype,
                              cudaStream_t stream) {
 #define MMGL_BIAS_BWD(T, TB)                                                 \
   launch<T, TB>(q, k, v, kv_mask, bias, seed, out, dout, dq, dk, dv, dbias, \
                 stats, partial, batch, sq, sk, heads, head_dim, scale,      \
                 causal, threshold, keep_inv, stream)
-  if (is_bf16) return cudaErrorInvalidValue;
-  if (bias_bf16) return MMGL_BIAS_BWD(float, __nv_bfloat16);
-  return MMGL_BIAS_BWD(float, float);
+  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
+  if (bias == nullptr || bias_dtype == mmgl::kF32) {
+    return MMGL_BIAS_BWD(float, float);
+  }
+  if (bias_dtype == mmgl::kBF16) return MMGL_BIAS_BWD(float, __nv_bfloat16);
+  return cudaErrorInvalidValue;
 #undef MMGL_BIAS_BWD
 }
 
-// K8/K9 on the bf16 tensor-core bodies (is_bf16 must be 1): the arguments
+// K8/K9 on the tensor-core bodies (dtype kBF16 or kF16; the bias and dbias
+// in fp32 or in the same dtype): the arguments
 // of mmgl_bias_bwd, plus row_max and row_sum, K7's saved row stats
 // (mmgl_bias_fwd_tc), or both null for the stats-only pass into stats, and
 // bias_ld, the bias's row stride (sk rounded up to a multiple of 8, the
@@ -651,30 +657,35 @@ extern "C" int mmgl_bias_bwd_tc(const void* q, const void* k, const void* v,
                                 const float* row_sum, int batch, int sq,
                                 int sk, int heads, int head_dim, float scale,
                                 int causal, unsigned int threshold,
-                                float keep_inv, int is_bf16, int bias_bf16,
+                                float keep_inv, int dtype, int bias_dtype,
                                 int bias_ld, cudaStream_t stream) {
-  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
-      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535 ||
+  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      (causal && sq > sk) || batch > 65535 || heads > 65535 ||
       (row_max == nullptr) != (row_sum == nullptr) ||
-      (bias != nullptr && (dbias == nullptr || partial == nullptr ||
-                           bias_ld < sk || bias_ld % 8 != 0))) {
+      (bias != nullptr &&
+       (dbias == nullptr || partial == nullptr || bias_ld < sk ||
+        bias_ld % 8 != 0 ||
+        (bias_dtype != mmgl::kF32 && bias_dtype != dtype)))) {
     return cudaErrorInvalidValue;
   }
-#define MMGL_BIAS_BWD_TC(B, DROP, TB)                                        \
-  launch_tc<B, DROP, TB>(q, k, v, kv_mask, bias, bias_ld, seed, out, dout,   \
-                         dq, dk, dv, dbias, stats, row_max, row_sum,         \
-                         partial, batch, sq, sk, heads, scale, causal,       \
-                         threshold, keep_inv, stream)
   const bool drop = seed != nullptr;
-  if (bias == nullptr) {
-    return drop ? MMGL_BIAS_BWD_TC(false, true, __nv_bfloat16)
-                : MMGL_BIAS_BWD_TC(false, false, __nv_bfloat16);
-  }
-  if (bias_bf16) {
-    return drop ? MMGL_BIAS_BWD_TC(true, true, __nv_bfloat16)
-                : MMGL_BIAS_BWD_TC(true, false, __nv_bfloat16);
-  }
-  return drop ? MMGL_BIAS_BWD_TC(true, true, float)
-              : MMGL_BIAS_BWD_TC(true, false, float);
+  return mmgl::with_tc_type(dtype, [&](auto tag) {
+    using T = decltype(tag);
+#define MMGL_BIAS_BWD_TC(B, DROP, TB)                                        \
+  launch_tc<B, DROP, TB, T>(q, k, v, kv_mask, bias, bias_ld, seed, out,      \
+                            dout, dq, dk, dv, dbias, stats, row_max,         \
+                            row_sum, partial, batch, sq, sk, heads, scale,   \
+                            causal, threshold, keep_inv, stream)
+    if (bias == nullptr) {
+      return drop ? MMGL_BIAS_BWD_TC(false, true, T)
+                  : MMGL_BIAS_BWD_TC(false, false, T);
+    }
+    if (bias_dtype == dtype) {
+      return drop ? MMGL_BIAS_BWD_TC(true, true, T)
+                  : MMGL_BIAS_BWD_TC(true, false, T);
+    }
+    return drop ? MMGL_BIAS_BWD_TC(true, true, float)
+                : MMGL_BIAS_BWD_TC(true, false, float);
 #undef MMGL_BIAS_BWD_TC
+  });
 }

@@ -12,7 +12,7 @@
 //                      cross (training) q (4, 128, 12, 64), k/v (4, 512, 12, 64),
 //                      no bias, dropout 0.1; scale 1.0 (T5 is unscaled).
 // It computes xla_attention's math (mmgl_tpu/ops/attention.py:190-224):
-//   logits = q k^T * scale + bias[h]          (fp32; bias bf16 or fp32)
+//   logits = q k^T * scale + bias[h]   (fp32; bias fp32 or the input dtype)
 //   logits = -1e30 at masked keys and causally hidden ones (ends aligned)
 //   p      = softmax(logits)
 //   p      = p * keep_factor                  (dropout: 1/keep or 0)
@@ -27,12 +27,13 @@
 // The TPU split this kernel into a batched and a serial schedule over VMEM
 // size and grid order. Here one schedule serves all shapes, with two bodies
 // chosen by the input dtype, as K1-K6's are:
-//   * bf16 (mmgl_bias_fwd_tc): the tensor-core forward body of
+//   * bf16, fp16 (mmgl_bias_fwd_tc): the tensor-core forward body of
 //     attention_fwd_tc.cuh in its bias form (kBias, kDropout): one block of
 //     4 warps per (64 query rows, head, batch), S and P V on mma.sync, each
 //     64 x 64 tile of the bias brought into the cp.async ring beside K and
 //     V and added in log2 units with the scale (one FMA an element), the
-//     keep factors applied to the P fragment before it is rounded to bf16
+//     keep factors applied to the P fragment before it is rounded to the
+//     input type
 //     (one Philox call a lane per row and 16 keys, two words swapped with
 //     the quad partner by a shuffle); where a gradient follows it also
 //     writes the rows' max and sum, from which K8/K9 starts;
@@ -264,8 +265,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the tensor-core body in one (bias, dropout) form
-template <bool kBias, bool kDropout, typename TB>
+// the tensor-core body in one (bias, dropout) form over T (bf16, fp16)
+template <bool kBias, bool kDropout, typename TB, typename T>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const int* kv_mask, const void* bias, int bias_ld,
                       const long long* seed, void* out, float* row_max,
@@ -274,16 +275,16 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       float keep_inv, cudaStream_t stream) {
   const mmgl::BiasArgs<TB> ba{static_cast<const TB*>(bias), bias_ld, seed,
                               threshold, keep_inv};
-  return mmgl::launch_fwd_tc<kD, false, kBias, kDropout, TB>(
+  return mmgl::launch_fwd_tc<kD, false, kBias, kDropout, TB, T>(
       q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
       causal, stream, ba);
 }
 
 }  // namespace
 
-// K7 on the scalar body, fp32 inputs (is_bf16 must be 0: bf16 takes
-// mmgl_bias_fwd_tc). bias: (heads, sq, sk) contiguous, or null; bias_bf16
-// gives its dtype. seed: two int64 words on the device, or null for no
+// K7 on the scalar body, fp32 inputs (dtype must be kF32: bf16 and fp16
+// take mmgl_bias_fwd_tc). bias: (heads, sq, sk) contiguous, or null;
+// bias_dtype gives its dtype (kF32 or kBF16). seed: two int64 words on the device, or null for no
 // dropout; an element is kept iff its Philox word < threshold, and then
 // scaled by keep_inv.
 extern "C" int mmgl_bias_fwd(const void* q, const void* k, const void* v,
@@ -291,20 +292,22 @@ extern "C" int mmgl_bias_fwd(const void* q, const void* k, const void* v,
                              const long long* seed, void* out, int batch,
                              int sq, int sk, int heads, int head_dim,
                              float scale, int causal, unsigned int threshold,
-                             float keep_inv, int is_bf16, int bias_bf16,
+                             float keep_inv, int dtype, int bias_dtype,
                              cudaStream_t stream) {
-  if (is_bf16) return cudaErrorInvalidValue;
-  if (bias_bf16) {
+  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
+  if (bias != nullptr && bias_dtype == mmgl::kBF16) {
     return launch<float, __nv_bfloat16>(
         q, k, v, kv_mask, bias, seed, out, batch, sq, sk, heads, head_dim,
         scale, causal, threshold, keep_inv, stream);
   }
+  if (bias != nullptr && bias_dtype != mmgl::kF32) return cudaErrorInvalidValue;
   return launch<float, float>(q, k, v, kv_mask, bias, seed, out, batch, sq,
                               sk, heads, head_dim, scale, causal, threshold,
                               keep_inv, stream);
 }
 
-// K7 on the bf16 tensor-core body (is_bf16 must be 1): the arguments of
+// K7 on the tensor-core body (dtype kBF16 or kF16; the bias in fp32 or in
+// the same dtype): the arguments of
 // mmgl_bias_fwd, plus row_max and row_sum, each batch * heads * sq fp32 in
 // (B, H, Sq) order, which receive the rows' softmax max and sum when not
 // null (for K8/K9), and bias_ld, the bias's row stride: sk rounded up to a
@@ -316,27 +319,32 @@ extern "C" int mmgl_bias_fwd_tc(const void* q, const void* k, const void* v,
                                 int sq, int sk, int heads, int head_dim,
                                 float scale, int causal,
                                 unsigned int threshold, float keep_inv,
-                                int is_bf16, int bias_bf16, int bias_ld,
+                                int dtype, int bias_dtype, int bias_ld,
                                 cudaStream_t stream) {
-  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
-      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535 ||
-      (bias != nullptr && (bias_ld < sk || bias_ld % 8 != 0))) {
+  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      (causal && sq > sk) || batch > 65535 || heads > 65535 ||
+      (bias != nullptr &&
+       (bias_ld < sk || bias_ld % 8 != 0 ||
+        (bias_dtype != mmgl::kF32 && bias_dtype != dtype)))) {
     return cudaErrorInvalidValue;
   }
-#define MMGL_BIAS_FWD_TC(B, DROP, TB)                                        \
-  launch_tc<B, DROP, TB>(q, k, v, kv_mask, bias, bias_ld, seed, out,         \
-                         row_max, row_sum, batch, sq, sk, heads, scale,      \
-                         causal, threshold, keep_inv, stream)
   const bool drop = seed != nullptr;
-  if (bias == nullptr) {
-    return drop ? MMGL_BIAS_FWD_TC(false, true, __nv_bfloat16)
-                : MMGL_BIAS_FWD_TC(false, false, __nv_bfloat16);
-  }
-  if (bias_bf16) {
-    return drop ? MMGL_BIAS_FWD_TC(true, true, __nv_bfloat16)
-                : MMGL_BIAS_FWD_TC(true, false, __nv_bfloat16);
-  }
-  return drop ? MMGL_BIAS_FWD_TC(true, true, float)
-              : MMGL_BIAS_FWD_TC(true, false, float);
+  return mmgl::with_tc_type(dtype, [&](auto tag) {
+    using T = decltype(tag);
+#define MMGL_BIAS_FWD_TC(B, DROP, TB)                                        \
+  launch_tc<B, DROP, TB, T>(q, k, v, kv_mask, bias, bias_ld, seed, out,      \
+                            row_max, row_sum, batch, sq, sk, heads, scale,   \
+                            causal, threshold, keep_inv, stream)
+    if (bias == nullptr) {
+      return drop ? MMGL_BIAS_FWD_TC(false, true, T)
+                  : MMGL_BIAS_FWD_TC(false, false, T);
+    }
+    if (bias_dtype == dtype) {
+      return drop ? MMGL_BIAS_FWD_TC(true, true, T)
+                  : MMGL_BIAS_FWD_TC(true, false, T);
+    }
+    return drop ? MMGL_BIAS_FWD_TC(true, true, float)
+                : MMGL_BIAS_FWD_TC(true, false, float);
 #undef MMGL_BIAS_FWD_TC
+  });
 }

@@ -7,7 +7,7 @@
 //                       _bwd_dkv_kernel (:289, pallas_call :391), selected by
 //                       MMGL_BLOCKED_BWD=1 for causal attention (:514-522).
 //                       OPT-350M's self-attention at 2048 tokens, past K1's
-//                       envelope: (4, 2048, 16, 64), bf16.
+//                       envelope: (4, 2048, 16, 64), bf16 or fp16.
 // Given q, k, v, the key mask, the forward output o, its gradient dO and
 // K4's per-row softmax max m and sum l (kept apart, not one logsumexp: for a
 // fully masked row m = -1e30 and l = sk, and -1e30 + log(sk) rounds back to
@@ -38,7 +38,8 @@
 // 2 and 3 are the tile kernels of attention_bwd_tiles.cuh, shared with K3/K5,
 // which run them after a pass that recomputes m and l; K6 takes them from K4.
 //
-// Two bodies, chosen by the input dtype: bf16 inputs take the tensor-core
+// Two bodies, chosen by the input dtype: bf16 and fp16 inputs take the
+// tensor-core
 // dK/dV and dQ bodies of attention_bwd_tiles.cuh (mma.sync; entry
 // mmgl_blocked_bwd_tc), fp32 inputs the scalar ones (on the tensor cores
 // fp32 would run as TF32). The delta pass is the same for both.
@@ -46,7 +47,8 @@
 // What bounds it on this card: 14 * D FLOPs per (query, key) pair computed
 // (dQ: q k^T, dO v^T, dS k; dK/dV: q k^T, dO v^T, P^T dO, dS^T q) against a
 // few tens of MB of inputs: the tensor cores and the fp32 elementwise work
-// between the products in bf16, scalar FMAs and shared-memory loads in fp32;
+// between the products in bf16 or fp16, scalar FMAs and shared-memory loads
+// in fp32;
 // not HBM (3.35 TB/s). Against K5 at the same shape it saves the stats pass.
 
 #include <cuda_bf16.h>
@@ -107,15 +109,16 @@ extern "C" int mmgl_blocked_bwd(const void* q, const void* k, const void* v,
                                 const float* row_sum, void* dq, void* dk,
                                 void* dv, float* row_delta, int batch, int sq,
                                 int sk, int heads, int head_dim, float scale,
-                                int causal, int is_bf16,
+                                int causal, int dtype,
                                 cudaStream_t stream) {
-  if (is_bf16) return cudaErrorInvalidValue;  // bf16: mmgl_blocked_bwd_tc
+  // bf16, fp16: mmgl_blocked_bwd_tc
+  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
   return launch<float>(q, k, v, kv_mask, out, dout, row_max, row_sum, dq, dk,
                        dv, row_delta, batch, sq, sk, heads, head_dim, scale,
                        causal, stream);
 }
 
-// K6 on the bf16 tensor-core bodies (is_bf16 must be 1): the same delta pass,
+// K6 on the tensor-core bodies (dtype bf16 or fp16): the same delta pass,
 // then the tensor-core dK/dV and dQ launches.
 extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
                                    const int* kv_mask, const void* out,
@@ -123,16 +126,19 @@ extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
                                    const float* row_sum, void* dq, void* dk,
                                    void* dv, float* row_delta, int batch,
                                    int sq, int sk, int heads, int head_dim,
-                                   float scale, int causal, int is_bf16,
+                                   float scale, int causal, int dtype,
                                    cudaStream_t stream) {
-  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
-      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535) {
+  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      (causal && sq > sk) || batch > 65535 || heads > 65535) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t err = mmgl::launch_delta<__nv_bfloat16>(
-      out, dout, row_delta, batch, sq, heads, stream);
-  if (err != cudaSuccess) return err;
-  return mmgl::launch_bwd_tiles_tc<kD>(q, k, v, kv_mask, dout, row_max,
-                                       row_sum, row_delta, dq, dk, dv, batch,
-                                       sq, sk, heads, scale, causal, stream);
+  return mmgl::with_tc_type(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    const cudaError_t err =
+        mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads, stream);
+    if (err != cudaSuccess) return err;
+    return mmgl::launch_bwd_tiles_tc<kD, T>(
+        q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
+        batch, sq, sk, heads, scale, causal, stream);
+  });
 }

@@ -4,7 +4,8 @@
 // Replaces
 //   mmgl_allheads_bwd -> _allheads_kernel_bwd (mmgl_tpu/ops/flash_attention.py:1307),
 //                        reached through _allheads_vjp_bwd (:1392, pallas_call :1399).
-//                        OPT causal self-attention: (4, 640, 12, 64), bf16.
+//                        OPT causal self-attention: (4, 640, 12, 64), bf16
+//                        or fp16.
 //   mmgl_flash_bwd    -> _bwd_kernel (mmgl_tpu/ops/flash_attention.py:414),
 //                        pallas_call in _bwd (:457, :472): the backward of K4.
 //                        T5's cross-attention, q (B, 128, 12, 64) against
@@ -24,7 +25,8 @@
 //
 // Layout: q/k/v/o/dO and dq/dk/dv are (B, S, H*D) row-major, read and written
 // strided in place (row stride H*D), as the forward does: no transposes, no
-// padding. Outputs are in the input dtype (fp32 or bf16); every sum is fp32.
+// padding. Outputs are in the input dtype (fp32, bf16 or fp16); every sum is
+// fp32.
 //
 // Schedule: three launches on the caller's stream, no atomics.
 //   1. stats: per query row the softmax max m and sum l (kept apart: for a
@@ -39,8 +41,8 @@
 // layout and which causal tiles they skip.
 //
 // Two bodies, chosen by the input dtype. fp32 inputs take the scalar passes
-// above (on the tensor cores fp32 would run as TF32). bf16 inputs take the
-// tensor-core bodies, four launches (entries *_tc below): the forward body
+// above (on the tensor cores fp32 would run as TF32). bf16 and fp16 inputs
+// take the tensor-core bodies, four launches (entries *_tc below): the forward body
 // of attention_fwd_tc.cuh in its stats-only form (m and l from the same code,
 // in the same order, as K4 writes them for K6, so K5 and K6 agree bit for
 // bit), the delta pass, then the tensor-core dK/dV and dQ bodies of
@@ -230,30 +232,33 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the bf16 tensor-core bodies: stats, delta, dK/dV, dQ
+// the tensor-core bodies (bf16, fp16): stats, delta, dK/dV, dQ
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const int* kv_mask, const void* out, const void* dout,
                       void* dq, void* dk, void* dv, float* stats, int batch,
                       int sq, int sk, int heads, int head_dim, float scale,
-                      int causal, int is_bf16, cudaStream_t stream) {
-  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
-      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535) {
+                      int causal, int dtype, cudaStream_t stream) {
+  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      (causal && sq > sk) || batch > 65535 || heads > 65535) {
     return cudaErrorInvalidValue;
   }
   const long n = static_cast<long>(batch) * heads * sq;
   float* row_max = stats;
   float* row_sum = stats + n;
   float* row_delta = stats + 2 * n;
-  cudaError_t err = mmgl::launch_fwd_tc<kD, true>(
-      q, k, nullptr, kv_mask, nullptr, row_max, row_sum, batch, sq, sk, heads,
-      scale, causal, stream);
-  if (err != cudaSuccess) return err;
-  err = mmgl::launch_delta<__nv_bfloat16>(out, dout, row_delta, batch, sq,
-                                          heads, stream);
-  if (err != cudaSuccess) return err;
-  return mmgl::launch_bwd_tiles_tc<kD>(q, k, v, kv_mask, dout, row_max,
-                                       row_sum, row_delta, dq, dk, dv, batch,
-                                       sq, sk, heads, scale, causal, stream);
+  return mmgl::with_tc_type(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    cudaError_t err = mmgl::launch_fwd_tc<kD, true, false, false, T, T>(
+        q, k, nullptr, kv_mask, nullptr, row_max, row_sum, batch, sq, sk,
+        heads, scale, causal, stream);
+    if (err != cudaSuccess) return err;
+    err = mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads,
+                                stream);
+    if (err != cudaSuccess) return err;
+    return mmgl::launch_bwd_tiles_tc<kD, T>(
+        q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
+        batch, sq, sk, heads, scale, causal, stream);
+  });
 }
 
 }  // namespace
@@ -265,9 +270,10 @@ extern "C" int mmgl_allheads_bwd(const void* q, const void* k, const void* v,
                                  const void* dout, void* dq, void* dk,
                                  void* dv, float* stats, int batch, int sq,
                                  int sk, int heads, int head_dim, float scale,
-                                 int causal, int is_bf16,
+                                 int causal, int dtype,
                                  cudaStream_t stream) {
-  if (is_bf16) return cudaErrorInvalidValue;  // bf16: mmgl_allheads_bwd_tc
+  // bf16, fp16: mmgl_allheads_bwd_tc
+  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
   return launch<float>(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch,
                        sq, sk, heads, head_dim, scale, causal, stream);
 }
@@ -278,23 +284,23 @@ extern "C" int mmgl_flash_bwd(const void* q, const void* k, const void* v,
                               const void* dout, void* dq, void* dk, void* dv,
                               float* stats, int batch, int sq, int sk,
                               int heads, int head_dim, float scale,
-                              int causal, int is_bf16, cudaStream_t stream) {
+                              int causal, int dtype, cudaStream_t stream) {
   return mmgl_allheads_bwd(q, k, v, kv_mask, out, dout, dq, dk, dv, stats,
                            batch, sq, sk, heads, head_dim, scale, causal,
-                           is_bf16, stream);
+                           dtype, stream);
 }
 
-// K3 and K5 on the bf16 tensor-core bodies (is_bf16 must be 1).
+// K3 and K5 on the tensor-core bodies (dtype bf16 or fp16, mmgl::DType).
 extern "C" int mmgl_allheads_bwd_tc(const void* q, const void* k,
                                     const void* v, const int* kv_mask,
                                     const void* out, const void* dout,
                                     void* dq, void* dk, void* dv,
                                     float* stats, int batch, int sq, int sk,
                                     int heads, int head_dim, float scale,
-                                    int causal, int is_bf16,
+                                    int causal, int dtype,
                                     cudaStream_t stream) {
   return launch_tc(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch, sq,
-                   sk, heads, head_dim, scale, causal, is_bf16, stream);
+                   sk, heads, head_dim, scale, causal, dtype, stream);
 }
 
 extern "C" int mmgl_flash_bwd_tc(const void* q, const void* k, const void* v,
@@ -302,8 +308,8 @@ extern "C" int mmgl_flash_bwd_tc(const void* q, const void* k, const void* v,
                                  const void* dout, void* dq, void* dk,
                                  void* dv, float* stats, int batch, int sq,
                                  int sk, int heads, int head_dim,
-                                 float scale, int causal, int is_bf16,
+                                 float scale, int causal, int dtype,
                                  cudaStream_t stream) {
   return launch_tc(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch, sq,
-                   sk, heads, head_dim, scale, causal, is_bf16, stream);
+                   sk, heads, head_dim, scale, causal, dtype, stream);
 }

@@ -254,7 +254,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // delta = rowsum(dO * o) per query row, in (B, H, Sq) order: K6's first
-// launch, and K3/K5's after their bf16 stats pass (JAX computes it outside
+// launch, and K3/K5's after their tensor-core stats pass (JAX computes it outside
 // Pallas, mmgl_tpu/ops/flash_attention.py:345-347)
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
@@ -283,15 +283,19 @@ attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   }
 }
 
-// ---- the bf16 tensor-core bodies -------------------------------------------
+// ---- the tensor-core bodies (bf16, fp16) -----------------------------------
 //
 // The same gradients, tiles and skip rules as the scalar kernels above, for
-// bf16 inputs, on mma.sync (common.cuh). Per allowed element the arithmetic
+// bf16 or fp16 inputs (the element type T), on mma.sync (common.cuh). Per
+// allowed element the arithmetic
 // is the scalar kernels' (p = exp(logit - m) * (1 / l), dS = p (dP - delta)
 // scale, 0 where masked), exp taken as 2^(logit log2(e) - m log2(e)) on the
 // card's ex2 (a few ulp), the logit's scale and log2(e) in one FMA; P
-// and dS are rounded to bf16 before their products, where the Pallas K6
-// rounds them (flash_attention.py:317, :324). A block holds kWarps warps of
+// and dS are rounded to T before their products, where the Pallas K6
+// rounds them to the input dtype (flash_attention.py:317, :324). Masked
+// logits (-1e30) stay in fp32 registers; dS is 0 there, and in fp16 a dS
+// below 2^-24 rounds to 0 and one past 65504 to inf, as the Pallas kernels'
+// own cast does. A block holds kWarps warps of
 // 16 rows (keys in dK/dV, queries in dQ); a streamed tile of 64 rows in
 // shared memory serves all of them. The streamed tiles pass
 // through a kStages-deep cp.async ring with rows padded to D + 8, one
@@ -314,9 +318,9 @@ attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // backward (bias_attention_bwd_reference's math), from K7's row max and sum
 // or its stats-only pass, with m the keep factor:
 //   P = exp(logit - m) / l with logit = q k^T scale + bias[h];
-//   dV = (P m)^T dO, P m rounded to bf16 (flash_attention.py:726-728);
+//   dV = (P m)^T dO, P m rounded to T (flash_attention.py:726-728);
 //   dlogits = P (m dP - delta) in fp32, 0 at masked logits;
-//   dS = dlogits scale, rounded to bf16 for dQ and dK (:748-754);
+//   dS = dlogits scale, rounded to T for dQ and dK (:748-754);
 //   dbias = sum_b dlogits, from the fp32 values before any rounding
 //   (:736-746): the dQ body stores its fragments of dlogits, zeros for the
 //   tiles it skips, into a (B, H, Sq, Sk) fp32 partial that a reduction
@@ -335,7 +339,7 @@ template <int D, int kRows, int kStages, bool kBias = false,
           typename TB = __nv_bfloat16>
 constexpr size_t dkdv_tc_smem(int n_q_tiles) {
   return (2 * kRows + 2 * kStages * kTcTile) * TcTile<D>::kStride *
-             sizeof(__nv_bfloat16) +
+             2 /* bytes of T */ +
          (kBias ? kStages * kTcTile * bias_stride<kRows>() * sizeof(TB)
                 : 0) +
          3 * kStages * kTcTile * sizeof(float) +
@@ -346,18 +350,19 @@ constexpr size_t dkdv_tc_smem(int n_q_tiles) {
 // dP^T = V dO^T put the keys in the accumulators' rows, so P^T and dS^T are
 // A fragments for dV += P^T dO and dK += dS^T Q without a transpose
 template <int D, int kWarps, int kStages, int kMinBlocks, bool kBias = false,
-          bool kDropout = false, typename TB = __nv_bfloat16>
+          bool kDropout = false, typename TB = __nv_bfloat16,
+          typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
-attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
+attention_bwd_dkdv_tc_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
                              const int* __restrict__ kv_mask,
-                             const __nv_bfloat16* __restrict__ dout,
+                             const T* __restrict__ dout,
                              const float* __restrict__ row_max,
                              const float* __restrict__ row_sum,
                              const float* __restrict__ row_delta,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                             T* __restrict__ dk, T* __restrict__ dv, int sq,
+                             int sk,
                              int heads, float scale, int causal,
                              BiasArgs<TB> ba) {
   constexpr int kThreads = 32 * kWarps;
@@ -369,10 +374,10 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kBS = bias_stride<kRows>();
   constexpr int kBiasElems = kTcTile * kBS;  // TB a bias tile (queries)
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
-  __nv_bfloat16* v_s = k_s + kRows * S;                           // kRows rows
-  __nv_bfloat16* q_s = v_s + kRows * S;           // [kStages][kElems]
-  __nv_bfloat16* do_s = q_s + kStages * kElems;   // [kStages][kElems]
+  T* k_s = reinterpret_cast<T*>(smem);  // kRows rows
+  T* v_s = k_s + kRows * S;              // kRows rows
+  T* q_s = v_s + kRows * S;              // [kStages][kElems]
+  T* do_s = q_s + kStages * kElems;      // [kStages][kElems]
   // [kStages][kBiasElems] in the bias form
   TB* b_s = reinterpret_cast<TB*>(do_s + kStages * kElems);
   float* m_s = reinterpret_cast<float*>(b_s + (kBias ? kStages * kBiasElems
@@ -392,8 +397,8 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z;
 
   const long rs = static_cast<long>(heads) * D;
-  const __nv_bfloat16* q_rows = q + static_cast<long>(b) * sq * rs + h * D;
-  const __nv_bfloat16* do_rows = dout + static_cast<long>(b) * sq * rs + h * D;
+  const T* q_rows = q + static_cast<long>(b) * sq * rs + h * D;
+  const T* do_rows = dout + static_cast<long>(b) * sq * rs + h * D;
   const long k_off = static_cast<long>(b) * sk * rs + h * D;
   const long stat0 = (static_cast<long>(b) * heads + h) * sq;
   const int shift = sk - sq;
@@ -493,10 +498,8 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
   }
-  const __nv_bfloat16* k_warp =
-      k_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
-  const __nv_bfloat16* v_warp =
-      v_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
+  const T* k_warp = k_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
+  const T* v_warp = v_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
 
   for (int t = next_tile(0), i = 0; t < n_q; t = next_tile(t + 1), ++i) {
     const int st = i % kStages;
@@ -513,8 +516,8 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int q0 = t * kTcTile;
     if (full(t) ||
         (warp_keys && !(causal && q0 + kTcTile - 1 + shift < key_first))) {
-      const __nv_bfloat16* qs = q_s + st * kElems;
-      const __nv_bfloat16* dos = do_s + st * kElems;
+      const T* qs = q_s + st * kElems;
+      const T* dos = do_s + st * kElems;
       const float* ms = m_s + st * kTcTile;
       const float* ls = inv_l_s + st * kTcTile;
       const float* dls = delta_s + st * kTcTile;
@@ -547,10 +550,10 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             8 * (lane >> 3);
             ldmatrix_x4(qb, qs + off);
             ldmatrix_x4(db, dos + off);
-            mma_bf16(s[n], ka[0], qb[0], qb[1]);
-            mma_bf16(s[n], ka[1], qb[2], qb[3]);
-            mma_bf16(dp[n], va[0], db[0], db[1]);
-            mma_bf16(dp[n], va[1], db[2], db[3]);
+            mma_tc<T>(s[n], ka[0], qb[0], qb[1]);
+            mma_tc<T>(s[n], ka[1], qb[2], qb[3]);
+            mma_tc<T>(dp[n], va[0], db[0], db[1]);
+            mma_tc<T>(dp[n], va[1], db[2], db[3]);
           }
         }
 
@@ -610,8 +613,8 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           uint32_t pa[4], dsa[4];
-          acc_to_a(pa, s[2 * j], s[2 * j + 1]);
-          acc_to_a(dsa, dp[2 * j], dp[2 * j + 1]);
+          acc_to_a<T>(pa, s[2 * j], s[2 * j + 1]);
+          acc_to_a<T>(dsa, dp[2 * j], dp[2 * j + 1]);
 #pragma unroll
           for (int db = 0; db < kDBlocks; db += 2) {
             uint32_t ob[4], qb[4];
@@ -619,10 +622,10 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             8 * (lane >> 4);
             ldmatrix_x4_trans(ob, dos + off);
             ldmatrix_x4_trans(qb, qs + off);
-            mma_bf16(dv_acc[db], pa, ob[0], ob[1]);
-            mma_bf16(dv_acc[db + 1], pa, ob[2], ob[3]);
-            mma_bf16(dk_acc[db], dsa, qb[0], qb[1]);
-            mma_bf16(dk_acc[db + 1], dsa, qb[2], qb[3]);
+            mma_tc<T>(dv_acc[db], pa, ob[0], ob[1]);
+            mma_tc<T>(dv_acc[db + 1], pa, ob[2], ob[3]);
+            mma_tc<T>(dk_acc[db], dsa, qb[0], qb[1]);
+            mma_tc<T>(dk_acc[db + 1], dsa, qb[2], qb[3]);
           }
         }
       }
@@ -643,10 +646,8 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int db = 0; db < kDBlocks; ++db) {
       const int c = 8 * db + 2 * c4;
-      *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
-          __floats2bfloat162_rn(dk_acc[db][2 * r], dk_acc[db][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
-          __floats2bfloat162_rn(dv_acc[db][2 * r], dv_acc[db][2 * r + 1]);
+      store2(dk + row + c, dk_acc[db][2 * r], dk_acc[db][2 * r + 1]);
+      store2(dv + row + c, dv_acc[db][2 * r], dv_acc[db][2 * r + 1]);
     }
   }
 }
@@ -657,7 +658,7 @@ template <int D, int kRows, int kStages, bool kBias = false,
           typename TB = __nv_bfloat16>
 constexpr size_t dq_tc_smem() {
   return (2 * kRows + 2 * kStages * kTcTile) * TcTile<D>::kStride *
-             sizeof(__nv_bfloat16) +
+             2 /* bytes of T */ +
          (kBias ? kStages * kRows * bias_stride<kTcTile>() * sizeof(TB) : 0);
 }
 
@@ -665,17 +666,17 @@ constexpr size_t dq_tc_smem() {
 // tiles up to the causal limit; the bias form also writes the rows'
 // dlogits into partial (B, H, Sq, Sk), zeros where it skips
 template <int D, int kWarps, int kStages, int kMinBlocks, bool kBias = false,
-          bool kDropout = false, typename TB = __nv_bfloat16>
+          bool kDropout = false, typename TB = __nv_bfloat16,
+          typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
-attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
+attention_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
                            const int* __restrict__ kv_mask,
-                           const __nv_bfloat16* __restrict__ dout,
+                           const T* __restrict__ dout,
                            const float* __restrict__ row_max,
                            const float* __restrict__ row_sum,
                            const float* __restrict__ row_delta,
-                           __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                           T* __restrict__ dq, int sq, int sk,
                            int heads, float scale, int causal,
                            BiasArgs<TB> ba, float* __restrict__ partial) {
   constexpr int kThreads = 32 * kWarps;
@@ -687,10 +688,10 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kBS = bias_stride<kTcTile>();
   constexpr int kBiasElems = kRows * kBS;  // TB a bias tile
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
-  __nv_bfloat16* do_s = q_s + kRows * S;                          // kRows rows
-  __nv_bfloat16* k_s = do_s + kRows * S;          // [kStages][kElems]
-  __nv_bfloat16* v_s = k_s + kStages * kElems;    // [kStages][kElems]
+  T* q_s = reinterpret_cast<T*>(smem);  // kRows rows
+  T* do_s = q_s + kRows * S;             // kRows rows
+  T* k_s = do_s + kRows * S;             // [kStages][kElems]
+  T* v_s = k_s + kStages * kElems;       // [kStages][kElems]
   TB* b_s = reinterpret_cast<TB*>(v_s + kStages * kElems);  // bias form
   __shared__ uint32_t mask_s[kStages][2];  // a tile's key mask, a bit a key
 
@@ -705,8 +706,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const long rs = static_cast<long>(heads) * D;
   const long q_off = static_cast<long>(b) * sq * rs + h * D;
-  const __nv_bfloat16* k_rows = k + static_cast<long>(b) * sk * rs + h * D;
-  const __nv_bfloat16* v_rows = v + static_cast<long>(b) * sk * rs + h * D;
+  const T* k_rows = k + static_cast<long>(b) * sk * rs + h * D;
+  const T* v_rows = v + static_cast<long>(b) * sk * rs + h * D;
   const int* mask_row = kv_mask + static_cast<long>(b) * sk;
   const int shift = sk - sq;
   const int q_last = min(q0 + kRows, sq) - 1;
@@ -768,10 +769,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < kDBlocks; ++i) {
     dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
   }
-  const __nv_bfloat16* q_warp =
-      q_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
-  const __nv_bfloat16* do_warp =
-      do_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
+  const T* q_warp = q_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
+  const T* do_warp = do_s + (16 * warp + (lane & 15)) * S + 8 * (lane >> 4);
   // the bias form: dlogits of (row0 + 8 r, j) and (row0 + 8 r, j + 1) into
   // the partial, j = a tile's key 8 n + 2 c4 (even)
   float* part_rows =
@@ -814,8 +813,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // gives them dS = 0
     if ((bits[0] | bits[1]) != 0 &&
         !(causal && k0 > row_first + 15 + shift)) {
-      const __nv_bfloat16* ks = k_s + st * kElems;
-      const __nv_bfloat16* vs = v_s + st * kElems;
+      const T* ks = k_s + st * kElems;
+      const T* vs = v_s + st * kElems;
       // a masked key (or one past sk), or a key causally hidden from a row
       // of the warp, somewhere in the tile
       const bool edge = (bits[0] & bits[1]) != 0xffffffffu ||
@@ -844,10 +843,10 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             8 * (lane >> 3);
             ldmatrix_x4(kb, ks + off);
             ldmatrix_x4(vb, vs + off);
-            mma_bf16(s[n], qa[0], kb[0], kb[1]);
-            mma_bf16(s[n], qa[1], kb[2], kb[3]);
-            mma_bf16(dp[n], oa[0], vb[0], vb[1]);
-            mma_bf16(dp[n], oa[1], vb[2], vb[3]);
+            mma_tc<T>(s[n], qa[0], kb[0], kb[1]);
+            mma_tc<T>(s[n], qa[1], kb[2], kb[3]);
+            mma_tc<T>(dp[n], oa[0], vb[0], vb[1]);
+            mma_tc<T>(dp[n], oa[1], vb[2], vb[3]);
           }
         }
 
@@ -933,14 +932,14 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           uint32_t dsa[4];
-          acc_to_a(dsa, dp[2 * j], dp[2 * j + 1]);
+          acc_to_a<T>(dsa, dp[2 * j], dp[2 * j + 1]);
 #pragma unroll
           for (int db = 0; db < kDBlocks; db += 2) {
             uint32_t kb[4];
             ldmatrix_x4_trans(kb, ks + (32 * half + 16 * j + (lane & 15)) * S +
                                       8 * db + 8 * (lane >> 4));
-            mma_bf16(dq_acc[db], dsa, kb[0], kb[1]);
-            mma_bf16(dq_acc[db + 1], dsa, kb[2], kb[3]);
+            mma_tc<T>(dq_acc[db], dsa, kb[0], kb[1]);
+            mma_tc<T>(dq_acc[db + 1], dsa, kb[2], kb[3]);
           }
         }
       }
@@ -962,11 +961,10 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int i = row0 + 8 * r;
     if (i >= sq) continue;
-    __nv_bfloat16* dst = dq + q_off + static_cast<long>(i) * rs;
+    T* dst = dq + q_off + static_cast<long>(i) * rs;
 #pragma unroll
     for (int db = 0; db < kDBlocks; ++db) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * db + 2 * c4) =
-          __floats2bfloat162_rn(dq_acc[db][2 * r], dq_acc[db][2 * r + 1]);
+      store2(dst + 8 * db + 2 * c4, dq_acc[db][2 * r], dq_acc[db][2 * r + 1]);
     }
   }
 }
@@ -981,10 +979,12 @@ struct TcShape {
   static constexpr int kRows = 16 * kWarps_;
 };
 
-// the dK/dV and dQ launches in given shapes on the caller's stream; the
-// bias form reads ba and writes dlogits into partial
+// the dK/dV and dQ launches in given shapes on the caller's stream, over
+// tensors of T (bf16 or fp16); the bias form reads ba and writes dlogits
+// into partial
 template <int D, typename KvShape, typename QShape, bool kBias = false,
-          bool kDropout = false, typename TB = __nv_bfloat16>
+          bool kDropout = false, typename TB = __nv_bfloat16,
+          typename T = __nv_bfloat16>
 cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
                                    const void* v, const int* kv_mask,
                                    const void* dout, const float* row_max,
@@ -1002,38 +1002,39 @@ cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
       dq_tc_smem<D, QShape::kRows, QShape::kStages, kBias, TB>();
   auto dkdv_kernel =
       attention_bwd_dkdv_tc_kernel<D, KvShape::kWarps, KvShape::kStages,
-                                   KvShape::kMinBlocks, kBias, kDropout, TB>;
+                                   KvShape::kMinBlocks, kBias, kDropout, TB,
+                                   T>;
   auto dq_kernel =
       attention_bwd_dq_tc_kernel<D, QShape::kWarps, QShape::kStages,
-                                 QShape::kMinBlocks, kBias, kDropout, TB>;
+                                 QShape::kMinBlocks, kBias, kDropout, TB, T>;
   cudaError_t err = set_smem(dkdv_kernel, dkdv_bytes);
   if (err != cudaSuccess) return err;
   err = set_smem(dq_kernel, dq_bytes);
   if (err != cudaSuccess) return err;
-  const auto* q_ = static_cast<const __nv_bfloat16*>(q);
-  const auto* k_ = static_cast<const __nv_bfloat16*>(k);
-  const auto* v_ = static_cast<const __nv_bfloat16*>(v);
-  const auto* do_ = static_cast<const __nv_bfloat16*>(dout);
+  const auto* q_ = static_cast<const T*>(q);
+  const auto* k_ = static_cast<const T*>(k);
+  const auto* v_ = static_cast<const T*>(v);
+  const auto* do_ = static_cast<const T*>(dout);
   const dim3 k_grid((sk + KvShape::kRows - 1) / KvShape::kRows, heads, batch);
   const dim3 q_grid((sq + QShape::kRows - 1) / QShape::kRows, heads, batch);
   dkdv_kernel<<<k_grid, 32 * KvShape::kWarps, dkdv_bytes, stream>>>(
       q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq,
-      sk, heads, scale, causal, ba);
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads, scale, causal,
+      ba);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq_kernel<<<q_grid, 32 * QShape::kWarps, dq_bytes, stream>>>(
       q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
-      static_cast<__nv_bfloat16*>(dq), sq, sk, heads, scale, causal, ba,
-      partial);
+      static_cast<T*>(dq), sq, sk, heads, scale, causal, ba, partial);
   return cudaGetLastError();
 }
 
 // the bodies' shapes on this card, the fastest of those timed at OPT-350M's
 // (4, 2048, 16, 64) causal on an H100 (PERF.md §6): 4 warps, a 2-stage
 // ring, 3 dK/dV and 4 dQ blocks an SM (more warps, a second 16-row slab a
-// warp, or deeper rings spilled registers or lost occupancy)
-template <int D>
+// warp, or deeper rings spilled registers or lost occupancy); fp16 takes
+// the bf16 shapes
+template <int D, typename T = __nv_bfloat16>
 cudaError_t launch_bwd_tiles_tc(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* dout,
                                 const float* row_max, const float* row_sum,
@@ -1041,7 +1042,8 @@ cudaError_t launch_bwd_tiles_tc(const void* q, const void* k, const void* v,
                                 void* dv, int batch, int sq, int sk,
                                 int heads, float scale, int causal,
                                 cudaStream_t stream) {
-  return launch_bwd_tiles_tc_as<D, TcShape<4, 2, 3>, TcShape<4, 2, 4>>(
+  return launch_bwd_tiles_tc_as<D, TcShape<4, 2, 3>, TcShape<4, 2, 4>, false,
+                                false, T, T>(
       q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch,
       sq, sk, heads, scale, causal, stream);
 }

@@ -38,9 +38,10 @@
 // stride H*D), so nothing is transposed, which is the point of the allheads
 // kernel (flash_attention.py:1268-1277).
 //
-// Two bodies, chosen by the input dtype. bf16 inputs take the tensor-core
-// body of attention_fwd_tc.cuh (mma.sync, cp.async, FlashAttention-2's
-// shape; entries *_tc below). fp32 inputs take the scalar body here: on the
+// Two bodies, chosen by the input dtype. bf16 and fp16 inputs take the
+// tensor-core body of attention_fwd_tc.cuh (mma.sync, cp.async,
+// FlashAttention-2's shape; entries *_tc below). fp32 inputs take the scalar
+// body here: on the
 // tensor cores fp32 would run as TF32, about three decimal digits, and the
 // fp32 checks hold the kernels to 2e-5.
 //
@@ -59,7 +60,7 @@
 // Thread t owns query row t/4 and, of each 64-key tile, keys (t%4) + 4i for
 // the scores and output columns 4((t%4) + 4i) .. +3 for the PV product.
 // Softmax is online in fp32 registers; PV accumulates in fp32; the output is
-// written in the input dtype (fp32 or bf16). Head dim must be 64.
+// written in fp32. Head dim must be 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -255,30 +256,33 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the scalar body: fp32 only (bf16 takes dispatch_tc)
+// the scalar body: fp32 only (bf16 and fp16 take dispatch_tc)
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* kv_mask, void* out, float* row_max,
                      float* row_sum, int batch, int sq, int sk, int heads,
-                     int head_dim, float scale, int causal, int is_bf16,
+                     int head_dim, float scale, int causal, int dtype,
                      cudaStream_t stream) {
-  if (is_bf16) return cudaErrorInvalidValue;
+  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
   return launch<float>(q, k, v, kv_mask, out, row_max, row_sum, batch, sq,
                        sk, heads, head_dim, scale, causal, stream);
 }
 
-// the tensor-core body: bf16 only
+// the tensor-core body: bf16 and fp16
 cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                         const int* kv_mask, void* out, float* row_max,
                         float* row_sum, int batch, int sq, int sk, int heads,
-                        int head_dim, float scale, int causal, int is_bf16,
+                        int head_dim, float scale, int causal, int dtype,
                         cudaStream_t stream) {
-  if (!is_bf16 || head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 ||
-      heads <= 0 || (causal && sq > sk) || batch > 65535 || heads > 65535) {
+  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      (causal && sq > sk) || batch > 65535 || heads > 65535) {
     return cudaErrorInvalidValue;
   }
-  return mmgl::launch_fwd_tc<kD, false>(q, k, v, kv_mask, out, row_max,
-                                        row_sum, batch, sq, sk, heads, scale,
-                                        causal, stream);
+  return mmgl::with_tc_type(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    return mmgl::launch_fwd_tc<kD, false, false, false, T, T>(
+        q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
+        causal, stream);
+  });
 }
 
 }  // namespace
@@ -287,10 +291,10 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
 extern "C" int mmgl_allheads_fwd(const void* q, const void* k, const void* v,
                                  const int* kv_mask, void* out, int batch,
                                  int sq, int sk, int heads, int head_dim,
-                                 float scale, int causal, int is_bf16,
+                                 float scale, int causal, int dtype,
                                  cudaStream_t stream) {
   return dispatch(q, k, v, kv_mask, out, nullptr, nullptr, batch, sq, sk,
-                  heads, head_dim, scale, causal, is_bf16, stream);
+                  heads, head_dim, scale, causal, dtype, stream);
 }
 
 // K2: CLIP's lane-misaligned self-attention (197 patches), sq == sk.
@@ -298,9 +302,9 @@ extern "C" int mmgl_fused_heads_fwd(const void* q, const void* k,
                                     const void* v, const int* kv_mask,
                                     void* out, int batch, int seq, int heads,
                                     int head_dim, float scale, int causal,
-                                    int is_bf16, cudaStream_t stream) {
+                                    int dtype, cudaStream_t stream) {
   return dispatch(q, k, v, kv_mask, out, nullptr, nullptr, batch, seq, seq,
-                  heads, head_dim, scale, causal, is_bf16, stream);
+                  heads, head_dim, scale, causal, dtype, stream);
 }
 
 // K4: T5's cross-attention in eval (sq != sk), aligned self-attention past
@@ -313,41 +317,41 @@ extern "C" int mmgl_flash_fwd(const void* q, const void* k, const void* v,
                               const int* kv_mask, void* out, float* row_max,
                               float* row_sum, int batch, int sq, int sk,
                               int heads, int head_dim, float scale,
-                              int causal, int is_bf16, cudaStream_t stream) {
+                              int causal, int dtype, cudaStream_t stream) {
   return dispatch(q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk,
-                  heads, head_dim, scale, causal, is_bf16, stream);
+                  heads, head_dim, scale, causal, dtype, stream);
 }
 
-// The same three entries on the bf16 tensor-core body (is_bf16 must be 1;
-// the entries above take fp32 only).
+// The same three entries on the tensor-core body (dtype bf16 or fp16; the
+// entries above take fp32 only). dtype: mmgl::DType (common.cuh).
 extern "C" int mmgl_allheads_fwd_tc(const void* q, const void* k,
                                     const void* v, const int* kv_mask,
                                     void* out, int batch, int sq, int sk,
                                     int heads, int head_dim, float scale,
-                                    int causal, int is_bf16,
+                                    int causal, int dtype,
                                     cudaStream_t stream) {
   return dispatch_tc(q, k, v, kv_mask, out, nullptr, nullptr, batch, sq, sk,
-                     heads, head_dim, scale, causal, is_bf16, stream);
+                     heads, head_dim, scale, causal, dtype, stream);
 }
 
 extern "C" int mmgl_fused_heads_fwd_tc(const void* q, const void* k,
                                        const void* v, const int* kv_mask,
                                        void* out, int batch, int seq,
                                        int heads, int head_dim, float scale,
-                                       int causal, int is_bf16,
+                                       int causal, int dtype,
                                        cudaStream_t stream) {
   return dispatch_tc(q, k, v, kv_mask, out, nullptr, nullptr, batch, seq,
-                     seq, heads, head_dim, scale, causal, is_bf16, stream);
+                     seq, heads, head_dim, scale, causal, dtype, stream);
 }
 
 extern "C" int mmgl_flash_fwd_tc(const void* q, const void* k, const void* v,
                                  const int* kv_mask, void* out,
                                  float* row_max, float* row_sum, int batch,
                                  int sq, int sk, int heads, int head_dim,
-                                 float scale, int causal, int is_bf16,
+                                 float scale, int causal, int dtype,
                                  cudaStream_t stream) {
   return dispatch_tc(q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk,
-                     heads, head_dim, scale, causal, is_bf16, stream);
+                     heads, head_dim, scale, causal, dtype, stream);
 }
 
 extern "C" const char* mmgl_error_string(int err) {

@@ -1,4 +1,4 @@
-// The bf16 tensor-core forward body of K1, K2 and K4 (attention_fwd.cu), and
+// The tensor-core forward body of K1, K2 and K4 (attention_fwd.cu), and
 // in stats-only form the stats pass of K3/K5 (attention_bwd.cu), so that K5
 // takes its row max and sum from the same code, in the same order, as K4
 // writes them for K6.
@@ -10,8 +10,15 @@
 // i + (sk - sq) >= j) and columns at or beyond sk weighted 0. A masked key is
 // never skipped, so a fully masked row returns the mean of v over the sk
 // keys. Rounding follows the Pallas _fwd_kernel (flash_attention.py:123-126):
-// logits and softmax in fp32, p rounded to bf16 for the PV product, which
-// accumulates in fp32.
+// logits and softmax in fp32, p rounded to the input type for the PV
+// product, which accumulates in fp32.
+//
+// The element type T is bf16 or fp16 (the m16n8k16 product has both forms;
+// the fragments, the ldmatrix reads and the cp.async ring are the same).
+// Every masked or hidden logit lives in fp32 registers only (-1e30, and -inf
+// past sk): no tile in shared memory holds one, so fp16's range (65504) never
+// meets them. P lies in [0, 1] (times the keep factor 1 / (1 - p) under
+// dropout) before it is rounded to T; the output is rounded once at the end.
 //
 // What bounds it on this card: 4 D FLOPs per (query, key) pair over a few MB,
 // so the tensor cores (989 TFLOP/s bf16) and, at these head dims, the fp32
@@ -31,9 +38,9 @@
 //     past sk; the online softmax keeps each row's max (reduced over the
 //     row's four lanes by two shuffles per tile) and a per-lane partial sum,
 //     reduced once at the end, in log2 units (the scale and log2(e) in one
-//     multiply) on the card's ex2 (a few ulp, far inside bf16's rounding),
+//     multiply) on the card's ex2 (a few ulp, far inside T's rounding),
 //     and rescales O only where a row max moved;
-//   * P, rounded to bf16 in registers, is the A operand of P V as it stands:
+//   * P, rounded to T in registers, is the A operand of P V as it stands:
 //     it never touches shared memory;
 //   * causal tiles past the diagonal end the loop once every row of the
 //     block has seen a real logit (a block-wide vote), where they add exactly
@@ -47,13 +54,13 @@
 // with the batch-shared (H, Sq, Sk) bias and attention-prob dropout:
 //   out = (softmax(q k^T * scale + bias[h], masked = -1e30) * keep) v
 // It is the same body with two additions, compiled out of K1/K2/K4:
-//   * each (kRows x 64) tile of the bias (bf16 or fp32) comes into the
+//   * each (kRows x 64) tile of the bias (T or fp32) comes into the
 //     cp.async ring beside K and V, and each S element takes its own
 //     (row, key): in log2 units the logit is s (scale log2 e) + bias log2 e,
 //     one FMA; the bias is added on every tile, the masks still only on
 //     masked, diagonal and ragged tiles;
 //   * dropout on the P fragment: the online softmax sums exp(logit - m)
-//     without the keep factor, and P V takes P * factor rounded to bf16
+//     without the keep factor, and P V takes P * factor rounded to T
 //     (the Pallas order, flash_attention.py:618-621). The factors are
 //     philox.cuh's bits: the four words of one Philox call fall on lanes c4
 //     and c4 ^ 2 of a quad, so each lane makes one call per (row, 16-key
@@ -76,16 +83,15 @@ namespace mmgl {
 
 // kWarps warps of 16 query rows a block, kStages tiles of K and V (and
 // the bias) in the ring; kMinBlocks blocks an SM, for the register budget;
-// kBias, kDropout and the bias type TB select the bias form
+// kBias, kDropout and the bias type TB select the bias form; T is the
+// element type of q, k, v and out (bf16 or fp16)
 template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks,
           bool kBias = false, bool kDropout = false,
-          typename TB = __nv_bfloat16>
+          typename TB = __nv_bfloat16, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
-attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const int* __restrict__ kv_mask,
-                        __nv_bfloat16* __restrict__ out,
+attention_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int* __restrict__ kv_mask, T* __restrict__ out,
                         float* __restrict__ row_max,
                         float* __restrict__ row_sum, int sq, int sk,
                         int heads, float scale, int causal,
@@ -101,9 +107,9 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kBiasElems = kRows * kBS;  // TB a bias tile
   constexpr bool kDrop = kDropout && !kStatsOnly;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // kRows rows
-  __nv_bfloat16* k_s = q_s + kRows * S;          // [kStages][kElems]
-  __nv_bfloat16* v_s = k_s + kStages * kElems;   // [kStages][kElems]
+  T* q_s = reinterpret_cast<T*>(smem);  // kRows rows
+  T* k_s = q_s + kRows * S;              // [kStages][kElems]
+  T* v_s = k_s + kStages * kElems;       // [kStages][kElems]
   // [kStages][kBiasElems], after V (or after K in the stats-only form)
   TB* b_s = reinterpret_cast<TB*>(kStatsOnly ? v_s : v_s + kStages * kElems);
   __shared__ uint32_t mask_s[kStages][2];  // a tile's key mask, a bit a key
@@ -118,9 +124,9 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z;
 
   const long rs = static_cast<long>(heads) * D;
-  const __nv_bfloat16* q_rows = q + static_cast<long>(b) * sq * rs + h * D;
-  const __nv_bfloat16* k_rows = k + static_cast<long>(b) * sk * rs + h * D;
-  const __nv_bfloat16* v_rows = v + static_cast<long>(b) * sk * rs + h * D;
+  const T* q_rows = q + static_cast<long>(b) * sq * rs + h * D;
+  const T* k_rows = k + static_cast<long>(b) * sk * rs + h * D;
+  const T* v_rows = v + static_cast<long>(b) * sk * rs + h * D;
   const int* mask_row = kv_mask + static_cast<long>(b) * sk;
 
   const int shift = sk - sq;  // causal: query i sees key j iff i + shift >= j
@@ -212,7 +218,7 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const bool all_done = __all_sync(0xffffffffu, rows_done);
     if (!(causal && k0 > row_first + 15 + shift && all_done)) {
       // S = Q K^T: 16 rows x 64 keys a warp
-      const __nv_bfloat16* ks = k_s + st * kElems;
+      const T* ks = k_s + st * kElems;
       float s[kKeyBlocks][4];
 #pragma unroll
       for (int nb = 0; nb < kKeyBlocks; ++nb) {
@@ -222,8 +228,8 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           uint32_t kb[4];
           ldmatrix_x4(kb, ks + (8 * nb + (lane & 7)) * S + 16 * kk +
                               8 * (lane >> 3));
-          mma_bf16(s[nb], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[nb], qf[kk + 1], kb[2], kb[3]);
+          mma_tc<T>(s[nb], qf[kk], kb[0], kb[1]);
+          mma_tc<T>(s[nb], qf[kk + 1], kb[2], kb[3]);
         }
       }
 
@@ -310,9 +316,9 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int r = 0; r < 2; ++r) l_run[r] = fmaf(l_run[r], alpha[r], psum[r]);
 
       if (!kStatsOnly) {
-        // O = alpha O + P V, P rounded to bf16 straight from the
+        // O = alpha O + P V, P rounded to T straight from the
         // accumulators; alpha = 1 where no row max of the warp moved
-        const __nv_bfloat16* vs = v_s + st * kElems;
+        const T* vs = v_s + st * kElems;
         if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
           for (int i = 0; i < kDBlocks; ++i) {
@@ -348,14 +354,14 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
             }
           }
           uint32_t pa[4];
-          acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+          acc_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
           for (int db = 0; db < kDBlocks; db += 2) {
             uint32_t vb[4];
             ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 15)) * S + 8 * db +
                                       8 * (lane >> 4));
-            mma_bf16(o[db], pa, vb[0], vb[1]);
-            mma_bf16(o[db + 1], pa, vb[2], vb[3]);
+            mma_tc<T>(o[db], pa, vb[0], vb[1]);
+            mma_tc<T>(o[db + 1], pa, vb[2], vb[3]);
           }
         }
       }
@@ -384,22 +390,22 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
     if (!kStatsOnly) {
       const float inv = 1.f / l;
-      __nv_bfloat16* dst = out + (static_cast<long>(b) * sq + i) * rs + h * D;
+      T* dst = out + (static_cast<long>(b) * sq + i) * rs + h * D;
 #pragma unroll
       for (int db = 0; db < kDBlocks; ++db) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * db + 2 * c4) =
-            __floats2bfloat162_rn(o[db][2 * r] * inv, o[db][2 * r + 1] * inv);
+        store2(dst + 8 * db + 2 * c4, o[db][2 * r] * inv,
+               o[db][2 * r + 1] * inv);
       }
     }
   }
 }
 
-// One launch of the body in a given shape over (B, Sq, H*D) bf16 tensors.
-// kStatsOnly: v and out are not read or written; row_max and row_sum must
-// not be null. The bias form reads ba (BiasArgs).
+// One launch of the body in a given shape over (B, Sq, H*D) tensors of T
+// (bf16 or fp16). kStatsOnly: v and out are not read or written; row_max
+// and row_sum must not be null. The bias form reads ba (BiasArgs).
 template <int D, bool kStatsOnly, int kWarps, int kStages, int kMinBlocks,
           bool kBias = false, bool kDropout = false,
-          typename TB = __nv_bfloat16>
+          typename TB = __nv_bfloat16, typename T = __nv_bfloat16>
 cudaError_t launch_fwd_tc_as(const void* q, const void* k, const void* v,
                              const int* kv_mask, void* out, float* row_max,
                              float* row_sum, int batch, int sq, int sk,
@@ -409,35 +415,34 @@ cudaError_t launch_fwd_tc_as(const void* q, const void* k, const void* v,
   constexpr int kRows = 16 * kWarps;
   const size_t bytes =
       (kRows + (kStatsOnly ? 1 : 2) * kStages * kTcTile) *
-          TcTile<D>::kStride * sizeof(__nv_bfloat16) +
+          TcTile<D>::kStride * sizeof(T) +
       (kBias ? kStages * kRows * bias_stride<kTcTile>() * sizeof(TB) : 0);
   auto kernel = attention_fwd_tc_kernel<D, kStatsOnly, kWarps, kStages,
-                                        kMinBlocks, kBias, kDropout, TB>;
+                                        kMinBlocks, kBias, kDropout, TB, T>;
   cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
   kernel<<<grid, 32 * kWarps, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), kv_mask,
-      static_cast<__nv_bfloat16*>(out), row_max, row_sum, sq, sk, heads,
-      scale, causal, ba);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_mask, static_cast<T*>(out), row_max,
+      row_sum, sq, sk, heads, scale, causal, ba);
   return cudaGetLastError();
 }
 
 // the body's shape on this card, the fastest of those timed at OPT-350M's
 // (4, 2048, 16, 64) causal, K1's and K2's shapes on an H100 (PERF.md §6):
 // 4 warps, a 2-stage ring, 3 blocks an SM; the bias form takes the same
-// shape, also the fastest at T5-base's shapes (sweep/bias_shapes.cu)
+// shape, also the fastest at T5-base's shapes (sweep/bias_shapes.cu); fp16
+// takes the bf16 shape (the same instructions, another type)
 template <int D, bool kStatsOnly, bool kBias = false, bool kDropout = false,
-          typename TB = __nv_bfloat16>
+          typename TB = __nv_bfloat16, typename T = __nv_bfloat16>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           const int* kv_mask, void* out, float* row_max,
                           float* row_sum, int batch, int sq, int sk,
                           int heads, float scale, int causal,
                           cudaStream_t stream,
                           BiasArgs<TB> ba = BiasArgs<TB>{}) {
-  return launch_fwd_tc_as<D, kStatsOnly, 4, 2, 3, kBias, kDropout, TB>(
+  return launch_fwd_tc_as<D, kStatsOnly, 4, 2, 3, kBias, kDropout, TB, T>(
       q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
       causal, stream, ba);
 }

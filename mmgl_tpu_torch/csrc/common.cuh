@@ -1,11 +1,12 @@
 // Helpers shared by the attention kernels (attention_fwd.cu, attention_bwd.cu,
 // attention_blocked_bwd.cu, attention_bias_fwd.cu, attention_bias_bwd.cu):
-// scalar fp32 loads and FMAs, the inline PTX of the bf16 tensor-core
-// bodies (mma.sync, ldmatrix, cp.async), and the bias tiles of their bias
-// form.
+// scalar fp32 loads and FMAs, the inline PTX of the tensor-core bodies
+// (mma.sync in bf16 and fp16, ldmatrix, cp.async), and the bias tiles of
+// their bias form.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -14,11 +15,30 @@ namespace mmgl {
 constexpr int kD = 64;             // head dim
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package, not -inf
 
+// The element type the C entries take (their dtype and bias_dtype
+// arguments): fp32 runs the scalar bodies, bf16 and fp16 the tensor-core
+// ones. Masked logits are -1e30 only in fp32 registers: neither 2-byte
+// type holds it (fp16's largest is 65504).
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// f(T{}) for the tensor-core element type of a dtype code; a code that has
+// no tensor-core body is refused
+template <typename F>
+cudaError_t with_tc_type(int dtype, F&& f) {
+  if (dtype == kBF16) return f(__nv_bfloat16{});
+  if (dtype == kF16) return f(__half{});
+  return cudaErrorInvalidValue;
+}
+
 // one element as fp32, and back
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ float load1(const __half* p) {
+  return __half2float(*p);
 }
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
@@ -27,7 +47,11 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// four consecutive elements as fp32 (16 bytes of fp32, 8 of bf16)
+__device__ __forceinline__ void store1(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+
+// four consecutive elements as fp32 (16 bytes of fp32, 8 of bf16 or fp16)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -39,6 +63,13 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const __half2* pair = reinterpret_cast<const __half2*>(p);
+  const float2 lo = __half22float2(pair[0]);
+  const float2 hi = __half22float2(pair[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
@@ -47,6 +78,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
   __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(p);
   pair[0] = __floats2bfloat162_rn(x.x, x.y);
   pair[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+
+__device__ __forceinline__ void store4(__half* p, float4 x) {
+  __half2* pair = reinterpret_cast<__half2*>(p);
+  pair[0] = __floats2half2_rn(x.x, x.y);
+  pair[1] = __floats2half2_rn(x.z, x.w);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -63,7 +100,7 @@ __device__ __forceinline__ void axpy4(float s, float4 x, float4& acc) {
   acc.w = fmaf(s, x.w, acc.w);
 }
 
-// ---- the tensor-core bodies' building blocks (bf16, sm_80 and later) -------
+// ---- the tensor-core bodies' building blocks (bf16, fp16; sm_80 and later) -
 //
 // mma.sync m16n8k16 fragments, for a warp's lane = 4 g + c:
 //   A (16 x 16, row-major): a0 = A[g][2c, 2c+1], a1 = A[g+8][2c, 2c+1],
@@ -71,9 +108,10 @@ __device__ __forceinline__ void axpy4(float s, float4 x, float4& acc) {
 //   B (16 x 8, "col": column n holds k contiguous): b0 = B[2c, 2c+1][g],
 //                           b1 = B[2c+8, +9][g]
 //   C/D (16 x 8, fp32):     c0, c1 = C[g][2c, 2c+1], c2, c3 = C[g+8][2c, 2c+1]
-// Two n8 blocks of a C fragment are, rounded to bf16 and packed in pairs,
-// the A fragment of one k16 block: a product's output feeds the next
-// product from registers.
+// Two n8 blocks of a C fragment are, rounded to the element type and packed
+// in pairs, the A fragment of one k16 block: a product's output feeds the
+// next product from registers. bf16 and fp16 fragments have the same layout
+// (2 bytes an element), so ldmatrix and cp.async serve both.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -122,14 +160,57 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "memory");
 }
 
-// d += a b, bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a b, bf16 or fp16 inputs (Tc<T>::mma), fp32 accumulators
+template <typename T>
+struct Tc;
+
+template <>
+struct Tc<__nv_bfloat16> {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  // two fp32 rounded to bf16, lo in the low half (the lower column)
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Tc<__half> {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  // two fp32 rounded to fp16 (to nearest; past 65504 to inf, below 2^-24 to
+  // 0), lo in the low half
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void mma_tc(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  Tc<T>::mma(d, a, b0, b1);
+}
+
+// two fp32 as a pair of T at p (4-byte aligned)
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = Tc<T>::pack(lo, hi);
 }
 
 // 2^x on the card's MUFU.EX2 (a few ulp; 2^-inf = 0, 2^0 = 1 exactly)
@@ -142,32 +223,27 @@ __device__ __forceinline__ float ex2(float x) {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// two fp32 rounded to bf16, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // the A fragment of k16 block kk from an accumulator of n8 blocks
-// (2 kk, 2 kk + 1), rounded to bf16
+// (2 kk, 2 kk + 1), rounded to T
+template <typename T>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
                                          const float (&lo)[4],
                                          const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+  a[0] = Tc<T>::pack(lo[0], lo[1]);
+  a[1] = Tc<T>::pack(lo[2], lo[3]);
+  a[2] = Tc<T>::pack(hi[0], hi[1]);
+  a[3] = Tc<T>::pack(hi[2], hi[3]);
 }
 
-// the tensor-core bodies' tiles: 64 rows of a head in shared memory, bf16,
-// rows padded to D + 8 values (16 bytes), so the eight 16-byte row reads of
-// an ldmatrix fall in distinct banks
+// the tensor-core bodies' tiles: 64 rows of a head in shared memory, bf16 or
+// fp16, rows padded to D + 8 values (16 bytes), so the eight 16-byte row
+// reads of an ldmatrix fall in distinct banks
 constexpr int kTcTile = 64;  // the rows of a streamed tile (keys or queries)
 
 template <int D>
 struct TcTile {
-  static constexpr int kStride = D + 8;            // bf16 per smem row
-  static constexpr int kElems = kTcTile * kStride;  // bf16 per tile
+  static constexpr int kStride = D + 8;            // elements a smem row
+  static constexpr int kElems = kTcTile * kStride;  // elements a tile
 };
 
 // a tile's 64 key-mask flags as two words of bits, key i at bit i % 32 of
@@ -178,12 +254,11 @@ __device__ __forceinline__ void store_mask_bits(uint32_t* words, bool ok) {
   if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = bits;
 }
 
-// kRows rows row0 .. of one head of a (rows, H * D) bf16 matrix into a
-// padded tile, kThreads threads, 16 bytes a copy in flight; rows at or past
-// n_rows zero-filled
-template <int D, int kRows, int kThreads>
-__device__ __forceinline__ void tile_async(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
+// kRows rows row0 .. of one head of a (rows, H * D) bf16 or fp16 matrix
+// into a padded tile, kThreads threads, 16 bytes a copy in flight; rows at
+// or past n_rows zero-filled
+template <int D, int kRows, int kThreads, typename T>
+__device__ __forceinline__ void tile_async(T* dst, const T* src,
                                            long row_stride, int row0,
                                            int n_rows, int tid) {
   constexpr int kChunks = D / 8;
@@ -216,7 +291,7 @@ struct BiasArgs {
 
 // a bias tile's row stride in shared memory: kCols + 8 elements, so that a
 // row starts on 16 bytes and the fragment reads of a warp fall in distinct
-// banks (bf16, and fp32 along a row)
+// banks (bf16 or fp16, and fp32 along a row)
 template <int kCols>
 __host__ __device__ constexpr int bias_stride() {
   return kCols + 8;
@@ -240,13 +315,17 @@ __device__ __forceinline__ void bias_tile_async(TB* dst, const TB* src,
   }
 }
 
-// two consecutive elements as fp32 (8 bytes of fp32, 4 of bf16)
+// two consecutive elements as fp32 (8 bytes of fp32, 4 of bf16 or fp16)
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float2 load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
 // a kernel's dynamic shared memory limit, and the largest carveout of the

@@ -115,8 +115,9 @@ def load() -> Library:
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     u32 = ctypes.c_uint
-    # K1-K6 have a scalar entry (fp32) and a tensor-core one (bf16, *_tc)
-    # with the same arguments
+    # K1-K6 have a scalar entry (fp32) and a tensor-core one (bf16 and
+    # fp16, *_tc) with the same arguments; the dtype argument is a code of
+    # mmgl::DType (csrc/common.cuh)
     signatures = {
         "mmgl_allheads_fwd": [ptr] * 5 + [i32] * 5 + [f32, i32, i32, ptr],
         # K4 also takes the row max and sum outputs (null unless K6 follows)

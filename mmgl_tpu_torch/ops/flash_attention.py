@@ -34,11 +34,14 @@ csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
      ``_bwd_bias_kernel`` (:689, K9).
 
 Every kernel has two bodies, chosen by the input dtype (``_tensor_cores``):
-bf16 inputs launch the tensor-core body (mma.sync; the ``*_tc`` entries of
-the library), fp32 inputs the scalar one (on the tensor cores fp32 would run
-as TF32, about three decimal digits, against the fp32 checks' 2e-5). The
-wrappers count ``launches`` and, of those, ``launches_tc``. There is no
-fallback from one body to the other. K7's tensor-core body also writes the
+bf16 and fp16 inputs launch the tensor-core body (mma.sync in the input's
+type; the ``*_tc`` entries of the library), fp32 inputs the scalar one (on
+the tensor cores fp32 would run as TF32, about three decimal digits, against
+the fp32 checks' 2e-5). The wrappers count ``launches`` and, of those,
+``launches_tc``. There is no fallback from one body to the other. The
+masks stay -1e30 in fp32 inside the kernels (fp16 tops out at 65504), and the
+plain versions compute their logits and softmax in fp32 for every input
+dtype. K7's tensor-core body also writes the
 rows' softmax max and sum where a gradient follows
 (``flash_attention_bias_stats``), and K8/K9's starts from them instead of
 its stats pass.
@@ -74,7 +77,10 @@ from mmgl_tpu_torch.ops.attention import (NEG_INF, attention_reference,
                                           dropout_threshold)
 
 HEAD_DIM = 64
-_DTYPES = (torch.float32, torch.bfloat16)
+# the dtypes the kernels take, and their codes in the library's entries
+# (mmgl::DType, csrc/common.cuh)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = tuple(_DTYPE_CODE)
 
 # K6 in place of K5 for K4's causal backward, as MMGL_BLOCKED_BWD=1 selects
 # _bwd_causal_blocked (mmgl_tpu/ops/flash_attention.py:75); read at import
@@ -262,8 +268,8 @@ def _check(name: str, q, k, v, kv_mask, allow_sq_gt_sk: bool = False
         raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}, "
                          f"got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name}: q/k/v must all be float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{name}: q/k/v must all be float32, bfloat16 or "
+                         f"float16, got {q.dtype}, {k.dtype}, {v.dtype}")
     for t in (k, v) + ((kv_mask,) if kv_mask is not None else ()):
         if t.device != q.device:
             raise ValueError(f"{name}: inputs on {t.device} and {q.device}")
@@ -292,9 +298,9 @@ def _plain(q) -> bool:
 
 
 def _tensor_cores(q) -> bool:
-    """Whether a kernel takes its tensor-core body (bf16), not the scalar
-    one (fp32; ``_check`` refuses any other dtype)."""
-    return q.dtype == torch.bfloat16
+    """Whether a kernel takes its tensor-core body (bf16 or fp16), not the
+    scalar one (fp32; ``_check`` refuses any other dtype)."""
+    return q.dtype in (torch.bfloat16, torch.float16)
 
 
 def _entry(fn: str, q) -> str:
@@ -304,16 +310,16 @@ def _entry(fn: str, q) -> str:
 
 def _count(wrapper, q) -> None:
     """One launch of a kernel wrapper, and of its tensor-core body if q is
-    bf16."""
+    bf16 or fp16."""
     wrapper.launches += 1
     wrapper.launches_tc += int(_tensor_cores(q))
 
 
 def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape, stats=()):
     """Run one forward launcher of the library (``fn``, or its tensor-core
-    entry for bf16) on the current stream; returns out. ``stats``: the
-    tensors (or None, a null pointer) the launcher writes beside out (K4's
-    row max and sum)."""
+    entry for bf16 and fp16) on the current stream; returns out.
+    ``stats``: the tensors (or None, a null pointer) the launcher writes
+    beside out (K4's row max and sum)."""
     lib = _build.load().lib
     kv_mask = _int_mask(q, k, kv_mask)
     out = torch.empty_like(q)
@@ -322,15 +328,15 @@ def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape, stats=()):
         err = getattr(lib, _entry(fn, q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             out.data_ptr(), *(_ptr(t) for t in stats), *shape,
-            q.shape[3], float(scale), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+            q.shape[3], float(scale), int(causal), _DTYPE_CODE[q.dtype],
+            stream)
     _build.check(lib, err, name)
     return out
 
 
 def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
     """Run a dense backward launcher (K3, K5; its tensor-core entry for
-    bf16) on the current stream; returns (dq, dk, dv)."""
+    bf16 and fp16) on the current stream; returns (dq, dk, dv)."""
     b, sq, h, d = q.shape
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
@@ -342,7 +348,7 @@ def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(), b, sq, k.shape[1], h, d,
-            float(scale), int(causal), int(q.dtype == torch.bfloat16), stream)
+            float(scale), int(causal), _DTYPE_CODE[q.dtype], stream)
     _build.check(lib, err, name)
     return dq, dk, dv
 
@@ -540,8 +546,8 @@ def _check_stats(name, q, row_max, row_sum):
 
 def _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max, row_sum,
                         causal, scale):
-    """Run K6's launcher (its tensor-core entry for bf16) on the current
-    stream; returns (dq, dk, dv)."""
+    """Run K6's launcher (its tensor-core entry for bf16 and fp16) on the
+    current stream; returns (dq, dk, dv)."""
     b, sq, h, d = q.shape
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
@@ -554,7 +560,7 @@ def _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max, row_sum,
             out.data_ptr(), dout.data_ptr(), row_max.data_ptr(),
             row_sum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), b, sq, k.shape[1], h, d, float(scale),
-            int(causal), int(q.dtype == torch.bfloat16), stream)
+            int(causal), _DTYPE_CODE[q.dtype], stream)
     _build.check(lib, err, "flash_attention_blocked_bwd")
     return dq, dk, dv
 
@@ -691,7 +697,8 @@ def _dropout_args(rate, seed, q):
 
 
 def _check_bias(name, q, k, bias):
-    """The kernels' bias: (H, Sq, Sk) contiguous, fp32 or bf16."""
+    """The kernels' bias: (H, Sq, Sk) contiguous, in fp32 or in q's dtype
+    (the fp32 body also takes a bf16 bias)."""
     if bias is None:
         return
     b, sq, h, _ = q.shape
@@ -700,9 +707,13 @@ def _check_bias(name, q, k, bias):
                          f"Sk) = {(h, sq, k.shape[1])}")
     if _plain(q):
         return
-    if bias.dtype not in _DTYPES or bias.device != q.device:
-        raise ValueError(f"{name}: bias must be float32 or bfloat16 on "
-                         f"{q.device}, got {bias.dtype} on {bias.device}")
+    allowed = ((torch.float32, torch.bfloat16) if q.dtype == torch.float32
+               else (torch.float32, q.dtype))
+    if bias.dtype not in allowed or bias.device != q.device:
+        raise ValueError(
+            f"{name}: bias must be {' or '.join(map(str, allowed))} on "
+            f"{q.device} for {q.dtype} inputs, got {bias.dtype} on "
+            f"{bias.device}")
     _check_layout(name, bias)
 
 
@@ -732,15 +743,16 @@ def _empty_stats(q):
 
 def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv,
                  *stats):
-    """Run K7's launcher (its tensor-core entry for bf16) on the current
-    stream; returns out. ``stats``: the row max and sum tensors the
+    """Run K7's launcher (its tensor-core entry for bf16 and fp16) on the
+    current stream; returns out. ``stats``: the row max and sum tensors the
     tensor-core body writes beside out, or none."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
     out = torch.empty_like(q)
-    bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
+    codes = (_DTYPE_CODE[q.dtype],
+             _DTYPE_CODE[bias.dtype] if bias is not None else 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if _tensor_cores(q):
@@ -749,24 +761,22 @@ def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                 _ptr(bias), _ptr(seed), out.data_ptr(),
                 *(_ptr(t) for t in (stats or (None, None))), b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, 1, bias_bf16, ld,
-                stream)
+                float(scale), int(causal), thr, keep_inv, *codes, ld, stream)
         else:
             err = lib.mmgl_bias_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                 _ptr(bias), _ptr(seed), out.data_ptr(), b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, 0, bias_bf16,
-                stream)
+                float(scale), int(causal), thr, keep_inv, *codes, stream)
     _build.check(lib, err, "flash_attention_bias")
     return out
 
 
 def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
                      thr, keep_inv, *stats):
-    """Run K8/K9's launcher (its tensor-core entry for bf16) on the current
-    stream; returns (dq, dk, dv, dbias). ``stats``: K7's row max and sum,
-    from which the tensor-core body starts instead of its stats pass, or
-    none. dbias is summed over the batch from a per-(b, h) fp32 partial of
+    """Run K8/K9's launcher (its tensor-core entry for bf16 and fp16) on the
+    current stream; returns (dq, dk, dv, dbias). ``stats``: K7's row max
+    and sum, from which the tensor-core body starts instead of its stats
+    pass, or none. dbias is summed over the batch from a per-(b, h) fp32 partial of
     dlogits in a fixed order (no atomics): B * H * Sq * Sk * 4 bytes of
     scratch, 50,331,648 at T5-base's encoder shape (4, 12, 512, 512), which
     the tensor-core body writes whole (the scalar body needs it zeroed: it
@@ -784,7 +794,8 @@ def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
         dbias = torch.empty_like(bias)
         partial = (torch.empty if tc else torch.zeros)(
             b * h * sq * sk, dtype=torch.float32, device=q.device)
-    bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
+    codes = (_DTYPE_CODE[q.dtype],
+             _DTYPE_CODE[bias.dtype] if bias is not None else 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr())
     grads = (out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -795,13 +806,11 @@ def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
             err = lib.mmgl_bias_bwd_tc(
                 *common, _ptr(padded), _ptr(seed), *grads,
                 *(_ptr(t) for t in (stats or (None, None))), b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, 1, bias_bf16, ld,
-                stream)
+                float(scale), int(causal), thr, keep_inv, *codes, ld, stream)
         else:
             err = lib.mmgl_bias_bwd(
                 *common, _ptr(bias), _ptr(seed), *grads, b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, 0, bias_bf16,
-                stream)
+                float(scale), int(causal), thr, keep_inv, *codes, stream)
     _build.check(lib, err, "flash_attention_bias_bwd")
     return dq, dk, dv, dbias
 
@@ -814,7 +823,7 @@ def flash_attention_bias_bwd(q, k, v, kv_mask, bias, out, dout, *,
     (H, Sq, Sk) or None; dbias is (H, Sq, Sk) in the bias dtype, summed over
     the batch, or None without a bias. ``row_max``/``row_sum``: K7's row
     stats for the same inputs (``flash_attention_bias_stats``), (B, H, Sq)
-    fp32, or None; the bf16 tensor-core body starts from them instead of
+    fp32, or None; the tensor-core body starts from them instead of
     its stats pass, with the same bits, and the fp32 body and the plain
     version recompute the softmax."""
     name = "flash_attention_bias_bwd"
@@ -849,8 +858,8 @@ flash_attention_bias_bwd.launches_tc = 0
 def _bias_forward(q, k, v, kv_mask, bias, seed, causal, scale, rate,
                   with_stats):
     """K7 (or its plain version on the CPU): (out, row_max, row_sum), the
-    stats None unless ``with_stats`` (on the card, bf16 only: the fp32
-    scalar body keeps none)."""
+    stats None unless ``with_stats`` (on the card, bf16 and fp16 only: the
+    fp32 scalar body keeps none)."""
     if _plain(q):
         got = bias_attention_reference(
             q, k, v, bias=None if bias is None else bias[None],
@@ -859,7 +868,7 @@ def _bias_forward(q, k, v, kv_mask, bias, seed, causal, scale, rate,
         return got if with_stats else (got, None, None)
     if with_stats and not _tensor_cores(q):
         raise ValueError("flash_attention_bias: the row stats come from the "
-                         "bf16 tensor-core body; q is " + str(q.dtype))
+                         "tensor-core body; q is " + str(q.dtype))
     seed, thr, keep_inv = _dropout_args(rate, seed, q)
     stats = _empty_stats(q) if with_stats else (None, None)
     out = _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
@@ -929,10 +938,11 @@ def flash_attention_bias(
     dropout_seed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K7: attention over BSHD tensors with a batch-shared additive bias
-    (1, H or 1, Sq, Sk) in fp32 or bf16, or none, and attention-prob
+    (1, H or 1, Sq, Sk) in fp32 or q's dtype, or none, and attention-prob
     dropout at ``dropout_rate`` under the (2,) int64 key ``dropout_seed``
     (``attention.draw_dropout_seed``); (B, Sq, H, D) out. Its gradient runs
-    K8/K9 and reaches the bias; in bf16 on the card K7 then keeps the rows'
+    K8/K9 and reaches the bias; in bf16 or fp16 on the card K7 then keeps the
+    rows'
     stats for it, only where a gradient will be taken (JAX's custom VJP
     saves only the output)."""
     k, v, bias, scale, seed, rate = _bias_args(
@@ -955,7 +965,8 @@ def flash_attention_bias_stats(q, k, v, *, bias=None, kv_mask=None,
                                dropout_seed=None):
     """K7 keeping the rows' softmax statistics, as K8/K9 can start from
     them: (out, row_max, row_sum), the stats (B, H, Sq) fp32 (kept apart,
-    as K4's). On the card bf16 only. No autograd; a launch counts under
+    as K4's). On the card bf16 and fp16 only. No autograd; a launch counts
+    under
     ``flash_attention_bias.launches``."""
     k, v, bias, scale, seed, rate = _bias_args(
         "flash_attention_bias", q, k, v, bias, kv_mask, causal, scale,

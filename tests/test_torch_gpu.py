@@ -6,22 +6,24 @@ repository's conftest imports it, hence --noconftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-Every kernel takes its tensor-core body in bf16 and its scalar body in
-fp32; each case checks which body its launches counted. K8/K9 in bf16
-starts from K7's row stats where autograd runs it, and equals, bit for
-bit, K8/K9 with its own stats pass.
+Every kernel takes its tensor-core body in bf16 and fp16 and its scalar
+body in fp32; each case checks which body its launches counted. K8/K9 in
+bf16 and fp16 starts from K7's row stats where autograd runs it, and
+equals, bit for bit, K8/K9 with its own stats pass.
 
 Forward tolerances: bf16 atol = rtol = 2e-2 (the plain version rounds the
 normalised probabilities to bf16 before PV, the kernel the unnormalised ones
-and divides after); fp32 atol 2e-5 with TF32 off, for sums taken in another
-order.
+and divides after); fp16 atol = rtol = 5e-3 (the same roundings with three
+more mantissa bits: 2^-11 against bf16's 2^-8); fp32 atol 2e-5 with TF32
+off, for sums taken in another order.
 
 Backward (K3, K5, K6, K8/K9) tolerances, per gradient and relative to its
 largest entry m:
 atol = 2e-2 m and rtol = 2e-2 in bf16 (the plain version rounds P and dS to
 bf16 before their products, as the Pallas kernel does, and so does the
 tensor-core body, from logits summed in another order: a sum over hundreds
-of keys of terms each off by a bf16 ulp);
+of keys of terms each off by a bf16 ulp); atol = 5e-3 m and rtol = 5e-3 in
+fp16, for the same roundings to fp16;
 atol = 1e-5 m in fp32, for sums in another order.
 """
 
@@ -31,8 +33,15 @@ import torch
 
 from mmgl_tpu_torch.ops import flash_attention as fa
 
-TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-5, 0.0)}
-BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float16: (5e-3, 5e-3),
+       torch.float32: (2e-5, 0.0)}
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-5}
+# every dtype, and the tensor-core bodies' two
+DTYPES = dict(argnames="dtype",
+              argvalues=[torch.bfloat16, torch.float16, torch.float32],
+              ids=["bf16", "fp16", "fp32"])
+TC_DTYPES = dict(argnames="dtype", argvalues=[torch.bfloat16, torch.float16],
+                 ids=["bf16", "fp16"])
 
 # (kernel, (B, Sq, Sk, H), causal): the main path's shapes, ragged lengths,
 # and K1 with sq < sk (causal aligned at the ends)
@@ -87,8 +96,7 @@ def hole_mask(b, s, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("name,dims,causal", CASES)
 def test_kernel_matches_plain_version(name, dims, causal, dtype):
     dev = _device()
@@ -111,7 +119,7 @@ def test_kernel_matches_plain_version(name, dims, causal, dtype):
     got = kernel(q, k, v, kv_mask=mask, causal=causal)
     torch.cuda.synchronize()
     assert (kernel.launches, kernel.launches_tc) == (
-        before[0] + 1, before[1] + (dtype == torch.bfloat16))
+        before[0] + 1, before[1] + (dtype != torch.float32))
     ref = plain(q, k, v, kv_mask=mask, causal=causal)
     atol, rtol = TOL[dtype]
     assert got.dtype == dtype and got.shape == q.shape
@@ -119,8 +127,7 @@ def test_kernel_matches_plain_version(name, dims, causal, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims,causal,mask_kind", BWD_CASES)
 def test_backward_kernel_matches_plain_version(dims, causal, mask_kind,
                                                dtype):
@@ -141,7 +148,7 @@ def test_backward_kernel_matches_plain_version(dims, causal, mask_kind,
     got = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
                                           causal=causal)
     torch.cuda.synchronize()
-    assert counted() == [(1, int(dtype == torch.bfloat16))]
+    assert counted() == [(1, int(dtype != torch.float32))]
     ref = fa.allheads_attention_bwd_reference(q, k, v, mask, out, dout,
                                               causal=causal)
     tol = BWD_TOL[dtype]
@@ -150,7 +157,7 @@ def test_backward_kernel_matches_plain_version(dims, causal, mask_kind,
         assert bool(torch.isfinite(g).all()), name
         scale = float(r.float().abs().max())
         torch.testing.assert_close(g.float(), r.float(), atol=tol * scale,
-                                   rtol=tol if dtype == torch.bfloat16
+                                   rtol=tol if dtype != torch.float32
                                    else 0.0, msg=name)
 
 
@@ -205,13 +212,12 @@ def _close_rel(got, ref, dtype, name):
     assert bool(torch.isfinite(got).all()), name
     scale = float(ref.float().abs().max())
     torch.testing.assert_close(got.float(), ref.float(), atol=tol * scale,
-                               rtol=tol if dtype == torch.bfloat16 else 0.0,
+                               rtol=tol if dtype != torch.float32 else 0.0,
                                msg=name)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims,causal", FLASH_CASES)
 def test_flash_kernels_match_plain_versions(dims, causal, dtype):
     """K4 forward and, through autograd, K5 (under MQA dK/dV summed over the
@@ -227,7 +233,7 @@ def test_flash_kernels_match_plain_versions(dims, causal, dtype):
     got = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
     grads = torch.autograd.grad(got, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert counted() == [(1, int(dtype == torch.bfloat16))] * 2
+    assert counted() == [(1, int(dtype != torch.float32))] * 2
     kx, vx = (t.detach().expand(b, sk, h, 64) for t in (k, v))
     ref = fa.flash_attention_reference(q.detach(), kx, vx, kv_mask=mask,
                                        causal=causal)
@@ -257,8 +263,7 @@ BIAS_CASES = [
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims,causal,with_bias", BIAS_CASES)
 def test_bias_kernels_match_plain_versions(dims, causal, with_bias, dtype,
                                            rate):
@@ -287,7 +292,7 @@ def test_bias_kernels_match_plain_versions(dims, causal, with_bias, dtype,
     wrt = (q, k, v) + ((bias,) if with_bias else ())
     grads = torch.autograd.grad(got, wrt, dout)
     torch.cuda.synchronize()
-    assert counted() == [(1, int(dtype == torch.bfloat16))] * 2
+    assert counted() == [(1, int(dtype != torch.float32))] * 2
     plain_bias = None if bias is None else bias.detach()
     ref = fa.bias_attention_reference(
         q.detach(), k.detach(), v.detach(), bias=plain_bias, kv_mask=mask,
@@ -323,12 +328,11 @@ def kernel_keep_mask(b, sq, sk, h, seed, rate, dev, dtype=torch.float32):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims", [(4, 512, 512, 12), (4, 128, 512, 12),
                                   (3, 333, 77, 2)])
 def test_dropout_mask_is_the_plain_versions_bit_for_bit(dims, dtype):
-    """K7, in its tensor-core body (bf16) and its scalar one (fp32), keeps
+    """K7, in its tensor-core body (bf16, fp16) and its scalar one (fp32), keeps
     exactly the elements the plain version keeps, and about 0.9 of them
     (within 6 sigma)."""
     dev = _device()
@@ -360,8 +364,7 @@ STATS_TOL = 1e-4
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims,mask_kind", BLOCKED_CASES)
 def test_blocked_kernels_match_plain_versions(dims, mask_kind, dtype):
     """K4 keeping its row stats, then K6 from them, against the plain
@@ -378,7 +381,7 @@ def test_blocked_kernels_match_plain_versions(dims, mask_kind, dtype):
     got = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
                                          causal=True)
     torch.cuda.synchronize()
-    assert counted() == [(1, int(dtype == torch.bfloat16))] * 2
+    assert counted() == [(1, int(dtype != torch.float32))] * 2
     ref_out, ref_m, ref_l = fa.flash_attention_reference(
         q, k, v, kv_mask=mask, causal=True, with_stats=True)
     atol, rtol = TOL[dtype]
@@ -396,8 +399,7 @@ def test_blocked_kernels_match_plain_versions(dims, mask_kind, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize(**DTYPES)
 def test_flash_grad_under_the_flag_runs_k6_and_agrees_with_k5(monkeypatch,
                                                               dtype):
     """With the blocked backward selected, autograd through K4 at a long
@@ -415,7 +417,7 @@ def test_flash_grad_under_the_flag_runs_k6_and_agrees_with_k5(monkeypatch,
     out = fa.flash_attention(q, k, v, kv_mask=mask, causal=True)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    tc = int(dtype == torch.bfloat16)
+    tc = int(dtype != torch.float32)
     assert counted() == [(1, tc), (1, tc), (0, 0)]
     k5 = fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), mask,
                                 out.detach(), dout, causal=True)
@@ -424,7 +426,7 @@ def test_flash_grad_under_the_flag_runs_k6_and_agrees_with_k5(monkeypatch,
         assert torch.equal(g, r), name
 
 
-# ---- the bf16 tensor-core bodies at the fragment edges ---------------------
+# ---- the tensor-core bodies at the fragment edges (bf16, fp16) -------------
 
 # lengths that cut the 16-row fragments and the 64-row tiles; causal needs
 # sq <= sk (ends aligned)
@@ -434,16 +436,17 @@ EDGE_CASES = [(sq, sk, causal) for sq in EDGE_LENGTHS for sk in EDGE_LENGTHS
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
 @pytest.mark.parametrize("sq,sk,causal", EDGE_CASES)
-def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal):
-    """In bf16: K4 with its row stats, K6 and K5 (and K1 where sq <= sk, K2
-    where sq == sk) against their plain versions, with a fully masked sample
+def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal, dtype):
+    """In bf16 and fp16: K4 with its row stats, K6 and K5 (and K1 where
+    sq <= sk, K2 where sq == sk) against their plain versions, with a fully masked sample
     and a sample whose first third of keys is masked (causal rows that see
     no real logit); every launch counted as the tensor-core body; K5's
     gradients equal K6's bit for bit."""
     dev = _device()
     b, h = 3, 2
-    q, k, v, dout = _qkv((b, sq, sk, h, h), torch.bfloat16, dev,
+    q, k, v, dout = _qkv((b, sq, sk, h, h), dtype, dev,
                          seed=1000 * sq + sk)
     rng = np.random.RandomState(sq + 7 * sk)
     mask = (rng.uniform(size=(b, sk)) > 0.25).astype(np.int32)
@@ -472,9 +475,9 @@ def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal):
 
     ref_out, ref_m, ref_l = fa.flash_attention_reference(
         q, k, v, kv_mask=mask, causal=causal, with_stats=True)
-    atol, rtol = TOL[torch.bfloat16]
+    atol, rtol = TOL[dtype]
     for got in [out] + others:
-        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert got.dtype == dtype and got.shape == q.shape
         torch.testing.assert_close(got.float(), ref_out.float(), atol=atol,
                                    rtol=rtol)
     for got_s, ref_s in ((m, ref_m), (l, ref_l)):
@@ -489,8 +492,8 @@ def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal):
         scale = max(float(r.float().abs().max()), floor)
         assert bool(torch.isfinite(g).all()), name
         torch.testing.assert_close(g.float(), r.float(),
-                                   atol=BWD_TOL[torch.bfloat16] * scale,
-                                   rtol=BWD_TOL[torch.bfloat16], msg=name)
+                                   atol=BWD_TOL[dtype] * scale,
+                                   rtol=BWD_TOL[dtype], msg=name)
         assert torch.equal(g, g5), name
 
 
@@ -500,10 +503,11 @@ BIAS_FORMS = {"bias": (True, 0.0), "bias_drop": (True, 0.1),
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
 @pytest.mark.parametrize("form", list(BIAS_FORMS))
 @pytest.mark.parametrize("sq,sk,causal", EDGE_CASES)
-def test_bias_bodies_at_fragment_edges(sq, sk, causal, form):
-    """In bf16: K7 and, through autograd from its row stats, K8/K9 (dbias
+def test_bias_bodies_at_fragment_edges(sq, sk, causal, form, dtype):
+    """In bf16 and fp16: K7 and, through autograd from its row stats, K8/K9 (dbias
     included) against their plain versions, with a fully masked sample and
     a sample whose first third of keys is masked; every launch counted as
     the tensor-core body; K8/K9 with its own stats pass equal to the
@@ -511,7 +515,7 @@ def test_bias_bodies_at_fragment_edges(sq, sk, causal, form):
     dev = _device()
     with_bias, rate = BIAS_FORMS[form]
     b, h = 3, 2
-    q, k, v, dout = _qkv((b, sq, sk, h, h), torch.bfloat16, dev,
+    q, k, v, dout = _qkv((b, sq, sk, h, h), dtype, dev,
                          seed=1000 * sq + sk + 1, scale=0.125)
     rng = np.random.RandomState(sq + 7 * sk + 1)
     mask = (rng.uniform(size=(b, sk)) > 0.25).astype(np.int32)
@@ -521,7 +525,7 @@ def test_bias_bodies_at_fragment_edges(sq, sk, causal, form):
     bias = None
     if with_bias:
         bias = torch.from_numpy(rng.randn(1, h, sq, sk).astype(
-            np.float32)).to(dev, torch.bfloat16).requires_grad_()
+            np.float32)).to(dev, dtype).requires_grad_()
     seed = torch.tensor([sq * 7919 + sk, 31], dtype=torch.int64, device=dev)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     wrt = (q, k, v) + ((bias,) if with_bias else ())
@@ -540,7 +544,7 @@ def test_bias_bodies_at_fragment_edges(sq, sk, causal, form):
     ref = fa.bias_attention_reference(
         q.detach(), k.detach(), v.detach(), bias=plain_bias, kv_mask=mask,
         causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
-    atol, rtol = TOL[torch.bfloat16]
+    atol, rtol = TOL[dtype]
     torch.testing.assert_close(out.detach().float(), ref.float(), atol=atol,
                                rtol=rtol)
     refs = fa.bias_attention_bwd_reference(
@@ -556,6 +560,6 @@ def test_bias_bodies_at_fragment_edges(sq, sk, causal, form):
         scale = max(float(r.float().abs().max()), floor)
         assert bool(torch.isfinite(g).all()), name
         torch.testing.assert_close(g.float(), r.float(),
-                                   atol=BWD_TOL[torch.bfloat16] * scale,
-                                   rtol=BWD_TOL[torch.bfloat16], msg=name)
+                                   atol=BWD_TOL[dtype] * scale,
+                                   rtol=BWD_TOL[dtype], msg=name)
         assert torch.equal(g, g_own), name

@@ -1,11 +1,12 @@
-"""The arithmetic of the bf16 tensor-core attention bodies, emulated in torch
-on the CPU and held against the JAX package.
+"""The arithmetic of the tensor-core attention bodies (bf16 and fp16),
+emulated in torch on the CPU and held against the JAX package.
 
 The bodies (mmgl_tpu_torch/csrc/attention_fwd_tc.cuh for K1/K2/K4, K7 and
 the stats passes of K3/K5 and K8/K9; the dK/dV and dQ bodies of
 attention_bwd_tiles.cuh for K3/K5/K6 and K8/K9) run only on a card. This
 file repeats their arithmetic order in torch:
-  * 64 x 64 tiles; products of bf16 values accumulated in fp32 (mma.sync);
+  * 64 x 64 tiles; products of bf16 (or fp16) values accumulated in fp32
+    (mma.sync);
   * the forward's online softmax: a running row max, the sum rescaled by
     exp(m_old - m_new), p rounded to bf16 before P V, out = O / l;
   * the backward from the rows' max m and sum l: p = exp(logit - m) * (1 / l),
@@ -36,6 +37,12 @@ dropout 0.1 against the port's plain versions under the same Philox key
 compares with the JAX package, tests/test_torch_attention.py).
 Without the bf16 roundings the emulation is the port's plain versions, to
 1e-5. Shapes are small (H <= 2, S <= 333): each case runs in seconds.
+
+The fp16 form rounds to float16 where the bf16 form rounds to bfloat16 (the
+bodies' second element type: the same instructions, m16n8k16 in .f16): the
+same comparisons, with the Pallas kernels in float16, at atol = rtol = 5e-3
+(fp16 keeps 11 significant bits to bf16's 8; the masks stay -1e30 in fp32,
+which fp16 cannot hold).
 """
 
 import math
@@ -55,6 +62,7 @@ TILE = 64
 NEG_INF = -1e30
 D = 64
 TOL = 2e-2      # chip_smoke.py's bf16 forward (atol, rtol) and backward
+FP16_TOL = 5e-3  # its fp16 ones
 
 # (B, Sq, Sk, H), causal, key mask
 CASES = [
@@ -66,9 +74,9 @@ CASES = [
 IDS = ["197-noncausal", "333-causal-hole", "200x328-aligned", "fully-masked"]
 
 
-def _inputs(dims, mask_kind, seed):
-    """q, k, v, dO as fp32 tensors holding bf16 values, and the (B, Sk) int32
-    key mask: "hole" pads a prompt of 4/5 Sk and the rest in the middle and
+def _inputs(dims, mask_kind, seed, dtype=torch.bfloat16):
+    """q, k, v, dO as fp32 tensors holding ``dtype`` values, and the (B, Sk)
+    int32 key mask: "hole" pads a prompt of 4/5 Sk and the rest in the middle and
     at the end; "fully_masked" has sample 0 all masked and the first 70 keys
     of sample 1, so its first causal rows see no real logit."""
     b, sq, sk, h = dims
@@ -84,13 +92,14 @@ def _inputs(dims, mask_kind, seed):
     elif mask_kind == "fully_masked":
         mask[0] = 0
         mask[1, :70] = 0
-    tensors = [torch.from_numpy(t).to(torch.bfloat16).float()
+    tensors = [torch.from_numpy(t).to(dtype).float()
                for t in (q, k, v, dout)]
     return tensors, torch.from_numpy(mask)
 
 
-def _round(x, on):
-    return x.to(torch.bfloat16).float() if on else x
+def _round(x, dtype):
+    """x rounded to ``dtype`` (a body's element type), or x for None."""
+    return x.to(dtype).float() if dtype is not None else x
 
 
 def _allowed(rows, cols, mask, shift, causal):
@@ -101,10 +110,10 @@ def _allowed(rows, cols, mask, shift, causal):
     return ok
 
 
-def emulate_forward(q, k, v, mask, causal, scale, bf16=True, seen=None,
-                    bias=None, keep=None):
-    """The forward body: (out, m, l), out (B, Sq, H, D), the stats (B, H,
-    Sq). ``seen["early_exit"]`` counts (block, head, batch) loops that ended
+def emulate_forward(q, k, v, mask, causal, scale, dtype=torch.bfloat16,
+                    seen=None, bias=None, keep=None):
+    """The forward body in element type ``dtype`` (None: no rounding):
+    (out, m, l), out (B, Sq, H, D), the stats (B, H, Sq). ``seen["early_exit"]`` counts (block, head, batch) loops that ended
     at a causally hidden tile. The bias form: ``bias`` (H, Sq, Sk) fp32,
     ``keep`` the (B, H, Sq, Sk) keep factor (1 / keep or 0)."""
     b, sq, h, _ = q.shape
@@ -145,11 +154,11 @@ def emulate_forward(q, k, v, mask, causal, scale, bf16=True, seen=None,
             l_new = l * alpha + p.sum(-1)
             if keep is not None:
                 p = p * _tile(keep, rows, cols)
-            o_new = o * alpha[..., None] + _round(p, bf16) @ vh[:, :, cols]
+            o_new = o * alpha[..., None] + _round(p, dtype) @ vh[:, :, cols]
             m = torch.where(active, m_new, m)
             l = torch.where(active, l_new, l)
             o = torch.where(active[..., None], o_new, o)
-        out[:, :, q0:q0 + TILE] = _round(o / l[..., None], bf16)
+        out[:, :, q0:q0 + TILE] = _round(o / l[..., None], dtype)
         m_all[:, :, q0:q0 + TILE] = m
         l_all[:, :, q0:q0 + TILE] = l
     return out.permute(0, 2, 1, 3), m_all, l_all
@@ -163,7 +172,7 @@ def _tile(x, rows, cols):
 
 
 def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
-                     bf16=True, seen=None, bias=None, keep=None):
+                     dtype=torch.bfloat16, seen=None, bias=None, keep=None):
     """The dK/dV and dQ bodies from the rows' max and sum: (dq, dk, dv),
     and dbias (H, Sq, Sk) in the bias form (``bias`` and ``keep`` as
     ``emulate_forward`` takes them), summed over the batch from the fp32
@@ -195,7 +204,7 @@ def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
         factor = 1.0 if keep is None else _tile(keep, rows, cols)
         dl = torch.where(ok, p * (factor * dp - delta[:, :, rows, None]),
                          torch.tensor(0.0))
-        return _round(p * factor, bf16), _round(dl * scale, bf16), dl
+        return _round(p * factor, dtype), _round(dl * scale, dtype), dl
 
     for k0 in range(0, sk, TILE):
         cols = torch.arange(k0, min(k0 + TILE, sk))
@@ -228,10 +237,10 @@ def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
             keys = mask.bool()[:, cols].any(-1)[:, None, None, None]
             dq[:, :, rows] += torch.where(keys, ds @ kh[:, :, cols], 0.0)
             _tile(dlogits, rows, cols)[:] = torch.where(keys, dl, 0.0)
-    grads = tuple(_round(g, bf16).permute(0, 2, 1, 3) for g in (dq, dk, dv))
+    grads = tuple(_round(g, dtype).permute(0, 2, 1, 3) for g in (dq, dk, dv))
     if bias is None:
         return grads
-    return grads + (_round(dlogits.sum(0), bf16),)
+    return grads + (_round(dlogits.sum(0), dtype),)
 
 
 def _heads_first(x, dtype=jnp.bfloat16):
@@ -253,15 +262,17 @@ def _close(got, want, atol, rtol, what):
                                rtol=rtol, msg=what)
 
 
-def _close_grad(got, want, what):
-    _close(got, want, TOL * float(want.abs().max()), TOL, what)
+def _close_grad(got, want, what, tol=TOL):
+    _close(got, want, tol * float(want.abs().max()), tol, what)
 
 
-def _jax_reference(dims, causal, mask_kind, q, k, v, dout, mask, scale):
+def _jax_reference(dims, causal, mask_kind, q, k, v, dout, mask, scale,
+                   dtype=jnp.bfloat16):
     """(out, lse or None, (dq, dk, dv)) of the JAX package for these inputs:
     the Pallas forward with with_lse and the Pallas backward (blocked where
-    causal, dense otherwise) in bf16 in interpret mode; for a fully masked
-    sample xla_attention and its jax.grad, in fp32 on the same bf16 values."""
+    causal, dense otherwise) in ``dtype`` in interpret mode; for a fully
+    masked sample xla_attention and its jax.grad, in fp32 on the same
+    values."""
     b, _, _, h = dims
     if mask_kind == "fully_masked":
         jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, dout))
@@ -275,7 +286,7 @@ def _jax_reference(dims, causal, mask_kind, q, k, v, dout, mask, scale):
         grads = vjp(jdo)
         return (torch.from_numpy(np.array(out)), None,
                 tuple(torch.from_numpy(np.array(g)) for g in grads))
-    qf, kf, vf, dof = (_heads_first(t) for t in (q, k, v, dout))
+    qf, kf, vf, dof = (_heads_first(t, dtype) for t in (q, k, v, dout))
     maskf = jnp.repeat(jnp.asarray(mask.numpy()), h, axis=0)
     out, lse = jfa._fwd(qf, kf, vf, maskf, scale, causal, True,
                         with_lse=True)
@@ -289,28 +300,60 @@ def _jax_reference(dims, causal, mask_kind, q, k, v, dout, mask, scale):
             tuple(_seq_first(g, b, h) for g in grads))
 
 
+def _check_forward(dims, causal, mask_kind, dtype, tol):
+    """The forward body's arithmetic in ``dtype`` against the JAX package's
+    forward in the same dtype (``_jax_reference``): out and m + log l."""
+    (q, k, v, dout), mask = _inputs(dims, mask_kind, seed=sum(dims),
+                                    dtype=dtype)
+    scale = D ** -0.5
+    seen = {"early_exit": 0}
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=dtype,
+                                seen=seen)
+    want_out, want_lse, _ = _jax_reference(
+        dims, causal, mask_kind, q, k, v, dout, mask, scale,
+        jnp.dtype(str(dtype).split(".")[1]))
+    _close(out, want_out, tol, tol, "out")
+    if want_lse is not None:
+        _close(m + torch.log(l), want_lse, tol, tol, "m + log l")
+    if mask_kind == "fully_masked":
+        # sample 0 averages v over every key; its rows never end early
+        _close(out[0], v[0].mean(0, keepdim=True).expand_as(out[0]), tol,
+               tol, "fully masked rows")
+        assert float(m[0].max()) == np.float32(NEG_INF)
+        assert torch.equal(l[0], torch.full_like(l[0], dims[2]))
+    if causal:
+        assert seen["early_exit"] > 0     # the diagonal's early exit ran
+
+
+def _check_backward(dims, causal, mask_kind, dtype, tol):
+    """The dK/dV and dQ bodies' arithmetic in ``dtype``, from the emulated
+    forward, against the JAX package's backward in the same dtype."""
+    (q, k, v, dout), mask = _inputs(dims, mask_kind, seed=sum(dims) + 1,
+                                    dtype=dtype)
+    scale = D ** -0.5
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=dtype)
+    seen = {"hidden_tiles": 0}
+    got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
+                           dtype=dtype, seen=seen)
+    _, _, want = _jax_reference(dims, causal, mask_kind, q, k, v, dout, mask,
+                                scale, jnp.dtype(str(dtype).split(".")[1]))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close_grad(g, w, name, tol)
+    if mask_kind == "fully_masked":
+        # the fully masked rows feed dV from keys past their diagonal, and
+        # nothing else: no dQ, and no dK from sample 0
+        assert seen["hidden_tiles"] > 0
+        assert float(got[0][0].abs().max()) == 0.0
+        assert float(got[1][0].abs().max()) == 0.0
+        assert float(got[2][0, -1].abs().max()) > 0.0
+
+
 @pytest.mark.parametrize("dims,causal,mask_kind", CASES, ids=IDS)
 def test_tensor_core_forward_arithmetic_matches_jax(dims, causal, mask_kind):
     """The forward body's arithmetic in bf16 against the Pallas forward
     (out, and m + log l against its LSE) or, with a fully masked sample,
     against xla_attention: atol = rtol = 2e-2."""
-    (q, k, v, dout), mask = _inputs(dims, mask_kind, seed=sum(dims))
-    scale = D ** -0.5
-    seen = {"early_exit": 0}
-    out, m, l = emulate_forward(q, k, v, mask, causal, scale, seen=seen)
-    want_out, want_lse, _ = _jax_reference(dims, causal, mask_kind, q, k, v,
-                                           dout, mask, scale)
-    _close(out, want_out, TOL, TOL, "out")
-    if want_lse is not None:
-        _close(m + torch.log(l), want_lse, TOL, TOL, "m + log l")
-    if mask_kind == "fully_masked":
-        # sample 0 averages v over every key; its rows never end early
-        _close(out[0], v[0].mean(0, keepdim=True).expand_as(out[0]), TOL,
-               TOL, "fully masked rows")
-        assert float(m[0].max()) == np.float32(NEG_INF)
-        assert torch.equal(l[0], torch.full_like(l[0], dims[2]))
-    if causal:
-        assert seen["early_exit"] > 0     # the diagonal's early exit ran
+    _check_forward(dims, causal, mask_kind, torch.bfloat16, TOL)
 
 
 @pytest.mark.parametrize("dims,causal,mask_kind", CASES, ids=IDS)
@@ -320,23 +363,24 @@ def test_tensor_core_backward_arithmetic_matches_jax(dims, causal, mask_kind):
     dense backward, or, with a fully masked sample, jax.grad through
     xla_attention: per gradient atol = 2e-2 of its largest entry, rtol
     2e-2."""
-    (q, k, v, dout), mask = _inputs(dims, mask_kind, seed=sum(dims) + 1)
-    scale = D ** -0.5
-    out, m, l = emulate_forward(q, k, v, mask, causal, scale)
-    seen = {"hidden_tiles": 0}
-    got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
-                           seen=seen)
-    _, _, want = _jax_reference(dims, causal, mask_kind, q, k, v, dout, mask,
-                                scale)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        _close_grad(g, w, name)
-    if mask_kind == "fully_masked":
-        # the fully masked rows feed dV from keys past their diagonal, and
-        # nothing else: no dQ, and no dK from sample 0
-        assert seen["hidden_tiles"] > 0
-        assert float(got[0][0].abs().max()) == 0.0
-        assert float(got[1][0].abs().max()) == 0.0
-        assert float(got[2][0, -1].abs().max()) > 0.0
+    _check_backward(dims, causal, mask_kind, torch.bfloat16, TOL)
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", CASES, ids=IDS)
+def test_fp16_forward_arithmetic_matches_jax(dims, causal, mask_kind):
+    """The forward body's fp16 form against the Pallas forward in float16
+    in interpret mode (or xla_attention with a fully masked sample): atol =
+    rtol = 5e-3."""
+    _check_forward(dims, causal, mask_kind, torch.float16, FP16_TOL)
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", CASES, ids=IDS)
+def test_fp16_backward_arithmetic_matches_jax(dims, causal, mask_kind):
+    """The backward bodies' fp16 form (P and dS rounded to float16) against
+    the Pallas backwards in float16 in interpret mode (or jax.grad through
+    xla_attention): per gradient atol = 5e-3 of its largest entry, rtol
+    5e-3."""
+    _check_backward(dims, causal, mask_kind, torch.float16, FP16_TOL)
 
 
 @pytest.mark.parametrize("dims,causal,mask_kind", CASES, ids=IDS)
@@ -348,14 +392,14 @@ def test_emulation_without_rounding_is_the_plain_math(dims, causal,
     and order."""
     (q, k, v, dout), mask = _inputs(dims, mask_kind, seed=sum(dims) + 2)
     scale = D ** -0.5
-    out, m, l = emulate_forward(q, k, v, mask, causal, scale, bf16=False)
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=None)
     want_out, want_m, want_l = fa.flash_attention_reference(
         q, k, v, kv_mask=mask, causal=causal, scale=scale, with_stats=True)
     _close(out, want_out, 1e-5, 0, "out")
     _close(m, want_m, 1e-5, 0, "m")
     _close(l, want_l, 1e-5, 1e-5, "l")
     got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
-                           bf16=False)
+                           dtype=None)
     want = fa.flash_attention_blocked_bwd_reference(
         q, k, v, mask, out, dout, m, l, causal=causal, scale=scale)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -374,14 +418,14 @@ DROP_IDS = BIAS_IDS + ["fully-masked-bias"]
 RATE = 0.1
 
 
-def _bias_inputs(dims, mask_kind, seed):
-    """_inputs' tensors and mask, and an (H, Sq, Sk) bias of bf16 values in
-    fp32."""
-    tensors, mask = _inputs(dims, mask_kind, seed)
+def _bias_inputs(dims, mask_kind, seed, dtype=torch.bfloat16):
+    """_inputs' tensors and mask, and an (H, Sq, Sk) bias of ``dtype``
+    values in fp32."""
+    tensors, mask = _inputs(dims, mask_kind, seed, dtype)
     _, sq, sk, h = dims
     rng = np.random.RandomState(seed + 1)
     bias = torch.from_numpy(rng.randn(h, sq, sk).astype(np.float32))
-    return tensors, mask, bias.to(torch.bfloat16).float()
+    return tensors, mask, bias.to(dtype).float()
 
 
 def _keep(dims, seed):
@@ -392,13 +436,14 @@ def _keep(dims, seed):
     return att.dropout_keep_factor(key, (b, h, sq, sk), RATE), key
 
 
-def _jax_bias_reference(causal, q, k, v, dout, mask, bias, scale):
-    """(out, (dq, dk, dv, dbias)) of the Pallas flash_attention_bias in bf16
-    in interpret mode and its jax.grad, as fp32 torch tensors; dbias (H,
-    Sq, Sk)."""
-    jq, jk, jv, jdo = (jnp.asarray(t.numpy()).astype(jnp.bfloat16)
+def _jax_bias_reference(causal, q, k, v, dout, mask, bias, scale,
+                        dtype=jnp.bfloat16):
+    """(out, (dq, dk, dv, dbias)) of the Pallas flash_attention_bias in
+    ``dtype`` in interpret mode and its jax.grad, as fp32 torch tensors;
+    dbias (H, Sq, Sk)."""
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy()).astype(dtype)
                        for t in (q, k, v, dout))
-    jb = jnp.asarray(bias.numpy())[None].astype(jnp.bfloat16)
+    jb = jnp.asarray(bias.numpy())[None].astype(dtype)
     jmask = jnp.asarray(mask.numpy())
 
     def f(q_, k_, v_, b_):
@@ -487,7 +532,7 @@ def test_bias_emulation_without_rounding_is_the_plain_math(dims, causal,
                                                seed=sum(dims) + 6)
     keep, key = _keep(dims, seed=sum(dims) + 1)
     scale = D ** -0.5
-    out, m, l = emulate_forward(q, k, v, mask, causal, scale, bf16=False,
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=None,
                                 bias=bias, keep=keep)
     kw = dict(causal=causal, scale=scale, dropout_rate=RATE,
               dropout_seed=key)
@@ -497,9 +542,60 @@ def test_bias_emulation_without_rounding_is_the_plain_math(dims, causal,
     _close(m, want_m, 1e-5, 0, "m")
     _close(l, want_l, 1e-5, 1e-5, "l")
     got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
-                           bf16=False, bias=bias, keep=keep)
+                           dtype=None, bias=bias, keep=keep)
     want = fa.bias_attention_bwd_reference(q, k, v, mask, bias[None], out,
                                            dout, **kw)
     for name, g, w in zip(("dq", "dk", "dv", "dbias"), got,
                           want[:3] + (want[3][0],)):
         _close(g, w, 1e-5, 0, name)
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", BIAS_CASES, ids=BIAS_IDS)
+def test_fp16_bias_arithmetic_matches_jax(dims, causal, mask_kind):
+    """K7's and K8/K9's bodies in their fp16 form against the Pallas
+    flash_attention_bias in float16 in interpret mode and its jax.grad:
+    out atol = rtol = 5e-3; dq, dk, dv and dbias each atol = 5e-3 of its
+    largest entry, rtol 5e-3."""
+    f16 = torch.float16
+    (q, k, v, dout), mask, bias = _bias_inputs(dims, mask_kind,
+                                               seed=sum(dims) + 7, dtype=f16)
+    scale = D ** -0.5
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=f16,
+                                bias=bias)
+    got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
+                           dtype=f16, bias=bias)
+    want_out, want = _jax_bias_reference(causal, q, k, v, dout, mask, bias,
+                                         scale, jnp.float16)
+    _close(out, want_out, FP16_TOL, FP16_TOL, "out")
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _close_grad(g, w, name, FP16_TOL)
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", DROP_CASES, ids=DROP_IDS)
+def test_fp16_bias_dropout_arithmetic_matches_the_plain_versions(
+        dims, causal, mask_kind):
+    """K7 and K8/K9's bodies with dropout 0.1 in their fp16 form against the
+    port's plain versions in float16 under the same Philox key (which round
+    P times the keep factor and dS to float16 before their products): atol
+    = rtol = 5e-3, a gradient's atol 5e-3 of its largest entry. The keep
+    factor 1 / 0.9 multiplies P before the rounding, as in bf16."""
+    f16 = torch.float16
+    (q, k, v, dout), mask, bias = _bias_inputs(dims, mask_kind,
+                                               seed=sum(dims) + 8, dtype=f16)
+    keep, key = _keep(dims, seed=sum(dims) + 2)
+    scale = D ** -0.5
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=f16,
+                                bias=bias, keep=keep)
+    got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
+                           dtype=f16, bias=bias, keep=keep)
+    hq, hk, hv, hdo, hb = (t.to(f16) for t in (q, k, v, dout, bias[None]))
+    kw = dict(causal=causal, scale=scale, dropout_rate=RATE,
+              dropout_seed=key)
+    want_out = fa.bias_attention_reference(hq, hk, hv, bias=hb, kv_mask=mask,
+                                           **kw)
+    _close(out, want_out, FP16_TOL, FP16_TOL, "out")
+    want = fa.bias_attention_bwd_reference(hq, hk, hv, mask, hb, want_out,
+                                           hdo, **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got,
+                          want[:3] + (want[3][0],)):
+        _close_grad(g, w, name, FP16_TOL)
