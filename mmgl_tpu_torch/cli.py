@@ -23,6 +23,16 @@ model name as the JAX package chooses).
     python -m mmgl_tpu_torch.cli --model_name_or_path t5-base \
         --task section --context all --neighbor_mode raw \
         --bf16 true --tokenizer_path byte:32128 --device cuda
+    python -m mmgl_tpu_torch.cli --model_name_or_path t5-base \
+        --task section --context section_all --neighbor_mode embedding \
+        --position_type none --bf16 true --tokenizer_path byte:32128 \
+        --device cuda
+
+The embedding mode (the last line: BASELINE config 2) encodes each sample's
+neighbor texts with the frozen Roberta tower and its neighbor images with
+CLIP, and appends their soft tokens to the LM's input;
+``--position_type`` embedding, laplacian or gnn adds its position encoding
+(the graph ones with ``--context all``).
 
 ``--device cuda`` on a host without a visible GPU fails: there is no CPU
 fallback. Pass ``--device cpu`` to run the plain versions of the kernels.

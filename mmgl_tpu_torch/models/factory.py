@@ -2,7 +2,7 @@
 mmgl_tpu/models/factory.py:27-181).
 
 Same substring selection on ``model_name_or_path`` and the same tabled OPT,
-T5 and CLIP-vision shapes as the JAX package. ``build_model`` initializes the
+T5, CLIP-vision and Roberta shapes as the JAX package. ``build_model`` initializes the
 weights from a ``torch.Generator`` seeded with ``--seed`` (on the CPU, so one
 seed gives the same weights on every device) and moves the model to
 ``device`` with its parameters in ``--param_dtype`` (float32); each layer
@@ -11,6 +11,10 @@ the trainable mask of peft/masks.py. Loading pretrained weights is not
 ported yet (ROADMAP A4): a checkpoint directory named by
 ``--model_name_or_path``, ``--visual_model`` or ``--text_model`` raises,
 where the JAX package would overlay it (``maybe_import_pretrained``).
+
+On a CUDA device ``build_model`` refuses, before anything is built, what
+the attention kernels cannot run: a head dim other than 64 (ROADMAP B4).
+The kernels take fp32, bf16 and fp16 (``--compute_dtype``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from mmgl_tpu_torch.models.clip import CLIPVisionConfig
 from mmgl_tpu_torch.models.fusion import FusionConfig, MMGLModel
 from mmgl_tpu_torch.models.layers import init_weights
 from mmgl_tpu_torch.models.opt import OPTConfig
+from mmgl_tpu_torch.models.roberta import RobertaConfig
 from mmgl_tpu_torch.models.t5 import T5Config
+from mmgl_tpu_torch.ops.flash_attention import HEAD_DIM
 from mmgl_tpu_torch.peft.masks import apply_trainable_mask
 
 # (hidden, layers, heads, ffn, word_embed_proj)
@@ -78,17 +84,27 @@ def _t5_config(args: Arguments, size: str) -> T5Config:
 
 def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                         tokenizer=None) -> FusionConfig:
-    """Raises NotImplementedError for what is not ported yet: MPT,
-    embedding/cross-attention neighbor modes and PEFT."""
+    """Raises NotImplementedError for what is not ported yet: MPT and its
+    cross-attention memory, PEFT, and (FusionConfig) the CLIP text tower."""
     name = args.model_name_or_path or "opt-tiny"
     tiny = "tiny" in name
-    if "mpt" in name:
-        raise NotImplementedError(f"{name}: MPT is not ported yet")
+    if "mpt" in name or args.neighbor_mode == "cross_attention":
+        # the shared flag parser turns --neighbor_mode cross_attention into
+        # the embedding mode's batches (config.py); only MPT consumes them
+        # as cross-attention memory (mmgl_tpu/models/fusion.py:58-62)
+        raise NotImplementedError(
+            f"{name}, neighbor_mode={args.neighbor_mode!r}: MPT's gated "
+            "cross-attention is not ported yet (ROADMAP A7)")
     if "t5" not in name and "opt" not in name:
         raise ValueError(f"unsupported model {name} (need t5/opt/mpt)")
-    if args.neighbor_mode != "raw":
-        raise NotImplementedError(
-            f"neighbor_mode={args.neighbor_mode!r} is not ported yet")
+    if (args.neighbor_mode == "embedding"
+            and args.n_text_tokens != args.n_visual_tokens):
+        # the interleaved neighbor block holds text and image soft tokens
+        # in one fixed-stride grid (mmgl_tpu/models/factory.py:98-106)
+        raise ValueError(
+            f"n_text_tokens ({args.n_text_tokens}) must equal "
+            f"n_visual_tokens ({args.n_visual_tokens}) in "
+            f"neighbor_mode={args.neighbor_mode!r}")
     if args.peft_type != "none":
         raise NotImplementedError(
             f"peft_type={args.peft_type!r} is not ported yet")
@@ -124,7 +140,7 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                 eos_token_id=tokenizer.eos_token_id,
                 bos_token_id=tokenizer.bos_token_id or opt_cfg.bos_token_id)
 
-    # --use_pallas false sends the LM's and the tower's attention to
+    # --use_pallas false sends the LM's and the towers' attention to
     # attention_reference (mmgl_tpu/models/factory.py:65-68, 81, 147)
     tower_kw = dict(dtype=dt, use_pallas=args.use_pallas)
     vision_cfg = (CLIPVisionConfig(**tower_kw) if not tiny
@@ -132,11 +148,47 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                       hidden_size=32, num_hidden_layers=2,
                       num_attention_heads=2, intermediate_size=64,
                       image_size=32, patch_size=8, **tower_kw))
+    # the Roberta tower: roberta-base, or the tiny test shape with the
+    # tokenizer's vocabulary (mmgl_tpu/models/factory.py:152-159)
+    text_cfg = None
+    if args.neighbor_mode == "embedding":
+        text_cfg = (RobertaConfig(**tower_kw) if not tiny
+                    else RobertaConfig(
+                        hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=64,
+                        vocab_size=vocab_size or 50265, **tower_kw))
 
     return FusionConfig(
-        context=args.context, n_visual_tokens=args.n_visual_tokens,
-        max_input_length=args.max_input_length, opt=opt_cfg,
-        vision=vision_cfg, t5=t5_cfg)
+        context=args.context, neighbor_mode=args.neighbor_mode,
+        n_text_tokens=args.n_text_tokens,
+        n_visual_tokens=args.n_visual_tokens,
+        position_type=args.position_type,
+        max_text_neighbors=args.max_text_neighbors,
+        max_image_neighbors=args.max_image_neighbors,
+        max_input_length=args.max_input_length,
+        max_output_length=args.max_output_length,
+        text_model_name=args.text_model, opt=opt_cfg, vision=vision_cfg,
+        t5=t5_cfg, text=text_cfg)
+
+
+def _refuse_head_dims(cfg: FusionConfig, device: torch.device,
+                      use_pallas: bool) -> None:
+    """On a CUDA device with the kernel route, raise for a head dim the
+    kernels do not take (OPT-2.7B's 80, 6.7B's 128): the first attention
+    would raise only after the model and the data were built."""
+    if device.type != "cuda" or not use_pallas:
+        return
+    dims = {"lm": (cfg.t5.d_kv if cfg.t5 is not None else cfg.opt.head_dim)}
+    if cfg.needs_vision_tower:
+        dims["visual_model"] = cfg.vision.head_dim
+    if cfg.needs_text_tower:
+        dims["text_model"] = cfg.text.head_dim
+    bad = {m: d for m, d in dims.items() if d != HEAD_DIM}
+    if bad:
+        raise ValueError(
+            f"head dims {bad} on {device}: the attention kernels take head "
+            f"dim {HEAD_DIM} only (ROADMAP B4); --use_pallas false runs the "
+            "plain attention")
 
 
 def _refuse_checkpoints(args: Arguments) -> None:
@@ -158,15 +210,8 @@ def build_model(args: Arguments, device: torch.device,
     ``--param_dtype`` parameters; returned in train mode with the trainable
     set of ``--peft_type``/``--freeze_lm``."""
     _refuse_checkpoints(args)
-    dt = _compute_dtype(args)
-    if device.type == "cuda" and dt not in (torch.float32, torch.bfloat16):
-        # refused before anything is built: the first attention would
-        # raise only after the model and the data
-        raise ValueError(
-            f"--compute_dtype {args.compute_dtype} on {device}: the attention "
-            "kernels take float32 and bfloat16 only (the float16 form of "
-            "their tensor-core bodies is not written yet)")
     cfg = build_fusion_config(args, vocab_size, tokenizer=tokenizer)
+    _refuse_head_dims(cfg, device, args.use_pallas)
     model = MMGLModel(cfg)
     generator = torch.Generator().manual_seed(args.seed or 0)
     init_weights(model, generator)

@@ -1,19 +1,36 @@
 """Neighbor fusion: the MMGL model (counterpart of mmgl_tpu/models/fusion.py).
 
-Ported for the decoder-only OPT LM and the encoder-decoder T5 in raw
-neighbor mode, all four contexts: section_only and text_only are a plain LM
-call; section_all and all splice the frozen CLIP tower's image soft tokens
-into the reserved token positions (modelling_self_attention.py:248-261 in the
-reference), into the prompt for OPT and into the encoder input for T5. The
-tower runs without autograd (``stop_gradient`` at
-mmgl_tpu/models/fusion.py:193); the projection ``visual_embeddings`` after it
-trains. OPT's labels are -100 at the image slots; T5's labels are the
-summary alone and are left as they are (fusion.py:308). Embedding and
-cross-attention modes, MPT and PEFT are refused at model build
-(models/factory.py).
+Ported for the decoder-only OPT LM and the encoder-decoder T5, in raw and
+embedding neighbor modes, all four contexts:
+
+* raw section_only and text_only are a plain LM call; raw section_all and
+  all splice the frozen CLIP tower's image soft tokens into the reserved
+  token positions (modelling_self_attention.py:248-261 in the reference),
+  into the prompt for OPT and into the encoder input for T5.
+* embedding mode (the paper's method) encodes each neighbor text with the
+  frozen Roberta tower, pools its first token (``TextPooler``: dense +
+  tanh), projects it to ``n_text_tokens`` soft tokens (``text_embeddings``)
+  and, in section_all and all, each neighbor image with the frozen CLIP
+  tower into ``n_visual_tokens`` (``visual_embeddings``); the two are
+  interleaved by their page locations (``_build_neighbor_block``),
+  optionally given graph position encodings (the Laplacian ``lpe`` through
+  ``lpe_embeddings``, or the ``gnn`` over the page graph, context all only),
+  and appended after the input tokens with their mask; OPT's labels are
+  -100 there (``_append_neighbors``). section_only and text_only append the
+  text neighbors alone.
+
+The towers run without autograd (``stop_gradient`` at
+mmgl_tpu/models/fusion.py:176-193): the text tower's stop sits after
+``text_pooler``, so the pooler is trainable but gets no gradient (the
+train step gives such a parameter a zero one, as jax.grad does). The
+projections, position tables, ``lpe_embeddings`` and ``gnn`` train. T5's
+labels are the summary alone and are left as they are (fusion.py:308).
+Cross-attention mode, MPT, the CLIP text tower and PEFT are refused at
+model build (models/factory.py).
 
 Batches are the data layer's dicts of numpy arrays or tensors, with the same
-keys and shapes as the JAX package's.
+keys and shapes as the JAX package's; ``_as_tensor`` moves every field to
+the model's device (images as uint8, normalized there).
 """
 
 from __future__ import annotations
@@ -27,34 +44,69 @@ from torch import nn
 
 from mmgl_tpu_torch.models.clip import (CLIPVisionConfig, CLIPVisionModel,
                                         normalize_pixels)
-from mmgl_tpu_torch.models.layers import Linear
+from mmgl_tpu_torch.models.graph import GCN
+from mmgl_tpu_torch.models.layers import Embedding, Linear
 from mmgl_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+from mmgl_tpu_torch.models.roberta import RobertaConfig, RobertaModel
 from mmgl_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
 
 IGNORE_INDEX = -100
 
 
 CONTEXTS = ("section_only", "section_all", "text_only", "all")
+NEIGHBOR_MODES = ("raw", "embedding")
+POSITION_TYPES = ("none", "embedding", "laplacian", "gnn")
 
 
 @dataclass(frozen=True)
 class FusionConfig:
-    """OPT (decoder-only) or T5 (encoder-decoder) with raw neighbors (the
-    ported fusion mode): exactly one of ``opt`` and ``t5`` is set."""
+    """OPT (decoder-only) or T5 (encoder-decoder) with raw or embedding
+    neighbors: exactly one of ``opt`` and ``t5`` is set; ``text`` is the
+    Roberta tower's config where the embedding mode needs it."""
     context: str = "section_only"         # one of CONTEXTS
+    neighbor_mode: str = "raw"            # one of NEIGHBOR_MODES
+    n_text_tokens: int = 4
     n_visual_tokens: int = 4
+    position_type: str = "none"           # one of POSITION_TYPES
+    max_text_neighbors: int = 11
+    max_image_neighbors: int = 5
     max_input_length: int = 512
+    max_output_length: int = 128
+    text_model_name: str = "roberta-base"
     opt: Optional[OPTConfig] = None
     vision: Optional[CLIPVisionConfig] = None
     t5: Optional[T5Config] = None
+    text: Optional[RobertaConfig] = None
 
     def __post_init__(self):
         if self.context not in CONTEXTS:
             raise ValueError(f"unknown context {self.context!r}")
+        if self.neighbor_mode not in NEIGHBOR_MODES:
+            raise ValueError(f"unknown neighbor_mode {self.neighbor_mode!r}")
+        if self.position_type not in POSITION_TYPES:
+            raise ValueError(f"unknown position_type {self.position_type!r}")
+        if self.needs_text_tower and "clip" in self.text_model_name:
+            # the JAX package takes a "clip" text model as the CLIP text
+            # tower (mmgl_tpu/models/fusion.py:122-124)
+            raise NotImplementedError(
+                f"--text_model {self.text_model_name}: the CLIP text tower "
+                "is not ported yet (ROADMAP A5)")
+
+    @property
+    def needs_text_tower(self) -> bool:
+        return self.neighbor_mode == "embedding"
 
     @property
     def needs_vision_tower(self) -> bool:
         return self.context in ("section_all", "all")
+
+    @property
+    def graph_positions(self) -> bool:
+        """Whether the neighbor block takes the Laplacian or GCN encodings:
+        context all only, where the JAX package calls (and so creates)
+        ``lpe_embeddings`` and ``gnn`` (fusion.py:324-331)."""
+        return (self.needs_text_tower and self.context == "all"
+                and self.position_type in ("laplacian", "gnn"))
 
     @property
     def decoder_only(self) -> bool:
@@ -70,6 +122,19 @@ class FusionConfig:
         return self.t5.dtype if self.t5 is not None else self.opt.dtype
 
 
+class TextPooler(nn.Module):
+    """First-token pool: dense + tanh (mmgl_tpu/models/fusion.py:84-97)."""
+
+    def __init__(self, hidden_size: int, *,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dense = Linear(hidden_size, hidden_size,
+                            compute_dtype=compute_dtype)
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.dense(hidden_states[:, 0]))
+
+
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
@@ -82,17 +147,52 @@ class MMGLModel(nn.Module):
         self.config = cfg
         self.lm = (OPTForCausalLM(cfg.opt) if cfg.decoder_only
                    else T5ForConditionalGeneration(cfg.t5))
+        dim, dt = cfg.embed_dim, cfg.dtype
+        # the modules of mmgl_tpu/models/fusion.py:117-156 that the JAX
+        # package calls, and so creates parameters for, in this config
+        positions = cfg.position_type != "none"
+        if cfg.needs_text_tower:
+            text_dim = dim * cfg.n_text_tokens
+            hidden = cfg.text.hidden_size
+            self.text_model = RobertaModel(cfg.text)
+            self.text_pooler = TextPooler(hidden, compute_dtype=dt)
+            self.text_embeddings = Linear(hidden, text_dim, compute_dtype=dt)
+            if positions:
+                # sized max_output_length + 1, as the JAX package sizes it
+                self.text_position_embeddings = Embedding(
+                    cfg.max_output_length + 1, text_dim, compute_dtype=dt)
         if cfg.needs_vision_tower:
+            vis_dim = dim * cfg.n_visual_tokens
             self.visual_model = CLIPVisionModel(cfg.vision)
-            self.visual_embeddings = Linear(
-                cfg.vision.hidden_size, cfg.embed_dim * cfg.n_visual_tokens,
-                compute_dtype=cfg.dtype)
+            self.visual_embeddings = Linear(cfg.vision.hidden_size, vis_dim,
+                                            compute_dtype=dt)
+            if cfg.neighbor_mode != "raw" and positions:
+                self.visual_position_embeddings = Embedding(
+                    cfg.max_output_length + 1, vis_dim, compute_dtype=dt)
+        if cfg.graph_positions and cfg.position_type == "laplacian":
+            # the assembler's k = node_num - 5 (modelling_self_attention.py
+            # :137), node_num = 1 + max_text + max_image
+            k = 1 + cfg.max_text_neighbors + cfg.max_image_neighbors - 5
+            self.lpe_embeddings = Linear(k, dim * cfg.n_text_tokens,
+                                         compute_dtype=dt)
+        if cfg.graph_positions and cfg.position_type == "gnn":
+            self.gnn = GCN(dim * cfg.n_text_tokens, dim * cfg.n_text_tokens,
+                           cfg.text.hidden_size, compute_dtype=dt)
 
     @property
     def device(self) -> torch.device:
         return next(self.lm.parameters()).device
 
-    # ---- frozen image tower (modelling_self_attention.py:154-200) ----
+    # ---- frozen towers (modelling_self_attention.py:154-200) ----
+
+    def pool_text(self, input_ids, attention_mask) -> torch.Tensor:
+        """(B*N, S) neighbor texts -> (B*N, tower_hidden): the Roberta
+        tower, then ``text_pooler``, without autograd (the JAX package's
+        stop_gradient comes after the pooler), so the tower's activations
+        are not kept for a backward."""
+        with torch.no_grad():
+            hidden = self.text_model(input_ids.long(), attention_mask)
+            return self.text_pooler(hidden)
 
     def pool_images(self, pixel_values, valid=None) -> torch.Tensor:
         """(B*N, 3, H, W) uint8 -> (B*N, tower_hidden), normalized on the
@@ -104,12 +204,40 @@ class MMGLModel(nn.Module):
             _, pooled = self.visual_model(pixels)
         return pooled
 
-    def get_visual_embs(self, pixel_values, valid=None) -> torch.Tensor:
+    def project_text(self, pooled, pos_ids=None) -> torch.Tensor:
+        """The trainable head over pooled text features: (B*N, n_tok*dim),
+        plus the neighbor's position row where the table exists."""
+        embs = self.text_embeddings(pooled)
+        if pos_ids is not None and hasattr(self, "text_position_embeddings"):
+            embs = embs + self.text_position_embeddings(
+                pos_ids.reshape(-1).long())
+        return embs
+
+    def project_images(self, pooled, pos_ids=None) -> torch.Tensor:
+        embs = self.visual_embeddings(pooled)
+        if (pos_ids is not None
+                and hasattr(self, "visual_position_embeddings")):
+            embs = embs + self.visual_position_embeddings(
+                pos_ids.reshape(-1).long())
+        return embs
+
+    def get_text_embs(self, input_ids, attention_mask, pos_ids=None
+                      ) -> torch.Tensor:
+        """(B, N, S) neighbor texts -> (B, N, n_text_tokens, dim)."""
+        b, n, s = input_ids.shape
+        pooled = self.pool_text(input_ids.reshape(b * n, s),
+                                attention_mask.reshape(b * n, s))
+        embs = self.project_text(pooled, pos_ids)
+        return embs.reshape(b, n, self.config.n_text_tokens, -1)
+
+    def get_visual_embs(self, pixel_values, pos_ids=None, valid=None
+                        ) -> torch.Tensor:
         """(B, N, 3, H, W) neighbor images -> (B, N, n_visual_tokens, dim)."""
         b, n = pixel_values.shape[:2]
         flat = pixel_values.reshape((b * n,) + tuple(pixel_values.shape[2:]))
         flat_valid = valid.reshape(b * n) if valid is not None else None
-        embs = self.visual_embeddings(self.pool_images(flat, flat_valid))
+        embs = self.project_images(self.pool_images(flat, flat_valid),
+                                   pos_ids)
         return embs.reshape(b, n, self.config.n_visual_tokens, -1)
 
     # ---- fusion forward ----
@@ -136,7 +264,8 @@ class MMGLModel(nn.Module):
         return {"logits": logits, "labels": fused["labels"]}
 
     def _fuse(self, batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
-        """Image splice (raw section_all / all) or a plain LM call."""
+        """Image splice (raw section_all / all), soft tokens appended
+        (embedding), or a plain LM call (raw section_only / text_only)."""
         cfg = self.config
         batch = {k: _as_tensor(v, self.device) for k, v in batch.items()}
         input_ids = batch["input_ids"].long()
@@ -144,7 +273,33 @@ class MMGLModel(nn.Module):
         labels = batch["labels"].long() if "labels" in batch else None
         inputs_embeds = None
 
-        if cfg.needs_vision_tower:
+        if cfg.neighbor_mode == "embedding" and not cfg.needs_vision_tower:
+            # text neighbors appended as soft tokens
+            # (modelling_self_attention.py:263-280)
+            text = self.get_text_embs(batch["neighbor_input_ids"],
+                                      batch["neighbor_attention_mask"],
+                                      batch["neighbor_pos_ids"])
+            b, n = text.shape[:2]
+            soft = text.reshape(b, n * cfg.n_text_tokens, -1)
+            soft_mask = torch.repeat_interleave(
+                batch["neighbor_pos_ids"] > 0, cfg.n_text_tokens, dim=1)
+            inputs_embeds, attention_mask, labels = self._append_neighbors(
+                input_ids, attention_mask, labels, soft, soft_mask)
+        elif cfg.neighbor_mode == "embedding":
+            block, block_mask = self._build_neighbor_block(batch)
+            b, total, n_tok = block.shape[:3]
+            if cfg.graph_positions and cfg.position_type == "laplacian":
+                lpe = self.lpe_embeddings(batch["lpe"])  # (B, total+1, nt*d)
+                block = block + lpe.reshape(b, total + 1, n_tok, -1)[:, 1:]
+            elif cfg.graph_positions:
+                flat = block.reshape(b, total, -1)
+                block = (flat + self.gnn(flat, batch["graph"])).reshape(
+                    block.shape)
+            inputs_embeds, attention_mask, labels = self._append_neighbors(
+                input_ids, attention_mask, labels,
+                block.reshape(b, total * n_tok, -1),
+                block_mask.reshape(b, total * n_tok))
+        elif cfg.needs_vision_tower:
             b, s = input_ids.shape
             inputs_embeds = self.lm.embed(input_ids.clamp(min=0))  # -1 slots
             visual = self.get_visual_embs(batch["images"],
@@ -169,11 +324,61 @@ class MMGLModel(nn.Module):
         return {"input_ids": input_ids, "inputs_embeds": inputs_embeds,
                 "attention_mask": attention_mask, "labels": labels}
 
+    def _build_neighbor_block(self, batch: Dict
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Interleave text and image soft tokens by their page locations
+        (mmgl_tpu/models/fusion.py:403-439): (B, total, n_tok, dim) and its
+        (B, total, n_tok) mask, a padded neighbor slot masked. The
+        assembler gives every slot a distinct location in [0, total)."""
+        cfg = self.config
+        text = self.get_text_embs(batch["neighbor_input_ids"],
+                                  batch["neighbor_attention_mask"],
+                                  batch["neighbor_pos_ids"])
+        b, tn, n_tok, dim = text.shape
+        tmask = (batch["neighbor_pos_ids"] > 0)[..., None].expand(
+            b, tn, n_tok)
+        parts = [(batch["text_locations"], text, tmask)]
+        if cfg.needs_vision_tower:
+            pos = batch["neighbor_images_pos_ids"]
+            visual = self.get_visual_embs(batch["neighbor_images"], pos,
+                                          valid=pos > 0)
+            vmask = (pos > 0)[..., None].expand(b, visual.shape[1],
+                                                cfg.n_visual_tokens)
+            parts.append((batch["image_locations"], visual, vmask))
+        total = sum(p[1].shape[1] for p in parts)
+        rows = torch.arange(b, device=text.device)[:, None]
+        block = text.new_zeros(b, total, n_tok, dim)
+        mask = torch.zeros(b, total, n_tok, dtype=torch.bool,
+                           device=text.device)
+        for locations, embs, m in parts:
+            index = (rows, locations.long())
+            block = block.index_put(index, embs.to(block.dtype))
+            mask = mask.index_put(index, m)
+        return block, mask
+
+    def _append_neighbors(self, input_ids, attention_mask, labels,
+                          neighbor_embeds, neighbor_mask):
+        """Concat the soft tokens after the input tokens; extend the mask
+        and, for OPT, the labels with -100 (mmgl_tpu/models/fusion.py
+        :441-457)."""
+        inputs_embeds = self.lm.embed(input_ids.clamp(min=0))
+        inputs_embeds = torch.cat(
+            [inputs_embeds, neighbor_embeds.to(inputs_embeds.dtype)], dim=1)
+        attention_mask = torch.cat(
+            [attention_mask, neighbor_mask.to(attention_mask.dtype)], dim=1)
+        if self.config.decoder_only and labels is not None:
+            pad = labels.new_full(neighbor_mask.shape, IGNORE_INDEX)
+            labels = torch.cat([labels, pad], dim=1)
+        return inputs_embeds, attention_mask, labels
+
     # ---- generation support (train/generate.py) ----
 
     def prefill_inputs(self, batch: Dict) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
-        """(inputs_embeds, attention_mask) for a prompt-only batch."""
+        """(inputs_embeds, attention_mask) for a prompt-only batch: in the
+        embedding mode the fused sequence [prompt; soft tokens] and the
+        prompt mask extended by the neighbors' (mmgl_tpu/models/fusion.py
+        :373-381)."""
         fused = self._fuse(batch)
         inputs_embeds = fused["inputs_embeds"]
         if inputs_embeds is None:

@@ -1,9 +1,10 @@
-"""Page-graph helpers on the host (numpy): adjacency, GCN normalization and
-the Laplacian position encoding.
+"""Graph position encodings: the GCN over the page graph (torch), and the
+page-graph helpers on the host (numpy): adjacency, GCN normalization and the
+Laplacian position encoding.
 
-Copy of the numpy half of mmgl_tpu/models/graph.py (:52-94), which the data
-assembler needs (data/assemble.py). The torch GCN joins these in a later
-change.
+``GCN`` is the counterpart of mmgl_tpu/models/graph.py:25-50; the numpy
+helpers are a copy of its :52-94, which the data assembler needs
+(data/assemble.py).
 """
 
 from __future__ import annotations
@@ -11,6 +12,38 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mmgl_tpu_torch.models.layers import Linear
+
+
+class GCN(nn.Module):
+    """Two rounds of concat(self, adjacency-aggregated) -> bias-free dense,
+    ReLU between, over the neighbors with a null root node (the target
+    section, index 0 of the adjacency) prepended; returns the embeddings
+    without the root. Module names follow the flax paths (``w1``, ``w2``)."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden_dim: int, *,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.w1 = Linear(2 * input_dim, hidden_dim, bias=False,
+                         compute_dtype=compute_dtype)
+        self.w2 = Linear(2 * hidden_dim, output_dim, bias=False,
+                         compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        """x: (B, N, D) neighbor embeddings; adj: (B, N+1, N+1) normalized.
+        Returns (B, N, output_dim) in the compute dtype."""
+        b, _, d = x.shape
+        x = x.to(self.compute_dtype)
+        x = torch.cat([x.new_zeros(b, 1, d), x], dim=1)     # (B, N+1, D)
+        adj = adj.to(x.dtype)
+        x = F.relu(self.w1(torch.cat([x, adj @ x], dim=-1)))
+        x = self.w2(torch.cat([x, adj @ x], dim=-1))
+        return x[:, 1:]
 
 
 def edges_to_dense_adjacency(edge_list: List[Tuple[int, int]],

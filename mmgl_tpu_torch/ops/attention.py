@@ -23,8 +23,15 @@ mapping from call sites to kernels:
     ``flash_attention_allheads``.
   * aligned self-attention outside it (OPT-350M at 2048 tokens, its
     1920-token prefill): K4, as the JAX package sends it to ``_flash``.
-  * self-attention with S % 128 != 0 (CLIP's 197 patches): K2,
-    ``fused_heads_attention``.
+  * self-attention with S % 128 != 0 inside the JAX package's fused-heads
+    envelope, S padded to 128 at most 512 (mmgl_tpu/ops/attention.py
+    :164-175; CLIP's 197 patches): K2, ``fused_heads_attention``.
+  * self-attention with S % 128 != 0 past it: K1 inside the all-heads
+    envelope (OPT's 640 + 64 = 704 with the embedding mode's soft tokens,
+    its 576-token prefill), else K4. The JAX package sends these to XLA;
+    the port has no library route, and K1's body reads any length through
+    its bounds checks, with K3 for its gradient where K2 would recompute
+    through the plain version.
 
 The TPU's measured gates (PALLAS_MIN_KV, BIAS_MIN_SQ, K2's VMEM envelope)
 do not carry over; K1's envelope does, so that long sequences reach the
@@ -60,6 +67,8 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps fully-masked rows finit
 MIN_KERNEL_SQ = 32
 # the all-heads kernel's envelope (mmgl_tpu/ops/attention.py:145-150)
 ALLHEADS_MAX_SQ = 768
+# the fused-heads kernel's: S padded to a multiple of 128 (:164-175)
+FUSED_HEADS_MAX_SP = 512
 
 
 def allheads_head_pair(head_dim: int) -> int:
@@ -153,7 +162,7 @@ def attention_route(q_shape, k_shape, *, pairwise_mask: bool = False,
         return "bias"
     if sq != sk or k_shape[2] != heads:
         return "flash"
-    if sq % 128:
+    if sq % 128 and sq + (-sq) % 128 <= FUSED_HEADS_MAX_SP:
         return "fused_heads"
     if sq <= ALLHEADS_MAX_SQ and heads % allheads_head_pair(q_shape[3]) == 0:
         return "allheads"

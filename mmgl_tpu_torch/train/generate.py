@@ -8,14 +8,18 @@ offset t; each step's argmax is the output, and rows that have emitted EOS
 emit pad.
 
 Decoder-only:
-One prefill over the padded prompt (with its image splices), then
+One prefill over the padded prompt (with its image splices, or in the
+embedding mode [prompt; neighbour soft tokens] under the prompt mask
+extended by the neighbours', mmgl_tpu/train/generate.py:47-70), then
 single-token decode steps against a preallocated cache: greedy, EOS-finished
 rows emit pad. A Python loop replaces ``lax.scan``; it stops one step
 earlier than the scan, whose last step computes a token it discards. And
 the cache is updated in place (models/opt.py KVCache). Generated tokens land
 in cache slots after the padded prompt; pad slots stay masked through the
 prompt's attention mask, which the decode step extends with ones. Positions
-continue the mask cumsum, so they stay contiguous with the real text.
+continue the mask cumsum, so they stay contiguous with the real text. The
+first token comes from the logits at ``n_valid - 1`` of the (combined)
+mask, as in the JAX package, even where that is not the last prompt token.
 """
 
 from __future__ import annotations

@@ -61,6 +61,12 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
                                    pad_token_id)
             loss.backward()
             sums = sums + torch.stack([loss.detach(), s_loss.detach()])
+        for p in params:
+            if p.grad is None:
+                # a trainable parameter off the gradient path (the text
+                # pooler, behind the text tower's stop_gradient) gets a
+                # zero gradient, as from jax.grad: AdamW still decays it
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if accum > 1:
             torch._foreach_mul_(grads, 1.0 / accum)

@@ -16,8 +16,15 @@ CLIP's patch embedding is a Dense over flattened (p, p, 3) patches on both
 sides, so it is a transpose too, as are OPT-350M's bias-free
 ``decoder/project_in/kernel`` (512 -> 1024) and ``project_out/kernel``. The T5 ``lm`` tree (``shared``,
 ``encoder``/``decoder.layers_i.{self_attn,cross_attn,ffn,*_norm}``,
-``relpos_bias``, ``final_layer_norm``) maps by the same rules. Only ``lm``, ``visual_model`` and
-``visual_embeddings`` are covered; anything else raises.
+``relpos_bias``, ``final_layer_norm``) maps by the same rules, and so do the
+embedding mode's modules: the Roberta tower ``text_model``
+(``embeddings.{word,position,token_type}_embeddings``, ``layer_norm``,
+``encoder.layers_i.{attention.{query,key,value,out},attention_norm,
+intermediate,output,output_norm}``), ``text_pooler/dense``,
+``text_embeddings``, the position tables ``text_position_embeddings`` and
+``visual_position_embeddings``, ``lpe_embeddings`` and the GCN's bias-free
+``gnn/w1`` and ``gnn/w2``. Modules not in ``COVERED`` (the CLIP text tower,
+PEFT, MPT's cross layers) raise.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-COVERED = ("lm", "visual_model", "visual_embeddings")
+COVERED = ("lm", "visual_model", "visual_embeddings", "text_model",
+           "text_pooler", "text_embeddings", "text_position_embeddings",
+           "visual_position_embeddings", "lpe_embeddings", "gnn")
 _LORA_HOSTS = ("q_proj", "v_proj")
 
 

@@ -5,8 +5,13 @@ JAX factory's ``use_pallas=False`` sends it to ``xla_attention``
 (mmgl_tpu/models/factory.py:65-68, 81, 147).
 C2: a local checkpoint directory raises until its import is ported
 (ROADMAP A4), where the JAX package overlays it.
-C3: float16 compute on a CUDA device is refused before the model is built:
-the kernels take float32 and bfloat16.
+C3: float16 compute on a CUDA device was refused before the model was
+built, while the kernels took float32 and bfloat16 only; their tensor-core
+bodies now have a float16 form, and float16 builds.
+B4: a head dim the kernels do not take (OPT-2.7B's 80, 6.7B's 128) is
+refused on a CUDA device before the model is built.
+What the port leaves out raises NotImplementedError naming its ROADMAP
+item: the CLIP text tower, MPT's cross-attention memory.
 """
 
 import pytest
@@ -101,21 +106,87 @@ def test_checkpoint_directory_raises(flag, tmp_path):
     build_model(args, torch.device("cpu"))
 
 
-def test_float16_on_cuda_is_refused_before_the_model_is_built(monkeypatch):
-    """C3: --bf16 true --compute_dtype float16 on a CUDA device raises in
-    build_model, with the reason, before any module is built (only the
-    dtype check runs, so no card is needed); on the CPU float16 builds,
-    and bfloat16 passes the check on a CUDA device."""
+def _refuse_building(monkeypatch):
+    """Make building the model itself raise, so that build_model's checks
+    run on a CUDA device without a card."""
     def built(*a, **kw):
         raise AssertionError("the model was built")
 
-    argv = ["--model_name_or_path", "t5-tiny", "--bf16", "true",
+    monkeypatch.setattr(factory, "MMGLModel", built)
+
+
+def test_float16_on_cuda_passes_the_checks_and_the_kernels_take_it(
+        monkeypatch):
+    """C3 repaired: --bf16 true --compute_dtype float16 on a CUDA device
+    passes build_model's checks and reaches the build (monkeypatched to
+    raise there, so no card is needed), as bfloat16 does; the model's
+    compute dtype is float16; and the kernel wrappers' input check accepts
+    float16 q/k/v and a float16 bias on the card (it refuses float64)."""
+    argv = ["--model_name_or_path", "t5-base", "--bf16", "true",
             "--device", "cpu"]
     args, _ = cli.parse_cli(argv + ["--compute_dtype", "float16"])
-    build_model(args, torch.device("cpu"))
-    monkeypatch.setattr(factory, "build_fusion_config", built)
-    with pytest.raises(ValueError, match="float32 and bfloat16"):
+    assert factory.build_fusion_config(args).t5.dtype == torch.float16
+    _refuse_building(monkeypatch)
+    for dtype in ("float16", "bfloat16"):
+        args, _ = cli.parse_cli(argv + ["--compute_dtype", dtype])
+        with pytest.raises(AssertionError, match="was built"):
+            build_model(args, torch.device("cuda"))
+
+    # the card's checks, on stand-ins that carry a CUDA tensor's metadata
+    class OnCard:
+        device = torch.device("cuda", 0)
+
+        def __init__(self, shape, dtype):
+            self.shape, self.dtype = torch.Size(shape), dtype
+
+        def dim(self):
+            return len(self.shape)
+
+    monkeypatch.setattr(fa, "_check_layout", lambda name, *ts: None)
+    q = OnCard((2, 64, 2, 64), torch.float16)
+    assert fa._tensor_cores(q)
+    fa._check("k", q, q, q, None)
+    fa._check_bias("k", q, q, OnCard((2, 64, 64), torch.float16))
+    fa._check_bias("k", q, q, OnCard((2, 64, 64), torch.float32))
+    wide = OnCard((2, 64, 2, 64), torch.float64)
+    with pytest.raises(ValueError, match="float16"):
+        fa._check("k", wide, wide, wide, None)
+    with pytest.raises(ValueError, match="bias must be"):
+        fa._check_bias("k", q, q, OnCard((2, 64, 64), torch.bfloat16))
+
+
+@pytest.mark.parametrize("model,head_dim", [("opt-2.7b", 80),
+                                            ("opt-6.7b", 128)])
+def test_head_dims_other_than_64_are_refused_on_cuda(model, head_dim,
+                                                     monkeypatch):
+    """B4: OPT-2.7B (head dim 80) and 6.7B (128) on a CUDA device raise in
+    build_model, naming ROADMAP B4, before the model is built; with
+    --use_pallas false (no kernel) and on the CPU the checks pass."""
+    _refuse_building(monkeypatch)
+    argv = ["--model_name_or_path", model, "--device", "cpu"]
+    args, _ = cli.parse_cli(argv)
+    assert factory.build_fusion_config(args).opt.head_dim == head_dim
+    with pytest.raises(ValueError, match="ROADMAP B4"):
         build_model(args, torch.device("cuda"))
-    args, _ = cli.parse_cli(argv + ["--compute_dtype", "bfloat16"])
-    with pytest.raises(AssertionError, match="was built"):
-        build_model(args, torch.device("cuda"))
+    for extra, device in ((["--use_pallas", "false"], "cuda"), ([], "cpu")):
+        args, _ = cli.parse_cli(argv + extra)
+        with pytest.raises(AssertionError, match="was built"):
+            build_model(args, torch.device(device))
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--model_name_or_path", "t5-tiny", "--text_model", "clip-base"],
+     "ROADMAP A5"),
+    (["--model_name_or_path", "mpt-tiny", "--neighbor_mode",
+      "cross_attention"], "ROADMAP A7"),
+])
+def test_what_the_slice_leaves_out_raises_naming_its_item(extra, item):
+    """The embedding mode with the CLIP text tower, and the cross-attention
+    memory (MPT's; the shared flag parser turns --neighbor_mode
+    cross_attention into the embedding mode's batches, which only MPT
+    consumes as memory), raise NotImplementedError naming their ROADMAP
+    item, before anything is built."""
+    args, _ = cli.parse_cli(["--context", "all", "--neighbor_mode",
+                             "embedding", "--device", "cpu", *extra])
+    with pytest.raises(NotImplementedError, match=item):
+        build_model(args, torch.device("cpu"))

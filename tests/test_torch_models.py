@@ -165,8 +165,10 @@ def test_fusion_model_matches_jax_raw_all(max_in, max_out):
 
 
 def test_convert_rejects_unported_parameters():
-    with pytest.raises(KeyError, match="text_model"):
-        state_dict_from_jax({"lm": {}, "text_model": {}})
+    """Modules the port does not have yet (PEFT's virtual tokens; the text
+    tower converts since the embedding mode) and unknown leaves raise."""
+    with pytest.raises(KeyError, match="prompt_tuning"):
+        state_dict_from_jax({"lm": {}, "prompt_tuning": {}})
     with pytest.raises(KeyError, match="lora_a"):
         state_dict_from_jax({"lm": {"q_proj": {"lora_a": np.zeros((2, 2))}}})
 
