@@ -8,16 +8,19 @@ imports no JAX. Phases, each fatal on failure:
 
   1. the card: CUDA visible, its name and power limit from nvidia-smi;
   2. build the kernels from mmgl_tpu_torch/csrc (time, ptxas report);
-  3. each kernel against its plain version on the card, bf16 and fp32, with
-     pad holes and fully masked rows: K1 and K2 forward and K3 (K1's
-     backward) at the OPT shapes; K4 and K5 (forward and gradient) at
-     T5-base's cross-attention, with an MQA head, and K7 with K8/K9 (dbias
-     included) at T5-base's encoder, decoder and cross-attention shapes,
+  3. each kernel against its plain version on the card, bf16, fp16 and
+     fp32, with pad holes and fully masked rows: K1 and K2 forward and K3
+     (K1's backward) at the OPT shapes, and K1 at Roberta's (44, 512, 12,
+     64) over right-padded neighbor texts with an empty slot; K4 and K5
+     (forward and gradient) at T5-base's cross-attention, with an MQA head,
+     and K7 with K8/K9 (dbias included) at T5-base's encoder, decoder and
+     cross-attention shapes and at the embedding mode's 576-token encoder,
      each without and with dropout 0.1; ragged lengths for every kernel.
-     The dropout mask K7 draws is read off its output, in bf16 and fp32,
-     and compared with the plain version's bit for bit. At the encoder's
-     shape with dropout, K7's row stats against the plain version's, and
-     K8/K9 from them equal, bit for bit, to K8/K9 with its own stats pass;
+     The dropout mask K7 draws is read off its output, in every dtype, and
+     compared with the plain version's bit for bit. At the encoder's shape
+     with dropout, in bf16 and fp16, K7's row stats against the plain
+     version's, and K8/K9 from them equal, bit for bit, to K8/K9 with its
+     own stats pass;
   4. the OPT-125M + CLIP ViT-B/16 test pass at full width (task=section,
      context=all, raw neighbors, the --test pass of mmgl_tpu_torch.cli on
      the synthetic corpus with seeded random weights); K1 and K2 must launch
@@ -27,6 +30,11 @@ imports no JAX. Phases, each fatal on failure:
      test pass on it restored): K1, K2 and K3 must launch inside the steps,
      losses and gradient norms be finite, every trainable tensor move and
      no tower tensor. Then one fp32 micro-step on the card against the CPU;
+     5c. float16 compute end to end (--compute_dtype float16, fp32
+     parameters): one OPT-125M update (4 x 4) and one test batch, one
+     T5-base update and test batch, and a T5-base eval-mode micro-step (K4
+     and K5): losses and gradient norms finite, every launch on the
+     tensor-core body;
   6. the T5-base + CLIP test pass through the CLI (batch 4, 4 batches):
      every eval step launches K7 24 times (12 encoder, 12 decoder
      self-attention) and K4 12 times (cross), every generated batch K7 12
@@ -36,15 +44,17 @@ imports no JAX. Phases, each fatal on failure:
      4 x 4): every micro-step launches K7 and K8/K9 36 times each; the
      checks of phase 5. Then one fp32 micro-step in eval mode (no dropout:
      K7, K8/K9, K4 and K5 on the card) against the CPU;
-  8. every kernel timed (bf16, CUDA events over runs of 10 calls back to
-     back) against its plain version and against the one PyTorch call that
+  8. every kernel timed (bf16 and fp16, CUDA events over runs of 10 calls
+     back to back) against its plain version and against the one PyTorch
+     call that
      computes the same function (scaled_dot_product_attention with the bias
      and mask as a float attn_mask, and its backward), beside its bound:
      max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s), each input read and each
      output written once, FLOPs over the pairs the masks leave (dropout's
      bits excluded); K8/K9 from K7's row stats, as training runs it; K4
      with its row stats, K6 and K5 also at OPT-350M's (4, 2048, 16, 64), K6
-     and K5 again at (4, 1024, 16, 64);
+     and K5 again at (4, 1024, 16, 64); in bf16 also K1 at Roberta's shape
+     and K7 and K9 at the 576-token encoder;
   9. OPT-350M + CLIP training at OPT's whole 2048-token window through the
      CLI (--max_input_length 1920 --max_output_length 128, bf16, 4 updates
      of 4 x 4, AdamW) with the blocked backward selected (the module flag
@@ -52,17 +62,38 @@ imports no JAX. Phases, each fatal on failure:
      micro-batches) and K1, K3 and K5 none; every eval step and every
      generated batch (its 1920-token prefill) K4 24 times; the checks of
      phase 5. Then one sample's fp32 micro-step in eval mode, K4 and K6
-     against the plain versions on the card (the CPU would take too long).
+     against the plain versions on the card (the CPU would take too long);
+ 10. the embedding mode at full width, BASELINE config 2: T5-base +
+     Roberta-base + CLIP ViT-B/16, context section_all, 11 neighbor texts x
+     512 tokens and 5 neighbor images a sample, 4 soft tokens each,
+     appended to the 512-token encoder input (576 tokens). The test pass
+     (batch 4, 4 batches): every eval step launches K1 12 times (Roberta,
+     44 texts at once), K2 12 (20 images), K7 24 and K4 12; every generated
+     batch K1, K2 and K7 12 times each. One sample's fp32 eval step, card
+     against CPU. Training (Adafactor, dropout 0.1, 4 updates of 4 x 4):
+     every update launches K1 and K2 48 times, K7 and K8/K9 144 (K9 at
+     576 x 576), K3 none (Roberta runs without autograd); the checks of
+     phase 5 (the text pooler, behind the text tower's stop_gradient, is
+     trainable with a zero gradient and may stay). Then a bf16 eval-mode
+     micro-step, where the cross-attention takes K4 and K5;
+ 11. OPT-125M + Roberta-base + CLIP, context all, embedding, once with the
+     Laplacian and once with the GCN position encoding: one update and one
+     test batch each; OPT's 640 + 64 = 704 tokens take K1 and K3, its
+     576-token prefill K1. (In training OPT's soft tokens sit after the
+     summary, where the causal mask hides them from every labeled token, as
+     in the JAX package: the encodings and projections get a zero gradient
+     there and act in the prefill that generation starts from.)
 
 Phase 3 also holds K4 with its row stats and K6 against their plain
 versions at OPT-350M's shape with a pad hole and with a fully masked
 sample, ragged and end-aligned sq < sk, and K6 against K5 at OPT-350M's
 shape, bit for bit. The launch counts are set to 0 just before each path
 and read just after. Every kernel has two bodies, tensor cores for bf16
-and scalar FMAs for fp32: phases 4, 5, 6, 7 and 9 (bf16) check that every
-launch of K1-K9 took the tensor-core body, and their fp32 checks that none
-did.
-Prints a kernels JSON line, then as its last line
+and fp16 and scalar FMAs for fp32: phases 4, 5, 5c, 6, 7, 9, 10 and 11
+(bf16 or fp16) check that every launch of K1-K9 took the tensor-core body,
+and their fp32 checks that none did.
+Prints a kernels JSON line (the fp16 forms as entries of their own), then
+as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
 versions compute in full fp32.
@@ -70,6 +101,7 @@ versions compute in full fp32.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -107,6 +139,46 @@ OPT350_TRAIN_ARGV = [a.replace("opt-125m", "opt-350m")
 TRAIN_UPDATES = 4
 T5_LAYERS = 12
 OPT350_LAYERS = 24
+ROBERTA_LAYERS = 12
+CLIP_LAYERS = 12
+OPT_LAYERS = 12
+
+
+def with_flags(argv, **flags):
+    """argv with each --flag's value replaced, or the flag appended."""
+    out = list(argv)
+    for key, value in flags.items():
+        flag = "--" + key
+        if flag in out:
+            out[out.index(flag) + 1] = str(value)
+        else:
+            out += [flag, str(value)]
+    return out
+
+
+# BASELINE config 2, the embedding mode: T5-base + Roberta-base + CLIP
+# ViT-B/16, context section_all, 11 text neighbors x 512 tokens and 5 image
+# neighbors, 4 soft tokens each, appended to the 512-token encoder input
+# (576 tokens); decoder 128
+EMBEDDING = dict(context="section_all", neighbor_mode="embedding",
+                 position_type="none", max_input_length=512,
+                 max_output_length=128)
+T5_EMB_TEST_ARGV = with_flags(T5_TEST_ARGV, **EMBEDDING)
+T5_EMB_TRAIN_ARGV = with_flags(T5_TRAIN_ARGV, **EMBEDDING)
+# the graph paths: OPT-125M + Roberta-base + CLIP, context all, embedding,
+# with the Laplacian or the GCN position encoding (640 + 64 = 704 tokens)
+OPT_GRAPH_ARGV = {pt: with_flags(OPT_TRAIN_ARGV, context="all",
+                                 neighbor_mode="embedding", position_type=pt)
+                  for pt in ("laplacian", "gnn")}
+# float16 compute (fp32 parameters) on the tensor-core bodies
+OPT_FP16_ARGV = with_flags(OPT_TRAIN_ARGV, compute_dtype="float16")
+T5_FP16_ARGV = with_flags(T5_TRAIN_ARGV, compute_dtype="float16")
+EMB_TEXTS = 11 * 4          # Roberta's sequences a micro-batch of 4
+EMB_IMAGES = 5 * 4          # CLIP's images a micro-batch of 4
+# the frozen towers' parameter prefixes, and the trainable text pooler that
+# sits behind the text tower's stop_gradient (a zero gradient)
+TOWERS = ("visual_model.", "text_model.")
+GRADLESS = ("text_pooler.",)
 
 FWD_SOURCE = "mmgl_tpu_torch/csrc/attention_fwd.cu"
 BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bwd.cu"
@@ -134,8 +206,9 @@ KERNELS = {
                                  f"{PALLAS}:942", BIAS_BWD_SOURCE),
 }
 BIAS_KERNELS = ("flash_attention_bias", "flash_attention_bias_bwd")
-# the bf16 bodies the kernels line names (every timed case is bf16)
-DESIGNS = {"tc": "bf16 tensor cores: mma.sync m16n8k16, fp32 accumulators, "
+# the tensor-core bodies the kernels line names (every timed case is bf16
+# or fp16: the same bodies, m16n8k16 in .bf16 or .f16)
+DESIGNS = {"tc": "tensor cores: mma.sync m16n8k16, fp32 accumulators, "
                  "64 x 64 tiles, 4 warps of 16 rows, 2-stage cp.async ring",
            "bias_tc": "the same bodies in their bias form: the bias tile in "
                       "the cp.async ring, Philox dropout on the P fragment "
@@ -151,7 +224,11 @@ CASES = [
     ("fused_heads_attention", (24, 197, 12, 64), False, "ones"),    # CLIP
     ("flash_attention_allheads", (4, 640, 12, 64), False, "fully_masked"),
     ("fused_heads_attention", (24, 197, 12, 64), False, "fully_masked"),
+    # Roberta over 11 neighbor texts x 4 samples, each right-padded, an
+    # empty slot fully masked
+    ("flash_attention_allheads", (44, 512, 12, 64), False, "texts"),
 ]
+ROBERTA_CASE = 5
 # K3 (the training step's attention backward): ((B, S, H, D), causal, mask);
 # the training shape, the same with a fully masked sample, and a ragged
 # length whose tiles the bounds checks cut
@@ -176,15 +253,23 @@ BLOCKED_CASES = [((4, 2048, 2048, 16), True, "hole"),
 BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
               ("dec", (4, 128, 128, 12), True, True),
               ("cross", (4, 128, 512, 12), False, False),
-              ("ragged", (3, 333, 333, 2), True, True)]
+              ("ragged", (3, 333, 333, 2), True, True),
+              # the embedding mode's encoder: 512 + 16 x 4 soft tokens,
+              # nine key tiles
+              ("enc576", (4, 576, 576, 12), False, True)]
+ENC576_CASE = 4
 RATE = 0.1
-# (atol, rtol) by dtype name
-TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 0.0)}
+# (atol, rtol) by dtype name; float16 keeps 11 significant bits to bf16's 8,
+# and its tensor-core form rounds where the bf16 form does
+TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float16": (5e-3, 5e-3),
+              "float32": (2e-5, 0.0)}
 # backward, per gradient: (atol as a fraction of its largest entry, rtol);
-# bf16: P (times the keep factor) and dS rounded to bf16 before their
-# products from logits summed in another order, in the tensor-core bodies
-# and the plain versions alike
-BWD_TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 0.0)}
+# bf16 and fp16: P (times the keep factor) and dS rounded to the input type
+# before their products from logits summed in another order, in the
+# tensor-core bodies and the plain versions alike
+BWD_TOLERANCES = {"bfloat16": (2e-2, 2e-2), "float16": (5e-3, 5e-3),
+                  "float32": (1e-5, 0.0)}
+TC_DTYPES = ("bfloat16", "float16")
 # K4's row max and sum, (atol, rtol) in either dtype: fp32 sums of up to
 # 2048 exponentials in another order
 STATS_TOLERANCES = (1e-4, 1e-4)
@@ -212,13 +297,21 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def wkey(name: str, dtype_name: str) -> str:
+    """A kernel's key in the worst-error table and the kernels line: its
+    float16 form apart."""
+    return name + "[fp16]" if dtype_name == "float16" else name
+
+
 def make_mask(kind: str, b: int, s: int, seed: int):
     """(B, S) int32 key mask. "hole": a decoder-only batch, prompt padded to
     S - 128 then summary padded to 128, so the valid keys have a hole
     ("hole333": the same at S = 333, prompt 250); "prompt": right-padded
     prompts; "gap": a pad hole in the middle and right padding, any S;
     "fully_masked": sample 0 all zero (with holes in the others for
-    "hole_fully_masked" and "gap_fully_masked")."""
+    "hole_fully_masked" and "gap_fully_masked"); "texts": neighbor texts,
+    each right-padded to a random length, sample 0 all zero (an empty
+    neighbor slot)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -243,6 +336,10 @@ def make_mask(kind: str, b: int, s: int, seed: int):
         mask = make_mask(kind.split("_")[0], b, s, seed)
         mask[0] = 0
     elif kind == "fully_masked":
+        mask[0] = 0
+    elif kind == "texts":
+        for i in range(b):
+            mask[i, rng.randint(1, s + 1):] = 0
         mask[0] = 0
     return mask
 
@@ -286,8 +383,8 @@ def reset_launches(fa) -> None:
 
 def check_bodies(fa, tag: str, bf16: bool):
     """Every kernel launch since the counts were reset took the
-    tensor-core body (bf16) or none did (fp32); returns {name: (launches,
-    tensor-core launches)}."""
+    tensor-core body (``bf16`` true: bf16 or fp16 compute) or none did
+    (fp32); returns {name: (launches, tensor-core launches)}."""
     counts = {n: (getattr(fa, n).launches, getattr(fa, n).launches_tc)
               for n in KERNELS}
     print(f"[{tag}] K1-K9 launches (all, tensor-core body): {counts}")
@@ -318,7 +415,8 @@ def _grads_within(name, got, ref, dtype_name, label, worst):
         max_err = float((g.float() - r.float()).abs().max())
         ok = _within(g, r, atol * float(r.float().abs().max()), rtol)
         report.append(f"{grad} {max_err:.3e}{'' if ok else ' FAIL'}")
-        worst[name] = max(worst[name], max_err)
+        key = wkey(name, dtype_name)
+        worst[key] = max(worst[key], max_err)
         if not ok:
             print(f"[check] {name} {label} {dtype_name}: {', '.join(report)}")
             fail(f"{name} {grad} disagrees with its plain version")
@@ -344,7 +442,8 @@ def check_opt_kernels(fa, device, worst):
                   f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} disagrees with its plain version")
-            worst[name] = max(worst[name], max_err)
+            key = wkey(name, dtype_name)
+            worst[key] = max(worst[key], max_err)
     name = "flash_attention_allheads_bwd"
     for i, (shape, causal, mask_kind) in enumerate(BWD_CASES):
         for dtype_name in BWD_TOLERANCES:
@@ -413,7 +512,8 @@ def check_t5_kernels(fa, device, worst):
             ref = fa.flash_attention_reference(q.detach(), kx, vx,
                                                kv_mask=mask, causal=causal)
             max_err = float((got.detach().float() - ref.float()).abs().max())
-            worst["flash_attention"] = max(worst["flash_attention"], max_err)
+            key = wkey("flash_attention", dtype_name)
+            worst[key] = max(worst[key], max_err)
             if not _within(got.detach(), ref, atol, rtol):
                 fail(f"flash_attention {dims} {dtype_name} disagrees with "
                      f"its plain version ({max_err:.3e})")
@@ -449,8 +549,8 @@ def check_t5_kernels(fa, device, worst):
                     dropout_rate=rate, dropout_seed=seed)
                 max_err = float((got.detach().float()
                                  - ref.float()).abs().max())
-                worst["flash_attention_bias"] = max(
-                    worst["flash_attention_bias"], max_err)
+                key = wkey("flash_attention_bias", dtype_name)
+                worst[key] = max(worst[key], max_err)
                 if not _within(got.detach(), ref, atol, rtol):
                     fail(f"flash_attention_bias {tag} {dims} rate={rate} "
                          f"{dtype_name} disagrees with its plain version "
@@ -471,20 +571,21 @@ def check_t5_kernels(fa, device, worst):
         for dtype_name in TOLERANCES:
             keep[f"{tag} {dtype_name}"] = check_dropout_mask(
                 fa, dims, device, getattr(torch, dtype_name))
-    check_bias_stats_path(fa, device, worst)
+    for dtype_name in TC_DTYPES:
+        check_bias_stats_path(fa, device, worst, dtype_name)
     return keep
 
 
-def check_bias_stats_path(fa, device, worst):
-    """Phase 3, at the encoder's shape with dropout, bf16: K7's row stats
-    against the plain version's, and K8/K9 from them (as training runs it)
-    equal to K8/K9 with its own stats pass, bit for bit: the stats-only pass
-    computes K7's max and sum with K7's instructions."""
+def check_bias_stats_path(fa, device, worst, dtype_name):
+    """Phase 3, at the encoder's shape with dropout, bf16 or fp16: K7's row
+    stats against the plain version's, and K8/K9 from them (as training runs
+    it) equal to K8/K9 with its own stats pass, bit for bit: the stats-only
+    pass computes K7's max and sum with K7's instructions."""
     import torch
 
     tag, dims, causal, with_bias = BIAS_CASES[0]
     q, k, v, mask, bias, dout, seed = bias_inputs(
-        dims, with_bias, torch.bfloat16, device, 300)
+        dims, with_bias, getattr(torch, dtype_name), device, 300)
     kw = dict(kv_mask=mask, causal=causal, scale=1.0, dropout_rate=RATE,
               dropout_seed=seed)
     out, m, l = fa.flash_attention_bias_stats(q, k, v, bias=bias, **kw)
@@ -493,10 +594,10 @@ def check_bias_stats_path(fa, device, worst):
                                       **kw)
     errs = [float((g.float() - r.float()).abs().max())
             for g, r in zip((out, m, l), ref)]
-    worst["flash_attention_bias"] = max(worst["flash_attention_bias"],
-                                        errs[0])
-    label = f"{tag} {dims} bias dropout={RATE} bfloat16"
-    if not (_within(out, ref[0], *TOLERANCES["bfloat16"])
+    key = wkey("flash_attention_bias", dtype_name)
+    worst[key] = max(worst[key], errs[0])
+    label = f"{tag} {dims} bias dropout={RATE} {dtype_name}"
+    if not (_within(out, ref[0], *TOLERANCES[dtype_name])
             and _within(m, ref[1], *STATS_TOLERANCES)
             and _within(l, ref[2], *STATS_TOLERANCES)):
         fail(f"flash_attention_bias_stats {label} disagrees with its plain "
@@ -548,8 +649,8 @@ def check_blocked_kernels(fa, device, worst):
             s_atol, s_rtol = STATS_TOLERANCES
             stats_err = [float((g - r).abs().max())
                          for g, r in zip((m, l), ref[1:])]
-            worst["flash_attention[stats]"] = max(
-                worst["flash_attention[stats]"], max_err, *stats_err)
+            key = wkey("flash_attention[stats]", dtype_name)
+            worst[key] = max(worst[key], max_err, *stats_err)
             if not (_within(out, ref[0], atol, rtol)
                     and _within(m, ref[1], s_atol, s_rtol)
                     and _within(l, ref[2], s_atol, s_rtol)):
@@ -592,7 +693,8 @@ def check_blocked_kernels(fa, device, worst):
 
 def kernel_keep_mask(fa, b, sq, sk, h, seed, device, dtype):
     """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output (in
-    ``dtype``: bf16 runs the tensor-core body, fp32 the scalar one). With
+    ``dtype``: bf16 and fp16 run the tensor-core body, fp32 the scalar
+    one). With
     q = 0 and one 64-key window unmasked, P is 1/64 on the window's keys,
     and with v the identity on the window, out[..., d] is the keep factor
     of key window + d over 64: zero exactly where it was dropped."""
@@ -635,6 +737,33 @@ def check_dropout_mask(fa, dims, device, dtype) -> float:
     if not same or abs(frac - (1 - RATE)) > 6 * sigma:
         fail(f"the dropout mask of flash_attention_bias at {dims} is wrong")
     return frac
+
+
+class ShapeTally:
+    """K7's and K8/K9's launches by (Sq, Sk) inside a ``with`` block,
+    counted where their launchers run (K8 and K9 are one wrapper, told
+    apart by shape)."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.fwd, self.bwd = {}, {}
+
+    def _wrap(self, fn, table):
+        def tallied(q, k, *a, **kw):
+            key = (q.shape[1], k.shape[1])
+            table[key] = table.get(key, 0) + 1
+            return fn(q, k, *a, **kw)
+        return tallied
+
+    def __enter__(self):
+        self.saved = (self.fa._launch_bias, self.fa._launch_bias_bwd)
+        self.fa._launch_bias = self._wrap(self.saved[0], self.fwd)
+        self.fa._launch_bias_bwd = self._wrap(self.saved[1], self.bwd)
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._launch_bias, self.fa._launch_bias_bwd = self.saved
+        return False
 
 
 class LaunchTally:
@@ -760,12 +889,14 @@ def check_model_fp32(cli, fa, test, device, argv, tag):
 
 def run_training(cli, fa, device, log_dir: str, argv, kernels,
                  per_update=None, tag="opt", per_eval=None,
-                 per_generate=None):
-    """Phases 5, 7 and 9: the training run at full width through the entry
-    point; ``kernels`` must launch inside the training steps, exactly
+                 per_generate=None, gradless=()):
+    """Phases 5, 7, 9 and 10: the training run at full width through the
+    entry point; ``kernels`` must launch inside the training steps, exactly
     ``per_update`` times in each update where given, and ``per_eval`` /
     ``per_generate`` times in each eval step (val and test) / generated
-    batch.
+    batch. Every trainable tensor must move but those under the prefixes
+    ``gradless`` (the text pooler, behind the text tower's stop_gradient:
+    trainable, with a zero gradient), and no tower tensor.
 
     The CLI's model factory, train step, eval setup and checkpoint restore
     are wrapped here, not changed: the wrappers snapshot the weights, time
@@ -885,11 +1016,15 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     params = dict(model.named_parameters())
     still = [n for n in trainable if torch.equal(params[n], before[n])]
     moved = [n for n in frozen if not torch.equal(params[n], before[n])]
+    off_path = [n for n in trainable if gradless and n.startswith(gradless)]
     print(f"[{tag} train] {len(trainable) - len(still)} of {len(trainable)} "
           f"trainable tensors moved; {len(moved)} of {len(frozen)} frozen "
-          f"(tower) tensors moved")
+          f"(tower) tensors moved"
+          + (f"; off the gradient path {off_path}, of which still "
+             f"{[n for n in still if n in off_path]}" if off_path else ""))
+    still = [n for n in still if n not in off_path]
     if still or moved or not frozen or not all(
-            n.startswith("visual_model.") for n in frozen):
+            n.startswith(TOWERS) for n in frozen):
         fail(f"trainable tensors that did not move: {still[:5]}; frozen "
              f"tensors that moved: {moved[:5]}")
 
@@ -899,7 +1034,7 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
         fail(f"the best checkpoint under {ckpt_dir} was not restored for "
              f"the test pass (restores {[p for p, _ in seen['restores']]})")
     saved = final[-1]["params"]
-    if any(k.startswith("visual_model.") for k in saved) or not all(
+    if any(k.startswith(TOWERS) for k in saved) or not all(
             torch.equal(params[k].detach().cpu(), v) for k, v in
             saved.items()):
         fail("the test pass did not run on the restored checkpoint")
@@ -1009,6 +1144,122 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
             "launches": launches}
 
 
+def run_short(cli, fa, device, argv, tag, kernels, per_update=None,
+              per_eval=None, per_generate=None):
+    """Phases 5c and 11: one training update (4 x 4 micro-batches, dropout
+    on) and one test batch (the eval step and greedy decode of 32 tokens)
+    at full width, through the CLI's model factory, data, train step and
+    generate: losses and gradient norm finite, every launch on the
+    tensor-core body, each of ``kernels`` launched, exactly ``per_update``
+    / ``per_eval`` / ``per_generate`` times where given, and the generated
+    ids inside the vocabulary. The counts are set to 0 just before each of the three and read just
+    after. Returns a summary."""
+    import torch
+    from mmgl_tpu_torch.train.generate import greedy_generate
+    from mmgl_tpu_torch.train.optim import build_optimizer
+    from mmgl_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    args, dev = cli.parse_cli(argv)
+    tokenizer, model, fcfg, (train_ds, _, test_ds) = cli._build(args, dev)
+    accum = args.grad_accumulation_steps
+    batch = next(iter(cli.PrefetchLoader(
+        train_ds, batch_size=args.per_device_train_batch_size * accum,
+        num_workers=1)))
+    test_batch = next(iter(cli.PrefetchLoader(
+        test_ds, batch_size=args.per_device_val_batch_size, num_workers=1)))
+    opt, sched = build_optimizer(args, model)
+    step = make_train_step(model, opt, sched, args.decoder_only,
+                           args.max_input_length, tokenizer.pad_token_id,
+                           accum, args.grad_clip)
+    eval_step = make_eval_step(model, args.decoder_only,
+                               args.max_input_length, tokenizer.pad_token_id)
+
+    def counted(fn, what):
+        torch.cuda.synchronize(dev)
+        reset_launches(fa)
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - start
+        check_bodies(fa, f"{tag} {what}", bf16=True)
+        return out, {n: getattr(fa, n).launches for n in KERNELS}, seconds
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics, upd, upd_s = counted(
+        lambda: step(batch, cli.dropout_generator(args.seed or 0, 0, dev)),
+        "update")
+    peak = torch.cuda.max_memory_allocated(dev)
+    ev, evl, ev_s = counted(lambda: eval_step(test_batch), "eval step")
+    ids, gen, gen_s = counted(
+        lambda: greedy_generate(model, test_batch, cli.MAX_NEW_TOKENS),
+        "generated batch")
+    values = {"loss": float(metrics["loss"]),
+              "grad_norm": float(metrics["grad_norm"]),
+              "eval_loss": float(ev["loss"])}
+    vocab = (fcfg.opt or fcfg.t5).vocab_size
+    print(f"[{tag}] update {values} in {upd_s:.4f} s, peak device memory "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB); launches {upd}; eval "
+          f"step {ev_s:.4f} s, launches {evl}; generated batch "
+          f"{tuple(ids.shape)} {gen_s:.4f} s, launches {gen}")
+    if not all(math.isfinite(v) for v in values.values()):
+        fail(f"{tag}: a loss or gradient norm is not finite: {values}")
+    if tuple(ids.shape) != (args.per_device_val_batch_size,
+                            cli.MAX_NEW_TOKENS) or not bool(
+                                ((ids >= 0) & (ids < vocab)).all()):
+        fail(f"{tag}: generated ids of shape {tuple(ids.shape)} or outside "
+             "the vocabulary")
+    for name in kernels:
+        if upd[name] + evl[name] + gen[name] <= 0:
+            fail(f"{name} was not launched in the {tag} run")
+    for want, got, what in ((per_update, upd, "update"),
+                            (per_eval, evl, "eval step"),
+                            (per_generate, gen, "generated batch")):
+        if want is not None and {n: got[n] for n in want} != want:
+            fail(f"the {tag} {what} launched {got}, expected {want}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {**values, "update_seconds": upd_s, "peak_bytes": peak,
+            "launches": {"update": upd, "eval_step": evl,
+                         "generated_batch": gen}}
+
+
+def eval_mode_step(cli, fa, device, argv, tag, per_step):
+    """Phase 10c: one bf16 micro-step (forward and backward of a micro-batch
+    of 4) in eval mode, so without dropout: T5's cross-attention then takes
+    K4, and its gradient K5, as in PR 3's T5 fp32 step. Every launch on the
+    tensor-core body, exactly ``per_step`` where given; gradients finite."""
+    import torch
+    from mmgl_tpu_torch.train.steps import losses_of
+
+    args, dev = cli.parse_cli(argv)
+    tokenizer, model, _, (train_ds, _, _) = cli._build(args, dev)
+    batch = next(iter(cli.PrefetchLoader(
+        train_ds, batch_size=args.per_device_train_batch_size,
+        num_workers=1)))
+    torch.cuda.synchronize(dev)
+    reset_launches(fa)
+    out = model.eval()(batch)
+    loss, _ = losses_of(out, args.decoder_only, args.max_input_length,
+                        tokenizer.pad_token_id)
+    loss.backward()
+    torch.cuda.synchronize(dev)
+    check_bodies(fa, f"{tag} eval-mode step", bf16=True)
+    launches = {n: getattr(fa, n).launches for n in KERNELS}
+    norm = math.sqrt(sum(float(p.grad.double().pow(2).sum())
+                         for p in model.parameters() if p.grad is not None))
+    value = float(loss)
+    print(f"[{tag}] eval-mode bf16 micro-step: loss {value:.6f}, grad norm "
+          f"{norm:.6f}; launches {launches}")
+    if not (math.isfinite(value) and math.isfinite(norm)):
+        fail(f"{tag}: the eval-mode micro-step is not finite")
+    if {n: launches[n] for n in per_step} != per_step:
+        fail(f"{tag}: the eval-mode micro-step launched {launches}, "
+             f"expected {per_step}")
+    del model, out, loss
+    torch.cuda.empty_cache()
+    return {"loss": value, "grad_norm": norm, "launches": launches}
+
+
 # ---- phase 8: timings and bounds -------------------------------------------
 
 def allowed_pairs(mask, sq: int, causal: bool) -> float:
@@ -1106,63 +1357,68 @@ def _sdpa_bwd(q, k, v, am, dout, p=0.0, scale=None, bias_grad=False):
     return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
 
 
-def _opt_timing_cases(fa, device):
-    """K1 (OPT eval), K2 (CLIP) and K3 (OPT training), bf16."""
+def _opt_timing_cases(fa, device, dtype_name):
+    """K1 (OPT eval), K2 (CLIP) and K3 (OPT training), in bf16 or fp16; in
+    bf16 also K1 at Roberta's shape (the embedding mode's text tower)."""
     import torch
 
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype_name)
     cases = []
-    for name, idx in (("flash_attention_allheads", 0),
-                      ("fused_heads_attention", 2)):
-        (q, k, v), kw = kernel_inputs(idx, bf16, device)
+    k1 = [("flash_attention_allheads", 0, ""), ("fused_heads_attention", 2, "")]
+    if dtype_name == "bfloat16":
+        k1.append(("flash_attention_allheads", ROBERTA_CASE, "[roberta]"))
+    for name, idx, tag in k1:
+        (q, k, v), kw = kernel_inputs(idx, dt, device)
         s, h, d = q.shape[1:]
-        am = float_mask(kw["kv_mask"], s, kw["causal"], None, bf16)
+        am = float_mask(kw["kv_mask"], s, kw["causal"], None, dt)
         pairs = allowed_pairs(kw["kv_mask"], s, kw["causal"]) * h
         cases.append((
-            f"{name} {tuple(q.shape)} causal={kw['causal']}", name, {
+            f"{name} {tuple(q.shape)} causal={kw['causal']} "
+            f"mask={CASES[idx][3]}", wkey(name + tag, dtype_name), {
                 "kernel": partial(getattr(fa, name), q, k, v, **kw),
                 "plain": partial(getattr(fa, KERNELS[name][0]), q, k, v,
                                  **kw),
                 "library": _sdpa_fwd(*_bhsd(q, k, v), am)},
             4 * pairs * d, 4 * q.numel() * 2 + kw["kv_mask"].numel() * 4))
-    args, kw = bwd_inputs(0, bf16, device)
+    args, kw = bwd_inputs(0, dt, device)
     q, k, v, mask, out, dout = args
     s, h, d = q.shape[1:]
     pairs = allowed_pairs(mask, s, True) * h
     cases.append((
         f"flash_attention_allheads_bwd {tuple(q.shape)} causal",
-        "flash_attention_allheads_bwd", {
+        wkey("flash_attention_allheads_bwd", dtype_name), {
             "kernel": partial(fa.flash_attention_allheads_bwd, *args, **kw),
             "plain": partial(fa.allheads_attention_bwd_reference, *args,
                              **kw),
             "library": _sdpa_bwd(*_bhsd(q, k, v),
-                                 float_mask(mask, s, True, None, bf16),
+                                 float_mask(mask, s, True, None, dt),
                                  *_bhsd(dout))},
         10 * pairs * d, 8 * q.numel() * 2 + mask.numel() * 4))
     return cases
 
 
-def _flash_timing_cases(fa, device):
-    """K4 and K5 at T5-base's eval cross-attention, bf16."""
+def _flash_timing_cases(fa, device, dtype_name):
+    """K4 and K5 at T5-base's eval cross-attention, bf16 or fp16."""
     import torch
 
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype_name)
     dims, causal, mask_kind = FLASH_CASES[0]
-    q, k, v, mask, dout = flash_inputs(dims, mask_kind, bf16, device, 200)
+    q, k, v, mask, dout = flash_inputs(dims, mask_kind, dt, device, 200)
     sq, h = dims[1], dims[3]
     out = fa.flash_attention(q, k, v, kv_mask=mask)
     qt, kt, vt, dot = _bhsd(q, k, v, dout)
-    am = float_mask(mask, sq, False, None, bf16)
+    am = float_mask(mask, sq, False, None, dt)
     pairs = allowed_pairs(mask, sq, False) * h
     io_fwd = (2 * q.numel() + 2 * k.numel()) * 2 + mask.numel() * 4
     io_bwd = (4 * q.numel() + 4 * k.numel()) * 2 + mask.numel() * 4
     return [
-        (f"flash_attention {dims}", "flash_attention", {
+        (f"flash_attention {dims}", wkey("flash_attention", dtype_name), {
             "kernel": partial(fa.flash_attention, q, k, v, kv_mask=mask),
             "plain": partial(fa.flash_attention_reference, q, k, v,
                              kv_mask=mask),
             "library": _sdpa_fwd(qt, kt, vt, am)}, 4 * pairs * 64, io_fwd),
-        (f"flash_attention_bwd {dims}", "flash_attention_bwd", {
+        (f"flash_attention_bwd {dims}", wkey("flash_attention_bwd",
+                                             dtype_name), {
             "kernel": partial(fa.flash_attention_bwd, q, k, v, mask, out,
                               dout),
             "plain": partial(fa.flash_attention_bwd_reference, q, k, v, mask,
@@ -1171,15 +1427,16 @@ def _flash_timing_cases(fa, device):
          10 * pairs * 64, io_bwd)]
 
 
-def _bias_timing_cases(fa, device, i):
+def _bias_timing_cases(fa, device, i, dtype_name):
     """K7 at BIAS_CASES[i] in eval (no dropout; not for the cross-attention,
     which is K4's in eval) and training (dropout), and its backward from
-    K7's row stats: K9 at the encoder's shape, K8 at the decoder's."""
+    K7's row stats: K9 at the encoders' shapes, K8 at the decoder's; bf16
+    or fp16."""
     import torch
 
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype_name)
     tag, dims, causal, with_bias = BIAS_CASES[i]
-    q, k, v, mask, bias, dout, seed = bias_inputs(dims, with_bias, bf16,
+    q, k, v, mask, bias, dout, seed = bias_inputs(dims, with_bias, dt,
                                                   device, 300 + i)
     sq, h = dims[1], dims[3]
     pairs = allowed_pairs(mask, sq, causal) * h
@@ -1190,15 +1447,17 @@ def _bias_timing_cases(fa, device, i):
     io_bwd = ((4 * q.numel() + 4 * k.numel()) * 2 + mask.numel() * 4
               + 2 * bias_bytes)
     qt, kt, vt, dot = _bhsd(q, k, v, dout)
-    am = float_mask(mask, sq, causal, bias, bf16)
+    am = float_mask(mask, sq, causal, bias, dt)
     shape = f"{tag} {dims} causal={causal} bias={with_bias}"
+    # the 576-token encoder has its own entry in the kernels line
+    at = "[576]" if tag == "enc576" else ""
     cases = []
     for rate in ((RATE,) if tag == "cross" else (0.0, RATE)):
         kw = dict(bias=bias, kv_mask=mask, causal=causal, scale=1.0,
                   dropout_rate=rate, dropout_seed=seed)
         cases.append((
             f"flash_attention_bias {shape} dropout={rate}",
-            "flash_attention_bias", {
+            wkey("flash_attention_bias" + at, dtype_name), {
                 "kernel": partial(fa.flash_attention_bias, q, k, v, **kw),
                 "plain": partial(fa.bias_attention_reference, q, k, v, **kw),
                 "library": _sdpa_fwd(qt, kt, vt, am, rate, 1.0)},
@@ -1211,8 +1470,9 @@ def _bias_timing_cases(fa, device, i):
                dropout_seed=seed)
     cases.append((
         f"flash_attention_bias_bwd {shape} dropout={RATE} from K7's stats",
-        "flash_attention_bias_bwd[K9]" if tag == "enc"
-        else "flash_attention_bias_bwd[K8]", {
+        wkey({"enc": "flash_attention_bias_bwd[K9]",
+              "enc576": "flash_attention_bias_bwd[K9,576]"}.get(
+                  tag, "flash_attention_bias_bwd[K8]"), dtype_name), {
             "kernel": partial(fa.flash_attention_bias_bwd, q, k, v, mask,
                               None if bias is None else bias[0], out, dout,
                               row_max=m, row_sum=l, **bkw),
@@ -1224,27 +1484,27 @@ def _bias_timing_cases(fa, device, i):
     return cases
 
 
-def _blocked_timing_cases(fa, device):
+def _blocked_timing_cases(fa, device, dtype_name):
     """K4 with its row stats, K6 and, for comparison, K5 at OPT-350M's
-    training shape, bf16, and K6 against K5 again at 1024 tokens. K6 and K5
-    compute the same gradient, so both are bounded by 10 * D FLOPs per
-    allowed pair, K3's count; the bytes read q, k, v, dO, o, the mask (and
-    K6 the stats) once and write dq, dk, dv once."""
+    training shape, bf16 or fp16, and K6 against K5 again at 1024 tokens.
+    K6 and K5 compute the same gradient, so both are bounded by 10 * D
+    FLOPs per allowed pair, K3's count; the bytes read q, k, v, dO, o, the
+    mask (and K6 the stats) once and write dq, dk, dv once."""
     import torch
 
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype_name)
     dims, causal, _ = BLOCKED_CASES[0]
     cases = []
     # seed 400 at 2048: phase 3's inputs (blocked_inputs(0))
     for tokens, seed in ((2048, 400), (1024, 401)):
         dims = (dims[0], tokens, tokens, *dims[3:])
-        q, k, v, mask, dout = flash_inputs((*dims, dims[3]), "hole", bf16,
+        q, k, v, mask, dout = flash_inputs((*dims, dims[3]), "hole", dt,
                                            device, seed)
         sq, h = dims[1], dims[3]
         out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask,
                                              causal=causal)
         qt, kt, vt, dot = _bhsd(q, k, v, dout)
-        am = float_mask(mask, sq, causal, None, bf16)
+        am = float_mask(mask, sq, causal, None, dt)
         pairs = allowed_pairs(mask, sq, causal) * h
         stats_bytes = 2 * m.numel() * 4
         io_fwd = 4 * q.numel() * 2 + mask.numel() * 4 + stats_bytes
@@ -1256,7 +1516,7 @@ def _blocked_timing_cases(fa, device):
         if tokens == 2048:
             cases.append((
                 f"flash_attention with stats {shape}",
-                "flash_attention[stats]", {
+                wkey("flash_attention[stats]", dtype_name), {
                     "kernel": partial(fa.flash_attention_stats, q, k, v,
                                       kv_mask=mask, causal=causal),
                     "plain": partial(fa.flash_attention_reference, q, k, v,
@@ -1266,15 +1526,15 @@ def _blocked_timing_cases(fa, device):
                 4 * pairs * 64, io_fwd))
         cases += [
             (f"flash_attention_blocked_bwd {shape}",
-             f"flash_attention_blocked_bwd{tag}", {
+             wkey(f"flash_attention_blocked_bwd{tag}", dtype_name), {
                  "kernel": partial(fa.flash_attention_blocked_bwd, *bwd_args,
                                    m, l, causal=causal),
                  "plain": partial(fa.flash_attention_blocked_bwd_reference,
                                   *bwd_args, m, l, causal=causal),
                  "library": _sdpa_bwd(qt, kt, vt, am, dot)},
              10 * pairs * 64, io_bwd + stats_bytes),
-            (f"flash_attention_bwd {shape}", f"flash_attention_bwd[{tokens}]",
-             {"kernel": partial(fa.flash_attention_bwd, *bwd_args,
+            (f"flash_attention_bwd {shape}",
+             wkey(f"flash_attention_bwd[{tokens}]", dtype_name), {"kernel": partial(fa.flash_attention_bwd, *bwd_args,
                                 causal=causal),
               "plain": partial(fa.flash_attention_bwd_reference, *bwd_args,
                                causal=causal),
@@ -1285,21 +1545,32 @@ def _blocked_timing_cases(fa, device):
 
 def timing_cases(fa, device):
     """(label, kernel name, {"kernel", "plain", "library"} callables, FLOPs,
-    bytes) for every kernel at its main-path shapes, bf16."""
-    cases = _opt_timing_cases(fa, device) + _flash_timing_cases(fa, device)
-    for i in range(3):          # the encoder, decoder and cross shapes
-        cases += _bias_timing_cases(fa, device, i)
-    return cases + _blocked_timing_cases(fa, device)
+    bytes, dtype name) for every kernel at its main-path shapes, in bf16
+    and in fp16; in bf16 also K1 at Roberta's shape and K7 with K9 at the
+    embedding mode's 576-token encoder."""
+    cases = []
+    for dtype_name in TC_DTYPES:
+        got = (_opt_timing_cases(fa, device, dtype_name)
+               + _flash_timing_cases(fa, device, dtype_name))
+        # the encoder, decoder and cross shapes (and the 576 encoder)
+        for i in (0, 1, 2) + ((ENC576_CASE,) if dtype_name == "bfloat16"
+                              else ()):
+            got += _bias_timing_cases(fa, device, i, dtype_name)
+        got += _blocked_timing_cases(fa, device, dtype_name)
+        cases += [c + (dtype_name,) for c in got]
+    return cases
 
 
 def time_kernels(fa, device):
     """Phase 8: {label: (kernel name, times, bound ms, bound_by)}."""
     rows = {}
-    for label, name, fns, flops, nbytes in timing_cases(fa, device):
+    for label, name, fns, flops, nbytes, dtype_name in timing_cases(
+            fa, device):
         times, n = median_ms(fns, device)
         bound, by = bound_ms(flops, nbytes)
+        label = f"{label} {dtype_name}"
         rows[label] = (name, times, bound, by)
-        print(f"[time] {label} bfloat16: kernel {times['kernel']:.4f} ms, "
+        print(f"[time] {label}: kernel {times['kernel']:.4f} ms, "
               f"plain {times['plain']:.4f} ms, library "
               f"{times['library']:.4f} ms (kernel / library "
               f"{times['kernel'] / times['library']:.3f}; medians of {n} "
@@ -1336,8 +1607,9 @@ def main() -> int:
     print("\n".join("  " + line.strip() for line in lib.ptxas.splitlines()
                     if line.strip()))
 
-    # K4 with its row stats keeps its own worst error: output, max and sum
-    worst = {name: 0.0 for name in (*KERNELS, "flash_attention[stats]")}
+    # the worst error of each kernel (its fp16 form apart, wkey); K4 with
+    # its row stats keeps its own: output, max and sum
+    worst = collections.defaultdict(float)
     check_opt_kernels(fa, device, worst)
     keep = check_t5_kernels(fa, device, worst)
     check_blocked_kernels(fa, device, worst)
@@ -1352,6 +1624,33 @@ def main() -> int:
                              OPT_TRAIN_KERNELS, tag="opt")
     step = check_train_step_fp32(cli, fa, device, tokenizer, OPT_TRAIN_ARGV,
                                  OPT_TRAIN_KERNELS, "opt")
+    micro = TRAIN_UPDATES   # micro-batches per update (4 x 4)
+
+    # phase 5c: float16 compute on the tensor-core bodies, end to end: one
+    # OPT-125M update and test batch; one T5-base update and test batch, and
+    # an eval-mode micro-step (K4 and K5 at the cross-attention)
+    fp16_opt = run_short(
+        cli, fa, device, OPT_FP16_ARGV, "opt fp16", OPT_TRAIN_KERNELS,
+        per_update={"flash_attention_allheads": OPT_LAYERS * micro,
+                    "flash_attention_allheads_bwd": OPT_LAYERS * micro,
+                    "fused_heads_attention": CLIP_LAYERS * micro},
+        per_eval={"flash_attention_allheads": OPT_LAYERS,
+                  "fused_heads_attention": CLIP_LAYERS})
+    with ShapeTally(fa) as fp16_shapes:
+        fp16_t5 = run_short(
+            cli, fa, device, T5_FP16_ARGV, "t5 fp16",
+            ("flash_attention_bias", "flash_attention_bias_bwd",
+             "flash_attention", "fused_heads_attention"),
+            per_update={"flash_attention_bias": 3 * T5_LAYERS * micro,
+                        "flash_attention_bias_bwd": 3 * T5_LAYERS * micro},
+            per_eval={"flash_attention_bias": 2 * T5_LAYERS,
+                      "flash_attention": T5_LAYERS},
+            per_generate={"flash_attention_bias": T5_LAYERS})
+        fp16_t5_step = eval_mode_step(
+            cli, fa, device, T5_FP16_ARGV, "t5 fp16",
+            {"flash_attention": T5_LAYERS, "flash_attention_bwd": T5_LAYERS,
+             "flash_attention_bias": 2 * T5_LAYERS,
+             "flash_attention_bias_bwd": 2 * T5_LAYERS})
 
     per_eval = {"flash_attention_bias": 2 * T5_LAYERS,
                 "flash_attention": T5_LAYERS,
@@ -1366,29 +1665,17 @@ def main() -> int:
                                 "t5")
     t5_tokenizer = t5_test.tokenizer
     del t5_test
-    micro = TRAIN_UPDATES   # micro-batches per update (4 x 4)
     per_update = {"flash_attention_bias": 3 * T5_LAYERS * micro,
                   "flash_attention_bias_bwd": 3 * T5_LAYERS * micro,
                   "flash_attention": 0, "flash_attention_bwd": 0}
-    # K8 and K9 are one wrapper: its launches are told apart by (Sq, Sk),
-    # counted where the launcher runs
-    bwd_shapes = {}
-    launch_bias_bwd = fa._launch_bias_bwd
-
-    def tallied(q, k, *a, **kw):
-        key = (q.shape[1], k.shape[1])
-        bwd_shapes[key] = bwd_shapes.get(key, 0) + 1
-        return launch_bias_bwd(q, k, *a, **kw)
-
-    fa._launch_bias_bwd = tallied
-    try:
-        with tempfile.TemporaryDirectory() as log_dir:
-            t5_train = run_training(
-                cli, fa, device, log_dir, T5_TRAIN_ARGV,
-                ("flash_attention_bias", "flash_attention_bias_bwd",
-                 "fused_heads_attention"), per_update, tag="t5")
-    finally:
-        fa._launch_bias_bwd = launch_bias_bwd
+    # K8 and K9 are one wrapper: its launches are told apart by (Sq, Sk)
+    with ShapeTally(fa) as t5_shapes, \
+            tempfile.TemporaryDirectory() as log_dir:
+        t5_train = run_training(
+            cli, fa, device, log_dir, T5_TRAIN_ARGV,
+            ("flash_attention_bias", "flash_attention_bias_bwd",
+             "fused_heads_attention"), per_update, tag="t5")
+    bwd_shapes = t5_shapes.bwd
     print(f"[t5 train] K8/K9 launches by (Sq, Sk): {bwd_shapes}")
     if sum(bwd_shapes.values()) != t5_train["launches"][
             "flash_attention_bias_bwd"]:
@@ -1430,6 +1717,67 @@ def main() -> int:
     if opt350["launches"]["flash_attention_allheads_bwd"]:
         fail("K3 launched in the OPT-350M run")
 
+    # phase 10: the embedding mode at full width, BASELINE config 2
+    emb_eval = {"flash_attention_allheads": ROBERTA_LAYERS,
+                "fused_heads_attention": CLIP_LAYERS,
+                "flash_attention_bias": 2 * T5_LAYERS,
+                "flash_attention": T5_LAYERS}
+    emb_gen = {"flash_attention_allheads": ROBERTA_LAYERS,
+               "fused_heads_attention": CLIP_LAYERS,
+               "flash_attention_bias": T5_LAYERS, "flash_attention": 0}
+    emb_kernels = ("flash_attention_allheads", "fused_heads_attention",
+                   "flash_attention_bias", "flash_attention")
+    emb_test, emb_results, emb_test_launches, emb_rate, emb_peak = \
+        run_test_pass(cli, fa, device, T5_EMB_TEST_ARGV, emb_kernels,
+                      emb_eval, emb_gen, tag="t5 emb")
+    emb_model = check_model_fp32(cli, fa, emb_test, device,
+                                 T5_EMB_TEST_ARGV, "t5 emb")
+    del emb_test
+    emb_update = {"flash_attention_allheads": ROBERTA_LAYERS * micro,
+                  "fused_heads_attention": CLIP_LAYERS * micro,
+                  "flash_attention_bias": 3 * T5_LAYERS * micro,
+                  "flash_attention_bias_bwd": 3 * T5_LAYERS * micro,
+                  "flash_attention_allheads_bwd": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0}
+    with ShapeTally(fa) as emb_shapes, \
+            tempfile.TemporaryDirectory() as log_dir:
+        emb_train = run_training(
+            cli, fa, device, log_dir, T5_EMB_TRAIN_ARGV,
+            ("flash_attention_allheads", "fused_heads_attention",
+             "flash_attention_bias", "flash_attention_bias_bwd"),
+            emb_update, tag="t5 emb", per_eval=emb_eval,
+            per_generate=emb_gen, gradless=GRADLESS)
+    print(f"[t5 emb train] K7 launches by (Sq, Sk): {emb_shapes.fwd}; "
+          f"K8/K9: {emb_shapes.bwd}")
+    if not emb_shapes.bwd.get((576, 576)) or not emb_shapes.fwd.get(
+            (576, 576)):
+        fail("K7 and K9 did not run at the 576-token encoder")
+    emb_step = eval_mode_step(
+        cli, fa, device, T5_EMB_TRAIN_ARGV, "t5 emb",
+        {"flash_attention": T5_LAYERS, "flash_attention_bwd": T5_LAYERS,
+         "flash_attention_bias": 2 * T5_LAYERS,
+         "flash_attention_bias_bwd": 2 * T5_LAYERS,
+         "flash_attention_allheads": ROBERTA_LAYERS,
+         "fused_heads_attention": CLIP_LAYERS,
+         "flash_attention_allheads_bwd": 0})
+
+    # phase 11: OPT-125M + Roberta + CLIP, context all, embedding, with the
+    # Laplacian and the GCN position encodings: one update and one test
+    # batch each, OPT at 640 + 64 = 704 tokens (K1/K3), its prefill at 576
+    graph = {}
+    for pt, argv in OPT_GRAPH_ARGV.items():
+        per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+               "fused_heads_attention": CLIP_LAYERS}
+        graph[pt] = run_short(
+            cli, fa, device, argv, f"opt {pt}",
+            ("flash_attention_allheads", "flash_attention_allheads_bwd",
+             "fused_heads_attention"),
+            per_update={k: v * micro for k, v in per.items()} | {
+                "flash_attention_allheads_bwd": OPT_LAYERS * micro,
+                "flash_attention": 0, "fused_heads_attention":
+                    CLIP_LAYERS * micro},
+            per_eval=per, per_generate=per)
+
     print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
         "test_loss": results["loss"], "launches": opt_test, "card": card}}))
@@ -1444,6 +1792,20 @@ def main() -> int:
                                       "card": card}}))
     print(json.dumps({"opt350m_training": {**opt350, "fp32_step": opt350_step,
                                            "card": card}}))
+    print(json.dumps({"fp16": {"opt": fp16_opt, "t5": fp16_t5,
+                               "t5_eval_mode_step": fp16_t5_step,
+                               "card": card}}))
+    print(json.dumps({"t5_embedding_test": {
+        "sections_per_s": emb_rate, "peak_bytes": emb_peak,
+        "test_loss": emb_results["loss"], "launches": emb_test_launches,
+        "fp32_eval": emb_model, "card": card}}))
+    print(json.dumps({"t5_embedding_training": {
+        **emb_train, "eval_mode_step": emb_step,
+        "k7_by_shape": {f"{a}x{b}": n for (a, b), n in emb_shapes.fwd.items()},
+        "k8_k9_by_shape": {f"{a}x{b}": n
+                           for (a, b), n in emb_shapes.bwd.items()},
+        "card": card}}))
+    print(json.dumps({"opt_graph": {**graph, "card": card}}))
 
     # each kernel's launches from the path that runs it: K1-K3 the OPT
     # training run, K4 the T5 test pass, K7/K8/K9 the T5 training run, K5
@@ -1463,6 +1825,24 @@ def main() -> int:
     launches["flash_attention[stats]"] = opt350["in_steps"]["flash_attention"]
     launches["flash_attention_blocked_bwd"] = opt350["launches"][
         "flash_attention_blocked_bwd"]
+    # the embedding slice: K1 at Roberta's shape (all of its K1 launches),
+    # K7 and K9 at the 576-token encoder, from its training run
+    launches["flash_attention_allheads[roberta]"] = emb_train["launches"][
+        "flash_attention_allheads"]
+    launches["flash_attention_bias[576]"] = emb_shapes.fwd[(576, 576)]
+    launches["flash_attention_bias_bwd[K9,576]"] = emb_shapes.bwd[(576, 576)]
+    # the fp16 forms: the fp16 runs of phase 5c (K6 and K4 with its stats
+    # run on OPT-350M's path only, in bf16)
+    fp16_runs = [fp16_opt["launches"], fp16_t5["launches"],
+                 {"step": fp16_t5_step["launches"]}]
+    for name in KERNELS:
+        launches[wkey(name, "float16")] = sum(
+            run[part][name] for run in fp16_runs for part in run)
+    fp16_k9 = fp16_shapes.bwd.get((512, 512), 0)
+    launches[wkey("flash_attention_bias_bwd[K9]", "float16")] = fp16_k9
+    launches[wkey("flash_attention_bias_bwd[K8]", "float16")] = sum(
+        fp16_shapes.bwd.values()) - fp16_k9
+    launches[wkey("flash_attention[stats]", "float16")] = 0
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():
@@ -1473,18 +1853,24 @@ def main() -> int:
             timed_label.setdefault(name, label)
     for name, label in timed_label.items():
         base = name.split("[")[0]
+        fp16 = name.endswith("[fp16]")
         _, replaces, source = KERNELS[base]
-        if name.endswith("[K9]"):
+        if "[K9" in name:
             replaces = f"{PALLAS}:984"
         _, times, bound, by = rows[label]
+        # the worst error over the kernel's phase-3 checks in its dtype (bf16
+        # and fp32 together, fp16 apart; K4 with its stats apart)
+        err = (name if name in worst else
+               wkey("flash_attention[stats]" if "[stats]" in name else base,
+                    "float16" if fp16 else "bfloat16"))
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": worst.get(name, worst[base]),
+            "max_abs_err": worst[err],
             "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
             "library_ms": times["library"], "shape": label,
-            # every timed case is bf16
+            "dtype": "float16" if fp16 else "bfloat16",
             "design": DESIGNS["bias_tc" if base in BIAS_KERNELS
                               else "tc"]})
     print(json.dumps({"kernels": entries}))
