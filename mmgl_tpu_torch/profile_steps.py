@@ -1,13 +1,16 @@
 """Time and trace the main path's steps on the card.
 
     python -m mmgl_tpu_torch.profile_steps [--decode] [--train]
-        [--model opt-125m|t5-base|opt-350m]
+        [--model opt-125m|t5-base|opt-350m] [--embedding]
 
 Both parts run at the full width of one of chip_smoke.py's paths: OPT-125M
 (the default), T5-base or OPT-350M at its 2048-token window (prompt 1920 +
 summary 128; run it under MMGL_BLOCKED_BWD=1 for K6, as chip_smoke.py's
 phase 9 does), with CLIP ViT-B/16, task=section, context=all,
-raw neighbours, bf16 compute, seeded random weights, the synthetic corpus. Batches are staged on the card
+raw neighbours, bf16 compute, seeded random weights, the synthetic corpus;
+with --embedding, context=section_all and the embedding neighbour mode
+(the frozen Roberta-base tower; with t5-base, BASELINE config 2, as
+chip_smoke.py's phase 10). Batches are staged on the card
 before anything is timed, except where the loader's batches are named.
 
 --decode  the test pass's batch of 4: the eval step, the prefill
@@ -76,8 +79,9 @@ KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
 
 # the tensor-core bodies (csrc/attention_fwd_tc.cuh, attention_bwd_tiles.cuh)
 # with their template arguments: the forward's <D, kStatsOnly, kWarps,
-# kStages, kMinBlocks, kBias, kDropout, TB>, the backward tiles' <D, kWarps,
-# kStages, kMinBlocks, kBias, kDropout, TB>
+# kStages, kMinBlocks, kBias, kDropout, TB, T>, the backward tiles' <D,
+# kWarps, kStages, kMinBlocks, kBias, kDropout, TB, T> (T, the element
+# type, bf16 or fp16)
 _TC_BODY = re.compile(r"attention_(fwd|bwd_dkdv|bwd_dq)_tc_kernel<([^>]*)>")
 
 
@@ -88,7 +92,8 @@ def _kind(name: str) -> str:
         # the bias form (kBias or kDropout) is K7's forward, and in its
         # stats-only form and the backward tiles K8/K9's (whose stats pass
         # without a bias is K5's code, counted there)
-        if "true" in args[-3:-1]:
+        flags = args[5:7] if body.group(1) == "fwd" else args[4:6]
+        if "true" in flags:
             return ("K7" if body.group(1) == "fwd" and args[1] == "false"
                     else "K8/K9")
     n = name.lower()
@@ -152,18 +157,21 @@ def _staged(batch: Dict, device) -> Dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def main_argv(model: str) -> List[str]:
-    return ["--model_name_or_path", model, "--task", "section", "--context",
-            "all", "--neighbor_mode", "raw", "--bf16", "true",
-            "--tokenizer_path", VOCAB[model], "--seed", "0", "--device",
-            "cuda"] + LENGTHS.get(model, [])
+def main_argv(model: str, embedding: bool = False) -> List[str]:
+    neighbors = (["--context", "section_all", "--neighbor_mode", "embedding",
+                  "--position_type", "none"] if embedding
+                 else ["--context", "all", "--neighbor_mode", "raw"])
+    return ["--model_name_or_path", model, "--task", "section", *neighbors,
+            "--bf16", "true", "--tokenizer_path", VOCAB[model], "--seed",
+            "0", "--device", "cuda"] + LENGTHS.get(model, [])
 
 
-def profile_decode(cli, device, model: str, rounds: int = 15) -> Dict:
+def profile_decode(cli, device, model: str, rounds: int = 15,
+                   embedding: bool = False) -> Dict:
     from mmgl_tpu_torch.train.generate import greedy_generate
 
-    args, _ = cli.parse_cli(main_argv(model) + ["--test", "true",
-                                    "--per_device_val_batch_size", "4"])
+    args, _ = cli.parse_cli(main_argv(model, embedding) + [
+        "--test", "true", "--per_device_val_batch_size", "4"])
     test = cli.prepare(args, device)
     batch = _staged(next(iter(test.loader)), device)
     steps = cli.MAX_NEW_TOKENS - 1
@@ -197,11 +205,12 @@ def profile_decode(cli, device, model: str, rounds: int = 15) -> Dict:
             "profile_prefill": prefill, "profile_generate": generate}
 
 
-def profile_train(cli, device, model_name: str) -> Dict:
+def profile_train(cli, device, model_name: str,
+                  embedding: bool = False) -> Dict:
     from mmgl_tpu_torch.train.optim import build_optimizer
     from mmgl_tpu_torch.train.steps import losses_of, make_train_step
 
-    args, _ = cli.parse_cli(main_argv(model_name) + [
+    args, _ = cli.parse_cli(main_argv(model_name, embedding) + [
         "--per_device_train_batch_size", "4", "--grad_accumulation_steps",
         "4"])
     tok, model, _, (train_ds, _, _) = cli._build(args, device)
@@ -261,6 +270,7 @@ def main(argv=None) -> int:
     parser.add_argument("--decode", action="store_true")
     parser.add_argument("--train", action="store_true")
     parser.add_argument("--model", default="opt-125m", choices=sorted(VOCAB))
+    parser.add_argument("--embedding", action="store_true")
     ns = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps: no CUDA device is visible")
@@ -271,7 +281,7 @@ def main(argv=None) -> int:
          "-i", "0"], capture_output=True, text=True, check=True).stdout.strip())
     device = torch.device("cuda", 0)
     if ns.decode:
-        got = profile_decode(cli, device, ns.model)
+        got = profile_decode(cli, device, ns.model, embedding=ns.embedding)
         print(f"[decode] median ms {got['median_ms']}, host CPU ms "
               f"{got['median_host_cpu_ms']}; one decode step "
               f"{got['decode_step_ms']:.4f} ms, host CPU "
@@ -280,9 +290,10 @@ def main(argv=None) -> int:
               f"share of generate {got['profile_generate']['idle_share']:.4f}"
               f" (of the median wall "
               f"{got['profile_generate']['idle_share_of_median_wall']:.4f})")
-        print(json.dumps({"decode": got, "model": ns.model}))
+        print(json.dumps({"decode": got, "model": ns.model,
+                          "embedding": ns.embedding}))
     if ns.train:
-        got = profile_train(cli, device, ns.model)
+        got = profile_train(cli, device, ns.model, embedding=ns.embedding)
         prof = got["profile_3_updates"]
         print(f"[train] update ms on loader batches {got['update_ms_loader']}"
               f", staged {got['update_ms_staged']}; host CPU ms "
@@ -291,7 +302,8 @@ def main(argv=None) -> int:
               f"{prof['wall_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms, idle "
               f"share {prof['idle_share']:.4f} (of the median staged wall "
               f"{prof['idle_share_of_median_wall']:.4f})")
-        print(json.dumps({"train": got, "model": ns.model}))
+        print(json.dumps({"train": got, "model": ns.model,
+                          "embedding": ns.embedding}))
     return 0
 
 

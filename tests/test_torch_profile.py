@@ -58,6 +58,17 @@ def test_kernel_kinds():
      "__nv_bfloat16>", "K8/K9"),
     ("attention_bwd_dkdv_tc_kernel<64, 4, 2, 3, true, true, "
      "__nv_bfloat16>", "K8/K9"),
+    # with the element type last (bf16 or fp16)
+    ("attention_fwd_tc_kernel<64, false, 4, 2, 3, false, false, __half, "
+     "__half>", "K1+K2+K4"),
+    ("attention_fwd_tc_kernel<64, false, 4, 2, 3, true, false, float, "
+     "__half>", "K7"),
+    ("attention_fwd_tc_kernel<64, true, 4, 2, 3, true, false, "
+     "__nv_bfloat16, __nv_bfloat16>", "K8/K9"),
+    ("attention_bwd_dq_tc_kernel<64, 4, 2, 3, false, false, __half, "
+     "__half>", "K3+K5+K6"),
+    ("attention_bwd_dkdv_tc_kernel<64, 4, 2, 3, true, false, float, "
+     "__half>", "K8/K9"),
 ])
 def test_tensor_core_body_kinds(name, kind):
     """The tensor-core bodies are told apart by their template flags: the
