@@ -88,10 +88,10 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
     cross-attention memory, PEFT, and (FusionConfig) the CLIP text tower."""
     name = args.model_name_or_path or "opt-tiny"
     tiny = "tiny" in name
-    if "mpt" in name or args.neighbor_mode == "cross_attention":
-        # the shared flag parser turns --neighbor_mode cross_attention into
-        # the embedding mode's batches (config.py); only MPT consumes them
-        # as cross-attention memory (mmgl_tpu/models/fusion.py:58-62)
+    if "mpt" in name:
+        # the flag parser turns --neighbor_mode cross_attention into the
+        # embedding mode's batches (config.py); only MPT consumes them as
+        # cross-attention memory (mmgl_tpu/models/fusion.py:58-62)
         raise NotImplementedError(
             f"{name}, neighbor_mode={args.neighbor_mode!r}: MPT's gated "
             "cross-attention is not ported yet (ROADMAP A7)")

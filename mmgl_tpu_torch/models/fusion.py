@@ -22,7 +22,8 @@ embedding neighbor modes, all four contexts:
 The towers run without autograd (``stop_gradient`` at
 mmgl_tpu/models/fusion.py:176-193): the text tower's stop sits after
 ``text_pooler``, so the pooler is trainable but gets no gradient (the
-train step gives such a parameter a zero one, as jax.grad does). The
+train step gives such a parameter, named in ``gradless_prefixes``, a zero
+one, as jax.grad does, and raises for any other without a gradient). The
 projections, position tables, ``lpe_embeddings`` and ``gnn`` train. T5's
 labels are the summary alone and are left as they are (fusion.py:308).
 Cross-attention mode, MPT, the CLIP text tower and PEFT are refused at
@@ -142,6 +143,10 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
 
 
 class MMGLModel(nn.Module):
+    # trainable parameters behind the text tower's stop_gradient: the train
+    # step gives these, and only these, a zero gradient
+    gradless_prefixes = ("text_pooler.",)
+
     def __init__(self, cfg: FusionConfig):
         super().__init__()
         self.config = cfg

@@ -44,6 +44,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     optimizer's parameters are the trainable set."""
     accum = max(1, grad_accumulation_steps)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    names = {id(p): n for n, p in model.named_parameters()}
+    gradless = getattr(model, "gradless_prefixes", ())
 
     def step(batch: Dict, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
@@ -63,9 +65,15 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
             sums = sums + torch.stack([loss.detach(), s_loss.detach()])
         for p in params:
             if p.grad is None:
-                # a trainable parameter off the gradient path (the text
-                # pooler, behind the text tower's stop_gradient) gets a
-                # zero gradient, as from jax.grad: AdamW still decays it
+                # a trainable parameter the model declares off the gradient
+                # path (the text pooler, behind the text tower's
+                # stop_gradient) gets a zero gradient, as from jax.grad:
+                # AdamW still decays it. Any other is cut off by mistake.
+                name = names.get(id(p), "")
+                if not name.startswith(gradless):
+                    raise RuntimeError(
+                        f"the trainable parameter {name or tuple(p.shape)} "
+                        "got no gradient")
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if accum > 1:

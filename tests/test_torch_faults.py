@@ -12,6 +12,9 @@ B4: a head dim the kernels do not take (OPT-2.7B's 80, 6.7B's 128) is
 refused on a CUDA device before the model is built.
 What the port leaves out raises NotImplementedError naming its ROADMAP
 item: the CLIP text tower, MPT's cross-attention memory.
+The train step gives a zero gradient only to the parameters the model
+declares behind a stop_gradient (the text pooler), and raises for any other
+trainable parameter cut off from the loss.
 """
 
 import pytest
@@ -21,7 +24,8 @@ from mmgl_tpu_torch import cli
 from mmgl_tpu_torch.models import factory
 from mmgl_tpu_torch.models.factory import build_model
 from mmgl_tpu_torch.ops import flash_attention as fa
-from mmgl_tpu_torch.train.steps import losses_of
+from mmgl_tpu_torch.train.optim import build_optimizer
+from mmgl_tpu_torch.train.steps import losses_of, make_train_step
 from mmgl_tpu_torch.utils.tokenizer import ByteTokenizer
 
 # every launcher of the kernel wrappers
@@ -190,3 +194,36 @@ def test_what_the_slice_leaves_out_raises_naming_its_item(extra, item):
                              "embedding", "--device", "cpu", *extra])
     with pytest.raises(NotImplementedError, match=item):
         build_model(args, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("cut", [False, True])
+def test_train_step_raises_for_a_parameter_cut_off_from_the_loss(cut):
+    """One update of t5-tiny in the embedding mode: the text pooler, behind
+    the text tower's stop_gradient, gets a zero gradient and the step runs;
+    with the text projection's output detached (a wiring fault), its
+    weights get no gradient and the step raises naming them."""
+    args, _ = cli.parse_cli([
+        "--model_name_or_path", "t5-tiny", "--task", "section", "--context",
+        "section_all", "--neighbor_mode", "embedding", "--max_input_length",
+        "32", "--max_output_length", "16", "--max_text_neighbors", "2",
+        "--max_image_neighbors", "1", "--n_text_tokens", "2",
+        "--n_visual_tokens", "2", "--seed", "0", "--device", "cpu"])
+    args.decoder_only = False
+    tok = ByteTokenizer()
+    model, _ = build_model(args, torch.device("cpu"),
+                           vocab_size=tok.vocab_size, tokenizer=tok)
+    assert model.gradless_prefixes == ("text_pooler.",)
+    if cut:
+        project = model.project_text
+        model.project_text = lambda *a, **kw: project(*a, **kw).detach()
+    train_ds = cli.setup_data(args, tok)[0]
+    batch = next(iter(cli.PrefetchLoader(train_ds, batch_size=2,
+                                         num_workers=1)))
+    opt, sched = build_optimizer(args, model)
+    step = make_train_step(model, opt, sched, False, args.max_input_length,
+                           tok.pad_token_id)
+    if cut:
+        with pytest.raises(RuntimeError, match="text_embeddings.weight"):
+            step(batch)
+    else:
+        assert torch.isfinite(step(batch)["grad_norm"])
