@@ -31,10 +31,12 @@ imports no JAX. Phases, each fatal on failure:
      losses and gradient norms be finite, every trainable tensor move and
      no tower tensor. Then one fp32 micro-step on the card against the CPU;
      5c. float16 compute end to end (--compute_dtype float16, fp32
-     parameters): one OPT-125M update (4 x 4) and one test batch, one
-     T5-base update and test batch, and a T5-base eval-mode micro-step (K4
-     and K5): losses and gradient norms finite, every launch on the
-     tensor-core body;
+     parameters) through the CLI: OPT-125M and T5-base, one update of 4 x
+     4 each, a val batch before and after it, the best checkpoint and a
+     test batch on it restored; the checks of phase 5. Then a T5-base
+     float16 micro-step in eval mode (K4 and K5 at the cross-attention),
+     every launch in it held against its plain version on the same inputs
+     at phase 3's tolerance;
   6. the T5-base + CLIP test pass through the CLI (batch 4, 4 batches):
      every eval step launches K7 24 times (12 encoder, 12 decoder
      self-attention) and K4 12 times (cross), every generated batch K7 12
@@ -62,7 +64,10 @@ imports no JAX. Phases, each fatal on failure:
      micro-batches) and K1, K3 and K5 none; every eval step and every
      generated batch (its 1920-token prefill) K4 24 times; the checks of
      phase 5. Then one sample's fp32 micro-step in eval mode, K4 and K6
-     against the plain versions on the card (the CPU would take too long);
+     against the plain versions on the card (the CPU would take too long).
+     Then the same training in float16, one update (the short run of 5c).
+     K4 keeps its row stats in every launch inside the training steps, in
+     bf16 and fp16 alike, and in no other (counted where it launches);
  10. the embedding mode at full width, BASELINE config 2: T5-base +
      Roberta-base + CLIP ViT-B/16, context section_all, 11 neighbor texts x
      512 tokens and 5 neighbor images a sample, 4 soft tokens each,
@@ -74,15 +79,17 @@ imports no JAX. Phases, each fatal on failure:
      every update launches K1 and K2 48 times, K7 and K8/K9 144 (K9 at
      576 x 576), K3 none (Roberta runs without autograd); the checks of
      phase 5 (the text pooler, behind the text tower's stop_gradient, is
-     trainable with a zero gradient and may stay). Then a bf16 eval-mode
-     micro-step, where the cross-attention takes K4 and K5;
+     trainable with a zero gradient and may stay). Then a bf16 micro-step
+     in eval mode, where the cross-attention takes K4 and K5 (128 x 576)
+     and the encoder K7 and K9 (576 x 576), each launch held against its
+     plain version as in 5c;
  11. OPT-125M + Roberta-base + CLIP, context all, embedding, once with the
-     Laplacian and once with the GCN position encoding: one update and one
-     test batch each; OPT's 640 + 64 = 704 tokens take K1 and K3, its
-     576-token prefill K1. (In training OPT's soft tokens sit after the
+     Laplacian and once with the GCN position encoding, each the short run
+     of 5c through the CLI; OPT's 640 + 64 = 704 tokens take K1 and K3,
+     its 576-token prefill K1. (In training OPT's soft tokens sit after the
      summary, where the causal mask hides them from every labeled token, as
      in the JAX package: the encodings and projections get a zero gradient
-     there and act in the prefill that generation starts from.)
+     there, may stay, and act in the prefill that generation starts from.)
 
 Phase 3 also holds K4 with its row stats and K6 against their plain
 versions at OPT-350M's shape with a pad hole and with a fully masked
@@ -165,20 +172,30 @@ EMBEDDING = dict(context="section_all", neighbor_mode="embedding",
                  max_output_length=128)
 T5_EMB_TEST_ARGV = with_flags(T5_TEST_ARGV, **EMBEDDING)
 T5_EMB_TRAIN_ARGV = with_flags(T5_TRAIN_ARGV, **EMBEDDING)
+# a short run through the CLI: one update of 4 x 4 micro-batches, one val
+# batch before and after it, one test batch
+SHORT = dict(steps_per_epoch=4, val_steps_per_epoch=1)
 # the graph paths: OPT-125M + Roberta-base + CLIP, context all, embedding,
 # with the Laplacian or the GCN position encoding (640 + 64 = 704 tokens)
 OPT_GRAPH_ARGV = {pt: with_flags(OPT_TRAIN_ARGV, context="all",
-                                 neighbor_mode="embedding", position_type=pt)
+                                 neighbor_mode="embedding", position_type=pt,
+                                 **SHORT)
                   for pt in ("laplacian", "gnn")}
+# in OPT's training the soft tokens sit after the summary, where the causal
+# mask hides them from every labeled token: their projections, position
+# tables and encodings get a zero gradient (and the pooler none)
+OPT_GRAPH_IDLE = ("text_embeddings.", "text_position_embeddings.",
+                  "visual_embeddings.", "visual_position_embeddings.",
+                  "lpe_embeddings.", "gnn.")
 # float16 compute (fp32 parameters) on the tensor-core bodies
-OPT_FP16_ARGV = with_flags(OPT_TRAIN_ARGV, compute_dtype="float16")
-T5_FP16_ARGV = with_flags(T5_TRAIN_ARGV, compute_dtype="float16")
+OPT_FP16_ARGV = with_flags(OPT_TRAIN_ARGV, compute_dtype="float16", **SHORT)
+T5_FP16_ARGV = with_flags(T5_TRAIN_ARGV, compute_dtype="float16", **SHORT)
+OPT350_FP16_ARGV = with_flags(OPT350_TRAIN_ARGV, compute_dtype="float16",
+                              **SHORT)
 EMB_TEXTS = 11 * 4          # Roberta's sequences a micro-batch of 4
 EMB_IMAGES = 5 * 4          # CLIP's images a micro-batch of 4
-# the frozen towers' parameter prefixes, and the trainable text pooler that
-# sits behind the text tower's stop_gradient (a zero gradient)
+# the frozen towers' parameter prefixes
 TOWERS = ("visual_model.", "text_model.")
-GRADLESS = ("text_pooler.",)
 
 FWD_SOURCE = "mmgl_tpu_torch/csrc/attention_fwd.cu"
 BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bwd.cu"
@@ -740,13 +757,13 @@ def check_dropout_mask(fa, dims, device, dtype) -> float:
 
 
 class ShapeTally:
-    """K7's and K8/K9's launches by (Sq, Sk) inside a ``with`` block,
-    counted where their launchers run (K8 and K9 are one wrapper, told
-    apart by shape)."""
+    """K7's and K8/K9's launches by (Sq, Sk), and K4's launches that keep
+    the rows' stats by dtype name, inside a ``with`` block, counted where
+    their launchers run (K8 and K9 are one wrapper, told apart by shape)."""
 
     def __init__(self, fa):
         self.fa = fa
-        self.fwd, self.bwd = {}, {}
+        self.fwd, self.bwd, self.stats = {}, {}, {}
 
     def _wrap(self, fn, table):
         def tallied(q, k, *a, **kw):
@@ -755,14 +772,118 @@ class ShapeTally:
             return fn(q, k, *a, **kw)
         return tallied
 
+    def _wrap_stats(self, fn):
+        def tallied(entry, name, q, *a, stats=(), **kw):
+            if name == "flash_attention" and any(
+                    t is not None for t in stats):
+                key = str(q.dtype).removeprefix("torch.")
+                self.stats[key] = self.stats.get(key, 0) + 1
+            return fn(entry, name, q, *a, stats=stats, **kw)
+        return tallied
+
     def __enter__(self):
-        self.saved = (self.fa._launch_bias, self.fa._launch_bias_bwd)
+        self.saved = (self.fa._launch_bias, self.fa._launch_bias_bwd,
+                      self.fa._launch)
         self.fa._launch_bias = self._wrap(self.saved[0], self.fwd)
         self.fa._launch_bias_bwd = self._wrap(self.saved[1], self.bwd)
+        self.fa._launch = self._wrap_stats(self.saved[2])
         return self
 
     def __exit__(self, *exc):
-        self.fa._launch_bias, self.fa._launch_bias_bwd = self.saved
+        (self.fa._launch_bias, self.fa._launch_bias_bwd,
+         self.fa._launch) = self.saved
+        return False
+
+
+class PlainCheck:
+    """Inside a ``with`` block, every launch of K1-K5 and K7-K9 held
+    against its plain version on the same inputs, at phase 3's tolerances
+    for its dtype: the values a model's step gives the kernels, where phase
+    3 gives random ones. Counted where the launchers run; the worst error
+    of each kernel kept under ``worst``, the calls under ``calls``."""
+
+    LAUNCHERS = ("_launch", "_launch_bwd", "_launch_bias", "_launch_bias_bwd")
+
+    def __init__(self, fa, tag):
+        self.fa, self.tag = fa, tag
+        self.worst, self.calls = collections.defaultdict(float), 0
+
+    def _forward(self, name, got, ref, label):
+        atol, rtol = TOLERANCES[str(got.dtype).removeprefix("torch.")]
+        err = float((got.float() - ref.float()).abs().max())
+        self.worst[name] = max(self.worst[name], err)
+        self.calls += 1
+        if not _within(got, ref, atol, rtol):
+            fail(f"{self.tag}: {name} {label} is {err:.3e} from its plain "
+                 f"version on the same inputs (atol {atol:g}, rtol {rtol:g})")
+
+    def _backward(self, name, got, ref, label):
+        dtype_name = str(got[0].dtype).removeprefix("torch.")
+        worst = collections.defaultdict(float)
+        _grads_within(name, got, ref, dtype_name, f"{self.tag} {label}",
+                      worst)
+        self.worst[name] = max(self.worst[name], *worst.values())
+        self.calls += 1
+
+    def __enter__(self):
+        fa = self.fa
+        saved = self.saved = {n: getattr(fa, n) for n in self.LAUNCHERS}
+
+        def launch(entry, name, q, k, v, kv_mask, causal, scale, *shape,
+                   stats=()):
+            out = saved["_launch"](entry, name, q, k, v, kv_mask, causal,
+                                   scale, *shape, stats=stats)
+            ref = getattr(fa, KERNELS[name][0])(q, k, v, kv_mask=kv_mask,
+                                                causal=causal, scale=scale)
+            self._forward(name, out, ref, tuple(q.shape))
+            return out
+
+        def launch_bwd(entry, name, q, k, v, kv_mask, out, dout, causal,
+                       scale):
+            got = saved["_launch_bwd"](entry, name, q, k, v, kv_mask, out,
+                                       dout, causal, scale)
+            ref = getattr(fa, KERNELS[name][0])(q, k, v, kv_mask, out, dout,
+                                                causal=causal, scale=scale)
+            self._backward(name, got, ref, tuple(q.shape))
+            return got
+
+        def launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
+                        keep_inv, *stats):
+            if thr:
+                fail(f"{self.tag}: K7 with dropout in a checked step")
+            out = saved["_launch_bias"](q, k, v, kv_mask, bias, seed, causal,
+                                        scale, thr, keep_inv, *stats)
+            ref = fa.bias_attention_reference(
+                q, k, v, bias=None if bias is None else bias[None],
+                kv_mask=kv_mask, causal=causal, scale=scale)
+            self._forward("flash_attention_bias", out, ref,
+                          (tuple(q.shape), tuple(k.shape)))
+            return out
+
+        def launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal,
+                            scale, thr, keep_inv, *stats):
+            if thr:
+                fail(f"{self.tag}: K8/K9 with dropout in a checked step")
+            got = saved["_launch_bias_bwd"](q, k, v, kv_mask, bias, seed,
+                                            out, dout, causal, scale, thr,
+                                            keep_inv, *stats)
+            ref = list(fa.bias_attention_bwd_reference(
+                q, k, v, kv_mask, None if bias is None else bias[None], out,
+                dout, causal=causal, scale=scale))
+            if ref[3] is not None:
+                ref[3] = ref[3][0]
+            self._backward("flash_attention_bias_bwd", got, ref,
+                           (tuple(q.shape), tuple(k.shape)))
+            return got
+
+        for name, fn in zip(self.LAUNCHERS, (launch, launch_bwd, launch_bias,
+                                             launch_bias_bwd)):
+            setattr(fa, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.fa, name, fn)
         return False
 
 
@@ -889,14 +1010,16 @@ def check_model_fp32(cli, fa, test, device, argv, tag):
 
 def run_training(cli, fa, device, log_dir: str, argv, kernels,
                  per_update=None, tag="opt", per_eval=None,
-                 per_generate=None, gradless=()):
-    """Phases 5, 7, 9 and 10: the training run at full width through the
-    entry point; ``kernels`` must launch inside the training steps, exactly
-    ``per_update`` times in each update where given, and ``per_eval`` /
-    ``per_generate`` times in each eval step (val and test) / generated
-    batch. Every trainable tensor must move but those under the prefixes
-    ``gradless`` (the text pooler, behind the text tower's stop_gradient:
-    trainable, with a zero gradient), and no tower tensor.
+                 per_generate=None, updates=TRAIN_UPDATES, idle=()):
+    """Phases 5, 5c, 7, 9, 10 and 11: the training run at full width
+    through the entry point, ``updates`` updates; ``kernels`` must launch
+    inside the training steps, exactly ``per_update`` times in each update
+    where given, and ``per_eval`` / ``per_generate`` times in each eval step
+    (val and test) / generated batch, every launch on the tensor-core body.
+    Every trainable tensor must move but those under the model's
+    ``gradless_prefixes`` (the text pooler, behind the text tower's
+    stop_gradient: trainable, with a zero gradient) and the prefixes
+    ``idle`` (a zero gradient by the layout), and no tower tensor.
 
     The CLI's model factory, train step, eval setup and checkpoint restore
     are wrapped here, not changed: the wrappers snapshot the weights, time
@@ -987,8 +1110,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
               f"{st['launches']}")
     print(f"[{tag} train] launches in the run {launches}, inside the "
           f"training steps {in_steps}")
-    if len(steps) != TRAIN_UPDATES or results["train_updates"] != len(steps):
-        fail(f"{len(steps)} training updates, expected {TRAIN_UPDATES}")
+    if len(steps) != updates or results["train_updates"] != len(steps):
+        fail(f"{len(steps)} training updates, expected {updates}")
     for name in kernels:
         if launches[name] <= 0 or in_steps[name] <= 0:
             fail(f"{name} was not launched inside the {tag} training steps")
@@ -1016,7 +1139,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     params = dict(model.named_parameters())
     still = [n for n in trainable if torch.equal(params[n], before[n])]
     moved = [n for n in frozen if not torch.equal(params[n], before[n])]
-    off_path = [n for n in trainable if gradless and n.startswith(gradless)]
+    off = tuple(getattr(model, "gradless_prefixes", ())) + tuple(idle)
+    off_path = [n for n in trainable if off and n.startswith(off)]
     print(f"[{tag} train] {len(trainable) - len(still)} of {len(trainable)} "
           f"trainable tensors moved; {len(moved)} of {len(frozen)} frozen "
           f"(tower) tensors moved"
@@ -1042,12 +1166,15 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
           f"({len(saved)} tensors, no tower) restored for the test pass")
 
     timed = steps[1:]                       # the first update is the warm-up
-    rate = sum(s["sections"] for s in timed) / sum(s["seconds"] for s in timed)
-    print(f"[{tag} train] {rate:.3f} sections/s over {len(timed)} updates of "
-          f"{timed[0]['sections']} sections after one warm-up update "
-          f"(update seconds {[round(s['seconds'], 4) for s in steps]}; the "
-          f"loop's own examples/s {[round(r, 3) for r in seen['rates']]}); "
-          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    rate = (sum(s["sections"] for s in timed)
+            / sum(s["seconds"] for s in timed)) if timed else None
+    print(f"[{tag} train] "
+          + (f"{rate:.3f} sections/s over {len(timed)} updates of "
+             f"{timed[0]['sections']} sections after one warm-up update"
+             if timed else "one update, no rate")
+          + f" (update seconds {[round(s['seconds'], 4) for s in steps]}; "
+          f"the loop's own examples/s {[round(r, 3) for r in seen['rates']]}"
+          f"); peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
     return {"sections_per_s": rate, "peak_bytes": peak,
             "launches": launches, "in_steps": in_steps,
             "launches_tc": {n: c[1] for n, c in bodies.items()},
@@ -1057,57 +1184,101 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
             "test_loss": results["loss"]}
 
 
-def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
-                          tol=STEP_TOL, plain_on_card=False, on_cpu=True):
-    """Phases 5b, 7b and 9b: one fp32 training micro-step (loss, backward)
-    of one sample on the card against the same seeded model on the CPU,
+def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
+                     plain_on_card=False, on_cpu=True, half=False,
+                     per_step=None):
+    """Phases 5b, 5c, 7b, 9b and 10c: one training micro-step (loss,
+    backward) of one sample in eval mode (no dropout) on the card;
+    ``kernels`` must launch in it, exactly ``per_step`` times where given.
+
+    fp32 (the scalar bodies): held against the same seeded model on the CPU
     within ``tol`` = (loss atol, gradient-norm rtol, largest gradient error
-    as a fraction of the largest gradient). Eval mode: the two devices'
-    dropout streams differ. ``kernels`` must launch in the card's step.
-    With ``plain_on_card`` the step also runs on the card through the plain
-    versions, and the kernels' gradient error against the CPU may be at
-    most twice the plain versions' (the same sums in another order); without
-    ``on_cpu`` the plain versions on the card are the reference. Returns the
-    card step's launches and the errors."""
+    as a fraction of the largest gradient). With ``plain_on_card`` the step
+    also runs on the card through the plain versions, and the kernels'
+    gradient error against the CPU may be at most twice the plain versions'
+    (the same sums in another order); without ``on_cpu`` the plain versions
+    on the card are the reference.
+
+    ``half``: the compute dtype of ``argv`` (bf16 or fp16, the tensor-core
+    bodies), and every kernel launch in the step held against its plain
+    version on the same inputs (PlainCheck); the step itself must be
+    finite. A whole half-precision step of a random-init T5 is no check of
+    its kernels: the step through the plain versions, in the same dtype,
+    is itself far from the fp32 step (its gradient norm by several percent,
+    more than the kernels' rounding moves it), so each launch is compared
+    where its inputs are the same.
+
+    Returns the card step's launches and the errors."""
+    import contextlib
+
     import torch
     from mmgl_tpu_torch.models.factory import build_model
     from mmgl_tpu_torch.train.steps import losses_of
 
-    args, _ = cli.parse_cli(argv + ["--bf16", "false"])
+    args, _ = cli.parse_cli(argv if half else argv + ["--bf16", "false"])
     args.decoder_only = "t5" not in args.model_name_or_path
+    tokenizer = cli.get_tokenizer(args.tokenizer_path)
     train_ds = cli.setup_data(args, tokenizer)[0]
     batch = next(iter(cli.PrefetchLoader(train_ds, batch_size=1,
                                          num_workers=1)))
     runs = [("card", device, False)]
-    if plain_on_card:
+    if plain_on_card and not half:
         runs.append(("card_plain", device, True))
-    if on_cpu:
+    if on_cpu and not half:
         runs.append(("cpu", torch.device("cpu"), True))
     ref = runs[-1][0]
     out, launches = {}, {}
     plain = fa._plain
+    check = PlainCheck(fa, f"{tag} step")
     try:
         for which, dev, use_plain in runs:
             fa._plain = (lambda q: True) if use_plain else plain
             model, _ = build_model(args, dev, vocab_size=tokenizer.vocab_size,
                                    tokenizer=tokenizer)
             reset_launches(fa)
-            fused = model.eval()(batch)
-            loss, _ = losses_of(fused, args.decoder_only,
-                                args.max_input_length, tokenizer.pad_token_id)
-            loss.backward()
+            with check if half else contextlib.nullcontext():
+                fused = model.eval()(batch)
+                loss, _ = losses_of(fused, args.decoder_only,
+                                    args.max_input_length,
+                                    tokenizer.pad_token_id)
+                loss.backward()
             if which == "card":
                 torch.cuda.synchronize(dev)
                 launches = {n: getattr(fa, n).launches for n in KERNELS}
-                check_bodies(fa, f"{tag} step fp32", bf16=False)
-            grads = {n: p.grad.detach().cpu()
-                     for n, p in model.named_parameters() if p.requires_grad}
+                check_bodies(fa, f"{tag} step {'half' if half else 'fp32'}",
+                             bf16=half)
+            grads = {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()
+                     if p.requires_grad and p.grad is not None}
             norm = math.sqrt(sum(float(g.double().pow(2).sum())
                                  for g in grads.values()))
             out[which] = (float(loss.detach()), norm, grads)
             del model, fused, loss
     finally:
         fa._plain = plain
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"{name} was not launched in the {tag} micro-step")
+    if per_step is not None and {n: launches[n] for n in per_step} \
+            != per_step:
+        fail(f"the {tag} micro-step launched {launches}, expected "
+             f"{per_step}")
+    loss_c, norm_c, _ = out["card"]
+    if half:
+        print(f"[{tag} step] half-precision training micro-step, one "
+              f"sample: loss {loss_c:.7f}, grad_norm {norm_c:.6f}; "
+              f"{check.calls} launches each within phase 3's tolerance of "
+              f"its plain version on the same inputs, worst "
+              f"{dict(check.worst)}; card launches {launches}")
+        if not (math.isfinite(loss_c) and math.isfinite(norm_c)):
+            fail(f"the {tag} half-precision micro-step is not finite")
+        if check.calls != sum(launches.values()):
+            fail(f"{tag}: {check.calls} launches checked of "
+                 f"{sum(launches.values())}")
+        return {"loss": loss_c, "grad_norm": norm_c,
+                "checked_launches": check.calls,
+                "max_abs_err_vs_plain": dict(check.worst),
+                "launches": launches}
     loss_h, norm_h, g_h = out[ref]
     scale = max(float(g.abs().max()) for g in g_h.values())
     errs = {}
@@ -1122,7 +1293,6 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
               f"grad_norm {out[which][1]:.6f} vs {norm_h:.6f}; max abs grad "
               f"err {per[worst]:.3e} (in {worst}) of max |grad| {scale:.3e} "
               f"over {len(g_h)} tensors")
-    loss_c, norm_c, _ = out["card"]
     loss_atol, norm_rtol, grad_tol = tol
     print(f"[{tag} step] tolerance: loss atol {loss_atol:g}, norm rtol "
           f"{norm_rtol:g}, grad err <= {grad_tol:g} x max |grad|"
@@ -1135,129 +1305,10 @@ def check_train_step_fp32(cli, fa, device, tokenizer, argv, kernels, tag,
             and errs["card"] <= 2 * errs.get("card_plain", math.inf)):
         fail(f"the fp32 {tag} training step on the card disagrees with the "
              "CPU")
-    for name in kernels:
-        if launches[name] <= 0:
-            fail(f"{name} was not launched in the {tag} fp32 micro-step")
     return {"reference": ref, "loss": [loss_c, loss_h],
             "grad_norm": [norm_c, norm_h],
             "max_abs_grad_err": errs, "max_abs_grad": scale,
             "launches": launches}
-
-
-def run_short(cli, fa, device, argv, tag, kernels, per_update=None,
-              per_eval=None, per_generate=None):
-    """Phases 5c and 11: one training update (4 x 4 micro-batches, dropout
-    on) and one test batch (the eval step and greedy decode of 32 tokens)
-    at full width, through the CLI's model factory, data, train step and
-    generate: losses and gradient norm finite, every launch on the
-    tensor-core body, each of ``kernels`` launched, exactly ``per_update``
-    / ``per_eval`` / ``per_generate`` times where given, and the generated
-    ids inside the vocabulary. The counts are set to 0 just before each of the three and read just
-    after. Returns a summary."""
-    import torch
-    from mmgl_tpu_torch.train.generate import greedy_generate
-    from mmgl_tpu_torch.train.optim import build_optimizer
-    from mmgl_tpu_torch.train.steps import make_eval_step, make_train_step
-
-    args, dev = cli.parse_cli(argv)
-    tokenizer, model, fcfg, (train_ds, _, test_ds) = cli._build(args, dev)
-    accum = args.grad_accumulation_steps
-    batch = next(iter(cli.PrefetchLoader(
-        train_ds, batch_size=args.per_device_train_batch_size * accum,
-        num_workers=1)))
-    test_batch = next(iter(cli.PrefetchLoader(
-        test_ds, batch_size=args.per_device_val_batch_size, num_workers=1)))
-    opt, sched = build_optimizer(args, model)
-    step = make_train_step(model, opt, sched, args.decoder_only,
-                           args.max_input_length, tokenizer.pad_token_id,
-                           accum, args.grad_clip)
-    eval_step = make_eval_step(model, args.decoder_only,
-                               args.max_input_length, tokenizer.pad_token_id)
-
-    def counted(fn, what):
-        torch.cuda.synchronize(dev)
-        reset_launches(fa)
-        start = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize(dev)
-        seconds = time.perf_counter() - start
-        check_bodies(fa, f"{tag} {what}", bf16=True)
-        return out, {n: getattr(fa, n).launches for n in KERNELS}, seconds
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    metrics, upd, upd_s = counted(
-        lambda: step(batch, cli.dropout_generator(args.seed or 0, 0, dev)),
-        "update")
-    peak = torch.cuda.max_memory_allocated(dev)
-    ev, evl, ev_s = counted(lambda: eval_step(test_batch), "eval step")
-    ids, gen, gen_s = counted(
-        lambda: greedy_generate(model, test_batch, cli.MAX_NEW_TOKENS),
-        "generated batch")
-    values = {"loss": float(metrics["loss"]),
-              "grad_norm": float(metrics["grad_norm"]),
-              "eval_loss": float(ev["loss"])}
-    vocab = (fcfg.opt or fcfg.t5).vocab_size
-    print(f"[{tag}] update {values} in {upd_s:.4f} s, peak device memory "
-          f"{peak} bytes ({peak / 2**30:.3f} GiB); launches {upd}; eval "
-          f"step {ev_s:.4f} s, launches {evl}; generated batch "
-          f"{tuple(ids.shape)} {gen_s:.4f} s, launches {gen}")
-    if not all(math.isfinite(v) for v in values.values()):
-        fail(f"{tag}: a loss or gradient norm is not finite: {values}")
-    if tuple(ids.shape) != (args.per_device_val_batch_size,
-                            cli.MAX_NEW_TOKENS) or not bool(
-                                ((ids >= 0) & (ids < vocab)).all()):
-        fail(f"{tag}: generated ids of shape {tuple(ids.shape)} or outside "
-             "the vocabulary")
-    for name in kernels:
-        if upd[name] + evl[name] + gen[name] <= 0:
-            fail(f"{name} was not launched in the {tag} run")
-    for want, got, what in ((per_update, upd, "update"),
-                            (per_eval, evl, "eval step"),
-                            (per_generate, gen, "generated batch")):
-        if want is not None and {n: got[n] for n in want} != want:
-            fail(f"the {tag} {what} launched {got}, expected {want}")
-    del model, opt
-    torch.cuda.empty_cache()
-    return {**values, "update_seconds": upd_s, "peak_bytes": peak,
-            "launches": {"update": upd, "eval_step": evl,
-                         "generated_batch": gen}}
-
-
-def eval_mode_step(cli, fa, device, argv, tag, per_step):
-    """Phase 10c: one bf16 micro-step (forward and backward of a micro-batch
-    of 4) in eval mode, so without dropout: T5's cross-attention then takes
-    K4, and its gradient K5, as in PR 3's T5 fp32 step. Every launch on the
-    tensor-core body, exactly ``per_step`` where given; gradients finite."""
-    import torch
-    from mmgl_tpu_torch.train.steps import losses_of
-
-    args, dev = cli.parse_cli(argv)
-    tokenizer, model, _, (train_ds, _, _) = cli._build(args, dev)
-    batch = next(iter(cli.PrefetchLoader(
-        train_ds, batch_size=args.per_device_train_batch_size,
-        num_workers=1)))
-    torch.cuda.synchronize(dev)
-    reset_launches(fa)
-    out = model.eval()(batch)
-    loss, _ = losses_of(out, args.decoder_only, args.max_input_length,
-                        tokenizer.pad_token_id)
-    loss.backward()
-    torch.cuda.synchronize(dev)
-    check_bodies(fa, f"{tag} eval-mode step", bf16=True)
-    launches = {n: getattr(fa, n).launches for n in KERNELS}
-    norm = math.sqrt(sum(float(p.grad.double().pow(2).sum())
-                         for p in model.parameters() if p.grad is not None))
-    value = float(loss)
-    print(f"[{tag}] eval-mode bf16 micro-step: loss {value:.6f}, grad norm "
-          f"{norm:.6f}; launches {launches}")
-    if not (math.isfinite(value) and math.isfinite(norm)):
-        fail(f"{tag}: the eval-mode micro-step is not finite")
-    if {n: launches[n] for n in per_step} != per_step:
-        fail(f"{tag}: the eval-mode micro-step launched {launches}, "
-             f"expected {per_step}")
-    del model, out, loss
-    torch.cuda.empty_cache()
-    return {"loss": value, "grad_norm": norm, "launches": launches}
 
 
 # ---- phase 8: timings and bounds -------------------------------------------
@@ -1617,40 +1668,48 @@ def main() -> int:
     test, results, opt_test, rate, peak = run_test_pass(
         cli, fa, device, OPT_TEST_ARGV, OPT_TEST_KERNELS, tag="opt")
     check_model_fp32(cli, fa, test, device, OPT_TEST_ARGV, "opt")
-    tokenizer = test.tokenizer
     del test
     with tempfile.TemporaryDirectory() as log_dir:
         train = run_training(cli, fa, device, log_dir, OPT_TRAIN_ARGV,
                              OPT_TRAIN_KERNELS, tag="opt")
-    step = check_train_step_fp32(cli, fa, device, tokenizer, OPT_TRAIN_ARGV,
-                                 OPT_TRAIN_KERNELS, "opt")
+    step = check_train_step(cli, fa, device, OPT_TRAIN_ARGV,
+                            OPT_TRAIN_KERNELS, "opt")
     micro = TRAIN_UPDATES   # micro-batches per update (4 x 4)
 
-    # phase 5c: float16 compute on the tensor-core bodies, end to end: one
-    # OPT-125M update and test batch; one T5-base update and test batch, and
-    # an eval-mode micro-step (K4 and K5 at the cross-attention)
-    fp16_opt = run_short(
-        cli, fa, device, OPT_FP16_ARGV, "opt fp16", OPT_TRAIN_KERNELS,
-        per_update={"flash_attention_allheads": OPT_LAYERS * micro,
-                    "flash_attention_allheads_bwd": OPT_LAYERS * micro,
-                    "fused_heads_attention": CLIP_LAYERS * micro},
-        per_eval={"flash_attention_allheads": OPT_LAYERS,
-                  "fused_heads_attention": CLIP_LAYERS})
-    with ShapeTally(fa) as fp16_shapes:
-        fp16_t5 = run_short(
-            cli, fa, device, T5_FP16_ARGV, "t5 fp16",
+    # phase 5c: float16 compute on the tensor-core bodies, end to end
+    # through the CLI: one OPT-125M update, one T5-base update (val and
+    # test batches included), and a T5-base eval-mode micro-step (K4 and K5
+    # at the cross-attention) against the CPU; OPT-350M's blocked path in
+    # float16 runs in phase 9
+    with tempfile.TemporaryDirectory() as log_dir:
+        fp16_opt = run_training(
+            cli, fa, device, log_dir, OPT_FP16_ARGV, OPT_TRAIN_KERNELS,
+            {"flash_attention_allheads": OPT_LAYERS * micro,
+             "flash_attention_allheads_bwd": OPT_LAYERS * micro,
+             "fused_heads_attention": CLIP_LAYERS * micro},
+            tag="opt fp16", updates=1,
+            per_eval={"flash_attention_allheads": OPT_LAYERS,
+                      "fused_heads_attention": CLIP_LAYERS})
+    with ShapeTally(fa) as fp16_shapes, \
+            tempfile.TemporaryDirectory() as log_dir:
+        fp16_t5 = run_training(
+            cli, fa, device, log_dir, T5_FP16_ARGV,
             ("flash_attention_bias", "flash_attention_bias_bwd",
-             "flash_attention", "fused_heads_attention"),
-            per_update={"flash_attention_bias": 3 * T5_LAYERS * micro,
-                        "flash_attention_bias_bwd": 3 * T5_LAYERS * micro},
+             "fused_heads_attention"),
+            {"flash_attention_bias": 3 * T5_LAYERS * micro,
+             "flash_attention_bias_bwd": 3 * T5_LAYERS * micro},
+            tag="t5 fp16", updates=1,
             per_eval={"flash_attention_bias": 2 * T5_LAYERS,
                       "flash_attention": T5_LAYERS},
             per_generate={"flash_attention_bias": T5_LAYERS})
-        fp16_t5_step = eval_mode_step(
-            cli, fa, device, T5_FP16_ARGV, "t5 fp16",
-            {"flash_attention": T5_LAYERS, "flash_attention_bwd": T5_LAYERS,
-             "flash_attention_bias": 2 * T5_LAYERS,
-             "flash_attention_bias_bwd": 2 * T5_LAYERS})
+        fp16_t5_step = check_train_step(
+            cli, fa, device, T5_FP16_ARGV,
+            ("flash_attention", "flash_attention_bwd"), "t5 fp16",
+            tol=T5_STEP_TOL, plain_on_card=True, half=True,
+            per_step={"flash_attention": T5_LAYERS,
+                      "flash_attention_bwd": T5_LAYERS,
+                      "flash_attention_bias": 2 * T5_LAYERS,
+                      "flash_attention_bias_bwd": 2 * T5_LAYERS})
 
     per_eval = {"flash_attention_bias": 2 * T5_LAYERS,
                 "flash_attention": T5_LAYERS,
@@ -1663,7 +1722,6 @@ def main() -> int:
         per_eval, per_generate, tag="t5")
     t5_model = check_model_fp32(cli, fa, t5_test, device, T5_TEST_ARGV,
                                 "t5")
-    t5_tokenizer = t5_test.tokenizer
     del t5_test
     per_update = {"flash_attention_bias": 3 * T5_LAYERS * micro,
                   "flash_attention_bias_bwd": 3 * T5_LAYERS * micro,
@@ -1680,8 +1738,8 @@ def main() -> int:
     if sum(bwd_shapes.values()) != t5_train["launches"][
             "flash_attention_bias_bwd"]:
         fail("the K8/K9 launches by shape do not add up to its count")
-    t5_step = check_train_step_fp32(
-        cli, fa, device, t5_tokenizer, T5_TRAIN_ARGV,
+    t5_step = check_train_step(
+        cli, fa, device, T5_TRAIN_ARGV,
         ("flash_attention_bias", "flash_attention_bias_bwd",
          "flash_attention", "flash_attention_bwd"), "t5", tol=T5_STEP_TOL,
         plain_on_card=True)
@@ -1691,31 +1749,51 @@ def main() -> int:
 
     # phase 9: OPT-350M at its 2048-token window, with the blocked backward
     # selected for this phase only, through the module flag that
-    # MMGL_BLOCKED_BWD=1 sets at import
+    # MMGL_BLOCKED_BWD=1 sets at import; in bf16, then one update in fp16.
+    # K4 keeps its row stats in every launch inside the training steps and
+    # in no other
     flag = fa.BLOCKED_BWD
     fa.BLOCKED_BWD = True
     per_pass = {"flash_attention": OPT350_LAYERS,
                 "flash_attention_allheads": 0}
+    opt350_update = {"flash_attention": OPT350_LAYERS * micro,
+                     "flash_attention_blocked_bwd": OPT350_LAYERS * micro,
+                     "flash_attention_allheads": 0,
+                     "flash_attention_allheads_bwd": 0,
+                     "flash_attention_bwd": 0}
+    opt350_kernels = ("flash_attention", "flash_attention_blocked_bwd",
+                      "fused_heads_attention")
+    stats = {}
     try:
-        with tempfile.TemporaryDirectory() as log_dir:
+        with ShapeTally(fa) as tally, \
+                tempfile.TemporaryDirectory() as log_dir:
             opt350 = run_training(
-                cli, fa, device, log_dir, OPT350_TRAIN_ARGV,
-                ("flash_attention", "flash_attention_blocked_bwd",
-                 "fused_heads_attention"),
-                {"flash_attention": OPT350_LAYERS * micro,
-                 "flash_attention_blocked_bwd": OPT350_LAYERS * micro,
-                 "flash_attention_allheads": 0,
-                 "flash_attention_allheads_bwd": 0,
-                 "flash_attention_bwd": 0},
-                tag="opt350m", per_eval=per_pass, per_generate=per_pass)
-        opt350_step = check_train_step_fp32(
-            cli, fa, device, tokenizer, OPT350_TRAIN_ARGV,
+                cli, fa, device, log_dir, OPT350_TRAIN_ARGV, opt350_kernels,
+                opt350_update, tag="opt350m", per_eval=per_pass,
+                per_generate=per_pass)
+        stats["bfloat16"] = tally.stats
+        opt350_step = check_train_step(
+            cli, fa, device, OPT350_TRAIN_ARGV,
             ("flash_attention", "flash_attention_blocked_bwd"), "opt350m",
             plain_on_card=True, on_cpu=False)
+        with ShapeTally(fa) as tally, \
+                tempfile.TemporaryDirectory() as log_dir:
+            fp16_opt350 = run_training(
+                cli, fa, device, log_dir, OPT350_FP16_ARGV, opt350_kernels,
+                opt350_update, tag="opt350m fp16", per_eval=per_pass,
+                per_generate=per_pass, updates=1)
+        stats["float16"] = tally.stats
     finally:
         fa.BLOCKED_BWD = flag
-    if opt350["launches"]["flash_attention_allheads_bwd"]:
-        fail("K3 launched in the OPT-350M run")
+    for dtype_name, run in (("bfloat16", opt350), ("float16", fp16_opt350)):
+        if run["launches"]["flash_attention_allheads_bwd"]:
+            fail(f"K3 launched in the OPT-350M {dtype_name} run")
+        if stats[dtype_name] != {dtype_name: run["in_steps"][
+                "flash_attention"]}:
+            fail(f"K4 kept its row stats {stats[dtype_name]} times in the "
+                 f"OPT-350M {dtype_name} run, expected every launch in its "
+                 f"training steps ({run['in_steps']['flash_attention']})")
+    print(f"[opt350m] K4 launches keeping the row stats: {stats}")
 
     # phase 10: the embedding mode at full width, BASELINE config 2
     emb_eval = {"flash_attention_allheads": ROBERTA_LAYERS,
@@ -1746,37 +1824,46 @@ def main() -> int:
             ("flash_attention_allheads", "fused_heads_attention",
              "flash_attention_bias", "flash_attention_bias_bwd"),
             emb_update, tag="t5 emb", per_eval=emb_eval,
-            per_generate=emb_gen, gradless=GRADLESS)
+            per_generate=emb_gen)
     print(f"[t5 emb train] K7 launches by (Sq, Sk): {emb_shapes.fwd}; "
           f"K8/K9: {emb_shapes.bwd}")
     if not emb_shapes.bwd.get((576, 576)) or not emb_shapes.fwd.get(
             (576, 576)):
         fail("K7 and K9 did not run at the 576-token encoder")
-    emb_step = eval_mode_step(
-        cli, fa, device, T5_EMB_TRAIN_ARGV, "t5 emb",
-        {"flash_attention": T5_LAYERS, "flash_attention_bwd": T5_LAYERS,
-         "flash_attention_bias": 2 * T5_LAYERS,
-         "flash_attention_bias_bwd": 2 * T5_LAYERS,
-         "flash_attention_allheads": ROBERTA_LAYERS,
-         "fused_heads_attention": CLIP_LAYERS,
-         "flash_attention_allheads_bwd": 0})
+    # in eval mode (no dropout) the cross-attention takes K4 and K5 at
+    # 128 x 576; the encoder K7 and K9 at 576 x 576
+    emb_step = check_train_step(
+        cli, fa, device, T5_EMB_TRAIN_ARGV,
+        ("flash_attention", "flash_attention_bwd", "flash_attention_bias",
+         "flash_attention_bias_bwd"), "t5 emb", tol=T5_STEP_TOL,
+        plain_on_card=True, half=True,
+        per_step={"flash_attention": T5_LAYERS,
+                  "flash_attention_bwd": T5_LAYERS,
+                  "flash_attention_bias": 2 * T5_LAYERS,
+                  "flash_attention_bias_bwd": 2 * T5_LAYERS,
+                  "flash_attention_allheads": ROBERTA_LAYERS,
+                  "fused_heads_attention": CLIP_LAYERS,
+                  "flash_attention_allheads_bwd": 0})
 
     # phase 11: OPT-125M + Roberta + CLIP, context all, embedding, with the
-    # Laplacian and the GCN position encodings: one update and one test
-    # batch each, OPT at 640 + 64 = 704 tokens (K1/K3), its prefill at 576
+    # Laplacian and the GCN position encodings: one update through the CLI
+    # each, OPT at 640 + 64 = 704 tokens (K1/K3), its prefill at 576
     graph = {}
+    per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+           "fused_heads_attention": CLIP_LAYERS}
     for pt, argv in OPT_GRAPH_ARGV.items():
-        per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
-               "fused_heads_attention": CLIP_LAYERS}
-        graph[pt] = run_short(
-            cli, fa, device, argv, f"opt {pt}",
-            ("flash_attention_allheads", "flash_attention_allheads_bwd",
-             "fused_heads_attention"),
-            per_update={k: v * micro for k, v in per.items()} | {
-                "flash_attention_allheads_bwd": OPT_LAYERS * micro,
-                "flash_attention": 0, "fused_heads_attention":
-                    CLIP_LAYERS * micro},
-            per_eval=per, per_generate=per)
+        with tempfile.TemporaryDirectory() as log_dir:
+            graph[pt] = run_training(
+                cli, fa, device, log_dir, argv,
+                ("flash_attention_allheads", "flash_attention_allheads_bwd",
+                 "fused_heads_attention"),
+                {"flash_attention_allheads":
+                     (ROBERTA_LAYERS + OPT_LAYERS) * micro,
+                 "flash_attention_allheads_bwd": OPT_LAYERS * micro,
+                 "flash_attention": 0,
+                 "fused_heads_attention": CLIP_LAYERS * micro},
+                tag=f"opt {pt}", per_eval=per, per_generate=per, updates=1,
+                idle=OPT_GRAPH_IDLE)
 
     print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
@@ -1791,10 +1878,11 @@ def main() -> int:
                                       "dropout_keep_fraction": keep,
                                       "card": card}}))
     print(json.dumps({"opt350m_training": {**opt350, "fp32_step": opt350_step,
+                                           "k4_stats_launches": stats,
                                            "card": card}}))
     print(json.dumps({"fp16": {"opt": fp16_opt, "t5": fp16_t5,
                                "t5_eval_mode_step": fp16_t5_step,
-                               "card": card}}))
+                               "opt350m": fp16_opt350, "card": card}}))
     print(json.dumps({"t5_embedding_test": {
         "sections_per_s": emb_rate, "peak_bytes": emb_peak,
         "test_loss": emb_results["loss"], "launches": emb_test_launches,
@@ -1820,9 +1908,9 @@ def main() -> int:
     k9 = bwd_shapes.get((512, 512), 0)
     launches["flash_attention_bias_bwd[K9]"] = k9
     launches["flash_attention_bias_bwd[K8]"] = sum(bwd_shapes.values()) - k9
-    # K4 with its stats and K6: the OPT-350M training steps (its eval steps
+    # K4 with its stats and K6: the OPT-350M training run (its eval steps
     # and prefills run K4 without the stats)
-    launches["flash_attention[stats]"] = opt350["in_steps"]["flash_attention"]
+    launches["flash_attention[stats]"] = stats["bfloat16"]["bfloat16"]
     launches["flash_attention_blocked_bwd"] = opt350["launches"][
         "flash_attention_blocked_bwd"]
     # the embedding slice: K1 at Roberta's shape (all of its K1 launches),
@@ -1831,18 +1919,17 @@ def main() -> int:
         "flash_attention_allheads"]
     launches["flash_attention_bias[576]"] = emb_shapes.fwd[(576, 576)]
     launches["flash_attention_bias_bwd[K9,576]"] = emb_shapes.bwd[(576, 576)]
-    # the fp16 forms: the fp16 runs of phase 5c (K6 and K4 with its stats
-    # run on OPT-350M's path only, in bf16)
-    fp16_runs = [fp16_opt["launches"], fp16_t5["launches"],
-                 {"step": fp16_t5_step["launches"]}]
+    # the fp16 forms: the fp16 runs of phases 5c and 9
+    fp16_runs = (fp16_opt, fp16_t5, fp16_t5_step, fp16_opt350)
     for name in KERNELS:
         launches[wkey(name, "float16")] = sum(
-            run[part][name] for run in fp16_runs for part in run)
+            run["launches"][name] for run in fp16_runs)
     fp16_k9 = fp16_shapes.bwd.get((512, 512), 0)
     launches[wkey("flash_attention_bias_bwd[K9]", "float16")] = fp16_k9
     launches[wkey("flash_attention_bias_bwd[K8]", "float16")] = sum(
         fp16_shapes.bwd.values()) - fp16_k9
-    launches[wkey("flash_attention[stats]", "float16")] = 0
+    launches[wkey("flash_attention[stats]", "float16")] = stats[
+        "float16"]["float16"]
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():
