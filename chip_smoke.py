@@ -13,9 +13,13 @@ imports no JAX. Phases, each fatal on failure:
      (K1's backward) at the OPT shapes, and K1 at Roberta's (44, 512, 12,
      64) over right-padded neighbor texts with an empty slot; K4 and K5
      (forward and gradient) at T5-base's cross-attention, with an MQA head,
-     and K7 with K8/K9 (dbias included) at T5-base's encoder, decoder and
-     cross-attention shapes and at the embedding mode's 576-token encoder,
-     each without and with dropout 0.1; ragged lengths for every kernel.
+     at MPT-1.3B's cross-attention (640 queries, 64 memory keys, 32 heads,
+     a sample without neighbours) and at prefix tuning's 704 queries
+     against 724 keys, causal; K7 with K8/K9 (dbias included) at T5-base's
+     encoder, decoder and cross-attention shapes, at the embedding mode's
+     576-token encoder and at the prefixed decoder's 128 x 148 (ragged
+     bias), each without and with dropout 0.1; ragged lengths for every
+     kernel.
      The dropout mask K7 draws is read off its output, in every dtype, and
      compared with the plain version's bit for bit. At the encoder's shape
      with dropout, in bf16 and fp16, K7's row stats against the plain
@@ -90,6 +94,40 @@ imports no JAX. Phases, each fatal on failure:
      summary, where the causal mask hides them from every labeled token, as
      in the JAX package: the encodings and projections get a zero gradient
      there, may stay, and act in the prefill that generation starts from.)
+ 12. BASELINE family 3 at its published LM size: OPT-1.3B + Roberta-base,
+     context text_only, embedding, LoRA (r 64) on every q and v projection,
+     --freeze_lm true; the short run of 5c. 640 + 11 x 4 = 684 tokens take
+     K1 and K3 (24 layers), Roberta K1; the prefill at 556 K1. Then its
+     fp32 micro-step on the card against the CPU with LoRA's B set to
+     seeded non-zero values (at init B is 0 and A's gradient is 0);
+ 13. BASELINE family 4 at 1.3B (its published 2.7B has head dim 80, which
+     no kernel takes yet): MPT-1.3B + Roberta-base + CLIP, context all,
+     flamingo, 4 gated cross layers (one after every 6th layer), the short
+     run. The self-attention takes K1 (24 layers) and K3 (18: the six
+     layers before the first cross layer see no trainable input); the
+     cross-attention, 640 queries against the 64-token memory under its
+     mask, K4 and K5 (4 each); the prefill K1 at 512 and K4 at 512 x 64;
+     the decode steps' one query the plain route. Then its fp32 micro-step
+     card against CPU and its bf16 one held launch by launch against the
+     plain versions, the gates seeded non-zero;
+ 14. prefix and prompt tuning, each the short run: (a) family 5 without its
+     mesh, OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704 queries
+     against 20 + 704 keys, causal with the ends aligned, take K4 and K5;
+     the prefill (no prefix, as in the JAX package) K1; (b) family 6,
+     OPT-125M, GCN, prompt: 20 + 704 = 724 tokens take K1 and K3, the
+     prefill at 596 K1; (c) BASELINE config 2 (T5-base) with prefix: the
+     decoder's 128 queries against 20 + 128 keys with the position bias
+     padded by zero columns take K7 and K8 at a ragged key length. Then an
+     fp32 micro-step card against CPU for (a) and (b), and bf16 ones held
+     launch by launch against the plain versions for (a) and (c).
+
+Phases 12-14 check the launches of every update, eval step and generated
+batch against the counts the layer layout gives, the tensor-core body of
+every launch, that every trainable tensor moved but those named with the
+reason they get a zero gradient in the one update (LoRA's A while B is 0;
+MPT's cross layers and memory projections while the gates are 0; OPT's
+soft-token projections behind the causal mask), and that every frozen
+tensor (the LM under PEFT, the towers) stayed bit for bit.
 
 Phase 3 also holds K4 with its row stats and K6 against their plain
 versions at OPT-350M's shape with a pad hole and with a fully masked
@@ -99,8 +137,9 @@ and read just after. Every kernel has two bodies, tensor cores for bf16
 and fp16 and scalar FMAs for fp32: phases 4, 5, 5c, 6, 7, 9, 10 and 11
 (bf16 or fp16) check that every launch of K1-K9 took the tensor-core body,
 and their fp32 checks that none did.
-Prints a kernels JSON line (the fp16 forms as entries of their own), then
-as its last line
+Prints the seconds elapsed at the end of each phase (and a JSON line of
+them), a kernels JSON line (the fp16 forms and the shapes of phases 12-14
+as entries of their own), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
 versions compute in full fp32.
@@ -149,6 +188,11 @@ OPT350_LAYERS = 24
 ROBERTA_LAYERS = 12
 CLIP_LAYERS = 12
 OPT_LAYERS = 12
+OPT13_LAYERS = 24           # OPT-1.3B and MPT-1.3B
+MPT_CROSS = 4               # --num_neighbor_layers: one every 24 // 4 layers
+# the self-attention layers of MPT-1.3B whose input carries a gradient:
+# those after the first cross layer (after layer 6)
+MPT_GRAD_LAYERS = OPT13_LAYERS - OPT13_LAYERS // MPT_CROSS
 
 
 def with_flags(argv, **flags):
@@ -192,6 +236,34 @@ OPT_FP16_ARGV = with_flags(OPT_TRAIN_ARGV, compute_dtype="float16", **SHORT)
 T5_FP16_ARGV = with_flags(T5_TRAIN_ARGV, compute_dtype="float16", **SHORT)
 OPT350_FP16_ARGV = with_flags(OPT350_TRAIN_ARGV, compute_dtype="float16",
                               **SHORT)
+# BASELINE family 3 at its published LM size: OPT-1.3B + Roberta-base,
+# text_only, embedding, LoRA on q and v, --freeze_lm true (640 + 44 tokens)
+LORA_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="opt-1.3b",
+                       context="text_only", neighbor_mode="embedding",
+                       peft_type="lora", freeze_lm="true", **SHORT)
+# family 4 at 1.3B: MPT-1.3B + Roberta-base + CLIP, all, flamingo
+MPT_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="mpt-1.3b",
+                      context="all", neighbor_mode="embedding",
+                      peft_type="flamingo", **SHORT)
+# family 5 without its mesh (prefix, Laplacian) and family 6 (prompt, GCN)
+PREFIX_ARGV = with_flags(OPT_GRAPH_ARGV["laplacian"], peft_type="prefix")
+PROMPT_ARGV = with_flags(OPT_GRAPH_ARGV["gnn"], peft_type="prompt")
+# BASELINE config 2 with T5's decoder prefixes
+T5_PREFIX_ARGV = with_flags(T5_EMB_TRAIN_ARGV, peft_type="prefix", **SHORT)
+VIRTUAL = 20                # num_virtual_tokens
+# the neighbour memory's projections and position tables
+MEMORY = ("text_embeddings.", "visual_embeddings.",
+          "text_position_embeddings.", "visual_position_embeddings.")
+
+
+def flamingo_zero(name: str) -> bool:
+    """MPT's parameters whose gradient is exactly 0 while the gates are 0:
+    every cross-layer tensor but the gates, and the memory's projections,
+    which reach the loss only through the gated cross-attention."""
+    return (("neighbor_layers." in name and "gating" not in name)
+            or name.startswith(MEMORY))
+
+
 EMB_TEXTS = 11 * 4          # Roberta's sequences a micro-batch of 4
 EMB_IMAGES = 5 * 4          # CLIP's images a micro-batch of 4
 # the frozen towers' parameter prefixes
@@ -256,7 +328,15 @@ BWD_CASES = [((4, 640, 12, 64), True, "hole"),
 # cross-attention over the padded encoder input, MQA, ragged lengths
 FLASH_CASES = [((4, 128, 512, 12, 12), False, "gap"),
                ((4, 128, 128, 12, 1), False, "gap"),
-               ((3, 333, 77, 2, 2), False, "gap_fully_masked")]
+               ((3, 333, 77, 2, 2), False, "gap_fully_masked"),
+               # MPT-1.3B's cross-attention: 640 queries against the 64-token
+               # memory (sq > sk), sample 0 without neighbours
+               ((4, 640, 64, 32, 32), False, "gap_fully_masked"),
+               # prefix tuning: 704 queries against 20 + 704 keys, causal
+               ((4, 704, 724, 12, 12), True, "prefix")]
+# the kernels line's own entries for these shapes, by FLASH_CASES index
+FLASH_TAGS = {3: "[mpt-cross]", 4: "[prefix]"}
+MPT_CROSS_CASE, PREFIX_CASE = 3, 4
 # K4 with its row stats and K6: ((B, Sq, Sk, H), causal, key mask):
 # OPT-350M's training shape (prompt 1920 + summary 128, a pad hole in each),
 # the same with a fully masked sample, ragged, end-aligned sq < sk
@@ -273,8 +353,14 @@ BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
               ("ragged", (3, 333, 333, 2), True, True),
               # the embedding mode's encoder: 512 + 16 x 4 soft tokens,
               # nine key tiles
-              ("enc576", (4, 576, 576, 12), False, True)]
+              ("enc576", (4, 576, 576, 12), False, True),
+              # T5's prefixed decoder: 128 queries against 20 + 128 keys,
+              # the bias padded by 20 zero columns (a row of 148, padded to
+              # 152 for the tensor-core body), the last key tile 20 wide
+              ("t5prefix", (4, 128, 148, 12), True, True)]
 ENC576_CASE = 4
+T5_PREFIX_CASE = 5
+BIAS_TAGS = {T5_PREFIX_CASE: "[t5-prefix]"}
 RATE = 0.1
 # (atol, rtol) by dtype name; float16 keeps 11 significant bits to bf16's 8,
 # and its tensor-core form rounds where the bf16 form does
@@ -328,7 +414,8 @@ def make_mask(kind: str, b: int, s: int, seed: int):
     "fully_masked": sample 0 all zero (with holes in the others for
     "hole_fully_masked" and "gap_fully_masked"); "texts": neighbor texts,
     each right-padded to a random length, sample 0 all zero (an empty
-    neighbor slot)."""
+    neighbor slot); "prefix": 20 virtual keys, always valid, then a
+    decoder-only batch's "hole" keys."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -358,6 +445,8 @@ def make_mask(kind: str, b: int, s: int, seed: int):
         for i in range(b):
             mask[i, rng.randint(1, s + 1):] = 0
         mask[0] = 0
+    elif kind == "prefix":
+        mask[:, VIRTUAL:] = make_mask("hole", b, s - VIRTUAL, seed)
     return mask
 
 
@@ -529,8 +618,10 @@ def check_t5_kernels(fa, device, worst):
             ref = fa.flash_attention_reference(q.detach(), kx, vx,
                                                kv_mask=mask, causal=causal)
             max_err = float((got.detach().float() - ref.float()).abs().max())
-            key = wkey("flash_attention", dtype_name)
-            worst[key] = max(worst[key], max_err)
+            tag = FLASH_TAGS.get(i, "")
+            for key in {wkey("flash_attention", dtype_name),
+                        wkey("flash_attention" + tag, dtype_name)}:
+                worst[key] = max(worst[key], max_err)
             if not _within(got.detach(), ref, atol, rtol):
                 fail(f"flash_attention {dims} {dtype_name} disagrees with "
                      f"its plain version ({max_err:.3e})")
@@ -540,8 +631,11 @@ def check_t5_kernels(fa, device, worst):
                 refs[1:] = [r.float().sum(2, keepdim=True).to(r.dtype)
                             for r in refs[1:]]
             label = f"{dims} causal={causal} mask={mask_kind}"
-            report = _grads_within("flash_attention_bwd", grads, refs,
+            report = _grads_within("flash_attention_bwd" + tag, grads, refs,
                                    dtype_name, label, worst)
+            base = wkey("flash_attention_bwd", dtype_name)
+            worst[base] = max(worst[base], worst[
+                wkey("flash_attention_bwd" + tag, dtype_name)])
             print(f"[check] flash_attention {label} {dtype_name}: forward "
                   f"{max_err:.3e} ok; flash_attention_bwd {report} ok")
 
@@ -566,8 +660,10 @@ def check_t5_kernels(fa, device, worst):
                     dropout_rate=rate, dropout_seed=seed)
                 max_err = float((got.detach().float()
                                  - ref.float()).abs().max())
-                key = wkey("flash_attention_bias", dtype_name)
-                worst[key] = max(worst[key], max_err)
+                tag = BIAS_TAGS.get(i, "")
+                for key in {wkey("flash_attention_bias", dtype_name),
+                            wkey("flash_attention_bias" + tag, dtype_name)}:
+                    worst[key] = max(worst[key], max_err)
                 if not _within(got.detach(), ref, atol, rtol):
                     fail(f"flash_attention_bias {tag} {dims} rate={rate} "
                          f"{dtype_name} disagrees with its plain version "
@@ -578,8 +674,11 @@ def check_t5_kernels(fa, device, worst):
                     dropout_rate=rate, dropout_seed=seed)
                 label = (f"{tag} {dims} causal={causal} bias={with_bias} "
                          f"dropout={rate}")
-                report = _grads_within("flash_attention_bias_bwd", grads,
-                                       refs, dtype_name, label, worst)
+                report = _grads_within("flash_attention_bias_bwd" + tag,
+                                       grads, refs, dtype_name, label, worst)
+                base = wkey("flash_attention_bias_bwd", dtype_name)
+                worst[base] = max(worst[base], worst[
+                    wkey("flash_attention_bias_bwd" + tag, dtype_name)])
                 print(f"[check] flash_attention_bias {label} {dtype_name}: "
                       f"forward {max_err:.3e} ok; flash_attention_bias_bwd "
                       f"{report} ok")
@@ -757,13 +856,23 @@ def check_dropout_mask(fa, dims, device, dtype) -> float:
 
 
 class ShapeTally:
-    """K7's and K8/K9's launches by (Sq, Sk), and K4's launches that keep
-    the rows' stats by dtype name, inside a ``with`` block, counted where
-    their launchers run (K8 and K9 are one wrapper, told apart by shape)."""
+    """K7's and K8/K9's launches by (Sq, Sk), K4's and K5's by (Sq, Sk),
+    and K4's launches that keep the rows' stats by dtype name, inside a
+    ``with`` block, counted where their launchers run (K8 and K9 are one
+    wrapper, told apart by shape)."""
 
     def __init__(self, fa):
         self.fa = fa
         self.fwd, self.bwd, self.stats = {}, {}, {}
+        self.flash, self.flash_bwd = {}, {}
+
+    def _wrap_bwd(self, fn):
+        def tallied(entry, name, q, k, *a, **kw):
+            if name == "flash_attention_bwd":
+                key = (q.shape[1], k.shape[1])
+                self.flash_bwd[key] = self.flash_bwd.get(key, 0) + 1
+            return fn(entry, name, q, k, *a, **kw)
+        return tallied
 
     def _wrap(self, fn, table):
         def tallied(q, k, *a, **kw):
@@ -773,25 +882,29 @@ class ShapeTally:
         return tallied
 
     def _wrap_stats(self, fn):
-        def tallied(entry, name, q, *a, stats=(), **kw):
+        def tallied(entry, name, q, k, *a, stats=(), **kw):
+            if name == "flash_attention":
+                shape = (q.shape[1], k.shape[1])
+                self.flash[shape] = self.flash.get(shape, 0) + 1
             if name == "flash_attention" and any(
                     t is not None for t in stats):
                 key = str(q.dtype).removeprefix("torch.")
                 self.stats[key] = self.stats.get(key, 0) + 1
-            return fn(entry, name, q, *a, stats=stats, **kw)
+            return fn(entry, name, q, k, *a, stats=stats, **kw)
         return tallied
 
     def __enter__(self):
         self.saved = (self.fa._launch_bias, self.fa._launch_bias_bwd,
-                      self.fa._launch)
+                      self.fa._launch, self.fa._launch_bwd)
         self.fa._launch_bias = self._wrap(self.saved[0], self.fwd)
         self.fa._launch_bias_bwd = self._wrap(self.saved[1], self.bwd)
         self.fa._launch = self._wrap_stats(self.saved[2])
+        self.fa._launch_bwd = self._wrap_bwd(self.saved[3])
         return self
 
     def __exit__(self, *exc):
         (self.fa._launch_bias, self.fa._launch_bias_bwd,
-         self.fa._launch) = self.saved
+         self.fa._launch, self.fa._launch_bwd) = self.saved
         return False
 
 
@@ -1010,16 +1123,20 @@ def check_model_fp32(cli, fa, test, device, argv, tag):
 
 def run_training(cli, fa, device, log_dir: str, argv, kernels,
                  per_update=None, tag="opt", per_eval=None,
-                 per_generate=None, updates=TRAIN_UPDATES, idle=()):
-    """Phases 5, 5c, 7, 9, 10 and 11: the training run at full width
-    through the entry point, ``updates`` updates; ``kernels`` must launch
-    inside the training steps, exactly ``per_update`` times in each update
-    where given, and ``per_eval`` / ``per_generate`` times in each eval step
-    (val and test) / generated batch, every launch on the tensor-core body.
-    Every trainable tensor must move but those under the model's
-    ``gradless_prefixes`` (the text pooler, behind the text tower's
-    stop_gradient: trainable, with a zero gradient) and the prefixes
-    ``idle`` (a zero gradient by the layout), and no tower tensor.
+                 per_generate=None, updates=TRAIN_UPDATES, idle=(),
+                 zero_first=None):
+    """Phases 5, 5c, 7, 9, 10, 11, 12, 13 and 14: the training run at full
+    width through the entry point, ``updates`` updates; ``kernels`` must
+    launch inside the training steps, exactly ``per_update`` times in each
+    update where given, and ``per_eval`` / ``per_generate`` times in each
+    eval step (val and test) / generated batch, every launch on the
+    tensor-core body. Every trainable tensor must move but those under the
+    model's ``gradless_prefixes`` (the text pooler, behind the text tower's
+    stop_gradient: trainable, with a zero gradient), the prefixes ``idle``
+    (a zero gradient by the layout) and those ``zero_first`` = (predicate,
+    reason) names, whose gradient in the first update must be exactly 0
+    for that reason; no frozen tensor (the towers, and under PEFT the LM)
+    may move, and the frozen set is the one peft/masks.py gives.
 
     The CLI's model factory, train step, eval setup and checkpoint restore
     are wrapped here, not changed: the wrappers snapshot the weights, time
@@ -1044,6 +1161,21 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
 
     def make_train_step(*a, **kw):
         step = originals["make_train_step"](*a, **kw)
+        model, optimizer = a[0], a[1]
+        names = {id(p): n for n, p in model.named_parameters()}
+        opt_step = optimizer.step
+
+        def first_grads(*sa, **skw):
+            # the trainable tensors whose gradient is exactly 0 in the
+            # first update (after the accumulation, before the step)
+            if "zero_grads" not in seen:
+                seen["zero_grads"] = sorted(
+                    names[id(p)] for g in optimizer.param_groups
+                    for p in g["params"] if not p.grad.any())
+            return opt_step(*sa, **skw)
+
+        if zero_first is not None:
+            optimizer.step = first_grads
 
         def counted(batch, generator=None):
             before = {n: getattr(fa, n).launches for n in KERNELS}
@@ -1133,6 +1265,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     if not all(math.isfinite(v) for v in values + [results["loss"]]):
         fail(f"a training loss or gradient norm is not finite: {values}")
 
+    from mmgl_tpu_torch.peft.masks import _path_trainable
+
     model, before = seen["model"], seen["before"]
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
     frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
@@ -1143,14 +1277,29 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     off_path = [n for n in trainable if off and n.startswith(off)]
     print(f"[{tag} train] {len(trainable) - len(still)} of {len(trainable)} "
           f"trainable tensors moved; {len(moved)} of {len(frozen)} frozen "
-          f"(tower) tensors moved"
+          f"tensors moved ({sum(n.startswith(TOWERS) for n in frozen)} of "
+          f"them the towers')"
           + (f"; off the gradient path {off_path}, of which still "
              f"{[n for n in still if n in off_path]}" if off_path else ""))
+    if zero_first is not None:
+        predicate, reason = zero_first
+        want = sorted(n for n in trainable if predicate(n)
+                      and n not in off_path)
+        got = [n for n in seen["zero_grads"] if n not in off_path]
+        print(f"[{tag} train] exactly-zero gradients in update 1 "
+              f"({len(got)} tensors), as expected: {reason}: "
+              f"{got[:4]}{' ...' if len(got) > 4 else ''}")
+        if got != want:
+            fail(f"{tag}: the tensors with an exactly-zero gradient in "
+                 f"update 1 are {got[:6]}, expected {want[:6]} ({reason})")
+        off_path += want
+    mask = [n for n in params if not _path_trainable(
+        n, args.peft_type, args.freeze_lm)]
     still = [n for n in still if n not in off_path]
-    if still or moved or not frozen or not all(
-            n.startswith(TOWERS) for n in frozen):
+    if still or moved or not frozen or frozen != mask:
         fail(f"trainable tensors that did not move: {still[:5]}; frozen "
-             f"tensors that moved: {moved[:5]}")
+             f"tensors that moved: {moved[:5]}; frozen tensors against "
+             f"the mask: {sorted(set(frozen) ^ set(mask))[:5]}")
 
     ckpt_dir = os.path.join(log_dir, "default_0", "ckpt")
     final = [c for path, c in seen["restores"] if path == ckpt_dir]
@@ -1181,15 +1330,36 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
             "losses": [s["loss"] for s in steps],
             "grad_norms": [s["grad_norm"] for s in steps],
             "update_seconds": [s["seconds"] for s in steps],
-            "test_loss": results["loss"]}
+            "test_loss": results["loss"], "eval_steps": len(evals.calls),
+            "generated_batches": len(gens.calls)}
+
+
+def seed_zero_params(model, seeded) -> list:
+    """Parameters whose name holds one of ``seeded`` (LoRA's ``lora_b``, the
+    flamingo ``gating``s), zero at init, set in place to seeded
+    normal(0, 0.5) values drawn on the CPU in the model's parameter order:
+    the same on every device. Returns their names."""
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    names = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if any(s in name for s in seeded):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+                names.append(name)
+    return names
 
 
 def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
                      plain_on_card=False, on_cpu=True, half=False,
-                     per_step=None):
-    """Phases 5b, 5c, 7b, 9b and 10c: one training micro-step (loss,
-    backward) of one sample in eval mode (no dropout) on the card;
-    ``kernels`` must launch in it, exactly ``per_step`` times where given.
+                     per_step=None, seeded=()):
+    """Phases 5b, 5c, 7b, 9b, 10c, 12b, 13b and 14b: one training
+    micro-step (loss, backward) of one sample in eval mode (no dropout) on
+    the card; ``kernels`` must launch in it, exactly ``per_step`` times
+    where given. The parameters named by ``seeded`` (zero at init: LoRA's
+    B, the flamingo gates) are first given seeded non-zero values, the same
+    on every device, so that what they multiply has a gradient to compare.
 
     fp32 (the scalar bodies): held against the same seeded model on the CPU
     within ``tol`` = (loss atol, gradient-norm rtol, largest gradient error
@@ -1235,6 +1405,8 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
             fa._plain = (lambda q: True) if use_plain else plain
             model, _ = build_model(args, dev, vocab_size=tokenizer.vocab_size,
                                    tokenizer=tokenizer)
+            if seeded and not seed_zero_params(model, seeded):
+                fail(f"{tag}: no parameter named {seeded} to seed")
             reset_launches(fa)
             with check if half else contextlib.nullcontext():
                 fused = model.eval()(batch)
@@ -1448,32 +1620,37 @@ def _opt_timing_cases(fa, device, dtype_name):
     return cases
 
 
-def _flash_timing_cases(fa, device, dtype_name):
-    """K4 and K5 at T5-base's eval cross-attention, bf16 or fp16."""
+def _flash_timing_cases(fa, device, dtype_name, i=0):
+    """K4 and K5 at FLASH_CASES[i] (T5-base's eval cross-attention; MPT's
+    cross-attention; prefix tuning's 704 x 724), bf16 or fp16, phase 3's
+    inputs."""
     import torch
 
     dt = getattr(torch, dtype_name)
-    dims, causal, mask_kind = FLASH_CASES[0]
-    q, k, v, mask, dout = flash_inputs(dims, mask_kind, dt, device, 200)
+    dims, causal, mask_kind = FLASH_CASES[i]
+    q, k, v, mask, dout = flash_inputs(dims, mask_kind, dt, device, 200 + i)
     sq, h = dims[1], dims[3]
-    out = fa.flash_attention(q, k, v, kv_mask=mask)
+    kw = dict(kv_mask=mask, causal=causal)
+    out = fa.flash_attention(q, k, v, **kw)
     qt, kt, vt, dot = _bhsd(q, k, v, dout)
-    am = float_mask(mask, sq, False, None, dt)
-    pairs = allowed_pairs(mask, sq, False) * h
+    am = float_mask(mask, sq, causal, None, dt)
+    pairs = allowed_pairs(mask, sq, causal) * h
     io_fwd = (2 * q.numel() + 2 * k.numel()) * 2 + mask.numel() * 4
     io_bwd = (4 * q.numel() + 4 * k.numel()) * 2 + mask.numel() * 4
+    tag = FLASH_TAGS.get(i, "")
+    label = f"{dims} causal={causal} mask={mask_kind}"
     return [
-        (f"flash_attention {dims}", wkey("flash_attention", dtype_name), {
-            "kernel": partial(fa.flash_attention, q, k, v, kv_mask=mask),
-            "plain": partial(fa.flash_attention_reference, q, k, v,
-                             kv_mask=mask),
+        (f"flash_attention {label}", wkey("flash_attention" + tag,
+                                          dtype_name), {
+            "kernel": partial(fa.flash_attention, q, k, v, **kw),
+            "plain": partial(fa.flash_attention_reference, q, k, v, **kw),
             "library": _sdpa_fwd(qt, kt, vt, am)}, 4 * pairs * 64, io_fwd),
-        (f"flash_attention_bwd {dims}", wkey("flash_attention_bwd",
-                                             dtype_name), {
+        (f"flash_attention_bwd {label}", wkey("flash_attention_bwd" + tag,
+                                              dtype_name), {
             "kernel": partial(fa.flash_attention_bwd, q, k, v, mask, out,
-                              dout),
+                              dout, causal=causal),
             "plain": partial(fa.flash_attention_bwd_reference, q, k, v, mask,
-                             out, dout),
+                             out, dout, causal=causal),
             "library": _sdpa_bwd(qt, kt, vt, am, dot)},
          10 * pairs * 64, io_bwd)]
 
@@ -1500,8 +1677,9 @@ def _bias_timing_cases(fa, device, i, dtype_name):
     qt, kt, vt, dot = _bhsd(q, k, v, dout)
     am = float_mask(mask, sq, causal, bias, dt)
     shape = f"{tag} {dims} causal={causal} bias={with_bias}"
-    # the 576-token encoder has its own entry in the kernels line
-    at = "[576]" if tag == "enc576" else ""
+    # the 576-token encoder and the prefixed decoder have their own entries
+    # in the kernels line
+    at = {"enc576": "[576]", "t5prefix": "[t5-prefix]"}.get(tag, "")
     cases = []
     for rate in ((RATE,) if tag == "cross" else (0.0, RATE)):
         kw = dict(bias=bias, kv_mask=mask, causal=causal, scale=1.0,
@@ -1522,7 +1700,8 @@ def _bias_timing_cases(fa, device, i, dtype_name):
     cases.append((
         f"flash_attention_bias_bwd {shape} dropout={RATE} from K7's stats",
         wkey({"enc": "flash_attention_bias_bwd[K9]",
-              "enc576": "flash_attention_bias_bwd[K9,576]"}.get(
+              "enc576": "flash_attention_bias_bwd[K9,576]",
+              "t5prefix": "flash_attention_bias_bwd[t5-prefix]"}.get(
                   tag, "flash_attention_bias_bwd[K8]"), dtype_name), {
             "kernel": partial(fa.flash_attention_bias_bwd, q, k, v, mask,
                               None if bias is None else bias[0], out, dout,
@@ -1597,14 +1776,19 @@ def _blocked_timing_cases(fa, device, dtype_name):
 def timing_cases(fa, device):
     """(label, kernel name, {"kernel", "plain", "library"} callables, FLOPs,
     bytes, dtype name) for every kernel at its main-path shapes, in bf16
-    and in fp16; in bf16 also K1 at Roberta's shape and K7 with K9 at the
-    embedding mode's 576-token encoder."""
+    and in fp16; in bf16 also K1 at Roberta's shape, K7 with K9 at the
+    embedding mode's 576-token encoder, K4 with K5 at MPT's cross-attention
+    and at prefix tuning's 704 x 724, and K7 with K8 at T5's prefixed
+    decoder."""
     cases = []
     for dtype_name in TC_DTYPES:
-        got = (_opt_timing_cases(fa, device, dtype_name)
-               + _flash_timing_cases(fa, device, dtype_name))
-        # the encoder, decoder and cross shapes (and the 576 encoder)
-        for i in (0, 1, 2) + ((ENC576_CASE,) if dtype_name == "bfloat16"
+        bf16 = dtype_name == "bfloat16"
+        got = _opt_timing_cases(fa, device, dtype_name)
+        for i in (0,) + ((MPT_CROSS_CASE, PREFIX_CASE) if bf16 else ()):
+            got += _flash_timing_cases(fa, device, dtype_name, i)
+        # the encoder, decoder and cross shapes (and the 576 encoder and
+        # the prefixed decoder)
+        for i in (0, 1, 2) + ((ENC576_CASE, T5_PREFIX_CASE) if bf16
                               else ()):
             got += _bias_timing_cases(fa, device, i, dtype_name)
         got += _blocked_timing_cases(fa, device, dtype_name)
@@ -1630,6 +1814,204 @@ def time_kernels(fa, device):
     return rows
 
 
+def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
+    """Phases 12-14: BASELINE families 3, 4 (at 1.3B), 5 (without its
+    mesh) and 6, and config 2 with T5's decoder prefixes, each the short
+    run through the CLI with its launch counts, then the micro-steps.
+    Returns {"runs": {key: summary}, "launches": {kernels-line name: n}}."""
+    runs, launches = {}, {}
+
+    # phase 12: OPT-1.3B + Roberta, text_only, LoRA, --freeze_lm true;
+    # 684 tokens (K1/K3), the prefill at 556 (K1)
+    per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
+           "fused_heads_attention": 0, "flash_attention": 0}
+    with tempfile.TemporaryDirectory() as log_dir:
+        lora = run_training(
+            cli, fa, device, log_dir, LORA_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+            {"flash_attention_allheads":
+                 (ROBERTA_LAYERS + OPT13_LAYERS) * micro,
+             "flash_attention_allheads_bwd": OPT13_LAYERS * micro,
+             "fused_heads_attention": 0, "flash_attention": 0,
+             "flash_attention_bwd": 0},
+            tag="opt-1.3b lora", per_eval=per, per_generate=per, updates=1,
+            idle=("text_embeddings.",),
+            zero_first=(lambda n: "lora_a" in n,
+                        "LoRA's A multiplies B, which starts at 0"))
+    lora["fp32_step"] = check_train_step(
+        cli, fa, device, LORA_ARGV,
+        ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+        "opt-1.3b lora", seeded=("lora_b",),
+        per_step={"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
+                  "flash_attention_allheads_bwd": OPT13_LAYERS})
+    runs["opt13b_lora_training"] = lora
+    lap("12")
+
+    # phase 13: MPT-1.3B + Roberta + CLIP, all, flamingo; the cross
+    # layers' attention (640 x 64) takes K4 and K5, the prefill's
+    # (512 x 64) K4
+    mpt_kernels = ("flash_attention_allheads", "flash_attention_allheads_bwd",
+                   "fused_heads_attention", "flash_attention",
+                   "flash_attention_bwd")
+    per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
+           "fused_heads_attention": CLIP_LAYERS,
+           "flash_attention": MPT_CROSS}
+    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir:
+        mpt = run_training(
+            cli, fa, device, log_dir, MPT_ARGV, mpt_kernels,
+            {"flash_attention_allheads":
+                 (ROBERTA_LAYERS + OPT13_LAYERS) * micro,
+             "flash_attention_allheads_bwd": MPT_GRAD_LAYERS * micro,
+             "fused_heads_attention": CLIP_LAYERS * micro,
+             "flash_attention": MPT_CROSS * micro,
+             "flash_attention_bwd": MPT_CROSS * micro},
+            tag="mpt-1.3b flamingo", per_eval=per, per_generate=per,
+            updates=1,
+            zero_first=(flamingo_zero,
+                        "the cross layers and the memory reach the loss "
+                        "only through branches scaled by tanh(gate), and "
+                        "the gates start at 0"))
+    print(f"[mpt-1.3b flamingo] K4 launches by (Sq, Sk): {tally.flash}; "
+          f"K5: {tally.flash_bwd}")
+    # the cross-attention at 640 x 64 in every micro-step and eval step,
+    # at 512 x 64 in every prefill; K5 in the micro-steps alone
+    want = ({(640, 64): MPT_CROSS * (micro + mpt["eval_steps"]),
+             (512, 64): MPT_CROSS * mpt["generated_batches"]},
+            {(640, 64): MPT_CROSS * micro})
+    if (tally.flash, tally.flash_bwd) != want:
+        fail(f"MPT's K4/K5 launches by shape {tally.flash} / "
+             f"{tally.flash_bwd}, expected {want}")
+    launches["flash_attention[mpt-cross]"] = tally.flash[(640, 64)]
+    launches["flash_attention_bwd[mpt-cross]"] = tally.flash_bwd[(640, 64)]
+    mpt["k4_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.flash.items()}
+    mpt_step = {"flash_attention": MPT_CROSS,
+                "flash_attention_bwd": MPT_CROSS,
+                "flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
+                "flash_attention_allheads_bwd": MPT_GRAD_LAYERS,
+                "fused_heads_attention": CLIP_LAYERS}
+    mpt["fp32_step"] = check_train_step(
+        cli, fa, device, MPT_ARGV, mpt_kernels, "mpt-1.3b flamingo",
+        seeded=("gating",), per_step=mpt_step)
+    mpt["bf16_step"] = check_train_step(
+        cli, fa, device, MPT_ARGV, mpt_kernels, "mpt-1.3b flamingo",
+        half=True, seeded=("gating",), per_step=mpt_step)
+    runs["mpt13b_flamingo_training"] = mpt
+    lap("13")
+
+    # phase 14a: OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704
+    # queries against 20 + 704 keys take K4 and K5; the prefill K1
+    per_eval = {"flash_attention_allheads": ROBERTA_LAYERS,
+                "fused_heads_attention": CLIP_LAYERS,
+                "flash_attention": OPT_LAYERS}
+    per_gen = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+               "fused_heads_attention": CLIP_LAYERS, "flash_attention": 0}
+    prefix_kernels = ("flash_attention_allheads", "fused_heads_attention",
+                      "flash_attention", "flash_attention_bwd")
+    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir:
+        prefix = run_training(
+            cli, fa, device, log_dir, PREFIX_ARGV, prefix_kernels,
+            {"flash_attention_allheads": ROBERTA_LAYERS * micro,
+             "flash_attention_allheads_bwd": 0,
+             "fused_heads_attention": CLIP_LAYERS * micro,
+             "flash_attention": OPT_LAYERS * micro,
+             "flash_attention_bwd": OPT_LAYERS * micro},
+            tag="opt prefix", per_eval=per_eval, per_generate=per_gen,
+            updates=1, idle=OPT_GRAPH_IDLE)
+    print(f"[opt prefix] K4 launches by (Sq, Sk): {tally.flash}; K5: "
+          f"{tally.flash_bwd}")
+    if set(tally.flash) != {(704, 724)} or set(tally.flash_bwd) != {
+            (704, 724)}:
+        fail(f"prefix tuning's K4/K5 ran at {tally.flash} / "
+             f"{tally.flash_bwd}, expected 704 x 724 only")
+    launches["flash_attention[prefix]"] = tally.flash[(704, 724)]
+    launches["flash_attention_bwd[prefix]"] = tally.flash_bwd[(704, 724)]
+    prefix_step = {"flash_attention": OPT_LAYERS,
+                   "flash_attention_bwd": OPT_LAYERS,
+                   "flash_attention_allheads": ROBERTA_LAYERS,
+                   "fused_heads_attention": CLIP_LAYERS,
+                   "flash_attention_allheads_bwd": 0}
+    prefix["fp32_step"] = check_train_step(
+        cli, fa, device, PREFIX_ARGV, prefix_kernels, "opt prefix",
+        per_step=prefix_step)
+    prefix["bf16_step"] = check_train_step(
+        cli, fa, device, PREFIX_ARGV, prefix_kernels, "opt prefix",
+        half=True, per_step=prefix_step)
+    runs["opt_prefix_training"] = prefix
+
+    # phase 14b: OPT-125M + Roberta + CLIP, all, GCN, prompt: 20 + 704 =
+    # 724 tokens take K1 and K3, the prefill at 20 + 576 = 596 K1
+    per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+           "fused_heads_attention": CLIP_LAYERS, "flash_attention": 0}
+    with tempfile.TemporaryDirectory() as log_dir:
+        prompt = run_training(
+            cli, fa, device, log_dir, PROMPT_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd",
+             "fused_heads_attention"),
+            {"flash_attention_allheads":
+                 (ROBERTA_LAYERS + OPT_LAYERS) * micro,
+             "flash_attention_allheads_bwd": OPT_LAYERS * micro,
+             "flash_attention": 0,
+             "fused_heads_attention": CLIP_LAYERS * micro},
+            tag="opt prompt", per_eval=per, per_generate=per, updates=1,
+            idle=OPT_GRAPH_IDLE)
+    prompt["fp32_step"] = check_train_step(
+        cli, fa, device, PROMPT_ARGV,
+        ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+        "opt prompt",
+        per_step={"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+                  "flash_attention_allheads_bwd": OPT_LAYERS,
+                  "fused_heads_attention": CLIP_LAYERS})
+    runs["opt_prompt_training"] = prompt
+
+    # phase 14c: BASELINE config 2 with T5's decoder prefixes: 128 queries
+    # against 20 + 128 keys with a ragged bias take K7 and K8
+    emb_eval = {"flash_attention_allheads": ROBERTA_LAYERS,
+                "fused_heads_attention": CLIP_LAYERS,
+                "flash_attention_bias": 2 * T5_LAYERS,
+                "flash_attention": T5_LAYERS}
+    emb_gen = {"flash_attention_allheads": ROBERTA_LAYERS,
+               "fused_heads_attention": CLIP_LAYERS,
+               "flash_attention_bias": T5_LAYERS, "flash_attention": 0}
+    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir:
+        t5p = run_training(
+            cli, fa, device, log_dir, T5_PREFIX_ARGV,
+            ("flash_attention_allheads", "fused_heads_attention",
+             "flash_attention_bias", "flash_attention_bias_bwd"),
+            {"flash_attention_allheads": ROBERTA_LAYERS * micro,
+             "fused_heads_attention": CLIP_LAYERS * micro,
+             "flash_attention_bias": 3 * T5_LAYERS * micro,
+             "flash_attention_bias_bwd": 3 * T5_LAYERS * micro,
+             "flash_attention_allheads_bwd": 0, "flash_attention": 0,
+             "flash_attention_bwd": 0},
+            tag="t5 prefix", per_eval=emb_eval, per_generate=emb_gen,
+            updates=1)
+    print(f"[t5 prefix] K7 launches by (Sq, Sk): {tally.fwd}; K8/K9: "
+          f"{tally.bwd}")
+    dec = (128, 128 + VIRTUAL)
+    # training: 12 a micro-step; each eval step (val before, val after,
+    # test) 12; generation none (no prefix, and one query a step)
+    evals = t5p["eval_steps"]
+    if tally.fwd.get(dec) != T5_LAYERS * (micro + evals) or tally.bwd.get(
+            dec) != T5_LAYERS * micro or (128, 128) in tally.fwd:
+        fail(f"T5's prefixed decoder launched K7 {tally.fwd} and K8 "
+             f"{tally.bwd}, expected {dec} {T5_LAYERS * (micro + evals)} "
+             f"and {T5_LAYERS * micro} times")
+    launches["flash_attention_bias[t5-prefix]"] = tally.fwd[dec]
+    launches["flash_attention_bias_bwd[t5-prefix]"] = tally.bwd[dec]
+    t5p["k7_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.fwd.items()}
+    t5p["bf16_step"] = check_train_step(
+        cli, fa, device, T5_PREFIX_ARGV,
+        ("flash_attention_bias", "flash_attention_bias_bwd"), "t5 prefix",
+        half=True,
+        per_step={"flash_attention": T5_LAYERS,
+                  "flash_attention_bwd": T5_LAYERS,
+                  "flash_attention_bias": 2 * T5_LAYERS,
+                  "flash_attention_bias_bwd": 2 * T5_LAYERS})
+    runs["t5_prefix_training"] = t5p
+    lap("14")
+    return {"runs": runs, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1652,6 +2034,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     start = time.perf_counter()
+    laps = {}
+
+    def lap(phase):
+        """Seconds since the build started, at the end of ``phase``."""
+        laps[phase] = round(time.perf_counter() - start, 1)
+        print(f"[elapsed] phases up to {phase}: {laps[phase]} s")
+
     lib = _build.load()
     print(f"[build] {lib.path.name}: nvcc {lib.seconds:.2f} s, load "
           f"{time.perf_counter() - start:.2f} s; ptxas:")
@@ -1661,9 +2050,11 @@ def main() -> int:
     # the worst error of each kernel (its fp16 form apart, wkey); K4 with
     # its row stats keeps its own: output, max and sum
     worst = collections.defaultdict(float)
+    lap("2")
     check_opt_kernels(fa, device, worst)
     keep = check_t5_kernels(fa, device, worst)
     check_blocked_kernels(fa, device, worst)
+    lap("3")
 
     test, results, opt_test, rate, peak = run_test_pass(
         cli, fa, device, OPT_TEST_ARGV, OPT_TEST_KERNELS, tag="opt")
@@ -1675,6 +2066,8 @@ def main() -> int:
     step = check_train_step(cli, fa, device, OPT_TRAIN_ARGV,
                             OPT_TRAIN_KERNELS, "opt")
     micro = TRAIN_UPDATES   # micro-batches per update (4 x 4)
+
+    lap("5")
 
     # phase 5c: float16 compute on the tensor-core bodies, end to end
     # through the CLI: one OPT-125M update, one T5-base update (val and
@@ -1711,6 +2104,7 @@ def main() -> int:
                       "flash_attention_bias": 2 * T5_LAYERS,
                       "flash_attention_bias_bwd": 2 * T5_LAYERS})
 
+    lap("5c")
     per_eval = {"flash_attention_bias": 2 * T5_LAYERS,
                 "flash_attention": T5_LAYERS,
                 "fused_heads_attention": T5_LAYERS}
@@ -1744,7 +2138,9 @@ def main() -> int:
          "flash_attention", "flash_attention_bwd"), "t5", tol=T5_STEP_TOL,
         plain_on_card=True)
 
+    lap("7")
     rows = time_kernels(fa, device)
+    lap("8")
     torch.cuda.empty_cache()    # the plain versions' (4, 16, 2048, 2048)s
 
     # phase 9: OPT-350M at its 2048-token window, with the blocked backward
@@ -1794,6 +2190,8 @@ def main() -> int:
                  f"OPT-350M {dtype_name} run, expected every launch in its "
                  f"training steps ({run['in_steps']['flash_attention']})")
     print(f"[opt350m] K4 launches keeping the row stats: {stats}")
+
+    lap("9")
 
     # phase 10: the embedding mode at full width, BASELINE config 2
     emb_eval = {"flash_attention_allheads": ROBERTA_LAYERS,
@@ -1845,6 +2243,8 @@ def main() -> int:
                   "fused_heads_attention": CLIP_LAYERS,
                   "flash_attention_allheads_bwd": 0})
 
+    lap("10")
+
     # phase 11: OPT-125M + Roberta + CLIP, context all, embedding, with the
     # Laplacian and the GCN position encodings: one update through the CLI
     # each, OPT at 640 + 64 = 704 tokens (K1/K3), its prefill at 576
@@ -1864,6 +2264,9 @@ def main() -> int:
                  "fused_heads_attention": CLIP_LAYERS * micro},
                 tag=f"opt {pt}", per_eval=per, per_generate=per, updates=1,
                 idle=OPT_GRAPH_IDLE)
+
+    lap("11")
+    peft = run_peft_phases(cli, fa, device, micro, lap)
 
     print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
@@ -1894,6 +2297,8 @@ def main() -> int:
                            for (a, b), n in emb_shapes.bwd.items()},
         "card": card}}))
     print(json.dumps({"opt_graph": {**graph, "card": card}}))
+    for key, run in peft["runs"].items():
+        print(json.dumps({key: {**run, "card": card}}))
 
     # each kernel's launches from the path that runs it: K1-K3 the OPT
     # training run, K4 the T5 test pass, K7/K8/K9 the T5 training run, K5
@@ -1930,6 +2335,10 @@ def main() -> int:
         fp16_shapes.bwd.values()) - fp16_k9
     launches[wkey("flash_attention[stats]", "float16")] = stats[
         "float16"]["float16"]
+    # phases 12-14: the new shapes of K4/K5 (MPT's cross-attention, prefix
+    # tuning) and K7/K8 (T5's prefixed decoder), each from the run that
+    # takes it, prefills and eval steps included
+    launches.update(peft["launches"])
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():
@@ -1960,6 +2369,7 @@ def main() -> int:
             "dtype": "float16" if fp16 else "bfloat16",
             "design": DESIGNS["bias_tc" if base in BIAS_KERNELS
                               else "tc"]})
+    print(json.dumps({"elapsed_s": laps, "card": card}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -185,18 +185,20 @@ def main(argv=None) -> Dict[str, float]:
 
 
 def check_training_flags(args: Arguments) -> None:
-    """Refuse what training does not port yet."""
+    """Refuse what training does not port yet, naming its ROADMAP item.
+    Every ``--peft_type`` trains."""
     unported = {
-        "--cache_neighbor_embeddings": args.cache_neighbor_embeddings,
-        "--chunked_ce": args.chunked_ce > 0,
+        "--cache_neighbor_embeddings (ROADMAP A2)":
+            args.cache_neighbor_embeddings,
+        "--chunked_ce (ROADMAP A9)": args.chunked_ce > 0,
         "--fused_ce false": not args.fused_ce,
-        "--remat": args.remat,
-        f"--mesh_shape {args.mesh_shape} (one device only)":
+        "--remat (ROADMAP A9)": args.remat,
+        f"--mesh_shape {args.mesh_shape} (one device only, ROADMAP A8)":
             math.prod(args.mesh_shape) != 1,
-        "--zero1": args.zero1,
-        "--fsdp": args.fsdp,
-        "--distributed": args.distributed,
-        "--profile_dir": bool(args.profile_dir),
+        "--zero1 (ROADMAP A8)": args.zero1,
+        "--fsdp (ROADMAP A8)": args.fsdp,
+        "--distributed (ROADMAP A8)": args.distributed,
+        "--profile_dir (ROADMAP A10)": bool(args.profile_dir),
     }
     refused = [flag for flag, is_set in unported.items() if is_set]
     if refused:

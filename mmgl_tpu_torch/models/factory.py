@@ -12,9 +12,17 @@ ported yet (ROADMAP A4): a checkpoint directory named by
 ``--model_name_or_path``, ``--visual_model`` or ``--text_model`` raises,
 where the JAX package would overlay it (``maybe_import_pretrained``).
 
+``mpt-<size>`` is OPT of that size with MPT's cross layers over the
+neighbour memory, one every ``layers // --num_neighbor_layers`` layers
+(mmgl_tpu/models/factory.py:51-70, 113-114, 135), where the embedding
+mode gives it a memory. The PEFT fields (``--peft_type``, ``--lora_r``,
+``--lora_alpha``, ``--lora_dropout``) go into the OPT config and the
+fusion config.
+
 On a CUDA device ``build_model`` refuses, before anything is built, what
-the attention kernels cannot run: a head dim other than 64 (ROADMAP B4).
-The kernels take fp32, bf16 and fp16 (``--compute_dtype``).
+the attention kernels cannot run: a head dim other than 64 (ROADMAP B4;
+OPT and MPT at 2.7B and 6.7B). The kernels take fp32, bf16 and fp16
+(``--compute_dtype``).
 """
 
 from __future__ import annotations
@@ -84,18 +92,13 @@ def _t5_config(args: Arguments, size: str) -> T5Config:
 
 def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                         tokenizer=None) -> FusionConfig:
-    """Raises NotImplementedError for what is not ported yet: MPT and its
-    cross-attention memory, PEFT, and (FusionConfig) the CLIP text tower."""
+    """Raises NotImplementedError for what is not ported yet: (FusionConfig)
+    the CLIP text tower."""
     name = args.model_name_or_path or "opt-tiny"
     tiny = "tiny" in name
-    if "mpt" in name:
-        # the flag parser turns --neighbor_mode cross_attention into the
-        # embedding mode's batches (config.py); only MPT consumes them as
-        # cross-attention memory (mmgl_tpu/models/fusion.py:58-62)
-        raise NotImplementedError(
-            f"{name}, neighbor_mode={args.neighbor_mode!r}: MPT's gated "
-            "cross-attention is not ported yet (ROADMAP A7)")
-    if "t5" not in name and "opt" not in name:
+    # substring selection in the JAX package's order: t5, mpt, opt
+    mpt = "t5" not in name and "mpt" in name
+    if "t5" not in name and "opt" not in name and not mpt:
         raise ValueError(f"unsupported model {name} (need t5/opt/mpt)")
     if (args.neighbor_mode == "embedding"
             and args.n_text_tokens != args.n_visual_tokens):
@@ -105,9 +108,6 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
             f"n_text_tokens ({args.n_text_tokens}) must equal "
             f"n_visual_tokens ({args.n_visual_tokens}) in "
             f"neighbor_mode={args.neighbor_mode!r}")
-    if args.peft_type != "none":
-        raise NotImplementedError(
-            f"peft_type={args.peft_type!r} is not ported yet")
 
     dt = _compute_dtype(args)
     opt_cfg = t5_cfg = None
@@ -131,6 +131,10 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
             num_attention_heads=heads, ffn_dim=ffn, word_embed_proj_dim=proj,
             do_layer_norm_before=(size != "350m"),
             dropout=0.0 if size == "tiny" else 0.1, layerdrop=args.layerdrop,
+            neighbor_layer_wise=max(1, layers
+                                    // max(1, args.num_neighbor_layers)),
+            peft_type=args.peft_type, lora_r=args.lora_r,
+            lora_alpha=args.lora_alpha, lora_dropout=args.lora_dropout,
             dtype=dt, use_pallas=args.use_pallas)
         if vocab_size:
             opt_cfg = replace(opt_cfg, vocab_size=vocab_size)
@@ -158,7 +162,7 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                         num_attention_heads=2, intermediate_size=64,
                         vocab_size=vocab_size or 50265, **tower_kw))
 
-    return FusionConfig(
+    cfg = FusionConfig(
         context=args.context, neighbor_mode=args.neighbor_mode,
         n_text_tokens=args.n_text_tokens,
         n_visual_tokens=args.n_visual_tokens,
@@ -167,15 +171,23 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
         max_image_neighbors=args.max_image_neighbors,
         max_input_length=args.max_input_length,
         max_output_length=args.max_output_length,
-        text_model_name=args.text_model, opt=opt_cfg, vision=vision_cfg,
+        text_model_name=args.text_model, mpt=mpt,
+        peft_type=args.peft_type, opt=opt_cfg, vision=vision_cfg,
         t5=t5_cfg, text=text_cfg)
+    if cfg.has_memory:
+        # the JAX package sets cross_attention for every MPT, and flax
+        # creates the cross layers at their first call: only where the
+        # fusion model hands the decoder a memory
+        cfg = replace(cfg, opt=replace(opt_cfg, cross_attention=True))
+    return cfg
 
 
 def _refuse_head_dims(cfg: FusionConfig, device: torch.device,
                       use_pallas: bool) -> None:
     """On a CUDA device with the kernel route, raise for a head dim the
-    kernels do not take (OPT-2.7B's 80, 6.7B's 128): the first attention
-    would raise only after the model and the data were built."""
+    kernels do not take (OPT-2.7B's and mpt-2.7b's 80, OPT-6.7B's and
+    mpt-6.7b's 128): the first attention would raise only after the model
+    and the data were built."""
     if device.type != "cuda" or not use_pallas:
         return
     dims = {"lm": (cfg.t5.d_kv if cfg.t5 is not None else cfg.opt.head_dim)}

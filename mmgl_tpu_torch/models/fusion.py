@@ -19,6 +19,22 @@ embedding neighbor modes, all four contexts:
   -100 there (``_append_neighbors``). section_only and text_only append the
   text neighbors alone.
 
+MPT (``mpt``, an OPT with cross layers, models/opt.py) in the embedding
+mode takes the neighbour block as cross-attention memory instead of
+appending it (``uses_mpt_memory``; mmgl_tpu/models/fusion.py:64-72,
+255-262, 281-286): the LM sees the prompt and summary alone, its
+``neighbor_layers`` read the block under its mask, in training, the prefill
+and every decode step; its position tables always exist, and the graph
+encodings and prompt tuning do not apply. In the raw mode MPT is OPT.
+
+PEFT: prompt tuning prepends ``num_virtual_tokens`` learned embeddings
+(``prompt_tuning``) to the LM's (T5: the encoder's) input, the mask
+extended with ones and OPT's labels with -100 (:347-358); prefix tuning
+hands ``prefix_tuning``'s per-layer keys and values to the LM's
+self-attention (T5: the decoder's) in the teacher-forced forward
+(:158-167), and to nothing in generation, as in the JAX package. LoRA and
+the flamingo gates live in the LM (models/opt.py).
+
 The towers run without autograd (``stop_gradient`` at
 mmgl_tpu/models/fusion.py:176-193): the text tower's stop sits after
 ``text_pooler``, so the pooler is trainable but gets no gradient (the
@@ -26,8 +42,7 @@ train step gives such a parameter, named in ``gradless_prefixes``, a zero
 one, as jax.grad does, and raises for any other without a gradient). The
 projections, position tables, ``lpe_embeddings`` and ``gnn`` train. T5's
 labels are the summary alone and are left as they are (fusion.py:308).
-Cross-attention mode, MPT, the CLIP text tower and PEFT are refused at
-model build (models/factory.py).
+The CLIP text tower is refused (``FusionConfig``, ROADMAP A5).
 
 Batches are the data layer's dicts of numpy arrays or tensors, with the same
 keys and shapes as the JAX package's; ``_as_tensor`` moves every field to
@@ -50,6 +65,7 @@ from mmgl_tpu_torch.models.layers import Embedding, Linear
 from mmgl_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
 from mmgl_tpu_torch.models.roberta import RobertaConfig, RobertaModel
 from mmgl_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+from mmgl_tpu_torch.peft.virtual_tokens import PrefixTuning, PromptTuning
 
 IGNORE_INDEX = -100
 
@@ -61,9 +77,12 @@ POSITION_TYPES = ("none", "embedding", "laplacian", "gnn")
 
 @dataclass(frozen=True)
 class FusionConfig:
-    """OPT (decoder-only) or T5 (encoder-decoder) with raw or embedding
-    neighbors: exactly one of ``opt`` and ``t5`` is set; ``text`` is the
-    Roberta tower's config where the embedding mode needs it."""
+    """OPT (decoder-only; with ``mpt`` MPT, whose ``opt`` config then has
+    the cross layers where a memory exists) or T5 (encoder-decoder) with
+    raw or embedding neighbors: exactly one of ``opt`` and ``t5`` is set;
+    ``text`` is the Roberta tower's config where the embedding mode needs
+    it; ``peft_type`` picks the virtual tokens (prompt, prefix) this model
+    holds (LoRA and the gates are the LM's)."""
     context: str = "section_only"         # one of CONTEXTS
     neighbor_mode: str = "raw"            # one of NEIGHBOR_MODES
     n_text_tokens: int = 4
@@ -74,6 +93,9 @@ class FusionConfig:
     max_input_length: int = 512
     max_output_length: int = 128
     text_model_name: str = "roberta-base"
+    mpt: bool = False                     # OPT with MPT's cross layers
+    peft_type: str = "none"
+    num_virtual_tokens: int = 20
     opt: Optional[OPTConfig] = None
     vision: Optional[CLIPVisionConfig] = None
     t5: Optional[T5Config] = None
@@ -94,8 +116,32 @@ class FusionConfig:
                 "is not ported yet (ROADMAP A5)")
 
     @property
+    def uses_mpt_memory(self) -> bool:
+        """MPT takes the embedding mode's neighbours as cross-attention
+        memory (the flag parser maps cross_attention to embedding)."""
+        return self.mpt and self.neighbor_mode == "embedding"
+
+    @property
     def needs_text_tower(self) -> bool:
+        if self.mpt:
+            return self.has_memory
         return self.neighbor_mode == "embedding"
+
+    @property
+    def has_memory(self) -> bool:
+        """Whether MPT's decoder gets a neighbour memory, and so has cross
+        layers (the JAX package creates them on their first call)."""
+        return self.uses_mpt_memory and self.context != "section_only"
+
+    @property
+    def neighbor_positions(self) -> bool:
+        """Whether the neighbour position tables exist: a position type, or
+        MPT (mmgl_tpu/models/fusion.py:131, :141)."""
+        return self.position_type != "none" or self.mpt
+
+    @property
+    def prompt_tuning(self) -> bool:
+        return self.peft_type == "prompt" and not self.uses_mpt_memory
 
     @property
     def needs_vision_tower(self) -> bool:
@@ -106,7 +152,8 @@ class FusionConfig:
         """Whether the neighbor block takes the Laplacian or GCN encodings:
         context all only, where the JAX package calls (and so creates)
         ``lpe_embeddings`` and ``gnn`` (fusion.py:324-331)."""
-        return (self.needs_text_tower and self.context == "all"
+        return (self.needs_text_tower and not self.uses_mpt_memory
+                and self.context == "all"
                 and self.position_type in ("laplacian", "gnn"))
 
     @property
@@ -143,19 +190,21 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
 
 
 class MMGLModel(nn.Module):
-    # trainable parameters behind the text tower's stop_gradient: the train
-    # step gives these, and only these, a zero gradient
-    gradless_prefixes = ("text_pooler.",)
-
     def __init__(self, cfg: FusionConfig):
         super().__init__()
         self.config = cfg
+        # trainable parameters off the gradient path, which the train step
+        # gives, and only these, a zero gradient as jax.grad does: the text
+        # pooler, behind the text tower's stop_gradient, and MPT's prefix
+        # table, which the JAX package creates and never hands its LM
+        self.gradless_prefixes = ("text_pooler.",) + (
+            ("prefix_tuning.",) if cfg.uses_mpt_memory else ())
         self.lm = (OPTForCausalLM(cfg.opt) if cfg.decoder_only
                    else T5ForConditionalGeneration(cfg.t5))
         dim, dt = cfg.embed_dim, cfg.dtype
         # the modules of mmgl_tpu/models/fusion.py:117-156 that the JAX
         # package calls, and so creates parameters for, in this config
-        positions = cfg.position_type != "none"
+        positions = cfg.neighbor_positions
         if cfg.needs_text_tower:
             text_dim = dim * cfg.n_text_tokens
             hidden = cfg.text.hidden_size
@@ -183,6 +232,18 @@ class MMGLModel(nn.Module):
         if cfg.graph_positions and cfg.position_type == "gnn":
             self.gnn = GCN(dim * cfg.n_text_tokens, dim * cfg.n_text_tokens,
                            cfg.text.hidden_size, compute_dtype=dt)
+        if cfg.prompt_tuning:
+            self.prompt_tuning = PromptTuning(cfg.num_virtual_tokens, dim)
+        if cfg.peft_type == "prefix":
+            # T5: the decoder's self-attention only (encoder-decoder prefix
+            # tuning, mmgl_tpu/models/fusion.py:158-167)
+            t5, opt = cfg.t5, cfg.opt
+            layers, heads, head_dim = (
+                (t5.num_decoder_layers, t5.num_heads, t5.d_kv) if t5
+                else (opt.num_hidden_layers, opt.num_attention_heads,
+                      opt.head_dim))
+            self.prefix_tuning = PrefixTuning(
+                layers, cfg.num_virtual_tokens, heads, head_dim)
 
     @property
     def device(self) -> torch.device:
@@ -253,32 +314,48 @@ class MMGLModel(nn.Module):
         """Returns {"logits": (B, S, V), "labels": adjusted labels}.
         ``generator`` is the dropout stream, needed in training mode."""
         fused = self._fuse(batch)
-        if not self.config.decoder_only:
-            logits = self.lm(
-                input_ids=None if fused["inputs_embeds"] is not None
-                else fused["input_ids"],
-                inputs_embeds=fused["inputs_embeds"],
+        ids = (None if fused["inputs_embeds"] is not None
+               else fused["input_ids"])
+        if self.config.uses_mpt_memory:
+            # the prefix table is not handed to MPT's decoder
+            # (mmgl_tpu/models/fusion.py:255-262)
+            logits, _ = self.lm(
+                input_ids=fused["input_ids"],
                 attention_mask=fused["attention_mask"],
-                labels=fused["labels"], generator=generator)
-            return {"logits": logits, "labels": fused["labels"]}
-        logits, _ = self.lm(
-            input_ids=None if fused["inputs_embeds"] is not None
-            else fused["input_ids"],
-            inputs_embeds=fused["inputs_embeds"],
-            attention_mask=fused["attention_mask"], generator=generator)
+                neighbor_embeds=fused["neighbor_embeds"],
+                neighbor_mask=fused["neighbor_mask"], generator=generator)
+        elif not self.config.decoder_only:
+            logits = self.lm(
+                input_ids=ids, inputs_embeds=fused["inputs_embeds"],
+                attention_mask=fused["attention_mask"],
+                labels=fused["labels"], generator=generator,
+                prefix_kvs=fused["prefix_kvs"])
+        else:
+            logits, _ = self.lm(
+                input_ids=ids, inputs_embeds=fused["inputs_embeds"],
+                attention_mask=fused["attention_mask"], generator=generator,
+                prefix_kvs=fused["prefix_kvs"])
         return {"logits": logits, "labels": fused["labels"]}
 
     def _fuse(self, batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
         """Image splice (raw section_all / all), soft tokens appended
-        (embedding), or a plain LM call (raw section_only / text_only)."""
+        (embedding), MPT's memory, or a plain LM call (raw section_only /
+        text_only); then the virtual tokens of prompt or prefix tuning."""
         cfg = self.config
         batch = {k: _as_tensor(v, self.device) for k, v in batch.items()}
         input_ids = batch["input_ids"].long()
         attention_mask = batch["attention_mask"]
         labels = batch["labels"].long() if "labels" in batch else None
-        inputs_embeds = None
+        inputs_embeds = neighbor_embeds = neighbor_mask = None
 
-        if cfg.neighbor_mode == "embedding" and not cfg.needs_vision_tower:
+        if cfg.uses_mpt_memory:
+            if cfg.has_memory:
+                block, block_mask = self._build_neighbor_block(batch)
+                b, total, n_tok = block.shape[:3]
+                neighbor_embeds = block.reshape(b, total * n_tok, -1)
+                neighbor_mask = block_mask.reshape(b, total * n_tok)
+        elif (cfg.neighbor_mode == "embedding"
+              and not cfg.needs_vision_tower):
             # text neighbors appended as soft tokens
             # (modelling_self_attention.py:263-280)
             text = self.get_text_embs(batch["neighbor_input_ids"],
@@ -326,8 +403,25 @@ class MMGLModel(nn.Module):
                 labels[rows, pos] = IGNORE_INDEX
                 labels = labels[:, :s]
 
+        if cfg.prompt_tuning:
+            if inputs_embeds is None:
+                inputs_embeds = self.lm.embed(input_ids.clamp(min=0))
+            b = inputs_embeds.shape[0]
+            virtual = self.prompt_tuning(b).to(inputs_embeds.dtype)
+            inputs_embeds = torch.cat([virtual, inputs_embeds], dim=1)
+            attention_mask = torch.cat([attention_mask.new_ones(
+                b, cfg.num_virtual_tokens), attention_mask], dim=1)
+            if cfg.decoder_only and labels is not None:
+                labels = torch.cat([labels.new_full(
+                    (b, cfg.num_virtual_tokens), IGNORE_INDEX), labels],
+                    dim=1)
+
         return {"input_ids": input_ids, "inputs_embeds": inputs_embeds,
-                "attention_mask": attention_mask, "labels": labels}
+                "attention_mask": attention_mask, "labels": labels,
+                "neighbor_embeds": neighbor_embeds,
+                "neighbor_mask": neighbor_mask,
+                "prefix_kvs": (self.prefix_tuning()
+                               if cfg.peft_type == "prefix" else None)}
 
     def _build_neighbor_block(self, batch: Dict
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -378,25 +472,32 @@ class MMGLModel(nn.Module):
 
     # ---- generation support (train/generate.py) ----
 
-    def prefill_inputs(self, batch: Dict) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
-        """(inputs_embeds, attention_mask) for a prompt-only batch: in the
+    def prefill_inputs(self, batch: Dict):
+        """(inputs_embeds, attention_mask, neighbor_embeds, neighbor_mask)
+        for a prompt-only batch (mmgl_tpu/models/fusion.py:373-381): in the
         embedding mode the fused sequence [prompt; soft tokens] and the
-        prompt mask extended by the neighbors' (mmgl_tpu/models/fusion.py
-        :373-381)."""
+        prompt mask extended by the neighbors'; with prompt tuning the
+        virtual tokens in front; for MPT the prompt and its memory (else the
+        memory is None). No prefix: generation runs without it."""
         fused = self._fuse(batch)
         inputs_embeds = fused["inputs_embeds"]
         if inputs_embeds is None:
             inputs_embeds = self.lm.embed(fused["input_ids"].clamp(min=0))
-        return inputs_embeds, fused["attention_mask"]
+        return (inputs_embeds, fused["attention_mask"],
+                fused["neighbor_embeds"], fused["neighbor_mask"])
 
     def lm_decode(self, input_ids=None, inputs_embeds=None,
-                  attention_mask=None, caches: Optional[list] = None,
+                  attention_mask=None, neighbor_embeds=None,
+                  neighbor_mask=None, caches: Optional[list] = None,
                   position_ids=None) -> Tuple[torch.Tensor, list]:
-        """Direct decoder-only LM call with caches (generation steps)."""
+        """Direct decoder-only LM call with caches (generation steps),
+        MPT's memory where given; no prefix (the JAX package's
+        ``lm_decode`` takes none)."""
         return self.lm(input_ids=input_ids, inputs_embeds=inputs_embeds,
                        attention_mask=attention_mask, caches=caches,
-                       position_ids=position_ids)
+                       position_ids=position_ids,
+                       neighbor_embeds=neighbor_embeds,
+                       neighbor_mask=neighbor_mask)
 
     def encode_t5(self, inputs_embeds=None, attention_mask=None
                   ) -> torch.Tensor:

@@ -75,6 +75,44 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), cast_at_use(self.weight, dt), bias)
 
 
+class LoRALinear(Linear):
+    """flax ``LoRADense`` (mmgl_tpu/models/layers.py:23-61): y = x W + b +
+    (dropout(x) A) B * alpha / r, in the compute dtype, with ``lora_a``
+    (in, r) and ``lora_b`` (r, out) in the flax layout (so x @ A @ B, no
+    transposes). A is drawn from he_uniform and B is zero (``seeded_init``,
+    called by ``init_weights``), so the adapter adds nothing until B
+    moves. With ``rank`` 0 it is a plain Linear. The adapter's dropout, in
+    training mode only, draws from ``generator``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, rank: int = 0, alpha: float = 1.0, dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias,
+                         compute_dtype=compute_dtype)
+        self.rank, self.scale = rank, alpha / max(rank, 1)
+        if rank > 0:
+            self.lora_a = nn.Parameter(torch.empty(in_features, rank))
+            self.lora_b = nn.Parameter(torch.zeros(rank, out_features))
+            self.lora_dropout = Dropout(dropout)
+
+    def seeded_init(self, generator: torch.Generator) -> None:
+        """he_uniform for A (variance 2 / fan_in, fan_in = in), zero B."""
+        if self.rank > 0:
+            limit = math.sqrt(6.0 / self.in_features)
+            self.lora_a.uniform_(-limit, limit, generator=generator)
+            self.lora_b.zero_()
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = super().forward(x)
+        if self.rank == 0:
+            return y
+        dt = self.compute_dtype
+        h = self.lora_dropout(x.to(dt), generator)
+        return y + (h @ cast_at_use(self.lora_a, dt)) @ cast_at_use(
+            self.lora_b, dt) * self.scale
+
+
 class LayerNorm(nn.LayerNorm):
     """flax ``LayerNorm(dtype=compute_dtype)``: statistics, scale and bias in
     fp32, the output rounded to the compute dtype. (torch's CUDA layer_norm
@@ -176,8 +214,11 @@ def init_weights(module: torch.nn.Module, generator: torch.Generator) -> None:
     with the distributions of the flax defaults (the numbers differ: the two
     frameworks' generators do): Dense kernels normal with std
     1/sqrt(fan_in) and zero bias, Embed tables normal with std
-    1/sqrt(features), LayerNorm 1 and 0."""
+    1/sqrt(features), LayerNorm 1 and 0; a module with its own rule (the
+    LoRA adapter, the virtual-token tables) through its ``seeded_init``."""
     for m in module.modules():
+        if hasattr(m, "seeded_init"):
+            m.seeded_init(generator)
         if isinstance(m, torch.nn.Linear):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
                              generator=generator)

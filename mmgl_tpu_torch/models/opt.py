@@ -1,4 +1,4 @@
-"""OPT decoder-only LM (counterpart of mmgl_tpu/models/opt.py:38-420).
+"""OPT decoder-only LM and MPT (counterpart of mmgl_tpu/models/opt.py:38-420).
 
 Covers the pre-LN ordering of OPT-125M/1.3B/2.7B/6.7B and the post-LN
 ordering of OPT-350M, whose 512-wide embeddings go through ``project_in``
@@ -8,9 +8,27 @@ ordering of OPT-350M, whose 512-wide embeddings go through ``project_in``
 cumsum with offset 2, the tied LM head (``hidden @ E.T`` on the embedding's
 width), hidden dropout at the JAX package's three sites (embeddings, after
 attention, after fc2; attention dropout is 0) in training mode, and a KV
-cache for greedy decode. Layerdrop raises NotImplementedError here; MPT
-cross layers and prefix KV at model build (models/factory.py). Module
-names follow the flax parameter paths
+cache for greedy decode. Layerdrop raises NotImplementedError.
+
+PEFT and MPT:
+
+* LoRA (``peft_type=lora``) on the q and v projections of every attention
+  (``layers.LoRALinear``, rank ``lora_r``; :120-128).
+* Prefix K/V (``prefix_kvs``, one (P, H, D) pair a layer): [prefix; k] and
+  [prefix; v], the key mask extended with ones, in every self-attention
+  (:177-185). The causal mask aligns the ends, so every query sees the
+  prefix. The fusion model passes them in training and the teacher-forced
+  eval; generation does not (nor does the JAX package's).
+* MPT (``cross_attention``): ``neighbor_layers.i``, each a whole decoder
+  layer whose attention reads its keys and values from the neighbour
+  memory, non-causal under ``neighbor_mask`` (:149-153, :201-262), runs
+  after layer idx when (idx + 1) % ``neighbor_layer_wise`` == 0 and fewer
+  than ``num_neighbor_layers`` have run (:345-360), in training, the
+  prefill and every decode step. Under ``peft_type=flamingo`` its two
+  residual branches are gated by tanh(``gating1``) and tanh(``gating2``),
+  scalars that start at 0.
+
+Module names follow the flax parameter paths
 (``decoder.layers.0.self_attn.q_proj``) so weights convert mechanically
 (utils/convert.py). Attention runs through ops.multi_head_attention.
 """
@@ -24,7 +42,7 @@ import torch
 from torch import nn
 
 from mmgl_tpu_torch.models.layers import (ACT2FN, Dropout, Embedding,
-                                          LayerNorm, Linear,
+                                          LayerNorm, Linear, LoRALinear,
                                           make_positions_from_mask)
 from mmgl_tpu_torch.ops import multi_head_attention
 
@@ -46,8 +64,25 @@ class OPTConfig:
     pad_token_id: int = 1
     bos_token_id: int = 2
     eos_token_id: int = 2
+    # MPT: interleaved cross layers over the neighbour memory
+    cross_attention: bool = False
+    neighbor_layer_wise: int = 4            # a cross layer every k layers
+    peft_type: str = "none"                 # none|lora|prefix|prompt|flamingo
+    lora_r: int = 64
+    lora_alpha: float = 1.0
+    lora_dropout: float = 0.0
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
     use_pallas: bool = True      # False: attention_reference (--use_pallas)
+
+    @property
+    def num_neighbor_layers(self) -> int:
+        if not self.cross_attention:
+            return 0
+        return self.num_hidden_layers // self.neighbor_layer_wise
+
+    @property
+    def lora_rank(self) -> int:
+        return self.lora_r if self.peft_type == "lora" else 0
 
     @property
     def embed_dim(self) -> int:
@@ -93,26 +128,38 @@ def init_cache(config: OPTConfig, batch: int, max_len: int,
 
 
 class OPTAttention(nn.Module):
-    def __init__(self, cfg: OPTConfig):
+    """Causal self-attention, or with ``cross_attention`` non-causal
+    attention over the neighbour memory (``kv_states``)."""
+
+    def __init__(self, cfg: OPTConfig, cross_attention: bool = False):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.cross_attention = cfg, cross_attention
         e, dt = cfg.hidden_size, cfg.dtype
-        self.q_proj = Linear(e, e, compute_dtype=dt)
+        lora = dict(rank=cfg.lora_rank, alpha=cfg.lora_alpha,
+                    dropout=cfg.lora_dropout, compute_dtype=dt)
+        self.q_proj = LoRALinear(e, e, **lora)
         self.k_proj = Linear(e, e, compute_dtype=dt)
-        self.v_proj = Linear(e, e, compute_dtype=dt)
+        self.v_proj = LoRALinear(e, e, **lora)
         self.out_proj = Linear(e, e, compute_dtype=dt)
 
     def forward(self, hidden_states: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+                cache: Optional[KVCache] = None,
+                kv_states: Optional[torch.Tensor] = None,
+                prefix_kv: Optional[Tuple[torch.Tensor,
+                                          torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         cfg = self.cfg
         h, d = cfg.num_attention_heads, cfg.head_dim
         b, s, _ = hidden_states.shape
-        q = self.q_proj(hidden_states).view(b, s, h, d)
-        k = self.k_proj(hidden_states).view(b, s, h, d)
-        v = self.v_proj(hidden_states).view(b, s, h, d)
+        src = kv_states if self.cross_attention else hidden_states
+        q = self.q_proj(hidden_states, generator).view(b, s, h, d)
+        k = self.k_proj(src).view(b, -1, h, d)
+        v = self.v_proj(src, generator).view(b, -1, h, d)
 
-        causal = True
+        # the cross layers take no cache and no prefix
+        causal = not self.cross_attention
         if cache is not None:
             idx = cache.index
             cache.k[:, idx:idx + s] = k
@@ -134,6 +181,15 @@ class OPTAttention(nn.Module):
             # else: prefill attends causally over the current segment only
             # (exact when the cache is empty, the only prefill pattern)
 
+        if prefix_kv is not None:
+            # learned (P, H, D) keys and values in front, always visible
+            pk, pv = (t.to(k.dtype)[None].expand(b, *t.shape)
+                      for t in prefix_kv)
+            k, v = torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
+            if kv_mask is not None:
+                kv_mask = torch.cat([kv_mask.new_ones(b, pk.shape[1]),
+                                     kv_mask], dim=1)
+
         out = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=causal,
                                    use_pallas=cfg.use_pallas)
         return self.out_proj(out.reshape(b, s, cfg.hidden_size))
@@ -141,12 +197,16 @@ class OPTAttention(nn.Module):
 
 class OPTDecoderLayer(nn.Module):
     """OPT block: each LayerNorm before its sublayer (pre-LN), or after its
-    residual add (post-LN, ``do_layer_norm_before=False``)."""
+    residual add (post-LN, ``do_layer_norm_before=False``). With
+    ``cross_attention`` (MPT's neighbour layers) the attention reads the
+    memory, and under ``peft_type=flamingo`` each residual branch is scaled
+    by the tanh of its gate (mmgl_tpu/models/opt.py:201-262)."""
 
-    def __init__(self, cfg: OPTConfig):
+    def __init__(self, cfg: OPTConfig, cross_attention: bool = False):
         super().__init__()
         dt = cfg.dtype
-        self.self_attn = OPTAttention(cfg)
+        self.cross_attention = cross_attention
+        self.self_attn = OPTAttention(cfg, cross_attention)
         self.self_attn_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
                                               compute_dtype=dt)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
@@ -156,22 +216,41 @@ class OPTDecoderLayer(nn.Module):
         self.act = ACT2FN[cfg.activation_function]
         self.dropout = Dropout(cfg.dropout)
         self.pre_ln = cfg.do_layer_norm_before
+        self.gated = cross_attention and cfg.peft_type == "flamingo"
+        if self.gated:
+            self.gating1 = nn.Parameter(torch.zeros(()))
+            self.gating2 = nn.Parameter(torch.zeros(()))
+
+    def _gate(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        if not self.gated:
+            return x
+        return torch.tanh(getattr(self, name)).to(x.dtype) * x
 
     def forward(self, hidden_states, attention_mask=None, cache=None,
-                generator=None):
+                generator=None, neighbor_embeds=None, neighbor_mask=None,
+                prefix_kv=None):
         pre = self.pre_ln
         residual = hidden_states
         if pre:
             hidden_states = self.self_attn_layer_norm(hidden_states)
-        hidden_states = self.self_attn(hidden_states, attention_mask, cache)
-        hidden_states = residual + self.dropout(hidden_states, generator)
+        if self.cross_attention:
+            hidden_states = self.self_attn(hidden_states, neighbor_mask,
+                                           kv_states=neighbor_embeds,
+                                           generator=generator)
+        else:
+            hidden_states = self.self_attn(hidden_states, attention_mask,
+                                           cache, prefix_kv=prefix_kv,
+                                           generator=generator)
+        hidden_states = residual + self._gate(
+            "gating1", self.dropout(hidden_states, generator))
         if not pre:
             hidden_states = self.self_attn_layer_norm(hidden_states)
         residual = hidden_states
         if pre:
             hidden_states = self.final_layer_norm(hidden_states)
         hidden_states = self.fc2(self.act(self.fc1(hidden_states)))
-        hidden_states = residual + self.dropout(hidden_states, generator)
+        hidden_states = residual + self._gate(
+            "gating2", self.dropout(hidden_states, generator))
         if not pre:
             hidden_states = self.final_layer_norm(hidden_states)
         return hidden_states
@@ -196,13 +275,19 @@ class OPTDecoder(nn.Module):
         self.embed_dropout = Dropout(cfg.dropout)
         self.layers = nn.ModuleList(OPTDecoderLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
+        if cfg.cross_attention:
+            self.neighbor_layers = nn.ModuleList(
+                OPTDecoderLayer(cfg, cross_attention=True)
+                for _ in range(cfg.num_neighbor_layers))
         if cfg.has_final_layer_norm:
             self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5,
                                               compute_dtype=dt)
 
     def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
                 caches: Optional[List[KVCache]] = None, position_ids=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                neighbor_embeds=None, neighbor_mask=None, prefix_kvs=None):
+        cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         b, s = inputs_embeds.shape[:2]
@@ -215,10 +300,20 @@ class OPTDecoder(nn.Module):
             inputs_embeds = self.project_in(inputs_embeds)
         hidden_states = inputs_embeds + self.embed_positions(position_ids + 2)
         hidden_states = self.embed_dropout(hidden_states, generator)
+        n_cross = 0
         for i, layer in enumerate(self.layers):
-            hidden_states = layer(hidden_states, attention_mask,
-                                  caches[i] if caches is not None else None,
-                                  generator)
+            hidden_states = layer(
+                hidden_states, attention_mask,
+                caches[i] if caches is not None else None, generator,
+                prefix_kv=prefix_kvs[i] if prefix_kvs is not None else None)
+            if (cfg.cross_attention and neighbor_embeds is not None
+                    and (i + 1) % cfg.neighbor_layer_wise == 0
+                    and n_cross < cfg.num_neighbor_layers):
+                hidden_states = self.neighbor_layers[n_cross](
+                    hidden_states, generator=generator,
+                    neighbor_embeds=neighbor_embeds,
+                    neighbor_mask=neighbor_mask)
+                n_cross += 1
         if self.cfg.has_final_layer_norm:
             hidden_states = self.final_layer_norm(hidden_states)
         if self.cfg.projects:
@@ -238,12 +333,16 @@ class OPTForCausalLM(nn.Module):
 
     def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
                 caches: Optional[List[KVCache]] = None, position_ids=None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                neighbor_embeds=None, neighbor_mask=None, prefix_kvs=None
                 ) -> Tuple[torch.Tensor, Optional[List[KVCache]]]:
         hidden = self.decoder(input_ids=input_ids,
                               attention_mask=attention_mask,
                               inputs_embeds=inputs_embeds, caches=caches,
-                              position_ids=position_ids, generator=generator)
+                              position_ids=position_ids, generator=generator,
+                              neighbor_embeds=neighbor_embeds,
+                              neighbor_mask=neighbor_mask,
+                              prefix_kvs=prefix_kvs)
         return self.decoder.embed_tokens.attend(hidden), caches
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,14 @@ self-attention with its bias go to K7; the 128 x 512 cross-attention goes to
 K4 in eval and to K7 in training (dropout); decode steps (one query) to the
 reference. Module names follow the flax parameter paths
 (``encoder.layers.0.self_attn.q``) so weights convert mechanically
-(utils/convert.py). Prefix tuning (the JAX T5Attention's ``prefix_kv``)
-comes with PEFT; the factory refuses peft_type=prefix until then.
+(utils/convert.py). Prefix tuning (``prefix_kvs``, one learned (P, H, D)
+key and value pair a decoder layer; mmgl_tpu/models/t5.py:136-156) puts
+[prefix; k] and [prefix; v] in each decoder self-attention, the key mask (if
+any) extended with ones and the position bias with P zero columns in front;
+the causal mask aligns the ends, so every query sees the prefix (128
+queries against 148 keys at T5-base's decoder: K7 and K8 at a ragged key
+length). Only the teacher-forced forward takes them; ``decode``, which
+greedy generation runs, takes none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -116,7 +122,8 @@ class T5Attention(nn.Module):
 
     def forward(self, hidden_states, kv_states=None, kv_mask=None,
                 position_bias=None, cache: Optional[KVCache] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                prefix_kv=None):
         cfg = self.cfg
         b, s, _ = hidden_states.shape
         h, d = cfg.num_heads, cfg.d_kv
@@ -144,6 +151,17 @@ class T5Attention(nn.Module):
                            else kv_mask.bool() & valid)
                 causal = False
             # else: prefill, causal over the current segment (empty cache)
+
+        if prefix_kv is not None and kv_states is None:
+            pk, pv = (t.to(k.dtype)[None].expand(b, *t.shape)
+                      for t in prefix_kv)
+            p = pk.shape[1]
+            k, v = torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
+            if kv_mask is not None:
+                kv_mask = torch.cat([kv_mask.new_ones(b, p), kv_mask], dim=1)
+            if position_bias is not None:
+                position_bias = torch.cat([position_bias.new_zeros(
+                    *position_bias.shape[:3], p), position_bias], dim=3)
 
         rate = cfg.dropout_rate if self.training else 0.0
         out = multi_head_attention(q, k, v, kv_mask=kv_mask,
@@ -194,11 +212,12 @@ class T5Block(nn.Module):
 
     def forward(self, hidden_states, attention_mask=None, position_bias=None,
                 encoder_states=None, encoder_mask=None,
-                cache: Optional[KVCache] = None, generator=None):
+                cache: Optional[KVCache] = None, generator=None,
+                prefix_kv=None):
         attn = self.self_attn(self.self_attn_norm(hidden_states),
                               kv_mask=attention_mask,
                               position_bias=position_bias, cache=cache,
-                              generator=generator)
+                              generator=generator, prefix_kv=prefix_kv)
         hidden_states = hidden_states + self.dropout(attn, generator)
         if self.is_decoder and encoder_states is not None:
             attn = self.cross_attn(self.cross_attn_norm(hidden_states),
@@ -224,7 +243,7 @@ class T5Stack(nn.Module):
 
     def forward(self, inputs_embeds, attention_mask=None, encoder_states=None,
                 encoder_mask=None, caches: Optional[List[KVCache]] = None,
-                position_offset: int = 0, generator=None):
+                position_offset: int = 0, generator=None, prefix_kvs=None):
         cfg = self.cfg
         s = inputs_embeds.shape[1]
         # a decode step attends the whole cache buffer; a prefill (s > 1)
@@ -238,10 +257,11 @@ class T5Stack(nn.Module):
             q_offset=position_offset)
         hidden_states = self.dropout(inputs_embeds, generator)
         for i, layer in enumerate(self.layers):
-            hidden_states = layer(hidden_states, attention_mask, bias,
-                                  encoder_states, encoder_mask,
-                                  caches[i] if caches is not None else None,
-                                  generator)
+            hidden_states = layer(
+                hidden_states, attention_mask, bias, encoder_states,
+                encoder_mask, caches[i] if caches is not None else None,
+                generator,
+                prefix_kvs[i] if prefix_kvs is not None else None)
         return self.dropout(self.final_layer_norm(hidden_states), generator)
 
 
@@ -294,24 +314,26 @@ class T5ForConditionalGeneration(nn.Module):
 
     def decode(self, decoder_input_ids, encoder_states, attention_mask=None,
                decoder_mask=None, caches: Optional[List[KVCache]] = None,
-               position_offset: int = 0, generator=None):
+               position_offset: int = 0, generator=None, prefix_kvs=None):
         """(logits, caches); the caches are updated in place."""
         hidden = self.decoder(self.shared(decoder_input_ids), decoder_mask,
                               encoder_states, attention_mask, caches,
-                              position_offset, generator)
+                              position_offset, generator, prefix_kvs)
         return self._head(hidden), caches
 
     def forward(self, input_ids=None, attention_mask=None, labels=None,
                 decoder_input_ids=None, inputs_embeds=None,
                 decoder_attention_mask=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                prefix_kvs=None) -> torch.Tensor:
         cfg = self.config
         enc = self.encode(input_ids, attention_mask, inputs_embeds, generator)
         if decoder_input_ids is None:
             decoder_input_ids = shift_right(labels, cfg.decoder_start_token_id,
                                             cfg.pad_token_id)
         logits, _ = self.decode(decoder_input_ids, enc, attention_mask,
-                                decoder_attention_mask, generator=generator)
+                                decoder_attention_mask, generator=generator,
+                                prefix_kvs=prefix_kvs)
         return logits
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:

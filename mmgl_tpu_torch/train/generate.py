@@ -20,6 +20,15 @@ prompt's attention mask, which the decode step extends with ones. Positions
 continue the mask cumsum, so they stay contiguous with the real text. The
 first token comes from the logits at ``n_valid - 1`` of the (combined)
 mask, as in the JAX package, even where that is not the last prompt token.
+
+MPT: the prefill and every decode step take the neighbour memory and its
+mask from ``prefill_inputs``, for the cross layers. Prompt tuning: the
+prefill starts with the virtual tokens (``prefill_inputs`` puts them in
+front). Prefix tuning: no prefix in the prefill or the steps, for OPT and
+T5 alike. That is the JAX package's behaviour (its ``lm_decode`` and
+``decode_t5`` take no ``prefix_kvs``, mmgl_tpu/train/generate.py:60-63,
+76-81, 109-113), kept here on purpose: generation runs the bare LM while the
+teacher-forced eval uses the trained prefix.
 """
 
 from __future__ import annotations
@@ -52,12 +61,14 @@ def greedy_generate(model: MMGLModel, batch: Dict,
     if not model.config.decoder_only:
         return _generate_t5(model, batch, max_new_tokens)
     opt_cfg = model.config.opt
-    embeds, mask = model.prefill_inputs(_prompt_batch(model, batch))
+    embeds, mask, memory, memory_mask = model.prefill_inputs(
+        _prompt_batch(model, batch))
     b, t_prompt = embeds.shape[:2]
     caches = init_cache(opt_cfg, b, t_prompt + max_new_tokens, embeds.device)
 
     logits, caches = model.lm_decode(
-        inputs_embeds=embeds, attention_mask=mask, caches=caches,
+        inputs_embeds=embeds, attention_mask=mask, neighbor_embeds=memory,
+        neighbor_mask=memory_mask, caches=caches,
         position_ids=make_positions_from_mask(mask))
     n_valid = mask.sum(dim=1).long()                            # (B,)
     rows = torch.arange(b, device=embeds.device)
@@ -69,7 +80,8 @@ def greedy_generate(model: MMGLModel, batch: Dict,
     out = [tok]
     for _ in range(max_new_tokens - 1):   # the last token needs no step
         step_logits, caches = model.lm_decode(
-            input_ids=tok[:, None], attention_mask=mask, caches=caches,
+            input_ids=tok[:, None], attention_mask=mask,
+            neighbor_embeds=memory, neighbor_mask=memory_mask, caches=caches,
             position_ids=pos[:, None])
         nxt = torch.argmax(step_logits[:, 0], dim=-1)
         finished = finished | (tok == eos)
@@ -83,7 +95,7 @@ def _generate_t5(model: MMGLModel, batch: Dict,
                  max_new_tokens: int) -> torch.Tensor:
     """mmgl_tpu/train/generate.py:92-120."""
     t5_cfg = model.config.t5
-    embeds, mask = model.prefill_inputs(_prompt_batch(model, batch))
+    embeds, mask, _, _ = model.prefill_inputs(_prompt_batch(model, batch))
     enc = model.encode_t5(inputs_embeds=embeds, attention_mask=mask)
     b = embeds.shape[0]
     caches = t5_init_cache(t5_cfg, b, max_new_tokens, embeds.device)

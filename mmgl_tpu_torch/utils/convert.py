@@ -23,8 +23,20 @@ embedding mode's modules: the Roberta tower ``text_model``
 intermediate,output,output_norm}``), ``text_pooler/dense``,
 ``text_embeddings``, the position tables ``text_position_embeddings`` and
 ``visual_position_embeddings``, ``lpe_embeddings`` and the GCN's bias-free
-``gnn/w1`` and ``gnn/w2``. Modules not in ``COVERED`` (the CLIP text tower,
-PEFT, MPT's cross layers) raise.
+``gnn/w1`` and ``gnn/w2``.
+
+PEFT and MPT, each leaf in the flax orientation, untransposed:
+
+  * ``q_proj/lora_a`` (in, r) and ``lora_b`` (r, out) -> ``q_proj.lora_a``
+    and ``q_proj.lora_b`` (also on ``v_proj``; y += x @ A @ B * alpha / r);
+  * ``decoder/neighbor_layers_i/...`` (MPT's cross layers) ->
+    ``decoder.neighbor_layers.i...``, by the rules above, and their scalar
+    flamingo gates ``gating1``/``gating2`` -> ``gating1``/``gating2``;
+  * ``prefix_tuning/kv`` (layers, 2, P, heads, head_dim) ->
+    ``prefix_tuning.kv``;
+  * ``prompt_tuning/embedding`` (P, dim) -> ``prompt_tuning.weight``.
+
+A module not in ``COVERED`` or a leaf without a rule raises.
 """
 
 from __future__ import annotations
@@ -37,7 +49,11 @@ import torch
 
 COVERED = ("lm", "visual_model", "visual_embeddings", "text_model",
            "text_pooler", "text_embeddings", "text_position_embeddings",
-           "visual_position_embeddings", "lpe_embeddings", "gnn")
+           "visual_position_embeddings", "lpe_embeddings", "gnn",
+           "prefix_tuning", "prompt_tuning")
+# leaves that keep their name and their orientation
+_KEPT = ("bias", "class_embedding", "lora_a", "lora_b", "gating1", "gating2",
+         "kv")
 _LORA_HOSTS = ("q_proj", "v_proj")
 
 
@@ -56,7 +72,7 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
         if part == "dense" and i > 0 and path[i - 1] in _LORA_HOSTS:
             continue
         m = re.fullmatch(r"(\w+)_(\d+)", part)
-        if m and m.group(1) == "layers":
+        if m and m.group(1) in ("layers", "neighbor_layers"):
             parts.extend([m.group(1), m.group(2)])
         else:
             parts.append(part)
@@ -65,7 +81,7 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
         return ".".join(parts + ["weight"]), True
     if leaf in ("embedding", "scale", "weight"):
         return ".".join(parts + ["weight"]), False
-    if leaf in ("bias", "class_embedding"):
+    if leaf in _KEPT:
         return ".".join(parts + [leaf]), False
     raise KeyError(f"no conversion for flax leaf {'/'.join(path)}")
 

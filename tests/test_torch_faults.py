@@ -182,18 +182,35 @@ def test_head_dims_other_than_64_are_refused_on_cuda(model, head_dim,
     (["--model_name_or_path", "t5-tiny", "--text_model", "clip-base"],
      "ROADMAP A5"),
     (["--model_name_or_path", "mpt-tiny", "--neighbor_mode",
-      "cross_attention"], "ROADMAP A7"),
+      "cross_attention", "--peft_type", "flamingo", "--text_model",
+      "clip-base"], "ROADMAP A5"),
 ])
 def test_what_the_slice_leaves_out_raises_naming_its_item(extra, item):
-    """The embedding mode with the CLIP text tower, and the cross-attention
-    memory (MPT's; the shared flag parser turns --neighbor_mode
-    cross_attention into the embedding mode's batches, which only MPT
-    consumes as memory), raise NotImplementedError naming their ROADMAP
-    item, before anything is built."""
+    """The embedding mode with the CLIP text tower, for T5 and for MPT's
+    cross-attention memory (BASELINE family 7; the shared flag parser turns
+    --neighbor_mode cross_attention into the embedding mode's batches,
+    which MPT consumes as memory), raises NotImplementedError naming its
+    ROADMAP item, before anything is built."""
     args, _ = cli.parse_cli(["--context", "all", "--neighbor_mode",
                              "embedding", "--device", "cpu", *extra])
     with pytest.raises(NotImplementedError, match=item):
         build_model(args, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("mesh", [["--mesh_shape", "2,2"],
+                                  ["--zero1", "true"]])
+def test_a_mesh_is_refused_in_training_naming_roadmap_a8(mesh):
+    """BASELINE family 5's 2 x 2 mesh (and its sharded optimizer) is not
+    ported: training refuses it, naming ROADMAP A8, while every
+    --peft_type trains."""
+    args, _ = cli.parse_cli(["--model_name_or_path", "opt-tiny",
+                             "--peft_type", "prefix", "--device", "cpu",
+                             *mesh])
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        cli.check_training_flags(args)
+    args, _ = cli.parse_cli(["--model_name_or_path", "opt-tiny",
+                             "--peft_type", "prefix", "--device", "cpu"])
+    cli.check_training_flags(args)
 
 
 @pytest.mark.parametrize("cut", [False, True])

@@ -187,12 +187,17 @@ def test_attention_grad_runs_the_backward_kernel():
 # ---- K4/K5: per-head attention (T5's eval cross-attention) -------------------
 
 # (B, Sq, Sk, H, K/V heads), causal: the T5-base cross-attention, a causal
-# sq < sk, an MQA broadcast head, and ragged lengths
+# sq < sk, an MQA broadcast head, ragged lengths, MPT-1.3B's
+# cross-attention (640 queries against the 64-token neighbour memory: sq >
+# sk, the dK/dV body's one key tile over 10 query tiles) and prefix
+# tuning's 704 queries against 20 + 704 keys, causal with the ends aligned
 FLASH_CASES = [
     ((4, 128, 512, 12, 12), False),
     ((2, 100, 228, 3, 3), True),
     ((2, 128, 128, 4, 1), False),
     ((3, 333, 77, 2, 2), False),
+    ((4, 640, 64, 32, 32), False),
+    ((4, 704, 724, 12, 12), True),
 ]
 
 
@@ -252,12 +257,15 @@ def test_flash_kernels_match_plain_versions(dims, causal, dtype):
 # ---- K7/K8/K9: bias attention with dropout (T5) -------------------------------
 
 # (B, Sq, Sk, H), causal, bias: the T5-base encoder, decoder self and
-# training cross-attention, and ragged lengths
+# training cross-attention, ragged lengths, and the decoder with 20 prefix
+# keys (148: a bias row padded to 152, the last key tile 20 wide, the
+# prefix left of the diagonal)
 BIAS_CASES = [
     ((4, 512, 512, 12), False, True),
     ((4, 128, 128, 12), True, True),
     ((4, 128, 512, 12), False, False),
     ((3, 333, 333, 2), True, True),
+    ((4, 128, 148, 12), True, True),
 ]
 
 

@@ -165,12 +165,17 @@ def test_fusion_model_matches_jax_raw_all(max_in, max_out):
 
 
 def test_convert_rejects_unported_parameters():
-    """Modules the port does not have yet (PEFT's virtual tokens; the text
-    tower converts since the embedding mode) and unknown leaves raise."""
-    with pytest.raises(KeyError, match="prompt_tuning"):
-        state_dict_from_jax({"lm": {}, "prompt_tuning": {}})
-    with pytest.raises(KeyError, match="lora_a"):
-        state_dict_from_jax({"lm": {"q_proj": {"lora_a": np.zeros((2, 2))}}})
+    """Modules the port does not have (the text tower converts since the
+    embedding mode, PEFT's virtual tokens and LoRA's adapters since PEFT)
+    and unknown leaves raise."""
+    with pytest.raises(KeyError, match="cached_pooled"):
+        state_dict_from_jax({"lm": {}, "cached_pooled": {}})
+    with pytest.raises(KeyError, match="lora_c"):
+        state_dict_from_jax({"lm": {"q_proj": {"lora_c": np.zeros((2, 2))}}})
+    got = state_dict_from_jax({"lm": {"q_proj": {"lora_a": np.zeros((2, 3))}},
+                               "prompt_tuning": {"embedding": np.zeros(4)}})
+    assert got["lm.q_proj.lora_a"].shape == (2, 3)   # kept (in, r)
+    assert set(got) == {"lm.q_proj.lora_a", "prompt_tuning.weight"}
 
 
 def test_kept_casts_follow_every_write_and_keep_the_graph():
