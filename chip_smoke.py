@@ -11,10 +11,13 @@ imports no JAX. Phases, each fatal on failure:
   3. each kernel against its plain version on the card, bf16, fp16 and
      fp32, with pad holes and fully masked rows: K1 and K2 forward and K3
      (K1's backward) at the OPT shapes, and K1 at Roberta's (44, 512, 12,
-     64) over right-padded neighbor texts with an empty slot; K4 and K5
+     64) over right-padded neighbor texts with an empty slot, at
+     OPT-1.3B + LoRA's 684 tokens (32 heads) and its 556-token prefill,
+     and at prompt tuning's 724 tokens and its 596-token prefill; K4 and K5
      (forward and gradient) at T5-base's cross-attention, with an MQA head,
      at MPT-1.3B's cross-attention (640 queries, 64 memory keys, 32 heads,
-     a sample without neighbours) and at prefix tuning's 704 queries
+     a sample without neighbours) and its prefill's 512 queries against
+     the memory, and at prefix tuning's 704 queries
      against 724 keys, causal; K7 with K8/K9 (dbias included) at T5-base's
      encoder, decoder and cross-attention shapes, at the embedding mode's
      576-token encoder and at the prefixed decoder's 128 x 148 (ragged
@@ -98,8 +101,9 @@ imports no JAX. Phases, each fatal on failure:
      context text_only, embedding, LoRA (r 64) on every q and v projection,
      --freeze_lm true; the short run of 5c. 640 + 11 x 4 = 684 tokens take
      K1 and K3 (24 layers), Roberta K1; the prefill at 556 K1. Then its
-     fp32 micro-step on the card against the CPU with LoRA's B set to
-     seeded non-zero values (at init B is 0 and A's gradient is 0);
+     fp32 micro-step on the card against the CPU and its bf16 one held
+     launch by launch against the plain versions, LoRA's B set to seeded
+     non-zero values in both (at init B is 0 and A's gradient is 0);
  13. BASELINE family 4 at 1.3B (its published 2.7B has head dim 80, which
      no kernel takes yet): MPT-1.3B + Roberta-base + CLIP, context all,
      flamingo, 4 gated cross layers (one after every 6th layer), the short
@@ -119,7 +123,9 @@ imports no JAX. Phases, each fatal on failure:
      decoder's 128 queries against 20 + 128 keys with the position bias
      padded by zero columns take K7 and K8 at a ragged key length. Then an
      fp32 micro-step card against CPU for (a) and (b), and bf16 ones held
-     launch by launch against the plain versions for (a) and (c).
+     launch by launch against the plain versions for (a), (b) and (c).
+     (T5 takes no fp32 micro-step here: phase 7's covers its bodies, and a
+     random-init T5's fp32 step on the CPU takes long.)
 
 Phases 12-14 check the launches of every update, eval step and generated
 batch against the counts the layer layout gives, the tensor-core body of
@@ -148,6 +154,7 @@ versions compute in full fp32.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -316,6 +323,13 @@ CASES = [
     # Roberta over 11 neighbor texts x 4 samples, each right-padded, an
     # empty slot fully masked
     ("flash_attention_allheads", (44, 512, 12, 64), False, "texts"),
+    # OPT-1.3B + LoRA: 640 + 44 tokens, 32 heads, and the 556-token prefill
+    ("flash_attention_allheads", (4, 684, 32, 64), True, "hole"),
+    ("flash_attention_allheads", (4, 556, 32, 64), True, "prompt"),
+    # prompt tuning: 20 virtual tokens in front of 704, and the prefill's
+    # 20 + 576
+    ("flash_attention_allheads", (4, 724, 12, 64), True, "prefix"),
+    ("flash_attention_allheads", (4, 596, 12, 64), True, "prompt"),
 ]
 ROBERTA_CASE = 5
 # K3 (the training step's attention backward): ((B, S, H, D), causal, mask);
@@ -323,7 +337,10 @@ ROBERTA_CASE = 5
 # length whose tiles the bounds checks cut
 BWD_CASES = [((4, 640, 12, 64), True, "hole"),
              ((4, 640, 12, 64), True, "hole_fully_masked"),
-             ((3, 333, 2, 64), True, "hole333")]
+             ((3, 333, 2, 64), True, "hole333"),
+             # OPT-1.3B + LoRA's 684 tokens; prompt tuning's 724
+             ((4, 684, 32, 64), True, "hole"),
+             ((4, 724, 12, 64), True, "prefix")]
 # K4/K5: ((B, Sq, Sk, H, K/V heads), causal, key mask): T5-base's eval
 # cross-attention over the padded encoder input, MQA, ragged lengths
 FLASH_CASES = [((4, 128, 512, 12, 12), False, "gap"),
@@ -333,7 +350,9 @@ FLASH_CASES = [((4, 128, 512, 12, 12), False, "gap"),
                # memory (sq > sk), sample 0 without neighbours
                ((4, 640, 64, 32, 32), False, "gap_fully_masked"),
                # prefix tuning: 704 queries against 20 + 704 keys, causal
-               ((4, 704, 724, 12, 12), True, "prefix")]
+               ((4, 704, 724, 12, 12), True, "prefix"),
+               # MPT-1.3B's prefill: 512 queries against the memory
+               ((4, 512, 64, 32, 32), False, "gap_fully_masked")]
 # the kernels line's own entries for these shapes, by FLASH_CASES index
 FLASH_TAGS = {3: "[mpt-cross]", 4: "[prefix]"}
 MPT_CROSS_CASE, PREFIX_CASE = 3, 4
@@ -1142,7 +1161,9 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     are wrapped here, not changed: the wrappers snapshot the weights, time
     each update to a device synchronize and count the kernel launches inside
     it and inside each eval step and generated batch, and record the final
-    restore. Returns a summary dict."""
+    restore. The weights' snapshot is kept on the host and the peak device
+    memory is read after a garbage collection, beside the bytes resident
+    before the run, so that it is the run's own. Returns a summary dict."""
     import torch
 
     args, dev = cli.parse_cli(argv + ["--log_dir", log_dir])
@@ -1155,7 +1176,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     def build_model(*a, **kw):
         model, cfg = originals["build_model"](*a, **kw)
         seen["model"] = model
-        seen["before"] = {n: p.detach().clone()
+        # on the host, so that the peak device memory is the run's own
+        seen["before"] = {n: p.detach().to("cpu", copy=True)
                           for n, p in model.named_parameters()}
         return model, cfg
 
@@ -1220,7 +1242,9 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     for name, fn in wrappers.items():
         setattr(cli, name, fn)
     try:
+        gc.collect()    # what an earlier phase left in cycles is not the run's
         torch.cuda.synchronize(device)
+        resident = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
         reset_launches(fa)
         results = cli.run(args, dev, log)
@@ -1271,8 +1295,9 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
     frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
     params = dict(model.named_parameters())
-    still = [n for n in trainable if torch.equal(params[n], before[n])]
-    moved = [n for n in frozen if not torch.equal(params[n], before[n])]
+    after = {n: p.detach().cpu() for n, p in params.items()}
+    still = [n for n in trainable if torch.equal(after[n], before[n])]
+    moved = [n for n in frozen if not torch.equal(after[n], before[n])]
     off = tuple(getattr(model, "gradless_prefixes", ())) + tuple(idle)
     off_path = [n for n in trainable if off and n.startswith(off)]
     print(f"[{tag} train] {len(trainable) - len(still)} of {len(trainable)} "
@@ -1308,8 +1333,7 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
              f"the test pass (restores {[p for p, _ in seen['restores']]})")
     saved = final[-1]["params"]
     if any(k.startswith(TOWERS) for k in saved) or not all(
-            torch.equal(params[k].detach().cpu(), v) for k, v in
-            saved.items()):
+            torch.equal(after[k], v) for k, v in saved.items()):
         fail("the test pass did not run on the restored checkpoint")
     print(f"[{tag} train] best checkpoint of epoch {final[-1]['epoch']} "
           f"({len(saved)} tensors, no tower) restored for the test pass")
@@ -1323,8 +1347,10 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
              if timed else "one update, no rate")
           + f" (update seconds {[round(s['seconds'], 4) for s in steps]}; "
           f"the loop's own examples/s {[round(r, 3) for r in seen['rates']]}"
-          f"); peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+          f"); peak device memory {peak} bytes ({peak / 2**30:.3f} GiB, of "
+          f"which {resident / 2**30:.3f} GiB resident before the run)")
     return {"sections_per_s": rate, "peak_bytes": peak,
+            "resident_bytes": resident,
             "launches": launches, "in_steps": in_steps,
             "launches_tc": {n: c[1] for n, c in bodies.items()},
             "losses": [s["loss"] for s in steps],
@@ -1354,7 +1380,7 @@ def seed_zero_params(model, seeded) -> list:
 def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
                      plain_on_card=False, on_cpu=True, half=False,
                      per_step=None, seeded=()):
-    """Phases 5b, 5c, 7b, 9b, 10c, 12b, 13b and 14b: one training
+    """Phases 5b, 5c, 7b, 9b, 10c and 12-14: one training
     micro-step (loss, backward) of one sample in eval mode (no dropout) on
     the card; ``kernels`` must launch in it, exactly ``per_step`` times
     where given. The parameters named by ``seeded`` (zero at init: LoRA's
@@ -1838,12 +1864,14 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
             idle=("text_embeddings.",),
             zero_first=(lambda n: "lora_a" in n,
                         "LoRA's A multiplies B, which starts at 0"))
-    lora["fp32_step"] = check_train_step(
-        cli, fa, device, LORA_ARGV,
-        ("flash_attention_allheads", "flash_attention_allheads_bwd"),
-        "opt-1.3b lora", seeded=("lora_b",),
-        per_step={"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
-                  "flash_attention_allheads_bwd": OPT13_LAYERS})
+    lora_step = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
+                 "flash_attention_allheads_bwd": OPT13_LAYERS}
+    for key, half in (("fp32_step", False), ("bf16_step", True)):
+        lora[key] = check_train_step(
+            cli, fa, device, LORA_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+            "opt-1.3b lora", half=half, seeded=("lora_b",),
+            per_step=lora_step)
     runs["opt13b_lora_training"] = lora
     lap("12")
 
@@ -1954,13 +1982,14 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
              "fused_heads_attention": CLIP_LAYERS * micro},
             tag="opt prompt", per_eval=per, per_generate=per, updates=1,
             idle=OPT_GRAPH_IDLE)
-    prompt["fp32_step"] = check_train_step(
-        cli, fa, device, PROMPT_ARGV,
-        ("flash_attention_allheads", "flash_attention_allheads_bwd"),
-        "opt prompt",
-        per_step={"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
-                  "flash_attention_allheads_bwd": OPT_LAYERS,
-                  "fused_heads_attention": CLIP_LAYERS})
+    prompt_step = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+                   "flash_attention_allheads_bwd": OPT_LAYERS,
+                   "fused_heads_attention": CLIP_LAYERS}
+    for key, half in (("fp32_step", False), ("bf16_step", True)):
+        prompt[key] = check_train_step(
+            cli, fa, device, PROMPT_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+            "opt prompt", half=half, per_step=prompt_step)
     runs["opt_prompt_training"] = prompt
 
     # phase 14c: BASELINE config 2 with T5's decoder prefixes: 128 queries

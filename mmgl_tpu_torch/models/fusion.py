@@ -316,15 +316,7 @@ class MMGLModel(nn.Module):
         fused = self._fuse(batch)
         ids = (None if fused["inputs_embeds"] is not None
                else fused["input_ids"])
-        if self.config.uses_mpt_memory:
-            # the prefix table is not handed to MPT's decoder
-            # (mmgl_tpu/models/fusion.py:255-262)
-            logits, _ = self.lm(
-                input_ids=fused["input_ids"],
-                attention_mask=fused["attention_mask"],
-                neighbor_embeds=fused["neighbor_embeds"],
-                neighbor_mask=fused["neighbor_mask"], generator=generator)
-        elif not self.config.decoder_only:
+        if not self.config.decoder_only:
             logits = self.lm(
                 input_ids=ids, inputs_embeds=fused["inputs_embeds"],
                 attention_mask=fused["attention_mask"],
@@ -334,6 +326,8 @@ class MMGLModel(nn.Module):
             logits, _ = self.lm(
                 input_ids=ids, inputs_embeds=fused["inputs_embeds"],
                 attention_mask=fused["attention_mask"], generator=generator,
+                neighbor_embeds=fused["neighbor_embeds"],
+                neighbor_mask=fused["neighbor_mask"],
                 prefix_kvs=fused["prefix_kvs"])
         return {"logits": logits, "labels": fused["labels"]}
 
@@ -420,8 +414,11 @@ class MMGLModel(nn.Module):
                 "attention_mask": attention_mask, "labels": labels,
                 "neighbor_embeds": neighbor_embeds,
                 "neighbor_mask": neighbor_mask,
+                # the prefix table is not handed to MPT's decoder
+                # (mmgl_tpu/models/fusion.py:255-262)
                 "prefix_kvs": (self.prefix_tuning()
-                               if cfg.peft_type == "prefix" else None)}
+                               if cfg.peft_type == "prefix"
+                               and not cfg.uses_mpt_memory else None)}
 
     def _build_neighbor_block(self, batch: Dict
                               ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -14,7 +14,7 @@ import torch
 from mmgl_tpu.peft import trainable_mask as jax_trainable_mask
 from mmgl_tpu.train.generate import greedy_generate as jax_generate
 from mmgl_tpu.train.optim import build_optimizer as jax_build_optimizer
-from mmgl_tpu.train.steps import create_train_state
+from mmgl_tpu.train.steps import _make_grads_fn, create_train_state
 from mmgl_tpu.train.steps import make_train_step as jax_train_step
 from mmgl_tpu_torch.train.generate import greedy_generate
 from mmgl_tpu_torch.train.optim import Adafactor, build_optimizer
@@ -30,16 +30,42 @@ def _torch_tree(params):
         for path, value in convert._leaves(params)}
 
 
+def _noise(grads, skip):
+    """The largest |g| of the leaves named in ``skip``, asserted to be at
+    most 1e-6 of the largest |g| of all: rounding noise."""
+    top = max(float(np.abs(np.asarray(g)).max()) for g in grads.values())
+    got = max(float(np.abs(np.asarray(g)).max()) for n, g in grads.items()
+              if any(s in n for s in skip))
+    assert got <= 1e-6 * top, (got, top)
+    return got
+
+
+def _noise_step(opt_step, model, skip, noise, *a, **kw):
+    """The port's optimizer step, after recording the skipped leaves'
+    gradient noise (the accumulated, clipped gradient the step takes)."""
+    noise["port"] = max(noise["port"], _noise(
+        {n: p.grad for n, p in model.named_parameters()
+         if p.grad is not None}, skip))
+    return opt_step(*a, **kw)
+
+
 def check_updates(name, cases=CASES, updates=2, skip=()):
     """``updates`` updates of accum 2 x micro 2 with a clip that fires,
     against make_train_step + build_optimizer (AdamW for OPT and MPT,
     Adafactor for T5): loss and summary_loss rtol 1e-5 at each, then every
-    trainable parameter atol 1e-5, the frozen ones bit-identical; the
-    names in ``skip`` (a zero true gradient, whose Adam step is rounding
-    noise) within the sum of the learning rates."""
+    trainable parameter atol 1e-5, the frozen ones bit-identical. The
+    learning rate is 1e-3 from the first update (no warmup), so an update
+    moves a parameter by up to 1e-3, a hundred times the tolerance.
+
+    The names in ``skip`` have a zero true gradient: in each package their
+    gradient at every update is rounding noise, at most 1e-6 of the
+    largest. Adam's step of such a leaf is then noise too, at most lr x
+    max|g| / eps plus its weight decay, and differs between the packages
+    by as much; so each package's move of it is held to that bound, from
+    its own gradients, and not to the other's."""
     args, _, jmodel, params = jax_pair(name, cases)
     args = copy.copy(args)
-    args.grad_clip, args.learning_rate = 0.5, 1e-3
+    args.grad_clip, args.learning_rate, args.lr_warmup_steps = 0.5, 1e-3, 1
     batches = _batches(args, updates)
     model = port_model(args, params)
     init = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -52,9 +78,21 @@ def check_updates(name, cases=CASES, updates=2, skip=()):
     step = make_train_step(model, opt, sched, args.decoder_only,
                            args.max_input_length, PAD, 2, args.grad_clip)
     lrs = []
+    noise = {"port": 0.0, "jax": 0.0}    # the skipped leaves' largest |g|
+    if skip:
+        trainable = {n for n, p in model.named_parameters()
+                     if p.requires_grad}
+        jgrads = jax.jit(_make_grads_fn(jmodel, tx, args.decoder_only,
+                                        args.max_input_length, PAD, 2, mask))
+        opt.step = partial(_noise_step, opt.step, model, skip, noise)
     for batch in batches:
         lrs.append(opt.param_groups[0]["lr"])
         jbatch = {k: v.reshape((2, 2) + v.shape[1:]) for k, v in batch.items()}
+        if skip:
+            grads = _torch_tree(jax.device_get(jgrads(
+                state.params, jbatch, jax.random.PRNGKey(1))[0]))
+            noise["jax"] = max(noise["jax"], _noise(
+                {n: g for n, g in grads.items() if n in trainable}, skip))
         state, want = jstep(state, jbatch, jax.random.PRNGKey(1))
         got = step(batch)
         for key in ("loss", "summary_loss"):
@@ -69,7 +107,13 @@ def check_updates(name, cases=CASES, updates=2, skip=()):
             continue
         got = p.detach().numpy()
         if any(s in pname for s in skip):
-            assert np.abs(got - init[pname].numpy()).max() <= sum(lrs)
+            start = init[pname].numpy()
+            decay = args.weight_decay * max(np.abs(start).max(),
+                                            np.abs(got).max())
+            eps = opt.param_groups[0]["eps"]
+            for who, end in (("port", got), ("jax", value)):
+                bound = sum(lrs) * (noise[who] / eps + decay)
+                assert np.abs(end - start).max() <= bound, (pname, who)
             continue
         _close(got, value, 1e-5, pname)
         moved += int(not torch.equal(p.detach(), init[pname]))
