@@ -27,7 +27,13 @@ imports no JAX. Phases, each fatal on failure:
      compared with the plain version's bit for bit. At the encoder's shape
      with dropout, in bf16 and fp16, K7's row stats against the plain
      version's, and K8/K9 from them equal, bit for bit, to K8/K9 with its
-     own stats pass;
+     own stats pass. At head dims 80 and 128 (OPT and MPT at 2.7B,
+     OPT-6.7B), bf16, fp16 and fp32: K1 and K3 at OPT-2.7B's and
+     OPT-6.7B's (4, 640, 32, D) causal with a pad hole, K4 and K5 there and
+     at MPT-2.7B's cross-attention (4, 640 x 64, 32, 80), K4 with its row
+     stats and K6 at the causal ones, a ragged 333 at each D, each against
+     its plain version, K6 against K5 bit for bit, the half types on the
+     tensor-core bodies;
   4. the OPT-125M + CLIP ViT-B/16 test pass at full width (task=section,
      context=all, raw neighbors, the --test pass of mmgl_tpu_torch.cli on
      the synthetic corpus with seeded random weights); K1 and K2 must launch
@@ -63,7 +69,9 @@ imports no JAX. Phases, each fatal on failure:
      bits excluded); K8/K9 from K7's row stats, as training runs it; K4
      with its row stats, K6 and K5 also at OPT-350M's (4, 2048, 16, 64), K6
      and K5 again at (4, 1024, 16, 64); in bf16 also K1 at Roberta's shape
-     and K7 and K9 at the 576-token encoder;
+     and K7 and K9 at the 576-token encoder, and K1, K3-K6 at head dims 80
+     and 128 (K1/K3 at (4, 640, 32, D), K4/K5 at (4, 640 x 64, 32, D), K4
+     with its stats and K6 at (4, 1024, 32, D));
   9. OPT-350M + CLIP training at OPT's whole 2048-token window through the
      CLI (--max_input_length 1920 --max_output_length 128, bf16, 4 updates
      of 4 x 4, AdamW) with the blocked backward selected (the module flag
@@ -102,18 +110,24 @@ imports no JAX. Phases, each fatal on failure:
      --freeze_lm true; the short run of 5c. 640 + 11 x 4 = 684 tokens take
      K1 and K3 (24 layers), Roberta K1; the prefill at 556 K1. Then its
      fp32 micro-step on the card against the CPU and its bf16 one held
-     launch by launch against the plain versions, LoRA's B set to seeded
+     launch by launch against the plain versions, both at 8 of the 24
+     layers (full width, for the time limit), LoRA's B set to seeded
      non-zero values in both (at init B is 0 and A's gradient is 0);
- 13. BASELINE family 4 at 1.3B (its published 2.7B has head dim 80, which
-     no kernel takes yet): MPT-1.3B + Roberta-base + CLIP, context all,
-     flamingo, 4 gated cross layers (one after every 6th layer), the short
-     run. The self-attention takes K1 (24 layers) and K3 (18: the six
-     layers before the first cross layer see no trainable input); the
-     cross-attention, 640 queries against the 64-token memory under its
-     mask, K4 and K5 (4 each); the prefill K1 at 512 and K4 at 512 x 64;
-     the decode steps' one query the plain route. Then its fp32 micro-step
-     card against CPU and its bf16 one held launch by launch against the
-     plain versions, the gates seeded non-zero;
+ 13. BASELINE family 4 at its published size, as the JAX package's bench
+     runs it: MPT-2.7B (head dim 80) + Roberta-base + CLIP, context all,
+     flamingo, 4 gated cross layers (one after every 8th layer), from
+     cached tower features (--cache_neighbor_embeddings true
+     --neighbor_cache_dir), the short run. The cache build launches
+     Roberta's K1 and CLIP's K2; no micro-step, eval step or generated
+     batch does. The self-attention takes K1 (32 layers) and K3 (24: the
+     eight layers before the first cross layer see no trainable input), at
+     head dim 80; the cross-attention, 640 queries against the 64-token
+     memory under its mask, K4 and K5 (4 each); the prefill K1 at 512 and
+     K4 at 512 x 64; the decode steps' one query the plain route. A second
+     start on the same cache directory launches no kernel. Then its fp32
+     micro-step card against CPU at 8 of its 32 layers (full width) and
+     its bf16 one at full depth held launch by launch against the plain
+     versions, the gates seeded non-zero, both from cached features;
  14. prefix and prompt tuning, each the short run: (a) family 5 without its
      mesh, OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704 queries
      against 20 + 704 keys, causal with the ends aligned, take K4 and K5;
@@ -126,10 +140,21 @@ imports no JAX. Phases, each fatal on failure:
      launch by launch against the plain versions for (a), (b) and (c).
      (T5 takes no fp32 micro-step here: phase 7's covers its bodies, and a
      random-init T5's fp32 step on the CPU takes long.)
+ 15. the neighbour cache on the main path and on config 2: OPT-125M + CLIP
+     raw all and T5-base + Roberta + CLIP section_all embedding, 4 updates
+     each through the CLI with --cache_neighbor_embeddings true; the cache
+     build launches CLIP's K2 (and config 2 Roberta's K1), no update, eval
+     step or generated batch launches either. OPT's bf16 eval loss on one
+     batch of 4, cached against live, at phase 3's bf16 tolerance. The
+     update seconds printed beside phases 5 and 10's;
+ 16. OPT-6.7B's test pass (head dim 128), raw all, bf16 parameters,
+     through the CLI (batch 4, 4 batches), at 8 of its 32 layers (full
+     width, for the time limit): every eval step and generated batch
+     launches K1 8 times at head dim 128 and K2 12 times.
 
-Phases 12-14 check the launches of every update, eval step and generated
+Phases 12-16 check the launches of every update, eval step and generated
 batch against the counts the layer layout gives, the tensor-core body of
-every launch, that every trainable tensor moved but those named with the
+every launch, and phases 12-15 that every trainable tensor moved but those named with the
 reason they get a zero gradient in the one update (LoRA's A while B is 0;
 MPT's cross layers and memory projections while the gates are 0; OPT's
 soft-token projections behind the causal mask), and that every frozen
@@ -144,8 +169,9 @@ and fp16 and scalar FMAs for fp32: phases 4, 5, 5c, 6, 7, 9, 10 and 11
 (bf16 or fp16) check that every launch of K1-K9 took the tensor-core body,
 and their fp32 checks that none did.
 Prints the seconds elapsed at the end of each phase (and a JSON line of
-them), a kernels JSON line (the fp16 forms and the shapes of phases 12-14
-as entries of their own), then as its last line
+them), a kernels JSON line (the fp16 forms, the shapes of phases 12-14 and
+the head dims 80 and 128 that phases 13 and 16 launch as entries of their
+own), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
 versions compute in full fp32.
@@ -154,6 +180,7 @@ versions compute in full fp32.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -195,11 +222,25 @@ OPT350_LAYERS = 24
 ROBERTA_LAYERS = 12
 CLIP_LAYERS = 12
 OPT_LAYERS = 12
-OPT13_LAYERS = 24           # OPT-1.3B and MPT-1.3B
-MPT_CROSS = 4               # --num_neighbor_layers: one every 24 // 4 layers
-# the self-attention layers of MPT-1.3B whose input carries a gradient:
-# those after the first cross layer (after layer 6)
-MPT_GRAD_LAYERS = OPT13_LAYERS - OPT13_LAYERS // MPT_CROSS
+OPT13_LAYERS = 24           # OPT-1.3B
+MPT_LAYERS = 32             # MPT-2.7B
+MPT_CROSS = 4               # --num_neighbor_layers: one every 32 // 4 layers
+# the self-attention layers of MPT-2.7B whose input carries a gradient:
+# those after the first cross layer (after layer 8)
+MPT_GRAD_LAYERS = MPT_LAYERS - MPT_LAYERS // MPT_CROSS
+# MPT-2.7B's fp32 micro-step card against CPU runs 8 of its 32 layers at
+# its full width (2560, 32 heads of 80): the CPU side of the whole depth
+# would cost more than the rest of phase 13. Cross layers one every 2, so
+# 6 self-attention layers see a trainable input
+MPT_FP32_LAYERS = 8
+MPT_FP32_GRAD_LAYERS = MPT_FP32_LAYERS - MPT_FP32_LAYERS // MPT_CROSS
+# depth cuts at full width, for the script's time limit (PR 9 added
+# phases 13's 2.7B, 15 and 16; a call on a slow host took 948 s to phase
+# 16 with none of these cuts): OPT-6.7B's test pass runs 8 of its 32
+# layers (4096 wide, 32 heads of 128), and family 3's fp32 and bf16
+# micro-steps 8 of OPT-1.3B's 24 (the update runs all 24)
+OPT67_LAYERS = 8
+OPT13_STEP_LAYERS = 8
 
 
 def with_flags(argv, **flags):
@@ -248,10 +289,23 @@ OPT350_FP16_ARGV = with_flags(OPT350_TRAIN_ARGV, compute_dtype="float16",
 LORA_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="opt-1.3b",
                        context="text_only", neighbor_mode="embedding",
                        peft_type="lora", freeze_lm="true", **SHORT)
-# family 4 at 1.3B: MPT-1.3B + Roberta-base + CLIP, all, flamingo
-MPT_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="mpt-1.3b",
+# family 4 at its published size, as the JAX package's bench runs it
+# (scripts/bench_baseline_configs.py:38-60): MPT-2.7B + Roberta-base +
+# CLIP, all, flamingo, from cached tower features (--neighbor_cache_dir is
+# given at run time)
+MPT_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="mpt-2.7b",
                       context="all", neighbor_mode="embedding",
-                      peft_type="flamingo", **SHORT)
+                      peft_type="flamingo", cache_neighbor_embeddings="true",
+                      **SHORT)
+# the main path (BASELINE config 1) and config 2 from cached tower features
+OPT_CACHED_ARGV = with_flags(OPT_TRAIN_ARGV, cache_neighbor_embeddings="true")
+T5_EMB_CACHED_ARGV = with_flags(T5_EMB_TRAIN_ARGV,
+                                cache_neighbor_embeddings="true")
+# OPT-6.7B's test pass (head dim 128), raw all, bf16 parameters (the fp32
+# ones would be 27 GB on the host and on the card for a pass without
+# gradients)
+OPT67_TEST_ARGV = with_flags(OPT_TEST_ARGV, model_name_or_path="opt-6.7b",
+                             param_dtype="bfloat16")
 # family 5 without its mesh (prefix, Laplacian) and family 6 (prompt, GCN)
 PREFIX_ARGV = with_flags(OPT_GRAPH_ARGV["laplacian"], peft_type="prefix")
 PROMPT_ARGV = with_flags(OPT_GRAPH_ARGV["gnn"], peft_type="prompt")
@@ -363,6 +417,16 @@ BLOCKED_CASES = [((4, 2048, 2048, 16), True, "hole"),
                  ((4, 2048, 2048, 16), True, "hole_fully_masked"),
                  ((3, 333, 333, 2), True, "hole333"),
                  ((2, 200, 328, 2), True, "gap")]
+# K1 and K3-K6 at head dims 80 and 128: (name, (B, Sq, Sk, H, D), causal,
+# key mask): OPT-2.7B's training shape, causal with a pad hole; MPT-2.7B's
+# cross-attention, 640 queries against the 64-token memory, sample 0
+# without neighbours; OPT-6.7B's training shape; a ragged 333 at each
+HEAD_DIM_CASES = [("opt-2.7b", (4, 640, 640, 32, 80), True, "hole"),
+                  ("mpt-2.7b cross", (4, 640, 64, 32, 80), False,
+                   "gap_fully_masked"),
+                  ("opt-6.7b", (4, 640, 640, 32, 128), True, "hole"),
+                  ("ragged", (3, 333, 333, 2, 80), True, "hole333"),
+                  ("ragged", (3, 333, 333, 2, 128), True, "hole333")]
 # K7/K8/K9: (name, (B, Sq, Sk, H), causal, bias): T5-base's encoder, decoder
 # self- and training cross-attention, ragged lengths; each without and with
 # dropout 0.1, T5's scale 1.0
@@ -582,14 +646,15 @@ def check_opt_kernels(fa, device, worst):
                   f"{report} ok")
 
 
-def flash_inputs(dims, mask_kind, dtype, device, seed):
-    """q, k, v (k/v with kv_heads heads), the key mask, a cotangent."""
+def flash_inputs(dims, mask_kind, dtype, device, seed, d=64):
+    """q, k, v (k/v with kv_heads heads), the key mask, a cotangent; head
+    dim d."""
     import torch
 
     b, sq, sk, h, kvh = dims
     g = torch.Generator().manual_seed(seed)
-    q, dout = (torch.randn(b, sq, h, 64, generator=g) for _ in range(2))
-    k, v = (torch.randn(b, sk, kvh, 64, generator=g) for _ in range(2))
+    q, dout = (torch.randn(b, sq, h, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, sk, kvh, d, generator=g) for _ in range(2))
     mask = torch.from_numpy(make_mask(mask_kind, b, sk, seed)).to(device)
     q, k, v, dout = (t.to(device, dtype) for t in (q, k, v, dout))
     return q, k, v, mask, dout
@@ -826,6 +891,110 @@ def check_blocked_kernels(fa, device, worst):
     torch.cuda.empty_cache()
 
 
+def dkey(name: str, d: int) -> str:
+    """A kernel's key at head dim d in the worst-error table and the
+    kernels line (64 keeps the plain name)."""
+    return name if d == 64 else f"{name}[d{d}]"
+
+
+def check_head_dim_kernels(fa, device, worst):
+    """Phase 3 at head dims 80 and 128, bf16, fp16 and fp32: K1 and K3 at
+    the self-attention shapes, K4 and K5 (through autograd) at every case,
+    K4 with its row stats and K6 at the causal ones, each against its plain
+    version at phase 3's tolerances, and K6 against K5 bit for bit (the
+    same stats and tile bodies at every head dim). bf16 and fp16 launches
+    must take the tensor-core bodies."""
+    import torch
+
+    names = ("flash_attention_allheads", "flash_attention_allheads_bwd",
+             "flash_attention", "flash_attention_bwd",
+             "flash_attention_blocked_bwd")
+    for i, (tag, (b, sq, sk, h, d), causal, mask_kind) in enumerate(
+            HEAD_DIM_CASES):
+        label = f"{tag} {(b, sq, sk, h, d)} causal={causal} mask={mask_kind}"
+        for dtype_name, (atol, rtol) in TOLERANCES.items():
+            before = {n: (getattr(fa, n).launches, getattr(fa, n).launches_tc)
+                      for n in names}
+            q, k, v, mask, dout = flash_inputs(
+                (b, sq, sk, h, h), mask_kind, getattr(torch, dtype_name),
+                device, 500 + i, d)
+            kw = dict(kv_mask=mask, causal=causal)
+            report = []
+
+            def forward(name, got, ref):
+                err = float((got.float() - ref.float()).abs().max())
+                key = wkey(dkey(name, d), dtype_name)
+                worst[key] = max(worst[key], err)
+                report.append(f"{name} {err:.3e}")
+                if not _within(got, ref, atol, rtol):
+                    fail(f"{name} {label} {dtype_name} disagrees with its "
+                         f"plain version ({err:.3e})")
+
+            def backward(name, got, ref):
+                table = collections.defaultdict(float)
+                report.append(f"{name} " + _grads_within(
+                    name, got, ref, dtype_name, label, table))
+                key = wkey(dkey(name, d), dtype_name)
+                worst[key] = max(worst[key], *table.values())
+
+            if sq == sk:
+                out = fa.flash_attention_allheads(q, k, v, **kw)
+                torch.cuda.synchronize(device)
+                plain_out = fa.allheads_attention_reference(q, k, v, **kw)
+                forward("flash_attention_allheads", out, plain_out)
+                backward("flash_attention_allheads_bwd",
+                         fa.flash_attention_allheads_bwd(
+                             q, k, v, mask, plain_out, dout, causal=causal),
+                         fa.allheads_attention_bwd_reference(
+                             q, k, v, mask, plain_out, dout, causal=causal))
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            out = fa.flash_attention(qg, kg, vg, **kw)
+            grads = torch.autograd.grad(out, (qg, kg, vg), dout)
+            torch.cuda.synchronize(device)
+            out = out.detach()
+            forward("flash_attention", out,
+                    fa.flash_attention_reference(q, k, v, **kw))
+            backward("flash_attention_bwd", grads,
+                     fa.flash_attention_bwd_reference(q, k, v, mask, out,
+                                                      dout, causal=causal))
+            if causal:
+                out, m, l = fa.flash_attention_stats(q, k, v, **kw)
+                torch.cuda.synchronize(device)
+                ref = fa.flash_attention_reference(q, k, v, with_stats=True,
+                                                   **kw)
+                forward("flash_attention", out, ref[0])
+                for what, g, r in zip(("max", "sum"), (m, l), ref[1:]):
+                    err = float((g - r).abs().max())
+                    key = wkey(dkey("flash_attention[stats]", d), dtype_name)
+                    worst[key] = max(worst[key], err)
+                    if not _within(g, r, *STATS_TOLERANCES):
+                        fail(f"flash_attention_stats {label} {dtype_name}: "
+                             f"row {what} {err:.3e} from the plain version")
+                got = fa.flash_attention_blocked_bwd(q, k, v, mask, out,
+                                                     dout, m, l, causal=True)
+                backward("flash_attention_blocked_bwd", got,
+                         fa.flash_attention_blocked_bwd_reference(
+                             q, k, v, mask, out, dout, m, l, causal=True))
+                k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout,
+                                            causal=True)
+                torch.cuda.synchronize(device)
+                if not all(torch.equal(g, r) for g, r in zip(got, k5)):
+                    fail(f"K6 differs from K5 at {label} {dtype_name}")
+                report.append("K6 == K5 bit for bit")
+            half = dtype_name in TC_DTYPES
+            for n in names:
+                runs = getattr(fa, n).launches - before[n][0]
+                tc = getattr(fa, n).launches_tc - before[n][1]
+                if tc != (runs if half else 0):
+                    fail(f"{n} {label} {dtype_name}: {tc} of {runs} "
+                         f"launches on the tensor-core body")
+            print(f"[check] head dim {d}: {label} {dtype_name}: "
+                  f"{'; '.join(report)} ok")
+            del q, k, v, mask, dout, out, grads
+    torch.cuda.empty_cache()
+
+
 def kernel_keep_mask(fa, b, sq, sk, h, seed, device, dtype):
     """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output (in
     ``dtype``: bf16 and fp16 run the tensor-core body, fp32 the scalar
@@ -876,17 +1045,20 @@ def check_dropout_mask(fa, dims, device, dtype) -> float:
 
 class ShapeTally:
     """K7's and K8/K9's launches by (Sq, Sk), K4's and K5's by (Sq, Sk),
-    and K4's launches that keep the rows' stats by dtype name, inside a
-    ``with`` block, counted where their launchers run (K8 and K9 are one
-    wrapper, told apart by shape)."""
+    K4's launches that keep the rows' stats by dtype name, and K1-K5's
+    launches by (wrapper, head dim), inside a ``with`` block, counted where
+    their launchers run (K8 and K9 are one wrapper, told apart by
+    shape)."""
 
     def __init__(self, fa):
         self.fa = fa
         self.fwd, self.bwd, self.stats = {}, {}, {}
         self.flash, self.flash_bwd = {}, {}
+        self.dims = collections.Counter()
 
     def _wrap_bwd(self, fn):
         def tallied(entry, name, q, k, *a, **kw):
+            self.dims[(name, q.shape[-1])] += 1
             if name == "flash_attention_bwd":
                 key = (q.shape[1], k.shape[1])
                 self.flash_bwd[key] = self.flash_bwd.get(key, 0) + 1
@@ -902,6 +1074,7 @@ class ShapeTally:
 
     def _wrap_stats(self, fn):
         def tallied(entry, name, q, k, *a, stats=(), **kw):
+            self.dims[(name, q.shape[-1])] += 1
             if name == "flash_attention":
                 shape = (q.shape[1], k.shape[1])
                 self.flash[shape] = self.flash.get(shape, 0) + 1
@@ -1143,8 +1316,8 @@ def check_model_fp32(cli, fa, test, device, argv, tag):
 def run_training(cli, fa, device, log_dir: str, argv, kernels,
                  per_update=None, tag="opt", per_eval=None,
                  per_generate=None, updates=TRAIN_UPDATES, idle=(),
-                 zero_first=None):
-    """Phases 5, 5c, 7, 9, 10, 11, 12, 13 and 14: the training run at full
+                 zero_first=None, cache_kernels=None, warm_start=False):
+    """Phases 5, 5c, 7, 9-15: the training run at full
     width through the entry point, ``updates`` updates; ``kernels`` must
     launch inside the training steps, exactly ``per_update`` times in each
     update where given, and ``per_eval`` / ``per_generate`` times in each
@@ -1157,8 +1330,14 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     for that reason; no frozen tensor (the towers, and under PEFT the LM)
     may move, and the frozen set is the one peft/masks.py gives.
 
-    The CLI's model factory, train step, eval setup and checkpoint restore
-    are wrapped here, not changed: the wrappers snapshot the weights, time
+    With ``cache_kernels`` (--cache_neighbor_embeddings true) the run
+    builds the neighbour cache of its three splits before the loop: those
+    kernels (the towers') must launch there and no other. ``warm_start``:
+    then a second start on the same --neighbor_cache_dir, the three splits
+    wrapped anew with the run's model, must launch no kernel at all.
+
+    The CLI's model factory, neighbour cache, train step, eval setup and
+    checkpoint restore are wrapped here, not changed: the wrappers snapshot the weights, time
     each update to a device synchronize and count the kernel launches inside
     it and inside each eval step and generated batch, and record the final
     restore. The weights' snapshot is kept on the host and the peak device
@@ -1167,11 +1346,12 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     import torch
 
     args, dev = cli.parse_cli(argv + ["--log_dir", log_dir])
-    seen = {"steps": [], "restores": [], "merges": 0, "rates": []}
+    seen = {"steps": [], "restores": [], "merges": 0, "rates": [],
+            "cache": []}
     evals, gens = LaunchTally(fa, KERNELS), LaunchTally(fa, KERNELS)
     originals = {name: getattr(cli, name) for name in (
         "build_model", "make_train_step", "restore_checkpoint",
-        "merge_restored_params", "_eval_setup")}
+        "merge_restored_params", "_eval_setup", "cache_neighbors")}
 
     def build_model(*a, **kw):
         model, cfg = originals["build_model"](*a, **kw)
@@ -1215,6 +1395,18 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
 
         return counted
 
+    def cache_neighbors(*a, **kw):
+        before = {n: getattr(fa, n).launches for n in KERNELS}
+        torch.cuda.synchronize(device)
+        start = time.perf_counter()
+        datasets = originals["cache_neighbors"](*a, **kw)
+        torch.cuda.synchronize(device)
+        seen["cache"].append({
+            "seconds": time.perf_counter() - start,
+            "launches": {n: getattr(fa, n).launches - before[n]
+                         for n in KERNELS}})
+        return datasets
+
     def eval_setup(*a, **kw):
         setup = originals["_eval_setup"](*a, **kw)
         setup.eval_step = evals.wrap(setup.eval_step)
@@ -1238,7 +1430,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
                 "make_train_step": make_train_step,
                 "restore_checkpoint": restore_checkpoint,
                 "merge_restored_params": merge_restored_params,
-                "_eval_setup": eval_setup}
+                "_eval_setup": eval_setup,
+                "cache_neighbors": cache_neighbors}
     for name, fn in wrappers.items():
         setattr(cli, name, fn)
     try:
@@ -1259,6 +1452,19 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     steps = seen["steps"]
     in_steps = {n: sum(s["launches"][n] for s in steps) for n in KERNELS}
     print(f"[{tag} train] results: {json.dumps(results, sort_keys=True)}")
+    cache = None
+    if cache_kernels is not None:
+        built = {n: sum(c["launches"][n] for c in seen["cache"])
+                 for n in KERNELS}
+        cache = {"seconds": sum(c["seconds"] for c in seen["cache"]),
+                 "launches": built}
+        print(f"[{tag} train] neighbour cache of the three splits built in "
+              f"{cache['seconds']:.4f} s, launching {built}")
+        if (len(seen["cache"]) != 1
+                or any((built[n] > 0) != (n in cache_kernels)
+                       for n in KERNELS)):
+            fail(f"{tag}: the neighbour cache's build launched {built}, "
+                 f"expected {cache_kernels} and nothing else")
     for i, st in enumerate(steps):
         print(f"[{tag} train] update {i + 1}: loss {st['loss']:.6f} "
               f"summary_loss {st['summary_loss']:.6f} grad_norm "
@@ -1349,8 +1555,29 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
           f"the loop's own examples/s {[round(r, 3) for r in seen['rates']]}"
           f"); peak device memory {peak} bytes ({peak / 2**30:.3f} GiB, of "
           f"which {resident / 2**30:.3f} GiB resident before the run)")
+    warm = None
+    if warm_start:
+        # a second start: the splits wrapped anew with the run's model
+        tokenizer = cli.get_tokenizer(args.tokenizer_path)
+        datasets = cli.setup_data(args, tokenizer)
+        torch.cuda.synchronize(device)
+        reset_launches(fa)
+        start = time.perf_counter()
+        cli.cache_neighbors(args, model, datasets, ("train", "val", "test"))
+        torch.cuda.synchronize(device)
+        files = sorted(os.listdir(args.neighbor_cache_dir))
+        warm = {"seconds": time.perf_counter() - start,
+                "launches": {n: getattr(fa, n).launches for n in KERNELS},
+                "files": files}
+        print(f"[{tag} train] warm start on {args.neighbor_cache_dir} "
+              f"({files}): {warm['seconds']:.4f} s, launches "
+              f"{warm['launches']}")
+        if any(warm["launches"].values()) or len(files) != 3:
+            fail(f"{tag}: the warm start launched {warm['launches']} with "
+                 f"{files} cached")
     return {"sections_per_s": rate, "peak_bytes": peak,
-            "resident_bytes": resident,
+            "resident_bytes": resident, "neighbor_cache": cache,
+            "warm_start": warm,
             "launches": launches, "in_steps": in_steps,
             "launches_tc": {n: c[1] for n, c in bodies.items()},
             "losses": [s["loss"] for s in steps],
@@ -1377,9 +1604,47 @@ def seed_zero_params(model, seeded) -> list:
     return names
 
 
+class Head:
+    """The first n samples of a dataset."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, index):
+        return self.dataset[index]
+
+
+def cached_batch(cli, model, dataset, n: int):
+    """The first n samples of a split as the neighbour cache serves them,
+    its towers run by ``model`` (no cache directory)."""
+    from mmgl_tpu_torch.data.neighbor_cache import CachedNeighborDataset
+
+    cached = CachedNeighborDataset(Head(dataset, n), model, batch_size=n,
+                                   verbose=False, num_workers=1)
+    return next(iter(cli.PrefetchLoader(cached, batch_size=n,
+                                        num_workers=1)))
+
+
+@contextlib.contextmanager
+def depth_cut(size: str, layers: int):
+    """The port's OPT table row of ``size`` (MPT's too) cut to ``layers``
+    layers inside the block, its width unchanged."""
+    from mmgl_tpu_torch.models import factory
+
+    row = factory._OPT_SIZES[size]
+    factory._OPT_SIZES[size] = (row[0], layers) + row[2:]
+    try:
+        yield
+    finally:
+        factory._OPT_SIZES[size] = row
+
+
 def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
                      plain_on_card=False, on_cpu=True, half=False,
-                     per_step=None, seeded=()):
+                     per_step=None, seeded=(), cached=False):
     """Phases 5b, 5c, 7b, 9b, 10c and 12-14: one training
     micro-step (loss, backward) of one sample in eval mode (no dropout) on
     the card; ``kernels`` must launch in it, exactly ``per_step`` times
@@ -1404,9 +1669,11 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
     more than the kernels' rounding moves it), so each launch is compared
     where its inputs are the same.
 
-    Returns the card step's launches and the errors."""
-    import contextlib
+    ``cached``: the sample as the neighbour cache serves it, its pooled
+    features computed by each device's model, and the step's counts taken
+    after that.
 
+    Returns the card step's launches and the errors."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
     from mmgl_tpu_torch.train.steps import losses_of
@@ -1433,6 +1700,8 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
                                    tokenizer=tokenizer)
             if seeded and not seed_zero_params(model, seeded):
                 fail(f"{tag}: no parameter named {seeded} to seed")
+            if cached:
+                batch = cached_batch(cli, model, train_ds, 1)
             reset_launches(fa)
             with check if half else contextlib.nullcontext():
                 fused = model.eval()(batch)
@@ -1799,13 +2068,101 @@ def _blocked_timing_cases(fa, device, dtype_name):
     return cases
 
 
+def _head_dim_timing_cases(fa, device, d):
+    """bf16, head dim d (80: OPT- and MPT-2.7B, 128: OPT-6.7B): K1 and K3
+    at the 2.7B/6.7B training shape (4, 640, 32, d) causal with a pad hole,
+    K4 and K5 at MPT's cross-attention (4, 640 x 64, 32, d), K4 with its
+    row stats and K6 at (4, 1024, 32, d) causal past K1's envelope."""
+    import torch
+
+    dt = torch.bfloat16
+    cases = []
+    b, s, h = 4, 640, 32
+    q, k, v, mask, dout = flash_inputs((b, s, s, h, h), "hole", dt, device,
+                                       600 + d, d)
+    kw = dict(kv_mask=mask, causal=True)
+    out = fa.allheads_attention_reference(q, k, v, **kw)
+    qt, kt, vt, dot = _bhsd(q, k, v, dout)
+    am = float_mask(mask, s, True, None, dt)
+    pairs = allowed_pairs(mask, s, True) * h
+    label = f"{(b, s, h, d)} causal mask=hole"
+    cases += [
+        (f"flash_attention_allheads {label}",
+         dkey("flash_attention_allheads", d), {
+             "kernel": partial(fa.flash_attention_allheads, q, k, v, **kw),
+             "plain": partial(fa.allheads_attention_reference, q, k, v,
+                              **kw),
+             "library": _sdpa_fwd(qt, kt, vt, am)},
+         4 * pairs * d, 4 * q.numel() * 2 + mask.numel() * 4),
+        (f"flash_attention_allheads_bwd {label}",
+         dkey("flash_attention_allheads_bwd", d), {
+             "kernel": partial(fa.flash_attention_allheads_bwd, q, k, v,
+                               mask, out, dout, causal=True),
+             "plain": partial(fa.allheads_attention_bwd_reference, q, k, v,
+                              mask, out, dout, causal=True),
+             "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+         10 * pairs * d, 8 * q.numel() * 2 + mask.numel() * 4)]
+    dims = (b, s, 64, h, h)
+    q, k, v, mask, dout = flash_inputs(dims, "gap_fully_masked", dt, device,
+                                       700 + d, d)
+    out = fa.flash_attention(q, k, v, kv_mask=mask)
+    qt, kt, vt, dot = _bhsd(q, k, v, dout)
+    am = float_mask(mask, s, False, None, dt)
+    pairs = allowed_pairs(mask, s, False) * h
+    label = f"{(b, s, 64, h, d)} cross mask=gap_fully_masked"
+    cases += [
+        (f"flash_attention {label}", dkey("flash_attention", d), {
+            "kernel": partial(fa.flash_attention, q, k, v, kv_mask=mask),
+            "plain": partial(fa.flash_attention_reference, q, k, v,
+                             kv_mask=mask),
+            "library": _sdpa_fwd(qt, kt, vt, am)},
+         4 * pairs * d, (2 * q.numel() + 2 * k.numel()) * 2
+         + mask.numel() * 4),
+        (f"flash_attention_bwd {label}", dkey("flash_attention_bwd", d), {
+            "kernel": partial(fa.flash_attention_bwd, q, k, v, mask, out,
+                              dout),
+            "plain": partial(fa.flash_attention_bwd_reference, q, k, v, mask,
+                             out, dout),
+            "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+         10 * pairs * d, (4 * q.numel() + 4 * k.numel()) * 2
+         + mask.numel() * 4)]
+    s = 1024
+    q, k, v, mask, dout = flash_inputs((b, s, s, h, h), "hole", dt, device,
+                                       800 + d, d)
+    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=True)
+    qt, kt, vt, dot = _bhsd(q, k, v, dout)
+    am = float_mask(mask, s, True, None, dt)
+    pairs = allowed_pairs(mask, s, True) * h
+    stats_bytes = 2 * m.numel() * 4
+    label = f"{(b, s, h, d)} causal mask=hole"
+    cases += [
+        (f"flash_attention with stats {label}",
+         dkey("flash_attention[stats]", d), {
+             "kernel": partial(fa.flash_attention_stats, q, k, v,
+                               kv_mask=mask, causal=True),
+             "plain": partial(fa.flash_attention_reference, q, k, v,
+                              kv_mask=mask, causal=True, with_stats=True),
+             "library": _sdpa_fwd(qt, kt, vt, am)},
+         4 * pairs * d, 4 * q.numel() * 2 + mask.numel() * 4 + stats_bytes),
+        (f"flash_attention_blocked_bwd {label}",
+         dkey("flash_attention_blocked_bwd", d), {
+             "kernel": partial(fa.flash_attention_blocked_bwd, q, k, v, mask,
+                               out, dout, m, l, causal=True),
+             "plain": partial(fa.flash_attention_blocked_bwd_reference, q, k,
+                              v, mask, out, dout, m, l, causal=True),
+             "library": _sdpa_bwd(qt, kt, vt, am, dot)},
+         10 * pairs * d, 8 * q.numel() * 2 + mask.numel() * 4
+         + stats_bytes)]
+    return cases
+
+
 def timing_cases(fa, device):
     """(label, kernel name, {"kernel", "plain", "library"} callables, FLOPs,
     bytes, dtype name) for every kernel at its main-path shapes, in bf16
     and in fp16; in bf16 also K1 at Roberta's shape, K7 with K9 at the
     embedding mode's 576-token encoder, K4 with K5 at MPT's cross-attention
     and at prefix tuning's 704 x 724, and K7 with K8 at T5's prefixed
-    decoder."""
+    decoder; and in bf16 K1 and K3-K6 at head dims 80 and 128."""
     cases = []
     for dtype_name in TC_DTYPES:
         bf16 = dtype_name == "bfloat16"
@@ -1818,6 +2175,9 @@ def timing_cases(fa, device):
                               else ()):
             got += _bias_timing_cases(fa, device, i, dtype_name)
         got += _blocked_timing_cases(fa, device, dtype_name)
+        if bf16:
+            for d in (80, 128):
+                got += _head_dim_timing_cases(fa, device, d)
         cases += [c + (dtype_name,) for c in got]
     return cases
 
@@ -1840,9 +2200,88 @@ def time_kernels(fa, device):
     return rows
 
 
+def run_mpt_phase(cli, fa, device, micro, launches):
+    """Phase 13, BASELINE family 4 at MPT-2.7B from cached tower features:
+    the short run with its launch counts, the warm start, the fp32 and
+    bf16 micro-steps; the launches at head dim 80 go into ``launches``
+    (the kernels line's names). Returns the run's summary."""
+    # BASELINE family 4 at its published MPT-2.7B (head dim 80)
+    # + Roberta + CLIP, all, flamingo, from cached tower features: the
+    # cache build launches the towers' K1 and K2, and no micro-step, eval
+    # step or generated batch does; the self-attention takes K1 (32
+    # layers) and K3 (the 24 after the first cross layer), the cross
+    # layers' attention (640 x 64) K4 and K5, the prefill's (512 x 64) K4;
+    # then a second start on the same cache directory launches nothing
+    mpt_kernels = ("flash_attention_allheads", "flash_attention_allheads_bwd",
+                   "flash_attention", "flash_attention_bwd")
+    per = {"flash_attention_allheads": MPT_LAYERS,
+           "fused_heads_attention": 0, "flash_attention": MPT_CROSS}
+    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir, \
+            tempfile.TemporaryDirectory() as cache_dir:
+        argv = with_flags(MPT_ARGV, neighbor_cache_dir=cache_dir)
+        mpt = run_training(
+            cli, fa, device, log_dir, argv, mpt_kernels,
+            {"flash_attention_allheads": MPT_LAYERS * micro,
+             "flash_attention_allheads_bwd": MPT_GRAD_LAYERS * micro,
+             "fused_heads_attention": 0,
+             "flash_attention": MPT_CROSS * micro,
+             "flash_attention_bwd": MPT_CROSS * micro},
+            tag="mpt-2.7b flamingo", per_eval=per, per_generate=per,
+            updates=1,
+            zero_first=(flamingo_zero,
+                        "the cross layers and the memory reach the loss "
+                        "only through branches scaled by tanh(gate), and "
+                        "the gates start at 0"),
+            cache_kernels=("flash_attention_allheads",
+                           "fused_heads_attention"),
+            warm_start=True)
+    print(f"[mpt-2.7b flamingo] K4 launches by (Sq, Sk): {tally.flash}; "
+          f"K5: {tally.flash_bwd}; K1-K5 by head dim: {dict(tally.dims)}")
+    # the cross-attention at 640 x 64 in every micro-step and eval step,
+    # at 512 x 64 in every prefill; K5 in the micro-steps alone; every LM
+    # launch at head dim 80, the towers' (the cache build) at 64
+    want = ({(640, 64): MPT_CROSS * (micro + mpt["eval_steps"]),
+             (512, 64): MPT_CROSS * mpt["generated_batches"]},
+            {(640, 64): MPT_CROSS * micro})
+    if (tally.flash, tally.flash_bwd) != want:
+        fail(f"MPT's K4/K5 launches by shape {tally.flash} / "
+             f"{tally.flash_bwd}, expected {want}")
+    lm_k1 = MPT_LAYERS * (micro + mpt["eval_steps"]
+                          + mpt["generated_batches"])
+    if (tally.dims[("flash_attention_allheads", 80)] != lm_k1
+            or tally.dims[("flash_attention_allheads_bwd", 80)]
+            != MPT_GRAD_LAYERS * micro):
+        fail(f"MPT-2.7B's K1/K3 launches at head dim 80 "
+             f"{dict(tally.dims)}, expected K1 {lm_k1}")
+    for name in ("flash_attention_allheads", "flash_attention_allheads_bwd",
+                 "flash_attention", "flash_attention_bwd"):
+        launches[dkey(name, 80)] = tally.dims[(name, 80)]
+    mpt["launches_by_head_dim"] = {f"{n}[d{d}]": c
+                                   for (n, d), c in tally.dims.items()}
+    mpt["k4_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.flash.items()}
+    mpt_step = {"flash_attention": MPT_CROSS,
+                "flash_attention_bwd": MPT_CROSS,
+                "flash_attention_allheads": MPT_LAYERS,
+                "flash_attention_allheads_bwd": MPT_GRAD_LAYERS,
+                "fused_heads_attention": 0}
+    with depth_cut("2.7b", MPT_FP32_LAYERS):
+        mpt["fp32_step"] = check_train_step(
+            cli, fa, device, MPT_ARGV, mpt_kernels,
+            f"mpt-2.7b flamingo ({MPT_FP32_LAYERS} layers)",
+            seeded=("gating",), cached=True,
+            per_step={**mpt_step,
+                      "flash_attention_allheads": MPT_FP32_LAYERS,
+                      "flash_attention_allheads_bwd": MPT_FP32_GRAD_LAYERS})
+    mpt["fp32_step"]["layers"] = MPT_FP32_LAYERS
+    mpt["bf16_step"] = check_train_step(
+        cli, fa, device, MPT_ARGV, mpt_kernels, "mpt-2.7b flamingo",
+        half=True, seeded=("gating",), per_step=mpt_step, cached=True)
+    return mpt
+
+
 def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
-    """Phases 12-14: BASELINE families 3, 4 (at 1.3B), 5 (without its
-    mesh) and 6, and config 2 with T5's decoder prefixes, each the short
+    """Phases 12-14: BASELINE families 3, 4 (MPT-2.7B, cached), 5 (without
+    its mesh) and 6, and config 2 with T5's decoder prefixes, each the short
     run through the CLI with its launch counts, then the micro-steps.
     Returns {"runs": {key: summary}, "launches": {kernels-line name: n}}."""
     runs, launches = {}, {}
@@ -1864,66 +2303,23 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
             idle=("text_embeddings.",),
             zero_first=(lambda n: "lora_a" in n,
                         "LoRA's A multiplies B, which starts at 0"))
-    lora_step = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
-                 "flash_attention_allheads_bwd": OPT13_LAYERS}
-    for key, half in (("fp32_step", False), ("bf16_step", True)):
-        lora[key] = check_train_step(
-            cli, fa, device, LORA_ARGV,
-            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
-            "opt-1.3b lora", half=half, seeded=("lora_b",),
-            per_step=lora_step)
+    # the micro-steps at OPT13_STEP_LAYERS of the 24 layers, full width
+    lora_step = {"flash_attention_allheads":
+                     ROBERTA_LAYERS + OPT13_STEP_LAYERS,
+                 "flash_attention_allheads_bwd": OPT13_STEP_LAYERS}
+    with depth_cut("1.3b", OPT13_STEP_LAYERS):
+        for key, half in (("fp32_step", False), ("bf16_step", True)):
+            lora[key] = check_train_step(
+                cli, fa, device, LORA_ARGV,
+                ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+                f"opt-1.3b lora ({OPT13_STEP_LAYERS} layers)", half=half,
+                seeded=("lora_b",), per_step=lora_step)
+            lora[key]["layers"] = OPT13_STEP_LAYERS
     runs["opt13b_lora_training"] = lora
     lap("12")
 
-    # phase 13: MPT-1.3B + Roberta + CLIP, all, flamingo; the cross
-    # layers' attention (640 x 64) takes K4 and K5, the prefill's
-    # (512 x 64) K4
-    mpt_kernels = ("flash_attention_allheads", "flash_attention_allheads_bwd",
-                   "fused_heads_attention", "flash_attention",
-                   "flash_attention_bwd")
-    per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
-           "fused_heads_attention": CLIP_LAYERS,
-           "flash_attention": MPT_CROSS}
-    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir:
-        mpt = run_training(
-            cli, fa, device, log_dir, MPT_ARGV, mpt_kernels,
-            {"flash_attention_allheads":
-                 (ROBERTA_LAYERS + OPT13_LAYERS) * micro,
-             "flash_attention_allheads_bwd": MPT_GRAD_LAYERS * micro,
-             "fused_heads_attention": CLIP_LAYERS * micro,
-             "flash_attention": MPT_CROSS * micro,
-             "flash_attention_bwd": MPT_CROSS * micro},
-            tag="mpt-1.3b flamingo", per_eval=per, per_generate=per,
-            updates=1,
-            zero_first=(flamingo_zero,
-                        "the cross layers and the memory reach the loss "
-                        "only through branches scaled by tanh(gate), and "
-                        "the gates start at 0"))
-    print(f"[mpt-1.3b flamingo] K4 launches by (Sq, Sk): {tally.flash}; "
-          f"K5: {tally.flash_bwd}")
-    # the cross-attention at 640 x 64 in every micro-step and eval step,
-    # at 512 x 64 in every prefill; K5 in the micro-steps alone
-    want = ({(640, 64): MPT_CROSS * (micro + mpt["eval_steps"]),
-             (512, 64): MPT_CROSS * mpt["generated_batches"]},
-            {(640, 64): MPT_CROSS * micro})
-    if (tally.flash, tally.flash_bwd) != want:
-        fail(f"MPT's K4/K5 launches by shape {tally.flash} / "
-             f"{tally.flash_bwd}, expected {want}")
-    launches["flash_attention[mpt-cross]"] = tally.flash[(640, 64)]
-    launches["flash_attention_bwd[mpt-cross]"] = tally.flash_bwd[(640, 64)]
-    mpt["k4_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.flash.items()}
-    mpt_step = {"flash_attention": MPT_CROSS,
-                "flash_attention_bwd": MPT_CROSS,
-                "flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
-                "flash_attention_allheads_bwd": MPT_GRAD_LAYERS,
-                "fused_heads_attention": CLIP_LAYERS}
-    mpt["fp32_step"] = check_train_step(
-        cli, fa, device, MPT_ARGV, mpt_kernels, "mpt-1.3b flamingo",
-        seeded=("gating",), per_step=mpt_step)
-    mpt["bf16_step"] = check_train_step(
-        cli, fa, device, MPT_ARGV, mpt_kernels, "mpt-1.3b flamingo",
-        half=True, seeded=("gating",), per_step=mpt_step)
-    runs["mpt13b_flamingo_training"] = mpt
+    runs["mpt27b_flamingo_training"] = run_mpt_phase(cli, fa, device, micro,
+                                                     launches)
     lap("13")
 
     # phase 14a: OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704
@@ -2041,6 +2437,128 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
     return {"runs": runs, "launches": launches}
 
 
+def check_cached_loss(cli, fa, device, argv, tag, n=4):
+    """One fixed batch (the first n samples of the train split) through the
+    same seeded bf16 model in eval mode, from its raw neighbours and from
+    the neighbour cache's features: the cached forward launches no K2 (and
+    no Roberta K1) where the live one launches them, and the two losses
+    agree at phase 3's bf16 tolerance."""
+    import torch
+    from mmgl_tpu_torch.models.factory import build_model
+    from mmgl_tpu_torch.train.steps import losses_of
+
+    args, _ = cli.parse_cli(argv)
+    args.decoder_only = "t5" not in args.model_name_or_path
+    tokenizer = cli.get_tokenizer(args.tokenizer_path)
+    train_ds = cli.setup_data(args, tokenizer)[0]
+    model, _ = build_model(args, device, vocab_size=tokenizer.vocab_size,
+                           tokenizer=tokenizer)
+    batches = {"live": next(iter(cli.PrefetchLoader(train_ds, batch_size=n,
+                                                    num_workers=1))),
+               "cached": cached_batch(cli, model, train_ds, n)}
+    got = {}
+    for which, batch in batches.items():
+        reset_launches(fa)
+        with torch.no_grad():
+            out = model.eval()(batch)
+            loss = float(losses_of(out, args.decoder_only,
+                                   args.max_input_length,
+                                   tokenizer.pad_token_id)[0])
+        got[which] = (loss, {k: getattr(fa, k).launches for k in (
+            "flash_attention_allheads", "fused_heads_attention")})
+    atol, rtol = TOLERANCES["bfloat16"]
+    live, cached = got["live"][0], got["cached"][0]
+    print(f"[{tag}] bf16 eval loss of one batch of {n}: cached {cached:.7f}"
+          f", live {live:.7f} (atol {atol:g}, rtol {rtol:g}); launches "
+          f"cached {got['cached'][1]}, live {got['live'][1]}")
+    if not got["live"][1]["fused_heads_attention"] or got["cached"][1][
+            "fused_heads_attention"] or not (
+            math.isfinite(cached) and abs(cached - live)
+            <= atol + rtol * abs(live)):
+        fail(f"{tag}: the cached forward's loss or launches disagree with "
+             "the live one's")
+    del model
+    return {"loss_cached": cached, "loss_live": live,
+            "launches": {k: v[1] for k, v in got.items()}}
+
+
+def run_opt67_phase(cli, fa, device):
+    """Phase 16: OPT-6.7B's test pass (head dim 128) at OPT67_LAYERS of its
+    32 layers, full width, with its launch counts. Returns its summary and
+    {kernels-line name: launches} at head dim 128."""
+    with ShapeTally(fa) as tally, depth_cut("6.7b", OPT67_LAYERS):
+        _, results, launches, rate, peak = run_test_pass(
+            cli, fa, device, OPT67_TEST_ARGV, OPT_TEST_KERNELS,
+            {"flash_attention_allheads": OPT67_LAYERS,
+             "fused_heads_attention": CLIP_LAYERS},
+            {"flash_attention_allheads": OPT67_LAYERS,
+             "fused_heads_attention": CLIP_LAYERS}, tag="opt-6.7b")
+    print(f"[opt-6.7b test] K1-K5 launches by head dim: {dict(tally.dims)}")
+    k1_128 = tally.dims[("flash_attention_allheads", 128)]
+    if k1_128 != launches["flash_attention_allheads"] or not k1_128:
+        fail(f"OPT-6.7B's K1 launches by head dim {dict(tally.dims)}")
+    gc.collect()
+    return ({"sections_per_s": rate, "peak_bytes": peak,
+             "test_loss": results["loss"], "launches": launches,
+             "launches_by_head_dim": {f"{n}[d{d}]": c for (n, d), c
+                                      in tally.dims.items()},
+             "layers": OPT67_LAYERS},
+            {dkey(n, d): c for (n, d), c in tally.dims.items() if d == 128})
+
+
+def run_cached_phases(cli, fa, device, micro, opt_live, emb_live):
+    """Phase 15: the main path (BASELINE config 1: OPT-125M + CLIP, raw
+    all) and config 2 (T5-base + Roberta + CLIP, section_all, embedding)
+    trained from the neighbour cache through the CLI, 4 updates each: the
+    cache build launches the towers (config 1 CLIP's K2 alone, config 2
+    Roberta's K1 and K2), no update, eval step or generated batch does; the
+    cached main path's bf16 loss on one batch against the live one's. Its
+    update seconds are printed beside the uncached runs' of phases 5 and
+    10 (``opt_live``, ``emb_live``): a reading, not a claim."""
+    runs = {}
+    no_towers = {"fused_heads_attention": 0}
+    with tempfile.TemporaryDirectory() as log_dir:
+        opt = run_training(
+            cli, fa, device, log_dir, OPT_CACHED_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+            {"flash_attention_allheads": OPT_LAYERS * micro,
+             "flash_attention_allheads_bwd": OPT_LAYERS * micro,
+             **no_towers},
+            tag="opt cached",
+            per_eval={"flash_attention_allheads": OPT_LAYERS, **no_towers},
+            per_generate={"flash_attention_allheads": OPT_LAYERS,
+                          **no_towers},
+            cache_kernels=("fused_heads_attention",))
+    opt["fixed_batch"] = check_cached_loss(cli, fa, device, OPT_CACHED_ARGV,
+                                           "opt cached")
+    runs["opt_cached_training"] = opt
+    no_towers["flash_attention_allheads"] = 0
+    with tempfile.TemporaryDirectory() as log_dir:
+        emb = run_training(
+            cli, fa, device, log_dir, T5_EMB_CACHED_ARGV,
+            ("flash_attention_bias", "flash_attention_bias_bwd"),
+            {"flash_attention_bias": 3 * T5_LAYERS * micro,
+             "flash_attention_bias_bwd": 3 * T5_LAYERS * micro,
+             **no_towers},
+            tag="t5 emb cached",
+            per_eval={"flash_attention_bias": 2 * T5_LAYERS,
+                      "flash_attention": T5_LAYERS, **no_towers},
+            per_generate={"flash_attention_bias": T5_LAYERS, **no_towers},
+            cache_kernels=("flash_attention_allheads",
+                           "fused_heads_attention"))
+    runs["t5_embedding_cached_training"] = emb
+    for tag, live, got in (("config 1 (OPT-125M raw all)", opt_live, opt),
+                           ("config 2 (T5-base embedding)", emb_live, emb)):
+        print(f"[cached] {tag}: update seconds cached "
+              f"{[round(x, 4) for x in got['update_seconds']]} "
+              f"({got['sections_per_s']:.3f} sections/s), uncached "
+              f"{[round(x, 4) for x in live['update_seconds']]} "
+              f"({live['sections_per_s']:.3f} sections/s); peak "
+              f"{got['peak_bytes'] / 2**30:.3f} against "
+              f"{live['peak_bytes'] / 2**30:.3f} GiB")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -2083,6 +2601,7 @@ def main() -> int:
     check_opt_kernels(fa, device, worst)
     keep = check_t5_kernels(fa, device, worst)
     check_blocked_kernels(fa, device, worst)
+    check_head_dim_kernels(fa, device, worst)
     lap("3")
 
     test, results, opt_test, rate, peak = run_test_pass(
@@ -2296,6 +2815,10 @@ def main() -> int:
 
     lap("11")
     peft = run_peft_phases(cli, fa, device, micro, lap)
+    cached = run_cached_phases(cli, fa, device, micro, train, emb_train)
+    lap("15")
+    opt67_summary, launches_d128 = run_opt67_phase(cli, fa, device)
+    lap("16")
 
     print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
@@ -2328,6 +2851,9 @@ def main() -> int:
     print(json.dumps({"opt_graph": {**graph, "card": card}}))
     for key, run in peft["runs"].items():
         print(json.dumps({key: {**run, "card": card}}))
+    for key, run in cached.items():
+        print(json.dumps({key: {**run, "card": card}}))
+    print(json.dumps({"opt67b_test": {**opt67_summary, "card": card}}))
 
     # each kernel's launches from the path that runs it: K1-K3 the OPT
     # training run, K4 the T5 test pass, K7/K8/K9 the T5 training run, K5
@@ -2368,6 +2894,8 @@ def main() -> int:
     # tuning) and K7/K8 (T5's prefixed decoder), each from the run that
     # takes it, prefills and eval steps included
     launches.update(peft["launches"])
+    # head dims 80 (phase 13, MPT-2.7B) and 128 (phase 16, OPT-6.7B)
+    launches.update(launches_d128)
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():

@@ -32,7 +32,10 @@ The embedding mode (the last line: BASELINE config 2) encodes each sample's
 neighbor texts with the frozen Roberta tower and its neighbor images with
 CLIP, and appends their soft tokens to the LM's input;
 ``--position_type`` embedding, laplacian or gnn adds its position encoding
-(the graph ones with ``--context all``).
+(the graph ones with ``--context all``). ``--cache_neighbor_embeddings
+true`` runs the frozen towers once over each split before the loop
+(data/neighbor_cache.py; with ``--neighbor_cache_dir`` kept on disk for the
+next start), in the embedding mode and for the raw mode's images.
 
 ``--device cuda`` on a host without a visible GPU fails: there is no CPU
 fallback. Pass ``--device cpu`` to run the plain versions of the kernels.
@@ -155,9 +158,29 @@ def _eval_setup(args: Arguments, model, fcfg, tokenizer, dataset
     return EvalSetup(model, fcfg, tokenizer, loader, eval_step, generate_fn)
 
 
+def cache_neighbors(args: Arguments, model, datasets, splits):
+    """The datasets wrapped in the neighbour cache where
+    ``--cache_neighbor_embeddings`` asks for it and a frozen tower runs:
+    the embedding mode, or the raw mode's images (section_all, all), as the
+    JAX package applies it (mmgl_tpu/cli.py:259-270); else as given."""
+    if not (args.cache_neighbor_embeddings
+            and (args.neighbor_mode == "embedding"
+                 or args.context in ("section_all", "all"))):
+        return tuple(datasets)
+    from mmgl_tpu_torch.data.neighbor_cache import CachedNeighborDataset
+
+    print("[neighbor-cache] precomputing frozen tower outputs ...")
+    return tuple(CachedNeighborDataset(
+        ds, model, cache_dir=args.neighbor_cache_dir, split=split,
+        num_workers=args.dataloader_num_workers)
+        for ds, split in zip(datasets, splits))
+
+
 def prepare(args: Arguments, device: torch.device) -> EvalSetup:
-    """Tokenizer, seeded model, test loader, eval step and generator."""
+    """Tokenizer, seeded model, test loader (its neighbours cached under
+    ``--cache_neighbor_embeddings``), eval step and generator."""
     tokenizer, model, fcfg, (_, _, test_ds) = _build(args, device)
+    test_ds, = cache_neighbors(args, model, (test_ds,), ("test",))
     print(f"Testing with {len(test_ds)} examples.")
     return _eval_setup(args, model, fcfg, tokenizer, test_ds)
 
@@ -188,8 +211,6 @@ def check_training_flags(args: Arguments) -> None:
     """Refuse what training does not port yet, naming its ROADMAP item.
     Every ``--peft_type`` trains."""
     unported = {
-        "--cache_neighbor_embeddings (ROADMAP A2)":
-            args.cache_neighbor_embeddings,
         "--chunked_ce (ROADMAP A9)": args.chunked_ce > 0,
         "--fused_ce false": not args.fused_ce,
         "--remat (ROADMAP A9)": args.remat,
@@ -269,8 +290,9 @@ def run_training(args: Arguments, device: torch.device,
     if args.save_dir is None:
         args.save_dir = os.path.join(log_dir, "ckpt")
 
-    tokenizer, model, fcfg, (train_ds, val_ds, test_ds) = _build(args,
-                                                                  device)
+    tokenizer, model, fcfg, datasets = _build(args, device)
+    train_ds, val_ds, test_ds = cache_neighbors(args, model, datasets,
+                                                ("train", "val", "test"))
     print(f"Training with {len(train_ds)} examples, validating with "
           f"{len(val_ds)} examples, testing with {len(test_ds)} examples.")
     counts = count_params(model)

@@ -80,9 +80,12 @@
 
 namespace {
 
+// the head dim the bias kernels take: T5's d_kv at every size the two
+// packages know (K1-K6 also take 80 and 128)
+constexpr int kD = 64;
+
 using mmgl::axpy4;
 using mmgl::dot4;
-using mmgl::kD;
 using mmgl::kNegInf;
 using mmgl::load1;
 using mmgl::load4;
@@ -592,8 +595,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
     row_max = stats;
     row_sum = stats + n;
   }
-  err = mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads,
-                              stream);
+  err = mmgl::launch_delta<kD, T>(out, dout, row_delta, batch, sq, heads,
+                                  stream);
   if (err != cudaSuccess) return err;
   err = mmgl::launch_bwd_tiles_tc_as<kD, BiasKvShape, BiasQShape, kBias,
                                      kDropout, TB, T>(

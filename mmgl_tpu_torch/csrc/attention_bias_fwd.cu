@@ -66,7 +66,10 @@
 
 namespace {
 
-using mmgl::kD;
+// the head dim the bias kernels take: T5's d_kv at every size the two
+// packages know (K1-K6 also take 80 and 128)
+constexpr int kD = 64;
+
 using mmgl::kNegInf;
 using mmgl::load1;
 using mmgl::load4;

@@ -50,55 +50,13 @@
 // between the products in bf16 or fp16, scalar FMAs and shared-memory loads
 // in fp32;
 // not HBM (3.35 TB/s). Against K5 at the same shape it saves the stats pass.
+// Head dims 64, 80 and 128, as K3/K5 (mmgl::with_head_dim).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attention_bwd_tiles.cuh"
 #include "common.cuh"
-
-namespace {
-
-using mmgl::attention_bwd_dkdv_kernel;
-using mmgl::attention_bwd_dq_kernel;
-using mmgl::kD;
-
-constexpr int kTile = mmgl::kBwdTile;        // query rows and keys per tile
-constexpr int kThreads = mmgl::kBwdThreads;  // four threads per row
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_mask, const void* out, const void* dout,
-                   const float* row_max, const float* row_sum, void* dq,
-                   void* dk, void* dv, float* row_delta, int batch, int sq,
-                   int sk, int heads, int head_dim, float scale, int causal,
-                   cudaStream_t stream) {
-  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      (causal && sq > sk) || batch > 65535 || heads > 65535) {
-    return cudaErrorInvalidValue;
-  }
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-
-  const dim3 q_grid((sq + kTile - 1) / kTile, heads, batch);
-  const dim3 k_grid((sk + kTile - 1) / kTile, heads, batch);
-  cudaError_t err =
-      mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads, stream);
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_kernel<T><<<k_grid, kThreads, 0, stream>>>(
-      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_bwd_dq_kernel<T><<<q_grid, kThreads, 0, stream>>>(
-      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
-      static_cast<T*>(dq), sq, sk, heads, scale, causal);
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 // K6: the blocked backward of K4 from its saved row max and sum (each
 // batch * heads * sq fp32 in (B, H, Sq) order); row_delta: fp32 scratch of
@@ -112,10 +70,19 @@ extern "C" int mmgl_blocked_bwd(const void* q, const void* k, const void* v,
                                 int causal, int dtype,
                                 cudaStream_t stream) {
   // bf16, fp16: mmgl_blocked_bwd_tc
-  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
-  return launch<float>(q, k, v, kv_mask, out, dout, row_max, row_sum, dq, dk,
-                       dv, row_delta, batch, sq, sk, heads, head_dim, scale,
-                       causal, stream);
+  if (dtype != mmgl::kF32 ||
+      !mmgl::valid_shape(batch, sq, sk, heads, causal)) {
+    return cudaErrorInvalidValue;
+  }
+  return mmgl::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    const cudaError_t err = mmgl::launch_delta<D, float>(
+        out, dout, row_delta, batch, sq, heads, stream);
+    if (err != cudaSuccess) return err;
+    return mmgl::launch_bwd_tiles<D, float>(
+        q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
+        batch, sq, sk, heads, scale, causal, stream);
+  });
 }
 
 // K6 on the tensor-core bodies (dtype bf16 or fp16): the same delta pass,
@@ -128,17 +95,19 @@ extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
                                    int sq, int sk, int heads, int head_dim,
                                    float scale, int causal, int dtype,
                                    cudaStream_t stream) {
-  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      (causal && sq > sk) || batch > 65535 || heads > 65535) {
+  if (!mmgl::valid_shape(batch, sq, sk, heads, causal)) {
     return cudaErrorInvalidValue;
   }
-  return mmgl::with_tc_type(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    const cudaError_t err =
-        mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads, stream);
-    if (err != cudaSuccess) return err;
-    return mmgl::launch_bwd_tiles_tc<kD, T>(
-        q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
-        batch, sq, sk, heads, scale, causal, stream);
+  return mmgl::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return mmgl::with_tc_type(dtype, [&](auto tag) {
+      using T = decltype(tag);
+      const cudaError_t err = mmgl::launch_delta<D, T>(
+          out, dout, row_delta, batch, sq, heads, stream);
+      if (err != cudaSuccess) return err;
+      return mmgl::launch_bwd_tiles_tc<D, T>(
+          q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
+          batch, sq, sk, heads, scale, causal, stream);
+    });
   });
 }

@@ -26,7 +26,8 @@
 // Layout: q/k/v/o/dO and dq/dk/dv are (B, S, H*D) row-major, read and written
 // strided in place (row stride H*D), as the forward does: no transposes, no
 // padding. Outputs are in the input dtype (fp32, bf16 or fp16); every sum is
-// fp32.
+// fp32. Head dims 64, 80 (OPT and MPT at 2.7B) and 128 (6.7B): every pass
+// is instantiated at each (mmgl::with_head_dim).
 //
 // Schedule: three launches on the caller's stream, no atomics.
 //   1. stats: per query row the softmax max m and sum l (kept apart: for a
@@ -63,20 +64,18 @@
 
 namespace {
 
-using mmgl::attention_bwd_dkdv_kernel;
-using mmgl::attention_bwd_dq_kernel;
 using mmgl::dot4;
-using mmgl::kD;
 using mmgl::kNegInf;
 using mmgl::load4;
 using mmgl::store4;
 
 constexpr int kTile = mmgl::kBwdTile;        // query rows and keys per tile
 constexpr int kThreads = mmgl::kBwdThreads;  // four threads per row
-constexpr int kKStride = kD + 4;             // padded K row of the stats pass
 
-// 1. per query row: max m, sum l of exp(logit - m), delta = rowsum(dO * o)
-template <typename T>
+// 1. per query row: max m, sum l of exp(logit - m), delta = rowsum(dO * o);
+// K rows padded to D + 4 floats as in the forward's scalar body (33.8 KB
+// of static shared memory at D = 128)
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const int* __restrict__ kv_mask,
@@ -86,7 +85,7 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            float* __restrict__ row_sum,
                            float* __restrict__ row_delta, int sq, int sk,
                            int heads, float scale, int causal) {
-  __shared__ __align__(16) float k_tile[kTile][kKStride];
+  __shared__ __align__(16) float k_tile[kTile][D + 4];
   __shared__ int mask_tile[kTile];
 
   const int tid = threadIdx.x;
@@ -98,16 +97,16 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const long rs = static_cast<long>(heads) * kD;
-  const T* q_rows = q + static_cast<long>(b) * sq * rs + h * kD;
-  const T* k_rows = k + static_cast<long>(b) * sk * rs + h * kD;
-  const T* o_rows = out + static_cast<long>(b) * sq * rs + h * kD;
-  const T* do_rows = dout + static_cast<long>(b) * sq * rs + h * kD;
+  const long rs = static_cast<long>(heads) * D;
+  const T* q_rows = q + static_cast<long>(b) * sq * rs + h * D;
+  const T* k_rows = k + static_cast<long>(b) * sk * rs + h * D;
+  const T* o_rows = out + static_cast<long>(b) * sq * rs + h * D;
+  const T* do_rows = dout + static_cast<long>(b) * sq * rs + h * D;
   const int* mask_row = kv_mask + static_cast<long>(b) * sk;
 
-  float qr[kD];
+  float qr[D];
 #pragma unroll
-  for (int c = 0; c < kD / 4; ++c) {
+  for (int c = 0; c < D / 4; ++c) {
     const float4 x = row_ok ? load4(q_rows + qi * rs + 4 * c)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
     qr[4 * c + 0] = x.x;
@@ -128,9 +127,9 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (__syncthreads_and(!row_ok || m_run > kNegInf)) break;
     }
     __syncthreads();
-    for (int e = tid; e < kTile * (kD / 4); e += kThreads) {
-      const int r = e >> 4;
-      const int c = e & 15;
+    for (int e = tid; e < kTile * (D / 4); e += kThreads) {
+      const int r = e / (D / 4);
+      const int c = e % (D / 4);
       const int j = k0 + r;
       const float4 kx = (j < sk) ? load4(k_rows + j * rs + 4 * c)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -149,7 +148,7 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = k0 + r;
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < kD / 4; ++c) {
+      for (int c = 0; c < D / 4; ++c) {
         const float4 kx = *reinterpret_cast<const float4*>(&k_tile[r][4 * c]);
         dot = fmaf(qr[4 * c + 0], kx.x, dot);
         dot = fmaf(qr[4 * c + 1], kx.y, dot);
@@ -175,12 +174,13 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_run = m_new;
   }
 
-  // delta over this thread's 16 dims, then across the row's four threads
+  // delta over this thread's D/4 dims, then across the row's four threads
+  // (the order of the delta pass, mmgl::attention_delta_kernel)
   float delta = 0.f;
   if (row_ok) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const long off = qi * rs + 16 * sub + 4 * c;
+    for (int c = 0; c < D / 16; ++c) {
+      const long off = qi * rs + (D / 4) * sub + 4 * c;
       delta = dot4(load4(do_rows + off), load4(o_rows + off), delta);
     }
   }
@@ -194,42 +194,45 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_mask, const void* out, const void* dout,
                    void* dq, void* dk, void* dv, float* stats, int batch,
-                   int sq, int sk, int heads, int head_dim, float scale,
-                   int causal, cudaStream_t stream) {
-  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      (causal && sq > sk) || batch > 65535 || heads > 65535) {
-    return cudaErrorInvalidValue;
-  }
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* o_ = static_cast<const T*>(out);
-  const T* do_ = static_cast<const T*>(dout);
+                   int sq, int sk, int heads, float scale, int causal,
+                   cudaStream_t stream) {
   const long n = static_cast<long>(batch) * heads * sq;
   float* row_max = stats;
   float* row_sum = stats + n;
   float* row_delta = stats + 2 * n;
 
   const dim3 q_grid((sq + kTile - 1) / kTile, heads, batch);
-  const dim3 k_grid((sk + kTile - 1) / kTile, heads, batch);
-  attention_bwd_stats_kernel<T><<<q_grid, kThreads, 0, stream>>>(
-      q_, k_, kv_mask, o_, do_, row_max, row_sum, row_delta, sq, sk, heads,
-      scale, causal);
-  cudaError_t err = cudaGetLastError();
+  attention_bwd_stats_kernel<D, T><<<q_grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), kv_mask,
+      static_cast<const T*>(out), static_cast<const T*>(dout), row_max,
+      row_sum, row_delta, sq, sk, heads, scale, causal);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_kernel<T><<<k_grid, kThreads, 0, stream>>>(
-      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_bwd_dq_kernel<T><<<q_grid, kThreads, 0, stream>>>(
-      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
-      static_cast<T*>(dq), sq, sk, heads, scale, causal);
-  return cudaGetLastError();
+  return mmgl::launch_bwd_tiles<D, T>(q, k, v, kv_mask, dout, row_max,
+                                      row_sum, row_delta, dq, dk, dv, batch,
+                                      sq, sk, heads, scale, causal, stream);
+}
+
+// the scalar passes (fp32): stats, dK/dV, dQ
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const int* kv_mask, const void* out, const void* dout,
+                       void* dq, void* dk, void* dv, float* stats, int batch,
+                       int sq, int sk, int heads, int head_dim, float scale,
+                       int causal, int dtype, cudaStream_t stream) {
+  // bf16, fp16: launch_tc
+  if (dtype != mmgl::kF32 ||
+      !mmgl::valid_shape(batch, sq, sk, heads, causal)) {
+    return cudaErrorInvalidValue;
+  }
+  return mmgl::with_head_dim(head_dim, [&](auto d) {
+    return launch<decltype(d)::value, float>(
+        q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch, sq, sk, heads,
+        scale, causal, stream);
+  });
 }
 
 // the tensor-core bodies (bf16, fp16): stats, delta, dK/dV, dQ
@@ -238,26 +241,28 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       void* dq, void* dk, void* dv, float* stats, int batch,
                       int sq, int sk, int heads, int head_dim, float scale,
                       int causal, int dtype, cudaStream_t stream) {
-  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      (causal && sq > sk) || batch > 65535 || heads > 65535) {
+  if (!mmgl::valid_shape(batch, sq, sk, heads, causal)) {
     return cudaErrorInvalidValue;
   }
   const long n = static_cast<long>(batch) * heads * sq;
   float* row_max = stats;
   float* row_sum = stats + n;
   float* row_delta = stats + 2 * n;
-  return mmgl::with_tc_type(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    cudaError_t err = mmgl::launch_fwd_tc<kD, true, false, false, T, T>(
-        q, k, nullptr, kv_mask, nullptr, row_max, row_sum, batch, sq, sk,
-        heads, scale, causal, stream);
-    if (err != cudaSuccess) return err;
-    err = mmgl::launch_delta<T>(out, dout, row_delta, batch, sq, heads,
-                                stream);
-    if (err != cudaSuccess) return err;
-    return mmgl::launch_bwd_tiles_tc<kD, T>(
-        q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
-        batch, sq, sk, heads, scale, causal, stream);
+  return mmgl::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return mmgl::with_tc_type(dtype, [&](auto tag) {
+      using T = decltype(tag);
+      cudaError_t err = mmgl::launch_fwd_tc<D, true, false, false, T, T>(
+          q, k, nullptr, kv_mask, nullptr, row_max, row_sum, batch, sq, sk,
+          heads, scale, causal, stream);
+      if (err != cudaSuccess) return err;
+      err = mmgl::launch_delta<D, T>(out, dout, row_delta, batch, sq, heads,
+                                     stream);
+      if (err != cudaSuccess) return err;
+      return mmgl::launch_bwd_tiles_tc<D, T>(
+          q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
+          batch, sq, sk, heads, scale, causal, stream);
+    });
   });
 }
 
@@ -273,9 +278,8 @@ extern "C" int mmgl_allheads_bwd(const void* q, const void* k, const void* v,
                                  int causal, int dtype,
                                  cudaStream_t stream) {
   // bf16, fp16: mmgl_allheads_bwd_tc
-  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
-  return launch<float>(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch,
-                       sq, sk, heads, head_dim, scale, causal, stream);
+  return launch_f32(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch,
+                    sq, sk, heads, head_dim, scale, causal, dtype, stream);
 }
 
 // K5: backward of K4 (sq != sk, T5's cross-attention without dropout).

@@ -10,11 +10,14 @@
 // Layout: (B, S, H*D) row-major, read and written strided in place; outputs
 // in the input dtype, every sum fp32; the statistics (B, H, Sq) fp32.
 //
-// Four threads share a row (a key in dK/dV, a query in dQ); each owns the 16
-// head dims 4c..4c+3 for c = sub + 4t, t = 0..3, so the four 16-byte chunks
+// Four threads share a row (a key in dK/dV, a query in dQ); each owns the D/4
+// head dims 4c..4c+3 for c = sub + 4t, t < D/16, so the four 16-byte chunks
 // a warp reads from one shared-memory row fall in distinct banks and every
 // other row of the warp reads the same addresses (a broadcast). A dot
-// product is four partial sums joined by two warp shuffles.
+// product is four partial sums joined by two warp shuffles. The head dim D
+// is a template (64, 80, 128); the streamed tiles, 2 x 64 x D fp32 (64 KB
+// at 128, past the 48 KB of static shared memory), are dynamic shared
+// memory (scalar_tiles_smem).
 // Causal tiles: dQ stops at its tile's causal limit (dS is 0 past it for
 // every row). dK/dV skips a query tile whose rows all lie before its keys
 // only when no row of it is fully masked, since such a row feeds dV from
@@ -32,10 +35,16 @@ namespace mmgl {
 
 constexpr int kBwdTile = 64;         // query rows and keys per tile
 constexpr int kBwdThreads = 256;     // four threads per row
-constexpr int kBwdChunks = kD / 16;  // float4 chunks a thread owns (4)
+
+// the dynamic shared memory of the scalar dK/dV and dQ kernels: two fp32
+// tiles of 64 rows of D
+template <int D>
+constexpr size_t scalar_tiles_smem() {
+  return 2 * kBwdTile * D * sizeof(float);
+}
 
 // dK, dV for 64 keys, looping over the query tiles
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
@@ -46,8 +55,10 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ row_delta,
                           T* __restrict__ dk, T* __restrict__ dv, int sq,
                           int sk, int heads, float scale, int causal) {
-  __shared__ __align__(16) float q_tile[kBwdTile][kD];
-  __shared__ __align__(16) float do_tile[kBwdTile][kD];
+  constexpr int kChunks = D / 16;  // float4 chunks a thread owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  float (*q_tile)[D] = reinterpret_cast<float (*)[D]>(smem);
+  float (*do_tile)[D] = q_tile + kBwdTile;
   __shared__ float m_tile[kBwdTile];
   __shared__ float inv_l_tile[kBwdTile];
   __shared__ float delta_tile[kBwdTile];
@@ -61,16 +72,16 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const long rs = static_cast<long>(heads) * kD;
-  const T* q_rows = q + static_cast<long>(b) * sq * rs + h * kD;
-  const T* do_rows = dout + static_cast<long>(b) * sq * rs + h * kD;
-  const long k_off = static_cast<long>(b) * sk * rs + h * kD;
+  const long rs = static_cast<long>(heads) * D;
+  const T* q_rows = q + static_cast<long>(b) * sq * rs + h * D;
+  const T* do_rows = dout + static_cast<long>(b) * sq * rs + h * D;
+  const long k_off = static_cast<long>(b) * sk * rs + h * D;
   const long stat0 = (static_cast<long>(b) * heads + h) * sq;
 
-  float4 kr[kBwdChunks], vr[kBwdChunks];
-  float4 dk_acc[kBwdChunks], dv_acc[kBwdChunks];
+  float4 kr[kChunks], vr[kChunks];
+  float4 dk_acc[kChunks], dv_acc[kChunks];
 #pragma unroll
-  for (int t = 0; t < kBwdChunks; ++t) {
+  for (int t = 0; t < kChunks; ++t) {
     const int c = sub + 4 * t;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     kr[t] = key_ok ? load4(k + k_off + kj * rs + 4 * c) : zero;
@@ -90,9 +101,9 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!__syncthreads_or(full)) continue;
     }
     __syncthreads();  // the previous query tile is consumed
-    for (int e = tid; e < kBwdTile * (kD / 4); e += kBwdThreads) {
-      const int r = e >> 4;
-      const int c = e & 15;
+    for (int e = tid; e < kBwdTile * (D / 4); e += kBwdThreads) {
+      const int r = e / (D / 4);
+      const int c = e % (D / 4);
       const int i = q0 + r;
       float4 qx = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 dx = qx;
@@ -111,10 +122,10 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     for (int r = 0; r < n_rows; ++r) {
-      float4 qx[kBwdChunks], dx[kBwdChunks];
+      float4 qx[kChunks], dx[kChunks];
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int t = 0; t < kBwdChunks; ++t) {
+      for (int t = 0; t < kChunks; ++t) {
         const int c = sub + 4 * t;
         qx[t] = *reinterpret_cast<const float4*>(&q_tile[r][4 * c]);
         dx[t] = *reinterpret_cast<const float4*>(&do_tile[r][4 * c]);
@@ -131,7 +142,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = expf(logit - m_tile[r]) * inv_l_tile[r];
       const float ds = allowed ? p * (dp - delta_tile[r]) * scale : 0.f;
 #pragma unroll
-      for (int t = 0; t < kBwdChunks; ++t) {
+      for (int t = 0; t < kChunks; ++t) {
         axpy4(p, dx[t], dv_acc[t]);
         axpy4(ds, qx[t], dk_acc[t]);
       }
@@ -140,7 +151,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (key_ok) {
 #pragma unroll
-    for (int t = 0; t < kBwdChunks; ++t) {
+    for (int t = 0; t < kChunks; ++t) {
       const int c = sub + 4 * t;
       store4(dk + k_off + kj * rs + 4 * c, dk_acc[t]);
       store4(dv + k_off + kj * rs + 4 * c, dv_acc[t]);
@@ -149,7 +160,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dQ for 64 query rows, looping over the key tiles
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -160,8 +171,10 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ row_delta,
                         T* __restrict__ dq, int sq, int sk, int heads,
                         float scale, int causal) {
-  __shared__ __align__(16) float k_tile[kBwdTile][kD];
-  __shared__ __align__(16) float v_tile[kBwdTile][kD];
+  constexpr int kChunks = D / 16;  // float4 chunks a thread owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  float (*k_tile)[D] = reinterpret_cast<float (*)[D]>(smem);
+  float (*v_tile)[D] = k_tile + kBwdTile;
   __shared__ int mask_tile[kBwdTile];
 
   const int tid = threadIdx.x;
@@ -173,15 +186,15 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const long rs = static_cast<long>(heads) * kD;
-  const long q_off = static_cast<long>(b) * sq * rs + h * kD;
-  const T* k_rows = k + static_cast<long>(b) * sk * rs + h * kD;
-  const T* v_rows = v + static_cast<long>(b) * sk * rs + h * kD;
+  const long rs = static_cast<long>(heads) * D;
+  const long q_off = static_cast<long>(b) * sq * rs + h * D;
+  const T* k_rows = k + static_cast<long>(b) * sk * rs + h * D;
+  const T* v_rows = v + static_cast<long>(b) * sk * rs + h * D;
   const int* mask_row = kv_mask + static_cast<long>(b) * sk;
 
-  float4 qr[kBwdChunks], dr[kBwdChunks], dq_acc[kBwdChunks];
+  float4 qr[kChunks], dr[kChunks], dq_acc[kChunks];
 #pragma unroll
-  for (int t = 0; t < kBwdChunks; ++t) {
+  for (int t = 0; t < kChunks; ++t) {
     const int c = sub + 4 * t;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     qr[t] = row_ok ? load4(q + q_off + qi * rs + 4 * c) : zero;
@@ -202,9 +215,9 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < sk; k0 += kBwdTile) {
     if (causal && k0 > q_last + shift) break;  // dS = 0 past the diagonal
     __syncthreads();
-    for (int e = tid; e < kBwdTile * (kD / 4); e += kBwdThreads) {
-      const int r = e >> 4;
-      const int c = e & 15;
+    for (int e = tid; e < kBwdTile * (D / 4); e += kBwdThreads) {
+      const int r = e / (D / 4);
+      const int c = e % (D / 4);
       const int j = k0 + r;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vx = kx;
@@ -222,10 +235,10 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const int n_keys = min(kBwdTile, sk - k0);
     for (int r = 0; r < n_keys; ++r) {
-      float4 kx[kBwdChunks];
+      float4 kx[kChunks];
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int t = 0; t < kBwdChunks; ++t) {
+      for (int t = 0; t < kChunks; ++t) {
         const int c = sub + 4 * t;
         kx[t] = *reinterpret_cast<const float4*>(&k_tile[r][4 * c]);
         const float4 vx = *reinterpret_cast<const float4*>(&v_tile[r][4 * c]);
@@ -241,13 +254,13 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float ds =
           allowed ? expf(s * scale - m_i) * inv_l * (dp - delta) * scale : 0.f;
 #pragma unroll
-      for (int t = 0; t < kBwdChunks; ++t) axpy4(ds, kx[t], dq_acc[t]);
+      for (int t = 0; t < kChunks; ++t) axpy4(ds, kx[t], dq_acc[t]);
     }
   }
 
   if (row_ok) {
 #pragma unroll
-    for (int t = 0; t < kBwdChunks; ++t) {
+    for (int t = 0; t < kChunks; ++t) {
       store4(dq + q_off + qi * rs + 4 * (sub + 4 * t), dq_acc[t]);
     }
   }
@@ -255,8 +268,10 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // delta = rowsum(dO * o) per query row, in (B, H, Sq) order: K6's first
 // launch, and K3/K5's after their tensor-core stats pass (JAX computes it outside
-// Pallas, mmgl_tpu/ops/flash_attention.py:345-347)
-template <typename T>
+// Pallas, mmgl_tpu/ops/flash_attention.py:345-347). Thread sub of a row sums
+// the D/4 dims from sub D/4 on, in the order of K3/K5's scalar stats pass
+// (attention_bwd.cu), so that K5 and K6 agree bit for bit in fp32 too.
+template <int D, typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ row_delta, int sq, int heads) {
@@ -267,12 +282,13 @@ attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   const int b = blockIdx.z;
   const bool row_ok = qi < sq;
 
-  const long rs = static_cast<long>(heads) * kD;
-  const long off = (static_cast<long>(b) * sq + qi) * rs + h * kD + 16 * sub;
+  const long rs = static_cast<long>(heads) * D;
+  const long off = (static_cast<long>(b) * sq + qi) * rs + h * D +
+                   (D / 4) * sub;
   float delta = 0.f;
   if (row_ok) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < D / 16; ++c) {
       delta = dot4(load4(dout + off + 4 * c), load4(out + off + 4 * c), delta);
     }
   }
@@ -540,20 +556,33 @@ attention_bwd_dkdv_tc_kernel(const T* __restrict__ q,
         for (int kk = 0; kk < kKSteps; kk += 2) {
           uint32_t ka[2][4], va[2][4];
           ldmatrix_x4(ka[0], k_warp + 16 * kk);
-          ldmatrix_x4(ka[1], k_warp + 16 * (kk + 1));
           ldmatrix_x4(va[0], v_warp + 16 * kk);
-          ldmatrix_x4(va[1], v_warp + 16 * (kk + 1));
+          if (kk + 1 < kKSteps) {
+            ldmatrix_x4(ka[1], k_warp + 16 * (kk + 1));
+            ldmatrix_x4(va[1], v_warp + 16 * (kk + 1));
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            uint32_t qb[4], db[4];
-            const int off = (32 * half + 8 * n + (lane & 7)) * S + 16 * kk +
-                            8 * (lane >> 3);
-            ldmatrix_x4(qb, qs + off);
-            ldmatrix_x4(db, dos + off);
-            mma_tc<T>(s[n], ka[0], qb[0], qb[1]);
-            mma_tc<T>(s[n], ka[1], qb[2], qb[3]);
-            mma_tc<T>(dp[n], va[0], db[0], db[1]);
-            mma_tc<T>(dp[n], va[1], db[2], db[3]);
+            for (int n = 0; n < 4; ++n) {
+              uint32_t qb[4], db[4];
+              const int off = (32 * half + 8 * n + (lane & 7)) * S +
+                              16 * kk + 8 * (lane >> 3);
+              ldmatrix_x4(qb, qs + off);
+              ldmatrix_x4(db, dos + off);
+              mma_tc<T>(s[n], ka[0], qb[0], qb[1]);
+              mma_tc<T>(s[n], ka[1], qb[2], qb[3]);
+              mma_tc<T>(dp[n], va[0], db[0], db[1]);
+              mma_tc<T>(dp[n], va[1], db[2], db[3]);
+            }
+          } else {  // the odd last k16 step (D = 80)
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              uint32_t qb[2], db[2];
+              const int off = (32 * half + 8 * n + (lane & 7)) * S +
+                              16 * kk + 8 * ((lane >> 3) & 1);
+              ldmatrix_x2(qb, qs + off);
+              ldmatrix_x2(db, dos + off);
+              mma_tc<T>(s[n], ka[0], qb[0], qb[1]);
+              mma_tc<T>(dp[n], va[0], db[0], db[1]);
+            }
           }
         }
 
@@ -833,20 +862,33 @@ attention_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int kk = 0; kk < kKSteps; kk += 2) {
           uint32_t qa[2][4], oa[2][4];
           ldmatrix_x4(qa[0], q_warp + 16 * kk);
-          ldmatrix_x4(qa[1], q_warp + 16 * (kk + 1));
           ldmatrix_x4(oa[0], do_warp + 16 * kk);
-          ldmatrix_x4(oa[1], do_warp + 16 * (kk + 1));
+          if (kk + 1 < kKSteps) {
+            ldmatrix_x4(qa[1], q_warp + 16 * (kk + 1));
+            ldmatrix_x4(oa[1], do_warp + 16 * (kk + 1));
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            uint32_t kb[4], vb[4];
-            const int off = (32 * half + 8 * n + (lane & 7)) * S + 16 * kk +
-                            8 * (lane >> 3);
-            ldmatrix_x4(kb, ks + off);
-            ldmatrix_x4(vb, vs + off);
-            mma_tc<T>(s[n], qa[0], kb[0], kb[1]);
-            mma_tc<T>(s[n], qa[1], kb[2], kb[3]);
-            mma_tc<T>(dp[n], oa[0], vb[0], vb[1]);
-            mma_tc<T>(dp[n], oa[1], vb[2], vb[3]);
+            for (int n = 0; n < 4; ++n) {
+              uint32_t kb[4], vb[4];
+              const int off = (32 * half + 8 * n + (lane & 7)) * S +
+                              16 * kk + 8 * (lane >> 3);
+              ldmatrix_x4(kb, ks + off);
+              ldmatrix_x4(vb, vs + off);
+              mma_tc<T>(s[n], qa[0], kb[0], kb[1]);
+              mma_tc<T>(s[n], qa[1], kb[2], kb[3]);
+              mma_tc<T>(dp[n], oa[0], vb[0], vb[1]);
+              mma_tc<T>(dp[n], oa[1], vb[2], vb[3]);
+            }
+          } else {  // the odd last k16 step (D = 80)
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              uint32_t kb[2], vb[2];
+              const int off = (32 * half + 8 * n + (lane & 7)) * S +
+                              16 * kk + 8 * ((lane >> 3) & 1);
+              ldmatrix_x2(kb, ks + off);
+              ldmatrix_x2(vb, vs + off);
+              mma_tc<T>(s[n], qa[0], kb[0], kb[1]);
+              mma_tc<T>(dp[n], oa[0], vb[0], vb[1]);
+            }
           }
         }
 
@@ -1029,11 +1071,19 @@ cudaError_t launch_bwd_tiles_tc_as(const void* q, const void* k,
   return cudaGetLastError();
 }
 
-// the bodies' shapes on this card, the fastest of those timed at OPT-350M's
-// (4, 2048, 16, 64) causal on an H100 (PERF.md §6): 4 warps, a 2-stage
-// ring, 3 dK/dV and 4 dQ blocks an SM (more warps, a second 16-row slab a
-// warp, or deeper rings spilled registers or lost occupancy); fp16 takes
-// the bf16 shapes
+// the bodies' shapes on this card. At D = 64 the fastest of those timed at
+// OPT-350M's (4, 2048, 16, 64) causal on an H100 (PERF.md §6): 4 warps, a
+// 2-stage ring, 3 dK/dV and 4 dQ blocks an SM (more warps, a second
+// 16-row slab a warp, or deeper rings spilled registers or lost
+// occupancy). The dK and dV accumulators are D / 2 fp32 registers each
+// (32 at 64, 40 at 80, 64 at 128), dQ's D / 2: past 64 dK/dV takes 2
+// blocks an SM (255 registers a thread), dQ 3 at 80 (170) and 2 at 128.
+// fp16 takes the bf16 shapes.
+template <int D>
+using BwdKvShape = TcShape<4, 2, D == 64 ? 3 : 2>;
+template <int D>
+using BwdQShape = TcShape<4, 2, D == 64 ? 4 : D == 80 ? 3 : 2>;
+
 template <int D, typename T = __nv_bfloat16>
 cudaError_t launch_bwd_tiles_tc(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* dout,
@@ -1042,18 +1092,50 @@ cudaError_t launch_bwd_tiles_tc(const void* q, const void* k, const void* v,
                                 void* dv, int batch, int sq, int sk,
                                 int heads, float scale, int causal,
                                 cudaStream_t stream) {
-  return launch_bwd_tiles_tc_as<D, TcShape<4, 2, 3>, TcShape<4, 2, 4>, false,
+  return launch_bwd_tiles_tc_as<D, BwdKvShape<D>, BwdQShape<D>, false,
                                 false, T, T>(
       q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch,
       sq, sk, heads, scale, causal, stream);
 }
 
+// the scalar dK/dV and dQ launches (fp32) on the caller's stream
+template <int D, typename T>
+cudaError_t launch_bwd_tiles(const void* q, const void* k, const void* v,
+                             const int* kv_mask, const void* dout,
+                             const float* row_max, const float* row_sum,
+                             const float* row_delta, void* dq, void* dk,
+                             void* dv, int batch, int sq, int sk, int heads,
+                             float scale, int causal, cudaStream_t stream) {
+  constexpr size_t bytes = scalar_tiles_smem<D>();
+  auto dkdv_kernel = attention_bwd_dkdv_kernel<D, T>;
+  auto dq_kernel = attention_bwd_dq_kernel<D, T>;
+  cudaError_t err = set_smem(dkdv_kernel, bytes);
+  if (err != cudaSuccess) return err;
+  err = set_smem(dq_kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* do_ = static_cast<const T*>(dout);
+  const dim3 q_grid((sq + kBwdTile - 1) / kBwdTile, heads, batch);
+  const dim3 k_grid((sk + kBwdTile - 1) / kBwdTile, heads, batch);
+  dkdv_kernel<<<k_grid, kBwdThreads, bytes, stream>>>(
+      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<q_grid, kBwdThreads, bytes, stream>>>(
+      q_, k_, v_, kv_mask, do_, row_max, row_sum, row_delta,
+      static_cast<T*>(dq), sq, sk, heads, scale, causal);
+  return cudaGetLastError();
+}
+
 // delta of (B, Sq, H*D) out and dO in (B, H, Sq) order, on the caller's stream
-template <typename T>
+template <int D, typename T>
 cudaError_t launch_delta(const void* out, const void* dout, float* row_delta,
                          int batch, int sq, int heads, cudaStream_t stream) {
   const dim3 grid((sq + kBwdTile - 1) / kBwdTile, heads, batch);
-  attention_delta_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+  attention_delta_kernel<D, T><<<grid, kBwdThreads, 0, stream>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout), row_delta, sq,
       heads);
   return cudaGetLastError();

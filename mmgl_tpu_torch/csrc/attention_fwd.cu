@@ -58,9 +58,14 @@
 // Scalar schedule: one block of 256 threads per (query tile of 64, head,
 // batch).
 // Thread t owns query row t/4 and, of each 64-key tile, keys (t%4) + 4i for
-// the scores and output columns 4((t%4) + 4i) .. +3 for the PV product.
-// Softmax is online in fp32 registers; PV accumulates in fp32; the output is
-// written in fp32. Head dim must be 64.
+// the scores and output columns 4((t%4) + 4i) .. +3, i < D/16, for the PV
+// product. Softmax is online in fp32 registers; PV accumulates in fp32; the
+// output is written in fp32.
+//
+// Head dims: 64, 80 and 128 (OPT and MPT at 2.7B take 80, at 6.7B 128),
+// each body instantiated at each (mmgl::with_head_dim); the K and V tiles,
+// 66.5 KB at 128, are dynamic shared memory. K2 takes 64 only (its
+// wrapper refuses the rest: no model sends it another).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +76,6 @@
 
 namespace {
 
-using mmgl::kD;
 using mmgl::kNegInf;
 using mmgl::load4;
 using mmgl::store4;
@@ -79,17 +83,34 @@ using mmgl::store4;
 constexpr int kTileQ = 64;         // query rows per block
 constexpr int kTileK = 64;         // keys per shared-memory tile
 constexpr int kThreads = 256;      // four threads per query row
-constexpr int kKStride = kD + 4;   // padded K row: 16-byte aligned, conflict-free
 
-template <typename T>
+// a K row padded to D + 4 floats: 16-byte aligned, and the four rows a
+// warp's 16-byte loads read at once (sub + 4i) fall in distinct banks
+// (stride D + 4 is 4 words modulo 32 at 64 and 128, 20 at 80)
+template <int D>
+__host__ __device__ constexpr int k_stride() {
+  return D + 4;
+}
+
+// the dynamic shared memory of the scalar body: the K and V tiles
+template <int D>
+constexpr size_t fwd_smem() {
+  return kTileK * (k_stride<D>() + D) * sizeof(float);
+}
+
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ kv_mask,
                      T* __restrict__ out, float* __restrict__ row_max,
                      float* __restrict__ row_sum, int sq, int sk, int heads,
                      float scale, int causal) {
-  __shared__ __align__(16) float k_tile[kTileK][kKStride];
-  __shared__ __align__(16) float v_tile[kTileK][kD];
+  constexpr int kKStride = k_stride<D>();
+  constexpr int kChunks = D / 16;  // float4 output chunks a thread owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  float (*k_tile)[kKStride] = reinterpret_cast<float (*)[kKStride]>(smem);
+  float (*v_tile)[D] =
+      reinterpret_cast<float (*)[D]>(smem + kTileK * kKStride * sizeof(float));
   __shared__ int mask_tile[kTileK];
 
   const int tid = threadIdx.x;
@@ -102,17 +123,17 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const long row_stride = static_cast<long>(heads) * kD;
-  const T* q_rows = q + static_cast<long>(b) * sq * row_stride + h * kD;
-  const T* k_rows = k + static_cast<long>(b) * sk * row_stride + h * kD;
-  const T* v_rows = v + static_cast<long>(b) * sk * row_stride + h * kD;
-  T* out_rows = out + static_cast<long>(b) * sq * row_stride + h * kD;
+  const long row_stride = static_cast<long>(heads) * D;
+  const T* q_rows = q + static_cast<long>(b) * sq * row_stride + h * D;
+  const T* k_rows = k + static_cast<long>(b) * sk * row_stride + h * D;
+  const T* v_rows = v + static_cast<long>(b) * sk * row_stride + h * D;
+  T* out_rows = out + static_cast<long>(b) * sq * row_stride + h * D;
   const int* mask_row = kv_mask + static_cast<long>(b) * sk;
 
   // the query row, whole, in registers (each of its four threads holds it)
-  float qr[kD];
+  float qr[D];
 #pragma unroll
-  for (int c = 0; c < kD / 4; ++c) {
+  for (int c = 0; c < D / 4; ++c) {
     const float4 x = row_ok ? load4(q_rows + qi * row_stride + 4 * c)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
     qr[4 * c + 0] = x.x;
@@ -121,9 +142,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qr[4 * c + 3] = x.w;
   }
 
-  float acc[16];
+  float acc[4 * kChunks];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 4 * kChunks; ++i) acc[i] = 0.f;
   float m_run = -INFINITY;  // running max of the row's logits
   float l_run = 0.f;        // running sum of exp(logit - m_run)
 
@@ -140,9 +161,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // the previous tile is consumed
 
-    for (int e = tid; e < kTileK * (kD / 4); e += kThreads) {
-      const int r = e >> 4;
-      const int c = e & 15;
+    for (int e = tid; e < kTileK * (D / 4); e += kThreads) {
+      const int r = e / (D / 4);
+      const int c = e % (D / 4);
       const int j = k0 + r;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vx = kx;
@@ -167,7 +188,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = k0 + r;
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < kD / 4; ++c) {
+      for (int c = 0; c < D / 4; ++c) {
         const float4 kx = *reinterpret_cast<const float4*>(&k_tile[r][4 * c]);
         dot = fmaf(qr[4 * c + 0], kx.x, dot);
         dot = fmaf(qr[4 * c + 1], kx.y, dot);
@@ -196,7 +217,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_run = l_run * alpha + psum;
     m_run = m_new;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] *= alpha;
+    for (int i = 0; i < 4 * kChunks; ++i) acc[i] *= alpha;
 
     // acc[4t..4t+3] += sum_j p_j v[j, 4(sub + 4t) .. +3]
 #pragma unroll
@@ -206,7 +227,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = __shfl_sync(0xffffffffu, s[i], (lane & ~3) | src);
         const int r = src + 4 * i;
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
+        for (int t = 0; t < kChunks; ++t) {
           const float4 vx =
               *reinterpret_cast<const float4*>(&v_tile[r][4 * (sub + 4 * t)]);
           acc[4 * t + 0] = fmaf(p, vx.x, acc[4 * t + 0]);
@@ -229,7 +250,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
     const float inv = 1.f / l_run;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
+    for (int t = 0; t < kChunks; ++t) {
       store4(out_rows + qi * row_stride + 4 * (sub + 4 * t),
              make_float4(acc[4 * t + 0] * inv, acc[4 * t + 1] * inv,
                          acc[4 * t + 2] * inv, acc[4 * t + 3] * inv));
@@ -237,19 +258,17 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_mask, void* out, float* row_max,
                    float* row_sum, int batch, int sq, int sk, int heads,
-                   int head_dim, float scale, int causal,
-                   cudaStream_t stream) {
-  // causal needs sq <= sk (the ends are aligned); without it any sq goes
-  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      (causal && sq > sk) || batch > 65535 || heads > 65535) {
-    return cudaErrorInvalidValue;
-  }
+                   float scale, int causal, cudaStream_t stream) {
+  constexpr size_t bytes = fwd_smem<D>();
+  auto kernel = attention_fwd_kernel<D, T>;
+  const cudaError_t err = mmgl::set_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
   const dim3 grid((sq + kTileQ - 1) / kTileQ, heads, batch);
-  attention_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_mask, static_cast<T*>(out), row_max,
       row_sum, sq, sk, heads, scale, causal);
@@ -262,9 +281,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      float* row_sum, int batch, int sq, int sk, int heads,
                      int head_dim, float scale, int causal, int dtype,
                      cudaStream_t stream) {
-  if (dtype != mmgl::kF32) return cudaErrorInvalidValue;
-  return launch<float>(q, k, v, kv_mask, out, row_max, row_sum, batch, sq,
-                       sk, heads, head_dim, scale, causal, stream);
+  if (dtype != mmgl::kF32 ||
+      !mmgl::valid_shape(batch, sq, sk, heads, causal)) {
+    return cudaErrorInvalidValue;
+  }
+  return mmgl::with_head_dim(head_dim, [&](auto d) {
+    return launch<decltype(d)::value, float>(q, k, v, kv_mask, out, row_max,
+                                             row_sum, batch, sq, sk, heads,
+                                             scale, causal, stream);
+  });
 }
 
 // the tensor-core body: bf16 and fp16
@@ -273,15 +298,17 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                         float* row_sum, int batch, int sq, int sk, int heads,
                         int head_dim, float scale, int causal, int dtype,
                         cudaStream_t stream) {
-  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      (causal && sq > sk) || batch > 65535 || heads > 65535) {
+  if (!mmgl::valid_shape(batch, sq, sk, heads, causal)) {
     return cudaErrorInvalidValue;
   }
-  return mmgl::with_tc_type(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    return mmgl::launch_fwd_tc<kD, false, false, false, T, T>(
-        q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
-        causal, stream);
+  return mmgl::with_head_dim(head_dim, [&](auto d) {
+    return mmgl::with_tc_type(dtype, [&](auto tag) {
+      using T = decltype(tag);
+      return mmgl::launch_fwd_tc<decltype(d)::value, false, false, false, T,
+                                 T>(q, k, v, kv_mask, out, row_max, row_sum,
+                                    batch, sq, sk, heads, scale, causal,
+                                    stream);
+    });
   });
 }
 

@@ -22,7 +22,10 @@
 //
 // What bounds it on this card: 4 D FLOPs per (query, key) pair over a few MB,
 // so the tensor cores (989 TFLOP/s bf16) and, at these head dims, the fp32
-// softmax between the two products; HBM (3.35 TB/s) is far off. The design,
+// softmax between the two products; HBM (3.35 TB/s) is far off. The head
+// dim D is a template: 64, 80 and 128 (K1/K4 and K3-K6's stats pass), 64
+// in the bias form. D = 80 is five k16 steps: the last of S = Q K^T reads
+// its K fragments with ldmatrix .x2. The design,
 // FlashAttention-2's shape on mma.sync:
 //   * one block of 4 warps per (64 query rows, head, batch), 16 rows a warp
 //     (the shape is a template: launch_fwd_tc at the end names the one in
@@ -225,11 +228,17 @@ attention_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < kKSteps; kk += 2) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, ks + (8 * nb + (lane & 7)) * S + 16 * kk +
-                              8 * (lane >> 3));
-          mma_tc<T>(s[nb], qf[kk], kb[0], kb[1]);
-          mma_tc<T>(s[nb], qf[kk + 1], kb[2], kb[3]);
+          const T* row = ks + (8 * nb + (lane & 7)) * S + 16 * kk;
+          if (kk + 1 < kKSteps) {
+            uint32_t kb[4];
+            ldmatrix_x4(kb, row + 8 * (lane >> 3));
+            mma_tc<T>(s[nb], qf[kk], kb[0], kb[1]);
+            mma_tc<T>(s[nb], qf[kk + 1], kb[2], kb[3]);
+          } else {  // the odd last k16 step (D = 80)
+            uint32_t kb[2];
+            ldmatrix_x2(kb, row + 8 * ((lane >> 3) & 1));
+            mma_tc<T>(s[nb], qf[kk], kb[0], kb[1]);
+          }
         }
       }
 
@@ -429,11 +438,20 @@ cudaError_t launch_fwd_tc_as(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the body's shape on this card, the fastest of those timed at OPT-350M's
-// (4, 2048, 16, 64) causal, K1's and K2's shapes on an H100 (PERF.md §6):
-// 4 warps, a 2-stage ring, 3 blocks an SM; the bias form takes the same
+// the body's blocks an SM for the register budget, by head dim: at 64 the
+// fastest of the shapes timed at OPT-350M's (4, 2048, 16, 64) causal, K1's
+// and K2's shapes on an H100 (PERF.md §6) is 4 warps, a 2-stage ring, 3
+// blocks an SM (at most 170 registers a thread); 80 keeps it (the O
+// accumulators grow from 32 to 40 registers); at 128 they take 64 and the
+// Q fragments 32, so 2 blocks (255 registers), which the ring's 87,040
+// bytes of shared memory allow too. The bias form (64 only) takes the same
 // shape, also the fastest at T5-base's shapes (sweep/bias_shapes.cu); fp16
-// takes the bf16 shape (the same instructions, another type)
+// takes the bf16 shape (the same instructions, another type).
+template <int D>
+constexpr int fwd_min_blocks() {
+  return D <= 80 ? 3 : 2;
+}
+
 template <int D, bool kStatsOnly, bool kBias = false, bool kDropout = false,
           typename TB = __nv_bfloat16, typename T = __nv_bfloat16>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
@@ -442,7 +460,8 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           int heads, float scale, int causal,
                           cudaStream_t stream,
                           BiasArgs<TB> ba = BiasArgs<TB>{}) {
-  return launch_fwd_tc_as<D, kStatsOnly, 4, 2, 3, kBias, kDropout, TB, T>(
+  return launch_fwd_tc_as<D, kStatsOnly, 4, 2, fwd_min_blocks<D>(), kBias,
+                          kDropout, TB, T>(
       q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
       causal, stream, ba);
 }

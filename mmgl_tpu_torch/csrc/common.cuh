@@ -10,9 +10,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mmgl {
 
-constexpr int kD = 64;             // head dim
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package, not -inf
 
 // The element type the C entries take (their dtype and bias_dtype
@@ -28,6 +29,25 @@ cudaError_t with_tc_type(int dtype, F&& f) {
   if (dtype == kBF16) return f(__nv_bfloat16{});
   if (dtype == kF16) return f(__half{});
   return cudaErrorInvalidValue;
+}
+
+// f(std::integral_constant<int, D>{}) for a head dim the K1-K6 bodies are
+// instantiated at: 64 (OPT-125M to 1.3B, T5, the towers), 80 (OPT and MPT
+// at 2.7B) and 128 (6.7B); any other is refused. K7-K9 take 64 only (T5's
+// d_kv at every size).
+template <typename F>
+cudaError_t with_head_dim(int head_dim, F&& f) {
+  if (head_dim == 64) return f(std::integral_constant<int, 64>{});
+  if (head_dim == 80) return f(std::integral_constant<int, 80>{});
+  if (head_dim == 128) return f(std::integral_constant<int, 128>{});
+  return cudaErrorInvalidValue;
+}
+
+// the launch shapes the K1-K6 entries take: positive sizes within the grid's
+// 65535 on y and z, and sq <= sk when causal (the ends are aligned)
+inline bool valid_shape(int batch, int sq, int sk, int heads, int causal) {
+  return batch > 0 && sq > 0 && sk > 0 && heads > 0 && !(causal && sq > sk)
+         && batch <= 65535 && heads <= 65535;
 }
 
 // one element as fp32, and back
@@ -148,6 +168,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "memory");
 }
 
+// two 8 x 8 b16 matrices: lanes 0-7 and 8-15 give the row addresses of
+// matrices 0 and 1 (the other lanes' are not read); the odd last k16 step
+// of a head dim that is not a multiple of 32 (D = 80: five k16 steps)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(smem))
+      : "memory");
+}
+
 // the same, each matrix transposed: a row-major (k x n) tile in shared
 // memory read as B fragments
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -237,7 +269,10 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
 
 // the tensor-core bodies' tiles: 64 rows of a head in shared memory, bf16 or
 // fp16, rows padded to D + 8 values (16 bytes), so the eight 16-byte row
-// reads of an ldmatrix fall in distinct banks
+// reads of an ldmatrix fall in distinct banks: a row is (D + 8) / 2 words,
+// 36 at D = 64, 44 at 80, 68 at 128, and eight rows start at word offsets
+// that are distinct multiples of 4 modulo 32 (0, 4, ..., 28 at 64 and
+// 128; 0, 12, 24, 4, 16, 28, 8, 20 at 80)
 constexpr int kTcTile = 64;  // the rows of a streamed tile (keys or queries)
 
 template <int D>

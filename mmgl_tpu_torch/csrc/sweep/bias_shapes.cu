@@ -13,10 +13,11 @@
 
 namespace {
 
+constexpr int kD = 64;  // T5's head dim, the only one the bias form takes
+
 using Bf16 = __nv_bfloat16;
 using mmgl::BiasArgs;
 using mmgl::TcShape;
-using mmgl::kD;
 
 // (warps, stages, blocks an SM); the first is the library's
 #define BIAS_FWD_SHAPES(X) X(4, 2, 3) X(4, 3, 3) X(2, 2, 6) X(8, 2, 2)

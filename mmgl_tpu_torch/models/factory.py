@@ -19,10 +19,9 @@ mode gives it a memory. The PEFT fields (``--peft_type``, ``--lora_r``,
 ``--lora_alpha``, ``--lora_dropout``) go into the OPT config and the
 fusion config.
 
-On a CUDA device ``build_model`` refuses, before anything is built, what
-the attention kernels cannot run: a head dim other than 64 (ROADMAP B4;
-OPT and MPT at 2.7B and 6.7B). The kernels take fp32, bf16 and fp16
-(``--compute_dtype``).
+On a CUDA device the attention kernels take the head dims of every
+published size here: 64, 80 (OPT and MPT at 2.7B) and 128 (6.7B), in fp32,
+bf16 and fp16 (``--compute_dtype``); the tiny test shapes run on the CPU.
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ from mmgl_tpu_torch.models.layers import init_weights
 from mmgl_tpu_torch.models.opt import OPTConfig
 from mmgl_tpu_torch.models.roberta import RobertaConfig
 from mmgl_tpu_torch.models.t5 import T5Config
-from mmgl_tpu_torch.ops.flash_attention import HEAD_DIM
 from mmgl_tpu_torch.peft.masks import apply_trainable_mask
 
 # (hidden, layers, heads, ffn, word_embed_proj)
@@ -182,27 +180,6 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
     return cfg
 
 
-def _refuse_head_dims(cfg: FusionConfig, device: torch.device,
-                      use_pallas: bool) -> None:
-    """On a CUDA device with the kernel route, raise for a head dim the
-    kernels do not take (OPT-2.7B's and mpt-2.7b's 80, OPT-6.7B's and
-    mpt-6.7b's 128): the first attention would raise only after the model
-    and the data were built."""
-    if device.type != "cuda" or not use_pallas:
-        return
-    dims = {"lm": (cfg.t5.d_kv if cfg.t5 is not None else cfg.opt.head_dim)}
-    if cfg.needs_vision_tower:
-        dims["visual_model"] = cfg.vision.head_dim
-    if cfg.needs_text_tower:
-        dims["text_model"] = cfg.text.head_dim
-    bad = {m: d for m, d in dims.items() if d != HEAD_DIM}
-    if bad:
-        raise ValueError(
-            f"head dims {bad} on {device}: the attention kernels take head "
-            f"dim {HEAD_DIM} only (ROADMAP B4); --use_pallas false runs the "
-            "plain attention")
-
-
 def _refuse_checkpoints(args: Arguments) -> None:
     """Raise where a flag names a local checkpoint directory: the JAX
     package overlays it (mmgl_tpu/models/factory.py:184-217), and random
@@ -223,7 +200,6 @@ def build_model(args: Arguments, device: torch.device,
     set of ``--peft_type``/``--freeze_lm``."""
     _refuse_checkpoints(args)
     cfg = build_fusion_config(args, vocab_size, tokenizer=tokenizer)
-    _refuse_head_dims(cfg, device, args.use_pallas)
     model = MMGLModel(cfg)
     generator = torch.Generator().manual_seed(args.seed or 0)
     init_weights(model, generator)

@@ -46,7 +46,11 @@ The CLIP text tower is refused (``FusionConfig``, ROADMAP A5).
 
 Batches are the data layer's dicts of numpy arrays or tensors, with the same
 keys and shapes as the JAX package's; ``_as_tensor`` moves every field to
-the model's device (images as uint8, normalized there).
+the model's device (images as uint8, normalized there). A batch of the
+neighbour cache (data/neighbor_cache.py) carries the towers' pooled
+features (``neighbor_text_pooled``, ``neighbor_image_pooled``,
+``images_pooled``) in place of the raw ids and pixels, and the towers do
+not run.
 """
 
 from __future__ import annotations
@@ -287,23 +291,37 @@ class MMGLModel(nn.Module):
                 pos_ids.reshape(-1).long())
         return embs
 
-    def get_text_embs(self, input_ids, attention_mask, pos_ids=None
-                      ) -> torch.Tensor:
-        """(B, N, S) neighbor texts -> (B, N, n_text_tokens, dim)."""
-        b, n, s = input_ids.shape
-        pooled = self.pool_text(input_ids.reshape(b * n, s),
-                                attention_mask.reshape(b * n, s))
+    def get_text_embs(self, input_ids, attention_mask, pos_ids=None,
+                      pooled=None) -> torch.Tensor:
+        """(B, N, S) neighbor texts -> (B, N, n_text_tokens, dim). With
+        ``pooled`` (B, N, tower hidden), the neighbour cache's features
+        (data/neighbor_cache.py), the frozen tower does not run
+        (mmgl_tpu/models/fusion.py:210-224)."""
+        if pooled is None:
+            b, n, s = input_ids.shape
+            pooled = self.pool_text(input_ids.reshape(b * n, s),
+                                    attention_mask.reshape(b * n, s))
+        else:
+            b, n = pooled.shape[:2]
+            pooled = pooled.reshape(b * n, -1)
         embs = self.project_text(pooled, pos_ids)
         return embs.reshape(b, n, self.config.n_text_tokens, -1)
 
-    def get_visual_embs(self, pixel_values, pos_ids=None, valid=None
-                        ) -> torch.Tensor:
-        """(B, N, 3, H, W) neighbor images -> (B, N, n_visual_tokens, dim)."""
-        b, n = pixel_values.shape[:2]
-        flat = pixel_values.reshape((b * n,) + tuple(pixel_values.shape[2:]))
-        flat_valid = valid.reshape(b * n) if valid is not None else None
-        embs = self.project_images(self.pool_images(flat, flat_valid),
-                                   pos_ids)
+    def get_visual_embs(self, pixel_values, pos_ids=None, valid=None,
+                        pooled=None) -> torch.Tensor:
+        """(B, N, 3, H, W) neighbor images -> (B, N, n_visual_tokens, dim);
+        with ``pooled`` (B, N, tower hidden) from the cache, no CLIP
+        (mmgl_tpu/models/fusion.py:226-239)."""
+        if pooled is None:
+            b, n = pixel_values.shape[:2]
+            flat = pixel_values.reshape((b * n,)
+                                        + tuple(pixel_values.shape[2:]))
+            flat_valid = valid.reshape(b * n) if valid is not None else None
+            pooled = self.pool_images(flat, flat_valid)
+        else:
+            b, n = pooled.shape[:2]
+            pooled = pooled.reshape(b * n, -1)
+        embs = self.project_images(pooled, pos_ids)
         return embs.reshape(b, n, self.config.n_visual_tokens, -1)
 
     # ---- fusion forward ----
@@ -352,9 +370,11 @@ class MMGLModel(nn.Module):
               and not cfg.needs_vision_tower):
             # text neighbors appended as soft tokens
             # (modelling_self_attention.py:263-280)
-            text = self.get_text_embs(batch["neighbor_input_ids"],
-                                      batch["neighbor_attention_mask"],
-                                      batch["neighbor_pos_ids"])
+            text = self.get_text_embs(
+                batch.get("neighbor_input_ids"),
+                batch.get("neighbor_attention_mask"),
+                batch["neighbor_pos_ids"],
+                pooled=batch.get("neighbor_text_pooled"))
             b, n = text.shape[:2]
             soft = text.reshape(b, n * cfg.n_text_tokens, -1)
             soft_mask = torch.repeat_interleave(
@@ -378,8 +398,9 @@ class MMGLModel(nn.Module):
         elif cfg.needs_vision_tower:
             b, s = input_ids.shape
             inputs_embeds = self.lm.embed(input_ids.clamp(min=0))  # -1 slots
-            visual = self.get_visual_embs(batch["images"],
-                                          valid=batch.get("images_valid"))
+            visual = self.get_visual_embs(
+                batch.get("images"), valid=batch.get("images_valid"),
+                pooled=batch.get("images_pooled"))
             visual = visual.reshape(b, -1, visual.shape[-1])
             positions = batch["image_positions"].long()      # (B, N*vt)
             # Padded image slots point at position >= S (the assembler's
@@ -427,17 +448,19 @@ class MMGLModel(nn.Module):
         (B, total, n_tok) mask, a padded neighbor slot masked. The
         assembler gives every slot a distinct location in [0, total)."""
         cfg = self.config
-        text = self.get_text_embs(batch["neighbor_input_ids"],
-                                  batch["neighbor_attention_mask"],
-                                  batch["neighbor_pos_ids"])
+        text = self.get_text_embs(batch.get("neighbor_input_ids"),
+                                  batch.get("neighbor_attention_mask"),
+                                  batch["neighbor_pos_ids"],
+                                  pooled=batch.get("neighbor_text_pooled"))
         b, tn, n_tok, dim = text.shape
         tmask = (batch["neighbor_pos_ids"] > 0)[..., None].expand(
             b, tn, n_tok)
         parts = [(batch["text_locations"], text, tmask)]
         if cfg.needs_vision_tower:
             pos = batch["neighbor_images_pos_ids"]
-            visual = self.get_visual_embs(batch["neighbor_images"], pos,
-                                          valid=pos > 0)
+            visual = self.get_visual_embs(
+                batch.get("neighbor_images"), pos, valid=pos > 0,
+                pooled=batch.get("neighbor_image_pooled"))
             vmask = (pos > 0)[..., None].expand(b, visual.shape[1],
                                                 cfg.n_visual_tokens)
             parts.append((batch["image_locations"], visual, vmask))

@@ -115,8 +115,9 @@ class LoRALinear(Linear):
 
 class LayerNorm(nn.LayerNorm):
     """flax ``LayerNorm(dtype=compute_dtype)``: statistics, scale and bias in
-    fp32, the output rounded to the compute dtype. (torch's CUDA layer_norm
-    refuses a bf16 input with fp32 scale and bias, hence the casts.)"""
+    fp32, the output rounded to the compute dtype. (torch's layer_norm
+    refuses an input and a scale and bias of different dtypes, hence the
+    casts; with ``--param_dtype bfloat16`` the scale and bias are bf16.)"""
 
     def __init__(self, normalized_shape: int, eps: float = 1e-5, *,
                  compute_dtype: torch.dtype = torch.float32):
@@ -124,8 +125,8 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                         self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.normalized_shape,
+                         self.weight.float(), self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
 
 

@@ -24,8 +24,9 @@ mapping from call sites to kernels:
   * aligned self-attention outside it (OPT-350M at 2048 tokens, its
     1920-token prefill): K4, as the JAX package sends it to ``_flash``.
   * self-attention with S % 128 != 0 inside the JAX package's fused-heads
-    envelope, S padded to 128 at most 512 (mmgl_tpu/ops/attention.py
-    :164-175; CLIP's 197 patches): K2, ``fused_heads_attention``.
+    envelope, S padded to 128 at most 512 and H * D at most 1024
+    (mmgl_tpu/ops/attention.py:164-175; CLIP's 197 patches): K2,
+    ``fused_heads_attention``.
   * self-attention with S % 128 != 0 past it: K1 inside the all-heads
     envelope (OPT's 640 + 64 = 704 with the embedding mode's soft tokens,
     its 576-token prefill), else K4. The JAX package sends these to XLA;
@@ -67,8 +68,10 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps fully-masked rows finit
 MIN_KERNEL_SQ = 32
 # the all-heads kernel's envelope (mmgl_tpu/ops/attention.py:145-150)
 ALLHEADS_MAX_SQ = 768
-# the fused-heads kernel's: S padded to a multiple of 128 (:164-175)
+# the fused-heads kernel's: S padded to a multiple of 128, and H * D
+# (:164-175)
 FUSED_HEADS_MAX_SP = 512
+FUSED_HEADS_MAX_WIDTH = 1024
 
 
 def allheads_head_pair(head_dim: int) -> int:
@@ -162,7 +165,8 @@ def attention_route(q_shape, k_shape, *, pairwise_mask: bool = False,
         return "bias"
     if sq != sk or k_shape[2] != heads:
         return "flash"
-    if sq % 128 and sq + (-sq) % 128 <= FUSED_HEADS_MAX_SP:
+    if (sq % 128 and sq + (-sq) % 128 <= FUSED_HEADS_MAX_SP
+            and heads * q_shape[3] <= FUSED_HEADS_MAX_WIDTH):
         return "fused_heads"
     if sq <= ALLHEADS_MAX_SQ and heads % allheads_head_pair(q_shape[3]) == 0:
         return "allheads"

@@ -57,6 +57,9 @@ launches its kernel on the current stream and adds one to its ``launches``
 count; on a CPU tensor it computes its plain version. There is no fallback on
 the card: a build or launch failure raises.
 
+Head dims: K1 and K3-K6 take 64, 80 (OPT and MPT at 2.7B) and 128 (6.7B),
+K2 and K7-K9 64 (``HEAD_DIMS``); the plain versions take any.
+
 The masking follows ``xla_attention``, the JAX package's reference, not the
 Pallas kernels: a fully masked row averages V over the S real keys (the
 Pallas K2 pads S to 128 with masked zero keys first), and its gradient is
@@ -76,7 +79,21 @@ from mmgl_tpu_torch.ops.attention import (NEG_INF, attention_reference,
                                           dropout_keep_factor,
                                           dropout_threshold)
 
-HEAD_DIM = 64
+# the head dims each kernel takes, by wrapper: its bodies are instantiated
+# at these (mmgl::with_head_dim, csrc/common.cuh). K1 and K3-K6 take
+# OPT's and MPT's 64, 80 (2.7B) and 128 (6.7B); K2 takes 64 (its envelope,
+# H * D <= 1024, holds only for CLIP, OPT-125M and OPT-350M, all at 64) and
+# K7-K9 take 64 (T5's d_kv at every size): another is ROADMAP B
+HEAD_DIMS = {
+    "flash_attention_allheads": (64, 80, 128),
+    "flash_attention_allheads_bwd": (64, 80, 128),
+    "flash_attention": (64, 80, 128),
+    "flash_attention_bwd": (64, 80, 128),
+    "flash_attention_blocked_bwd": (64, 80, 128),
+    "fused_heads_attention": (64,),
+    "flash_attention_bias": (64,),
+    "flash_attention_bias_bwd": (64,),
+}
 # the dtypes the kernels take, and their codes in the library's entries
 # (mmgl::DType, csrc/common.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -264,9 +281,11 @@ def _check(name: str, q, k, v, kv_mask, allow_sq_gt_sk: bool = False
         return
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if d != HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}, "
-                         f"got {d}")
+    dims = HEAD_DIMS.get(name, (64,))
+    if d not in dims:
+        raise ValueError(f"{name}: the kernel takes head_dim "
+                         f"{' or '.join(map(str, dims))}, got {d} (ROADMAP "
+                         "B)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q/k/v must all be float32, bfloat16 or "
                          f"float16, got {q.dtype}, {k.dtype}, {v.dtype}")

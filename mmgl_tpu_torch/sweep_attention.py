@@ -3,11 +3,13 @@
     python -m mmgl_tpu_torch.sweep_attention
 
 Builds csrc/sweep/attention_shapes.cu (the forward body and K6's dK/dV and
-dQ bodies in several (warps, ring stages, blocks an SM) shapes) and
+dQ bodies in several (warps, ring stages, blocks an SM) shapes, each at
+head dims 64, 80 and 128) and
 csrc/sweep/bias_shapes.cu (their bias form, K7 and K8/K9, in T5's three
 forms) with two concurrent nvcc into build/mmgl_tpu_torch/. Then at
 OPT-350M's (4, 2048, 16, 64), at (4, 1024, 16, 64) (both causal, with the
-prompt and summary pad hole), OPT-125M's (4, 640, 12, 64) causal and
+prompt and summary pad hole), OPT-125M's (4, 640, 12, 64) causal,
+OPT-2.7B's (4, 640, 32, 80) and OPT-6.7B's (4, 640, 32, 128) causal and
 CLIP's (24, 197, 12, 64), and at T5-base's encoder (4, 512, 12, 64) with
 its bias, decoder (4, 128, 12, 64) causal with its bias and training
 cross-attention (q 128, k/v 512, no bias), each with and without dropout
@@ -21,7 +23,9 @@ the forward bit for bit (the shapes change no row's arithmetic), the
 gradients within a bf16 ulp of their largest entry (the sweep feeds them
 torch's delta, not the delta pass's). Prints the card, nvcc's registers
 and spills, and one JSON line per case; exits 1 without a GPU or if a
-shape disagrees.
+shape disagrees. nvcc's report names each kernel by its mangled template
+arguments: the head dim is the first of the tensor-core bodies' (``Li64E``,
+``Li80E``, ``Li128E``).
 """
 
 from __future__ import annotations
@@ -44,9 +48,10 @@ SOURCES = [_build.CSRC / "sweep" / name
            for name in ("attention_shapes.cu", "bias_shapes.cu")]
 RUN = 10        # calls back to back in a sample
 SAMPLES = 10
-# (B, Sq = Sk, H), causal, backward too
-CASES = [((4, 2048, 16), True, True), ((4, 1024, 16), True, True),
-         ((4, 640, 12), True, True), ((24, 197, 12), False, False)]
+# (B, Sq = Sk, H, D), causal, backward too
+CASES = [((4, 2048, 16, 64), True, True), ((4, 1024, 16, 64), True, True),
+         ((4, 640, 12, 64), True, True), ((4, 640, 32, 80), True, True),
+         ((4, 640, 32, 128), True, True), ((24, 197, 12, 64), False, False)]
 # T5-base: (name, (B, Sq, Sk, H), causal, bias), each without and with
 # dropout 0.1 (the cross-attention, which has no bias, only with)
 BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
@@ -77,20 +82,22 @@ def build():
     lib, bias_lib = (ctypes.CDLL(str(out)) for out in outs)
     ptr, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint)
-    lib.sweep_fwd.argtypes = [i32] + [ptr] * 7 + [i32] * 4 + [f32, i32, ptr]
-    lib.sweep_bwd.argtypes = [i32] + [ptr] * 11 + [i32] * 4 + [f32, i32, ptr]
+    lib.sweep_fwd.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 4 + [f32, i32,
+                                                                  ptr]
+    lib.sweep_bwd.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 4 + [f32, i32,
+                                                                   ptr]
     tail = [i32] * 4 + [f32, i32, u32, f32, ptr]
     bias_lib.sweep_bias_fwd.argtypes = [i32] + [ptr] * 9 + tail
     bias_lib.sweep_bias_bwd.argtypes = [i32] + [ptr] * 14 + tail
     return lib, bias_lib
 
 
-def inputs(b, s, h, seed, device):
+def inputs(b, s, h, d, seed, device):
     """q, k, v, dO (bf16) and a (B, S) int32 key mask: a prompt of S - S/16
     keys and a summary of S/16, each right-padded, so the valid keys have
     a hole (the decoder-only training batch)."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v, dout = (torch.randn(b, s, h, 64, generator=g).to(
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g).to(
         device, torch.bfloat16) for _ in range(4))
     mask = torch.ones(b, s, dtype=torch.int32)
     cut = s - s // 16
@@ -122,11 +129,11 @@ def medians(fns):
 
 
 def sweep_case(lib, dims, causal, with_bwd, device):
-    b, s, h = dims
-    q, k, v, dout, mask = inputs(b, s, h, s + h, device)
+    b, s, h, d = dims
+    q, k, v, dout, mask = inputs(b, s, h, d, s + h, device)
     if not causal:
         mask = torch.ones_like(mask)
-    scale = 64 ** -0.5
+    scale = d ** -0.5
     stream = torch.cuda.current_stream().cuda_stream
     out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=causal)
     allowed = mask.bool()[:, None, None, :].expand(b, 1, s, s)
@@ -145,10 +152,10 @@ def sweep_case(lib, dims, causal, with_bwd, device):
             torch.empty_like(l)
 
         def call(i=i, o2=o2, m2=m2, l2=l2):
-            err = lib.sweep_fwd(i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                mask.data_ptr(), o2.data_ptr(), m2.data_ptr(),
-                                l2.data_ptr(), b, s, s, h, scale, int(causal),
-                                stream)
+            err = lib.sweep_fwd(i, d, q.data_ptr(), k.data_ptr(),
+                                v.data_ptr(), mask.data_ptr(), o2.data_ptr(),
+                                m2.data_ptr(), l2.data_ptr(), b, s, s, h,
+                                scale, int(causal), stream)
             if err:
                 raise RuntimeError(f"forward shape {i}: CUDA error {err}")
         call()
@@ -158,7 +165,7 @@ def sweep_case(lib, dims, causal, with_bwd, device):
         fwd[f"forward shape {i}"] = call
     fwd["scaled_dot_product_attention"] = \
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
-    result = {"shape": [b, s, h, 64], "causal": causal,
+    result = {"shape": [b, s, h, d], "causal": causal,
               "forward_ms": medians(fwd)}
     if with_bwd:
         ref = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
@@ -172,7 +179,7 @@ def sweep_case(lib, dims, causal, with_bwd, device):
 
             def call(i=i, grads=grads):
                 err = lib.sweep_bwd(
-                    i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    i, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     mask.data_ptr(), dout.data_ptr(), m.data_ptr(),
                     l.data_ptr(), delta.data_ptr(),
                     *(t.data_ptr() for t in grads), b, s, s, h, scale,

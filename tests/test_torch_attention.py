@@ -619,7 +619,8 @@ def test_bias_kernel_path_keeps_the_autograd_graph(monkeypatch):
     monkeypatch.setattr(fa, "_launch_bias", fake_launch_bias)
     monkeypatch.setattr(fa, "_launch_bias_bwd", fake_launch_bias_bwd)
     monkeypatch.setattr(fa, "_check_layout", lambda *a: None)
-    monkeypatch.setattr(fa, "HEAD_DIM", 64)
+    monkeypatch.setattr(fa, "HEAD_DIMS", {**fa.HEAD_DIMS,
+                                          "flash_attention_bias": (64,)})
 
     b, sq, sk, h = 2, 32, 32, 2
     q, k, v, _ = _inputs(b, sq, sk, h, 64, seed=91)

@@ -571,3 +571,105 @@ def test_bias_bodies_at_fragment_edges(sq, sk, causal, form, dtype):
                                    atol=BWD_TOL[dtype] * scale,
                                    rtol=BWD_TOL[dtype], msg=name)
         assert torch.equal(g, g_own), name
+
+
+# K1 and K3-K6 at head dims 80 (OPT and MPT at 2.7B) and 128 (6.7B):
+# (B, Sq, Sk, H, D), causal; the 2.7B/6.7B training shape with its pad
+# hole, MPT-2.7B's cross-attention over the 64-token memory, ragged
+HEAD_DIM_CASES = [((4, 640, 640, 32, 80), True),
+                  ((4, 640, 64, 32, 80), False),
+                  ((4, 640, 640, 32, 128), True),
+                  ((3, 333, 333, 2, 80), True),
+                  ((3, 333, 333, 2, 128), True)]
+
+
+def _qkv_d(dims, dtype, dev, seed):
+    b, sq, sk, h, d = dims
+    rng = np.random.RandomState(seed)
+    q, dout = (rng.randn(b, sq, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, sk, h, d).astype(np.float32) for _ in range(2))
+    return [torch.from_numpy(t).to(dev, dtype) for t in (q, k, v, dout)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("dims,causal", HEAD_DIM_CASES)
+def test_head_dims_80_and_128_match_plain_versions(dims, causal, dtype):
+    """At head dims 80 and 128: K1 and K3 (sq == sk), K4 and K5 through
+    autograd, and at the causal shapes K4 with its row stats and K6
+    (equal to K5 bit for bit), each against its plain version, a pad hole
+    in every sample and sample 0 fully masked; the half types on the
+    tensor-core bodies."""
+    dev = _device()
+    b, sq, sk, h, d = dims
+    q, k, v, dout = _qkv_d(dims, dtype, dev, seed=sq + sk + d)
+    mask = hole_mask(b, sk, seed=sk + d)
+    mask[0] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    kw = dict(kv_mask=mask, causal=causal)
+    atol, rtol = TOL[dtype]
+    wrappers = (fa.flash_attention_allheads, fa.flash_attention_allheads_bwd,
+                fa.flash_attention, fa.flash_attention_bwd,
+                fa.flash_attention_blocked_bwd)
+    counted = _counts(*wrappers)
+    if sq == sk:
+        out = fa.flash_attention_allheads(q, k, v, **kw)
+        ref = fa.allheads_attention_reference(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        got = fa.flash_attention_allheads_bwd(q, k, v, mask, ref, dout,
+                                              causal=causal)
+        refs = fa.allheads_attention_bwd_reference(q, k, v, mask, ref, dout,
+                                                   causal=causal)
+        for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+            _close_rel(g, r, dtype, "K3 " + name)
+    wrt = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*wrt, **kw)
+    grads = torch.autograd.grad(out, wrt, dout)
+    out = out.detach()
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_reference(q, k, v, **kw).float(),
+        atol=atol, rtol=rtol)
+    refs = fa.flash_attention_bwd_reference(q, k, v, mask, out, dout,
+                                            causal=causal)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        _close_rel(g, r, dtype, "K5 " + name)
+    if causal:
+        out, m, l = fa.flash_attention_stats(q, k, v, **kw)
+        ref_out, ref_m, ref_l = fa.flash_attention_reference(
+            q, k, v, with_stats=True, **kw)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                                   rtol=rtol)
+        for got_s, ref_s in ((m, ref_m), (l, ref_l)):
+            torch.testing.assert_close(got_s, ref_s, atol=STATS_TOL,
+                                       rtol=STATS_TOL)
+        got = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                             causal=True)
+        refs = fa.flash_attention_blocked_bwd_reference(
+            q, k, v, mask, out, dout, m, l, causal=True)
+        for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+            _close_rel(g, r, dtype, "K6 " + name)
+        k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=True)
+        assert all(torch.equal(g, r) for g, r in zip(got, k5))
+    torch.cuda.synchronize()
+    half = dtype != torch.float32
+    for wrapper, (runs, tc) in zip(wrappers, counted()):
+        assert tc == (runs if half else 0), wrapper.__name__
+    assert counted()[2][0] >= 1 and counted()[3][0] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**DTYPES)
+def test_k2_and_k7_refuse_head_dim_80(dtype):
+    """K2 and K7-K9 are instantiated at head dim 64 only (no model sends
+    them another): at 80 their wrappers raise, naming ROADMAP B, before
+    anything launches."""
+    dev = _device()
+    q, k, v, _ = _qkv_d((2, 197, 197, 12, 80), dtype, dev, seed=80)
+    counted = _counts(fa.fused_heads_attention, fa.flash_attention_bias)
+    with pytest.raises(ValueError, match="ROADMAP B"):
+        fa.fused_heads_attention(q, k, v)
+    bias = torch.zeros(1, 12, 197, 197, device=dev, dtype=dtype)
+    with pytest.raises(ValueError, match="ROADMAP B"):
+        fa.flash_attention_bias(q, k, v, bias=bias)
+    assert counted() == [(0, 0), (0, 0)]

@@ -136,12 +136,13 @@ def test_cli_training_end_to_end(pair, tmp_path):
 
 def test_training_is_not_ported(tmp_path):
     """What training does not port yet refuses to run, through the entry
-    point, instead of running something else."""
+    point, instead of running something else. (The neighbour cache is
+    ported: tests/test_torch_neighbor_cache.py runs it through the entry
+    point.)"""
     for flag in (["--remat", "true"], ["--chunked_ce", "8"],
                  ["--fused_ce", "false"], ["--zero1", "true"],
                  ["--fsdp", "true"], ["--mesh_shape", "2,1"],
-                 ["--profile_dir", "p"], ["--distributed", "true"],
-                 ["--cache_neighbor_embeddings", "true"]):
+                 ["--profile_dir", "p"], ["--distributed", "true"]):
         args, device = cli.parse_cli(TRAIN + flag + [
             "--log_dir", str(tmp_path), "--device", "cpu"])
         with pytest.raises(NotImplementedError, match=flag[0]):
