@@ -234,11 +234,10 @@ MPT_GRAD_LAYERS = MPT_LAYERS - MPT_LAYERS // MPT_CROSS
 # 6 self-attention layers see a trainable input
 MPT_FP32_LAYERS = 8
 MPT_FP32_GRAD_LAYERS = MPT_FP32_LAYERS - MPT_FP32_LAYERS // MPT_CROSS
-# depth cuts at full width, for the script's time limit (PR 9 added
-# phases 13's 2.7B, 15 and 16; a call on a slow host took 948 s to phase
-# 16 with none of these cuts): OPT-6.7B's test pass runs 8 of its 32
-# layers (4096 wide, 32 heads of 128), and family 3's fp32 and bf16
-# micro-steps 8 of OPT-1.3B's 24 (the update runs all 24)
+# depth cuts at full width, for the script's time limit (on a slow host
+# the script took 948 s to phase 16 without them): OPT-6.7B's test pass
+# runs 8 of its 32 layers (4096 wide, 32 heads of 128), and family 3's
+# fp32 and bf16 micro-steps 8 of OPT-1.3B's 24 (the update runs all 24)
 OPT67_LAYERS = 8
 OPT13_STEP_LAYERS = 8
 
