@@ -30,7 +30,10 @@ imports no JAX. Phases, each fatal on failure:
      own stats pass. At head dims 80 and 128 (OPT and MPT at 2.7B,
      OPT-6.7B), bf16, fp16 and fp32: K1 and K3 at OPT-2.7B's and
      OPT-6.7B's (4, 640, 32, D) causal with a pad hole, K4 and K5 there and
-     at MPT-2.7B's cross-attention (4, 640 x 64, 32, 80), K4 with its row
+     at MPT-2.7B's cross-attention (4, 640 x 64, 32, 80); K1 and K3-K6 at
+     the 512-token prefills of MPT-2.7B (4, 512, 32, 80) and OPT-6.7B
+     (4, 512, 32, 128) under right-padded prompts, K4 and K5 at MPT-2.7B's
+     prefill cross-attention (4, 512 x 64, 32, 80); K4 with its row
      stats and K6 at the causal ones, a ragged 333 at each D, each against
      its plain version, K6 against K5 bit for bit, the half types on the
      tensor-core bodies;
@@ -110,8 +113,7 @@ imports no JAX. Phases, each fatal on failure:
      --freeze_lm true; the short run of 5c. 640 + 11 x 4 = 684 tokens take
      K1 and K3 (24 layers), Roberta K1; the prefill at 556 K1. Then its
      fp32 micro-step on the card against the CPU and its bf16 one held
-     launch by launch against the plain versions, both at 8 of the 24
-     layers (full width, for the time limit), LoRA's B set to seeded
+     launch by launch against the plain versions, LoRA's B set to seeded
      non-zero values in both (at init B is 0 and A's gradient is 0);
  13. BASELINE family 4 at its published size, as the JAX package's bench
      runs it: MPT-2.7B (head dim 80) + Roberta-base + CLIP, context all,
@@ -144,8 +146,13 @@ imports no JAX. Phases, each fatal on failure:
      raw all and T5-base + Roberta + CLIP section_all embedding, 4 updates
      each through the CLI with --cache_neighbor_embeddings true; the cache
      build launches CLIP's K2 (and config 2 Roberta's K1), no update, eval
-     step or generated batch launches either. OPT's bf16 eval loss on one
-     batch of 4, cached against live, at phase 3's bf16 tolerance. The
+     step or generated batch launches either. On one batch of 4 of each,
+     in bf16: the cached pooled features (images_pooled; config 2's
+     neighbor_text_pooled and neighbor_image_pooled) against
+     model.pool_images / pool_text on the live batch's raw fields, within
+     phase 3's bf16 atol of their largest entry and nearer each sample's
+     own live features than its neighbour's; and the eval loss, cached
+     against live, at phase 3's bf16 tolerance. The
      update seconds printed beside phases 5 and 10's;
  16. OPT-6.7B's test pass (head dim 128), raw all, bf16 parameters,
      through the CLI (batch 4, 4 batches), at 8 of its 32 layers (full
@@ -234,12 +241,10 @@ MPT_GRAD_LAYERS = MPT_LAYERS - MPT_LAYERS // MPT_CROSS
 # 6 self-attention layers see a trainable input
 MPT_FP32_LAYERS = 8
 MPT_FP32_GRAD_LAYERS = MPT_FP32_LAYERS - MPT_FP32_LAYERS // MPT_CROSS
-# depth cuts at full width, for the script's time limit (on a slow host
-# the script took 948 s to phase 16 without them): OPT-6.7B's test pass
-# runs 8 of its 32 layers (4096 wide, 32 heads of 128), and family 3's
-# fp32 and bf16 micro-steps 8 of OPT-1.3B's 24 (the update runs all 24)
+# a depth cut at full width, for the script's time limit (on a slow host
+# the script took 948 s to phase 16 without it): OPT-6.7B's test pass runs
+# 8 of its 32 layers (4096 wide, 32 heads of 128)
 OPT67_LAYERS = 8
-OPT13_STEP_LAYERS = 8
 
 
 def with_flags(argv, **flags):
@@ -419,11 +424,19 @@ BLOCKED_CASES = [((4, 2048, 2048, 16), True, "hole"),
 # K1 and K3-K6 at head dims 80 and 128: (name, (B, Sq, Sk, H, D), causal,
 # key mask): OPT-2.7B's training shape, causal with a pad hole; MPT-2.7B's
 # cross-attention, 640 queries against the 64-token memory, sample 0
-# without neighbours; OPT-6.7B's training shape; a ragged 333 at each
+# without neighbours; OPT-6.7B's training shape; the 512-token prefills of
+# MPT-2.7B (self- and cross-attention) and OPT-6.7B, right-padded prompts;
+# a ragged 333 at each D
 HEAD_DIM_CASES = [("opt-2.7b", (4, 640, 640, 32, 80), True, "hole"),
                   ("mpt-2.7b cross", (4, 640, 64, 32, 80), False,
                    "gap_fully_masked"),
                   ("opt-6.7b", (4, 640, 640, 32, 128), True, "hole"),
+                  ("mpt-2.7b prefill", (4, 512, 512, 32, 80), True,
+                   "prompt"),
+                  ("mpt-2.7b prefill cross", (4, 512, 64, 32, 80), False,
+                   "gap_fully_masked"),
+                  ("opt-6.7b prefill", (4, 512, 512, 32, 128), True,
+                   "prompt"),
                   ("ragged", (3, 333, 333, 2, 80), True, "hole333"),
                   ("ragged", (3, 333, 333, 2, 128), True, "hole333")]
 # K7/K8/K9: (name, (B, Sq, Sk, H), causal, bias): T5-base's encoder, decoder
@@ -2302,18 +2315,14 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
             idle=("text_embeddings.",),
             zero_first=(lambda n: "lora_a" in n,
                         "LoRA's A multiplies B, which starts at 0"))
-    # the micro-steps at OPT13_STEP_LAYERS of the 24 layers, full width
-    lora_step = {"flash_attention_allheads":
-                     ROBERTA_LAYERS + OPT13_STEP_LAYERS,
-                 "flash_attention_allheads_bwd": OPT13_STEP_LAYERS}
-    with depth_cut("1.3b", OPT13_STEP_LAYERS):
-        for key, half in (("fp32_step", False), ("bf16_step", True)):
-            lora[key] = check_train_step(
-                cli, fa, device, LORA_ARGV,
-                ("flash_attention_allheads", "flash_attention_allheads_bwd"),
-                f"opt-1.3b lora ({OPT13_STEP_LAYERS} layers)", half=half,
-                seeded=("lora_b",), per_step=lora_step)
-            lora[key]["layers"] = OPT13_STEP_LAYERS
+    lora_step = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
+                 "flash_attention_allheads_bwd": OPT13_LAYERS}
+    for key, half in (("fp32_step", False), ("bf16_step", True)):
+        lora[key] = check_train_step(
+            cli, fa, device, LORA_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+            "opt-1.3b lora", half=half, seeded=("lora_b",),
+            per_step=lora_step)
     runs["opt13b_lora_training"] = lora
     lap("12")
 
@@ -2436,12 +2445,79 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
     return {"runs": runs, "launches": launches}
 
 
+def live_pooled(model, batch, device):
+    """The towers' pooled features of a live batch, keyed as the neighbour
+    cache serves them: ``model.pool_text`` and ``model.pool_images`` on the
+    batch's raw ids and pixels, (B, N, hidden) fp32 on the card."""
+    import numpy as np
+    import torch
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def images(px, valid):
+        b, nv = px.shape[:2]
+        return model.pool_images(dev(px).flatten(0, 1),
+                                 dev(valid).flatten(0, 1)).float().reshape(
+                                     b, nv, -1)
+
+    out = {}
+    if "neighbor_input_ids" in batch and model.config.needs_text_tower:
+        ids = dev(batch["neighbor_input_ids"])
+        out["neighbor_text_pooled"] = model.pool_text(
+            ids.flatten(0, 1), dev(batch["neighbor_attention_mask"]).flatten(
+                0, 1)).float().reshape(ids.shape[0], ids.shape[1], -1)
+    if "neighbor_images" in batch and model.config.needs_vision_tower:
+        out["neighbor_image_pooled"] = images(
+            batch["neighbor_images"], batch["neighbor_images_pos_ids"] > 0)
+    if "images" in batch and model.config.needs_vision_tower:
+        px = batch["images"]
+        out["images_pooled"] = images(
+            px, batch.get("images_valid", np.ones(px.shape[:2], np.int32)))
+    return out
+
+
+def check_cached_features(model, live, cached, tag, device):
+    """Each pooled array the cache served for a batch against the towers
+    run live on the same samples: at most phase 3's bf16 atol of its
+    largest entry away, and nearer to each sample's own live features than
+    to its neighbour's (the batch rolled by one), so that a stale, zeroed
+    or misaligned cache fails. Returns {key: (error, rolled error, scale)}."""
+    import torch
+
+    want = live_pooled(model, live, device)
+    keys = sorted(k for k in cached if k.endswith("_pooled"))
+    if sorted(want) != keys:
+        fail(f"{tag}: the cache served {keys}, the live towers give "
+             f"{sorted(want)}")
+    atol = TOLERANCES["bfloat16"][0]
+    report = {}
+    for key in keys:
+        got = torch.from_numpy(cached[key]).to(device)
+        ref = want[key]
+        if got.shape != ref.shape:
+            fail(f"{tag}: cached {key} {tuple(got.shape)}, live "
+                 f"{tuple(ref.shape)}")
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        rolled = float((got.roll(1, 0) - ref).abs().max())
+        report[key] = (err, rolled, scale)
+        print(f"[{tag}] cached {key} {tuple(got.shape)} against the live "
+              f"towers: max abs {err:.3e} of {scale:.3e} (atol {atol:g} of "
+              f"it), one sample over {rolled:.3e}")
+        if not (math.isfinite(err) and err <= atol * scale and err < rolled):
+            fail(f"{tag}: cached {key} disagrees with the live towers "
+                 f"({err:.3e}; one sample over {rolled:.3e})")
+    return report
+
+
 def check_cached_loss(cli, fa, device, argv, tag, n=4):
     """One fixed batch (the first n samples of the train split) through the
     same seeded bf16 model in eval mode, from its raw neighbours and from
-    the neighbour cache's features: the cached forward launches no K2 (and
-    no Roberta K1) where the live one launches them, and the two losses
-    agree at phase 3's bf16 tolerance."""
+    the neighbour cache's features: the cached pooled features against the
+    towers run live on the batch (``check_cached_features``), the cached
+    forward launches no K2 (and no Roberta K1) where the live one launches
+    them, and the two losses agree at phase 3's bf16 tolerance."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
     from mmgl_tpu_torch.train.steps import losses_of
@@ -2455,6 +2531,8 @@ def check_cached_loss(cli, fa, device, argv, tag, n=4):
     batches = {"live": next(iter(cli.PrefetchLoader(train_ds, batch_size=n,
                                                     num_workers=1))),
                "cached": cached_batch(cli, model, train_ds, n)}
+    features = check_cached_features(model, batches["live"],
+                                     batches["cached"], tag, device)
     got = {}
     for which, batch in batches.items():
         reset_launches(fa)
@@ -2478,7 +2556,8 @@ def check_cached_loss(cli, fa, device, argv, tag, n=4):
              "the live one's")
     del model
     return {"loss_cached": cached, "loss_live": live,
-            "launches": {k: v[1] for k, v in got.items()}}
+            "launches": {k: v[1] for k, v in got.items()},
+            "pooled_max_abs_err": features}
 
 
 def run_opt67_phase(cli, fa, device):
@@ -2510,8 +2589,9 @@ def run_cached_phases(cli, fa, device, micro, opt_live, emb_live):
     all) and config 2 (T5-base + Roberta + CLIP, section_all, embedding)
     trained from the neighbour cache through the CLI, 4 updates each: the
     cache build launches the towers (config 1 CLIP's K2 alone, config 2
-    Roberta's K1 and K2), no update, eval step or generated batch does; the
-    cached main path's bf16 loss on one batch against the live one's. Its
+    Roberta's K1 and K2), no update, eval step or generated batch does;
+    each config's cached pooled features and bf16 loss on one batch against
+    the live ones (``check_cached_loss``). Its
     update seconds are printed beside the uncached runs' of phases 5 and
     10 (``opt_live``, ``emb_live``): a reading, not a claim."""
     runs = {}
@@ -2545,6 +2625,9 @@ def run_cached_phases(cli, fa, device, micro, opt_live, emb_live):
             per_generate={"flash_attention_bias": T5_LAYERS, **no_towers},
             cache_kernels=("flash_attention_allheads",
                            "fused_heads_attention"))
+    emb["fixed_batch"] = check_cached_loss(cli, fa, device,
+                                           T5_EMB_CACHED_ARGV,
+                                           "t5 emb cached")
     runs["t5_embedding_cached_training"] = emb
     for tag, live, got in (("config 1 (OPT-125M raw all)", opt_live, opt),
                            ("config 2 (T5-base embedding)", emb_live, emb)):
