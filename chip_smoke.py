@@ -13,7 +13,9 @@ imports no JAX. Phases, each fatal on failure:
      (K1's backward) at the OPT shapes, and K1 at Roberta's (44, 512, 12,
      64) over right-padded neighbor texts with an empty slot, at
      OPT-1.3B + LoRA's 684 tokens (32 heads) and its 556-token prefill,
-     and at prompt tuning's 724 tokens and its 596-token prefill; K4 and K5
+     and at prompt tuning's 724 tokens and its 596-token prefill; K2 causal
+     at the CLIP text tower's (44, 77, 8, 64) over right-padded texts with
+     an empty one, and with a pad hole; K4 and K5
      (forward and gradient) at T5-base's cross-attention, with an MQA head,
      at MPT-1.3B's cross-attention (640 queries, 64 memory keys, 32 heads,
      a sample without neighbours) and its prefill's 512 queries against
@@ -115,21 +117,22 @@ imports no JAX. Phases, each fatal on failure:
      fp32 micro-step on the card against the CPU and its bf16 one held
      launch by launch against the plain versions, LoRA's B set to seeded
      non-zero values in both (at init B is 0 and A's gradient is 0);
- 13. BASELINE family 4 at its published size, as the JAX package's bench
-     runs it: MPT-2.7B (head dim 80) + Roberta-base + CLIP, context all,
-     flamingo, 4 gated cross layers (one after every 8th layer), from
+ 13. BASELINE family 4 as the JAX package's bench runs it, at MPT-2.7B's
+     width (head dim 80) and 8 of its 32 layers (phase 18 trains the same
+     width at its whole depth): + Roberta-base + CLIP, context all,
+     flamingo, 4 gated cross layers (one after every 2nd layer), from
      cached tower features (--cache_neighbor_embeddings true
      --neighbor_cache_dir), the short run. The cache build launches
      Roberta's K1 and CLIP's K2; no micro-step, eval step or generated
-     batch does. The self-attention takes K1 (32 layers) and K3 (24: the
-     eight layers before the first cross layer see no trainable input), at
+     batch does. The self-attention takes K1 (8 layers) and K3 (6: the
+     two layers before the first cross layer see no trainable input), at
      head dim 80; the cross-attention, 640 queries against the 64-token
      memory under its mask, K4 and K5 (4 each); the prefill K1 at 512 and
      K4 at 512 x 64; the decode steps' one query the plain route. A second
      start on the same cache directory launches no kernel. Then its fp32
-     micro-step card against CPU at 8 of its 32 layers (full width) and
-     its bf16 one at full depth held launch by launch against the plain
-     versions, the gates seeded non-zero, both from cached features;
+     micro-step card against CPU and its bf16 one held launch by launch
+     against the plain versions, the gates seeded non-zero, both from
+     cached features;
  14. prefix and prompt tuning, each the short run: (a) family 5 without its
      mesh, OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704 queries
      against 20 + 704 keys, causal with the ends aligned, take K4 and K5;
@@ -157,7 +160,30 @@ imports no JAX. Phases, each fatal on failure:
  16. OPT-6.7B's test pass (head dim 128), raw all, bf16 parameters,
      through the CLI (batch 4, 4 batches), at 8 of its 32 layers (full
      width, for the time limit): every eval step and generated batch
-     launches K1 8 times at head dim 128 and K2 12 times.
+     launches K1 8 times at head dim 128 and K2 12 times;
+ 17. the main path from a pretrained checkpoint: the script writes, from
+     seeded numpy arrays under a temporary directory, OPT-125M in HF's
+     layout as pytorch_model.bin (fp16, as HF stores OPT) and a CLIP
+     ViT-B/16 CLIPModel (both towers) as model.safetensors, then runs the
+     OPT test pass of phase 4 with --model_name_or_path and --visual_model
+     naming them: every parameter of the LM and the vision tower equals
+     the file's tensor under HF's names (the patch conv flattened to the
+     (p, p, 3) patch order), K1 and K2 launch 12 times an eval step and
+     generated batch on the tensor-core body, the loss is finite and not
+     the seeded model's, and one sample's fp32 eval step on the card
+     agrees with the CPU;
+ 18. BASELINE family 7 at full width: MPT-2.7B + flamingo, context all,
+     embedding, the CLIP text tower imported from phase 17's CLIPModel
+     (--text_model; its vision tower too), --max_input_length 77
+     (prompt and neighbour texts; the text tower's position table holds
+     77), uncached: the short run, bf16 compute with fp32 parameters.
+     Every micro-step launches K2 12 times causal at (44, 77, 8, 64) for
+     the texts and 12 times at (20, 197, 12, 64) for the images, K1 32
+     and K3 24 at head dim 80 (205 tokens), K4 and K5 4 at 205 x 64; the
+     eval steps and prefills their own counts; the tanh gates move in
+     update 1 while the cross layers behind them get exactly-zero
+     gradients, and no frozen tensor moves. Then its fp32 micro-step card
+     against CPU at 8 of its 32 layers (full width), the gates seeded.
 
 Phases 12-16 check the launches of every update, eval step and generated
 batch against the counts the layer layout gives, the tensor-core body of
@@ -177,8 +203,9 @@ and fp16 and scalar FMAs for fp32: phases 4, 5, 5c, 6, 7, 9, 10 and 11
 and their fp32 checks that none did.
 Prints the seconds elapsed at the end of each phase (and a JSON line of
 them), a kernels JSON line (the fp16 forms, the shapes of phases 12-14 and
-the head dims 80 and 128 that phases 13 and 16 launch as entries of their
-own), then as its last line
+the head dims 80 and 128 that phases 18 and 16 launch, and K2's causal
+form at the CLIP text tower's shape that phase 18 launches, as entries of
+their own), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
 versions compute in full fp32.
@@ -198,6 +225,8 @@ import sys
 import tempfile
 import time
 from functools import partial
+
+import numpy as np
 
 OPT_TEST_ARGV = ["--model_name_or_path", "opt-125m", "--task", "section",
                  "--context", "all", "--neighbor_mode", "raw", "--test",
@@ -235,16 +264,22 @@ MPT_CROSS = 4               # --num_neighbor_layers: one every 32 // 4 layers
 # the self-attention layers of MPT-2.7B whose input carries a gradient:
 # those after the first cross layer (after layer 8)
 MPT_GRAD_LAYERS = MPT_LAYERS - MPT_LAYERS // MPT_CROSS
-# MPT-2.7B's fp32 micro-step card against CPU runs 8 of its 32 layers at
-# its full width (2560, 32 heads of 80): the CPU side of the whole depth
-# would cost more than the rest of phase 13. Cross layers one every 2, so
-# 6 self-attention layers see a trainable input
-MPT_FP32_LAYERS = 8
-MPT_FP32_GRAD_LAYERS = MPT_FP32_LAYERS - MPT_FP32_LAYERS // MPT_CROSS
+# a depth cut at full width, for the script's time limit: phase 13
+# (family 4) and the fp32 card-vs-CPU micro-steps of families 4 and 7 run
+# MPT-2.7B at 8 of its 32 layers (2560 wide, 32 heads of 80); phase 18
+# trains the same LM width at its whole depth. Cross layers one every 2,
+# so 6 self-attention layers see a trainable input
+MPT_CUT_LAYERS = 8
+MPT_CUT_GRAD_LAYERS = MPT_CUT_LAYERS - MPT_CUT_LAYERS // MPT_CROSS
 # a depth cut at full width, for the script's time limit (on a slow host
 # the script took 948 s to phase 16 without it): OPT-6.7B's test pass runs
 # 8 of its 32 layers (4096 wide, 32 heads of 128)
 OPT67_LAYERS = 8
+# phases 17 and 18: the checkpoint directories, named as a user names them
+# (the factory selects the model by substrings of the name), relative to
+# the directory the phases run in
+CKPT_OPT = "opt-125m"
+CKPT_CLIP = "clip-vit-base-patch16"
 
 
 def with_flags(argv, **flags):
@@ -315,6 +350,20 @@ PREFIX_ARGV = with_flags(OPT_GRAPH_ARGV["laplacian"], peft_type="prefix")
 PROMPT_ARGV = with_flags(OPT_GRAPH_ARGV["gnn"], peft_type="prompt")
 # BASELINE config 2 with T5's decoder prefixes
 T5_PREFIX_ARGV = with_flags(T5_EMB_TRAIN_ARGV, peft_type="prefix", **SHORT)
+# the main path's test pass from HF-layout checkpoints (phase 17)
+OPT_CKPT_TEST_ARGV = with_flags(OPT_TEST_ARGV, model_name_or_path=CKPT_OPT,
+                                visual_model=CKPT_CLIP)
+# BASELINE family 7 (tests/test_baseline_configs.py:41-47,
+# "mpt-cliptext-all") at its published MPT-2.7B: flamingo, all, the CLIP
+# text tower imported from phase 17's CLIPModel, 77 tokens for the prompt
+# and the neighbour texts (the text tower's position table), uncached
+FAMILY7_TEXT = 77
+FAMILY7_TOKENS = FAMILY7_TEXT + 128         # prompt + summary
+FAMILY7_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="mpt-2.7b",
+                          context="all", neighbor_mode="embedding",
+                          peft_type="flamingo", text_model=CKPT_CLIP,
+                          visual_model=CKPT_CLIP,
+                          max_input_length=FAMILY7_TEXT, **SHORT)
 VIRTUAL = 20                # num_virtual_tokens
 # the neighbour memory's projections and position tables
 MEMORY = ("text_embeddings.", "visual_embeddings.",
@@ -388,8 +437,17 @@ CASES = [
     # 20 + 576
     ("flash_attention_allheads", (4, 724, 12, 64), True, "prefix"),
     ("flash_attention_allheads", (4, 596, 12, 64), True, "prompt"),
+    # the CLIP text tower over 11 neighbour texts x 4 samples at 77 tokens
+    # (8 heads, S padded to 128 in K2), causal: right-padded texts with an
+    # empty one, and a pad hole with a fully masked text
+    ("fused_heads_attention", (44, 77, 8, 64), True, "texts"),
+    ("fused_heads_attention", (44, 77, 8, 64), True, "gap_fully_masked"),
 ]
 ROBERTA_CASE = 5
+CLIP_TEXT_CASE = 10
+# phase 3's worst errors and phase 8's rows of these cases under their own
+# name in the kernels line
+CASE_TAGS = {10: "[clip-text]", 11: "[clip-text]"}
 # K3 (the training step's attention backward): ((B, S, H, D), causal, mask);
 # the training shape, the same with a fully masked sample, and a ragged
 # length whose tiles the bounds checks cut
@@ -643,7 +701,7 @@ def check_opt_kernels(fa, device, worst):
                   f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} disagrees with its plain version")
-            key = wkey(name, dtype_name)
+            key = wkey(name + CASE_TAGS.get(i, ""), dtype_name)
             worst[key] = max(worst[key], max_err)
     name = "flash_attention_allheads_bwd"
     for i, (shape, causal, mask_kind) in enumerate(BWD_CASES):
@@ -1057,15 +1115,16 @@ def check_dropout_mask(fa, dims, device, dtype) -> float:
 
 class ShapeTally:
     """K7's and K8/K9's launches by (Sq, Sk), K4's and K5's by (Sq, Sk),
-    K4's launches that keep the rows' stats by dtype name, and K1-K5's
-    launches by (wrapper, head dim), inside a ``with`` block, counted where
-    their launchers run (K8 and K9 are one wrapper, told apart by
-    shape)."""
+    K2's by (S, causal), K4's launches that keep the rows' stats by dtype
+    name, and K1-K5's launches by (wrapper, head dim), inside a ``with``
+    block, counted where their launchers run (K8 and K9 are one wrapper,
+    told apart by shape)."""
 
     def __init__(self, fa):
         self.fa = fa
         self.fwd, self.bwd, self.stats = {}, {}, {}
         self.flash, self.flash_bwd = {}, {}
+        self.fused = collections.Counter()
         self.dims = collections.Counter()
 
     def _wrap_bwd(self, fn):
@@ -1087,6 +1146,9 @@ class ShapeTally:
     def _wrap_stats(self, fn):
         def tallied(entry, name, q, k, *a, stats=(), **kw):
             self.dims[(name, q.shape[-1])] += 1
+            if name == "fused_heads_attention":
+                # a: v, kv_mask, causal, scale, *shape
+                self.fused[(q.shape[1], bool(a[2]))] += 1
             if name == "flash_attention":
                 shape = (q.shape[1], k.shape[1])
                 self.flash[shape] = self.flash.get(shape, 0) + 1
@@ -1328,7 +1390,8 @@ def check_model_fp32(cli, fa, test, device, argv, tag):
 def run_training(cli, fa, device, log_dir: str, argv, kernels,
                  per_update=None, tag="opt", per_eval=None,
                  per_generate=None, updates=TRAIN_UPDATES, idle=(),
-                 zero_first=None, cache_kernels=None, warm_start=False):
+                 zero_first=None, cache_kernels=None, warm_start=False,
+                 on_build=None):
     """Phases 5, 5c, 7, 9-15: the training run at full
     width through the entry point, ``updates`` updates; ``kernels`` must
     launch inside the training steps, exactly ``per_update`` times in each
@@ -1347,6 +1410,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     kernels (the towers') must launch there and no other. ``warm_start``:
     then a second start on the same --neighbor_cache_dir, the three splits
     wrapped anew with the run's model, must launch no kernel at all.
+    ``on_build`` is called with the model the entry point built, before
+    the run uses it.
 
     The CLI's model factory, neighbour cache, train step, eval setup and
     checkpoint restore are wrapped here, not changed: the wrappers snapshot the weights, time
@@ -1371,6 +1436,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
         # on the host, so that the peak device memory is the run's own
         seen["before"] = {n: p.detach().to("cpu", copy=True)
                           for n, p in model.named_parameters()}
+        if on_build is not None:
+            on_build(model)
         return model, cfg
 
     def make_train_step(*a, **kw):
@@ -1889,7 +1956,8 @@ def _sdpa_bwd(q, k, v, am, dout, p=0.0, scale=None, bias_grad=False):
 
 def _opt_timing_cases(fa, device, dtype_name):
     """K1 (OPT eval), K2 (CLIP) and K3 (OPT training), in bf16 or fp16; in
-    bf16 also K1 at Roberta's shape (the embedding mode's text tower)."""
+    bf16 also K1 at Roberta's shape (the embedding mode's text tower) and
+    K2 causal at the CLIP text tower's."""
     import torch
 
     dt = getattr(torch, dtype_name)
@@ -1897,6 +1965,8 @@ def _opt_timing_cases(fa, device, dtype_name):
     k1 = [("flash_attention_allheads", 0, ""), ("fused_heads_attention", 2, "")]
     if dtype_name == "bfloat16":
         k1.append(("flash_attention_allheads", ROBERTA_CASE, "[roberta]"))
+        k1.append(("fused_heads_attention", CLIP_TEXT_CASE,
+                   CASE_TAGS[CLIP_TEXT_CASE]))
     for name, idx, tag in k1:
         (q, k, v), kw = kernel_inputs(idx, dt, device)
         s, h, d = q.shape[1:]
@@ -2212,34 +2282,36 @@ def time_kernels(fa, device):
     return rows
 
 
-def run_mpt_phase(cli, fa, device, micro, launches):
-    """Phase 13, BASELINE family 4 at MPT-2.7B from cached tower features:
-    the short run with its launch counts, the warm start, the fp32 and
-    bf16 micro-steps; the launches at head dim 80 go into ``launches``
-    (the kernels line's names). Returns the run's summary."""
-    # BASELINE family 4 at its published MPT-2.7B (head dim 80)
-    # + Roberta + CLIP, all, flamingo, from cached tower features: the
-    # cache build launches the towers' K1 and K2, and no micro-step, eval
-    # step or generated batch does; the self-attention takes K1 (32
-    # layers) and K3 (the 24 after the first cross layer), the cross
-    # layers' attention (640 x 64) K4 and K5, the prefill's (512 x 64) K4;
-    # then a second start on the same cache directory launches nothing
+def run_mpt_phase(cli, fa, device, micro):
+    """Phase 13, BASELINE family 4 at MPT-2.7B's width and MPT_CUT_LAYERS
+    of its layers, from cached tower features: the short run with its
+    launch counts, the warm start, the fp32 and bf16 micro-steps. Returns
+    the run's summary."""
+    # BASELINE family 4 at MPT-2.7B's width (head dim 80) + Roberta + CLIP,
+    # all, flamingo, from cached tower features: the cache build launches
+    # the towers' K1 and K2, and no micro-step, eval step or generated
+    # batch does; the self-attention takes K1 (every layer) and K3 (those
+    # after the first cross layer), the cross layers' attention (640 x 64)
+    # K4 and K5, the prefill's (512 x 64) K4; then a second start on the
+    # same cache directory launches nothing
+    layers, grad_layers = MPT_CUT_LAYERS, MPT_CUT_GRAD_LAYERS
     mpt_kernels = ("flash_attention_allheads", "flash_attention_allheads_bwd",
                    "flash_attention", "flash_attention_bwd")
-    per = {"flash_attention_allheads": MPT_LAYERS,
+    per = {"flash_attention_allheads": layers,
            "fused_heads_attention": 0, "flash_attention": MPT_CROSS}
+    tag = f"mpt-2.7b flamingo ({layers} layers)"
     with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir, \
-            tempfile.TemporaryDirectory() as cache_dir:
+            tempfile.TemporaryDirectory() as cache_dir, \
+            depth_cut("2.7b", layers):
         argv = with_flags(MPT_ARGV, neighbor_cache_dir=cache_dir)
         mpt = run_training(
             cli, fa, device, log_dir, argv, mpt_kernels,
-            {"flash_attention_allheads": MPT_LAYERS * micro,
-             "flash_attention_allheads_bwd": MPT_GRAD_LAYERS * micro,
+            {"flash_attention_allheads": layers * micro,
+             "flash_attention_allheads_bwd": grad_layers * micro,
              "fused_heads_attention": 0,
              "flash_attention": MPT_CROSS * micro,
              "flash_attention_bwd": MPT_CROSS * micro},
-            tag="mpt-2.7b flamingo", per_eval=per, per_generate=per,
-            updates=1,
+            tag=tag, per_eval=per, per_generate=per, updates=1,
             zero_first=(flamingo_zero,
                         "the cross layers and the memory reach the loss "
                         "only through branches scaled by tanh(gate), and "
@@ -2247,8 +2319,8 @@ def run_mpt_phase(cli, fa, device, micro, launches):
             cache_kernels=("flash_attention_allheads",
                            "fused_heads_attention"),
             warm_start=True)
-    print(f"[mpt-2.7b flamingo] K4 launches by (Sq, Sk): {tally.flash}; "
-          f"K5: {tally.flash_bwd}; K1-K5 by head dim: {dict(tally.dims)}")
+    print(f"[{tag}] K4 launches by (Sq, Sk): {tally.flash}; K5: "
+          f"{tally.flash_bwd}; K1-K5 by head dim: {dict(tally.dims)}")
     # the cross-attention at 640 x 64 in every micro-step and eval step,
     # at 512 x 64 in every prefill; K5 in the micro-steps alone; every LM
     # launch at head dim 80, the towers' (the cache build) at 64
@@ -2258,36 +2330,26 @@ def run_mpt_phase(cli, fa, device, micro, launches):
     if (tally.flash, tally.flash_bwd) != want:
         fail(f"MPT's K4/K5 launches by shape {tally.flash} / "
              f"{tally.flash_bwd}, expected {want}")
-    lm_k1 = MPT_LAYERS * (micro + mpt["eval_steps"]
-                          + mpt["generated_batches"])
+    lm_k1 = layers * (micro + mpt["eval_steps"] + mpt["generated_batches"])
     if (tally.dims[("flash_attention_allheads", 80)] != lm_k1
             or tally.dims[("flash_attention_allheads_bwd", 80)]
-            != MPT_GRAD_LAYERS * micro):
+            != grad_layers * micro):
         fail(f"MPT-2.7B's K1/K3 launches at head dim 80 "
              f"{dict(tally.dims)}, expected K1 {lm_k1}")
-    for name in ("flash_attention_allheads", "flash_attention_allheads_bwd",
-                 "flash_attention", "flash_attention_bwd"):
-        launches[dkey(name, 80)] = tally.dims[(name, 80)]
+    mpt["layers"] = layers
     mpt["launches_by_head_dim"] = {f"{n}[d{d}]": c
                                    for (n, d), c in tally.dims.items()}
     mpt["k4_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.flash.items()}
     mpt_step = {"flash_attention": MPT_CROSS,
                 "flash_attention_bwd": MPT_CROSS,
-                "flash_attention_allheads": MPT_LAYERS,
-                "flash_attention_allheads_bwd": MPT_GRAD_LAYERS,
+                "flash_attention_allheads": layers,
+                "flash_attention_allheads_bwd": grad_layers,
                 "fused_heads_attention": 0}
-    with depth_cut("2.7b", MPT_FP32_LAYERS):
-        mpt["fp32_step"] = check_train_step(
-            cli, fa, device, MPT_ARGV, mpt_kernels,
-            f"mpt-2.7b flamingo ({MPT_FP32_LAYERS} layers)",
-            seeded=("gating",), cached=True,
-            per_step={**mpt_step,
-                      "flash_attention_allheads": MPT_FP32_LAYERS,
-                      "flash_attention_allheads_bwd": MPT_FP32_GRAD_LAYERS})
-    mpt["fp32_step"]["layers"] = MPT_FP32_LAYERS
-    mpt["bf16_step"] = check_train_step(
-        cli, fa, device, MPT_ARGV, mpt_kernels, "mpt-2.7b flamingo",
-        half=True, seeded=("gating",), per_step=mpt_step, cached=True)
+    with depth_cut("2.7b", layers):
+        for key, half in (("fp32_step", False), ("bf16_step", True)):
+            mpt[key] = check_train_step(
+                cli, fa, device, MPT_ARGV, mpt_kernels, tag, half=half,
+                seeded=("gating",), per_step=mpt_step, cached=True)
     return mpt
 
 
@@ -2326,8 +2388,7 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
     runs["opt13b_lora_training"] = lora
     lap("12")
 
-    runs["mpt27b_flamingo_training"] = run_mpt_phase(cli, fa, device, micro,
-                                                     launches)
+    runs["mpt27b_flamingo_training"] = run_mpt_phase(cli, fa, device, micro)
     lap("13")
 
     # phase 14a: OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704
@@ -2641,6 +2702,285 @@ def run_cached_phases(cli, fa, device, micro, opt_live, emb_live):
     return runs
 
 
+# ---- phases 17 and 18: pretrained checkpoints -------------------------------
+
+def _hf_arrays(rng, shapes, dtype):
+    """{HF name: seeded array}: matrices, tables and biases normal(0, 0.02)
+    (HF's init std), LayerNorm weights 1 + normal(0, 0.02), so that a
+    weight and a bias, or two layers, cannot be swapped unseen."""
+    out = {}
+    for name, shape in shapes.items():
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        if "norm" in name and name.endswith(".weight"):
+            x += np.float32(1.0)
+        out[name] = x.astype(dtype)
+    return out
+
+
+def _opt125m_shapes():
+    """OPT-125M's names and shapes as HF's OPTForCausalLM saves them."""
+    h, f, v = 768, 3072, 50272
+    pre = "model.decoder."
+    shapes = {pre + "embed_tokens.weight": (v, h),
+              pre + "embed_positions.weight": (2050, h),   # 2048 + offset 2
+              pre + "final_layer_norm.weight": (h,),
+              pre + "final_layer_norm.bias": (h,)}
+    for i in range(OPT_LAYERS):
+        layer = f"{pre}layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            shapes[f"{layer}self_attn.{proj}.weight"] = (h, h)
+            shapes[f"{layer}self_attn.{proj}.bias"] = (h,)
+        for norm in ("self_attn_layer_norm", "final_layer_norm"):
+            shapes[f"{layer}{norm}.weight"] = (h,)
+            shapes[f"{layer}{norm}.bias"] = (h,)
+        shapes.update({f"{layer}fc1.weight": (f, h), f"{layer}fc1.bias": (f,),
+                       f"{layer}fc2.weight": (h, f), f"{layer}fc2.bias": (h,)})
+    return shapes
+
+
+def _clip_tower_layers(shapes, tower, h, f):
+    for i in range(CLIP_LAYERS):
+        layer = f"{tower}.encoder.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            shapes[f"{layer}self_attn.{proj}.weight"] = (h, h)
+            shapes[f"{layer}self_attn.{proj}.bias"] = (h,)
+        for norm in ("layer_norm1", "layer_norm2"):
+            shapes[f"{layer}{norm}.weight"] = (h,)
+            shapes[f"{layer}{norm}.bias"] = (h,)
+        shapes.update({f"{layer}mlp.fc1.weight": (f, h),
+                       f"{layer}mlp.fc1.bias": (f,),
+                       f"{layer}mlp.fc2.weight": (h, f),
+                       f"{layer}mlp.fc2.bias": (h,)})
+
+
+def _clip_vitb16_shapes():
+    """CLIP ViT-B/16's CLIPModel as HF saves it: the vision tower (768
+    wide, 16 px patches, 197 positions), the text tower (512 wide,
+    vocabulary 49408, 77 positions), each 12 layers, and the projections
+    MMGL does not use."""
+    v = "vision_model."
+    shapes = {v + "embeddings.class_embedding": (768,),
+              v + "embeddings.patch_embedding.weight": (768, 3, 16, 16),
+              v + "embeddings.position_embedding.weight": (197, 768)}
+    for norm in ("pre_layrnorm", "post_layernorm"):   # HF's typo'd name
+        shapes[f"{v}{norm}.weight"] = (768,)
+        shapes[f"{v}{norm}.bias"] = (768,)
+    _clip_tower_layers(shapes, "vision_model", 768, 3072)
+    t = "text_model."
+    shapes.update({t + "embeddings.token_embedding.weight": (49408, 512),
+                   t + "embeddings.position_embedding.weight": (77, 512),
+                   t + "final_layer_norm.weight": (512,),
+                   t + "final_layer_norm.bias": (512,)})
+    _clip_tower_layers(shapes, "text_model", 512, 2048)
+    shapes.update({"visual_projection.weight": (512, 768),
+                   "text_projection.weight": (512, 512)})
+    return shapes
+
+
+_SAFETENSORS_DTYPES = {"float32": "F32", "float16": "F16"}
+
+
+def write_safetensors(path: str, arrays) -> None:
+    """The safetensors format: an 8-byte little-endian header length, a
+    JSON header of dtype, shape and byte offsets (padded with spaces to 8
+    bytes), then the little-endian buffers in order."""
+    header, offset = {}, 0
+    for name, arr in arrays.items():
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[arr.dtype.name],
+                        "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for arr in arrays.values():
+            f.write(memoryview(np.ascontiguousarray(arr)).cast("B"))
+
+
+def write_checkpoints(root: str):
+    """Phase 17's HF-layout checkpoints under ``root``, from seeded numpy
+    arrays: OPT-125M as pytorch_model.bin in fp16 (HF's storage for OPT;
+    lm_head.weight, the tied embedding, saved beside it as HF does) and
+    CLIP ViT-B/16 as a CLIPModel's model.safetensors in fp32. Returns
+    {directory: {HF name: array}}."""
+    import torch
+
+    rng = np.random.default_rng(17)
+    opt = _hf_arrays(rng, _opt125m_shapes(), np.float16)
+    os.makedirs(os.path.join(root, CKPT_OPT))
+    tensors = {k: torch.from_numpy(v) for k, v in opt.items()}
+    tensors["lm_head.weight"] = tensors["model.decoder.embed_tokens.weight"]
+    torch.save(tensors, os.path.join(root, CKPT_OPT, "pytorch_model.bin"))
+    clip = _hf_arrays(rng, _clip_vitb16_shapes(), np.float32)
+    clip["logit_scale"] = np.array(2.6592, np.float32)
+    os.makedirs(os.path.join(root, CKPT_CLIP))
+    write_safetensors(os.path.join(root, CKPT_CLIP, "model.safetensors"),
+                      clip)
+    return {CKPT_OPT: opt, CKPT_CLIP: clip}
+
+
+def port_name(hf_name: str):
+    """(the port's parameter name, a function from the file's tensor to the
+    parameter's) for an HF name, or None where MMGL has no parameter (the
+    tied head, CLIP's projections and logit scale). The port's Linear
+    holds HF's (out, in) weight as it is (the flax kernel in between is its
+    transpose both ways); the patch conv (out, 3, p, p) becomes the
+    flattened-patch Linear over the (p, p, 3) order."""
+    same = lambda w: w
+    if hf_name.startswith("model.decoder."):
+        return "lm.decoder." + hf_name[len("model.decoder."):], same
+    tower = hf_name.split(".")[0]
+    if tower not in ("vision_model", "text_model"):
+        return None
+    rest = hf_name[len(tower) + 1:]
+    prefix = "visual_model." if tower == "vision_model" else "text_model."
+    if rest == "embeddings.patch_embedding.weight":
+        return (prefix + rest,
+                lambda w: w.permute(0, 2, 3, 1).reshape(w.shape[0], -1))
+    for old, new in (("embeddings.token_embedding", "embeddings_token"),
+                     ("pre_layrnorm", "pre_layernorm"),
+                     ("self_attn.q_proj", "attention.query"),
+                     ("self_attn.k_proj", "attention.key"),
+                     ("self_attn.v_proj", "attention.value"),
+                     ("self_attn.out_proj", "attention.out"),
+                     ("layer_norm1", "norm1"), ("layer_norm2", "norm2"),
+                     ("mlp.", "")):
+        rest = rest.replace(old, new)
+    if tower == "text_model":
+        rest = rest.replace("embeddings.position_embedding",
+                            "embeddings_position")
+    return prefix + rest, same
+
+
+def check_imported(model, files, tag, prefixes):
+    """Every parameter of the model under ``prefixes`` (MPT's cross layers
+    aside, which keep their init) equals its file tensor under HF's names,
+    bit for bit (fp16 files widened to the fp32 parameters); returns the
+    count."""
+    import torch
+
+    params = dict(model.named_parameters())
+    matched = set()
+    for arrays in files.values():
+        for hf_name, arr in arrays.items():
+            mapped = port_name(hf_name)
+            if mapped is None or not mapped[0].startswith(prefixes):
+                continue
+            name, transform = mapped
+            got = params.get(name)
+            want = transform(torch.from_numpy(np.asarray(arr)))
+            if got is None or not torch.equal(
+                    got.detach(), want.to(got.device, got.dtype)):
+                fail(f"{tag}: {name} does not hold the file's {hf_name}")
+            matched.add(name)
+    owed = {n for n in params if n.startswith(prefixes)
+            and ".neighbor_layers." not in n}
+    if owed != matched:
+        fail(f"{tag}: parameters not imported {sorted(owed - matched)[:5]}")
+    print(f"[{tag}] {len(matched)} parameters under {prefixes} equal their "
+          "file tensors bit for bit")
+    return len(matched)
+
+
+def run_checkpoint_phase(cli, fa, device, files, seeded_loss):
+    """Phase 17: the main path's test pass from the HF-layout checkpoints
+    (``files``, in the working directory): the imported parameters, the
+    launch counts, a finite loss that is not the seeded model's
+    (``seeded_loss``, phase 4's), and the fp32 eval step card vs CPU."""
+    per = {"flash_attention_allheads": OPT_LAYERS,
+           "fused_heads_attention": CLIP_LAYERS}
+    test, results, launches, rate, peak = run_test_pass(
+        cli, fa, device, OPT_CKPT_TEST_ARGV, OPT_TEST_KERNELS, per, per,
+        tag="opt ckpt")
+    imported = check_imported(test.model, files, "opt ckpt",
+                              ("lm.", "visual_model."))
+    loss = results["loss"]
+    print(f"[opt ckpt] test loss {loss:.6f} from the checkpoints, "
+          f"{seeded_loss:.6f} from the seeded weights (phase 4)")
+    if not (math.isfinite(loss) and abs(loss - seeded_loss) > 1e-3):
+        fail("the test loss from the checkpoints is not finite or is the "
+             "seeded model's")
+    fp32 = check_model_fp32(cli, fa, test, device, OPT_CKPT_TEST_ARGV,
+                            "opt ckpt")
+    del test
+    gc.collect()
+    return {"sections_per_s": rate, "peak_bytes": peak, "test_loss": loss,
+            "seeded_test_loss": seeded_loss, "launches": launches,
+            "imported_parameters": imported, "fp32_eval": fp32}
+
+
+def run_family7_phase(cli, fa, device, micro, files):
+    """Phase 18: BASELINE family 7 at MPT-2.7B with the imported CLIP text
+    and vision towers, uncached, the short run with its launch counts by
+    shape, then its fp32 micro-step card vs CPU at MPT_CUT_LAYERS layers.
+    Returns the run's summary and {kernels-line name: launches}: K2 at the
+    text tower's shape, K1 and K3-K5 at head dim 80."""
+    step = {"flash_attention_allheads": MPT_LAYERS,
+            "flash_attention_allheads_bwd": MPT_GRAD_LAYERS,
+            "fused_heads_attention": 2 * CLIP_LAYERS,
+            "flash_attention": MPT_CROSS, "flash_attention_bwd": MPT_CROSS}
+    per_pass = {"flash_attention_allheads": MPT_LAYERS,
+                "fused_heads_attention": 2 * CLIP_LAYERS,
+                "flash_attention": MPT_CROSS,
+                "flash_attention_allheads_bwd": 0}
+    imported = []
+    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir:
+        run = run_training(
+            cli, fa, device, log_dir, FAMILY7_ARGV, tuple(step),
+            {n: c * micro for n, c in step.items()},
+            tag="mpt-2.7b cliptext", per_eval=per_pass,
+            per_generate=per_pass, updates=1,
+            zero_first=(flamingo_zero,
+                        "the cross layers and the memory reach the loss "
+                        "only through branches scaled by tanh(gate), and "
+                        "the gates start at 0"),
+            on_build=lambda model: imported.append(check_imported(
+                model, files, "mpt-2.7b cliptext",
+                ("text_model.", "visual_model."))))
+    evals, gens = run["eval_steps"], run["generated_batches"]
+    passes = micro + evals + gens
+    print(f"[mpt-2.7b cliptext] K2 launches by (S, causal): "
+          f"{dict(tally.fused)}; K4 by (Sq, Sk): {tally.flash}; K5: "
+          f"{tally.flash_bwd}; K1-K5 by head dim: {dict(tally.dims)}")
+    # the text tower's 12 causal layers and the vision tower's 12 in every
+    # micro-step, eval step and prefill; the cross-attention at 205 x 64
+    # (77 + 128 tokens against 16 neighbours x 4) in the micro-steps and
+    # eval steps, at 77 x 64 in the prefills; the LM at head dim 80
+    want = ({(FAMILY7_TEXT, True): CLIP_LAYERS * passes,
+             (197, False): CLIP_LAYERS * passes},
+            {(FAMILY7_TOKENS, 64): MPT_CROSS * (micro + evals),
+             (FAMILY7_TEXT, 64): MPT_CROSS * gens},
+            {(FAMILY7_TOKENS, 64): MPT_CROSS * micro})
+    if (dict(tally.fused), tally.flash, tally.flash_bwd) != want:
+        fail(f"family 7's K2/K4/K5 launches by shape {dict(tally.fused)} / "
+             f"{tally.flash} / {tally.flash_bwd}, expected {want}")
+    if (tally.dims[("flash_attention_allheads", 80)] != MPT_LAYERS * passes
+            or tally.dims[("flash_attention_allheads_bwd", 80)]
+            != MPT_GRAD_LAYERS * micro):
+        fail(f"family 7's K1/K3 launches at head dim 80 {dict(tally.dims)}")
+    run["imported_parameters"] = imported
+    run["k2_by_shape"] = {f"{s}{'c' if c else ''}": n
+                          for (s, c), n in tally.fused.items()}
+    run["k4_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.flash.items()}
+    with depth_cut("2.7b", MPT_CUT_LAYERS):
+        run["fp32_step"] = check_train_step(
+            cli, fa, device, FAMILY7_ARGV, tuple(step),
+            f"mpt-2.7b cliptext ({MPT_CUT_LAYERS} layers)",
+            seeded=("gating",),
+            per_step={**step, "flash_attention_allheads": MPT_CUT_LAYERS,
+                      "flash_attention_allheads_bwd": MPT_CUT_GRAD_LAYERS})
+    run["fp32_step"]["layers"] = MPT_CUT_LAYERS
+    gc.collect()
+    launches = {dkey(n, 80): tally.dims[(n, 80)] for n in (
+        "flash_attention_allheads", "flash_attention_allheads_bwd",
+        "flash_attention", "flash_attention_bwd")}
+    launches["fused_heads_attention[clip-text]"] = tally.fused[
+        (FAMILY7_TEXT, True)]
+    return run, launches
+
+
 def main() -> int:
     import torch
 
@@ -2902,6 +3242,19 @@ def main() -> int:
     opt67_summary, launches_d128 = run_opt67_phase(cli, fa, device)
     lap("16")
 
+    # phases 17 and 18 run in a directory holding the checkpoints they
+    # write, which the flags name relative to it
+    with tempfile.TemporaryDirectory() as ckpt_root, \
+            contextlib.chdir(ckpt_root):
+        files = write_checkpoints(ckpt_root)
+        ckpt_summary = run_checkpoint_phase(cli, fa, device, files,
+                                            results["loss"])
+        lap("17")
+        family7, launches_family7 = run_family7_phase(cli, fa, device,
+                                                      micro, files)
+        del files
+    lap("18")
+
     print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
         "test_loss": results["loss"], "launches": opt_test, "card": card}}))
@@ -2936,6 +3289,10 @@ def main() -> int:
     for key, run in cached.items():
         print(json.dumps({key: {**run, "card": card}}))
     print(json.dumps({"opt67b_test": {**opt67_summary, "card": card}}))
+    print(json.dumps({"opt_checkpoint_test": {**ckpt_summary,
+                                              "card": card}}))
+    print(json.dumps({"mpt27b_cliptext_training": {**family7,
+                                                   "card": card}}))
 
     # each kernel's launches from the path that runs it: K1-K3 the OPT
     # training run, K4 the T5 test pass, K7/K8/K9 the T5 training run, K5
@@ -2976,8 +3333,10 @@ def main() -> int:
     # tuning) and K7/K8 (T5's prefixed decoder), each from the run that
     # takes it, prefills and eval steps included
     launches.update(peft["launches"])
-    # head dims 80 (phase 13, MPT-2.7B) and 128 (phase 16, OPT-6.7B)
+    # head dims 80 (phase 18, MPT-2.7B at its whole depth) and 128 (phase
+    # 16, OPT-6.7B), and K2 causal at the CLIP text tower's shape (phase 18)
     launches.update(launches_d128)
+    launches.update(launches_family7)
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():

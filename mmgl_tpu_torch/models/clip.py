@@ -1,11 +1,21 @@
-"""CLIP vision tower (counterpart of mmgl_tpu/models/clip.py:34-241).
+"""CLIP vision and text towers (counterpart of mmgl_tpu/models/clip.py).
 
 The frozen image tower of the fusion model: pooler_output is the post-LN
-class token. Parameters stay fp32 and each layer computes in ``dtype``
-(models/layers.py). The patch embedding stays a flattened-patch ``Linear`` in the
-JAX package's (p, p, 3) patch order, so its weight converts from the flax
-kernel by a transpose (utils/convert.py). Module names follow the flax
-parameter paths. The CLIP text tower comes in a later change.
+class token. The text tower (``--text_model clip*``, the embedding mode's
+neighbour texts): token and position tables, the causal encoder under the
+texts' key mask, ``final_layer_norm``, and pooler_output the final hidden
+state at each text's highest token id (HF's EOT position), with no
+pooler after it. Parameters stay fp32 and each layer computes in
+``dtype`` (models/layers.py). The patch embedding stays a flattened-patch
+``Linear`` in the JAX package's (p, p, 3) patch order, so its weight
+converts from the flax kernel by a transpose (utils/convert.py). Module
+names follow the flax parameter paths.
+
+The text tower's position table holds ``max_position_embeddings`` (77)
+rows, and a longer sequence raises ``ValueError`` before anything runs, as
+HF's ``CLIPTextModel`` refuses it. The JAX package's tower reads the rows
+past the table as NaN there (flax ``Embed`` takes with a NaN fill) and
+returns NaN for every row of every text: a divergence kept on purpose.
 """
 
 from __future__ import annotations
@@ -16,8 +26,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from mmgl_tpu_torch.models.layers import (ACT2FN, LayerNorm, Linear,
-                                          cast_at_use)
+from mmgl_tpu_torch.models.layers import (ACT2FN, Embedding, LayerNorm,
+                                          Linear, cast_at_use)
 from mmgl_tpu_torch.ops import multi_head_attention
 
 # CLIP preprocessing constants; images travel to the device as uint8 and are
@@ -69,11 +79,31 @@ class CLIPVisionConfig:
         return (self.image_size // self.patch_size) ** 2
 
 
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    """The text tower of CLIP ViT-B/16 (mmgl_tpu/models/clip.py:78-93)."""
+    vocab_size: int = 49408
+    hidden_size: int = 512
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 8
+    intermediate_size: int = 2048
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    dtype: torch.dtype = torch.float32
+    use_pallas: bool = True      # False: attention_reference (--use_pallas)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
 class CLIPAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, causal: bool = False):
         super().__init__()
         self.num_heads, self.use_pallas = num_heads, use_pallas
+        self.causal = causal
         self.query = Linear(hidden_size, hidden_size, compute_dtype=dtype)
         self.key = Linear(hidden_size, hidden_size, compute_dtype=dtype)
         self.value = Linear(hidden_size, hidden_size, compute_dtype=dtype)
@@ -86,17 +116,18 @@ class CLIPAttention(nn.Module):
         k = self.key(hidden_states).view(b, s, h, e // h)
         v = self.value(hidden_states).view(b, s, h, e // h)
         out = multi_head_attention(q, k, v, kv_mask=attention_mask,
+                                   causal=self.causal,
                                    use_pallas=self.use_pallas)
         return self.out(out.reshape(b, s, e))
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg, causal: bool = False):
         super().__init__()
         dt = cfg.dtype
         self.attention = CLIPAttention(cfg.hidden_size,
                                        cfg.num_attention_heads, dt,
-                                       cfg.use_pallas)
+                                       cfg.use_pallas, causal)
         self.norm1 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                compute_dtype=dt)
         self.norm2 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
@@ -115,9 +146,12 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    """The vision tower's encoder, or with ``causal`` the text tower's
+    (either config)."""
+
+    def __init__(self, cfg, causal: bool = False):
         super().__init__()
-        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg)
+        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg, causal)
                                     for _ in range(cfg.num_hidden_layers))
 
     def forward(self, hidden_states, attention_mask=None):
@@ -172,4 +206,41 @@ class CLIPVisionModel(nn.Module):
         x = self.pre_layernorm(x)
         x = self.encoder(x)
         pooled = self.post_layernorm(x[:, 0])
+        return x, pooled
+
+
+class CLIPTextModel(nn.Module):
+    """Returns (last_hidden_state, pooler_output at the EOT / argmax-id
+    position) (mmgl_tpu/models/clip.py:244-275)."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.config = cfg
+        dt = cfg.dtype
+        self.embeddings_token = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                          compute_dtype=dt)
+        self.embeddings_position = Embedding(cfg.max_position_embeddings,
+                                             cfg.hidden_size,
+                                             compute_dtype=dt)
+        self.encoder = CLIPEncoder(cfg, causal=True)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size,
+                                          eps=cfg.layer_norm_eps,
+                                          compute_dtype=dt)
+
+    def forward(self, input_ids, attention_mask=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, s = input_ids.shape
+        table = self.config.max_position_embeddings
+        if s > table:
+            raise ValueError(
+                f"CLIPTextModel: {s} tokens, but its position table holds "
+                f"{table} entries; tokenize the texts to at most {table} "
+                "(--max_input_length)")
+        positions = torch.arange(s, device=input_ids.device)
+        x = (self.embeddings_token(input_ids)
+             + self.embeddings_position(positions)[None])
+        x = self.encoder(x, attention_mask)
+        x = self.final_layer_norm(x)
+        eot = input_ids.argmax(dim=-1)
+        pooled = x[torch.arange(b, device=x.device), eot]
         return x, pooled

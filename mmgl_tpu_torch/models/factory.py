@@ -2,15 +2,15 @@
 mmgl_tpu/models/factory.py:27-181).
 
 Same substring selection on ``model_name_or_path`` and the same tabled OPT,
-T5, CLIP-vision and Roberta shapes as the JAX package. ``build_model`` initializes the
-weights from a ``torch.Generator`` seeded with ``--seed`` (on the CPU, so one
-seed gives the same weights on every device) and moves the model to
-``device`` with its parameters in ``--param_dtype`` (float32); each layer
-computes in the compute dtype (models/layers.py). ``requires_grad`` follows
-the trainable mask of peft/masks.py. Loading pretrained weights is not
-ported yet (ROADMAP A4): a checkpoint directory named by
-``--model_name_or_path``, ``--visual_model`` or ``--text_model`` raises,
-where the JAX package would overlay it (``maybe_import_pretrained``).
+T5, CLIP-vision, CLIP-text and Roberta shapes as the JAX package.
+``build_model`` initializes the weights from a ``torch.Generator`` seeded
+with ``--seed`` (on the CPU, so one seed gives the same weights on every
+device), overlays the local HF checkpoints that ``--model_name_or_path``,
+``--text_model`` and ``--visual_model`` name (``maybe_import_pretrained``;
+a name that is not a directory keeps the seeded weights), and moves the
+model to ``device`` with its parameters in ``--param_dtype`` (float32);
+each layer computes in the compute dtype (models/layers.py).
+``requires_grad`` follows the trainable mask of peft/masks.py.
 
 ``mpt-<size>`` is OPT of that size with MPT's cross layers over the
 neighbour memory, one every ``layers // --num_neighbor_layers`` layers
@@ -33,13 +33,15 @@ from typing import Optional, Tuple
 import torch
 
 from mmgl_tpu_torch.config import Arguments
-from mmgl_tpu_torch.models.clip import CLIPVisionConfig
+from mmgl_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 from mmgl_tpu_torch.models.fusion import FusionConfig, MMGLModel
 from mmgl_tpu_torch.models.layers import init_weights
 from mmgl_tpu_torch.models.opt import OPTConfig
 from mmgl_tpu_torch.models.roberta import RobertaConfig
 from mmgl_tpu_torch.models.t5 import T5Config
 from mmgl_tpu_torch.peft.masks import apply_trainable_mask
+from mmgl_tpu_torch.utils import hf_import
+from mmgl_tpu_torch.utils.convert import state_dict_from_jax
 
 # (hidden, layers, heads, ffn, word_embed_proj)
 _OPT_SIZES = {
@@ -90,8 +92,6 @@ def _t5_config(args: Arguments, size: str) -> T5Config:
 
 def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                         tokenizer=None) -> FusionConfig:
-    """Raises NotImplementedError for what is not ported yet: (FusionConfig)
-    the CLIP text tower."""
     name = args.model_name_or_path or "opt-tiny"
     tiny = "tiny" in name
     # substring selection in the JAX package's order: t5, mpt, opt
@@ -150,15 +150,27 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                       hidden_size=32, num_hidden_layers=2,
                       num_attention_heads=2, intermediate_size=64,
                       image_size=32, patch_size=8, **tower_kw))
-    # the Roberta tower: roberta-base, or the tiny test shape with the
-    # tokenizer's vocabulary (mmgl_tpu/models/factory.py:152-159)
+    # the text tower: the CLIP text tower of ViT-B/16 for a "clip" text
+    # model, else roberta-base; or the tiny test shape with the
+    # tokenizer's vocabulary (mmgl_tpu/models/factory.py:148-159)
     text_cfg = None
     if args.neighbor_mode == "embedding":
-        text_cfg = (RobertaConfig(**tower_kw) if not tiny
-                    else RobertaConfig(
-                        hidden_size=32, num_hidden_layers=2,
-                        num_attention_heads=2, intermediate_size=64,
-                        vocab_size=vocab_size or 50265, **tower_kw))
+        tower = (CLIPTextConfig if "clip" in args.text_model
+                 else RobertaConfig)
+        text_cfg = (tower(**tower_kw) if not tiny else tower(
+            hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+            intermediate_size=64,
+            vocab_size=vocab_size or tower.vocab_size, **tower_kw))
+        if (tower is CLIPTextConfig
+                and args.max_input_length > text_cfg.max_position_embeddings):
+            # the neighbour texts are tokenized to --max_input_length; the
+            # tower would raise at its first call (models/clip.py), where
+            # the JAX package's returns NaN
+            raise ValueError(
+                f"--text_model {args.text_model}: the CLIP text tower's "
+                f"position table holds {text_cfg.max_position_embeddings} "
+                f"entries, and the neighbour texts are tokenized to "
+                f"--max_input_length {args.max_input_length}")
 
     cfg = FusionConfig(
         context=args.context, neighbor_mode=args.neighbor_mode,
@@ -180,16 +192,56 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
     return cfg
 
 
-def _refuse_checkpoints(args: Arguments) -> None:
-    """Raise where a flag names a local checkpoint directory: the JAX
-    package overlays it (mmgl_tpu/models/factory.py:184-217), and random
-    weights in its place would train another model without a word."""
-    for flag in ("model_name_or_path", "visual_model", "text_model"):
-        path = getattr(args, flag) or ""
-        if os.path.isdir(path):
-            raise NotImplementedError(
-                f"--{flag} {path} is a checkpoint directory: loading "
-                "pretrained weights is not ported yet (ROADMAP A4)")
+def _overlay(model: MMGLModel, module: str, tree: dict) -> int:
+    """Copy a flax-layout tree of ``module`` (``lm``, ``text_model``,
+    ``visual_model``) into the model's parameters in place, through the
+    port's one map from flax paths (utils/convert.py). Every tensor must
+    name a parameter of that shape; HF's copy of a tied LM head is the
+    embedding and is skipped. Returns the tensors copied."""
+    own = dict(model.named_parameters())
+    copied = 0
+    with torch.no_grad():
+        for name, value in state_dict_from_jax({module: tree}).items():
+            if name not in own:
+                if name == f"{module}.lm_head.weight":
+                    continue
+                raise KeyError(f"the checkpoint's {name} has no parameter "
+                               "in the model")
+            if tuple(own[name].shape) != tuple(value.shape):
+                raise ValueError(f"the checkpoint's {name} is "
+                                 f"{tuple(value.shape)}, the model's "
+                                 f"{tuple(own[name].shape)}")
+            own[name].copy_(value)
+            copied += 1
+    return copied
+
+
+def maybe_import_pretrained(model: MMGLModel, args: Arguments) -> None:
+    """Overlay local HF checkpoints (the LM and the towers) onto the
+    initialized model (mmgl_tpu/models/factory.py:184-217). An ``mpt``
+    name reads the OPT directory of its size (``name.replace("mpt",
+    "opt")``, as the reference does) and the cross layers keep their init;
+    ``t5`` takes the T5 importer; a ``clip`` text model the CLIP text
+    tower's, else Roberta's; the visual model CLIP vision's. A name that is
+    not a directory is skipped silently (random init), as in the JAX
+    package: there is no network to fetch it from."""
+    name = args.model_name_or_path or ""
+    lm_path = name.replace("mpt", "opt")
+    parts = []
+    if os.path.isdir(lm_path):
+        parts.append(("lm", lm_path, hf_import.import_t5 if "t5" in name
+                      else hf_import.import_opt))
+    if hasattr(model, "text_model") and os.path.isdir(args.text_model):
+        parts.append(("text_model", args.text_model,
+                      hf_import.import_clip_text if "clip" in args.text_model
+                      else hf_import.import_roberta))
+    if hasattr(model, "visual_model") and os.path.isdir(args.visual_model):
+        parts.append(("visual_model", args.visual_model,
+                      hf_import.import_clip_vision))
+    for module, path, importer in parts:
+        tree = importer(hf_import.load_state_dict(path))
+        n = _overlay(model, module, tree)
+        print(f"[import] {module}: {n} tensors from {path}")
 
 
 def build_model(args: Arguments, device: torch.device,
@@ -197,8 +249,9 @@ def build_model(args: Arguments, device: torch.device,
                 tokenizer=None) -> Tuple[MMGLModel, FusionConfig]:
     """Seeded random init on the CPU, then moved to ``device`` with
     ``--param_dtype`` parameters; returned in train mode with the trainable
-    set of ``--peft_type``/``--freeze_lm``."""
-    _refuse_checkpoints(args)
+    set of ``--peft_type``/``--freeze_lm``. Local HF checkpoints are
+    overlaid after the seeded init and before the cast and the move
+    (``maybe_import_pretrained``)."""
     cfg = build_fusion_config(args, vocab_size, tokenizer=tokenizer)
     model = MMGLModel(cfg)
     generator = torch.Generator().manual_seed(args.seed or 0)
@@ -207,6 +260,7 @@ def build_model(args: Arguments, device: torch.device,
         with torch.no_grad():
             model.visual_model.embeddings.class_embedding.normal_(
                 0.0, 0.02, generator=generator)
+    maybe_import_pretrained(model, args)
     model = model.to(device=device, dtype=_DTYPES[args.param_dtype])
     apply_trainable_mask(model, args.peft_type, args.freeze_lm)
     return model.train(), cfg

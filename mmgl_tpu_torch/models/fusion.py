@@ -8,8 +8,11 @@ embedding neighbor modes, all four contexts:
   token positions (modelling_self_attention.py:248-261 in the reference),
   into the prompt for OPT and into the encoder input for T5.
 * embedding mode (the paper's method) encodes each neighbor text with the
-  frozen Roberta tower, pools its first token (``TextPooler``: dense +
-  tanh), projects it to ``n_text_tokens`` soft tokens (``text_embeddings``)
+  frozen Roberta tower and pools its first token (``TextPooler``: dense +
+  tanh), or with ``--text_model clip*`` the frozen CLIP text tower, whose
+  pooled output (at the EOT position) is taken as it is, with no pooler
+  (mmgl_tpu/models/fusion.py:118-125, 174-181); projects it from the
+  tower's width to ``n_text_tokens`` soft tokens (``text_embeddings``)
   and, in section_all and all, each neighbor image with the frozen CLIP
   tower into ``n_visual_tokens`` (``visual_embeddings``); the two are
   interleaved by their page locations (``_build_neighbor_block``),
@@ -42,7 +45,6 @@ train step gives such a parameter, named in ``gradless_prefixes``, a zero
 one, as jax.grad does, and raises for any other without a gradient). The
 projections, position tables, ``lpe_embeddings`` and ``gnn`` train. T5's
 labels are the summary alone and are left as they are (fusion.py:308).
-The CLIP text tower is refused (``FusionConfig``, ROADMAP A5).
 
 Batches are the data layer's dicts of numpy arrays or tensors, with the same
 keys and shapes as the JAX package's; ``_as_tensor`` moves every field to
@@ -56,13 +58,14 @@ not run.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from mmgl_tpu_torch.models.clip import (CLIPVisionConfig, CLIPVisionModel,
+from mmgl_tpu_torch.models.clip import (CLIPTextConfig, CLIPTextModel,
+                                        CLIPVisionConfig, CLIPVisionModel,
                                         normalize_pixels)
 from mmgl_tpu_torch.models.graph import GCN
 from mmgl_tpu_torch.models.layers import Embedding, Linear
@@ -84,9 +87,10 @@ class FusionConfig:
     """OPT (decoder-only; with ``mpt`` MPT, whose ``opt`` config then has
     the cross layers where a memory exists) or T5 (encoder-decoder) with
     raw or embedding neighbors: exactly one of ``opt`` and ``t5`` is set;
-    ``text`` is the Roberta tower's config where the embedding mode needs
-    it; ``peft_type`` picks the virtual tokens (prompt, prefix) this model
-    holds (LoRA and the gates are the LM's)."""
+    ``text`` is the text tower's config where the embedding mode needs it,
+    a ``CLIPTextConfig`` where ``text_model_name`` holds "clip", else a
+    ``RobertaConfig``; ``peft_type`` picks the virtual tokens (prompt,
+    prefix) this model holds (LoRA and the gates are the LM's)."""
     context: str = "section_only"         # one of CONTEXTS
     neighbor_mode: str = "raw"            # one of NEIGHBOR_MODES
     n_text_tokens: int = 4
@@ -103,7 +107,7 @@ class FusionConfig:
     opt: Optional[OPTConfig] = None
     vision: Optional[CLIPVisionConfig] = None
     t5: Optional[T5Config] = None
-    text: Optional[RobertaConfig] = None
+    text: Optional[Union[RobertaConfig, CLIPTextConfig]] = None
 
     def __post_init__(self):
         if self.context not in CONTEXTS:
@@ -112,12 +116,12 @@ class FusionConfig:
             raise ValueError(f"unknown neighbor_mode {self.neighbor_mode!r}")
         if self.position_type not in POSITION_TYPES:
             raise ValueError(f"unknown position_type {self.position_type!r}")
-        if self.needs_text_tower and "clip" in self.text_model_name:
-            # the JAX package takes a "clip" text model as the CLIP text
-            # tower (mmgl_tpu/models/fusion.py:122-124)
-            raise NotImplementedError(
-                f"--text_model {self.text_model_name}: the CLIP text tower "
-                "is not ported yet (ROADMAP A5)")
+
+    @property
+    def clip_text(self) -> bool:
+        """The CLIP text tower in place of Roberta: a "clip" text model
+        (mmgl_tpu/models/fusion.py:119)."""
+        return "clip" in self.text_model_name
 
     @property
     def uses_mpt_memory(self) -> bool:
@@ -212,8 +216,11 @@ class MMGLModel(nn.Module):
         if cfg.needs_text_tower:
             text_dim = dim * cfg.n_text_tokens
             hidden = cfg.text.hidden_size
-            self.text_model = RobertaModel(cfg.text)
-            self.text_pooler = TextPooler(hidden, compute_dtype=dt)
+            if cfg.clip_text:
+                self.text_model = CLIPTextModel(cfg.text)
+            else:
+                self.text_model = RobertaModel(cfg.text)
+                self.text_pooler = TextPooler(hidden, compute_dtype=dt)
             self.text_embeddings = Linear(hidden, text_dim, compute_dtype=dt)
             if positions:
                 # sized max_output_length + 1, as the JAX package sizes it
@@ -257,10 +264,12 @@ class MMGLModel(nn.Module):
 
     def pool_text(self, input_ids, attention_mask) -> torch.Tensor:
         """(B*N, S) neighbor texts -> (B*N, tower_hidden): the Roberta
-        tower, then ``text_pooler``, without autograd (the JAX package's
-        stop_gradient comes after the pooler), so the tower's activations
-        are not kept for a backward."""
+        tower, then ``text_pooler``, or the CLIP text tower's pooled output,
+        without autograd (the JAX package's stop_gradient comes after the
+        pooler), so the tower's activations are not kept for a backward."""
         with torch.no_grad():
+            if self.config.clip_text:
+                return self.text_model(input_ids.long(), attention_mask)[1]
             hidden = self.text_model(input_ids.long(), attention_mask)
             return self.text_pooler(hidden)
 

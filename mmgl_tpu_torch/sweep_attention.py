@@ -9,8 +9,9 @@ csrc/sweep/bias_shapes.cu (their bias form, K7 and K8/K9, in T5's three
 forms) with two concurrent nvcc into build/mmgl_tpu_torch/. Then at
 OPT-350M's (4, 2048, 16, 64), at (4, 1024, 16, 64) (both causal, with the
 prompt and summary pad hole), OPT-125M's (4, 640, 12, 64) causal,
-OPT-2.7B's (4, 640, 32, 80) and OPT-6.7B's (4, 640, 32, 128) causal and
-CLIP's (24, 197, 12, 64), and at T5-base's encoder (4, 512, 12, 64) with
+OPT-2.7B's (4, 640, 32, 80) and OPT-6.7B's (4, 640, 32, 128) causal,
+CLIP's (24, 197, 12, 64) and the CLIP text tower's (44, 77, 8, 64)
+causal, and at T5-base's encoder (4, 512, 12, 64) with
 its bias, decoder (4, 128, 12, 64) causal with its bias and training
 cross-attention (q 128, k/v 512, no bias), each with and without dropout
 0.1 (the cross-attention only with), it times each shape, the library's
@@ -51,7 +52,8 @@ SAMPLES = 10
 # (B, Sq = Sk, H, D), causal, backward too
 CASES = [((4, 2048, 16, 64), True, True), ((4, 1024, 16, 64), True, True),
          ((4, 640, 12, 64), True, True), ((4, 640, 32, 80), True, True),
-         ((4, 640, 32, 128), True, True), ((24, 197, 12, 64), False, False)]
+         ((4, 640, 32, 128), True, True), ((24, 197, 12, 64), False, False),
+         ((44, 77, 8, 64), True, False)]
 # T5-base: (name, (B, Sq, Sk, H), causal, bias), each without and with
 # dropout 0.1 (the cross-attention, which has no bias, only with)
 BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),

@@ -3,8 +3,8 @@
 C1: ``--use_pallas false`` sends every attention to the plain route, as the
 JAX factory's ``use_pallas=False`` sends it to ``xla_attention``
 (mmgl_tpu/models/factory.py:65-68, 81, 147).
-C2: a local checkpoint directory raises until its import is ported
-(ROADMAP A4), where the JAX package overlays it.
+C2: a local checkpoint directory raised, where the JAX package overlays
+it; its import is now ported, held by tests/test_torch_hf_import.py.
 C3: float16 compute on a CUDA device was refused before the model was
 built, while the kernels took float32 and bfloat16 only; their tensor-core
 bodies now have a float16 form, and float16 builds.
@@ -14,8 +14,8 @@ now take both, and the models build.
 C4: ``--param_dtype bfloat16`` (the JAX bench's ``param_bf16``) failed in
 every LayerNorm, whose fp32 statistics met bf16 scale and bias; they are
 now taken in fp32.
-What the port leaves out raises NotImplementedError naming its ROADMAP
-item: the CLIP text tower, MPT's cross-attention memory.
+What the port leaves out in training raises NotImplementedError naming
+its ROADMAP item: a mesh (A8).
 The train step gives a zero gradient only to the parameters the model
 declares behind a stop_gradient (the text pooler), and raises for any other
 trainable parameter cut off from the loss.
@@ -96,22 +96,6 @@ def test_use_pallas_false_launches_no_kernel(model, monkeypatch):
     for name, g in grads.items():
         torch.testing.assert_close(g, want[2][name], atol=1e-5 * scale,
                                    rtol=0, msg=name)
-
-
-@pytest.mark.parametrize("flag", ["--model_name_or_path", "--visual_model",
-                                  "--text_model"])
-def test_checkpoint_directory_raises(flag, tmp_path):
-    """C2: a local checkpoint directory, which the JAX package overlays on
-    the initialized weights, raises instead of training random weights;
-    the message names ROADMAP A4."""
-    ckpt = tmp_path / "t5-base"
-    ckpt.mkdir()
-    argv = ["--model_name_or_path", "t5-tiny", "--device", "cpu"]
-    args, _ = cli.parse_cli(argv + [flag, str(ckpt)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        build_model(args, torch.device("cpu"))
-    args, _ = cli.parse_cli(argv)
-    build_model(args, torch.device("cpu"))
 
 
 def _refuse_building(monkeypatch):
@@ -196,25 +180,6 @@ def test_head_dims_80_and_128_build_on_cuda(model, head_dim, monkeypatch):
     for name in ("fused_heads_attention", "flash_attention_bias"):
         with pytest.raises(ValueError, match="ROADMAP B"):
             fa._check(name, q, q, q, None)
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--model_name_or_path", "t5-tiny", "--text_model", "clip-base"],
-     "ROADMAP A5"),
-    (["--model_name_or_path", "mpt-tiny", "--neighbor_mode",
-      "cross_attention", "--peft_type", "flamingo", "--text_model",
-      "clip-base"], "ROADMAP A5"),
-])
-def test_what_the_slice_leaves_out_raises_naming_its_item(extra, item):
-    """The embedding mode with the CLIP text tower, for T5 and for MPT's
-    cross-attention memory (BASELINE family 7; the shared flag parser turns
-    --neighbor_mode cross_attention into the embedding mode's batches,
-    which MPT consumes as memory), raises NotImplementedError naming its
-    ROADMAP item, before anything is built."""
-    args, _ = cli.parse_cli(["--context", "all", "--neighbor_mode",
-                             "embedding", "--device", "cpu", *extra])
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(args, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("mesh", [["--mesh_shape", "2,2"],

@@ -126,6 +126,50 @@ def test_kernel_matches_plain_version(name, dims, causal, dtype):
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+def texts_mask(b, s, seed, hole):
+    """(B, S) int32 key mask of neighbour texts: each right-padded to a
+    random length, sample 0 empty (all zero); with ``hole`` also a pad
+    hole in the middle of each of the others."""
+    rng = np.random.RandomState(seed)
+    mask = np.zeros((b, s), np.int32)
+    for i in range(1, b):
+        n = rng.randint(2, s + 1)
+        mask[i, :n] = 1
+        if hole and n > 8:
+            a = rng.randint(1, n // 2)
+            mask[i, a:a + rng.randint(1, n // 4 + 1)] = 0
+    return mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("hole", [False, True], ids=["padded", "hole"])
+def test_k2_causal_at_the_clip_text_shape(hole, dtype):
+    """K2's causal form at the CLIP text tower's (44, 77, 8, 64): 11
+    neighbour texts x 4 samples, 8 heads, S padded to 128 inside the
+    kernel, right-padded texts and an empty one (a fully masked sample,
+    which the plain version gives the mean of V over the 77 keys), with
+    and without a pad hole; against its plain version at the tolerances
+    above, on the body its dtype takes."""
+    dev = _device()
+    b, s, h = 44, 77, 8
+    rng = np.random.RandomState(77 + hole)
+    q, k, v = (torch.from_numpy(rng.randn(b, s, h, 64).astype(np.float32)
+                                ).to(dev, dtype) for _ in range(3))
+    mask = torch.from_numpy(texts_mask(b, s, 5, hole)).to(dev)
+    kernel = fa.fused_heads_attention
+    before = (kernel.launches, kernel.launches_tc)
+    got = kernel(q, k, v, kv_mask=mask, causal=True)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_tc) == (
+        before[0] + 1, before[1] + (dtype != torch.float32))
+    ref = fa.fused_heads_attention_reference(q, k, v, kv_mask=mask,
+                                             causal=True)
+    atol, rtol = TOL[dtype]
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims,causal,mask_kind", BWD_CASES)
