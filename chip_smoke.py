@@ -484,7 +484,9 @@ BLOCKED_CASES = [((4, 2048, 2048, 16), True, "hole"),
 # cross-attention, 640 queries against the 64-token memory, sample 0
 # without neighbours; OPT-6.7B's training shape; the 512-token prefills of
 # MPT-2.7B (self- and cross-attention) and OPT-6.7B, right-padded prompts;
-# a ragged 333 at each D
+# a ragged 333 at each D; BASELINE family 7's (phase 18) training step, 77 +
+# 128 tokens causal with a pad hole and against the 64-token memory, and its
+# 77-token prefill
 HEAD_DIM_CASES = [("opt-2.7b", (4, 640, 640, 32, 80), True, "hole"),
                   ("mpt-2.7b cross", (4, 640, 64, 32, 80), False,
                    "gap_fully_masked"),
@@ -496,7 +498,15 @@ HEAD_DIM_CASES = [("opt-2.7b", (4, 640, 640, 32, 80), True, "hole"),
                   ("opt-6.7b prefill", (4, 512, 512, 32, 128), True,
                    "prompt"),
                   ("ragged", (3, 333, 333, 2, 80), True, "hole333"),
-                  ("ragged", (3, 333, 333, 2, 128), True, "hole333")]
+                  ("ragged", (3, 333, 333, 2, 128), True, "hole333"),
+                  ("family 7", (4, FAMILY7_TOKENS, FAMILY7_TOKENS, 32, 80),
+                   True, "hole"),
+                  ("family 7 cross", (4, FAMILY7_TOKENS, 64, 32, 80), False,
+                   "gap_fully_masked"),
+                  ("family 7 prefill", (4, FAMILY7_TEXT, FAMILY7_TEXT, 32,
+                                        80), True, "prompt"),
+                  ("family 7 prefill cross", (4, FAMILY7_TEXT, 64, 32, 80),
+                   False, "gap_fully_masked")]
 # K7/K8/K9: (name, (B, Sq, Sk, H), causal, bias): T5-base's encoder, decoder
 # self- and training cross-attention, ragged lengths; each without and with
 # dropout 0.1, T5's scale 1.0
@@ -563,7 +573,7 @@ def make_mask(kind: str, b: int, s: int, seed: int):
     """(B, S) int32 key mask. "hole": a decoder-only batch, prompt padded to
     S - 128 then summary padded to 128, so the valid keys have a hole
     ("hole333": the same at S = 333, prompt 250); "prompt": right-padded
-    prompts; "gap": a pad hole in the middle and right padding, any S;
+    prompts (each keeps at least 100 tokens, or half of a shorter S); "gap": a pad hole in the middle and right padding, any S;
     "fully_masked": sample 0 all zero (with holes in the others for
     "hole_fully_masked" and "gap_fully_masked"); "texts": neighbor texts,
     each right-padded to a random length, sample 0 all zero (an empty
@@ -576,11 +586,11 @@ def make_mask(kind: str, b: int, s: int, seed: int):
     if kind == "hole":
         cut = s - 128
         for i in range(b):
-            mask[i, rng.randint(100, cut):cut] = 0
+            mask[i, rng.randint(min(100, cut // 2), cut):cut] = 0
             mask[i, cut + rng.randint(20, 128):] = 0
     elif kind == "prompt":
         for i in range(b):
-            mask[i, rng.randint(100, s):] = 0
+            mask[i, rng.randint(min(100, s // 2), s):] = 0
     elif kind == "hole333":
         for i in range(b):
             mask[i, rng.randint(50, 250):250] = 0
@@ -2150,16 +2160,17 @@ def _blocked_timing_cases(fa, device, dtype_name):
     return cases
 
 
-def _head_dim_timing_cases(fa, device, d):
+def _head_dim_timing_cases(fa, device, d, s=640, blocked=True):
     """bf16, head dim d (80: OPT- and MPT-2.7B, 128: OPT-6.7B): K1 and K3
-    at the 2.7B/6.7B training shape (4, 640, 32, d) causal with a pad hole,
-    K4 and K5 at MPT's cross-attention (4, 640 x 64, 32, d), K4 with its
-    row stats and K6 at (4, 1024, 32, d) causal past K1's envelope."""
+    at the training length s causal with a pad hole (4, s, 32, d), K4 and
+    K5 at MPT's cross-attention (4, s x 64, 32, d); with ``blocked``, K4
+    with its row stats and K6 at (4, 1024, 32, d) causal past K1's
+    envelope."""
     import torch
 
     dt = torch.bfloat16
     cases = []
-    b, s, h = 4, 640, 32
+    b, h = 4, 32
     q, k, v, mask, dout = flash_inputs((b, s, s, h, h), "hole", dt, device,
                                        600 + d, d)
     kw = dict(kv_mask=mask, causal=True)
@@ -2208,6 +2219,8 @@ def _head_dim_timing_cases(fa, device, d):
             "library": _sdpa_bwd(qt, kt, vt, am, dot)},
          10 * pairs * d, (4 * q.numel() + 4 * k.numel()) * 2
          + mask.numel() * 4)]
+    if not blocked:
+        return cases
     s = 1024
     q, k, v, mask, dout = flash_inputs((b, s, s, h, h), "hole", dt, device,
                                        800 + d, d)
@@ -2244,7 +2257,9 @@ def timing_cases(fa, device):
     and in fp16; in bf16 also K1 at Roberta's shape, K7 with K9 at the
     embedding mode's 576-token encoder, K4 with K5 at MPT's cross-attention
     and at prefix tuning's 704 x 724, and K7 with K8 at T5's prefixed
-    decoder; and in bf16 K1 and K3-K6 at head dims 80 and 128."""
+    decoder; and in bf16 K1 and K3-K6 at head dims 80 and 128, K1 and
+    K3-K5 at 80 first at BASELINE family 7's 205 tokens (phase 18, whose
+    launches the kernels line gives them), then at 640 (family 4)."""
     cases = []
     for dtype_name in TC_DTYPES:
         bf16 = dtype_name == "bfloat16"
@@ -2258,6 +2273,8 @@ def timing_cases(fa, device):
             got += _bias_timing_cases(fa, device, i, dtype_name)
         got += _blocked_timing_cases(fa, device, dtype_name)
         if bf16:
+            got += _head_dim_timing_cases(fa, device, 80, FAMILY7_TOKENS,
+                                          blocked=False)
             for d in (80, 128):
                 got += _head_dim_timing_cases(fa, device, d)
         cases += [c + (dtype_name,) for c in got]
@@ -2914,7 +2931,9 @@ def run_checkpoint_phase(cli, fa, device, files, seeded_loss):
 def run_family7_phase(cli, fa, device, micro, files):
     """Phase 18: BASELINE family 7 at MPT-2.7B with the imported CLIP text
     and vision towers, uncached, the short run with its launch counts by
-    shape, then its fp32 micro-step card vs CPU at MPT_CUT_LAYERS layers.
+    shape, then at MPT_CUT_LAYERS layers its fp32 micro-step card vs CPU
+    and its bf16 micro-step with every launch held against its plain
+    version on the same inputs.
     Returns the run's summary and {kernels-line name: launches}: K2 at the
     text tower's shape, K1 and K3-K5 at head dim 80."""
     step = {"flash_attention_allheads": MPT_LAYERS,
@@ -2964,14 +2983,15 @@ def run_family7_phase(cli, fa, device, micro, files):
     run["k2_by_shape"] = {f"{s}{'c' if c else ''}": n
                           for (s, c), n in tally.fused.items()}
     run["k4_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.flash.items()}
+    cut_step = {**step, "flash_attention_allheads": MPT_CUT_LAYERS,
+                "flash_attention_allheads_bwd": MPT_CUT_GRAD_LAYERS}
     with depth_cut("2.7b", MPT_CUT_LAYERS):
-        run["fp32_step"] = check_train_step(
-            cli, fa, device, FAMILY7_ARGV, tuple(step),
-            f"mpt-2.7b cliptext ({MPT_CUT_LAYERS} layers)",
-            seeded=("gating",),
-            per_step={**step, "flash_attention_allheads": MPT_CUT_LAYERS,
-                      "flash_attention_allheads_bwd": MPT_CUT_GRAD_LAYERS})
-    run["fp32_step"]["layers"] = MPT_CUT_LAYERS
+        for key, half in (("fp32_step", False), ("bf16_step", True)):
+            run[key] = check_train_step(
+                cli, fa, device, FAMILY7_ARGV, tuple(step),
+                f"mpt-2.7b cliptext ({MPT_CUT_LAYERS} layers)", half=half,
+                seeded=("gating",), per_step=cut_step)
+            run[key]["layers"] = MPT_CUT_LAYERS
     gc.collect()
     launches = {dkey(n, 80): tally.dims[(n, 80)] for n in (
         "flash_attention_allheads", "flash_attention_allheads_bwd",

@@ -161,16 +161,6 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
             hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
             intermediate_size=64,
             vocab_size=vocab_size or tower.vocab_size, **tower_kw))
-        if (tower is CLIPTextConfig
-                and args.max_input_length > text_cfg.max_position_embeddings):
-            # the neighbour texts are tokenized to --max_input_length; the
-            # tower would raise at its first call (models/clip.py), where
-            # the JAX package's returns NaN
-            raise ValueError(
-                f"--text_model {args.text_model}: the CLIP text tower's "
-                f"position table holds {text_cfg.max_position_embeddings} "
-                f"entries, and the neighbour texts are tokenized to "
-                f"--max_input_length {args.max_input_length}")
 
     cfg = FusionConfig(
         context=args.context, neighbor_mode=args.neighbor_mode,
@@ -181,8 +171,7 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
         max_image_neighbors=args.max_image_neighbors,
         max_input_length=args.max_input_length,
         max_output_length=args.max_output_length,
-        text_model_name=args.text_model, mpt=mpt,
-        peft_type=args.peft_type, opt=opt_cfg, vision=vision_cfg,
+        mpt=mpt, peft_type=args.peft_type, opt=opt_cfg, vision=vision_cfg,
         t5=t5_cfg, text=text_cfg)
     if cfg.has_memory:
         # the JAX package sets cross_attention for every MPT, and flax
@@ -233,7 +222,7 @@ def maybe_import_pretrained(model: MMGLModel, args: Arguments) -> None:
                       else hf_import.import_opt))
     if hasattr(model, "text_model") and os.path.isdir(args.text_model):
         parts.append(("text_model", args.text_model,
-                      hf_import.import_clip_text if "clip" in args.text_model
+                      hf_import.import_clip_text if model.config.clip_text
                       else hf_import.import_roberta))
     if hasattr(model, "visual_model") and os.path.isdir(args.visual_model):
         parts.append(("visual_model", args.visual_model,

@@ -88,7 +88,7 @@ class FusionConfig:
     the cross layers where a memory exists) or T5 (encoder-decoder) with
     raw or embedding neighbors: exactly one of ``opt`` and ``t5`` is set;
     ``text`` is the text tower's config where the embedding mode needs it,
-    a ``CLIPTextConfig`` where ``text_model_name`` holds "clip", else a
+    a ``CLIPTextConfig`` for a "clip" text model, else a
     ``RobertaConfig``; ``peft_type`` picks the virtual tokens (prompt,
     prefix) this model holds (LoRA and the gates are the LM's)."""
     context: str = "section_only"         # one of CONTEXTS
@@ -100,7 +100,6 @@ class FusionConfig:
     max_image_neighbors: int = 5
     max_input_length: int = 512
     max_output_length: int = 128
-    text_model_name: str = "roberta-base"
     mpt: bool = False                     # OPT with MPT's cross layers
     peft_type: str = "none"
     num_virtual_tokens: int = 20
@@ -119,9 +118,9 @@ class FusionConfig:
 
     @property
     def clip_text(self) -> bool:
-        """The CLIP text tower in place of Roberta: a "clip" text model
-        (mmgl_tpu/models/fusion.py:119)."""
-        return "clip" in self.text_model_name
+        """The CLIP text tower in place of Roberta, as the factory chose it
+        from the text model's name (mmgl_tpu/models/fusion.py:119)."""
+        return isinstance(self.text, CLIPTextConfig)
 
     @property
     def uses_mpt_memory(self) -> bool:

@@ -202,29 +202,23 @@ def import_mpt(sd: Dict[str, np.ndarray],
     return params
 
 
-def _copy_tree(tree: dict) -> dict:
-    return {k: _copy_tree(v) if isinstance(v, dict) else v
-            for k, v in tree.items()}
-
-
-def _overlay(dst: dict, src: dict) -> dict:
-    """Write every leaf of ``src`` into ``dst`` at its path, in place."""
-    for key, val in src.items():
-        if isinstance(val, dict):
-            _overlay(dst.setdefault(key, {}), val)
-        else:
-            dst[key] = val
-    return dst
-
-
 def import_opt_into_mpt(sd: Dict[str, np.ndarray], mpt_params: dict,
                         tie_word_embeddings: bool = True) -> dict:
     """MPT (OPT + cross layers) initialized from pretrained OPT weights
     (mmgl_tpu/utils/hf_import.py:152-178): a copy of ``mpt_params`` with
     the embeddings, projections, final LN, every self-attention layer (and
     the head) overwritten; the cross layers keep their values."""
-    opt = import_opt(sd, tie_word_embeddings=tie_word_embeddings)
-    return _overlay(_copy_tree(mpt_params), opt)
+
+    def merge(dst: dict, src: dict) -> dict:
+        out = {k: merge(v, {}) if isinstance(v, dict) else v
+               for k, v in dst.items()}
+        for key, val in src.items():
+            out[key] = (merge(out.get(key, {}), val) if isinstance(val, dict)
+                        else val)
+        return out
+
+    return merge(mpt_params, import_opt(sd,
+                                        tie_word_embeddings=tie_word_embeddings))
 
 
 # ---------------------------------------------------------------------------

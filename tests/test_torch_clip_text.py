@@ -27,10 +27,10 @@ from mmgl_tpu.train.steps import make_eval_step as jax_eval_step
 from mmgl_tpu.utils.tokenizer import ByteTokenizer
 from mmgl_tpu_torch import cli
 from mmgl_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
-from mmgl_tpu_torch.models.factory import build_fusion_config
+from mmgl_tpu_torch.models.factory import build_fusion_config, build_model
 from mmgl_tpu_torch.ops import attention as att
 from mmgl_tpu_torch.train.generate import greedy_generate
-from mmgl_tpu_torch.train.steps import make_eval_step
+from mmgl_tpu_torch.train.steps import losses_of, make_eval_step
 from mmgl_tpu_torch.utils import convert
 from test_torch_embedding import PAD, TINY, _batches
 from test_torch_peft import (check_forward_and_grads, check_trainable_set,
@@ -137,18 +137,29 @@ def test_the_factory_builds_the_clip_text_tower():
 
 def test_the_factory_refuses_texts_past_the_table():
     """The neighbour texts are tokenized to --max_input_length: past 77
-    (the default 512 among them) the factory raises ValueError naming the
-    table before anything is built, as the tower itself would at its first
-    call; at 77 it builds."""
-    argv = ["--model_name_or_path", "opt-tiny", "--context", "all",
-            "--neighbor_mode", "embedding", *CLIP, "--device", "cpu"]
-    for length in ("78", "512"):
-        args, _ = cli.parse_cli(argv + ["--max_input_length", length])
-        with pytest.raises(ValueError, match="holds 77 entries"):
-            build_fusion_config(args, vocab_size=VOCAB)
-    args, _ = cli.parse_cli(argv + ["--max_input_length", "77"])
-    cfg = build_fusion_config(args, vocab_size=VOCAB).text
-    assert cfg.max_position_embeddings == 77
+    the model with the CLIP text tower raises ValueError naming the table
+    at the tower's first call, before any launch. A configuration that
+    builds no text tower (MPT without neighbours) is not refused: it runs
+    at the default 512, as the JAX package does."""
+    argv = ["--context", "all", *CLIP, *TINY, "--max_input_length", "78"]
+    args, _ = cli.parse_cli(["--model_name_or_path", "opt-tiny", *argv])
+    args.decoder_only = True
+    model, cfg = build_model(args, torch.device("cpu"), vocab_size=VOCAB,
+                             tokenizer=ByteTokenizer())
+    assert cfg.clip_text and cfg.text.max_position_embeddings == 77
+    with pytest.raises(ValueError, match="holds 77 entries"):
+        model.eval()(_batches(args, 1)[0])
+    args, _ = cli.parse_cli(["--model_name_or_path", "mpt-tiny", *argv,
+                             "--context", "section_only",
+                             "--max_input_length", "512"])
+    args.decoder_only = True
+    model, cfg = build_model(args, torch.device("cpu"), vocab_size=VOCAB,
+                             tokenizer=ByteTokenizer())
+    assert not cfg.needs_text_tower and not hasattr(model, "text_model")
+    with torch.no_grad():
+        loss, _ = losses_of(model.eval()(_batches(args, 1)[0]), True, 512,
+                            PAD)
+    assert torch.isfinite(loss)
 
 
 @pytest.mark.parametrize("name", list(CASES))

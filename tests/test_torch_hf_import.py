@@ -257,6 +257,23 @@ def test_import_opt_into_mpt_matches_jax(tmp_path):
                               mpt["decoder"]["layers_0"]["fc1"]["kernel"])
 
 
+
+def test_torch_state_dict_to_numpy_copies_like_jax():
+    """An in-memory torch state dict (fp32 and bf16 tensors) to fp32 numpy:
+    the port's arrays equal the JAX package's, and they are copies, so an
+    in-place update of the live tensor afterwards leaves them as read."""
+    g = torch.Generator().manual_seed(0)
+    sd = {"a": torch.randn(3, 4, generator=g),
+          "b": torch.randn(5, generator=g).to(torch.bfloat16)}
+    got = hf.torch_state_dict_to_numpy(sd)
+    want = jhf.torch_state_dict_to_numpy(sd)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype == np.float32, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    sd["a"].add_(1.0)
+    np.testing.assert_array_equal(got["a"], want["a"])
+
 def _port_module(module, tree):
     """A standalone port module with the tree's weights."""
     sd = convert.state_dict_from_jax({"lm": tree})
