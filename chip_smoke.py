@@ -183,7 +183,35 @@ imports no JAX. Phases, each fatal on failure:
      eval steps and prefills their own counts; the tanh gates move in
      update 1 while the cross layers behind them get exactly-zero
      gradients, and no frozen tensor moves. Then its fp32 micro-step card
-     against CPU at 8 of its 32 layers (full width), the gates seeded.
+     against CPU at 8 of its 32 layers (full width), the gates seeded;
+ 19. BASELINE family 3 as the JAX package's bench runs it: phase 12's run
+     under --remat true (the same seed and batch). Every micro-step
+     launches K1 twice a layer of the LM (the forward and the recompute,
+     which replays the layer's dropout draws) beside Roberta's 12, and K3
+     once a layer; update 1's loss and gradient norm equal phase 12's at
+     phase 3's bf16 tolerance, and its peak is printed beside phase 12's.
+     Then its bf16 micro-step with every launch, the recomputed ones too,
+     held against its plain version;
+ 20. OPT-6.7B + LoRA as the JAX package's scripts/probe_67b.py trains it
+     (section_only, raw, r 16, alpha 32, --freeze_lm true, bf16
+     parameters, --remat true --chunked_ce 8, 512 + 128 tokens), at 8 of
+     its 32 layers (full width, head dim 128): the short run, K1 twice and
+     K3 once a layer in every micro-step at head dim 128 on the
+     tensor-core bodies (K3's first launches at 128 on a path); its bf16
+     micro-step held launch by launch against the plain versions, and the
+     same sample's loss through the materialised logits against the
+     chunked one at phase 3's bf16 tolerance; the peak printed;
+ 21. the main path (OPT-125M + CLIP) with this slice's other flags: the
+     test pass with --layerdrop 0.1 gives phase 4's test loss bit for
+     bit; one update with --layerdrop 0.5 launches K1 and K3 12 times a
+     micro-step (compute, then select), prints the fraction of layers
+     kept, and the layers bypassed in every micro-step get exactly-zero
+     gradients; one update with --fused_ce false, --profile_dir and
+     --log_to_wandb true: its loss and gradient norm equal phase 5's first
+     update at phase 3's bf16 tolerance, its Chrome trace holds device
+     events of the port's tensor-core bodies (its size and kernel events
+     printed), and, wandb made unimportable (no network call), it prints
+     "[wandb] disabled: ...".
 
 Phases 12-16 check the launches of every update, eval step and generated
 batch against the counts the layer layout gives, the tensor-core body of
@@ -364,6 +392,30 @@ FAMILY7_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="mpt-2.7b",
                           peft_type="flamingo", text_model=CKPT_CLIP,
                           visual_model=CKPT_CLIP,
                           max_input_length=FAMILY7_TEXT, **SHORT)
+# BASELINE family 3 as the JAX package's bench runs it
+# (scripts/bench_baseline_configs.py:36): phase 12's run under --remat
+LORA_REMAT_ARGV = with_flags(LORA_ARGV, remat="true")
+# OPT-6.7B + LoRA as the JAX package's scripts/probe_67b.py trains it:
+# section_only, raw, LoRA r 16 alpha 32 on a frozen LM, bf16 parameters,
+# remat and the chunked CE over 8 vocab chunks, 512 + 128 tokens; at
+# OPT67_LAYERS of its 32 layers (full width, head dim 128) for the time limit
+OPT67_TRAIN_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="opt-6.7b",
+                              context="section_only", peft_type="lora",
+                              lora_r=16, lora_alpha=32, freeze_lm="true",
+                              param_dtype="bfloat16", remat="true",
+                              chunked_ce=8, **SHORT)
+# the main path with the flags of phase 21: layerdrop in the test pass and
+# in training; the plain CE, the profiler and wandb in one short run
+OPT_LAYERDROP_TEST_ARGV = with_flags(OPT_TEST_ARGV, layerdrop=0.1)
+OPT_LAYERDROP_ARGV = with_flags(OPT_TRAIN_ARGV, layerdrop=0.5, **SHORT)
+OPT_PLAIN_CE_ARGV = with_flags(OPT_TRAIN_ARGV, fused_ce="false",
+                               log_to_wandb="true", **SHORT)
+# the device events of the port's kernels in a profiler trace: the
+# tensor-core bodies that mmgl_allheads_fwd_tc, mmgl_fused_heads_fwd_tc
+# (attention_fwd_tc_kernel) and mmgl_allheads_bwd_tc (the dK/dV and dQ
+# tiles) launch
+TRACE_KERNELS = ("attention_fwd_tc_kernel", "attention_bwd_dkdv_tc_kernel",
+                 "attention_bwd_dq_tc_kernel")
 VIRTUAL = 20                # num_virtual_tokens
 # the neighbour memory's projections and position tables
 MEMORY = ("text_embeddings.", "visual_embeddings.",
@@ -1189,22 +1241,48 @@ class PlainCheck:
     against its plain version on the same inputs, at phase 3's tolerances
     for its dtype: the values a model's step gives the kernels, where phase
     3 gives random ones. Counted where the launchers run; the worst error
-    of each kernel kept under ``worst``, the calls under ``calls``."""
+    of each kernel kept under ``worst``, the calls under ``calls``.
+
+    Phase 3's forward tolerances are absolute and relative to the output,
+    for inputs of unit scale. A half-precision forward's rounding error
+    grows with the values' scale instead: each probability is rounded to
+    the element type before P V, so an output is off by up to a few
+    roundings of max |v|, whatever its own size (LoRA's seeded adapter at
+    alpha / r = 2, phase 20, gives q and v a scale near 6). So a forward
+    launch outside them is held, in its place, to the truth: the plain
+    version in fp32 on the same inputs, from which the kernel may be at
+    most twice as far as the plain version in the element type is; each
+    such launch is kept under ``truth``."""
 
     LAUNCHERS = ("_launch", "_launch_bwd", "_launch_bias", "_launch_bias_bwd")
 
     def __init__(self, fa, tag):
         self.fa, self.tag = fa, tag
         self.worst, self.calls = collections.defaultdict(float), 0
+        self.truth = []
 
-    def _forward(self, name, got, ref, label):
+    def _forward(self, name, got, ref, label, exact):
+        """``exact()``: the plain version in fp32 on the same inputs."""
+        import torch
+
         atol, rtol = TOLERANCES[str(got.dtype).removeprefix("torch.")]
         err = float((got.float() - ref.float()).abs().max())
         self.worst[name] = max(self.worst[name], err)
         self.calls += 1
-        if not _within(got, ref, atol, rtol):
+        if _within(got, ref, atol, rtol):
+            return
+        truth = exact()
+        kernel = float((got.float() - truth).abs().max())
+        plain = float((ref.float() - truth).abs().max())
+        self.truth.append({"name": name, "shape": str(label),
+                           "vs_plain": err, "kernel_vs_fp32": kernel,
+                           "plain_vs_fp32": plain})
+        if not (got.dtype == ref.dtype and got.shape == ref.shape
+                and bool(torch.isfinite(got).all()) and kernel <= 2 * plain):
             fail(f"{self.tag}: {name} {label} is {err:.3e} from its plain "
-                 f"version on the same inputs (atol {atol:g}, rtol {rtol:g})")
+                 f"version on the same inputs (atol {atol:g}, rtol {rtol:g}) "
+                 f"and {kernel:.3e} from the fp32 plain version, against "
+                 f"the plain version's own {plain:.3e}")
 
     def _backward(self, name, got, ref, label):
         dtype_name = str(got[0].dtype).removeprefix("torch.")
@@ -1222,9 +1300,10 @@ class PlainCheck:
                    stats=()):
             out = saved["_launch"](entry, name, q, k, v, kv_mask, causal,
                                    scale, *shape, stats=stats)
-            ref = getattr(fa, KERNELS[name][0])(q, k, v, kv_mask=kv_mask,
-                                                causal=causal, scale=scale)
-            self._forward(name, out, ref, tuple(q.shape))
+            plain_fn = partial(getattr(fa, KERNELS[name][0]),
+                               kv_mask=kv_mask, causal=causal, scale=scale)
+            self._forward(name, out, plain_fn(q, k, v), tuple(q.shape),
+                          lambda: plain_fn(q.float(), k.float(), v.float()))
             return out
 
         def launch_bwd(entry, name, q, k, v, kv_mask, out, dout, causal,
@@ -1242,11 +1321,15 @@ class PlainCheck:
                 fail(f"{self.tag}: K7 with dropout in a checked step")
             out = saved["_launch_bias"](q, k, v, kv_mask, bias, seed, causal,
                                         scale, thr, keep_inv, *stats)
-            ref = fa.bias_attention_reference(
-                q, k, v, bias=None if bias is None else bias[None],
-                kv_mask=kv_mask, causal=causal, scale=scale)
-            self._forward("flash_attention_bias", out, ref,
-                          (tuple(q.shape), tuple(k.shape)))
+            plain_fn = partial(fa.bias_attention_reference, kv_mask=kv_mask,
+                               causal=causal, scale=scale)
+            bias3 = None if bias is None else bias[None]
+            self._forward(
+                "flash_attention_bias", out, plain_fn(q, k, v, bias=bias3),
+                (tuple(q.shape), tuple(k.shape)),
+                lambda: plain_fn(q.float(), k.float(), v.float(),
+                                 bias=None if bias3 is None
+                                 else bias3.float()))
             return out
 
         def launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal,
@@ -1762,10 +1845,16 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
     features computed by each device's model, and the step's counts taken
     after that.
 
+    The loss is the train step's (``make_loss_fn`` with the flags'
+    ``--fused_ce`` and ``--chunked_ce``). Under ``--chunked_ce`` the card's
+    model also gives, after the counts are read, the same sample's loss
+    through the materialised logits, held to the chunked one at phase 3's
+    tolerance for the compute dtype.
+
     Returns the card step's launches and the errors."""
     import torch
     from mmgl_tpu_torch.models.factory import build_model
-    from mmgl_tpu_torch.train.steps import losses_of
+    from mmgl_tpu_torch.train.steps import make_loss_fn
 
     args, _ = cli.parse_cli(argv if half else argv + ["--bf16", "false"])
     args.decoder_only = "t5" not in args.model_name_or_path
@@ -1779,7 +1868,8 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
     if on_cpu and not half:
         runs.append(("cpu", torch.device("cpu"), True))
     ref = runs[-1][0]
-    out, launches = {}, {}
+    out, launches, materialised = {}, {}, None
+    chunked = args.chunked_ce if args.decoder_only else 0
     plain = fa._plain
     check = PlainCheck(fa, f"{tag} step")
     try:
@@ -1792,24 +1882,30 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
             if cached:
                 batch = cached_batch(cli, model, train_ds, 1)
             reset_launches(fa)
+            loss_fn = make_loss_fn(model.eval(), args.decoder_only,
+                                   args.max_input_length,
+                                   tokenizer.pad_token_id,
+                                   fused_ce=args.fused_ce, chunked_ce=chunked)
             with check if half else contextlib.nullcontext():
-                fused = model.eval()(batch)
-                loss, _ = losses_of(fused, args.decoder_only,
-                                    args.max_input_length,
-                                    tokenizer.pad_token_id)
+                loss, _ = loss_fn(batch)
                 loss.backward()
             if which == "card":
                 torch.cuda.synchronize(dev)
                 launches = {n: getattr(fa, n).launches for n in KERNELS}
                 check_bodies(fa, f"{tag} step {'half' if half else 'fp32'}",
                              bf16=half)
+                if chunked:
+                    with torch.no_grad():
+                        materialised = float(make_loss_fn(
+                            model, True, args.max_input_length,
+                            tokenizer.pad_token_id)(batch)[0])
             grads = {n: p.grad.detach().float().cpu()
                      for n, p in model.named_parameters()
                      if p.requires_grad and p.grad is not None}
             norm = math.sqrt(sum(float(g.double().pow(2).sum())
                                  for g in grads.values()))
             out[which] = (float(loss.detach()), norm, grads)
-            del model, fused, loss
+            del model, loss
     finally:
         fa._plain = plain
     for name in kernels:
@@ -1825,16 +1921,34 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
               f"sample: loss {loss_c:.7f}, grad_norm {norm_c:.6f}; "
               f"{check.calls} launches each within phase 3's tolerance of "
               f"its plain version on the same inputs, worst "
-              f"{dict(check.worst)}; card launches {launches}")
+              f"{dict(check.worst)}; card launches {launches}"
+              + (f"; {len(check.truth)} forward launches outside it held "
+                 f"to the fp32 plain version instead, worst (kernel, plain "
+                 f"version) from it "
+                 f"{max((t['kernel_vs_fp32'], t['plain_vs_fp32']) for t in check.truth)}"
+                 if check.truth else ""))
         if not (math.isfinite(loss_c) and math.isfinite(norm_c)):
             fail(f"the {tag} half-precision micro-step is not finite")
         if check.calls != sum(launches.values()):
             fail(f"{tag}: {check.calls} launches checked of "
                  f"{sum(launches.values())}")
-        return {"loss": loss_c, "grad_norm": norm_c,
-                "checked_launches": check.calls,
-                "max_abs_err_vs_plain": dict(check.worst),
-                "launches": launches}
+        summary = {"loss": loss_c, "grad_norm": norm_c,
+                   "checked_launches": check.calls,
+                   "max_abs_err_vs_plain": dict(check.worst),
+                   "held_to_fp32": check.truth, "launches": launches}
+        if chunked:
+            atol, rtol = TOLERANCES[args.compute_dtype]
+            print(f"[{tag} step] the same sample's loss, --chunked_ce "
+                  f"{chunked} {loss_c:.7f} against the materialised logits' "
+                  f"{materialised:.7f}: difference "
+                  f"{abs(loss_c - materialised):.3e} (atol {atol:g}, rtol "
+                  f"{rtol:g})")
+            if not abs(loss_c - materialised) <= atol + rtol * abs(
+                    materialised):
+                fail(f"{tag}: the chunked CE's loss is not the materialised "
+                     "logits' loss")
+            summary["materialised_loss"] = materialised
+        return summary
     loss_h, norm_h, g_h = out[ref]
     scale = max(float(g.abs().max()) for g in g_h.values())
     errs = {}
@@ -3001,6 +3115,260 @@ def run_family7_phase(cli, fa, device, micro, files):
     return run, launches
 
 
+def _same(a: float, b: float, dtype_name: str = "bfloat16") -> bool:
+    """a within phase 3's tolerance for ``dtype_name`` of b."""
+    atol, rtol = TOLERANCES[dtype_name]
+    return abs(a - b) <= atol + rtol * abs(b)
+
+
+def run_remat_phase(cli, fa, device, micro, lora):
+    """Phase 19: BASELINE family 3 (phase 12's OPT-1.3B + Roberta + LoRA,
+    --freeze_lm true, 684 tokens) under --remat true, as the JAX package's
+    bench runs it: the short run through the CLI, with the same seed and
+    batch as phase 12 (``lora``, its summary). Every micro-step launches K1
+    twice a layer of the LM (the forward and the recompute) beside
+    Roberta's 12, and K3 once a layer; its update's loss and gradient norm
+    equal phase 12's at phase 3's bf16 tolerance; its peak is printed beside
+    phase 12's. Then its bf16 micro-step, every launch (the recomputed ones
+    too) held against its plain version, LoRA's B seeded."""
+    per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
+           "fused_heads_attention": 0, "flash_attention": 0}
+    with tempfile.TemporaryDirectory() as log_dir:
+        run = run_training(
+            cli, fa, device, log_dir, LORA_REMAT_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+            {"flash_attention_allheads":
+                 (ROBERTA_LAYERS + 2 * OPT13_LAYERS) * micro,
+             "flash_attention_allheads_bwd": OPT13_LAYERS * micro,
+             "fused_heads_attention": 0, "flash_attention": 0,
+             "flash_attention_bwd": 0},
+            tag="opt-1.3b lora remat", per_eval=per, per_generate=per,
+            updates=1, idle=("text_embeddings.",),
+            zero_first=(lambda n: "lora_a" in n,
+                        "LoRA's A multiplies B, which starts at 0"))
+    diff = {k: abs(run[k][0] - lora[k][0]) for k in ("losses", "grad_norms")}
+    print(f"[opt-1.3b lora remat] update 1 against phase 12's: loss "
+          f"{run['losses'][0]:.7f} vs {lora['losses'][0]:.7f}, grad_norm "
+          f"{run['grad_norms'][0]:.7f} vs {lora['grad_norms'][0]:.7f}, "
+          f"differences {diff}; peak {run['peak_bytes'] / 2**30:.3f} GiB "
+          f"against phase 12's {lora['peak_bytes'] / 2**30:.3f} GiB")
+    if not all(_same(run[k][0], lora[k][0]) for k in diff):
+        fail("family 3 under --remat does not reproduce phase 12's update")
+    run["phase12"] = {"loss": lora["losses"][0],
+                      "grad_norm": lora["grad_norms"][0],
+                      "peak_bytes": lora["peak_bytes"], "difference": diff}
+    run["bf16_step"] = check_train_step(
+        cli, fa, device, LORA_REMAT_ARGV,
+        ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+        "opt-1.3b lora remat", half=True, seeded=("lora_b",),
+        per_step={"flash_attention_allheads":
+                      ROBERTA_LAYERS + 2 * OPT13_LAYERS,
+                  "flash_attention_allheads_bwd": OPT13_LAYERS})
+    gc.collect()
+    return run
+
+
+def run_opt67_train_phase(cli, fa, device, micro):
+    """Phase 20: OPT-6.7B + LoRA trained as scripts/probe_67b.py sets it
+    (--remat true --chunked_ce 8, bf16 parameters, section_only), at
+    OPT67_LAYERS of its 32 layers, full width: the short run through the
+    CLI, every micro-step launching K1 twice a layer and K3 once at head
+    dim 128 on the tensor-core bodies (counted by head dim); every eval
+    step and generated batch K1 once a layer. Then its bf16 micro-step,
+    every launch held against its plain version, and the same sample's
+    loss through the materialised logits against the chunked one. Returns
+    its summary and {kernels-line name: launches} at head dim 128."""
+    k1, k3 = "flash_attention_allheads", "flash_attention_allheads_bwd"
+    per = {k1: OPT67_LAYERS, "fused_heads_attention": 0,
+           "flash_attention": 0}
+    with depth_cut("6.7b", OPT67_LAYERS):
+        with ShapeTally(fa) as tally, \
+                tempfile.TemporaryDirectory() as log_dir:
+            run = run_training(
+                cli, fa, device, log_dir, OPT67_TRAIN_ARGV, (k1, k3),
+                {k1: 2 * OPT67_LAYERS * micro, k3: OPT67_LAYERS * micro,
+                 "fused_heads_attention": 0, "flash_attention": 0,
+                 "flash_attention_bwd": 0},
+                tag="opt-6.7b lora", per_eval=per, per_generate=per,
+                updates=1,
+                zero_first=(lambda n: "lora_a" in n,
+                            "LoRA's A multiplies B, which starts at 0"))
+        passes = run["eval_steps"] + run["generated_batches"]
+        dims = {f"{n}[d{d}]": c for (n, d), c in tally.dims.items()}
+        print(f"[opt-6.7b lora] K1-K5 launches by head dim: {dims}")
+        if (tally.dims[(k1, 128)] != OPT67_LAYERS * (2 * micro + passes)
+                or tally.dims[(k3, 128)] != OPT67_LAYERS * micro
+                or set(d for _, d in tally.dims) != {128}):
+            fail(f"OPT-6.7B's launches by head dim {dims}")
+        run["launches_by_head_dim"] = dims
+        run["layers"] = OPT67_LAYERS
+        run["bf16_step"] = check_train_step(
+            cli, fa, device, OPT67_TRAIN_ARGV, (k1, k3),
+            f"opt-6.7b lora ({OPT67_LAYERS} layers)", half=True,
+            seeded=("lora_b",),
+            per_step={k1: 2 * OPT67_LAYERS, k3: OPT67_LAYERS})
+    print(f"[opt-6.7b lora] peak device memory {run['peak_bytes']} bytes "
+          f"({run['peak_bytes'] / 2**30:.3f} GiB) at {OPT67_LAYERS} layers")
+    gc.collect()
+    return run, {dkey(k3, 128): tally.dims[(k3, 128)]}
+
+
+class Tee:
+    """A text stream that writes to ``out`` and keeps what it wrote."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, text):
+        self.text.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def layer_keeps(model, kept):
+    """Hooks on the LM's decoder layers and final norm that append to
+    ``kept``, in each training forward with a gradient, whether each layer
+    was kept by layerdrop: a kept layer's output is the next layer's input,
+    a bypassed one's input is. Returns the hooks."""
+    import torch
+
+    decoder = model.lm.decoder
+    last = {}
+
+    def active(module):
+        return module.training and torch.is_grad_enabled()
+
+    def after(module, args, output):
+        if active(module):
+            last["io"] = (args[0], output)
+
+    def before(module, args):
+        if active(module) and "io" in last:
+            x, y = last.pop("io")
+            kept.append(bool(torch.equal(args[0], y)))
+            if kept[-1] == bool(torch.equal(args[0], x)):
+                fail("a layer's output and input are the same tensor")
+
+    hooks = [m.register_forward_hook(after) for m in decoder.layers]
+    hooks += [m.register_forward_pre_hook(before)
+              for m in (*decoder.layers[1:], decoder.final_layer_norm)]
+    return hooks
+
+
+def run_flags_phase(cli, fa, device, micro, test_loss, train):
+    """Phase 21: the main path (config 1, OPT-125M + CLIP) with the other
+    flags of this slice. The --test pass with --layerdrop 0.1 gives phase
+    4's test loss (``test_loss``) bit for bit. One update with --layerdrop
+    0.5 launches K1 and K3 12 times a micro-step (the layers run, then the
+    select), prints the fraction of layers kept, and the layers never kept
+    in it get exactly-zero gradients. One update with --fused_ce false,
+    --profile_dir and --log_to_wandb true: its loss and gradient norm equal
+    phase 5's first update (``train``) at phase 3's bf16 tolerance, its
+    trace holds device events of the port's kernels, and, wandb made
+    unimportable, it prints ``[wandb] disabled: ...``."""
+    import torch
+
+    out = {}
+    _, results, launches, _, _ = run_test_pass(
+        cli, fa, device, OPT_LAYERDROP_TEST_ARGV, OPT_TEST_KERNELS,
+        {"flash_attention_allheads": OPT_LAYERS,
+         "fused_heads_attention": CLIP_LAYERS},
+        {"flash_attention_allheads": OPT_LAYERS,
+         "fused_heads_attention": CLIP_LAYERS}, tag="opt layerdrop")
+    print(f"[opt layerdrop test] loss {results['loss']!r} against phase 4's "
+          f"{test_loss!r}")
+    if results["loss"] != test_loss:
+        fail("the test pass with --layerdrop 0.1 is not phase 4's")
+    out["layerdrop_test"] = {"test_loss": results["loss"],
+                             "phase4_test_loss": test_loss,
+                             "launches": launches}
+
+    kept, hooks = [], []
+    n = OPT_LAYERS
+
+    def never_kept(name):
+        return any(name.startswith(f"lm.decoder.layers.{i}.")
+                   and not any(kept[m * n + i] for m in range(micro))
+                   for i in range(n))
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        run = run_training(
+            cli, fa, device, log_dir, OPT_LAYERDROP_ARGV, OPT_TRAIN_KERNELS,
+            {"flash_attention_allheads": n * micro,
+             "flash_attention_allheads_bwd": n * micro,
+             "fused_heads_attention": CLIP_LAYERS * micro},
+            tag="opt layerdrop", updates=1,
+            zero_first=(never_kept, "layerdrop bypassed the layer in every "
+                                    "micro-step"),
+            on_build=lambda model: hooks.extend(layer_keeps(model, kept)))
+    for h in hooks:
+        h.remove()
+    if len(kept) != n * micro:
+        fail(f"{len(kept)} layerdrop decisions read, expected {n * micro}")
+    run["kept_fraction"] = sum(kept) / len(kept)
+    run["kept"] = [kept[m * n:(m + 1) * n] for m in range(micro)]
+    print(f"[opt layerdrop] --layerdrop 0.5: {sum(kept)} of {len(kept)} "
+          f"layers kept ({run['kept_fraction']:.4f}); by micro-step "
+          f"{[''.join('1' if k else '0' for k in row) for row in run['kept']]}")
+    out["layerdrop_training"] = run
+
+    # wandb made unimportable for this run: wandb.init with an API key in
+    # the environment would reach for its server, and the check makes no
+    # network call; the CLI must then say it is disabled
+    from unittest import mock
+
+    tee = Tee(sys.stdout)
+    with tempfile.TemporaryDirectory() as log_dir, \
+            tempfile.TemporaryDirectory() as prof_dir, \
+            mock.patch.dict(sys.modules, {"wandb": None}), \
+            contextlib.redirect_stdout(tee):
+        run = run_training(
+            cli, fa, device, log_dir,
+            with_flags(OPT_PLAIN_CE_ARGV, profile_dir=prof_dir),
+            OPT_TRAIN_KERNELS,
+            {"flash_attention_allheads": OPT_LAYERS * micro,
+             "flash_attention_allheads_bwd": OPT_LAYERS * micro,
+             "fused_heads_attention": CLIP_LAYERS * micro},
+            tag="opt plain ce", updates=1)
+        traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
+        if len(traces) != 1:
+            fail(f"--profile_dir wrote {traces}, expected one trace")
+        size = os.path.getsize(traces[0])
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = collections.Counter(
+        next(k for k in TRACE_KERNELS if k in e["name"])
+        for e in kernels if any(k in e["name"] for k in TRACE_KERNELS))
+    print(f"[opt plain ce] trace {os.path.basename(traces[0])}: {size} "
+          f"bytes, {len(events)} events, {len(kernels)} kernel events, of "
+          f"them the port's {dict(ours)}")
+    if any(ours[k] == 0 for k in TRACE_KERNELS):
+        fail(f"the trace names no device event of {TRACE_KERNELS}: {ours}")
+    wandb = [line for line in "".join(tee.text).splitlines()
+             if line.startswith("[wandb] disabled: ")]
+    if not wandb:
+        fail("--log_to_wandb true printed no '[wandb] disabled: ' line")
+    diff = {k: abs(run[k][0] - train[k][0]) for k in ("losses", "grad_norms")}
+    print(f"[opt plain ce] {wandb[0]}; update 1 against phase 5's fused CE: "
+          f"loss {run['losses'][0]:.7f} vs {train['losses'][0]:.7f}, "
+          f"grad_norm {run['grad_norms'][0]:.7f} vs "
+          f"{train['grad_norms'][0]:.7f}, differences {diff}")
+    if not all(_same(run[k][0], train[k][0]) for k in diff):
+        fail("the plain CE's update is not the fused CE's")
+    run.update({"phase5_update1": {"loss": train["losses"][0],
+                                   "grad_norm": train["grad_norms"][0]},
+                "difference": diff, "wandb": wandb[0],
+                "trace": {"bytes": size, "events": len(events),
+                          "kernel_events": len(kernels),
+                          "port_kernel_events": dict(ours)}})
+    out["plain_ce_profile_wandb"] = run
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3274,6 +3642,14 @@ def main() -> int:
                                                       micro, files)
         del files
     lap("18")
+    remat = run_remat_phase(cli, fa, device, micro,
+                            peft["runs"]["opt13b_lora_training"])
+    lap("19")
+    opt67_train, launches_d128_train = run_opt67_train_phase(cli, fa, device,
+                                                             micro)
+    lap("20")
+    flags = run_flags_phase(cli, fa, device, micro, results["loss"], train)
+    lap("21")
 
     print(json.dumps({"opt_test": {
         "sections_per_s": rate, "peak_bytes": peak,
@@ -3313,6 +3689,11 @@ def main() -> int:
                                               "card": card}}))
     print(json.dumps({"mpt27b_cliptext_training": {**family7,
                                                    "card": card}}))
+    print(json.dumps({"opt13b_lora_remat_training": {**remat, "card": card}}))
+    print(json.dumps({"opt67b_lora_training": {**opt67_train,
+                                               "card": card}}))
+    for key, run in flags.items():
+        print(json.dumps({f"opt_{key}": {**run, "card": card}}))
 
     # each kernel's launches from the path that runs it: K1-K3 the OPT
     # training run, K4 the T5 test pass, K7/K8/K9 the T5 training run, K5
@@ -3357,6 +3738,8 @@ def main() -> int:
     # 16, OPT-6.7B), and K2 causal at the CLIP text tower's shape (phase 18)
     launches.update(launches_d128)
     launches.update(launches_family7)
+    # K3 at head dim 128: OPT-6.7B + LoRA's training (phase 20)
+    launches.update(launches_d128_train)
     entries = []
     timed_label = {}
     for label, (name, _, _, _) in rows.items():

@@ -37,6 +37,15 @@ true`` runs the frozen towers once over each split before the loop
 (data/neighbor_cache.py; with ``--neighbor_cache_dir`` kept on disk for the
 next start), in the embedding mode and for the raw mode's images.
 
+Training takes ``--remat``, ``--layerdrop``, ``--fused_ce false`` and
+``--chunked_ce n`` (models/opt.py, train/losses.py) and refuses only what
+needs more than one device (a mesh, ``--zero1``, ``--fsdp``,
+``--distributed``: ROADMAP A8). ``--log_to_wandb true`` logs to wandb, or
+prints ``[wandb] disabled: <error>`` where it cannot start
+(mmgl_tpu/cli.py:194-207); ``--profile_dir`` writes a ``torch.profiler``
+Chrome trace of the first epoch's first updates (mmgl_tpu/cli.py:384-385,
+478-480). Both print the parameter table before the totals.
+
 ``--device cuda`` on a host without a visible GPU fails: there is no CPU
 fallback. Pass ``--device cpu`` to run the plain versions of the kernels.
 """
@@ -56,7 +65,8 @@ import torch
 
 from mmgl_tpu_torch.config import Arguments, parse_args
 from mmgl_tpu_torch.metrics import Cider, bleu_score, rouge_score
-from mmgl_tpu_torch.utils.meters import AverageMeter, ProgressMeter
+from mmgl_tpu_torch.utils.meters import (AverageMeter, ProgressMeter,
+                                         get_params_count_str)
 from mmgl_tpu_torch.utils.tokenizer import get_tokenizer
 from mmgl_tpu_torch.data.assemble import AssemblerConfig, WikiWeb2MAssembler
 from mmgl_tpu_torch.data.loader import PrefetchLoader
@@ -185,21 +195,80 @@ def prepare(args: Arguments, device: torch.device) -> EvalSetup:
     return _eval_setup(args, model, fcfg, tokenizer, test_ds)
 
 
+def start_wandb(args: Arguments):
+    """The wandb run of ``--log_to_wandb``, or None: ``wandb.init(project,
+    name)`` and the flags in its config, or ``[wandb] disabled: <error>``
+    where wandb cannot start (mmgl_tpu/cli.py:194-207)."""
+    if not args.log_to_wandb:
+        return None
+    try:
+        import wandb
+
+        wandb_run = wandb.init(project=args.wandb_project,
+                               name=args.wandb_run)
+        wandb_run.config.update(vars(args), allow_val_change=True)
+        return wandb_run
+    except Exception as e:  # offline hosts, or wandb not installed
+        print(f"[wandb] disabled: {e}")
+        return None
+
+
+Log = Callable[[Dict[str, float], int], None]
+
+
+def _no_log(scalars: Dict[str, float], step: int) -> None:
+    pass
+
+
+def make_log(wandb_run, log_fn: Optional[Log]) -> Log:
+    """log(scalars, step): to the wandb run (``log(scalars, step=step)``)
+    and to the caller's ``log_fn``."""
+    def log(scalars: Dict[str, float], step: int) -> None:
+        if wandb_run is not None:
+            wandb_run.log(scalars, step=step)
+        if log_fn is not None:
+            log_fn(scalars, step)
+    return log
+
+
+def report_params(model, wandb_run) -> None:
+    """The parameter table, then the totals (mmgl_tpu/cli.py:244-254), into
+    the wandb run's config too."""
+    print(get_params_count_str(model))
+    counts = count_params(model)
+    print(f"Total params: {counts['total']:,} | trainable: "
+          f"{counts['trainable']:,} | non-trainable: "
+          f"{counts['non_trainable']:,}")
+    if wandb_run is not None:
+        wandb_run.config.update({"total_params": counts["total"],
+                                 "trainable_params": counts["trainable"],
+                                 "non_trainable_params":
+                                 counts["non_trainable"]},
+                                allow_val_change=True)
+
+
 def run(args: Arguments, device: torch.device,
-        log_fn: Optional[Callable[[Dict[str, float], int], None]] = None
-        ) -> Dict[str, float]:
+        log_fn: Optional[Log] = None) -> Dict[str, float]:
     """Training, or with ``--test true`` the test pass alone; returns
-    evaluate_loop's metrics (plus ``train_updates`` after training)."""
-    log = log_fn or (lambda scalars, step: None)
+    evaluate_loop's metrics (plus ``train_updates`` after training).
+    ``log_fn(scalars, step)`` gets every scalar the wandb run gets, and the
+    test pass's batch timings."""
     if not args.test:
-        return run_training(args, device, log)
+        return run_training(args, device, log_fn)
+    wandb_run = start_wandb(args)
     test = prepare(args, device)
+    report_params(test.model, wandb_run)
     if args.resume:
         restored, path = _newest_checkpoint(args)
         if restored is not None:
             print(f"=> loaded checkpoint '{path}' (epoch {restored['epoch']})")
             merge_restored_params(test.model, restored["params"])
-    return evaluate_loop(test, args, args.start_epoch, log, prefix="test")
+    results = evaluate_loop(test, args, args.start_epoch,
+                            make_log(wandb_run, log_fn), prefix="test",
+                            timing=log_fn or _no_log)
+    if wandb_run is not None:
+        wandb_run.finish()
+    return results
 
 
 def main(argv=None) -> Dict[str, float]:
@@ -208,18 +277,14 @@ def main(argv=None) -> Dict[str, float]:
 
 
 def check_training_flags(args: Arguments) -> None:
-    """Refuse what training does not port yet, naming its ROADMAP item.
-    Every ``--peft_type`` trains."""
+    """Refuse what training does not port yet, naming its ROADMAP item:
+    only what needs more than one device."""
     unported = {
-        "--chunked_ce (ROADMAP A9)": args.chunked_ce > 0,
-        "--fused_ce false": not args.fused_ce,
-        "--remat (ROADMAP A9)": args.remat,
         f"--mesh_shape {args.mesh_shape} (one device only, ROADMAP A8)":
             math.prod(args.mesh_shape) != 1,
         "--zero1 (ROADMAP A8)": args.zero1,
         "--fsdp (ROADMAP A8)": args.fsdp,
         "--distributed (ROADMAP A8)": args.distributed,
-        "--profile_dir (ROADMAP A10)": bool(args.profile_dir),
     }
     refused = [flag for flag, is_set in unported.items() if is_set]
     if refused:
@@ -259,6 +324,33 @@ def dropout_generator(seed: int, epoch: int, device: torch.device
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
+def start_profile(device: torch.device):
+    """A started ``torch.profiler`` run: the host's activity, and the card's
+    on CUDA."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, device: torch.device, profile_dir: str,
+                 epoch: int) -> str:
+    """Stop ``prof`` once the device has run what was queued, and write its
+    Chrome trace under ``profile_dir``; returns the trace's path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"train_epoch{epoch}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[profile] trace of epoch {epoch}'s first updates: {path}")
+    return path
+
+
 def _train_batches(loader: PrefetchLoader, epoch: int) -> Iterator[Dict]:
     """The epoch's batches without end: each further pass over the data is
     reshuffled deterministically by (epoch, pass)."""
@@ -277,8 +369,7 @@ def _train_batches(loader: PrefetchLoader, epoch: int) -> Iterator[Dict]:
 
 
 def run_training(args: Arguments, device: torch.device,
-                 log: Callable[[Dict[str, float], int], None]
-                 ) -> Dict[str, float]:
+                 log_fn: Optional[Log] = None) -> Dict[str, float]:
     """Counterpart of mmgl_tpu.cli.run_training (run_generation.py:236-428
     in the reference) on one device. Returns the final test pass's metrics
     plus ``train_updates``."""
@@ -289,16 +380,16 @@ def run_training(args: Arguments, device: torch.device,
     log_dir = _new_log_dir(args)
     if args.save_dir is None:
         args.save_dir = os.path.join(log_dir, "ckpt")
+    wandb_run = start_wandb(args)
+    log = make_log(wandb_run, log_fn)
+    timing = log_fn or _no_log
 
     tokenizer, model, fcfg, datasets = _build(args, device)
     train_ds, val_ds, test_ds = cache_neighbors(args, model, datasets,
                                                 ("train", "val", "test"))
     print(f"Training with {len(train_ds)} examples, validating with "
           f"{len(val_ds)} examples, testing with {len(test_ds)} examples.")
-    counts = count_params(model)
-    print(f"Total params: {counts['total']:,} | trainable: "
-          f"{counts['trainable']:,} | non-trainable: "
-          f"{counts['non_trainable']:,}")
+    report_params(model, wandb_run)
 
     optimizer, scheduler = build_optimizer(args, model)
     best_acc1, step = 0.0, 0
@@ -319,7 +410,9 @@ def run_training(args: Arguments, device: torch.device,
     train_step = make_train_step(
         model, optimizer, scheduler, args.decoder_only,
         args.max_input_length, tokenizer.pad_token_id,
-        grad_accumulation_steps=accum, grad_clip=args.grad_clip)
+        grad_accumulation_steps=accum, grad_clip=args.grad_clip,
+        fused_ce=args.fused_ce,
+        chunked_ce=args.chunked_ce if args.decoder_only else 0)
     val = _eval_setup(args, model, fcfg, tokenizer, val_ds)
     test = _eval_setup(args, model, fcfg, tokenizer, test_ds)
     train_loader = PrefetchLoader(
@@ -332,7 +425,7 @@ def run_training(args: Arguments, device: torch.device,
     for epoch in range(args.start_epoch, args.epochs):
         epoch_start = time.time()
         if epoch == 0:
-            evaluate_loop(val, args, epoch - 1, log)
+            evaluate_loop(val, args, epoch - 1, log, timing=timing)
 
         generator = dropout_generator(seed, epoch, device)
         batches = _train_batches(train_loader, epoch)
@@ -342,6 +435,10 @@ def run_training(args: Arguments, device: torch.device,
         progress = ProgressMeter(updates_per_epoch, [batch_time, losses],
                                  prefix=f"Epoch: [{epoch}]")
         end = time.time()
+        # the first epoch's trace: from here through update
+        # min(3, updates_per_epoch - 1) (mmgl_tpu/cli.py:384-385, 478-480)
+        prof = (start_profile(device)
+                if args.profile_dir and epoch == args.start_epoch else None)
         for u in range(updates_per_epoch):
             batch = next(batches)
             data_time.update(time.time() - end)
@@ -350,6 +447,9 @@ def run_training(args: Arguments, device: torch.device,
             train_updates += 1
             batch_time.update(time.time() - end)
             end = time.time()
+            if prof is not None and u == min(3, updates_per_epoch - 1):
+                stop_profile(prof, device, args.profile_dir, epoch)
+                prof = None
 
             actual_step = epoch * updates_per_epoch + u + 1
             if actual_step == 1 or actual_step % args.print_freq == 0:
@@ -367,7 +467,7 @@ def run_training(args: Arguments, device: torch.device,
                 data_time.reset()
         batches.close()
 
-        results = evaluate_loop(val, args, epoch, log)
+        results = evaluate_loop(val, args, epoch, log, timing=timing)
         acc1 = results["bleu4"]
         if acc1 > best_acc1 or epoch == 0:
             best_acc1 = max(acc1, best_acc1)
@@ -386,8 +486,11 @@ def run_training(args: Arguments, device: torch.device,
     restored = restore_checkpoint(args.save_dir)
     if restored is not None:
         merge_restored_params(model, restored["params"])
-    results = evaluate_loop(test, args, args.epochs, log, prefix="test")
+    results = evaluate_loop(test, args, args.epochs, log, prefix="test",
+                            timing=timing)
     results["train_updates"] = float(train_updates)
+    if wandb_run is not None:
+        wandb_run.finish()
     return results
 
 
@@ -402,16 +505,18 @@ def _score_corpus(all_preds: List[str], all_refs: List[List[str]]):
     return bleus, rouges, cider
 
 
-def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int,
-                  log: Callable[[Dict[str, float], int], None],
-                  prefix: str = "val") -> Dict[str, float]:
+def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int, log: Log,
+                  prefix: str = "val", timing: Optional[Log] = None
+                  ) -> Dict[str, float]:
     """Counterpart of mmgl_tpu.cli.evaluate_loop (run_generation.py:527-703
     in the reference).
 
     Each batch's device work (eval step, then decode on the test pass) is
-    timed to a device synchronize and logged as ``{prefix}/batch_seconds``
-    with ``{prefix}/batch_sections``; decoding to text and scoring run on
-    the host after it."""
+    timed to a device synchronize and reported to ``timing`` (else ``log``;
+    the JAX package logs no such scalar) as ``{prefix}/batch_seconds`` with
+    ``{prefix}/batch_sections``; decoding to text and scoring run on the
+    host after it."""
+    timing = timing or log
     device = test.model.device
     tokenizer = test.tokenizer
     losses = AverageMeter("Loss", ":.4e")
@@ -428,8 +533,8 @@ def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int,
         seconds = time.perf_counter() - start
         bs = batch["input_ids"].shape[0]
         forward_time.update(seconds)
-        log({f"{prefix}/batch_seconds": seconds,
-             f"{prefix}/batch_sections": float(bs)}, steps)
+        timing({f"{prefix}/batch_seconds": seconds,
+                f"{prefix}/batch_sections": float(bs)}, steps)
 
         losses.update(float(out["loss"]), bs)
         labels = batch["labels"]

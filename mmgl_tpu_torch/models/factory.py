@@ -133,7 +133,7 @@ def build_fusion_config(args: Arguments, vocab_size: Optional[int] = None,
                                     // max(1, args.num_neighbor_layers)),
             peft_type=args.peft_type, lora_r=args.lora_r,
             lora_alpha=args.lora_alpha, lora_dropout=args.lora_dropout,
-            dtype=dt, use_pallas=args.use_pallas)
+            dtype=dt, use_pallas=args.use_pallas, remat=args.remat)
         if vocab_size:
             opt_cfg = replace(opt_cfg, vocab_size=vocab_size)
         if tokenizer is not None:

@@ -335,10 +335,17 @@ class MMGLModel(nn.Module):
     # ---- fusion forward ----
 
     def forward(self, batch: Dict,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
-        """Returns {"logits": (B, S, V), "labels": adjusted labels}.
-        ``generator`` is the dropout stream, needed in training mode."""
+                generator: Optional[torch.Generator] = None,
+                return_hidden: bool = False) -> Dict[str, torch.Tensor]:
+        """Returns {"logits": (B, S, V), "labels": adjusted labels}, or with
+        ``return_hidden`` {"hidden": the LM's pre-head states, "labels"}
+        (OPT and MPT only: the vocab-chunked CE folds the tied head into the
+        loss; mmgl_tpu/models/fusion.py:246-265, 460-484). ``generator`` is
+        the dropout stream, needed in training mode."""
+        if return_hidden and not self.config.decoder_only:
+            raise ValueError("return_hidden (the chunked CE) is for OPT and "
+                             "MPT only: T5's tied head rescales the hidden "
+                             "states by d_model**-0.5")
         fused = self._fuse(batch)
         ids = (None if fused["inputs_embeds"] is not None
                else fused["input_ids"])
@@ -354,8 +361,9 @@ class MMGLModel(nn.Module):
                 attention_mask=fused["attention_mask"], generator=generator,
                 neighbor_embeds=fused["neighbor_embeds"],
                 neighbor_mask=fused["neighbor_mask"],
-                prefix_kvs=fused["prefix_kvs"])
-        return {"logits": logits, "labels": fused["labels"]}
+                prefix_kvs=fused["prefix_kvs"], return_hidden=return_hidden)
+        key = "hidden" if return_hidden else "logits"
+        return {key: logits, "labels": fused["labels"]}
 
     def _fuse(self, batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
         """Image splice (raw section_all / all), soft tokens appended

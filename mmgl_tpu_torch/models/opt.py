@@ -8,7 +8,22 @@ ordering of OPT-350M, whose 512-wide embeddings go through ``project_in``
 cumsum with offset 2, the tied LM head (``hidden @ E.T`` on the embedding's
 width), hidden dropout at the JAX package's three sites (embeddings, after
 attention, after fc2; attention dropout is 0) in training mode, and a KV
-cache for greedy decode. Layerdrop raises NotImplementedError.
+cache for greedy decode.
+
+Training only (mmgl_tpu/models/opt.py:294-302, :335-363):
+
+* Layerdrop (``layerdrop`` p > 0, in training mode): each decoder layer,
+  and the cross layer that follows it, is bypassed with probability p. The
+  keep decisions are drawn on the device from the dropout ``generator``, one
+  per layer before the first, and applied without a branch (the layer runs,
+  then ``torch.where(keep, out, residual)``), as the JAX package's "compute,
+  then select". Eval, the prefill and decode ignore it.
+* Remat (``remat``): where a gradient is recorded, every decoder layer and
+  cross layer runs under ``torch.utils.checkpoint`` (non-reentrant), and its
+  forward is recomputed in the backward. The recompute replays the layer's
+  dropout draws from a generator forked at the layer's start
+  (``_Replay``): checkpoint's own ``preserve_rng_state`` saves only the
+  default generators, never the explicit dropout stream.
 
 PEFT and MPT:
 
@@ -73,6 +88,7 @@ class OPTConfig:
     lora_dropout: float = 0.0
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
     use_pallas: bool = True      # False: attention_reference (--use_pallas)
+    remat: bool = False          # recompute each layer in the backward
 
     @property
     def num_neighbor_layers(self) -> int:
@@ -101,10 +117,6 @@ class OPTConfig:
     @property
     def has_final_layer_norm(self) -> bool:
         return self.do_layer_norm_before and not self.remove_final_layer_norm
-
-    def check_supported(self) -> None:
-        if self.layerdrop > 0.0:
-            raise NotImplementedError("layerdrop is not ported yet")
 
 
 class KVCache:
@@ -256,10 +268,45 @@ class OPTDecoderLayer(nn.Module):
         return hidden_states
 
 
+class _Replay:
+    """The dropout generator a checkpointed layer draws from: the step's
+    own on the first call (the forward, which advances the step's stream),
+    and on every later call (the recompute) a generator forked from the
+    state the step's had at the layer's start, so that the recompute draws
+    the forward's masks again without rewinding the step's stream."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator, self.calls = generator, 0
+        self.state = None if generator is None else generator.get_state()
+
+    def __call__(self) -> Optional[torch.Generator]:
+        self.calls += 1
+        if self.generator is None or self.calls == 1:
+            return self.generator
+        fork = torch.Generator(device=self.generator.device)
+        fork.set_state(self.state)
+        return fork
+
+
+def _run_layer(layer: nn.Module, remat: bool, hidden_states, *args,
+               generator=None, **kwargs):
+    """``layer(hidden_states, *args, generator=generator, **kwargs)``, under
+    ``torch.utils.checkpoint`` where ``remat`` holds and a gradient is
+    recorded. Non-reentrant: it records the adapters' gradients when no
+    input of the layer requires one (LoRA under --freeze_lm), and runs the
+    forward with the gradient mode it was called in, so the kernels'
+    wrappers decide as they would without it."""
+    if not (remat and torch.is_grad_enabled()):
+        return layer(hidden_states, *args, generator=generator, **kwargs)
+    replay = _Replay(generator)
+    return torch.utils.checkpoint.checkpoint(
+        lambda h: layer(h, *args, generator=replay(), **kwargs),
+        hidden_states, use_reentrant=False, preserve_rng_state=False)
+
+
 class OPTDecoder(nn.Module):
     def __init__(self, cfg: OPTConfig):
         super().__init__()
-        cfg.check_supported()
         self.cfg = cfg
         dt = cfg.dtype
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.embed_dim,
@@ -300,20 +347,32 @@ class OPTDecoder(nn.Module):
             inputs_embeds = self.project_in(inputs_embeds)
         hidden_states = inputs_embeds + self.embed_positions(position_ids + 2)
         hidden_states = self.embed_dropout(hidden_states, generator)
+        keep = None
+        if self.training and cfg.layerdrop > 0.0:
+            if generator is None:
+                raise ValueError("layerdrop in training mode needs a "
+                                 "generator")
+            keep = torch.rand(len(self.layers), generator=generator,
+                              device=hidden_states.device) \
+                < 1.0 - cfg.layerdrop
         n_cross = 0
         for i, layer in enumerate(self.layers):
-            hidden_states = layer(
-                hidden_states, attention_mask,
-                caches[i] if caches is not None else None, generator,
+            residual = hidden_states
+            hidden_states = _run_layer(
+                layer, cfg.remat, hidden_states, attention_mask,
+                caches[i] if caches is not None else None,
+                generator=generator,
                 prefix_kv=prefix_kvs[i] if prefix_kvs is not None else None)
             if (cfg.cross_attention and neighbor_embeds is not None
                     and (i + 1) % cfg.neighbor_layer_wise == 0
                     and n_cross < cfg.num_neighbor_layers):
-                hidden_states = self.neighbor_layers[n_cross](
-                    hidden_states, generator=generator,
-                    neighbor_embeds=neighbor_embeds,
+                hidden_states = _run_layer(
+                    self.neighbor_layers[n_cross], cfg.remat, hidden_states,
+                    generator=generator, neighbor_embeds=neighbor_embeds,
                     neighbor_mask=neighbor_mask)
                 n_cross += 1
+            if keep is not None:
+                hidden_states = torch.where(keep[i], hidden_states, residual)
         if self.cfg.has_final_layer_norm:
             hidden_states = self.final_layer_norm(hidden_states)
         if self.cfg.projects:
@@ -323,8 +382,13 @@ class OPTDecoder(nn.Module):
 
 class OPTForCausalLM(nn.Module):
     """OPT with the tied LM head. Returns (logits, caches); the caches are
-    the ones passed in, updated in place. In training mode with dropout > 0
-    the forward needs ``generator``, the dropout stream."""
+    the ones passed in, updated in place. In training mode with dropout or
+    layerdrop > 0 the forward needs ``generator``, the dropout stream.
+    ``return_hidden``: the pre-head states in place of the logits (after
+    project_out, in the tied table's width) for the vocab-chunked CE, which
+    folds the head into the loss (train/losses.chunked_ce). The head is
+    always the tied table here, as in every configuration of the JAX
+    package's factory, so there is no untied head to refuse."""
 
     def __init__(self, cfg: OPTConfig):
         super().__init__()
@@ -334,7 +398,8 @@ class OPTForCausalLM(nn.Module):
     def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
                 caches: Optional[List[KVCache]] = None, position_ids=None,
                 generator: Optional[torch.Generator] = None,
-                neighbor_embeds=None, neighbor_mask=None, prefix_kvs=None
+                neighbor_embeds=None, neighbor_mask=None, prefix_kvs=None,
+                return_hidden: bool = False
                 ) -> Tuple[torch.Tensor, Optional[List[KVCache]]]:
         hidden = self.decoder(input_ids=input_ids,
                               attention_mask=attention_mask,
@@ -343,6 +408,8 @@ class OPTForCausalLM(nn.Module):
                               neighbor_embeds=neighbor_embeds,
                               neighbor_mask=neighbor_mask,
                               prefix_kvs=prefix_kvs)
+        if return_hidden:
+            return hidden, caches
         return self.decoder.embed_tokens.attend(hidden), caches
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Losses (counterpart of mmgl_tpu/train/losses.py:22-64, 94-117).
+"""Losses (counterpart of mmgl_tpu/train/losses.py:22-245).
 
 Encoder-decoder (T5) CE over the labels, unshifted (the decoder inputs are
 the labels shifted right), -100 excluded. Decoder-only CE over the whole shifted sequence, prompt and pads included,
@@ -10,7 +10,17 @@ The per-token CE is ``_TokenCE``, the counterpart of the custom-VJP
 ``_ce_core``: an fp32 logsumexp over the logits in their own dtype, saving
 only the logits and the (B, T) logsumexp, never an fp32 copy of the (B, T, V)
 logits; the backward recomputes softmax minus one-hot in one pass and
-returns the gradient in the logits' dtype.
+returns the gradient in the logits' dtype. ``fused=False`` (``--fused_ce
+false``) is the JAX ``_ce_plain``: plain autograd of the fp32 logsumexp
+minus the gold logit, for the decoder-only losses only.
+
+``chunked_causal_losses`` (``--chunked_ce n``) takes the pre-head hidden
+states and the tied table in place of the logits: ``_ChunkedCE`` streams
+the head over n vocab chunks, with an online logsumexp, so the (B, T, V)
+logits are never materialised; its backward recomputes each chunk's logits
+and accumulates dhidden and the table's gradient. The chunk products are
+plain matmuls in fp32 (the JAX package's ``preferred_element_type``), left
+to the library as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -49,10 +59,22 @@ class _TokenCE(torch.autograd.Function):
         return p.mul_(g[..., None]).to(logits.dtype), None
 
 
-def token_ce(logits: torch.Tensor, labels: torch.Tensor
+def _plain_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``_ce_plain``: the same CE by plain autograd over an fp32 copy of
+    the logits; labels < 0 give 0."""
+    valid = labels >= 0
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels.clamp(min=0)[..., None])[..., 0]
+    return torch.where(valid, logz - gold, torch.zeros_like(logz))
+
+
+def token_ce(logits: torch.Tensor, labels: torch.Tensor, fused: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token CE in fp32 and its validity; labels < 0 give 0."""
-    return _TokenCE.apply(logits, labels), labels >= 0
+    ce = _TokenCE.apply(logits, labels) if fused else _plain_ce(logits,
+                                                                labels)
+    return ce, labels >= 0
 
 
 def seq2seq_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -61,15 +83,121 @@ def seq2seq_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return ce.sum() / valid.sum().clamp(min=1)
 
 
-def causal_losses(logits: torch.Tensor, labels: torch.Tensor,
-                  max_input_length: int, pad_token_id: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(lm_loss, summary_loss): logits[:, :-1] predict labels[:, 1:]."""
-    ce, valid = token_ce(logits[:, :-1], labels[:, 1:])
+def _span_losses(ce: torch.Tensor, labels: torch.Tensor,
+                 max_input_length: int, pad_token_id: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lm_loss, summary_loss) of the shifted per-token CE: the mean over
+    the valid labels, and over the label span with pads dropped."""
+    shifted = labels[:, 1:]
+    valid = shifted >= 0
     loss = ce.sum() / valid.sum().clamp(min=1)
     pos = torch.arange(ce.shape[1], device=ce.device)
-    shifted = labels[:, 1:]
     span = valid & (pos[None, :] >= max_input_length) & (shifted
                                                           != pad_token_id)
     s_loss = (ce * span).sum() / span.sum().clamp(min=1)
     return loss, s_loss
+
+
+def causal_losses(logits: torch.Tensor, labels: torch.Tensor,
+                  max_input_length: int, pad_token_id: int,
+                  fused_ce: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lm_loss, summary_loss): logits[:, :-1] predict labels[:, 1:]."""
+    ce, _ = token_ce(logits[:, :-1], labels[:, 1:], fused=fused_ce)
+    return _span_losses(ce, labels, max_input_length, pad_token_id)
+
+
+def _pad_vocab(emb: torch.Tensor, n_chunks: int
+               ) -> Tuple[torch.Tensor, int]:
+    """The (V, D) table as (n_chunks, vc, D), vc = ceil(V / n_chunks)
+    rounded up to a multiple of 128, zero rows past V (``_pad_vocab``)."""
+    v, d = emb.shape
+    vc = -(-v // n_chunks)
+    vc += (-vc) % 128
+    pad = n_chunks * vc - v
+    if pad:
+        emb = torch.cat([emb, emb.new_zeros(pad, d)])
+    return emb.reshape(n_chunks, vc, d), vc
+
+
+def _chunk_logits(h32: torch.Tensor, emb_c: torch.Tensor, base: int,
+                  v: int) -> torch.Tensor:
+    """One chunk's fp32 logits, (B, T, vc), from the fp32 hidden states;
+    -inf past the vocabulary."""
+    logits = h32 @ emb_c.float().T
+    past = torch.arange(base, base + emb_c.shape[0],
+                        device=logits.device) >= v
+    return logits.masked_fill(past, float("-inf"))
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Per-token CE of ``hidden @ emb.T`` in fp32 over ``n_chunks`` vocab
+    chunks (``chunked_ce``, mmgl_tpu/train/losses.py:133-228); labels < 0
+    give 0."""
+
+    @staticmethod
+    def forward(ctx, hidden, emb, labels, n_chunks):
+        v = emb.shape[0]
+        embc, vc = _pad_vocab(emb, n_chunks)
+        valid = labels >= 0
+        safe = labels.clamp(min=0)
+        shape = hidden.shape[:-1]
+        m = hidden.new_full(shape, float("-inf"), dtype=torch.float32)
+        s = hidden.new_zeros(shape, dtype=torch.float32)
+        gold = hidden.new_zeros(shape, dtype=torch.float32)
+        h32 = hidden.float()
+        for c in range(n_chunks):
+            base = c * vc
+            logits = _chunk_logits(h32, embc[c], base, v)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(
+                logits - m_new[..., None]).sum(dim=-1)
+            m = m_new
+            in_chunk = (safe >= base) & (safe < base + vc)
+            idx = (safe - base).clamp(0, vc - 1)
+            g = torch.gather(logits, -1, idx[..., None])[..., 0]
+            gold = gold + torch.where(in_chunk, g, torch.zeros_like(g))
+        logz = torch.log(s) + m
+        ctx.n_chunks = n_chunks
+        ctx.save_for_backward(hidden, emb, safe, valid, logz)
+        return torch.where(valid, logz - gold, torch.zeros_like(logz))
+
+    @staticmethod
+    def backward(ctx, grad):
+        hidden, emb, safe, valid, logz = ctx.saved_tensors
+        want_h, want_e = ctx.needs_input_grad[:2]
+        v = emb.shape[0]
+        embc, vc = _pad_vocab(emb, ctx.n_chunks)
+        g = torch.where(valid, grad, torch.zeros_like(grad)).float()
+        h32 = hidden.float()
+        dh = torch.zeros_like(h32) if want_h else None
+        demb = []
+        for c in range(ctx.n_chunks):
+            base = c * vc
+            p = torch.exp(_chunk_logits(h32, embc[c], base, v)
+                          - logz[..., None])
+            in_chunk = (safe >= base) & (safe < base + vc)
+            idx = (safe - base).clamp(0, vc - 1)[..., None]
+            p.scatter_add_(-1, idx, -in_chunk[..., None].float())
+            # the chunk's dlogits in the hidden states' dtype, as the JAX
+            # package rounds them before the two products
+            dlog = (p * g[..., None]).to(hidden.dtype).float()
+            if want_h:
+                dh += dlog @ embc[c].float()
+            if want_e:
+                demb.append(dlog.reshape(-1, vc).T
+                            @ h32.reshape(-1, h32.shape[-1]))
+        dh = dh.to(hidden.dtype) if want_h else None
+        de = (torch.cat(demb)[:v].to(emb.dtype) if want_e else None)
+        return dh, de, None, None
+
+
+def chunked_causal_losses(hidden: torch.Tensor, emb: torch.Tensor,
+                          labels: torch.Tensor, max_input_length: int,
+                          pad_token_id: int, n_chunks: int = 8
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lm_loss, summary_loss) as ``causal_losses``, from the pre-head
+    hidden states and the tied table: hidden[:, :-1] predict labels[:, 1:]
+    (``chunked_causal_losses``)."""
+    ce = _ChunkedCE.apply(hidden[:, :-1], emb, labels[:, 1:], n_chunks)
+    return _span_losses(ce, labels, max_input_length, pad_token_id)

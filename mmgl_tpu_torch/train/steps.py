@@ -1,5 +1,5 @@
-"""Train and eval steps (counterpart of mmgl_tpu/train/steps.py:72-90,
-95-171, 240-259).
+"""Train and eval steps (counterpart of mmgl_tpu/train/steps.py:54-171,
+240-259).
 
 The JAX package compiles one program per update: a ``lax.scan`` over the
 micro-batches, then the optimizer. Here the same update runs eagerly: each
@@ -9,7 +9,10 @@ trainable gradients is taken before clipping, and one optimizer step and
 one scheduler step follow. Metrics stay on the device; nothing here waits
 for it. Decoder-only models take the causal losses over prompt + summary;
 encoder-decoder (T5) the unshifted CE over the summary, which is also the
-summary loss.
+summary loss. The loss follows ``make_loss_fn``: ``fused_ce=False`` takes
+the plain CE (decoder-only), ``chunked_ce`` n > 0 the vocab-chunked CE over
+the pre-head states and the tied table (decoder-only), whose gradient sums
+the lookup's share and the head's, as ``jax.grad`` does.
 """
 
 from __future__ import annotations
@@ -18,23 +21,52 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from mmgl_tpu_torch.train.losses import causal_losses, seq2seq_loss
+from mmgl_tpu_torch.train.losses import (causal_losses,
+                                         chunked_causal_losses, seq2seq_loss)
 
 
 def losses_of(out: Dict, decoder_only: bool, max_input_length: int,
-            pad_token_id: int):
+              pad_token_id: int, fused_ce: bool = True):
     """(loss, summary_loss) of a forward's logits and labels."""
     if decoder_only:
         return causal_losses(out["logits"], out["labels"], max_input_length,
-                             pad_token_id)
+                             pad_token_id, fused_ce=fused_ce)
     loss = seq2seq_loss(out["logits"], out["labels"])
     return loss, loss
+
+
+def make_loss_fn(model, decoder_only: bool, max_input_length: int,
+                 pad_token_id: int, fused_ce: bool = True, chunked_ce: int = 0
+                 ) -> Callable:
+    """loss_fn(batch, generator=None) -> (loss, summary_loss) of the model's
+    forward (``make_loss_fn``). With ``chunked_ce`` the model returns its
+    pre-head states and the loss takes the tied table itself, so the
+    table's gradient sums its lookup's and its head's shares."""
+    if chunked_ce > 0:
+        if not decoder_only:
+            raise ValueError("chunked CE is decoder-only (the tied OPT head)")
+
+        def chunked(batch: Dict, generator=None):
+            out = model(batch, generator=generator, return_hidden=True)
+            return chunked_causal_losses(
+                out["hidden"], model.lm.decoder.embed_tokens.weight,
+                out["labels"], max_input_length, pad_token_id,
+                n_chunks=chunked_ce)
+
+        return chunked
+
+    def loss_fn(batch: Dict, generator=None):
+        return losses_of(model(batch, generator=generator), decoder_only,
+                         max_input_length, pad_token_id, fused_ce=fused_ce)
+
+    return loss_fn
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,
                     scheduler, decoder_only: bool, max_input_length: int,
                     pad_token_id: int, grad_accumulation_steps: int = 1,
-                    grad_clip: float = 0.0
+                    grad_clip: float = 0.0, fused_ce: bool = True,
+                    chunked_ce: int = 0
                     ) -> Callable[[Dict, Optional[torch.Generator]], Dict]:
     """step(batch, generator) -> {"loss", "summary_loss", "grad_norm"}.
 
@@ -43,6 +75,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     to (accum, micro, ...)). ``generator`` is the dropout stream. The
     optimizer's parameters are the trainable set."""
     accum = max(1, grad_accumulation_steps)
+    loss_fn = make_loss_fn(model, decoder_only, max_input_length,
+                           pad_token_id, fused_ce=fused_ce,
+                           chunked_ce=chunked_ce)
     params = [p for group in optimizer.param_groups for p in group["params"]]
     names = {id(p): n for n, p in model.named_parameters()}
     gradless = getattr(model, "gradless_prefixes", ())
@@ -58,9 +93,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         sums = 0.0
         for i in range(accum):
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-            out = model(mb, generator=generator)
-            loss, s_loss = losses_of(out, decoder_only, max_input_length,
-                                   pad_token_id)
+            loss, s_loss = loss_fn(mb, generator)
             loss.backward()
             sums = sums + torch.stack([loss.detach(), s_loss.detach()])
         for p in params:

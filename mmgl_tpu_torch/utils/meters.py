@@ -78,3 +78,36 @@ class ProgressMeter:
     def display_summary(self):
         entries = [" *"] + [m.summary() for m in self.meters]
         print(" ".join(entries))
+
+
+def get_params_count(model) -> tuple:
+    """(per-parameter table, trainable, non-trainable) of a module, each
+    row (name, count, shape, trainable by ``requires_grad``): the
+    counterpart of ``get_params_count`` (mmgl_tpu/utils/meters.py:83-96)
+    over ``named_parameters()`` in place of the flax tree's leaves."""
+    table = [(name, p.numel(), tuple(p.shape), p.requires_grad)
+             for name, p in model.named_parameters()]
+    trainable = sum(x[1] for x in table if x[3])
+    non_trainable = sum(x[1] for x in table if not x[3])
+    return table, trainable, non_trainable
+
+
+def get_params_count_str(model, max_name_len: int = 72) -> str:
+    """The formatted parameter table (``get_params_count_str``,
+    mmgl_tpu/utils/meters.py:99-116)."""
+    table, trainable, non_trainable = get_params_count(model)
+    pad = 40
+    out = ["=" * (max_name_len + pad),
+           f"| {'Module':<{max_name_len}} | {'Trainable':<9} "
+           f"| {'Shape':>16} | {'Count':>12} |",
+           "-" * (max_name_len + pad)]
+    for name, count, shape, is_train in table:
+        out.append(f"| {name[:max_name_len]:<{max_name_len}} "
+                   f"| {str(is_train):<9} | {str(shape):>16} | {count:>12,} |")
+    out.append("-" * (max_name_len + pad))
+    out.append(f"| {'Total trainable params':<{max_name_len}} |           "
+               f"|                  | {trainable:>12,} |")
+    out.append(f"| {'Total non-trainable params':<{max_name_len}} |           "
+               f"|                  | {non_trainable:>12,} |")
+    out.append("=" * (max_name_len + pad))
+    return "\n".join(out)

@@ -228,6 +228,42 @@ def test_attention_grad_runs_the_backward_kernel():
             g, r, atol=BWD_TOL[torch.float32] * float(r.abs().max()), rtol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize(**DTYPES)
+def test_k1_k3_at_head_dim_128_under_checkpoint(dtype):
+    """K1 and K3 at (2, 128, 4, 128), causal with a pad hole, inside
+    ``torch.utils.checkpoint`` (non-reentrant, as ``--remat`` runs a
+    layer): the forward launches K1 twice (the forward and the recompute),
+    the backward K3 once; the output within the forward tolerance, and the
+    gradients within the backward one, of the plain versions on the same
+    inputs; the tensor-core bodies in bf16 and fp16."""
+    dev = _device()
+    rng = np.random.RandomState(128)
+    q, k, v, dout = (torch.from_numpy(rng.randn(2, 128, 4, 128).astype(
+        np.float32)).to(dev, dtype) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    mask = torch.from_numpy(hole_mask(2, 128, seed=3)).to(dev)
+    counts = _counts(fa.flash_attention_allheads,
+                     fa.flash_attention_allheads_bwd)
+    out = torch.utils.checkpoint.checkpoint(
+        lambda a, b, c: fa.flash_attention_allheads(a, b, c, kv_mask=mask,
+                                                    causal=True),
+        q, k, v, use_reentrant=False)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    tc = int(dtype != torch.float32)
+    assert counts() == [(2, 2 * tc), (1, tc)]
+    ref = fa.allheads_attention_reference(q.detach(), k.detach(), v.detach(),
+                                          kv_mask=mask, causal=True)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.detach().float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    ref_g = fa.allheads_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), mask, out.detach(), dout,
+        causal=True)
+    for name, g, r in zip("qkv", got, ref_g):
+        _close_rel(g, r, dtype, f"d{name}")
+
+
 # ---- K4/K5: per-head attention (T5's eval cross-attention) -------------------
 
 # (B, Sq, Sk, H, K/V heads), causal: the T5-base cross-attention, a causal

@@ -49,7 +49,7 @@ def _noise_step(opt_step, model, skip, noise, *a, **kw):
     return opt_step(*a, **kw)
 
 
-def check_updates(name, cases=CASES, updates=2, skip=()):
+def check_updates(name, cases=CASES, updates=2, skip=(), chunked_ce=0):
     """``updates`` updates of accum 2 x micro 2 with a clip that fires,
     against make_train_step + build_optimizer (AdamW for OPT and MPT,
     Adafactor for T5): loss and summary_loss rtol 1e-5 at each, then every
@@ -62,7 +62,8 @@ def check_updates(name, cases=CASES, updates=2, skip=()):
     largest. Adam's step of such a leaf is then noise too, at most lr x
     max|g| / eps plus its weight decay, and differs between the packages
     by as much; so each package's move of it is held to that bound, from
-    its own gradients, and not to the other's."""
+    its own gradients, and not to the other's. ``chunked_ce`` n > 0: both
+    steps take the vocab-chunked CE over n chunks."""
     args, _, jmodel, params = jax_pair(name, cases)
     args = copy.copy(args)
     args.grad_clip, args.learning_rate, args.lr_warmup_steps = 0.5, 1e-3, 1
@@ -73,17 +74,20 @@ def check_updates(name, cases=CASES, updates=2, skip=()):
     tx = jax_build_optimizer(args, mask)
     state = create_train_state(params, tx)
     jstep = jax.jit(jax_train_step(jmodel, tx, args.decoder_only,
-                                   args.max_input_length, PAD, 2, mask))
+                                   args.max_input_length, PAD, 2, mask,
+                                   chunked_ce=chunked_ce))
     opt, sched = build_optimizer(args, model)
     step = make_train_step(model, opt, sched, args.decoder_only,
-                           args.max_input_length, PAD, 2, args.grad_clip)
+                           args.max_input_length, PAD, 2, args.grad_clip,
+                           chunked_ce=chunked_ce)
     lrs = []
     noise = {"port": 0.0, "jax": 0.0}    # the skipped leaves' largest |g|
     if skip:
         trainable = {n for n, p in model.named_parameters()
                      if p.requires_grad}
         jgrads = jax.jit(_make_grads_fn(jmodel, tx, args.decoder_only,
-                                        args.max_input_length, PAD, 2, mask))
+                                        args.max_input_length, PAD, 2, mask,
+                                        chunked_ce=chunked_ce))
         opt.step = partial(_noise_step, opt.step, model, skip, noise)
     for batch in batches:
         lrs.append(opt.param_groups[0]["lr"])

@@ -135,14 +135,13 @@ def test_cli_training_end_to_end(pair, tmp_path):
 
 
 def test_training_is_not_ported(tmp_path):
-    """What training does not port yet refuses to run, through the entry
-    point, instead of running something else. (The neighbour cache is
-    ported: tests/test_torch_neighbor_cache.py runs it through the entry
-    point.)"""
-    for flag in (["--remat", "true"], ["--chunked_ce", "8"],
-                 ["--fused_ce", "false"], ["--zero1", "true"],
-                 ["--fsdp", "true"], ["--mesh_shape", "2,1"],
-                 ["--profile_dir", "p"], ["--distributed", "true"]):
+    """What training does not port yet, the flags that need more than one
+    device (ROADMAP A8), refuses to run, through the entry point, instead of
+    running something else. (Remat, layerdrop, the plain and chunked CE,
+    the profiler and wandb are ported: tests/test_torch_regularization.py,
+    test_torch_ce.py and test_torch_observability.py run them.)"""
+    for flag in (["--zero1", "true"], ["--fsdp", "true"],
+                 ["--mesh_shape", "2,1"], ["--distributed", "true"]):
         args, device = cli.parse_cli(TRAIN + flag + [
             "--log_dir", str(tmp_path), "--device", "cpu"])
         with pytest.raises(NotImplementedError, match=flag[0]):
@@ -150,11 +149,21 @@ def test_training_is_not_ported(tmp_path):
     assert not tmp_path.exists() or not any(tmp_path.iterdir())
 
 
-def test_remat_is_refused_only_in_training():
-    """--remat changes no eval result, so the test pass takes it; training
-    refuses it (test_training_is_not_ported)."""
-    got = cli.main(TINY + ["--remat", "true", "--device", "cpu"])
-    assert got["n_eval_pairs"] == 4.0
+def test_remat_is_refused_only_in_training(tmp_path):
+    """--remat is ported in training (it was refused there): a training
+    run with it through the entry point returns the metrics of the run
+    without it, and logs the same training losses."""
+    runs = []
+    for remat in ("false", "true"):
+        logged = []
+        args, device = cli.parse_cli(TRAIN + [
+            "--remat", remat, "--val_steps_per_epoch", "1", "--log_dir",
+            str(tmp_path), "--device", "cpu"])
+        got = cli.run(args, device, lambda scalars, step: logged.append(
+            (step, scalars.get("train/loss"))))
+        runs.append((got, [x for x in logged if x[1] is not None]))
+    assert runs[0][0]["train_updates"] == 2.0 and runs[0][1]
+    assert runs[0] == runs[1]
 
 
 def test_slice_runs_without_jax(tmp_path):
