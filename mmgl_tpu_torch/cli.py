@@ -214,18 +214,19 @@ def start_wandb(args: Arguments):
 
 
 Log = Callable[[Dict[str, float], int], None]
-
-
-def _no_log(scalars: Dict[str, float], step: int) -> None:
-    pass
+# evaluate_loop's per-batch timings, which the JAX package does not log:
+# they go to the caller's log function only, never to wandb
+_TIMINGS = ("/batch_seconds", "/batch_sections")
 
 
 def make_log(wandb_run, log_fn: Optional[Log]) -> Log:
-    """log(scalars, step): to the wandb run (``log(scalars, step=step)``)
-    and to the caller's ``log_fn``."""
+    """log(scalars, step): to the caller's ``log_fn``, and all but the
+    batch timings to the wandb run (``log(scalars, step=step)``)."""
     def log(scalars: Dict[str, float], step: int) -> None:
-        if wandb_run is not None:
-            wandb_run.log(scalars, step=step)
+        logged = {k: x for k, x in scalars.items()
+                  if not k.endswith(_TIMINGS)}
+        if wandb_run is not None and logged:
+            wandb_run.log(logged, step=step)
         if log_fn is not None:
             log_fn(scalars, step)
     return log
@@ -252,7 +253,7 @@ def run(args: Arguments, device: torch.device,
     """Training, or with ``--test true`` the test pass alone; returns
     evaluate_loop's metrics (plus ``train_updates`` after training).
     ``log_fn(scalars, step)`` gets every scalar the wandb run gets, and the
-    test pass's batch timings."""
+    batch timings."""
     if not args.test:
         return run_training(args, device, log_fn)
     wandb_run = start_wandb(args)
@@ -264,8 +265,7 @@ def run(args: Arguments, device: torch.device,
             print(f"=> loaded checkpoint '{path}' (epoch {restored['epoch']})")
             merge_restored_params(test.model, restored["params"])
     results = evaluate_loop(test, args, args.start_epoch,
-                            make_log(wandb_run, log_fn), prefix="test",
-                            timing=log_fn or _no_log)
+                            make_log(wandb_run, log_fn), prefix="test")
     if wandb_run is not None:
         wandb_run.finish()
     return results
@@ -382,7 +382,6 @@ def run_training(args: Arguments, device: torch.device,
         args.save_dir = os.path.join(log_dir, "ckpt")
     wandb_run = start_wandb(args)
     log = make_log(wandb_run, log_fn)
-    timing = log_fn or _no_log
 
     tokenizer, model, fcfg, datasets = _build(args, device)
     train_ds, val_ds, test_ds = cache_neighbors(args, model, datasets,
@@ -425,7 +424,7 @@ def run_training(args: Arguments, device: torch.device,
     for epoch in range(args.start_epoch, args.epochs):
         epoch_start = time.time()
         if epoch == 0:
-            evaluate_loop(val, args, epoch - 1, log, timing=timing)
+            evaluate_loop(val, args, epoch - 1, log)
 
         generator = dropout_generator(seed, epoch, device)
         batches = _train_batches(train_loader, epoch)
@@ -467,7 +466,7 @@ def run_training(args: Arguments, device: torch.device,
                 data_time.reset()
         batches.close()
 
-        results = evaluate_loop(val, args, epoch, log, timing=timing)
+        results = evaluate_loop(val, args, epoch, log)
         acc1 = results["bleu4"]
         if acc1 > best_acc1 or epoch == 0:
             best_acc1 = max(acc1, best_acc1)
@@ -486,8 +485,7 @@ def run_training(args: Arguments, device: torch.device,
     restored = restore_checkpoint(args.save_dir)
     if restored is not None:
         merge_restored_params(model, restored["params"])
-    results = evaluate_loop(test, args, args.epochs, log, prefix="test",
-                            timing=timing)
+    results = evaluate_loop(test, args, args.epochs, log, prefix="test")
     results["train_updates"] = float(train_updates)
     if wandb_run is not None:
         wandb_run.finish()
@@ -506,17 +504,15 @@ def _score_corpus(all_preds: List[str], all_refs: List[List[str]]):
 
 
 def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int, log: Log,
-                  prefix: str = "val", timing: Optional[Log] = None
-                  ) -> Dict[str, float]:
+                  prefix: str = "val") -> Dict[str, float]:
     """Counterpart of mmgl_tpu.cli.evaluate_loop (run_generation.py:527-703
     in the reference).
 
     Each batch's device work (eval step, then decode on the test pass) is
-    timed to a device synchronize and reported to ``timing`` (else ``log``;
-    the JAX package logs no such scalar) as ``{prefix}/batch_seconds`` with
-    ``{prefix}/batch_sections``; decoding to text and scoring run on the
-    host after it."""
-    timing = timing or log
+    timed to a device synchronize and logged as ``{prefix}/batch_seconds``
+    with ``{prefix}/batch_sections`` (to the caller's log function only:
+    the JAX package logs no such scalar to wandb); decoding to text and
+    scoring run on the host after it."""
     device = test.model.device
     tokenizer = test.tokenizer
     losses = AverageMeter("Loss", ":.4e")
@@ -533,8 +529,8 @@ def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int, log: Log,
         seconds = time.perf_counter() - start
         bs = batch["input_ids"].shape[0]
         forward_time.update(seconds)
-        timing({f"{prefix}/batch_seconds": seconds,
-                f"{prefix}/batch_sections": float(bs)}, steps)
+        log({f"{prefix}/batch_seconds": seconds,
+             f"{prefix}/batch_sections": float(bs)}, steps)
 
         losses.update(float(out["loss"]), bs)
         labels = batch["labels"]

@@ -107,17 +107,21 @@ def causal_losses(logits: torch.Tensor, labels: torch.Tensor,
     return _span_losses(ce, labels, max_input_length, pad_token_id)
 
 
-def _pad_vocab(emb: torch.Tensor, n_chunks: int
-               ) -> Tuple[torch.Tensor, int]:
-    """The (V, D) table as (n_chunks, vc, D), vc = ceil(V / n_chunks)
-    rounded up to a multiple of 128, zero rows past V (``_pad_vocab``)."""
-    v, d = emb.shape
+def _chunk_width(v: int, n_chunks: int) -> int:
+    """``_pad_vocab``'s chunk width: ceil(V / n_chunks) rounded up to a
+    multiple of 128."""
     vc = -(-v // n_chunks)
-    vc += (-vc) % 128
-    pad = n_chunks * vc - v
-    if pad:
-        emb = torch.cat([emb, emb.new_zeros(pad, d)])
-    return emb.reshape(n_chunks, vc, d), vc
+    return vc + (-vc) % 128
+
+
+def _chunk_rows(emb: torch.Tensor, c: int, vc: int) -> torch.Tensor:
+    """Chunk c of the (V, D) table, (vc, D): rows [c vc, (c + 1) vc), zero
+    rows past V. Only a chunk that reaches past V is copied."""
+    rows = emb[c * vc:(c + 1) * vc]
+    if rows.shape[0] < vc:
+        rows = torch.cat([rows, rows.new_zeros(vc - rows.shape[0],
+                                               emb.shape[1])])
+    return rows
 
 
 def _chunk_logits(h32: torch.Tensor, emb_c: torch.Tensor, base: int,
@@ -138,7 +142,7 @@ class _ChunkedCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, emb, labels, n_chunks):
         v = emb.shape[0]
-        embc, vc = _pad_vocab(emb, n_chunks)
+        vc = _chunk_width(v, n_chunks)
         valid = labels >= 0
         safe = labels.clamp(min=0)
         shape = hidden.shape[:-1]
@@ -148,7 +152,7 @@ class _ChunkedCE(torch.autograd.Function):
         h32 = hidden.float()
         for c in range(n_chunks):
             base = c * vc
-            logits = _chunk_logits(h32, embc[c], base, v)
+            logits = _chunk_logits(h32, _chunk_rows(emb, c, vc), base, v)
             m_new = torch.maximum(m, logits.amax(dim=-1))
             s = s * torch.exp(m - m_new) + torch.exp(
                 logits - m_new[..., None]).sum(dim=-1)
@@ -167,14 +171,15 @@ class _ChunkedCE(torch.autograd.Function):
         hidden, emb, safe, valid, logz = ctx.saved_tensors
         want_h, want_e = ctx.needs_input_grad[:2]
         v = emb.shape[0]
-        embc, vc = _pad_vocab(emb, ctx.n_chunks)
+        vc = _chunk_width(v, ctx.n_chunks)
         g = torch.where(valid, grad, torch.zeros_like(grad)).float()
         h32 = hidden.float()
         dh = torch.zeros_like(h32) if want_h else None
         demb = []
         for c in range(ctx.n_chunks):
             base = c * vc
-            p = torch.exp(_chunk_logits(h32, embc[c], base, v)
+            rows = _chunk_rows(emb, c, vc)
+            p = torch.exp(_chunk_logits(h32, rows, base, v)
                           - logz[..., None])
             in_chunk = (safe >= base) & (safe < base + vc)
             idx = (safe - base).clamp(0, vc - 1)[..., None]
@@ -183,7 +188,7 @@ class _ChunkedCE(torch.autograd.Function):
             # package rounds them before the two products
             dlog = (p * g[..., None]).to(hidden.dtype).float()
             if want_h:
-                dh += dlog @ embc[c].float()
+                dh += dlog @ rows.float()
             if want_e:
                 demb.append(dlog.reshape(-1, vc).T
                             @ h32.reshape(-1, h32.shape[-1]))

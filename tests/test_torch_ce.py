@@ -24,6 +24,8 @@ from mmgl_tpu_torch.train.losses import (causal_losses,
                                          chunked_causal_losses)
 from test_torch_embedding import PAD
 from test_torch_peft_train import check_updates
+# autouse: one intra-op thread for the module's tiny shapes
+from test_torch_regularization import _one_thread  # noqa: F401
 
 # a vocabulary that is a multiple of no n x 128 below: 1000 rows, padded to
 # 1024 (n = 1, 8) or 1152 (n = 3)

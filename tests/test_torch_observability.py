@@ -28,12 +28,14 @@ from mmgl_tpu.utils.meters import get_params_count as jax_params_count
 from mmgl_tpu_torch import cli
 from mmgl_tpu_torch.utils.meters import get_params_count, get_params_count_str
 from test_torch_peft import jax_pair, port_model
+# autouse: one intra-op thread for the module's tiny shapes
+from test_torch_regularization import _one_thread  # noqa: F401
 
 FLAGS = ["--model_name_or_path", "opt-tiny", "--task", "section",
          "--context", "section_only", "--neighbor_mode", "raw",
          "--max_input_length", "32", "--max_output_length", "16",
          "--per_device_train_batch_size", "2", "--grad_accumulation_steps",
-         "2", "--steps_per_epoch", "10", "--epochs", "1",
+         "1", "--steps_per_epoch", "5", "--epochs", "1",
          "--per_device_val_batch_size", "2", "--val_steps_per_epoch", "1",
          "--print_freq", "1", "--use_pallas", "false", "--seed", "0",
          "--dataloader_num_workers", "1", "--log_to_wandb", "true",

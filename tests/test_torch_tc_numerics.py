@@ -409,12 +409,11 @@ def test_emulation_without_rounding_is_the_plain_math(dims, causal,
 def test_forward_rounding_grows_with_the_scale_of_v():
     """At q and v six times unit scale (a LoRA adapter with alpha / r = 2
     and B seeded at N(0, 0.5) gives them about that): the emulated bf16
-    forward is no further from the fp32 plain version than the plain
-    version in bf16 is, twice over, while the two bf16 computations differ
-    by more than a fixed atol = rtol = 2e-2 allows (each rounds the
-    probabilities to bf16 before P V, an error that scales with |v|, not
-    with the output). So chip_smoke.py holds such a launch to the fp32
-    plain version instead (its PlainCheck)."""
+    forward and the plain version in bf16 differ by more than a fixed
+    atol = rtol = 2e-2 allows (each rounds the probabilities to bf16 before
+    P V, an error that scales with |v|, not with the output), and by no
+    more than that tolerance with its atol scaled by max |v|, as
+    chip_smoke.py's PlainCheck holds a forward launch."""
     (q, k, v, _), mask = _inputs((2, 640, 640, 4), "hole", seed=6)
     q, v = (_round(t * 6.0, torch.bfloat16) for t in (q, v))
     scale = D ** -0.5
@@ -423,12 +422,10 @@ def test_forward_rounding_grows_with_the_scale_of_v():
     plain = fa.allheads_attention_reference(
         q.bfloat16(), k.bfloat16(), v.bfloat16(), kv_mask=mask, causal=True,
         scale=scale).float()
-    truth = fa.allheads_attention_reference(q, k, v, kv_mask=mask,
-                                            causal=True, scale=scale)
-    assert float((out - truth).abs().max()) <= 2 * float(
-        (plain - truth).abs().max())
-    assert not bool(((out - plain).abs()
-                     <= TOL + TOL * plain.abs()).all())
+    err = (out - plain).abs()
+    assert not bool((err <= TOL + TOL * plain.abs()).all())
+    v_max = float(v.abs().max())
+    assert bool((err <= TOL * max(1.0, v_max) + TOL * plain.abs()).all())
 
 
 # K7 and K8/K9: (B, Sq, Sk, H), causal, key mask, with T5's bf16 bias
