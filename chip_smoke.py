@@ -38,7 +38,13 @@ imports no JAX. Phases, each fatal on failure:
      prefill cross-attention (4, 512 x 64, 32, 80); K4 with its row
      stats and K6 at the causal ones, a ragged 333 at each D, each against
      its plain version, K6 against K5 bit for bit, the half types on the
-     tensor-core bodies;
+     tensor-core bodies. K1 and K3 on their wgmma/TMA bodies at lengths 1,
+     63, 64, 65, 127, 128, 129, 205 and 640 and at 100 queries against 228
+     keys (end-aligned), head dims 64, 80 and 128, bf16 and fp16, causal,
+     with a pad gap, fully masked rows and a fully masked sample: K1 and
+     its row max and sum against the plain versions, K3 against its plain
+     version, and K3 from K1's stats equal, bit for bit, to K3 with its own
+     stats pass;
   4. the OPT-125M + CLIP ViT-B/16 test pass at full width (task=section,
      context=all, raw neighbors, the --test pass of mmgl_tpu_torch.cli on
      the synthetic corpus with seeded random weights); K1 and K2 must launch
@@ -230,8 +236,11 @@ and read just after. Every kernel has two bodies, tensor cores for bf16
 and fp16 and scalar FMAs for fp32: phases 4, 5, 5c, 6, 7, 9, 10 and 11
 (bf16 or fp16) check that every launch of K1-K9 took the tensor-core body,
 and their fp32 checks that none did.
+Phase 8 times K3 as training runs it, from K1's row stats.
 Prints the seconds elapsed at the end of each phase (and a JSON line of
-them), a kernels JSON line (the fp16 forms, the shapes of phases 12-14 and
+them), a kernels JSON line (each entry's "design" names its body: "tc" the
+mma.sync bodies, "bias_tc" their bias form, "wgmma_tma" K1's and K3's;
+the fp16 forms, the shapes of phases 12-14 and
 the head dims 80 and 128 that phases 18 and 16 launch, and K2's causal
 form at the CLIP text tower's shape that phase 18 launches, as entries of
 their own), then as its last line
@@ -412,11 +421,14 @@ OPT_LAYERDROP_ARGV = with_flags(OPT_TRAIN_ARGV, layerdrop=0.5, **SHORT)
 OPT_PLAIN_CE_ARGV = with_flags(OPT_TRAIN_ARGV, fused_ce="false",
                                log_to_wandb="true", **SHORT)
 # the device events of the port's kernels in a profiler trace: the
-# tensor-core bodies that mmgl_allheads_fwd_tc, mmgl_fused_heads_fwd_tc
-# (attention_fwd_tc_kernel) and mmgl_allheads_bwd_tc (the dK/dV and dQ
-# tiles) launch
-TRACE_KERNELS = ("attention_fwd_tc_kernel", "attention_bwd_dkdv_tc_kernel",
-                 "attention_bwd_dq_tc_kernel")
+# bodies that mmgl_fused_heads_fwd_tc (attention_fwd_tc_kernel),
+# mmgl_allheads_fwd_tc (allheads_fwd_kernel) and mmgl_allheads_bwd_tc (its
+# dK/dV and dQ bodies) launch
+TRACE_KERNELS = ("attention_fwd_tc_kernel", "allheads_fwd_kernel",
+                 "allheads_dkdv_kernel", "allheads_dq_kernel")
+# K1's and K3's wgmma bodies: the wrappers whose kernels-line entries name
+# that design
+WGMMA_KERNELS = ("flash_attention_allheads", "flash_attention_allheads_bwd")
 VIRTUAL = 20                # num_virtual_tokens
 # the neighbour memory's projections and position tables
 MEMORY = ("text_embeddings.", "visual_embeddings.",
@@ -441,15 +453,16 @@ BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bwd.cu"
 BIAS_FWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bias_fwd.cu"
 BIAS_BWD_SOURCE = "mmgl_tpu_torch/csrc/attention_bias_bwd.cu"
 BLOCKED_SOURCE = "mmgl_tpu_torch/csrc/attention_blocked_bwd.cu"
+WGMMA_SOURCE = "mmgl_tpu_torch/csrc/allheads_wgmma.cu"
 PALLAS = "mmgl_tpu/ops/flash_attention.py"
 # kernel wrapper -> (its plain version, the Pallas kernel it replaces, source)
 KERNELS = {
     "flash_attention_allheads": ("allheads_attention_reference",
-                                 f"{PALLAS}:1283", FWD_SOURCE),
+                                 f"{PALLAS}:1283", WGMMA_SOURCE),
     "fused_heads_attention": ("fused_heads_attention_reference",
                               f"{PALLAS}:1152", FWD_SOURCE),
     "flash_attention_allheads_bwd": ("allheads_attention_bwd_reference",
-                                     f"{PALLAS}:1307", BWD_SOURCE),
+                                     f"{PALLAS}:1307", WGMMA_SOURCE),
     "flash_attention": ("flash_attention_reference", f"{PALLAS}:179",
                         FWD_SOURCE),
     "flash_attention_bwd": ("flash_attention_bwd_reference", f"{PALLAS}:457",
@@ -466,6 +479,11 @@ BIAS_KERNELS = ("flash_attention_bias", "flash_attention_bias_bwd")
 # or fp16: the same bodies, m16n8k16 in .bf16 or .f16)
 DESIGNS = {"tc": "tensor cores: mma.sync m16n8k16, fp32 accumulators, "
                  "64 x 64 tiles, 4 warps of 16 rows, 2-stage cp.async ring",
+           "wgmma_tma": "wgmma m64nNk16 (P and dS as register A operands), "
+                        "TMA tiles through 4-D tensor maps into a "
+                        "2-stage mbarrier ring, one producer warp and "
+                        "consumer warpgroups of 64 rows; K3 from K1's "
+                        "row stats",
            "bias_tc": "the same bodies in their bias form: the bias tile in "
                       "the cp.async ring, Philox dropout on the P fragment "
                       "(one call a lane per 16 keys, words swapped by a "
@@ -631,7 +649,9 @@ def make_mask(kind: str, b: int, s: int, seed: int):
     "hole_fully_masked" and "gap_fully_masked"); "texts": neighbor texts,
     each right-padded to a random length, sample 0 all zero (an empty
     neighbor slot); "prefix": 20 virtual keys, always valid, then a
-    decoder-only batch's "hole" keys."""
+    decoder-only batch's "hole" keys; "rows_masked": sample 0 with a
+    "gap" (where S > 2), sample 1 its first third masked (its first causal
+    rows see no valid key), sample 2 all masked."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -663,6 +683,11 @@ def make_mask(kind: str, b: int, s: int, seed: int):
         mask[0] = 0
     elif kind == "prefix":
         mask[:, VIRTUAL:] = make_mask("hole", b, s - VIRTUAL, seed)
+    elif kind == "rows_masked":
+        if s > 2:
+            mask[0] = make_mask("gap", 1, s, seed)[0]
+        mask[1, :max(1, s // 3)] = 0
+        mask[2:] = 0
     return mask
 
 
@@ -1024,6 +1049,72 @@ def check_blocked_kernels(fa, device, worst):
     torch.cuda.empty_cache()
 
 
+# K1's and K3's wgmma bodies at the lengths that cut their TMA boxes (64
+# rows) and tiles (64 and 128 rows), family 7's 205 and OPT's 640, and one
+# Sq < Sk with the ends aligned: (Sq, Sk)
+WGMMA_LENGTHS = [(s, s) for s in (1, 63, 64, 65, 127, 128, 129, 205, 640)] + [
+    (100, 228)]
+
+
+def check_wgmma_kernels(fa, device, worst):
+    """Phase 3, K1 and K3 on their wgmma bodies: at each (Sq, Sk) of
+    WGMMA_LENGTHS, head dims 64, 80 and 128, bf16 and fp16, causal, with a
+    pad gap, fully masked rows and a fully masked sample ("rows_masked"):
+    K1 against its plain version at phase 3's tolerance, its row max and
+    sum within 1e-5 and 1e-4 of ``_row_stats``, K3 against its plain
+    version at the backward tolerance (an atol of at least 1e-3 times it:
+    at S = 1 dQ and dK are 0, the residue of dP - delta on both sides), and
+    K3 from K1's stats equal to K3 with its own stats pass, bit for bit."""
+    import torch
+
+    for d in (64, 80, 128):
+        for sq, sk in WGMMA_LENGTHS:
+            for dtype_name in ("bfloat16", "float16"):
+                atol, rtol = TOLERANCES[dtype_name]
+                q, k, v, mask, dout = flash_inputs(
+                    (3, sq, sk, 2, 2), "rows_masked",
+                    getattr(torch, dtype_name), device, 700 + sq + d, d)
+                label = f"(3, {sq}, {sk}, 2, {d}) causal {dtype_name}"
+                out, m, l = fa.flash_attention_allheads_stats(
+                    q, k, v, kv_mask=mask, causal=True)
+                own = fa.flash_attention_allheads_bwd(q, k, v, mask, out,
+                                                      dout, causal=True)
+                given = fa.flash_attention_allheads_bwd(
+                    q, k, v, mask, out, dout, causal=True, row_max=m,
+                    row_sum=l)
+                torch.cuda.synchronize(device)
+                ref = fa.allheads_attention_reference(q, k, v, kv_mask=mask,
+                                                      causal=True)
+                err = float((out.float() - ref.float()).abs().max())
+                key = wkey(dkey("flash_attention_allheads", d), dtype_name)
+                worst[key] = max(worst[key], err)
+                want_m, want_l = fa._row_stats(q, k, mask, True, d ** -0.5)
+                if not (_within(out, ref, atol, rtol)
+                        and _within(m, want_m, 1e-5, 1e-5)
+                        and _within(l, want_l, 0.0, 1e-4)):
+                    fail(f"K1's wgmma body {label}: out {err:.3e} from its "
+                         "plain version, or its row stats off")
+                if not all(torch.equal(a, b) for a, b in zip(own, given)):
+                    fail(f"K3 {label} from K1's stats differs from K3 with "
+                         "its own stats pass")
+                ref_g = fa.allheads_attention_bwd_reference(
+                    q, k, v, mask, out, dout, causal=True)
+                gtol = BWD_TOLERANCES[dtype_name][0]
+                for grad, g, r in zip(("dq", "dk", "dv"), own, ref_g):
+                    e = float((g.float() - r.float()).abs().max())
+                    key = wkey(dkey("flash_attention_allheads_bwd", d),
+                               dtype_name)
+                    worst[key] = max(worst[key], e)
+                    scale = max(float(r.float().abs().max()), 1e-3)
+                    if not _within(g, r, gtol * scale,
+                                   BWD_TOLERANCES[dtype_name][1]):
+                        fail(f"K3's wgmma bodies {label}: {grad} {e:.3e} "
+                             "from its plain version")
+        print(f"[check] K1, K3 wgmma bodies at head dim {d}, (Sq, Sk) "
+              f"{WGMMA_LENGTHS}, causal, bf16 and fp16, rows_masked: ok; "
+              "K3 from K1's stats = K3 with its own, bit for bit")
+
+
 def dkey(name: str, d: int) -> str:
     """A kernel's key at head dim d in the worst-error table and the
     kernels line (64 keeps the plain name)."""
@@ -1222,18 +1313,30 @@ class ShapeTally:
             return fn(entry, name, q, k, *a, stats=stats, **kw)
         return tallied
 
+    def _wrap_allheads(self, fn, name):
+        def tallied(q, *a, **kw):
+            self.dims[(name, q.shape[-1])] += 1
+            return fn(q, *a, **kw)
+        return tallied
+
     def __enter__(self):
         self.saved = (self.fa._launch_bias, self.fa._launch_bias_bwd,
-                      self.fa._launch, self.fa._launch_bwd)
+                      self.fa._launch, self.fa._launch_bwd,
+                      self.fa._launch_allheads, self.fa._launch_allheads_bwd)
         self.fa._launch_bias = self._wrap(self.saved[0], self.fwd)
         self.fa._launch_bias_bwd = self._wrap(self.saved[1], self.bwd)
         self.fa._launch = self._wrap_stats(self.saved[2])
         self.fa._launch_bwd = self._wrap_bwd(self.saved[3])
+        self.fa._launch_allheads = self._wrap_allheads(
+            self.saved[4], "flash_attention_allheads")
+        self.fa._launch_allheads_bwd = self._wrap_allheads(
+            self.saved[5], "flash_attention_allheads_bwd")
         return self
 
     def __exit__(self, *exc):
         (self.fa._launch_bias, self.fa._launch_bias_bwd,
-         self.fa._launch, self.fa._launch_bwd) = self.saved
+         self.fa._launch, self.fa._launch_bwd, self.fa._launch_allheads,
+         self.fa._launch_allheads_bwd) = self.saved
         return False
 
 
@@ -1253,7 +1356,8 @@ class PlainCheck:
     where v is of unit scale. Each launch with max |v| > 1 is kept under
     ``scaled``."""
 
-    LAUNCHERS = ("_launch", "_launch_bwd", "_launch_bias", "_launch_bias_bwd")
+    LAUNCHERS = ("_launch", "_launch_bwd", "_launch_bias", "_launch_bias_bwd",
+                 "_launch_allheads", "_launch_allheads_bwd")
 
     def __init__(self, fa, tag):
         self.fa, self.tag = fa, tag
@@ -1335,8 +1439,29 @@ class PlainCheck:
                            (tuple(q.shape), tuple(k.shape)))
             return got
 
+        def launch_allheads(q, k, v, kv_mask, causal, scale, with_stats):
+            got = saved["_launch_allheads"](q, k, v, kv_mask, causal, scale,
+                                            with_stats)
+            ref = fa.allheads_attention_reference(
+                q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
+            self._forward("flash_attention_allheads", got[0], ref, v,
+                          tuple(q.shape))
+            return got
+
+        def launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
+                                row_max, row_sum):
+            got = saved["_launch_allheads_bwd"](q, k, v, kv_mask, out, dout,
+                                                causal, scale, row_max,
+                                                row_sum)
+            ref = fa.allheads_attention_bwd_reference(
+                q, k, v, kv_mask, out, dout, causal=causal, scale=scale)
+            self._backward("flash_attention_allheads_bwd", got, ref,
+                           tuple(q.shape))
+            return got
+
         for name, fn in zip(self.LAUNCHERS, (launch, launch_bwd, launch_bias,
-                                             launch_bias_bwd)):
+                                             launch_bias_bwd, launch_allheads,
+                                             launch_allheads_bwd)):
             setattr(fa, name, fn)
         return self
 
@@ -2100,10 +2225,15 @@ def _opt_timing_cases(fa, device, dtype_name):
     q, k, v, mask, out, dout = args
     s, h, d = q.shape[1:]
     pairs = allowed_pairs(mask, s, True) * h
+    # K3 as training runs it: from K1's row stats
+    _, m, l = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
+                                                causal=True)
     cases.append((
-        f"flash_attention_allheads_bwd {tuple(q.shape)} causal",
+        f"flash_attention_allheads_bwd {tuple(q.shape)} causal from K1's "
+        "stats",
         wkey("flash_attention_allheads_bwd", dtype_name), {
-            "kernel": partial(fa.flash_attention_allheads_bwd, *args, **kw),
+            "kernel": partial(fa.flash_attention_allheads_bwd, *args, **kw,
+                              row_max=m, row_sum=l),
             "plain": partial(fa.allheads_attention_bwd_reference, *args,
                              **kw),
             "library": _sdpa_bwd(*_bhsd(q, k, v),
@@ -2281,6 +2411,7 @@ def _head_dim_timing_cases(fa, device, d, s=640, blocked=True):
                                        600 + d, d)
     kw = dict(kv_mask=mask, causal=True)
     out = fa.allheads_attention_reference(q, k, v, **kw)
+    _, m, l = fa.flash_attention_allheads_stats(q, k, v, **kw)
     qt, kt, vt, dot = _bhsd(q, k, v, dout)
     am = float_mask(mask, s, True, None, dt)
     pairs = allowed_pairs(mask, s, True) * h
@@ -2296,7 +2427,8 @@ def _head_dim_timing_cases(fa, device, d, s=640, blocked=True):
         (f"flash_attention_allheads_bwd {label}",
          dkey("flash_attention_allheads_bwd", d), {
              "kernel": partial(fa.flash_attention_allheads_bwd, q, k, v,
-                               mask, out, dout, causal=True),
+                               mask, out, dout, causal=True, row_max=m,
+                               row_sum=l),
              "plain": partial(fa.allheads_attention_bwd_reference, q, k, v,
                               mask, out, dout, causal=True),
              "library": _sdpa_bwd(qt, kt, vt, am, dot)},
@@ -3426,6 +3558,7 @@ def main() -> int:
     keep = check_t5_kernels(fa, device, worst)
     check_blocked_kernels(fa, device, worst)
     check_head_dim_kernels(fa, device, worst)
+    check_wgmma_kernels(fa, device, worst)
     lap("3")
 
     test, results, opt_test, rate, peak = run_test_pass(
@@ -3774,6 +3907,8 @@ def main() -> int:
         err = (name if name in worst else
                wkey("flash_attention[stats]" if "[stats]" in name else base,
                     "float16" if fp16 else "bfloat16"))
+        design = ("bias_tc" if base in BIAS_KERNELS else
+                  "wgmma_tma" if base in WGMMA_KERNELS else "tc")
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -3782,8 +3917,7 @@ def main() -> int:
             "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
             "library_ms": times["library"], "shape": label,
             "dtype": "float16" if fp16 else "bfloat16",
-            "design": DESIGNS["bias_tc" if base in BIAS_KERNELS
-                              else "tc"]})
+            "design": design, "design_text": DESIGNS[design]})
     print(json.dumps({"elapsed_s": laps, "card": card}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

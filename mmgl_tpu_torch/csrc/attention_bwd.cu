@@ -4,8 +4,8 @@
 // Replaces
 //   mmgl_allheads_bwd -> _allheads_kernel_bwd (mmgl_tpu/ops/flash_attention.py:1307),
 //                        reached through _allheads_vjp_bwd (:1392, pallas_call :1399).
-//                        OPT causal self-attention: (4, 640, 12, 64), bf16
-//                        or fp16.
+//                        OPT causal self-attention: (4, 640, 12, 64), fp32
+//                        (bf16 and fp16 take allheads_wgmma.cu).
 //   mmgl_flash_bwd    -> _bwd_kernel (mmgl_tpu/ops/flash_attention.py:414),
 //                        pallas_call in _bwd (:457, :472): the backward of K4.
 //                        T5's cross-attention, q (B, 128, 12, 64) against
@@ -43,7 +43,7 @@
 //
 // Two bodies, chosen by the input dtype. fp32 inputs take the scalar passes
 // above (on the tensor cores fp32 would run as TF32). bf16 and fp16 inputs
-// take the tensor-core bodies, four launches (entries *_tc below): the forward body
+// take the tensor-core bodies, four launches (K5's entry below): the forward body
 // of attention_fwd_tc.cuh in its stats-only form (m and l from the same code,
 // in the same order, as K4 writes them for K6, so K5 and K6 agree bit for
 // bit), the delta pass, then the tensor-core dK/dV and dQ bodies of
@@ -294,19 +294,8 @@ extern "C" int mmgl_flash_bwd(const void* q, const void* k, const void* v,
                            dtype, stream);
 }
 
-// K3 and K5 on the tensor-core bodies (dtype bf16 or fp16, mmgl::DType).
-extern "C" int mmgl_allheads_bwd_tc(const void* q, const void* k,
-                                    const void* v, const int* kv_mask,
-                                    const void* out, const void* dout,
-                                    void* dq, void* dk, void* dv,
-                                    float* stats, int batch, int sq, int sk,
-                                    int heads, int head_dim, float scale,
-                                    int causal, int dtype,
-                                    cudaStream_t stream) {
-  return launch_tc(q, k, v, kv_mask, out, dout, dq, dk, dv, stats, batch, sq,
-                   sk, heads, head_dim, scale, causal, dtype, stream);
-}
-
+// K5 on the tensor-core bodies (dtype bf16 or fp16, mmgl::DType). K3's
+// bf16 and fp16 entry, mmgl_allheads_bwd_tc, is in allheads_wgmma.cu.
 extern "C" int mmgl_flash_bwd_tc(const void* q, const void* k, const void* v,
                                  const int* kv_mask, const void* out,
                                  const void* dout, void* dq, void* dk,

@@ -4,7 +4,8 @@
 // Replaces
 //   mmgl_allheads_fwd    -> _allheads_kernel_fwd (mmgl_tpu/ops/flash_attention.py:1283),
 //                           reached through flash_attention_allheads (:1422).
-//                           OPT causal self-attention: (4, 640|512, 12, 64).
+//                           OPT causal self-attention: (4, 640|512, 12, 64),
+//                           fp32 (bf16 and fp16 take allheads_wgmma.cu).
 //   mmgl_fused_heads_fwd -> _fused_heads_kernel (mmgl_tpu/ops/flash_attention.py:1152),
 //                           reached through fused_heads_attention (:1244).
 //                           CLIP vision self-attention: (24, 197, 12, 64).
@@ -40,8 +41,8 @@
 //
 // Two bodies, chosen by the input dtype. bf16 and fp16 inputs take the
 // tensor-core body of attention_fwd_tc.cuh (mma.sync, cp.async,
-// FlashAttention-2's shape; entries *_tc below). fp32 inputs take the scalar
-// body here: on the
+// FlashAttention-2's shape; entries *_tc below; K1's is the wgmma/TMA body
+// of allheads_wgmma.cu). fp32 inputs take the scalar body here: on the
 // tensor cores fp32 would run as TF32, about three decimal digits, and the
 // fp32 checks hold the kernels to 2e-5.
 //
@@ -349,18 +350,9 @@ extern "C" int mmgl_flash_fwd(const void* q, const void* k, const void* v,
                   heads, head_dim, scale, causal, dtype, stream);
 }
 
-// The same three entries on the tensor-core body (dtype bf16 or fp16; the
-// entries above take fp32 only). dtype: mmgl::DType (common.cuh).
-extern "C" int mmgl_allheads_fwd_tc(const void* q, const void* k,
-                                    const void* v, const int* kv_mask,
-                                    void* out, int batch, int sq, int sk,
-                                    int heads, int head_dim, float scale,
-                                    int causal, int dtype,
-                                    cudaStream_t stream) {
-  return dispatch_tc(q, k, v, kv_mask, out, nullptr, nullptr, batch, sq, sk,
-                     heads, head_dim, scale, causal, dtype, stream);
-}
-
+// K2 and K4 on the tensor-core body (dtype bf16 or fp16; the entries
+// above take fp32 only). dtype: mmgl::DType (common.cuh). K1's bf16 and
+// fp16 entry, mmgl_allheads_fwd_tc, is in allheads_wgmma.cu.
 extern "C" int mmgl_fused_heads_fwd_tc(const void* q, const void* k,
                                        const void* v, const int* kv_mask,
                                        void* out, int batch, int seq,

@@ -341,6 +341,9 @@ class OPTDecoder(nn.Module):
         if attention_mask is None:
             attention_mask = torch.ones(b, s, dtype=torch.int32,
                                         device=inputs_embeds.device)
+        # the key mask as the attention kernels take it, once a forward
+        # (a no-op where the batch's mask is int32 already)
+        attention_mask = attention_mask.to(torch.int32)
         if position_ids is None:
             position_ids = make_positions_from_mask(attention_mask)[:, -s:]
         if self.cfg.projects:

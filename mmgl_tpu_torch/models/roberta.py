@@ -136,5 +136,7 @@ class RobertaModel(nn.Module):
                 ) -> torch.Tensor:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
+        # the key mask as the attention kernels take it, once a forward
+        attention_mask = attention_mask.to(torch.int32)
         x = self.embeddings(input_ids, attention_mask)
         return self.encoder(x, attention_mask)

@@ -115,20 +115,27 @@ def load() -> Library:
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     u32 = ctypes.c_uint
-    # K1-K6 have a scalar entry (fp32) and a tensor-core one (bf16 and
-    # fp16, *_tc) with the same arguments; the dtype argument is a code of
-    # mmgl::DType (csrc/common.cuh)
+    # K2 and K4-K6 have a scalar entry (fp32) and a tensor-core one (bf16
+    # and fp16, *_tc) with the same arguments; the dtype argument is a code
+    # of mmgl::DType (csrc/common.cuh). K1's and K3's tensor-core entries
+    # (the wgmma bodies) also take the row max and sum: K1 writes them
+    # where not null, K3 starts from them where not null
+    tail = [f32, i32, i32, ptr]
     signatures = {
-        "mmgl_allheads_fwd": [ptr] * 5 + [i32] * 5 + [f32, i32, i32, ptr],
+        "mmgl_allheads_fwd": [ptr] * 5 + [i32] * 5 + tail,
+        "mmgl_allheads_fwd_tc": [ptr] * 7 + [i32] * 5 + tail,
         # K4 also takes the row max and sum outputs (null unless K6 follows)
-        "mmgl_flash_fwd": [ptr] * 7 + [i32] * 5 + [f32, i32, i32, ptr],
-        "mmgl_fused_heads_fwd": [ptr] * 5 + [i32] * 4 + [f32, i32, i32, ptr],
-        "mmgl_allheads_bwd": [ptr] * 10 + [i32] * 5 + [f32, i32, i32, ptr],
-        "mmgl_flash_bwd": [ptr] * 10 + [i32] * 5 + [f32, i32, i32, ptr],
-        "mmgl_blocked_bwd": [ptr] * 12 + [i32] * 5 + [f32, i32, i32, ptr],
+        "mmgl_flash_fwd": [ptr] * 7 + [i32] * 5 + tail,
+        "mmgl_fused_heads_fwd": [ptr] * 5 + [i32] * 4 + tail,
+        "mmgl_allheads_bwd": [ptr] * 10 + [i32] * 5 + tail,
+        "mmgl_allheads_bwd_tc": [ptr] * 12 + [i32] * 5 + tail,
+        "mmgl_flash_bwd": [ptr] * 10 + [i32] * 5 + tail,
+        "mmgl_blocked_bwd": [ptr] * 12 + [i32] * 5 + tail,
     }
     for name, args in signatures.items():
-        for fn in (name, name + "_tc"):
+        fns = (name,) if name.startswith("mmgl_allheads") else (
+            name, name + "_tc")
+        for fn in fns:
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
     # K7 and K8/K9: the tensor-core entries also take the row max and sum

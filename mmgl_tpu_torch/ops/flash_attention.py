@@ -70,6 +70,7 @@ keeps one there).
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -264,34 +265,36 @@ def bias_attention_bwd_reference(q, k, v, kv_mask, bias, out, dout, *,
 
 def _check(name: str, q, k, v, kv_mask, allow_sq_gt_sk: bool = False
            ) -> None:
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
         raise ValueError(f"{name}: q/k/v must be BSHD with k.shape == v.shape,"
-                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    b, sq, h, d = q.shape
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
-        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if k.shape[1] < sq and not allow_sq_gt_sk:
-        raise ValueError(f"{name}: sq={sq} > sk={k.shape[1]}")
-    if kv_mask is not None and tuple(kv_mask.shape) != (b, k.shape[1]):
+                         f" got {tuple(qs)}, {tuple(ks)}, {tuple(v.shape)}")
+    b, sq, h, d = qs
+    if ks[0] != b or ks[2] != h or ks[3] != d:
+        raise ValueError(f"{name}: k/v {tuple(ks)} do not match q "
+                         f"{tuple(qs)}")
+    if ks[1] < sq and not allow_sq_gt_sk:
+        raise ValueError(f"{name}: sq={sq} > sk={ks[1]}")
+    if kv_mask is not None and kv_mask.shape != (b, ks[1]):
         raise ValueError(f"{name}: kv_mask {tuple(kv_mask.shape)} is not "
-                         f"(B, Sk) = {(b, k.shape[1])}")
-    if q.device.type == "cpu":
+                         f"(B, Sk) = {(b, ks[1])}")
+    dev = q.device
+    if dev.type == "cpu":
         return
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
-    dims = HEAD_DIMS.get(name, (64,))
-    if d not in dims:
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if d not in HEAD_DIMS.get(name, (64,)):
+        dims = HEAD_DIMS.get(name, (64,))
         raise ValueError(f"{name}: the kernel takes head_dim "
                          f"{' or '.join(map(str, dims))}, got {d} (ROADMAP "
                          "B)")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODE or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"{name}: q/k/v must all be float32, bfloat16 or "
-                         f"float16, got {q.dtype}, {k.dtype}, {v.dtype}")
+                         f"float16, got {dtype}, {k.dtype}, {v.dtype}")
     for t in (k, v) + ((kv_mask,) if kv_mask is not None else ()):
-        if t.device != q.device:
-            raise ValueError(f"{name}: inputs on {t.device} and {q.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on {t.device} and {dev}")
     _check_layout(name, q, k, v)
 
 
@@ -308,6 +311,12 @@ def _int_mask(q, k, kv_mask) -> torch.Tensor:
         return torch.ones(q.shape[0], k.shape[1], dtype=torch.int32,
                           device=q.device)
     return kv_mask.to(torch.int32).contiguous()
+
+
+def _needs_grad(q, k, v) -> bool:
+    """Whether autograd would record a call on q, k and v."""
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
 
 
 def _plain(q) -> bool:
@@ -390,31 +399,148 @@ def _check_out_dout(name, q, out, dout):
     return out, dout
 
 
-def _allheads_forward(q, k, v, kv_mask, causal, scale):
+# ---- K1 and K3's launch path ------------------------------------------
+#
+# K1 and K3 run once a layer and micro-step, and their bodies take tens of
+# microseconds, so the host's work around each launch sets their pace on the
+# main path. Their launchers below do only what a call needs: the ctypes
+# entry's argument types are set once at load (``_build.load``), the raw
+# stream comes from torch's C API, the device is switched only when q is not
+# on the current one, an int32 contiguous key mask is passed as it stands
+# (the models build theirs once a forward) and no mask as a null pointer
+# (every key valid), and the tensor maps are encoded by the C entry.
+
+
+def _lib_fn(entry):
+    """The library's entry ``entry`` (its argument types set at load)."""
+    return getattr(_build.load().lib, entry)
+
+
+def _mask_arg(kv_mask):
+    """(keep-alive tensor or None, pointer or None) of a key mask as the
+    wgmma entries take it: int32 contiguous, or null for none."""
+    if kv_mask is None:
+        return None, None
+    if kv_mask.dtype != torch.int32 or not kv_mask.is_contiguous():
+        kv_mask = kv_mask.to(torch.int32).contiguous()
+    return kv_mask, kv_mask.data_ptr()
+
+
+# the device whose context each host thread has made current for the
+# library (its own CUDA runtime needs a current context on the calling
+# thread: a launch from autograd's backward thread before any torch kernel
+# there fails with "invalid argument")
+_THREAD = threading.local()
+
+
+def _call(q, fn, name, *args):
+    """Call a library entry with q's device current and its current stream
+    as the last argument; raise on a CUDA error."""
+    index = q.device.index
+    if index == torch.cuda.current_device():
+        if getattr(_THREAD, "device", None) != index:
+            torch.cuda.set_device(index)  # current already: makes its
+            _THREAD.device = index        # context current on this thread
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        _build.check(_build.load().lib, err, name)
+
+
+def _launch_allheads(q, k, v, kv_mask, causal, scale, with_stats):
+    """Run K1 on the current stream: (out, row_max, row_sum), the stats
+    (B, H, Sq) fp32 where ``with_stats`` (the wgmma body only), else
+    None."""
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    mask, mask_ptr = _mask_arg(kv_mask)
+    if _tensor_cores(q):
+        stats = _empty_stats(q) if with_stats else (None, None)
+        _call(q, _lib_fn("mmgl_allheads_fwd_tc"), "flash_attention_allheads",
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+              out.data_ptr(), *(_ptr(t) for t in stats), b, sq, k.shape[1],
+              h, d, scale, causal, _DTYPE_CODE[q.dtype])
+        return (out,) + stats
+    if mask is None:  # the scalar body reads a mask
+        mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
+    _call(q, _lib_fn("mmgl_allheads_fwd"), "flash_attention_allheads",
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+          b, sq, k.shape[1], h, d, scale, causal, 0)
+    return out, None, None
+
+
+def _launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
+                         row_max, row_sum):
+    """Run K3 on the current stream: (dq, dk, dv). The wgmma bodies start
+    from ``row_max``/``row_sum`` where given (K1's), else compute them
+    first; the scalar body (fp32) always does."""
+    b, sq, h, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    mask, mask_ptr = _mask_arg(kv_mask)
+    if _tensor_cores(q):
+        n = b * h * sq * (1 if row_max is not None else 3)
+        scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+        _call(q, _lib_fn("mmgl_allheads_bwd_tc"),
+              "flash_attention_allheads_bwd", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), mask_ptr, out.data_ptr(), dout.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+              _ptr(row_max), _ptr(row_sum), b, sq, k.shape[1], h, d, scale,
+              causal, _DTYPE_CODE[q.dtype])
+        return dq, dk, dv
+    if mask is None:
+        mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
+    stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
+    _call(q, _lib_fn("mmgl_allheads_bwd"), "flash_attention_allheads_bwd",
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+          dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          stats.data_ptr(), b, sq, k.shape[1], h, d, scale, causal, 0)
+    return dq, dk, dv
+
+
+def _allheads_forward(q, k, v, kv_mask, causal, scale, with_stats):
+    """K1 (or its plain version on the CPU): (out, row_max, row_sum), the
+    stats None unless ``with_stats`` (on the card, bf16 and fp16 only)."""
     if _plain(q):
-        return allheads_attention_reference(q, k, v, kv_mask=kv_mask,
-                                            causal=causal, scale=scale)
-    b, sq, h, _ = q.shape
-    out = _launch("mmgl_allheads_fwd", "flash_attention_allheads", q, k, v,
-                  kv_mask, causal, scale, b, sq, k.shape[1], h)
+        out = allheads_attention_reference(q, k, v, kv_mask=kv_mask,
+                                           causal=causal, scale=scale)
+        if not with_stats:
+            return out, None, None
+        return (out,) + _row_stats(q, k, kv_mask, causal, scale)
+    got = _launch_allheads(q, k, v, kv_mask, causal, scale, with_stats)
     _count(flash_attention_allheads, q)
-    return out
+    return got
 
 
 def flash_attention_allheads_bwd(q, k, v, kv_mask, out, dout, *,
-                                 causal=False, scale=None):
+                                 causal=False, scale=None, row_max=None,
+                                 row_sum=None):
     """K3: (dq, dk, dv) of K1 for the cotangent ``dout``; ``out`` is K1's
-    output for the same inputs. Each in q's dtype and shape."""
+    output for the same inputs. Each in q's dtype and shape.
+    ``row_max``/``row_sum``: K1's row stats for the same inputs
+    (``flash_attention_allheads_stats``), (B, H, Sq) fp32, or None. The
+    wgmma bodies (bf16, fp16) and the plain version start from them instead
+    of computing them (the wgmma bodies with the same bits: they compute
+    them with K1's body); the fp32 body recomputes the softmax."""
     name = "flash_attention_allheads_bwd"
     _check(name, q, k, v, kv_mask)
+    if (row_max is None) != (row_sum is None):
+        raise ValueError(f"{name}: give both row_max and row_sum, or neither")
+    if row_max is not None:
+        _check_stats(name, q, row_max, row_sum)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     out, dout = _check_out_dout(name, q, out, dout)
     if _plain(q):
+        if row_max is not None:
+            return flash_attention_blocked_bwd_reference(
+                q, k, v, kv_mask, out, dout, row_max, row_sum, causal=causal,
+                scale=scale)
         return allheads_attention_bwd_reference(q, k, v, kv_mask, out, dout,
                                                 causal=causal, scale=scale)
-    grads = _launch_bwd("mmgl_allheads_bwd", name, q, k, v, kv_mask, out,
-                        dout, causal, scale)
+    grads = _launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
+                                 row_max, row_sum)
     _count(flash_attention_allheads_bwd, q)
     return grads
 
@@ -425,20 +551,26 @@ flash_attention_allheads_bwd.launches_tc = 0
 
 class _AllheadsAttention(torch.autograd.Function):
     """K1 forward, K3 backward (the ``_allheads`` custom VJP,
-    mmgl_tpu/ops/flash_attention.py:1382-1419)."""
+    mmgl_tpu/ops/flash_attention.py:1382-1419). Where a gradient follows,
+    the wgmma body of K1 also writes the rows' max and sum, and K3 starts
+    from them (no stats pass)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, scale):
-        out = _allheads_forward(q, k, v, kv_mask, causal, scale)
-        ctx.save_for_backward(q, k, v, kv_mask, out)
+        with_stats = (not _plain(q) and _tensor_cores(q)
+                      and any(ctx.needs_input_grad[:3]))
+        out, row_max, row_sum = _allheads_forward(q, k, v, kv_mask, causal,
+                                                  scale, with_stats)
+        ctx.save_for_backward(q, k, v, kv_mask, out, row_max, row_sum)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_mask, out = ctx.saved_tensors
+        q, k, v, kv_mask, out, row_max, row_sum = ctx.saved_tensors
         dq, dk, dv = flash_attention_allheads_bwd(
-            q, k, v, kv_mask, out, dout, causal=ctx.causal, scale=ctx.scale)
+            q, k, v, kv_mask, out, dout, causal=ctx.causal, scale=ctx.scale,
+            row_max=row_max, row_sum=row_sum)
         return dq, dk, dv, None, None, None
 
 
@@ -452,25 +584,48 @@ def flash_attention_allheads(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """K1: attention over BSHD tensors read in place, (B, Sq, H, D) out; its
-    gradient runs K3."""
+    gradient runs K3. Where no gradient can flow (no grad mode, or no input
+    requiring one: the eval pass, the frozen towers) it skips the autograd
+    node, whose host cost is of the order of the kernel's."""
     _check("flash_attention_allheads", q, k, v, kv_mask)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _AllheadsAttention.apply(q, k, v, kv_mask, causal, scale)
+    if _needs_grad(q, k, v):
+        return _AllheadsAttention.apply(q, k, v, kv_mask, causal, scale)
+    return _allheads_forward(q, k, v, kv_mask, causal, scale, False)[0]
 
 
 flash_attention_allheads.launches = 0
 flash_attention_allheads.launches_tc = 0
 
 
+def flash_attention_allheads_stats(q, k, v, *, kv_mask=None, causal=False,
+                                   scale=None):
+    """K1 keeping the rows' softmax statistics, as K3 can start from them:
+    (out, row_max, row_sum), the stats (B, H, Sq) fp32 (kept apart: a fully
+    masked row has max -1e30 and sum Sk). On the card bf16 and fp16 only
+    (the wgmma body). No autograd; a launch counts under
+    ``flash_attention_allheads.launches``."""
+    name = "flash_attention_allheads"
+    _check(name, q, k, v, kv_mask)
+    if not _plain(q) and not _tensor_cores(q):
+        raise ValueError(f"{name}: the row stats come from the wgmma body; "
+                         f"q is {q.dtype}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _allheads_forward(q, k, v, kv_mask, causal, scale, True)
+
+
 class _FusedHeadsAttention(torch.autograd.Function):
     """K2 forward; the backward recomputes through the plain version
-    (``_fused_heads_vjp_bwd``, mmgl_tpu/ops/flash_attention.py:1230-1238)."""
+    (``_fused_heads_vjp_bwd``, mmgl_tpu/ops/flash_attention.py:1230-1238).
+    ``forward`` with ctx None is K2 without autograd."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, scale):
-        ctx.save_for_backward(q, k, v, kv_mask)
-        ctx.causal, ctx.scale = causal, scale
+        if ctx is not None:
+            ctx.save_for_backward(q, k, v, kv_mask)
+            ctx.causal, ctx.scale = causal, scale
         if _plain(q):
             return fused_heads_attention_reference(
                 q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
@@ -500,13 +655,17 @@ def fused_heads_attention(
     causal: bool = False,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """K2: self-attention (sq == sk) of any length, (B, S, H, D) out."""
+    """K2: self-attention (sq == sk) of any length, (B, S, H, D) out. Where
+    no gradient can flow (CLIP's frozen tower) it skips the autograd node,
+    as K1 does."""
     _check("fused_heads_attention", q, k, v, kv_mask)
     if k.shape[1] != q.shape[1]:
         raise ValueError("fused_heads_attention is self-attention: sq == sk")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FusedHeadsAttention.apply(q, k, v, kv_mask, causal, scale)
+    if _needs_grad(q, k, v):
+        return _FusedHeadsAttention.apply(q, k, v, kv_mask, causal, scale)
+    return _FusedHeadsAttention.forward(None, q, k, v, kv_mask, causal, scale)
 
 
 fused_heads_attention.launches = 0

@@ -1,6 +1,20 @@
 """Time shapes of the bf16 tensor-core attention bodies on the card.
 
-    python -m mmgl_tpu_torch.sweep_attention
+    python -m mmgl_tpu_torch.sweep_attention [--allheads | --no-allheads]
+
+``--allheads`` times K1's and K3's wgmma/TMA bodies alone (a few minutes),
+``--no-allheads`` everything else; neither flag, both. K1 and K3
+(csrc/sweep/allheads_shapes.cu, on the bodies of csrc/allheads_wgmma.cuh):
+the forward, dK/dV and dQ bodies each in several (consumer warpgroups,
+streamed tile rows, ring stages, blocks an SM) shapes, beside the mma.sync
+bodies they replaced (the forward; K3's four launches) and the library's
+wrappers, at K1's and K3's shapes of PERF.md §6: OPT-125M's (4, 640, 12, 64)
+causal, Roberta's (44, 512, 12, 64), family 7's (4, 205, 32, 80), OPT-2.7B's
+(4, 640, 32, 80) and OPT-6.7B's (4, 640, 32, 128) causal, against
+scaled_dot_product_attention, and the device time of the library's K1 and
+K3 and of the mma.sync bodies (their kernel events under torch.profiler);
+each shape held to the library's outputs within 2^-7 of their largest entry
+(another tile width sums the softmax in another order). The rest:
 
 Builds csrc/sweep/attention_shapes.cu (the forward body and K6's dK/dV and
 dQ bodies in several (warps, ring stages, blocks an SM) shapes, each at
@@ -46,7 +60,8 @@ from mmgl_tpu_torch.ops import attention as att
 from mmgl_tpu_torch.ops import flash_attention as fa
 
 SOURCES = [_build.CSRC / "sweep" / name
-           for name in ("attention_shapes.cu", "bias_shapes.cu")]
+           for name in ("attention_shapes.cu", "bias_shapes.cu",
+                        "allheads_shapes.cu")]
 RUN = 10        # calls back to back in a sample
 SAMPLES = 10
 # (B, Sq = Sk, H, D), causal, backward too
@@ -62,16 +77,17 @@ BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
 RATE = 0.1
 
 
-def build():
-    """The two sweep libraries, each source built by its own nvcc, both at
-    once; prints each kernel's registers and any spills."""
+def build(which=(0, 1, 2)):
+    """The sweep libraries (``which``: indices into SOURCES; the others are
+    None), each source built by its own nvcc, all at once; prints each
+    kernel's registers and any spills."""
     h = hashlib.sha256(_build._digest().encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     outs = [_build.BUILD_DIR / f"sweep_{src.stem}-{h.hexdigest()[:16]}.so"
             for src in SOURCES]
-    todo = [(src, out) for src, out in zip(SOURCES, outs)
-            if not out.exists()]
+    todo = [(src, out) for i, (src, out) in enumerate(zip(SOURCES, outs))
+            if i in which and not out.exists()]
     if todo:
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         report = _build._run([[_build.find_nvcc(), *_build.NVCC_FLAGS,
@@ -81,17 +97,25 @@ def build():
                         if "Compiling entry" in line or "Used" in line
                         or "spill" in line
                         and " 0 bytes spill stores" not in line))
-    lib, bias_lib = (ctypes.CDLL(str(out)) for out in outs)
+    lib, bias_lib, allheads_lib = (
+        ctypes.CDLL(str(out)) if i in which else None
+        for i, out in enumerate(outs))
     ptr, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint)
-    lib.sweep_fwd.argtypes = [i32, i32] + [ptr] * 7 + [i32] * 4 + [f32, i32,
-                                                                  ptr]
-    lib.sweep_bwd.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 4 + [f32, i32,
-                                                                   ptr]
-    tail = [i32] * 4 + [f32, i32, u32, f32, ptr]
-    bias_lib.sweep_bias_fwd.argtypes = [i32] + [ptr] * 9 + tail
-    bias_lib.sweep_bias_bwd.argtypes = [i32] + [ptr] * 14 + tail
-    return lib, bias_lib
+    tail = [i32] * 4 + [f32, i32, ptr]
+    if lib is not None:
+        lib.sweep_fwd.argtypes = [i32, i32] + [ptr] * 7 + tail
+        lib.sweep_bwd.argtypes = [i32, i32] + [ptr] * 11 + tail
+    if bias_lib is not None:
+        bias_tail = [i32] * 4 + [f32, i32, u32, f32, ptr]
+        bias_lib.sweep_bias_fwd.argtypes = [i32] + [ptr] * 9 + bias_tail
+        bias_lib.sweep_bias_bwd.argtypes = [i32] + [ptr] * 14 + bias_tail
+    if allheads_lib is not None:
+        allheads_lib.sweep_k1.argtypes = [i32, i32] + [ptr] * 7 + tail
+        allheads_lib.sweep_dkdv.argtypes = [i32, i32] + [ptr] * 11 + tail
+        allheads_lib.sweep_dq.argtypes = [i32, i32] + [ptr] * 10 + tail
+        allheads_lib.sweep_k3_before.argtypes = [i32] + [ptr] * 10 + tail
+    return lib, bias_lib, allheads_lib
 
 
 def inputs(b, s, h, d, seed, device):
@@ -319,7 +343,157 @@ def sweep_bias_case(lib, tag, dims, causal, with_bias, rate, device):
             "agrees_with_library": same}
 
 
-def main() -> int:
+# K1's and K3's shapes of PERF.md §6: (B, S, H, D), causal
+ALLHEADS_CASES = [((4, 640, 12, 64), True), ((44, 512, 12, 64), False),
+                  ((4, 205, 32, 80), True), ((4, 640, 32, 80), True),
+                  ((4, 640, 32, 128), True)]
+
+
+def device_ms(fns, calls=20):
+    """The device time of one call of each callable: the sum of its kernel
+    events under torch.profiler (CUDA activity) over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0)
+                    for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+        out[name] = round(total / calls / 1e3, 4)
+    return out
+
+
+def _near(got, want):
+    """Within 2^-7 of the largest entry of each of ``want``."""
+    return all(float((x.float() - y.float()).abs().max())
+               <= 2 ** -7 * float(y.float().abs().max())
+               for x, y in zip(got, want))
+
+
+def sweep_allheads_case(lib, dims, causal, device):
+    """K1's and K3's wgmma shapes, the mma.sync bodies before them, the
+    library's wrappers and SDPA at one shape."""
+    b, s, h, d = dims
+    q, k, v, dout, mask = inputs(b, s, h, d, s + h + d, device)
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    out, m, l = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
+                                                  causal=causal)
+    args = (b, s, s, h, scale, int(causal), stream)
+    fwd = {"library K1 (wrapper)": lambda: fa.flash_attention_allheads(
+        q, k, v, kv_mask=mask, causal=causal)}
+    same = {}
+    for i in range(-1, lib.sweep_k1_shapes()):
+        o2 = torch.empty_like(out)
+        name = "mma.sync forward (before)" if i < 0 else f"k1 shape {i}"
+
+        def call(i=i, o2=o2):
+            err = lib.sweep_k1(i, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               mask.data_ptr(), o2.data_ptr(), None, None,
+                               *args)
+            if err:
+                raise RuntimeError(f"k1 shape {i}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[name] = _near([o2], [out])
+        fwd[name] = call
+    am = _float_mask(mask, s, causal, device)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                       for t in (q, k, v, dout))
+    fwd["scaled_dot_product_attention"] = \
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+    ref = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                          causal=causal, row_max=m,
+                                          row_sum=l)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    scratch = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)
+    bwd = {"library K3 from K1's stats (wrapper)":
+           lambda: fa.flash_attention_allheads_bwd(
+               q, k, v, mask, out, dout, causal=causal, row_max=m,
+               row_sum=l),
+           "library K3 with its stats pass (wrapper)":
+           lambda: fa.flash_attention_allheads_bwd(
+               q, k, v, mask, out, dout, causal=causal)}
+    grads = [torch.empty_like(q) for _ in range(3)]
+
+    def before():
+        err = lib.sweep_k3_before(
+            d, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), *(t.data_ptr() for t in grads),
+            scratch.data_ptr(), *args)
+        if err:
+            raise RuntimeError(f"k3 before: CUDA error {err}")
+    before()
+    torch.cuda.synchronize()
+    same["mma.sync K3 (before)"] = _near(grads, ref)
+    bwd["mma.sync K3, four launches (before)"] = before
+    stats = (m.data_ptr(), l.data_ptr(), delta.data_ptr())
+    for i in range(-1, lib.sweep_dkdv_shapes()):
+        g = [torch.empty_like(q) for _ in range(3)]
+        name = ("mma.sync dK/dV + dQ (before)" if i < 0
+                else f"dkdv shape {i}")
+
+        def call(i=i, g=g):
+            err = lib.sweep_dkdv(i, d, q.data_ptr(), k.data_ptr(),
+                                 v.data_ptr(), mask.data_ptr(),
+                                 dout.data_ptr(), *stats,
+                                 *(t.data_ptr() for t in g), *args)
+            if err:
+                raise RuntimeError(f"dkdv shape {i}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[name] = _near(g[1:] if i >= 0 else g, ref[1:] if i >= 0 else ref)
+        bwd[name] = call
+    for i in range(lib.sweep_dq_shapes()):
+        g = torch.empty_like(q)
+
+        def call(i=i, g=g):
+            err = lib.sweep_dq(i, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               mask.data_ptr(), out.data_ptr(),
+                               dout.data_ptr(), *stats, g.data_ptr(), *args)
+            if err:
+                raise RuntimeError(f"dq shape {i}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[f"dq shape {i}"] = _near([g], ref[:1])
+        bwd[f"dq shape {i}"] = call
+    ins = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    lib_out = F.scaled_dot_product_attention(*ins, attn_mask=am)
+    bwd["scaled_dot_product_attention backward"] = \
+        lambda: torch.autograd.grad(lib_out, ins, dot, retain_graph=True)
+    bodies = ("library K1 (wrapper)", "mma.sync forward (before)",
+              "library K3 from K1's stats (wrapper)",
+              "mma.sync K3, four launches (before)")
+    return {"case": "allheads", "shape": list(dims), "causal": causal,
+            "forward_ms": medians(fwd), "backward_ms": medians(bwd),
+            "device_ms": device_ms({k: fn for k, fn in {**fwd, **bwd}.items()
+                                    if k in bodies}),
+            "agrees_with_library": same}
+
+
+def _float_mask(mask, s, causal, device):
+    """The key mask (and causal mask) as SDPA's bf16 float attn_mask."""
+    b = mask.shape[0]
+    allowed = mask.bool()[:, None, None, :].expand(b, 1, s, s)
+    if causal:
+        allowed = allowed & torch.ones(s, s, dtype=torch.bool,
+                                       device=device).tril()
+    return torch.zeros(b, 1, s, s, device=device).masked_fill(
+        ~allowed, -1e30).to(torch.bfloat16)
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    allheads = "--no-allheads" not in args
+    rest = "--allheads" not in args
     if not torch.cuda.is_available():
         print("sweep_attention: no CUDA device", file=sys.stderr)
         return 1
@@ -328,10 +502,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"], capture_output=True,
         text=True).stdout.strip())
-    lib, bias_lib = build()
-    runs = [lambda c=c: sweep_case(lib, *c, device) for c in CASES]
-    runs += [lambda c=c, r=r: sweep_bias_case(bias_lib, *c, r, device)
-             for c in BIAS_CASES for r in ((0.0, RATE) if c[3] else (RATE,))]
+    lib, bias_lib, allheads_lib = build(
+        ((0, 1) if rest else ()) + ((2,) if allheads else ()))
+    runs = []
+    if allheads:
+        runs += [lambda c=c: sweep_allheads_case(allheads_lib, *c, device)
+                 for c in ALLHEADS_CASES]
+    if rest:
+        runs += [lambda c=c: sweep_case(lib, *c, device) for c in CASES]
+        runs += [lambda c=c, r=r: sweep_bias_case(bias_lib, *c, r, device)
+                 for c in BIAS_CASES
+                 for r in ((0.0, RATE) if c[3] else (RATE,))]
     ok = True
     for run in runs:
         result = run()

@@ -333,9 +333,20 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
         return fa.allheads_attention_bwd_reference(q, k, v, kv_mask, out,
                                                    dout, causal, scale)
 
+    def fake_launch_allheads(q, k, v, kv_mask, causal, scale, with_stats):
+        return fake_launch(None, None, q, k, v, kv_mask, causal, scale), \
+            None, None
+
+    def fake_launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
+                                 row_max, row_sum):
+        return fake_launch_bwd(None, None, q, k, v, kv_mask, out, dout,
+                               causal, scale)
+
     monkeypatch.setattr(fa, "_plain", lambda q: False)
     monkeypatch.setattr(fa, "_launch", fake_launch)
     monkeypatch.setattr(fa, "_launch_bwd", fake_launch_bwd)
+    monkeypatch.setattr(fa, "_launch_allheads", fake_launch_allheads)
+    monkeypatch.setattr(fa, "_launch_allheads_bwd", fake_launch_allheads_bwd)
     monkeypatch.setattr(fa, "_check_layout", lambda *a: None)
 
     # (kernel, its backward's wrapper, sq, sk, K/V heads, causal, Pallas)

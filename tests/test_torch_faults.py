@@ -34,7 +34,7 @@ from mmgl_tpu_torch.utils.tokenizer import ByteTokenizer
 
 # every launcher of the kernel wrappers
 LAUNCHERS = ("_launch", "_launch_bwd", "_launch_blocked_bwd", "_launch_bias",
-             "_launch_bias_bwd")
+             "_launch_bias_bwd", "_launch_allheads", "_launch_allheads_bwd")
 
 
 def _args(model, *extra):

@@ -264,6 +264,93 @@ def test_k1_k3_at_head_dim_128_under_checkpoint(dtype):
         _close_rel(g, r, dtype, f"d{name}")
 
 
+# ---- K1 and K3 on their wgmma/TMA bodies ----------------------------------
+
+# lengths whose tiles TMA's 64-row boxes and the 64- and 128-row tiles cut
+# (a row past S reads zeros), family 7's 205 and OPT's 640
+WGMMA_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 205, 640]
+# (Sq, Sk) with the ends aligned, causal
+WGMMA_ALIGNED = [(65, 129), (100, 228), (205, 640)]
+
+
+def wgmma_mask(b, s, seed):
+    """(B, S) int32, B = 3: sample 0 a prompt and a summary with a pad hole
+    (the training batch), sample 1 its first third masked (its first causal
+    rows see no valid key: fully masked rows), sample 2 all masked."""
+    mask = hole_mask(b, s, seed) if s >= 5 else np.ones((b, s), np.int32)
+    mask[1] = 1
+    mask[1, :max(1, s // 3)] = 0
+    mask[2] = 0
+    return mask
+
+
+def _wgmma_check(b, sq, sk, h, d, dtype, causal, seed):
+    """K1 (with its row stats) and K3, without and from them, against the
+    plain versions at the tolerances above: the row max within 1e-5 and
+    the sum within 1e-4 of ``_row_stats`` (exp2 on the card's ex2, a few
+    ulp); K3 from K1's stats equal to K3 with its own stats pass, bit for
+    bit; a gradient's atol its tolerance times its largest entry, or 1e-3
+    where that is smaller (dQ and dK at S = 1 are 0, the softmax of one
+    key, and both sides hold only the residue of dP - delta, ~1e-7)."""
+    dev = _device()
+    rng = np.random.RandomState(seed)
+    q, k, v, dout = (torch.from_numpy(rng.randn(b, s, h, d).astype(
+        np.float32)).to(dev, dtype) for s in (sq, sk, sk, sq))
+    mask = torch.from_numpy(wgmma_mask(b, sk, seed)).to(dev)
+    counts = _counts(fa.flash_attention_allheads,
+                     fa.flash_attention_allheads_bwd)
+    out, m, l = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
+                                                  causal=causal)
+    own = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                          causal=causal)
+    given = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                            causal=causal, row_max=m,
+                                            row_sum=l)
+    torch.cuda.synchronize()
+    assert counts() == [(1, 1), (2, 2)]
+    ref = fa.allheads_attention_reference(q, k, v, kv_mask=mask,
+                                          causal=causal)
+    atol, rtol = TOL[dtype]
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    want_m, want_l = fa._row_stats(q, k, mask, causal, d ** -0.5)
+    torch.testing.assert_close(m, want_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, want_l, atol=0.0, rtol=1e-4)
+    for name, a, g in zip(("dq", "dk", "dv"), own, given):
+        assert torch.equal(a, g), name
+    ref_g = fa.allheads_attention_bwd_reference(q, k, v, mask, out, dout,
+                                                causal=causal)
+    tol = BWD_TOL[dtype]
+    for name, g, r in zip(("dq", "dk", "dv"), own, ref_g):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        scale = max(float(r.float().abs().max()), 1e-3)
+        torch.testing.assert_close(g.float(), r.float(), atol=tol * scale,
+                                   rtol=tol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("s", WGMMA_LENGTHS)
+def test_wgmma_bodies_match_plain_versions(s, d, dtype):
+    """K1's and K3's wgmma bodies at S = s, causal and not, head dim d, with
+    a key-mask hole, fully masked rows and a fully masked sample
+    (``wgmma_mask``), against the plain versions (``_wgmma_check``)."""
+    for causal in (True, False):
+        _wgmma_check(3, s, s, 2, d, dtype, causal, seed=s + d + causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("sq,sk", WGMMA_ALIGNED)
+def test_wgmma_bodies_with_sq_below_sk(sq, sk, d, dtype):
+    """The same with Sq < Sk, causal with the ends aligned."""
+    _wgmma_check(3, sq, sk, 2, d, dtype, True, seed=sq + sk + d)
+
+
 # ---- K4/K5: per-head attention (T5's eval cross-attention) -------------------
 
 # (B, Sq, Sk, H, K/V heads), causal: the T5-base cross-attention, a causal

@@ -1,12 +1,13 @@
 """The arithmetic of the tensor-core attention bodies (bf16 and fp16),
 emulated in torch on the CPU and held against the JAX package.
 
-The bodies (mmgl_tpu_torch/csrc/attention_fwd_tc.cuh for K1/K2/K4, K7 and
-the stats passes of K3/K5 and K8/K9; the dK/dV and dQ bodies of
-attention_bwd_tiles.cuh for K3/K5/K6 and K8/K9) run only on a card. This
-file repeats their arithmetic order in torch:
-  * 64 x 64 tiles; products of bf16 (or fp16) values accumulated in fp32
-    (mma.sync);
+The bodies (mmgl_tpu_torch/csrc/attention_fwd_tc.cuh for K2/K4, K7 and
+the stats passes of K5 and K8/K9; the dK/dV and dQ bodies of
+attention_bwd_tiles.cuh for K5/K6 and K8/K9; K1's and K3's wgmma bodies of
+allheads_wgmma.cuh) run only on a card. This file repeats their arithmetic
+order in torch:
+  * 64 x 64 tiles (mma.sync), or the wgmma bodies' widths (WGMMA_TILES);
+    products of bf16 (or fp16) values accumulated in fp32;
   * the forward's online softmax: a running row max, the sum rescaled by
     exp(m_old - m_new), p rounded to bf16 before P V, out = O / l;
   * the backward from the rows' max m and sum l: p = exp(logit - m) * (1 / l),
@@ -57,12 +58,20 @@ import mmgl_tpu.ops.flash_attention as jfa
 from mmgl_tpu.ops.attention import xla_attention
 from mmgl_tpu_torch.ops import attention as att
 from mmgl_tpu_torch.ops import flash_attention as fa
+from test_torch_regularization import _one_thread  # noqa: F401
 
 TILE = 64
 NEG_INF = -1e30
 D = 64
 TOL = 2e-2      # chip_smoke.py's bf16 forward (atol, rtol) and backward
 FP16_TOL = 5e-3  # its fp16 ones
+
+# the tile widths of K1's and K3's wgmma bodies (csrc/allheads_wgmma.cuh):
+# (rows a block, rows a streamed tile): the forward's and dQ's (query rows,
+# keys), dK/dV's (keys, query rows); 64 rows a consumer warpgroup, one or
+# two a block, tiles of 64 or 128
+WGMMA_TILES = [(64, 128), (128, 64)]
+WGMMA_TILE_IDS = ["64x128", "128x64"]
 
 # (B, Sq, Sk, H), causal, key mask
 CASES = [
@@ -111,11 +120,14 @@ def _allowed(rows, cols, mask, shift, causal):
 
 
 def emulate_forward(q, k, v, mask, causal, scale, dtype=torch.bfloat16,
-                    seen=None, bias=None, keep=None):
+                    seen=None, bias=None, keep=None, tiles=(TILE, TILE)):
     """The forward body in element type ``dtype`` (None: no rounding):
-    (out, m, l), out (B, Sq, H, D), the stats (B, H, Sq). ``seen["early_exit"]`` counts (block, head, batch) loops that ended
-    at a causally hidden tile. The bias form: ``bias`` (H, Sq, Sk) fp32,
-    ``keep`` the (B, H, Sq, Sk) keep factor (1 / keep or 0)."""
+    (out, m, l), out (B, Sq, H, D), the stats (B, H, Sq). ``tiles``: the
+    body's (query rows a block, keys a tile), (64, 64) for the mma.sync
+    body, (64 NC, KT) for K1's wgmma body. ``seen["early_exit"]`` counts
+    (block, head, batch) loops that ended at a causally hidden tile. The
+    bias form: ``bias`` (H, Sq, Sk) fp32, ``keep`` the (B, H, Sq, Sk) keep
+    factor (1 / keep or 0)."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
@@ -123,15 +135,16 @@ def emulate_forward(q, k, v, mask, causal, scale, dtype=torch.bfloat16,
     m_all = torch.zeros(b, h, sq)
     l_all = torch.zeros(b, h, sq)
     shift = sk - sq
-    n_tiles = math.ceil(sk / TILE)
-    for q0 in range(0, sq, TILE):
-        rows = torch.arange(q0, min(q0 + TILE, sq))
-        qt = qh[:, :, q0:q0 + TILE]
+    q_tile, k_tile = tiles
+    n_tiles = math.ceil(sk / k_tile)
+    for q0 in range(0, sq, q_tile):
+        rows = torch.arange(q0, min(q0 + q_tile, sq))
+        qt = qh[:, :, q0:q0 + q_tile]
         m = torch.full((b, h, len(rows)), -math.inf)
         l = torch.zeros(b, h, len(rows))
         o = torch.zeros(b, h, len(rows), D)
-        n_vis = (min(n_tiles, (int(rows[-1]) + shift) // TILE + 1) if causal
-                 else n_tiles)
+        n_vis = (min(n_tiles, (int(rows[-1]) + shift) // k_tile + 1)
+                 if causal else n_tiles)
         active = torch.ones(b, h, 1, dtype=torch.bool)
         for t in range(n_tiles):
             if t >= n_vis:
@@ -142,7 +155,7 @@ def emulate_forward(q, k, v, mask, causal, scale, dtype=torch.bfloat16,
                 active = active & ~done
                 if not bool(active.any()):
                     break
-            cols = torch.arange(t * TILE, min((t + 1) * TILE, sk))
+            cols = torch.arange(t * k_tile, min((t + 1) * k_tile, sk))
             s = (qt @ kh[:, :, cols].transpose(-1, -2)) * scale
             if bias is not None:
                 s = s + _tile(bias[None], rows, cols)
@@ -158,9 +171,9 @@ def emulate_forward(q, k, v, mask, causal, scale, dtype=torch.bfloat16,
             m = torch.where(active, m_new, m)
             l = torch.where(active, l_new, l)
             o = torch.where(active[..., None], o_new, o)
-        out[:, :, q0:q0 + TILE] = _round(o / l[..., None], dtype)
-        m_all[:, :, q0:q0 + TILE] = m
-        l_all[:, :, q0:q0 + TILE] = l
+        out[:, :, q0:q0 + q_tile] = _round(o / l[..., None], dtype)
+        m_all[:, :, q0:q0 + q_tile] = m
+        l_all[:, :, q0:q0 + q_tile] = l
     return out.permute(0, 2, 1, 3), m_all, l_all
 
 
@@ -172,13 +185,16 @@ def _tile(x, rows, cols):
 
 
 def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
-                     dtype=torch.bfloat16, seen=None, bias=None, keep=None):
+                     dtype=torch.bfloat16, seen=None, bias=None, keep=None,
+                     dkdv_tiles=(TILE, TILE), dq_tiles=(TILE, TILE)):
     """The dK/dV and dQ bodies from the rows' max and sum: (dq, dk, dv),
     and dbias (H, Sq, Sk) in the bias form (``bias`` and ``keep`` as
     ``emulate_forward`` takes them), summed over the batch from the fp32
-    dlogits the dQ body writes. ``seen["hidden_tiles"]`` counts the query
-    tiles wholly before a key tile that dK/dV visited (for a fully masked
-    row)."""
+    dlogits the dQ body writes. ``dkdv_tiles``: dK/dV's (keys a block,
+    query rows a tile); ``dq_tiles``: dQ's (query rows a block, keys a
+    tile); (64, 64) each for the mma.sync bodies. ``seen["hidden_tiles"]``
+    counts the query tiles wholly before a key block that dK/dV visited
+    (for a fully masked row)."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     qh, kh, vh, oh, doh = (t.permute(0, 2, 1, 3)
@@ -206,16 +222,17 @@ def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
                          torch.tensor(0.0))
         return _round(p * factor, dtype), _round(dl * scale, dtype), dl
 
-    for k0 in range(0, sk, TILE):
-        cols = torch.arange(k0, min(k0 + TILE, sk))
-        t_first = max(0, k0 - shift) // TILE if causal else 0
-        # per sample: the tile's keys are all masked
+    kv_rows, q_tile = dkdv_tiles
+    for k0 in range(0, sk, kv_rows):
+        cols = torch.arange(k0, min(k0 + kv_rows, sk))
+        t_first = max(0, k0 - shift) // q_tile if causal else 0
+        # per sample: the block's keys are all masked
         no_keys = ~mask.bool()[:, cols].any(-1)[:, None, None, None]
-        for q0 in range(0, sq, TILE):
-            rows = torch.arange(q0, min(q0 + TILE, sq))
+        for q0 in range(0, sq, q_tile):
+            rows = torch.arange(q0, min(q0 + q_tile, sq))
             full = (m[:, :, rows] == NEG_INF).any(-1)[..., None, None]
             visit = full | ~no_keys
-            if q0 // TILE < t_first:
+            if q0 // q_tile < t_first:
                 visit = full
                 if seen is not None:
                     seen["hidden_tiles"] += int(visit.sum())
@@ -224,15 +241,16 @@ def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
                 visit, p.transpose(-1, -2) @ doh[:, :, rows], 0.0)
             dk[:, :, cols] += torch.where(
                 visit, ds.transpose(-1, -2) @ qh[:, :, rows], 0.0)
-    n_k = math.ceil(sk / TILE)
+    q_rows, k_tile = dq_tiles
+    n_k = math.ceil(sk / k_tile)
     # the dQ body's dlogits, zero on the tiles it skips
     dlogits = torch.zeros(b, h, sq, sk)
-    for q0 in range(0, sq, TILE):
-        rows = torch.arange(q0, min(q0 + TILE, sq))
-        n_tiles = (min(n_k, (int(rows[-1]) + shift) // TILE + 1) if causal
-                   else n_k)
+    for q0 in range(0, sq, q_rows):
+        rows = torch.arange(q0, min(q0 + q_rows, sq))
+        n_tiles = (min(n_k, (int(rows[-1]) + shift) // k_tile + 1)
+                   if causal else n_k)
         for t in range(n_tiles):
-            cols = torch.arange(t * TILE, min((t + 1) * TILE, sk))
+            cols = torch.arange(t * k_tile, min((t + 1) * k_tile, sk))
             _, ds, dl = tile(rows, cols)
             keys = mask.bool()[:, cols].any(-1)[:, None, None, None]
             dq[:, :, rows] += torch.where(keys, ds @ kh[:, :, cols], 0.0)
@@ -621,3 +639,139 @@ def test_fp16_bias_dropout_arithmetic_matches_the_plain_versions(
     for name, g, w in zip(("dq", "dk", "dv", "dbias"), got,
                           want[:3] + (want[3][0],)):
         _close_grad(g, w, name, FP16_TOL)
+
+
+# the JAX package's results at a (case, dtype), shared by the tile widths
+_ALLHEADS_REFERENCE = {}
+
+
+def _jax_allheads_reference(dims, causal, mask_kind, q, k, v, dout, mask,
+                            scale, dtype):
+    """(out, (dq, dk, dv)) of the JAX package for K1 and K3's inputs: the
+    Pallas ``_allheads`` (``_allheads_fwd`` and its VJP ``_allheads_vjp_bwd``)
+    in ``dtype`` in interpret mode where sq == sk and no sample is fully
+    masked; ``_jax_reference``'s otherwise (the all-heads kernel's mask
+    block takes sq keys, and with a fully masked sample the port follows
+    xla_attention's gradient)."""
+    key = (dims, causal, mask_kind, str(dtype))
+    if key in _ALLHEADS_REFERENCE:
+        return _ALLHEADS_REFERENCE[key]
+    b, sq, sk, h = dims
+    if mask_kind == "fully_masked" or sq != sk:
+        out, _, grads = _jax_reference(dims, causal, mask_kind, q, k, v,
+                                       dout, mask, scale, dtype)
+    else:
+        q2, k2, v2, do2 = (jnp.asarray(t.reshape(b, t.shape[1], h * D)
+                                       .numpy()).astype(dtype)
+                           for t in (q, k, v, dout))
+        jmask = jnp.asarray(mask.numpy())
+
+        def f(q_, k_, v_):
+            return jfa._allheads(q_, k_, v_, jmask, scale, causal, True, h, D)
+
+        jout, vjp = jax.vjp(f, q2, k2, v2)
+
+        def bshd(x):
+            x = np.array(jnp.asarray(x).astype(jnp.float32))
+            return torch.from_numpy(x).reshape(b, x.shape[1], h, D)
+
+        out, grads = bshd(jout), tuple(bshd(g) for g in vjp(do2))
+    _ALLHEADS_REFERENCE[key] = (out, grads)
+    return out, grads
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", CASES, ids=IDS)
+@pytest.mark.parametrize("tiles", WGMMA_TILES, ids=WGMMA_TILE_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_wgmma_arithmetic_matches_allheads(dtype, tiles, dims, causal,
+                                           mask_kind):
+    """K1's and K3's wgmma bodies, emulated at their tile widths in bf16 and
+    fp16 (the forward's online softmax a key tile at a time, the early exit
+    a block at a time; K3 from the forward's row max and sum), against the
+    Pallas _allheads_fwd and _allheads_vjp_bwd in interpret mode (or, as
+    ``_jax_allheads_reference`` says, the per-head Pallas kernels or
+    xla_attention): out atol = rtol = 2e-2 in bf16, 5e-3 in fp16; each
+    gradient atol that fraction of its largest entry."""
+    tol = TOL if dtype == torch.bfloat16 else FP16_TOL
+    (q, k, v, dout), mask = _inputs(dims, mask_kind, seed=sum(dims) + 9,
+                                    dtype=dtype)
+    scale = D ** -0.5
+    seen = {"early_exit": 0, "hidden_tiles": 0}
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=dtype,
+                                seen=seen, tiles=tiles)
+    got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
+                           dtype=dtype, seen=seen, dkdv_tiles=tiles,
+                           dq_tiles=tiles)
+    want_out, want = _jax_allheads_reference(
+        dims, causal, mask_kind, q, k, v, dout, mask, scale,
+        jnp.dtype(str(dtype).split(".")[1]))
+    _close(out, want_out, tol, tol, "out")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close_grad(g, w, name, tol)
+    if causal and mask_kind != "fully_masked":
+        assert seen["early_exit"] > 0     # the diagonal's early exit ran
+    if mask_kind == "fully_masked":
+        assert seen["hidden_tiles"] > 0
+        assert float(got[0][0].abs().max()) == 0.0    # no dQ, no dK
+        assert float(got[1][0].abs().max()) == 0.0
+
+
+def test_allheads_stats_hand_off_on_the_plain_path():
+    """fp32 on the CPU, a prompt with a pad hole (sample 0) and causal rows
+    that see only masked keys (sample 1): K1's row stats
+    (flash_attention_allheads_stats) are _row_stats's (1e-6), a fully
+    masked row's max -1e30 and sum Sk; K3 given them equals K3 without them
+    to 1e-6; and both match jax.grad of the JAX package's _allheads in
+    interpret mode to 1e-5, out and every gradient of sample 0 and dV of
+    both. Sample 1's dQ and dK match jax.grad of xla_attention instead: at a
+    fully masked row the Pallas kernel keeps dS at the masked logits, and
+    the port, as xla_attention, does not."""
+    b, s, h = 2, 96, 2
+    rng = np.random.RandomState(12)
+    q, k, v, dout = (torch.from_numpy(rng.randn(b, s, h, D).astype(np.float32))
+                     for _ in range(4))
+    mask = np.ones((b, s), np.int32)
+    mask[0, 40:60] = 0
+    mask[0, 90:] = 0
+    mask[1, :30] = 0
+    mask[1, 70:80] = 0
+    mask = torch.from_numpy(mask)
+    scale = D ** -0.5
+    out, m, l = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
+                                                  causal=True, scale=scale)
+    want_m, want_l = fa._row_stats(q, k, mask, True, scale)
+    _close(m, want_m, 1e-6, 0, "row max")
+    _close(l, want_l, 1e-6, 1e-6, "row sum")
+    assert bool((m[1, :, :30] == NEG_INF).all())
+    assert torch.equal(l[1, :, :30], torch.full_like(l[1, :, :30], s))
+    given = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                            causal=True, scale=scale,
+                                            row_max=m, row_sum=l)
+    own = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                          causal=True, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), given, own):
+        _close(g, w, 1e-6, 0, name)
+
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, dout))
+    jmask = jnp.asarray(mask.numpy())
+
+    def allheads(q_, k_, v_):
+        return jfa._allheads(q_.reshape(b, s, h * D), k_.reshape(b, s, h * D),
+                             v_.reshape(b, s, h * D), jmask, scale, True,
+                             True, h, D).reshape(b, s, h, D)
+
+    def xla(q_, k_, v_):
+        return xla_attention(q_, k_, v_, kv_mask=jmask, causal=True,
+                             scale=scale)
+
+    pallas_out, vjp = jax.vjp(allheads, jq, jk, jv)
+    pallas = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    _, vjp = jax.vjp(xla, jq, jk, jv)
+    plain = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    _close(out, torch.from_numpy(np.array(pallas_out)), 1e-5, 0, "out")
+    for grads in (given, own):
+        for name, g, p, x in zip(("dq", "dk", "dv"), grads, pallas, plain):
+            _close(g[0], p[0], 1e-5, 0, name + " sample 0")
+            _close(g[1], x[1], 1e-5, 0, name + " sample 1")
+        _close(grads[2], pallas[2], 1e-5, 0, "dv")
