@@ -41,8 +41,9 @@
 //     mma.sync's (each warp 16 rows); P (or dS) rounded to T in registers is
 //     the register A operand of the next product, whose B (V, dO, Q or K)
 //     is read MN-major from the same tiles: no transpose pass;
-//   * each warpgroup waits for its products before the elementwise work
-//     (the two warpgroups of a block overlap each other's);
+//   * each warpgroup waits for its products before the elementwise work;
+//     the library's shapes (FwdShape, DkdvShape, DqShape at the end) take
+//     one warpgroup a block and let the SM's other blocks fill the gaps;
 //   * no atomics: each block owns its outputs, so K3 is the same from run to
 //     run.
 // The skip rules are the mma.sync bodies', at the warpgroup's rows: the

@@ -355,8 +355,8 @@ struct Wgmma<128, __half> {
 
 // ---- host: tensor maps -------------------------------------------------
 
-// cuTensorMapEncodeTiled, got from the driver through the runtime, so the
-// library needs no -lcuda
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so the library links no libcuda
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,

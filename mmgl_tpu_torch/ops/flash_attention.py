@@ -34,17 +34,18 @@ csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
      ``_bwd_bias_kernel`` (:689, K9).
 
 Every kernel has two bodies, chosen by the input dtype (``_tensor_cores``):
-bf16 and fp16 inputs launch the tensor-core body (mma.sync in the input's
-type; the ``*_tc`` entries of the library), fp32 inputs the scalar one (on
-the tensor cores fp32 would run as TF32, about three decimal digits, against
-the fp32 checks' 2e-5). The wrappers count ``launches`` and, of those,
-``launches_tc``. There is no fallback from one body to the other. The
-masks stay -1e30 in fp32 inside the kernels (fp16 tops out at 65504), and the
-plain versions compute their logits and softmax in fp32 for every input
-dtype. K7's tensor-core body also writes the
-rows' softmax max and sum where a gradient follows
-(``flash_attention_bias_stats``), and K8/K9's starts from them instead of
-its stats pass.
+bf16 and fp16 inputs launch the tensor-core body (the ``*_tc`` entries of
+the library: K1 and K3 on Hopper's wgmma and TMA, csrc/allheads_wgmma.cu;
+the others on mma.sync in the input's type), fp32 inputs the scalar one
+(on the tensor cores fp32 would run as TF32, about three decimal digits,
+against the fp32 checks' 2e-5). The wrappers count ``launches`` and, of
+those, ``launches_tc``. There is no fallback from one body to the other.
+The masks stay -1e30 in fp32 inside the kernels (fp16 tops out at 65504),
+and the plain versions compute their logits and softmax in fp32 for every
+input dtype. K1's and K7's tensor-core bodies also write the rows' softmax
+max and sum where a gradient follows (``flash_attention_allheads_stats``,
+``flash_attention_bias_stats``), and K3's and K8/K9's start from them
+instead of a stats pass.
 
 K1, K2, K4 and K7 keep the JAX signatures, BSHD in and out, and carry autograd on
 every device: K1 through ``_AllheadsAttention`` (K1 forward, K3 backward, the
