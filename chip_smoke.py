@@ -236,10 +236,16 @@ and read just after. Every kernel has two bodies, tensor cores for bf16
 and fp16 and scalar FMAs for fp32: phases 4, 5, 5c, 6, 7, 9, 10 and 11
 (bf16 or fp16) check that every launch of K1-K9 took the tensor-core body,
 and their fp32 checks that none did.
+Phase 3 also holds K4's wgmma body at its query lengths 63-2048 against
+64-724 keys, head dims 64, 80 and 128 (K6 from its stats equal to K5 bit
+for bit), and K7's with an fp32 bias at T5's shapes (K8/K9 from its stats
+equal to K8/K9 with its own stats pass, a row-padded bias the same bits as
+a contiguous one).
 Phase 8 times K3 as training runs it, from K1's row stats.
 Prints the seconds elapsed at the end of each phase (and a JSON line of
 them), a kernels JSON line (each entry's "design" names its body: "tc" the
-mma.sync bodies, "bias_tc" their bias form, "wgmma_tma" K1's and K3's;
+mma.sync bodies, "bias_tc" their bias form (K8/K9), "wgmma_tma" K1's, K3's
+and K4's, "wgmma_tma_bias" K7's;
 the fp16 forms, the shapes of phases 12-14 and
 the head dims 80 and 128 that phases 18 and 16 launch, and K2's causal
 form at the CLIP text tower's shape that phase 18 launches, as entries of
@@ -426,9 +432,10 @@ OPT_PLAIN_CE_ARGV = with_flags(OPT_TRAIN_ARGV, fused_ce="false",
 # dK/dV and dQ bodies) launch
 TRACE_KERNELS = ("attention_fwd_tc_kernel", "allheads_fwd_kernel",
                  "allheads_dkdv_kernel", "allheads_dq_kernel")
-# K1's and K3's wgmma bodies: the wrappers whose kernels-line entries name
-# that design
-WGMMA_KERNELS = ("flash_attention_allheads", "flash_attention_allheads_bwd")
+# the wgmma bodies: the wrappers whose kernels-line entries name that
+# design (K7's in its bias form)
+WGMMA_KERNELS = ("flash_attention_allheads", "flash_attention_allheads_bwd",
+                 "flash_attention")
 VIRTUAL = 20                # num_virtual_tokens
 # the neighbour memory's projections and position tables
 MEMORY = ("text_embeddings.", "visual_embeddings.",
@@ -483,12 +490,20 @@ DESIGNS = {"tc": "tensor cores: mma.sync m16n8k16, fp32 accumulators, "
                         "TMA tiles through 4-D tensor maps into a "
                         "2-stage mbarrier ring, one producer warp and "
                         "consumer warpgroups of 64 rows; K3 from K1's "
-                        "row stats",
-           "bias_tc": "the same bodies in their bias form: the bias tile in "
-                      "the cp.async ring, Philox dropout on the P fragment "
-                      "(one call a lane per 16 keys, words swapped by a "
-                      "shuffle), K8/K9 from K7's row stats, dlogits into "
-                      "an fp32 partial reduced over the batch in order"}
+                        "row stats; K4 K1's forward at any sq and sk, "
+                        "K5's stats pass its stats-only form",
+           "wgmma_tma_bias": "K1's wgmma/TMA forward in its bias form: the "
+                             "bias tile in the TMA ring through a 3-D map "
+                             "(rows padded to 8 elements once a stack), "
+                             "Philox dropout bits on P (one call a lane "
+                             "per 16 keys, words swapped by a shuffle, a "
+                             "keep bit an element); K8/K9's stats pass its "
+                             "stats-only form",
+           "bias_tc": "the mma.sync backward bodies in their bias form: "
+                      "the bias tile in the cp.async ring, Philox dropout "
+                      "on the P fragment, K8/K9 from K7's row stats, "
+                      "dlogits into an fp32 partial reduced over the batch "
+                      "in order"}
 OPT_TEST_KERNELS = ("flash_attention_allheads", "fused_heads_attention")
 OPT_TRAIN_KERNELS = OPT_TEST_KERNELS + ("flash_attention_allheads_bwd",)
 # the OPT attention calls: (kernel, (B, S, H, D), causal, mask)
@@ -1115,6 +1130,129 @@ def check_wgmma_kernels(fa, device, worst):
               "K3 from K1's stats = K3 with its own, bit for bit")
 
 
+# K4's wgmma body at its query lengths (T5's 128, family 7's 205, MPT's
+# 640, OPT-350M's 2048, and the 64-row TMA box's edges) against its key
+# lengths (MPT's 64-token memory, T5's prefixed 148, its 512 encoder keys,
+# prefix tuning's 724)
+K4_LENGTHS = (63, 64, 65, 128, 205, 640, 2048)
+K4_KEYS = (64, 148, 512, 724)
+
+
+def check_k4_wgmma(fa, device, worst):
+    """Phase 3, K4 on its wgmma body: at each (Sq, Sk) of K4_LENGTHS x
+    K4_KEYS, head dims 64, 80 and 128, bf16 and fp16, (2, Sq, Sk, 2),
+    sample 0 fully masked and sample 1 with a pad gap: not causal without
+    a mask (a null pointer) and with it, against the plain version at phase
+    3's tolerance; where Sq <= Sk causal with its row stats (within
+    STATS_TOLERANCES of the plain version's), K6 from them against its
+    plain version and equal to K5 bit for bit."""
+    import torch
+
+    for d in (64, 80, 128):
+        for dtype_name in TC_DTYPES:
+            atol, rtol = TOLERANCES[dtype_name]
+            for sq in K4_LENGTHS:
+                for sk in K4_KEYS:
+                    q, k, v, mask, dout = flash_inputs(
+                        (2, sq, sk, 2, 2), "gap_fully_masked",
+                        getattr(torch, dtype_name), device, 900 + sq + sk,
+                        d)
+                    label = f"(2, {sq}, {sk}, 2, {d}) {dtype_name}"
+                    key = wkey(dkey("flash_attention", d), dtype_name)
+                    for kv_mask in (None, mask):
+                        out = fa.flash_attention(q, k, v, kv_mask=kv_mask)
+                        ref = fa.flash_attention_reference(q, k, v,
+                                                           kv_mask=kv_mask)
+                        err = float((out.float() - ref.float()).abs().max())
+                        worst[key] = max(worst[key], err)
+                        if not _within(out, ref, atol, rtol):
+                            fail(f"K4's wgmma body {label}: {err:.3e} from "
+                                 "its plain version")
+                    if sq > sk:
+                        continue
+                    out, m, l = fa.flash_attention_stats(
+                        q, k, v, kv_mask=mask, causal=True)
+                    ref = fa.flash_attention_reference(
+                        q, k, v, kv_mask=mask, causal=True, with_stats=True)
+                    if not (_within(out, ref[0], atol, rtol)
+                            and _within(m, ref[1], *STATS_TOLERANCES)
+                            and _within(l, ref[2], *STATS_TOLERANCES)):
+                        fail(f"K4's wgmma body with stats {label} causal "
+                             "disagrees with its plain version")
+                    k6 = fa.flash_attention_blocked_bwd(
+                        q, k, v, mask, out, dout, m, l, causal=True)
+                    k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout,
+                                                causal=True)
+                    torch.cuda.synchronize(device)
+                    if not all(torch.equal(a, b) for a, b in zip(k6, k5)):
+                        fail(f"K6 from K4's stats differs from K5 at {label}")
+                    _grads_within(
+                        "flash_attention_blocked_bwd", k6,
+                        fa.flash_attention_blocked_bwd_reference(
+                            q, k, v, mask, out, dout, m, l, causal=True),
+                        dtype_name, label, worst)
+        print(f"[check] K4 wgmma body at head dim {d}, Sq {K4_LENGTHS} x Sk "
+              f"{K4_KEYS}, bf16 and fp16, no mask and a pad gap with a "
+              "fully masked sample: ok; causal with stats where Sq <= Sk: "
+              "ok, K6 == K5 bit for bit")
+
+
+def check_k7_wgmma(fa, device, worst):
+    """Phase 3, K7 on its wgmma body with an fp32 bias (check_t5_kernels
+    takes it in the input's type) at T5's prefixed decoder (128 x 148,
+    causal), encoder (512) and the embedding mode's encoder (576), dropout 0
+    and 0.1, bf16 and fp16, phase 3's key mask: the output the same bits
+    from a contiguous bias and from its rows padded to a multiple of 8
+    (``padded_bias``, read in place), within phase 3's tolerance of the
+    plain version; K8/K9 through autograd from K7's row stats within the
+    backward tolerance of the plain version (dbias included) and equal to
+    K8/K9 with its own stats pass bit for bit."""
+    import torch
+
+    for i in (T5_PREFIX_CASE, 0, ENC576_CASE):
+        tag, dims, causal, _ = BIAS_CASES[i]
+        for dtype_name in TC_DTYPES:
+            atol, rtol = TOLERANCES[dtype_name]
+            for rate in (0.0, RATE):
+                q, k, v, mask, bias, dout, seed = bias_inputs(
+                    dims, True, getattr(torch, dtype_name), device, 800 + i)
+                bias = bias.float()
+                label = (f"{tag} {dims} causal={causal} fp32 bias "
+                         f"dropout={rate} {dtype_name}")
+                kw = dict(kv_mask=mask, causal=causal, scale=1.0,
+                          dropout_rate=rate, dropout_seed=seed)
+                out = fa.flash_attention_bias(q, k, v, bias=bias, **kw)
+                wrt = [t.detach().clone().requires_grad_()
+                       for t in (q, k, v)]
+                padded = fa.padded_bias(bias).requires_grad_()
+                got = fa.flash_attention_bias(*wrt, bias=padded, **kw)
+                grads = torch.autograd.grad(got, wrt + [padded], dout)
+                own = fa.flash_attention_bias_bwd(
+                    q, k, v, mask, bias[0], out, dout, causal=causal,
+                    scale=1.0, dropout_rate=rate, dropout_seed=seed)
+                torch.cuda.synchronize(device)
+                if not torch.equal(got.detach(), out):
+                    fail(f"K7 {label}: a row-padded bias gives other bits")
+                ref = fa.bias_attention_reference(q, k, v, bias=bias, **kw)
+                err = float((out.float() - ref.float()).abs().max())
+                key = wkey("flash_attention_bias", dtype_name)
+                worst[key] = max(worst[key], err)
+                if not _within(out, ref, atol, rtol):
+                    fail(f"K7 {label}: {err:.3e} from its plain version")
+                refs = fa.bias_attention_bwd_reference(
+                    q, k, v, mask, bias, out, dout, causal=causal, scale=1.0,
+                    dropout_rate=rate, dropout_seed=seed)
+                _grads_within("flash_attention_bias_bwd", grads, refs,
+                              dtype_name, label, worst)
+                if not all(torch.equal(a, b) for a, b in zip(
+                        grads, (*own[:3], own[3][None]))):
+                    fail(f"K8/K9 {label} from K7's stats differs from K8/K9 "
+                         "with its own stats pass")
+        print(f"[check] K7 wgmma body {tag} {dims} with an fp32 bias, "
+              "dropout 0 and 0.1, bf16 and fp16: ok; a row-padded bias the "
+              "same bits; K8/K9 from K7's stats == its own stats pass")
+
+
 def dkey(name: str, d: int) -> str:
     """A kernel's key at head dim d in the worst-error table and the
     kernels line (64 keeps the plain name)."""
@@ -1297,20 +1435,23 @@ class ShapeTally:
             return fn(q, k, *a, **kw)
         return tallied
 
-    def _wrap_stats(self, fn):
-        def tallied(entry, name, q, k, *a, stats=(), **kw):
+    def _wrap_fused(self, fn):
+        def tallied(entry, name, q, k, *a, **kw):
             self.dims[(name, q.shape[-1])] += 1
-            if name == "fused_heads_attention":
-                # a: v, kv_mask, causal, scale, *shape
-                self.fused[(q.shape[1], bool(a[2]))] += 1
-            if name == "flash_attention":
-                shape = (q.shape[1], k.shape[1])
-                self.flash[shape] = self.flash.get(shape, 0) + 1
-            if name == "flash_attention" and any(
-                    t is not None for t in stats):
+            # a: v, kv_mask, causal, scale, *shape
+            self.fused[(q.shape[1], bool(a[2]))] += 1
+            return fn(entry, name, q, k, *a, **kw)
+        return tallied
+
+    def _wrap_flash(self, fn):
+        def tallied(q, k, v, kv_mask, causal, scale, with_stats):
+            self.dims[("flash_attention", q.shape[-1])] += 1
+            shape = (q.shape[1], k.shape[1])
+            self.flash[shape] = self.flash.get(shape, 0) + 1
+            if with_stats:
                 key = str(q.dtype).removeprefix("torch.")
                 self.stats[key] = self.stats.get(key, 0) + 1
-            return fn(entry, name, q, k, *a, stats=stats, **kw)
+            return fn(q, k, v, kv_mask, causal, scale, with_stats)
         return tallied
 
     def _wrap_allheads(self, fn, name):
@@ -1322,21 +1463,23 @@ class ShapeTally:
     def __enter__(self):
         self.saved = (self.fa._launch_bias, self.fa._launch_bias_bwd,
                       self.fa._launch, self.fa._launch_bwd,
-                      self.fa._launch_allheads, self.fa._launch_allheads_bwd)
+                      self.fa._launch_allheads, self.fa._launch_allheads_bwd,
+                      self.fa._launch_flash)
         self.fa._launch_bias = self._wrap(self.saved[0], self.fwd)
         self.fa._launch_bias_bwd = self._wrap(self.saved[1], self.bwd)
-        self.fa._launch = self._wrap_stats(self.saved[2])
+        self.fa._launch = self._wrap_fused(self.saved[2])
         self.fa._launch_bwd = self._wrap_bwd(self.saved[3])
         self.fa._launch_allheads = self._wrap_allheads(
             self.saved[4], "flash_attention_allheads")
         self.fa._launch_allheads_bwd = self._wrap_allheads(
             self.saved[5], "flash_attention_allheads_bwd")
+        self.fa._launch_flash = self._wrap_flash(self.saved[6])
         return self
 
     def __exit__(self, *exc):
         (self.fa._launch_bias, self.fa._launch_bias_bwd,
          self.fa._launch, self.fa._launch_bwd, self.fa._launch_allheads,
-         self.fa._launch_allheads_bwd) = self.saved
+         self.fa._launch_allheads_bwd, self.fa._launch_flash) = self.saved
         return False
 
 
@@ -1357,7 +1500,7 @@ class PlainCheck:
     ``scaled``."""
 
     LAUNCHERS = ("_launch", "_launch_bwd", "_launch_bias", "_launch_bias_bwd",
-                 "_launch_allheads", "_launch_allheads_bwd")
+                 "_launch_allheads", "_launch_allheads_bwd", "_launch_flash")
 
     def __init__(self, fa, tag):
         self.fa, self.tag = fa, tag
@@ -1392,14 +1535,22 @@ class PlainCheck:
         fa = self.fa
         saved = self.saved = {n: getattr(fa, n) for n in self.LAUNCHERS}
 
-        def launch(entry, name, q, k, v, kv_mask, causal, scale, *shape,
-                   stats=()):
+        def launch(entry, name, q, k, v, kv_mask, causal, scale, *shape):
             out = saved["_launch"](entry, name, q, k, v, kv_mask, causal,
-                                   scale, *shape, stats=stats)
+                                   scale, *shape)
             ref = getattr(fa, KERNELS[name][0])(q, k, v, kv_mask=kv_mask,
                                                 causal=causal, scale=scale)
             self._forward(name, out, ref, v, tuple(q.shape))
             return out
+
+        def launch_flash(q, k, v, kv_mask, causal, scale, with_stats):
+            got = saved["_launch_flash"](q, k, v, kv_mask, causal, scale,
+                                         with_stats)
+            ref = fa.flash_attention_reference(q, k, v, kv_mask=kv_mask,
+                                               causal=causal, scale=scale)
+            self._forward("flash_attention", got[0], ref, v,
+                          (tuple(q.shape), tuple(k.shape)))
+            return got
 
         def launch_bwd(entry, name, q, k, v, kv_mask, out, dout, causal,
                        scale):
@@ -1411,17 +1562,17 @@ class PlainCheck:
             return got
 
         def launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
-                        keep_inv, *stats):
+                        keep_inv, with_stats):
             if thr:
                 fail(f"{self.tag}: K7 with dropout in a checked step")
-            out = saved["_launch_bias"](q, k, v, kv_mask, bias, seed, causal,
-                                        scale, thr, keep_inv, *stats)
+            got = saved["_launch_bias"](q, k, v, kv_mask, bias, seed, causal,
+                                        scale, thr, keep_inv, with_stats)
             ref = fa.bias_attention_reference(
                 q, k, v, bias=None if bias is None else bias[None],
                 kv_mask=kv_mask, causal=causal, scale=scale)
-            self._forward("flash_attention_bias", out, ref, v,
+            self._forward("flash_attention_bias", got[0], ref, v,
                           (tuple(q.shape), tuple(k.shape)))
-            return out
+            return got
 
         def launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal,
                             scale, thr, keep_inv, *stats):
@@ -1461,7 +1612,8 @@ class PlainCheck:
 
         for name, fn in zip(self.LAUNCHERS, (launch, launch_bwd, launch_bias,
                                              launch_bias_bwd, launch_allheads,
-                                             launch_allheads_bwd)):
+                                             launch_allheads_bwd,
+                                             launch_flash)):
             setattr(fa, name, fn)
         return self
 
@@ -2303,20 +2455,25 @@ def _bias_timing_cases(fa, device, i, dtype_name):
     # the 576-token encoder and the prefixed decoder have their own entries
     # in the kernels line
     at = {"enc576": "[576]", "t5prefix": "[t5-prefix]"}.get(tag, "")
+    # the kernels take the bias as T5's stack hands it, its rows padded to
+    # a multiple of 8 once a stack (the prefixed decoder's 148)
+    kbias = None if bias is None else fa.padded_bias(bias)
     cases = []
     for rate in ((RATE,) if tag == "cross" else (0.0, RATE)):
-        kw = dict(bias=bias, kv_mask=mask, causal=causal, scale=1.0,
-                  dropout_rate=rate, dropout_seed=seed)
+        kw = dict(kv_mask=mask, causal=causal, scale=1.0, dropout_rate=rate,
+                  dropout_seed=seed)
         cases.append((
             f"flash_attention_bias {shape} dropout={rate}",
             wkey("flash_attention_bias" + at, dtype_name), {
-                "kernel": partial(fa.flash_attention_bias, q, k, v, **kw),
-                "plain": partial(fa.bias_attention_reference, q, k, v, **kw),
+                "kernel": partial(fa.flash_attention_bias, q, k, v,
+                                  bias=kbias, **kw),
+                "plain": partial(fa.bias_attention_reference, q, k, v,
+                                 bias=bias, **kw),
                 "library": _sdpa_fwd(qt, kt, vt, am, rate, 1.0)},
             4 * pairs * 64, io_fwd))
     # K8/K9 as training runs it: from K7's row stats
     out, m, l = fa.flash_attention_bias_stats(
-        q, k, v, bias=bias, kv_mask=mask, causal=causal, scale=1.0,
+        q, k, v, bias=kbias, kv_mask=mask, causal=causal, scale=1.0,
         dropout_rate=RATE, dropout_seed=seed)
     bkw = dict(causal=causal, scale=1.0, dropout_rate=RATE,
                dropout_seed=seed)
@@ -2327,7 +2484,7 @@ def _bias_timing_cases(fa, device, i, dtype_name):
               "t5prefix": "flash_attention_bias_bwd[t5-prefix]"}.get(
                   tag, "flash_attention_bias_bwd[K8]"), dtype_name), {
             "kernel": partial(fa.flash_attention_bias_bwd, q, k, v, mask,
-                              None if bias is None else bias[0], out, dout,
+                              None if bias is None else kbias[0], out, dout,
                               row_max=m, row_sum=l, **bkw),
             "plain": partial(fa.bias_attention_bwd_reference, q, k, v, mask,
                              bias, out, dout, **bkw),
@@ -3559,6 +3716,8 @@ def main() -> int:
     check_blocked_kernels(fa, device, worst)
     check_head_dim_kernels(fa, device, worst)
     check_wgmma_kernels(fa, device, worst)
+    check_k4_wgmma(fa, device, worst)
+    check_k7_wgmma(fa, device, worst)
     lap("3")
 
     test, results, opt_test, rate, peak = run_test_pass(
@@ -3907,7 +4066,8 @@ def main() -> int:
         err = (name if name in worst else
                wkey("flash_attention[stats]" if "[stats]" in name else base,
                     "float16" if fp16 else "bfloat16"))
-        design = ("bias_tc" if base in BIAS_KERNELS else
+        design = ("wgmma_tma_bias" if base == "flash_attention_bias" else
+                  "bias_tc" if base in BIAS_KERNELS else
                   "wgmma_tma" if base in WGMMA_KERNELS else "tc")
         entries.append({
             "name": name, "route": "cuda", "source": source,

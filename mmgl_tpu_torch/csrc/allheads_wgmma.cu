@@ -28,27 +28,6 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
-namespace {
-
-using mmgl::hopper::make_map;
-
-// q, k and v (and dO where not null) as tensor maps
-cudaError_t make_maps(mmgl::wg::Maps* m, const void* q, const void* k,
-                      const void* v, const void* dout, int dtype, int batch,
-                      int sq, int sk, int heads, int d) {
-  cudaError_t err = make_map(&m->q, q, dtype, batch, sq, heads, d);
-  if (err == cudaSuccess) err = make_map(&m->k, k, dtype, batch, sk, heads, d);
-  if (err == cudaSuccess && v != nullptr) {
-    err = make_map(&m->v, v, dtype, batch, sk, heads, d);
-  }
-  if (err == cudaSuccess && dout != nullptr) {
-    err = make_map(&m->dout, dout, dtype, batch, sq, heads, d);
-  }
-  return err;
-}
-
-}  // namespace
-
 // K1 on the wgmma/TMA body (dtype bf16 or fp16, mmgl::DType). row_max and
 // row_sum: null, or batch * heads * sq fp32 each in (B, H, Sq) order for
 // the rows' softmax max and sum (kept apart: a fully masked row has
@@ -68,8 +47,9 @@ extern "C" int mmgl_allheads_fwd_tc(const void* q, const void* k,
     return mmgl::with_tc_type(dtype, [&](auto tag) {
       using T = decltype(tag);
       mmgl::wg::Maps m;
-      const cudaError_t err = make_maps(&m, q, k, v, nullptr, dtype, batch,
-                                        sq, sk, heads, D);
+      const cudaError_t err = mmgl::wg::make_maps(&m, q, k, v, nullptr,
+                                                  dtype, batch, sq, sk,
+                                                  heads, D);
       if (err != cudaSuccess) return err;
       return mmgl::wg::launch_fwd<D, false, mmgl::wg::FwdShape<D>, T>(
           m, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
@@ -102,8 +82,8 @@ extern "C" int mmgl_allheads_bwd_tc(const void* q, const void* k,
     return mmgl::with_tc_type(dtype, [&](auto tag) {
       using T = decltype(tag);
       mmgl::wg::Maps m;
-      cudaError_t err = make_maps(&m, q, k, v, dout, dtype, batch, sq, sk,
-                                  heads, D);
+      cudaError_t err = mmgl::wg::make_maps(&m, q, k, v, dout, dtype, batch,
+                                            sq, sk, heads, D);
       if (err != cudaSuccess) return err;
       const float* m_in = row_max;
       const float* l_in = row_sum;

@@ -1,24 +1,49 @@
-// K1 and K3 on Hopper's warpgroup products (wgmma) and TMA: the forward of
-// OPT's all-heads attention, and its dK/dV and dQ passes from the forward's
-// row statistics (allheads_wgmma.cu holds the entries).
+// K1, K4 and K7's forward and K3's dK/dV and dQ passes on Hopper's warpgroup
+// products (wgmma) and TMA: the forward of OPT's all-heads attention, of the
+// per-head attention at any sq and sk, and of T5's bias and dropout
+// attention, and K1's backward from the forward's row statistics
+// (allheads_wgmma.cu, attention_fwd.cu, attention_bias_fwd.cu hold the
+// entries; the forward's stats-only form is the stats pass of K3, K5 and
+// K8/K9, in allheads_wgmma.cu, attention_bwd.cu and attention_bias_bwd.cu).
 //
 // Replaces _allheads_kernel_fwd (mmgl_tpu/ops/flash_attention.py:1283, via
-// _allheads_fwd :1359) and _allheads_kernel_bwd (:1307, via
-// _allheads_vjp_bwd :1392). The math is xla_attention's, as in the
-// mma.sync bodies these replace for K1 and K3 (attention_fwd_tc.cuh,
-// attention_bwd_tiles.cuh, which still serve K2 and K4-K9): masked logits
-// -1e30, causal aligned at the ends, a fully masked row averaging V over
-// the sk keys, and jax.grad's zero dS at masked logits. Every element's
-// arithmetic is theirs too (logits in log2 units on ex2, the online
-// softmax's order within a tile, P and dS rounded to the element type
-// before their products): only the tile widths and the products' engine
-// change, so the tests' emulation of them (tests/test_torch_tc_numerics.py)
-// takes the tile widths as parameters.
+// _allheads_fwd :1359), _allheads_kernel_bwd (:1307, via _allheads_vjp_bwd
+// :1392), _fwd_kernel and _fwd_kernel_causal_stream (:92, :129, via _fwd
+// :179) and _fwd_bias_kernel(_batched) (:594, :624, via _fwd_bias :768).
+// The math is xla_attention's, as in the mma.sync bodies these replace
+// (attention_fwd_tc.cuh, attention_bwd_tiles.cuh, which still serve K2, K5,
+// K6 and K8/K9's tiles): masked logits -1e30, causal aligned at the ends, a
+// fully masked row averaging V over the sk keys, and jax.grad's zero dS at
+// masked logits. Every element's arithmetic is theirs too (logits in log2
+// units on ex2, the online softmax's order within a tile, P and dS rounded
+// to the element type before their products): only the tile widths and the
+// products' engine change, so the tests' emulation of them
+// (tests/test_torch_tc_numerics.py) takes the tile widths as parameters.
+//
+// The bias form (kBias, kDropout; K7) adds, as the mma.sync body's does: the
+// batch-shared (H, Sq, Sk) bias (T or fp32, rows ld >= Sk elements apart, ld
+// a multiple of 8) on each logit in log2 units with the scale,
+// s (scale log2 e) + bias log2 e in one FMA; and attention-prob dropout on
+// P after the softmax sums, P times the keep factor rounded to T for P V
+// (the Pallas order, flash_attention.py:618-621). The producer brings each
+// tile's bias (the block's rows x the tile's keys) into the ring beside K
+// and V by TMA through a 3-D map over (Sk, Sq, H), 128-byte swizzled, so it
+// arrives stages ahead; each consumer lane reads its accumulator elements'
+// pairs from it, the swizzle spreading a warp's eight rows over distinct
+// banks. (Read straight from device memory into the registers instead, the
+// bias's latency stood in every tile's path: 2.3x the mma.sync body's time
+// at T5's encoder, PERF.md §6.) Each warp's accumulator layout is
+// mma.sync's, so philox.cuh's counter layout and its philox_pair exchange
+// carry over: the same keep bits as the mma.sync body, as K8/K9 and
+// ops/attention.py's dropout_bits regenerate them; the keep decisions are
+// kept as a bit each, made after S = Q K^T lands (made while it was in
+// flight instead, they gained nothing: PERF.md §6).
 //
 // What bounds them on this card: 4 D FLOPs a (query, key) pair forward and
 // 10 D backward on the tensor cores (989 TFLOP/s bf16, reached only through
-// wgmma), and the fp32 softmax between the products; HBM is far off. The
-// design, FlashAttention-3's shape without its intra-warpgroup overlap:
+// wgmma), and the fp32 softmax between the products; with dropout, Philox's
+// ten rounds of integer multiplies per four probabilities; HBM is far off.
+// The design, FlashAttention-3's shape without its intra-warpgroup overlap:
 //   * a block is kNC consumer warpgroups of 64 rows (queries forward and in
 //     dQ, keys in dK/dV) and one producer warp. The producer warp is a lone
 //     warp, not a warpgroup, so the consumers' register cap at one block an
@@ -42,8 +67,9 @@
 //     the register A operand of the next product, whose B (V, dO, Q or K)
 //     is read MN-major from the same tiles: no transpose pass;
 //   * each warpgroup waits for its products before the elementwise work;
-//     the library's shapes (FwdShape, DkdvShape, DqShape at the end) take
-//     one warpgroup a block and let the SM's other blocks fill the gaps;
+//     the library's shapes (FwdShape, DkdvShape, DqShape at the end)
+//     take one or two warpgroups a block and let the SM's other blocks
+//     fill the gaps;
 //   * no atomics: each block owns its outputs, so K3 is the same from run to
 //     run.
 // The skip rules are the mma.sync bodies', at the warpgroup's rows: the
@@ -66,6 +92,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "philox.cuh"
 
 namespace mmgl {
 namespace wg {
@@ -75,6 +102,7 @@ using hopper::desc_mn;
 using hopper::fence_operands;
 using hopper::mbar_arrive;
 using hopper::mbar_arrive_tx;
+using hopper::mbar_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::n_boxes;
@@ -86,7 +114,7 @@ using hopper::wgmma_fence;
 using hopper::wgmma_wait_all;
 
 // a body's shape: consumer warpgroups, the streamed tile's rows (keys, or
-// queries in dK/dV), ring stages, blocks an SM for the register budget
+// queries in dK/dV), ring stages and blocks an SM for the register budget
 template <int kNC_, int kTile_, int kStages_, int kMinBlocks_>
 struct Shape {
   static constexpr int kNC = kNC_;
@@ -138,33 +166,123 @@ __device__ __forceinline__ void key_bits(uint32_t (&words)[W],
   }
 }
 
-// ---- the forward (K1; in stats-only form K3's stats pass) ---------------
-
-template <int D, typename S>
-__host__ __device__ constexpr size_t fwd_smem(bool stats_only) {
-  return 1024 + tile_bytes<D, 64 * S::kNC>() +
-         (stats_only ? 1 : 2) * S::kStages * tile_bytes<D, S::kTile>();
+// the bias form: bias log2(e) at this lane's accumulator elements of a
+// tile, element 4 nb + 2 r + e at row 16 (warp & 3) + g + 8 r of the
+// warpgroup's rows and key 8 nb + 2 c4 + e of the tile, from the tile's
+// bias in shared memory (tile: the warpgroup's first box), as TMA wrote
+// it: boxes of 64 rows x 128 bytes, the 16-byte chunk c of row x at chunk
+// c ^ (x % 8), one box a 128 bytes of keys. x % 8 = g, so a warp's eight
+// rows read eight distinct chunks
+template <int KT, typename TB>
+__device__ __forceinline__ void bias_log2(float (&bl)[KT / 2],
+                                          const unsigned char* tile,
+                                          int warp4, int g, int c4) {
+  constexpr int kPerBox = 128 / static_cast<int>(sizeof(TB));  // keys
+#pragma unroll
+  for (int nb = 0; nb < KT / 8; ++nb) {
+    const int col = 8 * nb + 2 * c4;             // the pair's first key
+    const int box = col / kPerBox;
+    const int byte = (col % kPerBox) * static_cast<int>(sizeof(TB));
+    const int off = box * hopper::kBoxBytes + (((byte >> 4) ^ g) << 4) +
+                    (byte & 15);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp4 + g + 8 * r;
+      const float2 v =
+          load2(reinterpret_cast<const TB*>(tile + row * 128 + off));
+      bl[4 * nb + 2 * r] = __fmul_rn(v.x, kLog2e);
+      bl[4 * nb + 2 * r + 1] = __fmul_rn(v.y, kLog2e);
+    }
+  }
 }
 
-// out = softmax(q k^T scale, masked) v over (B, S, H * D) tensors of T
-// (bf16 or fp16); row_max and row_sum, (B, H, Sq) fp32, receive the rows'
-// max (natural units) and sum where not null. kStatsOnly: no V, no out.
-template <int D, bool kStatsOnly, typename S, typename T>
+// the bias form: this lane's keep decisions of a tile from key k0, element
+// i2 = 4 nb + 2 r + e at bit i2 % 32 of word i2 / 32. The elements of keys
+// k0 + 16 kk + u are the mma.sync body's (attention_fwd_tc.cuh): the lane
+// holds u = 2 c4 + e (n8 block 2 kk) and 8 + 2 c4 + e (2 kk + 1), the words
+// hi and hi + 2 of the calls with counter low bits 2 (c4 & 1) + e; its own
+// call is e = hi's, its quad partner c4 ^ 2 makes e = 1 - hi's. Called by
+// the whole warp
+template <int KT>
+__device__ __forceinline__ void keep_bits(uint32_t (&keep)[KT / 64],
+                                          const DropoutKey& drop, int k0,
+                                          int row0, int h, int b, int c4) {
+  const int hi = c4 >> 1;
+#pragma unroll
+  for (int w = 0; w < KT / 64; ++w) keep[w] = 0u;
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    const unsigned int c0 =
+        (static_cast<unsigned int>((k0 >> 4) + kk) << 2) |
+        static_cast<unsigned int>(2 * (c4 & 1) + hi);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      unsigned int own[2], other[2];
+      philox_pair(drop, c0, row0 + 8 * r, h, b, hi, 2, own, other);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool mine = e == hi;
+        const int i0 = 8 * kk + 2 * r + e;      // n8 block 2 kk
+        const int i1 = 8 * kk + 4 + 2 * r + e;  // n8 block 2 kk + 1
+        keep[i0 >> 5] |=
+            static_cast<uint32_t>((mine ? own[0] : other[0]) <
+                                  drop.threshold) << (i0 & 31);
+        keep[i1 >> 5] |=
+            static_cast<uint32_t>((mine ? own[1] : other[1]) <
+                                  drop.threshold) << (i1 & 31);
+      }
+    }
+  }
+}
+
+// ---- the forward (K1, K4, K7; in stats-only form the stats pass of K3, K5
+// and K8/K9) ----------------------------------------------------------------
+
+// the bias form's tile a stage (the block's rows x the tile's keys): boxes
+// of 64 rows x 128 bytes, kNC x (KT bytes of keys / 128) of them
+template <typename S, bool kBias, typename TB>
+__host__ __device__ constexpr uint32_t bias_tile_bytes() {
+  return kBias ? 64 * S::kNC * S::kTile * static_cast<uint32_t>(sizeof(TB))
+               : 0;
+}
+
+template <int D, typename S, bool kBias = false, typename TB = float>
+__host__ __device__ constexpr size_t fwd_smem(bool stats_only) {
+  return 1024 + tile_bytes<D, 64 * S::kNC>() +
+         S::kStages * ((stats_only ? 1 : 2) * tile_bytes<D, S::kTile>() +
+                       bias_tile_bytes<S, kBias, TB>());
+}
+
+// out = softmax(q k^T scale (+ bias[h]), masked) (* keep) v over
+// (B, S, H * D) tensors of T (bf16 or fp16); row_max and row_sum, (B, H, Sq)
+// fp32, receive the rows' max (natural units) and sum where not null.
+// kStatsOnly: no V, no out, no dropout. The bias form reads the (H, Sq, Sk)
+// bias of TB through bias_map (hopper::make_bias_map) and the dropout key
+// from ba (BiasArgs; its bias and ld unread).
+template <int D, bool kStatsOnly, typename S, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
 __global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap bias_map,
                     const int* __restrict__ kv_mask, T* __restrict__ out,
                     float* __restrict__ row_max, float* __restrict__ row_sum,
-                    int sq, int sk, int heads, float scale, int causal) {
+                    int sq, int sk, int heads, float scale, int causal,
+                    BiasArgs<TB> ba) {
   constexpr int kNC = S::kNC;
   constexpr int KT = S::kTile;
   constexpr int ST = S::kStages;
   constexpr int DP = 64 * n_boxes(D);  // the head dim as the tiles hold it
   constexpr int kRows = 64 * kNC;      // query rows a block
   constexpr int kWords = KT / 32;
+  constexpr bool kDrop = kDropout && !kStatsOnly;
   constexpr uint32_t kQBytes = tile_bytes<D, kRows>();
   constexpr uint32_t kKBytes = tile_bytes<D, KT>();
+  constexpr uint32_t kBBytes = bias_tile_bytes<S, kBias, TB>();
+  // the bias tile's boxes along the keys, and keys a box
+  constexpr int kBiasBoxes = KT * static_cast<int>(sizeof(TB)) / 128;
+  constexpr int kBiasBoxKeys = 128 / static_cast<int>(sizeof(TB));
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[ST], empty[ST];
   __shared__ uint32_t mask_s[ST][kWords];
@@ -173,6 +291,8 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* q_s = aligned_smem(smem_raw);
   unsigned char* k_s = q_s + kQBytes;       // [ST][kKBytes]
   unsigned char* v_s = k_s + ST * kKBytes;  // [ST][kKBytes]
+  // [ST][kBBytes], after V (after K in the stats-only form)
+  unsigned char* b_s = kStatsOnly ? v_s : v_s + ST * kKBytes;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -201,13 +321,38 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (warp == 4 * kNC) {
     // ---- producer ----
+    // tile i's copies into stage s, each on the stage's full barrier; the
+    // producer arrives on it once it has written the tile's index and mask
+    // bits, which it reads while the copies are in flight
+    auto issue = [&](int i, int s) {
+      if (lane != 0) return;
+      mbar_expect_tx(&full[s], (kStatsOnly ? 1 : 2) * kKBytes + kBBytes);
+      tma_tile<D, KT>(k_s + s * kKBytes, &k_map, &full[s], h, i * KT, b);
+      if (!kStatsOnly) {
+        tma_tile<D, KT>(v_s + s * kKBytes, &v_map, &full[s], h, i * KT, b);
+      }
+      if constexpr (kBias) {
+        // box (w, x): rows q0 + 64 w.., keys i KT + x kBiasBoxKeys..
+#pragma unroll
+        for (int w = 0; w < kNC; ++w) {
+#pragma unroll
+          for (int x = 0; x < kBiasBoxes; ++x) {
+            hopper::tma_load_3d(
+                b_s + s * kBBytes + (w * kBiasBoxes + x) * hopper::kBoxBytes,
+                &bias_map, &full[s], i * KT + x * kBiasBoxKeys, q0 + 64 * w,
+                h);
+          }
+        }
+      }
+    };
     if (lane == 0) {
       mbar_arrive_tx(&q_full, kQBytes);
       tma_tile<D, kRows>(q_s, &q_map, &q_full, h, q0, b);
     }
+    issue(0, 0);  // every block runs tile 0
     // the batch entry's first valid key (sk if none): where every row of
-    // the block (or of a warpgroup) has seen a real logit; read while Q is
-    // in flight, handed to the consumers with tile 0
+    // the block (or of a warpgroup) has seen a real logit; read while Q and
+    // tile 0 are in flight, handed to the consumers with tile 0
     int first = sk;
     if (causal) {
       for (int j0 = 0; j0 < sk; j0 += 32) {
@@ -228,19 +373,14 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const int s = i % ST;
       if (i >= ST) mbar_wait(&empty[s], ((i / ST) - 1) & 1);
       if (i < n_run) {
+        if (i > 0) issue(i, s);
         uint32_t words[kWords];
         key_bits<kWords>(words, mask_row, i * KT, sk, lane);
         if (lane == 0) {
 #pragma unroll
           for (int w = 0; w < kWords; ++w) mask_s[s][w] = words[w];
           tile_s[s] = i;
-          mbar_arrive_tx(&full[s], (kStatsOnly ? 1 : 2) * kKBytes);
-          tma_tile<D, KT>(k_s + s * kKBytes, &k_map, &full[s], h, i * KT,
-                          b);
-          if (!kStatsOnly) {
-            tma_tile<D, KT>(v_s + s * kKBytes, &v_map, &full[s], h, i * KT,
-                            b);
-          }
+          mbar_arrive(&full[s]);
         }
       } else if (lane == 0) {
         tile_s[s] = -1;
@@ -269,6 +409,10 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   zero(o);
   float m_run[2] = {-INFINITY, -INFINITY};  // the rows' running max, log2
   float l_run[2] = {0.f, 0.f};  // this lane's share of sum exp(logit - m)
+  DropoutKey drop{};
+  if constexpr (kDrop) {
+    drop = load_dropout_key(ba.seed, ba.threshold, ba.keep_inv);
+  }
   mbar_wait(&q_full, 0);
 
   for (int i = 0;; ++i) {
@@ -293,6 +437,19 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_commit();
       wgmma_wait_all();
       fence_operands(sc);
+      uint32_t keep[kDrop ? KT / 64 : 1];
+      if constexpr (kDrop) keep_bits<KT>(keep, drop, k0, row0, h, b, c4);
+      if constexpr (kBias) {
+        // x = s (scale log2 e) + bias log2 e, the bias from the stage
+        float bl[KT / 2];
+        bias_log2<KT, TB>(bl, b_s + s * kBBytes +
+                                  wgi * kBiasBoxes * hopper::kBoxBytes,
+                          warp & 3, g, c4);
+#pragma unroll
+        for (int i2 = 0; i2 < KT / 2; ++i2) {
+          sc[i2] = fmaf(sc[i2], scale2, bl[i2]);
+        }
+      }
 
       // scale and masks on each element's own (row, key), in log2 units:
       // x = logit log2(e), so exp(logit - m) = 2^(x - m2); a masked logit
@@ -318,7 +475,8 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
             const bool ok = (bits[nb >> 2] >> (col & 31)) & 1u;
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-              float x = __fmul_rn(sc[4 * nb + 2 * r + e], scale2);
+              float x = kBias ? sc[4 * nb + 2 * r + e]
+                              : __fmul_rn(sc[4 * nb + 2 * r + e], scale2);
               if (!ok || (causal && row0 + 8 * r + shift < j)) x = kNegInf;
               if (j >= sk) x = -INFINITY;  // past sk: weight 0
               sc[4 * nb + 2 * r + e] = x;
@@ -329,7 +487,7 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       } else {
 #pragma unroll
         for (int i2 = 0; i2 < KT / 2; ++i2) {
-          sc[i2] = __fmul_rn(sc[i2], scale2);
+          if (!kBias) sc[i2] = __fmul_rn(sc[i2], scale2);
           tile_max[(i2 >> 1) & 1] = fmaxf(tile_max[(i2 >> 1) & 1], sc[i2]);
         }
       }
@@ -360,9 +518,16 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int r = 0; r < 2; ++r) l_run[r] = fmaf(l_run[r], alpha[r], psum[r]);
 
       if constexpr (!kStatsOnly) {
-        // O = alpha O + P V, P rounded to T straight from the accumulators
+        // O = alpha O + P V, P (times the keep factor) rounded to T straight
+        // from the accumulators
 #pragma unroll
         for (int i2 = 0; i2 < DP / 2; ++i2) o[i2] *= alpha[(i2 >> 1) & 1];
+        if constexpr (kDrop) {
+#pragma unroll
+          for (int i2 = 0; i2 < KT / 2; ++i2) {
+            sc[i2] *= (keep[i2 >> 5] >> (i2 & 31)) & 1u ? drop.keep_inv : 0.f;
+          }
+        }
         uint32_t pa[KT / 16][4];
         acc_to_frags<T, KT>(pa, sc);
         const unsigned char* vs = v_s + s * kKBytes;
@@ -915,25 +1080,45 @@ cudaError_t smem_once(size_t bytes) {
 
 }  // namespace
 
-// the tensor maps of one call: q, k, v, dO (dO unused by the forward)
+// the tensor maps of one call: q, k, v, dO (dO unused by the forward), and
+// the bias form's bias
 struct Maps {
-  CUtensorMap q, k, v, dout;
+  CUtensorMap q, k, v, dout, bias;
 };
 
-template <int D, bool kStatsOnly, typename S, typename T>
+// q and k as tensor maps, and v and dO where not null (dtype a
+// mmgl::DType code: bf16 or fp16), each (batch, seq, heads * d)
+inline cudaError_t make_maps(Maps* m, const void* q, const void* k,
+                             const void* v, const void* dout, int dtype,
+                             int batch, int sq, int sk, int heads, int d) {
+  using hopper::make_map;
+  cudaError_t err = make_map(&m->q, q, dtype, batch, sq, heads, d);
+  if (err == cudaSuccess) err = make_map(&m->k, k, dtype, batch, sk, heads, d);
+  if (err == cudaSuccess && v != nullptr) {
+    err = make_map(&m->v, v, dtype, batch, sk, heads, d);
+  }
+  if (err == cudaSuccess && dout != nullptr) {
+    err = make_map(&m->dout, dout, dtype, batch, sq, heads, d);
+  }
+  return err;
+}
+
+// the bias form reads m.bias (make_bias_map) and ba's dropout key
+template <int D, bool kStatsOnly, typename S, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
 cudaError_t launch_fwd(const Maps& m, const int* kv_mask, void* out,
                        float* row_max, float* row_sum, int batch, int sq,
                        int sk, int heads, float scale, int causal,
-                       cudaStream_t stream) {
-  constexpr size_t bytes = fwd_smem<D, S>(kStatsOnly);
-  auto kernel = allheads_fwd_kernel<D, kStatsOnly, S, T>;
-  const cudaError_t err =
-      smem_once<allheads_fwd_kernel<D, kStatsOnly, S, T>>(bytes);
+                       cudaStream_t stream, BiasArgs<TB> ba = BiasArgs<TB>{}) {
+  constexpr size_t bytes = fwd_smem<D, S, kBias, TB>(kStatsOnly);
+  auto kernel = allheads_fwd_kernel<D, kStatsOnly, S, T, kBias, kDropout, TB>;
+  const cudaError_t err = smem_once<
+      allheads_fwd_kernel<D, kStatsOnly, S, T, kBias, kDropout, TB>>(bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + 64 * S::kNC - 1) / (64 * S::kNC), heads, batch);
   kernel<<<grid, S::kThreads, bytes, stream>>>(
-      m.q, m.k, m.v, kv_mask, static_cast<T*>(out), row_max, row_sum, sq, sk,
-      heads, scale, causal);
+      m.q, m.k, m.v, kBias ? m.bias : m.q, kv_mask, static_cast<T*>(out),
+      row_max, row_sum, sq, sk, heads, scale, causal, ba);
   return cudaGetLastError();
 }
 
@@ -991,11 +1176,14 @@ cudaError_t launch_bwd(const Maps& m, const int* kv_mask,
 }
 
 // the shapes the library launches, by head dim: the fastest of
-// mmgl_tpu_torch/sweep_attention.py --allheads at K1's and K3's shapes on an
-// H100 (PERF.md §6); fp16 takes bf16's. One consumer warpgroup of 64 rows
-// and tiles of 64 throughout; at 64 two dK/dV and three dQ blocks an SM,
-// past 64 the dK and dV accumulators (64 registers each) leave room for
-// one dK/dV block
+// mmgl_tpu_torch/sweep_attention.py --allheads at K1's and K3's shapes and
+// of --k4-k7 at K4's and K7's on an H100 (PERF.md §6); fp16 takes bf16's.
+// One consumer warpgroup of 64 rows and tiles of 64 throughout; at 64 two
+// dK/dV and three dQ blocks an SM, past 64 the dK and dV accumulators (64
+// registers each) leave room for one dK/dV block. FwdShape serves every
+// forward (K1, K4, K7) and the stats passes of K3, K5 and K8/K9: a
+// forward and the stats pass that stands in for it must share one shape,
+// so that the row stats they write are the same bits
 template <int D>
 using FwdShape = Shape<1, 64, 2, 2>;
 template <int D>

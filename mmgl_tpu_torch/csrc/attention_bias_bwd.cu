@@ -30,9 +30,10 @@
 // caller's stream with no atomics:
 //   * bf16, fp16 (mmgl_bias_bwd_tc): the tensor-core bodies of
 //     attention_bwd_tiles.cuh in their bias form (kBias, kDropout), from
-//     K7's saved row max and sum, or, where none are given, from K7's body
-//     in its stats-only form (the same instructions for m and l, so the
-//     gradients are the same bits either way): the delta pass; dK/dV, one
+//     K7's saved row max and sum, or, where none are given, from K7's wgmma
+//     body (allheads_wgmma.cuh, in K7's shape) in its stats-only form (the
+//     same instructions for m and l, so the gradients are the same bits
+//     either way): the delta pass; dK/dV, one
 //     block of 4 warps per (64 keys, head, batch), keys in the accumulator
 //     rows, so a Philox call's four words fall on lanes lane and lane ^ 16;
 //     dQ, one block per (64 query rows, head, batch), as the forward, which
@@ -73,8 +74,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "allheads_wgmma.cuh"
 #include "attention_bwd_tiles.cuh"
-#include "attention_fwd_tc.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -587,10 +588,20 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSuccess;
   if (row_max == nullptr) {
     // the stats-only form: K7's instructions for m and l
-    err = mmgl::launch_fwd_tc<kD, true, kBias, false, TB, T>(
-        q, k, nullptr, kv_mask, nullptr, stats, stats + n, batch, sq, sk,
-        heads, scale, causal, stream,
-        mmgl::BiasArgs<TB>{bias_, bias_ld, nullptr, 0u, 1.f});
+    mmgl::wg::Maps m{};
+    err = mmgl::wg::make_maps(&m, q, k, nullptr, nullptr,
+                              mmgl::tc_code<T>(), batch, sq, sk, heads, kD);
+    if (err == cudaSuccess && kBias) {
+      err = mmgl::hopper::make_bias_map(
+          &m.bias, bias, std::is_same<TB, float>::value ? mmgl::kF32
+                                                        : mmgl::tc_code<T>(),
+          heads, sq, sk, bias_ld);
+    }
+    if (err != cudaSuccess) return err;
+    err = mmgl::wg::launch_fwd<kD, true, mmgl::wg::FwdShape<kD>, T, kBias,
+                               false, TB>(
+        m, kv_mask, nullptr, stats, stats + n, batch, sq, sk, heads, scale,
+        causal, stream, mmgl::BiasArgs<TB>{bias_, bias_ld, nullptr, 0u, 1.f});
     if (err != cudaSuccess) return err;
     row_max = stats;
     row_sum = stats + n;

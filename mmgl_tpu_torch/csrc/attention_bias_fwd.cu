@@ -27,16 +27,19 @@
 // The TPU split this kernel into a batched and a serial schedule over VMEM
 // size and grid order. Here one schedule serves all shapes, with two bodies
 // chosen by the input dtype, as K1-K6's are:
-//   * bf16, fp16 (mmgl_bias_fwd_tc): the tensor-core forward body of
-//     attention_fwd_tc.cuh in its bias form (kBias, kDropout): one block of
-//     4 warps per (64 query rows, head, batch), S and P V on mma.sync, each
-//     64 x 64 tile of the bias brought into the cp.async ring beside K and
-//     V and added in log2 units with the scale (one FMA an element), the
-//     keep factors applied to the P fragment before it is rounded to the
-//     input type
-//     (one Philox call a lane per row and 16 keys, two words swapped with
-//     the quad partner by a shuffle); where a gradient follows it also
-//     writes the rows' max and sum, from which K8/K9 starts;
+//   * bf16, fp16 (mmgl_bias_fwd_tc): K1's wgmma/TMA forward body of
+//     allheads_wgmma.cuh in its bias form (kBias, kDropout; the shape
+//     mmgl::wg::FwdShape<kD>): a producer warp streams K and V tiles of 64
+//     keys, and each tile's bias (the block's rows x the tile's keys,
+//     through a 3-D tensor map, 128-byte swizzled), through an mbarrier
+//     ring by TMA; each consumer warpgroup of 64 query rows runs
+//     S = Q K^T and P V on wgmma, reads its elements' bias pairs from the
+//     stage and adds them in log2 units with the scale (one FMA an
+//     element), makes its Philox calls (one a lane per row and 16 keys, two
+//     words swapped with the quad partner by a shuffle, a keep bit an
+//     element), runs the online softmax and puts the keep factors on P
+//     before it is rounded to the input type; where a gradient follows it
+//     also writes the rows' max and sum, from which K8/K9 starts;
 //   * fp32 (mmgl_bias_fwd): the scalar body below (on the tensor cores
 //     fp32 would run as TF32): one block of 256 threads per (64 query rows,
 //     head, batch), K/V streamed through shared memory in tiles of 64 keys,
@@ -60,7 +63,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attention_fwd_tc.cuh"
+#include "allheads_wgmma.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -268,19 +271,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the tensor-core body in one (bias, dropout) form over T (bf16, fp16)
+// the wgmma body in one (bias, dropout) form over T (bf16, fp16)
 template <bool kBias, bool kDropout, typename TB, typename T>
-cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const int* kv_mask, const void* bias, int bias_ld,
-                      const long long* seed, void* out, float* row_max,
-                      float* row_sum, int batch, int sq, int sk, int heads,
-                      float scale, int causal, unsigned int threshold,
-                      float keep_inv, cudaStream_t stream) {
+cudaError_t launch_tc(const mmgl::wg::Maps& m, const int* kv_mask,
+                      const void* bias, int bias_ld, const long long* seed,
+                      void* out, float* row_max, float* row_sum, int batch,
+                      int sq, int sk, int heads, float scale, int causal,
+                      unsigned int threshold, float keep_inv,
+                      cudaStream_t stream) {
   const mmgl::BiasArgs<TB> ba{static_cast<const TB*>(bias), bias_ld, seed,
                               threshold, keep_inv};
-  return mmgl::launch_fwd_tc<kD, false, kBias, kDropout, TB, T>(
-      q, k, v, kv_mask, out, row_max, row_sum, batch, sq, sk, heads, scale,
-      causal, stream, ba);
+  return mmgl::wg::launch_fwd<kD, false, mmgl::wg::FwdShape<kD>, T, kBias,
+                              kDropout, TB>(m, kv_mask, out, row_max,
+                                            row_sum, batch, sq, sk, heads,
+                                            scale, causal, stream, ba);
 }
 
 }  // namespace
@@ -309,12 +313,13 @@ extern "C" int mmgl_bias_fwd(const void* q, const void* k, const void* v,
                               keep_inv, stream);
 }
 
-// K7 on the tensor-core body (dtype kBF16 or kF16; the bias in fp32 or in
-// the same dtype): the arguments of
-// mmgl_bias_fwd, plus row_max and row_sum, each batch * heads * sq fp32 in
-// (B, H, Sq) order, which receive the rows' softmax max and sum when not
-// null (for K8/K9), and bias_ld, the bias's row stride: sk rounded up to a
-// multiple of 8, the bias padded to it.
+// K7 on the wgmma/TMA body (dtype kBF16 or kF16; the bias in fp32 or in the
+// same dtype): the arguments of mmgl_bias_fwd, plus row_max and row_sum,
+// each batch * heads * sq fp32 in (B, H, Sq) order, which receive the rows'
+// softmax max and sum when not null (for K8/K9), and bias_ld, the bias's
+// row stride (>= sk, a multiple of 8: TMA reads rows that start on 16
+// bytes; the wrapper pads a ragged one). kv_mask may be null: every key
+// valid.
 extern "C" int mmgl_bias_fwd_tc(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* bias,
                                 const long long* seed, void* out,
@@ -324,8 +329,7 @@ extern "C" int mmgl_bias_fwd_tc(const void* q, const void* k, const void* v,
                                 unsigned int threshold, float keep_inv,
                                 int dtype, int bias_dtype, int bias_ld,
                                 cudaStream_t stream) {
-  if (head_dim != kD || batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      (causal && sq > sk) || batch > 65535 || heads > 65535 ||
+  if (head_dim != kD || !mmgl::valid_shape(batch, sq, sk, heads, causal) ||
       (bias != nullptr &&
        (bias_ld < sk || bias_ld % 8 != 0 ||
         (bias_dtype != mmgl::kF32 && bias_dtype != dtype)))) {
@@ -334,10 +338,18 @@ extern "C" int mmgl_bias_fwd_tc(const void* q, const void* k, const void* v,
   const bool drop = seed != nullptr;
   return mmgl::with_tc_type(dtype, [&](auto tag) {
     using T = decltype(tag);
+    mmgl::wg::Maps m{};
+    cudaError_t err = mmgl::wg::make_maps(&m, q, k, v, nullptr, dtype, batch,
+                                          sq, sk, heads, kD);
+    if (err == cudaSuccess && bias != nullptr) {
+      err = mmgl::hopper::make_bias_map(&m.bias, bias, bias_dtype, heads, sq,
+                                        sk, bias_ld);
+    }
+    if (err != cudaSuccess) return err;
 #define MMGL_BIAS_FWD_TC(B, DROP, TB)                                        \
-  launch_tc<B, DROP, TB, T>(q, k, v, kv_mask, bias, bias_ld, seed, out,      \
-                            row_max, row_sum, batch, sq, sk, heads, scale,   \
-                            causal, threshold, keep_inv, stream)
+  launch_tc<B, DROP, TB, T>(m, kv_mask, bias, bias_ld, seed, out, row_max,  \
+                            row_sum, batch, sq, sk, heads, scale, causal,    \
+                            threshold, keep_inv, stream)
     if (bias == nullptr) {
       return drop ? MMGL_BIAS_FWD_TC(false, true, T)
                   : MMGL_BIAS_FWD_TC(false, false, T);

@@ -43,11 +43,11 @@
 //
 // Two bodies, chosen by the input dtype. fp32 inputs take the scalar passes
 // above (on the tensor cores fp32 would run as TF32). bf16 and fp16 inputs
-// take the tensor-core bodies, four launches (K5's entry below): the forward body
-// of attention_fwd_tc.cuh in its stats-only form (m and l from the same code,
-// in the same order, as K4 writes them for K6, so K5 and K6 agree bit for
-// bit), the delta pass, then the tensor-core dK/dV and dQ bodies of
-// attention_bwd_tiles.cuh.
+// take the tensor-core bodies, four launches (K5's entry below): K4's
+// wgmma/TMA forward body (allheads_wgmma.cuh, in K4's shape) in its
+// stats-only form (m and l from the same instructions, in the same order,
+// as K4 writes them for K6, so K5 and K6 agree bit for bit), the delta pass,
+// then the mma.sync dK/dV and dQ bodies of attention_bwd_tiles.cuh.
 //
 // What bounds the scalar passes on this card: a few GFLOP of scalar fp32
 // FMAs over a few MB, so the throughput of FMAs and shared-memory loads, not
@@ -58,8 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "allheads_wgmma.cuh"
 #include "attention_bwd_tiles.cuh"
-#include "attention_fwd_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -252,9 +252,13 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
     constexpr int D = decltype(d)::value;
     return mmgl::with_tc_type(dtype, [&](auto tag) {
       using T = decltype(tag);
-      cudaError_t err = mmgl::launch_fwd_tc<D, true, false, false, T, T>(
-          q, k, nullptr, kv_mask, nullptr, row_max, row_sum, batch, sq, sk,
-          heads, scale, causal, stream);
+      mmgl::wg::Maps m{};
+      cudaError_t err = mmgl::wg::make_maps(&m, q, k, nullptr, nullptr,
+                                            dtype, batch, sq, sk, heads, D);
+      if (err != cudaSuccess) return err;
+      err = mmgl::wg::launch_fwd<D, true, mmgl::wg::FwdShape<D>, T>(
+          m, kv_mask, nullptr, row_max, row_sum, batch, sq, sk, heads, scale,
+          causal, stream);
       if (err != cudaSuccess) return err;
       err = mmgl::launch_delta<D, T>(out, dout, row_delta, batch, sq, heads,
                                      stream);

@@ -1,7 +1,7 @@
-// The tensor-core forward body of K1, K2 and K4 (attention_fwd.cu), and
-// in stats-only form the stats pass of K3/K5 (attention_bwd.cu), so that K5
-// takes its row max and sum from the same code, in the same order, as K4
-// writes them for K6.
+// The mma.sync tensor-core forward body of K2 (attention_fwd.cu). K1, K4
+// and K7 and the stats passes of K3, K5 and K8/K9 moved to the wgmma/TMA
+// forward of allheads_wgmma.cuh; this body, with its bias form, stays the
+// "before" reading of sweep_attention (csrc/sweep/k4_k7_shapes.cu).
 //
 // Computes what attention_fwd.cu's scalar body computes (xla_attention's
 // math, mmgl_tpu/ops/attention.py:190-224):
@@ -23,8 +23,8 @@
 // What bounds it on this card: 4 D FLOPs per (query, key) pair over a few MB,
 // so the tensor cores (989 TFLOP/s bf16) and, at these head dims, the fp32
 // softmax between the two products; HBM (3.35 TB/s) is far off. The head
-// dim D is a template: 64, 80 and 128 (K1/K4 and K3-K6's stats pass), 64
-// in the bias form. D = 80 is five k16 steps: the last of S = Q K^T reads
+// dim D is a template: 64, 80 and 128 (the sweep's K4 before-readings),
+// 64 in the bias form. D = 80 is five k16 steps: the last of S = Q K^T reads
 // its K fragments with ldmatrix .x2. The design,
 // FlashAttention-2's shape on mma.sync:
 //   * one block of 4 warps per (64 query rows, head, batch), 16 rows a warp
@@ -52,11 +52,11 @@
 // The stats-only form drops V, P V and the output, and writes the rows' max
 // and sum: the same instructions for m and l as the full form.
 //
-// The bias form (kBias, kDropout; K7 in attention_bias_fwd.cu, and in
-// stats-only form the stats pass of K8/K9) computes xla_attention's math
-// with the batch-shared (H, Sq, Sk) bias and attention-prob dropout:
+// The bias form (kBias, kDropout; K7's before its wgmma body) computes
+// xla_attention's math with the batch-shared (H, Sq, Sk) bias and
+// attention-prob dropout:
 //   out = (softmax(q k^T * scale + bias[h], masked = -1e30) * keep) v
-// It is the same body with two additions, compiled out of K1/K2/K4:
+// It is the same body with two additions, compiled out of K2:
 //   * each (kRows x 64) tile of the bias (T or fp32) comes into the
 //     cp.async ring beside K and V, and each S element takes its own
 //     (row, key): in log2 units the logit is s (scale log2 e) + bias log2 e,
@@ -71,8 +71,7 @@
 //     is made once per pass, ten rounds of integer work per four
 //     probabilities, which at T5's shapes costs more than the products.
 // The same instructions compute m and l in the full and the stats-only
-// form, so K8/K9 from K7's saved stats and from its own stats pass agree
-// bit for bit.
+// form.
 #pragma once
 
 #include <cuda_bf16.h>

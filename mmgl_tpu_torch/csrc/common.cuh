@@ -31,6 +31,12 @@ cudaError_t with_tc_type(int dtype, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+// the code of a tensor-core element type (with_tc_type's inverse)
+template <typename T>
+constexpr int tc_code() {
+  return std::is_same<T, __half>::value ? kF16 : kBF16;
+}
+
 // f(std::integral_constant<int, D>{}) for a head dim the K1-K6 bodies are
 // instantiated at: 64 (OPT-125M to 1.3B, T5, the towers), 80 (OPT and MPT
 // at 2.7B) and 128 (6.7B); any other is refused. K7-K9 take 64 only (T5's

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the wgmma/TMA attention bodies
-// (allheads_wgmma.cu: K1 and K3): mbarriers, TMA tile loads through a
-// tensor map, warpgroup matrix products (wgmma) with their shared-memory
-// descriptors, and the host-side encoding of the tensor maps.
+// (allheads_wgmma.cuh: K1, K3, K4 and K7): mbarriers, TMA tile loads
+// through a tensor map, warpgroup matrix products (wgmma) with their
+// shared-memory descriptors, and the host-side encoding of the tensor maps
+// (the (B, S, H * D) inputs', and K7's (H, Sq, Sk) bias's).
 //
 // Tiles in shared memory. Every operand tile is TMA's 128-byte-swizzled
 // image of 64-element boxes: a row of the tile is 64 values of the head dim
@@ -60,6 +61,18 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
       : "memory");
 }
 
+// bytes more for the barrier's current phase to wait for, without an
+// arrival (the producer arrives once it has written what goes beside the
+// copies)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
 // wait until the phase of the given parity has completed; a wait that
 // never completes (a fault in a pipeline) traps after some 2^26 tries, a
 // minute or less, instead of holding the card
@@ -91,6 +104,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 3-D tensor map (dims innermost first: key, query row, head)
+// into shared memory, completing on bar's transaction count; coordinates
+// past the tensor's extent read zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -403,6 +430,34 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int dtype,
       dtype == kF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(ptr), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor map of an (H, Sq, Sk) bias of fp32, bf16 or fp16 (dtype a
+// DType code) whose rows are ld elements apart, as 3-D (Sk, Sq, H): boxes
+// of 128 bytes of a row (64 values of 2 bytes, 32 of fp32) x 64 rows x one
+// head, swizzled by 128 bytes; a key past Sk or a row past Sq reads zeros.
+// TMA wants the row stride a multiple of 16 bytes: ld a multiple of 8
+inline cudaError_t make_bias_map(CUtensorMap* map, const void* ptr, int dtype,
+                                 int heads, int sq, int sk, int ld) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorInitializationError;
+  const cuuint64_t es = dtype == kF32 ? 4 : 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(sk),
+                              static_cast<cuuint64_t>(sq),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t row = static_cast<cuuint64_t>(ld) * es;
+  const cuuint64_t strides[2] = {row, row * static_cast<cuuint64_t>(sq)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / es), kBoxRows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map,
+      dtype == kF32   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : dtype == kF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, steps,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -24,6 +24,12 @@ the causal mask aligns the ends, so every query sees the prefix (128
 queries against 148 keys at T5-base's decoder: K7 and K8 at a ragged key
 length). Only the teacher-forced forward takes them; ``decode``, which
 greedy generation runs, takes none, as in the JAX package.
+
+What the attention kernels take is made once a stack, not once a layer:
+the position bias with every head, the prefix's zero columns and its rows
+padded to a multiple of 8 elements (``padded_bias``: K7's TMA and
+K8/K9's tiles read rows that start on 16 bytes, the view in place), and
+the key masks in int32 with the prefix's ones.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from mmgl_tpu_torch.models.layers import (ACT2FN, Dropout, Embedding,
                                           Linear, RMSNorm, cast_at_use)
 from mmgl_tpu_torch.models.opt import KVCache
 from mmgl_tpu_torch.ops import multi_head_attention
+from mmgl_tpu_torch.ops.flash_attention import padded_bias
 
 
 @dataclass(frozen=True)
@@ -124,6 +131,9 @@ class T5Attention(nn.Module):
                 position_bias=None, cache: Optional[KVCache] = None,
                 generator: Optional[torch.Generator] = None,
                 prefix_kv=None):
+        """With ``prefix_kv``, the self-attention's keys and values are
+        [prefix; k] and [prefix; v], and ``kv_mask`` and ``position_bias``
+        already cover the prefix (``T5Stack`` extends them once)."""
         cfg = self.cfg
         b, s, _ = hidden_states.shape
         h, d = cfg.num_heads, cfg.d_kv
@@ -155,13 +165,7 @@ class T5Attention(nn.Module):
         if prefix_kv is not None and kv_states is None:
             pk, pv = (t.to(k.dtype)[None].expand(b, *t.shape)
                       for t in prefix_kv)
-            p = pk.shape[1]
             k, v = torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
-            if kv_mask is not None:
-                kv_mask = torch.cat([kv_mask.new_ones(b, p), kv_mask], dim=1)
-            if position_bias is not None:
-                position_bias = torch.cat([position_bias.new_zeros(
-                    *position_bias.shape[:3], p), position_bias], dim=3)
 
         rate = cfg.dropout_rate if self.training else 0.0
         out = multi_head_attention(q, k, v, kv_mask=kv_mask,
@@ -255,6 +259,22 @@ class T5Stack(nn.Module):
             num_buckets=cfg.relative_attention_num_buckets,
             max_distance=cfg.relative_attention_max_distance,
             q_offset=position_offset)
+        # once a stack: the masks in int32, the prefix's keys (every
+        # decoder layer's prefix has the same length) always valid and
+        # without a position bias, the bias rows padded for the kernels
+        if attention_mask is not None:
+            attention_mask = attention_mask.to(torch.int32)
+        if encoder_mask is not None:
+            encoder_mask = encoder_mask.to(torch.int32)
+        if prefix_kvs is not None:
+            p = prefix_kvs[0][0].shape[0]
+            bias = torch.cat([bias.new_zeros(*bias.shape[:3], p), bias],
+                             dim=3)
+            if attention_mask is not None:
+                attention_mask = torch.cat(
+                    [attention_mask.new_ones(attention_mask.shape[0], p),
+                     attention_mask], dim=1)
+        bias = padded_bias(bias)
         hidden_states = self.dropout(inputs_embeds, generator)
         for i, layer in enumerate(self.layers):
             hidden_states = layer(

@@ -35,8 +35,9 @@ csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
 
 Every kernel has two bodies, chosen by the input dtype (``_tensor_cores``):
 bf16 and fp16 inputs launch the tensor-core body (the ``*_tc`` entries of
-the library: K1 and K3 on Hopper's wgmma and TMA, csrc/allheads_wgmma.cu;
-the others on mma.sync in the input's type), fp32 inputs the scalar one
+the library: K1, K3, K4 and K7 on Hopper's wgmma and TMA,
+csrc/allheads_wgmma.cuh, with the stats passes of K5 and K8/K9; the others
+on mma.sync in the input's type), fp32 inputs the scalar one
 (on the tensor cores fp32 would run as TF32, about three decimal digits,
 against the fp32 checks' 2e-5). The wrappers count ``launches`` and, of
 those, ``launches_tc``. There is no fallback from one body to the other.
@@ -53,10 +54,12 @@ counterpart of the ``_allheads`` custom VJP), K4 through ``_FlashAttention``
 (K5 or K6 backward), K7 through ``_BiasAttention`` (K8/K9 backward), K2 through
 ``_FusedHeadsAttention``, whose backward recomputes through the plain version
 as ``_fused_heads_vjp_bwd`` does with XLA (the towers are frozen, so the
-main path never runs it). On a CUDA tensor a wrapper checks its inputs,
-launches its kernel on the current stream and adds one to its ``launches``
-count; on a CPU tensor it computes its plain version. There is no fallback on
-the card: a build or launch failure raises.
+main path never runs it). Where no gradient can flow (the eval and test
+passes, the frozen towers) each skips its autograd node. On a CUDA tensor a
+wrapper checks its inputs, launches its kernel on the current stream and
+adds one to its ``launches`` count; on a CPU tensor it computes its plain
+version. There is no fallback on the card: a build or launch failure
+raises.
 
 Head dims: K1 and K3-K6 take 64, 80 (OPT and MPT at 2.7B) and 128 (6.7B),
 K2 and K7-K9 64 (``HEAD_DIMS``); the plain versions take any.
@@ -344,11 +347,9 @@ def _count(wrapper, q) -> None:
     wrapper.launches_tc += int(_tensor_cores(q))
 
 
-def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape, stats=()):
+def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
     """Run one forward launcher of the library (``fn``, or its tensor-core
-    entry for bf16 and fp16) on the current stream; returns out.
-    ``stats``: the tensors (or None, a null pointer) the launcher writes
-    beside out (K4's row max and sum)."""
+    entry for bf16 and fp16: K2's) on the current stream; returns out."""
     lib = _build.load().lib
     kv_mask = _int_mask(q, k, kv_mask)
     out = torch.empty_like(q)
@@ -356,29 +357,24 @@ def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape, stats=()):
     with torch.cuda.device(q.device):
         err = getattr(lib, _entry(fn, q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            out.data_ptr(), *(_ptr(t) for t in stats), *shape,
-            q.shape[3], float(scale), int(causal), _DTYPE_CODE[q.dtype],
-            stream)
+            out.data_ptr(), *shape, q.shape[3], float(scale), int(causal),
+            _DTYPE_CODE[q.dtype], stream)
     _build.check(lib, err, name)
     return out
 
 
 def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
-    """Run a dense backward launcher (K3, K5; its tensor-core entry for
-    bf16 and fp16) on the current stream; returns (dq, dk, dv)."""
+    """Run a dense backward launcher (K5; its tensor-core entry for bf16
+    and fp16) on the current stream through ``_call`` (it may run on
+    autograd's backward thread); returns (dq, dk, dv)."""
     b, sq, h, d = q.shape
-    lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = getattr(lib, _entry(fn, q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), b, sq, k.shape[1], h, d,
-            float(scale), int(causal), _DTYPE_CODE[q.dtype], stream)
-    _build.check(lib, err, name)
+    _call(q, _lib_fn(_entry(fn, q)), name, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
+          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b,
+          sq, k.shape[1], h, d, scale, causal, _DTYPE_CODE[q.dtype])
     return dq, dk, dv
 
 
@@ -400,16 +396,17 @@ def _check_out_dout(name, q, out, dout):
     return out, dout
 
 
-# ---- K1 and K3's launch path ------------------------------------------
+# ---- K1, K3, K4 and K7's launch path ----------------------------------
 #
-# K1 and K3 run once a layer and micro-step, and their bodies take tens of
-# microseconds, so the host's work around each launch sets their pace on the
-# main path. Their launchers below do only what a call needs: the ctypes
-# entry's argument types are set once at load (``_build.load``), the raw
-# stream comes from torch's C API, the device is switched only when q is not
-# on the current one, an int32 contiguous key mask is passed as it stands
-# (the models build theirs once a forward) and no mask as a null pointer
-# (every key valid), and the tensor maps are encoded by the C entry.
+# K1 and K3 run once a layer and micro-step (K4 and K7 in T5's layers),
+# and their bodies take tens of microseconds, so the host's work around
+# each launch sets their pace. Their launchers do only what a call needs:
+# the ctypes entry's argument types are set once at load (``_build.load``),
+# the raw stream comes from torch's C API, the device is switched only when
+# q is not on the current one, an int32 contiguous key mask is passed as it
+# stands (the models build theirs once a forward) and no mask as a null
+# pointer (every key valid), and the tensor maps are encoded by the C
+# entry.
 
 
 def _lib_fn(entry):
@@ -728,19 +725,15 @@ def _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max, row_sum,
     """Run K6's launcher (its tensor-core entry for bf16 and fp16) on the
     current stream; returns (dq, dk, dv)."""
     b, sq, h, d = q.shape
-    lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = getattr(lib, _entry("mmgl_blocked_bwd", q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), row_max.data_ptr(),
-            row_sum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), b, sq, k.shape[1], h, d, float(scale),
-            int(causal), _DTYPE_CODE[q.dtype], stream)
-    _build.check(lib, err, "flash_attention_blocked_bwd")
+    _call(q, _lib_fn(_entry("mmgl_blocked_bwd", q)),
+          "flash_attention_blocked_bwd", q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
+          row_max.data_ptr(), row_sum.data_ptr(), dq.data_ptr(),
+          dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, sq, k.shape[1],
+          h, d, scale, causal, _DTYPE_CODE[q.dtype])
     return dq, dk, dv
 
 
@@ -770,6 +763,26 @@ flash_attention_blocked_bwd.launches = 0
 flash_attention_blocked_bwd.launches_tc = 0
 
 
+def _launch_flash(q, k, v, kv_mask, causal, scale, with_stats):
+    """Run K4 on the current stream, K1's launch path: (out, row_max,
+    row_sum), the stats (B, H, Sq) fp32 where ``with_stats``, else None.
+    The wgmma body (bf16, fp16) takes no mask as a null pointer; the
+    scalar body (fp32) reads one."""
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    stats = _empty_stats(q) if with_stats else (None, None)
+    mask, mask_ptr = _mask_arg(kv_mask)
+    entry = "mmgl_flash_fwd_tc"
+    if not _tensor_cores(q):
+        entry = "mmgl_flash_fwd"
+        if mask is None:
+            mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
+    _call(q, _lib_fn(entry), "flash_attention", q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), mask_ptr, out.data_ptr(), *(_ptr(t) for t in stats),
+          b, sq, k.shape[1], h, d, scale, causal, _DTYPE_CODE[q.dtype])
+    return (out,) + stats
+
+
 def _flash_forward(q, k, v, kv_mask, causal, scale, with_stats):
     """K4 (or its plain version on the CPU): (out, row_max, row_sum), the
     stats None unless ``with_stats``."""
@@ -778,15 +791,9 @@ def _flash_forward(q, k, v, kv_mask, causal, scale, with_stats):
                                         causal=causal, scale=scale,
                                         with_stats=with_stats)
         return got if with_stats else (got, None, None)
-    b, sq, h, _ = q.shape
-    stats = (None, None)
-    if with_stats:
-        stats = tuple(torch.empty(b, h, sq, dtype=torch.float32,
-                                  device=q.device) for _ in range(2))
-    out = _launch("mmgl_flash_fwd", "flash_attention", q, k, v, kv_mask,
-                  causal, scale, b, sq, k.shape[1], h, stats=stats)
+    got = _launch_flash(q, k, v, kv_mask, causal, scale, with_stats)
     _count(flash_attention, q)
-    return (out,) + stats
+    return got
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -830,14 +837,16 @@ def flash_attention(
     broadcast head; (B, Sq, H, D) out. Its gradient runs K5, or K6 for
     causal attention under ``BLOCKED_BWD``; K4 then keeps the rows' stats,
     only where a gradient will be taken (JAX writes the LSE only in the
-    VJP's forward)."""
+    VJP's forward). Where no gradient can flow (T5's test pass) it skips
+    the autograd node, as K1 does."""
     k, v = _broadcast_kv(q, k, v)
     _check("flash_attention", q, k, v, kv_mask, allow_sq_gt_sk=not causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    blocked = (causal and BLOCKED_BWD and torch.is_grad_enabled()
-               and any(t.requires_grad for t in (q, k, v)))
-    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale, blocked)
+    if not _needs_grad(q, k, v):
+        return _flash_forward(q, k, v, kv_mask, causal, scale, False)[0]
+    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale,
+                                 causal and BLOCKED_BWD)
 
 
 flash_attention.launches = 0
@@ -876,8 +885,10 @@ def _dropout_args(rate, seed, q):
 
 
 def _check_bias(name, q, k, bias):
-    """The kernels' bias: (H, Sq, Sk) contiguous, in fp32 or in q's dtype
-    (the fp32 body also takes a bf16 bias)."""
+    """The kernels' bias: (H, Sq, Sk), its rows contiguous and evenly
+    spaced (``_bias_ld``: contiguous, or a view of rows padded at their
+    end), in fp32 or in q's dtype (the fp32 body also takes a bf16
+    bias)."""
     if bias is None:
         return
     b, sq, h, _ = q.shape
@@ -893,23 +904,56 @@ def _check_bias(name, q, k, bias):
             f"{name}: bias must be {' or '.join(map(str, allowed))} on "
             f"{q.device} for {q.dtype} inputs, got {bias.dtype} on "
             f"{bias.device}")
-    _check_layout(name, bias)
+    if _bias_ld(bias) is None:
+        raise ValueError(f"{name}: the bias's rows must be contiguous and "
+                         f"evenly spaced, got strides {bias.stride()}")
+    if bias.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _padded_bias(bias, sk):
-    """(bias, row stride) as the tensor-core bodies read it: rows padded
-    with zeros to a multiple of 8 elements, so each 16-byte copy of a tile
-    starts on 16 bytes (T5's 512 and 128 need no padding); (None, 0)
+def _bias_ld(bias):
+    """The row stride of an (H, Sq, Sk) bias whose rows the kernels can read
+    in place: each row contiguous, the rows of a head ``ld >= Sk`` elements
+    apart, the heads Sq rows apart (a contiguous bias, ld = Sk, or a view
+    of one padded at the end of its rows, ``padded_bias``); None for any
+    other layout."""
+    h, sq, sk = bias.shape
+    st = bias.stride()
+    if (sk > 1 and st[2] != 1) or st[1] < sk or (h > 1
+                                                 and st[0] != sq * st[1]):
+        return None
+    return st[1]
+
+
+def padded_bias(bias):
+    """``bias`` (..., Sq, Sk) as a view of rows padded with zeros to a
+    multiple of 8 elements, the layout the tensor-core bodies read (K7's
+    TMA and K8/K9's 16-byte copies take rows that start on 16 bytes): a
+    model builds it once a stack, where the bias is made, so that no layer
+    pads it. ``bias`` itself where Sk is a multiple of 8. Its gradient is
+    the view's, cut back to Sk columns."""
+    sk = bias.shape[-1]
+    ld = -(-sk // 8) * 8
+    if ld == sk:
+        return bias
+    return torch.nn.functional.pad(bias, (0, ld - sk))[..., :sk]
+
+
+def _tile_rows(bias):
+    """(bias, row stride) as the tensor-core bodies take an (H, Sq, Sk)
+    bias: its rows padded to a multiple of 8 elements, in place where they
+    are (``padded_bias``, once a stack), else padded here; (None, 0)
     without a bias."""
     if bias is None:
         return None, 0
-    ld = -(-sk // 8) * 8
-    if ld != sk:
-        bias = torch.nn.functional.pad(bias, (0, ld - sk))
+    ld = _bias_ld(bias)
+    if ld % 8:
+        bias = padded_bias(bias.contiguous())
+        ld = _bias_ld(bias)
     return bias, ld
 
 
@@ -921,33 +965,36 @@ def _empty_stats(q):
 
 
 def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv,
-                 *stats):
-    """Run K7's launcher (its tensor-core entry for bf16 and fp16) on the
-    current stream; returns out. ``stats``: the row max and sum tensors the
-    tensor-core body writes beside out, or none."""
+                 with_stats):
+    """Run K7 on the current stream, K1's launch path: (out, row_max,
+    row_sum), the stats (B, H, Sq) fp32 where ``with_stats`` (the wgmma
+    body, bf16 and fp16), else None. The wgmma body reads the bias in place
+    where its rows are padded to a multiple of 8 (``_tile_rows``) and takes
+    no mask as a null pointer; the scalar body (fp32) reads a contiguous
+    bias and a mask."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    lib = _build.load().lib
-    mask = _int_mask(q, k, kv_mask)
     out = torch.empty_like(q)
+    mask, mask_ptr = _mask_arg(kv_mask)
     codes = (_DTYPE_CODE[q.dtype],
              _DTYPE_CODE[bias.dtype] if bias is not None else 0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        if _tensor_cores(q):
-            bias, ld = _padded_bias(bias, sk)
-            err = lib.mmgl_bias_fwd_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                _ptr(bias), _ptr(seed), out.data_ptr(),
-                *(_ptr(t) for t in (stats or (None, None))), b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, *codes, ld, stream)
-        else:
-            err = lib.mmgl_bias_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                _ptr(bias), _ptr(seed), out.data_ptr(), b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, *codes, stream)
-    _build.check(lib, err, "flash_attention_bias")
-    return out
+    if _tensor_cores(q):
+        stats = _empty_stats(q) if with_stats else (None, None)
+        bias, ld = _tile_rows(bias)
+        _call(q, _lib_fn("mmgl_bias_fwd_tc"), "flash_attention_bias",
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, _ptr(bias),
+              _ptr(seed), out.data_ptr(), *(_ptr(t) for t in stats), b, sq,
+              sk, h, d, scale, causal, thr, keep_inv, *codes, ld)
+        return (out,) + stats
+    if mask is None:
+        mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
+    if bias is not None:
+        bias = bias.contiguous()
+    _call(q, _lib_fn("mmgl_bias_fwd"), "flash_attention_bias", q.data_ptr(),
+          k.data_ptr(), v.data_ptr(), mask_ptr, _ptr(bias), _ptr(seed),
+          out.data_ptr(), b, sq, sk, h, d, scale, causal, thr, keep_inv,
+          *codes)
+    return out, None, None
 
 
 def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
@@ -963,34 +1010,32 @@ def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     tc = _tensor_cores(q)
-    lib = _build.load().lib
     mask = _int_mask(q, k, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     scratch = torch.empty(3 * b * h * sq, dtype=torch.float32,
                           device=q.device)
     dbias = partial = None
     if bias is not None:
-        dbias = torch.empty_like(bias)
+        dbias = torch.empty(bias.shape, dtype=bias.dtype, device=q.device)
         partial = (torch.empty if tc else torch.zeros)(
             b * h * sq * sk, dtype=torch.float32, device=q.device)
     codes = (_DTYPE_CODE[q.dtype],
              _DTYPE_CODE[bias.dtype] if bias is not None else 0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr())
     grads = (out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), _ptr(dbias), scratch.data_ptr(), _ptr(partial))
-    with torch.cuda.device(q.device):
-        if tc:
-            padded, ld = _padded_bias(bias, sk)
-            err = lib.mmgl_bias_bwd_tc(
-                *common, _ptr(padded), _ptr(seed), *grads,
-                *(_ptr(t) for t in (stats or (None, None))), b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, *codes, ld, stream)
-        else:
-            err = lib.mmgl_bias_bwd(
-                *common, _ptr(bias), _ptr(seed), *grads, b, sq, sk, h, d,
-                float(scale), int(causal), thr, keep_inv, *codes, stream)
-    _build.check(lib, err, "flash_attention_bias_bwd")
+    name = "flash_attention_bias_bwd"
+    if tc:
+        bias, ld = _tile_rows(bias)
+        _call(q, _lib_fn("mmgl_bias_bwd_tc"), name, *common, _ptr(bias),
+              _ptr(seed), *grads, *(_ptr(t) for t in (stats or (None, None))),
+              b, sq, sk, h, d, scale, causal, thr, keep_inv, *codes, ld)
+    else:
+        if bias is not None:
+            bias = bias.contiguous()
+        _call(q, _lib_fn("mmgl_bias_bwd"), name, *common, _ptr(bias),
+              _ptr(seed), *grads, b, sq, sk, h, d, scale, causal, thr,
+              keep_inv, *codes)
     return dq, dk, dv, dbias
 
 
@@ -1048,12 +1093,12 @@ def _bias_forward(q, k, v, kv_mask, bias, seed, causal, scale, rate,
     if with_stats and not _tensor_cores(q):
         raise ValueError("flash_attention_bias: the row stats come from the "
                          "tensor-core body; q is " + str(q.dtype))
-    seed, thr, keep_inv = _dropout_args(rate, seed, q)
-    stats = _empty_stats(q) if with_stats else (None, None)
-    out = _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
-                       keep_inv, *(stats if with_stats else ()))
+    # the key was checked by _bias_args; rate is 0 without one
+    thr, keep_inv = dropout_threshold(rate) or (0, 1.0)
+    got = _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
+                       keep_inv, with_stats)
     _count(flash_attention_bias, q)
-    return (out,) + stats
+    return got
 
 
 class _BiasAttention(torch.autograd.Function):
@@ -1086,8 +1131,10 @@ class _BiasAttention(torch.autograd.Function):
 def _bias_args(name, q, k, v, bias, kv_mask, causal, scale, dropout_rate,
                dropout_seed):
     """K7's inputs as its body takes them: (k, v, bias, scale, seed, rate)
-    with a broadcast K/V head and bias head expanded, the bias (H, Sq, Sk),
-    and rate 0 where nothing is dropped."""
+    with a broadcast K/V head and bias head expanded, the bias (H, Sq, Sk)
+    read in place where its rows are (T5's, built once a stack, with every
+    head and rows padded by ``padded_bias``: no copy a call), and rate 0
+    where nothing is dropped."""
     k, v = _broadcast_kv(q, k, v)
     _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
     if scale is None:
@@ -1097,8 +1144,12 @@ def _bias_args(name, q, k, v, bias, kv_mask, causal, scale, dropout_rate,
             raise ValueError(f"{name}: the kernel takes a batch-shared "
                              f"(1, H, Sq, Sk) bias, got {tuple(bias.shape)}")
         h = q.shape[2]
-        # a broadcast head is expanded; the gradient sums it back
-        bias = bias[0].expand(h, *bias.shape[2:]).contiguous()
+        bias = bias[0]
+        if bias.shape[0] != h:
+            # a broadcast head is expanded; the gradient sums it back
+            bias = bias.expand(h, *bias.shape[1:]).contiguous()
+        elif _bias_ld(bias) is None:
+            bias = bias.contiguous()
         _check_bias(name, q, k, bias)
     seed, _, _ = _dropout_args(dropout_rate, dropout_seed, q)
     return k, v, bias, scale, seed, dropout_rate if seed is not None else 0.0
@@ -1121,16 +1172,20 @@ def flash_attention_bias(
     dropout at ``dropout_rate`` under the (2,) int64 key ``dropout_seed``
     (``attention.draw_dropout_seed``); (B, Sq, H, D) out. Its gradient runs
     K8/K9 and reaches the bias; in bf16 or fp16 on the card K7 then keeps the
-    rows'
-    stats for it, only where a gradient will be taken (JAX's custom VJP
-    saves only the output)."""
+    rows' stats for it, only where a gradient will be taken (JAX's custom
+    VJP saves only the output); where none can flow it skips the autograd
+    node. A bias with rows padded at their end (``padded_bias``) is read in
+    place."""
     k, v, bias, scale, seed, rate = _bias_args(
         "flash_attention_bias", q, k, v, bias, kv_mask, causal, scale,
         dropout_rate, dropout_seed)
-    with_stats = (not _plain(q) and _tensor_cores(q)
-                  and torch.is_grad_enabled()
-                  and any(t is not None and t.requires_grad
-                          for t in (q, k, v, bias)))
+    if not (_needs_grad(q, k, v) or (torch.is_grad_enabled()
+                                     and bias is not None
+                                     and bias.requires_grad)):
+        # no gradient can flow (the test pass): no autograd node, no stats
+        return _bias_forward(q, k, v, kv_mask, bias, seed, causal, scale,
+                             rate, False)[0]
+    with_stats = not _plain(q) and _tensor_cores(q)
     return _BiasAttention.apply(q, k, v, kv_mask, bias, seed, causal, scale,
                                 rate, with_stats)
 

@@ -83,9 +83,23 @@ KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
 # kWarps, kStages, kMinBlocks, kBias, kDropout, TB, T> (T, the element
 # type, bf16 or fp16)
 _TC_BODY = re.compile(r"attention_(fwd|bwd_dkdv|bwd_dq)_tc_kernel<([^>]*)>")
+# the wgmma bodies (csrc/allheads_wgmma.cuh): the forward's <D, kStatsOnly,
+# Shape<...>, T, kBias, kDropout, TB> (K1, K4 and, in its bias form, K7;
+# stats-only, the stats passes of K3, K5 and K8/K9), and K3's dK/dV and dQ
+_WG_FWD = re.compile(r"allheads_fwd_kernel<\d+, (true|false), [^<>]*<[^<>]*>, "
+                     r"[^,<>]+, (true|false), (true|false)")
+_WG_BWD = re.compile(r"allheads_(dkdv|dq)_kernel<")
 
 
 def _kind(name: str) -> str:
+    wg = _WG_FWD.search(name)
+    if wg:
+        stats_only = wg.group(1) == "true"
+        if "true" in wg.group(2, 3):
+            return "K8/K9" if stats_only else "K7"
+        return "K3+K5+K6" if stats_only else "K1+K2+K4"
+    if _WG_BWD.search(name):
+        return "K3+K5+K6"
     body = _TC_BODY.search(name)
     if body:
         args = [a.strip() for a in body.group(2).split(",")]

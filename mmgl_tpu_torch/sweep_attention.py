@@ -1,9 +1,22 @@
 """Time shapes of the bf16 tensor-core attention bodies on the card.
 
-    python -m mmgl_tpu_torch.sweep_attention [--allheads | --no-allheads]
+    python -m mmgl_tpu_torch.sweep_attention [--allheads | --no-allheads |
+                                             --k4-k7]
 
 ``--allheads`` times K1's and K3's wgmma/TMA bodies alone (a few minutes),
-``--no-allheads`` everything else; neither flag, both. K1 and K3
+``--no-allheads`` everything else, ``--k4-k7`` only K4's and K7's wgmma
+shapes (about two minutes); no flag, everything. K4 and K7
+(csrc/sweep/k4_k7_shapes.cu, on the forward of csrc/allheads_wgmma.cuh, in
+its bias form for K7): each in several (consumer warpgroups, key tile rows,
+ring stages, blocks an SM) shapes, beside the mma.sync body each replaced
+(shape -1), the library's wrapper and scaled_dot_product_attention, at
+every K4 and K7 row of PERF.md §6 (K4: T5's, MPT-2.7B's and family 7's
+cross-attention, prefix tuning's 704 x 724, OPT-350M's 2048 and (4, 1024,
+32, 80/128) causal with the row stats; K7: T5's encoder at 512 and 576,
+its decoder at 128² and its prefixed decoder at 128 x 148, each without
+and with dropout 0.1, and the training cross-attention), with the
+device time of each body (kernel events under torch.profiler); each shape
+held to the library's output within 2^-7 of its largest entry. K1 and K3
 (csrc/sweep/allheads_shapes.cu, on the bodies of csrc/allheads_wgmma.cuh):
 the forward, dK/dV and dQ bodies each in several (consumer warpgroups,
 streamed tile rows, ring stages, blocks an SM) shapes, beside the mma.sync
@@ -61,7 +74,7 @@ from mmgl_tpu_torch.ops import flash_attention as fa
 
 SOURCES = [_build.CSRC / "sweep" / name
            for name in ("attention_shapes.cu", "bias_shapes.cu",
-                        "allheads_shapes.cu")]
+                        "allheads_shapes.cu", "k4_k7_shapes.cu")]
 RUN = 10        # calls back to back in a sample
 SAMPLES = 10
 # (B, Sq = Sk, H, D), causal, backward too
@@ -77,7 +90,7 @@ BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
 RATE = 0.1
 
 
-def build(which=(0, 1, 2)):
+def build(which=(0, 1, 2, 3)):
     """The sweep libraries (``which``: indices into SOURCES; the others are
     None), each source built by its own nvcc, all at once; prints each
     kernel's registers and any spills."""
@@ -97,7 +110,7 @@ def build(which=(0, 1, 2)):
                         if "Compiling entry" in line or "Used" in line
                         or "spill" in line
                         and " 0 bytes spill stores" not in line))
-    lib, bias_lib, allheads_lib = (
+    lib, bias_lib, allheads_lib, k4k7_lib = (
         ctypes.CDLL(str(out)) if i in which else None
         for i, out in enumerate(outs))
     ptr, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -115,7 +128,12 @@ def build(which=(0, 1, 2)):
         allheads_lib.sweep_dkdv.argtypes = [i32, i32] + [ptr] * 11 + tail
         allheads_lib.sweep_dq.argtypes = [i32, i32] + [ptr] * 10 + tail
         allheads_lib.sweep_k3_before.argtypes = [i32] + [ptr] * 10 + tail
-    return lib, bias_lib, allheads_lib
+    if k4k7_lib is not None:
+        k4k7_lib.sweep_k4.argtypes = [i32, i32] + [ptr] * 7 + tail
+        k4k7_lib.sweep_k7.argtypes = ([i32] + [ptr] * 5 + [i32, i32]
+                                      + [ptr] * 4 + [i32] * 4
+                                      + [f32, i32, u32, f32, ptr])
+    return lib, bias_lib, allheads_lib, k4k7_lib
 
 
 def inputs(b, s, h, d, seed, device):
@@ -186,8 +204,10 @@ def sweep_case(lib, dims, causal, with_bwd, device):
                 raise RuntimeError(f"forward shape {i}: CUDA error {err}")
         call()
         torch.cuda.synchronize()
-        same[f"forward shape {i}"] = all(
-            torch.equal(x, y) for x, y in ((o2, out), (m2, m), (l2, l)))
+        # the library's K4 is the wgmma body: the same math, products on
+        # other instructions
+        same[f"forward shape {i}"] = _near([o2], [out]) and _stats_near(
+            (m2, l2), (m, l))
         fwd[f"forward shape {i}"] = call
     fwd["scaled_dot_product_attention"] = \
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
@@ -283,8 +303,9 @@ def sweep_bias_case(lib, tag, dims, causal, with_bias, rate, device):
                                    f"{err}")
         call()
         torch.cuda.synchronize()
-        same[f"forward shape {i}"] = all(
-            torch.equal(x, y) for x, y in ((o2, out), (m2, m), (l2, l)))
+        # the library's K7 is the wgmma body
+        same[f"forward shape {i}"] = _near([o2], [out]) and _stats_near(
+            (m2, l2), (m, l))
         fwd[f"forward shape {i}"] = call
     allowed = mask.bool()[:, None, None, :].expand(b, 1, sq, sk)
     if causal:
@@ -373,6 +394,12 @@ def _near(got, want):
     """Within 2^-7 of the largest entry of each of ``want``."""
     return all(float((x.float() - y.float()).abs().max())
                <= 2 ** -7 * float(y.float().abs().max())
+               for x, y in zip(got, want))
+
+
+def _stats_near(got, want):
+    """Row max and sum within 1e-4 (fp32 sums in another order)."""
+    return all(torch.allclose(x, y, atol=1e-4, rtol=1e-4)
                for x, y in zip(got, want))
 
 
@@ -490,10 +517,149 @@ def _float_mask(mask, s, causal, device):
         ~allowed, -1e30).to(torch.bfloat16)
 
 
+# K4's rows of PERF.md §6: (name, (B, Sq, Sk, H, D), causal, with the row
+# stats)
+K4_CASES = [("t5 cross", (4, 128, 512, 12, 64), False, False),
+            ("opt-350m", (4, 2048, 2048, 16, 64), True, True),
+            ("prefix", (4, 704, 724, 12, 64), True, False),
+            ("mpt-2.7b cross", (4, 640, 64, 32, 80), False, False),
+            ("family 7 cross", (4, 205, 64, 32, 80), False, False),
+            ("d128 cross", (4, 640, 64, 32, 128), False, False),
+            ("1024 d80", (4, 1024, 1024, 32, 80), True, True),
+            ("1024 d128", (4, 1024, 1024, 32, 128), True, True)]
+# K7's: (name, (B, Sq, Sk, H), causal, bias, dropout rate)
+K7_CASES = [("enc", (4, 512, 512, 12), False, True, 0.0),
+            ("enc", (4, 512, 512, 12), False, True, RATE),
+            ("enc576", (4, 576, 576, 12), False, True, 0.0),
+            ("enc576", (4, 576, 576, 12), False, True, RATE),
+            ("dec", (4, 128, 128, 12), True, True, 0.0),
+            ("dec", (4, 128, 128, 12), True, True, RATE),
+            ("t5prefix", (4, 128, 148, 12), True, True, 0.0),
+            ("t5prefix", (4, 128, 148, 12), True, True, RATE),
+            ("cross", (4, 128, 512, 12), False, False, RATE)]
+
+
+def _key_mask(b, sk, causal, seed, device):
+    """A decoder-only batch's pad hole where causal, else right padding
+    with a gap: (B, Sk) int32."""
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.ones(b, sk, dtype=torch.int32)
+    for i in range(b):
+        lo = int(torch.randint(sk // 5, sk // 2, (1,), generator=g))
+        mask[i, lo:sk // 2] = 0
+        mask[i, sk - int(torch.randint(1, max(2, sk // 8), (1,),
+                                       generator=g)):] = 0
+    return mask.to(device)
+
+
+def _sdpa_mask(mask, sq, causal, device, bias=None):
+    """The key mask, causal mask (ends aligned) and bias as SDPA's bf16
+    float attn_mask."""
+    b, sk = mask.shape
+    allowed = mask.bool()[:, None, None, :].expand(b, 1, sq, sk)
+    if causal:
+        allowed = allowed & torch.ones(sq, sk, dtype=torch.bool,
+                                       device=device).tril(sk - sq)
+    am = torch.zeros(b, 1, sq, sk, device=device)
+    if bias is not None:
+        am = am + bias.float()
+    return am.masked_fill(~allowed, -1e30).to(torch.bfloat16)
+
+
+def sweep_k4_case(lib, tag, dims, causal, stats, device):
+    """K4's wgmma shapes, the mma.sync body (shape -1), the library's
+    wrapper (no gradient; with the row stats where ``stats``) and SDPA."""
+    b, sq, sk, h, d = dims
+    g = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(device, torch.bfloat16)
+               for s in (sq, sk, sk))
+    mask = _key_mask(b, sk, causal, sq + sk, device)
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    if stats:
+        out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask,
+                                             causal=causal)
+        fwd = {"library K4 (wrapper)": lambda: fa.flash_attention_stats(
+            q, k, v, kv_mask=mask, causal=causal)}
+    else:
+        out = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
+        fwd = {"library K4 (wrapper)": lambda: fa.flash_attention(
+            q, k, v, kv_mask=mask, causal=causal)}
+    same = {}
+    for i in range(-1, lib.sweep_k4_shapes()):
+        o2 = torch.empty_like(out)
+        st = fa._empty_stats(q) if stats else (None, None)
+        name = "mma.sync (before)" if i < 0 else f"k4 shape {i}"
+
+        def call(i=i, o2=o2, st=st):
+            err = lib.sweep_k4(i, d, q.data_ptr(), k.data_ptr(),
+                               v.data_ptr(), mask.data_ptr(), o2.data_ptr(),
+                               *(fa._ptr(t) for t in st), b, sq, sk, h, scale,
+                               int(causal), stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[name] = _near([o2], [out]) and (
+            not stats or _stats_near(st, (m, l)))
+        fwd[name] = call
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    am = _sdpa_mask(mask, sq, causal, device)
+    fwd["scaled_dot_product_attention"] = \
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    return {"case": f"k4 {tag}", "shape": list(dims), "causal": causal,
+            "stats": stats, "forward_ms": medians(fwd),
+            "device_ms": device_ms(fwd), "agrees_with_library": same}
+
+
+def sweep_k7_case(lib, tag, dims, causal, with_bias, rate, device):
+    """K7's wgmma shapes (its bias in rows padded to a multiple of 8, read
+    in place), the mma.sync body's bias form (shape -1), the library's
+    wrapper (no gradient, the bias contiguous) and SDPA, in bf16."""
+    b, sq, sk, h = dims
+    q, k, v, _, bias, mask, seed, thr, keep_inv = bias_inputs(
+        dims, with_bias, rate, device)
+    stream = torch.cuda.current_stream().cuda_stream
+    kw = dict(bias=None if bias is None else bias[None], kv_mask=mask,
+              causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
+    out = fa.flash_attention_bias(q, k, v, **kw)
+    fwd = {"library K7 (wrapper)":
+           lambda: fa.flash_attention_bias(q, k, v, **kw)}
+    padded = None if bias is None else fa.padded_bias(bias)
+    ld = 0 if bias is None else fa._bias_ld(padded)
+    same = {}
+    for i in range(-1, lib.sweep_k7_shapes()):
+        o2 = torch.empty_like(out)
+        name = "mma.sync (before)" if i < 0 else f"k7 shape {i}"
+
+        def call(i=i, o2=o2):
+            err = lib.sweep_k7(i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               mask.data_ptr(), fa._ptr(padded), ld, 0,
+                               fa._ptr(seed), o2.data_ptr(), None, None, b,
+                               sq, sk, h, 1.0, int(causal), thr, keep_inv,
+                               stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[name] = _near([o2], [out])
+        fwd[name] = call
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    am = _sdpa_mask(mask, sq, causal, device, bias)
+    fwd["scaled_dot_product_attention"] = \
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                               dropout_p=rate, scale=1.0)
+    return {"case": f"k7 {tag}", "shape": list(dims), "causal": causal,
+            "bias": with_bias, "dropout": rate, "forward_ms": medians(fwd),
+            "device_ms": device_ms(fwd), "agrees_with_library": same}
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    allheads = "--no-allheads" not in args
-    rest = "--allheads" not in args
+    only_new = "--k4-k7" in args
+    allheads = "--no-allheads" not in args and not only_new
+    rest = "--allheads" not in args and not only_new
+    new = "--allheads" not in args
     if not torch.cuda.is_available():
         print("sweep_attention: no CUDA device", file=sys.stderr)
         return 1
@@ -502,9 +668,15 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"], capture_output=True,
         text=True).stdout.strip())
-    lib, bias_lib, allheads_lib = build(
-        ((0, 1) if rest else ()) + ((2,) if allheads else ()))
+    lib, bias_lib, allheads_lib, k4k7_lib = build(
+        ((0, 1) if rest else ()) + ((2,) if allheads else ())
+        + ((3,) if new else ()))
     runs = []
+    if new:
+        runs += [lambda c=c: sweep_k4_case(k4k7_lib, *c, device)
+                 for c in K4_CASES]
+        runs += [lambda c=c: sweep_k7_case(k4k7_lib, *c, device)
+                 for c in K7_CASES]
     if allheads:
         runs += [lambda c=c: sweep_allheads_case(allheads_lib, *c, device)
                  for c in ALLHEADS_CASES]

@@ -337,6 +337,12 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
         return fake_launch(None, None, q, k, v, kv_mask, causal, scale), \
             None, None
 
+    def fake_launch_flash(q, k, v, kv_mask, causal, scale, with_stats):
+        out = fake_launch(None, None, q, k, v, kv_mask, causal, scale)
+        if not with_stats:
+            return out, None, None
+        return (out,) + fa._row_stats(q, k, kv_mask, causal, scale)
+
     def fake_launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
                                  row_max, row_sum):
         return fake_launch_bwd(None, None, q, k, v, kv_mask, out, dout,
@@ -347,6 +353,7 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
     monkeypatch.setattr(fa, "_launch_bwd", fake_launch_bwd)
     monkeypatch.setattr(fa, "_launch_allheads", fake_launch_allheads)
     monkeypatch.setattr(fa, "_launch_allheads_bwd", fake_launch_allheads_bwd)
+    monkeypatch.setattr(fa, "_launch_flash", fake_launch_flash)
     monkeypatch.setattr(fa, "_check_layout", lambda *a: None)
 
     # (kernel, its backward's wrapper, sq, sk, K/V heads, causal, Pallas)
@@ -610,13 +617,15 @@ def test_bias_kernel_path_keeps_the_autograd_graph(monkeypatch):
     through the plain path with the same keep mask (atol 1e-5 x the
     largest gradient)."""
     def fake_launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr,
-                         keep_inv):
+                         keep_inv, with_stats):
         with torch.no_grad():
-            return fa.bias_attention_reference(
+            got = fa.bias_attention_reference(
                 q, k, v, bias=None if bias is None else bias[None],
                 kv_mask=kv_mask, causal=causal, scale=scale,
                 dropout_rate=0.0 if seed is None else 0.1,
-                dropout_seed=seed).clone()
+                dropout_seed=seed, with_stats=with_stats)
+        return tuple(t.clone() for t in got) if with_stats else (
+            got.clone(), None, None)
 
     def fake_launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal,
                              scale, thr, keep_inv):

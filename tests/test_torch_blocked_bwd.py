@@ -222,17 +222,13 @@ def test_flash_card_path_keeps_the_graph_and_launches_k6(monkeypatch):
     the flag off the backward launches K5."""
     asked = []
 
-    def fake_launch(fn, name, q, k, v, kv_mask, causal, scale, *shape,
-                    stats=()):
-        asked.append(stats[0] is not None)
+    def fake_launch_flash(q, k, v, kv_mask, causal, scale, with_stats):
+        asked.append(with_stats)
         with torch.no_grad():
             out, m, l = fa.flash_attention_reference(
                 q, k, v, kv_mask=kv_mask, causal=causal, scale=scale,
                 with_stats=True)
-            if stats[0] is not None:
-                stats[0].copy_(m)
-                stats[1].copy_(l)
-            return out.clone()
+        return (out.clone(),) + ((m, l) if with_stats else (None, None))
 
     def fake_launch_blocked_bwd(q, k, v, kv_mask, out, dout, m, l, causal,
                                 scale):
@@ -244,7 +240,7 @@ def test_flash_card_path_keeps_the_graph_and_launches_k6(monkeypatch):
                                                 causal, scale)
 
     monkeypatch.setattr(fa, "_plain", lambda q: False)
-    monkeypatch.setattr(fa, "_launch", fake_launch)
+    monkeypatch.setattr(fa, "_launch_flash", fake_launch_flash)
     monkeypatch.setattr(fa, "_launch_blocked_bwd", fake_launch_blocked_bwd)
     monkeypatch.setattr(fa, "_launch_bwd", fake_launch_bwd)
     monkeypatch.setattr(fa, "_check_layout", lambda *a: None)

@@ -34,7 +34,8 @@ from mmgl_tpu_torch.utils.tokenizer import ByteTokenizer
 
 # every launcher of the kernel wrappers
 LAUNCHERS = ("_launch", "_launch_bwd", "_launch_blocked_bwd", "_launch_bias",
-             "_launch_bias_bwd", "_launch_allheads", "_launch_allheads_bwd")
+             "_launch_bias_bwd", "_launch_allheads", "_launch_allheads_bwd",
+             "_launch_flash")
 
 
 def _args(model, *extra):
@@ -125,6 +126,7 @@ def test_float16_on_cuda_passes_the_checks_and_the_kernels_take_it(
             build_model(args, torch.device("cuda"))
 
     # the card's checks, on stand-ins that carry a CUDA tensor's metadata
+    # (contiguous strides, an aligned address)
     class OnCard:
         device = torch.device("cuda", 0)
 
@@ -133,6 +135,13 @@ def test_float16_on_cuda_passes_the_checks_and_the_kernels_take_it(
 
         def dim(self):
             return len(self.shape)
+
+        def stride(self):
+            return tuple(torch.Size(self.shape[i + 1:]).numel()
+                         for i in range(len(self.shape)))
+
+        def data_ptr(self):
+            return 1 << 20
 
     monkeypatch.setattr(fa, "_check_layout", lambda name, *ts: None)
     q = OnCard((2, 64, 2, 64), torch.float16)

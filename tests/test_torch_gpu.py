@@ -505,7 +505,7 @@ def kernel_keep_mask(b, sq, sk, h, seed, rate, dev, dtype=torch.float32):
 @pytest.mark.gpu
 @pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims", [(4, 512, 512, 12), (4, 128, 512, 12),
-                                  (3, 333, 77, 2)])
+                                  (3, 333, 77, 2), (4, 128, 148, 12)])
 def test_dropout_mask_is_the_plain_versions_bit_for_bit(dims, dtype):
     """K7, in its tensor-core body (bf16, fp16) and its scalar one (fp32), keeps
     exactly the elements the plain version keeps, and about 0.9 of them
@@ -840,3 +840,126 @@ def test_k2_and_k7_refuse_head_dim_80(dtype):
     with pytest.raises(ValueError, match="ROADMAP B"):
         fa.flash_attention_bias(q, k, v, bias=bias)
     assert counted() == [(0, 0), (0, 0)]
+
+
+# ---- K4 and K7 on the wgmma/TMA forward (bf16, fp16) ------------------------
+
+# K4's query and key lengths on the port's paths and at the 64-row TMA
+# box's edges: T5's 128 queries, family 7's 205, MPT's 640, OPT-350M's
+# 2048; against MPT's 64-token memory (one key tile, sq > sk), T5's
+# prefixed 148, its 512 encoder keys and prefix tuning's 724
+K4_SQ = (63, 64, 65, 128, 205, 640, 2048)
+K4_SK = (64, 148, 512, 724)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("sk", K4_SK)
+@pytest.mark.parametrize("sq", K4_SQ)
+def test_k4_wgmma_body_at_its_lengths(sq, sk, d, dtype):
+    """K4's wgmma body against its plain version, not causal, without a
+    mask (a null pointer) and with a pad hole in each sample and sample 0
+    fully masked; where sq <= sk also causal with its row stats, K6 from
+    them against its plain version and equal to K5 (whose stats pass is
+    K4's body in its stats-only form) bit for bit."""
+    dev = _device()
+    b, h = 2, 2
+    q, k, v, dout = _qkv_d((b, sq, sk, h, d), dtype, dev,
+                           seed=7 * sq + sk + d)
+    mask = hole_mask(b, sk, seed=sk + d)
+    mask[0] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    atol, rtol = TOL[dtype]
+    counted = _counts(fa.flash_attention)
+    for kv_mask in (None, mask):
+        out = fa.flash_attention(q, k, v, kv_mask=kv_mask)
+        ref = fa.flash_attention_reference(q, k, v, kv_mask=kv_mask)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+    torch.cuda.synchronize()
+    assert counted() == [(2, 2)]
+    if sq > sk:
+        return
+    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=True)
+    ref_out, ref_m, ref_l = fa.flash_attention_reference(
+        q, k, v, kv_mask=mask, causal=True, with_stats=True)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=rtol)
+    for got_s, ref_s in ((m, ref_m), (l, ref_l)):
+        torch.testing.assert_close(got_s, ref_s, atol=STATS_TOL,
+                                   rtol=STATS_TOL)
+    k6 = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                        causal=True)
+    k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=True)
+    refs = fa.flash_attention_blocked_bwd_reference(q, k, v, mask, out, dout,
+                                                    m, l, causal=True)
+    for name, g, g5, r in zip(("dq", "dk", "dv"), k6, k5, refs):
+        _close_rel(g, r, dtype, "K6 " + name)
+        assert torch.equal(g, g5), name
+
+
+# K7 at T5-base's shapes: the prefixed decoder (128 queries against 20 + 128
+# keys, causal), the encoder and the embedding mode's 576-token encoder
+K7_CASES = [((4, 128, 148, 12), True), ((4, 512, 512, 12), False),
+            ((4, 576, 576, 12), False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
+@pytest.mark.parametrize("bias_fp32", [False, True], ids=["bias_T",
+                                                          "bias_fp32"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("dims,causal", K7_CASES)
+def test_k7_wgmma_body_at_t5_shapes(dims, causal, rate, bias_fp32, dtype):
+    """K7's wgmma body with its bias in the input's type or in fp32, a pad
+    hole in each sample and sample 0 fully masked: the same bits from a
+    bias whose rows are padded (``padded_bias``, read in place) as from a
+    contiguous one; against the plain version; K8/K9 through autograd from
+    K7's row stats against its plain version and equal to K8/K9 with its
+    own stats pass (K7's body in its stats-only form) bit for bit."""
+    dev = _device()
+    b, sq, sk, h = dims
+    q, k, v, dout = _qkv((b, sq, sk, h, h), dtype, dev, seed=sq + sk + 5,
+                         scale=0.125)
+    mask = hole_mask(b, sk, seed=sk + 2)
+    mask[0] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    rng = np.random.RandomState(sq + sk)
+    bias = torch.from_numpy(rng.randn(1, h, sq, sk).astype(np.float32)).to(
+        dev, torch.float32 if bias_fp32 else dtype)
+    seed = torch.tensor([sq * 7919 + sk, 2 ** 31 + 5], dtype=torch.int64,
+                        device=dev)
+    kw = dict(kv_mask=mask, causal=causal, scale=1.0, dropout_rate=rate,
+              dropout_seed=seed)
+    # the same bias in rows padded to a multiple of 8, read in place
+    ld = -(-sk // 8) * 8
+    base = torch.nn.functional.pad(bias, (0, ld - sk)).requires_grad_()
+    padded = base[..., :sk]
+    assert fa._bias_ld(padded[0]) == ld
+    counted = _counts(fa.flash_attention_bias, fa.flash_attention_bias_bwd)
+    out = fa.flash_attention_bias(q, k, v, bias=bias, **kw)
+    wrt = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    got = fa.flash_attention_bias(*wrt, bias=padded, **kw)
+    grads = list(torch.autograd.grad(got, wrt + [base], dout))
+    assert not bool(grads[3][..., sk:].any())
+    grads[3] = grads[3][..., :sk]
+    own = fa.flash_attention_bias_bwd(q, k, v, mask, bias[0], out, dout,
+                                      causal=causal, scale=1.0,
+                                      dropout_rate=rate, dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert counted() == [(2, 2), (2, 2)]
+    assert torch.equal(got.detach(), out)
+    ref = fa.bias_attention_reference(q, k, v, bias=bias, **kw)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    refs = fa.bias_attention_bwd_reference(q, k, v, mask, bias, out, dout,
+                                           causal=causal, scale=1.0,
+                                           dropout_rate=rate,
+                                           dropout_seed=seed)
+    for name, g, g_own, r in zip(("dq", "dk", "dv", "dbias"), grads,
+                                 (*own[:3], own[3][None]), refs):
+        _close_rel(g, r, dtype, name)
+        assert torch.equal(g, g_own), name

@@ -77,6 +77,34 @@ def test_tensor_core_body_kinds(name, kind):
                                f"int, mmgl::BiasArgs<float>)") == kind
 
 
+@pytest.mark.parametrize("name,kind", [
+    # K1 and K4, and the stats passes of K3 and K5 (stats-only)
+    ("wg::allheads_fwd_kernel<64, false, mmgl::wg::Shape<1, 64, 2, 2, "
+     "false>, __nv_bfloat16, false, false, __nv_bfloat16>", "K1+K2+K4"),
+    ("wg::allheads_fwd_kernel<128, true, mmgl::wg::Shape<1, 64, 2, 2, "
+     "false>, __half, false, false, __half>", "K3+K5+K6"),
+    # K7 in its bias form (the bias, or dropout alone), and K8/K9's stats
+    # pass
+    ("wg::allheads_fwd_kernel<64, false, mmgl::wg::Shape<1, 64, 2, 2, "
+     "false>, __nv_bfloat16, true, true, float>", "K7"),
+    ("wg::allheads_fwd_kernel<64, false, mmgl::wg::Shape<1, 64, 2, 2, "
+     "false>, __half, false, true, __half>", "K7"),
+    ("wg::allheads_fwd_kernel<64, true, mmgl::wg::Shape<1, 64, 2, 2, "
+     "false>, __nv_bfloat16, true, false, __nv_bfloat16>", "K8/K9"),
+    # K3's dK/dV and dQ
+    ("wg::allheads_dkdv_kernel<80, mmgl::wg::Shape<1, 64, 2, 1, false>, "
+     "__nv_bfloat16>", "K3+K5+K6"),
+    ("wg::allheads_dq_kernel<64, mmgl::wg::Shape<1, 64, 2, 3, false>, "
+     "__half>", "K3+K5+K6"),
+])
+def test_wgmma_body_kinds(name, kind):
+    """The wgmma bodies are told apart by their template flags: stats-only
+    forms are the backward's stats passes, the bias form (kBias or
+    kDropout) K7's forward and K8/K9's stats pass."""
+    assert profile_steps._kind(f"void mmgl::{name}(CUtensorMap_st, "
+                               f"int, mmgl::BiasArgs<float>)") == kind
+
+
 def test_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible")

@@ -111,6 +111,86 @@ def test_t5_logits_match_jax(case):
                                atol=1e-4)
 
 
+def test_t5_prefix_bias_built_once_a_stack_matches_jax(monkeypatch):
+    """t5-tiny's shape with decoder prefixes (5 keys, so each decoder
+    self-attention has 40 + 5 = 45 keys, a ragged row), a pad-holed decoder
+    mask and encoder mask: the stack builds the position bias with the
+    prefix's zero columns and its rows padded to 48 once, and every decoder
+    layer's K7 (its plain version here) gets that same view, its mask the
+    prefix's ones; loss, logits and every gradient (the relative-position
+    tables and the prefixes included) those of the JAX T5 with the same
+    prefixes, through the CE loss of the labels: logits atol 1e-4,
+    gradients atol 1e-4 of the largest entry plus 1e-7
+    (tests/test_torch_peft.py's tolerances)."""
+    from mmgl_tpu.train.losses import seq2seq_loss
+    from mmgl_tpu_torch.ops import flash_attention as fa
+
+    case, p = MODEL_CASES[0], 5
+    jmodel, params, model, (ids, mask, labels) = _model_pair(case)
+    b, s_dec = labels.shape
+    h, d = case[3], case[1]
+    rng = np.random.RandomState(11)
+    prefix = [tuple(rng.randn(p, h, d).astype(np.float32) for _ in range(2))
+              for _ in range(2)]
+    dmask = _hole_mask(b, s_dec, seed=3)
+
+    def jax_loss(params, prefix):
+        logits = jmodel.apply({"params": params}, jnp.asarray(ids),
+                              jnp.asarray(mask), jnp.asarray(labels),
+                              decoder_attention_mask=jnp.asarray(dmask),
+                              prefix_kvs=prefix)
+        return seq2seq_loss(logits, jnp.asarray(labels)), logits
+
+    grad_fn = jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True)
+    (want_loss, want_logits), (want_g, want_pg) = jax.jit(grad_fn)(
+            params, [tuple(jnp.asarray(t) for t in kv) for kv in prefix])
+
+    seen = []
+    kernel = fa.flash_attention_bias
+
+    def spy(q, k, v, *, bias=None, kv_mask=None, **kw):
+        if q.shape[1] == s_dec and k.shape[1] == s_dec + p:
+            seen.append((bias, kv_mask))
+        return kernel(q, k, v, bias=bias, kv_mask=kv_mask, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_bias", spy)
+    kvs = [tuple(torch.from_numpy(t).requires_grad_() for t in kv)
+           for kv in prefix]
+    logits = model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                   labels=torch.from_numpy(labels).long(),
+                   decoder_attention_mask=torch.from_numpy(dmask),
+                   prefix_kvs=kvs)
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]),
+        torch.from_numpy(labels).long().reshape(-1), ignore_index=-100)
+    loss.backward()
+    assert len(seen) == 2                      # each decoder layer, on K7
+    bias, kv_mask = seen[0]
+    assert all(x is bias and y is kv_mask for x, y in seen)
+    assert bias.shape == (1, h, s_dec, s_dec + p) and bias.stride(2) == 48
+    assert kv_mask.dtype == torch.int32 and bool((kv_mask[:, :p] == 1).all())
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(want_logits), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    got = dict(model.named_parameters())
+    checked = []
+    for path, g in convert._leaves({"lm": jax.device_get(want_g)}):
+        name, flip = convert._torch_name(path)
+        grad = got[name[len("lm."):]].grad.numpy()
+        g = np.asarray(g)
+        np.testing.assert_allclose(grad.T if flip else grad, g, rtol=0,
+                                   atol=1e-4 * np.abs(g).max() + 1e-7,
+                                   err_msg=name)
+        checked.append(name)
+    assert any("relpos_bias" in n and "decoder" in n for n in checked)
+    for kv, want in zip(kvs, want_pg):
+        for t, g in zip(kv, want):
+            g = np.asarray(g)
+            np.testing.assert_allclose(t.grad.numpy(), g, rtol=0,
+                                       atol=1e-4 * np.abs(g).max() + 1e-7)
+
+
 def test_t5_cached_decode_matches_full_forward():
     """Encoder once, then one decoder token per step over the in-place cache
     (bias at query offset t over the whole buffer, reference route), against

@@ -1,12 +1,13 @@
 """The arithmetic of the tensor-core attention bodies (bf16 and fp16),
 emulated in torch on the CPU and held against the JAX package.
 
-The bodies (mmgl_tpu_torch/csrc/attention_fwd_tc.cuh for K2/K4, K7 and
-the stats passes of K5 and K8/K9; the dK/dV and dQ bodies of
-attention_bwd_tiles.cuh for K5/K6 and K8/K9; K1's and K3's wgmma bodies of
-allheads_wgmma.cuh) run only on a card. This file repeats their arithmetic
-order in torch:
-  * 64 x 64 tiles (mma.sync), or the wgmma bodies' widths (WGMMA_TILES);
+The bodies (mmgl_tpu_torch/csrc/attention_fwd_tc.cuh for K2; the dK/dV
+and dQ bodies of attention_bwd_tiles.cuh for K5/K6 and K8/K9; the wgmma
+bodies of allheads_wgmma.cuh for K1, K3, K4, K7 and the stats passes of K5
+and K8/K9) run only on a card. This file repeats their arithmetic order in
+torch:
+  * 64 x 64 tiles (mma.sync, and the wgmma bodies' library shapes), or the
+    wgmma bodies' other widths (WGMMA_TILES, K7_TILES);
     products of bf16 (or fp16) values accumulated in fp32;
   * the forward's online softmax: a running row max, the sum rescaled by
     exp(m_old - m_new), p rounded to bf16 before P V, out = O / l;
@@ -83,21 +84,25 @@ CASES = [
 IDS = ["197-noncausal", "333-causal-hole", "200x328-aligned", "fully-masked"]
 
 
-def _inputs(dims, mask_kind, seed, dtype=torch.bfloat16):
-    """q, k, v, dO as fp32 tensors holding ``dtype`` values, and the (B, Sk)
-    int32 key mask: "hole" pads a prompt of 4/5 Sk and the rest in the middle and
-    at the end; "fully_masked" has sample 0 all masked and the first 70 keys
-    of sample 1, so its first causal rows see no real logit."""
+def _inputs(dims, mask_kind, seed, dtype=torch.bfloat16, d=D):
+    """q, k, v, dO as fp32 tensors holding ``dtype`` values, head dim d, and
+    the (B, Sk) int32 key mask: "hole" pads a prompt of 4/5 Sk and the rest
+    in the middle and at the end; "fully_masked" has sample 0 all masked
+    and the first 70 keys of sample 1, so its first causal rows see no real
+    logit; "hole_fully_masked" has sample 0's hole and sample 1 all
+    masked."""
     b, sq, sk, h = dims
     rng = np.random.RandomState(seed)
-    q, dout = (rng.randn(b, sq, h, D).astype(np.float32) for _ in range(2))
-    k, v = (rng.randn(b, sk, h, D).astype(np.float32) for _ in range(2))
+    q, dout = (rng.randn(b, sq, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, sk, h, d).astype(np.float32) for _ in range(2))
     mask = np.ones((b, sk), np.int32)
-    if mask_kind == "hole":
+    if mask_kind in ("hole", "hole_fully_masked"):
         cut = sk * 4 // 5
         for i in range(b):
             mask[i, rng.randint(cut // 5, cut):cut] = 0
             mask[i, cut + rng.randint(1, sk - cut):] = 0
+        if mask_kind == "hole_fully_masked":
+            mask[1] = 0
     elif mask_kind == "fully_masked":
         mask[0] = 0
         mask[1, :70] = 0
@@ -128,10 +133,10 @@ def emulate_forward(q, k, v, mask, causal, scale, dtype=torch.bfloat16,
     (block, head, batch) loops that ended at a causally hidden tile. The
     bias form: ``bias`` (H, Sq, Sk) fp32, ``keep`` the (B, H, Sq, Sk) keep
     factor (1 / keep or 0)."""
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    out = torch.zeros(b, h, sq, D)
+    out = torch.zeros(b, h, sq, d)
     m_all = torch.zeros(b, h, sq)
     l_all = torch.zeros(b, h, sq)
     shift = sk - sq
@@ -142,7 +147,7 @@ def emulate_forward(q, k, v, mask, causal, scale, dtype=torch.bfloat16,
         qt = qh[:, :, q0:q0 + q_tile]
         m = torch.full((b, h, len(rows)), -math.inf)
         l = torch.zeros(b, h, len(rows))
-        o = torch.zeros(b, h, len(rows), D)
+        o = torch.zeros(b, h, len(rows), d)
         n_vis = (min(n_tiles, (int(rows[-1]) + shift) // k_tile + 1)
                  if causal else n_tiles)
         active = torch.ones(b, h, 1, dtype=torch.bool)
@@ -195,15 +200,15 @@ def emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
     tile); (64, 64) each for the mma.sync bodies. ``seen["hidden_tiles"]``
     counts the query tiles wholly before a key block that dK/dV visited
     (for a fully masked row)."""
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
     qh, kh, vh, oh, doh = (t.permute(0, 2, 1, 3)
                            for t in (q, k, v, out, dout))
     delta = (doh * oh).sum(-1)
     inv_l = 1.0 / l
-    dq = torch.zeros(b, h, sq, D)
-    dk = torch.zeros(b, h, sk, D)
-    dv = torch.zeros(b, h, sk, D)
+    dq = torch.zeros(b, h, sq, d)
+    dk = torch.zeros(b, h, sk, d)
+    dv = torch.zeros(b, h, sk, d)
     shift = sk - sq
 
     def tile(rows, cols):
@@ -501,16 +506,54 @@ def _jax_bias_reference(causal, q, k, v, dout, mask, bias, scale,
         to_torch(grads[3])[0],)
 
 
+# the JAX package's results at a (case, seed), shared by the tile widths
+_BIAS_REFERENCE = {}
+
+
+def _jax_bias_cached(dims, causal, mask_kind, seed, *args):
+    """``_jax_bias_reference(causal, *args)``, once a (case, seed)."""
+    key = (dims, causal, mask_kind, seed)
+    if key not in _BIAS_REFERENCE:
+        _BIAS_REFERENCE[key] = _jax_bias_reference(causal, *args)
+    return _BIAS_REFERENCE[key]
+
+
+def _check_bias_forward(dims, causal, mask_kind, tiles):
+    """K7's body at ``tiles`` (the forward body with the bias on S) in bf16
+    against the Pallas flash_attention_bias in interpret mode."""
+    seed = sum(dims) + 3
+    (q, k, v, dout), mask, bias = _bias_inputs(dims, mask_kind, seed=seed)
+    scale = D ** -0.5
+    out, _, _ = emulate_forward(q, k, v, mask, causal, scale, bias=bias,
+                                tiles=tiles)
+    want, _ = _jax_bias_cached(dims, causal, mask_kind, seed, q, k, v, dout,
+                               mask, bias, scale)
+    _close(out, want, TOL, TOL, "out")
+
+
+def _check_bias_backward(dims, causal, mask_kind, tiles):
+    """K8/K9's bodies (64 x 64 tiles) in bf16, from the emulated K7's out
+    and row stats at ``tiles``, against jax.grad through the Pallas
+    flash_attention_bias in interpret mode."""
+    seed = sum(dims) + 4
+    (q, k, v, dout), mask, bias = _bias_inputs(dims, mask_kind, seed=seed)
+    scale = D ** -0.5
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, bias=bias,
+                                tiles=tiles)
+    got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
+                           bias=bias)
+    _, want = _jax_bias_cached(dims, causal, mask_kind, seed, q, k, v, dout,
+                               mask, bias, scale)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _close_grad(g, w, name)
+
+
 @pytest.mark.parametrize("dims,causal,mask_kind", BIAS_CASES, ids=BIAS_IDS)
 def test_bias_forward_arithmetic_matches_jax(dims, causal, mask_kind):
-    """K7's body (the forward body with the bias on S) in bf16 against the
-    Pallas flash_attention_bias in interpret mode: atol = rtol = 2e-2."""
-    (q, k, v, dout), mask, bias = _bias_inputs(dims, mask_kind,
-                                               seed=sum(dims) + 3)
-    scale = D ** -0.5
-    out, _, _ = emulate_forward(q, k, v, mask, causal, scale, bias=bias)
-    want, _ = _jax_bias_reference(causal, q, k, v, dout, mask, bias, scale)
-    _close(out, want, TOL, TOL, "out")
+    """K7's body (the forward body with the bias on S, 64 x 64 tiles) in
+    bf16 against the Pallas flash_attention_bias in interpret mode: atol =
+    rtol = 2e-2."""
+    _check_bias_forward(dims, causal, mask_kind, (TILE, TILE))
 
 
 @pytest.mark.parametrize("dims,causal,mask_kind", BIAS_CASES, ids=BIAS_IDS)
@@ -519,34 +562,22 @@ def test_bias_backward_arithmetic_matches_jax(dims, causal, mask_kind):
     against jax.grad through the Pallas flash_attention_bias in interpret
     mode: dq, dk, dv and dbias, each atol = 2e-2 of its largest entry, rtol
     2e-2."""
-    (q, k, v, dout), mask, bias = _bias_inputs(dims, mask_kind,
-                                               seed=sum(dims) + 4)
-    scale = D ** -0.5
-    out, m, l = emulate_forward(q, k, v, mask, causal, scale, bias=bias)
-    got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
-                           bias=bias)
-    _, want = _jax_bias_reference(causal, q, k, v, dout, mask, bias, scale)
-    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-        _close_grad(g, w, name)
+    _check_bias_backward(dims, causal, mask_kind, (TILE, TILE))
 
 
 def _bf16(*tensors):
     return [t.to(torch.bfloat16) for t in tensors]
 
 
-@pytest.mark.parametrize("dims,causal,mask_kind", DROP_CASES, ids=DROP_IDS)
-def test_bias_dropout_arithmetic_matches_the_plain_versions(dims, causal,
-                                                            mask_kind):
-    """K7 and K8/K9's bodies with dropout 0.1 in bf16 against the port's
-    plain versions in bf16 under the same Philox key (which round P times
-    the keep factor and dS to bf16 before their products, as the Pallas
-    kernels do): the chip check's tolerances."""
+def _check_bias_dropout(dims, causal, mask_kind, tiles):
+    """K7 at ``tiles`` and K8/K9's bodies with dropout 0.1 in bf16 against
+    the port's plain versions in bf16 under the same Philox key."""
     (q, k, v, dout), mask, bias = _bias_inputs(dims, mask_kind,
                                                seed=sum(dims) + 5)
     keep, key = _keep(dims, seed=sum(dims))
     scale = D ** -0.5
     out, m, l = emulate_forward(q, k, v, mask, causal, scale, bias=bias,
-                                keep=keep)
+                                keep=keep, tiles=tiles)
     got = emulate_backward(q, k, v, mask, out, dout, m, l, causal, scale,
                            bias=bias, keep=keep)
     bq, bk, bv, bdo, bb = _bf16(q, k, v, dout, bias[None])
@@ -560,6 +591,98 @@ def test_bias_dropout_arithmetic_matches_the_plain_versions(dims, causal,
     for name, g, w in zip(("dq", "dk", "dv", "dbias"), got,
                           want[:3] + (want[3][0],)):
         _close_grad(g, w, name)
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", DROP_CASES, ids=DROP_IDS)
+def test_bias_dropout_arithmetic_matches_the_plain_versions(dims, causal,
+                                                            mask_kind):
+    """K7 and K8/K9's bodies with dropout 0.1 in bf16 against the port's
+    plain versions in bf16 under the same Philox key (which round P times
+    the keep factor and dS to bf16 before their products, as the Pallas
+    kernels do): the chip check's tolerances."""
+    _check_bias_dropout(dims, causal, mask_kind, (TILE, TILE))
+
+
+# the other tile widths of K7's wgmma body (csrc/allheads_wgmma.cuh; the
+# library's FwdShape takes 64 x 64, sweep_attention times these too):
+# (query rows a block, keys a tile); K8/K9's tiles stay 64 x 64
+K7_TILES = [(128, 64), (64, 128)]
+K7_TILE_IDS = ["128x64", "64x128"]
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", BIAS_CASES, ids=BIAS_IDS)
+@pytest.mark.parametrize("tiles", K7_TILES, ids=K7_TILE_IDS)
+def test_bias_forward_arithmetic_matches_jax_at_k7_tiles(tiles, dims, causal,
+                                                         mask_kind):
+    """``test_bias_forward_arithmetic_matches_jax`` at K7's other tile
+    widths: the online softmax a key tile at a time, the early exit a block
+    at a time; atol = rtol = 2e-2."""
+    _check_bias_forward(dims, causal, mask_kind, tiles)
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", BIAS_CASES, ids=BIAS_IDS)
+@pytest.mark.parametrize("tiles", K7_TILES, ids=K7_TILE_IDS)
+def test_bias_backward_arithmetic_matches_jax_at_k7_tiles(tiles, dims,
+                                                          causal, mask_kind):
+    """``test_bias_backward_arithmetic_matches_jax`` from the row stats of
+    K7 at its other tile widths: each gradient atol = 2e-2 of its largest
+    entry, rtol 2e-2."""
+    _check_bias_backward(dims, causal, mask_kind, tiles)
+
+
+@pytest.mark.parametrize("dims,causal,mask_kind", DROP_CASES, ids=DROP_IDS)
+@pytest.mark.parametrize("tiles", K7_TILES, ids=K7_TILE_IDS)
+def test_bias_dropout_arithmetic_at_k7_tiles(tiles, dims, causal, mask_kind):
+    """``test_bias_dropout_arithmetic_matches_the_plain_versions`` at K7's
+    other tile widths (the same Philox bits at every width: each element's
+    counter is its own (b, h, i, j)): the chip check's tolerances."""
+    _check_bias_dropout(dims, causal, mask_kind, tiles)
+
+
+# K4 on the wgmma forward at sq != sk: (B, Sq, Sk, H), causal: not causal
+# with sq < sk; not causal with sq > sk over one key tile (MPT's and family
+# 7's cross-attention over the 64-token memory); causal with the ends
+# aligned (T5's prefixed decoder)
+K4_CASES = [((2, 100, 228, 2), False), ((2, 205, 64, 2), False),
+            ((2, 128, 148, 2), True)]
+K4_IDS = ["100x228", "205x64-one-key-tile", "128x148-causal"]
+
+
+@pytest.mark.parametrize("dims,causal", K4_CASES, ids=K4_IDS)
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_k4_wgmma_arithmetic_at_sq_ne_sk_matches_jax(dtype, d, dims, causal):
+    """K4's wgmma forward (64 x 64 tiles) at head dim d, sample 0 with a
+    key-mask hole, sample 1 fully masked: sample 0's out and m + log l
+    against the Pallas _fwd with with_lse (the JAX flash_attention's) in
+    interpret mode, sample 1 against xla_attention (a fully masked row
+    averages V over the sk keys; the Pallas kernel pads the keys to 128
+    first): atol = rtol = 2e-2 in bf16, 5e-3 in fp16."""
+    tol = TOL if dtype == torch.bfloat16 else FP16_TOL
+    (q, k, v, _), mask = _inputs(dims, "hole_fully_masked",
+                                 seed=sum(dims) + d, dtype=dtype, d=d)
+    scale = d ** -0.5
+    seen = {"early_exit": 0}
+    out, m, l = emulate_forward(q, k, v, mask, causal, scale, dtype=dtype,
+                                seen=seen)
+    b, _, _, h = dims
+    jdt = jnp.dtype(str(dtype).split(".")[1])
+    qf, kf, vf = (_heads_first(t[:1], jdt) for t in (q, k, v))
+    maskf = jnp.repeat(jnp.asarray(mask[:1].numpy()), h, axis=0)
+    want, lse = jfa._fwd(qf, kf, vf, maskf, scale, causal, True,
+                         with_lse=True)
+    _close(out[:1], _seq_first(want, 1, h), tol, tol, "out")
+    lse = torch.from_numpy(np.array(lse)).reshape(1, h, -1)
+    _close(m[:1] + torch.log(l[:1]), lse, tol, tol, "m + log l")
+    jq, jk, jv = (jnp.asarray(t[1:].numpy()) for t in (q, k, v))
+    plain = xla_attention(jq, jk, jv, kv_mask=jnp.asarray(mask[1:].numpy()),
+                          causal=causal, scale=scale)
+    _close(out[1:], torch.from_numpy(np.array(plain)), tol, tol,
+           "fully masked sample")
+    assert float(m[1].max()) == np.float32(NEG_INF)
+    if causal:
+        assert seen["early_exit"] > 0     # the diagonal's early exit ran
 
 
 @pytest.mark.parametrize("dims,causal,mask_kind", DROP_CASES, ids=DROP_IDS)
