@@ -37,9 +37,12 @@ imports no JAX. Phases, each fatal on failure:
      (4, 512, 32, 128) under right-padded prompts, K4 and K5 at MPT-2.7B's
      prefill cross-attention (4, 512 x 64, 32, 80); K4 with its row
      stats and K6 at the causal ones, a ragged 333 at each D, each against
-     its plain version, K6 against K5 bit for bit, the half types on the
-     tensor-core bodies. K1 and K3 on their wgmma/TMA bodies at lengths 1,
-     63, 64, 65, 127, 128, 129, 205 and 640 and at 100 queries against 228
+     its plain version, K6 against K5 (bit for bit in fp32, within the
+     backward tolerance in bf16 and fp16) and against K3 given the same
+     stats (bit for bit in bf16 and fp16: K3's wgmma bodies), the half
+     types on the tensor-core bodies. K1 and K3 on their wgmma/TMA bodies
+     at lengths 1, 63, 64, 65, 127, 128, 129, 205 and 640 and at 100
+     queries against 228
      keys (end-aligned), head dims 64, 80 and 128, bf16 and fp16, causal,
      with a pad gap, fully masked rows and a fully masked sample: K1 and
      its row max and sum against the plain versions, K3 against its plain
@@ -216,8 +219,9 @@ imports no JAX. Phases, each fatal on failure:
      --log_to_wandb true: its train step calls the plain CE and never the
      fused one, its loss and gradient norm equal phase 5's first update at
      phase 3's bf16 tolerance, its Chrome trace holds device
-     events of the port's tensor-core bodies (its size and kernel events
-     printed), and, wandb made unimportable (no network call), it prints
+     events of the port's wgmma bodies and none of the mma.sync forward
+     that K2 ran before (its size and kernel events printed), and,
+     wandb made unimportable (no network call), it prints
      "[wandb] disabled: ...".
 
 Phases 12-16 check the launches of every update, eval step and generated
@@ -230,22 +234,26 @@ tensor (the LM under PEFT, the towers) stayed bit for bit.
 
 Phase 3 also holds K4 with its row stats and K6 against their plain
 versions at OPT-350M's shape with a pad hole and with a fully masked
-sample, ragged and end-aligned sq < sk, and K6 against K5 at OPT-350M's
-shape, bit for bit. The launch counts are set to 0 just before each path
-and read just after. Every kernel has two bodies, tensor cores for bf16
-and fp16 and scalar FMAs for fp32: phases 4, 5, 5c, 6, 7, 9, 10 and 11
-(bf16 or fp16) check that every launch of K1-K9 took the tensor-core body,
-and their fp32 checks that none did.
+sample, ragged and end-aligned sq < sk, and at OPT-350M's shape K6 against
+K5 (bit for bit in fp32, within the backward tolerance in bf16 and fp16)
+and, in bf16 and fp16, K4's row stats equal to K1's and K6 equal to K3
+given them, bit for bit (K6 runs K3's wgmma bodies). K2 at CLIP's 197
+patches also runs without a mask (a null pointer). The launch counts are
+set to 0 just before each path and read just after. Every kernel has two
+bodies, tensor cores for bf16 and fp16 and scalar FMAs for fp32: phases 4,
+5, 5c, 6, 7, 9, 10 and 11 (bf16 or fp16) check that every launch of K1-K9
+took the tensor-core body, and their fp32 checks that none did.
 Phase 3 also holds K4's wgmma body at its query lengths 63-2048 against
-64-724 keys, head dims 64, 80 and 128 (K6 from its stats equal to K5 bit
-for bit), and K7's with an fp32 bias at T5's shapes (K8/K9 from its stats
+64-724 keys, head dims 64, 80 and 128 (K6 from its stats equal to K3
+given them bit for bit, and within the backward tolerance of K5), and
+K7's with an fp32 bias at T5's shapes (K8/K9 from its stats
 equal to K8/K9 with its own stats pass, a row-padded bias the same bits as
 a contiguous one).
 Phase 8 times K3 as training runs it, from K1's row stats.
 Prints the seconds elapsed at the end of each phase (and a JSON line of
 them), a kernels JSON line (each entry's "design" names its body: "tc" the
-mma.sync bodies, "bias_tc" their bias form (K8/K9), "wgmma_tma" K1's, K3's
-and K4's, "wgmma_tma_bias" K7's;
+mma.sync bodies (K5), "bias_tc" their bias form (K8/K9), "wgmma_tma" K1's
+to K4's and K6's, "wgmma_tma_bias" K7's;
 the fp16 forms, the shapes of phases 12-14 and
 the head dims 80 and 128 that phases 18 and 16 launch, and K2's causal
 form at the CLIP text tower's shape that phase 18 launches, as entries of
@@ -427,15 +435,19 @@ OPT_LAYERDROP_ARGV = with_flags(OPT_TRAIN_ARGV, layerdrop=0.5, **SHORT)
 OPT_PLAIN_CE_ARGV = with_flags(OPT_TRAIN_ARGV, fused_ce="false",
                                log_to_wandb="true", **SHORT)
 # the device events of the port's kernels in a profiler trace: the
-# bodies that mmgl_fused_heads_fwd_tc (attention_fwd_tc_kernel),
-# mmgl_allheads_fwd_tc (allheads_fwd_kernel) and mmgl_allheads_bwd_tc (its
-# dK/dV and dQ bodies) launch
-TRACE_KERNELS = ("attention_fwd_tc_kernel", "allheads_fwd_kernel",
-                 "allheads_dkdv_kernel", "allheads_dq_kernel")
+# bodies that mmgl_allheads_fwd_tc and mmgl_fused_heads_fwd_tc
+# (allheads_fwd_kernel) and mmgl_allheads_bwd_tc (its dK/dV and dQ bodies)
+# launch
+TRACE_KERNELS = ("allheads_fwd_kernel", "allheads_dkdv_kernel",
+                 "allheads_dq_kernel")
+# the mma.sync forward body, which no entry launches since K2 moved onto
+# the wgmma forward (the sweep's "before" only)
+RETIRED_KERNEL = "attention_fwd_tc_kernel"
 # the wgmma bodies: the wrappers whose kernels-line entries name that
 # design (K7's in its bias form)
-WGMMA_KERNELS = ("flash_attention_allheads", "flash_attention_allheads_bwd",
-                 "flash_attention")
+WGMMA_KERNELS = ("flash_attention_allheads", "fused_heads_attention",
+                 "flash_attention_allheads_bwd", "flash_attention",
+                 "flash_attention_blocked_bwd")
 VIRTUAL = 20                # num_virtual_tokens
 # the neighbour memory's projections and position tables
 MEMORY = ("text_embeddings.", "visual_embeddings.",
@@ -490,8 +502,10 @@ DESIGNS = {"tc": "tensor cores: mma.sync m16n8k16, fp32 accumulators, "
                         "TMA tiles through 4-D tensor maps into a "
                         "2-stage mbarrier ring, one producer warp and "
                         "consumer warpgroups of 64 rows; K3 from K1's "
-                        "row stats; K4 K1's forward at any sq and sk, "
-                        "K5's stats pass its stats-only form",
+                        "row stats; K2 K1's forward at sq == sk, K4 at "
+                        "any sq and sk, K5's stats pass its stats-only "
+                        "form; K6 K3's dQ (delta fused) and dK/dV bodies "
+                        "from K4's row stats",
            "wgmma_tma_bias": "K1's wgmma/TMA forward in its bias form: the "
                              "bias tile in the TMA ring through a 3-D map "
                              "(rows padded to 8 elements once a stack), "
@@ -786,7 +800,9 @@ def _grads_within(name, got, ref, dtype_name, label, worst):
 
 
 def check_opt_kernels(fa, device, worst):
-    """Phase 3, K1-K3: each case in each dtype."""
+    """Phase 3, K1-K3: each case in each dtype; K2 at CLIP's 197 patches
+    also without a mask, as the vision tower calls it (a null pointer to
+    the wgmma body)."""
     import torch
 
     for i, (name, shape, causal, mask_kind) in enumerate(CASES):
@@ -794,18 +810,23 @@ def check_opt_kernels(fa, device, worst):
         plain = getattr(fa, KERNELS[name][0])
         for dtype_name, (atol, rtol) in TOLERANCES.items():
             args, kw = kernel_inputs(i, getattr(torch, dtype_name), device)
-            got = kernel(*args, **kw)
-            torch.cuda.synchronize(device)
-            ref = plain(*args, **kw)
-            max_err = float((got.float() - ref.float()).abs().max())
-            ok = _within(got, ref, atol, rtol)
-            print(f"[check] {name} {shape} causal={causal} mask={mask_kind} "
-                  f"{dtype_name}: max_abs_err={max_err:.3e} atol={atol:g} "
-                  f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{name} disagrees with its plain version")
-            key = wkey(name + CASE_TAGS.get(i, ""), dtype_name)
-            worst[key] = max(worst[key], max_err)
+            kws = [kw]
+            if name == "fused_heads_attention" and mask_kind == "ones":
+                kws.append(dict(kw, kv_mask=None))
+            for kw in kws:
+                got = kernel(*args, **kw)
+                torch.cuda.synchronize(device)
+                ref = plain(*args, **kw)
+                max_err = float((got.float() - ref.float()).abs().max())
+                ok = _within(got, ref, atol, rtol)
+                what = "none" if kw["kv_mask"] is None else mask_kind
+                print(f"[check] {name} {shape} causal={causal} mask={what} "
+                      f"{dtype_name}: max_abs_err={max_err:.3e} "
+                      f"atol={atol:g} rtol={rtol:g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{name} disagrees with its plain version")
+                key = wkey(name + CASE_TAGS.get(i, ""), dtype_name)
+                worst[key] = max(worst[key], max_err)
     name = "flash_attention_allheads_bwd"
     for i, (shape, causal, mask_kind) in enumerate(BWD_CASES):
         for dtype_name in BWD_TOLERANCES:
@@ -1001,11 +1022,52 @@ def blocked_inputs(case_index: int, dtype, device):
                         400 + case_index)
 
 
+def k6_against_k3_and_k5(fa, q, k, v, mask, out, dout, m, l, got, k5,
+                         dtype_name, label):
+    """K6's gradients ``got`` from K4's row stats ``m``, ``l`` against K5's
+    ``k5`` on the same inputs, which computes the same gradient with a
+    stats pass: in fp32 (the same scalar tiles) bit for bit; in bf16 and
+    fp16 within phase 3's backward tolerance (K5 runs the mma.sync tiles,
+    K6 K3's wgmma bodies), and, where K3 takes the inputs (sq <= sk), K4's
+    stats equal to K1's and K6 equal to K3 given them (the same bodies),
+    bit for bit. Returns the report."""
+    import torch
+
+    if dtype_name == "float32":
+        errs = []
+        for name, g, r in zip(("dq", "dk", "dv"), got, k5):
+            errs.append(float((g.float() - r.float()).abs().max()))
+            if not torch.equal(g, r):
+                fail(f"K6's {name} differs from K5's at {label} "
+                     f"{dtype_name} (max abs {errs[-1]:.3e})")
+        return ("against flash_attention_bwd (K5): equal bit for bit (max "
+                f"abs {', '.join(f'{e:g}' for e in errs)})")
+    report = ("against flash_attention_bwd (K5): " + _grads_within(
+        "flash_attention_blocked_bwd", got, k5, dtype_name,
+        f"{label} against K5", collections.defaultdict(float)))
+    if q.shape[1] > k.shape[1]:
+        return report
+    _, m1, l1 = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
+                                                  causal=True)
+    k3 = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                         causal=True, row_max=m, row_sum=l)
+    torch.cuda.synchronize(q.device)
+    if not (torch.equal(m1, m) and torch.equal(l1, l)):
+        fail(f"K4's row stats differ from K1's at {label} {dtype_name}")
+    for name, g, r in zip(("dq", "dk", "dv"), got, k3):
+        if not torch.equal(g, r):
+            fail(f"K6's {name} differs from K3's given the same stats at "
+                 f"{label} {dtype_name} (max abs "
+                 f"{float((g.float() - r.float()).abs().max()):.3e})")
+    return (report + "; K4's stats = K1's and K6 = K3 from them, bit for "
+            "bit")
+
+
 def check_blocked_kernels(fa, device, worst):
     """Phase 3, K4 with its row stats and K6: the output and stats against
     the plain version's, K6 (from the kernel's output and stats) against
     its plain version on the same inputs, and at OPT-350M's shape K6
-    against K5, which computes the same gradient with a stats pass."""
+    against K3 and K5 (``k6_against_k3_and_k5``)."""
     import torch
 
     for i, (dims, causal, mask_kind) in enumerate(BLOCKED_CASES):
@@ -1044,20 +1106,12 @@ def check_blocked_kernels(fa, device, worst):
                     f"{report} ok")
             del refs
             if i == 0:
-                # the same gradient: K5's stats pass computes K4's max and
-                # sum with K4's code, and both run the same delta and tile
-                # kernels, so bit for bit
                 k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout,
                                             causal=causal)
                 torch.cuda.synchronize(device)
-                errs = []
-                for name, g, r in zip(("dq", "dk", "dv"), got, k5):
-                    errs.append(float((g.float() - r.float()).abs().max()))
-                    if not torch.equal(g, r):
-                        fail(f"K6's {name} differs from K5's at {label} "
-                             f"{dtype_name} (max abs {errs[-1]:.3e})")
-                line += (f"; against flash_attention_bwd (K5): equal bit "
-                         f"for bit (max abs {', '.join(f'{e:g}' for e in errs)})")
+                line += "; " + k6_against_k3_and_k5(
+                    fa, q, k, v, mask, out, dout, m, l, got, k5, dtype_name,
+                    label)
                 del k5
             print(line)
             del q, k, v, mask, dout, out, m, l, got
@@ -1145,7 +1199,7 @@ def check_k4_wgmma(fa, device, worst):
     a mask (a null pointer) and with it, against the plain version at phase
     3's tolerance; where Sq <= Sk causal with its row stats (within
     STATS_TOLERANCES of the plain version's), K6 from them against its
-    plain version and equal to K5 bit for bit."""
+    plain version and against K3 and K5 (``k6_against_k3_and_k5``)."""
     import torch
 
     for d in (64, 80, 128):
@@ -1184,17 +1238,18 @@ def check_k4_wgmma(fa, device, worst):
                     k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout,
                                                 causal=True)
                     torch.cuda.synchronize(device)
-                    if not all(torch.equal(a, b) for a, b in zip(k6, k5)):
-                        fail(f"K6 from K4's stats differs from K5 at {label}")
                     _grads_within(
                         "flash_attention_blocked_bwd", k6,
                         fa.flash_attention_blocked_bwd_reference(
                             q, k, v, mask, out, dout, m, l, causal=True),
                         dtype_name, label, worst)
+                    k6_against_k3_and_k5(fa, q, k, v, mask, out, dout, m, l,
+                                         k6, k5, dtype_name, label)
         print(f"[check] K4 wgmma body at head dim {d}, Sq {K4_LENGTHS} x Sk "
               f"{K4_KEYS}, bf16 and fp16, no mask and a pad gap with a "
               "fully masked sample: ok; causal with stats where Sq <= Sk: "
-              "ok, K6 == K5 bit for bit")
+              "ok, K6 within tolerance of K5 and = K3 from K4's stats (= "
+              "K1's) bit for bit")
 
 
 def check_k7_wgmma(fa, device, worst):
@@ -1263,9 +1318,9 @@ def check_head_dim_kernels(fa, device, worst):
     """Phase 3 at head dims 80 and 128, bf16, fp16 and fp32: K1 and K3 at
     the self-attention shapes, K4 and K5 (through autograd) at every case,
     K4 with its row stats and K6 at the causal ones, each against its plain
-    version at phase 3's tolerances, and K6 against K5 bit for bit (the
-    same stats and tile bodies at every head dim). bf16 and fp16 launches
-    must take the tensor-core bodies."""
+    version at phase 3's tolerances, and K6 against K3 and K5
+    (``k6_against_k3_and_k5``). bf16 and fp16 launches must take the
+    tensor-core bodies."""
     import torch
 
     names = ("flash_attention_allheads", "flash_attention_allheads_bwd",
@@ -1341,9 +1396,9 @@ def check_head_dim_kernels(fa, device, worst):
                 k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout,
                                             causal=True)
                 torch.cuda.synchronize(device)
-                if not all(torch.equal(g, r) for g, r in zip(got, k5)):
-                    fail(f"K6 differs from K5 at {label} {dtype_name}")
-                report.append("K6 == K5 bit for bit")
+                report.append("K6 " + k6_against_k3_and_k5(
+                    fa, q, k, v, mask, out, dout, m, l, got, k5, dtype_name,
+                    label))
             half = dtype_name in TC_DTYPES
             for n in names:
                 runs = getattr(fa, n).launches - before[n][0]
@@ -1436,11 +1491,10 @@ class ShapeTally:
         return tallied
 
     def _wrap_fused(self, fn):
-        def tallied(entry, name, q, k, *a, **kw):
-            self.dims[(name, q.shape[-1])] += 1
-            # a: v, kv_mask, causal, scale, *shape
-            self.fused[(q.shape[1], bool(a[2]))] += 1
-            return fn(entry, name, q, k, *a, **kw)
+        def tallied(q, k, v, kv_mask, causal, scale):
+            self.dims[("fused_heads_attention", q.shape[-1])] += 1
+            self.fused[(q.shape[1], bool(causal))] += 1
+            return fn(q, k, v, kv_mask, causal, scale)
         return tallied
 
     def _wrap_flash(self, fn):
@@ -1462,12 +1516,12 @@ class ShapeTally:
 
     def __enter__(self):
         self.saved = (self.fa._launch_bias, self.fa._launch_bias_bwd,
-                      self.fa._launch, self.fa._launch_bwd,
+                      self.fa._launch_fused, self.fa._launch_bwd,
                       self.fa._launch_allheads, self.fa._launch_allheads_bwd,
                       self.fa._launch_flash)
         self.fa._launch_bias = self._wrap(self.saved[0], self.fwd)
         self.fa._launch_bias_bwd = self._wrap(self.saved[1], self.bwd)
-        self.fa._launch = self._wrap_fused(self.saved[2])
+        self.fa._launch_fused = self._wrap_fused(self.saved[2])
         self.fa._launch_bwd = self._wrap_bwd(self.saved[3])
         self.fa._launch_allheads = self._wrap_allheads(
             self.saved[4], "flash_attention_allheads")
@@ -1478,7 +1532,7 @@ class ShapeTally:
 
     def __exit__(self, *exc):
         (self.fa._launch_bias, self.fa._launch_bias_bwd,
-         self.fa._launch, self.fa._launch_bwd, self.fa._launch_allheads,
+         self.fa._launch_fused, self.fa._launch_bwd, self.fa._launch_allheads,
          self.fa._launch_allheads_bwd, self.fa._launch_flash) = self.saved
         return False
 
@@ -1499,8 +1553,9 @@ class PlainCheck:
     where v is of unit scale. Each launch with max |v| > 1 is kept under
     ``scaled``."""
 
-    LAUNCHERS = ("_launch", "_launch_bwd", "_launch_bias", "_launch_bias_bwd",
-                 "_launch_allheads", "_launch_allheads_bwd", "_launch_flash")
+    LAUNCHERS = ("_launch_fused", "_launch_bwd", "_launch_bias",
+                 "_launch_bias_bwd", "_launch_allheads",
+                 "_launch_allheads_bwd", "_launch_flash")
 
     def __init__(self, fa, tag):
         self.fa, self.tag = fa, tag
@@ -1535,12 +1590,12 @@ class PlainCheck:
         fa = self.fa
         saved = self.saved = {n: getattr(fa, n) for n in self.LAUNCHERS}
 
-        def launch(entry, name, q, k, v, kv_mask, causal, scale, *shape):
-            out = saved["_launch"](entry, name, q, k, v, kv_mask, causal,
-                                   scale, *shape)
-            ref = getattr(fa, KERNELS[name][0])(q, k, v, kv_mask=kv_mask,
-                                                causal=causal, scale=scale)
-            self._forward(name, out, ref, v, tuple(q.shape))
+        def launch_fused(q, k, v, kv_mask, causal, scale):
+            out = saved["_launch_fused"](q, k, v, kv_mask, causal, scale)
+            ref = fa.fused_heads_attention_reference(
+                q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
+            self._forward("fused_heads_attention", out, ref, v,
+                          tuple(q.shape))
             return out
 
         def launch_flash(q, k, v, kv_mask, causal, scale, with_stats):
@@ -1610,7 +1665,8 @@ class PlainCheck:
                            tuple(q.shape))
             return got
 
-        for name, fn in zip(self.LAUNCHERS, (launch, launch_bwd, launch_bias,
+        for name, fn in zip(self.LAUNCHERS, (launch_fused, launch_bwd,
+                                             launch_bias,
                                              launch_bias_bwd, launch_allheads,
                                              launch_allheads_bwd,
                                              launch_flash)):
@@ -3645,6 +3701,10 @@ def run_flags_phase(cli, fa, device, micro, test_loss, train):
           f"them the port's {dict(ours)}")
     if any(ours[k] == 0 for k in TRACE_KERNELS):
         fail(f"the trace names no device event of {TRACE_KERNELS}: {ours}")
+    retired = sum(RETIRED_KERNEL in e["name"] for e in kernels)
+    if retired:
+        fail(f"the trace holds {retired} events of {RETIRED_KERNEL}, which "
+             "no entry of the library launches")
     wandb = [line for line in "".join(tee.text).splitlines()
              if line.startswith("[wandb] disabled: ")]
     if not wandb:

@@ -1,18 +1,23 @@
-// K1, K4 and K7's forward and K3's dK/dV and dQ passes on Hopper's warpgroup
-// products (wgmma) and TMA: the forward of OPT's all-heads attention, of the
-// per-head attention at any sq and sk, and of T5's bias and dropout
-// attention, and K1's backward from the forward's row statistics
-// (allheads_wgmma.cu, attention_fwd.cu, attention_bias_fwd.cu hold the
-// entries; the forward's stats-only form is the stats pass of K3, K5 and
-// K8/K9, in allheads_wgmma.cu, attention_bwd.cu and attention_bias_bwd.cu).
+// K1, K2, K4 and K7's forward and K3's and K6's dK/dV and dQ passes on
+// Hopper's warpgroup products (wgmma) and TMA: the forward of OPT's
+// all-heads attention, of CLIP's fused-heads attention (K1's at sq == sk),
+// of the per-head attention at any sq and sk, and of T5's bias and dropout
+// attention, and the backward of K1 from its row statistics and of K4 from
+// its (allheads_wgmma.cu, attention_fwd.cu, attention_bias_fwd.cu and
+// attention_blocked_bwd.cu hold the entries; the forward's stats-only form
+// is the stats pass of K3, K5 and K8/K9, in allheads_wgmma.cu,
+// attention_bwd.cu and attention_bias_bwd.cu).
 //
 // Replaces _allheads_kernel_fwd (mmgl_tpu/ops/flash_attention.py:1283, via
-// _allheads_fwd :1359), _allheads_kernel_bwd (:1307, via _allheads_vjp_bwd
-// :1392), _fwd_kernel and _fwd_kernel_causal_stream (:92, :129, via _fwd
-// :179) and _fwd_bias_kernel(_batched) (:594, :624, via _fwd_bias :768).
+// _allheads_fwd :1359), _fused_heads_kernel (:1152, via _fused_heads_fwd
+// :1175), _allheads_kernel_bwd (:1307, via _allheads_vjp_bwd :1392),
+// _fwd_kernel and _fwd_kernel_causal_stream (:92, :129, via _fwd :179),
+// _bwd_dq_kernel and _bwd_dkv_kernel (:246, :289, via _bwd_causal_blocked
+// :336) and _fwd_bias_kernel(_batched) (:594, :624, via _fwd_bias :768).
 // The math is xla_attention's, as in the mma.sync bodies these replace
-// (attention_fwd_tc.cuh, attention_bwd_tiles.cuh, which still serve K2, K5,
-// K6 and K8/K9's tiles): masked logits -1e30, causal aligned at the ends, a
+// (attention_fwd_tc.cuh, now only the sweep's "before", and
+// attention_bwd_tiles.cuh, which still serves K5's and K8/K9's tiles):
+// masked logits -1e30, causal aligned at the ends, a
 // fully masked row averaging V over the sk keys, and jax.grad's zero dS at
 // masked logits. Every element's arithmetic is theirs too (logits in log2
 // units on ex2, the online softmax's order within a tile, P and dS rounded
@@ -70,8 +75,8 @@
 //     the library's shapes (FwdShape, DkdvShape, DqShape at the end)
 //     take one or two warpgroups a block and let the SM's other blocks
 //     fill the gaps;
-//   * no atomics: each block owns its outputs, so K3 is the same from run to
-//     run.
+//   * no atomics: each block owns its outputs, so K3 and K6 are the same from
+//     run to run.
 // The skip rules are the mma.sync bodies', at the warpgroup's rows: the
 // forward ends past the causal diagonal once every row of the block has seen
 // a real logit (its first valid key at or before the block's first row's
@@ -235,8 +240,8 @@ __device__ __forceinline__ void keep_bits(uint32_t (&keep)[KT / 64],
   }
 }
 
-// ---- the forward (K1, K4, K7; in stats-only form the stats pass of K3, K5
-// and K8/K9) ----------------------------------------------------------------
+// ---- the forward (K1, K2, K4, K7; in stats-only form the stats pass of K3,
+// K5 and K8/K9) --------------------------------------------------------------
 
 // the bias form's tile a stage (the block's rows x the tile's keys): boxes
 // of 64 rows x 128 bytes, kNC x (KT bytes of keys / 128) of them
@@ -574,7 +579,7 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---- dK/dV (K3) --------------------------------------------------------
+// ---- dK/dV (K3, K6) --------------------------------------------------------
 
 template <int D, typename S>
 __host__ __device__ constexpr size_t dkdv_smem() {
@@ -823,7 +828,7 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---- dQ (K3) -----------------------------------------------------------
+// ---- dQ (K3, K6) -----------------------------------------------------------
 
 template <int D, typename S>
 __host__ __device__ constexpr size_t dq_smem() {
@@ -1177,11 +1182,12 @@ cudaError_t launch_bwd(const Maps& m, const int* kv_mask,
 
 // the shapes the library launches, by head dim: the fastest of
 // mmgl_tpu_torch/sweep_attention.py --allheads at K1's and K3's shapes and
-// of --k4-k7 at K4's and K7's on an H100 (PERF.md §6); fp16 takes bf16's.
+// of --k4-k7 at K4's and K7's and --k2-k6 at K2's and K6's on an H100
+// (PERF.md §6); fp16 takes bf16's.
 // One consumer warpgroup of 64 rows and tiles of 64 throughout; at 64 two
 // dK/dV and three dQ blocks an SM, past 64 the dK and dV accumulators (64
 // registers each) leave room for one dK/dV block. FwdShape serves every
-// forward (K1, K4, K7) and the stats passes of K3, K5 and K8/K9: a
+// forward (K1, K2, K4, K7) and the stats passes of K3, K5 and K8/K9: a
 // forward and the stats pass that stands in for it must share one shape,
 // so that the row stats they write are the same bits
 template <int D>

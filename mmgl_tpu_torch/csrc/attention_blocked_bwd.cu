@@ -25,42 +25,45 @@
 // lies wholly before its keys only when every row of that tile has a real
 // logit, which the statistics tell (m > -1e30).
 //
-// Schedule: three launches on the caller's stream, no atomics, the same
-// results from run to run.
-//   1. delta: one block per (64 query rows, head, batch), four threads a row
-//      (JAX computes it outside Pallas, :345-347).
-//   2. dK/dV: one block per (64 keys, head, batch), looping over the query
-//      tiles that can see its keys (:299-300), plus earlier tiles that hold a
-//      fully masked row.
-//   3. dQ: one block per (64 query rows, head, batch), looping over the key
-//      tiles up to the tile's causal limit (j + 1) * 64 + (sk - sq)
-//      (:262-263).
-// 2 and 3 are the tile kernels of attention_bwd_tiles.cuh, shared with K3/K5,
-// which run them after a pass that recomputes m and l; K6 takes them from K4.
-//
-// Two bodies, chosen by the input dtype: bf16 and fp16 inputs take the
-// tensor-core
-// dK/dV and dQ bodies of attention_bwd_tiles.cuh (mma.sync; entry
-// mmgl_blocked_bwd_tc), fp32 inputs the scalar ones (on the tensor cores
-// fp32 would run as TF32). The delta pass is the same for both.
+// Two bodies, chosen by the input dtype, each two or three launches on the
+// caller's stream, no atomics, the same results from run to run:
+//   * bf16 and fp16 (entry mmgl_blocked_bwd_tc): K3's wgmma/TMA bodies of
+//     allheads_wgmma.cuh, started from K4's statistics as K3's start from
+//     K1's (K4 writes them with K1's forward body, so K6 from K4's stats is
+//     K3 from the same stats, bit for bit). Two launches:
+//       1. dQ: one block per (64 query rows, head, batch), looping over the
+//          key tiles up to the block's causal limit (:262-263) that hold a
+//          valid key; its prologue computes delta = rowsum(dO * o) (JAX
+//          computes it outside Pallas, :345-347) and writes it for
+//          2. dK/dV: one block per (64 keys, head, batch), looping over the
+//          query tiles that can see its keys (:299-300), plus earlier
+//          tiles that hold a fully masked row.
+//     The end-aligned sq < sk is the bodies' shift = sk - sq.
+//   * fp32 (entry mmgl_blocked_bwd): three launches, a delta pass (four
+//     threads a row) and then the scalar dK/dV and dQ tile kernels of
+//     attention_bwd_tiles.cuh, shared with K3's and K5's fp32 bodies (on
+//     the tensor cores fp32 would run as TF32).
 //
 // What bounds it on this card: 14 * D FLOPs per (query, key) pair computed
-// (dQ: q k^T, dO v^T, dS k; dK/dV: q k^T, dO v^T, P^T dO, dS^T q) against a
-// few tens of MB of inputs: the tensor cores and the fp32 elementwise work
-// between the products in bf16 or fp16, scalar FMAs and shared-memory loads
-// in fp32;
-// not HBM (3.35 TB/s). Against K5 at the same shape it saves the stats pass.
-// Head dims 64, 80 and 128, as K3/K5 (mmgl::with_head_dim).
+// (dQ: q k^T, dO v^T, dS k; dK/dV: q k^T, dO v^T, P^T dO, dS^T q; 10 * D
+// is the gradient's own, the rest recomputes S and dP in the second pass)
+// against a few tens of MB of inputs:
+// the tensor cores (989 TFLOP/s bf16, reached only through wgmma) and the
+// fp32 elementwise work between the products in bf16 or fp16, scalar FMAs
+// and shared-memory loads in fp32; not HBM (3.35 TB/s). Against K5 at the
+// same shape it saves the stats pass. Head dims 64, 80 and 128, as K3/K5
+// (mmgl::with_head_dim).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "allheads_wgmma.cuh"
 #include "attention_bwd_tiles.cuh"
 #include "common.cuh"
 
-// K6: the blocked backward of K4 from its saved row max and sum (each
-// batch * heads * sq fp32 in (B, H, Sq) order); row_delta: fp32 scratch of
-// the same size. sq <= sk when causal (the ends are aligned).
+// K6 in fp32: the blocked backward of K4 from its saved row max and sum
+// (each batch * heads * sq fp32 in (B, H, Sq) order); row_delta: fp32
+// scratch of the same size. sq <= sk when causal (the ends are aligned).
 extern "C" int mmgl_blocked_bwd(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* out,
                                 const void* dout, const float* row_max,
@@ -85,8 +88,9 @@ extern "C" int mmgl_blocked_bwd(const void* q, const void* k, const void* v,
   });
 }
 
-// K6 on the tensor-core bodies (dtype bf16 or fp16): the same delta pass,
-// then the tensor-core dK/dV and dQ launches.
+// K6 on K3's wgmma/TMA bodies (dtype bf16 or fp16): dQ, which also writes
+// delta into row_delta, then dK/dV, from K4's row max and sum. kv_mask may
+// be null (every key valid).
 extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
                                    const int* kv_mask, const void* out,
                                    const void* dout, const float* row_max,
@@ -102,11 +106,13 @@ extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
     constexpr int D = decltype(d)::value;
     return mmgl::with_tc_type(dtype, [&](auto tag) {
       using T = decltype(tag);
-      const cudaError_t err = mmgl::launch_delta<D, T>(
-          out, dout, row_delta, batch, sq, heads, stream);
+      mmgl::wg::Maps m;
+      const cudaError_t err = mmgl::wg::make_maps(&m, q, k, v, dout, dtype,
+                                                  batch, sq, sk, heads, D);
       if (err != cudaSuccess) return err;
-      return mmgl::launch_bwd_tiles_tc<D, T>(
-          q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
+      return mmgl::wg::launch_bwd<D, mmgl::wg::DkdvShape<D>,
+                                  mmgl::wg::DqShape<D>, T>(
+          m, kv_mask, row_max, row_sum, out, dout, row_delta, dq, dk, dv,
           batch, sq, sk, heads, scale, causal, stream);
     });
   });

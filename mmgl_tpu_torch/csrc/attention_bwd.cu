@@ -37,17 +37,19 @@
 //   2. dK/dV: one block per (64 keys, head, batch), looping over query tiles
 //      of 64 held in shared memory.
 //   3. dQ: one block per (64 query rows, head, batch), looping over key tiles.
-// 2 and 3 live in attention_bwd_tiles.cuh, shared with K6, which takes m and
-// l from the forward instead of pass 1; the header describes their thread
-// layout and which causal tiles they skip.
+// 2 and 3 live in attention_bwd_tiles.cuh, shared with K6's fp32 body,
+// which takes m and l from the forward instead of pass 1; the header
+// describes their thread layout and which causal tiles they skip.
 //
 // Two bodies, chosen by the input dtype. fp32 inputs take the scalar passes
 // above (on the tensor cores fp32 would run as TF32). bf16 and fp16 inputs
 // take the tensor-core bodies, four launches (K5's entry below): K4's
 // wgmma/TMA forward body (allheads_wgmma.cuh, in K4's shape) in its
 // stats-only form (m and l from the same instructions, in the same order,
-// as K4 writes them for K6, so K5 and K6 agree bit for bit), the delta pass,
-// then the mma.sync dK/dV and dQ bodies of attention_bwd_tiles.cuh.
+// as K4 writes them for K6), the delta pass, then the mma.sync dK/dV and dQ
+// bodies of attention_bwd_tiles.cuh. K6 takes K3's wgmma dQ and dK/dV bodies
+// (allheads_wgmma.cuh) in bf16 and fp16, so K5 and K6 agree within the
+// rounding of P and dS there, and bit for bit in fp32.
 //
 // What bounds the scalar passes on this card: a few GFLOP of scalar fp32
 // FMAs over a few MB, so the throughput of FMAs and shared-memory loads, not

@@ -1,7 +1,10 @@
-// The dK/dV and dQ passes of the dense attention backward, shared by K3/K5
-// (attention_bwd.cu, after their stats pass) and K6 (attention_blocked_bwd.cu,
-// from the forward's saved statistics). Given q, k, v, the key mask, dO and
-// per query row the softmax max m, sum l and delta = rowsum(dO * o):
+// The dK/dV and dQ passes of the dense attention backward, shared by K5
+// (attention_bwd.cu, after its stats pass; in fp32 K3's too) and K6's fp32
+// body (attention_blocked_bwd.cu, from the forward's saved statistics; its
+// bf16 and fp16 body is K3's wgmma one, allheads_wgmma.cuh), and in their
+// bias form by K8/K9 (attention_bias_bwd.cu). Given q, k, v, the key
+// mask, dO and per query row the softmax max m, sum l and
+// delta = rowsum(dO * o):
 //   P  = exp(q k^T * scale - m) / l   (masked logits -1e30, so a fully
 //                                      masked row, m = -1e30 and l = sk,
 //                                      gets P = 1/sk at every key)
@@ -267,10 +270,11 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // delta = rowsum(dO * o) per query row, in (B, H, Sq) order: K6's first
-// launch, and K3/K5's after their tensor-core stats pass (JAX computes it outside
-// Pallas, mmgl_tpu/ops/flash_attention.py:345-347). Thread sub of a row sums
-// the D/4 dims from sub D/4 on, in the order of K3/K5's scalar stats pass
-// (attention_bwd.cu), so that K5 and K6 agree bit for bit in fp32 too.
+// launch in fp32, and K5's after its tensor-core stats pass (JAX computes
+// it outside Pallas, mmgl_tpu/ops/flash_attention.py:345-347). Thread sub
+// of a row sums the D/4 dims from sub D/4 on, in the order of K3/K5's
+// scalar stats pass (attention_bwd.cu), so that K5 and K6 agree bit for
+// bit in fp32.
 template <int D, typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,

@@ -39,15 +39,14 @@
 // stride H*D), so nothing is transposed, which is the point of the allheads
 // kernel (flash_attention.py:1268-1277).
 //
-// Two bodies, chosen by the input dtype. bf16 and fp16 inputs take a
-// tensor-core body (entries *_tc below): K4's is the wgmma/TMA forward of
-// allheads_wgmma.cuh (K1's body, at any sq and sk, with its row stats where
-// asked; one producer warp streams K and V through an mbarrier ring, the
-// consumer warpgroups run S = Q K^T and P V on wgmma), K2's the mma.sync
-// body of attention_fwd_tc.cuh (cp.async, FlashAttention-2's shape), K1's
-// the wgmma body through allheads_wgmma.cu. fp32 inputs take the scalar
-// body here: on the tensor cores fp32 would run as TF32, about three
-// decimal digits, and the fp32 checks hold the kernels to 2e-5.
+// Two bodies, chosen by the input dtype. bf16 and fp16 inputs take the
+// wgmma/TMA forward of allheads_wgmma.cuh (entries *_tc below for K2 and
+// K4, allheads_wgmma.cu for K1): K1's body at any sq and sk, with its row
+// stats where asked; one producer warp streams K and V through an mbarrier
+// ring, the consumer warpgroups run S = Q K^T and P V on wgmma; a null
+// key mask means every key is valid. fp32 inputs take the scalar body
+// here: on the tensor cores fp32 would run as TF32, about three decimal
+// digits, and the fp32 checks hold the kernels to 2e-5.
 //
 // What bounds the scalar body on this card: scalar fp32 FMAs, so the
 // shared-memory load rate feeding them (one 16-byte load per four FMAs). The
@@ -76,7 +75,6 @@
 #include <math.h>
 
 #include "allheads_wgmma.cuh"
-#include "attention_fwd_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -280,8 +278,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the scalar body: fp32 only (bf16 and fp16 take dispatch_tc or
-// dispatch_flash_tc)
+// the scalar body: fp32 only (bf16 and fp16 take dispatch_flash_tc)
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* kv_mask, void* out, float* row_max,
                      float* row_sum, int batch, int sq, int sk, int heads,
@@ -298,27 +295,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   });
 }
 
-// K2's tensor-core body (mma.sync): bf16 and fp16
-cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
-                        const int* kv_mask, void* out, int batch, int sq,
-                        int sk, int heads, int head_dim, float scale,
-                        int causal, int dtype, cudaStream_t stream) {
-  if (!mmgl::valid_shape(batch, sq, sk, heads, causal)) {
-    return cudaErrorInvalidValue;
-  }
-  return mmgl::with_head_dim(head_dim, [&](auto d) {
-    return mmgl::with_tc_type(dtype, [&](auto tag) {
-      using T = decltype(tag);
-      return mmgl::launch_fwd_tc<decltype(d)::value, false, false, false, T,
-                                 T>(q, k, v, kv_mask, out, nullptr, nullptr,
-                                    batch, sq, sk, heads, scale, causal,
-                                    stream);
-    });
-  });
-}
-
-// K4's tensor-core body (wgmma, TMA): bf16 and fp16; a null kv_mask means
-// every key is valid
+// K2's and K4's tensor-core body (wgmma, TMA): bf16 and fp16; a null
+// kv_mask means every key is valid
 cudaError_t dispatch_flash_tc(const void* q, const void* k, const void* v,
                               const int* kv_mask, void* out, float* row_max,
                               float* row_sum, int batch, int sq, int sk,
@@ -380,18 +358,21 @@ extern "C" int mmgl_flash_fwd(const void* q, const void* k, const void* v,
                   heads, head_dim, scale, causal, dtype, stream);
 }
 
-// K2 on the mma.sync body and K4 on the wgmma/TMA body (dtype bf16 or fp16;
-// the entries above take fp32 only). dtype: mmgl::DType (common.cuh). K4's
-// kv_mask may be null (every key valid); K2's may not. K1's bf16 and fp16
-// entry, mmgl_allheads_fwd_tc, is in allheads_wgmma.cu.
+// K2 and K4 on the wgmma/TMA body (dtype bf16 or fp16; the entries above
+// take fp32 only). dtype: mmgl::DType (common.cuh). kv_mask may be null
+// (every key valid). K2 is K1's forward at sq == sk without its row stats:
+// CLIP's (24, 197, 12, 64), whose 197 rows TMA's zero fill and the key
+// bits cut, and its text tower's (44, 77, 8, 64) causal. K1's bf16 and
+// fp16 entry, mmgl_allheads_fwd_tc, is in allheads_wgmma.cu.
 extern "C" int mmgl_fused_heads_fwd_tc(const void* q, const void* k,
                                        const void* v, const int* kv_mask,
                                        void* out, int batch, int seq,
                                        int heads, int head_dim, float scale,
                                        int causal, int dtype,
                                        cudaStream_t stream) {
-  return dispatch_tc(q, k, v, kv_mask, out, batch, seq, seq, heads,
-                     head_dim, scale, causal, dtype, stream);
+  return dispatch_flash_tc(q, k, v, kv_mask, out, nullptr, nullptr, batch,
+                           seq, seq, heads, head_dim, scale, causal, dtype,
+                           stream);
 }
 
 extern "C" int mmgl_flash_fwd_tc(const void* q, const void* k, const void* v,

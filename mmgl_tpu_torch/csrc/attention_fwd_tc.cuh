@@ -1,7 +1,9 @@
-// The mma.sync tensor-core forward body of K2 (attention_fwd.cu). K1, K4
-// and K7 and the stats passes of K3, K5 and K8/K9 moved to the wgmma/TMA
-// forward of allheads_wgmma.cuh; this body, with its bias form, stays the
-// "before" reading of sweep_attention (csrc/sweep/k4_k7_shapes.cu).
+// The mma.sync tensor-core forward body that K1, K2, K4 and K7 and the
+// stats passes of K3, K5 and K8/K9 ran before they moved to the wgmma/TMA
+// forward of allheads_wgmma.cuh. No entry of the library includes it: this
+// body, with its bias form, stays the "before" reading of sweep_attention
+// (csrc/sweep/allheads_shapes.cu for K1 and K2, k4_k7_shapes.cu for K4 and
+// K7, attention_shapes.cu).
 //
 // Computes what attention_fwd.cu's scalar body computes (xla_attention's
 // math, mmgl_tpu/ops/attention.py:190-224):
@@ -56,7 +58,7 @@
 // xla_attention's math with the batch-shared (H, Sq, Sk) bias and
 // attention-prob dropout:
 //   out = (softmax(q k^T * scale + bias[h], masked = -1e30) * keep) v
-// It is the same body with two additions, compiled out of K2:
+// It is the same body with two additions, compiled out of the plain form:
 //   * each (kRows x 64) tile of the bias (T or fp32) comes into the
 //     cp.async ring beside K and V, and each S element takes its own
 //     (row, key): in log2 units the logit is s (scale log2 e) + bias log2 e,

@@ -1,11 +1,14 @@
 // Shapes of K1's and K3's wgmma/TMA bodies (allheads_wgmma.cuh), and the
 // mma.sync bodies they replaced, for mmgl_tpu_torch/sweep_attention.py
-// --allheads: the forward, dK/dV and dQ bodies each in several (consumer
-// warpgroups, streamed tile rows, ring stages, blocks an SM) shapes at each
-// head dim the library takes (64, 80, 128), bf16. Shape -1 is the mma.sync
-// body that K1 and K3 launched before (attention_fwd_tc.cuh's forward;
-// its stats-only form, the delta pass and attention_bwd_tiles.cuh's dK/dV
-// and dQ): the "before" reading, reachable only here. Built apart from the
+// --allheads and --k2-k6 (K2 is K1's forward at sq == sk, K6 K3's dQ and
+// dK/dV from K4's stats): the forward, dK/dV and dQ bodies each in several
+// (consumer warpgroups, streamed tile rows, ring stages, blocks an SM)
+// shapes at each head dim the library takes (64, 80, 128), bf16. Shape -1
+// is the mma.sync body that K1 and K2 and K3 launched before
+// (attention_fwd_tc.cuh's forward; its stats-only form, the delta pass and
+// attention_bwd_tiles.cuh's dK/dV and dQ), and sweep_k6_before K6's (the
+// delta pass and the same dK/dV and dQ): the "before" readings, reachable
+// only here. Built apart from the
 // kernel library (this folder is not part of it); the library launches one
 // shape of each (mmgl::wg::FwdShape, DkdvShape, DqShape).
 
@@ -170,5 +173,27 @@ extern "C" int sweep_k3_before(int head_dim, const void* q, const void* k,
                                         scratch + n, scratch + 2 * n, dq, dk,
                                         dv, batch, sq, sk, heads, scale,
                                         causal, stream);
+  });
+}
+
+// K6 as it ran before on the mma.sync bodies (three launches): the delta
+// pass, then dK/dV and dQ from K4's row stats; row_delta: batch * heads *
+// sq fp32 scratch
+extern "C" int sweep_k6_before(int head_dim, const void* q, const void* k,
+                               const void* v, const int* mask,
+                               const void* out, const void* dout,
+                               const float* row_max, const float* row_sum,
+                               float* row_delta, void* dq, void* dk, void* dv,
+                               int batch, int sq, int sk, int heads,
+                               float scale, int causal, cudaStream_t stream) {
+  return mmgl::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    const cudaError_t err = mmgl::launch_delta<D, T>(out, dout, row_delta,
+                                                     batch, sq, heads, stream);
+    if (err != cudaSuccess) return err;
+    return mmgl::launch_bwd_tiles_tc<D>(q, k, v, mask, dout, row_max,
+                                        row_sum, row_delta, dq, dk, dv,
+                                        batch, sq, sk, heads, scale, causal,
+                                        stream);
   });
 }

@@ -1,7 +1,8 @@
-"""The host's cost of launching K1, K3, K4 and K7 on the card, and their
+"""The host's cost of launching K1-K4, K6 and K7 on the card, and their
 bodies' device time.
 
-    python -m mmgl_tpu_torch.launch_cost [--calls 200] [--only k1,k4,k7]
+    python -m mmgl_tpu_torch.launch_cost [--calls 200]
+        [--only k1,k4,k7,k2,k6]
 
 At K1's and K3's shapes of PERF.md §6, bf16 with a pad hole in the int32
 key mask: the main path's attention (4, 640, 12, 64) causal, Roberta's
@@ -30,7 +31,15 @@ has it, else contiguous):
   * ``k7``: ``flash_attention_bias`` without autograd (the test pass);
   * ``k7_grad``: the same with q, k, v and the bias requiring a gradient
     (the training forward).
-``--only`` takes the kinds to run (k1 runs K1's and K3's cases).
+At K2's (CLIP's vision tower, (24, 197, 12, 64) without a mask, and its
+text tower, (44, 77, 8, 64) causal over right-padded texts with an empty
+one):
+  * ``k2``: ``fused_heads_attention`` without autograd (the frozen towers).
+At K6's (OPT-350M's (4, 2048, 16, 64) causal with a pad hole, from K4's
+row stats):
+  * ``k6``: ``flash_attention_blocked_bwd`` called directly.
+``--only`` takes the kinds to run (k1 runs K1's and K3's cases; the
+default runs all but k2 and k6).
 For each, the host's microseconds a call (the loop's enqueue time over
 ``--calls`` calls, the card's queue never full where the bodies are shorter
 than the host's work; the median of 5 loops) and the wall's (to a
@@ -75,6 +84,10 @@ K7_SHAPES += [((4, 576, 576, 12), False, True, rate) for rate in (0.0, 0.1)]
 K7_SHAPES += [((4, 128, 128, 12), True, True, rate) for rate in (0.0, 0.1)]
 K7_SHAPES += [((4, 128, 148, 12), True, True, rate) for rate in (0.0, 0.1)]
 K7_SHAPES += [((4, 128, 512, 12), False, False, 0.1)]
+# K2: (B, S, H, D), causal (with right-padded texts, one empty)
+K2_SHAPES = [((24, 197, 12, 64), False), ((44, 77, 8, 64), True)]
+# K6: (B, S, H, D), causal with a pad hole
+K6_SHAPES = [(4, 2048, 16, 64)]
 
 
 def card() -> str:
@@ -173,6 +186,35 @@ def k7_cases(dims, causal, with_bias, rate, device):
     return {"k7": k7, "k7_grad": k7_grad}
 
 
+def k2_cases(shape, causal, device):
+    b, s, h, d = shape
+    g = torch.Generator().manual_seed(s + h)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(device, torch.bfloat16)
+               for _ in range(3))
+    mask = None
+    if causal:
+        lengths = torch.randint(2, s + 1, (b,), generator=g)
+        lengths[0] = 0
+        mask = (torch.arange(s)[None, :] < lengths[:, None]).to(
+            device, torch.int32)
+
+    def k2():
+        fa.fused_heads_attention(q, k, v, kv_mask=mask, causal=causal)
+
+    return {"k2": k2}
+
+
+def k6_cases(shape, device):
+    q, k, v, dout, mask = inputs(shape, device)
+    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=True)
+
+    def k6():
+        fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                       causal=True)
+
+    return {"k6": k6}
+
+
 def host_and_wall_us(fn, calls, device, repeats=5):
     """(host us a call, wall us a call), each the median of ``repeats``
     loops of ``calls`` calls back to back, after a warm-up (a shared host's
@@ -222,7 +264,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--calls", type=int, default=200)
     parser.add_argument("--only", default="k1,k4,k7",
-                        help="the kinds to run: k1 (K1 and K3), k4, k7")
+                        help="the kinds to run: k1 (K1 and K3), k4, k7, "
+                             "k2, k6")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -241,6 +284,12 @@ def main(argv=None) -> int:
         runs += [(dims, causal, rate,
                   k7_cases(dims, causal, with_bias, rate, device))
                  for dims, causal, with_bias, rate in K7_SHAPES]
+    if "k2" in only:
+        runs += [(shape, causal, None, k2_cases(shape, causal, device))
+                 for shape, causal in K2_SHAPES]
+    if "k6" in only:
+        runs += [(shape, True, None, k6_cases(shape, device))
+                 for shape in K6_SHAPES]
     for shape, causal, rate, fns in runs:
         for name, fn in fns.items():
             host, wall = host_and_wall_us(fn, args.calls, device)

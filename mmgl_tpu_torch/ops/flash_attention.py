@@ -35,17 +35,18 @@ csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
 
 Every kernel has two bodies, chosen by the input dtype (``_tensor_cores``):
 bf16 and fp16 inputs launch the tensor-core body (the ``*_tc`` entries of
-the library: K1, K3, K4 and K7 on Hopper's wgmma and TMA,
-csrc/allheads_wgmma.cuh, with the stats passes of K5 and K8/K9; the others
-on mma.sync in the input's type), fp32 inputs the scalar one
+the library: K1-K4, K6 and K7 on Hopper's wgmma and TMA,
+csrc/allheads_wgmma.cuh, with the stats passes of K5 and K8/K9; the tiles
+of K5 and K8/K9 on mma.sync in the input's type), fp32 inputs the scalar one
 (on the tensor cores fp32 would run as TF32, about three decimal digits,
 against the fp32 checks' 2e-5). The wrappers count ``launches`` and, of
 those, ``launches_tc``. There is no fallback from one body to the other.
 The masks stay -1e30 in fp32 inside the kernels (fp16 tops out at 65504),
 and the plain versions compute their logits and softmax in fp32 for every
-input dtype. K1's and K7's tensor-core bodies also write the rows' softmax
-max and sum where a gradient follows (``flash_attention_allheads_stats``,
-``flash_attention_bias_stats``), and K3's and K8/K9's start from them
+input dtype. K1's, K4's and K7's tensor-core bodies also write the rows'
+softmax max and sum where a gradient follows
+(``flash_attention_allheads_stats``, ``flash_attention_stats``,
+``flash_attention_bias_stats``), and K3's, K6's and K8/K9's start from them
 instead of a stats pass.
 
 K1, K2, K4 and K7 keep the JAX signatures, BSHD in and out, and carry autograd on
@@ -347,22 +348,6 @@ def _count(wrapper, q) -> None:
     wrapper.launches_tc += int(_tensor_cores(q))
 
 
-def _launch(fn, name, q, k, v, kv_mask, causal, scale, *shape):
-    """Run one forward launcher of the library (``fn``, or its tensor-core
-    entry for bf16 and fp16: K2's) on the current stream; returns out."""
-    lib = _build.load().lib
-    kv_mask = _int_mask(q, k, kv_mask)
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = getattr(lib, _entry(fn, q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            out.data_ptr(), *shape, q.shape[3], float(scale), int(causal),
-            _DTYPE_CODE[q.dtype], stream)
-    _build.check(lib, err, name)
-    return out
-
-
 def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
     """Run a dense backward launcher (K5; its tensor-core entry for bf16
     and fp16) on the current stream through ``_call`` (it may run on
@@ -396,17 +381,17 @@ def _check_out_dout(name, q, out, dout):
     return out, dout
 
 
-# ---- K1, K3, K4 and K7's launch path ----------------------------------
+# ---- the launch path of K1-K4, K6 and K7 ------------------------------
 #
-# K1 and K3 run once a layer and micro-step (K4 and K7 in T5's layers),
-# and their bodies take tens of microseconds, so the host's work around
-# each launch sets their pace. Their launchers do only what a call needs:
-# the ctypes entry's argument types are set once at load (``_build.load``),
-# the raw stream comes from torch's C API, the device is switched only when
-# q is not on the current one, an int32 contiguous key mask is passed as it
-# stands (the models build theirs once a forward) and no mask as a null
-# pointer (every key valid), and the tensor maps are encoded by the C
-# entry.
+# K1 and K3 run once a layer and micro-step (K4 and K7 in T5's layers, K2
+# in CLIP's towers), and their bodies take tens of microseconds, so the
+# host's work around each launch sets their pace. Their launchers do only
+# what a call needs: the ctypes entry's argument types are set once at
+# load (``_build.load``), the raw stream comes from torch's C API, the
+# device is switched only when q is not on the current one, an int32
+# contiguous key mask is passed as it stands (the models build theirs once
+# a forward) and no mask as a null pointer (every key valid), and the
+# tensor maps are encoded by the C entry.
 
 
 def _lib_fn(entry):
@@ -414,9 +399,12 @@ def _lib_fn(entry):
     return getattr(_build.load().lib, entry)
 
 
-def _mask_arg(kv_mask):
-    """(keep-alive tensor or None, pointer or None) of a key mask as the
-    wgmma entries take it: int32 contiguous, or null for none."""
+def _mask_arg(q, k, kv_mask):
+    """(keep-alive tensor or None, pointer or None) of a key mask as q's
+    body takes it: int32 contiguous; for none, a null pointer to the wgmma
+    bodies (bf16, fp16) and a mask of ones to the scalar ones (fp32)."""
+    if kv_mask is None and not _tensor_cores(q):
+        kv_mask = _int_mask(q, k, None)
     if kv_mask is None:
         return None, None
     if kv_mask.dtype != torch.int32 or not kv_mask.is_contiguous():
@@ -453,7 +441,7 @@ def _launch_allheads(q, k, v, kv_mask, causal, scale, with_stats):
     None."""
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
-    mask, mask_ptr = _mask_arg(kv_mask)
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
     if _tensor_cores(q):
         stats = _empty_stats(q) if with_stats else (None, None)
         _call(q, _lib_fn("mmgl_allheads_fwd_tc"), "flash_attention_allheads",
@@ -461,8 +449,6 @@ def _launch_allheads(q, k, v, kv_mask, causal, scale, with_stats):
               out.data_ptr(), *(_ptr(t) for t in stats), b, sq, k.shape[1],
               h, d, scale, causal, _DTYPE_CODE[q.dtype])
         return (out,) + stats
-    if mask is None:  # the scalar body reads a mask
-        mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
     _call(q, _lib_fn("mmgl_allheads_fwd"), "flash_attention_allheads",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
           b, sq, k.shape[1], h, d, scale, causal, 0)
@@ -476,7 +462,7 @@ def _launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
     first; the scalar body (fp32) always does."""
     b, sq, h, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    mask, mask_ptr = _mask_arg(kv_mask)
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
     if _tensor_cores(q):
         n = b * h * sq * (1 if row_max is not None else 3)
         scratch = torch.empty(n, dtype=torch.float32, device=q.device)
@@ -487,8 +473,6 @@ def _launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
               _ptr(row_max), _ptr(row_sum), b, sq, k.shape[1], h, d, scale,
               causal, _DTYPE_CODE[q.dtype])
         return dq, dk, dv
-    if mask is None:
-        mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
     stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
     _call(q, _lib_fn("mmgl_allheads_bwd"), "flash_attention_allheads_bwd",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
@@ -614,6 +598,21 @@ def flash_attention_allheads_stats(q, k, v, *, kv_mask=None, causal=False,
     return _allheads_forward(q, k, v, kv_mask, causal, scale, True)
 
 
+def _launch_fused(q, k, v, kv_mask, causal, scale):
+    """Run K2 on the current stream, K1's launch path; returns out. The
+    wgmma body (bf16, fp16: K1's forward at sq == sk) takes no mask as a
+    null pointer, so CLIP's vision tower builds none; the scalar body (fp32)
+    reads one."""
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
+    _call(q, _lib_fn(_entry("mmgl_fused_heads_fwd", q)),
+          "fused_heads_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          mask_ptr, out.data_ptr(), b, s, h, d, scale, causal,
+          _DTYPE_CODE[q.dtype])
+    return out
+
+
 class _FusedHeadsAttention(torch.autograd.Function):
     """K2 forward; the backward recomputes through the plain version
     (``_fused_heads_vjp_bwd``, mmgl_tpu/ops/flash_attention.py:1230-1238).
@@ -627,9 +626,7 @@ class _FusedHeadsAttention(torch.autograd.Function):
         if _plain(q):
             return fused_heads_attention_reference(
                 q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
-        b, s, h, _ = q.shape
-        out = _launch("mmgl_fused_heads_fwd", "fused_heads_attention", q, k,
-                      v, kv_mask, causal, scale, b, s, h)
+        out = _launch_fused(q, k, v, kv_mask, causal, scale)
         _count(fused_heads_attention, q)
         return out
 
@@ -722,15 +719,17 @@ def _check_stats(name, q, row_max, row_sum):
 
 def _launch_blocked_bwd(q, k, v, kv_mask, out, dout, row_max, row_sum,
                         causal, scale):
-    """Run K6's launcher (its tensor-core entry for bf16 and fp16) on the
-    current stream; returns (dq, dk, dv)."""
+    """Run K6 on the current stream through ``_call`` (it runs on autograd's
+    backward thread); returns (dq, dk, dv). The wgmma bodies (bf16, fp16:
+    K3's dQ, which writes delta, then dK/dV) take no mask as a null
+    pointer; the scalar body (fp32) reads one."""
     b, sq, h, d = q.shape
-    mask = _int_mask(q, k, kv_mask)
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
     _call(q, _lib_fn(_entry("mmgl_blocked_bwd", q)),
           "flash_attention_blocked_bwd", q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
+          v.data_ptr(), mask_ptr, out.data_ptr(), dout.data_ptr(),
           row_max.data_ptr(), row_sum.data_ptr(), dq.data_ptr(),
           dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, sq, k.shape[1],
           h, d, scale, causal, _DTYPE_CODE[q.dtype])
@@ -742,7 +741,9 @@ def flash_attention_blocked_bwd(q, k, v, kv_mask, out, dout, row_max,
     """K6: (dq, dk, dv) of K4 for the cotangent ``dout``, from ``out`` and
     the row max and sum K4 kept for the same inputs
     (``flash_attention_stats``); no pass recomputes them. Each gradient in
-    q's dtype and shape."""
+    q's dtype and shape. In bf16 and fp16 it runs K3's wgmma bodies, so
+    where K3 takes the same inputs (sq <= sk) it equals
+    ``flash_attention_allheads_bwd`` given the same stats, bit for bit."""
     name = "flash_attention_blocked_bwd"
     _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
     _check_stats(name, q, row_max, row_sum)
@@ -771,15 +772,11 @@ def _launch_flash(q, k, v, kv_mask, causal, scale, with_stats):
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     stats = _empty_stats(q) if with_stats else (None, None)
-    mask, mask_ptr = _mask_arg(kv_mask)
-    entry = "mmgl_flash_fwd_tc"
-    if not _tensor_cores(q):
-        entry = "mmgl_flash_fwd"
-        if mask is None:
-            mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
-    _call(q, _lib_fn(entry), "flash_attention", q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), mask_ptr, out.data_ptr(), *(_ptr(t) for t in stats),
-          b, sq, k.shape[1], h, d, scale, causal, _DTYPE_CODE[q.dtype])
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
+    _call(q, _lib_fn(_entry("mmgl_flash_fwd", q)), "flash_attention",
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+          *(_ptr(t) for t in stats), b, sq, k.shape[1], h, d, scale, causal,
+          _DTYPE_CODE[q.dtype])
     return (out,) + stats
 
 
@@ -975,7 +972,7 @@ def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty_like(q)
-    mask, mask_ptr = _mask_arg(kv_mask)
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
     codes = (_DTYPE_CODE[q.dtype],
              _DTYPE_CODE[bias.dtype] if bias is not None else 0)
     if _tensor_cores(q):
@@ -986,8 +983,6 @@ def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv,
               _ptr(seed), out.data_ptr(), *(_ptr(t) for t in stats), b, sq,
               sk, h, d, scale, causal, thr, keep_inv, *codes, ld)
         return (out,) + stats
-    if mask is None:
-        mask, mask_ptr = _mask_arg(_int_mask(q, k, None))
     if bias is not None:
         bias = bias.contiguous()
     _call(q, _lib_fn("mmgl_bias_fwd"), "flash_attention_bias", q.data_ptr(),

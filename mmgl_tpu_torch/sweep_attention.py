@@ -1,11 +1,18 @@
 """Time shapes of the bf16 tensor-core attention bodies on the card.
 
     python -m mmgl_tpu_torch.sweep_attention [--allheads | --no-allheads |
-                                             --k4-k7]
+                                             --k4-k7 | --k2-k6]
 
 ``--allheads`` times K1's and K3's wgmma/TMA bodies alone (a few minutes),
 ``--no-allheads`` everything else, ``--k4-k7`` only K4's and K7's wgmma
-shapes (about two minutes); no flag, everything. K4 and K7
+shapes (about two minutes), ``--k2-k6`` only K2's and K6's (both on the
+bodies of csrc/sweep/allheads_shapes.cu: K2 is K1's forward at sq == sk,
+K6 K3's dQ and dK/dV from K4's row stats) beside the mma.sync bodies they
+replaced, at every K2 and K6 row of PERF.md §6 (K2: CLIP's (24, 197, 12,
+64) without a mask and its text tower's (44, 77, 8, 64) causal over
+right-padded texts with an empty one; K6: OPT-350M's (4, 2048, 16, 64) and
+(4, 1024, 32, 80 / 128) causal with the pad hole), with each body's
+device time; no flag, everything. K4 and K7
 (csrc/sweep/k4_k7_shapes.cu, on the forward of csrc/allheads_wgmma.cuh, in
 its bias form for K7): each in several (consumer warpgroups, key tile rows,
 ring stages, blocks an SM) shapes, beside the mma.sync body each replaced
@@ -128,6 +135,7 @@ def build(which=(0, 1, 2, 3)):
         allheads_lib.sweep_dkdv.argtypes = [i32, i32] + [ptr] * 11 + tail
         allheads_lib.sweep_dq.argtypes = [i32, i32] + [ptr] * 10 + tail
         allheads_lib.sweep_k3_before.argtypes = [i32] + [ptr] * 10 + tail
+        allheads_lib.sweep_k6_before.argtypes = [i32] + [ptr] * 12 + tail
     if k4k7_lib is not None:
         k4k7_lib.sweep_k4.argtypes = [i32, i32] + [ptr] * 7 + tail
         k4k7_lib.sweep_k7.argtypes = ([i32] + [ptr] * 5 + [i32, i32]
@@ -654,12 +662,141 @@ def sweep_k7_case(lib, tag, dims, causal, with_bias, rate, device):
             "device_ms": device_ms(fwd), "agrees_with_library": same}
 
 
+# K2's rows of PERF.md §6: (B, S, H, D), causal (CLIP's tower without a
+# mask, its text tower over right-padded texts, sample 0 empty)
+K2_CASES = [((24, 197, 12, 64), False), ((44, 77, 8, 64), True)]
+# K6's: (B, S, H, D), causal with the pad hole
+K6_CASES = [(4, 2048, 16, 64), (4, 1024, 32, 80), (4, 1024, 32, 128)]
+
+
+def sweep_k2_case(lib, dims, causal, device):
+    """K2 at one of its shapes: the library's wrapper (no gradient), the
+    mma.sync body it ran before (shape -1, which read a mask of ones where
+    none is given), K1's wgmma forward in each of the sweep's shapes (the
+    first the library's FwdShape), and SDPA; the wall of each in turns and
+    its device time."""
+    b, s, h, d = dims
+    g = torch.Generator().manual_seed(s + h)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(device, torch.bfloat16)
+               for _ in range(3))
+    mask = None
+    ones = torch.ones(b, s, dtype=torch.int32, device=device)
+    if causal:
+        lengths = torch.randint(2, s + 1, (b,), generator=g)
+        lengths[0] = 0
+        mask = (torch.arange(s)[None, :] < lengths[:, None]).to(
+            device, torch.int32)
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    out = fa.fused_heads_attention(q, k, v, kv_mask=mask, causal=causal)
+    fwd = {"library K2 (wrapper)": lambda: fa.fused_heads_attention(
+        q, k, v, kv_mask=mask, causal=causal)}
+    same = {}
+    for i in range(-1, lib.sweep_k1_shapes()):
+        o2 = torch.empty_like(out)
+        name = "mma.sync forward (before)" if i < 0 else f"k1 shape {i}"
+        m_ptr = (mask if mask is not None else ones if i < 0 else None)
+
+        def call(i=i, o2=o2, m_ptr=fa._ptr(m_ptr), name=name):
+            err = lib.sweep_k1(i, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               m_ptr, o2.data_ptr(), None, None, b, s, s, h,
+                               scale, int(causal), stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[name] = _near([o2], [out])
+        fwd[name] = call
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    am = _sdpa_mask(ones if mask is None else mask, s, causal, device)
+    fwd["scaled_dot_product_attention"] = \
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    return {"case": "k2", "shape": list(dims), "causal": causal,
+            "mask": mask is not None, "forward_ms": medians(fwd),
+            "device_ms": device_ms(fwd), "agrees_with_library": same}
+
+
+def sweep_k6_case(lib, dims, device):
+    """K6 at one of its shapes, from K4's row stats: the library's wrapper,
+    the mma.sync body it ran before (the delta pass, then the dK/dV and dQ
+    tiles), K3's wgmma dQ (which writes delta) and dK/dV bodies each in
+    the sweep's shapes (the library's: dQ shape 0 or 1 and dK/dV shape 0
+    or 1 by head dim), and SDPA's backward; the wall of each in turns and
+    its device time."""
+    b, s, h, d = dims
+    q, k, v, dout, mask = inputs(b, s, h, d, s + h + d, device)
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=True)
+    ref = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                         causal=True)
+    args = (b, s, s, h, scale, 1, stream)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    scratch = torch.empty_like(delta)
+    bwd = {"library K6 (wrapper)": lambda: fa.flash_attention_blocked_bwd(
+        q, k, v, mask, out, dout, m, l, causal=True)}
+    grads = [torch.empty_like(q) for _ in range(3)]
+
+    def before():
+        err = lib.sweep_k6_before(
+            d, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), m.data_ptr(), l.data_ptr(),
+            scratch.data_ptr(), *(t.data_ptr() for t in grads), *args)
+        if err:
+            raise RuntimeError(f"k6 before: CUDA error {err}")
+    before()
+    torch.cuda.synchronize()
+    same = {"mma.sync K6, three launches (before)": _near(grads, ref)}
+    bwd["mma.sync K6, three launches (before)"] = before
+    stats = (m.data_ptr(), l.data_ptr(), delta.data_ptr())
+    for i in range(lib.sweep_dkdv_shapes()):
+        g = [torch.empty_like(q) for _ in range(3)]
+
+        def call(i=i, g=g):
+            err = lib.sweep_dkdv(i, d, q.data_ptr(), k.data_ptr(),
+                                 v.data_ptr(), mask.data_ptr(),
+                                 dout.data_ptr(), *stats,
+                                 *(t.data_ptr() for t in g), *args)
+            if err:
+                raise RuntimeError(f"dkdv shape {i}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[f"dkdv shape {i}"] = _near(g[1:], ref[1:])
+        bwd[f"dkdv shape {i}"] = call
+    for i in range(lib.sweep_dq_shapes()):
+        g = torch.empty_like(q)
+
+        def call(i=i, g=g):
+            err = lib.sweep_dq(i, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               mask.data_ptr(), out.data_ptr(),
+                               dout.data_ptr(), m.data_ptr(), l.data_ptr(),
+                               scratch.data_ptr(), g.data_ptr(), *args)
+            if err:
+                raise RuntimeError(f"dq shape {i}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[f"dq shape {i}"] = _near([g], ref[:1])
+        bwd[f"dq shape {i}"] = call
+    am = _float_mask(mask, s, True, device)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                       for t in (q, k, v, dout))
+    ins = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    lib_out = F.scaled_dot_product_attention(*ins, attn_mask=am)
+    bwd["scaled_dot_product_attention backward"] = \
+        lambda: torch.autograd.grad(lib_out, ins, dot, retain_graph=True)
+    return {"case": "k6", "shape": list(dims), "causal": True,
+            "backward_ms": medians(bwd), "device_ms": device_ms(bwd),
+            "agrees_with_library": same}
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    only_new = "--k4-k7" in args
+    k2k6 = "--k2-k6" in args
+    only_new = "--k4-k7" in args or k2k6
     allheads = "--no-allheads" not in args and not only_new
     rest = "--allheads" not in args and not only_new
-    new = "--allheads" not in args
+    new = "--allheads" not in args and not k2k6
     if not torch.cuda.is_available():
         print("sweep_attention: no CUDA device", file=sys.stderr)
         return 1
@@ -669,9 +806,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader", "-i", "0"], capture_output=True,
         text=True).stdout.strip())
     lib, bias_lib, allheads_lib, k4k7_lib = build(
-        ((0, 1) if rest else ()) + ((2,) if allheads else ())
+        ((0, 1) if rest else ()) + ((2,) if allheads or k2k6 else ())
         + ((3,) if new else ()))
     runs = []
+    if k2k6:
+        runs += [lambda c=c: sweep_k2_case(allheads_lib, *c, device)
+                 for c in K2_CASES]
+        runs += [lambda c=c: sweep_k6_case(allheads_lib, c, device)
+                 for c in K6_CASES]
     if new:
         runs += [lambda c=c: sweep_k4_case(k4k7_lib, *c, device)
                  for c in K4_CASES]

@@ -333,6 +333,9 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
         return fa.allheads_attention_bwd_reference(q, k, v, kv_mask, out,
                                                    dout, causal, scale)
 
+    def fake_launch_fused(q, k, v, kv_mask, causal, scale):
+        return fake_launch(None, None, q, k, v, kv_mask, causal, scale)
+
     def fake_launch_allheads(q, k, v, kv_mask, causal, scale, with_stats):
         return fake_launch(None, None, q, k, v, kv_mask, causal, scale), \
             None, None
@@ -349,7 +352,7 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
                                causal, scale)
 
     monkeypatch.setattr(fa, "_plain", lambda q: False)
-    monkeypatch.setattr(fa, "_launch", fake_launch)
+    monkeypatch.setattr(fa, "_launch_fused", fake_launch_fused)
     monkeypatch.setattr(fa, "_launch_bwd", fake_launch_bwd)
     monkeypatch.setattr(fa, "_launch_allheads", fake_launch_allheads)
     monkeypatch.setattr(fa, "_launch_allheads_bwd", fake_launch_allheads_bwd)

@@ -33,9 +33,9 @@ from mmgl_tpu_torch.train.steps import losses_of, make_train_step
 from mmgl_tpu_torch.utils.tokenizer import ByteTokenizer
 
 # every launcher of the kernel wrappers
-LAUNCHERS = ("_launch", "_launch_bwd", "_launch_blocked_bwd", "_launch_bias",
-             "_launch_bias_bwd", "_launch_allheads", "_launch_allheads_bwd",
-             "_launch_flash")
+LAUNCHERS = ("_launch_fused", "_launch_bwd", "_launch_blocked_bwd",
+             "_launch_bias", "_launch_bias_bwd", "_launch_allheads",
+             "_launch_allheads_bwd", "_launch_flash")
 
 
 def _args(model, *extra):

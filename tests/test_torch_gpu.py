@@ -170,6 +170,47 @@ def test_k2_causal_at_the_clip_text_shape(hole, dtype):
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+# K2's lengths: the 64-row TMA box's edges, the CLIP text tower's 77, CLIP's
+# 197 patches (three full boxes and five rows)
+K2_LENGTHS = (1, 63, 64, 65, 77, 128, 197)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", K2_LENGTHS)
+def test_k2_without_a_mask_and_k1s_bits(s, causal, dtype):
+    """K2 at (3, s, 4, 64) without a key mask (CLIP's vision tower passes
+    none: a null pointer to the wgmma body, a mask of ones to the fp32
+    body) against its plain version; in bf16 and fp16 K2 runs K1's wgmma
+    forward, so its output equals K1's on the same inputs bit for bit,
+    without a mask and with right-padded texts and an empty one."""
+    dev = _device()
+    rng = np.random.RandomState(s + 3 * causal)
+    q, k, v = (torch.from_numpy(rng.randn(3, s, 4, 64).astype(np.float32)
+                                ).to(dev, dtype) for _ in range(3))
+    counted = _counts(fa.fused_heads_attention)
+    got = fa.fused_heads_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tc = int(dtype != torch.float32)
+    assert counted() == [(1, tc)]
+    ref = fa.fused_heads_attention_reference(q, k, v, causal=causal)
+    atol, rtol = TOL[dtype]
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    if not tc:
+        return
+    mask = torch.ones(3, s, dtype=torch.int32, device=dev)
+    mask[0] = 0                       # an empty text
+    mask[1, max(1, s // 2):] = 0      # a right-padded one
+    for kv_mask, want in ((None, got), (mask, None)):
+        k2 = want if want is not None else fa.fused_heads_attention(
+            q, k, v, kv_mask=kv_mask, causal=causal)
+        k1 = fa.flash_attention_allheads(q, k, v, kv_mask=kv_mask,
+                                         causal=causal)
+        assert torch.equal(k2, k1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(**DTYPES)
 @pytest.mark.parametrize("dims,causal,mask_kind", BWD_CASES)
@@ -524,6 +565,36 @@ def test_dropout_mask_is_the_plain_versions_bit_for_bit(dims, dtype):
 
 # ---- K4 with its row stats and K6, the blocked causal backward (OPT-350M) --
 
+def _k6_against_k3_and_k5(q, k, v, mask, out, dout, m, l, causal, k6, k5,
+                          dtype, floor=0.0):
+    """K6's gradients ``k6`` from K4's stats ``m``, ``l``. In bf16 and fp16
+    K6 runs K3's wgmma bodies: where K3 takes the inputs (sq <= sk), K4's
+    stats equal K1's bit for bit (one forward body) and K6 equals K3 given
+    the same out and stats bit for bit; K6 is within the backward
+    tolerance of K5 (the mma.sync tiles), relative to K5's largest entry or
+    ``floor`` (dV's scale where dQ and dK are rounding residue). In fp32
+    both run the scalar tiles: K6 equals K5 bit for bit."""
+    names = ("dq", "dk", "dv")
+    if dtype == torch.float32:
+        for name, g, g5 in zip(names, k6, k5):
+            assert torch.equal(g, g5), name
+        return
+    for name, g, g5 in zip(names, k6, k5):
+        scale = max(float(g5.float().abs().max()), floor)
+        torch.testing.assert_close(g.float(), g5.float(),
+                                   atol=BWD_TOL[dtype] * scale,
+                                   rtol=BWD_TOL[dtype], msg="K6 vs K5 " + name)
+    if q.shape[1] > k.shape[1]:
+        return
+    _, m1, l1 = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
+                                                  causal=causal)
+    assert torch.equal(m1, m) and torch.equal(l1, l)
+    k3 = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                         causal=causal, row_max=m, row_sum=l)
+    for name, g, g3 in zip(names, k6, k3):
+        assert torch.equal(g, g3), "K6 vs K3 " + name
+
+
 # (B, Sq, Sk, H), mask, all causal: OPT-350M's training shape with its pad
 # hole, the same with a fully masked sample, ragged lengths, and an
 # end-aligned sq < sk
@@ -579,9 +650,10 @@ def test_flash_grad_under_the_flag_runs_k6_and_agrees_with_k5(monkeypatch,
                                                               dtype):
     """With the blocked backward selected, autograd through K4 at a long
     causal window launches K4 and K6 once each and K5 not at all, and K6's
-    gradient is K5's on the same inputs, bit for bit: K5's stats pass
-    computes K4's row max and sum with K4's own code, and the two share the
-    delta pass and the tile kernels."""
+    gradient agrees with K5's on the same inputs: bit for bit in fp32 (the
+    same scalar tiles), within the backward tolerance in bf16 and fp16,
+    where K6 runs K3's wgmma bodies and equals K3 from the same stats bit
+    for bit (``_k6_against_k3_and_k5``)."""
     dev = _device()
     monkeypatch.setattr(fa, "BLOCKED_BWD", True)
     q, k, v, dout = _qkv((2, 1024, 1024, 4, 4), dtype, dev, seed=5)
@@ -594,11 +666,13 @@ def test_flash_grad_under_the_flag_runs_k6_and_agrees_with_k5(monkeypatch,
     torch.cuda.synchronize()
     tc = int(dtype != torch.float32)
     assert counted() == [(1, tc), (1, tc), (0, 0)]
-    k5 = fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), mask,
-                                out.detach(), dout, causal=True)
+    q, k, v, out = (t.detach() for t in (q, k, v, out))
+    k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=True)
     for name, g, r in zip(("dq", "dk", "dv"), grads, k5):
         _close_rel(g, r, dtype, name)
-        assert torch.equal(g, r), name
+    _, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=True)
+    _k6_against_k3_and_k5(q, k, v, mask, out, dout, m, l, True, grads, k5,
+                          dtype)
 
 
 # ---- the tensor-core bodies at the fragment edges (bf16, fp16) -------------
@@ -617,8 +691,8 @@ def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal, dtype):
     """In bf16 and fp16: K4 with its row stats, K6 and K5 (and K1 where
     sq <= sk, K2 where sq == sk) against their plain versions, with a fully masked sample
     and a sample whose first third of keys is masked (causal rows that see
-    no real logit); every launch counted as the tensor-core body; K5's
-    gradients equal K6's bit for bit."""
+    no real logit); every launch counted as the tensor-core body; K6
+    against K3 and K5 as ``_k6_against_k3_and_k5`` holds it."""
     dev = _device()
     b, h = 3, 2
     q, k, v, dout = _qkv((b, sq, sk, h, h), dtype, dev,
@@ -663,13 +737,14 @@ def test_tensor_core_bodies_at_fragment_edges(sq, sk, causal, dtype):
     # with one key dQ and dK are 0 in exact arithmetic (P = 1, dS = 0) and
     # the kernel's are rounding residue: their atol takes dV's scale there
     floor = float(refs[2].float().abs().max()) if sk == 1 else 0.0
-    for name, g, g5, r in zip(("dq", "dk", "dv"), k6, k5, refs):
+    for name, g, r in zip(("dq", "dk", "dv"), k6, refs):
         scale = max(float(r.float().abs().max()), floor)
         assert bool(torch.isfinite(g).all()), name
         torch.testing.assert_close(g.float(), r.float(),
                                    atol=BWD_TOL[dtype] * scale,
                                    rtol=BWD_TOL[dtype], msg=name)
-        assert torch.equal(g, g5), name
+    _k6_against_k3_and_k5(q, k, v, mask, out, dout, m, l, causal, k6, k5,
+                          dtype, floor)
 
 
 # the bias bodies' three forms on T5's path: (bias, dropout rate)
@@ -764,7 +839,8 @@ def _qkv_d(dims, dtype, dev, seed):
 def test_head_dims_80_and_128_match_plain_versions(dims, causal, dtype):
     """At head dims 80 and 128: K1 and K3 (sq == sk), K4 and K5 through
     autograd, and at the causal shapes K4 with its row stats and K6
-    (equal to K5 bit for bit), each against its plain version, a pad hole
+    (against K3 and K5 as ``_k6_against_k3_and_k5`` holds it), each
+    against its plain version, a pad hole
     in every sample and sample 0 fully masked; the half types on the
     tensor-core bodies."""
     dev = _device()
@@ -817,7 +893,8 @@ def test_head_dims_80_and_128_match_plain_versions(dims, causal, dtype):
         for name, g, r in zip(("dq", "dk", "dv"), got, refs):
             _close_rel(g, r, dtype, "K6 " + name)
         k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=True)
-        assert all(torch.equal(g, r) for g, r in zip(got, k5))
+        _k6_against_k3_and_k5(q, k, v, mask, out, dout, m, l, True, got, k5,
+                              dtype)
     torch.cuda.synchronize()
     half = dtype != torch.float32
     for wrapper, (runs, tc) in zip(wrappers, counted()):
@@ -861,8 +938,8 @@ def test_k4_wgmma_body_at_its_lengths(sq, sk, d, dtype):
     """K4's wgmma body against its plain version, not causal, without a
     mask (a null pointer) and with a pad hole in each sample and sample 0
     fully masked; where sq <= sk also causal with its row stats, K6 from
-    them against its plain version and equal to K5 (whose stats pass is
-    K4's body in its stats-only form) bit for bit."""
+    them against its plain version and against K3 and K5 as
+    ``_k6_against_k3_and_k5`` holds it."""
     dev = _device()
     b, h = 2, 2
     q, k, v, dout = _qkv_d((b, sq, sk, h, d), dtype, dev,
@@ -895,9 +972,10 @@ def test_k4_wgmma_body_at_its_lengths(sq, sk, d, dtype):
     k5 = fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=True)
     refs = fa.flash_attention_blocked_bwd_reference(q, k, v, mask, out, dout,
                                                     m, l, causal=True)
-    for name, g, g5, r in zip(("dq", "dk", "dv"), k6, k5, refs):
+    for name, g, r in zip(("dq", "dk", "dv"), k6, refs):
         _close_rel(g, r, dtype, "K6 " + name)
-        assert torch.equal(g, g5), name
+    _k6_against_k3_and_k5(q, k, v, mask, out, dout, m, l, True, k6, k5,
+                          dtype)
 
 
 # K7 at T5-base's shapes: the prefixed decoder (128 queries against 20 + 128
