@@ -248,12 +248,18 @@ Phase 3 also holds K4's wgmma body at its query lengths 63-2048 against
 given them bit for bit, and within the backward tolerance of K5), and
 K7's with an fp32 bias at T5's shapes (K8/K9 from its stats
 equal to K8/K9 with its own stats pass, a row-padded bias the same bits as
-a contiguous one).
+a contiguous one), and K8/K9 on the bias form of K3's wgmma bodies:
+without a bias or dropout equal to K3 given the same stats, bit for bit; a
+profiled call at the encoder and one at the decoder that launch the wgmma
+dQ and dK/dV bodies (two launches, one grid) and no delta pass or mma.sync
+tile; and a causal case with a masked key tile whose
+partial's block was filled with NaN just before (dbias finite, 0 where
+every sample's logit is masked).
 Phase 8 times K3 as training runs it, from K1's row stats.
 Prints the seconds elapsed at the end of each phase (and a JSON line of
 them), a kernels JSON line (each entry's "design" names its body: "tc" the
-mma.sync bodies (K5), "bias_tc" their bias form (K8/K9), "wgmma_tma" K1's
-to K4's and K6's, "wgmma_tma_bias" K7's;
+mma.sync bodies (K5), "bias_tc" the bias form of K3's wgmma bodies
+(K8/K9), "wgmma_tma" K1's to K4's and K6's, "wgmma_tma_bias" K7's;
 the fp16 forms, the shapes of phases 12-14 and
 the head dims 80 and 128 that phases 18 and 16 launch, and K2's causal
 form at the CLIP text tower's shape that phase 18 launches, as entries of
@@ -447,7 +453,7 @@ RETIRED_KERNEL = "attention_fwd_tc_kernel"
 # design (K7's in its bias form)
 WGMMA_KERNELS = ("flash_attention_allheads", "fused_heads_attention",
                  "flash_attention_allheads_bwd", "flash_attention",
-                 "flash_attention_blocked_bwd")
+                 "flash_attention_blocked_bwd", "flash_attention_bias_bwd")
 VIRTUAL = 20                # num_virtual_tokens
 # the neighbour memory's projections and position tables
 MEMORY = ("text_embeddings.", "visual_embeddings.",
@@ -513,11 +519,18 @@ DESIGNS = {"tc": "tensor cores: mma.sync m16n8k16, fp32 accumulators, "
                              "per 16 keys, words swapped by a shuffle, a "
                              "keep bit an element); K8/K9's stats pass its "
                              "stats-only form",
-           "bias_tc": "the mma.sync backward bodies in their bias form: "
-                      "the bias tile in the cp.async ring, Philox dropout "
-                      "on the P fragment, K8/K9 from K7's row stats, "
-                      "dlogits into an fp32 partial reduced over the batch "
-                      "in order"}
+           "bias_tc": "K3's wgmma/TMA dQ (delta fused) and dK/dV bodies "
+                      "in their bias form, in K3's shapes: each streamed "
+                      "tile's bias in the TMA ring through K7's 3-D map "
+                      "(read transposed in dK/dV), Philox dropout bits "
+                      "regenerated in both (words swapped with lane ^ 2 in "
+                      "dQ, lane ^ 16 in dK/dV), from K7's row stats; both "
+                      "bodies' blocks in one grid where they fill two "
+                      "waves of the SMs' slots or fewer (dK/dV making its "
+                      "own delta), else dQ then dK/dV; dQ writes the fp32 "
+                      "dlogits (zeros on skipped tiles) into a partial "
+                      "reduced over the batch in order; no delta pass, no "
+                      "mask tensor for none"}
 OPT_TEST_KERNELS = ("flash_attention_allheads", "fused_heads_attention")
 OPT_TRAIN_KERNELS = OPT_TEST_KERNELS + ("flash_attention_allheads_bwd",)
 # the OPT attention calls: (kernel, (B, S, H, D), causal, mask)
@@ -1306,6 +1319,146 @@ def check_k7_wgmma(fa, device, worst):
         print(f"[check] K7 wgmma body {tag} {dims} with an fp32 bias, "
               "dropout 0 and 0.1, bf16 and fp16: ok; a row-padded bias the "
               "same bits; K8/K9 from K7's stats == its own stats pass")
+
+
+# K8/K9 against K3: ((B, S, H), key mask), each causal and not, no bias,
+# dropout 0: T5's encoder shape with a pad gap and a fully masked sample,
+# and a ragged length with the prompt and summary hole
+K8K9_K3_CASES = [((4, 512, 12), "gap_fully_masked"), ((3, 333, 2), "hole333")]
+# the kernels K8/K9 launches in bf16 and fp16 with a bias or dropout, by
+# BIAS_CASES index: at the encoder the wgmma dQ and dK/dV bodies in two
+# launches, at the decoder both in one grid; and those it launched before
+# (the delta pass and the mma.sync tiles), as the profiler names them
+K8K9_EVENTS = {0: ("allheads_dq_kernel", "allheads_dkdv_kernel"),
+               1: ("allheads_bias_bwd_kernel",)}
+K8K9_RETIRED = ("attention_delta_kernel", "attention_bwd_dq_tc_kernel",
+                "attention_bwd_dkdv_tc_kernel")
+# the NaN-primed case: (B, S, H), causal, keys 64-127 masked in every
+# sample (a whole key tile); sizes that keep every buffer but the partial
+# below 1 MiB, so that the caching allocator hands the partial the block
+# freed just before
+K8K9_NAN_DIMS = (2, 192, 4)
+
+
+def nan_primed_bias_bwd(fa, q, k, v, mask, bias, out, dout, **kw):
+    """K8/K9 (from kw's row stats) right after a block of its partial's
+    size was filled with NaN and freed; fails unless the allocator hands
+    that block back for the same size, as the wrapper's partial takes."""
+    import torch
+
+    n = q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1]
+    primed = torch.full((n,), float("nan"), device=q.device)
+    ptr = primed.data_ptr()
+    del primed
+    again = torch.empty(n, device=q.device)
+    if again.data_ptr() != ptr:
+        fail("the caching allocator did not hand the NaN-filled block back")
+    del again
+    return fa.flash_attention_bias_bwd(q, k, v, mask, bias, out, dout, **kw)
+
+
+def check_k8_k9_wgmma(fa, device, worst):
+    """Phase 3, K8/K9 on the bias form of K3's wgmma bodies, bf16 and fp16:
+    with no bias and dropout 0 at sq == sk (K8K9_K3_CASES, causal and not)
+    equal to K3's entry given the same out and row stats, bit for bit;
+    one call at the encoder and one at the decoder (bias and dropout, from
+    K7's stats) profiled, their traces holding the wgmma bodies' events
+    (two launches at the encoder, one grid of both at the decoder) and none
+    of the delta pass or the mma.sync tiles; and a causal case with a fully
+    masked key tile, bias and dropout, run right after its partial's block
+    was filled with NaN and freed: dbias finite, exactly 0 where every
+    sample's logit is masked, and every gradient within the backward
+    tolerance of the plain version."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype_name in TC_DTYPES:
+        dt = getattr(torch, dtype_name)
+        for (b, s, h), mask_kind in K8K9_K3_CASES:
+            for causal in (False, True):
+                q, k, v, mask, dout = flash_inputs(
+                    (b, s, s, h, h), mask_kind, dt, device, 1100 + s)
+                out, m, l = fa.flash_attention_allheads_stats(
+                    q, k, v, kv_mask=mask, causal=causal)
+                k3 = fa.flash_attention_allheads_bwd(
+                    q, k, v, mask, out, dout, causal=causal, row_max=m,
+                    row_sum=l)
+                k8k9 = fa.flash_attention_bias_bwd(
+                    q, k, v, mask, None, out, dout, causal=causal,
+                    row_max=m, row_sum=l)
+                torch.cuda.synchronize(device)
+                label = f"({b}, {s}, {s}, {h}) {mask_kind} causal={causal}"
+                if k8k9[3] is not None:
+                    fail(f"K8/K9 without a bias returned a dbias at {label}")
+                for name, g, r in zip(("dq", "dk", "dv"), k8k9, k3):
+                    if not torch.equal(g, r):
+                        fail(f"K8/K9 without a bias or dropout differs from "
+                             f"K3 in {name} at {label} {dtype_name} (max abs "
+                             f"{float((g.float() - r.float()).abs().max()):.3e})")
+
+        # one call a shape profiled: the wgmma bodies, no delta pass, no
+        # mma.sync tile
+        for i, events in K8K9_EVENTS.items():
+            tag, dims, causal, _ = BIAS_CASES[i]
+            q, k, v, mask, bias, dout, seed = bias_inputs(dims, True, dt,
+                                                          device, 1200)
+            kw = dict(causal=causal, scale=1.0, dropout_rate=RATE,
+                      dropout_seed=seed)
+            out, m, l = fa.flash_attention_bias_stats(q, k, v, bias=bias,
+                                                      kv_mask=mask, **kw)
+            fa.flash_attention_bias_bwd(q, k, v, mask, bias[0], out, dout,
+                                        row_max=m, row_sum=l, **kw)
+            torch.cuda.synchronize(device)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fa.flash_attention_bias_bwd(q, k, v, mask, bias[0], out,
+                                            dout, row_max=m, row_sum=l, **kw)
+                torch.cuda.synchronize(device)
+            names = [e.key for e in prof.key_averages()
+                     if e.device_type.name == "CUDA"]
+            seen = {k_: sum(k_ in n for n in names)
+                    for k_ in events + K8K9_RETIRED}
+            if any(seen[k_] == 0 for k_ in events) or any(
+                    seen[k_] for k_ in K8K9_RETIRED):
+                fail(f"K8/K9's traced call ({tag} {dims} {dtype_name}) "
+                     f"launched {seen}: want {events} and no delta pass or "
+                     f"mma.sync tile (kernels: {names})")
+            del q, k, v, mask, bias, dout, out, m, l
+
+        # the NaN-primed partial
+        b, s, h = K8K9_NAN_DIMS
+        q, k, v, _, bias, dout, seed = bias_inputs((b, s, s, h), True, dt,
+                                                   device, 1300)
+        mask = torch.ones(b, s, dtype=torch.int32, device=device)
+        mask[:, 64:128] = 0
+        mask[1, 150:] = 0
+        kw = dict(causal=True, scale=1.0, dropout_rate=RATE,
+                  dropout_seed=seed)
+        out, m, l = fa.flash_attention_bias_stats(q, k, v, bias=bias,
+                                                  kv_mask=mask, **kw)
+        got = nan_primed_bias_bwd(fa, q, k, v, mask, bias[0], out, dout,
+                                  row_max=m, row_sum=l, **kw)
+        torch.cuda.synchronize(device)
+        dbias = got[3].float()
+        i = torch.arange(s, device=device)[:, None]
+        masked = (i < torch.arange(s, device=device)[None, :]) | (
+            mask == 0).all(0)[None, :]
+        label = f"NaN-primed {(b, s, s, h)} causal {dtype_name}"
+        if not bool(torch.isfinite(dbias).all()):
+            fail(f"K8/K9 {label}: dbias holds a non-finite value")
+        if bool((dbias[:, masked] != 0).any()):
+            fail(f"K8/K9 {label}: dbias is not 0 where every sample's logit "
+                 f"is masked")
+        refs = fa.bias_attention_bwd_reference(
+            q, k, v, mask, bias, out, dout, **kw)
+        _grads_within("flash_attention_bias_bwd", got[:3] + (got[3][None],),
+                      refs, dtype_name, label, worst)
+    print("[check] K8/K9 wgmma bodies: without a bias or dropout = K3 from "
+          f"the same stats bit for bit at {K8K9_K3_CASES}, causal and not; "
+          f"traced calls launched {K8K9_EVENTS} and none of "
+          f"{K8K9_RETIRED}; a NaN-primed partial at (B, S, H) "
+          f"{K8K9_NAN_DIMS} causal "
+          "with a masked key tile: dbias finite, 0 where every logit is "
+          "masked, within tolerance; bf16 and fp16")
 
 
 def dkey(name: str, d: int) -> str:
@@ -2537,6 +2690,7 @@ def _bias_timing_cases(fa, device, i, dtype_name):
         f"flash_attention_bias_bwd {shape} dropout={RATE} from K7's stats",
         wkey({"enc": "flash_attention_bias_bwd[K9]",
               "enc576": "flash_attention_bias_bwd[K9,576]",
+              "cross": "flash_attention_bias_bwd[K8,cross]",
               "t5prefix": "flash_attention_bias_bwd[t5-prefix]"}.get(
                   tag, "flash_attention_bias_bwd[K8]"), dtype_name), {
             "kernel": partial(fa.flash_attention_bias_bwd, q, k, v, mask,
@@ -3778,6 +3932,7 @@ def main() -> int:
     check_wgmma_kernels(fa, device, worst)
     check_k4_wgmma(fa, device, worst)
     check_k7_wgmma(fa, device, worst)
+    check_k8_k9_wgmma(fa, device, worst)
     lap("3")
 
     test, results, opt_test, rate, peak = run_test_pass(
@@ -4071,9 +4226,13 @@ def main() -> int:
     launches["flash_attention_bwd"] = t5_step["launches"][
         "flash_attention_bwd"]
     # K9 at the encoder's 512 x 512, K8 at the decoder's shapes
+    # K9 at the encoder, K8 at the decoder's self- and cross-attention
     k9 = bwd_shapes.get((512, 512), 0)
+    cross = bwd_shapes.get((128, 512), 0)
     launches["flash_attention_bias_bwd[K9]"] = k9
-    launches["flash_attention_bias_bwd[K8]"] = sum(bwd_shapes.values()) - k9
+    launches["flash_attention_bias_bwd[K8,cross]"] = cross
+    launches["flash_attention_bias_bwd[K8]"] = (sum(bwd_shapes.values())
+                                                - k9 - cross)
     # K4 with its stats and K6: the OPT-350M training run (its eval steps
     # and prefills run K4 without the stats)
     launches["flash_attention[stats]"] = stats["bfloat16"]["bfloat16"]
@@ -4091,9 +4250,12 @@ def main() -> int:
         launches[wkey(name, "float16")] = sum(
             run["launches"][name] for run in fp16_runs)
     fp16_k9 = fp16_shapes.bwd.get((512, 512), 0)
+    fp16_cross = fp16_shapes.bwd.get((128, 512), 0)
     launches[wkey("flash_attention_bias_bwd[K9]", "float16")] = fp16_k9
+    launches[wkey("flash_attention_bias_bwd[K8,cross]", "float16")] = \
+        fp16_cross
     launches[wkey("flash_attention_bias_bwd[K8]", "float16")] = sum(
-        fp16_shapes.bwd.values()) - fp16_k9
+        fp16_shapes.bwd.values()) - fp16_k9 - fp16_cross
     launches[wkey("flash_attention[stats]", "float16")] = stats[
         "float16"]["float16"]
     # phases 12-14: the new shapes of K4/K5 (MPT's cross-attention, prefix
@@ -4127,7 +4289,7 @@ def main() -> int:
                wkey("flash_attention[stats]" if "[stats]" in name else base,
                     "float16" if fp16 else "bfloat16"))
         design = ("wgmma_tma_bias" if base == "flash_attention_bias" else
-                  "bias_tc" if base in BIAS_KERNELS else
+                  "bias_tc" if base == "flash_attention_bias_bwd" else
                   "wgmma_tma" if base in WGMMA_KERNELS else "tc")
         entries.append({
             "name": name, "route": "cuda", "source": source,

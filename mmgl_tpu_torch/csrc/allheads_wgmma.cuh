@@ -1,11 +1,12 @@
-// K1, K2, K4 and K7's forward and K3's and K6's dK/dV and dQ passes on
-// Hopper's warpgroup products (wgmma) and TMA: the forward of OPT's
-// all-heads attention, of CLIP's fused-heads attention (K1's at sq == sk),
-// of the per-head attention at any sq and sk, and of T5's bias and dropout
-// attention, and the backward of K1 from its row statistics and of K4 from
-// its (allheads_wgmma.cu, attention_fwd.cu, attention_bias_fwd.cu and
-// attention_blocked_bwd.cu hold the entries; the forward's stats-only form
-// is the stats pass of K3, K5 and K8/K9, in allheads_wgmma.cu,
+// K1, K2, K4 and K7's forward and the dK/dV and dQ passes of K3, K6 and
+// K8/K9 on Hopper's warpgroup products (wgmma) and TMA: the forward of
+// OPT's all-heads attention, of CLIP's fused-heads attention (K1's at
+// sq == sk), of the per-head attention at any sq and sk, and of T5's bias
+// and dropout attention, and the backward of K1 from its row statistics,
+// of K4 from its, and of K7 from its (allheads_wgmma.cu, attention_fwd.cu,
+// attention_bias_fwd.cu, attention_blocked_bwd.cu and
+// attention_bias_bwd.cu hold the entries; the forward's stats-only form is
+// the stats pass of K3, K5 and K8/K9, in allheads_wgmma.cu,
 // attention_bwd.cu and attention_bias_bwd.cu).
 //
 // Replaces _allheads_kernel_fwd (mmgl_tpu/ops/flash_attention.py:1283, via
@@ -13,10 +14,13 @@
 // :1175), _allheads_kernel_bwd (:1307, via _allheads_vjp_bwd :1392),
 // _fwd_kernel and _fwd_kernel_causal_stream (:92, :129, via _fwd :179),
 // _bwd_dq_kernel and _bwd_dkv_kernel (:246, :289, via _bwd_causal_blocked
-// :336) and _fwd_bias_kernel(_batched) (:594, :624, via _fwd_bias :768).
+// :336), _fwd_bias_kernel(_batched) (:594, :624, via _fwd_bias :768) and
+// _bwd_bias_kernel(_batched) (:689, :843, via _bwd_bias :984 and
+// _bwd_bias_batched :942).
 // The math is xla_attention's, as in the mma.sync bodies these replace
 // (attention_fwd_tc.cuh, now only the sweep's "before", and
-// attention_bwd_tiles.cuh, which still serves K5's and K8/K9's tiles):
+// attention_bwd_tiles.cuh, which still serves K5's tiles; its bias form is
+// the sweep's "before" of K8/K9):
 // masked logits -1e30, causal aligned at the ends, a
 // fully masked row averaging V over the sk keys, and jax.grad's zero dS at
 // masked logits. Every element's arithmetic is theirs too (logits in log2
@@ -25,24 +29,36 @@
 // products' engine change, so the tests' emulation of them
 // (tests/test_torch_tc_numerics.py) takes the tile widths as parameters.
 //
-// The bias form (kBias, kDropout; K7) adds, as the mma.sync body's does: the
-// batch-shared (H, Sq, Sk) bias (T or fp32, rows ld >= Sk elements apart, ld
-// a multiple of 8) on each logit in log2 units with the scale,
+// The bias form (kBias, kDropout; K7, K8/K9) adds, as the mma.sync bodies
+// did: the batch-shared (H, Sq, Sk) bias (T or fp32, rows ld >= Sk elements
+// apart, ld a multiple of 8) on each logit in log2 units with the scale,
 // s (scale log2 e) + bias log2 e in one FMA; and attention-prob dropout on
 // P after the softmax sums, P times the keep factor rounded to T for P V
-// (the Pallas order, flash_attention.py:618-621). The producer brings each
-// tile's bias (the block's rows x the tile's keys) into the ring beside K
-// and V by TMA through a 3-D map over (Sk, Sq, H), 128-byte swizzled, so it
-// arrives stages ahead; each consumer lane reads its accumulator elements'
-// pairs from it, the swizzle spreading a warp's eight rows over distinct
-// banks. (Read straight from device memory into the registers instead, the
-// bias's latency stood in every tile's path: 2.3x the mma.sync body's time
-// at T5's encoder, PERF.md §6.) Each warp's accumulator layout is
-// mma.sync's, so philox.cuh's counter layout and its philox_pair exchange
-// carry over: the same keep bits as the mma.sync body, as K8/K9 and
-// ops/attention.py's dropout_bits regenerate them; the keep decisions are
-// kept as a bit each, made after S = Q K^T lands (made while it was in
-// flight instead, they gained nothing: PERF.md §6).
+// and dV (the Pallas order, flash_attention.py:618-621, :726-728). The
+// producer brings each streamed tile's bias into the ring beside its other
+// tiles by TMA through a 3-D map over (Sk, Sq, H), 128-byte swizzled, so it
+// arrives stages ahead: in the forward and dQ the block's rows x the
+// tile's keys, each lane reading its accumulator elements' pairs, the
+// swizzle spreading a warp's eight rows over distinct banks; in dK/dV the
+// tile's query rows x the block's keys, read transposed (a lane's two
+// queries are two rows), where the swizzle spreads the warp's four (fp32:
+// eight) rows of one chunk index over distinct banks. (Read straight from
+// device memory into the registers instead, the bias's latency stood in
+// every tile's path: 2.3x the mma.sync body's time at T5's encoder,
+// PERF.md §6.) Each warp's accumulator layout is mma.sync's, so
+// philox.cuh's counter layout and its philox_pair exchange carry over:
+// queries in the rows (forward, dQ), a call's words on lanes c4 and
+// c4 ^ 2; keys in the rows (dK/dV), on lanes lane and lane ^ 16; the same
+// keep bits as the mma.sync bodies and ops/attention.py's dropout_bits.
+// The forward keeps the decisions as a bit each, made after S = Q K^T
+// lands (made while it was in flight instead, they gained nothing:
+// PERF.md §6); the backward bodies keep theirs so too, made before their
+// products, while only the gradients' accumulators hold registers (made
+// while the products ran, fewer calls fit at a time and both ran slower:
+// sweep_attention --k8-k9). The backward's dlogits = P (m dP - delta) are
+// fp32: dQ writes them into a (B, H, Sq, Sk) partial (zeros on the tiles
+// it skips) that attention_bias_bwd.cu sums over the batch into dbias, and
+// dS = dlogits scale is rounded to T for its products (:748-754).
 //
 // What bounds them on this card: 4 D FLOPs a (query, key) pair forward and
 // 10 D backward on the tensor cores (989 TFLOP/s bf16, reached only through
@@ -75,8 +91,8 @@
 //     the library's shapes (FwdShape, DkdvShape, DqShape at the end)
 //     take one or two warpgroups a block and let the SM's other blocks
 //     fill the gaps;
-//   * no atomics: each block owns its outputs, so K3 and K6 are the same from
-//     run to run.
+//   * no atomics: each block owns its outputs, so K3, K6 and K8/K9 are the
+//     same from run to run.
 // The skip rules are the mma.sync bodies', at the warpgroup's rows: the
 // forward ends past the causal diagonal once every row of the block has seen
 // a real logit (its first valid key at or before the block's first row's
@@ -237,6 +253,47 @@ __device__ __forceinline__ void keep_bits(uint32_t (&keep)[KT / 64],
                                   drop.threshold) << (i1 & 31);
       }
     }
+  }
+}
+
+// the dK/dV body's keep decisions of a tile of QT queries from q0, keys in
+// the accumulator rows, element 4 n + j at bit (4 n + j) % 32 of word
+// (4 n + j) / 32, four n8 blocks of queries (four calls) at a time: all
+// eight at once spilled registers. Keys key0 + 8 r at queries
+// q0 + 8 n + 2 c4 + e take words hi + 2 r of the call of query
+// 8 n + 2 c4 + hi, which this lane makes, and of query 8 n + 2 c4 + 1 - hi,
+// which lane ^ 16 makes (the mma.sync dK/dV tile's exchange: the same
+// per-warp layout). Called by the whole warp
+template <int QT>
+__device__ __forceinline__ void keep_bits_t(uint32_t (&keep)[QT / 64],
+                                            const DropoutKey& drop,
+                                            int key_first, int q0, int h,
+                                            int b, int g, int c4) {
+  const int hi = g >> 2;
+  const unsigned int c0 =
+      (static_cast<unsigned int>(key_first >> 4) << 2) |
+      static_cast<unsigned int>(g & 3);
+#pragma unroll
+  for (int w = 0; w < QT / 64; ++w) {
+    uint32_t word = 0u;
+#pragma unroll 1
+    for (int n8o = 0; n8o < 8; n8o += 4) {
+#pragma unroll
+      for (int n8i = 0; n8i < 4; ++n8i) {
+        const int n8 = n8o + n8i;
+        unsigned int own[2], other[2];
+        philox_pair(drop, c0, q0 + 64 * w + 8 * n8 + 2 * c4 + hi, h, b, hi,
+                    16, own, other);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned int bits =
+              (j & 1) == hi ? own[j >> 1] : other[j >> 1];
+          word |= static_cast<uint32_t>(bits < drop.threshold)
+                  << (4 * n8 + j);
+        }
+      }
+    }
+    keep[w] = word;
   }
 }
 
@@ -579,30 +636,31 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---- dK/dV (K3, K6) --------------------------------------------------------
+// ---- dK/dV (K3, K6, K8/K9) -------------------------------------------------
 
-template <int D, typename S>
+template <int D, typename S, bool kBias = false, typename TB = float>
 __host__ __device__ constexpr size_t dkdv_smem() {
   return 1024 + 2 * tile_bytes<D, 64 * S::kNC>() +
-         2 * S::kStages * tile_bytes<D, S::kTile>();
+         S::kStages * (2 * tile_bytes<D, S::kTile>() +
+                       bias_tile_bytes<S, kBias, TB>());
 }
 
 // dK, dV for 64 kNC keys, over the query tiles of S::kTile rows that the
 // producer visits: S^T = K Q^T and dP^T = V dO^T put the keys in the
 // accumulators' rows, so P^T and dS^T are register A operands of
-// dV += P^T dO and dK += dS^T Q
-template <int D, typename S, typename T>
-__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
-allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
-                     const __grid_constant__ CUtensorMap k_map,
-                     const __grid_constant__ CUtensorMap v_map,
-                     const __grid_constant__ CUtensorMap do_map,
-                     const int* __restrict__ kv_mask,
-                     const float* __restrict__ row_max,
-                     const float* __restrict__ row_sum,
-                     const float* __restrict__ row_delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int sq, int sk, int heads,
-                     float scale, int causal) {
+// dV += P^T dO and dK += dS^T Q. The bias form (K8/K9) reads the bias of
+// each streamed tile (its query rows x the block's keys, read transposed)
+// through bias_map and the dropout key from ba
+template <int D, typename S, typename T, bool kBias, bool kDropout,
+          typename TB, bool kOwnDelta>
+__device__ __forceinline__ void dkdv_body(
+    int blk, const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, const CUtensorMap& do_map,
+    const CUtensorMap& bias_map, const int* __restrict__ kv_mask,
+    const float* __restrict__ row_max, const float* __restrict__ row_sum,
+    const float* __restrict__ row_delta, const T* __restrict__ out,
+    const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
+    int sq, int sk, int heads, float scale, int causal, BiasArgs<TB> ba) {
   constexpr int kNC = S::kNC;
   constexpr int QT = S::kTile;
   constexpr int ST = S::kStages;
@@ -610,6 +668,12 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr int kRows = 64 * kNC;  // keys a block
   constexpr uint32_t kKvBytes = tile_bytes<D, kRows>();
   constexpr uint32_t kQBytes = tile_bytes<D, QT>();
+  constexpr uint32_t kBBytes = bias_tile_bytes<S, kBias, TB>();
+  // the bias tile's boxes: along a warpgroup's 64 keys, keys a box, and
+  // along the tile's query rows
+  constexpr int kBiasBoxes = 64 * static_cast<int>(sizeof(TB)) / 128;
+  constexpr int kBiasBoxKeys = 128 / static_cast<int>(sizeof(TB));
+  constexpr int kRowBoxes = QT / 64;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t kv_full, full[ST], empty[ST];
   __shared__ __align__(8) float m_s[ST][QT];  // m log2(e)
@@ -621,11 +685,12 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* v_s = k_s + kKvBytes;
   unsigned char* q_s = v_s + kKvBytes;      // [ST][kQBytes]
   unsigned char* do_s = q_s + ST * kQBytes;  // [ST][kQBytes]
+  unsigned char* b_s = do_s + ST * kQBytes;  // [ST][kBBytes], bias form
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int k0 = blockIdx.x * kRows;
+  const int k0 = blk * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int shift = sk - sq;
@@ -659,6 +724,30 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
       tma_tile<D, kRows>(k_s, &k_map, &kv_full, h, k0, b);
       tma_tile<D, kRows>(v_s, &v_map, &kv_full, h, k0, b);
     }
+    // query tile t's Q and dO (and bias) into stage s, on its full barrier
+    auto copies = [&](int s, int t) {
+      tma_tile<D, QT>(q_s + s * kQBytes, &q_map, &full[s], h, t * QT, b);
+      tma_tile<D, QT>(do_s + s * kQBytes, &do_map, &full[s], h, t * QT, b);
+      if constexpr (kBias) {
+        // box (w, x, y): keys k0 + 64 w + x kBiasBoxKeys.., query rows
+        // t QT + 64 y..
+#pragma unroll
+        for (int w = 0; w < kNC; ++w) {
+#pragma unroll
+          for (int x = 0; x < kBiasBoxes; ++x) {
+#pragma unroll
+            for (int y = 0; y < kRowBoxes; ++y) {
+              hopper::tma_load_3d(
+                  b_s + s * kBBytes +
+                      ((w * kBiasBoxes + x) * kRowBoxes + y) *
+                          hopper::kBoxBytes,
+                  &bias_map, &full[s], k0 + 64 * w + x * kBiasBoxKeys,
+                  t * QT + 64 * y, h);
+            }
+          }
+        }
+      }
+    };
     // query tiles before t_first lie wholly before the block's keys
     const int t_first =
         !block_keys ? n_q : causal ? max(0, k0 - shift) / QT : 0;
@@ -678,6 +767,16 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
       const int s = i % ST;
       if (i >= ST) mbar_wait(&empty[s], ((i / ST) - 1) & 1);
       if (t < n_q) {
+        if constexpr (kOwnDelta) {
+          // the tile's copies first, in flight while the producer makes
+          // its rows' statistics and delta
+          if (lane == 0) {
+            tile_s[s] = t;
+            full_s[s] = full_tile;
+            mbar_expect_tx(&full[s], 2 * kQBytes + kBBytes);
+            copies(s, t);
+          }
+        }
         // the rows' statistics, m in log2 units; rows past sq get
         // m = 1 / l = 0 (their q and dO are zeros, so their p and dS are
         // exactly 0)
@@ -687,19 +786,57 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
           if (row < sq) {
             m2 = __fmul_rn(row_max[stat0 + row], kLog2e);
             il = 1.f / row_sum[stat0 + row];
-            dl = row_delta[stat0 + row];
+            if constexpr (!kOwnDelta) dl = row_delta[stat0 + row];
           }
           m_s[s][r] = m2;
           il_s[s][r] = il;
-          dl_s[s][r] = dl;
+          if constexpr (!kOwnDelta) dl_s[s][r] = dl;
         }
-        if (lane == 0) {
+        if constexpr (kOwnDelta) {
+          // delta = rowsum(dO * o) of the tile's rows, made here, not read
+          // from dQ, in dQ's order (lane c4 of a row's quad sums the D / 4
+          // dims from c4 D / 4 on, then two shuffles): the same bits. Every
+          // load of the tile first (8 bytes each, 4 values of T), so that
+          // they are in flight together; rows past sq read zeros
+          const long rs = static_cast<long>(heads) * D;
+          const int c4 = lane & 3;
+          uint2 d_raw[QT / 8][D / 16], o_raw[QT / 8][D / 16];
+#pragma unroll
+          for (int p = 0; p < QT / 8; ++p) {
+            const int row = t * QT + 8 * p + (lane >> 2);
+            const long off = (static_cast<long>(b) * sq + row) * rs + h * D +
+                             (D / 4) * c4;
+#pragma unroll
+            for (int c = 0; c < D / 16; ++c) {
+              d_raw[p][c] = o_raw[p][c] = make_uint2(0u, 0u);
+              if (row < sq) {
+                d_raw[p][c] =
+                    *reinterpret_cast<const uint2*>(dout + off + 4 * c);
+                o_raw[p][c] =
+                    *reinterpret_cast<const uint2*>(out + off + 4 * c);
+              }
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < QT / 8; ++p) {
+            const int r = 8 * p + (lane >> 2);
+            float part = 0.f;
+#pragma unroll
+            for (int c = 0; c < D / 16; ++c) {
+              part = dot4(load4(reinterpret_cast<const T*>(&d_raw[p][c])),
+                          load4(reinterpret_cast<const T*>(&o_raw[p][c])),
+                          part);
+            }
+            part += __shfl_xor_sync(0xffffffffu, part, 1);
+            part += __shfl_xor_sync(0xffffffffu, part, 2);
+            if (c4 == 0) dl_s[s][r] = t * QT + r < sq ? part : 0.f;
+          }
+          mbar_arrive(&full[s]);
+        } else if (lane == 0) {
           tile_s[s] = t;
           full_s[s] = full_tile;
-          mbar_arrive_tx(&full[s], 2 * kQBytes);
-          tma_tile<D, QT>(q_s + s * kQBytes, &q_map, &full[s], h, t * QT, b);
-          tma_tile<D, QT>(do_s + s * kQBytes, &do_map, &full[s], h, t * QT,
-                          b);
+          mbar_arrive_tx(&full[s], 2 * kQBytes + kBBytes);
+          copies(s, t);
         } else {
           mbar_arrive(&full[s]);
         }
@@ -730,6 +867,20 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   const unsigned char* v_wg = v_s + 64 * wgi * 128;
   const float scale2 = scale * kLog2e;
   const float neg2 = __fmul_rn(kNegInf, kLog2e);
+  DropoutKey drop{};
+  if constexpr (kDropout) {
+    drop = load_dropout_key(ba.seed, ba.threshold, ba.keep_inv);
+  }
+  // the bias form: this lane's keys' byte offsets in the warpgroup's bias
+  // boxes, key u = 16 (warp & 3) + g + 8 r at box u / kBiasBoxKeys, byte
+  // (u % kBiasBoxKeys) sizeof(TB) of a query row
+  int bias_box[2], bias_byte[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int u = 16 * (warp & 3) + g + 8 * r;
+    bias_box[r] = (wgi * kBiasBoxes + u / kBiasBoxKeys) * kRowBoxes;
+    bias_byte[r] = (u % kBiasBoxKeys) * static_cast<int>(sizeof(TB));
+  }
 
   float dk_acc[DP / 2], dv_acc[DP / 2];
   zero(dk_acc);
@@ -746,6 +897,13 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
         (wg_keys && !(causal && q0 + QT - 1 + shift < wg_first))) {
       const unsigned char* qs = q_s + s * kQBytes;
       const unsigned char* dos = do_s + s * kQBytes;
+      // the bias form's keep decisions, made before the products, while
+      // only dK and dV hold registers (made while the products ran, fewer
+      // calls at a time fit, and they ran slower: sweep_attention --k8-k9)
+      uint32_t keep[kDropout ? QT / 64 : 1];
+      if constexpr (kDropout) {
+        keep_bits_t<QT>(keep, drop, key_first, q0, h, b, g, c4);
+      }
       // S^T = K Q^T and dP^T = V dO^T: 64 keys x QT queries a warpgroup
       float st[QT / 2], dpt[QT / 2];
       zero(st);
@@ -770,6 +928,7 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
       const float* ms = m_s[s];
       const float* ls = il_s[s];
       const float* dls = dl_s[s];
+      const unsigned char* bs = b_s + s * kBBytes;
 #pragma unroll
       for (int n = 0; n < QT / 8; ++n) {
         const int col = 8 * n + 2 * c4;
@@ -783,13 +942,47 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
           const bool allowed =
               key_valid[r] && !(diag && q0 + col + e + shift < key0 + 8 * r);
           const float m2e = e ? m2.y : m2.x;
-          const float x = allowed ? fmaf(st[4 * n + j], scale2, -m2e)
-                                  : __fsub_rn(neg2, m2e);
+          float x;
+          if constexpr (kBias) {
+            // the bias of (query col + e, key u) from the tile's boxes,
+            // query rows x 128 bytes of keys, TMA's 128-byte swizzle
+            // (chunk c of row x at c ^ (x % 8)): the warp's lanes read
+            // rows 2 c4 + e (mod 8) at one chunk index of their keys
+            // (bf16: 8 keys a chunk; fp32: 4, two chunks), so the XOR
+            // spreads the four rows (eight chunks in fp32) over distinct
+            // banks and the pairs of lanes that share a 4-byte word read
+            // it at once
+            const int xq = col + e;
+            const unsigned char* row =
+                bs + (bias_box[r] + xq / 64) * hopper::kBoxBytes +
+                (xq % 64) * 128;
+            const float bv = load1(reinterpret_cast<const TB*>(
+                row + ((((bias_byte[r] >> 4) ^ (xq & 7)) << 4) |
+                       (bias_byte[r] & 15))));
+            x = allowed ? __fsub_rn(fmaf(st[4 * n + j], scale2,
+                                         __fmul_rn(bv, kLog2e)),
+                                    m2e)
+                        : __fsub_rn(neg2, m2e);
+          } else {
+            x = allowed ? fmaf(st[4 * n + j], scale2, -m2e)
+                        : __fsub_rn(neg2, m2e);
+          }
           const float p = ex2(x) * (e ? l2.y : l2.x);
-          st[4 * n + j] = p;
-          dpt[4 * n + j] =
-              allowed ? p * (dpt[4 * n + j] - (e ? d2.y : d2.x)) * scale
-                      : 0.f;
+          if constexpr (kDropout) {
+            const int i2 = 4 * n + j;
+            const float f =
+                (keep[i2 >> 5] >> (i2 & 31)) & 1u ? drop.keep_inv : 0.f;
+            st[4 * n + j] = p * f;
+            dpt[4 * n + j] =
+                allowed
+                    ? p * (f * dpt[4 * n + j] - (e ? d2.y : d2.x)) * scale
+                    : 0.f;
+          } else {
+            st[4 * n + j] = p;
+            dpt[4 * n + j] =
+                allowed ? p * (dpt[4 * n + j] - (e ? d2.y : d2.x)) * scale
+                        : 0.f;
+          }
         }
       }
 
@@ -828,29 +1021,56 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---- dQ (K3, K6) -----------------------------------------------------------
+// dK, dV for 64 kNC keys a block (K3, K6; K8/K9 unfused in the sweep): the
+// body reading dQ's delta
+template <int D, typename S, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap bias_map,
+                     const int* __restrict__ kv_mask,
+                     const float* __restrict__ row_max,
+                     const float* __restrict__ row_sum,
+                     const float* __restrict__ row_delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int sq, int sk, int heads,
+                     float scale, int causal, BiasArgs<TB> ba) {
+  dkdv_body<D, S, T, kBias, kDropout, TB, false>(
+      blockIdx.x, q_map, k_map, v_map, do_map, bias_map, kv_mask, row_max,
+      row_sum, row_delta, nullptr, nullptr, dk, dv, sq, sk, heads, scale,
+      causal, ba);
+}
 
-template <int D, typename S>
+// ---- dQ (K3, K6, K8/K9) -----------------------------------------------------
+
+template <int D, typename S, bool kBias = false, typename TB = float>
 __host__ __device__ constexpr size_t dq_smem() {
   return 1024 + 2 * tile_bytes<D, 64 * S::kNC>() +
-         2 * S::kStages * tile_bytes<D, S::kTile>();
+         S::kStages * (2 * tile_bytes<D, S::kTile>() +
+                       bias_tile_bytes<S, kBias, TB>());
 }
 
 // dQ for 64 kNC query rows, over the key tiles of S::kTile up to the
 // block's causal limit that hold a valid key: S = Q K^T, dP = dO V^T, dS
-// in registers as the A operand of dQ += dS K
-template <int D, typename S, typename T>
-__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
-allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
-                   const __grid_constant__ CUtensorMap k_map,
-                   const __grid_constant__ CUtensorMap v_map,
-                   const __grid_constant__ CUtensorMap do_map,
-                   const int* __restrict__ kv_mask,
-                   const float* __restrict__ row_max,
-                   const float* __restrict__ row_sum,
-                   const T* __restrict__ out, const T* __restrict__ dout,
-                   float* __restrict__ row_delta, T* __restrict__ dq,
-                   int sq, int sk, int heads, float scale, int causal) {
+// in registers as the A operand of dQ += dS K. The bias form (K8/K9)
+// reads each streamed tile's bias (the block's rows x the tile's keys, as
+// the forward) through bias_map and the dropout key from ba, and with a
+// bias writes the rows' fp32 dlogits into partial (B, H, Sq, Sk): zeros on
+// every tile it skips, so that the batch-order reduction reads no stale
+// element
+template <int D, typename S, typename T, bool kBias, bool kDropout,
+          typename TB>
+__device__ __forceinline__ void dq_body(
+    int blk, const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, const CUtensorMap& do_map,
+    const CUtensorMap& bias_map, const int* __restrict__ kv_mask,
+    const float* __restrict__ row_max, const float* __restrict__ row_sum,
+    const T* __restrict__ out, const T* __restrict__ dout,
+    float* __restrict__ row_delta, T* __restrict__ dq, int sq, int sk,
+    int heads, float scale, int causal, BiasArgs<TB> ba,
+    float* __restrict__ partial) {
   constexpr int kNC = S::kNC;
   constexpr int KT = S::kTile;
   constexpr int ST = S::kStages;
@@ -859,6 +1079,9 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr int kWords = KT / 32;
   constexpr uint32_t kQBytes = tile_bytes<D, kRows>();
   constexpr uint32_t kKBytes = tile_bytes<D, KT>();
+  constexpr uint32_t kBBytes = bias_tile_bytes<S, kBias, TB>();
+  constexpr int kBiasBoxes = KT * static_cast<int>(sizeof(TB)) / 128;
+  constexpr int kBiasBoxKeys = 128 / static_cast<int>(sizeof(TB));
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t qd_full, full[ST], empty[ST];
   __shared__ uint32_t mask_s[ST][kWords];
@@ -867,11 +1090,12 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* do_s = q_s + kQBytes;
   unsigned char* k_s = do_s + kQBytes;      // [ST][kKBytes]
   unsigned char* v_s = k_s + ST * kKBytes;  // [ST][kKBytes]
+  unsigned char* b_s = v_s + ST * kKBytes;  // [ST][kBBytes], bias form
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
+  const int q0 = blk * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int shift = sk - sq;
@@ -916,9 +1140,23 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
           for (int w = 0; w < kWords; ++w) mask_s[s][w] = words[w];
           tile_s[s] = t;
-          mbar_arrive_tx(&full[s], 2 * kKBytes);
+          mbar_arrive_tx(&full[s], 2 * kKBytes + kBBytes);
           tma_tile<D, KT>(k_s + s * kKBytes, &k_map, &full[s], h, t * KT, b);
           tma_tile<D, KT>(v_s + s * kKBytes, &v_map, &full[s], h, t * KT, b);
+          if constexpr (kBias) {
+            // box (w, x): rows q0 + 64 w.., keys t KT + x kBiasBoxKeys..
+#pragma unroll
+            for (int w = 0; w < kNC; ++w) {
+#pragma unroll
+              for (int x = 0; x < kBiasBoxes; ++x) {
+                hopper::tma_load_3d(
+                    b_s + s * kBBytes +
+                        (w * kBiasBoxes + x) * hopper::kBoxBytes,
+                    &bias_map, &full[s], t * KT + x * kBiasBoxKeys,
+                    q0 + 64 * w, h);
+              }
+            }
+          }
         } else {
           tile_s[s] = -1;
           mbar_arrive(&full[s]);
@@ -972,6 +1210,35 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   const unsigned char* q_wg = q_s + 64 * wgi * 128;
   const unsigned char* do_wg = do_s + 64 * wgi * 128;
+  DropoutKey drop{};
+  if constexpr (kDropout) {
+    drop = load_dropout_key(ba.seed, ba.threshold, ba.keep_inv);
+  }
+  // the bias form: dlogits of (row0 + 8 r, j) and (row0 + 8 r, j + 1)
+  // into the partial, j even; a float2 a lane where sk is even, so a
+  // quad's four lanes fill a 32-byte sector of a row
+  float* part_rows =
+      kBias ? partial + (static_cast<long>(b) * heads + h) * sq * sk
+            : nullptr;
+  auto store_dl = [&](int r, int j, float lo, float hi) {
+    const int i = row0 + 8 * r;
+    if (i >= sq || j >= sk) return;
+    float* dst = part_rows + static_cast<long>(i) * sk + j;
+    if ((sk & 1) == 0) {
+      *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+    } else {
+      dst[0] = lo;
+      if (j + 1 < sk) dst[1] = hi;
+    }
+  };
+  auto zero_tile = [&](int t) {  // a skipped tile's dlogits
+#pragma unroll
+    for (int c = 0; c < KT; c += 8) {
+      store_dl(0, t * KT + c + 2 * c4, 0.f, 0.f);
+      store_dl(1, t * KT + c + 2 * c4, 0.f, 0.f);
+    }
+  };
+  int t_next = 0;  // the bias form: the first tile not yet written
   float dq_acc[DP / 2];
   zero(dq_acc);
   mbar_wait(&qd_full, 0);
@@ -982,9 +1249,15 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     const int t = tile_s[s];
     if (t < 0) break;
     const int k0 = t * KT;
-    if (wg_first < sq && !(causal && k0 > wg_last + shift)) {
+    const bool run = wg_first < sq && !(causal && k0 > wg_last + shift);
+    if (run) {
       const unsigned char* ks = k_s + s * kKBytes;
       const unsigned char* vs = v_s + s * kKBytes;
+      // the bias form's keep bits as the forward makes them (its layout:
+      // queries in the rows), made before the products, while only dQ
+      // holds registers
+      uint32_t keep[kDropout ? KT / 64 : 1];
+      if constexpr (kDropout) keep_bits<KT>(keep, drop, k0, row0, h, b, c4);
       // S = Q K^T and dP = dO V^T: 64 rows x KT keys a warpgroup
       float sc[KT / 2], dp[KT / 2];
       zero(sc);
@@ -1013,19 +1286,68 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       // of the warp, somewhere in the tile
       const bool edge = all != 0xffffffffu ||
                         (causal && k0 + KT - 1 > row_first + shift);
+      if constexpr (kBias || kDropout) {
+        // dlogits = P (m dP - delta), 0 at masked logits, into the partial
+        // with a bias; dS = dlogits scale
+        const unsigned char* bs =
+            b_s + s * kBBytes + wgi * kBiasBoxes * hopper::kBoxBytes;
 #pragma unroll
-      for (int n = 0; n < KT / 8; ++n) {
+        for (int n = 0; n < KT / 8; ++n) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = j >> 1;
-          const int col = 8 * n + 2 * c4 + (j & 1);
-          const float ds = ex2(fmaf(sc[4 * n + j], scale2, -m_i[r])) *
-                           inv_l[r] * (dp[4 * n + j] - delta[r]) * scale;
-          dp[4 * n + j] =
-              (!edge || (((bits[col >> 5] >> (col & 31)) & 1u) &&
-                         !(causal && row0 + 8 * r + shift < k0 + col)))
-                  ? ds
-                  : 0.f;
+          for (int r = 0; r < 2; ++r) {
+            float2 b2 = make_float2(0.f, 0.f);
+            if constexpr (kBias) {
+              // the forward's read (bias_log2): chunk c of row x at
+              // c ^ (x % 8), x % 8 = g
+              const int key = 8 * n + 2 * c4;
+              const int byte = (key % kBiasBoxKeys) *
+                               static_cast<int>(sizeof(TB));
+              b2 = load2(reinterpret_cast<const TB*>(
+                  bs + (key / kBiasBoxKeys) * hopper::kBoxBytes +
+                  (16 * (warp & 3) + g + 8 * r) * 128 +
+                  ((((byte >> 4) ^ g) << 4) | (byte & 15))));
+            }
+            float dl[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 4 * n + 2 * r + e;
+              const int col = 8 * n + 2 * c4 + e;
+              float x;
+              if constexpr (kBias) {
+                x = __fsub_rn(fmaf(sc[j], scale2,
+                                   __fmul_rn(e ? b2.y : b2.x, kLog2e)),
+                              m_i[r]);
+              } else {
+                x = fmaf(sc[j], scale2, -m_i[r]);
+              }
+              float f = 1.f;
+              if constexpr (kDropout) {
+                f = (keep[j >> 5] >> (j & 31)) & 1u ? drop.keep_inv : 0.f;
+              }
+              const bool ok =
+                  !edge || (((bits[col >> 5] >> (col & 31)) & 1u) &&
+                            !(causal && row0 + 8 * r + shift < k0 + col));
+              dl[e] = ok ? ex2(x) * inv_l[r] * (f * dp[j] - delta[r]) : 0.f;
+              dp[j] = dl[e] * scale;
+            }
+            if constexpr (kBias) store_dl(r, k0 + 8 * n + 2 * c4, dl[0], dl[1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < KT / 8; ++n) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = j >> 1;
+            const int col = 8 * n + 2 * c4 + (j & 1);
+            const float ds = ex2(fmaf(sc[4 * n + j], scale2, -m_i[r])) *
+                             inv_l[r] * (dp[4 * n + j] - delta[r]) * scale;
+            dp[4 * n + j] =
+                (!edge || (((bits[col >> 5] >> (col & 31)) & 1u) &&
+                           !(causal && row0 + 8 * r + shift < k0 + col)))
+                    ? ds
+                    : 0.f;
+          }
         }
       }
 
@@ -1043,6 +1365,18 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
+    if constexpr (kBias) {
+      // the tiles the producer passed over (every key masked), and this
+      // one where the warpgroup skipped it (past its causal limit)
+      for (; t_next < t; ++t_next) zero_tile(t_next);
+      if (!run) zero_tile(t);
+      t_next = t + 1;
+    }
+  }
+  if constexpr (kBias) {
+    // past the last visited tile: every key masked, or past the block's
+    // causal limit
+    for (; t_next < n_k; ++t_next) zero_tile(t_next);
   }
 
 #pragma unroll
@@ -1055,6 +1389,71 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       store2(dst + 8 * db + 2 * c4, dq_acc[4 * db + 2 * r],
              dq_acc[4 * db + 2 * r + 1]);
     }
+  }
+}
+
+// dQ for 64 kNC query rows a block (K3, K6; K8/K9 unfused in the sweep),
+// the longest rows first
+template <int D, typename S, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap do_map,
+                   const __grid_constant__ CUtensorMap bias_map,
+                   const int* __restrict__ kv_mask,
+                   const float* __restrict__ row_max,
+                   const float* __restrict__ row_sum,
+                   const T* __restrict__ out, const T* __restrict__ dout,
+                   float* __restrict__ row_delta, T* __restrict__ dq,
+                   int sq, int sk, int heads, float scale, int causal,
+                   BiasArgs<TB> ba, float* __restrict__ partial) {
+  dq_body<D, S, T, kBias, kDropout, TB>(
+      gridDim.x - 1 - blockIdx.x, q_map, k_map, v_map, do_map, bias_map,
+      kv_mask, row_max, row_sum, out, dout, row_delta, dq, sq, sk, heads,
+      scale, causal, ba, partial);
+}
+
+// ---- K8/K9: dQ and dK/dV in one launch -------------------------------------
+
+// the bias form's backward in one grid: blocks 0 .. n_qb - 1 (n_qb the dQ
+// blocks, the longest rows first) run dQ (delta and the partial as above),
+// the rest dK/dV with delta made by its own producer, so that no block
+// waits for another and the two bodies' blocks share the SMs' slots: at
+// T5's decoder each launch alone fills 96 of 264 slots
+template <int D, typename KvS, typename QS, typename T, bool kBias,
+          bool kDropout, typename TB>
+__global__ void __launch_bounds__(KvS::kThreads, KvS::kMinBlocks)
+allheads_bias_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap bias_map,
+                         const int* __restrict__ kv_mask,
+                         const float* __restrict__ row_max,
+                         const float* __restrict__ row_sum,
+                         const T* __restrict__ out, const T* __restrict__ dout,
+                         float* __restrict__ row_delta, T* __restrict__ dq,
+                         T* __restrict__ dk, T* __restrict__ dv,
+                         float* __restrict__ partial, int sq, int sk,
+                         int heads, float scale, int causal,
+                         BiasArgs<TB> ba) {
+  static_assert(KvS::kThreads == QS::kThreads &&
+                    KvS::kMinBlocks == QS::kMinBlocks,
+                "the fused grid's bodies share a block shape");
+  const int n_qb = (sq + 64 * QS::kNC - 1) / (64 * QS::kNC);
+  const int x = static_cast<int>(blockIdx.x);
+  if (x < n_qb) {
+    dq_body<D, QS, T, kBias, kDropout, TB>(
+        n_qb - 1 - x, q_map, k_map, v_map, do_map, bias_map, kv_mask,
+        row_max, row_sum, out, dout, row_delta, dq, sq, sk, heads, scale,
+        causal, ba, partial);
+  } else {
+    dkdv_body<D, KvS, T, kBias, kDropout, TB, true>(
+        x - n_qb, q_map, k_map, v_map, do_map, bias_map, kv_mask, row_max,
+        row_sum, nullptr, out, dout, dk, dv, sq, sk, heads, scale, causal,
+        ba);
   }
 }
 
@@ -1127,75 +1526,156 @@ cudaError_t launch_fwd(const Maps& m, const int* kv_mask, void* out,
   return cudaGetLastError();
 }
 
-template <int D, typename S, typename T>
+// the bias form reads m.bias and ba (K8/K9)
+template <int D, typename S, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
 cudaError_t launch_dkdv(const Maps& m, const int* kv_mask,
                         const float* row_max, const float* row_sum,
                         const float* row_delta, void* dk, void* dv, int batch,
                         int sq, int sk, int heads, float scale, int causal,
-                        cudaStream_t stream) {
-  constexpr size_t bytes = dkdv_smem<D, S>();
-  auto kernel = allheads_dkdv_kernel<D, S, T>;
-  const cudaError_t err = smem_once<allheads_dkdv_kernel<D, S, T>>(bytes);
+                        cudaStream_t stream, BiasArgs<TB> ba = BiasArgs<TB>{}) {
+  static_assert(!kBias || S::kTile % 64 == 0, "bias boxes take 64 rows");
+  constexpr size_t bytes = dkdv_smem<D, S, kBias, TB>();
+  auto kernel = allheads_dkdv_kernel<D, S, T, kBias, kDropout, TB>;
+  const cudaError_t err = smem_once<
+      allheads_dkdv_kernel<D, S, T, kBias, kDropout, TB>>(bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sk + 64 * S::kNC - 1) / (64 * S::kNC), heads, batch);
   kernel<<<grid, S::kThreads, bytes, stream>>>(
-      m.q, m.k, m.v, m.dout, kv_mask, row_max, row_sum, row_delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads, scale, causal);
+      m.q, m.k, m.v, m.dout, kBias ? m.bias : m.q, kv_mask, row_max, row_sum,
+      row_delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads,
+      scale, causal, ba);
   return cudaGetLastError();
 }
 
-template <int D, typename S, typename T>
+// the bias form reads m.bias and ba and, with a bias, writes partial
+template <int D, typename S, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
 cudaError_t launch_dq(const Maps& m, const int* kv_mask, const float* row_max,
                       const float* row_sum, const void* out,
                       const void* dout, float* row_delta, void* dq,
                       int batch, int sq, int sk, int heads, float scale,
-                      int causal, cudaStream_t stream) {
-  constexpr size_t bytes = dq_smem<D, S>();
-  auto kernel = allheads_dq_kernel<D, S, T>;
-  const cudaError_t err = smem_once<allheads_dq_kernel<D, S, T>>(bytes);
+                      int causal, cudaStream_t stream,
+                      BiasArgs<TB> ba = BiasArgs<TB>{},
+                      float* partial = nullptr) {
+  constexpr size_t bytes = dq_smem<D, S, kBias, TB>();
+  auto kernel = allheads_dq_kernel<D, S, T, kBias, kDropout, TB>;
+  const cudaError_t err = smem_once<
+      allheads_dq_kernel<D, S, T, kBias, kDropout, TB>>(bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + 64 * S::kNC - 1) / (64 * S::kNC), heads, batch);
   kernel<<<grid, S::kThreads, bytes, stream>>>(
-      m.q, m.k, m.v, m.dout, kv_mask, row_max, row_sum,
+      m.q, m.k, m.v, m.dout, kBias ? m.bias : m.q, kv_mask, row_max, row_sum,
       static_cast<const T*>(out), static_cast<const T*>(dout), row_delta,
-      static_cast<T*>(dq), sq, sk, heads, scale, causal);
+      static_cast<T*>(dq), sq, sk, heads, scale, causal, ba, partial);
   return cudaGetLastError();
 }
 
 // dQ (which also writes delta, row_delta's batch * heads * sq floats),
-// then dK/dV from that delta, on the caller's stream
-template <int D, typename KvS, typename QS, typename T>
+// then dK/dV from that delta, on the caller's stream; the bias form (K8/K9)
+// reads m.bias and ba in both, and dQ writes the dlogits into partial
+// where there is a bias
+template <int D, typename KvS, typename QS, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
 cudaError_t launch_bwd(const Maps& m, const int* kv_mask,
                        const float* row_max, const float* row_sum,
                        const void* out, const void* dout, float* row_delta,
                        void* dq, void* dk, void* dv, int batch, int sq,
                        int sk, int heads, float scale, int causal,
-                       cudaStream_t stream) {
-  const cudaError_t err =
-      launch_dq<D, QS, T>(m, kv_mask, row_max, row_sum, out, dout, row_delta,
-                          dq, batch, sq, sk, heads, scale, causal, stream);
+                       cudaStream_t stream, BiasArgs<TB> ba = BiasArgs<TB>{},
+                       float* partial = nullptr) {
+  const cudaError_t err = launch_dq<D, QS, T, kBias, kDropout, TB>(
+      m, kv_mask, row_max, row_sum, out, dout, row_delta, dq, batch, sq, sk,
+      heads, scale, causal, stream, ba, partial);
   if (err != cudaSuccess) return err;
-  return launch_dkdv<D, KvS, T>(m, kv_mask, row_max, row_sum, row_delta, dk,
-                                dv, batch, sq, sk, heads, scale, causal,
-                                stream);
+  return launch_dkdv<D, KvS, T, kBias, kDropout, TB>(
+      m, kv_mask, row_max, row_sum, row_delta, dk, dv, batch, sq, sk, heads,
+      scale, causal, stream, ba);
+}
+
+// how launch_bias_bwd lays K8/K9's two bodies out: chosen by the grid's
+// size, or forced (the sweep)
+enum class BiasGrid { kAuto, kOne, kTwo };
+
+// K8/K9's bias form: dQ, which writes delta into row_delta and, with a
+// bias, the dlogits into partial, and dK/dV, on the caller's stream. Where
+// both bodies' blocks fill at most two waves of the SMs' slots (kMinBlocks
+// an SM: T5's decoder shapes, whose launches alone half-fill the card) in
+// one grid (allheads_bias_bwd_kernel, dK/dV making its own delta); past
+// that (T5's encoders) dQ, then dK/dV from its delta, which ran faster
+// there (sweep_attention --k8-k9, PERF.md §6). KvS and QS take one block
+// shape
+template <int D, typename KvS, typename QS, typename T, bool kBias,
+          bool kDropout, typename TB>
+cudaError_t launch_bias_bwd(const Maps& m, const int* kv_mask,
+                            const float* row_max, const float* row_sum,
+                            const void* out, const void* dout,
+                            float* row_delta, void* dq, void* dk, void* dv,
+                            float* partial, int batch, int sq, int sk,
+                            int heads, float scale, int causal,
+                            cudaStream_t stream, BiasArgs<TB> ba,
+                            BiasGrid layout = BiasGrid::kAuto) {
+  const int n_qb = (sq + 64 * QS::kNC - 1) / (64 * QS::kNC);
+  const int n_kb = (sk + 64 * KvS::kNC - 1) / (64 * KvS::kNC);
+  if (layout == BiasGrid::kAuto) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return err;
+    const long blocks = static_cast<long>(n_qb + n_kb) * heads * batch;
+    layout = blocks <= 2L * KvS::kMinBlocks * sms ? BiasGrid::kOne
+                                                  : BiasGrid::kTwo;
+  }
+  if (layout == BiasGrid::kTwo) {
+    return launch_bwd<D, KvS, QS, T, kBias, kDropout, TB>(
+        m, kv_mask, row_max, row_sum, out, dout, row_delta, dq, dk, dv, batch,
+        sq, sk, heads, scale, causal, stream, ba, partial);
+  }
+  constexpr size_t q_bytes = dq_smem<D, QS, kBias, TB>();
+  constexpr size_t kv_bytes = dkdv_smem<D, KvS, kBias, TB>();
+  constexpr size_t bytes = q_bytes > kv_bytes ? q_bytes : kv_bytes;
+  auto kernel =
+      allheads_bias_bwd_kernel<D, KvS, QS, T, kBias, kDropout, TB>;
+  const cudaError_t err = smem_once<
+      allheads_bias_bwd_kernel<D, KvS, QS, T, kBias, kDropout, TB>>(bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_qb + n_kb, heads, batch);
+  kernel<<<grid, KvS::kThreads, bytes, stream>>>(
+      m.q, m.k, m.v, m.dout, kBias ? m.bias : m.q, kv_mask, row_max, row_sum,
+      static_cast<const T*>(out), static_cast<const T*>(dout), row_delta,
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+      partial, sq, sk, heads, scale, causal, ba);
+  return cudaGetLastError();
 }
 
 // the shapes the library launches, by head dim: the fastest of
 // mmgl_tpu_torch/sweep_attention.py --allheads at K1's and K3's shapes and
 // of --k4-k7 at K4's and K7's and --k2-k6 at K2's and K6's on an H100
-// (PERF.md §6); fp16 takes bf16's.
+// and --k8-k9 at K8/K9's (PERF.md §6); fp16 takes bf16's.
 // One consumer warpgroup of 64 rows and tiles of 64 throughout; at 64 two
 // dK/dV and three dQ blocks an SM, past 64 the dK and dV accumulators (64
 // registers each) leave room for one dK/dV block. FwdShape serves every
 // forward (K1, K2, K4, K7) and the stats passes of K3, K5 and K8/K9: a
 // forward and the stats pass that stands in for it must share one shape,
-// so that the row stats they write are the same bits
+// so that the row stats they write are the same bits. DkdvShape and
+// DqShape serve K3 and K6, and DkdvShape K8/K9 (in its bias form, with
+// BiasDqShape; --k8-k9 times them)
 template <int D>
 using FwdShape = Shape<1, 64, 2, 2>;
 template <int D>
 using DkdvShape = Shape<1, 64, 2, D == 64 ? 2 : 1>;
 template <int D>
 using DqShape = Shape<1, 64, 2, D == 64 ? 3 : 2>;
+// K8/K9's dQ in its bias form (head dim 64): two blocks an SM, not
+// DqShape's three, whose 128-register cap made the bias forms spill (48 to
+// 484 bytes, ptxas); at two none spills, it ran faster at T5's rows with
+// dropout but the 512 encoder's (by 2.5% there; sweep_attention --k8-k9,
+// PERF.md §6), and one grid of both bodies needs dK/dV's block shape
+// (DkdvShape, two blocks an SM)
+template <int D>
+using BiasDqShape = Shape<1, 64, 2, 2>;
 
 }  // namespace wg
 }  // namespace mmgl

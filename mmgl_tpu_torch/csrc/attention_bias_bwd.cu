@@ -28,21 +28,37 @@
 //
 // Two bodies, chosen by the input dtype as K1-K6's are, each on the
 // caller's stream with no atomics:
-//   * bf16, fp16 (mmgl_bias_bwd_tc): the tensor-core bodies of
-//     attention_bwd_tiles.cuh in their bias form (kBias, kDropout), from
-//     K7's saved row max and sum, or, where none are given, from K7's wgmma
-//     body (allheads_wgmma.cuh, in K7's shape) in its stats-only form (the
-//     same instructions for m and l, so the gradients are the same bits
-//     either way): the delta pass; dK/dV, one
-//     block of 4 warps per (64 keys, head, batch), keys in the accumulator
-//     rows, so a Philox call's four words fall on lanes lane and lane ^ 16;
-//     dQ, one block per (64 query rows, head, batch), as the forward, which
-//     stores its fp32 dlogits fragments (zeros on the tiles it skips) into
-//     the partial; each streamed tile brings its bias tile into the
-//     cp.async ring; P times the keep factor and dS are rounded to the
-//     input type
-//     for their products, where the Pallas kernels round them, and dbias
-//     comes from the fp32 dlogits; then the reduction (4 below).
+//   * bf16, fp16 (mmgl_bias_bwd_tc): K3's wgmma/TMA bodies
+//     (allheads_wgmma.cuh) in their bias form (kBias, kDropout), in
+//     DkdvShape and BiasDqShape (two dQ blocks an SM, not three: below
+//     ptxas's spills), from K7's saved row max and sum or, where none are
+//     given, from K7's wgmma forward in its stats-only form (the same
+//     instructions for m and l, so the gradients are the same bits either
+//     way). The tensor maps of q, k, v, dO and the bias are encoded once
+//     for every launch. Then the two bodies, in one grid
+//     (allheads_bias_bwd_kernel) where their blocks fill at most two waves
+//     of the SMs' slots (T5's decoder shapes, whose launches alone would
+//     half-fill the card), else in two launches, dQ then dK/dV (T5's
+//     encoders, where one grid ran slower: sweep_attention --k8-k9):
+//       * dQ: one block per (64 query rows, head, batch), looping over
+//         the key tiles up to the block's causal limit that hold a valid
+//         key; it computes delta = rowsum(dO * o) in its prologue, and
+//         writes its fp32 dlogits into the partial (zeros on every tile it
+//         skips);
+//       * dK/dV: one block per (64 keys, head, batch), looping over the
+//         query tiles that can see its keys, plus earlier tiles that hold
+//         a fully masked row; in one grid its producer makes each tile's
+//         delta in dQ's order (the same bits), so no block waits on dQ,
+//         else it reads dQ's; keys are its accumulator rows, so a Philox
+//         call's words fall on lanes lane and lane ^ 16.
+//     Each streamed tile brings its bias tile into the TMA ring (dQ: the
+//     block's rows x the tile's keys; dK/dV: the tile's rows x the
+//     block's keys, read transposed); P times the keep factor and dS are
+//     rounded to the input type for their products, where the Pallas
+//     kernels round them, and dbias comes from the fp32 dlogits; then the
+//     reduction (4 below). With no bias and no dropout it runs K3's own
+//     two launches (dQ in DqShape), so K8/K9 then equals K3 given the same
+//     stats bit for bit.
 //   * fp32 (mmgl_bias_bwd): K3's three scalar launches plus the reduction:
 //     1. stats: per query row the softmax max m and sum l, and delta.
 //     2. dK/dV: one block per (64 keys, head, batch), looping over query
@@ -74,8 +90,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "allheads_wgmma.cuh"
-#include "attention_bwd_tiles.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -562,59 +579,62 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the tensor-core bodies' shapes for the bias form: dK/dV's, then dQ's
-// (the fastest of those timed at T5-base's shapes, PERF.md §6)
-using BiasKvShape = mmgl::TcShape<4, 2, 3>;
-using BiasQShape = mmgl::TcShape<4, 2, 3>;
-
 // the tensor-core bodies in one (bias, dropout) form over T (bf16, fp16):
-// the stats-only forward where no row stats are given, delta, dK/dV and dQ
-// (dlogits into the partial), then the batch-order reduction into dbias
+// the stats-only forward where no row stats are given; K3's wgmma/TMA dQ
+// (delta and the dlogits into the partial) and dK/dV bodies in their bias
+// form (wg::launch_bias_bwd), or, with neither flag, K3's two launches;
+// then the batch-order reduction into dbias. scratch: delta's n floats,
+// then, for the stats-only forward, its row max and sum (n each)
 template <bool kBias, bool kDropout, typename TB, typename T>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const int* kv_mask, const void* bias, int bias_ld,
                       const long long* seed, const void* out,
                       const void* dout, void* dq, void* dk, void* dv,
-                      void* dbias, float* stats, const float* row_max_in,
+                      void* dbias, float* scratch, const float* row_max_in,
                       const float* row_sum_in, float* partial, int batch,
                       int sq, int sk, int heads, float scale, int causal,
                       unsigned int threshold, float keep_inv,
                       cudaStream_t stream) {
+  namespace wg = mmgl::wg;
   const long n = static_cast<long>(batch) * heads * sq;
-  const TB* bias_ = static_cast<const TB*>(bias);
+  const mmgl::BiasArgs<TB> ba{static_cast<const TB*>(bias), bias_ld, seed,
+                              threshold, keep_inv};
+  // the maps of both bodies (and of the stats-only forward), encoded once
+  wg::Maps m{};
+  cudaError_t err = wg::make_maps(&m, q, k, v, dout, mmgl::tc_code<T>(),
+                                  batch, sq, sk, heads, kD);
+  if (err == cudaSuccess && kBias) {
+    err = mmgl::hopper::make_bias_map(
+        &m.bias, bias,
+        std::is_same<TB, float>::value ? mmgl::kF32 : mmgl::tc_code<T>(),
+        heads, sq, sk, bias_ld);
+  }
+  if (err != cudaSuccess) return err;
   const float* row_max = row_max_in;
   const float* row_sum = row_sum_in;
-  float* row_delta = stats + 2 * n;
-  cudaError_t err = cudaSuccess;
   if (row_max == nullptr) {
-    // the stats-only form: K7's instructions for m and l
-    mmgl::wg::Maps m{};
-    err = mmgl::wg::make_maps(&m, q, k, nullptr, nullptr,
-                              mmgl::tc_code<T>(), batch, sq, sk, heads, kD);
-    if (err == cudaSuccess && kBias) {
-      err = mmgl::hopper::make_bias_map(
-          &m.bias, bias, std::is_same<TB, float>::value ? mmgl::kF32
-                                                        : mmgl::tc_code<T>(),
-          heads, sq, sk, bias_ld);
-    }
+    // the stats-only form: K7's instructions for m and l (its dropout key
+    // unread)
+    err = wg::launch_fwd<kD, true, wg::FwdShape<kD>, T, kBias, false, TB>(
+        m, kv_mask, nullptr, scratch + n, scratch + 2 * n, batch, sq, sk,
+        heads, scale, causal, stream, ba);
     if (err != cudaSuccess) return err;
-    err = mmgl::wg::launch_fwd<kD, true, mmgl::wg::FwdShape<kD>, T, kBias,
-                               false, TB>(
-        m, kv_mask, nullptr, stats, stats + n, batch, sq, sk, heads, scale,
-        causal, stream, mmgl::BiasArgs<TB>{bias_, bias_ld, nullptr, 0u, 1.f});
-    if (err != cudaSuccess) return err;
-    row_max = stats;
-    row_sum = stats + n;
+    row_max = scratch + n;
+    row_sum = scratch + 2 * n;
   }
-  err = mmgl::launch_delta<kD, T>(out, dout, row_delta, batch, sq, heads,
-                                  stream);
-  if (err != cudaSuccess) return err;
-  err = mmgl::launch_bwd_tiles_tc_as<kD, BiasKvShape, BiasQShape, kBias,
-                                     kDropout, TB, T>(
-      q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv, batch,
-      sq, sk, heads, scale, causal, stream,
-      mmgl::BiasArgs<TB>{bias_, bias_ld, seed, threshold, keep_inv},
-      kBias ? partial : nullptr);
+  if constexpr (kBias || kDropout) {
+    // dQ and dK/dV, in one grid or two launches by the grid's size
+    err = wg::launch_bias_bwd<kD, wg::DkdvShape<kD>, wg::BiasDqShape<kD>, T,
+                              kBias, kDropout, TB>(
+        m, kv_mask, row_max, row_sum, out, dout, scratch, dq, dk, dv,
+        kBias ? partial : nullptr, batch, sq, sk, heads, scale, causal,
+        stream, ba);
+  } else {
+    // neither: K3's own launches, so that K8/K9 then equals K3 bit for bit
+    err = wg::launch_bwd<kD, wg::DkdvShape<kD>, wg::DqShape<kD>, T>(
+        m, kv_mask, row_max, row_sum, out, dout, scratch, dq, dk, dv, batch,
+        sq, sk, heads, scale, causal, stream);
+  }
   if (err != cudaSuccess || !kBias) return err;
   const long n_bias = static_cast<long>(heads) * sq * sk;
   const long want = (n_bias + 255) / 256;
@@ -655,13 +675,16 @@ extern "C" int mmgl_bias_bwd(const void* q, const void* k, const void* v,
 #undef MMGL_BIAS_BWD
 }
 
-// K8/K9 on the tensor-core bodies (dtype kBF16 or kF16; the bias and dbias
-// in fp32 or in the same dtype): the arguments
-// of mmgl_bias_bwd, plus row_max and row_sum, K7's saved row stats
-// (mmgl_bias_fwd_tc), or both null for the stats-only pass into stats, and
-// bias_ld, the bias's row stride (sk rounded up to a multiple of 8, the
-// bias padded to it). partial (batch * heads * sq * sk fp32 when there is
-// a bias) needs no zeroing: the dQ body writes every element.
+// K8/K9 on K3's wgmma/TMA bodies in their bias form (dtype kBF16 or kF16;
+// the bias and dbias in fp32 or in the same dtype): the arguments of
+// mmgl_bias_bwd, plus row_max and row_sum, K7's saved row stats
+// (mmgl_bias_fwd_tc), or both null for the stats-only pass, and bias_ld,
+// the bias's row stride (sk rounded up to a multiple of 8, the bias padded
+// to it). kv_mask may be null (every key valid). stats: fp32 scratch,
+// delta's batch * heads * sq floats, and twice that more (the stats-only
+// pass's max and sum) where row_max is null. partial (batch * heads * sq *
+// sk fp32 when there is a bias) needs no zeroing: the dQ body writes every
+// element.
 extern "C" int mmgl_bias_bwd_tc(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* bias,
                                 const long long* seed, const void* out,

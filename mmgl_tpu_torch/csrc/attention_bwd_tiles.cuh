@@ -1,8 +1,11 @@
 // The dK/dV and dQ passes of the dense attention backward, shared by K5
 // (attention_bwd.cu, after its stats pass; in fp32 K3's too) and K6's fp32
 // body (attention_blocked_bwd.cu, from the forward's saved statistics; its
-// bf16 and fp16 body is K3's wgmma one, allheads_wgmma.cuh), and in their
-// bias form by K8/K9 (attention_bias_bwd.cu). Given q, k, v, the key
+// bf16 and fp16 body is K3's wgmma one, allheads_wgmma.cuh). Their bias
+// form (below) left the library when K8/K9 moved onto the bias form of
+// K3's wgmma bodies: no entry instantiates kBias or kDropout here, and
+// csrc/sweep (bias_shapes.cu, k8_k9_shapes.cu) keeps it as the "before"
+// that sweep_attention times the new bodies against. Given q, k, v, the key
 // mask, dO and per query row the softmax max m, sum l and
 // delta = rowsum(dO * o):
 //   P  = exp(q k^T * scale - m) / l   (masked logits -1e30, so a fully
@@ -334,7 +337,8 @@ attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // tensor cores, the fp32 elementwise work between the products, and the
 // streamed tiles' L2 traffic.
 //
-// The bias form (kBias, kDropout; K8/K9, attention_bias_bwd.cu) is K7's
+// The bias form (kBias, kDropout; K8/K9's until the wgmma bodies took it
+// over, now the sweep's only) is K7's
 // backward (bias_attention_bwd_reference's math), from K7's row max and sum
 // or its stats-only pass, with m the keep factor:
 //   P = exp(logit - m) / l with logit = q k^T scale + bias[h];

@@ -1,8 +1,8 @@
-"""The host's cost of launching K1-K4, K6 and K7 on the card, and their
+"""The host's cost of launching K1-K4 and K6-K9 on the card, and their
 bodies' device time.
 
     python -m mmgl_tpu_torch.launch_cost [--calls 200]
-        [--only k1,k4,k7,k2,k6]
+        [--only k1,k4,k7,k2,k6,k8k9]
 
 At K1's and K3's shapes of PERF.md §6, bf16 with a pad hole in the int32
 key mask: the main path's attention (4, 640, 12, 64) causal, Roberta's
@@ -38,8 +38,12 @@ one):
 At K6's (OPT-350M's (4, 2048, 16, 64) causal with a pad hole, from K4's
 row stats):
   * ``k6``: ``flash_attention_blocked_bwd`` called directly.
+At K8/K9's (T5-base's encoder (4, 512, 12, 64) with its bias and its
+decoder, 128 queries against 128 keys causal with its bias, each with
+dropout 0.1 as training runs them, from K7's row stats):
+  * ``k8k9``: ``flash_attention_bias_bwd`` called directly.
 ``--only`` takes the kinds to run (k1 runs K1's and K3's cases; the
-default runs all but k2 and k6).
+default runs all but k2, k6 and k8k9).
 For each, the host's microseconds a call (the loop's enqueue time over
 ``--calls`` calls, the card's queue never full where the bodies are shorter
 than the host's work; the median of 5 loops) and the wall's (to a
@@ -88,6 +92,8 @@ K7_SHAPES += [((4, 128, 512, 12), False, False, 0.1)]
 K2_SHAPES = [((24, 197, 12, 64), False), ((44, 77, 8, 64), True)]
 # K6: (B, S, H, D), causal with a pad hole
 K6_SHAPES = [(4, 2048, 16, 64)]
+# K8/K9: (B, Sq, Sk, H), causal; with its bias and dropout 0.1
+K8K9_SHAPES = [((4, 512, 512, 12), False), ((4, 128, 128, 12), True)]
 
 
 def card() -> str:
@@ -186,6 +192,33 @@ def k7_cases(dims, causal, with_bias, rate, device):
     return {"k7": k7, "k7_grad": k7_grad}
 
 
+def k8k9_cases(dims, causal, device):
+    """K8/K9 from K7's row stats on K7's inputs (``k7_cases``'s)."""
+    b, sq, sk, h = dims
+    g = torch.Generator().manual_seed(sq + sk)
+    q = (torch.randn(b, sq, h, 64, generator=g) * 0.125).to(
+        device, torch.bfloat16)
+    k, v = (torch.randn(b, sk, h, 64, generator=g).to(device, torch.bfloat16)
+            for _ in range(2))
+    bias = torch.randn(h, sq, sk, generator=g).to(device, torch.bfloat16)
+    bias = getattr(fa, "padded_bias", lambda t: t)(bias)
+    dout = torch.randn(b, sq, h, 64, generator=g).to(device, torch.bfloat16)
+    mask = torch.ones(b, sk, dtype=torch.int32)
+    for i in range(b):
+        mask[i, sk - 1 - 3 * i:] = 0
+    mask = mask.to(device)
+    seed = torch.tensor([12345, 678], dtype=torch.int64, device=device)
+    kw = dict(causal=causal, scale=1.0, dropout_rate=0.1, dropout_seed=seed)
+    out, m, l = fa.flash_attention_bias_stats(q, k, v, bias=bias[None],
+                                              kv_mask=mask, **kw)
+
+    def k8k9():
+        fa.flash_attention_bias_bwd(q, k, v, mask, bias, out, dout,
+                                    row_max=m, row_sum=l, **kw)
+
+    return {"k8k9": k8k9}
+
+
 def k2_cases(shape, causal, device):
     b, s, h, d = shape
     g = torch.Generator().manual_seed(s + h)
@@ -265,7 +298,7 @@ def main(argv=None) -> int:
     parser.add_argument("--calls", type=int, default=200)
     parser.add_argument("--only", default="k1,k4,k7",
                         help="the kinds to run: k1 (K1 and K3), k4, k7, "
-                             "k2, k6")
+                             "k2, k6, k8k9")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -290,6 +323,9 @@ def main(argv=None) -> int:
     if "k6" in only:
         runs += [(shape, True, None, k6_cases(shape, device))
                  for shape in K6_SHAPES]
+    if "k8k9" in only:
+        runs += [(dims, causal, 0.1, k8k9_cases(dims, causal, device))
+                 for dims, causal in K8K9_SHAPES]
     for shape, causal, rate, fns in runs:
         for name, fn in fns.items():
             host, wall = host_and_wall_us(fn, args.calls, device)

@@ -35,9 +35,9 @@ csrc/attention_bias_fwd.cu, csrc/attention_bias_bwd.cu).
 
 Every kernel has two bodies, chosen by the input dtype (``_tensor_cores``):
 bf16 and fp16 inputs launch the tensor-core body (the ``*_tc`` entries of
-the library: K1-K4, K6 and K7 on Hopper's wgmma and TMA,
-csrc/allheads_wgmma.cuh, with the stats passes of K5 and K8/K9; the tiles
-of K5 and K8/K9 on mma.sync in the input's type), fp32 inputs the scalar one
+the library: K1-K4 and K6-K9 on Hopper's wgmma and TMA,
+csrc/allheads_wgmma.cuh, with the stats pass of K5; the tiles of K5 on
+mma.sync in the input's type), fp32 inputs the scalar one
 (on the tensor cores fp32 would run as TF32, about three decimal digits,
 against the fp32 checks' 2e-5). The wrappers count ``launches`` and, of
 those, ``launches_tc``. There is no fallback from one body to the other.
@@ -381,11 +381,12 @@ def _check_out_dout(name, q, out, dout):
     return out, dout
 
 
-# ---- the launch path of K1-K4, K6 and K7 ------------------------------
+# ---- the launch path of K1-K4 and K6-K9 -------------------------------
 #
-# K1 and K3 run once a layer and micro-step (K4 and K7 in T5's layers, K2
-# in CLIP's towers), and their bodies take tens of microseconds, so the
-# host's work around each launch sets their pace. Their launchers do only
+# K1 and K3 run once a layer and micro-step (K4, K7 and K8/K9 in T5's
+# layers, K2 in CLIP's towers), and their bodies take tens of
+# microseconds, so the host's work around each launch sets their pace.
+# Their launchers do only
 # what a call needs: the ctypes entry's argument types are set once at
 # load (``_build.load``), the raw stream comes from torch's C API, the
 # device is switched only when q is not on the current one, an int32
@@ -994,43 +995,58 @@ def _launch_bias(q, k, v, kv_mask, bias, seed, causal, scale, thr, keep_inv,
 
 def _launch_bias_bwd(q, k, v, kv_mask, bias, seed, out, dout, causal, scale,
                      thr, keep_inv, *stats):
-    """Run K8/K9's launcher (its tensor-core entry for bf16 and fp16) on the
-    current stream; returns (dq, dk, dv, dbias). ``stats``: K7's row max
-    and sum, from which the tensor-core body starts instead of its stats
-    pass, or none. dbias is summed over the batch from a per-(b, h) fp32 partial of
-    dlogits in a fixed order (no atomics): B * H * Sq * Sk * 4 bytes of
-    scratch, 50,331,648 at T5-base's encoder shape (4, 12, 512, 512), which
-    the tensor-core body writes whole (the scalar body needs it zeroed: it
+    """Run K8/K9 on the current stream through ``_call`` (it runs on
+    autograd's backward thread); returns (dq, dk, dv, dbias). The
+    tensor-core body (bf16, fp16) is K3's wgmma dQ (delta fused, dlogits
+    into the partial) and dK/dV bodies in their bias form, from ``stats``,
+    K7's row max and sum, or, where none are given, after its stats-only
+    pass; it takes no mask as a null pointer and one fp32 scratch: delta's
+    B * H * Sq floats (three times that for the stats-only pass), padded
+    to 16 bytes, then the partial where there is a bias. The scalar body
+    (fp32) reads a mask, a 3 * B * H * Sq scratch and a zeroed partial.
+    dbias is summed over the batch from a per-(b, h) fp32 partial of
+    dlogits in a fixed order (no atomics): B * H * Sq * Sk * 4 bytes,
+    50,331,648 at T5-base's encoder shape (4, 12, 512, 512), which the
+    tensor-core body writes whole (the scalar body needs it zeroed: it
     skips the causally hidden tiles)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    tc = _tensor_cores(q)
-    mask = _int_mask(q, k, kv_mask)
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(3 * b * h * sq, dtype=torch.float32,
-                          device=q.device)
-    dbias = partial = None
+    dbias = None
     if bias is not None:
         dbias = torch.empty(bias.shape, dtype=bias.dtype, device=q.device)
-        partial = (torch.empty if tc else torch.zeros)(
-            b * h * sq * sk, dtype=torch.float32, device=q.device)
-    codes = (_DTYPE_CODE[q.dtype],
-             _DTYPE_CODE[bias.dtype] if bias is not None else 0)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr())
-    grads = (out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), _ptr(dbias), scratch.data_ptr(), _ptr(partial))
     name = "flash_attention_bias_bwd"
-    if tc:
+    if _tensor_cores(q):
+        n = -(-b * h * sq * (1 if stats else 3) // 4) * 4
+        scratch = torch.empty(n + (b * h * sq * sk if bias is not None
+                                   else 0),
+                              dtype=torch.float32, device=q.device)
+        base = scratch.data_ptr()
         bias, ld = _tile_rows(bias)
-        _call(q, _lib_fn("mmgl_bias_bwd_tc"), name, *common, _ptr(bias),
-              _ptr(seed), *grads, *(_ptr(t) for t in (stats or (None, None))),
-              b, sq, sk, h, d, scale, causal, thr, keep_inv, *codes, ld)
-    else:
-        if bias is not None:
-            bias = bias.contiguous()
-        _call(q, _lib_fn("mmgl_bias_bwd"), name, *common, _ptr(bias),
-              _ptr(seed), *grads, b, sq, sk, h, d, scale, causal, thr,
-              keep_inv, *codes)
+        row_max, row_sum = stats or (None, None)
+        _call(q, _lib_fn("mmgl_bias_bwd_tc"), name, q.data_ptr(),
+              k.data_ptr(), v.data_ptr(), mask_ptr, _ptr(bias), _ptr(seed),
+              out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), _ptr(dbias), base,
+              None if bias is None else base + 4 * n, _ptr(row_max),
+              _ptr(row_sum), b, sq, sk, h, d, scale, causal, thr, keep_inv,
+              _DTYPE_CODE[q.dtype],
+              0 if bias is None else _DTYPE_CODE[bias.dtype], ld)
+        return dq, dk, dv, dbias
+    scratch = torch.empty(3 * b * h * sq, dtype=torch.float32,
+                          device=q.device)
+    partial = None
+    if bias is not None:
+        bias = bias.contiguous()
+        partial = torch.zeros(b * h * sq * sk, dtype=torch.float32,
+                              device=q.device)
+    _call(q, _lib_fn("mmgl_bias_bwd"), name, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), mask_ptr, _ptr(bias), _ptr(seed), out.data_ptr(),
+          dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          _ptr(dbias), scratch.data_ptr(), _ptr(partial), b, sq, sk, h, d,
+          scale, causal, thr, keep_inv, 0,
+          0 if bias is None else _DTYPE_CODE[bias.dtype])
     return dq, dk, dv, dbias
 
 
@@ -1042,9 +1058,11 @@ def flash_attention_bias_bwd(q, k, v, kv_mask, bias, out, dout, *,
     (H, Sq, Sk) or None; dbias is (H, Sq, Sk) in the bias dtype, summed over
     the batch, or None without a bias. ``row_max``/``row_sum``: K7's row
     stats for the same inputs (``flash_attention_bias_stats``), (B, H, Sq)
-    fp32, or None; the tensor-core body starts from them instead of
-    its stats pass, with the same bits, and the fp32 body and the plain
-    version recompute the softmax."""
+    fp32, or None; the tensor-core body (K3's wgmma bodies in their bias
+    form) starts from them instead of its stats pass, with the same bits,
+    and the fp32 body and the plain version recompute the softmax. With no
+    bias and no dropout the tensor-core body is K3's, so it then equals
+    ``flash_attention_allheads_bwd`` given the same stats, bit for bit."""
     name = "flash_attention_bias_bwd"
     _check(name, q, k, v, kv_mask, allow_sq_gt_sk=not causal)
     _check_bias(name, q, k, bias)

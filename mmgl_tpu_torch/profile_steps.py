@@ -85,10 +85,15 @@ KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
 _TC_BODY = re.compile(r"attention_(fwd|bwd_dkdv|bwd_dq)_tc_kernel<([^>]*)>")
 # the wgmma bodies (csrc/allheads_wgmma.cuh): the forward's <D, kStatsOnly,
 # Shape<...>, T, kBias, kDropout, TB> (K1, K4 and, in its bias form, K7;
-# stats-only, the stats passes of K3, K5 and K8/K9), and K3's dK/dV and dQ
+# stats-only, the stats passes of K3, K5 and K8/K9), and the dK/dV and dQ
+# bodies' <D, Shape<...>, T, kBias, kDropout, TB> (K3's and K6's; in their
+# bias form K8/K9's, whose library launch, allheads_bias_bwd_kernel, KINDS
+# names by its "bias_bwd_")
 _WG_FWD = re.compile(r"allheads_fwd_kernel<\d+, (true|false), [^<>]*<[^<>]*>, "
                      r"[^,<>]+, (true|false), (true|false)")
 _WG_BWD = re.compile(r"allheads_(dkdv|dq)_kernel<")
+_WG_BWD_FLAGS = re.compile(r"allheads_(dkdv|dq)_kernel<\d+, [^<>]*<[^<>]*>, "
+                           r"[^,<>]+, (true|false), (true|false)")
 
 
 def _kind(name: str) -> str:
@@ -99,7 +104,9 @@ def _kind(name: str) -> str:
             return "K8/K9" if stats_only else "K7"
         return "K3+K5+K6" if stats_only else "K1+K2+K4"
     if _WG_BWD.search(name):
-        return "K3+K5+K6"
+        flags = _WG_BWD_FLAGS.search(name)
+        return ("K8/K9" if flags and "true" in flags.group(2, 3)
+                else "K3+K5+K6")
     body = _TC_BODY.search(name)
     if body:
         args = [a.strip() for a in body.group(2).split(",")]

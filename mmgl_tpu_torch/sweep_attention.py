@@ -1,7 +1,21 @@
 """Time shapes of the bf16 tensor-core attention bodies on the card.
 
     python -m mmgl_tpu_torch.sweep_attention [--allheads | --no-allheads |
-                                             --k4-k7 | --k2-k6]
+                                             --k4-k7 | --k2-k6 | --k8-k9]
+
+``--k8-k9`` times only K8/K9 (csrc/sweep/k8_k9_shapes.cu, about three
+minutes with the build): the bias form of K3's wgmma dQ (delta fused,
+dlogits into the partial) and dK/dV bodies as the library lays them out
+(shape 0: one grid or two launches by the grid's size), in two launches,
+in one grid, and in two launches with K3's three-block dQ shape, beside
+the mma.sync bodies they replaced (shape -1: the delta pass and the bias
+form of attention_bwd_tiles.cuh's tiles), the library's wrapper and SDPA's
+backward, at T5-base's rows of PERF.md §6
+(the encoder at 512 and 576, the decoder's 128² causal and the prefixed
+decoder's 128 x 148 causal, each with its bias, without and with dropout
+0.1; the training cross-attention, 128 x 512, dropout without a bias),
+from K7's row stats, each ending with the batch-order reduction; with the
+device time of each, the library's by kernel, and the reduction's share.
 
 ``--allheads`` times K1's and K3's wgmma/TMA bodies alone (a few minutes),
 ``--no-allheads`` everything else, ``--k4-k7`` only K4's and K7's wgmma
@@ -81,7 +95,8 @@ from mmgl_tpu_torch.ops import flash_attention as fa
 
 SOURCES = [_build.CSRC / "sweep" / name
            for name in ("attention_shapes.cu", "bias_shapes.cu",
-                        "allheads_shapes.cu", "k4_k7_shapes.cu")]
+                        "allheads_shapes.cu", "k4_k7_shapes.cu",
+                        "k8_k9_shapes.cu")]
 RUN = 10        # calls back to back in a sample
 SAMPLES = 10
 # (B, Sq = Sk, H, D), causal, backward too
@@ -97,7 +112,7 @@ BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
 RATE = 0.1
 
 
-def build(which=(0, 1, 2, 3)):
+def build(which=(0, 1, 2, 3, 4)):
     """The sweep libraries (``which``: indices into SOURCES; the others are
     None), each source built by its own nvcc, all at once; prints each
     kernel's registers and any spills."""
@@ -117,7 +132,7 @@ def build(which=(0, 1, 2, 3)):
                         if "Compiling entry" in line or "Used" in line
                         or "spill" in line
                         and " 0 bytes spill stores" not in line))
-    lib, bias_lib, allheads_lib, k4k7_lib = (
+    lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib = (
         ctypes.CDLL(str(out)) if i in which else None
         for i, out in enumerate(outs))
     ptr, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -141,7 +156,12 @@ def build(which=(0, 1, 2, 3)):
         k4k7_lib.sweep_k7.argtypes = ([i32] + [ptr] * 5 + [i32, i32]
                                       + [ptr] * 4 + [i32] * 4
                                       + [f32, i32, u32, f32, ptr])
-    return lib, bias_lib, allheads_lib, k4k7_lib
+    if k8k9_lib is not None:
+        k8k9_lib.sweep_k8k9.argtypes = ([i32] + [ptr] * 5 + [i32]
+                                        + [ptr] * 11 + [i32] * 4
+                                        + [f32, i32, u32, f32, ptr])
+        k8k9_lib.sweep_k8k9_reduce.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
+    return lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib
 
 
 def inputs(b, s, h, d, seed, device):
@@ -790,13 +810,129 @@ def sweep_k6_case(lib, dims, device):
             "agrees_with_library": same}
 
 
+# K8/K9's rows of PERF.md §6, T5-base's: (name, (B, Sq, Sk, H), causal,
+# bias), each with and without dropout 0.1 (the cross-attention, which has
+# no bias, only with)
+K8K9_CASES = [("enc", (4, 512, 512, 12), False, True),
+              ("enc576", (4, 576, 576, 12), False, True),
+              ("dec", (4, 128, 128, 12), True, True),
+              ("cross", (4, 128, 512, 12), False, False),
+              ("t5prefix", (4, 128, 148, 12), True, True)]
+
+
+def device_ms_by_kernel(fn, calls=20):
+    """{kernel name: device ms a call} of one callable's kernel events
+    under torch.profiler (CUDA activity) over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: round(e.self_device_time_total / calls / 1e3, 4)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA"
+            and e.self_device_time_total > 0}
+
+
+def sweep_k8k9_case(lib, tag, dims, causal, with_bias, rate, device):
+    """K8/K9 at one of T5's shapes, from K7's row stats: the library's
+    wrapper, the mma.sync bodies before (shape -1: the delta pass and the
+    bias form of the dK/dV and dQ tiles), the bias form of K3's wgmma dQ
+    and dK/dV bodies in each of the sweep's shape pairs (the first the
+    library's), each ending with the batch-order reduction where there is a
+    bias, and SDPA's backward (the bias's gradient too); the wall of each in
+    turns, its device time, the library's device time by kernel and the
+    reduction's alone. The bias is (H, Sq, Sk) bf16 in rows padded to a
+    multiple of 8, read in place, as T5's stack hands it."""
+    b, sq, sk, h = dims
+    q, k, v, dout, bias, mask, seed, thr, keep_inv = bias_inputs(
+        dims, with_bias, rate, device)
+    stream = torch.cuda.current_stream().cuda_stream
+    padded = None if bias is None else fa.padded_bias(bias)
+    ld = 0 if bias is None else fa._bias_ld(padded)
+    out, m, l = fa.flash_attention_bias_stats(
+        q, k, v, bias=None if bias is None else padded[None], kv_mask=mask,
+        causal=causal, scale=1.0, dropout_rate=rate, dropout_seed=seed)
+    bkw = dict(causal=causal, scale=1.0, dropout_rate=rate,
+               dropout_seed=seed, row_max=m, row_sum=l)
+    ref = fa.flash_attention_bias_bwd(q, k, v, mask, padded, out, dout,
+                                      **bkw)
+    bwd = {"library K8/K9 (wrapper)": lambda: fa.flash_attention_bias_bwd(
+        q, k, v, mask, padded, out, dout, **bkw)}
+    n = b * h * sq
+    partial = (torch.empty(n * sk, dtype=torch.float32, device=device)
+               if bias is not None else None)
+    same = {}
+    ptr = fa._ptr
+    for i in range(-1, lib.sweep_k8k9_shapes()):
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        dbias = None if bias is None else torch.empty_like(bias)
+        delta = torch.empty(n, dtype=torch.float32, device=device)
+        name = "mma.sync (before)" if i < 0 else f"k8k9 shape {i}"
+
+        def call(i=i, grads=grads, dbias=dbias, delta=delta, name=name):
+            err = lib.sweep_k8k9(
+                i, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                ptr(padded), ld, ptr(seed), out.data_ptr(), dout.data_ptr(),
+                m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+                *(t.data_ptr() for t in grads), ptr(partial), ptr(dbias), b,
+                sq, sk, h, 1.0, int(causal), thr, keep_inv, stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        got = grads + ([] if dbias is None else [dbias])
+        same[name] = _near(got, [t for t in ref if t is not None])
+        bwd[name] = call
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                       for t in (q, k, v, dout))
+    am = _sdpa_mask(mask, sq, causal, device, bias)
+    ins = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    if bias is not None:
+        am = am.detach().requires_grad_()
+        ins.append(am)
+    lib_out = F.scaled_dot_product_attention(*ins[:3], attn_mask=am,
+                                             dropout_p=rate, scale=1.0)
+    bwd["scaled_dot_product_attention backward"] = \
+        lambda: torch.autograd.grad(lib_out, ins, dot, retain_graph=True)
+    result = {"case": f"k8k9 {tag}", "shape": list(dims), "causal": causal,
+              "bias": with_bias, "dropout": rate,
+              "backward_ms": medians(bwd), "device_ms": device_ms(bwd),
+              "library_by_kernel": device_ms_by_kernel(
+                  bwd["library K8/K9 (wrapper)"]),
+              "agrees_with_library": same}
+    if bias is not None:
+        dbias = torch.empty_like(bias)
+
+        def reduction():
+            err = lib.sweep_k8k9_reduce(partial.data_ptr(), dbias.data_ptr(),
+                                        b, sq, sk, h, stream)
+            if err:
+                raise RuntimeError(f"reduction: CUDA error {err}")
+        # the partial + reduction's share of the library's device time:
+        # the reduction measured alone; the partial's writes (in dQ) and
+        # reads (in the reduction) as bytes, and their least HBM time
+        red = device_ms({"r": reduction})["r"]
+        total = sum(result["library_by_kernel"].values())
+        nbytes = 2 * partial.numel() * 4
+        result.update(reduction_device_ms=red,
+                      reduction_share=round(red / total, 4),
+                      partial_bytes_written_and_read=nbytes,
+                      partial_hbm_bound_ms=round(nbytes / 3.35e9, 4))
+    return result
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     k2k6 = "--k2-k6" in args
-    only_new = "--k4-k7" in args or k2k6
+    k8k9 = "--k8-k9" in args
+    only_new = "--k4-k7" in args or k2k6 or k8k9
     allheads = "--no-allheads" not in args and not only_new
     rest = "--allheads" not in args and not only_new
-    new = "--allheads" not in args and not k2k6
+    new = "--allheads" not in args and not (k2k6 or k8k9)
     if not torch.cuda.is_available():
         print("sweep_attention: no CUDA device", file=sys.stderr)
         return 1
@@ -805,10 +941,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"], capture_output=True,
         text=True).stdout.strip())
-    lib, bias_lib, allheads_lib, k4k7_lib = build(
+    lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib = build(
         ((0, 1) if rest else ()) + ((2,) if allheads or k2k6 else ())
-        + ((3,) if new else ()))
+        + ((3,) if new else ()) + ((4,) if k8k9 or not only_new else ()))
     runs = []
+    if k8k9 or not only_new:
+        runs += [lambda c=c, r=r: sweep_k8k9_case(k8k9_lib, *c, r, device)
+                 for c in K8K9_CASES
+                 for r in ((0.0, RATE) if c[3] else (RATE,))]
     if k2k6:
         runs += [lambda c=c: sweep_k2_case(allheads_lib, *c, device)
                  for c in K2_CASES]

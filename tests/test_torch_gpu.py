@@ -523,6 +523,79 @@ def test_bias_kernels_match_plain_versions(dims, causal, with_bias, dtype,
         _close_rel(g, r, dtype, name)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
+def test_k8_k9_partial_primed_with_nan(dtype):
+    """K8/K9 (bias, dropout 0.1, causal, from K7's row stats) run right
+    after a block of its partial's size was filled with NaN and freed, at
+    (2, 192, 192, 4) with keys 64-127 masked in every sample (a whole key
+    tile the dQ body skips, and tiles past its blocks' causal limits): the
+    caching allocator hands that block to the partial (every other buffer
+    of the call is below 1 MiB), and dbias comes out finite, exactly 0
+    where every sample's logit is masked, and within the backward
+    tolerance of the plain version, as dq, dk and dv do."""
+    dev = _device()
+    b, s, h = 2, 192, 4
+    q, k, v, dout = _qkv((b, s, s, h, h), dtype, dev, seed=192, scale=0.125)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[:, 64:128] = 0
+    mask[1, 150:] = 0
+    rng = np.random.RandomState(5)
+    bias = torch.from_numpy(rng.randn(h, s, s).astype(np.float32)).to(
+        dev, dtype)
+    seed = torch.tensor([4242, 77], dtype=torch.int64, device=dev)
+    kw = dict(causal=True, scale=1.0, dropout_rate=0.1, dropout_seed=seed)
+    out, m, l = fa.flash_attention_bias_stats(q, k, v, bias=bias[None],
+                                              kv_mask=mask, **kw)
+    n = b * h * s * s
+    primed = torch.full((n,), float("nan"), device=dev)
+    ptr = primed.data_ptr()
+    del primed
+    again = torch.empty(n, device=dev)
+    assert again.data_ptr() == ptr
+    del again
+    got = fa.flash_attention_bias_bwd(q, k, v, mask, bias, out, dout,
+                                      row_max=m, row_sum=l, **kw)
+    torch.cuda.synchronize()
+    dbias = got[3].float()
+    i = torch.arange(s, device=dev)[:, None]
+    masked = (i < torch.arange(s, device=dev)[None, :]) | (
+        mask == 0).all(0)[None, :]
+    assert bool(torch.isfinite(dbias).all())
+    assert bool((dbias[:, masked] == 0).all())
+    refs = fa.bias_attention_bwd_reference(q, k, v, mask, bias[None], out,
+                                           dout, **kw)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"),
+                          got[:3] + (got[3][None],), refs):
+        _close_rel(g, r, dtype, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**TC_DTYPES)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_k8_k9_without_bias_or_dropout_is_k3(causal, dtype):
+    """K8/K9 with no bias and dropout 0 runs K3's wgmma bodies: given the
+    same out and row stats (K1's), at (4, 333, 333, 2) with a pad hole and
+    a fully masked sample, it equals flash_attention_allheads_bwd bit for
+    bit, and returns no dbias."""
+    dev = _device()
+    b, s, h = 4, 333, 2
+    q, k, v, dout = _qkv((b, s, s, h, h), dtype, dev, seed=333)
+    mask = hole_mask(b, s, seed=7)
+    mask[0] = 0
+    mask = torch.from_numpy(mask).to(dev)
+    out, m, l = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
+                                                  causal=causal)
+    k3 = fa.flash_attention_allheads_bwd(q, k, v, mask, out, dout,
+                                         causal=causal, row_max=m, row_sum=l)
+    got = fa.flash_attention_bias_bwd(q, k, v, mask, None, out, dout,
+                                      causal=causal, row_max=m, row_sum=l)
+    torch.cuda.synchronize()
+    assert got[3] is None
+    for name, g, r in zip(("dq", "dk", "dv"), got, k3):
+        assert torch.equal(g, r), name
+
+
 def kernel_keep_mask(b, sq, sk, h, seed, rate, dev, dtype=torch.float32):
     """(B, H, Sq, Sk) bool: the elements K7 keeps, read off its output.
     With q = 0 and one 64-key window unmasked, P is 1/64 on the window's

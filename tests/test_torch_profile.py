@@ -96,11 +96,25 @@ def test_tensor_core_body_kinds(name, kind):
      "__nv_bfloat16>", "K3+K5+K6"),
     ("wg::allheads_dq_kernel<64, mmgl::wg::Shape<1, 64, 2, 3, false>, "
      "__half>", "K3+K5+K6"),
+    # K8/K9: the same bodies in their bias form (the bias, or dropout
+    # alone); with both flags off they are K3's
+    ("wg::allheads_dq_kernel<64, mmgl::wg::Shape<1, 64, 2, 3>, "
+     "__nv_bfloat16, true, true, __nv_bfloat16>", "K8/K9"),
+    ("wg::allheads_dkdv_kernel<64, mmgl::wg::Shape<1, 64, 2, 2>, __half, "
+     "false, true, __half>", "K8/K9"),
+    ("wg::allheads_dkdv_kernel<64, mmgl::wg::Shape<1, 64, 2, 2>, "
+     "__nv_bfloat16, true, false, float>", "K8/K9"),
+    ("wg::allheads_dq_kernel<64, mmgl::wg::Shape<1, 64, 2, 3>, "
+     "__nv_bfloat16, false, false, __nv_bfloat16>", "K3+K5+K6"),
+    # K8/K9's library launch: both bodies in one grid
+    ("wg::allheads_bias_bwd_kernel<64, mmgl::wg::Shape<1, 64, 2, 2>, "
+     "mmgl::wg::Shape<1, 64, 2, 2>, __nv_bfloat16, true, true, "
+     "__nv_bfloat16>", "K8/K9"),
 ])
 def test_wgmma_body_kinds(name, kind):
     """The wgmma bodies are told apart by their template flags: stats-only
     forms are the backward's stats passes, the bias form (kBias or
-    kDropout) K7's forward and K8/K9's stats pass."""
+    kDropout) K7's forward, K8/K9's stats pass and K8/K9's dK/dV and dQ."""
     assert profile_steps._kind(f"void mmgl::{name}(CUtensorMap_st, "
                                f"int, mmgl::BiasArgs<float>)") == kind
 

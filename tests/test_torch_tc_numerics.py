@@ -1,11 +1,11 @@
 """The arithmetic of the tensor-core attention bodies (bf16 and fp16),
 emulated in torch on the CPU and held against the JAX package.
 
-The bodies (mmgl_tpu_torch/csrc/attention_fwd_tc.cuh for K2; the dK/dV
-and dQ bodies of attention_bwd_tiles.cuh for K5/K6 and K8/K9; the wgmma
-bodies of allheads_wgmma.cuh for K1, K3, K4, K7 and the stats passes of K5
-and K8/K9) run only on a card. This file repeats their arithmetic order in
-torch:
+The bodies (the dK/dV and dQ bodies of
+mmgl_tpu_torch/csrc/attention_bwd_tiles.cuh for K5; the wgmma bodies of
+allheads_wgmma.cuh for K1-K4, K6-K9 and the stats pass of K5; the mma.sync
+forward of attention_fwd_tc.cuh, which K2 ran before) run only on a card.
+This file repeats their arithmetic order in torch:
   * 64 x 64 tiles (mma.sync, and the wgmma bodies' library shapes), or the
     wgmma bodies' other widths (WGMMA_TILES, K7_TILES);
     products of bf16 (or fp16) values accumulated in fp32;
