@@ -37,8 +37,8 @@ imports no JAX. Phases, each fatal on failure:
      (4, 512, 32, 128) under right-padded prompts, K4 and K5 at MPT-2.7B's
      prefill cross-attention (4, 512 x 64, 32, 80); K4 with its row
      stats and K6 at the causal ones, a ragged 333 at each D, each against
-     its plain version, K6 against K5 (bit for bit in fp32, within the
-     backward tolerance in bf16 and fp16) and against K3 given the same
+     its plain version, K6 against K5 (bit for bit: one code in every
+     dtype) and against K3 given the same
      stats (bit for bit in bf16 and fp16: K3's wgmma bodies), the half
      types on the tensor-core bodies. K1 and K3 on their wgmma/TMA bodies
      at lengths 1, 63, 64, 65, 127, 128, 129, 205 and 640 and at 100
@@ -235,7 +235,7 @@ tensor (the LM under PEFT, the towers) stayed bit for bit.
 Phase 3 also holds K4 with its row stats and K6 against their plain
 versions at OPT-350M's shape with a pad hole and with a fully masked
 sample, ragged and end-aligned sq < sk, and at OPT-350M's shape K6 against
-K5 (bit for bit in fp32, within the backward tolerance in bf16 and fp16)
+K5 (bit for bit: K5 runs K6's code from its own stats pass)
 and, in bf16 and fp16, K4's row stats equal to K1's and K6 equal to K3
 given them, bit for bit (K6 runs K3's wgmma bodies). K2 at CLIP's 197
 patches also runs without a mask (a null pointer). The launch counts are
@@ -245,7 +245,7 @@ bodies, tensor cores for bf16 and fp16 and scalar FMAs for fp32: phases 4,
 took the tensor-core body, and their fp32 checks that none did.
 Phase 3 also holds K4's wgmma body at its query lengths 63-2048 against
 64-724 keys, head dims 64, 80 and 128 (K6 from its stats equal to K3
-given them bit for bit, and within the backward tolerance of K5), and
+given them and to K5, bit for bit), and
 K7's with an fp32 bias at T5's shapes (K8/K9 from its stats
 equal to K8/K9 with its own stats pass, a row-padded bias the same bits as
 a contiguous one), and K8/K9 on the bias form of K3's wgmma bodies:
@@ -254,12 +254,16 @@ profiled call at the encoder and one at the decoder that launch the wgmma
 dQ and dK/dV bodies (two launches, one grid) and no delta pass or mma.sync
 tile; and a causal case with a masked key tile whose
 partial's block was filled with NaN just before (dbias finite, 0 where
-every sample's logit is masked).
+every sample's logit is masked). K5 on K3's wgmma bodies after its stats
+pass, bf16 and fp16: equal to K6 given K4's stats bit for bit at T5's
+cross-attention (one grid) and MPT's (two launches), and a profiled call
+at each that launches the wgmma dQ and dK/dV bodies and no delta pass or
+mma.sync tile.
 Phase 8 times K3 as training runs it, from K1's row stats.
 Prints the seconds elapsed at the end of each phase (and a JSON line of
-them), a kernels JSON line (each entry's "design" names its body: "tc" the
-mma.sync bodies (K5), "bias_tc" the bias form of K3's wgmma bodies
-(K8/K9), "wgmma_tma" K1's to K4's and K6's, "wgmma_tma_bias" K7's;
+them), a kernels JSON line (each entry's "design" names its body:
+"bias_tc" the bias form of K3's wgmma bodies (K8/K9), "wgmma_tma" K1's to
+K6's, "wgmma_tma_bias" K7's;
 the fp16 forms, the shapes of phases 12-14 and
 the head dims 80 and 128 that phases 18 and 16 launch, and K2's causal
 form at the CLIP text tower's shape that phase 18 launches, as entries of
@@ -449,11 +453,6 @@ TRACE_KERNELS = ("allheads_fwd_kernel", "allheads_dkdv_kernel",
 # the mma.sync forward body, which no entry launches since K2 moved onto
 # the wgmma forward (the sweep's "before" only)
 RETIRED_KERNEL = "attention_fwd_tc_kernel"
-# the wgmma bodies: the wrappers whose kernels-line entries name that
-# design (K7's in its bias form)
-WGMMA_KERNELS = ("flash_attention_allheads", "fused_heads_attention",
-                 "flash_attention_allheads_bwd", "flash_attention",
-                 "flash_attention_blocked_bwd", "flash_attention_bias_bwd")
 VIRTUAL = 20                # num_virtual_tokens
 # the neighbour memory's projections and position tables
 MEMORY = ("text_embeddings.", "visual_embeddings.",
@@ -502,16 +501,16 @@ KERNELS = {
 BIAS_KERNELS = ("flash_attention_bias", "flash_attention_bias_bwd")
 # the tensor-core bodies the kernels line names (every timed case is bf16
 # or fp16: the same bodies, m16n8k16 in .bf16 or .f16)
-DESIGNS = {"tc": "tensor cores: mma.sync m16n8k16, fp32 accumulators, "
-                 "64 x 64 tiles, 4 warps of 16 rows, 2-stage cp.async ring",
-           "wgmma_tma": "wgmma m64nNk16 (P and dS as register A operands), "
+DESIGNS = {"wgmma_tma": "wgmma m64nNk16 (P and dS as register A operands), "
                         "TMA tiles through 4-D tensor maps into a "
                         "2-stage mbarrier ring, one producer warp and "
                         "consumer warpgroups of 64 rows; K3 from K1's "
                         "row stats; K2 K1's forward at sq == sk, K4 at "
-                        "any sq and sk, K5's stats pass its stats-only "
-                        "form; K6 K3's dQ (delta fused) and dK/dV bodies "
-                        "from K4's row stats",
+                        "any sq and sk; K6 K3's dQ (delta fused) and "
+                        "dK/dV bodies from K4's row stats, K5 the same "
+                        "after K4's stats-only form, both bodies in one "
+                        "grid where they fill two waves of the SMs' "
+                        "slots or fewer",
            "wgmma_tma_bias": "K1's wgmma/TMA forward in its bias form: the "
                              "bias tile in the TMA ring through a 3-D map "
                              "(rows padded to 8 elements once a stack), "
@@ -1039,26 +1038,22 @@ def k6_against_k3_and_k5(fa, q, k, v, mask, out, dout, m, l, got, k5,
                          dtype_name, label):
     """K6's gradients ``got`` from K4's row stats ``m``, ``l`` against K5's
     ``k5`` on the same inputs, which computes the same gradient with a
-    stats pass: in fp32 (the same scalar tiles) bit for bit; in bf16 and
-    fp16 within phase 3's backward tolerance (K5 runs the mma.sync tiles,
-    K6 K3's wgmma bodies), and, where K3 takes the inputs (sq <= sk), K4's
-    stats equal to K1's and K6 equal to K3 given them (the same bodies),
-    bit for bit. Returns the report."""
+    stats pass (K4's body in its stats-only form, the same bits): bit for
+    bit in every dtype (fp32 the same scalar tiles, bf16 and fp16 K3's
+    wgmma bodies, one grid or two launches); and, in bf16 and fp16 where
+    K3 takes the inputs (sq <= sk), K4's stats equal to K1's and K6 equal
+    to K3 given them (the same bodies), bit for bit. Returns the report."""
     import torch
 
-    if dtype_name == "float32":
-        errs = []
-        for name, g, r in zip(("dq", "dk", "dv"), got, k5):
-            errs.append(float((g.float() - r.float()).abs().max()))
-            if not torch.equal(g, r):
-                fail(f"K6's {name} differs from K5's at {label} "
-                     f"{dtype_name} (max abs {errs[-1]:.3e})")
-        return ("against flash_attention_bwd (K5): equal bit for bit (max "
-                f"abs {', '.join(f'{e:g}' for e in errs)})")
-    report = ("against flash_attention_bwd (K5): " + _grads_within(
-        "flash_attention_blocked_bwd", got, k5, dtype_name,
-        f"{label} against K5", collections.defaultdict(float)))
-    if q.shape[1] > k.shape[1]:
+    errs = []
+    for name, g, r in zip(("dq", "dk", "dv"), got, k5):
+        errs.append(float((g.float() - r.float()).abs().max()))
+        if not torch.equal(g, r):
+            fail(f"K6's {name} differs from K5's at {label} "
+                 f"{dtype_name} (max abs {errs[-1]:.3e})")
+    report = ("against flash_attention_bwd (K5): equal bit for bit (max "
+              f"abs {', '.join(f'{e:g}' for e in errs)})")
+    if dtype_name == "float32" or q.shape[1] > k.shape[1]:
         return report
     _, m1, l1 = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
                                                   causal=True)
@@ -1261,8 +1256,7 @@ def check_k4_wgmma(fa, device, worst):
         print(f"[check] K4 wgmma body at head dim {d}, Sq {K4_LENGTHS} x Sk "
               f"{K4_KEYS}, bf16 and fp16, no mask and a pad gap with a "
               "fully masked sample: ok; causal with stats where Sq <= Sk: "
-              "ok, K6 within tolerance of K5 and = K3 from K4's stats (= "
-              "K1's) bit for bit")
+              "ok, K6 = K5 and = K3 from K4's stats (= K1's) bit for bit")
 
 
 def check_k7_wgmma(fa, device, worst):
@@ -1327,12 +1321,13 @@ def check_k7_wgmma(fa, device, worst):
 K8K9_K3_CASES = [((4, 512, 12), "gap_fully_masked"), ((3, 333, 2), "hole333")]
 # the kernels K8/K9 launches in bf16 and fp16 with a bias or dropout, by
 # BIAS_CASES index: at the encoder the wgmma dQ and dK/dV bodies in two
-# launches, at the decoder both in one grid; and those it launched before
-# (the delta pass and the mma.sync tiles), as the profiler names them
+# launches, at the decoder both in one grid; and those K5 and K8/K9
+# launched before (the delta pass and the mma.sync tiles), as the profiler
+# names them
 K8K9_EVENTS = {0: ("allheads_dq_kernel", "allheads_dkdv_kernel"),
-               1: ("allheads_bias_bwd_kernel",)}
-K8K9_RETIRED = ("attention_delta_kernel", "attention_bwd_dq_tc_kernel",
-                "attention_bwd_dkdv_tc_kernel")
+               1: ("allheads_dq_dkdv_kernel",)}
+RETIRED_BWD = ("attention_delta_kernel", "attention_bwd_dq_tc_kernel",
+               "attention_bwd_dkdv_tc_kernel")
 # the NaN-primed case: (B, S, H), causal, keys 64-127 masked in every
 # sample (a whole key tile); sizes that keep every buffer but the partial
 # below 1 MiB, so that the caching allocator hands the partial the block
@@ -1416,9 +1411,9 @@ def check_k8_k9_wgmma(fa, device, worst):
             names = [e.key for e in prof.key_averages()
                      if e.device_type.name == "CUDA"]
             seen = {k_: sum(k_ in n for n in names)
-                    for k_ in events + K8K9_RETIRED}
+                    for k_ in events + RETIRED_BWD}
             if any(seen[k_] == 0 for k_ in events) or any(
-                    seen[k_] for k_ in K8K9_RETIRED):
+                    seen[k_] for k_ in RETIRED_BWD):
                 fail(f"K8/K9's traced call ({tag} {dims} {dtype_name}) "
                      f"launched {seen}: want {events} and no delta pass or "
                      f"mma.sync tile (kernels: {names})")
@@ -1455,10 +1450,67 @@ def check_k8_k9_wgmma(fa, device, worst):
     print("[check] K8/K9 wgmma bodies: without a bias or dropout = K3 from "
           f"the same stats bit for bit at {K8K9_K3_CASES}, causal and not; "
           f"traced calls launched {K8K9_EVENTS} and none of "
-          f"{K8K9_RETIRED}; a NaN-primed partial at (B, S, H) "
+          f"{RETIRED_BWD}; a NaN-primed partial at (B, S, H) "
           f"{K8K9_NAN_DIMS} causal "
           "with a masked key tile: dbias finite, 0 where every logit is "
           "masked, within tolerance; bf16 and fp16")
+
+
+# K5 against K6 given K4's stats, and its traced kernels: (name, (B, Sq,
+# Sk, H, K/V heads), head dim, key mask, the kernels its call launches):
+# T5's cross-attention (96 dQ and 384 dK/dV blocks: one grid) and
+# MPT-2.7B's (1280 and 128: dQ, then dK/dV), each after the stats pass
+K5_CASES = [("t5 cross", (4, 128, 512, 12, 12), 64, "gap",
+             ("allheads_fwd_kernel", "allheads_dq_dkdv_kernel")),
+            ("mpt-2.7b cross", (4, 640, 64, 32, 32), 80, "gap_fully_masked",
+             ("allheads_fwd_kernel", "allheads_dq_kernel",
+              "allheads_dkdv_kernel"))]
+
+
+def check_k5_wgmma(fa, device):
+    """Phase 3, K5 on K3's wgmma bodies after its stats pass, bf16 and
+    fp16, at K5_CASES with the key mask and without one (a null pointer):
+    equal to K6 given K4's row stats and to itself run again, bit for bit;
+    one call a case profiled, its trace holding the stats pass and the
+    wgmma dQ and dK/dV kernels and none of the delta pass or the mma.sync
+    tiles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for tag, dims, d, mask_kind, events in K5_CASES:
+        for dtype_name in TC_DTYPES:
+            q, k, v, mask, dout = flash_inputs(
+                dims, mask_kind, getattr(torch, dtype_name), device, 1400, d)
+            label = f"{tag} {dims} d{d} {dtype_name}"
+            for kv_mask in (mask, None):
+                out, m, l = fa.flash_attention_stats(q, k, v, kv_mask=kv_mask)
+                k5 = fa.flash_attention_bwd(q, k, v, kv_mask, out, dout)
+                again = fa.flash_attention_bwd(q, k, v, kv_mask, out, dout)
+                k6 = fa.flash_attention_blocked_bwd(q, k, v, kv_mask, out,
+                                                    dout, m, l, causal=False)
+                torch.cuda.synchronize(device)
+                for name, g, g2, g6 in zip(("dq", "dk", "dv"), k5, again, k6):
+                    if not (torch.equal(g, g6) and torch.equal(g, g2)):
+                        fail(f"K5's {name} at {label} (mask "
+                             f"{kv_mask is not None}) differs from K6's "
+                             "given K4's stats or from its own second call")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fa.flash_attention_bwd(q, k, v, mask, out, dout)
+                torch.cuda.synchronize(device)
+            names = [e.key for e in prof.key_averages()
+                     if e.device_type.name == "CUDA"]
+            seen = {k_: sum(k_ in n for n in names)
+                    for k_ in events + RETIRED_BWD}
+            if any(seen[k_] == 0 for k_ in events) or any(
+                    seen[k_] for k_ in RETIRED_BWD):
+                fail(f"K5's traced call ({label}) launched {seen}: want "
+                     f"{events} and no delta pass or mma.sync tile "
+                     f"(kernels: {names})")
+            del q, k, v, mask, dout, out, m, l, k5, again, k6
+    print(f"[check] K5 wgmma bodies at {[c[:3] for c in K5_CASES]}, bf16 "
+          "and fp16, with a key mask and without: = K6 from K4's stats and = "
+          "its own second call, bit for bit; traced calls launched "
+          f"{[c[4] for c in K5_CASES]} and none of {RETIRED_BWD}")
 
 
 def dkey(name: str, d: int) -> str:
@@ -1628,12 +1680,11 @@ class ShapeTally:
         self.dims = collections.Counter()
 
     def _wrap_bwd(self, fn):
-        def tallied(entry, name, q, k, *a, **kw):
-            self.dims[(name, q.shape[-1])] += 1
-            if name == "flash_attention_bwd":
-                key = (q.shape[1], k.shape[1])
-                self.flash_bwd[key] = self.flash_bwd.get(key, 0) + 1
-            return fn(entry, name, q, k, *a, **kw)
+        def tallied(q, k, *a, **kw):
+            self.dims[("flash_attention_bwd", q.shape[-1])] += 1
+            key = (q.shape[1], k.shape[1])
+            self.flash_bwd[key] = self.flash_bwd.get(key, 0) + 1
+            return fn(q, k, *a, **kw)
         return tallied
 
     def _wrap(self, fn, table):
@@ -1760,10 +1811,10 @@ class PlainCheck:
                           (tuple(q.shape), tuple(k.shape)))
             return got
 
-        def launch_bwd(entry, name, q, k, v, kv_mask, out, dout, causal,
-                       scale):
-            got = saved["_launch_bwd"](entry, name, q, k, v, kv_mask, out,
-                                       dout, causal, scale)
+        def launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
+            name = "flash_attention_bwd"
+            got = saved["_launch_bwd"](q, k, v, kv_mask, out, dout, causal,
+                                       scale)
             ref = getattr(fa, KERNELS[name][0])(q, k, v, kv_mask, out, dout,
                                                 causal=causal, scale=scale)
             self._backward(name, got, ref, tuple(q.shape))
@@ -3933,6 +3984,7 @@ def main() -> int:
     check_k4_wgmma(fa, device, worst)
     check_k7_wgmma(fa, device, worst)
     check_k8_k9_wgmma(fa, device, worst)
+    check_k5_wgmma(fa, device)
     lap("3")
 
     test, results, opt_test, rate, peak = run_test_pass(
@@ -4290,7 +4342,7 @@ def main() -> int:
                     "float16" if fp16 else "bfloat16"))
         design = ("wgmma_tma_bias" if base == "flash_attention_bias" else
                   "bias_tc" if base == "flash_attention_bias_bwd" else
-                  "wgmma_tma" if base in WGMMA_KERNELS else "tc")
+                  "wgmma_tma")
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

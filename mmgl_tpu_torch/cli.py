@@ -254,6 +254,7 @@ def run(args: Arguments, device: torch.device,
     evaluate_loop's metrics (plus ``train_updates`` after training).
     ``log_fn(scalars, step)`` gets every scalar the wandb run gets, and the
     batch timings."""
+    check_single_device_flags(args)
     if not args.test:
         return run_training(args, device, log_fn)
     wandb_run = start_wandb(args)
@@ -276,9 +277,9 @@ def main(argv=None) -> Dict[str, float]:
     return run(args, device)
 
 
-def check_training_flags(args: Arguments) -> None:
-    """Refuse what training does not port yet, naming its ROADMAP item:
-    only what needs more than one device."""
+def check_single_device_flags(args: Arguments) -> None:
+    """Refuse what training and the test pass do not port yet, naming its
+    ROADMAP item: only what needs more than one device."""
     unported = {
         f"--mesh_shape {args.mesh_shape} (one device only, ROADMAP A8)":
             math.prod(args.mesh_shape) != 1,
@@ -373,7 +374,7 @@ def run_training(args: Arguments, device: torch.device,
     """Counterpart of mmgl_tpu.cli.run_training (run_generation.py:236-428
     in the reference) on one device. Returns the final test pass's metrics
     plus ``train_updates``."""
-    check_training_flags(args)
+    check_single_device_flags(args)
     seed = args.seed or 0
     if args.seed is not None:
         np.random.seed(args.seed)

@@ -1,13 +1,14 @@
-// K1, K2, K4 and K7's forward and the dK/dV and dQ passes of K3, K6 and
-// K8/K9 on Hopper's warpgroup products (wgmma) and TMA: the forward of
+// K1, K2, K4 and K7's forward and the dK/dV and dQ passes of K3, K5, K6
+// and K8/K9 on Hopper's warpgroup products (wgmma) and TMA: the forward of
 // OPT's all-heads attention, of CLIP's fused-heads attention (K1's at
 // sq == sk), of the per-head attention at any sq and sk, and of T5's bias
 // and dropout attention, and the backward of K1 from its row statistics,
-// of K4 from its, and of K7 from its (allheads_wgmma.cu, attention_fwd.cu,
-// attention_bias_fwd.cu, attention_blocked_bwd.cu and
-// attention_bias_bwd.cu hold the entries; the forward's stats-only form is
-// the stats pass of K3, K5 and K8/K9, in allheads_wgmma.cu,
-// attention_bwd.cu and attention_bias_bwd.cu).
+// of K4 from its (K6) or from its stats pass (K5), and of K7 from its
+// (allheads_wgmma.cu, attention_fwd.cu, attention_bias_fwd.cu,
+// attention_bwd.cu, attention_blocked_bwd.cu and attention_bias_bwd.cu
+// hold the entries; the forward's stats-only form is the stats pass of K3,
+// K5 and K8/K9, in allheads_wgmma.cu, attention_bwd.cu and
+// attention_bias_bwd.cu).
 //
 // Replaces _allheads_kernel_fwd (mmgl_tpu/ops/flash_attention.py:1283, via
 // _allheads_fwd :1359), _fused_heads_kernel (:1152, via _fused_heads_fwd
@@ -18,9 +19,9 @@
 // _bwd_bias_kernel(_batched) (:689, :843, via _bwd_bias :984 and
 // _bwd_bias_batched :942).
 // The math is xla_attention's, as in the mma.sync bodies these replace
-// (attention_fwd_tc.cuh, now only the sweep's "before", and
-// attention_bwd_tiles.cuh, which still serves K5's tiles; its bias form is
-// the sweep's "before" of K8/K9):
+// (attention_fwd_tc.cuh and the tensor-core tiles of
+// attention_bwd_tiles.cuh, in their bias form too, now only the sweeps'
+// "before"):
 // masked logits -1e30, causal aligned at the ends, a
 // fully masked row averaging V over the sk keys, and jax.grad's zero dS at
 // masked logits. Every element's arithmetic is theirs too (logits in log2
@@ -91,8 +92,8 @@
 //     the library's shapes (FwdShape, DkdvShape, DqShape at the end)
 //     take one or two warpgroups a block and let the SM's other blocks
 //     fill the gaps;
-//   * no atomics: each block owns its outputs, so K3, K6 and K8/K9 are the
-//     same from run to run.
+//   * no atomics: each block owns its outputs, so K3, K5, K6 and K8/K9 are
+//     the same from run to run.
 // The skip rules are the mma.sync bodies', at the warpgroup's rows: the
 // forward ends past the causal diagonal once every row of the block has seen
 // a real logit (its first valid key at or before the block's first row's
@@ -636,7 +637,7 @@ allheads_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---- dK/dV (K3, K6, K8/K9) -------------------------------------------------
+// ---- dK/dV (K3, K5, K6, K8/K9) ---------------------------------------------
 
 template <int D, typename S, bool kBias = false, typename TB = float>
 __host__ __device__ constexpr size_t dkdv_smem() {
@@ -645,14 +646,26 @@ __host__ __device__ constexpr size_t dkdv_smem() {
                        bias_tile_bytes<S, kBias, TB>());
 }
 
+// the split form of dK/dV, which only the sweep launches
+// (csrc/sweep/k5_shapes.cu; it lost to the unsplit grid at every K5 shape,
+// PERF.md §6): group `group` of `groups` takes the group-th contiguous
+// share of the query tiles and writes its fp32 partial dK and dV, each
+// (groups, B, Sk, H * D), for the sweep's reduction to sum
+struct Split {
+  int groups, group;
+  float *dk, *dv;
+};
+
 // dK, dV for 64 kNC keys, over the query tiles of S::kTile rows that the
 // producer visits: S^T = K Q^T and dP^T = V dO^T put the keys in the
 // accumulators' rows, so P^T and dS^T are register A operands of
 // dV += P^T dO and dK += dS^T Q. The bias form (K8/K9) reads the bias of
 // each streamed tile (its query rows x the block's keys, read transposed)
-// through bias_map and the dropout key from ba
+// through bias_map and the dropout key from ba. kSplit: only split's share
+// of the query tiles, into split's fp32 partials (without it, the code is
+// the unsplit body's, instruction for instruction)
 template <int D, typename S, typename T, bool kBias, bool kDropout,
-          typename TB, bool kOwnDelta>
+          typename TB, bool kOwnDelta, bool kSplit = false>
 __device__ __forceinline__ void dkdv_body(
     int blk, const CUtensorMap& q_map, const CUtensorMap& k_map,
     const CUtensorMap& v_map, const CUtensorMap& do_map,
@@ -660,7 +673,8 @@ __device__ __forceinline__ void dkdv_body(
     const float* __restrict__ row_max, const float* __restrict__ row_sum,
     const float* __restrict__ row_delta, const T* __restrict__ out,
     const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int heads, float scale, int causal, BiasArgs<TB> ba) {
+    int sq, int sk, int heads, float scale, int causal, BiasArgs<TB> ba,
+    Split split = Split{}) {
   constexpr int kNC = S::kNC;
   constexpr int QT = S::kTile;
   constexpr int ST = S::kStages;
@@ -695,6 +709,13 @@ __device__ __forceinline__ void dkdv_body(
   const int b = blockIdx.z;
   const int shift = sk - sq;
   const int n_q = (sq + QT - 1) / QT;
+  // the query tiles this block walks: all, or its group's share
+  int t_begin = 0, t_end = n_q;
+  if constexpr (kSplit) {
+    const int per = (n_q + split.groups - 1) / split.groups;
+    t_begin = min(n_q, split.group * per);
+    t_end = min(n_q, t_begin + per);
+  }
   const long stat0 = (static_cast<long>(b) * heads + h) * sq;
   const int* mask_row =
       kv_mask != nullptr ? kv_mask + static_cast<long>(b) * sk : nullptr;
@@ -752,9 +773,9 @@ __device__ __forceinline__ void dkdv_body(
     const int t_first =
         !block_keys ? n_q : causal ? max(0, k0 - shift) / QT : 0;
     int i = 0;
-    for (int t = 0; t <= n_q; ++t) {
+    for (int t = t_begin; t <= t_end; ++t) {
       bool full_tile = false;
-      if (t < n_q) {
+      if (t < t_end) {
         // the tile holds a fully masked row (m = -1e30)
         bool any = false;
         for (int r = lane; r < QT; r += 32) {
@@ -766,7 +787,7 @@ __device__ __forceinline__ void dkdv_body(
       }
       const int s = i % ST;
       if (i >= ST) mbar_wait(&empty[s], ((i / ST) - 1) & 1);
-      if (t < n_q) {
+      if (t < t_end) {
         if constexpr (kOwnDelta) {
           // the tile's copies first, in flight while the producer makes
           // its rows' statistics and delta
@@ -1015,13 +1036,24 @@ __device__ __forceinline__ void dkdv_body(
 #pragma unroll
     for (int db = 0; db < D / 8; ++db) {
       const int c = 8 * db + 2 * c4;
-      store2(dk + row + c, dk_acc[4 * db + 2 * r], dk_acc[4 * db + 2 * r + 1]);
-      store2(dv + row + c, dv_acc[4 * db + 2 * r], dv_acc[4 * db + 2 * r + 1]);
+      if constexpr (kSplit) {
+        const long e =
+            split.group * (static_cast<long>(gridDim.z) * sk * rs) + row + c;
+        *reinterpret_cast<float2*>(split.dk + e) =
+            make_float2(dk_acc[4 * db + 2 * r], dk_acc[4 * db + 2 * r + 1]);
+        *reinterpret_cast<float2*>(split.dv + e) =
+            make_float2(dv_acc[4 * db + 2 * r], dv_acc[4 * db + 2 * r + 1]);
+      } else {
+        store2(dk + row + c, dk_acc[4 * db + 2 * r],
+               dk_acc[4 * db + 2 * r + 1]);
+        store2(dv + row + c, dv_acc[4 * db + 2 * r],
+               dv_acc[4 * db + 2 * r + 1]);
+      }
     }
   }
 }
 
-// dK, dV for 64 kNC keys a block (K3, K6; K8/K9 unfused in the sweep): the
+// dK, dV for 64 kNC keys a block (K3, K5, K6, K8/K9 in two launches): the
 // body reading dQ's delta
 template <int D, typename S, typename T, bool kBias = false,
           bool kDropout = false, typename TB = T>
@@ -1043,7 +1075,7 @@ allheads_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
       causal, ba);
 }
 
-// ---- dQ (K3, K6, K8/K9) -----------------------------------------------------
+// ---- dQ (K3, K5, K6, K8/K9) -------------------------------------------------
 
 template <int D, typename S, bool kBias = false, typename TB = float>
 __host__ __device__ constexpr size_t dq_smem() {
@@ -1392,7 +1424,7 @@ __device__ __forceinline__ void dq_body(
   }
 }
 
-// dQ for 64 kNC query rows a block (K3, K6; K8/K9 unfused in the sweep),
+// dQ for 64 kNC query rows a block (K3, K5, K6, K8/K9 in two launches),
 // the longest rows first
 template <int D, typename S, typename T, bool kBias = false,
           bool kDropout = false, typename TB = T>
@@ -1415,30 +1447,30 @@ allheads_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       scale, causal, ba, partial);
 }
 
-// ---- K8/K9: dQ and dK/dV in one launch -------------------------------------
+// ---- dQ and dK/dV in one launch (K5, K8/K9) -------------------------------
 
-// the bias form's backward in one grid: blocks 0 .. n_qb - 1 (n_qb the dQ
-// blocks, the longest rows first) run dQ (delta and the partial as above),
-// the rest dK/dV with delta made by its own producer, so that no block
-// waits for another and the two bodies' blocks share the SMs' slots: at
-// T5's decoder each launch alone fills 96 of 264 slots
+// the backward in one grid: blocks 0 .. n_qb - 1 (n_qb the dQ blocks, the
+// longest rows first) run dQ (delta, and in the bias form the partial, as
+// above), the rest dK/dV with delta made by its own producer, so that no
+// block waits for another and the two bodies' blocks share the SMs' slots:
+// at T5's decoder (K8) and cross-attention (K5) each launch alone fills
+// less than a wave
 template <int D, typename KvS, typename QS, typename T, bool kBias,
           bool kDropout, typename TB>
 __global__ void __launch_bounds__(KvS::kThreads, KvS::kMinBlocks)
-allheads_bias_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
-                         const __grid_constant__ CUtensorMap k_map,
-                         const __grid_constant__ CUtensorMap v_map,
-                         const __grid_constant__ CUtensorMap do_map,
-                         const __grid_constant__ CUtensorMap bias_map,
-                         const int* __restrict__ kv_mask,
-                         const float* __restrict__ row_max,
-                         const float* __restrict__ row_sum,
-                         const T* __restrict__ out, const T* __restrict__ dout,
-                         float* __restrict__ row_delta, T* __restrict__ dq,
-                         T* __restrict__ dk, T* __restrict__ dv,
-                         float* __restrict__ partial, int sq, int sk,
-                         int heads, float scale, int causal,
-                         BiasArgs<TB> ba) {
+allheads_dq_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const __grid_constant__ CUtensorMap bias_map,
+                        const int* __restrict__ kv_mask,
+                        const float* __restrict__ row_max,
+                        const float* __restrict__ row_sum,
+                        const T* __restrict__ out, const T* __restrict__ dout,
+                        float* __restrict__ row_delta, T* __restrict__ dq,
+                        T* __restrict__ dk, T* __restrict__ dv,
+                        float* __restrict__ partial, int sq, int sk,
+                        int heads, float scale, int causal, BiasArgs<TB> ba) {
   static_assert(KvS::kThreads == QS::kThreads &&
                     KvS::kMinBlocks == QS::kMinBlocks,
                 "the fused grid's bodies share a block shape");
@@ -1593,31 +1625,39 @@ cudaError_t launch_bwd(const Maps& m, const int* kv_mask,
       scale, causal, stream, ba);
 }
 
-// how launch_bias_bwd lays K8/K9's two bodies out: chosen by the grid's
-// size, or forced (the sweep)
-enum class BiasGrid { kAuto, kOne, kTwo };
+// how launch_bwd_layout lays the dQ and dK/dV bodies out: chosen by the
+// grid's size, or forced (the sweeps)
+enum class BwdGrid { kAuto, kOne, kTwo };
 
-// K8/K9's bias form: dQ, which writes delta into row_delta and, with a
-// bias, the dlogits into partial, and dK/dV, on the caller's stream. Where
-// both bodies' blocks fill at most two waves of the SMs' slots (kMinBlocks
-// an SM: T5's decoder shapes, whose launches alone half-fill the card) in
-// one grid (allheads_bias_bwd_kernel, dK/dV making its own delta); past
-// that (T5's encoders) dQ, then dK/dV from its delta, which ran faster
-// there (sweep_attention --k8-k9, PERF.md §6). KvS and QS take one block
-// shape
-template <int D, typename KvS, typename QS, typename T, bool kBias,
-          bool kDropout, typename TB>
-cudaError_t launch_bias_bwd(const Maps& m, const int* kv_mask,
-                            const float* row_max, const float* row_sum,
-                            const void* out, const void* dout,
-                            float* row_delta, void* dq, void* dk, void* dv,
-                            float* partial, int batch, int sq, int sk,
-                            int heads, float scale, int causal,
-                            cudaStream_t stream, BiasArgs<TB> ba,
-                            BiasGrid layout = BiasGrid::kAuto) {
-  const int n_qb = (sq + 64 * QS::kNC - 1) / (64 * QS::kNC);
+// the one grid's dQ shape: QS at dK/dV's blocks an SM
+template <typename KvS, typename QS>
+using OneGridDq = Shape<QS::kNC, QS::kTile, QS::kStages, KvS::kMinBlocks>;
+
+// K5 and K8/K9: dQ, which writes delta into row_delta and, in the bias
+// form with a bias, the dlogits into partial, and dK/dV, on the caller's
+// stream. Where both bodies' blocks fill at most two waves of the SMs'
+// slots (KvS::kMinBlocks an SM: T5's decoder shapes and cross-attention,
+// whose launches alone fill less than a wave) in one grid
+// (allheads_dq_dkdv_kernel, dK/dV making its own delta, dQ in
+// OneGridDq<KvS, QS>); past that (T5's encoders, MPT's cross-attention),
+// dQ in QS, then dK/dV from its delta, which ran faster there
+// (sweep_attention --k8-k9 and --k5, PERF.md §6). Both layouts run the
+// same bodies, so they give the same bits
+template <int D, typename KvS, typename QS, typename T, bool kBias = false,
+          bool kDropout = false, typename TB = T>
+cudaError_t launch_bwd_layout(const Maps& m, const int* kv_mask,
+                              const float* row_max, const float* row_sum,
+                              const void* out, const void* dout,
+                              float* row_delta, void* dq, void* dk, void* dv,
+                              float* partial, int batch, int sq, int sk,
+                              int heads, float scale, int causal,
+                              cudaStream_t stream,
+                              BiasArgs<TB> ba = BiasArgs<TB>{},
+                              BwdGrid layout = BwdGrid::kAuto) {
+  using QS1 = OneGridDq<KvS, QS>;
+  const int n_qb = (sq + 64 * QS1::kNC - 1) / (64 * QS1::kNC);
   const int n_kb = (sk + 64 * KvS::kNC - 1) / (64 * KvS::kNC);
-  if (layout == BiasGrid::kAuto) {
+  if (layout == BwdGrid::kAuto) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
@@ -1625,21 +1665,20 @@ cudaError_t launch_bias_bwd(const Maps& m, const int* kv_mask,
     }
     if (err != cudaSuccess) return err;
     const long blocks = static_cast<long>(n_qb + n_kb) * heads * batch;
-    layout = blocks <= 2L * KvS::kMinBlocks * sms ? BiasGrid::kOne
-                                                  : BiasGrid::kTwo;
+    layout = blocks <= 2L * KvS::kMinBlocks * sms ? BwdGrid::kOne
+                                                  : BwdGrid::kTwo;
   }
-  if (layout == BiasGrid::kTwo) {
+  if (layout == BwdGrid::kTwo) {
     return launch_bwd<D, KvS, QS, T, kBias, kDropout, TB>(
         m, kv_mask, row_max, row_sum, out, dout, row_delta, dq, dk, dv, batch,
         sq, sk, heads, scale, causal, stream, ba, partial);
   }
-  constexpr size_t q_bytes = dq_smem<D, QS, kBias, TB>();
+  constexpr size_t q_bytes = dq_smem<D, QS1, kBias, TB>();
   constexpr size_t kv_bytes = dkdv_smem<D, KvS, kBias, TB>();
   constexpr size_t bytes = q_bytes > kv_bytes ? q_bytes : kv_bytes;
-  auto kernel =
-      allheads_bias_bwd_kernel<D, KvS, QS, T, kBias, kDropout, TB>;
+  auto kernel = allheads_dq_dkdv_kernel<D, KvS, QS1, T, kBias, kDropout, TB>;
   const cudaError_t err = smem_once<
-      allheads_bias_bwd_kernel<D, KvS, QS, T, kBias, kDropout, TB>>(bytes);
+      allheads_dq_dkdv_kernel<D, KvS, QS1, T, kBias, kDropout, TB>>(bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_qb + n_kb, heads, batch);
   kernel<<<grid, KvS::kThreads, bytes, stream>>>(
@@ -1660,8 +1699,9 @@ cudaError_t launch_bias_bwd(const Maps& m, const int* kv_mask,
 // forward (K1, K2, K4, K7) and the stats passes of K3, K5 and K8/K9: a
 // forward and the stats pass that stands in for it must share one shape,
 // so that the row stats they write are the same bits. DkdvShape and
-// DqShape serve K3 and K6, and DkdvShape K8/K9 (in its bias form, with
-// BiasDqShape; --k8-k9 times them)
+// DqShape serve K3, K5 and K6 (K5's one grid takes dQ at DkdvShape's
+// blocks an SM, OneGridDq; --k5 times both), and DkdvShape K8/K9 (in its
+// bias form, with BiasDqShape; --k8-k9 times them)
 template <int D>
 using FwdShape = Shape<1, 64, 2, 2>;
 template <int D>

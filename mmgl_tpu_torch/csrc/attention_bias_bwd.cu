@@ -36,7 +36,7 @@
 //     instructions for m and l, so the gradients are the same bits either
 //     way). The tensor maps of q, k, v, dO and the bias are encoded once
 //     for every launch. Then the two bodies, in one grid
-//     (allheads_bias_bwd_kernel) where their blocks fill at most two waves
+//     (allheads_dq_dkdv_kernel) where their blocks fill at most two waves
 //     of the SMs' slots (T5's decoder shapes, whose launches alone would
 //     half-fill the card), else in two launches, dQ then dK/dV (T5's
 //     encoders, where one grid ran slower: sweep_attention --k8-k9):
@@ -582,7 +582,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // the tensor-core bodies in one (bias, dropout) form over T (bf16, fp16):
 // the stats-only forward where no row stats are given; K3's wgmma/TMA dQ
 // (delta and the dlogits into the partial) and dK/dV bodies in their bias
-// form (wg::launch_bias_bwd), or, with neither flag, K3's two launches;
+// form (wg::launch_bwd_layout), or, with neither flag, K3's two launches;
 // then the batch-order reduction into dbias. scratch: delta's n floats,
 // then, for the stats-only forward, its row max and sum (n each)
 template <bool kBias, bool kDropout, typename TB, typename T>
@@ -624,8 +624,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   }
   if constexpr (kBias || kDropout) {
     // dQ and dK/dV, in one grid or two launches by the grid's size
-    err = wg::launch_bias_bwd<kD, wg::DkdvShape<kD>, wg::BiasDqShape<kD>, T,
-                              kBias, kDropout, TB>(
+    err = wg::launch_bwd_layout<kD, wg::DkdvShape<kD>, wg::BiasDqShape<kD>, T,
+                                kBias, kDropout, TB>(
         m, kv_mask, row_max, row_sum, out, dout, scratch, dq, dk, dv,
         kBias ? partial : nullptr, batch, sq, sk, heads, scale, causal,
         stream, ba);

@@ -29,7 +29,8 @@
 // fp32. Head dims 64, 80 (OPT and MPT at 2.7B) and 128 (6.7B): every pass
 // is instantiated at each (mmgl::with_head_dim).
 //
-// Schedule: three launches on the caller's stream, no atomics.
+// The scalar body (fp32): three launches on the caller's stream, no
+// atomics.
 //   1. stats: per query row the softmax max m and sum l (kept apart: for a
 //      fully masked row m = -1e30 and l = sk, and a single logsumexp
 //      -1e30 + log(sk) would round back to -1e30 in fp32), and delta.
@@ -43,14 +44,21 @@
 //
 // Two bodies, chosen by the input dtype. fp32 inputs take the scalar passes
 // above (on the tensor cores fp32 would run as TF32). bf16 and fp16 inputs
-// take the tensor-core bodies, four launches (K5's entry below): K4's
-// wgmma/TMA forward body (allheads_wgmma.cuh, in K4's shape) in its
-// stats-only form (m and l from the same instructions, in the same order,
-// as K4 writes them for K6), the delta pass, then the mma.sync dK/dV and dQ
-// bodies of attention_bwd_tiles.cuh. K6 takes K3's wgmma dQ and dK/dV bodies
-// (allheads_wgmma.cuh) in bf16 and fp16, so K5 and K6 agree within the
-// rounding of P and dS there, and bit for bit in fp32.
-//
+// take the wgmma/TMA bodies of allheads_wgmma.cuh (K5's entry below): K4's
+// forward in its stats-only form, in K4's shape (m and l from the same
+// instructions, in the same order, as K4 writes them for K6), then K3's dQ
+// (delta = rowsum(dO * o) fused into its prologue) and dK/dV bodies, as K6
+// runs them from K4's stats: in one grid where both bodies' blocks fill at
+// most two waves of the SMs' slots (T5's cross-attention: 96 dQ and 384
+// dK/dV blocks), else dQ then dK/dV (MPT's cross-attention, prefix
+// tuning's 704 x 724), wg::launch_bwd_layout's rule; dK/dV split over the
+// query tiles where its grid is under a wave (MPT's 128 blocks) lost to
+// both at every K5 shape and stays in the sweep (csrc/sweep/k5_shapes.cu,
+// PERF.md §6). Either way K5 equals K6 given K4's stats, bit for bit. A
+// null key mask is every key valid. (The mma.sync tiles K5 ran before,
+// attention_bwd_tiles.cuh's tensor-core form, are reached only from the
+// sweep.)
+
 // What bounds the scalar passes on this card: a few GFLOP of scalar fp32
 // FMAs over a few MB, so the throughput of FMAs and shared-memory loads, not
 // HBM (3.35 TB/s). Five products per (query, key) pair against the
@@ -237,7 +245,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   });
 }
 
-// the tensor-core bodies (bf16, fp16): stats, delta, dK/dV, dQ
+// the wgmma bodies (bf16, fp16): K4's stats-only forward, then dQ (which
+// writes delta) and dK/dV, in one grid or two launches by the grid's size
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const int* kv_mask, const void* out, const void* dout,
                       void* dq, void* dk, void* dv, float* stats, int batch,
@@ -253,21 +262,19 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   return mmgl::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     return mmgl::with_tc_type(dtype, [&](auto tag) {
+      namespace wg = mmgl::wg;
       using T = decltype(tag);
-      mmgl::wg::Maps m{};
-      cudaError_t err = mmgl::wg::make_maps(&m, q, k, nullptr, nullptr,
-                                            dtype, batch, sq, sk, heads, D);
+      wg::Maps m{};
+      cudaError_t err = wg::make_maps(&m, q, k, v, dout, dtype, batch, sq,
+                                      sk, heads, D);
       if (err != cudaSuccess) return err;
-      err = mmgl::wg::launch_fwd<D, true, mmgl::wg::FwdShape<D>, T>(
+      err = wg::launch_fwd<D, true, wg::FwdShape<D>, T>(
           m, kv_mask, nullptr, row_max, row_sum, batch, sq, sk, heads, scale,
           causal, stream);
       if (err != cudaSuccess) return err;
-      err = mmgl::launch_delta<D, T>(out, dout, row_delta, batch, sq, heads,
-                                     stream);
-      if (err != cudaSuccess) return err;
-      return mmgl::launch_bwd_tiles_tc<D, T>(
-          q, k, v, kv_mask, dout, row_max, row_sum, row_delta, dq, dk, dv,
-          batch, sq, sk, heads, scale, causal, stream);
+      return wg::launch_bwd_layout<D, wg::DkdvShape<D>, wg::DqShape<D>, T>(
+          m, kv_mask, row_max, row_sum, out, dout, row_delta, dq, dk, dv,
+          nullptr, batch, sq, sk, heads, scale, causal, stream);
     });
   });
 }
@@ -300,8 +307,10 @@ extern "C" int mmgl_flash_bwd(const void* q, const void* k, const void* v,
                            dtype, stream);
 }
 
-// K5 on the tensor-core bodies (dtype bf16 or fp16, mmgl::DType). K3's
-// bf16 and fp16 entry, mmgl_allheads_bwd_tc, is in allheads_wgmma.cu.
+// K5 on the wgmma bodies (dtype bf16 or fp16, mmgl::DType); kv_mask may be
+// null (every key valid). stats: fp32 scratch of 3 * batch * heads * sq
+// floats (m, l, delta). K3's bf16 and fp16 entry, mmgl_allheads_bwd_tc, is
+// in allheads_wgmma.cu.
 extern "C" int mmgl_flash_bwd_tc(const void* q, const void* k, const void* v,
                                  const int* kv_mask, const void* out,
                                  const void* dout, void* dq, void* dk,

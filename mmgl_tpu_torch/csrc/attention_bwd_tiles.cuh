@@ -1,11 +1,12 @@
-// The dK/dV and dQ passes of the dense attention backward, shared by K5
-// (attention_bwd.cu, after its stats pass; in fp32 K3's too) and K6's fp32
-// body (attention_blocked_bwd.cu, from the forward's saved statistics; its
-// bf16 and fp16 body is K3's wgmma one, allheads_wgmma.cuh). Their bias
-// form (below) left the library when K8/K9 moved onto the bias form of
-// K3's wgmma bodies: no entry instantiates kBias or kDropout here, and
-// csrc/sweep (bias_shapes.cu, k8_k9_shapes.cu) keeps it as the "before"
-// that sweep_attention times the new bodies against. Given q, k, v, the key
+// The dK/dV and dQ passes of the dense attention backward. The library
+// launches only their scalar form (fp32): K3's and K5's (attention_bwd.cu,
+// after its stats pass) and K6's (attention_blocked_bwd.cu, from the
+// forward's saved statistics). The tensor-core form (mma.sync, below) and
+// its bias form left the library when K5, and before it K3, K6 and K8/K9,
+// moved onto K3's wgmma bodies (allheads_wgmma.cuh): no entry instantiates
+// them, and csrc/sweep (allheads_shapes.cu, bias_shapes.cu,
+// k8_k9_shapes.cu, k5_shapes.cu) keeps them as the "before" that
+// sweep_attention times the new bodies against. Given q, k, v, the key
 // mask, dO and per query row the softmax max m, sum l and
 // delta = rowsum(dO * o):
 //   P  = exp(q k^T * scale - m) / l   (masked logits -1e30, so a fully
@@ -273,8 +274,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // delta = rowsum(dO * o) per query row, in (B, H, Sq) order: K6's first
-// launch in fp32, and K5's after its tensor-core stats pass (JAX computes
-// it outside Pallas, mmgl_tpu/ops/flash_attention.py:345-347). Thread sub
+// launch in fp32, and the sweep's mma.sync "before" readings' (JAX
+// computes it outside Pallas, mmgl_tpu/ops/flash_attention.py:345-347). Thread sub
 // of a row sums the D/4 dims from sub D/4 on, in the order of K3/K5's
 // scalar stats pass (attention_bwd.cu), so that K5 and K6 agree bit for
 // bit in fp32.
@@ -306,7 +307,7 @@ attention_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   }
 }
 
-// ---- the tensor-core bodies (bf16, fp16) -----------------------------------
+// ---- the tensor-core bodies (bf16, fp16; the sweep's "before" only) -------
 //
 // The same gradients, tiles and skip rules as the scalar kernels above, for
 // bf16 or fp16 inputs (the element type T), on mma.sync (common.cuh). Per

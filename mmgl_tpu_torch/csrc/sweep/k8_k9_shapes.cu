@@ -1,7 +1,7 @@
 // Shapes of K8/K9's tensor-core backward, for mmgl_tpu_torch/sweep_attention.py
 // --k8-k9: K3's wgmma/TMA dQ (delta fused, dlogits into the partial) and
 // dK/dV bodies of allheads_wgmma.cuh in their bias form, in one grid
-// (allheads_bias_bwd_kernel), in two launches (dK/dV reading dQ's delta)
+// (allheads_dq_dkdv_kernel), in two launches (dK/dV reading dQ's delta)
 // or as the library chooses between them, each pair of
 // (consumer warpgroups, tile rows, ring stages, blocks an SM) shapes in
 // T5's three forms (a bf16 bias without dropout, with dropout, dropout
@@ -92,10 +92,10 @@ cudaError_t wgmma_pair(const void* q, const void* k, const void* v,
     BIAS_FORM(CALL)
 #undef CALL
   } else {
-    constexpr auto layout = kGrid == 1 ? mmgl::wg::BiasGrid::kOne
-                                       : mmgl::wg::BiasGrid::kAuto;
+    constexpr auto layout = kGrid == 1 ? mmgl::wg::BwdGrid::kOne
+                                       : mmgl::wg::BwdGrid::kAuto;
 #define CALL(B, DROP)                                                        \
-  mmgl::wg::launch_bias_bwd<kD, KvS, QS, Bf16, B, DROP, Bf16>(               \
+  mmgl::wg::launch_bwd_layout<kD, KvS, QS, Bf16, B, DROP, Bf16>(             \
       m, mask, row_max, row_sum, out, dout, row_delta, dq, dk, dv,           \
       B ? partial : nullptr, batch, sq, sk, heads, scale, causal, stream,    \
       ba, layout)

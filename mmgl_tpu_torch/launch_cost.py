@@ -1,8 +1,8 @@
-"""The host's cost of launching K1-K4 and K6-K9 on the card, and their
-bodies' device time.
+"""The host's cost of launching K1-K9 on the card, and their bodies' device
+time.
 
     python -m mmgl_tpu_torch.launch_cost [--calls 200]
-        [--only k1,k4,k7,k2,k6,k8k9]
+        [--only k1,k4,k7,k2,k6,k8k9,k5]
 
 At K1's and K3's shapes of PERF.md §6, bf16 with a pad hole in the int32
 key mask: the main path's attention (4, 640, 12, 64) causal, Roberta's
@@ -42,8 +42,14 @@ At K8/K9's (T5-base's encoder (4, 512, 12, 64) with its bias and its
 decoder, 128 queries against 128 keys causal with its bias, each with
 dropout 0.1 as training runs them, from K7's row stats):
   * ``k8k9``: ``flash_attention_bias_bwd`` called directly.
+At K5's rows of PERF.md §6 (the cross-attention of T5-base, q (4, 128, 12,
+64) against 512 keys, with its key mask and without one; prefix tuning's
+(4, 704, 12, 64) against 724 keys, causal; MPT-2.7B's and family 7's, q
+(4, 640 / 205, 32, 80), and at D 128, q (4, 640, 32, 128), against a
+64-token memory), from K4's output:
+  * ``k5``: ``flash_attention_bwd`` called directly.
 ``--only`` takes the kinds to run (k1 runs K1's and K3's cases; the
-default runs all but k2, k6 and k8k9).
+default runs all but k2, k6, k8k9 and k5).
 For each, the host's microseconds a call (the loop's enqueue time over
 ``--calls`` calls, the card's queue never full where the bodies are shorter
 than the host's work; the median of 5 loops) and the wall's (to a
@@ -94,6 +100,13 @@ K2_SHAPES = [((24, 197, 12, 64), False), ((44, 77, 8, 64), True)]
 K6_SHAPES = [(4, 2048, 16, 64)]
 # K8/K9: (B, Sq, Sk, H), causal; with its bias and dropout 0.1
 K8K9_SHAPES = [((4, 512, 512, 12), False), ((4, 128, 128, 12), True)]
+# K5: (B, Sq, Sk, H, D), causal, with a key mask
+K5_SHAPES = [((4, 128, 512, 12, 64), False, True),
+             ((4, 128, 512, 12, 64), False, False),
+             ((4, 704, 724, 12, 64), True, True),
+             ((4, 640, 64, 32, 80), False, True),
+             ((4, 205, 64, 32, 80), False, True),
+             ((4, 640, 64, 32, 128), False, True)]
 
 
 def card() -> str:
@@ -219,6 +232,27 @@ def k8k9_cases(dims, causal, device):
     return {"k8k9": k8k9}
 
 
+def k5_cases(dims, causal, masked, device):
+    """K5 from K4's output on K4's inputs (``k4_cases``'s) and a
+    cotangent."""
+    b, sq, sk, h, d = dims
+    g = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g).to(
+        device, torch.bfloat16) for s in (sq, sk, sk, sq))
+    mask = None
+    if masked:
+        mask = torch.ones(b, sk, dtype=torch.int32)
+        for i in range(b):
+            mask[i, sk - 1 - 3 * i:] = 0
+        mask = mask.to(device)
+    out = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
+
+    def k5():
+        fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=causal)
+
+    return {"k5" if masked else "k5_nomask": k5}
+
+
 def k2_cases(shape, causal, device):
     b, s, h, d = shape
     g = torch.Generator().manual_seed(s + h)
@@ -298,7 +332,7 @@ def main(argv=None) -> int:
     parser.add_argument("--calls", type=int, default=200)
     parser.add_argument("--only", default="k1,k4,k7",
                         help="the kinds to run: k1 (K1 and K3), k4, k7, "
-                             "k2, k6, k8k9")
+                             "k2, k6, k8k9, k5")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -326,6 +360,9 @@ def main(argv=None) -> int:
     if "k8k9" in only:
         runs += [(dims, causal, 0.1, k8k9_cases(dims, causal, device))
                  for dims, causal in K8K9_SHAPES]
+    if "k5" in only:
+        runs += [(dims, causal, None, k5_cases(dims, causal, masked, device))
+                 for dims, causal, masked in K5_SHAPES]
     for shape, causal, rate, fns in runs:
         for name, fn in fns.items():
             host, wall = host_and_wall_us(fn, args.calls, device)

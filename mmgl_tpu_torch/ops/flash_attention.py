@@ -348,18 +348,21 @@ def _count(wrapper, q) -> None:
     wrapper.launches_tc += int(_tensor_cores(q))
 
 
-def _launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
-    """Run a dense backward launcher (K5; its tensor-core entry for bf16
-    and fp16) on the current stream through ``_call`` (it may run on
-    autograd's backward thread); returns (dq, dk, dv)."""
+def _launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
+    """Run K5 on the current stream through ``_call`` (it runs on autograd's
+    backward thread), K6's launch path; returns (dq, dk, dv). The wgmma
+    bodies (bf16, fp16: K4's stats-only forward, then K3's dQ, which writes
+    delta, and dK/dV) take no mask as a null pointer; the scalar body (fp32)
+    reads one. The scratch holds the rows' max, sum and delta."""
     b, sq, h, d = q.shape
-    mask = _int_mask(q, k, kv_mask)
+    mask, mask_ptr = _mask_arg(q, k, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
-    _call(q, _lib_fn(_entry(fn, q)), name, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
-          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b,
-          sq, k.shape[1], h, d, scale, causal, _DTYPE_CODE[q.dtype])
+    _call(q, _lib_fn(_entry("mmgl_flash_bwd", q)), "flash_attention_bwd",
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+          dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          stats.data_ptr(), b, sq, k.shape[1], h, d, scale, causal,
+          _DTYPE_CODE[q.dtype])
     return dq, dk, dv
 
 
@@ -692,8 +695,7 @@ def flash_attention_bwd(q, k, v, kv_mask, out, dout, *, causal=False,
     if _plain(q):
         return flash_attention_bwd_reference(q, k, v, kv_mask, out, dout,
                                              causal=causal, scale=scale)
-    grads = _launch_bwd("mmgl_flash_bwd", name, q, k, v, kv_mask, out, dout,
-                        causal, scale)
+    grads = _launch_bwd(q, k, v, kv_mask, out, dout, causal, scale)
     _count(flash_attention_bwd, q)
     return grads
 

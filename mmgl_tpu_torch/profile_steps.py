@@ -85,14 +85,15 @@ KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
 _TC_BODY = re.compile(r"attention_(fwd|bwd_dkdv|bwd_dq)_tc_kernel<([^>]*)>")
 # the wgmma bodies (csrc/allheads_wgmma.cuh): the forward's <D, kStatsOnly,
 # Shape<...>, T, kBias, kDropout, TB> (K1, K4 and, in its bias form, K7;
-# stats-only, the stats passes of K3, K5 and K8/K9), and the dK/dV and dQ
-# bodies' <D, Shape<...>, T, kBias, kDropout, TB> (K3's and K6's; in their
-# bias form K8/K9's, whose library launch, allheads_bias_bwd_kernel, KINDS
-# names by its "bias_bwd_")
+# stats-only, the stats passes of K3, K5 and K8/K9), the dK/dV and dQ
+# bodies' <D, Shape<...>, T, kBias, kDropout, TB> (K3's, K5's and K6's; in
+# their bias form K8/K9's) and both in one grid, <D, Shape<...>,
+# Shape<...>, T, kBias, kDropout, TB> (K5's and, in the bias form, K8/K9's)
 _WG_FWD = re.compile(r"allheads_fwd_kernel<\d+, (true|false), [^<>]*<[^<>]*>, "
                      r"[^,<>]+, (true|false), (true|false)")
-_WG_BWD = re.compile(r"allheads_(dkdv|dq)_kernel<")
-_WG_BWD_FLAGS = re.compile(r"allheads_(dkdv|dq)_kernel<\d+, [^<>]*<[^<>]*>, "
+_WG_BWD = re.compile(r"allheads_(dkdv|dq|dq_dkdv)_kernel<")
+_WG_BWD_FLAGS = re.compile(r"allheads_(dkdv|dq|dq_dkdv)_kernel<\d+, "
+                           r"(?:[^<>]*<[^<>]*>, )+"
                            r"[^,<>]+, (true|false), (true|false)")
 
 

@@ -1,7 +1,25 @@
 """Time shapes of the bf16 tensor-core attention bodies on the card.
 
     python -m mmgl_tpu_torch.sweep_attention [--allheads | --no-allheads |
-                                             --k4-k7 | --k2-k6 | --k8-k9]
+                                             --k4-k7 | --k2-k6 | --k8-k9 |
+                                             --k5]
+
+``--k5`` times only K5 (csrc/sweep/k5_shapes.cu, about three minutes with
+the build): K4's stats-only wgmma forward, then K3's wgmma dQ (delta
+fused) and dK/dV bodies in each layout of that source (the library's
+choice by the grid's size; two launches; two launches with the one grid's
+dQ shape; one grid; dK/dV split over the query tiles in 2 or 4 groups of
+fp32 partials and their fixed-order sum, at the library's dK/dV blocks an
+SM and at two), beside the mma.sync tiles K5 ran before (shape -1: the
+same stats pass, the delta pass, attention_bwd_tiles.cuh's tensor-core
+tiles), the library's wrapper, K6 from K4's stats and SDPA's backward, at
+K5's rows of PERF.md §6 (T5-base's cross-attention, prefix tuning's 704 x
+724 causal, MPT-2.7B's and family 7's cross-attention and D 128's against
+a 64-token memory, sample 0 without neighbours); with the device time of
+each, by kernel for the library and the split layouts (the reduction's
+share), whether each unsplit layout equals the library's wrapper and K6
+given K4's stats bit for bit, and whether two calls of each split layout
+give the same bits.
 
 ``--k8-k9`` times only K8/K9 (csrc/sweep/k8_k9_shapes.cu, about three
 minutes with the build): the bias form of K3's wgmma dQ (delta fused,
@@ -96,7 +114,7 @@ from mmgl_tpu_torch.ops import flash_attention as fa
 SOURCES = [_build.CSRC / "sweep" / name
            for name in ("attention_shapes.cu", "bias_shapes.cu",
                         "allheads_shapes.cu", "k4_k7_shapes.cu",
-                        "k8_k9_shapes.cu")]
+                        "k8_k9_shapes.cu", "k5_shapes.cu")]
 RUN = 10        # calls back to back in a sample
 SAMPLES = 10
 # (B, Sq = Sk, H, D), causal, backward too
@@ -112,7 +130,7 @@ BIAS_CASES = [("enc", (4, 512, 512, 12), False, True),
 RATE = 0.1
 
 
-def build(which=(0, 1, 2, 3, 4)):
+def build(which=(0, 1, 2, 3, 4, 5)):
     """The sweep libraries (``which``: indices into SOURCES; the others are
     None), each source built by its own nvcc, all at once; prints each
     kernel's registers and any spills."""
@@ -132,7 +150,7 @@ def build(which=(0, 1, 2, 3, 4)):
                         if "Compiling entry" in line or "Used" in line
                         or "spill" in line
                         and " 0 bytes spill stores" not in line))
-    lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib = (
+    lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib, k5_lib = (
         ctypes.CDLL(str(out)) if i in which else None
         for i, out in enumerate(outs))
     ptr, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -161,7 +179,9 @@ def build(which=(0, 1, 2, 3, 4)):
                                         + [ptr] * 11 + [i32] * 4
                                         + [f32, i32, u32, f32, ptr])
         k8k9_lib.sweep_k8k9_reduce.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
-    return lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib
+    if k5_lib is not None:
+        k5_lib.sweep_k5.argtypes = [i32, i32] + [ptr] * 11 + tail
+    return lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib, k5_lib
 
 
 def inputs(b, s, h, d, seed, device):
@@ -925,14 +945,113 @@ def sweep_k8k9_case(lib, tag, dims, causal, with_bias, rate, device):
     return result
 
 
+# K5's rows of PERF.md §6: (name, (B, Sq, Sk, H, D), causal, key mask:
+# "gap" a pad gap and right padding, "no_neighbours" sample 0 fully masked)
+K5_CASES = [("t5 cross", (4, 128, 512, 12, 64), False, "gap"),
+            ("prefix", (4, 704, 724, 12, 64), True, "gap"),
+            ("mpt-2.7b cross", (4, 640, 64, 32, 80), False, "no_neighbours"),
+            ("family 7 cross", (4, 205, 64, 32, 80), False, "no_neighbours"),
+            ("d128 cross", (4, 640, 64, 32, 128), False, "no_neighbours")]
+K5_LAYOUTS = ["library", "two launches", "two launches, one grid's dQ",
+              "one grid", "split 2", "split 4", "split 2 at 2 an SM",
+              "split 4 at 2 an SM"]
+
+
+def sweep_k5_case(lib, tag, dims, causal, mask_kind, device):
+    """K5 at one of its shapes: the library's wrapper, the mma.sync tiles
+    before (shape -1), each layout of csrc/sweep/k5_shapes.cu (each with
+    the stats pass), K6 from K4's stats and SDPA's backward; the wall of
+    each in turns, its device time, by kernel for the library and the
+    split layouts; each unsplit layout against the library bit for bit,
+    the library against K6 given K4's stats bit for bit, each split layout
+    against itself run twice."""
+    b, sq, sk, h, d = dims
+    g = torch.Generator().manual_seed(sq + sk + d)
+    q, dout = (torch.randn(b, sq, h, d, generator=g).to(
+        device, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, generator=g).to(device, torch.bfloat16)
+            for _ in range(2))
+    if mask_kind == "gap":
+        mask = _key_mask(b, sk, causal, sq + sk, device)
+    else:
+        mask = torch.ones(b, sk, dtype=torch.int32, device=device)
+        mask[0] = 0
+        for i in range(1, b):
+            mask[i, sk - 3 * i:] = 0
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    out = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
+    ref = fa.flash_attention_bwd(q, k, v, mask, out, dout, causal=causal)
+    _, m, l = fa.flash_attention_stats(q, k, v, kv_mask=mask, causal=causal)
+    k6 = fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    same = {"library = K6 from K4's stats": all(
+        torch.equal(x, y) for x, y in zip(ref, k6))}
+    bitwise, deterministic, split_kernels = {}, {}, {}
+    bwd = {"library K5 (wrapper)": lambda: fa.flash_attention_bwd(
+        q, k, v, mask, out, dout, causal=causal)}
+    n = b * h * sq
+    part = torch.empty(8 * b * sk * h * d, dtype=torch.float32,
+                       device=device)
+    for i in range(-1, lib.sweep_k5_layouts()):
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        stats = torch.empty(3 * n, dtype=torch.float32, device=device)
+        name = "mma.sync (before)" if i < 0 else f"k5 {K5_LAYOUTS[i]}"
+
+        def call(i=i, grads=grads, stats=stats, name=name):
+            err = lib.sweep_k5(
+                i, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                stats.data_ptr(), part.data_ptr(),
+                *(t.data_ptr() for t in grads), b, sq, sk, h, scale,
+                int(causal), stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        same[name] = _near(grads, ref)
+        if i >= 0 and not K5_LAYOUTS[i].startswith("split"):
+            bitwise[name] = all(torch.equal(x, y)
+                                for x, y in zip(grads, ref))
+        elif i >= 0:
+            first = [t.clone() for t in grads]
+            call()
+            torch.cuda.synchronize()
+            deterministic[name] = all(torch.equal(x, y)
+                                      for x, y in zip(grads, first))
+            split_kernels[name] = device_ms_by_kernel(call)
+        bwd[name] = call
+    bwd["K6 from K4's stats (wrapper)"] = lambda: \
+        fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
+                                       causal=causal)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                       for t in (q, k, v, dout))
+    am = _sdpa_mask(mask, sq, causal, device)
+    ins = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    lib_out = F.scaled_dot_product_attention(*ins, attn_mask=am)
+    bwd["scaled_dot_product_attention backward"] = \
+        lambda: torch.autograd.grad(lib_out, ins, dot, retain_graph=True)
+    return {"case": f"k5 {tag}", "shape": list(dims), "causal": causal,
+            "mask": mask_kind, "backward_ms": medians(bwd),
+            "device_ms": device_ms(bwd),
+            "library_by_kernel": device_ms_by_kernel(
+                bwd["library K5 (wrapper)"]),
+            "split_by_kernel": split_kernels,
+            "unsplit_equal_to_library": bitwise,
+            "split_deterministic": deterministic,
+            "agrees_with_library": same}
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     k2k6 = "--k2-k6" in args
     k8k9 = "--k8-k9" in args
-    only_new = "--k4-k7" in args or k2k6 or k8k9
+    k5 = "--k5" in args
+    only_new = "--k4-k7" in args or k2k6 or k8k9 or k5
     allheads = "--no-allheads" not in args and not only_new
     rest = "--allheads" not in args and not only_new
-    new = "--allheads" not in args and not (k2k6 or k8k9)
+    new = "--allheads" not in args and not (k2k6 or k8k9 or k5)
     if not torch.cuda.is_available():
         print("sweep_attention: no CUDA device", file=sys.stderr)
         return 1
@@ -941,10 +1060,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"], capture_output=True,
         text=True).stdout.strip())
-    lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib = build(
+    lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib, k5_lib = build(
         ((0, 1) if rest else ()) + ((2,) if allheads or k2k6 else ())
-        + ((3,) if new else ()) + ((4,) if k8k9 or not only_new else ()))
+        + ((3,) if new else ()) + ((4,) if k8k9 or not only_new else ())
+        + ((5,) if k5 or not only_new else ()))
     runs = []
+    if k5 or not only_new:
+        runs += [lambda c=c: sweep_k5_case(k5_lib, *c, device)
+                 for c in K5_CASES]
     if k8k9 or not only_new:
         runs += [lambda c=c, r=r: sweep_k8k9_case(k8k9_lib, *c, r, device)
                  for c in K8K9_CASES
@@ -970,7 +1093,9 @@ def main(argv=None) -> int:
     ok = True
     for run in runs:
         result = run()
-        ok = ok and all(result["agrees_with_library"].values())
+        ok = ok and all(result["agrees_with_library"].values()) and all(
+            result.get("unsplit_equal_to_library", {}).values()) and all(
+            result.get("split_deterministic", {}).values())
         print(json.dumps(result), flush=True)
     return 0 if ok else 1
 

@@ -329,7 +329,7 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
             return att.attention_reference(q, k, v, kv_mask=kv_mask,
                                            causal=causal, scale=scale).clone()
 
-    def fake_launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
+    def fake_launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
         return fa.allheads_attention_bwd_reference(q, k, v, kv_mask, out,
                                                    dout, causal, scale)
 
@@ -348,8 +348,7 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch):
 
     def fake_launch_allheads_bwd(q, k, v, kv_mask, out, dout, causal, scale,
                                  row_max, row_sum):
-        return fake_launch_bwd(None, None, q, k, v, kv_mask, out, dout,
-                               causal, scale)
+        return fake_launch_bwd(q, k, v, kv_mask, out, dout, causal, scale)
 
     monkeypatch.setattr(fa, "_plain", lambda q: False)
     monkeypatch.setattr(fa, "_launch_fused", fake_launch_fused)

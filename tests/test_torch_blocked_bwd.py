@@ -235,7 +235,7 @@ def test_flash_card_path_keeps_the_graph_and_launches_k6(monkeypatch):
         return fa.flash_attention_blocked_bwd_reference(
             q, k, v, kv_mask, out, dout, m, l, causal=causal, scale=scale)
 
-    def fake_launch_bwd(fn, name, q, k, v, kv_mask, out, dout, causal, scale):
+    def fake_launch_bwd(q, k, v, kv_mask, out, dout, causal, scale):
         return fa.flash_attention_bwd_reference(q, k, v, kv_mask, out, dout,
                                                 causal, scale)
 

@@ -201,10 +201,37 @@ def test_a_mesh_is_refused_in_training_naming_roadmap_a8(mesh):
                              "--peft_type", "prefix", "--device", "cpu",
                              *mesh])
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cli.check_training_flags(args)
+        cli.check_single_device_flags(args)
     args, _ = cli.parse_cli(["--model_name_or_path", "opt-tiny",
                              "--peft_type", "prefix", "--device", "cpu"])
-    cli.check_training_flags(args)
+    cli.check_single_device_flags(args)
+
+
+@pytest.mark.parametrize("flag", [["--mesh_shape", "2,2"],
+                                  ["--zero1", "true"], ["--fsdp", "true"],
+                                  ["--distributed", "true"], []])
+def test_the_test_pass_refuses_the_multi_device_flags_naming_roadmap_a8(
+        flag, monkeypatch):
+    """--test true refuses what training refuses (ROADMAP A8) before any
+    model is built: the JAX package's test pass shards its batch over the
+    mesh, the port's would run the whole split on one device without a
+    word. A plain --test true run reaches prepare."""
+    class Built(Exception):
+        pass
+
+    def prepare(args, device):
+        raise Built
+
+    monkeypatch.setattr(cli, "prepare", prepare)
+    monkeypatch.setattr(cli, "start_wandb", lambda args: None)
+    argv = ["--model_name_or_path", "opt-tiny", "--device", "cpu",
+            "--test", "true", *flag]
+    if flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            cli.main(argv)
+    else:
+        with pytest.raises(Built):
+            cli.main(argv)
 
 
 @pytest.mark.parametrize("cut", [False, True])

@@ -107,9 +107,13 @@ def test_tensor_core_body_kinds(name, kind):
     ("wg::allheads_dq_kernel<64, mmgl::wg::Shape<1, 64, 2, 3>, "
      "__nv_bfloat16, false, false, __nv_bfloat16>", "K3+K5+K6"),
     # K8/K9's library launch: both bodies in one grid
-    ("wg::allheads_bias_bwd_kernel<64, mmgl::wg::Shape<1, 64, 2, 2>, "
+    ("wg::allheads_dq_dkdv_kernel<64, mmgl::wg::Shape<1, 64, 2, 2>, "
      "mmgl::wg::Shape<1, 64, 2, 2>, __nv_bfloat16, true, true, "
      "__nv_bfloat16>", "K8/K9"),
+    # K5's at T5's cross-attention: the same grid without the bias form
+    ("wg::allheads_dq_dkdv_kernel<64, mmgl::wg::Shape<1, 64, 2, 2>, "
+     "mmgl::wg::Shape<1, 64, 2, 2>, __half, false, false, __half>",
+     "K3+K5+K6"),
 ])
 def test_wgmma_body_kinds(name, kind):
     """The wgmma bodies are told apart by their template flags: stats-only
