@@ -74,7 +74,7 @@ imports no JAX. Phases, each fatal on failure:
      checks of phase 5. Then one fp32 micro-step in eval mode (no dropout:
      K7, K8/K9, K4 and K5 on the card) against the CPU;
   8. every kernel timed (bf16 and fp16, CUDA events over runs of 10 calls
-     back to back) against its plain version and against the one PyTorch
+     back to back, 2 of the plain version's) against its plain version and against the one PyTorch
      call that
      computes the same function (scaled_dot_product_attention with the bias
      and mask as a float attn_mask, and its backward), beside its bound:
@@ -119,16 +119,17 @@ imports no JAX. Phases, each fatal on failure:
      summary, where the causal mask hides them from every labeled token, as
      in the JAX package: the encodings and projections get a zero gradient
      there, may stay, and act in the prefill that generation starts from.)
- 12. BASELINE family 3 at its published LM size: OPT-1.3B + Roberta-base,
+ 12. BASELINE family 3 at its published LM width: OPT-1.3B + Roberta-base,
      context text_only, embedding, LoRA (r 64) on every q and v projection,
      --freeze_lm true; the short run of 5c. 640 + 11 x 4 = 684 tokens take
-     K1 and K3 (24 layers), Roberta K1; the prefill at 556 K1. Then its
+     K1 and K3 (8 of OPT-1.3B's 24 layers, full width), Roberta K1; the
+     prefill at 556 K1. Then its
      fp32 micro-step on the card against the CPU and its bf16 one held
      launch by launch against the plain versions, LoRA's B set to seeded
      non-zero values in both (at init B is 0 and A's gradient is 0);
  13. BASELINE family 4 as the JAX package's bench runs it, at MPT-2.7B's
-     width (head dim 80) and 8 of its 32 layers (phase 18 trains the same
-     width at its whole depth): + Roberta-base + CLIP, context all,
+     width (head dim 80) and 8 of its 32 layers (as phase 18): +
+     Roberta-base + CLIP, context all,
      flamingo, 4 gated cross layers (one after every 2nd layer), from
      cached tower features (--cache_neighbor_embeddings true
      --neighbor_cache_dir), the short run. The cache build launches
@@ -181,18 +182,19 @@ imports no JAX. Phases, each fatal on failure:
      generated batch on the tensor-core body, the loss is finite and not
      the seeded model's, and one sample's fp32 eval step on the card
      agrees with the CPU;
- 18. BASELINE family 7 at full width: MPT-2.7B + flamingo, context all,
+ 18. BASELINE family 7 at full width and 8 of MPT-2.7B's 32 layers (as
+     phase 13): MPT-2.7B + flamingo, context all,
      embedding, the CLIP text tower imported from phase 17's CLIPModel
      (--text_model; its vision tower too), --max_input_length 77
      (prompt and neighbour texts; the text tower's position table holds
      77), uncached: the short run, bf16 compute with fp32 parameters.
      Every micro-step launches K2 12 times causal at (44, 77, 8, 64) for
-     the texts and 12 times at (20, 197, 12, 64) for the images, K1 32
-     and K3 24 at head dim 80 (205 tokens), K4 and K5 4 at 205 x 64; the
+     the texts and 12 times at (20, 197, 12, 64) for the images, K1 8
+     and K3 6 at head dim 80 (205 tokens), K4 and K5 4 at 205 x 64; the
      eval steps and prefills their own counts; the tanh gates move in
      update 1 while the cross layers behind them get exactly-zero
      gradients, and no frozen tensor moves. Then its fp32 micro-step card
-     against CPU at 8 of its 32 layers (full width), the gates seeded;
+     against CPU, the gates seeded;
  19. BASELINE family 3 as the JAX package's bench runs it: phase 12's run
      under --remat true (the same seed and batch). Every micro-step
      launches K1 twice a layer of the LM (the forward and the recompute,
@@ -320,17 +322,16 @@ OPT350_LAYERS = 24
 ROBERTA_LAYERS = 12
 CLIP_LAYERS = 12
 OPT_LAYERS = 12
-OPT13_LAYERS = 24           # OPT-1.3B
-MPT_LAYERS = 32             # MPT-2.7B
-MPT_CROSS = 4               # --num_neighbor_layers: one every 32 // 4 layers
-# the self-attention layers of MPT-2.7B whose input carries a gradient:
-# those after the first cross layer (after layer 8)
-MPT_GRAD_LAYERS = MPT_LAYERS - MPT_LAYERS // MPT_CROSS
-# a depth cut at full width, for the script's time limit: phase 13
-# (family 4) and the fp32 card-vs-CPU micro-steps of families 4 and 7 run
-# MPT-2.7B at 8 of its 32 layers (2560 wide, 32 heads of 80); phase 18
-# trains the same LM width at its whole depth. Cross layers one every 2,
-# so 6 self-attention layers see a trainable input
+# a depth cut at full width, for the script's time limit (1039-1303 s
+# with it whole, by host): phases 12 and 19 (family 3) run OPT-1.3B at 8
+# of its 24 layers (2048 wide, 32 heads of 64)
+OPT13_LAYERS = 8
+MPT_CROSS = 4               # --num_neighbor_layers: MPT-2.7B's 32 // 8
+# a depth cut at full width, for the script's time limit (on a slow host
+# the script took 1303 s with family 7 at its whole depth): phases 13 and
+# 18 (families 4 and 7) run MPT-2.7B at 8 of its 32 layers (2560 wide, 32
+# heads of 80). Cross layers one every 2, so the 6 self-attention layers
+# after the first cross layer see a trainable input
 MPT_CUT_LAYERS = 8
 MPT_CUT_GRAD_LAYERS = MPT_CUT_LAYERS - MPT_CUT_LAYERS // MPT_CROSS
 # a depth cut at full width, for the script's time limit (on a slow host
@@ -385,7 +386,7 @@ OPT_FP16_ARGV = with_flags(OPT_TRAIN_ARGV, compute_dtype="float16", **SHORT)
 T5_FP16_ARGV = with_flags(T5_TRAIN_ARGV, compute_dtype="float16", **SHORT)
 OPT350_FP16_ARGV = with_flags(OPT350_TRAIN_ARGV, compute_dtype="float16",
                               **SHORT)
-# BASELINE family 3 at its published LM size: OPT-1.3B + Roberta-base,
+# BASELINE family 3 at its published LM width: OPT-1.3B + Roberta-base,
 # text_only, embedding, LoRA on q and v, --freeze_lm true (640 + 44 tokens)
 LORA_ARGV = with_flags(OPT_TRAIN_ARGV, model_name_or_path="opt-1.3b",
                        context="text_only", neighbor_mode="embedding",
@@ -663,8 +664,11 @@ MODEL_ATOL = 1e-3
 # to twice the plain versions' own error on the card
 STEP_TOL = (1e-3, 1e-4, 1e-3)
 T5_STEP_TOL = (1e-3, 5e-3, 1e-2)
-# phase 8: calls back to back in one timed sample
+# phase 8: calls back to back in one timed sample; the plain versions,
+# whose calls take 0.2-17 ms, need no run to hide the host's launches,
+# and ten calls a sample of them took a minute of the time limit
 TIMING_RUN = 10
+PLAIN_RUN = 2
 # H100 SXM data-sheet peaks (dense bf16, HBM3)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -2555,9 +2559,9 @@ def float_mask(mask, sq, causal, bias, dtype):
 def median_ms(fns, device, rounds: int = 5, run: int = TIMING_RUN):
     """Median ms of each callable, in rounds of plain, kernel, library,
     library, kernel, plain (CUDA events, after a warm-up); a sample is the
-    mean of ``run`` calls back to back, so that the host's time to launch a
-    call overlaps the card's work on the one before, as it does on the main
-    path."""
+    mean of ``run`` calls back to back (PLAIN_RUN of the plain version's),
+    so that the host's time to launch a call overlaps the card's work on
+    the one before, as it does on the main path."""
     import torch
 
     for fn in fns.values():
@@ -2570,12 +2574,13 @@ def median_ms(fns, device, rounds: int = 5, run: int = TIMING_RUN):
     end = torch.cuda.Event(enable_timing=True)
     for _ in range(rounds * 2):
         for which in order:
+            calls = PLAIN_RUN if which == "plain" else run
             start.record()
-            for _ in range(run):
+            for _ in range(calls):
                 fns[which]()
             end.record()
             end.synchronize()
-            samples[which].append(start.elapsed_time(end) / run)
+            samples[which].append(start.elapsed_time(end) / calls)
     return {k: statistics.median(s) for k, s in samples.items()}, len(
         samples["kernel"])
 
@@ -2950,7 +2955,8 @@ def time_kernels(fa, device):
               f"plain {times['plain']:.4f} ms, library "
               f"{times['library']:.4f} ms (kernel / library "
               f"{times['kernel'] / times['library']:.3f}; medians of {n} "
-              f"runs of {TIMING_RUN}); bound {bound:.4f} ms ({by}: "
+              f"runs of {TIMING_RUN}, the plain version's of {PLAIN_RUN}); "
+              f"bound {bound:.4f} ms ({by}: "
               f"{flops:.4g} FLOP, {nbytes:.4g} B)")
     return rows
 
@@ -3037,7 +3043,8 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
     # 684 tokens (K1/K3), the prefill at 556 (K1)
     per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
            "fused_heads_attention": 0, "flash_attention": 0}
-    with tempfile.TemporaryDirectory() as log_dir:
+    with tempfile.TemporaryDirectory() as log_dir, \
+            depth_cut("1.3b", OPT13_LAYERS):
         lora = run_training(
             cli, fa, device, log_dir, LORA_ARGV,
             ("flash_attention_allheads", "flash_attention_allheads_bwd"),
@@ -3052,12 +3059,14 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
                         "LoRA's A multiplies B, which starts at 0"))
     lora_step = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
                  "flash_attention_allheads_bwd": OPT13_LAYERS}
-    for key, half in (("fp32_step", False), ("bf16_step", True)):
-        lora[key] = check_train_step(
-            cli, fa, device, LORA_ARGV,
-            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
-            "opt-1.3b lora", half=half, seeded=("lora_b",),
-            per_step=lora_step)
+    with depth_cut("1.3b", OPT13_LAYERS):
+        for key, half in (("fp32_step", False), ("bf16_step", True)):
+            lora[key] = check_train_step(
+                cli, fa, device, LORA_ARGV,
+                ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+                "opt-1.3b lora", half=half, seeded=("lora_b",),
+                per_step=lora_step)
+    lora["layers"] = OPT13_LAYERS
     runs["opt13b_lora_training"] = lora
     lap("12")
 
@@ -3585,23 +3594,24 @@ def run_checkpoint_phase(cli, fa, device, files, seeded_loss):
 
 
 def run_family7_phase(cli, fa, device, micro, files):
-    """Phase 18: BASELINE family 7 at MPT-2.7B with the imported CLIP text
-    and vision towers, uncached, the short run with its launch counts by
-    shape, then at MPT_CUT_LAYERS layers its fp32 micro-step card vs CPU
-    and its bf16 micro-step with every launch held against its plain
-    version on the same inputs.
+    """Phase 18: BASELINE family 7 at MPT-2.7B's width and MPT_CUT_LAYERS
+    of its layers with the imported CLIP text and vision towers, uncached,
+    the short run with its launch counts by shape, then its fp32
+    micro-step card vs CPU and its bf16 micro-step with every launch held
+    against its plain version on the same inputs.
     Returns the run's summary and {kernels-line name: launches}: K2 at the
     text tower's shape, K1 and K3-K5 at head dim 80."""
-    step = {"flash_attention_allheads": MPT_LAYERS,
-            "flash_attention_allheads_bwd": MPT_GRAD_LAYERS,
+    step = {"flash_attention_allheads": MPT_CUT_LAYERS,
+            "flash_attention_allheads_bwd": MPT_CUT_GRAD_LAYERS,
             "fused_heads_attention": 2 * CLIP_LAYERS,
             "flash_attention": MPT_CROSS, "flash_attention_bwd": MPT_CROSS}
-    per_pass = {"flash_attention_allheads": MPT_LAYERS,
+    per_pass = {"flash_attention_allheads": MPT_CUT_LAYERS,
                 "fused_heads_attention": 2 * CLIP_LAYERS,
                 "flash_attention": MPT_CROSS,
                 "flash_attention_allheads_bwd": 0}
     imported = []
-    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir:
+    with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir, \
+            depth_cut("2.7b", MPT_CUT_LAYERS):
         run = run_training(
             cli, fa, device, log_dir, FAMILY7_ARGV, tuple(step),
             {n: c * micro for n, c in step.items()},
@@ -3631,22 +3641,22 @@ def run_family7_phase(cli, fa, device, micro, files):
     if (dict(tally.fused), tally.flash, tally.flash_bwd) != want:
         fail(f"family 7's K2/K4/K5 launches by shape {dict(tally.fused)} / "
              f"{tally.flash} / {tally.flash_bwd}, expected {want}")
-    if (tally.dims[("flash_attention_allheads", 80)] != MPT_LAYERS * passes
+    if (tally.dims[("flash_attention_allheads", 80)]
+            != MPT_CUT_LAYERS * passes
             or tally.dims[("flash_attention_allheads_bwd", 80)]
-            != MPT_GRAD_LAYERS * micro):
+            != MPT_CUT_GRAD_LAYERS * micro):
         fail(f"family 7's K1/K3 launches at head dim 80 {dict(tally.dims)}")
     run["imported_parameters"] = imported
     run["k2_by_shape"] = {f"{s}{'c' if c else ''}": n
                           for (s, c), n in tally.fused.items()}
     run["k4_by_shape"] = {f"{a}x{b}": n for (a, b), n in tally.flash.items()}
-    cut_step = {**step, "flash_attention_allheads": MPT_CUT_LAYERS,
-                "flash_attention_allheads_bwd": MPT_CUT_GRAD_LAYERS}
+    run["layers"] = MPT_CUT_LAYERS
     with depth_cut("2.7b", MPT_CUT_LAYERS):
         for key, half in (("fp32_step", False), ("bf16_step", True)):
             run[key] = check_train_step(
                 cli, fa, device, FAMILY7_ARGV, tuple(step),
                 f"mpt-2.7b cliptext ({MPT_CUT_LAYERS} layers)", half=half,
-                seeded=("gating",), per_step=cut_step)
+                seeded=("gating",), per_step=step)
             run[key]["layers"] = MPT_CUT_LAYERS
     gc.collect()
     launches = {dkey(n, 80): tally.dims[(n, 80)] for n in (
@@ -3675,7 +3685,8 @@ def run_remat_phase(cli, fa, device, micro, lora):
     too) held against its plain version, LoRA's B seeded."""
     per = {"flash_attention_allheads": ROBERTA_LAYERS + OPT13_LAYERS,
            "fused_heads_attention": 0, "flash_attention": 0}
-    with tempfile.TemporaryDirectory() as log_dir:
+    with tempfile.TemporaryDirectory() as log_dir, \
+            depth_cut("1.3b", OPT13_LAYERS):
         run = run_training(
             cli, fa, device, log_dir, LORA_REMAT_ARGV,
             ("flash_attention_allheads", "flash_attention_allheads_bwd"),
@@ -3699,13 +3710,15 @@ def run_remat_phase(cli, fa, device, micro, lora):
     run["phase12"] = {"loss": lora["losses"][0],
                       "grad_norm": lora["grad_norms"][0],
                       "peak_bytes": lora["peak_bytes"], "difference": diff}
-    run["bf16_step"] = check_train_step(
-        cli, fa, device, LORA_REMAT_ARGV,
-        ("flash_attention_allheads", "flash_attention_allheads_bwd"),
-        "opt-1.3b lora remat", half=True, seeded=("lora_b",),
-        per_step={"flash_attention_allheads":
-                      ROBERTA_LAYERS + 2 * OPT13_LAYERS,
-                  "flash_attention_allheads_bwd": OPT13_LAYERS})
+    with depth_cut("1.3b", OPT13_LAYERS):
+        run["bf16_step"] = check_train_step(
+            cli, fa, device, LORA_REMAT_ARGV,
+            ("flash_attention_allheads", "flash_attention_allheads_bwd"),
+            "opt-1.3b lora remat", half=True, seeded=("lora_b",),
+            per_step={"flash_attention_allheads":
+                          ROBERTA_LAYERS + 2 * OPT13_LAYERS,
+                      "flash_attention_allheads_bwd": OPT13_LAYERS})
+    run["layers"] = OPT13_LAYERS
     gc.collect()
     return run
 
@@ -4314,7 +4327,7 @@ def main() -> int:
     # tuning) and K7/K8 (T5's prefixed decoder), each from the run that
     # takes it, prefills and eval steps included
     launches.update(peft["launches"])
-    # head dims 80 (phase 18, MPT-2.7B at its whole depth) and 128 (phase
+    # head dims 80 (phase 18, MPT-2.7B at 8 layers) and 128 (phase
     # 16, OPT-6.7B), and K2 causal at the CLIP text tower's shape (phase 18)
     launches.update(launches_d128)
     launches.update(launches_family7)

@@ -19,9 +19,8 @@
 // _bwd_bias_kernel(_batched) (:689, :843, via _bwd_bias :984 and
 // _bwd_bias_batched :942).
 // The math is xla_attention's, as in the mma.sync bodies these replace
-// (attention_fwd_tc.cuh and the tensor-core tiles of
-// attention_bwd_tiles.cuh, in their bias form too, now only the sweeps'
-// "before"):
+// (attention_fwd_tc.cuh and sweep/mma_sync_tiles.cuh, in their bias form
+// too, now only the sweeps' "before"):
 // masked logits -1e30, causal aligned at the ends, a
 // fully masked row averaging V over the sk keys, and jax.grad's zero dS at
 // masked logits. Every element's arithmetic is theirs too (logits in log2
@@ -646,26 +645,14 @@ __host__ __device__ constexpr size_t dkdv_smem() {
                        bias_tile_bytes<S, kBias, TB>());
 }
 
-// the split form of dK/dV, which only the sweep launches
-// (csrc/sweep/k5_shapes.cu; it lost to the unsplit grid at every K5 shape,
-// PERF.md §6): group `group` of `groups` takes the group-th contiguous
-// share of the query tiles and writes its fp32 partial dK and dV, each
-// (groups, B, Sk, H * D), for the sweep's reduction to sum
-struct Split {
-  int groups, group;
-  float *dk, *dv;
-};
-
 // dK, dV for 64 kNC keys, over the query tiles of S::kTile rows that the
 // producer visits: S^T = K Q^T and dP^T = V dO^T put the keys in the
 // accumulators' rows, so P^T and dS^T are register A operands of
 // dV += P^T dO and dK += dS^T Q. The bias form (K8/K9) reads the bias of
 // each streamed tile (its query rows x the block's keys, read transposed)
-// through bias_map and the dropout key from ba. kSplit: only split's share
-// of the query tiles, into split's fp32 partials (without it, the code is
-// the unsplit body's, instruction for instruction)
+// through bias_map and the dropout key from ba
 template <int D, typename S, typename T, bool kBias, bool kDropout,
-          typename TB, bool kOwnDelta, bool kSplit = false>
+          typename TB, bool kOwnDelta>
 __device__ __forceinline__ void dkdv_body(
     int blk, const CUtensorMap& q_map, const CUtensorMap& k_map,
     const CUtensorMap& v_map, const CUtensorMap& do_map,
@@ -673,8 +660,7 @@ __device__ __forceinline__ void dkdv_body(
     const float* __restrict__ row_max, const float* __restrict__ row_sum,
     const float* __restrict__ row_delta, const T* __restrict__ out,
     const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int heads, float scale, int causal, BiasArgs<TB> ba,
-    Split split = Split{}) {
+    int sq, int sk, int heads, float scale, int causal, BiasArgs<TB> ba) {
   constexpr int kNC = S::kNC;
   constexpr int QT = S::kTile;
   constexpr int ST = S::kStages;
@@ -709,13 +695,6 @@ __device__ __forceinline__ void dkdv_body(
   const int b = blockIdx.z;
   const int shift = sk - sq;
   const int n_q = (sq + QT - 1) / QT;
-  // the query tiles this block walks: all, or its group's share
-  int t_begin = 0, t_end = n_q;
-  if constexpr (kSplit) {
-    const int per = (n_q + split.groups - 1) / split.groups;
-    t_begin = min(n_q, split.group * per);
-    t_end = min(n_q, t_begin + per);
-  }
   const long stat0 = (static_cast<long>(b) * heads + h) * sq;
   const int* mask_row =
       kv_mask != nullptr ? kv_mask + static_cast<long>(b) * sk : nullptr;
@@ -773,9 +752,9 @@ __device__ __forceinline__ void dkdv_body(
     const int t_first =
         !block_keys ? n_q : causal ? max(0, k0 - shift) / QT : 0;
     int i = 0;
-    for (int t = t_begin; t <= t_end; ++t) {
+    for (int t = 0; t <= n_q; ++t) {
       bool full_tile = false;
-      if (t < t_end) {
+      if (t < n_q) {
         // the tile holds a fully masked row (m = -1e30)
         bool any = false;
         for (int r = lane; r < QT; r += 32) {
@@ -787,7 +766,7 @@ __device__ __forceinline__ void dkdv_body(
       }
       const int s = i % ST;
       if (i >= ST) mbar_wait(&empty[s], ((i / ST) - 1) & 1);
-      if (t < t_end) {
+      if (t < n_q) {
         if constexpr (kOwnDelta) {
           // the tile's copies first, in flight while the producer makes
           // its rows' statistics and delta
@@ -1036,19 +1015,8 @@ __device__ __forceinline__ void dkdv_body(
 #pragma unroll
     for (int db = 0; db < D / 8; ++db) {
       const int c = 8 * db + 2 * c4;
-      if constexpr (kSplit) {
-        const long e =
-            split.group * (static_cast<long>(gridDim.z) * sk * rs) + row + c;
-        *reinterpret_cast<float2*>(split.dk + e) =
-            make_float2(dk_acc[4 * db + 2 * r], dk_acc[4 * db + 2 * r + 1]);
-        *reinterpret_cast<float2*>(split.dv + e) =
-            make_float2(dv_acc[4 * db + 2 * r], dv_acc[4 * db + 2 * r + 1]);
-      } else {
-        store2(dk + row + c, dk_acc[4 * db + 2 * r],
-               dk_acc[4 * db + 2 * r + 1]);
-        store2(dv + row + c, dv_acc[4 * db + 2 * r],
-               dv_acc[4 * db + 2 * r + 1]);
-      }
+      store2(dk + row + c, dk_acc[4 * db + 2 * r], dk_acc[4 * db + 2 * r + 1]);
+      store2(dv + row + c, dv_acc[4 * db + 2 * r], dv_acc[4 * db + 2 * r + 1]);
     }
   }
 }
@@ -1633,13 +1601,14 @@ enum class BwdGrid { kAuto, kOne, kTwo };
 template <typename KvS, typename QS>
 using OneGridDq = Shape<QS::kNC, QS::kTile, QS::kStages, KvS::kMinBlocks>;
 
-// K5 and K8/K9: dQ, which writes delta into row_delta and, in the bias
+// K5, K6 and K8/K9: dQ, which writes delta into row_delta and, in the bias
 // form with a bias, the dlogits into partial, and dK/dV, on the caller's
 // stream. Where both bodies' blocks fill at most two waves of the SMs'
 // slots (KvS::kMinBlocks an SM: T5's decoder shapes and cross-attention,
 // whose launches alone fill less than a wave) in one grid
 // (allheads_dq_dkdv_kernel, dK/dV making its own delta, dQ in
-// OneGridDq<KvS, QS>); past that (T5's encoders, MPT's cross-attention),
+// OneGridDq<KvS, QS>); past that (T5's encoders, MPT's cross-attention,
+// K6's long causal rows),
 // dQ in QS, then dK/dV from its delta, which ran faster there
 // (sweep_attention --k8-k9 and --k5, PERF.md §6). Both layouts run the
 // same bodies, so they give the same bits
@@ -1699,8 +1668,8 @@ cudaError_t launch_bwd_layout(const Maps& m, const int* kv_mask,
 // forward (K1, K2, K4, K7) and the stats passes of K3, K5 and K8/K9: a
 // forward and the stats pass that stands in for it must share one shape,
 // so that the row stats they write are the same bits. DkdvShape and
-// DqShape serve K3, K5 and K6 (K5's one grid takes dQ at DkdvShape's
-// blocks an SM, OneGridDq; --k5 times both), and DkdvShape K8/K9 (in its
+// DqShape serve K3, K5 and K6 (K5's and K6's one grid takes dQ at
+// DkdvShape's blocks an SM, OneGridDq; --k5 times both), and DkdvShape K8/K9 (in its
 // bias form, with BiasDqShape; --k8-k9 times them)
 template <int D>
 using FwdShape = Shape<1, 64, 2, 2>;

@@ -37,7 +37,10 @@
 //          computes it outside Pallas, :345-347) and writes it for
 //          2. dK/dV: one block per (64 keys, head, batch), looping over the
 //          query tiles that can see its keys (:299-300), plus earlier
-//          tiles that hold a fully masked row.
+//          tiles that hold a fully masked row;
+//     or, where both grids' blocks fill at most two waves of the SMs'
+//     slots, the two bodies in one grid, dK/dV making its own delta (the
+//     same bits): wg::launch_bwd_layout, which lays out K5's bodies too.
 //     The end-aligned sq < sk is the bodies' shift = sk - sq.
 //   * fp32 (entry mmgl_blocked_bwd): three launches, a delta pass (four
 //     threads a row) and then the scalar dK/dV and dQ tile kernels of
@@ -89,8 +92,8 @@ extern "C" int mmgl_blocked_bwd(const void* q, const void* k, const void* v,
 }
 
 // K6 on K3's wgmma/TMA bodies (dtype bf16 or fp16): dQ, which also writes
-// delta into row_delta, then dK/dV, from K4's row max and sum. kv_mask may
-// be null (every key valid).
+// delta into row_delta, and dK/dV, from K4's row max and sum, in two
+// launches or one grid as K5's. kv_mask may be null (every key valid).
 extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
                                    const int* kv_mask, const void* out,
                                    const void* dout, const float* row_max,
@@ -105,15 +108,15 @@ extern "C" int mmgl_blocked_bwd_tc(const void* q, const void* k, const void* v,
   return mmgl::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     return mmgl::with_tc_type(dtype, [&](auto tag) {
+      namespace wg = mmgl::wg;
       using T = decltype(tag);
-      mmgl::wg::Maps m;
-      const cudaError_t err = mmgl::wg::make_maps(&m, q, k, v, dout, dtype,
-                                                  batch, sq, sk, heads, D);
+      wg::Maps m;
+      const cudaError_t err = wg::make_maps(&m, q, k, v, dout, dtype, batch,
+                                            sq, sk, heads, D);
       if (err != cudaSuccess) return err;
-      return mmgl::wg::launch_bwd<D, mmgl::wg::DkdvShape<D>,
-                                  mmgl::wg::DqShape<D>, T>(
+      return wg::launch_bwd_layout<D, wg::DkdvShape<D>, wg::DqShape<D>, T>(
           m, kv_mask, row_max, row_sum, out, dout, row_delta, dq, dk, dv,
-          batch, sq, sk, heads, scale, causal, stream);
+          nullptr, batch, sq, sk, heads, scale, causal, stream);
     });
   });
 }

@@ -51,13 +51,10 @@
 // runs them from K4's stats: in one grid where both bodies' blocks fill at
 // most two waves of the SMs' slots (T5's cross-attention: 96 dQ and 384
 // dK/dV blocks), else dQ then dK/dV (MPT's cross-attention, prefix
-// tuning's 704 x 724), wg::launch_bwd_layout's rule; dK/dV split over the
-// query tiles where its grid is under a wave (MPT's 128 blocks) lost to
-// both at every K5 shape and stays in the sweep (csrc/sweep/k5_shapes.cu,
-// PERF.md §6). Either way K5 equals K6 given K4's stats, bit for bit. A
-// null key mask is every key valid. (The mma.sync tiles K5 ran before,
-// attention_bwd_tiles.cuh's tensor-core form, are reached only from the
-// sweep.)
+// tuning's 704 x 724), wg::launch_bwd_layout's rule, which lays out K6's
+// bodies too. Either way K5 equals K6 given K4's stats, bit for bit. A
+// null key mask is every key valid. (The mma.sync tiles K5 ran before are
+// csrc/sweep/mma_sync_tiles.cuh, outside the library.)
 
 // What bounds the scalar passes on this card: a few GFLOP of scalar fp32
 // FMAs over a few MB, so the throughput of FMAs and shared-memory loads, not

@@ -1,6 +1,6 @@
 // Counter-based random bits for the in-kernel attention-prob dropout
 // (attention_bias_fwd.cu, attention_bias_bwd.cu and the bias form of the
-// tensor-core bodies in attention_fwd_tc.cuh and attention_bwd_tiles.cuh),
+// mma.sync bodies in attention_fwd_tc.cuh and sweep/mma_sync_tiles.cuh),
 // the Hopper counterpart of the TPU hardware PRNG that _gen_keep_factor
 // (mmgl_tpu/ops/flash_attention.py:570) reseeds per block.
 //

@@ -6,14 +6,14 @@
 // shapes at each head dim the library takes (64, 80, 128), bf16. Shape -1
 // is the mma.sync body that K1 and K2 and K3 launched before
 // (attention_fwd_tc.cuh's forward; its stats-only form, the delta pass and
-// attention_bwd_tiles.cuh's dK/dV and dQ), and sweep_k6_before K6's (the
+// mma_sync_tiles.cuh's dK/dV and dQ), and sweep_k6_before K6's (the
 // delta pass and the same dK/dV and dQ): the "before" readings, reachable
 // only here. Built apart from the
 // kernel library (this folder is not part of it); the library launches one
 // shape of each (mmgl::wg::FwdShape, DkdvShape, DqShape).
 
 #include "../allheads_wgmma.cuh"
-#include "../attention_bwd_tiles.cuh"
+#include "mma_sync_tiles.cuh"
 #include "../attention_fwd_tc.cuh"
 
 namespace {

@@ -1,13 +1,14 @@
 // Shapes of the bf16 tensor-core attention bodies, for
 // mmgl_tpu_torch/sweep_attention.py: the forward body of attention_fwd_tc.cuh
-// and the dK/dV and dQ bodies of attention_bwd_tiles.cuh, each instantiated
+// and the dK/dV and dQ bodies of mma_sync_tiles.cuh, each instantiated
 // in several (warps of 16 rows, ring stages, blocks an SM) shapes at each
 // head dim the library takes (64, 80, 128), behind one entry that takes the
 // shape's index and the head dim. Built apart from the kernel library (this
-// folder is not part of it); the library launches one shape of each at each
-// head dim (mmgl::fwd_min_blocks, mmgl::BwdKvShape and mmgl::BwdQShape).
+// folder is not part of it). The library launched one shape of each at
+// each head dim (mmgl::fwd_min_blocks, mmgl::BwdKvShape and
+// mmgl::BwdQShape) until the wgmma bodies replaced them.
 
-#include "../attention_bwd_tiles.cuh"
+#include "mma_sync_tiles.cuh"
 #include "../attention_fwd_tc.cuh"
 
 namespace {

@@ -4,11 +4,12 @@
 // forms T5 runs, all with its bf16 bias: the bias without dropout (eval),
 // the bias with dropout (training self-attention), dropout without a bias
 // (training cross-attention). Built apart from the kernel library, like
-// attention_shapes.cu; the library launches one shape of each, the one
-// this sweep found fastest (attention_bias_fwd.cu, attention_bias_bwd.cu).
+// attention_shapes.cu; the library launched one shape of each, the one
+// this sweep found fastest (attention_bias_fwd.cu, attention_bias_bwd.cu),
+// until the wgmma bodies replaced them.
 // The bias's row stride is sk: the sweep's lengths are multiples of 8.
 
-#include "../attention_bwd_tiles.cuh"
+#include "mma_sync_tiles.cuh"
 #include "../attention_fwd_tc.cuh"
 
 namespace {

@@ -7,129 +7,29 @@
 //      the grid's size), as mmgl_flash_bwd_tc runs it;
 //   1  two launches, dQ in DqShape, then dK/dV in DkdvShape;
 //   2  two launches, dQ at dK/dV's blocks an SM (the one grid's dQ shape);
-//   3  one grid of both bodies (dK/dV making its own delta);
-//   4+ dQ in DqShape, then dK/dV split over the query tiles (groups blocks
-//      a key block, each writing fp32 partial dK and dV through the
-//      kSplit form of dkdv_body) and the fixed-order sum of the partials
-//      (wg::launch_dkdv_split below), at G groups and blocks an SM (the
-//      library's DkdvShape, or two, where ptxas must fit both
-//      accumulators in fewer registers). It lost to the unsplit grid at
-//      every K5 shape (PERF.md §6), so only this source builds it.
+//   3  one grid of both bodies (dK/dV making its own delta).
 // Shape -1 is the mma.sync body K5 launched before (the same stats pass,
-// the delta pass, then attention_bwd_tiles.cuh's tensor-core dK/dV and dQ
-// tiles in their library shapes): the "before" reading, reachable only
-// here. Built apart from the kernel library (this folder is not part of
-// it).
+// the delta pass, then mma_sync_tiles.cuh's dK/dV and dQ tiles in the
+// shapes K5 ran them in): the "before" reading. Built apart from the
+// kernel library (this folder is not part of it).
 
 #include "../allheads_wgmma.cuh"
-#include "../attention_bwd_tiles.cuh"
-
-// ---- the split layout: kept out of the library, which it lost to ----------
-
-namespace mmgl {
-namespace wg {
-
-// dK/dV split over the query tiles (dkdv_body's kSplit form): block x
-// takes key block x / groups and its group x % groups
-template <int D, typename S, typename T>
-__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
-allheads_dkdv_split_kernel(const __grid_constant__ CUtensorMap q_map,
-                           const __grid_constant__ CUtensorMap k_map,
-                           const __grid_constant__ CUtensorMap v_map,
-                           const __grid_constant__ CUtensorMap do_map,
-                           const int* __restrict__ kv_mask,
-                           const float* __restrict__ row_max,
-                           const float* __restrict__ row_sum,
-                           const float* __restrict__ row_delta, int sq,
-                           int sk, int heads, float scale, int causal,
-                           int groups, float* __restrict__ dk_part,
-                           float* __restrict__ dv_part) {
-  const int x = static_cast<int>(blockIdx.x);
-  dkdv_body<D, S, T, false, false, T, false, true>(
-      x / groups, q_map, k_map, v_map, do_map, q_map, kv_mask, row_max,
-      row_sum, row_delta, nullptr, nullptr, nullptr, nullptr, sq, sk, heads,
-      scale, causal, BiasArgs<T>{},
-      Split{groups, x % groups, dk_part, dv_part});
-}
-
-// dK, dV = the sum of the groups' fp32 partials, group 0 first (no
-// atomics: the same bits from run to run), rounded to T; two elements a
-// thread
-template <typename T>
-__global__ void split_reduce_kernel(const float* __restrict__ dk_part,
-                                    const float* __restrict__ dv_part,
-                                    T* __restrict__ dk, T* __restrict__ dv,
-                                    int groups, long n) {
-  for (long e = 2 * (blockIdx.x * static_cast<long>(blockDim.x) +
-                     threadIdx.x);
-       e < n; e += 2L * gridDim.x * blockDim.x) {
-    float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
-    for (int g = 0; g < groups; ++g) {
-      const float2 a = *reinterpret_cast<const float2*>(dk_part + g * n + e);
-      const float2 c = *reinterpret_cast<const float2*>(dv_part + g * n + e);
-      sk.x += a.x;
-      sk.y += a.y;
-      sv.x += c.x;
-      sv.y += c.y;
-    }
-    store2(dk + e, sk.x, sk.y);
-    store2(dv + e, sv.x, sv.y);
-  }
-}
-
-// the dK/dV split over the query tiles: groups blocks a key block, then
-// split_reduce_kernel; part holds 2 groups B Sk H D fp32 (dK's partials,
-// then dV's)
-template <int D, typename S, typename T>
-cudaError_t launch_dkdv_split(const Maps& m, const int* kv_mask,
-                              const float* row_max, const float* row_sum,
-                              const float* row_delta, void* dk, void* dv,
-                              float* part, int groups, int batch, int sq,
-                              int sk, int heads, float scale, int causal,
-                              cudaStream_t stream) {
-  constexpr size_t bytes = dkdv_smem<D, S>();
-  cudaError_t err = smem_once<allheads_dkdv_split_kernel<D, S, T>>(bytes);
-  if (err != cudaSuccess) return err;
-  const long n = static_cast<long>(batch) * sk * heads * D;
-  const dim3 grid(groups * ((sk + 64 * S::kNC - 1) / (64 * S::kNC)), heads,
-                  batch);
-  allheads_dkdv_split_kernel<D, S, T><<<grid, S::kThreads, bytes, stream>>>(
-      m.q, m.k, m.v, m.dout, kv_mask, row_max, row_sum, row_delta, sq, sk,
-      heads, scale, causal, groups, part, part + groups * n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long want = (n / 2 + 255) / 256;
-  split_reduce_kernel<T><<<static_cast<int>(want < 65535 ? want : 65535),
-                           256, 0, stream>>>(
-      part, part + groups * n, static_cast<T*>(dk), static_cast<T*>(dv),
-      groups, n);
-  return cudaGetLastError();
-}
-
-}  // namespace wg
-}  // namespace mmgl
+#include "mma_sync_tiles.cuh"
 
 namespace {
 
 namespace wg = mmgl::wg;
 using T = __nv_bfloat16;
 
-// (layout: 0 library, 1 two launches, 2 two launches with the one grid's
-// dQ shape, 3 one grid, 4 split; groups; dK/dV blocks an SM, 0 for the
-// library's)
-#define K5_LAYOUTS(X)                                                     \
-  X(0, 1, 0) X(1, 1, 0) X(2, 1, 0) X(3, 1, 0) X(4, 2, 0) X(4, 4, 0)       \
-  X(4, 2, 2) X(4, 4, 2)
+// 0 library, 1 two launches, 2 two launches with the one grid's dQ
+// shape, 3 one grid
+constexpr int kLayouts = 4;
 
-#define COUNT(...) +1
-constexpr int kLayouts = 0 K5_LAYOUTS(COUNT);
-
-template <int D, int kLayout, int kGroups, int kMb>
+template <int D, int kLayout>
 cudaError_t layout_call(const wg::Maps& m, const int* mask, const void* out,
-                        const void* dout, float* stats, float* part,
-                        void* dq, void* dk, void* dv, int batch, int sq,
-                        int sk, int heads, float scale, int causal,
-                        cudaStream_t stream) {
+                        const void* dout, float* stats, void* dq, void* dk,
+                        void* dv, int batch, int sq, int sk, int heads,
+                        float scale, int causal, cudaStream_t stream) {
   using KvS = wg::DkdvShape<D>;
   using QS = wg::DqShape<D>;
   const long n = static_cast<long>(batch) * heads * sq;
@@ -145,19 +45,9 @@ cudaError_t layout_call(const wg::Maps& m, const int* mask, const void* out,
         m, mask, m_, l_, out, dout, delta, dq, dk, dv, nullptr, batch, sq,
         sk, heads, scale, causal, stream, mmgl::BiasArgs<T>{},
         kLayout == 1 ? wg::BwdGrid::kTwo : wg::BwdGrid::kOne);
-  } else if constexpr (kLayout == 2) {
+  } else {
     return wg::launch_bwd<D, KvS, wg::OneGridDq<KvS, QS>, T>(
         m, mask, m_, l_, out, dout, delta, dq, dk, dv, batch, sq, sk, heads,
-        scale, causal, stream);
-  } else {
-    using SplitS = wg::Shape<KvS::kNC, KvS::kTile, KvS::kStages,
-                             kMb == 0 ? KvS::kMinBlocks : kMb>;
-    const cudaError_t err = wg::launch_dq<D, QS, T>(
-        m, mask, m_, l_, out, dout, delta, dq, batch, sq, sk, heads, scale,
-        causal, stream);
-    if (err != cudaSuccess) return err;
-    return wg::launch_dkdv_split<D, SplitS, T>(
-        m, mask, m_, l_, delta, dk, dv, part, kGroups, batch, sq, sk, heads,
         scale, causal, stream);
   }
 }
@@ -168,15 +58,13 @@ extern "C" int sweep_k5_layouts() { return kLayouts; }
 
 // K5 in layout i (-1: the mma.sync body before) at head dim head_dim, bf16:
 // the stats pass, then the backward. stats: 3 batch heads sq fp32 (m, l,
-// delta); part: the split layouts' partials, 8 batch sk heads head_dim
-// fp32 (four groups); mask: an int32 (batch, sk) key mask or null (the
-// mma.sync tiles read one)
+// delta); mask: an int32 (batch, sk) key mask or null (the mma.sync tiles
+// read one)
 extern "C" int sweep_k5(int i, int head_dim, const void* q, const void* k,
                         const void* v, const int* mask, const void* out,
-                        const void* dout, float* stats, float* part, void* dq,
-                        void* dk, void* dv, int batch, int sq, int sk,
-                        int heads, float scale, int causal,
-                        cudaStream_t stream) {
+                        const void* dout, float* stats, void* dq, void* dk,
+                        void* dv, int batch, int sq, int sk, int heads,
+                        float scale, int causal, cudaStream_t stream) {
   return mmgl::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const long n = static_cast<long>(batch) * heads * sq;
@@ -196,15 +84,15 @@ extern "C" int sweep_k5(int i, int head_dim, const void* q, const void* k,
           q, k, v, mask, dout, stats, stats + n, stats + 2 * n, dq, dk, dv,
           batch, sq, sk, heads, scale, causal, stream);
     }
-    int j = 0;
-#define LAYOUT(L, G, MB)                                                      \
-  if (i == j++) {                                                             \
-    return layout_call<D, L, G, MB>(m, mask, out, dout, stats, part, dq, dk,  \
-                                    dv, batch, sq, sk, heads, scale, causal,  \
-                                    stream);                                  \
-  }
-    K5_LAYOUTS(LAYOUT)
+    switch (i) {
+#define LAYOUT(L)                                                           \
+  case L:                                                                   \
+    return layout_call<D, L>(m, mask, out, dout, stats, dq, dk, dv, batch,  \
+                             sq, sk, heads, scale, causal, stream);
+      LAYOUT(0) LAYOUT(1) LAYOUT(2) LAYOUT(3)
 #undef LAYOUT
-    return cudaErrorInvalidValue;
+      default:
+        return cudaErrorInvalidValue;
+    }
   });
 }

@@ -6,7 +6,7 @@
 // (consumer warpgroups, tile rows, ring stages, blocks an SM) shapes in
 // T5's three forms (a bf16 bias without dropout, with dropout, dropout
 // without a bias), and, as shape -1, the mma.sync bodies of
-// attention_bwd_tiles.cuh in their bias form that K8/K9 launched before
+// mma_sync_tiles.cuh in their bias form that K8/K9 launched before
 // (the delta pass, then its dK/dV and dQ tiles in their library shapes):
 // the "before" reading, reachable only here. Every shape ends with the
 // library's batch-order reduction of the partial into dbias where there is
@@ -16,7 +16,7 @@
 // elements apart, ld a multiple of 8.
 
 #include "../allheads_wgmma.cuh"
-#include "../attention_bwd_tiles.cuh"
+#include "mma_sync_tiles.cuh"
 
 namespace {
 
@@ -105,7 +105,7 @@ cudaError_t wgmma_pair(const void* q, const void* k, const void* v,
 }
 
 // the mma.sync bodies as K8/K9 ran them: the delta pass, then the bias form
-// of attention_bwd_tiles.cuh's dK/dV and dQ in their library shapes
+// of mma_sync_tiles.cuh's dK/dV and dQ in the shapes K8/K9 ran
 cudaError_t mma_sync_before(const void* q, const void* k, const void* v,
                             const int* mask, const void* out,
                             const void* dout, const float* row_max,

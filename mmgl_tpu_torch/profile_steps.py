@@ -65,8 +65,8 @@ LENGTHS = {"opt-350m": ["--max_input_length", "1920",
 KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
          ("K8/K9", ("bias_bwd_",)),           # csrc/attention_bias_bwd.cu
          ("K1+K2+K4", ("attention_fwd",)),    # csrc/attention_fwd.cu
-         # csrc/attention_bwd.cu and attention_blocked_bwd.cu, whose tile
-         # kernels (attention_bwd_tiles.cuh) K3, K5 and K6 share
+         # csrc/attention_bwd.cu and attention_blocked_bwd.cu, whose fp32
+         # tile kernels (attention_bwd_tiles.cuh) K3, K5 and K6 share
          ("K3+K5+K6", ("attention_bwd", "attention_delta")),
          ("GEMM", ("gemm", "cutlass", "xmma", "sm90", "cublas", "nvjet")),
          ("optimizer", ("multi_tensor", "foreach")),
@@ -77,7 +77,7 @@ KINDS = [("K7", ("attention_bias_fwd",)),     # csrc/attention_bias_fwd.cu
          ("index", ("scatter", "gather", "index"))]
 
 
-# the tensor-core bodies (csrc/attention_fwd_tc.cuh, attention_bwd_tiles.cuh)
+# the mma.sync bodies (csrc/attention_fwd_tc.cuh, sweep/mma_sync_tiles.cuh)
 # with their template arguments: the forward's <D, kStatsOnly, kWarps,
 # kStages, kMinBlocks, kBias, kDropout, TB, T>, the backward tiles' <D,
 # kWarps, kStages, kMinBlocks, kBias, kDropout, TB, T> (T, the element

@@ -8,18 +8,14 @@
 the build): K4's stats-only wgmma forward, then K3's wgmma dQ (delta
 fused) and dK/dV bodies in each layout of that source (the library's
 choice by the grid's size; two launches; two launches with the one grid's
-dQ shape; one grid; dK/dV split over the query tiles in 2 or 4 groups of
-fp32 partials and their fixed-order sum, at the library's dK/dV blocks an
-SM and at two), beside the mma.sync tiles K5 ran before (shape -1: the
-same stats pass, the delta pass, attention_bwd_tiles.cuh's tensor-core
+dQ shape; one grid), beside the mma.sync tiles K5 ran before (shape -1:
+the same stats pass, the delta pass, csrc/sweep/mma_sync_tiles.cuh's
 tiles), the library's wrapper, K6 from K4's stats and SDPA's backward, at
 K5's rows of PERF.md §6 (T5-base's cross-attention, prefix tuning's 704 x
 724 causal, MPT-2.7B's and family 7's cross-attention and D 128's against
 a 64-token memory, sample 0 without neighbours); with the device time of
-each, by kernel for the library and the split layouts (the reduction's
-share), whether each unsplit layout equals the library's wrapper and K6
-given K4's stats bit for bit, and whether two calls of each split layout
-give the same bits.
+each, the library's by kernel, and whether each layout equals the
+library's wrapper and K6 given K4's stats bit for bit.
 
 ``--k8-k9`` times only K8/K9 (csrc/sweep/k8_k9_shapes.cu, about three
 minutes with the build): the bias form of K3's wgmma dQ (delta fused,
@@ -27,7 +23,7 @@ dlogits into the partial) and dK/dV bodies as the library lays them out
 (shape 0: one grid or two launches by the grid's size), in two launches,
 in one grid, and in two launches with K3's three-block dQ shape, beside
 the mma.sync bodies they replaced (shape -1: the delta pass and the bias
-form of attention_bwd_tiles.cuh's tiles), the library's wrapper and SDPA's
+form of csrc/sweep/mma_sync_tiles.cuh's tiles), the library's wrapper and SDPA's
 backward, at T5-base's rows of PERF.md §6
 (the encoder at 512 and 576, the decoder's 128² causal and the prefixed
 decoder's 128 x 148 causal, each with its bias, without and with dropout
@@ -135,7 +131,7 @@ def build(which=(0, 1, 2, 3, 4, 5)):
     None), each source built by its own nvcc, all at once; prints each
     kernel's registers and any spills."""
     h = hashlib.sha256(_build._digest().encode())
-    for src in SOURCES:
+    for src in SOURCES + sorted((_build.CSRC / "sweep").glob("*.cuh")):
         h.update(src.read_bytes())
     outs = [_build.BUILD_DIR / f"sweep_{src.stem}-{h.hexdigest()[:16]}.so"
             for src in SOURCES]
@@ -180,7 +176,7 @@ def build(which=(0, 1, 2, 3, 4, 5)):
                                         + [f32, i32, u32, f32, ptr])
         k8k9_lib.sweep_k8k9_reduce.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     if k5_lib is not None:
-        k5_lib.sweep_k5.argtypes = [i32, i32] + [ptr] * 11 + tail
+        k5_lib.sweep_k5.argtypes = [i32, i32] + [ptr] * 10 + tail
     return lib, bias_lib, allheads_lib, k4k7_lib, k8k9_lib, k5_lib
 
 
@@ -953,18 +949,16 @@ K5_CASES = [("t5 cross", (4, 128, 512, 12, 64), False, "gap"),
             ("family 7 cross", (4, 205, 64, 32, 80), False, "no_neighbours"),
             ("d128 cross", (4, 640, 64, 32, 128), False, "no_neighbours")]
 K5_LAYOUTS = ["library", "two launches", "two launches, one grid's dQ",
-              "one grid", "split 2", "split 4", "split 2 at 2 an SM",
-              "split 4 at 2 an SM"]
+              "one grid"]
 
 
 def sweep_k5_case(lib, tag, dims, causal, mask_kind, device):
     """K5 at one of its shapes: the library's wrapper, the mma.sync tiles
     before (shape -1), each layout of csrc/sweep/k5_shapes.cu (each with
     the stats pass), K6 from K4's stats and SDPA's backward; the wall of
-    each in turns, its device time, by kernel for the library and the
-    split layouts; each unsplit layout against the library bit for bit,
-    the library against K6 given K4's stats bit for bit, each split layout
-    against itself run twice."""
+    each in turns, its device time, the library's by kernel; each layout
+    against the library bit for bit, the library against K6 given K4's
+    stats bit for bit."""
     b, sq, sk, h, d = dims
     g = torch.Generator().manual_seed(sq + sk + d)
     q, dout = (torch.randn(b, sq, h, d, generator=g).to(
@@ -988,12 +982,10 @@ def sweep_k5_case(lib, tag, dims, causal, mask_kind, device):
     torch.cuda.synchronize()
     same = {"library = K6 from K4's stats": all(
         torch.equal(x, y) for x, y in zip(ref, k6))}
-    bitwise, deterministic, split_kernels = {}, {}, {}
+    bitwise = {}
     bwd = {"library K5 (wrapper)": lambda: fa.flash_attention_bwd(
         q, k, v, mask, out, dout, causal=causal)}
     n = b * h * sq
-    part = torch.empty(8 * b * sk * h * d, dtype=torch.float32,
-                       device=device)
     for i in range(-1, lib.sweep_k5_layouts()):
         grads = [torch.empty_like(t) for t in (q, k, v)]
         stats = torch.empty(3 * n, dtype=torch.float32, device=device)
@@ -1003,24 +995,16 @@ def sweep_k5_case(lib, tag, dims, causal, mask_kind, device):
             err = lib.sweep_k5(
                 i, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                stats.data_ptr(), part.data_ptr(),
-                *(t.data_ptr() for t in grads), b, sq, sk, h, scale,
-                int(causal), stream)
+                stats.data_ptr(), *(t.data_ptr() for t in grads), b, sq,
+                sk, h, scale, int(causal), stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
         call()
         torch.cuda.synchronize()
         same[name] = _near(grads, ref)
-        if i >= 0 and not K5_LAYOUTS[i].startswith("split"):
+        if i >= 0:
             bitwise[name] = all(torch.equal(x, y)
                                 for x, y in zip(grads, ref))
-        elif i >= 0:
-            first = [t.clone() for t in grads]
-            call()
-            torch.cuda.synchronize()
-            deterministic[name] = all(torch.equal(x, y)
-                                      for x, y in zip(grads, first))
-            split_kernels[name] = device_ms_by_kernel(call)
         bwd[name] = call
     bwd["K6 from K4's stats (wrapper)"] = lambda: \
         fa.flash_attention_blocked_bwd(q, k, v, mask, out, dout, m, l,
@@ -1037,9 +1021,7 @@ def sweep_k5_case(lib, tag, dims, causal, mask_kind, device):
             "device_ms": device_ms(bwd),
             "library_by_kernel": device_ms_by_kernel(
                 bwd["library K5 (wrapper)"]),
-            "split_by_kernel": split_kernels,
-            "unsplit_equal_to_library": bitwise,
-            "split_deterministic": deterministic,
+            "equal_to_library": bitwise,
             "agrees_with_library": same}
 
 
@@ -1094,8 +1076,7 @@ def main(argv=None) -> int:
     for run in runs:
         result = run()
         ok = ok and all(result["agrees_with_library"].values()) and all(
-            result.get("unsplit_equal_to_library", {}).values()) and all(
-            result.get("split_deterministic", {}).values())
+            result.get("equal_to_library", {}).values())
         print(json.dumps(result), flush=True)
     return 0 if ok else 1
 

@@ -1,10 +1,9 @@
 """The arithmetic of the tensor-core attention bodies (bf16 and fp16),
 emulated in torch on the CPU and held against the JAX package.
 
-The bodies (the dK/dV and dQ bodies of
-mmgl_tpu_torch/csrc/attention_bwd_tiles.cuh for K5; the wgmma bodies of
-allheads_wgmma.cuh for K1-K4, K6-K9 and the stats pass of K5; the mma.sync
-forward of attention_fwd_tc.cuh, which K2 ran before) run only on a card.
+The bodies (the wgmma bodies of mmgl_tpu_torch/csrc/allheads_wgmma.cuh for
+K1-K9; the mma.sync tiles of csrc/sweep/mma_sync_tiles.cuh and forward of
+csrc/attention_fwd_tc.cuh, which K5 and K2 ran before) run only on a card.
 This file repeats their arithmetic order in torch:
   * 64 x 64 tiles (mma.sync, and the wgmma bodies' library shapes), or the
     wgmma bodies' other widths (WGMMA_TILES, K7_TILES);
