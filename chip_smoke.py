@@ -143,10 +143,24 @@ imports no JAX. Phases, each fatal on failure:
      micro-step card against CPU and its bf16 one held launch by launch
      against the plain versions, the gates seeded non-zero, both from
      cached features;
- 14. prefix and prompt tuning, each the short run: (a) family 5 without its
-     mesh, OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704 queries
-     against 20 + 704 keys, causal with the ends aligned, take K4 and K5;
-     the prefill (no prefix, as in the JAX package) K1; (b) family 6,
+ 14. prefix and prompt tuning, each the short run: (a) family 5,
+     OPT-125M + Roberta + CLIP, all, Laplacian, prefix, on its mesh's path
+     as one rank (phase A: --distributed over NCCL with one process,
+     --zero1 and --fsdp): 704 queries against 20 + 704 keys, causal with
+     the ends aligned, take K4 and K5; the prefill (no prefix, as in the
+     JAX package) K1; Roberta K1 and CLIP K2; no K3 (prefix tuning sends
+     OPT's attention to K4 and K5, the towers run without a gradient).
+     Its first update (loss, summary loss, gradient norm) equals, bit for
+     bit, that of the same run without the mesh's flags, stopped there.
+     Then phase B: two ranks on the one card over gloo with CUDA tensors
+     (NCCL refuses two ranks on one GPU), --mesh_shape 1,2, each at the
+     6 of 12 heads of OPT-125M, Roberta and CLIP: a bf16 micro-step of
+     family 5 and one of its Laplacian configuration without the prefix
+     (704 tokens through K1 and K3), every launch held against its plain
+     version at the local heads; then family 5's short run through the
+     CLI with its launch counts per update, eval step and generated
+     batch; the two ranks' first updates equal bit for bit, and within
+     MESH_LOSS_TOL of phase A's; (b) family 6,
      OPT-125M, GCN, prompt: 20 + 704 = 724 tokens take K1 and K3, the
      prefill at 596 K1; (c) BASELINE config 2 (T5-base) with prefix: the
      decoder's 128 queries against 20 + 128 keys with the position bias
@@ -268,7 +282,11 @@ them), a kernels JSON line (each entry's "design" names its body:
 K6's, "wgmma_tma_bias" K7's;
 the fp16 forms, the shapes of phases 12-14 and
 the head dims 80 and 128 that phases 18 and 16 launch, and K2's causal
-form at the CLIP text tower's shape that phase 18 launches, as entries of
+form at the CLIP text tower's shape that phase 18 launches, and phase
+B's shapes at a tensor-parallel rank's 6 heads ("[...,tp2]": K1 at
+Roberta's and at OPT's 704 tokens, K2 at CLIP's, K3 at 704, K4 and K5 at
+704 x 724; rank 0's launches, their errors the worst of phase 3 and of
+phase B's launches against the plain versions), as entries of
 their own), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 fp32 comparisons run with TF32 off (cuBLAS and cuDNN), so the plain
@@ -410,6 +428,27 @@ OPT67_TEST_ARGV = with_flags(OPT_TEST_ARGV, model_name_or_path="opt-6.7b",
                              param_dtype="bfloat16")
 # family 5 without its mesh (prefix, Laplacian) and family 6 (prompt, GCN)
 PREFIX_ARGV = with_flags(OPT_GRAPH_ARGV["laplacian"], peft_type="prefix")
+# family 5's launches: per update (4 micro-batches), eval step, generated
+# batch and micro-step; one rank or a tensor-parallel rank alike
+PREFIX_KERNELS = ("flash_attention_allheads", "fused_heads_attention",
+                  "flash_attention", "flash_attention_bwd")
+PREFIX_STEP = {"flash_attention": OPT_LAYERS,
+               "flash_attention_bwd": OPT_LAYERS,
+               "flash_attention_allheads": ROBERTA_LAYERS,
+               "fused_heads_attention": CLIP_LAYERS,
+               "flash_attention_allheads_bwd": 0}
+PREFIX_UPDATE = {k: TRAIN_UPDATES * n for k, n in PREFIX_STEP.items()}
+PREFIX_EVAL = {"flash_attention_allheads": ROBERTA_LAYERS,
+               "fused_heads_attention": CLIP_LAYERS,
+               "flash_attention": OPT_LAYERS}
+PREFIX_GEN = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+              "fused_heads_attention": CLIP_LAYERS, "flash_attention": 0}
+# phase B's first update against phase A's, relative to each value: the
+# row-parallel sums and the vocab-parallel CE add in another order, in
+# bf16 where the layers compute in it. Read on an H100 (PERF.md): 1.7e-5
+# (loss), 1.3e-6 (summary loss), 9.9e-4 (gradient norm, the update's one
+# reading of the mesh's backward), the same in two runs
+MESH_LOSS_TOL = {"loss": 2e-4, "summary_loss": 2e-4, "grad_norm": 2e-3}
 PROMPT_ARGV = with_flags(OPT_GRAPH_ARGV["gnn"], peft_type="prompt")
 # BASELINE config 2 with T5's decoder prefixes
 T5_PREFIX_ARGV = with_flags(T5_EMB_TRAIN_ARGV, peft_type="prefix", **SHORT)
@@ -556,11 +595,21 @@ CASES = [
     ("fused_heads_attention", (44, 77, 8, 64), True, "texts"),
     ("fused_heads_attention", (44, 77, 8, 64), True, "gap_fully_masked"),
 ]
+# phase B (tensor parallelism at m = 2): the attention of a model rank,
+# 6 of the 12 heads of Roberta, CLIP ViT-B/16 and OPT-125M (its 640 + 64
+# tokens with the graph encodings' soft tokens)
+CASES += [
+    ("flash_attention_allheads", (44, 512, 6, 64), False, "texts"),
+    ("fused_heads_attention", (24, 197, 6, 64), False, "ones"),
+    ("flash_attention_allheads", (4, 704, 6, 64), True, "hole"),
+]
 ROBERTA_CASE = 5
 CLIP_TEXT_CASE = 10
+ROBERTA_TP_CASE, CLIP_TP_CASE, OPT704_TP_CASE = 12, 13, 14
 # phase 3's worst errors and phase 8's rows of these cases under their own
 # name in the kernels line
-CASE_TAGS = {10: "[clip-text]", 11: "[clip-text]"}
+CASE_TAGS = {10: "[clip-text]", 11: "[clip-text]", 12: "[roberta,tp2]",
+             13: "[tp2]", 14: "[704,tp2]"}
 # K3 (the training step's attention backward): ((B, S, H, D), causal, mask);
 # the training shape, the same with a fully masked sample, and a ragged
 # length whose tiles the bounds checks cut
@@ -569,7 +618,10 @@ BWD_CASES = [((4, 640, 12, 64), True, "hole"),
              ((3, 333, 2, 64), True, "hole333"),
              # OPT-1.3B + LoRA's 684 tokens; prompt tuning's 724
              ((4, 684, 32, 64), True, "hole"),
-             ((4, 724, 12, 64), True, "prefix")]
+             ((4, 724, 12, 64), True, "prefix"),
+             # phase B: OPT's 704 tokens at a model rank's 6 heads
+             ((4, 704, 6, 64), True, "hole")]
+OPT704_TP_BWD_CASE = 5
 # K4/K5: ((B, Sq, Sk, H, K/V heads), causal, key mask): T5-base's eval
 # cross-attention over the padded encoder input, MQA, ragged lengths
 FLASH_CASES = [((4, 128, 512, 12, 12), False, "gap"),
@@ -581,10 +633,12 @@ FLASH_CASES = [((4, 128, 512, 12, 12), False, "gap"),
                # prefix tuning: 704 queries against 20 + 704 keys, causal
                ((4, 704, 724, 12, 12), True, "prefix"),
                # MPT-1.3B's prefill: 512 queries against the memory
-               ((4, 512, 64, 32, 32), False, "gap_fully_masked")]
+               ((4, 512, 64, 32, 32), False, "gap_fully_masked"),
+               # phase B: prefix tuning at a model rank's 6 heads
+               ((4, 704, 724, 6, 6), True, "prefix")]
 # the kernels line's own entries for these shapes, by FLASH_CASES index
-FLASH_TAGS = {3: "[mpt-cross]", 4: "[prefix]"}
-MPT_CROSS_CASE, PREFIX_CASE = 3, 4
+FLASH_TAGS = {3: "[mpt-cross]", 4: "[prefix]", 6: "[prefix,tp2]"}
+MPT_CROSS_CASE, PREFIX_CASE, PREFIX_TP_CASE = 3, 4, 6
 # K4 with its row stats and K6: ((B, Sq, Sk, H), causal, key mask):
 # OPT-350M's training shape (prompt 1920 + summary 128, a pad hole in each),
 # the same with a fully masked sample, ragged, end-aligned sq < sk
@@ -1682,10 +1736,13 @@ class ShapeTally:
         self.flash, self.flash_bwd = {}, {}
         self.fused = collections.Counter()
         self.dims = collections.Counter()
+        # (wrapper, Sq, heads): a tensor-parallel rank's local heads
+        self.heads = collections.Counter()
 
     def _wrap_bwd(self, fn):
         def tallied(q, k, *a, **kw):
             self.dims[("flash_attention_bwd", q.shape[-1])] += 1
+            self.heads[("flash_attention_bwd", q.shape[1], q.shape[2])] += 1
             key = (q.shape[1], k.shape[1])
             self.flash_bwd[key] = self.flash_bwd.get(key, 0) + 1
             return fn(q, k, *a, **kw)
@@ -1701,6 +1758,7 @@ class ShapeTally:
     def _wrap_fused(self, fn):
         def tallied(q, k, v, kv_mask, causal, scale):
             self.dims[("fused_heads_attention", q.shape[-1])] += 1
+            self.heads[("fused_heads_attention", q.shape[1], q.shape[2])] += 1
             self.fused[(q.shape[1], bool(causal))] += 1
             return fn(q, k, v, kv_mask, causal, scale)
         return tallied
@@ -1708,6 +1766,7 @@ class ShapeTally:
     def _wrap_flash(self, fn):
         def tallied(q, k, v, kv_mask, causal, scale, with_stats):
             self.dims[("flash_attention", q.shape[-1])] += 1
+            self.heads[("flash_attention", q.shape[1], q.shape[2])] += 1
             shape = (q.shape[1], k.shape[1])
             self.flash[shape] = self.flash.get(shape, 0) + 1
             if with_stats:
@@ -1719,6 +1778,7 @@ class ShapeTally:
     def _wrap_allheads(self, fn, name):
         def tallied(q, *a, **kw):
             self.dims[(name, q.shape[-1])] += 1
+            self.heads[(name, q.shape[1], q.shape[2])] += 1
             return fn(q, *a, **kw)
         return tallied
 
@@ -2012,7 +2072,7 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
                  per_update=None, tag="opt", per_eval=None,
                  per_generate=None, updates=TRAIN_UPDATES, idle=(),
                  zero_first=None, cache_kernels=None, warm_start=False,
-                 on_build=None):
+                 on_build=None, mesh=None):
     """Phases 5, 5c, 7, 9-15: the training run at full
     width through the entry point, ``updates`` updates; ``kernels`` must
     launch inside the training steps, exactly ``per_update`` times in each
@@ -2032,7 +2092,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     then a second start on the same --neighbor_cache_dir, the three splits
     wrapped anew with the run's model, must launch no kernel at all.
     ``on_build`` is called with the model the entry point built, before
-    the run uses it.
+    the run uses it. ``mesh``: the run is ``cli.run_training`` on this rank
+    of that mesh (its process group already joined), not ``cli.run``.
 
     The CLI's model factory, neighbour cache, train step, eval setup and
     checkpoint restore are wrapped here, not changed: the wrappers snapshot the weights, time
@@ -2049,7 +2110,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
     evals, gens = LaunchTally(fa, KERNELS), LaunchTally(fa, KERNELS)
     originals = {name: getattr(cli, name) for name in (
         "build_model", "make_train_step", "restore_checkpoint",
-        "merge_restored_params", "_eval_setup", "cache_neighbors")}
+        "merge_restored_params", "_eval_setup", "cache_neighbors",
+        "shard_model")}
 
     def build_model(*a, **kw):
         model, cfg = originals["build_model"](*a, **kw)
@@ -2060,6 +2122,15 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
         if on_build is not None:
             on_build(model)
         return model, cfg
+
+    def shard_model(model, mesh):
+        # on a tensor-parallel mesh the weights the run starts from are
+        # this rank's shares
+        model = originals["shard_model"](model, mesh)
+        if mesh.n_model > 1:
+            seen["before"] = {n: p.detach().to("cpu", copy=True)
+                              for n, p in model.named_parameters()}
+        return model
 
     def make_train_step(*a, **kw):
         step = originals["make_train_step"](*a, **kw)
@@ -2118,8 +2189,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
         seen["restores"].append((path, ckpt))
         return ckpt
 
-    def merge_restored_params(model, params):
-        originals["merge_restored_params"](model, params)
+    def merge_restored_params(model, params, *a, **kw):
+        originals["merge_restored_params"](model, params, *a, **kw)
         seen["merges"] += 1
 
     def log(scalars, step):
@@ -2131,7 +2202,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
                 "restore_checkpoint": restore_checkpoint,
                 "merge_restored_params": merge_restored_params,
                 "_eval_setup": eval_setup,
-                "cache_neighbors": cache_neighbors}
+                "cache_neighbors": cache_neighbors,
+                "shard_model": shard_model}
     for name, fn in wrappers.items():
         setattr(cli, name, fn)
     try:
@@ -2140,7 +2212,8 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
         resident = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
         reset_launches(fa)
-        results = cli.run(args, dev, log)
+        results = (cli.run(args, dev, log) if mesh is None else
+                   cli.run_training(args, dev, log, mesh))
         launches = {name: getattr(fa, name).launches for name in KERNELS}
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device)
@@ -2238,12 +2311,15 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
         fail(f"the best checkpoint under {ckpt_dir} was not restored for "
              f"the test pass (restores {[p for p, _ in seen['restores']]})")
     saved = final[-1]["params"]
+    # the checkpoint holds whole tensors; a tensor-parallel rank, its share
+    shares = {k: share_of(v, model, k) for k, v in saved.items()}
     if any(k.startswith(TOWERS) for k in saved) or not all(
-            torch.equal(after[k], v) for k, v in saved.items()):
+            torch.equal(after[k], v) for k, v in shares.items()):
         fail("the test pass did not run on the restored checkpoint")
     print(f"[{tag} train] best checkpoint of epoch {final[-1]['epoch']} "
           f"({len(saved)} tensors, no tower) restored for the test pass")
 
+    first = steps[0]
     timed = steps[1:]                       # the first update is the warm-up
     rate = (sum(s["sections"] for s in timed)
             / sum(s["seconds"] for s in timed)) if timed else None
@@ -2281,10 +2357,23 @@ def run_training(cli, fa, device, log_dir: str, argv, kernels,
             "launches": launches, "in_steps": in_steps,
             "launches_tc": {n: c[1] for n, c in bodies.items()},
             "losses": [s["loss"] for s in steps],
+            "summary_losses": [s["summary_loss"] for s in steps],
             "grad_norms": [s["grad_norm"] for s in steps],
+            "first_update_launches": first["launches"],
             "update_seconds": [s["seconds"] for s in steps],
             "test_loss": results["loss"], "eval_steps": len(evals.calls),
             "generated_batches": len(gens.calls)}
+
+
+def share_of(whole, model, name: str):
+    """A tensor-parallel rank's share of the whole tensor ``name`` (the
+    model's ``tp_layout`` and ``tp_rank``), else the tensor."""
+    dim = getattr(model, "tp_layout", {}).get(name)
+    if dim is None:
+        return whole
+    ranks, index = model.tp_rank
+    n = whole.shape[dim] // ranks
+    return whole.narrow(dim, index * n, n)
 
 
 def seed_zero_params(model, seeded) -> list:
@@ -2344,7 +2433,7 @@ def depth_cut(size: str, layers: int):
 
 def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
                      plain_on_card=False, on_cpu=True, half=False,
-                     per_step=None, seeded=(), cached=False):
+                     per_step=None, seeded=(), cached=False, mesh=None):
     """Phases 5b, 5c, 7b, 9b, 10c and 12-14: one training
     micro-step (loss, backward) of one sample in eval mode (no dropout) on
     the card; ``kernels`` must launch in it, exactly ``per_step`` times
@@ -2372,6 +2461,9 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
     ``cached``: the sample as the neighbour cache serves it, its pooled
     features computed by each device's model, and the step's counts taken
     after that.
+
+    ``mesh`` (``half`` only): the model cut to this rank's tensor-parallel
+    share (phase B), so the kernels run at its local heads.
 
     The loss is the train step's (``make_loss_fn`` with the flags'
     ``--fused_ce`` and ``--chunked_ce``). Under ``--chunked_ce`` the card's
@@ -2405,6 +2497,8 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
             fa._plain = (lambda q: True) if use_plain else plain
             model, _ = build_model(args, dev, vocab_size=tokenizer.vocab_size,
                                    tokenizer=tokenizer)
+            if mesh is not None:
+                cli.shard_model(model, mesh)
             if seeded and not seed_zero_params(model, seeded):
                 fail(f"{tag}: no parameter named {seeded} to seed")
             if cached:
@@ -2413,7 +2507,8 @@ def check_train_step(cli, fa, device, argv, kernels, tag, tol=STEP_TOL,
             loss_fn = make_loss_fn(model.eval(), args.decoder_only,
                                    args.max_input_length,
                                    tokenizer.pad_token_id,
-                                   fused_ce=args.fused_ce, chunked_ce=chunked)
+                                   fused_ce=args.fused_ce, chunked_ce=chunked,
+                                   mesh=mesh)
             with check if half else contextlib.nullcontext():
                 loss, _ = loss_fn(batch)
                 loss.backward()
@@ -2618,37 +2713,51 @@ def _opt_timing_cases(fa, device, dtype_name):
     K2 causal at the CLIP text tower's."""
     import torch
 
-    dt = getattr(torch, dtype_name)
     cases = []
     k1 = [("flash_attention_allheads", 0, ""), ("fused_heads_attention", 2, "")]
     if dtype_name == "bfloat16":
         k1.append(("flash_attention_allheads", ROBERTA_CASE, "[roberta]"))
         k1.append(("fused_heads_attention", CLIP_TEXT_CASE,
                    CASE_TAGS[CLIP_TEXT_CASE]))
-    for name, idx, tag in k1:
-        (q, k, v), kw = kernel_inputs(idx, dt, device)
-        s, h, d = q.shape[1:]
-        am = float_mask(kw["kv_mask"], s, kw["causal"], None, dt)
-        pairs = allowed_pairs(kw["kv_mask"], s, kw["causal"]) * h
-        cases.append((
-            f"{name} {tuple(q.shape)} causal={kw['causal']} "
-            f"mask={CASES[idx][3]}", wkey(name + tag, dtype_name), {
-                "kernel": partial(getattr(fa, name), q, k, v, **kw),
-                "plain": partial(getattr(fa, KERNELS[name][0]), q, k, v,
-                                 **kw),
-                "library": _sdpa_fwd(*_bhsd(q, k, v), am)},
-            4 * pairs * d, 4 * q.numel() * 2 + kw["kv_mask"].numel() * 4))
-    args, kw = bwd_inputs(0, dt, device)
+    cases = [_fwd_timing_case(fa, device, dtype_name, name, idx, tag)
+             for name, idx, tag in k1]
+    cases.append(_k3_timing_case(fa, device, dtype_name, 0, ""))
+    return cases
+
+
+def _fwd_timing_case(fa, device, dtype_name, name, idx, tag):
+    """K1 or K2 at CASES[idx]."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    (q, k, v), kw = kernel_inputs(idx, dt, device)
+    s, h, d = q.shape[1:]
+    am = float_mask(kw["kv_mask"], s, kw["causal"], None, dt)
+    pairs = allowed_pairs(kw["kv_mask"], s, kw["causal"]) * h
+    return (
+        f"{name} {tuple(q.shape)} causal={kw['causal']} "
+        f"mask={CASES[idx][3]}", wkey(name + tag, dtype_name), {
+            "kernel": partial(getattr(fa, name), q, k, v, **kw),
+            "plain": partial(getattr(fa, KERNELS[name][0]), q, k, v, **kw),
+            "library": _sdpa_fwd(*_bhsd(q, k, v), am)},
+        4 * pairs * d, 4 * q.numel() * 2 + kw["kv_mask"].numel() * 4)
+
+
+def _k3_timing_case(fa, device, dtype_name, idx, tag):
+    """K3 at BWD_CASES[idx] as training runs it: from K1's row stats."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    args, kw = bwd_inputs(idx, dt, device)
     q, k, v, mask, out, dout = args
     s, h, d = q.shape[1:]
     pairs = allowed_pairs(mask, s, True) * h
-    # K3 as training runs it: from K1's row stats
     _, m, l = fa.flash_attention_allheads_stats(q, k, v, kv_mask=mask,
                                                 causal=True)
-    cases.append((
+    return (
         f"flash_attention_allheads_bwd {tuple(q.shape)} causal from K1's "
         "stats",
-        wkey("flash_attention_allheads_bwd", dtype_name), {
+        wkey("flash_attention_allheads_bwd" + tag, dtype_name), {
             "kernel": partial(fa.flash_attention_allheads_bwd, *args, **kw,
                               row_max=m, row_sum=l),
             "plain": partial(fa.allheads_attention_bwd_reference, *args,
@@ -2656,8 +2765,19 @@ def _opt_timing_cases(fa, device, dtype_name):
             "library": _sdpa_bwd(*_bhsd(q, k, v),
                                  float_mask(mask, s, True, None, dt),
                                  *_bhsd(dout))},
-        10 * pairs * d, 8 * q.numel() * 2 + mask.numel() * 4))
-    return cases
+        10 * pairs * d, 8 * q.numel() * 2 + mask.numel() * 4)
+
+
+def _mesh_timing_cases(fa, device):
+    """Phase B's shapes at a model rank's 6 heads, bf16: K1 at Roberta's,
+    K2 at CLIP's, K1 and K3 at OPT's 704 tokens, K4 and K5 at prefix
+    tuning's 704 x 724."""
+    dt = "bfloat16"
+    cases = [_fwd_timing_case(fa, device, dt, CASES[i][0], i, CASE_TAGS[i])
+             for i in (ROBERTA_TP_CASE, CLIP_TP_CASE, OPT704_TP_CASE)]
+    cases.append(_k3_timing_case(fa, device, dt, OPT704_TP_BWD_CASE,
+                                 "[704,tp2]"))
+    return cases + _flash_timing_cases(fa, device, dt, PREFIX_TP_CASE)
 
 
 def _flash_timing_cases(fa, device, dtype_name, i=0):
@@ -2938,6 +3058,7 @@ def timing_cases(fa, device):
                                           blocked=False)
             for d in (80, 128):
                 got += _head_dim_timing_cases(fa, device, d)
+            got += _mesh_timing_cases(fa, device)
         cases += [c + (dtype_name,) for c in got]
     return cases
 
@@ -3032,11 +3153,186 @@ def run_mpt_phase(cli, fa, device, micro):
     return mpt
 
 
+def free_port() -> int:
+    """A free TCP port on this host for a process group's store."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_argv(argv, n: int, rank: int, port: int, **flags):
+    """``argv`` as rank ``rank`` of ``n`` processes started with
+    --distributed over 127.0.0.1:``port``, with ``flags``."""
+    return with_flags(argv, distributed="true", num_processes=n,
+                      process_id=rank, coordinator_address=f"127.0.0.1:{port}",
+                      **flags)
+
+
+class _FirstUpdate(Exception):
+    pass
+
+
+def first_update(cli, device, argv):
+    """The first update's loss, summary loss and gradient norm of ``argv``'s
+    training run through the entry point, which stops there (after the
+    epoch-0 val pass)."""
+    original = cli.make_train_step
+    got = {}
+
+    def make_train_step(*a, **kw):
+        step = original(*a, **kw)
+
+        def first(batch, generator=None):
+            metrics = step(batch, generator)
+            got.update({k: float(v) for k, v in metrics.items()})
+            raise _FirstUpdate
+        return first
+
+    cli.make_train_step = make_train_step
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            args, dev = cli.parse_cli(argv + ["--log_dir", log_dir])
+            cli.run(args, dev)
+    except _FirstUpdate:
+        pass
+    finally:
+        cli.make_train_step = original
+    if not got:
+        fail(f"the run of {argv} took no update")
+    return got
+
+
+def _mesh_rank(rank, port, out_dir, log_dir):
+    """Phase B, rank ``rank`` of 2 on cuda:0 over gloo: the bf16
+    micro-steps of family 5 (K4/K5, Roberta's K1, CLIP's K2) and of its
+    Laplacian configuration without the prefix (K1/K3 at 704 tokens) at
+    the rank's 6 heads, every launch held against its plain version; then
+    the CLI's short run of family 5 at --mesh_shape 1,2 with its launch
+    counts. Writes its summary to ``out_dir``/rank<r>.json."""
+    import torch
+    from mmgl_tpu_torch import cli
+    from mmgl_tpu_torch.ops import flash_attention as fa
+    from mmgl_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    out = {}
+    init_distributed(f"127.0.0.1:{port}", 2, rank, "gloo")
+    mesh = make_mesh((1, 2), device_type="cuda")
+    graph = OPT_GRAPH_ARGV["laplacian"]
+    with ShapeTally(fa) as steps:
+        out["prefix_step"] = check_train_step(
+            cli, fa, device, PREFIX_ARGV, PREFIX_KERNELS,
+            f"mesh rank {rank} prefix", half=True, per_step=PREFIX_STEP,
+            mesh=mesh)
+        out["laplacian_step"] = check_train_step(
+            cli, fa, device, graph, ("flash_attention_allheads",
+                                     "flash_attention_allheads_bwd"),
+            f"mesh rank {rank} laplacian", half=True,
+            per_step={"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
+                      "flash_attention_allheads_bwd": OPT_LAYERS,
+                      "fused_heads_attention": CLIP_LAYERS},
+            mesh=mesh)
+    # the CLI's training on this rank of the mesh (gloo: the entry point's
+    # --distributed takes NCCL on cuda)
+    argv = with_flags(PREFIX_ARGV, mesh_shape="1,2")
+    with ShapeTally(fa) as tally:
+        out["run"] = run_training(
+            cli, fa, device, log_dir, argv, PREFIX_KERNELS, PREFIX_UPDATE,
+            tag=f"opt prefix 1x2 rank {rank}", per_eval=PREFIX_EVAL,
+            per_generate=PREFIX_GEN, updates=1, idle=OPT_GRAPH_IDLE,
+            mesh=mesh)
+    torch.distributed.destroy_process_group()
+    out["step_heads"] = {"/".join(map(str, k)): n
+                         for k, n in steps.heads.items()}
+    out["run_heads"] = {"/".join(map(str, k)): n
+                        for k, n in tally.heads.items()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_mesh_phase(first):
+    """Phase B: two ranks on the one card over gloo with CUDA tensors
+    (NCCL refuses two ranks on one GPU), --mesh_shape 1,2 at full width
+    (``_mesh_rank``). The ranks' first updates must agree bit for bit (the
+    loss and norm are reduced over the model group), and with phase A's
+    ``first`` within MESH_LOSS_TOL. Returns {"summary", "launches" (the
+    kernels line's local-head entries, rank 0's), "worst" (their errors
+    against the plain versions)}."""
+    import torch.multiprocessing as mp
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(_mesh_rank, args=(free_port(), out_dir,
+                                   os.path.join(out_dir, "log")),
+                 nprocs=2, join=True)
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - start
+    firsts = [{"loss": r["run"]["losses"][0],
+               "summary_loss": r["run"]["summary_losses"][0],
+               "grad_norm": r["run"]["grad_norms"][0]} for r in ranks]
+    diff = {k: abs(firsts[0][k] - first[k]) for k in first}
+    print(f"[mesh B] two ranks over gloo at --mesh_shape 1,2: update 1 "
+          f"{firsts}; phase A's {first}; |difference| {diff} (tolerance "
+          f"{MESH_LOSS_TOL} of each); {seconds:.1f} s with both ranks' "
+          f"start; "
+          f"update seconds {[r['run']['update_seconds'] for r in ranks]}; "
+          f"peak device memory of each rank "
+          f"{[r['run']['peak_bytes'] for r in ranks]} bytes")
+    if firsts[0] != firsts[1]:
+        fail(f"the two ranks' first updates differ: {firsts}")
+    if any(diff[k] > MESH_LOSS_TOL[k] * abs(first[k]) for k in diff):
+        fail(f"phase B's first update {firsts[0]} is not phase A's {first} "
+             f"within {MESH_LOSS_TOL}")
+    r0 = ranks[0]
+    heads = r0["run_heads"]
+    step_heads = r0["step_heads"]
+    if any(int(k.split("/")[2]) != 6 for k in list(heads) + list(step_heads)):
+        fail(f"a kernel ran at other than the rank's 6 heads: {heads} "
+             f"{step_heads}")
+    launches = {
+        "flash_attention[prefix,tp2]": heads.get("flash_attention/704/6", 0),
+        "flash_attention_bwd[prefix,tp2]":
+            heads.get("flash_attention_bwd/704/6", 0),
+        "flash_attention_allheads[roberta,tp2]":
+            heads.get("flash_attention_allheads/512/6", 0),
+        "fused_heads_attention[tp2]":
+            heads.get("fused_heads_attention/197/6", 0),
+        "flash_attention_allheads[704,tp2]":
+            step_heads.get("flash_attention_allheads/704/6", 0),
+        "flash_attention_allheads_bwd[704,tp2]":
+            step_heads.get("flash_attention_allheads_bwd/704/6", 0)}
+    print(f"[mesh B] rank 0's launches at the local heads: {launches} "
+          f"(the run's by (wrapper, Sq, heads) {heads}; the micro-steps' "
+          f"{step_heads})")
+    if not all(launches.values()):
+        fail(f"a kernel of the mesh path did not launch: {launches}")
+    errs = collections.defaultdict(float)
+    for r in ranks:
+        for key in ("prefix_step", "laplacian_step"):
+            for name, e in r[key]["max_abs_err_vs_plain"].items():
+                errs[name] = max(errs[name], e)
+    worst = {name: errs[name.split("[")[0]] for name in launches}
+    return {"summary": {"first_updates": firsts, "phase_a": first,
+                        "difference": diff, "seconds": seconds,
+                        "ranks": ranks}, "launches": launches,
+            "worst": worst}
+
+
 def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
-    """Phases 12-14: BASELINE families 3, 4 (MPT-2.7B, cached), 5 (without
-    its mesh) and 6, and config 2 with T5's decoder prefixes, each the short
-    run through the CLI with its launch counts, then the micro-steps.
-    Returns {"runs": {key: summary}, "launches": {kernels-line name: n}}."""
+    """Phases 12-14: BASELINE families 3, 4 (MPT-2.7B, cached), 5 (with its
+    mesh's path on one rank, phase A, and on two, phase B) and 6, and
+    config 2 with T5's decoder prefixes, each the short run through the CLI
+    with its launch counts, then the micro-steps. Returns {"runs": {key:
+    summary}, "launches": {kernels-line name: n}, "worst": {kernels-line
+    name: error against the plain version}}."""
     runs, launches = {}, {}
 
     # phase 12: OPT-1.3B + Roberta, text_only, LoRA, --freeze_lm true;
@@ -3073,25 +3369,31 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
     runs["mpt27b_flamingo_training"] = run_mpt_phase(cli, fa, device, micro)
     lap("13")
 
-    # phase 14a: OPT-125M + Roberta + CLIP, all, Laplacian, prefix: 704
-    # queries against 20 + 704 keys take K4 and K5; the prefill K1
-    per_eval = {"flash_attention_allheads": ROBERTA_LAYERS,
-                "fused_heads_attention": CLIP_LAYERS,
-                "flash_attention": OPT_LAYERS}
-    per_gen = {"flash_attention_allheads": ROBERTA_LAYERS + OPT_LAYERS,
-               "fused_heads_attention": CLIP_LAYERS, "flash_attention": 0}
-    prefix_kernels = ("flash_attention_allheads", "fused_heads_attention",
-                      "flash_attention", "flash_attention_bwd")
+    # phase 14a with phase A, BASELINE family 5: OPT-125M + Roberta + CLIP,
+    # all, Laplacian, prefix, on the mesh's path (one rank over NCCL,
+    # --zero1, --fsdp): 704 queries against 20 + 704 keys take K4 and K5;
+    # the prefill K1. Its first update against the one-device run's
     with ShapeTally(fa) as tally, tempfile.TemporaryDirectory() as log_dir:
         prefix = run_training(
-            cli, fa, device, log_dir, PREFIX_ARGV, prefix_kernels,
-            {"flash_attention_allheads": ROBERTA_LAYERS * micro,
-             "flash_attention_allheads_bwd": 0,
-             "fused_heads_attention": CLIP_LAYERS * micro,
-             "flash_attention": OPT_LAYERS * micro,
-             "flash_attention_bwd": OPT_LAYERS * micro},
-            tag="opt prefix", per_eval=per_eval, per_generate=per_gen,
-            updates=1, idle=OPT_GRAPH_IDLE)
+            cli, fa, device, log_dir, mesh_argv(PREFIX_ARGV, 1, 0,
+                                                free_port(), zero1="true",
+                                                fsdp="true"),
+            PREFIX_KERNELS, PREFIX_UPDATE, tag="opt prefix mesh",
+            per_eval=PREFIX_EVAL, per_generate=PREFIX_GEN, updates=1,
+            idle=OPT_GRAPH_IDLE)
+    one = first_update(cli, device, PREFIX_ARGV)
+    first = {"loss": prefix["losses"][0],
+             "summary_loss": prefix["summary_losses"][0],
+             "grad_norm": prefix["grad_norms"][0]}
+    print(f"[opt prefix mesh] phase A, one rank over NCCL with --zero1 and "
+          f"--fsdp: update 1 {first}; the one-device run's {one}: "
+          f"{'bit for bit' if first == one else 'DIFFERENT'}; update "
+          f"seconds {prefix['update_seconds']}, peak device memory "
+          f"{prefix['peak_bytes']} bytes")
+    if first != one:
+        fail(f"phase A's first update {first} is not the one-device "
+             f"update {one} bit for bit")
+    prefix["one_device_first_update"] = one
     print(f"[opt prefix] K4 launches by (Sq, Sk): {tally.flash}; K5: "
           f"{tally.flash_bwd}")
     if set(tally.flash) != {(704, 724)} or set(tally.flash_bwd) != {
@@ -3100,18 +3402,21 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
              f"{tally.flash_bwd}, expected 704 x 724 only")
     launches["flash_attention[prefix]"] = tally.flash[(704, 724)]
     launches["flash_attention_bwd[prefix]"] = tally.flash_bwd[(704, 724)]
-    prefix_step = {"flash_attention": OPT_LAYERS,
-                   "flash_attention_bwd": OPT_LAYERS,
-                   "flash_attention_allheads": ROBERTA_LAYERS,
-                   "fused_heads_attention": CLIP_LAYERS,
-                   "flash_attention_allheads_bwd": 0}
     prefix["fp32_step"] = check_train_step(
-        cli, fa, device, PREFIX_ARGV, prefix_kernels, "opt prefix",
-        per_step=prefix_step)
+        cli, fa, device, PREFIX_ARGV, PREFIX_KERNELS, "opt prefix",
+        per_step=PREFIX_STEP)
     prefix["bf16_step"] = check_train_step(
-        cli, fa, device, PREFIX_ARGV, prefix_kernels, "opt prefix",
-        half=True, per_step=prefix_step)
+        cli, fa, device, PREFIX_ARGV, PREFIX_KERNELS, "opt prefix",
+        half=True, per_step=PREFIX_STEP)
     runs["opt_prefix_training"] = prefix
+    lap("14a")
+
+    # phase B: the same configuration on two ranks of the one card over
+    # gloo, --mesh_shape 1,2
+    mesh = run_mesh_phase(first)
+    runs["opt_prefix_mesh_1x2"] = mesh["summary"]
+    launches.update(mesh["launches"])
+    lap("B")
 
     # phase 14b: OPT-125M + Roberta + CLIP, all, GCN, prompt: 20 + 704 =
     # 724 tokens take K1 and K3, the prefill at 20 + 576 = 596 K1
@@ -3185,7 +3490,7 @@ def run_peft_phases(cli, fa, device, micro, lap=lambda phase: None):
                   "flash_attention_bias_bwd": 2 * T5_LAYERS})
     runs["t5_prefix_training"] = t5p
     lap("14")
-    return {"runs": runs, "launches": launches}
+    return {"runs": runs, "launches": launches, "worst": mesh["worst"]}
 
 
 def live_pooled(model, batch, device):
@@ -4211,6 +4516,8 @@ def main() -> int:
 
     lap("11")
     peft = run_peft_phases(cli, fa, device, micro, lap)
+    for name, err in peft["worst"].items():   # phase B's, at local heads
+        worst[name] = max(worst[name], err)
     cached = run_cached_phases(cli, fa, device, micro, train, emb_train)
     lap("15")
     opt67_summary, launches_d128 = run_opt67_phase(cli, fa, device)

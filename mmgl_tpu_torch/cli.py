@@ -2,8 +2,7 @@
 157-548, 551-691).
 
 Takes the JAX package's flag surface (``config.parse_args``, the port's copy
-of mmgl_tpu/config.py) plus ``--device`` (default ``cuda``), on one device:
-no mesh, no gather.
+of mmgl_tpu/config.py) plus ``--device`` (default ``cuda``).
 
 OPT trains with AdamW, T5 with Adafactor (train/optim.py, chosen by the
 model name as the JAX package chooses).
@@ -38,9 +37,7 @@ true`` runs the frozen towers once over each split before the loop
 next start), in the embedding mode and for the raw mode's images.
 
 Training takes ``--remat``, ``--layerdrop``, ``--fused_ce false`` and
-``--chunked_ce n`` (models/opt.py, train/losses.py) and refuses only what
-needs more than one device (a mesh, ``--zero1``, ``--fsdp``,
-``--distributed``: ROADMAP A8). ``--log_to_wandb true`` logs to wandb, or
+``--chunked_ce n`` (models/opt.py, train/losses.py). ``--log_to_wandb true`` logs to wandb, or
 prints ``[wandb] disabled: <error>`` where it cannot start
 (mmgl_tpu/cli.py:194-207); ``--profile_dir`` writes a ``torch.profiler``
 Chrome trace of the first epoch's first updates (mmgl_tpu/cli.py:384-385,
@@ -48,12 +45,30 @@ Chrome trace of the first epoch's first updates (mmgl_tpu/cli.py:384-385,
 
 ``--device cuda`` on a host without a visible GPU fails: there is no CPU
 fallback. Pass ``--device cpu`` to run the plain versions of the kernels.
+
+Several ranks (parallel/, mmgl_tpu/cli.py:170-176, 224-237): one process a
+rank, each started with ``--distributed true --coordinator_address
+host:port --num_processes N --process_id r`` (or under torchrun, whose
+environment fills the flags left out), on ``cuda:<local rank>``, over NCCL
+(gloo with ``--device cpu``).
+``--mesh_shape d,m`` lays the ranks out as d data-parallel rows of m
+tensor-parallel ranks (default: all data-parallel); ``--zero1`` shards the
+optimizer's state over the data rows, ``--fsdp`` the parameters too. Each
+data row loads its shard of the global batch of
+``per_device_*_batch_size`` x d; the test pass gathers predictions and
+labels over the data group; rank 0 logs, writes the checkpoints and runs
+wandb, and every rank returns the same metrics.
+
+    python -m mmgl_tpu_torch.cli --model_name_or_path opt-125m \
+        --context all --neighbor_mode embedding --position_type laplacian \
+        --peft_type prefix --mesh_shape 2,2 --distributed true \
+        --coordinator_address 127.0.0.1:29500 --num_processes 4 \
+        --process_id <r>
 """
 
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import time
 from dataclasses import dataclass
@@ -72,6 +87,12 @@ from mmgl_tpu_torch.data.assemble import AssemblerConfig, WikiWeb2MAssembler
 from mmgl_tpu_torch.data.loader import PrefetchLoader
 from mmgl_tpu_torch.data.synthetic import make_synthetic_corpus
 from mmgl_tpu_torch.models.factory import build_model
+from mmgl_tpu_torch.parallel.collectives import broadcast_object
+from mmgl_tpu_torch.parallel.mesh import (Mesh, apply_fsdp, default_backend,
+                                          gather_tokens, init_distributed,
+                                          local_device, make_mesh,
+                                          param_specs)
+from mmgl_tpu_torch.parallel.tensor_parallel import shard_model
 from mmgl_tpu_torch.peft.masks import count_params
 from mmgl_tpu_torch.train.checkpoints import (merge_restored_params,
                                               restore_checkpoint,
@@ -134,6 +155,21 @@ def check_device(device: torch.device) -> None:
         raise ValueError(f"--device {device}: expected cuda or cpu")
 
 
+def setup_mesh(args: Arguments, device: torch.device
+               ) -> Tuple[Mesh, torch.device]:
+    """(the mesh, this rank's device). ``--distributed`` first joins the
+    process group (``init_distributed``: NCCL on cuda, gloo on cpu), then
+    ``--mesh_shape`` lays the world's ranks out; a mesh larger than the
+    world raises ValueError, as the JAX package's ``make_mesh``."""
+    check_device(device)
+    if args.distributed:
+        _, rank = init_distributed(args.coordinator_address,
+                                   args.num_processes, args.process_id,
+                                   default_backend(device))
+        device = local_device(device, rank)
+    return make_mesh(args.mesh_shape, args.mesh_axes, device.type), device
+
+
 @dataclass
 class EvalSetup:
     """What an eval pass runs: the model and the functions over it."""
@@ -143,32 +179,55 @@ class EvalSetup:
     loader: PrefetchLoader
     eval_step: Callable[[Dict], Dict]
     generate_fn: Callable[[Dict], torch.Tensor]
+    mesh: Mesh
 
 
-def _build(args: Arguments, device: torch.device):
-    """(tokenizer, seeded model, its config, (train, val, test) data)."""
+def _build(args: Arguments, device: torch.device,
+           mesh: Optional[Mesh] = None):
+    """(tokenizer, seeded model cut to this rank's share, its config,
+    (train, val, test) data). Every rank builds the whole model from the
+    seed, then keeps its tensor-parallel share (parallel/
+    tensor_parallel.py) and, under ``--fsdp``, shards it over the data
+    group."""
     check_device(device)
+    mesh = mesh or Mesh()
     tokenizer = get_tokenizer(args.tokenizer_path)
     name = args.model_name_or_path or "opt-tiny"
     args.decoder_only = "t5" not in name
     model, fcfg = build_model(args, device, vocab_size=tokenizer.vocab_size,
                               tokenizer=tokenizer)
+    specs = param_specs(model, mesh.as_dict(), fsdp=True) if args.fsdp \
+        else None
+    shard_model(model, mesh)
+    if args.fsdp:
+        apply_fsdp(model, mesh, specs)
     return tokenizer, model, fcfg, setup_data(args, tokenizer)
 
 
-def _eval_setup(args: Arguments, model, fcfg, tokenizer, dataset
-                ) -> EvalSetup:
-    loader = PrefetchLoader(dataset, batch_size=args.per_device_val_batch_size,
-                            prefetch=args.prefetch_batches,
-                            num_workers=args.dataloader_num_workers)
+def _loader(args: Arguments, dataset, batch_size: int, mesh: Mesh,
+            **kw) -> PrefetchLoader:
+    """The rank's loader: its data row's shard of ``dataset``."""
+    return PrefetchLoader(dataset, batch_size=batch_size,
+                          prefetch=args.prefetch_batches,
+                          num_workers=args.dataloader_num_workers,
+                          shard_id=mesh.data_index, num_shards=mesh.n_data,
+                          **kw)
+
+
+def _eval_setup(args: Arguments, model, fcfg, tokenizer, dataset,
+                mesh: Mesh) -> EvalSetup:
+    loader = _loader(args, dataset, args.per_device_val_batch_size, mesh)
     eval_step = make_eval_step(model, args.decoder_only,
-                               args.max_input_length, tokenizer.pad_token_id)
+                               args.max_input_length, tokenizer.pad_token_id,
+                               mesh=mesh)
     generate_fn = partial(greedy_generate, model,
                           max_new_tokens=MAX_NEW_TOKENS)
-    return EvalSetup(model, fcfg, tokenizer, loader, eval_step, generate_fn)
+    return EvalSetup(model, fcfg, tokenizer, loader, eval_step, generate_fn,
+                     mesh)
 
 
-def cache_neighbors(args: Arguments, model, datasets, splits):
+def cache_neighbors(args: Arguments, model, datasets, splits,
+                    mesh: Optional[Mesh] = None):
     """The datasets wrapped in the neighbour cache where
     ``--cache_neighbor_embeddings`` asks for it and a frozen tower runs:
     the embedding mode, or the raw mode's images (section_all, all), as the
@@ -180,26 +239,31 @@ def cache_neighbors(args: Arguments, model, datasets, splits):
     from mmgl_tpu_torch.data.neighbor_cache import CachedNeighborDataset
 
     print("[neighbor-cache] precomputing frozen tower outputs ...")
+    group = (torch.distributed.group.WORLD
+             if mesh is not None and mesh.shape != (1, 1) else None)
     return tuple(CachedNeighborDataset(
         ds, model, cache_dir=args.neighbor_cache_dir, split=split,
-        num_workers=args.dataloader_num_workers)
+        num_workers=args.dataloader_num_workers, group=group)
         for ds, split in zip(datasets, splits))
 
 
-def prepare(args: Arguments, device: torch.device) -> EvalSetup:
+def prepare(args: Arguments, device: torch.device,
+            mesh: Optional[Mesh] = None) -> EvalSetup:
     """Tokenizer, seeded model, test loader (its neighbours cached under
     ``--cache_neighbor_embeddings``), eval step and generator."""
-    tokenizer, model, fcfg, (_, _, test_ds) = _build(args, device)
-    test_ds, = cache_neighbors(args, model, (test_ds,), ("test",))
+    mesh = mesh or Mesh()
+    tokenizer, model, fcfg, (_, _, test_ds) = _build(args, device, mesh)
+    test_ds, = cache_neighbors(args, model, (test_ds,), ("test",), mesh)
     print(f"Testing with {len(test_ds)} examples.")
-    return _eval_setup(args, model, fcfg, tokenizer, test_ds)
+    return _eval_setup(args, model, fcfg, tokenizer, test_ds, mesh)
 
 
-def start_wandb(args: Arguments):
-    """The wandb run of ``--log_to_wandb``, or None: ``wandb.init(project,
-    name)`` and the flags in its config, or ``[wandb] disabled: <error>``
-    where wandb cannot start (mmgl_tpu/cli.py:194-207)."""
-    if not args.log_to_wandb:
+def start_wandb(args: Arguments, is_main: bool = True):
+    """The wandb run of ``--log_to_wandb`` (rank 0's only), or None:
+    ``wandb.init(project, name)`` and the flags in its config, or
+    ``[wandb] disabled: <error>`` where wandb cannot start
+    (mmgl_tpu/cli.py:194-207)."""
+    if not (args.log_to_wandb and is_main):
         return None
     try:
         import wandb
@@ -232,10 +296,12 @@ def make_log(wandb_run, log_fn: Optional[Log]) -> Log:
     return log
 
 
-def report_params(model, wandb_run) -> None:
-    """The parameter table, then the totals (mmgl_tpu/cli.py:244-254), into
-    the wandb run's config too."""
-    print(get_params_count_str(model))
+def report_params(model, wandb_run, is_main: bool = True) -> None:
+    """The parameter table (rank 0's), then the totals (mmgl_tpu/cli.py:
+    244-254; of this rank's shares on a mesh), into the wandb run's config
+    too."""
+    if is_main:
+        print(get_params_count_str(model))
     counts = count_params(model)
     print(f"Total params: {counts['total']:,} | trainable: "
           f"{counts['trainable']:,} | non-trainable: "
@@ -253,20 +319,33 @@ def run(args: Arguments, device: torch.device,
     """Training, or with ``--test true`` the test pass alone; returns
     evaluate_loop's metrics (plus ``train_updates`` after training).
     ``log_fn(scalars, step)`` gets every scalar the wandb run gets, and the
-    batch timings."""
-    check_single_device_flags(args)
-    if not args.test:
-        return run_training(args, device, log_fn)
-    wandb_run = start_wandb(args)
-    test = prepare(args, device)
-    report_params(test.model, wandb_run)
+    batch timings (rank 0's). The process group ``--distributed`` joins is
+    left at the end."""
+    mesh, device = setup_mesh(args, device)
+    try:
+        if not args.test:
+            return run_training(args, device, log_fn, mesh)
+        return run_test(args, device, log_fn, mesh)
+    finally:
+        if args.distributed and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_test(args: Arguments, device: torch.device, log_fn: Optional[Log],
+             mesh: Mesh) -> Dict[str, float]:
+    """The test pass alone (``--test true``), on ``--resume``'s checkpoint
+    where there is one."""
+    wandb_run = start_wandb(args, mesh.is_main)
+    test = prepare(args, device, mesh)
+    report_params(test.model, wandb_run, mesh.is_main)
     if args.resume:
         restored, path = _newest_checkpoint(args)
         if restored is not None:
             print(f"=> loaded checkpoint '{path}' (epoch {restored['epoch']})")
-            merge_restored_params(test.model, restored["params"])
+            merge_restored_params(test.model, restored["params"], mesh)
     results = evaluate_loop(test, args, args.start_epoch,
-                            make_log(wandb_run, log_fn), prefix="test")
+                            make_log(wandb_run, log_fn if mesh.is_main
+                                     else None), prefix="test")
     if wandb_run is not None:
         wandb_run.finish()
     return results
@@ -277,31 +356,19 @@ def main(argv=None) -> Dict[str, float]:
     return run(args, device)
 
 
-def check_single_device_flags(args: Arguments) -> None:
-    """Refuse what training and the test pass do not port yet, naming its
-    ROADMAP item: only what needs more than one device."""
-    unported = {
-        f"--mesh_shape {args.mesh_shape} (one device only, ROADMAP A8)":
-            math.prod(args.mesh_shape) != 1,
-        "--zero1 (ROADMAP A8)": args.zero1,
-        "--fsdp (ROADMAP A8)": args.fsdp,
-        "--distributed (ROADMAP A8)": args.distributed,
-    }
-    refused = [flag for flag, is_set in unported.items() if is_set]
-    if refused:
-        raise NotImplementedError(
-            f"not ported to mmgl_tpu_torch yet: {', '.join(refused)}")
-
-
-def _new_log_dir(args: Arguments) -> str:
+def _new_log_dir(args: Arguments, mesh: Mesh) -> str:
     """{log_dir}/{wandb_run}_{i} for the first i not taken
-    (run_generation.py:238-244)."""
-    i = 0
-    while os.path.exists(os.path.join(args.log_dir, f"{args.wandb_run}_{i}")):
-        i += 1
-    path = os.path.join(args.log_dir, f"{args.wandb_run}_{i}")
-    os.makedirs(path)
-    return path
+    (run_generation.py:238-244), made by rank 0; every rank gets its
+    path."""
+    path = None
+    if mesh.is_main:
+        i = 0
+        while os.path.exists(os.path.join(args.log_dir,
+                                          f"{args.wandb_run}_{i}")):
+            i += 1
+        path = os.path.join(args.log_dir, f"{args.wandb_run}_{i}")
+        os.makedirs(path)
+    return broadcast_object(path)
 
 
 def _newest_checkpoint(args: Arguments):
@@ -316,12 +383,15 @@ def _newest_checkpoint(args: Arguments):
     return restored, path
 
 
-def dropout_generator(seed: int, epoch: int, device: torch.device
-                      ) -> torch.Generator:
+def dropout_generator(seed: int, epoch: int, device: torch.device,
+                      data_index: int = 0) -> torch.Generator:
     """The epoch's dropout stream, a function of (seed, epoch) only: a
     resumed run draws the masks the uninterrupted run drew (the counterpart
-    of ``fold_in(dropout_stream_key(seed), epoch)``)."""
-    state = np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)
+    of ``fold_in(dropout_stream_key(seed), epoch)``). A mesh's data row
+    ``data_index`` > 0 draws its own, and the tensor-parallel ranks of one
+    row the same."""
+    entropy = [seed, epoch] + ([data_index] if data_index else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
@@ -370,28 +440,32 @@ def _train_batches(loader: PrefetchLoader, epoch: int) -> Iterator[Dict]:
 
 
 def run_training(args: Arguments, device: torch.device,
-                 log_fn: Optional[Log] = None) -> Dict[str, float]:
+                 log_fn: Optional[Log] = None,
+                 mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """Counterpart of mmgl_tpu.cli.run_training (run_generation.py:236-428
-    in the reference) on one device. Returns the final test pass's metrics
-    plus ``train_updates``."""
-    check_single_device_flags(args)
+    in the reference), on this rank of ``mesh`` (``setup_mesh``'s; by
+    default laid out here, without joining a process group). Returns the
+    final test pass's metrics plus ``train_updates``."""
+    if mesh is None:
+        mesh, device = setup_mesh(args, device)
     seed = args.seed or 0
     if args.seed is not None:
         np.random.seed(args.seed)
-    log_dir = _new_log_dir(args)
+    log_dir = _new_log_dir(args, mesh)
     if args.save_dir is None:
         args.save_dir = os.path.join(log_dir, "ckpt")
-    wandb_run = start_wandb(args)
-    log = make_log(wandb_run, log_fn)
+    wandb_run = start_wandb(args, mesh.is_main)
+    log = make_log(wandb_run, log_fn if mesh.is_main else None)
 
-    tokenizer, model, fcfg, datasets = _build(args, device)
+    tokenizer, model, fcfg, datasets = _build(args, device, mesh)
     train_ds, val_ds, test_ds = cache_neighbors(args, model, datasets,
-                                                ("train", "val", "test"))
+                                                ("train", "val", "test"),
+                                                mesh)
     print(f"Training with {len(train_ds)} examples, validating with "
           f"{len(val_ds)} examples, testing with {len(test_ds)} examples.")
-    report_params(model, wandb_run)
+    report_params(model, wandb_run, mesh.is_main)
 
-    optimizer, scheduler = build_optimizer(args, model)
+    optimizer, scheduler = build_optimizer(args, model, mesh)
     best_acc1, step = 0.0, 0
     if args.resume:
         restored, path = _newest_checkpoint(args)
@@ -401,7 +475,8 @@ def run_training(args: Arguments, device: torch.device,
             # (DIVERGENCES.md, "Resume replays the NEXT epoch")
             args.start_epoch = restored["epoch"] + 1
             best_acc1, step = restored["best_acc1"], restored["step"]
-            restore_training_state(restored, model, optimizer, scheduler)
+            restore_training_state(restored, model, optimizer, scheduler,
+                                   mesh)
         else:
             print(f"=> no checkpoint found at '{path}'")
 
@@ -412,22 +487,21 @@ def run_training(args: Arguments, device: torch.device,
         args.max_input_length, tokenizer.pad_token_id,
         grad_accumulation_steps=accum, grad_clip=args.grad_clip,
         fused_ce=args.fused_ce,
-        chunked_ce=args.chunked_ce if args.decoder_only else 0)
-    val = _eval_setup(args, model, fcfg, tokenizer, val_ds)
-    test = _eval_setup(args, model, fcfg, tokenizer, test_ds)
-    train_loader = PrefetchLoader(
-        train_ds, batch_size=batch_size * accum, shuffle=True, seed=seed,
-        prefetch=args.prefetch_batches,
-        num_workers=args.dataloader_num_workers)
+        chunked_ce=args.chunked_ce if args.decoder_only else 0, mesh=mesh)
+    val = _eval_setup(args, model, fcfg, tokenizer, val_ds, mesh)
+    test = _eval_setup(args, model, fcfg, tokenizer, test_ds, mesh)
+    train_loader = _loader(args, train_ds, batch_size * accum, mesh,
+                           shuffle=True, seed=seed)
 
     train_updates = 0
+    global_bs = batch_size * mesh.n_data
     updates_per_epoch = max(1, args.steps_per_epoch // accum)
     for epoch in range(args.start_epoch, args.epochs):
         epoch_start = time.time()
         if epoch == 0:
             evaluate_loop(val, args, epoch - 1, log)
 
-        generator = dropout_generator(seed, epoch, device)
+        generator = dropout_generator(seed, epoch, device, mesh.data_index)
         batches = _train_batches(train_loader, epoch)
         batch_time = AverageMeter("Time", ":6.3f")
         data_time = AverageMeter("Data", ":6.3f")
@@ -454,13 +528,14 @@ def run_training(args: Arguments, device: torch.device,
             actual_step = epoch * updates_per_epoch + u + 1
             if actual_step == 1 or actual_step % args.print_freq == 0:
                 # the loss is read only here: a read waits for the device
-                losses.update(float(metrics["summary_loss"]), batch_size)
-                progress.display(u + 1)
+                losses.update(float(metrics["summary_loss"]), global_bs)
+                if mesh.is_main:
+                    progress.display(u + 1)
                 log({"train/loss": losses.avg,
                      "metrics/total_secs_per_batch": batch_time.avg,
                      "metrics/data_secs_per_batch": data_time.avg,
                      "metrics/examples_per_sec":
-                         batch_size * accum / max(batch_time.avg, 1e-9)},
+                         global_bs * accum / max(batch_time.avg, 1e-9)},
                     actual_step)
                 losses.reset()
                 batch_time.reset()
@@ -470,22 +545,29 @@ def run_training(args: Arguments, device: torch.device,
         results = evaluate_loop(val, args, epoch, log)
         acc1 = results["bleu4"]
         if acc1 > best_acc1 or epoch == 0:
+            # the decision is the same on every rank (the metrics come
+            # from the gathered predictions); the save is a collective and
+            # rank 0 writes
             best_acc1 = max(acc1, best_acc1)
-            print("=> save best val model ...", args.save_dir)
+            if mesh.is_main:
+                print("=> save best val model ...", args.save_dir)
             save_checkpoint(args.save_dir, model, optimizer, scheduler, epoch,
-                            acc1, step)
+                            acc1, step, mesh)
         if args.save_every_epochs and (
                 (epoch + 1) % args.save_every_epochs == 0):
             # the periodic "latest" checkpoint for kill + resume, apart from
             # the best-val one the final test restores
             save_checkpoint(args.save_dir + "_latest", model, optimizer,
-                            scheduler, epoch, best_acc1, step)
+                            scheduler, epoch, best_acc1, step, mesh)
         print(f"Epoch {epoch} time: {time.time() - epoch_start}s")
 
-    # final test on the best checkpoint (run_generation.py:421-428)
+    # final test on the best checkpoint (run_generation.py:421-428), read
+    # by every rank once rank 0 has written it
+    if mesh.shape != (1, 1):
+        torch.distributed.barrier()
     restored = restore_checkpoint(args.save_dir)
     if restored is not None:
-        merge_restored_params(model, restored["params"])
+        merge_restored_params(model, restored["params"], mesh)
     results = evaluate_loop(test, args, args.epochs, log, prefix="test")
     results["train_updates"] = float(train_updates)
     if wandb_run is not None:
@@ -513,8 +595,12 @@ def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int, log: Log,
     timed to a device synchronize and logged as ``{prefix}/batch_seconds``
     with ``{prefix}/batch_sections`` (to the caller's log function only:
     the JAX package logs no such scalar to wandb); decoding to text and
-    scoring run on the host after it."""
+    scoring run on the host after it. On a mesh each rank runs its data
+    row's batches and the predictions and labels are gathered over the data
+    group (``gather_tokens``: each sample once), so every rank scores the
+    same corpus."""
     device = test.model.device
+    mesh = test.mesh
     tokenizer = test.tokenizer
     losses = AverageMeter("Loss", ":.4e")
     forward_time = AverageMeter("Forward", ":6.3f")
@@ -537,7 +623,8 @@ def evaluate_loop(test: EvalSetup, args: Arguments, epoch: int, log: Log,
         labels = batch["labels"]
         if test.fcfg.decoder_only:
             labels = labels[:, args.max_input_length + 1:]
-        generated = generated.cpu().numpy()
+        generated = gather_tokens(generated, mesh)
+        labels = gather_tokens(labels, mesh)
         if generated.shape[0] != labels.shape[0]:
             raise RuntimeError(f"{generated.shape[0]} predictions for "
                                f"{labels.shape[0]} references")

@@ -40,13 +40,27 @@ import torch
 from mmgl_tpu_torch.data.loader import PrefetchLoader
 
 
+def _every_rank_finds(path: str, group, device) -> bool:
+    """Whether ``path`` exists for every rank of ``group`` (a mesh's
+    ranks: their tensor-parallel towers build the cache together, so all
+    load or all build)."""
+    found = os.path.exists(path)
+    if group is None:
+        return found
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(found)], device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return bool(flag.item())
+
+
 class CachedNeighborDataset:
     """Wraps an assembler; serves its samples with the cached pooled tower
     outputs in place of the neighbours' raw ids and pixels."""
 
     def __init__(self, dataset, model, batch_size: int = 16,
                  verbose: bool = True, cache_dir: Optional[str] = None,
-                 split: str = "train", num_workers: int = 4):
+                 split: str = "train", num_workers: int = 4, group=None):
         self.dataset = dataset
         cfg = model.config
         self._needs_text = cfg.needs_text_tower
@@ -59,7 +73,7 @@ class CachedNeighborDataset:
         if cache_dir:
             key = self._fingerprint(model, split)
             path = os.path.join(cache_dir, f"neighbor_cache_{key}.npz")
-            if os.path.exists(path):
+            if _every_rank_finds(path, group, model.device):
                 if verbose:
                     print(f"[neighbor-cache] warm: {path}")
                 self._load(path)

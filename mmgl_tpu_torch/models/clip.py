@@ -111,14 +111,16 @@ class CLIPAttention(nn.Module):
 
     def forward(self, hidden_states, attention_mask=None):
         b, s, e = hidden_states.shape
-        h = self.num_heads
-        q = self.query(hidden_states).view(b, s, h, e // h)
-        k = self.key(hidden_states).view(b, s, h, e // h)
-        v = self.value(hidden_states).view(b, s, h, e // h)
+        d = e // self.num_heads
+        q = self.query(hidden_states)
+        h = q.shape[-1] // d     # a tensor-parallel rank's H / m
+        q = q.view(b, s, h, d)
+        k = self.key(hidden_states).view(b, s, h, d)
+        v = self.value(hidden_states).view(b, s, h, d)
         out = multi_head_attention(q, k, v, kv_mask=attention_mask,
                                    causal=self.causal,
                                    use_pallas=self.use_pallas)
-        return self.out(out.reshape(b, s, e))
+        return self.out(out.reshape(b, s, h * d))
 
 
 class CLIPEncoderLayer(nn.Module):

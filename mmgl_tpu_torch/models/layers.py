@@ -18,6 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmgl_tpu_torch.parallel.collectives import (copy_to_group,
+                                                 reduce_from_group)
+
 
 def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
@@ -41,19 +44,30 @@ def _cast_is_kept(p: torch.Tensor) -> bool:
     return not (p.requires_grad and torch.is_grad_enabled())
 
 
+# bumped where parameters change behind their version counters: FSDP
+# all-gathers each update's values into the same unsharded storage without
+# moving its counter (parallel/mesh.py ``apply_fsdp``)
+_CAST_EPOCH = [0]
+
+
+def invalidate_kept_casts() -> None:
+    """Drop every kept cast (``cast_at_use``) at its next use."""
+    _CAST_EPOCH[0] += 1
+
+
 def cast_at_use(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``p`` in ``dtype``. Each cast is a kernel launch, and greedy decode is
     bound by launches, so where no gradient can flow into ``p`` (a frozen
     tower, an eval pass) the cast is kept on ``p`` and reused until ``p`` is
     written in place (its version counter moves: optimizer steps,
-    load_state_dict) or moved. A cast made for a gradient frees the kept
-    one."""
+    load_state_dict), moved, or ``invalidate_kept_casts`` runs. A cast made
+    for a gradient frees the kept one."""
     if p.dtype == dtype:
         return p
     if not _cast_is_kept(p):
         p.__dict__.pop("_kept_cast", None)
         return p.to(dtype)
-    stamp = (p._version, p.data_ptr(), dtype)
+    stamp = (p._version, p.data_ptr(), dtype, _CAST_EPOCH[0])
     kept = p.__dict__.get("_kept_cast")
     if kept is None or kept[0] != stamp:
         kept = p.__dict__["_kept_cast"] = (stamp, p.detach().to(dtype))
@@ -62,7 +76,16 @@ def cast_at_use(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 class Linear(nn.Linear):
     """flax ``Dense(dtype=compute_dtype)``: input, weight and bias cast to
-    the compute dtype."""
+    the compute dtype.
+
+    Tensor-parallel (``tp``, set by parallel/tensor_parallel.py to
+    ("col", group) or ("row", group)): a column-parallel layer holds its
+    rank's rows of the weight and bias (output features) and takes its
+    input through ``copy_to_group``; a row-parallel one holds its rank's
+    input features, sums the partial products over the group
+    (``reduce_from_group``), then adds its whole bias."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  *, compute_dtype: torch.dtype = torch.float32):
@@ -72,7 +95,14 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else cast_at_use(self.bias, dt)
-        return F.linear(x.to(dt), cast_at_use(self.weight, dt), bias)
+        weight = cast_at_use(self.weight, dt)
+        if self.tp is None:
+            return F.linear(x.to(dt), weight, bias)
+        mode, group = self.tp
+        if mode == "col":
+            return F.linear(copy_to_group(x.to(dt), group), weight, bias)
+        y = reduce_from_group(F.linear(x.to(dt), weight), group)
+        return y if bias is None else y + bias
 
 
 class LoRALinear(Linear):
@@ -108,9 +138,13 @@ class LoRALinear(Linear):
         if self.rank == 0:
             return y
         dt = self.compute_dtype
-        h = self.lora_dropout(x.to(dt), generator)
-        return y + (h @ cast_at_use(self.lora_a, dt)) @ cast_at_use(
-            self.lora_b, dt) * self.scale
+        h = self.lora_dropout(x.to(dt), generator) @ cast_at_use(
+            self.lora_a, dt)
+        if self.tp is not None:
+            # B holds the rank's output columns: the (B, S, r) product's
+            # gradient is a share of A's and the input's
+            h = copy_to_group(h, self.tp[1])
+        return y + h @ cast_at_use(self.lora_b, dt) * self.scale
 
 
 class LayerNorm(nn.LayerNorm):
@@ -153,24 +187,45 @@ class RMSNorm(nn.Module):
 class Embedding(nn.Embedding):
     """flax ``Embed(dtype=compute_dtype)``: the rows looked up, then cast
     (the same values as casting the table first, without casting all of
-    it), or looked up in the kept cast of the table (``cast_at_use``)."""
+    it), or looked up in the kept cast of the table (``cast_at_use``).
+
+    Vocab-parallel (``tp``, a ``VocabShard`` set by
+    parallel/tensor_parallel.py): the table holds the rank's rows
+    [start, start + rows); a lookup takes the ids in that range, zeros the
+    others and sums over the group, and ``attend`` returns the rank's
+    columns of the logits."""
+
+    tp = None
 
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(num_embeddings, embedding_dim)
         self.compute_dtype = compute_dtype
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def _lookup(self, ids: torch.Tensor) -> torch.Tensor:
         if _cast_is_kept(self.weight):
             return F.embedding(ids, cast_at_use(self.weight,
                                                 self.compute_dtype))
         return F.embedding(ids, self.weight).to(self.compute_dtype)
 
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self._lookup(ids)
+        local = ids - self.tp.start
+        inside = (local >= 0) & (local < self.weight.shape[0])
+        rows = self._lookup(torch.where(inside, local,
+                                        torch.zeros_like(local)))
+        rows = rows * inside[..., None].to(rows.dtype)
+        return reduce_from_group(rows, self.tp.group)
+
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """The tied LM head, flax ``Embed.attend``: x @ table.T in the
-        compute dtype."""
+        compute dtype (the rank's vocab columns where vocab-parallel)."""
         dt = self.compute_dtype
-        return x.to(dt) @ cast_at_use(self.weight, dt).T
+        x = x.to(dt)
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp.group)
+        return x @ cast_at_use(self.weight, dt).T
 
 
 class Dropout(nn.Module):
@@ -181,7 +236,12 @@ class Dropout(nn.Module):
 
     Active only in training mode. The mask comes from ``generator``, which
     the caller passes explicitly (the counterpart of the "dropout" rng
-    stream); it must live on the input's device."""
+    stream); it must live on the input's device. Over a tensor-parallel
+    rank's share of a dim (``shard`` = (dim, ranks, index), set by
+    parallel/tensor_parallel.py) it draws the whole dim's mask and keeps
+    its share: the mask of one device."""
+
+    shard = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -195,8 +255,16 @@ class Dropout(nn.Module):
             return x
         if generator is None:
             raise ValueError("dropout in training mode needs a generator")
-        keep = torch.rand(x.shape, generator=generator,
+        shape = list(x.shape)
+        if self.shard is not None:
+            dim, ranks, _ = self.shard
+            shape[dim] *= ranks
+        keep = torch.rand(shape, generator=generator,
                           device=x.device) < 1.0 - self.rate
+        if self.shard is not None:
+            dim, _, index = self.shard
+            n = x.shape[dim]
+            keep = keep.narrow(dim, index * n, n)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

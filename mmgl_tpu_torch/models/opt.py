@@ -131,9 +131,12 @@ class KVCache:
 
 
 def init_cache(config: OPTConfig, batch: int, max_len: int,
-               device: torch.device) -> List[KVCache]:
-    """Empty per-layer KV cache for autoregressive decode."""
-    shape = (batch, max_len, config.num_attention_heads, config.head_dim)
+               device: torch.device, num_heads: Optional[int] = None
+               ) -> List[KVCache]:
+    """Empty per-layer KV cache for autoregressive decode, of ``num_heads``
+    heads (a tensor-parallel rank's own; default the config's)."""
+    heads = num_heads or config.num_attention_heads
+    shape = (batch, max_len, heads, config.head_dim)
     return [KVCache(torch.zeros(shape, dtype=config.dtype, device=device),
                     torch.zeros(shape, dtype=config.dtype, device=device))
             for _ in range(config.num_hidden_layers)]
@@ -163,10 +166,14 @@ class OPTAttention(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         cfg = self.cfg
-        h, d = cfg.num_attention_heads, cfg.head_dim
+        d = cfg.head_dim
         b, s, _ = hidden_states.shape
         src = kv_states if self.cross_attention else hidden_states
-        q = self.q_proj(hidden_states, generator).view(b, s, h, d)
+        # the heads counted from the projection: a tensor-parallel rank
+        # holds H / m of them
+        q = self.q_proj(hidden_states, generator)
+        h = q.shape[-1] // d
+        q = q.view(b, s, h, d)
         k = self.k_proj(src).view(b, -1, h, d)
         v = self.v_proj(src, generator).view(b, -1, h, d)
 
@@ -204,7 +211,7 @@ class OPTAttention(nn.Module):
 
         out = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=causal,
                                    use_pallas=cfg.use_pallas)
-        return self.out_proj(out.reshape(b, s, cfg.hidden_size))
+        return self.out_proj(out.reshape(b, s, h * d))
 
 
 class OPTDecoderLayer(nn.Module):
@@ -418,3 +425,10 @@ class OPTForCausalLM(nn.Module):
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Token embedding lookup (for inputs_embeds fusion paths)."""
         return self.decoder.embed_tokens(input_ids)
+
+    @property
+    def local_heads(self) -> int:
+        """The self-attention heads this rank holds (all of them unless
+        tensor-parallel)."""
+        q = self.decoder.layers[0].self_attn.q_proj.weight
+        return q.shape[0] // self.config.head_dim

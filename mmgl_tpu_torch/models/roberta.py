@@ -83,13 +83,15 @@ class RobertaSelfAttention(nn.Module):
     def forward(self, hidden_states, attention_mask):
         cfg = self.cfg
         b, s, e = hidden_states.shape
-        h, d = cfg.num_attention_heads, cfg.head_dim
-        q = self.query(hidden_states).view(b, s, h, d)
+        d = cfg.head_dim
+        q = self.query(hidden_states)
+        h = q.shape[-1] // d     # a tensor-parallel rank's H / m
+        q = q.view(b, s, h, d)
         k = self.key(hidden_states).view(b, s, h, d)
         v = self.value(hidden_states).view(b, s, h, d)
         out = multi_head_attention(q, k, v, kv_mask=attention_mask,
                                    use_pallas=cfg.use_pallas)
-        return self.out(out.reshape(b, s, e))
+        return self.out(out.reshape(b, s, h * d))
 
 
 class RobertaLayer(nn.Module):

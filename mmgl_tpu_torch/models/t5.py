@@ -46,6 +46,7 @@ from mmgl_tpu_torch.models.layers import (ACT2FN, Dropout, Embedding,
 from mmgl_tpu_torch.models.opt import KVCache
 from mmgl_tpu_torch.ops import multi_head_attention
 from mmgl_tpu_torch.ops.flash_attention import padded_bias
+from mmgl_tpu_torch.parallel.collectives import copy_to_group
 
 
 @dataclass(frozen=True)
@@ -114,6 +115,10 @@ def compute_position_bias(relpos_table: torch.Tensor, q_len: int, k_len: int,
 
 
 class T5Attention(nn.Module):
+    # tensor-parallel: this rank's model index, folded into the attention
+    # dropout's key so that the ranks' heads draw apart
+    dropout_stream = 0
+
     def __init__(self, cfg: T5Config, causal: bool = False):
         super().__init__()
         self.cfg, self.causal = cfg, causal
@@ -136,9 +141,11 @@ class T5Attention(nn.Module):
         already cover the prefix (``T5Stack`` extends them once)."""
         cfg = self.cfg
         b, s, _ = hidden_states.shape
-        h, d = cfg.num_heads, cfg.d_kv
+        d = cfg.d_kv
         src = hidden_states if kv_states is None else kv_states
-        q = self.q(hidden_states).view(b, s, h, d)
+        q = self.q(hidden_states)
+        h = q.shape[-1] // d     # a tensor-parallel rank's H / m
+        q = q.view(b, s, h, d)
         k = self.k(src).view(b, src.shape[1], h, d)
         v = self.v(src).view(b, src.shape[1], h, d)
 
@@ -172,8 +179,9 @@ class T5Attention(nn.Module):
                                    bias=position_bias, causal=causal,
                                    scale=1.0, dropout_rate=rate,
                                    generator=generator,
+                                   dropout_stream=self.dropout_stream,
                                    use_pallas=cfg.use_pallas)
-        return self.o(out.reshape(b, s, cfg.inner_dim))
+        return self.o(out.reshape(b, s, h * d))
 
 
 class T5FFN(nn.Module):
@@ -233,6 +241,10 @@ class T5Block(nn.Module):
 
 
 class T5Stack(nn.Module):
+    # tensor-parallel: (group, first head, heads) of this rank, whose
+    # columns of the replicated bucket table it takes
+    head_shard = None
+
     def __init__(self, cfg: T5Config, is_decoder: bool = False):
         super().__init__()
         self.cfg, self.is_decoder = cfg, is_decoder
@@ -254,6 +266,9 @@ class T5Stack(nn.Module):
         # only the current segment
         k_len = caches[0].k.shape[1] if (caches is not None and s == 1) else s
         table = cast_at_use(self.relpos_bias.weight, cfg.dtype)
+        if self.head_shard is not None:
+            group, start, count = self.head_shard
+            table = copy_to_group(table, group)[:, start:start + count]
         bias = compute_position_bias(
             table, s, k_len, bidirectional=not self.is_decoder,
             num_buckets=cfg.relative_attention_num_buckets,
@@ -286,9 +301,11 @@ class T5Stack(nn.Module):
 
 
 def t5_init_cache(config: T5Config, batch: int, max_len: int,
-                  device: torch.device) -> List[KVCache]:
-    """Empty per-layer decoder self-attention cache."""
-    shape = (batch, max_len, config.num_heads, config.d_kv)
+                  device: torch.device, num_heads: Optional[int] = None
+                  ) -> List[KVCache]:
+    """Empty per-layer decoder self-attention cache, of ``num_heads`` heads
+    (a tensor-parallel rank's own; default the config's)."""
+    shape = (batch, max_len, num_heads or config.num_heads, config.d_kv)
     return [KVCache(torch.zeros(shape, dtype=config.dtype, device=device),
                     torch.zeros(shape, dtype=config.dtype, device=device))
             for _ in range(config.num_decoder_layers)]
@@ -358,3 +375,9 @@ class T5ForConditionalGeneration(nn.Module):
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.shared(input_ids)
+
+    @property
+    def local_heads(self) -> int:
+        """The decoder self-attention heads this rank holds."""
+        q = self.decoder.layers[0].self_attn.q.weight
+        return q.shape[0] // self.config.d_kv

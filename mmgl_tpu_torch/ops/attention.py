@@ -185,6 +185,7 @@ def multi_head_attention(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    dropout_stream: int = 0,
     use_pallas: bool = True,
 ) -> torch.Tensor:
     """Multi-head attention; returns (B, Sq, H, D) in q.dtype.
@@ -193,7 +194,9 @@ def multi_head_attention(
     bias: additive (B|1, H|1, Sq, Sk), batch-shared (1, ...) on the kernel
     route; causal aligns the ends (sk >= sq). dropout_rate > 0 drops
     attention probabilities with a key drawn from ``generator`` (the
-    dropout stream, on the tensors' device)."""
+    dropout stream, on the tensors' device), its second word plus
+    ``dropout_stream`` (a tensor-parallel rank's index: the ranks hold
+    different heads under the same local head numbers)."""
     # imported here: flash_attention imports attention_reference from this
     # module (the JAX package imports its kernels lazily too)
     from mmgl_tpu_torch.ops import flash_attention as fa
@@ -205,6 +208,9 @@ def multi_head_attention(
         if generator is None:
             raise ValueError("attention dropout needs a generator")
         seed = draw_dropout_seed(generator)
+        if dropout_stream:
+            seed = seed + torch.tensor([0, dropout_stream],
+                                       device=seed.device)
     route = attention_route(q.shape, k.shape,
                             pairwise_mask=pairwise_mask is not None,
                             bias=bias is not None, dropout=seed is not None,

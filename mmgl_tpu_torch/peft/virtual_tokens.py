@@ -21,6 +21,8 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
+from mmgl_tpu_torch.parallel.collectives import copy_to_group
+
 INIT_STD = 0.02
 
 
@@ -40,6 +42,10 @@ class PromptTuning(nn.Module):
 
 
 class PrefixTuning(nn.Module):
+    # tensor-parallel: (group, first head, heads) of this rank, which takes
+    # those heads' keys and values of the replicated table
+    head_shard = None
+
     def __init__(self, num_layers: int, num_virtual_tokens: int,
                  num_heads: int, head_dim: int):
         super().__init__()
@@ -50,6 +56,10 @@ class PrefixTuning(nn.Module):
         self.kv.normal_(0.0, INIT_STD, generator=generator)
 
     def forward(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """[(k, v)] * layers, each (P, heads, head_dim)."""
-        return [(self.kv[i, 0], self.kv[i, 1])
-                for i in range(self.kv.shape[0])]
+        """[(k, v)] * layers, each (P, heads, head_dim): this rank's heads
+        where tensor-parallel."""
+        kv = self.kv
+        if self.head_shard is not None:
+            group, start, count = self.head_shard
+            kv = copy_to_group(kv, group)[..., start:start + count, :]
+        return [(kv[i, 0], kv[i, 1]) for i in range(kv.shape[0])]

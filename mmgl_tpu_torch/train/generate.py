@@ -29,6 +29,11 @@ T5 alike. That is the JAX package's behaviour (its ``lm_decode`` and
 ``decode_t5`` take no ``prefix_kvs``, mmgl_tpu/train/generate.py:60-63,
 76-81, 109-113), kept here on purpose: generation runs the bare LM while the
 teacher-forced eval uses the trained prefix.
+
+On a tensor-parallel mesh each rank decodes with its own heads (its caches
+hold H / m) and takes the argmax of its vocab columns, all-gathered as
+(value, index) pairs over the model group (``losses.vocab_argmax``): every
+rank emits the same tokens.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from mmgl_tpu_torch.models.fusion import MMGLModel
 from mmgl_tpu_torch.models.layers import make_positions_from_mask
 from mmgl_tpu_torch.models.opt import init_cache
 from mmgl_tpu_torch.models.t5 import t5_init_cache
+from mmgl_tpu_torch.train.losses import vocab_argmax
 
 
 def _prompt_batch(model: MMGLModel, batch: Dict) -> Dict:
@@ -64,7 +70,9 @@ def greedy_generate(model: MMGLModel, batch: Dict,
     embeds, mask, memory, memory_mask = model.prefill_inputs(
         _prompt_batch(model, batch))
     b, t_prompt = embeds.shape[:2]
-    caches = init_cache(opt_cfg, b, t_prompt + max_new_tokens, embeds.device)
+    vocab = getattr(model, "vocab_shard", None)
+    caches = init_cache(opt_cfg, b, t_prompt + max_new_tokens, embeds.device,
+                        num_heads=model.lm.local_heads)
 
     logits, caches = model.lm_decode(
         inputs_embeds=embeds, attention_mask=mask, neighbor_embeds=memory,
@@ -72,7 +80,7 @@ def greedy_generate(model: MMGLModel, batch: Dict,
         position_ids=make_positions_from_mask(mask))
     n_valid = mask.sum(dim=1).long()                            # (B,)
     rows = torch.arange(b, device=embeds.device)
-    tok = torch.argmax(logits[rows, n_valid - 1], dim=-1)
+    tok = vocab_argmax(logits[rows, n_valid - 1], vocab)
 
     eos, pad = opt_cfg.eos_token_id, opt_cfg.pad_token_id
     finished = torch.zeros(b, dtype=torch.bool, device=embeds.device)
@@ -83,7 +91,7 @@ def greedy_generate(model: MMGLModel, batch: Dict,
             input_ids=tok[:, None], attention_mask=mask,
             neighbor_embeds=memory, neighbor_mask=memory_mask, caches=caches,
             position_ids=pos[:, None])
-        nxt = torch.argmax(step_logits[:, 0], dim=-1)
+        nxt = vocab_argmax(step_logits[:, 0], vocab)
         finished = finished | (tok == eos)
         tok = torch.where(finished, torch.full_like(nxt, pad), nxt)
         out.append(tok)
@@ -98,7 +106,9 @@ def _generate_t5(model: MMGLModel, batch: Dict,
     embeds, mask, _, _ = model.prefill_inputs(_prompt_batch(model, batch))
     enc = model.encode_t5(inputs_embeds=embeds, attention_mask=mask)
     b = embeds.shape[0]
-    caches = t5_init_cache(t5_cfg, b, max_new_tokens, embeds.device)
+    vocab = getattr(model, "vocab_shard", None)
+    caches = t5_init_cache(t5_cfg, b, max_new_tokens, embeds.device,
+                           num_heads=model.lm.local_heads)
     tok = torch.full((b,), t5_cfg.decoder_start_token_id, dtype=torch.long,
                      device=embeds.device)
     eos, pad = t5_cfg.eos_token_id, t5_cfg.pad_token_id
@@ -108,7 +118,7 @@ def _generate_t5(model: MMGLModel, batch: Dict,
         logits, caches = model.decode_t5(
             decoder_input_ids=tok[:, None], encoder_states=enc,
             attention_mask=mask, caches=caches, position_offset=t)
-        nxt = torch.argmax(logits[:, 0], dim=-1)
+        nxt = vocab_argmax(logits[:, 0], vocab)
         finished = finished | (tok == eos)
         tok = torch.where(finished, torch.full_like(nxt, pad), nxt)
         out.append(tok)

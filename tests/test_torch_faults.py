@@ -14,8 +14,6 @@ now take both, and the models build.
 C4: ``--param_dtype bfloat16`` (the JAX bench's ``param_bf16``) failed in
 every LayerNorm, whose fp32 statistics met bf16 scale and bias; they are
 now taken in fp32.
-What the port leaves out in training raises NotImplementedError naming
-its ROADMAP item: a mesh (A8).
 The train step gives a zero gradient only to the parameters the model
 declares behind a stop_gradient (the text pooler), and raises for any other
 trainable parameter cut off from the loss.
@@ -191,47 +189,22 @@ def test_head_dims_80_and_128_build_on_cuda(model, head_dim, monkeypatch):
             fa._check(name, q, q, q, None)
 
 
-@pytest.mark.parametrize("mesh", [["--mesh_shape", "2,2"],
-                                  ["--zero1", "true"]])
-def test_a_mesh_is_refused_in_training_naming_roadmap_a8(mesh):
-    """BASELINE family 5's 2 x 2 mesh (and its sharded optimizer) is not
-    ported: training refuses it, naming ROADMAP A8, while every
-    --peft_type trains."""
-    args, _ = cli.parse_cli(["--model_name_or_path", "opt-tiny",
-                             "--peft_type", "prefix", "--device", "cpu",
-                             *mesh])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cli.check_single_device_flags(args)
-    args, _ = cli.parse_cli(["--model_name_or_path", "opt-tiny",
-                             "--peft_type", "prefix", "--device", "cpu"])
-    cli.check_single_device_flags(args)
-
-
-@pytest.mark.parametrize("flag", [["--mesh_shape", "2,2"],
-                                  ["--zero1", "true"], ["--fsdp", "true"],
-                                  ["--distributed", "true"], []])
-def test_the_test_pass_refuses_the_multi_device_flags_naming_roadmap_a8(
-        flag, monkeypatch):
-    """--test true refuses what training refuses (ROADMAP A8) before any
-    model is built: the JAX package's test pass shards its batch over the
-    mesh, the port's would run the whole split on one device without a
-    word. A plain --test true run reaches prepare."""
+def test_a_plain_test_pass_reaches_prepare(monkeypatch):
+    """A plain --test true run reaches prepare, the model's build, with
+    the one-rank mesh (the multi-device flags are ported:
+    tests/test_torch_parallel.py)."""
     class Built(Exception):
         pass
 
-    def prepare(args, device):
+    def prepare(args, device, mesh=None):
+        assert mesh is not None and mesh.shape == (1, 1)
         raise Built
 
     monkeypatch.setattr(cli, "prepare", prepare)
-    monkeypatch.setattr(cli, "start_wandb", lambda args: None)
-    argv = ["--model_name_or_path", "opt-tiny", "--device", "cpu",
-            "--test", "true", *flag]
-    if flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            cli.main(argv)
-    else:
-        with pytest.raises(Built):
-            cli.main(argv)
+    monkeypatch.setattr(cli, "start_wandb", lambda args, is_main=True: None)
+    with pytest.raises(Built):
+        cli.main(["--model_name_or_path", "opt-tiny", "--device", "cpu",
+                  "--test", "true"])
 
 
 @pytest.mark.parametrize("cut", [False, True])

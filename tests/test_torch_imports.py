@@ -1,7 +1,8 @@
 """The port stands alone: no module of mmgl_tpu_torch, and not
 chip_smoke.py, imports anything of the JAX package or of JAX itself; and
 the modules it copied from the JAX package (config, metrics, tokenizer,
-meters) are those modules with only their imports rewritten."""
+meters, the ETL of data/preprocess.py) are those modules with only their
+imports rewritten."""
 
 import ast
 import re
@@ -61,6 +62,7 @@ COPIES = {
     "mmgl_tpu_torch/metrics/cider.py": "mmgl_tpu/metrics/cider.py",
     "mmgl_tpu_torch/utils/tokenizer.py": "mmgl_tpu/utils/tokenizer.py",
     "mmgl_tpu_torch/utils/meters.py": "mmgl_tpu/utils/meters.py",
+    "mmgl_tpu_torch/data/preprocess.py": "mmgl_tpu/data/preprocess.py",
 }
 
 

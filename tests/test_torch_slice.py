@@ -134,21 +134,6 @@ def test_cli_training_end_to_end(pair, tmp_path):
     assert cli.run(args, device) == got
 
 
-def test_training_is_not_ported(tmp_path):
-    """What training does not port yet, the flags that need more than one
-    device (ROADMAP A8), refuses to run, through the entry point, instead of
-    running something else. (Remat, layerdrop, the plain and chunked CE,
-    the profiler and wandb are ported: tests/test_torch_regularization.py,
-    test_torch_ce.py and test_torch_observability.py run them.)"""
-    for flag in (["--zero1", "true"], ["--fsdp", "true"],
-                 ["--mesh_shape", "2,1"], ["--distributed", "true"]):
-        args, device = cli.parse_cli(TRAIN + flag + [
-            "--log_dir", str(tmp_path), "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            cli.run(args, device)
-    assert not tmp_path.exists() or not any(tmp_path.iterdir())
-
-
 def test_remat_is_refused_only_in_training(tmp_path):
     """--remat is ported in training (it was refused there): a training
     run with it through the entry point returns the metrics of the run
