@@ -41,7 +41,8 @@ Training takes ``--remat``, ``--layerdrop``, ``--fused_ce false`` and
 prints ``[wandb] disabled: <error>`` where it cannot start
 (mmgl_tpu/cli.py:194-207); ``--profile_dir`` writes a ``torch.profiler``
 Chrome trace of the first epoch's first updates (mmgl_tpu/cli.py:384-385,
-478-480). Both print the parameter table before the totals.
+478-480), the update's spans (utils/spans.py) among its ranges. Both
+print the parameter table before the totals.
 
 ``--device cuda`` on a host without a visible GPU fails: there is no CPU
 fallback. Pass ``--device cpu`` to run the plain versions of the kernels.
@@ -101,6 +102,7 @@ from mmgl_tpu_torch.train.checkpoints import (merge_restored_params,
 from mmgl_tpu_torch.train.generate import greedy_generate
 from mmgl_tpu_torch.train.optim import build_optimizer
 from mmgl_tpu_torch.train.steps import make_eval_step, make_train_step
+from mmgl_tpu_torch.utils import spans
 
 MAX_NEW_TOKENS = 32
 
@@ -411,10 +413,12 @@ def start_profile(device: torch.device):
 def stop_profile(prof, device: torch.device, profile_dir: str,
                  epoch: int) -> str:
     """Stop ``prof`` once the device has run what was queued, and write its
-    Chrome trace under ``profile_dir``; returns the trace's path."""
+    Chrome trace under ``profile_dir``; returns the trace's path. The
+    spans it recorded are in the trace and are dropped from memory."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.stop()
+    spans.drain()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"train_epoch{epoch}.pt.trace.json")
     prof.export_chrome_trace(path)

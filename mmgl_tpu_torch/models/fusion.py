@@ -73,6 +73,7 @@ from mmgl_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
 from mmgl_tpu_torch.models.roberta import RobertaConfig, RobertaModel
 from mmgl_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
 from mmgl_tpu_torch.peft.virtual_tokens import PrefixTuning, PromptTuning
+from mmgl_tpu_torch.utils import spans
 
 IGNORE_INDEX = -100
 
@@ -370,7 +371,8 @@ class MMGLModel(nn.Module):
         (embedding), MPT's memory, or a plain LM call (raw section_only /
         text_only); then the virtual tokens of prompt or prefix tuning."""
         cfg = self.config
-        batch = {k: _as_tensor(v, self.device) for k, v in batch.items()}
+        with spans.span("batch_to_device"):
+            batch = {k: _as_tensor(v, self.device) for k, v in batch.items()}
         input_ids = batch["input_ids"].long()
         attention_mask = batch["attention_mask"]
         labels = batch["labels"].long() if "labels" in batch else None

@@ -20,6 +20,7 @@ from torch import nn
 
 from mmgl_tpu_torch.parallel.collectives import (copy_to_group,
                                                  reduce_from_group)
+from mmgl_tpu_torch.utils import spans
 
 
 def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -61,17 +62,32 @@ def cast_at_use(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     tower, an eval pass) the cast is kept on ``p`` and reused until ``p`` is
     written in place (its version counter moves: optimizer steps,
     load_state_dict), moved, or ``invalidate_kept_casts`` runs. A cast made
-    for a gradient frees the kept one."""
+    for a gradient frees the kept one. Each cast made, kept or not, counts
+    its bytes as ``param_cast`` (utils/spans.py); a kept cast reused counts
+    nothing."""
     if p.dtype == dtype:
         return p
     if not _cast_is_kept(p):
         p.__dict__.pop("_kept_cast", None)
-        return p.to(dtype)
+        cast = p.to(dtype)
+        spans.count("param_cast", cast)
+        return cast
     stamp = (p._version, p.data_ptr(), dtype, _CAST_EPOCH[0])
     kept = p.__dict__.get("_kept_cast")
     if kept is None or kept[0] != stamp:
         kept = p.__dict__["_kept_cast"] = (stamp, p.detach().to(dtype))
+        spans.count("param_cast", kept[1])
     return kept[1]
+
+
+def _norm_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A norm layer's input or output in ``dtype``; where that changes its
+    dtype, the bytes written count as ``norm_cast`` (utils/spans.py)."""
+    if x.dtype == dtype:
+        return x
+    cast = x.to(dtype)
+    spans.count("norm_cast", cast)
+    return cast
 
 
 class Linear(nn.Linear):
@@ -159,9 +175,9 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape,
+        y = F.layer_norm(_norm_cast(x, torch.float32), self.normalized_shape,
                          self.weight.float(), self.bias.float(), self.eps)
-        return y.to(self.compute_dtype)
+        return _norm_cast(y, self.compute_dtype)
 
 
 class RMSNorm(nn.Module):
@@ -178,10 +194,10 @@ class RMSNorm(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = _norm_cast(x, torch.float32)
         var = xf.square().mean(dim=-1, keepdim=True)
-        return (self.weight * (xf * torch.rsqrt(var + self.eps))).to(
-            self.compute_dtype)
+        return _norm_cast(self.weight * (xf * torch.rsqrt(var + self.eps)),
+                          self.compute_dtype)
 
 
 class Embedding(nn.Embedding):

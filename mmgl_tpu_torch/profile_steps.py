@@ -21,9 +21,10 @@ before anything is timed, except where the loader's batches are named.
           prefill and the generate once each under ``torch.profiler``.
 --train   the training update (batch 4 x 4 micro-batches): update walls on
           the loader's batches and on staged ones (with their host CPU
-          times), forward, backward and
-          optimizer of one micro-step with CUDA events, then 3 updates under
-          ``torch.profiler``.
+          times), then 3 updates under ``torch.profiler``, with the device
+          ms of each one's ``update``, ``forward``, ``backward`` and
+          ``optimizer`` spans (utils/spans.py; forward and backward summed
+          over its micro-batches).
 
 The host CPU time of a call is the calling thread's CPU time until the
 call returns, before the synchronize: the launch loop's own cost, which
@@ -230,7 +231,8 @@ def profile_decode(cli, device, model: str, rounds: int = 15,
 def profile_train(cli, device, model_name: str,
                   embedding: bool = False) -> Dict:
     from mmgl_tpu_torch.train.optim import build_optimizer
-    from mmgl_tpu_torch.train.steps import losses_of, make_train_step
+    from mmgl_tpu_torch.train.steps import make_train_step
+    from mmgl_tpu_torch.utils import spans
 
     args, _ = cli.parse_cli(main_argv(model_name, embedding) + [
         "--per_device_train_batch_size", "4", "--grad_accumulation_steps",
@@ -252,37 +254,22 @@ def profile_train(cli, device, model_name: str,
                 "update_host_cpu_ms_staged": [c for _, c in staged_ms]}
     loader_ms, staged_ms = [w for w, _ in loader_ms], [w for w, _ in staged_ms]
 
-    micro = {k: v[:4] for k, v in staged[0].items()}
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    split = {"forward": [], "backward": [], "optimizer": []}
-    model.train()
-    for _ in range(5):
-        events[0].record()
-        out = model(micro, generator=gen)
-        loss, _ = losses_of(out, args.decoder_only, args.max_input_length,
-                            tok.pad_token_id)
-        events[1].record()
-        loss.backward()
-        events[2].record()
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        events[3].record()
-        torch.cuda.synchronize(device)
-        for i, name in enumerate(split):
-            split[name].append(events[i].elapsed_time(events[i + 1]))
-        del out, loss
-
     def three_updates():
         for b in staged[:3]:
             step(b, gen)
 
     prof = device_profile(three_updates, device, top=25)
+    split: Dict[str, Dict[int, float]] = {}
+    for span in spans.drain()["spans"]:
+        if span.device_ms is not None:
+            per = split.setdefault(span.name, {})
+            per[span.update] = per.get(span.update, 0.0) + span.device_ms
     prof["idle_share_of_median_wall"] = 1.0 - prof["busy_ms"] / 3 / (
         statistics.median(staged_ms))
     torch.cuda.synchronize(device)
     return {"sections_per_update": 16, "update_ms_loader": loader_ms,
             "update_ms_staged": staged_ms, **host_cpu,
-            "micro_step_ms": split,
+            "span_device_ms": {k: list(v.values()) for k, v in split.items()},
             "profile_3_updates": prof,
             "peak_bytes": torch.cuda.max_memory_allocated(device)}
 
@@ -323,7 +310,8 @@ def main(argv=None) -> int:
               f"{got['update_host_cpu_ms_staged']}; 3 profiled updates: wall "
               f"{prof['wall_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms, idle "
               f"share {prof['idle_share']:.4f} (of the median staged wall "
-              f"{prof['idle_share_of_median_wall']:.4f})")
+              f"{prof['idle_share_of_median_wall']:.4f}); device ms of "
+              f"each profiled update's spans {got['span_device_ms']}")
         print(json.dumps({"train": got, "model": ns.model,
                           "embedding": ns.embedding}))
     return 0

@@ -23,6 +23,10 @@ global norm sums the squares of the tensor-parallel shards over the model
 group and those of FSDP shards over the data group, and counts a
 replicated tensor once. The reported losses are summed over the data
 group: the global batch's.
+
+While a ``torch.profiler`` session is on, each update records its spans
+(utils/spans.py): ``update``, then ``micro_batch`` holding ``forward``
+and ``backward`` for each micro-batch, then ``optimizer``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from mmgl_tpu_torch.parallel.collectives import all_reduce, group_size
 from mmgl_tpu_torch.train.losses import (causal_losses,
                                          chunked_causal_losses, seq2seq_loss,
                                          vocab_argmax)
+from mmgl_tpu_torch.utils import spans
 
 
 def losses_of(out: Dict, decoder_only: bool, max_input_length: int,
@@ -148,20 +153,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     tp_layout = getattr(model, "tp_layout", {})
     tp_sharded = [names.get(id(p)) in tp_layout for p in params]
 
-    def step(batch: Dict, generator: Optional[torch.Generator] = None
-             ) -> Dict[str, torch.Tensor]:
-        model.train()
-        n = batch["input_ids"].shape[0]
-        if n % accum:
-            raise ValueError(f"a batch of {n} does not split into {accum} "
-                             "micro-batches")
-        micro = n // accum
-        sums = 0.0
-        for i in range(accum):
-            mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-            loss, s_loss = loss_fn(mb, generator)
-            (loss * n_data if n_data > 1 else loss).backward()
-            sums = sums + torch.stack([loss.detach(), s_loss.detach()])
+    def apply_gradients() -> torch.Tensor:
+        """Everything after the last backward; returns the gradients'
+        global norm before clipping."""
         for p in params:
             if p.grad is None:
                 # a trainable parameter the model declares off the gradient
@@ -195,11 +189,38 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         if fsdp:
             invalidate_kept_casts()
+        return grad_norm
+
+    def update(batch: Dict, generator: Optional[torch.Generator]
+               ) -> Dict[str, torch.Tensor]:
+        model.train()
+        n = batch["input_ids"].shape[0]
+        if n % accum:
+            raise ValueError(f"a batch of {n} does not split into {accum} "
+                             "micro-batches")
+        micro = n // accum
+        sums = 0.0
+        for i in range(accum):
+            with spans.span("micro_batch"):
+                mb = {k: v[i * micro:(i + 1) * micro]
+                      for k, v in batch.items()}
+                with spans.span("forward", device=True):
+                    loss, s_loss = loss_fn(mb, generator)
+                with spans.span("backward", device=True):
+                    (loss * n_data if n_data > 1 else loss).backward()
+                sums = sums + torch.stack([loss.detach(), s_loss.detach()])
+        with spans.span("optimizer", device=True):
+            grad_norm = apply_gradients()
         sums = sums / accum
         if meshed:
             all_reduce(sums, mesh.data_group)
         return {"loss": sums[0], "summary_loss": sums[1],
                 "grad_norm": grad_norm}
+
+    def step(batch: Dict, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        with spans.span("update", device=True, root=True):
+            return update(batch, generator)
 
     return step
 

@@ -155,7 +155,7 @@ def test_profile_dir_writes_a_trace_and_stops_where_the_jax_cli_stops(
     """--profile_dir: the trace starts before the first update of the first
     epoch and stops after update min(3, updates - 1) + 1 = 4 of 5, in both
     CLIs; the port's Chrome trace is written under --profile_dir and holds
-    the train step's host events."""
+    the train step's host events and the update's spans."""
     want = [("start", 0), ("stop", 4)]
     assert runs["jax"][1]["profile"] == want
     seen = runs["port"][1]
@@ -165,6 +165,7 @@ def test_profile_dir_writes_a_trace_and_stops_where_the_jax_cli_stops(
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names)
+    assert {"update", "forward", "backward", "optimizer"} <= names
     assert "[profile]" in runs["port"][2]
 
 
