@@ -20,6 +20,7 @@ returns NaN for every row of every text: a divergence kept on purpose.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -36,6 +37,17 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+@functools.lru_cache(maxsize=None)
+def _pixel_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CLIP's mean and std, float32 (3, 1, 1) on ``device``, made once a
+    device: each made from the Python tuple is a copy from pageable host
+    memory, which waits for the card's stream to drain. Shared by every
+    caller, who only reads them."""
+    return tuple(torch.tensor(c, dtype=torch.float32,
+                              device=device).reshape(3, 1, 1)
+                 for c in (CLIP_MEAN, CLIP_STD))
+
+
 def normalize_pixels(pixel_values: torch.Tensor,
                      valid: Optional[torch.Tensor] = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -44,10 +56,7 @@ def normalize_pixels(pixel_values: torch.Tensor,
     normalization, as the reference's zeros(3, 224, 224) placeholder."""
     if not torch.is_floating_point(pixel_values):
         x = pixel_values.to(torch.float32) / 255.0
-        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32,
-                            device=x.device).reshape(3, 1, 1)
-        std = torch.tensor(CLIP_STD, dtype=torch.float32,
-                           device=x.device).reshape(3, 1, 1)
+        mean, std = _pixel_stats(x.device)
         x = (x - mean) / std
     else:
         x = pixel_values.to(torch.float32)

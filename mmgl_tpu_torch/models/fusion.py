@@ -48,7 +48,8 @@ labels are the summary alone and are left as they are (fusion.py:308).
 
 Batches are the data layer's dicts of numpy arrays or tensors, with the same
 keys and shapes as the JAX package's; ``_as_tensor`` moves every field to
-the model's device (images as uint8, normalized there). A batch of the
+the model's device (images as uint8, normalized there), on a CUDA card
+through page-locked memory without a wait. A batch of the
 neighbour cache (data/neighbor_cache.py) carries the towers' pooled
 features (``neighbor_text_pooled``, ``neighbor_image_pooled``,
 ``images_pooled``) in place of the raw ids and pixels, and the towers do
@@ -192,9 +193,25 @@ class TextPooler(nn.Module):
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    """A batch field on ``device``. Bound for a CUDA card, a field in host
+    memory is staged in page-locked memory (PyTorch's caching host
+    allocator) and copied without a wait on the current stream: a copy
+    from pageable memory waits for the stream to drain, and the host loses
+    its lead on the card. The allocator reuses no staged block before its
+    copy has run, so the caller's array may change or go at once. A field
+    already on the card passes through; off the card the copy is plain."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
-    return x.to(device)
+    if device.type != "cuda" or x.device.type != "cpu":
+        return x.to(device)
+    try:
+        staged = x.pin_memory()
+    except RuntimeError:
+        # no page-locked memory left: this field's copy waits
+        spans.count("batch_copy_pageable", x)
+        return x.to(device)
+    spans.count("batch_copy_pinned", staged)
+    return staged.to(device, non_blocking=True)
 
 
 class MMGLModel(nn.Module):
@@ -433,7 +450,9 @@ class MMGLModel(nn.Module):
             inputs_embeds = inputs_embeds[:, :s]
             if labels is not None and cfg.decoder_only:
                 labels = torch.cat([labels, labels.new_zeros(b, 1)], dim=1)
-                labels[rows, pos] = IGNORE_INDEX
+                # a scalar made on the device: a Python one is copied
+                # from the host, which waits for the stream to drain
+                labels[rows, pos] = labels.new_full((), IGNORE_INDEX)
                 labels = labels[:, :s]
 
         if cfg.prompt_tuning:

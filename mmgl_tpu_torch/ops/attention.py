@@ -209,8 +209,9 @@ def multi_head_attention(
             raise ValueError("attention dropout needs a generator")
         seed = draw_dropout_seed(generator)
         if dropout_stream:
-            seed = seed + torch.tensor([0, dropout_stream],
-                                       device=seed.device)
+            # on the device: a tensor made from a list would be a copy
+            # from pageable memory, which waits for the stream
+            seed = torch.stack((seed[0], seed[1] + dropout_stream))
     route = attention_route(q.shape, k.shape,
                             pairwise_mask=pairwise_mask is not None,
                             bias=bias is not None, dropout=seed is not None,

@@ -30,7 +30,10 @@ and counters:
   device spans.
 - ``param_cast``: bytes written by each cast ``layers.cast_at_use``
   makes, a kept cast made again included; ``norm_cast``: bytes written by
-  the norm layers' input and output casts where the dtype changes.
+  the norm layers' input and output casts where the dtype changes;
+  ``batch_copy_pinned`` and ``batch_copy_pageable``: bytes of the batch's
+  fields copied to a CUDA card from page-locked memory without a wait,
+  and from pageable memory with one (``models/fusion.py``).
 """
 
 from __future__ import annotations
